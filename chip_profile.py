@@ -1,0 +1,114 @@
+#!/usr/bin/env python3
+"""Where a frame of the port's main path spends its time on one GPU.
+
+    python3 chip_profile.py [--frames N] [--top K]
+
+Builds the full atrium, renders it at 1920x1080, depth 4, 1 spp, sun&sky
+(the main path of ``chip_smoke.py``), times N unprofiled frames after two
+warm-up frames, then traces one more frame with ``torch.profiler``. It
+prints, for the traced frame:
+
+* wall: host clock around ``Renderer.step()`` + synchronize, profiled;
+* device busy: the union of the intervals of every device activity
+  (kernels, copies, sets) in the trace, in ms and as a share of wall;
+* launches: the number of device kernels, and how many distinct ones;
+* traversal: device ms and launches of the traversal kernel (all modes);
+* the top K device kernels by total time.
+"""
+
+import argparse
+import subprocess
+import sys
+import time
+
+import torch
+
+TRAVERSE = "traverse_kernel"
+
+
+def device_events(prof):
+    """The trace's device activities as (name, start_us, end_us)."""
+    dev = torch.autograd.DeviceType.CUDA
+    return [
+        (e.name, e.time_range.start, e.time_range.end)
+        for e in prof.events()
+        if e.device_type == dev
+    ]
+
+
+def busy_us(events) -> float:
+    """Length of the union of the events' intervals."""
+    total, end = 0.0, float("-inf")
+    for _, s, e in sorted(events, key=lambda x: x[1]):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=3, help="unprofiled timed frames")
+    ap.add_argument("--top", type=int, default=20, help="kernels listed by device time")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("CUDA is not available: this script needs an NVIDIA GPU")
+    from vk_raytrace_torch import render as R
+    from vk_raytrace_torch.models import procedural
+    from vk_raytrace_torch.models.schema import PBR_GLTF, RenderConfig
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    geom, mats, lights, cam, atlas = procedural.atrium_scene()
+    scene = R.build_scene(geom, mats, lights, cam, atlas=atlas)
+    cfg = RenderConfig(width=1920, height=1080, max_depth=4, max_samples=1, pbr_mode=PBR_GLTF,
+                       firefly_clamp=10.0, use_sun_sky=True)
+    r = R.Renderer(scene, cfg, device=dev)
+    for _ in range(2):
+        r.step()
+    torch.cuda.synchronize()
+    frames = []
+    for _ in range(args.frames):
+        t0 = time.perf_counter()
+        r.step()
+        torch.cuda.synchronize()
+        frames.append(time.perf_counter() - t0)
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        r.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = device_events(prof)
+    if not events:
+        raise SystemExit("the trace holds no device activity")
+    busy = busy_us(events) / 1e3
+    kernels = [ev for ev in events if not ev[0].startswith(("Memcpy", "Memset"))]
+    trav = [ev for ev in kernels if TRAVERSE in ev[0]]
+    per_name = {}
+    for name, s, e in kernels:
+        tot, cnt = per_name.get(name, (0.0, 0))
+        per_name[name] = (tot + (e - s) / 1e3, cnt + 1)
+
+    print(f"card: {card}")
+    print(f"unprofiled frames (s): {frames}; rays/frame {r.last_rays}")
+    print(f"profiled frame: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / (wall * 1e3):.1f}%)")
+    print(f"launches: {len(kernels)} kernels, {len(per_name)} distinct; "
+          f"device activities {len(events)}")
+    print(f"traversal: {sum(e - s for _, s, e in trav) / 1e3:.3f} ms in {len(trav)} launches")
+    print(f"top {args.top} kernels by device ms:")
+    for name, (ms, cnt) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[: args.top]:
+        print(f"  {ms:9.3f} ms {cnt:7d}x  {name[:110]}")
+    sys.stdout.flush()
+
+
+if __name__ == "__main__":
+    main()

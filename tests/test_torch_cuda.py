@@ -1,0 +1,112 @@
+"""Card-only checks of the port (skip without CUDA). They import no JAX, so
+they also run on a machine without it:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+The traversal kernel against its plain twin (CPU) for modes a/b/c on the
+reduced atrium with banners, and the render slice on the card against the
+CPU. Kernel vs twin: same float32 operations in the same order, rounded
+per operation (nvcc -fmad=false), so ``tri`` and the hit masks are equal
+and t within rtol 1e-5. Render: CUDA and CPU transcendentals round
+differently, so 99% of pixels within rtol 1e-3 / atol 1e-4 and ray counts
+within 0.1%, as in ``tests/test_torch_render.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vk_raytrace_torch import render as R
+from vk_raytrace_torch.models import procedural
+from vk_raytrace_torch.models.schema import PBR_GLTF, RenderConfig
+from vk_raytrace_torch.ops import traverse_fused as tf
+from vk_raytrace_torch.ops.bvh8 import build_accel_bundle
+
+SMALL_ATRIUM = dict(bays_x=3, bays_z=2, column_segments=16, column_rows=12)
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return procedural.atrium_scene(**SMALL_ATRIUM)
+
+
+def _rays(seed, geom, n, alpha):
+    rng = np.random.default_rng(seed)
+    pos = np.asarray(geom.positions)
+    lo, hi = pos.min(0), pos.max(0)
+    o = rng.uniform(lo + 0.1 * (hi - lo), hi - 0.1 * (hi - lo), (n, 3))
+    if alpha:
+        ids = np.where(np.asarray(geom.tri_flags) & 2)[0]
+        p = pos[np.asarray(geom.indices)[rng.choice(ids, n)]]
+        d = np.einsum("rk,rkc->rc", rng.dirichlet(np.ones(3), n), p) - o
+    else:
+        d = rng.standard_normal((n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.tensor(o, dtype=torch.float32), torch.tensor(d, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("mode", tf.MODES)
+def test_kernel_matches_twin(scene, mode):
+    _need_cuda()
+    geom = scene[0]
+    bundle = build_accel_bundle(geom)
+    planar = bundle.alpha_planar if mode == "candidate" else bundle.opaque_planar
+    n = 4099
+    o, d = _rays(3, geom, n, alpha=mode == "candidate")
+    rng = np.random.default_rng(4)
+    t_max = torch.tensor(rng.uniform(0.5, 30.0, n), dtype=torch.float32)
+    active = torch.tensor(rng.random(n) < 0.9)
+    cull = mode != "any"
+    twin = tf.traverse(planar.to("cpu"), o, d, t_max, active, mode=mode, cull=cull)
+    before = tf.LAUNCHES[mode]
+    kern = tf.traverse(planar.to("cuda"), o.cuda(), d.cuda(), t_max.cuda(), active.cuda(),
+                       mode=mode, cull=cull)
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES[mode] == before + 1
+    k = [None if x is None else x.cpu().numpy() for x in kern]
+    p = [None if x is None else x.numpy() for x in twin]
+    np.testing.assert_array_equal(k[1], p[1])
+    np.testing.assert_allclose(k[0], p[0], rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(k[4], p[4])  # identical node visits
+    if mode == "candidate":
+        np.testing.assert_allclose(k[5], p[5], rtol=1e-5, atol=1e-6)
+    assert 0.05 < (p[1] >= 0).mean() < 0.99
+
+
+def test_kernel_rejects_bad_input(scene):
+    _need_cuda()
+    planar = build_accel_bundle(scene[0]).opaque_planar.to("cuda")
+    o = torch.zeros(8, 3, device="cuda")
+    d = torch.ones(3, 8, device="cuda").t()  # not contiguous
+    with pytest.raises(ValueError):
+        tf.traverse(planar, o, d, torch.ones(8, device="cuda"))
+    with pytest.raises(ValueError):
+        tf.traverse(planar, o.double(), o, torch.ones(8, device="cuda"))
+    good = torch.ones(8, 3, device="cuda")
+    for mode, cull in (("closest", False), ("any", True)):  # pairs the kernel lacks
+        with pytest.raises(ValueError):
+            tf.traverse(planar, o, good, torch.ones(8, device="cuda"), mode=mode, cull=cull)
+
+
+def test_render_slice_cuda_matches_cpu(scene):
+    _need_cuda()
+    g, m, l, c, a = scene
+    small = R.build_scene(g, m, l, c, atlas=a)
+    cfg = RenderConfig(width=64, height=48, max_depth=4, pbr_mode=PBR_GLTF,
+                       firefly_clamp=10.0, use_sun_sky=True)
+    small, run_cfg = R.prepare_sun_sky(small, cfg, "cpu")  # one env for both
+    acc = build_accel_bundle(small.geometry)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        r = R.Renderer(small, run_cfg, device=dev, packed=acc)
+        r.step()
+        r.step()
+        out[dev] = (r.accum.cpu().numpy(), r.last_rays)
+    share = np.isclose(out["cuda"][0], out["cpu"][0], rtol=1e-3, atol=1e-4).all(-1).mean()
+    assert share >= 0.99, share
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-3 * out["cpu"][1]

@@ -1,0 +1,352 @@
+"""Procedural scenes (counterpart of ``vk_raytrace_tpu/models/procedural.py``).
+
+The Cornell box for small tests and the atrium, the renderer's full-size
+workload: two stories of fluted columns, tessellated slabs and walls,
+alpha-cutout banners and textured glTF PBR (~217k triangles at defaults).
+Pure numpy with the reference's seeds, so every array is byte-identical.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .builder import GeometryBuilder
+from .schema import ALPHA_MASK, LIGHT_POINT, Camera, make_lights, make_materials
+
+
+def _quad(a, b, c, d):
+    """Two CCW triangles for quad a-b-c-d."""
+    verts = np.array([a, b, c, d], np.float64)
+    idx = np.array([[0, 1, 2], [0, 2, 3]], np.int64)
+    return verts, idx
+
+
+def _box(center, size):
+    """Axis-aligned box, outward-facing quads."""
+    cx, cy, cz = center
+    sx, sy, sz = np.asarray(size) / 2.0
+    quads = [
+        [[cx + sx, cy - sy, cz - sz], [cx + sx, cy + sy, cz - sz], [cx + sx, cy + sy, cz + sz], [cx + sx, cy - sy, cz + sz]],
+        [[cx - sx, cy - sy, cz + sz], [cx - sx, cy + sy, cz + sz], [cx - sx, cy + sy, cz - sz], [cx - sx, cy - sy, cz - sz]],
+        [[cx - sx, cy + sy, cz - sz], [cx - sx, cy + sy, cz + sz], [cx + sx, cy + sy, cz + sz], [cx + sx, cy + sy, cz - sz]],
+        [[cx - sx, cy - sy, cz + sz], [cx - sx, cy - sy, cz - sz], [cx + sx, cy - sy, cz - sz], [cx + sx, cy - sy, cz + sz]],
+        [[cx - sx, cy - sy, cz + sz], [cx + sx, cy - sy, cz + sz], [cx + sx, cy + sy, cz + sz], [cx - sx, cy + sy, cz + sz]],
+        [[cx - sx, cy + sy, cz - sz], [cx + sx, cy + sy, cz - sz], [cx + sx, cy - sy, cz - sz], [cx - sx, cy - sy, cz - sz]],
+    ]
+    v, f = [], []
+    for k, q in enumerate(quads):
+        verts, idx = _quad(*q)
+        v.append(verts)
+        f.append(idx + 4 * k)
+    return np.concatenate(v), np.concatenate(f)
+
+
+def look_at_camera(
+    eye, center, up, fov_deg: float, aspect: float,
+    focal_dist: float = 0.0, aperture: float = 0.0,
+) -> Camera:
+    """viewInverse/projInverse for the ray generator (pathtrace.glsl:360-363)."""
+    eye = np.asarray(eye, np.float64)
+    center = np.asarray(center, np.float64)
+    up = np.asarray(up, np.float64)
+    f = center - eye
+    f /= np.linalg.norm(f)
+    s = np.cross(f, up)
+    s /= np.linalg.norm(s)
+    u = np.cross(s, f)
+    view = np.eye(4)
+    view[0, :3] = s
+    view[1, :3] = u
+    view[2, :3] = -f
+    view[:3, 3] = -view[:3, :3] @ eye
+
+    fy = 1.0 / np.tan(np.deg2rad(fov_deg) / 2.0)
+    near, far = 0.1, 1000.0
+    proj = np.zeros((4, 4))
+    proj[0, 0] = fy / aspect
+    proj[1, 1] = -fy  # Vulkan clip space: y down
+    proj[2, 2] = far / (near - far)
+    proj[2, 3] = (far * near) / (near - far)
+    proj[3, 2] = -1.0
+    if focal_dist <= 0.0:
+        focal_dist = float(np.linalg.norm(center - eye))
+    return Camera(
+        view_inverse=np.linalg.inv(view).astype(np.float32),
+        proj_inverse=np.linalg.inv(proj).astype(np.float32),
+        focal_dist=np.float32(focal_dist),
+        aperture=np.float32(aperture),
+    )
+
+
+def cornell_box(light_intensity: float = 40.0):
+    """White/red/green box, two blocks, one point light.
+    Returns (geometry, materials, lights, camera)."""
+    white = dict(base_color_factor=[0.73, 0.73, 0.73, 1.0], metallic_factor=0.0, roughness_factor=1.0)
+    red = dict(base_color_factor=[0.65, 0.05, 0.05, 1.0], metallic_factor=0.0, roughness_factor=1.0)
+    green = dict(base_color_factor=[0.12, 0.45, 0.15, 1.0], metallic_factor=0.0, roughness_factor=1.0)
+    mats = make_materials([white, red, green])
+
+    g = GeometryBuilder()
+    s = 5.0
+    walls = [
+        (_quad([-s, 0, -s], [-s, 0, s], [s, 0, s], [s, 0, -s]), 0),
+        (_quad([-s, 2 * s, -s], [s, 2 * s, -s], [s, 2 * s, s], [-s, 2 * s, s]), 0),
+        (_quad([-s, 0, -s], [s, 0, -s], [s, 2 * s, -s], [-s, 2 * s, -s]), 0),
+        (_quad([-s, 0, s], [-s, 0, -s], [-s, 2 * s, -s], [-s, 2 * s, s]), 1),
+        (_quad([s, 0, -s], [s, 0, s], [s, 2 * s, s], [s, 2 * s, -s]), 2),
+    ]
+    for (v, i), m in walls:
+        g.add_mesh(v, i, m)
+    bv, bi = _box([-1.9, 3.0, -1.7], [3.0, 6.0, 3.0])
+    g.add_mesh(bv, bi, 0)
+    bv, bi = _box([2.0, 1.5, 1.6], [3.0, 3.0, 3.0])
+    g.add_mesh(bv, bi, 0)
+
+    lights = make_lights([
+        dict(type=LIGHT_POINT, position=[0.0, 9.6, 0.0], color=[1.0, 1.0, 1.0],
+             intensity=light_intensity, range=0.0),
+    ])
+    cam = look_at_camera(
+        eye=[0.0, 5.0, 24.0], center=[0.0, 5.0, 0.0], up=[0, 1, 0],
+        fov_deg=40.0, aspect=1.0,
+    )
+    return g.build(), mats, lights, cam
+
+
+def _grid_mesh(nx: int, ny: int):
+    """Triangles of an (nx+1) x (ny+1) vertex grid."""
+    jj, ii = np.meshgrid(np.arange(nx + 1), np.arange(ny + 1))
+    stride = nx + 1
+    a = (ii[:-1, :-1] * stride + jj[:-1, :-1]).ravel()
+    b = a + 1
+    c = a + stride
+    d = c + 1
+    return np.concatenate(
+        [np.stack([a, c, b], 1), np.stack([b, c, d], 1)], axis=0
+    ).astype(np.int64)
+
+
+def _lathe(profile_y, profile_r, n_seg: int, fluting: float = 0.0, flutes: int = 20):
+    """Surface of revolution around +y with optional cosine fluting.
+    Returns (verts, idx, uv)."""
+    profile_y = np.asarray(profile_y, np.float64)
+    profile_r = np.asarray(profile_r, np.float64)
+    theta = np.linspace(0.0, 2.0 * np.pi, n_seg + 1)
+    r = profile_r[:, None] * (1.0 + fluting * np.cos(flutes * theta)[None, :])
+    x = r * np.cos(theta)[None, :]
+    z = r * np.sin(theta)[None, :]
+    y = np.broadcast_to(profile_y[:, None], r.shape)
+    verts = np.stack([x, y, z], axis=-1).reshape(-1, 3)
+    u = np.broadcast_to(theta[None, :] / (2 * np.pi), r.shape)
+    vv = np.broadcast_to(
+        ((profile_y - profile_y.min()) / max(np.ptp(profile_y), 1e-9))[:, None],
+        r.shape,
+    )
+    uv = np.stack([u, vv], axis=-1).reshape(-1, 2)
+    return verts, _grid_mesh(n_seg, len(profile_y) - 1), uv
+
+
+def _bilerp_upsample(g: np.ndarray, h: int, w: int) -> np.ndarray:
+    gh, gw = g.shape
+    y = np.linspace(0, gh - 1, h)
+    x = np.linspace(0, gw - 1, w)
+    y0 = np.floor(y).astype(int)
+    x0 = np.floor(x).astype(int)
+    y1 = np.minimum(y0 + 1, gh - 1)
+    x1 = np.minimum(x0 + 1, gw - 1)
+    fy = (y - y0)[:, None]
+    fx = (x - x0)[None, :]
+    return (
+        g[np.ix_(y0, x0)] * (1 - fy) * (1 - fx)
+        + g[np.ix_(y0, x1)] * (1 - fy) * fx
+        + g[np.ix_(y1, x0)] * fy * (1 - fx)
+        + g[np.ix_(y1, x1)] * fy * fx
+    )
+
+
+def _value_noise(h: int, w: int, seed: int = 0, octaves: int = 5) -> np.ndarray:
+    """[0,1] multi-octave value noise."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros((h, w), np.float64)
+    amp, total = 1.0, 0.0
+    for o in range(octaves):
+        gh = max(2, min(h, 4 << o))
+        gw = max(2, min(w, 4 << o))
+        out += amp * _bilerp_upsample(rng.random((gh, gw)), h, w)
+        total += amp
+        amp *= 0.55
+    return (out / total).astype(np.float32)
+
+
+def _rgba(rgb: np.ndarray, alpha: np.ndarray | None = None) -> np.ndarray:
+    a = (
+        np.full(rgb.shape[:2] + (1,), 255, np.uint8)
+        if alpha is None
+        else (np.clip(alpha, 0, 1)[..., None] * 255).astype(np.uint8)
+    )
+    return np.concatenate([(np.clip(rgb, 0, 1) * 255).astype(np.uint8), a], axis=-1)
+
+
+def _tex_stone(size: int, seed: int, tint=(0.75, 0.70, 0.62)) -> np.ndarray:
+    v = 0.65 + 0.35 * _value_noise(size, size, seed)
+    return _rgba(np.stack([v * tint[0], v * tint[1], v * tint[2]], axis=-1))
+
+
+def _tex_floor(size: int, seed: int, tiles: int = 10) -> np.ndarray:
+    yy, xx = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+    checker = ((yy * tiles // size + xx * tiles // size) % 2).astype(np.float64)
+    n = _value_noise(size, size, seed)
+    v = (0.35 + 0.4 * checker) * (0.8 + 0.25 * n)
+    return _rgba(np.stack([v, v * 0.97, v * 0.9], axis=-1))
+
+
+def _tex_banner(size: int, seed: int, color=(0.55, 0.12, 0.10)) -> np.ndarray:
+    """Cloth with noise-carved holes and a ragged hem (alpha cutout)."""
+    n = _value_noise(size, size, seed)
+    yy = np.linspace(0, 1, size)[:, None] * np.ones((1, size))
+    alpha = ((n > 0.32) | (yy < 0.75)).astype(np.float64)
+    hem = 0.82 + 0.15 * _value_noise(1, size, seed + 1)[0]
+    alpha *= (yy < hem[None, :]).astype(np.float64)
+    shade = 0.7 + 0.3 * _value_noise(size, size, seed + 2)
+    rgb = np.stack([shade * color[0], shade * color[1], shade * color[2]], axis=-1)
+    return _rgba(rgb, alpha)
+
+
+def atrium_scene(
+    bays_x: int = 7,
+    bays_z: int = 4,
+    column_segments: int = 80,
+    column_rows: int = 30,
+    with_banners: bool = True,
+):
+    """Sponza-class courtyard (the renderer's bench workload).
+    Returns (geometry, materials, lights, camera, atlas)."""
+    from .textures import AtlasBuilder
+
+    atlas = AtlasBuilder()
+    t_stone = atlas.add(_tex_stone(512, 11), {})
+    t_floor = atlas.add(_tex_floor(1024, 12), {})
+    t_banner = atlas.add(_tex_banner(512, 13), {})
+    t_wall = atlas.add(_tex_stone(512, 14, tint=(0.78, 0.72, 0.60)), {})
+
+    rows = [
+        dict(base_color_factor=[1, 1, 1, 1], roughness_factor=0.85,
+             metallic_factor=0.0, base_color_texture=t_stone),
+        dict(base_color_factor=[1, 1, 1, 1], roughness_factor=0.45,
+             metallic_factor=0.0, base_color_texture=t_floor),
+        dict(base_color_factor=[1, 1, 1, 1], roughness_factor=0.9,
+             metallic_factor=0.0, base_color_texture=t_banner,
+             alpha_mode=ALPHA_MASK, alpha_cutoff=0.5, double_sided=1),
+        dict(base_color_factor=[1, 1, 1, 1], roughness_factor=0.95,
+             metallic_factor=0.0, base_color_texture=t_wall),
+        dict(base_color_factor=[0.6, 0.55, 0.45, 1.0], roughness_factor=0.4,
+             metallic_factor=0.6),
+    ]
+
+    g = GeometryBuilder()
+    bay = 4.0
+    ex, ez = bays_x * bay / 2, bays_z * bay / 2
+    story_h = 6.0
+
+    shaft = np.linspace(0.9, story_h - 0.9, column_rows - 8)
+    prof_y = np.concatenate([
+        [0.0, 0.25, 0.6, 0.9], shaft,
+        [story_h - 0.9, story_h - 0.55, story_h - 0.2, story_h],
+    ])
+    prof_r = np.concatenate([
+        [0.55, 0.55, 0.42, 0.34], np.full(len(shaft), 0.32),
+        [0.34, 0.44, 0.52, 0.52],
+    ])
+    cv, ci, cuv = _lathe(prof_y, prof_r, column_segments, fluting=0.06, flutes=20)
+
+    xs = [(-ex + i * bay) for i in range(bays_x + 1)]
+    zs = [(-ez + j * bay) for j in range(bays_z + 1)]
+    col_pts = [(x, -ez) for x in xs] + [(x, ez) for x in xs]
+    col_pts += [(-ex, z) for z in zs[1:-1]] + [(ex, z) for z in zs[1:-1]]
+    for story in range(2):
+        y0 = story * (story_h + 0.6)
+        for (x, z) in col_pts:
+            tr = np.eye(4)
+            tr[:3, 3] = [x, y0, z]
+            g.add_mesh(cv, ci, 0, uv=cuv, transform=tr)
+
+    def slab(x0, z0, x1, z1, y, nx, nz, mat, uv_scale):
+        gx = np.linspace(x0, x1, nx + 1)
+        gz = np.linspace(z0, z1, nz + 1)
+        zz, xx = np.meshgrid(gz, gx, indexing="ij")
+        verts = np.stack([xx, np.full_like(xx, y), zz], -1).reshape(-1, 3)
+        uv = np.stack(
+            [
+                (xx - x0) / max(x1 - x0, 1e-9) * uv_scale,
+                (zz - z0) / max(z1 - z0, 1e-9) * uv_scale,
+            ],
+            -1,
+        ).reshape(-1, 2)
+        g.add_mesh(verts, _grid_mesh(nx, nz), mat, uv=uv)
+
+    m = 1.6  # margin outside the colonnade
+    slab(-ex - m, -ez - m, ex + m, ez + m, 0.0, 64, 40, 1, 8.0)
+    wy = story_h + 0.3
+    slab(-ex - m, -ez - m, ex + m, -ez + 1.2, wy, 48, 6, 3, 4.0)
+    slab(-ex - m, ez - 1.2, ex + m, ez + m, wy, 48, 6, 3, 4.0)
+    slab(-ex - m, -ez + 1.2, -ex + 1.2, ez - 1.2, wy, 6, 32, 3, 4.0)
+    slab(ex - 1.2, -ez + 1.2, ex + m, ez - 1.2, wy, 6, 32, 3, 4.0)
+    slab(-ex - m, -ez - m, ex + m, ez + m, 2 * story_h + 1.2, 48, 32, 3, 6.0)
+
+    wh = 2 * story_h + 1.2
+    for (a, b) in [
+        ([-ex - m, 0, -ez - m], [ex + m, 0, -ez - m]),
+        ([ex + m, 0, -ez - m], [ex + m, 0, ez + m]),
+        ([ex + m, 0, ez + m], [-ex - m, 0, ez + m]),
+        ([-ex - m, 0, ez + m], [-ex - m, 0, -ez - m]),
+    ]:
+        v0 = np.asarray(a, np.float64)
+        v1 = np.asarray(b, np.float64)
+        verts = np.stack([v0, v1, v1 + [0, wh, 0], v0 + [0, wh, 0]])
+        uv = np.asarray([[0, 0], [6, 0], [6, 2], [0, 2]], np.float64)
+        g.add_mesh(verts, np.asarray([[0, 1, 2], [0, 2, 3]]), 3, uv=uv)
+
+    for story in range(2):
+        y0 = story * (story_h + 0.6) + story_h
+        for (x0, z0, sx, sz) in [
+            (0, -ez, 2 * ex + 1.0, 0.8),
+            (0, ez, 2 * ex + 1.0, 0.8),
+            (-ex, 0, 0.8, 2 * ez + 1.0),
+            (ex, 0, 0.8, 2 * ez + 1.0),
+        ]:
+            bv, bi = _box([x0, y0 + 0.3, z0], [sx, 0.6, sz])
+            g.add_mesh(bv, bi, 4)
+
+    if with_banners:
+        rng = np.random.default_rng(5)
+        for i in range(bays_x):
+            for side in (-1, 1):
+                if rng.uniform() < 0.5:
+                    continue
+                x = -ex + (i + 0.5) * bay
+                z = side * (ez - 0.9)
+                nxg, nyg = 12, 16
+                gx = np.linspace(-0.9, 0.9, nxg + 1)
+                gy = np.linspace(0.0, -2.6, nyg + 1)
+                yy, xx = np.meshgrid(gy, gx, indexing="ij")
+                ripple = 0.12 * np.sin(xx * 4.0 + yy * 2.0)
+                verts = np.stack(
+                    [xx + x, yy + wy - 0.1, np.full_like(xx, z) + ripple], -1
+                ).reshape(-1, 3)
+                uv = np.stack([(xx + 0.9) / 1.8, -yy / 2.6], -1).reshape(-1, 2)
+                g.add_mesh(
+                    verts, _grid_mesh(nxg, nyg), 2, uv=uv,
+                    double_sided=True, alpha_mode=ALPHA_MASK,
+                )
+
+    mats = make_materials(rows)
+    lights = make_lights([
+        dict(type=LIGHT_POINT, position=[0.0, wh - 1.0, 0.0], intensity=1500.0),
+        dict(type=LIGHT_POINT, position=[-ex * 0.6, story_h, 0.0], intensity=400.0),
+        dict(type=LIGHT_POINT, position=[ex * 0.6, story_h, 0.0], intensity=400.0),
+    ])
+    cam = look_at_camera(
+        eye=[-ex + 1.5, 2.2, -ez + 2.5], center=[ex * 0.5, 3.5, ez * 0.4],
+        up=[0, 1, 0], fov_deg=60.0, aspect=16 / 9,
+    )
+    return g.build(), mats, lights, cam, atlas.build()

@@ -1,0 +1,418 @@
+"""BVH traversal over 16-wide planar rows: the CUDA kernel and its plain twin.
+
+Counterpart of ``vk_raytrace_tpu/ops/traverse_fused.py``. The TPU kernel
+(``_make_step_kernel``, launched once per traversal step) becomes
+``csrc/traverse.cu``: one launch per traversal, one thread per ray looping
+to termination with a full-depth stack. The kernel is bound by dependent
+512-byte row reads and divergence, not arithmetic.
+
+Three modes run on the main path:
+
+* ``closest`` (a): nearest hit with backface culling by the double-sided
+  flag — primary and bounce rays over the opaque tree;
+* ``any`` (b): first accepted hit within ``t_max``, no culling — shadow rays;
+* ``candidate`` (c): nearest alpha-flagged hit plus its interpolated texture
+  UV, over the alpha tree (``ops/traverse_alpha.py``).
+
+:func:`traverse` dispatches on the tensors' device: CPU tensors run
+:func:`_traverse_plain` (vectorised torch over all rays), CUDA tensors launch
+the kernel or raise. :data:`LAUNCHES` counts kernel launches per mode.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import os
+import subprocess
+from typing import NamedTuple
+
+import torch
+
+TERM = -(2**30)
+INF = 1e32
+MODES = ("closest", "any", "candidate")
+_MODE_ID = {m: i for i, m in enumerate(MODES)}
+# The (mode, cull) pairs the kernel instantiates: closest hit always culls,
+# any hit never does, candidates either way.
+_MODE_CULL = {("closest", True), ("any", False), ("candidate", True), ("candidate", False)}
+
+# Kernel launches per mode, counted where the wrapper launches.
+LAUNCHES = {m: 0 for m in MODES}
+
+
+def reset_launches() -> None:
+    for m in MODES:
+        LAUNCHES[m] = 0
+
+
+@dataclasses.dataclass
+class PlanarScene:
+    """Planar row table: ``rows`` (X, width*8) f32; ``stack_depth`` is the
+    tree's exact worst-case traversal stack need."""
+
+    rows: object
+    stack_depth: int
+    width: int = 16
+
+    def to(self, device) -> "PlanarScene":
+        from ..models.schema import to_tensor
+
+        return dataclasses.replace(self, rows=to_tensor(self.rows, device))
+
+
+class Hit(NamedTuple):
+    t: torch.Tensor      # (R,) f32, INF on miss
+    tri: torch.Tensor    # (R,) int64 original triangle id, -1 on miss
+    u: torch.Tensor      # (R,) f32 barycentric of vertex 1
+    v: torch.Tensor      # (R,) f32 barycentric of vertex 2
+    steps: torch.Tensor  # (R,) int32 nodes visited
+
+
+def inv_dir(d: torch.Tensor) -> torch.Tensor:
+    """Guarded reciprocal direction: |d| < 1e-20 -> +-1e-20."""
+    tiny = torch.where(d < 0, -1e-20, 1e-20).to(d.dtype)
+    return 1.0 / torch.where(torch.abs(d) < 1e-20, tiny, d)
+
+
+def _root_boxes(rows, W):
+    rb = rows[0]
+    valid = rb[0:W] <= rb[3 * W:4 * W]
+    bmin = torch.stack([rb[0:W], rb[W:2 * W], rb[2 * W:3 * W]], dim=-1)
+    bmax = torch.stack([rb[3 * W:4 * W], rb[4 * W:5 * W], rb[5 * W:6 * W]], dim=-1)
+    return valid, bmin, bmax
+
+
+def _slab(lo_b, hi_b, origin, inv_d):
+    lo = (lo_b - origin) * inv_d
+    hi = (hi_b - origin) * inv_d
+    tn = torch.amax(torch.minimum(lo, hi), dim=-1)
+    tf = torch.amin(torch.maximum(lo, hi), dim=-1)
+    return tn, tf
+
+
+def root_prefilter(planar: PlanarScene, origin, direction, t_max) -> torch.Tensor:
+    """Per-child slab test against the root row: which rays can hit the
+    tree within (0, t_max) (``traverse_fused.py:575``)."""
+    W = planar.width
+    valid, bmin, bmax = _root_boxes(planar.rows, W)
+    tn, tf = _slab(bmin[None], bmax[None], origin[:, None, :], inv_dir(direction)[:, None, :])
+    hit = valid[None] & (tn <= tf) & (tf >= 0.0) & (tn < t_max[:, None])
+    return torch.any(hit, dim=1)
+
+
+def _root_union_hit(rows, W, origin, inv_d, t_max):
+    """Ray setup: slab test against the union box of the valid root children."""
+    valid, bmin, bmax = _root_boxes(rows, W)
+    big = 3.0e38
+    rmin = torch.where(valid[:, None], bmin, big).amin(dim=0)
+    rmax = torch.where(valid[:, None], bmax, -big).amax(dim=0)
+    tn0, tf0 = _slab(rmin[None], rmax[None], origin, inv_d)
+    return (tn0 <= tf0) & (tf0 >= 0.0) & (tn0 < t_max)
+
+
+def _minfold(cols):
+    """Tournament min over the leaf lanes (dim 1) in the reference's fold
+    order; a lane keeps its entry unless the partner's t is strictly less.
+    ``cols[0]`` is t; the rest ride along. Returns lane 0 of each."""
+    k = cols[0].shape[1] // 2
+    while k >= 1:
+        rolled = [torch.roll(c, -k, dims=1) for c in cols]
+        take = rolled[0] < cols[0]
+        cols = [torch.where(take, r, c) for r, c in zip(rolled, cols)]
+        k //= 2
+    return [c[:, 0] for c in cols]
+
+
+def _traverse_plain(
+    planar: PlanarScene, origin, direction, t_max, active, mode: str, cull: bool
+):
+    """Plain torch twin of the kernel: every step advances all live rays by
+    one node, with an (R, D) stack, ``torch.sort`` for the child order and
+    gathered rows. Returns (t, tri, u, v, steps, uvu, uvv)."""
+    rows = planar.rows
+    W = planar.width
+    LT = W // 2
+    CB = LT.bit_length() - 1
+    dev = origin.device
+    R = origin.shape[0]
+    cand = mode == "candidate"
+    inv_d = inv_dir(direction)
+
+    cur = torch.where(_root_union_hit(rows, W, origin, inv_d, t_max), 0, TERM).long()
+    if active is not None:
+        cur = torch.where(active, cur, TERM)
+    t_best = t_max.clone()
+    tri = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    u = torch.zeros(R, device=dev)
+    v = torch.zeros(R, device=dev)
+    c_t = t_max.clone()
+    c_tri = tri.clone()
+    c_u, c_v, c_uvu, c_uvv = (torch.zeros(R, device=dev) for _ in range(4))
+    steps = torch.zeros(R, dtype=torch.int32, device=dev)
+    D = max(planar.stack_depth, 1)
+    stack = torch.zeros((R, D + W), dtype=torch.int64, device=dev)
+    depth = torch.zeros(R, dtype=torch.int64, device=dev)
+    lane = torch.arange(LT, device=dev)
+
+    while True:
+        act = torch.nonzero(cur != TERM).squeeze(1)
+        if act.numel() == 0:
+            break
+        c = cur[act]
+        steps[act] += 1
+        o, dd, iv = origin[act], direction[act], inv_d[act]
+        tb = t_best[act]
+        ct = c_t[act]
+        t_prune = torch.minimum(tb, ct) if cand else tb
+        is_wide = c >= 0
+        vleaf = -c - 1
+        row = rows[torch.where(is_wide, c, vleaf >> CB)]
+        dep = depth[act]
+        nxt = torch.full_like(c, TERM)
+        need_pop = ~is_wide
+
+        # ---- interior: W-way slab test, stable sort of the hit children
+        wi = torch.nonzero(is_wide).squeeze(1)
+        if wi.numel():
+            rw = row[wi]
+            bmin = rw[:, 0:3 * W].reshape(-1, 3, W).transpose(1, 2)
+            bmax = rw[:, 3 * W:6 * W].reshape(-1, 3, W).transpose(1, 2)
+            tn, tf = _slab(bmin, bmax, o[wi][:, None, :], iv[wi][:, None, :])
+            hit = (bmin[..., 0] <= bmax[..., 0]) & (tn <= tf) & (tf >= 0.0) & (
+                tn < t_prune[wi][:, None]
+            )
+            key = torch.where(hit, tn, INF)
+            skey, order = torch.sort(key, dim=1, stable=True)
+            sref = torch.gather(rw[:, 6 * W:7 * W], 1, order).long()
+            n_valid = (skey < INF).sum(dim=1)
+            has = n_valid > 0
+            # push sorted children 1..n-1 far-to-near above the current depth
+            d0 = dep[wi]
+            for k in range(1, W):
+                sel = n_valid - 1 >= k
+                if not bool(sel.any()):
+                    break
+                rows_k = act[wi[sel]]
+                stack[rows_k, d0[sel] + (n_valid[sel] - 1 - k)] = sref[sel, k]
+            dep_w = d0 + torch.where(has, n_valid - 1, 0)
+            depth[act[wi]] = dep_w
+            dep[wi] = dep_w
+            nxt[wi] = torch.where(has, sref[:, 0], TERM)
+            need_pop[wi] = ~has
+
+        # ---- leaf: LT triangles, Moller-Trumbore, tournament min ---------
+        li = torch.nonzero(~is_wide).squeeze(1)
+        found = torch.zeros_like(is_wide)
+        if li.numel():
+            rl = row[li]
+            a = lambda k: rl[:, k * LT:(k + 1) * LT]
+            ol, dl = o[li], dd[li]
+            ox, oy, oz = ol[:, 0:1], ol[:, 1:2], ol[:, 2:3]
+            dx, dy, dz = dl[:, 0:1], dl[:, 1:2], dl[:, 2:3]
+            p0x, p0y, p0z = a(0), a(1), a(2)
+            e1x, e1y, e1z = a(3) - p0x, a(4) - p0y, a(5) - p0z
+            e2x, e2y, e2z = a(6) - p0x, a(7) - p0y, a(8) - p0z
+            tmeta = a(15).long()
+            orig = tmeta >> 2
+            flags = tmeta & 3
+            pvx = dy * e2z - dz * e2y
+            pvy = dz * e2x - dx * e2z
+            pvz = dx * e2y - dy * e2x
+            det = e1x * pvx + e1y * pvy + e1z * pvz
+            det_ok = torch.abs(det) > 1e-12
+            facing = ((flags & 1) != 0) | (det > 1e-12) if cull else det_ok
+            inv_det = 1.0 / torch.where(det_ok, det, 1.0)
+            tvx, tvy, tvz = ox - p0x, oy - p0y, oz - p0z
+            uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+            qvx = tvy * e1z - tvz * e1y
+            qvy = tvz * e1x - tvx * e1z
+            qvz = tvx * e1y - tvy * e1x
+            vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+            tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+            cnt = (vleaf[li] & (LT - 1)) + 1
+            geo = (
+                (lane[None] < cnt[:, None]) & det_ok & facing
+                & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0) & (tt > 0.0)
+            )
+            tbl = tb[li][:, None]
+            is_alpha = (flags & 2) != 0
+            opq = geo & ~is_alpha & (tt < tbl) if cand else geo & (tt < tbl)
+            of = orig.float()
+            bt, bo, bu, bv = _minfold([torch.where(opq, tt, INF), of, uu, vv])
+            upd = bt < tb[li]
+            ids = act[li]
+            t_best[ids] = torch.where(upd, bt, t_best[ids])
+            tri[ids] = torch.where(upd, bo.long(), tri[ids])
+            u[ids] = torch.where(upd, bu, u[ids])
+            v[ids] = torch.where(upd, bv, v[ids])
+            if cand:
+                ctl = ct[li][:, None]
+                alp = geo & is_alpha & (tt < tbl) & (tt < ctl)
+                wbar = 1.0 - uu - vv
+                tu = a(9) * wbar + a(11) * uu + a(13) * vv
+                tv = a(10) * wbar + a(12) * uu + a(14) * vv
+                ft, fo, fu, fv, ftu, ftv = _minfold(
+                    [torch.where(alp, tt, INF), of, uu, vv, tu, tv]
+                )
+                cu = ft < ct[li]
+                c_t[ids] = torch.where(cu, ft, c_t[ids])
+                c_tri[ids] = torch.where(cu, fo.long(), c_tri[ids])
+                c_u[ids] = torch.where(cu, fu, c_u[ids])
+                c_v[ids] = torch.where(cu, fv, c_v[ids])
+                c_uvu[ids] = torch.where(cu, ftu, c_uvu[ids])
+                c_uvv[ids] = torch.where(cu, ftv, c_uvv[ids])
+            if mode == "any":
+                found[li] = upd
+
+        # ---- next node: pop where done with the node ---------------------
+        need_pop = need_pop & ~found
+        can_pop = need_pop & (dep > 0)
+        top = stack[act, torch.clamp(dep - 1, min=0)]
+        nxt = torch.where(can_pop, top, nxt)
+        depth[act] = dep - can_pop.long()
+        cur[act] = nxt
+
+    if cand:
+        t_out = torch.where(c_tri >= 0, c_t, INF)
+        return t_out, c_tri, c_u, c_v, steps, c_uvu, c_uvv
+    t_out = torch.where(tri >= 0, t_best, INF)
+    return t_out, tri, u, v, steps, None, None
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel: build at first use, bind through ctypes, launch.
+# ---------------------------------------------------------------------------
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_PKG, "csrc", "traverse.cu")
+_BUILD_DIR = os.path.join(_PKG, "_build")
+_LIB_PATH = os.path.join(_BUILD_DIR, "libtraverse.so")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+_lib = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    return path if os.path.exists(path) else "nvcc"
+
+
+def build(verbose: bool = False) -> str:
+    """Compile ``csrc/traverse.cu`` into ``_build/libtraverse.so`` when the
+    library is missing or older than the source. Returns the library path."""
+    if os.path.exists(_LIB_PATH) and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC):
+        return _LIB_PATH
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = _LIB_PATH + f".{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, _SRC]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, _LIB_PATH)
+    if verbose:
+        print(res.stderr.strip())
+    return _LIB_PATH
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.vkrt_traverse.argtypes = [
+            i32, i32, p, i32, p, p, p, p, i64, p, p, p, p, p, p, p, p,
+        ]
+        lib.vkrt_traverse.restype = i32
+        lib.vkrt_traverse_max_stack.restype = i32
+        _lib = lib
+    return _lib
+
+
+def _traverse_cuda(planar, origin, direction, t_max, active, mode, cull):
+    lib = _load()
+    R = origin.shape[0]
+    dev = origin.device
+    rows = planar.rows
+    for name, x, shape, dt in (
+        ("rows", rows, (rows.shape[0], 128), torch.float32),
+        ("origin", origin, (R, 3), torch.float32),
+        ("direction", direction, (R, 3), torch.float32),
+        ("t_max", t_max, (R,), torch.float32),
+    ):
+        if x.device != dev or x.dtype != dt or tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(
+                f"{name}: want contiguous {dt} {shape} on {dev}, got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}"
+            )
+    if planar.width != 16:
+        raise ValueError(f"the CUDA kernel takes width-16 rows, got {planar.width}")
+    if planar.stack_depth > lib.vkrt_traverse_max_stack():
+        raise ValueError(
+            f"tree stack bound {planar.stack_depth} exceeds the kernel's "
+            f"{lib.vkrt_traverse_max_stack()}"
+        )
+    act_ptr = None
+    if active is not None:
+        if active.device != dev or active.dtype != torch.bool or tuple(active.shape) != (R,):
+            raise ValueError("active: want a (R,) bool tensor on the rays' device")
+        active = active.contiguous()
+        act_ptr = active.data_ptr()
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    tri = torch.empty(R, dtype=torch.int32, device=dev)
+    u = torch.empty(R, dtype=torch.float32, device=dev)
+    v = torch.empty(R, dtype=torch.float32, device=dev)
+    steps = torch.empty(R, dtype=torch.int32, device=dev)
+    cand = mode == "candidate"
+    uvu = torch.empty(R, dtype=torch.float32, device=dev) if cand else None
+    uvv = torch.empty(R, dtype=torch.float32, device=dev) if cand else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.vkrt_traverse(
+        _MODE_ID[mode], int(cull), rows.data_ptr(), planar.stack_depth,
+        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), act_ptr, R,
+        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), steps.data_ptr(),
+        uvu.data_ptr() if cand else None, uvv.data_ptr() if cand else None, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"traverse kernel launch failed: cudaError {err}")
+    LAUNCHES[mode] += 1
+    return t, tri.long(), u, v, steps, uvu, uvv
+
+
+def traverse(planar, origin, direction, t_max, active=None, mode="closest", cull=True):
+    """Run one traversal mode. CPU tensors take the plain twin; CUDA
+    tensors launch the kernel (or raise). Returns (t, tri, u, v, steps,
+    uvu, uvv); the last two are None outside candidate mode."""
+    if (mode, cull) not in _MODE_CULL:
+        raise ValueError(f"no traversal for mode {mode!r} with cull={cull}")
+    if origin.device.type == "cuda":
+        return _traverse_cuda(planar, origin, direction, t_max, active, mode, cull)
+    if origin.device.type != "cpu":
+        raise ValueError(f"no traversal for device {origin.device}")
+    return _traverse_plain(planar, origin, direction, t_max, active, mode, cull)
+
+
+def closest_hit_fused(planar, origin, direction) -> Hit:
+    """Mode a: nearest hit with backface culling."""
+    t_max = torch.full(origin.shape[:1], INF, device=origin.device)
+    t, tri, u, v, steps, _, _ = traverse(planar, origin, direction, t_max, None, "closest", True)
+    return Hit(t, tri, u, v, steps)
+
+
+def any_hit_fused(planar, origin, direction, t_max, active=None) -> torch.Tensor:
+    """Mode b: occlusion within ``t_max`` (no culling)."""
+    _, tri, _, _, _, _, _ = traverse(planar, origin, direction, t_max, active, "any", False)
+    return tri >= 0
+
+
+def candidate_hit_fused(planar, origin, direction, t_max, active=None, cull=True):
+    """Mode c: nearest alpha-flagged hit within ``t_max`` plus its texture
+    UV. Returns ``(Hit, uvu, uvv)``."""
+    t, tri, u, v, steps, uvu, uvv = traverse(
+        planar, origin, direction, t_max, active, "candidate", cull
+    )
+    return Hit(t, tri, u, v, steps), uvu, uvv

@@ -1,0 +1,117 @@
+"""The port's binding to the native host builders (C++ through ctypes).
+
+The reference's host runtime ``vk_raytrace_tpu/runtime/native.cpp`` holds the
+hot host loops: binned-SAH planar BVH rows, oct encoding, RGBA8 packing and
+smooth normals. The port compiles that same source with g++ into
+``vk_raytrace_torch/_build/libnative.so`` (rebuilt when the source is newer)
+and binds the calls it needs here, without importing the reference package.
+There is no numpy fallback: every call raises when the library cannot be
+built or loaded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+
+import numpy as np
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(os.path.dirname(_PKG), "vk_raytrace_tpu", "runtime", "native.cpp")
+_BUILD_DIR = os.path.join(_PKG, "_build")
+_LIB_PATH = os.path.join(_BUILD_DIR, "libnative.so")
+_lib = None
+
+
+def build() -> str:
+    """Compile ``native.cpp`` into ``_build/libnative.so`` when the library is
+    missing or older than the source. Returns the library path."""
+    if os.path.exists(_LIB_PATH) and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC):
+        return _LIB_PATH
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = _LIB_PATH + f".{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-march=x86-64-v2", "-shared", "-fPIC", "-o", tmp, _SRC]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"g++ failed ({' '.join(cmd)}):\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, _LIB_PATH)
+    return _LIB_PATH
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        lib.build_bvh16.restype = ctypes.c_int64
+        _lib = lib
+    return _lib
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def oct_encode(vecs: np.ndarray) -> np.ndarray:
+    """Octahedral-compress unit vectors (n, 3) f32 -> (n,) u32."""
+    vecs = np.ascontiguousarray(vecs, np.float32)
+    out = np.empty(len(vecs), np.uint32)
+    _load().oct_encode_batch(_ptr(vecs), ctypes.c_int64(len(vecs)), _ptr(out))
+    return out
+
+
+def pack_rgba8(colors: np.ndarray) -> np.ndarray:
+    """(n, 4) f32 in [0, 1] -> (n,) u32 RGBA8."""
+    colors = np.ascontiguousarray(colors, np.float32)
+    out = np.empty(len(colors), np.uint32)
+    _load().pack_rgba8(_ptr(colors), ctypes.c_int64(len(colors)), _ptr(out))
+    return out
+
+
+def smooth_normals(positions: np.ndarray, indices: np.ndarray) -> np.ndarray:
+    """Area-weighted vertex normals; (nv,3) f64 + (nt,3) i64 -> (nv,3) f64."""
+    positions = np.ascontiguousarray(positions, np.float64)
+    indices = np.ascontiguousarray(indices, np.int64)
+    out = np.empty_like(positions)
+    _load().smooth_normals(
+        _ptr(positions), ctypes.c_int64(len(positions)),
+        _ptr(indices), ctypes.c_int64(len(indices)), _ptr(out),
+    )
+    return out
+
+
+def build_planar_rows(positions, indices, uv, tri_flags, tri_ids=None):
+    """Binned-SAH build of 16-wide planar rows (512 B each). Returns
+    ``(rows (n, 128) f32, stack_depth)``.
+
+    Triangle ids ride in f32 leaf lanes as ``orig*4 + flags`` and child refs
+    in interior lanes as ``row*8 + count``; both must stay exact in f32, so
+    the build raises past those ceilings."""
+    lib = _load()
+    positions = np.ascontiguousarray(positions, np.float32)
+    indices = np.ascontiguousarray(indices, np.int32)
+    uv = np.ascontiguousarray(uv, np.float32)
+    tri_flags = np.ascontiguousarray(tri_flags, np.int32)
+    t = len(indices)
+    ids_arg, max_orig = None, t - 1
+    if tri_ids is not None:
+        tri_ids = np.ascontiguousarray(tri_ids, np.int32)
+        ids_arg = _ptr(tri_ids)
+        max_orig = int(tri_ids.max(initial=0))
+    if max_orig * 4 + 3 >= 2**24:
+        raise ValueError(f"triangle id {max_orig} exceeds the exact-f32 ceiling {2**22 - 1}")
+    leaf = 8
+    depth = ctypes.c_int32(0)
+    f = t + 1  # row bound: a leaf holds at least leaf/2 triangles
+    for max_rows in (f // (leaf // 2) + f // leaf + 16, f + 8):
+        rows = np.empty((max_rows, 128), np.float32)
+        n = lib.build_bvh16(
+            _ptr(positions), _ptr(indices), _ptr(uv), ids_arg, _ptr(tri_flags),
+            ctypes.c_int64(t), _ptr(rows), ctypes.c_int64(max_rows),
+            ctypes.byref(depth), ctypes.c_float(0.0),
+        )
+        if n > 0:
+            if n * leaf + leaf >= 2**23:
+                raise ValueError(f"{n} BVH rows exceed the exact-f32 ref ceiling")
+            return np.ascontiguousarray(rows[:n]), int(depth.value)
+    raise RuntimeError("native planar BVH build failed")
