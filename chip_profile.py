@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Where a frame of the port's main path spends its time on one GPU.
 
-    python3 chip_profile.py [--frames N] [--top K]
+    python3 chip_profile.py [--frames N] [--top K] [--fused-shade]
 
 Builds the full atrium, renders it at 1920x1080, depth 4, 1 spp, sun&sky
-(the main path of ``chip_smoke.py``), times N unprofiled frames after two
-warm-up frames, then traces one more frame with ``torch.profiler``. It
-prints, for the traced frame:
+(the main path of ``chip_smoke.py``; with ``--fused-shade`` through the
+fused shading stage), times N unprofiled frames after two warm-up frames,
+then traces one more frame with ``torch.profiler``. It prints, for the
+traced frame:
 
 * wall: host clock around ``Renderer.step()`` + synchronize, profiled;
 * device busy: the union of the intervals of every device activity
   (kernels, copies, sets) in the trace, in ms and as a share of wall;
 * launches: the number of device kernels, and how many distinct ones;
 * traversal: device ms and launches of the traversal kernel (all modes);
+* shading: device ms and launches of the kernels that ran inside the
+  device spans of the wavefront's ``shade_stage`` ranges (the whole stage,
+  eager or fused), and the fused shading kernel's own ms and launches;
 * the top K device kernels by total time.
 """
 
@@ -24,16 +28,25 @@ import time
 import torch
 
 TRAVERSE = "traverse_kernel"
+SHADE = "shade_kernel"
+STAGE = "shade_stage"  # the wavefront's profiler range around its shading stage
 
 
 def device_events(prof):
-    """The trace's device activities as (name, start_us, end_us)."""
+    """The trace's device activities as (name, start_us, end_us), and the
+    device-side spans of the ``shade_stage`` ranges apart (a range's span
+    is an annotation, not an activity)."""
     dev = torch.autograd.DeviceType.CUDA
-    return [
-        (e.name, e.time_range.start, e.time_range.end)
-        for e in prof.events()
-        if e.device_type == dev
-    ]
+    acts, stages = [], []
+    for e in prof.events():
+        if e.device_type != dev:
+            continue
+        ev = (e.name, e.time_range.start, e.time_range.end)
+        if e.name == STAGE:
+            stages.append(ev)
+        elif not getattr(e, "is_user_annotation", False):
+            acts.append(ev)
+    return acts, stages
 
 
 def busy_us(events) -> float:
@@ -53,6 +66,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=3, help="unprofiled timed frames")
     ap.add_argument("--top", type=int, default=20, help="kernels listed by device time")
+    ap.add_argument("--fused-shade", action="store_true", help="render with the fused shading stage")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: this script needs an NVIDIA GPU")
@@ -69,7 +83,7 @@ def main():
     scene = R.build_scene(geom, mats, lights, cam, atlas=atlas)
     cfg = RenderConfig(width=1920, height=1080, max_depth=4, max_samples=1, pbr_mode=PBR_GLTF,
                        firefly_clamp=10.0, use_sun_sky=True)
-    r = R.Renderer(scene, cfg, device=dev)
+    r = R.Renderer(scene, cfg, device=dev, fused_shade=args.fused_shade)
     for _ in range(2):
         r.step()
     torch.cuda.synchronize()
@@ -86,24 +100,32 @@ def main():
         r.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = device_events(prof)
+    events, stages = device_events(prof)
     if not events:
         raise SystemExit("the trace holds no device activity")
     busy = busy_us(events) / 1e3
     kernels = [ev for ev in events if not ev[0].startswith(("Memcpy", "Memset"))]
     trav = [ev for ev in kernels if TRAVERSE in ev[0]]
+    shade_k = [ev for ev in kernels if SHADE in ev[0]]
+    in_stage = [
+        ev for ev in kernels if any(s <= ev[1] < e for _, s, e in stages)
+    ]
+    stage_ms = sum(e - s for _, s, e in in_stage) / 1e3
     per_name = {}
     for name, s, e in kernels:
         tot, cnt = per_name.get(name, (0.0, 0))
         per_name[name] = (tot + (e - s) / 1e3, cnt + 1)
 
-    print(f"card: {card}")
+    print(f"card: {card}; shading stage {'fused' if args.fused_shade else 'eager'}")
     print(f"unprofiled frames (s): {frames}; rays/frame {r.last_rays}")
     print(f"profiled frame: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
           f"({100 * busy / (wall * 1e3):.1f}%)")
     print(f"launches: {len(kernels)} kernels, {len(per_name)} distinct; "
           f"device activities {len(events)}")
     print(f"traversal: {sum(e - s for _, s, e in trav) / 1e3:.3f} ms in {len(trav)} launches")
+    print(f"shading stage: {stage_ms:.3f} device ms in {len(in_stage)} launches "
+          f"({len(stages)} stage spans); fused kernel "
+          f"{sum(e - s for _, s, e in shade_k) / 1e3:.3f} ms in {len(shade_k)} launches")
     print(f"top {args.top} kernels by device ms:")
     for name, (ms, cnt) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[: args.top]:
         print(f"  {ms:9.3f} ms {cnt:7d}x  {name[:110]}")

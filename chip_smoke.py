@@ -6,19 +6,28 @@
 Phases, each printing its own lines (any failure raises and exits non-zero):
 
 1. environment: the card's name and power limit; CUDA must be available;
-2. build: the traversal kernel (``vk_raytrace_torch/csrc/traverse.cu``,
-   nvcc) and the shared native host runtime (g++), from this checkout;
-3. kernel against its plain torch twin on the card, for traversal modes a
+2. build: the traversal and shading kernels (``vk_raytrace_torch/csrc/
+   traverse.cu`` and ``shade.cu``, nvcc, built in parallel) and the native
+   host runtime (``csrc/native.cpp``, g++), from this checkout;
+3. traversal kernel against its plain torch twin on the card, for modes a
    (closest hit), b (any hit) and c (alpha candidates), on the full atrium's
    trees at 2^18 rays (the main path's pool width), and both timed there;
 4. the render slice on the card against the same slice on the CPU twin:
    a small atrium at 128x72, depth 4, 1 spp, 2 frames, identical tables and
-   random streams;
+   random streams; then the same with the fused shading stage on the card
+   and on the CPU, and fused against unfused on the card;
 5. the main path: the full atrium (~217k triangles) at 1920x1080, depth 4,
    1 spp, sun&sky, one warm-up and three timed frames; every traversal mode
-   must have launched its kernel.
+   must have launched its kernel;
+6. shading kernel against its plain torch version on the card at 2^18
+   lanes: the hits of atrium camera rays, then every branch (all flags on,
+   material lanes redrawn from a seed) with full MIS on and off; both timed;
+7. the main path with the fused shading stage (``Renderer(...,
+   fused_shade=True)``): one warm-up and three timed frames; the shading
+   kernel and every traversal mode must have launched.
 
-The line before the last is the per-kernel JSON summary; the last line is
+The line before the last is the per-kernel JSON summary (times, launches,
+errors and each kernel's bound on this card); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -34,6 +43,20 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "vk_raytrace_torch/csrc/traverse.cu"
 REPLACES = "vk_raytrace_tpu/ops/traverse_fused.py:255"  # _make_step_kernel
+SHADE_SOURCE = "vk_raytrace_torch/csrc/shade.cu"
+SHADE_REPLACES = "vk_raytrace_tpu/integrator/shade_fused.py:290"  # _make_kernel
+# The card's peaks (H100 SXM data sheet): memory rate and float32 rate
+# outside the tensor cores; a kernel's bound is the larger of its bytes and
+# its operations over them.
+PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 67e12
+# Float operations of one traversal step, counted from csrc/traverse.cu: an
+# interior row tests 16 child boxes (6 subtract, 6 multiply, 10 min/max and
+# 4 compares each, 416), a leaf row 8 triangles (Moller-Trumbore: about 52
+# each, 416).
+OPS_PER_NODE = 416
+# Shading kernel vs its plain version on the card: the same float32
+# operations in the same order with the same device math functions.
+SHADE_RTOL, SHADE_ATOL, SHADE_MASK_SHARE = 1e-5, 1e-6, 0.9999
 SMALL_ATRIUM = dict(bays_x=2, bays_z=2, column_segments=16, column_rows=12)
 # Kernel vs twin: the same float32 operations in the same order, rounded
 # per operation on both sides (nvcc -fmad=false); t/u/v within a few ulp.
@@ -68,6 +91,95 @@ def cuda_time(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the least time of ``n_bytes`` moved and
+    ``n_ops`` float32 operations at the card's peak rates."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_F32_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+_COMPUTE_OPS = {
+    "add", "sub", "rsub", "mul", "div", "neg", "abs", "sqrt", "exp", "log", "sin", "cos",
+    "clamp", "clamp_min", "clamp_max", "maximum", "minimum", "reciprocal", "where", "lt", "le",
+    "gt", "ge", "eq", "ne", "logical_and", "logical_or", "logical_not", "bitwise_and",
+    "bitwise_or", "bitwise_xor", "bitwise_not", "__rshift__", "__lshift__",
+    "bitwise_right_shift", "bitwise_left_shift",
+}
+
+
+def count_ops(fn, *args):
+    """Elementwise operations of ``fn(*args)``: the elements every
+    arithmetic, compare and select op of the plain version produces."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket.__name__.rstrip("_") in _COMPUTE_OPS:
+                Count.n += sum(o.numel() for o in (out if isinstance(out, tuple) else (out,))
+                               if isinstance(o, torch.Tensor))
+            return out
+
+    with Count():
+        fn(*args)
+    return Count.n
+
+
+def build_kernels():
+    """nvcc of every kernel source at once (one process each) and g++ of the
+    native runtime meanwhile; returns seconds per library."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vk_raytrace_torch import runtime
+    from vk_raytrace_torch.integrator import shade_fused as sf
+    from vk_raytrace_torch.ops import traverse_fused as tf
+
+    def timed(fn, **kw):
+        t0 = time.time()
+        fn(**kw)
+        return time.time() - t0
+
+    with ThreadPoolExecutor(3) as pool:
+        futures = {
+            "native": pool.submit(timed, runtime.build),
+            "traverse": pool.submit(timed, tf.build, verbose=True),
+            "shade": pool.submit(timed, sf.build, verbose=True),
+        }
+        return {k: f.result() for k, f in futures.items()}
+
+
+def compare_shade(kern, plain):
+    """Shading kernel vs plain outputs; returns max |error| of out_vec on
+    lanes whose masks agree."""
+    k_vec, k_alive, k_vis = kern
+    p_vec, p_alive, p_vis = plain
+    same = (k_alive == p_alive) & (k_vis == p_vis)
+    share = float(same.float().mean())
+    assert share >= SHADE_MASK_SHARE, f"shade: masks agree on only {share:.6f} of lanes"
+    a, b = k_vec[same].cpu().numpy(), p_vec[same].cpu().numpy()
+    np.testing.assert_allclose(a, b, rtol=SHADE_RTOL, atol=SHADE_ATOL)
+    assert float(k_alive.float().mean()) > 0.2, "shade: too few live lanes to compare"
+    return float(np.nanmax(np.abs(a - b), initial=0.0)), share
+
+
+def run_frames(r, n=3):
+    """One warm-up and ``n`` timed frames: (warm-up s, [s per frame], [rays])."""
+    t0 = time.time()
+    r.step()
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    frame_s, frame_rays = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        r.step()
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+        frame_rays.append(r.last_rays)
+    return warm_s, frame_s, frame_rays
+
+
 def random_rays(rng, positions, n, dev):
     """Origins inside the scene's bounds, uniform random directions."""
     lo, hi = positions.min(0), positions.max(0)
@@ -98,6 +210,51 @@ def camera_rays(cam, w, h, n, rng, dev):
     seed = vrng.tea(pix, 0)
     o, d, _ = generate_rays_for_pixels(cam, w, h, pix, 1, seed)
     return o.contiguous(), d.contiguous()
+
+
+def every_branch(x, rng, full_mis):
+    """The shading kernel's inputs ``x`` (a ``ShadeInputs``) with every flag
+    on and the material lanes of the gathered rows redrawn, so that each
+    lane takes its own mix of branches: roughness, metallic, transmission,
+    ior, clearcoat, anisotropy > 0 on half the lanes, thickness 0 and not
+    0, unlit lanes, and texture ids >= 0 over random footprint texels."""
+    from vk_raytrace_torch.integrator import shade_fused as sf
+    from vk_raytrace_torch.integrator.shade import _OFFS
+
+    srow = x.srow.clone()
+    r, dev = srow.shape[0], srow.device
+    u = lambda lo=0.0, hi=1.0, k=1: torch.tensor(  # noqa: E731
+        rng.uniform(lo, hi, (r, k)), dtype=torch.float32, device=dev)
+    half = lambda: torch.tensor(rng.random((r, 1)) < 0.5, device=dev)  # noqa: E731
+
+    def put(name, val):
+        o = sf._SROW_MAT0 + _OFFS[name]
+        srow[:, o:o + val.shape[1]] = val
+
+    for name in ("base", "mr", "normal", "emissive"):
+        put(f"{name}_tex", torch.where(u() < 0.9, 0.0, -1.0))
+    put("emissive_factor", u(0.0, 2.0, 3))
+    put("normal_scale", u(0.5, 1.5))
+    put("ior", u(1.0, 2.5))
+    put("rough_f", u(0.0, 1.0))
+    put("metal_f", u(0.0, 1.0))
+    put("base_factor", u(0.05, 1.0, 4))
+    put("transmission_f", torch.where(half(), u(), 0.0))
+    put("unlit", torch.where(u() < 0.02, 1.0, 0.0))
+    put("aniso", torch.where(half(), u(0.05, 0.95), 0.0))
+    adir = u(-1.0, 1.0, 3)
+    put("aniso_dir", adir / adir.norm(dim=1, keepdim=True))
+    put("atten_color", u(0.05, 1.0, 3))
+    put("atten_dist", u(0.1, 10.0))
+    put("thickness", torch.where(half(), u(0.1, 2.0), 0.0))
+    put("cc_f", torch.where(half(), u(), 0.0))
+    put("cc_rough", u(0.0, 1.0))
+    taps = torch.tensor(rng.integers(-2**31, 2**31, (r, 16), dtype=np.int64).astype(np.int32),
+                        device=dev)
+    aux = x.aux.clone()
+    aux[:, 0:8] = u(0.0, 1.0, 8)
+    flags = sf.ShadeFlags(True, True, True, True, True, full_mis)
+    return srow.contiguous(), taps, aux.contiguous(), flags
 
 
 def compare(mode, kern, twin):
@@ -141,16 +298,10 @@ def main():
 
     # ---- 2. build -----------------------------------------------------------
     phase("build")
-    from vk_raytrace_torch import runtime
+    from vk_raytrace_torch.integrator import shade_fused as sf
 
-    t0 = time.time()
-    runtime.build()
-    native_s = time.time() - t0
-    t0 = time.time()
-    lib_path = tf.build(verbose=True)
-    kernel_s = time.time() - t0
-    print(f"native runtime: {native_s:.2f} s; traverse kernel: {kernel_s:.2f} s -> "
-          f"{os.path.relpath(lib_path, REPO)}", flush=True)
+    build_s = build_kernels()
+    print("build s: " + ", ".join(f"{k} {v:.2f}" for k, v in build_s.items()), flush=True)
 
     # ---- 3. kernel vs twin on the full atrium ------------------------------
     phase("kernel vs twin")
@@ -191,7 +342,7 @@ def main():
         "any": (gbundle.opaque_planar, o, d, t_short, False),
         "candidate": (gbundle.alpha_planar, oa, da, inf, True),
     }
-    errors, times = {}, {}
+    errors, times, bounds = {}, {}, {}
     for mode, (planar, oo, dd, tm, cull) in cases.items():
         kern = tf.traverse(planar, oo, dd, tm, mode=mode, cull=cull)
         twin = tf._traverse_plain(planar, oo, dd, tm, None, mode, cull)
@@ -202,9 +353,17 @@ def main():
         ms = cuda_time(lambda: tf.traverse(planar, oo, dd, tm, mode=mode, cull=cull), 20)
         plain_ms = cuda_time(lambda: tf._traverse_plain(planar, oo, dd, tm, None, mode, cull), 2)
         times[mode] = (ms, plain_ms)
+        # Bytes: rays in (origin, direction, t_max) and out (t, tri, u, v,
+        # steps, + uv in mode c), plus the rows visited, at most the table.
+        nodes = float(kern[4].double().sum())
+        out_b = 28 if mode == "candidate" else 20
+        n_bytes = n * (28 + out_b) + min(planar.rows.numel() * 4, nodes * 512)
+        bounds[mode] = bound(n_bytes, nodes * OPS_PER_NODE)
         print(f"mode {mode}: {n} rays, hit share {hit_share:.4f}, mean nodes/ray "
               f"{steps:.2f}, max |err| {errors[mode]:.3g} -> OK; kernel {ms:.3f} ms, "
-              f"twin {plain_ms:.3f} ms ({card})", flush=True)
+              f"twin {plain_ms:.3f} ms, bound {bounds[mode][0]:.4f} ms by {bounds[mode][1]} "
+              f"({n_bytes / 1e6:.1f} MB, {nodes * OPS_PER_NODE / 1e9:.3f} Gop) ({card})",
+              flush=True)
 
     # ---- 4. render slice: card vs CPU twin ---------------------------------
     phase("slice vs twin")
@@ -230,6 +389,28 @@ def main():
     assert np.isfinite(imgs["cuda"]).all() and imgs["cuda"].mean() > 0.0
     assert share >= PIX_SHARE, f"slice: only {share:.4f} of pixels agree"
     assert ray_rel <= RAY_REL, f"slice: ray counts differ by {ray_rel:.2e}"
+    # The same slice through the fused shading stage: card vs CPU, and fused
+    # vs unfused on the card.
+    f_imgs, f_rays = {}, {}
+    for where in ("cuda", "cpu"):
+        r = R.Renderer(small, run_cfg, device=where, packed=acc, fused_shade=True)
+        f_rays[where] = []
+        for _ in range(2):
+            r.step()
+            f_rays[where].append(r.last_rays)
+        f_imgs[where] = r.accum.cpu().numpy()
+    assert np.isfinite(f_imgs["cuda"]).all() and f_imgs["cuda"].mean() > 0.0
+    for what, (ia, ra), (ib, rb) in (
+        ("fused cuda vs cpu", (f_imgs["cuda"], f_rays["cuda"]), (f_imgs["cpu"], f_rays["cpu"])),
+        ("fused vs unfused (cuda)", (f_imgs["cuda"], f_rays["cuda"]),
+         (imgs["cuda"], rays["cuda"])),
+    ):
+        share = float(np.isclose(ia, ib, rtol=PIX_RTOL, atol=PIX_ATOL).all(-1).mean())
+        ray_rel = abs(sum(ra) - sum(rb)) / sum(rb)
+        print(f"128x72 d4 {what}: pixels within tolerance {share:.5f}; rays {ra} vs {rb} "
+              f"(rel {ray_rel:.2e})", flush=True)
+        assert share >= PIX_SHARE, f"slice {what}: only {share:.4f} of pixels agree"
+        assert ray_rel <= RAY_REL, f"slice {what}: ray counts differ by {ray_rel:.2e}"
 
     # ---- 5. main path ------------------------------------------------------
     phase("main path")
@@ -240,22 +421,13 @@ def main():
                        firefly_clamp=10.0, use_sun_sky=True)
     torch.cuda.reset_peak_memory_stats(dev)
     tf.reset_launches()
+    sf.reset_launches()
     t0 = time.time()
     r = R.Renderer(scene, cfg, device=dev)
     renderer_s = time.time() - t0
     build = {"scene_gen_s": scene_gen_s, "scene_tables_s": tables_s,
              "renderer_s": renderer_s, **r.build_times}
-    t0 = time.time()
-    r.step()
-    torch.cuda.synchronize()
-    warm_s = time.time() - t0
-    frame_s, frame_rays = [], []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        r.step()
-        torch.cuda.synchronize()
-        frame_s.append(time.perf_counter() - t0)
-        frame_rays.append(r.last_rays)
+    warm_s, frame_s, frame_rays = run_frames(r)
     launches = dict(tf.LAUNCHES)
     img = r.accum.cpu().numpy()
     ldr = r.postprocess().cpu().numpy()
@@ -273,12 +445,82 @@ def main():
           f"peak {peak_mb:.1f} MiB allocated, mean radiance {img.mean():.4f}; "
           f"build s: {build_txt} [{card}]", flush=True)
 
+    # ---- 6. shading kernel vs plain on the card -----------------------------
+    phase("shade kernel vs plain")
+    from vk_raytrace_torch.integrator.path import pixel_spread
+
+    run_cfg = r._run_cfg
+    oc, dc = camera_rays(cam_dev, 1920, 1080, n, rng, dev)
+    hit = tf.closest_hit_fused(gbundle.opaque_planar, oc, dc)
+    seed = torch.tensor(rng.integers(0, 2**32, n), device=dev)
+    zeros3 = torch.zeros(n, 3, device=dev)
+    x = sf.shade_inputs(
+        r.scene, r.features, run_cfg.full_mis, 0.5, run_cfg.hdr_multiplier, hit, oc, dc, seed,
+        None, zeros3, torch.ones(n, 3, device=dev), zeros3, torch.zeros(n, device=dev),
+        sun_disk=run_cfg.sun_disk,
+        mip=(pixel_spread(r.scene, 1080), torch.clamp(hit.t, max=1e30)),
+    )
+    real = (x.srow, x.taps, x.aux, x.flags)
+    sets = [("atrium camera hits", real)]
+    for full_mis in (True, False):
+        sets.append((f"every branch, full_mis={full_mis}", every_branch(x, rng, full_mis)))
+    shade_err = 0.0
+    for what, args in sets:
+        kern = sf.shade(*args)
+        torch.cuda.synchronize()
+        err, agree = compare_shade(kern, sf._shade_plain(*args))
+        shade_err = max(shade_err, err)
+        print(f"shade {what}: {n} lanes, alive {float(kern[1].float().mean()):.4f}, masks agree "
+              f"{agree:.6f}, max |err| {err:.3g} -> OK", flush=True)
+    shade_ms = cuda_time(lambda: sf.shade(*real), 20)
+    shade_plain_ms = cuda_time(lambda: sf._shade_plain(*real), 2)
+    shade_bytes = n * (128 * 4 + 16 * 4 + sf.AUX_W * 4) + n * (sf.OUT_W * 4 + 2)
+    shade_ops = count_ops(sf._shade_plain, *real)
+    shade_bound = bound(shade_bytes, shade_ops)
+    print(f"shade kernel {shade_ms:.3f} ms, plain {shade_plain_ms:.3f} ms at {n} lanes; bound "
+          f"{shade_bound[0]:.4f} ms by {shade_bound[1]} ({shade_bytes / 1e6:.1f} MB, "
+          f"{shade_ops / 1e9:.3f} Gop counted in the plain version) ({card})", flush=True)
+
+    # ---- 7. main path, fused shading ----------------------------------------
+    phase("main path, fused shading")
+    del r, x, real, sets, kern, hit  # the peak below is the fused renderer's own
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tf.reset_launches()
+    sf.reset_launches()
+    rf = R.Renderer(scene, cfg, device=dev, packed=bundle, fused_shade=True)
+    f_warm_s, f_frame_s, f_frame_rays = run_frames(rf)
+    f_launches = {**tf.LAUNCHES, **sf.LAUNCHES}
+    f_img = rf.accum.cpu().numpy()
+    f_ldr = rf.postprocess().cpu().numpy()
+    f_peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+    f_s_frame = float(np.mean(f_frame_s))
+    f_mrays = float(np.sum(f_frame_rays) / np.sum(f_frame_s) / 1e6)
+    print(f"warm-up frame {f_warm_s:.3f} s; frames {['%.4f' % s for s in f_frame_s]} s; "
+          f"rays/frame {f_frame_rays}; launches {f_launches}")
+    assert f_launches["shade_bounce"] > 0, f"the shading kernel never launched: {f_launches}"
+    assert all(f_launches[m] > 0 for m in tf.MODES), f"a traversal mode never launched: {f_launches}"
+    assert np.isfinite(f_img).all() and np.isfinite(f_ldr).all(), "fused: non-finite pixels"
+    assert f_img.mean() > 0.0 and f_ldr.max() > 0.0, "fused: black image"
+    assert min(f_frame_rays) > 1920 * 1080, "fused: fewer rays than primary rays"
+    print(f"atrium 1080p d4 1spp fused: {f_s_frame:.4f} s/frame, {f_mrays:.4f} Mrays/s, peak "
+          f"{f_peak_mb:.1f} MiB allocated, mean radiance {f_img.mean():.4f}; unfused in this "
+          f"call: {s_frame:.4f} s/frame, {mrays:.4f} Mrays/s, peak {peak_mb:.1f} MiB [{card}]",
+          flush=True)
+
     kernels = [
         {"name": f"traverse_{m}", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
          "launches": launches[m], "max_abs_err": errors[m], "ms": times[m][0],
-         "plain_ms": times[m][1]}
+         "plain_ms": times[m][1], "bound_ms": bounds[m][0], "bound_by": bounds[m][1],
+         "library_ms": None}
         for m in tf.MODES
     ]
+    kernels.append(
+        {"name": "shade_bounce", "route": "cuda", "source": SHADE_SOURCE,
+         "replaces": SHADE_REPLACES, "launches": f_launches["shade_bounce"],
+         "max_abs_err": shade_err, "ms": shade_ms, "plain_ms": shade_plain_ms,
+         "bound_ms": shade_bound[0], "bound_by": shade_bound[1], "library_ms": None}
+    )
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -110,3 +110,44 @@ def test_render_slice_cuda_matches_cpu(scene):
     share = np.isclose(out["cuda"][0], out["cpu"][0], rtol=1e-3, atol=1e-4).all(-1).mean()
     assert share >= 0.99, share
     assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-3 * out["cpu"][1]
+
+
+@pytest.mark.parametrize("full_mis", [True, False])
+def test_shade_kernel_matches_plain(scene, full_mis):
+    """The shading kernel against its plain torch version on the card, every
+    flag on and the material lanes redrawn (``chip_smoke.every_branch``):
+    the same float32 operations, so masks agree on 99.99% of lanes and
+    vectors within rtol 1e-5 / atol 1e-6 where they agree."""
+    _need_cuda()
+    import chip_smoke
+    from vk_raytrace_torch.integrator import shade_fused as sf
+    from vk_raytrace_torch.integrator.shade import mat_features
+
+    g, m, l, c, a = scene
+    small = R.build_scene(g, m, l, c, atlas=a)
+    cfg = RenderConfig(width=64, height=48, pbr_mode=PBR_GLTF, use_sun_sky=True)
+    small, _ = R.prepare_sun_sky(small, cfg, "cpu")
+    feats = mat_features(small.materials)
+    small = small.to("cuda")
+    planar = build_accel_bundle(g).opaque_planar.to("cuda")
+    n = 8192
+    o, d = _rays(7, g, n, alpha=False)
+    o, d = o.cuda(), d.cuda()
+    hit = tf.closest_hit_fused(planar, o, d)
+    rng = np.random.default_rng(8)
+    seed = torch.tensor(rng.integers(0, 2**32, n), device="cuda")
+    z = torch.zeros(n, 3, device="cuda")
+    x = sf.shade_inputs(small, feats, full_mis, 0.5, 1.0, hit, o, d, seed,
+                        None, z, torch.ones(n, 3, device="cuda"), z, torch.zeros(n, device="cuda"),
+                        sun_disk=True, mip=(0.002, hit.t))
+    for args in ((x.srow, x.taps, x.aux, x.flags), chip_smoke.every_branch(x, rng, full_mis)):
+        before = sf.LAUNCHES["shade_bounce"]
+        kern = sf.shade(*args)
+        torch.cuda.synchronize()
+        assert sf.LAUNCHES["shade_bounce"] == before + 1
+        plain = sf._shade_plain(*args)
+        same = (kern[1] == plain[1]) & (kern[2] == plain[2])
+        assert same.float().mean().item() >= 0.9999
+        np.testing.assert_allclose(kern[0][same].cpu().numpy(), plain[0][same].cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        assert kern[1].float().mean().item() > 0.2

@@ -3,6 +3,7 @@ build the Cornell box with its own (numpy + native runtime) pipeline,
 render one 32x32 frame on the CPU, and check that neither JAX nor the JAX
 package was ever imported."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -39,3 +40,41 @@ def test_port_never_imports_jax():
     )
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+def _non_doc_strings(tree):
+    """String constants of a module other than its docstrings."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                docs.add(id(body[0].value))
+    return [
+        n.value for n in ast.walk(tree)
+        if isinstance(n, ast.Constant) and isinstance(n.value, str) and id(n) not in docs
+    ]
+
+
+def test_port_builds_only_its_own_sources():
+    """The port compiles sources under ``vk_raytrace_torch/`` only, and no
+    module of it names a path of the JAX package outside docstrings and
+    comments."""
+    from vk_raytrace_torch import cuda_build, runtime
+
+    pkg = os.path.join(ROOT, "vk_raytrace_torch")
+    for src in (runtime._SRC, cuda_build.CSRC):
+        assert os.path.commonpath([os.path.abspath(src), pkg]) == pkg, src
+    offenders = []
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            path = os.path.join(dirpath, f)
+            if f.endswith(".py"):
+                with open(path) as fh:
+                    strings = _non_doc_strings(ast.parse(fh.read()))
+                offenders += [(path, s) for s in strings if "vk_raytrace_tpu" in s]
+            elif f.endswith((".cu", ".cuh", ".cpp", ".h")):
+                with open(path) as fh:
+                    offenders += [(path, ln) for ln in fh
+                                  if ln.startswith("#include") and "vk_raytrace_tpu" in ln]
+    assert not offenders, offenders

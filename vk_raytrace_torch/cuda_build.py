@@ -1,0 +1,61 @@
+"""Build the port's CUDA kernels: ``nvcc`` into a shared library with a plain
+C interface, loaded through ctypes by each kernel's wrapper.
+
+Every kernel source lives in ``csrc/`` and is built with the same flags:
+``sm_90a`` (Hopper), and float arithmetic rounded per operation (no FMA
+contraction, IEEE division and square root, denormals kept), so that a
+kernel and its plain torch version round alike. A library is rebuilt when
+it is missing or older than its source (:func:`compile_if_stale`, which the
+native host runtime's g++ build shares); builds go into ``_build/``.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    return path if os.path.exists(path) else "nvcc"
+
+
+def lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def compile_if_stale(out: str, src_path: str, cmd: list) -> str:
+    """Run ``cmd + ["-o", tmp, src_path]`` and move ``tmp`` to ``out`` unless
+    ``out`` is newer than its source. Returns the compiler's stderr ("" when
+    nothing was built); raises with its output when it fails."""
+    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src_path):
+        return ""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = out + f".{os.getpid()}.tmp"
+    full = [*cmd, "-o", tmp, src_path]
+    res = subprocess.run(full, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"build failed ({' '.join(full)}):\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+    return res.stderr
+
+
+def build(name: str, src: str, verbose: bool = False) -> str:
+    """Compile ``csrc/<src>`` into ``_build/lib<name>.so`` unless the library
+    is newer than the source. Returns the library path; with ``verbose``,
+    prints what ``-Xptxas -v`` reports (registers, spills, stack frame)."""
+    out = lib_path(name)
+    log = compile_if_stale(out, os.path.join(CSRC, src), [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v"])
+    if verbose and log:
+        print(log.strip())
+    return out

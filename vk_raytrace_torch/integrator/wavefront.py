@@ -12,6 +12,8 @@ sample, so the schedule never changes the estimator.
 Per bounce: closest hit (opaque kernel, then alpha candidate rounds),
 shade state and material, NEE with MIS, glTF BSDF sample, shadow any-hit,
 Russian roulette, and a scatter of finished paths into the per-unit image.
+With ``fused_shade`` the shading runs as one kernel launch per bounce
+(``integrator/shade_fused.py``) wherever its static conditions hold.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from ..ops.lights import sample_light
 from ..ops.math import dot, firefly_luminance, offset_ray, power_heuristic
 from ..ops.traverse_wide import any_hit_bundle, closest_hit_bundle
 from .camera import generate_rays_for_pixels
+from . import shade_fused
 from .path import cone_lod, env_bsdf_mis_weight, mip_lod_enabled, nee_strategy_pdf, pixel_spread
 from .shade import get_shade_state, resolve_material
 
@@ -38,11 +41,13 @@ _FIELDS = (
 
 def render_units_pooled(
     scene, packed, cfg, frame: int, pix0: int, n_pix: int, pool: int,
-    alpha_pack=None, features=None,
+    alpha_pack=None, features=None, fused_shade: bool = False,
 ):
     """Trace ``n_pix * cfg.max_samples`` paths of pixels ``[pix0, pix0 +
     n_pix)``. Returns ``(radiance_mean (n_pix, 3), rays)``; ``rays`` counts
-    every traced ray (closest-hit rays plus shadow rays) as a 0-d tensor."""
+    every traced ray (closest-hit rays plus shadow rays) as a 0-d tensor.
+    ``fused_shade`` asks for the fused shading stage; it runs where
+    ``shade_fused.supported`` holds, the unfused stage elsewhere."""
     if cfg.pbr_mode == PBR_DISNEY:
         raise NotImplementedError("the Disney BSDF is not ported yet; use PBR_GLTF")
     if cfg.use_sun_sky:
@@ -60,6 +65,7 @@ def render_units_pooled(
     clamp = cfg.firefly_clamp
     n_lights = int(scene.n_lights)
     pack = alpha_pack if cfg.use_any_hit else None
+    use_fused = shade_fused.supported(fused_shade, cfg, scene, features)
 
     def unit_to_local(p_rank):
         t_id = p_rank // 64
@@ -203,15 +209,33 @@ def render_units_pooled(
             nee, light_dir, light_dist, visible, rr_pcont, pdf_b, seed,
         )
 
+    def shade_stage_fused(s, hit, seed):
+        """The same clauses as :func:`shade_stage` in one kernel launch."""
+        mip = None
+        if use_mips:
+            tdist = s["tdist"] + torch.where(hit.tri >= 0, torch.clamp(hit.t, max=1e30), 0.0)
+            mip = (spread, tdist)
+        # bounce() receives the live lanes only, so every lane is active.
+        out = shade_fused.shade_bounce_fused(
+            scene, features, cfg.full_mis, p_select_light, hdr_mult, hit, s["origin"],
+            s["direction"], seed, None, s["radiance"], s["throughput"], s["absorption"],
+            s["bsdf_pdf"], sun_disk=cfg.sun_disk, mip=mip,
+        )
+        return tuple(out[k] for k in (
+            "radiance", "alive", "throughput", "absorption", "new_origin", "new_dir",
+            "nee", "light_dir", "light_dist", "visible", "rr_pcont", "pdf_b", "seed",
+        ))
+
     def bounce(s):
         """One bounce for a batch of live lanes; returns the new state and
         the lanes still alive."""
         hit, seed = closest_hit_bundle(packed, pack, s["origin"], s["direction"], s["seed"])
         n_rays = hit.tri.shape[0]
-        (
-            radiance, alive, throughput, absorption, new_origin, new_dir,
-            nee, light_dir, light_dist, visible, rr_pcont, pdf_b, seed,
-        ) = shade_stage(s, hit, seed)
+        with torch.profiler.record_function("shade_stage"):  # read by chip_profile.py
+            (
+                radiance, alive, throughput, absorption, new_origin, new_dir,
+                nee, light_dir, light_dist, visible, rr_pcont, pdf_b, seed,
+            ) = (shade_stage_fused if use_fused else shade_stage)(s, hit, seed)
         rr_gate = s["depth"] >= cfg.rr_depth if cfg.rr else torch.zeros_like(alive)
         rr_pcont = torch.where(rr_gate, rr_pcont, 1.0)
 

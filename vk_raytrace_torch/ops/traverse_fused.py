@@ -23,11 +23,11 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import os
-import subprocess
 from typing import NamedTuple
 
 import torch
+
+from .. import cuda_build
 
 TERM = -(2**30)
 INF = 1e32
@@ -284,39 +284,13 @@ def _traverse_plain(
 # CUDA kernel: build at first use, bind through ctypes, launch.
 # ---------------------------------------------------------------------------
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "traverse.cu")
-_BUILD_DIR = os.path.join(_PKG, "_build")
-_LIB_PATH = os.path.join(_BUILD_DIR, "libtraverse.so")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
-    "-shared", "-Xcompiler", "-fPIC",
-]
 _lib = None
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    return path if os.path.exists(path) else "nvcc"
 
 
 def build(verbose: bool = False) -> str:
     """Compile ``csrc/traverse.cu`` into ``_build/libtraverse.so`` when the
     library is missing or older than the source. Returns the library path."""
-    if os.path.exists(_LIB_PATH) and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC):
-        return _LIB_PATH
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = _LIB_PATH + f".{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, _SRC]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, _LIB_PATH)
-    if verbose:
-        print(res.stderr.strip())
-    return _LIB_PATH
+    return cuda_build.build("traverse", "traverse.cu", verbose=verbose)
 
 
 def _load():

@@ -83,9 +83,12 @@ POOL_LANES = 1 << 18
 class Renderer:
     """Progressive path tracer over one scene on an explicit device."""
 
-    def __init__(self, scene: SceneData, cfg, device, packed=None):
-        """``packed`` reuses a prebuilt AccelBundle."""
+    def __init__(self, scene: SceneData, cfg, device, packed=None, fused_shade: bool = False):
+        """``packed`` reuses a prebuilt AccelBundle. ``fused_shade`` runs each
+        bounce's shading as one kernel launch where the scene allows it
+        (``integrator/shade_fused.py::supported``); off by default."""
         self.cfg = cfg
+        self.fused_shade = fused_shade
         self.device = torch.device(device)
         self.build_times: dict[str, float] = {}
         scene = dataclasses.replace(scene, camera=with_aspect(scene.camera, cfg.width, cfg.height))
@@ -146,6 +149,7 @@ class Renderer:
             img, r = render_units_pooled(
                 self.scene, self.packed, cfg, frame, i * n_pix, n_pix, pool,
                 alpha_pack=self.alpha_pack, features=self.features,
+                fused_shade=self.fused_shade,
             )
             parts.append(img)
             rays = rays + r

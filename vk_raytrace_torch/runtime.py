@@ -1,41 +1,34 @@
 """The port's binding to the native host builders (C++ through ctypes).
 
-The reference's host runtime ``vk_raytrace_tpu/runtime/native.cpp`` holds the
-hot host loops: binned-SAH planar BVH rows, oct encoding, RGBA8 packing and
-smooth normals. The port compiles that same source with g++ into
-``vk_raytrace_torch/_build/libnative.so`` (rebuilt when the source is newer)
-and binds the calls it needs here, without importing the reference package.
-There is no numpy fallback: every call raises when the library cannot be
-built or loaded.
+``csrc/native.cpp`` holds the hot host loops: binned-SAH planar BVH rows,
+oct encoding, RGBA8 packing and smooth normals (the port's own copy of the
+reference's host runtime, trimmed to these calls). It is compiled with g++
+into ``vk_raytrace_torch/_build/libnative.so`` (rebuilt when the source is
+newer) and bound here. There is no numpy fallback: every call raises when
+the library cannot be built or loaded.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 
 import numpy as np
 
+from . import cuda_build
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(os.path.dirname(_PKG), "vk_raytrace_tpu", "runtime", "native.cpp")
-_BUILD_DIR = os.path.join(_PKG, "_build")
-_LIB_PATH = os.path.join(_BUILD_DIR, "libnative.so")
+_SRC = os.path.join(_PKG, "csrc", "native.cpp")
+_LIB_PATH = os.path.join(cuda_build.BUILD_DIR, "libnative.so")
 _lib = None
 
 
 def build() -> str:
-    """Compile ``native.cpp`` into ``_build/libnative.so`` when the library is
-    missing or older than the source. Returns the library path."""
-    if os.path.exists(_LIB_PATH) and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC):
-        return _LIB_PATH
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = _LIB_PATH + f".{os.getpid()}.tmp"
-    cmd = ["g++", "-O3", "-march=x86-64-v2", "-shared", "-fPIC", "-o", tmp, _SRC]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"g++ failed ({' '.join(cmd)}):\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, _LIB_PATH)
+    """Compile ``csrc/native.cpp`` into ``_build/libnative.so`` when the
+    library is missing or older than the source. Returns the library path."""
+    cuda_build.compile_if_stale(
+        _LIB_PATH, _SRC, ["g++", "-O3", "-march=x86-64-v2", "-shared", "-fPIC"]
+    )
     return _LIB_PATH
 
 
