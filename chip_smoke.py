@@ -54,6 +54,16 @@ PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 67e12
 # 4 compares each, 416), a leaf row 8 triangles (Moller-Trumbore: about 52
 # each, 416).
 OPS_PER_NODE = 416
+# Bytes csrc/traverse.cu loads from a row it visits, in 32-byte sectors: an
+# interior row's child boxes and refs (lanes 0-111); a leaf row's vertex and
+# meta lanes (10 attributes of 8 lanes), all 16 in mode c for the texture UVs.
+INTERIOR_ROW_BYTES, LEAF_ROW_BYTES = 448, {"closest": 320, "any": 320, "candidate": 512}
+# Float operations of one shading lane, counted from csrc/shade.cu for the
+# atrium's flags (base texture, full MIS), each add, multiply, divide,
+# square root, min/max, compare or transcendental as one: shade state ~260,
+# material ~120, NEE with its BSDF evaluation ~260, BSDF sample ~400 and its
+# full-MIS evaluation ~220, the rest ~110. Bytes set the bound by 10x.
+SHADE_OPS_PER_LANE = 1400
 # Shading kernel vs its plain version on the card: the same float32
 # operations in the same order with the same device math functions.
 SHADE_RTOL, SHADE_ATOL, SHADE_MASK_SHARE = 1e-5, 1e-6, 0.9999
@@ -98,33 +108,42 @@ def bound(n_bytes, n_ops):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-_COMPUTE_OPS = {
-    "add", "sub", "rsub", "mul", "div", "neg", "abs", "sqrt", "exp", "log", "sin", "cos",
-    "clamp", "clamp_min", "clamp_max", "maximum", "minimum", "reciprocal", "where", "lt", "le",
-    "gt", "ge", "eq", "ne", "logical_and", "logical_or", "logical_not", "bitwise_and",
-    "bitwise_or", "bitwise_xor", "bitwise_not", "__rshift__", "__lshift__",
-    "bitwise_right_shift", "bitwise_left_shift",
-}
+def shade_bytes(n, flags):
+    """Bytes the shading kernel moves for ``n`` lanes under ``flags``,
+    counted from csrc/shade.cu in 32-byte sectors: the merged-row lanes it
+    loads (not the uv-transform and texture-placement lanes, which the
+    prologue reads, nor the row's padding), the taps and footprint weights
+    of the enabled textures, the rest of aux, and the outputs."""
+    from vk_raytrace_torch.integrator import shade_fused as sf
+    from vk_raytrace_torch.integrator.shade import _OFFS
 
+    def mat(name, k=1):
+        return range(sf._SROW_MAT0 + _OFFS[name], sf._SROW_MAT0 + _OFFS[name] + k)
 
-def count_ops(fn, *args):
-    """Elementwise operations of ``fn(*args)``: the elements every
-    arithmetic, compare and select op of the plain version produces."""
-    from torch.utils._python_dispatch import TorchDispatchMode
+    # vertex positions, normals, tangents and handedness; vertex colours
+    srow = [*range(0, 22), *range(28, 34)]
+    for name, k in (("emissive_factor", 3), ("ior", 1), ("rough_f", 1), ("metal_f", 1),
+                    ("base_factor", 3), ("transmission_f", 1), ("unlit", 1), ("aniso", 1),
+                    ("atten_color", 3), ("atten_dist", 1), ("thickness", 1), ("cc_f", 1),
+                    ("cc_rough", 1)):
+        srow += mat(name, k)
+    taps, aux = [], [*range(10, sf.AUX_W)]
+    for k, (name, on) in enumerate((("base", flags.base_tex), ("mr", flags.mr_tex),
+                                    ("normal", flags.normal_tex),
+                                    ("emissive", flags.emissive_tex))):
+        if on:
+            srow += mat(f"{name}_tex")
+            taps += range(4 * k, 4 * k + 4)
+            aux += [2 * k, 2 * k + 1]
+    if flags.normal_tex:
+        srow += mat("normal_scale")
+    if flags.anisotropy:
+        srow += mat("aniso_dir", 3)
 
-    class Count(TorchDispatchMode):
-        n = 0
+    def sectors(lanes):
+        return len({4 * i // 32 for i in lanes}) * 32
 
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            if func.overloadpacket.__name__.rstrip("_") in _COMPUTE_OPS:
-                Count.n += sum(o.numel() for o in (out if isinstance(out, tuple) else (out,))
-                               if isinstance(o, torch.Tensor))
-            return out
-
-    with Count():
-        fn(*args)
-    return Count.n
+    return n * (sectors(srow) + sectors(taps) + sectors(aux) + sf.OUT_W * 4 + 2)
 
 
 def build_kernels():
@@ -345,7 +364,8 @@ def main():
     errors, times, bounds = {}, {}, {}
     for mode, (planar, oo, dd, tm, cull) in cases.items():
         kern = tf.traverse(planar, oo, dd, tm, mode=mode, cull=cull)
-        twin = tf._traverse_plain(planar, oo, dd, tm, None, mode, cull)
+        seen = torch.zeros(planar.rows.shape[0], dtype=torch.int8, device=dev)
+        twin = tf._traverse_plain(planar, oo, dd, tm, None, mode, cull, seen)
         torch.cuda.synchronize()
         errors[mode] = compare(mode, kern, twin)
         hit_share = float((kern[1] >= 0).float().mean())
@@ -354,16 +374,19 @@ def main():
         plain_ms = cuda_time(lambda: tf._traverse_plain(planar, oo, dd, tm, None, mode, cull), 2)
         times[mode] = (ms, plain_ms)
         # Bytes: rays in (origin, direction, t_max) and out (t, tri, u, v,
-        # steps, + uv in mode c), plus the rows visited, at most the table.
+        # steps, + uv in mode c), plus each distinct row the rays visit once.
         nodes = float(kern[4].double().sum())
         out_b = 28 if mode == "candidate" else 20
-        n_bytes = n * (28 + out_b) + min(planar.rows.numel() * 4, nodes * 512)
+        n_inner, n_leaf = int((seen == 1).sum()), int((seen == 2).sum())
+        n_bytes = (n * (28 + out_b) + n_inner * INTERIOR_ROW_BYTES
+                   + n_leaf * LEAF_ROW_BYTES[mode])
         bounds[mode] = bound(n_bytes, nodes * OPS_PER_NODE)
         print(f"mode {mode}: {n} rays, hit share {hit_share:.4f}, mean nodes/ray "
               f"{steps:.2f}, max |err| {errors[mode]:.3g} -> OK; kernel {ms:.3f} ms, "
               f"twin {plain_ms:.3f} ms, bound {bounds[mode][0]:.4f} ms by {bounds[mode][1]} "
-              f"({n_bytes / 1e6:.1f} MB, {nodes * OPS_PER_NODE / 1e9:.3f} Gop) ({card})",
-              flush=True)
+              f"({n_bytes / 1e6:.1f} MB with {n_inner} interior + {n_leaf} leaf rows of "
+              f"{planar.rows.shape[0]} visited, {nodes * OPS_PER_NODE / 1e9:.3f} Gop; "
+              f"{ms / bounds[mode][0]:.1f}x the bound) ({card})", flush=True)
 
     # ---- 4. render slice: card vs CPU twin ---------------------------------
     phase("slice vs twin")
@@ -474,12 +497,12 @@ def main():
               f"{agree:.6f}, max |err| {err:.3g} -> OK", flush=True)
     shade_ms = cuda_time(lambda: sf.shade(*real), 20)
     shade_plain_ms = cuda_time(lambda: sf._shade_plain(*real), 2)
-    shade_bytes = n * (128 * 4 + 16 * 4 + sf.AUX_W * 4) + n * (sf.OUT_W * 4 + 2)
-    shade_ops = count_ops(sf._shade_plain, *real)
-    shade_bound = bound(shade_bytes, shade_ops)
+    s_bytes, s_ops = shade_bytes(n, x.flags), n * SHADE_OPS_PER_LANE
+    shade_bound = bound(s_bytes, s_ops)
     print(f"shade kernel {shade_ms:.3f} ms, plain {shade_plain_ms:.3f} ms at {n} lanes; bound "
-          f"{shade_bound[0]:.4f} ms by {shade_bound[1]} ({shade_bytes / 1e6:.1f} MB, "
-          f"{shade_ops / 1e9:.3f} Gop counted in the plain version) ({card})", flush=True)
+          f"{shade_bound[0]:.4f} ms by {shade_bound[1]} ({s_bytes / 1e6:.1f} MB, "
+          f"{s_bytes / n:.0f} B per lane, {s_ops / 1e9:.3f} Gop; flags {x.flags}; "
+          f"{shade_ms / shade_bound[0]:.1f}x the bound) ({card})", flush=True)
 
     # ---- 7. main path, fused shading ----------------------------------------
     phase("main path, fused shading")

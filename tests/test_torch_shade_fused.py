@@ -15,7 +15,7 @@
    exp/log forms.
 3. The port's fused renderer against the reference's fused renderer
    (``VKRT_FUSED_SHADE=1``), with the thresholds of
-   ``tests/test_torch_render.py`` (frame 0 aside, see the test).
+   ``tests/test_torch_render.py``, on jittered frames.
 """
 
 from typing import NamedTuple
@@ -205,18 +205,19 @@ def test_fused_matches_unfused(request, case):
 
 
 def test_fused_renderer_matches_reference_fused(monkeypatch):
-    """Cornell at the reference's own parity config. Frame 0 shoots
-    unjittered pixel-centre rays, some of which land exactly on the shared
+    """Cornell at the reference's own parity config, with the thresholds of
+    ``tests/test_torch_render.py``. Both renderers start at frame 1: frame 0
+    shoots unjittered pixel-centre rays, which land exactly on the shared
     diagonals of the box's quads, where an ulp (XLA's FMA against torch's
-    rounding) decides the triangle: the unfused stages of the two packages
-    differ there in the same way, so that frame's ray count is held to 1%;
-    the jittered frames after it to 0.1%."""
+    rounding) picks the triangle and so the path; from frame 1 on the rays
+    are jittered."""
     monkeypatch.setenv("VKRT_FUSED_SHADE", "1")
     monkeypatch.setenv("VKRT_FUSED", "1")
     g, m, l, c = ref_proc.cornell_box()
     kw = dict(width=32, height=32, max_depth=2, max_samples=2, hdr_multiplier=0.0,
               pbr_mode=PBR_GLTF)
     ref = ref_render.Renderer(ref_render.build_scene(g, m, l, c), RefConfig(**kw))
+    ref.frame = 1
     ref_rays = []
     for _ in range(3):
         ref.step()
@@ -224,6 +225,7 @@ def test_fused_renderer_matches_reference_fused(monkeypatch):
     scene, bundle = from_reference(ref.scene, ref.packed)
     port = port_render.Renderer(scene, RenderConfig(**kw), device="cpu", packed=bundle,
                                 fused_shade=True)
+    port.frame = 1
     rays = []
     for _ in range(3):
         port.step()
@@ -232,6 +234,5 @@ def test_fused_renderer_matches_reference_fused(monkeypatch):
     assert np.isfinite(img).all() and img.mean() > 0.0
     share = np.isclose(img, ref_img, rtol=1e-3, atol=1e-4).all(-1).mean()
     assert share >= 0.99, share
-    assert abs(rays[0] - ref_rays[0]) <= 1e-2 * ref_rays[0], (ref_rays, rays)
-    for r, p in zip(ref_rays[1:], rays[1:]):
+    for r, p in zip(ref_rays, rays):
         assert abs(p - r) <= 1e-3 * r, (ref_rays, rays)

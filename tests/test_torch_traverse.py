@@ -111,6 +111,29 @@ def test_closest_hit_matches_reference_kernel(atrium):
                 ref.tri, ref.t, ref.u, ref.v)
 
 
+def test_plain_twin_marks_the_rows_it_visits(atrium):
+    """The twin's record of visited rows, which sets the traversal kernel's
+    byte bound in ``chip_smoke.py``: a ray visits each row of the tree at
+    most once, so one ray marks as many rows as it takes steps, and a batch
+    marks the union of its rays' rows."""
+    scene, _, _, bundle = atrium
+    planar = bundle.opaque_planar
+    n = 8
+    o, d = _rays(4, scene.geometry, n=n)
+    t_max = torch.full((n,), port_tf.INF)
+    union = torch.zeros(planar.rows.shape[0], dtype=torch.int8)
+    for i in range(n):
+        seen = torch.zeros_like(union)
+        out = port_tf._traverse_plain(planar, _t(o[i:i + 1]), _t(d[i:i + 1]), t_max[:1], None,
+                                      "closest", True, seen)
+        assert int((seen != 0).sum()) == int(out[4][0])
+        union = torch.maximum(union, seen)
+    seen = torch.zeros_like(union)
+    port_tf._traverse_plain(planar, _t(o), _t(d), t_max, None, "closest", True, seen)
+    assert torch.equal(seen, union)
+    assert int((seen == 1).sum()) > 0 and int((seen == 2).sum()) > 0
+
+
 def test_any_hit_matches_reference_kernel(atrium):
     scene, packed, _, bundle = atrium
     o, d = _rays(2, scene.geometry)

@@ -824,6 +824,8 @@ def _shade_cuda(srow, taps, aux, flags: ShadeFlags):
     out_vec = torch.empty(r, OUT_W, dtype=torch.float32, device=dev)
     alive = torch.empty(r, dtype=torch.bool, device=dev)
     visible = torch.empty(r, dtype=torch.bool, device=dev)
+    if r == 0:  # nothing to launch, and so nothing to count
+        return out_vec, alive, visible
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.vkrt_shade(
         srow.data_ptr(), taps.data_ptr(), aux.data_ptr(), r, flags.bits(),

@@ -125,11 +125,13 @@ def _minfold(cols):
 
 
 def _traverse_plain(
-    planar: PlanarScene, origin, direction, t_max, active, mode: str, cull: bool
+    planar: PlanarScene, origin, direction, t_max, active, mode: str, cull: bool, seen=None
 ):
     """Plain torch twin of the kernel: every step advances all live rays by
     one node, with an (R, D) stack, ``torch.sort`` for the child order and
-    gathered rows. Returns (t, tri, u, v, steps, uvu, uvv)."""
+    gathered rows. Returns (t, tri, u, v, steps, uvu, uvv). ``seen``, an
+    optional (X,) int8 tensor over the rows, is set to 1 at every interior
+    row and 2 at every leaf row that some ray visits."""
     rows = planar.rows
     W = planar.width
     LT = W // 2
@@ -167,7 +169,10 @@ def _traverse_plain(
         t_prune = torch.minimum(tb, ct) if cand else tb
         is_wide = c >= 0
         vleaf = -c - 1
-        row = rows[torch.where(is_wide, c, vleaf >> CB)]
+        row_id = torch.where(is_wide, c, vleaf >> CB)
+        row = rows[row_id]
+        if seen is not None:
+            seen[row_id] = torch.where(is_wide, 1, 2).to(seen.dtype)
         dep = depth[act]
         nxt = torch.full_like(c, TERM)
         need_pop = ~is_wide
@@ -344,7 +349,9 @@ def _traverse_cuda(planar, origin, direction, t_max, active, mode, cull):
     cand = mode == "candidate"
     uvu = torch.empty(R, dtype=torch.float32, device=dev) if cand else None
     uvv = torch.empty(R, dtype=torch.float32, device=dev) if cand else None
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    if R == 0:  # nothing to launch, and so nothing to count
+        return t, tri.long(), u, v, steps, uvu, uvv
+    stream =torch.cuda.current_stream(dev).cuda_stream
     err = lib.vkrt_traverse(
         _MODE_ID[mode], int(cull), rows.data_ptr(), planar.stack_depth,
         origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), act_ptr, R,
