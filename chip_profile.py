@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
 """Where a frame of the port's main path spends its time on one GPU.
 
-    python3 chip_profile.py [--frames N] [--top K] [--fused-shade]
+    python3 chip_profile.py [--scene atrium|bistro] [--frames N] [--top K] [--fused-shade]
 
-Builds the full atrium, renders it at 1920x1080, depth 4, 1 spp, sun&sky
-(the main path of ``chip_smoke.py``; with ``--fused-shade`` through the
-fused shading stage), times N unprofiled frames after two warm-up frames,
-then traces one more frame with ``torch.profiler``. It prints, for the
-traced frame:
+Builds the full atrium (single level) or the full bistro (two levels,
+``build_instanced_scene``, the configuration of ``chip_smoke.py`` phase 11:
+full_mis off, HDR multiplier 1), renders it at 1920x1080, depth 4, 1 spp,
+sun&sky, firefly clamp 10 (with ``--fused-shade`` through the fused shading
+stage), times N unprofiled frames after two warm-up frames, then traces one
+more frame with ``torch.profiler``. It prints, for the traced frame:
 
 * wall: host clock around ``Renderer.step()`` + synchronize, profiled;
 * device busy: the union of the intervals of every device activity
   (kernels, copies, sets) in the trace, in ms and as a share of wall;
 * launches: the number of device kernels, and how many distinct ones;
-* traversal: device ms and launches of the traversal kernel (all modes);
+* traversal: device ms and launches of the traversal kernel, in all and
+  by mode (closest, any, candidate; with per-lane roots in the bistro,
+  whose two-level path runs no other traversal, from the tree's root in
+  the atrium);
 * shading: device ms and launches of the kernels that ran inside the
   device spans of the wavefront's ``shade_stage`` ranges (the whole stage,
   eager or fused), and the fused shading kernel's own ms and launches;
@@ -21,6 +25,7 @@ traced frame:
 """
 
 import argparse
+import re
 import subprocess
 import sys
 import time
@@ -28,6 +33,8 @@ import time
 import torch
 
 TRAVERSE = "traverse_kernel"
+TRAVERSE_MODE = re.compile(r"traverse_kernel<(\d)")  # the template's MODE argument
+MODES = ("closest", "any", "candidate")  # csrc/traverse.cu enum Mode
 SHADE = "shade_kernel"
 STAGE = "shade_stage"  # the wavefront's profiler range around its shading stage
 
@@ -64,6 +71,7 @@ def busy_us(events) -> float:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", choices=("atrium", "bistro"), default="atrium")
     ap.add_argument("--frames", type=int, default=3, help="unprofiled timed frames")
     ap.add_argument("--top", type=int, default=20, help="kernels listed by device time")
     ap.add_argument("--fused-shade", action="store_true", help="render with the fused shading stage")
@@ -79,10 +87,16 @@ def main():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    geom, mats, lights, cam, atlas = procedural.atrium_scene()
-    scene = R.build_scene(geom, mats, lights, cam, atlas=atlas)
+    if args.scene == "bistro":
+        pool, inst, mats, lights, cam, atlas = procedural.bistro_scene()
+        scene = R.build_instanced_scene(pool, inst, mats, lights, cam, atlas=atlas)
+        extra = dict(hdr_multiplier=1.0, full_mis=False)
+    else:
+        geom, mats, lights, cam, atlas = procedural.atrium_scene()
+        scene = R.build_scene(geom, mats, lights, cam, atlas=atlas)
+        extra = {}
     cfg = RenderConfig(width=1920, height=1080, max_depth=4, max_samples=1, pbr_mode=PBR_GLTF,
-                       firefly_clamp=10.0, use_sun_sky=True)
+                       firefly_clamp=10.0, use_sun_sky=True, **extra)
     r = R.Renderer(scene, cfg, device=dev, fused_shade=args.fused_shade)
     for _ in range(2):
         r.step()
@@ -116,13 +130,19 @@ def main():
         tot, cnt = per_name.get(name, (0.0, 0))
         per_name[name] = (tot + (e - s) / 1e3, cnt + 1)
 
-    print(f"card: {card}; shading stage {'fused' if args.fused_shade else 'eager'}")
+    print(f"card: {card}; scene {args.scene}; shading stage "
+          f"{'fused' if args.fused_shade else 'eager'}")
     print(f"unprofiled frames (s): {frames}; rays/frame {r.last_rays}")
     print(f"profiled frame: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
           f"({100 * busy / (wall * 1e3):.1f}%)")
     print(f"launches: {len(kernels)} kernels, {len(per_name)} distinct; "
           f"device activities {len(events)}")
     print(f"traversal: {sum(e - s for _, s, e in trav) / 1e3:.3f} ms in {len(trav)} launches")
+    roots = "with per-lane roots" if args.scene == "bistro" else "from the root"
+    for i, mode in enumerate(MODES):
+        evs = [ev for ev in trav if (m := TRAVERSE_MODE.search(ev[0])) and int(m.group(1)) == i]
+        print(f"  {mode} ({roots}): {sum(e - s for _, s, e in evs) / 1e3:.3f} ms in "
+              f"{len(evs)} launches")
     print(f"shading stage: {stage_ms:.3f} device ms in {len(in_stage)} launches "
           f"({len(stages)} stage spans); fused kernel "
           f"{sum(e - s for _, s, e in shade_k) / 1e3:.3f} ms in {len(shade_k)} launches")

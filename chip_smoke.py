@@ -24,7 +24,23 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
    material lanes redrawn from a seed) with full MIS on and off; both timed;
 7. the main path with the fused shading stage (``Renderer(...,
    fused_shade=True)``): one warm-up and three timed frames; the shading
-   kernel and every traversal mode must have launched.
+   kernel and every traversal mode must have launched;
+8. traversal with per-lane roots (the two-level path's kernel modes)
+   against its twin on the full bistro (579k unique, >1M instanced
+   triangles) at 2^18 rays: each ray's first instance candidate, moved into
+   that instance's object space; modes a and b over the opaque-subset
+   table, c over the alpha-subset table toward the foliage; all timed;
+9. the two-level render slice on the card against the CPU twin: a small
+   bistro at 128x72, depth 4, 1 spp, 2 frames, unfused and fused, and
+   fused against unfused on the card;
+10. the instanced shading kernel against its plain version at 2^18 lanes:
+    the bistro's camera hits (with their instances), then every branch
+    with full MIS on and off; timed;
+11. the two-level main path: the full bistro through
+    ``build_instanced_scene`` and ``Renderer(..., fused_shade=True)`` at
+    1920x1080, depth 4, 1 spp, glTF PBR, sun&sky, firefly clamp 10,
+    full_mis off; one warm-up and three timed frames; every traversal mode
+    with roots and the shading kernel must have launched.
 
 The line before the last is the per-kernel JSON summary (times, launches,
 errors and each kernel's bound on this card); the last line is
@@ -43,8 +59,10 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "vk_raytrace_torch/csrc/traverse.cu"
 REPLACES = "vk_raytrace_tpu/ops/traverse_fused.py:255"  # _make_step_kernel
+ROOTS_REPLACES = "vk_raytrace_tpu/ops/traverse_fused.py:724"  # root0 (mode d)
 SHADE_SOURCE = "vk_raytrace_torch/csrc/shade.cu"
 SHADE_REPLACES = "vk_raytrace_tpu/integrator/shade_fused.py:290"  # _make_kernel
+SHADE_INST_REPLACES = "vk_raytrace_tpu/integrator/shade_fused.py:367"  # instanced
 # The card's peaks (H100 SXM data sheet): memory rate and float32 rate
 # outside the tensor cores; a kernel's bound is the larger of its bytes and
 # its operations over them.
@@ -64,6 +82,14 @@ INTERIOR_ROW_BYTES, LEAF_ROW_BYTES = 448, {"closest": 320, "any": 320, "candidat
 # material ~120, NEE with its BSDF evaluation ~260, BSDF sample ~400 and its
 # full-MIS evaluation ~220, the rest ~110. Bytes set the bound by 10x.
 SHADE_OPS_PER_LANE = 1400
+# The instanced variant adds the transform of position, both normals and
+# the tangent (9 products and 6 sums each, 3 more sums for the position)
+# and three normalisations of 9 operations: 90.
+SHADE_INST_OPS_PER_LANE = SHADE_OPS_PER_LANE + 90
+# The bistro's render configuration (BASELINE config #5,
+# scripts/baseline_configs.py:74-75, 93-97), at the main path's size.
+BISTRO_CFG = dict(max_depth=4, max_samples=1, hdr_multiplier=1.0, firefly_clamp=10.0,
+                  use_sun_sky=True, full_mis=False)
 # Shading kernel vs its plain version on the card: the same float32
 # operations in the same order with the same device math functions.
 SHADE_RTOL, SHADE_ATOL, SHADE_MASK_SHARE = 1e-5, 1e-6, 0.9999
@@ -127,7 +153,7 @@ def shade_bytes(n, flags):
                     ("atten_color", 3), ("atten_dist", 1), ("thickness", 1), ("cc_f", 1),
                     ("cc_rough", 1)):
         srow += mat(name, k)
-    taps, aux = [], [*range(10, sf.AUX_W)]
+    taps, aux = [], [*range(10, sf.aux_width(flags.instanced))]
     for k, (name, on) in enumerate((("base", flags.base_tex), ("mr", flags.mr_tex),
                                     ("normal", flags.normal_tex),
                                     ("emissive", flags.emissive_tex))):
@@ -221,6 +247,23 @@ def rays_at(rng, geom, ids, n, dev):
     return o.to(dev), torch.tensor(d, dtype=torch.float32, device=dev)
 
 
+def rays_toward_instances(rng, pool, inst, pick, origins, dev):
+    """Rays from ``origins`` (n, 3) toward random points of random triangles
+    of the instances ``pick`` (n,), carried to world space by their
+    object-to-world rows."""
+    n = len(pick)
+    mesh = np.asarray(inst.mesh_id)[pick]
+    tri = np.asarray(pool.tri_start)[mesh] + (
+        rng.random(n) * np.asarray(pool.tri_count)[mesh]).astype(np.int64)
+    p = np.einsum("rk,rkc->rc", rng.dirichlet(np.ones(3), n),
+                  np.asarray(pool.geometry.positions)[np.asarray(pool.geometry.indices)[tri]])
+    m = np.asarray(inst.object_to_world)[pick]
+    d = np.einsum("rij,rj->ri", m[:, :, :3], p) + m[:, :, 3] - origins
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.tensor(origins, dtype=torch.float32, device=dev),
+            torch.tensor(d, dtype=torch.float32, device=dev))
+
+
 def camera_rays(cam, w, h, n, rng, dev):
     from vk_raytrace_torch.integrator.camera import generate_rays_for_pixels
     from vk_raytrace_torch.ops import rng as vrng
@@ -272,7 +315,7 @@ def every_branch(x, rng, full_mis):
                         device=dev)
     aux = x.aux.clone()
     aux[:, 0:8] = u(0.0, 1.0, 8)
-    flags = sf.ShadeFlags(True, True, True, True, True, full_mis)
+    flags = sf.ShadeFlags(True, True, True, True, True, full_mis, x.flags.instanced)
     return srow.contiguous(), taps, aux.contiguous(), flags
 
 
@@ -299,6 +342,32 @@ def compare(mode, kern, twin):
             errs.append(np.abs(a - b))
     assert hit.mean() > 0.2, f"{mode}: too few hits to compare ({hit.mean():.3f})"
     return float(max(e.max(initial=0.0) for e in errs))
+
+
+def first_candidates(acc, subset, o, d, t_max, n):
+    """The rays' first instance candidates over the ``subset`` ("opq" or
+    "alp") boxes of the instances that have such triangles, moved into
+    their instance's object space; ``n`` of the rays that have one (cycled
+    when fewer do). Returns (origin, direction, t_max, root0, share of rays
+    with a candidate)."""
+    import dataclasses
+
+    from vk_raytrace_torch.ops import tlas
+
+    view = dataclasses.replace(acc.inst, aabb_min=getattr(acc, f"inst_aabb_{subset}_min"),
+                               aabb_max=getattr(acc, f"inst_aabb_{subset}_max"))
+    mask = acc.inst_opaque if subset == "opq" else acc.inst_alpha
+    entry = tlas._instance_slab(view, o, d, t_max, mask)
+    r = o.shape[0]
+    _, nid = tlas._next_candidate(entry, torch.full((r,), tlas._NEG, device=o.device),
+                                  torch.full((r,), -1, dtype=torch.int64, device=o.device))
+    sel = torch.nonzero(nid >= 0).squeeze(1)
+    share = sel.numel() / r
+    sel = sel[torch.arange(n, device=o.device) % sel.numel()]
+    oo, dd = tlas._transform_rays(acc.inst, nid[sel], o[sel], d[sel])
+    roots = torch.clamp(getattr(acc, f"mesh_root_{subset}"), min=0)
+    root0 = roots[acc.inst.mesh_id[nid[sel]]].to(torch.int32)
+    return oo.contiguous(), dd.contiguous(), t_max[sel].contiguous(), root0.contiguous(), share
 
 
 def main():
@@ -531,6 +600,165 @@ def main():
           f"call: {s_frame:.4f} s/frame, {mrays:.4f} Mrays/s, peak {peak_mb:.1f} MiB [{card}]",
           flush=True)
 
+    # ---- 8. traversal with per-lane roots on the full bistro ---------------
+    phase("roots kernel vs twin")
+    from vk_raytrace_torch.ops import tlas
+
+    del rf  # the fused atrium renderer's memory is done with
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    pool, inst, b_mats, b_lights, b_cam, b_atlas = procedural.bistro_scene()
+    b_gen_s = time.time() - t0
+    t0 = time.time()
+    bscene = R.build_instanced_scene(pool, inst, b_mats, b_lights, b_cam, atlas=b_atlas)
+    b_tables_s = time.time() - t0
+    acc = bscene.instances.to(dev)
+    n_inst_tris = int(np.asarray(pool.tri_count)[np.asarray(inst.mesh_id)].sum())
+    print(f"bistro: {len(pool.geometry.indices)} unique triangles, {n_inst_tris} instanced, "
+          f"{len(inst.mesh_id)} instances of {len(pool.tri_start)} meshes; rows full "
+          f"{acc.blas_planar.rows.shape[0]}, opaque {acc.blas_planar_opq.rows.shape[0]} (stack "
+          f"{acc.blas_planar_opq.stack_depth}), alpha {acc.blas_planar_alp.rows.shape[0]} (stack "
+          f"{acc.blas_planar_alp.stack_depth}); scene {b_gen_s:.2f} s, tables and accel "
+          f"{b_tables_s:.2f} s", flush=True)
+    bcam_dev = with_aspect(b_cam, 1920, 1080).to(dev)
+    oc, dc = camera_rays(bcam_dev, 1920, 1080, 2 * n, rng, dev)
+    t_far = torch.full((2 * n,), tf.INF, device=dev)
+    t_near = torch.tensor(rng.uniform(0.5, 20.0, 2 * n), dtype=torch.float32, device=dev)
+    # Mode c: rays from around the camera toward the foliage instances.
+    leaf_inst = np.nonzero(np.asarray(bscene.instances.inst_alpha))[0]
+    eye = np.asarray(b_cam.view_inverse)[:3, 3]
+    o_leaf, d_leaf = rays_toward_instances(rng, pool, inst, rng.choice(leaf_inst, 2 * n),
+                                           eye + rng.uniform(-2.0, 2.0, (2 * n, 3)), dev)
+    root_cases = {
+        "closest": ("opq", oc, dc, t_far, True),
+        "any": ("opq", oc, dc, t_near, False),
+        "candidate": ("alp", o_leaf, d_leaf, t_far, True),
+    }
+    for mode, (subset, oo, dd, tm, cull) in root_cases.items():
+        name = f"{mode}_roots"
+        planar = getattr(acc, f"blas_planar_{subset}")
+        oo, dd, tm, root0, share_c = first_candidates(acc, subset, oo, dd, tm, n)
+        kern = tf.traverse(planar, oo, dd, tm, mode=mode, cull=cull, root0=root0)
+        seen = torch.zeros(planar.rows.shape[0], dtype=torch.int8, device=dev)
+        twin = tf._traverse_plain(planar, oo, dd, tm, None, mode, cull, seen, root0=root0)
+        torch.cuda.synchronize()
+        errors[name] = compare(mode, kern, twin)
+        hit_share = float((kern[1] >= 0).float().mean())
+        steps = float(kern[4].float().mean())
+        ms = cuda_time(lambda: tf.traverse(planar, oo, dd, tm, mode=mode, cull=cull, root0=root0), 20)
+        plain_ms = cuda_time(
+            lambda: tf._traverse_plain(planar, oo, dd, tm, None, mode, cull, root0=root0), 2)
+        times[name] = (ms, plain_ms)
+        # Bytes: rays in (origin, direction, t_max, root) and out, plus each
+        # distinct row the rays visit once.
+        nodes = float(kern[4].double().sum())
+        out_b = 28 if mode == "candidate" else 20
+        n_inner, n_leaf = int((seen == 1).sum()), int((seen == 2).sum())
+        n_bytes = (n * (32 + out_b) + n_inner * INTERIOR_ROW_BYTES
+                   + n_leaf * LEAF_ROW_BYTES[mode])
+        bounds[name] = bound(n_bytes, nodes * OPS_PER_NODE)
+        print(f"mode {name} ({subset} subset): {n} rays ({share_c:.3f} of the generated rays "
+              f"enter an instance box), hit share {hit_share:.4f}, mean nodes/ray {steps:.2f}, "
+              f"max |err| {errors[name]:.3g} -> OK; kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, "
+              f"bound {bounds[name][0]:.4f} ms by {bounds[name][1]} ({n_bytes / 1e6:.1f} MB with "
+              f"{n_inner} interior + {n_leaf} leaf rows of {planar.rows.shape[0]} visited, "
+              f"{nodes * OPS_PER_NODE / 1e9:.3f} Gop; {ms / bounds[name][0]:.1f}x the bound) "
+              f"({card})", flush=True)
+    del oc, dc, o_leaf, d_leaf, kern, twin
+
+    # ---- 9. two-level render slice: card vs CPU twin ------------------------
+    phase("bistro slice vs twin")
+    sp, si, sm, sl, sc, sa = procedural.bistro_scene(detail=0.05)
+    bsmall = R.build_instanced_scene(sp, si, sm, sl, sc, atlas=sa)
+    cfg_b = RenderConfig(width=128, height=72, pbr_mode=PBR_GLTF, **BISTRO_CFG)
+    bsmall, brun_cfg = R.prepare_sun_sky(bsmall, cfg_b, "cpu")
+    b_imgs, b_rays = {}, {}
+    for fused in (False, True):
+        for where in ("cuda", "cpu"):
+            r = R.Renderer(bsmall, brun_cfg, device=where, fused_shade=fused)
+            b_rays[fused, where] = []
+            for _ in range(2):
+                r.step()
+                b_rays[fused, where].append(r.last_rays)
+            b_imgs[fused, where] = r.accum.cpu().numpy()
+    assert np.isfinite(b_imgs[True, "cuda"]).all() and b_imgs[True, "cuda"].mean() > 0.0
+    for what, ka, kb in (("cuda vs cpu", (False, "cuda"), (False, "cpu")),
+                         ("fused cuda vs cpu", (True, "cuda"), (True, "cpu")),
+                         ("fused vs unfused (cuda)", (True, "cuda"), (False, "cuda"))):
+        share = float(np.isclose(b_imgs[ka], b_imgs[kb], rtol=PIX_RTOL, atol=PIX_ATOL)
+                      .all(-1).mean())
+        ray_rel = abs(sum(b_rays[ka]) - sum(b_rays[kb])) / sum(b_rays[kb])
+        print(f"bistro 128x72 d4 {what}: pixels within tolerance {share:.5f}; rays "
+              f"{b_rays[ka]} vs {b_rays[kb]} (rel {ray_rel:.2e})", flush=True)
+        assert share >= PIX_SHARE, f"bistro slice {what}: only {share:.4f} of pixels agree"
+        assert ray_rel <= RAY_REL, f"bistro slice {what}: ray counts differ by {ray_rel:.2e}"
+
+    # ---- 10. instanced shading kernel vs plain on the card -------------------
+    phase("instanced shade kernel vs plain")
+    b_cfg = RenderConfig(width=1920, height=1080, pbr_mode=PBR_GLTF, **BISTRO_CFG)
+    t0 = time.time()
+    rb = R.Renderer(bscene, b_cfg, device=dev, fused_shade=True)
+    b_renderer_s = time.time() - t0
+    del acc, bscene
+    b_run = rb._run_cfg
+    oc, dc = camera_rays(rb.scene.camera, 1920, 1080, n, rng, dev)
+    seed = torch.tensor(rng.integers(0, 2**32, n), device=dev)
+    hit, _ = tlas.closest_hit_instanced(rb.packed, rb.alpha_pack, oc, dc, seed=seed)
+    x = sf.shade_inputs(
+        rb.scene, rb.features, b_run.full_mis, 0.5, b_run.hdr_multiplier, hit, oc, dc, seed, None,
+        zeros3, torch.ones(n, 3, device=dev), zeros3, torch.zeros(n, device=dev),
+        instances=rb.packed.inst, sun_disk=b_run.sun_disk,
+        mip=(pixel_spread(rb.scene, 1080), torch.clamp(hit.t, max=1e30)),
+    )
+    assert x.flags.instanced and x.aux.shape[1] == sf.aux_width(True)
+    real = (x.srow, x.taps, x.aux, x.flags)
+    sets = [("bistro camera hits", real)]
+    for full_mis in (True, False):
+        sets.append((f"every branch, instanced, full_mis={full_mis}", every_branch(x, rng, full_mis)))
+    inst_err = 0.0
+    for what, args in sets:
+        kern = sf.shade(*args)
+        torch.cuda.synchronize()
+        err, agree = compare_shade(kern, sf._shade_plain(*args))
+        inst_err = max(inst_err, err)
+        print(f"shade {what}: {n} lanes, alive {float(kern[1].float().mean()):.4f}, masks agree "
+              f"{agree:.6f}, max |err| {err:.3g} -> OK", flush=True)
+    inst_ms = cuda_time(lambda: sf.shade(*real), 20)
+    inst_plain_ms = cuda_time(lambda: sf._shade_plain(*real), 2)
+    i_bytes, i_ops = shade_bytes(n, x.flags), n * SHADE_INST_OPS_PER_LANE
+    inst_bound = bound(i_bytes, i_ops)
+    print(f"instanced shade kernel {inst_ms:.3f} ms, plain {inst_plain_ms:.3f} ms at {n} lanes; "
+          f"bound {inst_bound[0]:.4f} ms by {inst_bound[1]} ({i_bytes / 1e6:.1f} MB, "
+          f"{i_bytes / n:.0f} B per lane, {i_ops / 1e9:.3f} Gop; flags {x.flags}; "
+          f"{inst_ms / inst_bound[0]:.1f}x the bound) ({card})", flush=True)
+    del x, real, sets, kern, hit, oc, dc
+
+    # ---- 11. the two-level main path ----------------------------------------
+    phase("two-level main path")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tf.reset_launches()
+    sf.reset_launches()
+    b_warm_s, b_frame_s, b_frame_rays = run_frames(rb)
+    b_launches = {**tf.LAUNCHES, **sf.LAUNCHES}
+    b_img = rb.accum.cpu().numpy()
+    b_ldr = rb.postprocess().cpu().numpy()
+    b_peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+    b_s_frame = float(np.mean(b_frame_s))
+    b_mrays = float(np.sum(b_frame_rays) / np.sum(b_frame_s) / 1e6)
+    b_build = {"scene_gen_s": b_gen_s, "scene_tables_and_accel_s": b_tables_s,
+               "renderer_s": b_renderer_s, **rb.build_times}
+    print(f"warm-up frame {b_warm_s:.3f} s; frames {['%.4f' % s for s in b_frame_s]} s; "
+          f"rays/frame {b_frame_rays}; launches {b_launches}")
+    assert all(b_launches[m] > 0 for m in tf.ROOT_MODES), f"a roots mode never launched: {b_launches}"
+    assert b_launches["shade_bounce"] > 0, f"the shading kernel never launched: {b_launches}"
+    assert np.isfinite(b_img).all() and np.isfinite(b_ldr).all(), "bistro: non-finite pixels"
+    assert b_img.mean() > 0.0 and b_ldr.max() > 0.0, "bistro: black image"
+    assert min(b_frame_rays) > 1920 * 1080, "bistro: fewer rays than primary rays"
+    print(f"bistro 1080p d4 1spp fused: {b_s_frame:.4f} s/frame, {b_mrays:.4f} Mrays/s, peak "
+          f"{b_peak_mb:.1f} MiB allocated, mean radiance {b_img.mean():.4f}; build s: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in b_build.items()) + f" [{card}]", flush=True)
+
     kernels = [
         {"name": f"traverse_{m}", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
          "launches": launches[m], "max_abs_err": errors[m], "ms": times[m][0],
@@ -543,6 +771,19 @@ def main():
          "replaces": SHADE_REPLACES, "launches": f_launches["shade_bounce"],
          "max_abs_err": shade_err, "ms": shade_ms, "plain_ms": shade_plain_ms,
          "bound_ms": shade_bound[0], "bound_by": shade_bound[1], "library_ms": None}
+    )
+    kernels += [
+        {"name": f"traverse_{m}", "route": "cuda", "source": SOURCE, "replaces": ROOTS_REPLACES,
+         "launches": b_launches[m], "max_abs_err": errors[m], "ms": times[m][0],
+         "plain_ms": times[m][1], "bound_ms": bounds[m][0], "bound_by": bounds[m][1],
+         "library_ms": None}
+        for m in tf.ROOT_MODES
+    ]
+    kernels.append(
+        {"name": "shade_bounce_instanced", "route": "cuda", "source": SHADE_SOURCE,
+         "replaces": SHADE_INST_REPLACES, "launches": b_launches["shade_bounce"],
+         "max_abs_err": inst_err, "ms": inst_ms, "plain_ms": inst_plain_ms,
+         "bound_ms": inst_bound[0], "bound_by": inst_bound[1], "library_ms": None}
     )
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,8 +4,10 @@ they also run on a machine without it:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 The traversal kernel against its plain twin (CPU) for modes a/b/c on the
-reduced atrium with banners, and the render slice on the card against the
-CPU. Kernel vs twin: same float32 operations in the same order, rounded
+reduced atrium with banners and, with per-lane roots, on the small bistro's
+subset tables; the shading kernel (single-level and instanced) against its
+plain version; and the render slices (atrium, bistro) on the card against
+the CPU. Kernel vs twin: same float32 operations in the same order, rounded
 per operation (nvcc -fmad=false), so ``tri`` and the hit masks are equal
 and t within rtol 1e-5. Render: CUDA and CPU transcendentals round
 differently, so 99% of pixels within rtol 1e-3 / atol 1e-4 and ray counts
@@ -19,6 +21,7 @@ import torch
 from vk_raytrace_torch import render as R
 from vk_raytrace_torch.models import procedural
 from vk_raytrace_torch.models.schema import PBR_GLTF, RenderConfig
+from vk_raytrace_torch.ops import tlas
 from vk_raytrace_torch.ops import traverse_fused as tf
 from vk_raytrace_torch.ops.bvh8 import build_accel_bundle
 
@@ -151,3 +154,104 @@ def test_shade_kernel_matches_plain(scene, full_mis):
         np.testing.assert_allclose(kern[0][same].cpu().numpy(), plain[0][same].cpu().numpy(),
                                    rtol=1e-5, atol=1e-6)
         assert kern[1].float().mean().item() > 0.2
+
+
+@pytest.fixture(scope="module")
+def bistro():
+    return procedural.bistro_scene(detail=0.05)
+
+
+@pytest.mark.parametrize("mode", tf.MODES)
+def test_roots_kernel_matches_twin(bistro, mode):
+    """Per-lane roots (the two-level path): each ray's first instance
+    candidate in object space, the kernel against the CPU twin."""
+    _need_cuda()
+    import chip_smoke
+
+    acc = tlas.build_instanced_accel(bistro[0], bistro[1]).to("cuda")
+    subset = "alp" if mode == "candidate" else "opq"
+    rng = np.random.default_rng(9)
+    origins = rng.uniform([-50, 0.5, -10], [50, 8, 10], (6000, 3))
+    if subset == "alp":  # toward the foliage instances
+        pick = rng.choice(np.nonzero(acc.inst_alpha.cpu().numpy())[0], 6000)
+        o, d = chip_smoke.rays_toward_instances(rng, bistro[0], bistro[1], pick, origins, "cuda")
+    else:
+        o = torch.tensor(origins, dtype=torch.float32, device="cuda")
+        d = torch.nn.functional.normalize(torch.randn(6000, 3, device="cuda"), dim=1)
+    far = mode != "any"
+    tm = torch.full((6000,), tf.INF, device="cuda") if far else torch.tensor(
+        rng.uniform(0.5, 20.0, 6000), dtype=torch.float32, device="cuda")
+    oo, dd, tm, root0, _ = chip_smoke.first_candidates(acc, subset, o, d, tm, 4099)
+    planar = getattr(acc, f"blas_planar_{subset}")
+    cull = mode != "any"
+    before = tf.LAUNCHES[f"{mode}_roots"]
+    kern = tf.traverse(planar, oo, dd, tm, mode=mode, cull=cull, root0=root0)
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES[f"{mode}_roots"] == before + 1
+    twin = tf.traverse(planar.to("cpu"), oo.cpu(), dd.cpu(), tm.cpu(), mode=mode, cull=cull,
+                       root0=root0.cpu())
+    k = [None if x is None else x.cpu().numpy() for x in kern]
+    p = [None if x is None else x.numpy() for x in twin]
+    np.testing.assert_array_equal(k[1], p[1])
+    np.testing.assert_allclose(k[0], p[0], rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(k[4], p[4])  # identical node visits
+    assert 0.05 < (p[1] >= 0).mean()
+
+
+@pytest.mark.parametrize("full_mis", [True, False])
+def test_instanced_shade_kernel_matches_plain(bistro, full_mis):
+    """The instanced shading kernel (72-lane aux) against its plain torch
+    version on the card: the bistro's camera hits with their instances, and
+    every branch."""
+    _need_cuda()
+    import chip_smoke
+    from vk_raytrace_torch.integrator import shade_fused as sf
+    from vk_raytrace_torch.integrator.camera import generate_rays_for_pixels
+    from vk_raytrace_torch.ops import rng as vrng
+
+    pool, inst, m, l, c, a = bistro
+    cfg = RenderConfig(width=128, height=72, pbr_mode=PBR_GLTF, use_sun_sky=True)
+    r = R.Renderer(R.build_instanced_scene(pool, inst, m, l, c, atlas=a), cfg, device="cuda",
+                   fused_shade=True)
+    pix = torch.arange(128 * 72, device="cuda")
+    o, d, _ = generate_rays_for_pixels(r.scene.camera, 128, 72, pix, 1, vrng.tea(pix, 0))
+    o, d = o.contiguous(), d.contiguous()
+    n = o.shape[0]
+    rng = np.random.default_rng(10)
+    seed = torch.tensor(rng.integers(0, 2**32, n), device="cuda")
+    hit, _ = tlas.closest_hit_instanced(r.packed, r.alpha_pack, o, d, seed=seed)
+    z = torch.zeros(n, 3, device="cuda")
+    x = sf.shade_inputs(r.scene, r.features, full_mis, 0.5, 1.0, hit, o, d, seed, None, z,
+                        torch.ones(n, 3, device="cuda"), z, torch.zeros(n, device="cuda"),
+                        instances=r.packed.inst, sun_disk=True, mip=(0.002, hit.t))
+    assert x.flags.instanced and x.aux.shape[1] == 72
+    for args in ((x.srow, x.taps, x.aux, x.flags), chip_smoke.every_branch(x, rng, full_mis)):
+        before = sf.LAUNCHES["shade_bounce"]
+        kern = sf.shade(*args)
+        torch.cuda.synchronize()
+        assert sf.LAUNCHES["shade_bounce"] == before + 1
+        plain = sf._shade_plain(*args)
+        same = (kern[1] == plain[1]) & (kern[2] == plain[2])
+        assert same.float().mean().item() >= 0.9999
+        np.testing.assert_allclose(kern[0][same].cpu().numpy(), plain[0][same].cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        assert kern[1].float().mean().item() > 0.2
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_bistro_slice_cuda_matches_cpu(bistro, fused):
+    _need_cuda()
+    pool, inst, m, l, c, a = bistro
+    cfg = RenderConfig(width=64, height=40, max_depth=4, pbr_mode=PBR_GLTF, firefly_clamp=10.0,
+                       use_sun_sky=True, full_mis=False)
+    scene, run_cfg = R.prepare_sun_sky(R.build_instanced_scene(pool, inst, m, l, c, atlas=a),
+                                       cfg, "cpu")  # one env for both
+    out = {}
+    for dev in ("cuda", "cpu"):
+        r = R.Renderer(scene, run_cfg, device=dev, fused_shade=fused)
+        r.step()
+        r.step()
+        out[dev] = (r.accum.cpu().numpy(), r.last_rays)
+    share = np.isclose(out["cuda"][0], out["cpu"][0], rtol=1e-3, atol=1e-4).all(-1).mean()
+    assert share >= 0.99, share
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-3 * out["cpu"][1]

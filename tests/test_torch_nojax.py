@@ -1,7 +1,8 @@
 """The port runs without JAX: in a fresh interpreter, import the package,
 build the Cornell box with its own (numpy + native runtime) pipeline,
 render one 32x32 frame on the CPU, and check that neither JAX nor the JAX
-package was ever imported."""
+package was ever imported; the same for the two-level path (instance
+tables, ``ops/tlas.py``, the small bistro through the fused stage)."""
 
 import ast
 import os
@@ -31,15 +32,46 @@ print("ok")
 """
 
 
-def test_port_never_imports_jax():
+INSTANCED_SCRIPT = """
+import sys
+import numpy as np
+from vk_raytrace_torch import render as R
+from vk_raytrace_torch.models import instances, procedural
+from vk_raytrace_torch.models.schema import PBR_GLTF, RenderConfig
+from vk_raytrace_torch.ops import tlas
+
+pool, inst, m, l, c, a = procedural.bistro_scene(detail=0.05)
+assert isinstance(pool, instances.MeshPool)
+scene = R.build_instanced_scene(pool, inst, m, l, c, atlas=a)
+assert isinstance(scene.instances, tlas.InstancedAccel)
+r = R.Renderer(scene, RenderConfig(width=32, height=18, max_depth=3, pbr_mode=PBR_GLTF,
+               use_sun_sky=True, full_mis=False), device="cpu", fused_shade=True)
+img = r.render(1)
+assert np.isfinite(img).all() and img.mean() > 0.05 and r.last_rays > 32 * 18
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+assert "vk_raytrace_tpu" not in sys.modules, sorted(
+    m for m in sys.modules if m.startswith("vk_raytrace_tpu"))
+print("ok")
+"""
+
+
+def _run(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     res = subprocess.run(
-        [sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+        [sys.executable, "-c", script], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+def test_port_never_imports_jax():
+    _run(SCRIPT)
+
+
+def test_instanced_path_never_imports_jax():
+    _run(INSTANCED_SCRIPT)
 
 
 def _non_doc_strings(tree):

@@ -15,6 +15,10 @@
 //                      ldir3 lcontrib3 ldist lpdf use_light envmiss3 |
 //                      radiance3 throughput3 absorption3 |
 //                      prob r1 r2 u_trans u_reflect u_lobe
+//        (R, 72)       the same, then the lane's instance rows in an
+//                      instanced scene: object-to-world 3x4, then
+//                      world-to-object 3x4, row-major (the TPU kernel's
+//                      instanced variant, shade_fused.py:64-72, 367-400)
 // Outputs: out_vec (R, 24) f32 = new_origin3 new_dir3 radiance3
 //   throughput3 absorption3 nee3 ldir3 ldist rr_pcont pdf_b, and the masks
 //   alive, visible (R,) u8.
@@ -24,7 +28,10 @@
 // card's ratio of operations to bytes. This first version reads its
 // inputs with plain per-thread loads (served by L1 after the first touch
 // of a row) and keeps every intermediate in registers; the static flags
-// are a kernel argument whose branches are uniform across the grid.
+// are a kernel argument whose branches are uniform across the grid, except
+// the instanced layout, a template parameter (the instanced variant reads
+// 24 more aux lanes, 96 bytes per lane, and brings the hit to world space
+// before Gram-Schmidt; the single-level kernel compiles without it).
 //
 // Numerics follow the plain torch version (_shade_plain) operation by
 // operation: -fmad=false, IEEE division and square root, libdevice
@@ -64,6 +71,7 @@ constexpr int kCcRough = kMat + 63;
 
 enum Flag {
   kBaseTex = 1, kMrTex = 2, kNormalTex = 4, kEmissiveTex = 8, kAnisotropy = 16, kFullMis = 32,
+  kInstanced = 64,
 };
 
 struct V3 {
@@ -421,6 +429,25 @@ __device__ void pbr_sample(int flags, const Mat& m, V3 v, V3 n, V3 normal, V3 t,
 
 __device__ __forceinline__ V3 ld3(const float* p) { return V3{__ldg(p), __ldg(p + 1), __ldg(p + 2)}; }
 
+constexpr int kAuxInst = 48;  // first instance lane of aux
+
+// The 3x3 block of a row-major 3x4 matrix m times v, and its transpose
+// times v; sums over j in order 0, 1, 2.
+__device__ __forceinline__ V3 m3v(const float* m, V3 v) {
+  return V3{__ldg(m) * v.x + __ldg(m + 1) * v.y + __ldg(m + 2) * v.z,
+            __ldg(m + 4) * v.x + __ldg(m + 5) * v.y + __ldg(m + 6) * v.z,
+            __ldg(m + 8) * v.x + __ldg(m + 9) * v.y + __ldg(m + 10) * v.z};
+}
+
+__device__ __forceinline__ V3 m3t_v(const float* m, V3 v) {
+  return V3{__ldg(m) * v.x + __ldg(m + 4) * v.y + __ldg(m + 8) * v.z,
+            __ldg(m + 1) * v.x + __ldg(m + 5) * v.y + __ldg(m + 9) * v.z,
+            __ldg(m + 2) * v.x + __ldg(m + 6) * v.y + __ldg(m + 10) * v.z};
+}
+
+// INST: an instanced scene (72-lane aux with the instance rows); a template
+// parameter, so the single-level kernel is compiled without the transform.
+template <bool INST>
 __global__ void __launch_bounds__(128) shade_kernel(const float* __restrict__ srow,
                                                     const int32_t* __restrict__ taps,
                                                     const float* __restrict__ aux, int64_t n,
@@ -431,7 +458,7 @@ __global__ void __launch_bounds__(128) shade_kernel(const float* __restrict__ sr
   if (i >= n) return;
   const float* row = srow + i * 128;
   const int32_t* trow = taps + i * 16;
-  const float* a = aux + i * 48;
+  const float* a = aux + i * (INST ? kAuxInst + 24 : kAuxInst);
 
   const V3 d = ld3(a + 10);
   const float hit_u = __ldg(a + 13), hit_v = __ldg(a + 14), hit_t = __ldg(a + 15);
@@ -441,10 +468,20 @@ __global__ void __launch_bounds__(128) shade_kernel(const float* __restrict__ sr
   // ---- shade state (shade_state.glsl:63-145) ------------------------------
   const float w_b = 1.0f - hit_u - hit_v;
   const V3 p0 = ld3(row + 0), p1 = ld3(row + 3), p2 = ld3(row + 6);
-  const V3 position = w_b * p0 + hit_u * p1 + hit_v * p2;
+  V3 position = w_b * p0 + hit_u * p1 + hit_v * p2;
   V3 normal = vertex_dir(row, 9, 12, w_b, hit_u, hit_v);
-  const V3 geom_normal = normalize(cross(p1 - p0, p2 - p0));
+  V3 geom_normal = normalize(cross(p1 - p0, p2 - p0));
   V3 tangent = vertex_dir(row, 15, 18, w_b, hit_u, hit_v);
+  if (INST) {
+    // Object space to world: position by o2w, normals by w2o transposed
+    // (the inverse transpose of o2w), the tangent by o2w.
+    const float* o2w = a + kAuxInst;
+    const float* w2o = a + kAuxInst + 12;
+    position = m3v(o2w, position) + V3{__ldg(o2w + 3), __ldg(o2w + 7), __ldg(o2w + 11)};
+    normal = normalize(m3t_v(w2o, normal));
+    geom_normal = normalize(m3t_v(w2o, geom_normal));
+    tangent = normalize(m3v(o2w, tangent));
+  }
   const float handed = __ldg(row + 21);
   tangent = normalize(tangent - dot(tangent, normal) * normal);
   V3 bitangent = cross(normal, tangent) * handed;
@@ -608,14 +645,20 @@ __global__ void __launch_bounds__(128) shade_kernel(const float* __restrict__ sr
 extern "C" {
 
 // flags: bit 0 base texture, 1 metallic-roughness, 2 normal map, 3 emissive,
-// 4 anisotropy, 5 full MIS. Returns cudaGetLastError() after the launch.
+// 4 anisotropy, 5 full MIS, 6 instanced (aux of 72 lanes, else 48).
+// Returns cudaGetLastError() after the launch.
 int vkrt_shade(const float* srow, const int32_t* taps, const float* aux, int64_t n, int flags,
                float* out_vec, uint8_t* alive, uint8_t* visible, void* stream) {
   if (n <= 0) return 0;
   const int threads = 128;
   const int64_t blocks = (n + threads - 1) / threads;
-  shade_kernel<<<(unsigned)blocks, threads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      srow, taps, aux, n, flags, out_vec, alive, visible);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (flags & kInstanced)
+    shade_kernel<true><<<(unsigned)blocks, threads, 0, s>>>(srow, taps, aux, n, flags, out_vec,
+                                                            alive, visible);
+  else
+    shade_kernel<false><<<(unsigned)blocks, threads, 0, s>>>(srow, taps, aux, n, flags,
+                                                             out_vec, alive, visible);
   return (int)cudaGetLastError();
 }
 

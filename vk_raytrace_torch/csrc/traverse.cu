@@ -24,6 +24,12 @@
 // A child ref >= 0 is an interior row; a leaf ref is negative:
 // vleaf = -ref-1, row = vleaf >> 3, count = (vleaf & 7) + 1.
 //
+// Per-lane roots (the TPU kernel's mode d, called from ops/tlas.py): with a
+// non-null root0 each ray starts at its own interior row root0[r] of a
+// concatenated per-mesh table (the instance's BLAS root) and skips the root
+// union-box test; refs in such a table are absolute rows, so nothing else
+// changes. The two-level round loop stays on the host side.
+//
 // Numerics follow the plain torch twin (ops/traverse_fused.py
 // _traverse_plain) operation by operation, with explicitly rounded
 // intrinsics, -fmad=false and IEEE division, so t/u/v agree with the twin
@@ -88,7 +94,8 @@ template <int MODE, bool CULL, int MAXD>
 __global__ void __launch_bounds__(128)
 traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origin,
                 const float* __restrict__ direction, const float* __restrict__ t_max,
-                const uint8_t* __restrict__ active, int64_t n_rays,
+                const uint8_t* __restrict__ active, const int32_t* __restrict__ root0,
+                int64_t n_rays,
                 float* __restrict__ out_t, int32_t* __restrict__ out_tri,
                 float* __restrict__ out_u, float* __restrict__ out_v,
                 int32_t* __restrict__ out_steps, float* __restrict__ out_uvu,
@@ -108,10 +115,12 @@ traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origi
   int c_tri = -1;
   int steps = 0;
 
-  // Ray setup: the union box of the root's valid children must be hit
-  // within (0, t_max), and the lane must be active.
+  // Ray setup: the lane must be active, and without per-lane roots the
+  // union box of the root's valid children must be hit within (0, t_max).
   int cur = 0;
-  {
+  if (root0 != nullptr) {
+    cur = (active != nullptr && !active[r]) ? kTerm : root0[r];
+  } else {
     float rmin[3] = {3.0e38f, 3.0e38f, 3.0e38f};
     float rmax[3] = {-3.0e38f, -3.0e38f, -3.0e38f};
 #pragma unroll
@@ -308,28 +317,32 @@ traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origi
 
 template <int MODE, bool CULL, int MAXD>
 void launch(const float* rows, const float* o, const float* d, const float* tmax,
-            const uint8_t* active, int64_t n, float* t, int32_t* tri, float* u, float* v,
-            int32_t* steps, float* uvu, float* uvv, cudaStream_t stream) {
+            const uint8_t* active, const int32_t* root0, int64_t n, float* t, int32_t* tri,
+            float* u, float* v, int32_t* steps, float* uvu, float* uvv, cudaStream_t stream) {
   const int threads = 128;
   const int64_t blocks = (n + threads - 1) / threads;
   traverse_kernel<MODE, CULL, MAXD><<<(unsigned)blocks, threads, 0, stream>>>(
-      reinterpret_cast<const float4*>(rows), o, d, tmax, active, n, t, tri, u, v, steps,
-      uvu, uvv);
+      reinterpret_cast<const float4*>(rows), o, d, tmax, active, root0, n, t, tri, u, v,
+      steps, uvu, uvv);
 }
 
 template <int MAXD>
 void dispatch(int mode, int cull, const float* rows, const float* o, const float* d,
-              const float* tmax, const uint8_t* active, int64_t n, float* t, int32_t* tri,
-              float* u, float* v, int32_t* steps, float* uvu, float* uvv,
-              cudaStream_t s) {
+              const float* tmax, const uint8_t* active, const int32_t* root0, int64_t n,
+              float* t, int32_t* tri, float* u, float* v, int32_t* steps, float* uvu,
+              float* uvv, cudaStream_t s) {
   if (mode == kClosest)
-    launch<kClosest, true, MAXD>(rows, o, d, tmax, active, n, t, tri, u, v, steps, uvu, uvv, s);
+    launch<kClosest, true, MAXD>(rows, o, d, tmax, active, root0, n, t, tri, u, v, steps, uvu,
+                                 uvv, s);
   else if (mode == kAny)
-    launch<kAny, false, MAXD>(rows, o, d, tmax, active, n, t, tri, u, v, steps, uvu, uvv, s);
+    launch<kAny, false, MAXD>(rows, o, d, tmax, active, root0, n, t, tri, u, v, steps, uvu,
+                              uvv, s);
   else if (cull)
-    launch<kCandidate, true, MAXD>(rows, o, d, tmax, active, n, t, tri, u, v, steps, uvu, uvv, s);
+    launch<kCandidate, true, MAXD>(rows, o, d, tmax, active, root0, n, t, tri, u, v, steps,
+                                   uvu, uvv, s);
   else
-    launch<kCandidate, false, MAXD>(rows, o, d, tmax, active, n, t, tri, u, v, steps, uvu, uvv, s);
+    launch<kCandidate, false, MAXD>(rows, o, d, tmax, active, root0, n, t, tri, u, v, steps,
+                                    uvu, uvv, s);
 }
 
 }  // namespace
@@ -342,20 +355,22 @@ int vkrt_traverse_max_stack() { return 128; }
 
 // mode: 0 closest hit (backface culling), 1 any hit (no culling, first
 // accepted hit ends the ray), 2 nearest alpha candidate (culling per
-// `cull`). `active` may be null. Returns cudaGetLastError() after launch.
+// `cull`). `active` may be null; `root0` may be null (every ray starts at
+// row 0 after the root union-box test) or hold each ray's interior root
+// row. Returns cudaGetLastError() after launch.
 int vkrt_traverse(int mode, int cull, const float* rows, int stack_depth,
                   const float* origin, const float* direction, const float* t_max,
-                  const uint8_t* active, int64_t n_rays, float* t, int32_t* tri,
-                  float* u, float* v, int32_t* steps, float* uvu, float* uvv,
+                  const uint8_t* active, const int32_t* root0, int64_t n_rays, float* t,
+                  int32_t* tri, float* u, float* v, int32_t* steps, float* uvu, float* uvv,
                   void* stream) {
   if (n_rays <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (stack_depth <= 64)
-    dispatch<64>(mode, cull, rows, origin, direction, t_max, active, n_rays, t, tri, u, v,
-                 steps, uvu, uvv, s);
+    dispatch<64>(mode, cull, rows, origin, direction, t_max, active, root0, n_rays, t, tri, u,
+                 v, steps, uvu, uvv, s);
   else
-    dispatch<128>(mode, cull, rows, origin, direction, t_max, active, n_rays, t, tri, u, v,
-                  steps, uvu, uvv, s);
+    dispatch<128>(mode, cull, rows, origin, direction, t_max, active, root0, n_rays, t, tri,
+                  u, v, steps, uvu, uvv, s);
   return (int)cudaGetLastError();
 }
 

@@ -16,7 +16,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.math import cross, dot, make_coordinate_system, normalize, oct_decode, srgb_to_linear
+from ..ops.math import (
+    cross, dot, make_coordinate_system, mat3_vec, mat3t_vec, normalize, oct_decode, srgb_to_linear,
+)
 from ..ops.state import MatState, SurfState
 
 # Packed material row layout: (name, lane count).
@@ -170,9 +172,13 @@ def _interp(bary, attr):
     return bary[:, 0:1] * attr[:, 0] + bary[:, 1:2] * attr[:, 1] + bary[:, 2:3] * attr[:, 2]
 
 
-def get_shade_state(shade_rows, tri, u, v) -> dict:
+def get_shade_state(shade_rows, tri, u, v, instances=None, inst=None) -> dict:
     """Interpolated hit attributes (shade_state.glsl:63-145) from one shade
-    row gather per lane; ``tri`` < 0 lanes read row 0 (callers mask)."""
+    row gather per lane; ``tri`` < 0 lanes read row 0 (callers mask). In a
+    two-level scene the rows are object space: ``instances`` (the
+    ``InstanceTable``) and the hits' ``inst`` bring position and tangent
+    through object-to-world, the normals through world-to-object transposed,
+    and the triangle's world area for the ray-cone footprint."""
     row = shade_rows[torch.clamp(tri, min=0)]
     w = 1.0 - u - v
     bary = torch.stack([w, u, v], dim=-1)
@@ -189,6 +195,15 @@ def get_shade_state(shade_rows, tri, u, v) -> dict:
     e2 = p[:, 2] - p[:, 0]
     geom_normal = normalize(cross(e1, e2))
     tangent = normalize(_interp(bary, oct_decode(t_pk)))
+    if instances is not None:
+        ii = torch.clamp(inst, min=0)
+        o2w = instances.object_to_world[ii]
+        w2o = instances.world_to_object[ii]
+        position = mat3_vec(o2w, position) + o2w[:, :, 3]
+        normal = normalize(mat3t_vec(w2o, normal))
+        geom_normal = normalize(mat3t_vec(w2o, geom_normal))
+        tangent = normalize(mat3_vec(o2w, tangent))
+        e1, e2 = mat3_vec(o2w, e1), mat3_vec(o2w, e2)
     tangent = normalize(tangent - dot(tangent, normal, keepdim=True) * normal)
     bitangent = cross(normal, tangent) * handed[..., None]
     uv = _interp(bary, uv3)

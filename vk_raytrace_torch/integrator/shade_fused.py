@@ -21,8 +21,12 @@ Split of labour:
   roulette and the scatter, as in the unfused stage.
 
 Supported statically (:func:`supported`): glTF PBR, a baked sky, merged
-shade rows, footprint tap rows, no transmission or clearcoat textures, and
-single-level scenes. :data:`LAUNCHES` counts kernel launches.
+shade rows, footprint tap rows and no transmission or clearcoat textures,
+in single-level and two-level (instanced) scenes. In an instanced scene the
+rows are object space: each lane's instance rows (object-to-world, then
+world-to-object) ride in 24 more aux lanes, the kernel brings the hit to
+world space, and the prologue's light position and ray-cone edges go
+through object-to-world too. :data:`LAUNCHES` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -38,19 +42,26 @@ from ..models.schema import PBR_GLTF
 from ..ops import rng
 from ..ops.env import env_radiance, environment_sample, sample_env_mixture
 from ..ops.lights import sample_light
+from ..ops.math import mat3_vec, mat3t_vec
 from .path import env_bsdf_mis_weight, nee_strategy_pdf
 from .shade import _OFFS, _PACK_LANES, _axis_base, _mip_lanes
 
 M_PI = 3.14159265358979
 _SROW_MAT0 = 40  # material row offset inside the merged shade row
 
-# Narrow per-lane inputs ride in one (R, AUX_W) array, lanes:
+# Narrow per-lane inputs ride in one (R, aux_width(instanced)) array, lanes:
 #   0 gxy 8 (per-texture bilinear weights gx, gy x4) | 8 uv 2 |
 #   10 geo 8 (dir3, hit_u, hit_v, hit_t, active, miss) | 18 origin 3 |
 #   21 light 12 (ldir3, lcontrib3, ldist, lpdf, use_light, envmiss3) |
 #   33 state 9 (radiance3, throughput3, absorption3) |
-#   42 draws 6 (prob, r1, r2, u_trans, u_reflect, u_lobe)
-AUX_W = 48
+#   42 draws 6 (prob, r1, r2, u_trans, u_reflect, u_lobe) |
+#   48 instance rows 24 (o2w then w2o, 3x4 row-major; instanced scenes only)
+_AUX_INST = 48
+
+
+def aux_width(instanced: bool) -> int:
+    return _AUX_INST + 24 if instanced else _AUX_INST
+
 OUT_W = 24  # new_origin3 new_dir3 radiance3 throughput3 absorption3 nee3 ldir3 ldist rr_pcont pdf_b
 _TAPS = ("base", "mr", "normal", "emissive")
 
@@ -71,6 +82,7 @@ class ShadeFlags(NamedTuple):
     emissive_tex: bool
     anisotropy: bool
     full_mis: bool
+    instanced: bool
 
     def bits(self) -> int:
         return sum(int(bool(f)) << i for i, f in enumerate(self))
@@ -119,18 +131,21 @@ def _tex_index_weights(srow, name, uv, atlas_w, n_rows, lod=None):
     return flat, gx, gy
 
 
-def _positioned_light(scene, light_index, srow, hit):
-    """``sample_light`` at the hit position, from 9 lanes of the row."""
+def _positioned_light(scene, light_index, srow, hit, o2w=None):
+    """``sample_light`` at the hit position, from 9 lanes of the row (and
+    the lane's object-to-world rows in an instanced scene)."""
     wb = 1.0 - hit.u - hit.v
     p = srow[:, 0:9].reshape(-1, 3, 3)
     position = wb[:, None] * p[:, 0] + hit.u[:, None] * p[:, 1] + hit.v[:, None] * p[:, 2]
+    if o2w is not None:
+        position = mat3_vec(o2w, position) + o2w[:, :, 3]
     return sample_light(scene.lights, light_index, position)
 
 
 class ShadeInputs(NamedTuple):
     srow: torch.Tensor   # (R, 128) f32 gathered shade rows
     taps: torch.Tensor   # (R, 16) i32 footprint rows of the 4 textures
-    aux: torch.Tensor    # (R, 48) f32, layout above AUX_W
+    aux: torch.Tensor    # (R, 48 or 72) f32, layout above aux_width
     flags: ShadeFlags
     seed: torch.Tensor   # (R,) stream state after the stage's draws
     miss: torch.Tensor   # (R,) bool
@@ -139,16 +154,23 @@ class ShadeInputs(NamedTuple):
 def shade_inputs(
     scene, features, full_mis: bool, p_select_light: float, hdr_mult: float, hit,
     st_origin, st_direction, seed, active, radiance, throughput, absorption, bsdf_pdf,
-    sun_disk: bool = False, mip=None,
+    instances=None, sun_disk: bool = False, mip=None,
 ) -> ShadeInputs:
     """The prologue of :func:`shade_bounce_fused`: the kernel's inputs.
-    ``active`` None means every lane is live; ``mip`` is ``(pixel_spread,
-    tdist including this hit)`` for ray-cone mip selection, or None."""
+    ``active`` None means every lane is live; ``instances`` is the
+    ``InstanceTable`` of a two-level scene (``hit.inst`` then names each
+    lane's instance); ``mip`` is ``(pixel_spread, tdist including this
+    hit)`` for ray-cone mip selection, or None."""
     r = st_direction.shape[0]
     dev = st_direction.device
     if active is None:
         active = torch.ones(r, dtype=torch.bool, device=dev)
     miss = active & (hit.tri < 0)
+    o2w = w2o = None
+    if instances is not None:
+        ii = torch.clamp(hit.inst, min=0)
+        o2w = instances.object_to_world[ii]
+        w2o = instances.world_to_object[ii]
 
     # ---- RNG draws, in the unfused stage's order (env.py, bsdf_gltf.py) ---
     seed, u_sel = rng.rand(seed)
@@ -183,6 +205,8 @@ def shade_inputs(
         p3 = srow[:, 0:9].reshape(-1, 3, 3)
         e1 = p3[:, 1] - p3[:, 0]
         e2 = p3[:, 2] - p3[:, 0]
+        if o2w is not None:
+            e1, e2 = mat3_vec(o2w, e1), mat3_vec(o2w, e2)
         area_w = torch.linalg.norm(torch.cross(e1, e2, dim=-1), dim=-1)
         u1 = uv3[:, 1] - uv3[:, 0]
         u2 = uv3[:, 2] - uv3[:, 0]
@@ -214,7 +238,7 @@ def shade_inputs(
     use_light = (u_sel <= p_select_light) if n_lights > 0 else torch.zeros_like(miss)
     n_l = max(n_lights, 1)
     light_index = torch.clamp((u_li * float(n_l)).long(), max=n_l - 1)
-    l_int, l_dir, l_dist = _positioned_light(scene, light_index, srow, hit)
+    l_int, l_dir, l_dist = _positioned_light(scene, light_index, srow, hit, o2w)
     if sun_disk:
         e_rad, e_dir, e_pdf = sample_env_mixture(scene.env, scene.sun_sky, u_mix, xi)
     else:
@@ -232,21 +256,21 @@ def shade_inputs(
         env = env * w_env[..., None]
 
     col = lambda x: x.float()[:, None]  # noqa: E731
-    aux = torch.cat(
-        [
-            gxy, uv,
-            st_direction, col(hit.u), col(hit.v), col(hit.t), col(active), col(miss),
-            st_origin,
-            light_dir, light_contrib, col(light_dist), col(light_pdf), col(use_light), env,
-            radiance, throughput, absorption,
-            torch.stack([probability, r1, r2, u_trans, u_reflect, u_lobe], dim=-1),
-        ],
-        dim=1,
-    ).contiguous()
-    assert aux.shape[1] == AUX_W, aux.shape
+    parts = [
+        gxy, uv,
+        st_direction, col(hit.u), col(hit.v), col(hit.t), col(active), col(miss),
+        st_origin,
+        light_dir, light_contrib, col(light_dist), col(light_pdf), col(use_light), env,
+        radiance, throughput, absorption,
+        torch.stack([probability, r1, r2, u_trans, u_reflect, u_lobe], dim=-1),
+    ]
+    if o2w is not None:
+        parts += [o2w.reshape(r, 12), w2o.reshape(r, 12)]
+    aux = torch.cat(parts, dim=1).contiguous()
+    assert aux.shape[1] == aux_width(o2w is not None), aux.shape
     flags = ShadeFlags(
         features.base_tex, features.mr_tex, features.normal_tex, features.emissive_tex,
-        features.anisotropy, full_mis,
+        features.anisotropy, full_mis, o2w is not None,
     )
     return ShadeInputs(srow.contiguous(), taps, aux, flags, seed, miss)
 
@@ -254,7 +278,7 @@ def shade_inputs(
 def shade_bounce_fused(
     scene, features, full_mis: bool, p_select_light: float, hdr_mult: float, hit,
     st_origin, st_direction, seed, active, radiance, throughput, absorption, bsdf_pdf,
-    sun_disk: bool = False, mip=None,
+    instances=None, sun_disk: bool = False, mip=None,
 ) -> dict:
     """Run the fused shading stage for one pooled bounce. Returns a dict with
     radiance, throughput, absorption, alive, visible, nee, light_dir,
@@ -262,7 +286,8 @@ def shade_bounce_fused(
     epilogue inputs of ``wavefront.py::bounce``."""
     x = shade_inputs(
         scene, features, full_mis, p_select_light, hdr_mult, hit, st_origin, st_direction,
-        seed, active, radiance, throughput, absorption, bsdf_pdf, sun_disk=sun_disk, mip=mip,
+        seed, active, radiance, throughput, absorption, bsdf_pdf, instances=instances,
+        sun_disk=sun_disk, mip=mip,
     )
     out_vec, alive, visible = shade(x.srow, x.taps, x.aux, x.flags)
     col = lambda a, b: out_vec[:, a:b].contiguous()  # noqa: E731  (the traversals want dense rays)
@@ -485,6 +510,13 @@ def _shade_plain(srow, taps, aux, flags: ShadeFlags):
     normal = _vertex_dir(w_b, hit_u, hit_v, *_oct_decode3(srow[:, 9:12], srow[:, 12:15]))
     geom_normal = _normalize(_cross(p1 - p0, p2 - p0))
     tangent = _vertex_dir(w_b, hit_u, hit_v, *_oct_decode3(srow[:, 15:18], srow[:, 18:21]))
+    if flags.instanced:
+        o2w = aux[:, _AUX_INST:_AUX_INST + 12].reshape(-1, 3, 4)
+        w2o = aux[:, _AUX_INST + 12:_AUX_INST + 24].reshape(-1, 3, 4)
+        position = mat3_vec(o2w, position) + o2w[:, :, 3]
+        normal = _normalize(mat3t_vec(w2o, normal))
+        geom_normal = _normalize(mat3t_vec(w2o, geom_normal))
+        tangent = _normalize(mat3_vec(o2w, tangent))
     handed = srow[:, 21:22]
     tangent = _normalize(tangent - _dot(tangent, normal) * normal)
     bitangent = _cross(normal, tangent) * handed
@@ -814,7 +846,7 @@ def _shade_cuda(srow, taps, aux, flags: ShadeFlags):
     for name, x, shape, dt in (
         ("srow", srow, (r, 128), torch.float32),
         ("taps", taps, (r, 16), torch.int32),
-        ("aux", aux, (r, AUX_W), torch.float32),
+        ("aux", aux, (r, aux_width(flags.instanced)), torch.float32),
     ):
         if x.device != dev or x.dtype != dt or tuple(x.shape) != shape or not x.is_contiguous():
             raise ValueError(

@@ -9,7 +9,8 @@ lanes only (gathered, then scattered back), which plays the role of the
 reference's tiered tail. A path's random stream is keyed on its pixel and
 sample, so the schedule never changes the estimator.
 
-Per bounce: closest hit (opaque kernel, then alpha candidate rounds),
+Per bounce: closest hit (opaque kernel, then alpha candidate rounds; in a
+two-level scene, instance candidate rounds over per-mesh BVHs, ``ops/tlas.py``),
 shade state and material, NEE with MIS, glTF BSDF sample, shadow any-hit,
 Russian roulette, and a scatter of finished paths into the per-unit image.
 With ``fused_shade`` the shading runs as one kernel launch per bounce
@@ -28,6 +29,7 @@ from ..ops.bsdf_gltf import pbr_eval, pbr_sample
 from ..ops.env import env_radiance, env_sample
 from ..ops.lights import sample_light
 from ..ops.math import dot, firefly_luminance, offset_ray, power_heuristic
+from ..ops.tlas import InstancedAccel, any_hit_instanced, closest_hit_instanced
 from ..ops.traverse_wide import any_hit_bundle, closest_hit_bundle
 from .camera import generate_rays_for_pixels
 from . import shade_fused
@@ -68,6 +70,17 @@ def render_units_pooled(
     n_lights = int(scene.n_lights)
     pack = alpha_pack if cfg.use_any_hit else None
     use_fused = shade_fused.supported(fused_shade, cfg, scene, features)
+    instances = packed.inst if isinstance(packed, InstancedAccel) else None
+
+    def closest(o, d, seed):
+        if instances is not None:
+            return closest_hit_instanced(packed, pack, o, d, seed=seed)
+        return closest_hit_bundle(packed, pack, o, d, seed)
+
+    def occluded(o, d, t_max, seed, active):
+        if instances is not None:
+            return any_hit_instanced(packed, pack, o, d, t_max, seed=seed, active=active)
+        return any_hit_bundle(packed, pack, o, d, t_max, seed, active=active)
 
     def unit_to_local(p_rank):
         t_id = p_rank // 64
@@ -134,7 +147,7 @@ def render_units_pooled(
         radiance = s["radiance"] + torch.where(miss[..., None], env * s["throughput"], 0.0)
         alive = ~miss
 
-        ss = get_shade_state(scene.shade_rows, hit.tri, hit.u, hit.v)
+        ss = get_shade_state(scene.shade_rows, hit.tri, hit.u, hit.v, instances, hit.inst)
         lod = None
         if use_mips:
             tdist = s["tdist"] + torch.where(hit.tri >= 0, torch.clamp(hit.t, max=1e30), 0.0)
@@ -221,7 +234,7 @@ def render_units_pooled(
         out = shade_fused.shade_bounce_fused(
             scene, features, cfg.full_mis, p_select_light, hdr_mult, hit, s["origin"],
             s["direction"], seed, None, s["radiance"], s["throughput"], s["absorption"],
-            s["bsdf_pdf"], sun_disk=cfg.sun_disk, mip=mip,
+            s["bsdf_pdf"], instances=instances, sun_disk=cfg.sun_disk, mip=mip,
         )
         return tuple(out[k] for k in (
             "radiance", "alive", "throughput", "absorption", "new_origin", "new_dir",
@@ -231,7 +244,7 @@ def render_units_pooled(
     def bounce(s):
         """One bounce for a batch of live lanes; returns the new state and
         the lanes still alive."""
-        hit, seed = closest_hit_bundle(packed, pack, s["origin"], s["direction"], s["seed"])
+        hit, seed = closest(s["origin"], s["direction"], s["seed"])
         n_rays = hit.tri.shape[0]
         # A profiler range read by chip_profile.py, entered only while a
         # profiler runs: it costs a dispatcher call per bounce otherwise.
@@ -248,10 +261,8 @@ def render_units_pooled(
         rr_pcont = torch.where(rr_gate, rr_pcont, 1.0)
 
         # Deferred shadow ray (:320-331)
-        occluded, seed = any_hit_bundle(
-            packed, pack, new_origin, light_dir, light_dist, seed, active=visible
-        )
-        radiance = radiance + torch.where((visible & ~occluded)[..., None], nee, 0.0)
+        occ, seed = occluded(new_origin, light_dir, light_dist, seed, visible)
+        radiance = radiance + torch.where((visible & ~occ)[..., None], nee, 0.0)
         shadow_rays = visible.sum()
 
         # Russian roulette (:334-338)

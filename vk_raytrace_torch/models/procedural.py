@@ -1,8 +1,10 @@
 """Procedural scenes (counterpart of ``vk_raytrace_tpu/models/procedural.py``).
 
-The Cornell box for small tests and the atrium, the renderer's full-size
-workload: two stories of fluted columns, tessellated slabs and walls,
-alpha-cutout banners and textured glTF PBR (~217k triangles at defaults).
+The Cornell box for small tests; the atrium, the renderer's full-size
+single-level workload: two stories of fluted columns, tessellated slabs and
+walls, alpha-cutout banners and textured glTF PBR (~217k triangles at
+defaults); and the bistro street, the two-level workload (579k unique and
+>1M instantiated triangles, alpha-cutout foliage).
 Pure numpy with the reference's seeds, so every array is byte-identical.
 """
 
@@ -349,4 +351,296 @@ def atrium_scene(
         eye=[-ex + 1.5, 2.2, -ez + 2.5], center=[ex * 0.5, 3.5, ez * 0.4],
         up=[0, 1, 0], fov_deg=60.0, aspect=16 / 9,
     )
+    return g.build(), mats, lights, cam, atlas.build()
+
+# ---------------------------------------------------------------------------
+# Bistro-class street: >1M instantiated triangles from 8 shared meshes,
+# instanced along a street, with alpha-cutout foliage: the two-level path.
+
+
+def _tex_foliage(size: int, seed: int) -> np.ndarray:
+    """Leaf-cluster card texture: green clusters with alpha-cutout gaps
+    (the foliage workload class of Bistro's trees)."""
+    n = _value_noise(size, size, seed, octaves=6)
+    n2 = _value_noise(size, size, seed + 1, octaves=4)
+    # radial falloff so cards read as clusters, not squares
+    yy, xx = np.meshgrid(
+        np.linspace(-1, 1, size), np.linspace(-1, 1, size), indexing="ij"
+    )
+    rad = np.sqrt(xx * xx + yy * yy)
+    alpha = ((n > 0.42) & (rad < 0.95)).astype(np.float64)
+    g = 0.25 + 0.45 * n2
+    rgb = np.stack([g * 0.35, g, g * 0.28], axis=-1)
+    return _rgba(rgb, alpha)
+
+
+def _tex_facade(size: int, seed: int) -> np.ndarray:
+    """Plastered facade with darker window rectangles (matches the window
+    grid displacement of the facade mesh)."""
+    n = _value_noise(size, size, seed)
+    base = 0.55 + 0.3 * n
+    tint = [(0.82, 0.74, 0.62), (0.72, 0.70, 0.66), (0.78, 0.66, 0.58)][seed % 3]
+    rgb = np.stack([base * tint[0], base * tint[1], base * tint[2]], axis=-1)
+    # window rectangles: 6 columns x 4 rows, darker glass-blue
+    yy, xx = np.meshgrid(
+        np.linspace(0, 1, size), np.linspace(0, 1, size), indexing="ij"
+    )
+    wx = (xx * 6.0) % 1.0
+    wy = (yy * 4.0) % 1.0
+    win = (wx > 0.25) & (wx < 0.75) & (wy > 0.3) & (wy < 0.85)
+    glass = np.stack(
+        [0.10 + 0.1 * n, 0.12 + 0.1 * n, 0.16 + 0.12 * n], axis=-1
+    )
+    return _rgba(np.where(win[..., None], glass, rgb))
+
+
+def _facade_mesh(nx: int, ny: int, w: float, h: float, seed: int):
+    """Tessellated building front: a displaced grid with window insets and
+    noise relief (dense planar regions like Bistro's facades)."""
+    gx = np.linspace(-w / 2, w / 2, nx + 1)
+    gy = np.linspace(0.0, h, ny + 1)
+    yy, xx = np.meshgrid(gy, gx, indexing="ij")
+    u = (xx + w / 2) / w
+    v = yy / h
+    wx = (u * 6.0) % 1.0
+    wy = (v * 4.0) % 1.0
+    win = (wx > 0.25) & (wx < 0.75) & (wy > 0.3) & (wy < 0.85)
+    relief = _value_noise(64, 64, seed)
+    ri = np.clip((v * 63).astype(int), 0, 63)
+    rj = np.clip((u * 63).astype(int), 0, 63)
+    zz = 0.05 * relief[ri, rj] - np.where(win, 0.18, 0.0)
+    verts = np.stack([xx, yy, zz], -1).reshape(-1, 3)
+    uv = np.stack([u, v], -1).reshape(-1, 2)
+    return verts, _grid_mesh(nx, ny), uv
+
+
+def _tree_meshes(detail: float, seed: int):
+    """(trunk verts/idx/uv, leaf-card verts/idx/uv): a lathe trunk and a
+    cloud of alpha-cutout leaf cards (two triangles each)."""
+    rows = max(6, int(24 * detail))
+    seg = max(6, int(36 * detail))
+    prof_y = np.linspace(0.0, 3.2, rows)
+    prof_r = 0.22 * (1.0 - prof_y / 4.2) + 0.02
+    tv, ti, tuv = _lathe(prof_y, prof_r, seg)
+
+    n_cards = max(12, int(420 * detail))
+    rng = np.random.default_rng(seed)
+    # card centers in a squashed sphere around the crown
+    th = np.arccos(1 - 2 * rng.random(n_cards))
+    ph = rng.random(n_cards) * 2 * np.pi
+    rad = 1.4 * rng.random(n_cards) ** (1 / 3)
+    cx = rad * np.sin(th) * np.cos(ph)
+    cy = 3.6 + 0.8 * rad * np.cos(th)
+    cz = rad * np.sin(th) * np.sin(ph)
+    # random card orientations
+    ax = rng.normal(size=(n_cards, 3))
+    ax /= np.linalg.norm(ax, axis=1, keepdims=True)
+    up = np.where(
+        np.abs(ax[:, 1:2]) < 0.9, np.asarray([[0.0, 1.0, 0.0]]),
+        np.asarray([[1.0, 0.0, 0.0]]),
+    )
+    side = np.cross(ax, up)
+    side /= np.linalg.norm(side, axis=1, keepdims=True)
+    upv = np.cross(side, ax)
+    s = 0.55
+    c = np.stack([cx, cy, cz], -1)
+    corners = [
+        c - s * side - s * upv, c + s * side - s * upv,
+        c + s * side + s * upv, c - s * side + s * upv,
+    ]
+    lv = np.concatenate(corners, axis=0)
+    i0 = np.arange(n_cards)
+    li = np.concatenate(
+        [
+            np.stack([i0, i0 + n_cards, i0 + 2 * n_cards], 1),
+            np.stack([i0, i0 + 2 * n_cards, i0 + 3 * n_cards], 1),
+        ],
+        axis=0,
+    )
+    luv = np.concatenate(
+        [
+            np.tile([0.0, 0.0], (n_cards, 1)), np.tile([1.0, 0.0], (n_cards, 1)),
+            np.tile([1.0, 1.0], (n_cards, 1)), np.tile([0.0, 1.0], (n_cards, 1)),
+        ],
+        axis=0,
+    )
+    return (tv, ti, tuv), (lv, li, luv)
+
+
+def bistro_scene(detail: float = 1.0, instanced: bool = True, seed: int = 9):
+    """Bistro-class street: two building-lined blocks around a fountain
+    plaza, instanced trees with alpha-cutout foliage, bistro tables —
+    **>1M instantiated triangles at detail=1** (BASELINE config #5 class).
+
+    ``instanced=True`` returns ``(pool, instances, mats, lights, cam,
+    atlas)`` — the two-level TLAS/BLAS path with shared meshes
+    (``build_instanced_scene``). ``instanced=False`` bakes every instance
+    into world space (``(geometry, mats, lights, cam, atlas)``; the same
+    surfaces, N x the memory), the world-space witness of the tests.
+    """
+    from .textures import AtlasBuilder
+    from .instances import InstancedSceneBuilder
+
+    d = float(detail)
+    atlas = AtlasBuilder()
+    t_cobble = atlas.add(_tex_floor(512, seed + 1, tiles=24), {})
+    t_fac = [atlas.add(_tex_facade(512, seed + 2 + k), {}) for k in range(3)]
+    t_leaf = atlas.add(_tex_foliage(512, seed + 7), {})
+    t_stone = atlas.add(_tex_stone(512, seed + 8), {})
+
+    rows = [
+        dict(  # 0 street cobbles
+            base_color_factor=[1, 1, 1, 1], roughness_factor=0.8,
+            metallic_factor=0.0, base_color_texture=t_cobble,
+        ),
+        *[
+            dict(  # 1..3 facades
+                base_color_factor=[1, 1, 1, 1], roughness_factor=0.9,
+                metallic_factor=0.0, base_color_texture=t,
+            )
+            for t in t_fac
+        ],
+        dict(  # 4 foliage (alpha cutout, double sided)
+            base_color_factor=[1, 1, 1, 1], roughness_factor=0.95,
+            metallic_factor=0.0, base_color_texture=t_leaf,
+            alpha_mode=ALPHA_MASK, alpha_cutoff=0.5, double_sided=1,
+        ),
+        dict(  # 5 bark
+            base_color_factor=[0.35, 0.25, 0.18, 1.0], roughness_factor=0.9,
+            metallic_factor=0.0,
+        ),
+        dict(  # 6 fountain stone
+            base_color_factor=[1, 1, 1, 1], roughness_factor=0.6,
+            metallic_factor=0.0, base_color_texture=t_stone,
+        ),
+        dict(  # 7 bistro furniture (painted metal)
+            base_color_factor=[0.25, 0.30, 0.33, 1.0], roughness_factor=0.35,
+            metallic_factor=0.85,
+        ),
+    ]
+
+    # --- unique meshes -----------------------------------------------------
+    L, W = 120.0, 26.0  # street length / width
+    street_v, street_i, street_uv = (lambda nx, nz: (
+        np.stack(
+            [
+                np.meshgrid(np.linspace(-L / 2, L / 2, nx + 1),
+                            np.linspace(-W / 2, W / 2, nz + 1),
+                            indexing="xy")[0],
+                np.zeros((nz + 1, nx + 1)),
+                np.meshgrid(np.linspace(-L / 2, L / 2, nx + 1),
+                            np.linspace(-W / 2, W / 2, nz + 1),
+                            indexing="xy")[1],
+            ],
+            -1,
+        ).reshape(-1, 3),
+        _grid_mesh(nx, nz),
+        np.stack(
+            np.meshgrid(np.linspace(0, 24, nx + 1), np.linspace(0, 6, nz + 1),
+                        indexing="xy"),
+            -1,
+        ).reshape(-1, 2),
+    ))(max(8, int(620 * d)), max(6, int(380 * d)))
+
+    fac_meshes = [
+        _facade_mesh(max(6, int(124 * d)), max(5, int(78 * d)),
+                     w=14.0, h=13.0, seed=seed + 11 + k)
+        for k in range(3)
+    ]
+    (trunk_v, trunk_i, trunk_uv), (leaf_v, leaf_i, leaf_uv) = _tree_meshes(
+        d, seed + 17
+    )
+    fy = np.linspace(0.0, 2.2, max(6, int(80 * d)))
+    fr = 3.0 - 1.9 * (fy / 2.2) ** 0.7 + 0.25 * np.sin(fy * 6.0)
+    fount_v, fount_i, fount_uv = _lathe(fy, fr, max(10, int(300 * d)))
+    ty = np.asarray([0.0, 0.02, 0.70, 0.72, 0.74])
+    trr = np.asarray([0.28, 0.28, 0.035, 0.42, 0.42])
+    tab_v, tab_i, tab_uv = _lathe(ty, trr, max(8, int(22 * d)))
+
+    # --- instance transforms -------------------------------------------------
+    rng = np.random.default_rng(seed)
+
+    def xform(pos, yaw=0.0, s=1.0):
+        m = np.eye(4)
+        cy, sy = np.cos(yaw), np.sin(yaw)
+        m[:3, :3] = np.asarray(
+            [[cy * s, 0, sy * s], [0, s, 0], [-sy * s, 0, cy * s]]
+        )
+        m[:3, 3] = pos
+        return m
+
+    placements = []  # (mesh_key, transform)
+    placements.append(("street", np.eye(4)))
+    placements.append(("fountain", xform([0.0, 0.0, 0.0])))
+    n_bld = max(2, int(12 * min(1.0, d * 4)))
+    for side in (-1, 1):
+        for i in range(n_bld):
+            x = -L / 2 + 8.0 + i * (L - 16.0) / max(n_bld - 1, 1)
+            if abs(x) < 9.0:
+                continue  # plaza gap
+            k = int(rng.integers(3))
+            placements.append(
+                (f"facade{k}",
+                 xform([x, 0.0, side * (W / 2)],
+                       # grid normals point -z: rotate each side to face the
+                       # street (side -1 sits at z=-W/2, street is +z of it)
+                       yaw=np.pi if side < 0 else 0.0,
+                       s=1.0 + 0.1 * rng.random()))
+            )
+    n_tree = max(2, int(30 * min(1.0, d * 4)))
+    for side in (-1, 1):
+        for i in range(n_tree):
+            x = -L / 2 + 4.0 + i * (L - 8.0) / max(n_tree - 1, 1)
+            z = side * (W / 2 - 2.4) + rng.uniform(-0.5, 0.5)
+            if abs(x) < 6.5 and abs(z) < 6.5:
+                continue
+            yaw = rng.uniform(0, 2 * np.pi)
+            s = 0.85 + 0.4 * rng.random()
+            placements.append(("trunk", xform([x, 0.0, z], yaw, s)))
+            placements.append(("leaves", xform([x, 0.0, z], yaw, s)))
+    n_tab = max(2, int(30 * min(1.0, d * 4)))
+    for i in range(n_tab):
+        x = rng.uniform(-L / 2 + 5, L / 2 - 5)
+        z = rng.uniform(-W / 2 + 3.4, W / 2 - 3.4)
+        if abs(x) < 7.0 and abs(z) < 7.0:
+            continue
+        placements.append(("table", xform([x, 0.0, z], rng.uniform(0, 6.28))))
+
+    meshes = {
+        "street": (street_v, street_i, street_uv, 0, {}),
+        "facade0": (*fac_meshes[0], 1, {}),
+        "facade1": (*fac_meshes[1], 2, {}),
+        "facade2": (*fac_meshes[2], 3, {}),
+        "trunk": (trunk_v, trunk_i, trunk_uv, 5, {}),
+        "leaves": (leaf_v, leaf_i, leaf_uv, 4,
+                   dict(double_sided=True, alpha_mode=ALPHA_MASK)),
+        "fountain": (fount_v, fount_i, fount_uv, 6, {}),
+        "table": (tab_v, tab_i, tab_uv, 7, {}),
+    }
+
+    mats = make_materials(rows)
+    lights = make_lights([
+        dict(type=LIGHT_POINT, position=[0.0, 9.0, 0.0], intensity=900.0),
+        dict(type=LIGHT_POINT, position=[-L / 4, 7.0, 0.0], intensity=500.0),
+        dict(type=LIGHT_POINT, position=[L / 4, 7.0, 0.0], intensity=500.0),
+    ])
+    cam = look_at_camera(
+        eye=[-L / 2 + 6.0, 2.4, -W / 2 + 5.0], center=[L / 6, 2.8, 0.0],
+        up=[0, 1, 0], fov_deg=65.0, aspect=16 / 9,
+    )
+
+    if instanced:
+        b = InstancedSceneBuilder()
+        ids = {}
+        for key, (v, i, uvq, mat, kw) in meshes.items():
+            ids[key] = b.add_mesh(v, i, mat, uv=uvq, **kw)
+        for key, m in placements:
+            b.add_instance(ids[key], m)
+        pool, instances = b.build()
+        return pool, instances, mats, lights, cam, atlas.build()
+
+    g = GeometryBuilder()
+    for key, m in placements:
+        v, i, uvq, mat, kw = meshes[key]
+        g.add_mesh(v, i, mat, uv=uvq, transform=m, **kw)
     return g.build(), mats, lights, cam, atlas.build()

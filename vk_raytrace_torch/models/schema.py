@@ -56,8 +56,8 @@ class Tables:
             v = getattr(self, f.name)
             if v is None or isinstance(v, (int, float, bool, str)):
                 out[f.name] = v
-            elif isinstance(v, Tables):
-                out[f.name] = v.to(device)
+            elif not isinstance(v, torch.Tensor) and hasattr(v, "to"):
+                out[f.name] = v.to(device)  # nested tables
             else:
                 out[f.name] = to_tensor(v, device)
         return dataclasses.replace(self, **out)
@@ -224,7 +224,9 @@ def default_sun_sky(in_use: bool = False) -> SunSky:
 class SceneData(Tables):
     """Everything a render step reads. ``shade_rows`` (T, 128) f32 packs the
     per-triangle shade state and material row; ``tap_rows`` (H*W, 4) u32 the
-    per-texel bilinear footprints."""
+    per-texel bilinear footprints. A two-level scene's ``geometry`` is the
+    object-space mesh pool and ``instances`` its ``ops.tlas.InstancedAccel``,
+    which the renderer takes over as its acceleration structure."""
 
     geometry: Geometry
     materials: Materials
@@ -236,6 +238,7 @@ class SceneData(Tables):
     sun_sky: SunSky
     shade_rows: Optional[object] = None
     tap_rows: Optional[object] = None
+    instances: Optional[object] = None
 
 
 @dataclasses.dataclass

@@ -125,3 +125,15 @@ def srgb_to_linear(c):
 
 def linear_to_srgb(c):
     return torch.pow(torch.clamp(c, min=0.0), 1.0 / 2.2)
+
+
+def mat3_vec(m, v):
+    """The 3x3 block of ``m`` (R, 3, 3 or 4) times ``v`` (R, 3), summed over
+    j = 0, 1, 2 in that order: out_i = m_i0 v_0 + m_i1 v_1 + m_i2 v_2."""
+    return m[:, :, 0] * v[:, 0:1] + m[:, :, 1] * v[:, 1:2] + m[:, :, 2] * v[:, 2:3]
+
+
+def mat3t_vec(m, v):
+    """The transposed 3x3 block of ``m`` times ``v``: out_j = m_0j v_0 +
+    m_1j v_1 + m_2j v_2 (normals through the inverse transpose)."""
+    return m[:, 0, 0:3] * v[:, 0:1] + m[:, 1, 0:3] * v[:, 1:2] + m[:, 2, 0:3] * v[:, 2:3]

@@ -14,16 +14,22 @@ Three modes run on the main path:
 * ``candidate`` (c): nearest alpha-flagged hit plus its interpolated texture
   UV, over the alpha tree (``ops/traverse_alpha.py``).
 
+Each mode also runs with per-lane roots (``root0``, the reference's mode d):
+the two-level path (``ops/tlas.py``) starts every lane at its instance's
+BLAS root in a concatenated table and skips the root union-box test, which
+the instance's box test has already done.
+
 :func:`traverse` dispatches on the tensors' device: CPU tensors run
 :func:`_traverse_plain` (vectorised torch over all rays), CUDA tensors launch
-the kernel or raise. :data:`LAUNCHES` counts kernel launches per mode.
+the kernel or raise. :data:`LAUNCHES` counts kernel launches per mode, with
+per-lane roots under ``<mode>_roots``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -37,12 +43,15 @@ _MODE_ID = {m: i for i, m in enumerate(MODES)}
 # any hit never does, candidates either way.
 _MODE_CULL = {("closest", True), ("any", False), ("candidate", True), ("candidate", False)}
 
-# Kernel launches per mode, counted where the wrapper launches.
-LAUNCHES = {m: 0 for m in MODES}
+ROOT_MODES = tuple(f"{m}_roots" for m in MODES)
+
+# Kernel launches per mode (``<mode>_roots`` with per-lane roots), counted
+# where the wrapper launches.
+LAUNCHES = {m: 0 for m in MODES + ROOT_MODES}
 
 
 def reset_launches() -> None:
-    for m in MODES:
+    for m in LAUNCHES:
         LAUNCHES[m] = 0
 
 
@@ -67,6 +76,7 @@ class Hit(NamedTuple):
     u: torch.Tensor      # (R,) f32 barycentric of vertex 1
     v: torch.Tensor      # (R,) f32 barycentric of vertex 2
     steps: torch.Tensor  # (R,) int32 nodes visited
+    inst: Optional[torch.Tensor] = None  # (R,) int64 instance (two-level scenes)
 
 
 def inv_dir(d: torch.Tensor) -> torch.Tensor:
@@ -125,13 +135,16 @@ def _minfold(cols):
 
 
 def _traverse_plain(
-    planar: PlanarScene, origin, direction, t_max, active, mode: str, cull: bool, seen=None
+    planar: PlanarScene, origin, direction, t_max, active, mode: str, cull: bool, seen=None,
+    root0=None,
 ):
     """Plain torch twin of the kernel: every step advances all live rays by
     one node, with an (R, D) stack, ``torch.sort`` for the child order and
     gathered rows. Returns (t, tri, u, v, steps, uvu, uvv). ``seen``, an
     optional (X,) int8 tensor over the rows, is set to 1 at every interior
-    row and 2 at every leaf row that some ray visits."""
+    row and 2 at every leaf row that some ray visits. ``root0``, an optional
+    (R,) integer tensor, starts each ray at its own interior row instead of
+    the root union-box test."""
     rows = planar.rows
     W = planar.width
     LT = W // 2
@@ -141,7 +154,10 @@ def _traverse_plain(
     cand = mode == "candidate"
     inv_d = inv_dir(direction)
 
-    cur = torch.where(_root_union_hit(rows, W, origin, inv_d, t_max), 0, TERM).long()
+    if root0 is not None:
+        cur = root0.long()
+    else:
+        cur = torch.where(_root_union_hit(rows, W, origin, inv_d, t_max), 0, TERM).long()
     if active is not None:
         cur = torch.where(active, cur, TERM)
     t_best = t_max.clone()
@@ -304,7 +320,7 @@ def _load():
         lib = ctypes.CDLL(build())
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.vkrt_traverse.argtypes = [
-            i32, i32, p, i32, p, p, p, p, i64, p, p, p, p, p, p, p, p,
+            i32, i32, p, i32, p, p, p, p, p, i64, p, p, p, p, p, p, p, p,
         ]
         lib.vkrt_traverse.restype = i32
         lib.vkrt_traverse_max_stack.restype = i32
@@ -312,7 +328,7 @@ def _load():
     return _lib
 
 
-def _traverse_cuda(planar, origin, direction, t_max, active, mode, cull):
+def _traverse_cuda(planar, origin, direction, t_max, active, mode, cull, root0=None):
     lib = _load()
     R = origin.shape[0]
     dev = origin.device
@@ -341,6 +357,12 @@ def _traverse_cuda(planar, origin, direction, t_max, active, mode, cull):
             raise ValueError("active: want a (R,) bool tensor on the rays' device")
         active = active.contiguous()
         act_ptr = active.data_ptr()
+    root_ptr = None
+    if root0 is not None:
+        if (root0.device != dev or root0.dtype != torch.int32 or tuple(root0.shape) != (R,)
+                or not root0.is_contiguous()):
+            raise ValueError("root0: want a contiguous (R,) int32 tensor on the rays' device")
+        root_ptr = root0.data_ptr()
     t = torch.empty(R, dtype=torch.float32, device=dev)
     tri = torch.empty(R, dtype=torch.int32, device=dev)
     u = torch.empty(R, dtype=torch.float32, device=dev)
@@ -351,30 +373,33 @@ def _traverse_cuda(planar, origin, direction, t_max, active, mode, cull):
     uvv = torch.empty(R, dtype=torch.float32, device=dev) if cand else None
     if R == 0:  # nothing to launch, and so nothing to count
         return t, tri.long(), u, v, steps, uvu, uvv
-    stream =torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.vkrt_traverse(
         _MODE_ID[mode], int(cull), rows.data_ptr(), planar.stack_depth,
-        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), act_ptr, R,
+        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), act_ptr, root_ptr, R,
         t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), steps.data_ptr(),
         uvu.data_ptr() if cand else None, uvv.data_ptr() if cand else None, stream,
     )
     if err != 0:
         raise RuntimeError(f"traverse kernel launch failed: cudaError {err}")
-    LAUNCHES[mode] += 1
+    LAUNCHES[mode if root0 is None else f"{mode}_roots"] += 1
     return t, tri.long(), u, v, steps, uvu, uvv
 
 
-def traverse(planar, origin, direction, t_max, active=None, mode="closest", cull=True):
-    """Run one traversal mode. CPU tensors take the plain twin; CUDA
-    tensors launch the kernel (or raise). Returns (t, tri, u, v, steps,
-    uvu, uvv); the last two are None outside candidate mode."""
+def traverse(planar, origin, direction, t_max, active=None, mode="closest", cull=True,
+             root0=None):
+    """Run one traversal mode, from the tree's root or, with ``root0`` (an
+    (R,) int32 tensor of interior rows), from each ray's own root. CPU
+    tensors take the plain twin; CUDA tensors launch the kernel (or raise).
+    Returns (t, tri, u, v, steps, uvu, uvv); the last two are None outside
+    candidate mode."""
     if (mode, cull) not in _MODE_CULL:
         raise ValueError(f"no traversal for mode {mode!r} with cull={cull}")
     if origin.device.type == "cuda":
-        return _traverse_cuda(planar, origin, direction, t_max, active, mode, cull)
+        return _traverse_cuda(planar, origin, direction, t_max, active, mode, cull, root0)
     if origin.device.type != "cpu":
         raise ValueError(f"no traversal for device {origin.device}")
-    return _traverse_plain(planar, origin, direction, t_max, active, mode, cull)
+    return _traverse_plain(planar, origin, direction, t_max, active, mode, cull, root0=root0)
 
 
 def closest_hit_fused(planar, origin, direction) -> Hit:

@@ -45,6 +45,19 @@ def build_scene(geometry, materials, lights, camera, *, env=None, sun_sky=None,
     )
 
 
+def build_instanced_scene(pool, instances, materials, lights, camera, *, env=None,
+                          sun_sky=None, atlas=None) -> SceneData:
+    """Assemble a two-level SceneData: ``pool`` is a ``models.instances.
+    MeshPool`` of object-space meshes, ``instances`` its ``InstanceTable``;
+    the instanced acceleration structure is built here and rides in
+    ``SceneData.instances``."""
+    from .ops.tlas import build_instanced_accel
+
+    scene = build_scene(pool.geometry, materials, lights, camera, env=env, sun_sky=sun_sky,
+                        atlas=atlas)
+    return dataclasses.replace(scene, instances=build_instanced_accel(pool, instances))
+
+
 def with_env_rows(env):
     """The environment with its packed per-texel rows (the integrator reads
     the alias table and bilinear taps only through them)."""
@@ -84,8 +97,10 @@ class Renderer:
     """Progressive path tracer over one scene on an explicit device."""
 
     def __init__(self, scene: SceneData, cfg, device, packed=None, fused_shade: bool = False):
-        """``packed`` reuses a prebuilt AccelBundle. ``fused_shade`` runs each
-        bounce's shading as one kernel launch where the scene allows it
+        """``packed`` reuses a prebuilt AccelBundle or InstancedAccel; a
+        two-level scene brings its own in ``scene.instances``. The renderer
+        keeps the structure in ``self.packed`` only. ``fused_shade`` runs
+        each bounce's shading as one kernel launch where the scene allows it
         (``integrator/shade_fused.py::supported``); off by default."""
         self.cfg = cfg
         self.fused_shade = fused_shade
@@ -97,15 +112,21 @@ class Renderer:
         self._sync()
         self.build_times["sky_bake_s"] = time.time() - t0
         t0 = time.time()
-        self.packed = packed if packed is not None else build_accel_bundle(scene.geometry)
+        if packed is None:
+            packed = scene.instances
+        if packed is None:
+            packed = build_accel_bundle(scene.geometry)
+        self.packed = packed
+        scene = dataclasses.replace(scene, instances=None)
         self.build_times["accel_s"] = time.time() - t0
         self.features = mat_features(scene.materials)
+        has_alpha = bool(np.any(np.asarray(scene.geometry.tri_flags) & 2))
         t0 = time.time()
         self.scene = scene.to(self.device)
         self.packed = self.packed.to(self.device)
         self.alpha_pack = (
             make_alpha_pack(self.scene.materials, self.scene.atlas, self.scene.geometry.tri_material)
-            if self.packed.alpha_planar is not None
+            if has_alpha
             else None
         )
         self.tonemapper = default_tonemapper().to(self.device)

@@ -104,7 +104,17 @@ def build_planar_rows(positions, indices, uv, tri_flags, tri_ids=None):
             ctypes.byref(depth), ctypes.c_float(0.0),
         )
         if n > 0:
-            if n * leaf + leaf >= 2**23:
-                raise ValueError(f"{n} BVH rows exceed the exact-f32 ref ceiling")
+            _check_ref_ceiling(n, leaf)
             return np.ascontiguousarray(rows[:n]), int(depth.value)
     raise RuntimeError("native planar BVH build failed")
+
+
+def _check_ref_ceiling(n_rows: int, leaf_slots: int) -> None:
+    """A leaf ref ``-(row * leaf_slots + count)`` rides in an f32 lane, so a
+    table (or a concatenation of tables sharing one ref space) of
+    ``n_rows`` rows must keep ``n_rows * leaf_slots + leaf_slots < 2**23``."""
+    if n_rows * leaf_slots + leaf_slots >= 2**23:
+        raise ValueError(
+            f"{n_rows} BVH rows exceed the exact-f32 ref ceiling of "
+            f"{2**23 // leaf_slots - 1}; instance repeated geometry or split the scene"
+        )
