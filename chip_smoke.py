@@ -6,9 +6,10 @@
 Phases, each printing its own lines (any failure raises and exits non-zero):
 
 1. environment: the card's name and power limit; CUDA must be available;
-2. build: the traversal and shading kernels (``vk_raytrace_torch/csrc/
-   traverse.cu`` and ``shade.cu``, nvcc, built in parallel) and the native
-   host runtime (``csrc/native.cpp``, g++), from this checkout;
+2. build: the traversal kernels (``vk_raytrace_torch/csrc/traverse.cu``,
+   one library per row width) and the shading kernel (``shade.cu``), nvcc
+   processes started together, and the native host runtime
+   (``csrc/native.cpp``, g++), from this checkout;
 3. traversal kernel against its plain torch twin on the card, for modes a
    (closest hit), b (any hit) and c (alpha candidates), on the full atrium's
    trees at 2^18 rays (the main path's pool width), and both timed there;
@@ -40,7 +41,24 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
     ``build_instanced_scene`` and ``Renderer(..., fused_shade=True)`` at
     1920x1080, depth 4, 1 spp, glTF PBR, sun&sky, firefly clamp 10,
     full_mis off; one warm-up and three timed frames; every traversal mode
-    with roots and the shading kernel must have launched.
+    with roots and the shading kernel must have launched;
+12. the width-32 traversal kernel (1024-byte rows, 16-triangle leaves)
+    against its twin: the full atrium's width-32 trees on phase 3's ray
+    sets, then per-lane roots on the full bistro's width-32 tables on phase
+    8's; all timed;
+13. the child sort (``sort_children``) against its plain version at 2^18
+    rows of 16 and of 32 keys with ties and misses, exact; timed beside one
+    stable ``torch.sort``;
+14. the traversal micro-bench (``vk_raytrace_torch.travbench``) at full
+    size on the atrium, widths 16 and 32: each capped and no-gather kernel
+    against its plain version (exact) and timed, with the full traversal
+    and the root child order; the capped, no-gather and sort kernels must
+    have launched;
+15. the atrium main path at width 32 (``build_accel_bundle(geom,
+    width=32)``, fused shading), beside phase 7: every width-32 mode must
+    have launched and no width-16 one;
+16. the bistro main path at width 32 (``build_instanced_scene(...,
+    width=32)``), beside phase 11: the same for the modes with roots.
 
 The line before the last is the per-kernel JSON summary (times, launches,
 errors and each kernel's bound on this card); the last line is
@@ -49,7 +67,6 @@ errors and each kernel's bound on this card); the last line is
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -60,22 +77,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "vk_raytrace_torch/csrc/traverse.cu"
 REPLACES = "vk_raytrace_tpu/ops/traverse_fused.py:255"  # _make_step_kernel
 ROOTS_REPLACES = "vk_raytrace_tpu/ops/traverse_fused.py:724"  # root0 (mode d)
+SORT_REPLACES = "tests/test_fused.py:88"  # the pallas_call around _bitonic
+NOGATHER_REPLACES = "scripts/stepbench.py:121"  # the no-gather step kernel
 SHADE_SOURCE = "vk_raytrace_torch/csrc/shade.cu"
 SHADE_REPLACES = "vk_raytrace_tpu/integrator/shade_fused.py:290"  # _make_kernel
 SHADE_INST_REPLACES = "vk_raytrace_tpu/integrator/shade_fused.py:367"  # instanced
-# The card's peaks (H100 SXM data sheet): memory rate and float32 rate
-# outside the tensor cores; a kernel's bound is the larger of its bytes and
-# its operations over them.
-PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 67e12
-# Float operations of one traversal step, counted from csrc/traverse.cu: an
-# interior row tests 16 child boxes (6 subtract, 6 multiply, 10 min/max and
-# 4 compares each, 416), a leaf row 8 triangles (Moller-Trumbore: about 52
-# each, 416).
-OPS_PER_NODE = 416
-# Bytes csrc/traverse.cu loads from a row it visits, in 32-byte sectors: an
-# interior row's child boxes and refs (lanes 0-111); a leaf row's vertex and
-# meta lanes (10 attributes of 8 lanes), all 16 in mode c for the texture UVs.
-INTERIOR_ROW_BYTES, LEAF_ROW_BYTES = 448, {"closest": 320, "any": 320, "candidate": 512}
+# Bytes, operations and bounds of the traversal kernel's calls, and the
+# card's peak rates, are counted by vk_raytrace_torch/travbench.py.
 # Float operations of one shading lane, counted from csrc/shade.cu for the
 # atrium's flags (base texture, full MIS), each add, multiply, divide,
 # square root, min/max, compare or transcendental as one: shade state ~260,
@@ -104,34 +112,6 @@ PIX_RTOL, PIX_ATOL, PIX_SHARE, RAY_REL = 1e-3, 1e-4, 0.99, 1e-3
 
 def phase(name):
     print(f"== {name}", flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()
-    return out[0].strip()
-
-
-def cuda_time(fn, reps):
-    """Mean milliseconds per call, timed with CUDA events after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def bound(n_bytes, n_ops):
-    """(bound_ms, bound_by): the least time of ``n_bytes`` moved and
-    ``n_ops`` float32 operations at the card's peak rates."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_F32_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def shade_bytes(n, flags):
@@ -181,15 +161,15 @@ def build_kernels():
     from vk_raytrace_torch.integrator import shade_fused as sf
     from vk_raytrace_torch.ops import traverse_fused as tf
 
-    def timed(fn, **kw):
+    def timed(fn, *args, **kw):
         t0 = time.time()
-        fn(**kw)
+        fn(*args, **kw)
         return time.time() - t0
 
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         futures = {
             "native": pool.submit(timed, runtime.build),
-            "traverse": pool.submit(timed, tf.build, verbose=True),
+            **{f"traverse{w}": pool.submit(timed, tf.build, w, verbose=True) for w in tf.WIDTHS},
             "shade": pool.submit(timed, sf.build, verbose=True),
         }
         return {k: f.result() for k, f in futures.items()}
@@ -344,6 +324,40 @@ def compare(mode, kern, twin):
     return float(max(e.max(initial=0.0) for e in errs))
 
 
+def traversal_case(name, planar, oo, dd, tm, mode, cull, card, root0=None, note=""):
+    """The traversal kernel against its twin in one mode (with ``root0``:
+    per-lane roots) on these rays; both timed, and the call's bound counted
+    from the rows the twin visits. Returns (max |err|, (ms, plain_ms),
+    (bound_ms, bound_by))."""
+    from vk_raytrace_torch import travbench as tb
+    from vk_raytrace_torch.ops import traverse_fused as tf
+
+    n = oo.shape[0]
+    kern = tf.traverse(planar, oo, dd, tm, mode=mode, cull=cull, root0=root0)
+    seen = torch.zeros(planar.rows.shape[0], dtype=torch.int8, device=oo.device)
+    twin = tf._traverse_plain(planar, oo, dd, tm, None, mode, cull, seen, root0=root0)
+    torch.cuda.synchronize()
+    err = compare(mode, kern, twin)
+    hit_share = float((kern[1] >= 0).float().mean())
+    steps = float(kern[4].float().mean())
+    ms = tb.cuda_time(lambda: tf.traverse(planar, oo, dd, tm, mode=mode, cull=cull, root0=root0),
+                      20)
+    plain_ms = tb.cuda_time(
+        lambda: tf._traverse_plain(planar, oo, dd, tm, None, mode, cull, root0=root0), 2)
+    # Bytes: rays in (origin, direction, t_max, + root) and out (t, tri, u,
+    # v, steps, + uv in mode c), plus each distinct row the rays visit once.
+    ray_b = 28 + (4 if root0 is not None else 0) + (28 if mode == "candidate" else 20)
+    n_bytes, n_inner, n_leaf = tb.traversal_bytes(n, ray_b, seen, planar.width, mode)
+    n_ops = float(kern[4].double().sum()) * tb.ops_per_node(planar.width)
+    bnd = tb.bound(n_bytes, n_ops)
+    print(f"mode {name}{note}: {n} rays, hit share {hit_share:.4f}, mean nodes/ray {steps:.2f}, "
+          f"max |err| {err:.3g} -> OK; kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound "
+          f"{bnd[0]:.4f} ms by {bnd[1]} ({n_bytes / 1e6:.1f} MB with {n_inner} interior + "
+          f"{n_leaf} leaf rows of {planar.rows.shape[0]} visited, {n_ops / 1e9:.3f} Gop; "
+          f"{ms / bnd[0]:.1f}x the bound) ({card})", flush=True)
+    return err, (ms, plain_ms), bnd
+
+
 def first_candidates(acc, subset, o, d, t_max, n):
     """The rays' first instance candidates over the ``subset`` ("opq" or
     "alp") boxes of the instances that have such triangles, moved into
@@ -380,7 +394,9 @@ def main():
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
-    card = card_line()
+    from vk_raytrace_torch import travbench as tb
+
+    card = tb.card_line()
     print(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"card: {card}", flush=True)
 
@@ -432,30 +448,8 @@ def main():
     }
     errors, times, bounds = {}, {}, {}
     for mode, (planar, oo, dd, tm, cull) in cases.items():
-        kern = tf.traverse(planar, oo, dd, tm, mode=mode, cull=cull)
-        seen = torch.zeros(planar.rows.shape[0], dtype=torch.int8, device=dev)
-        twin = tf._traverse_plain(planar, oo, dd, tm, None, mode, cull, seen)
-        torch.cuda.synchronize()
-        errors[mode] = compare(mode, kern, twin)
-        hit_share = float((kern[1] >= 0).float().mean())
-        steps = float(kern[4].float().mean())
-        ms = cuda_time(lambda: tf.traverse(planar, oo, dd, tm, mode=mode, cull=cull), 20)
-        plain_ms = cuda_time(lambda: tf._traverse_plain(planar, oo, dd, tm, None, mode, cull), 2)
-        times[mode] = (ms, plain_ms)
-        # Bytes: rays in (origin, direction, t_max) and out (t, tri, u, v,
-        # steps, + uv in mode c), plus each distinct row the rays visit once.
-        nodes = float(kern[4].double().sum())
-        out_b = 28 if mode == "candidate" else 20
-        n_inner, n_leaf = int((seen == 1).sum()), int((seen == 2).sum())
-        n_bytes = (n * (28 + out_b) + n_inner * INTERIOR_ROW_BYTES
-                   + n_leaf * LEAF_ROW_BYTES[mode])
-        bounds[mode] = bound(n_bytes, nodes * OPS_PER_NODE)
-        print(f"mode {mode}: {n} rays, hit share {hit_share:.4f}, mean nodes/ray "
-              f"{steps:.2f}, max |err| {errors[mode]:.3g} -> OK; kernel {ms:.3f} ms, "
-              f"twin {plain_ms:.3f} ms, bound {bounds[mode][0]:.4f} ms by {bounds[mode][1]} "
-              f"({n_bytes / 1e6:.1f} MB with {n_inner} interior + {n_leaf} leaf rows of "
-              f"{planar.rows.shape[0]} visited, {nodes * OPS_PER_NODE / 1e9:.3f} Gop; "
-              f"{ms / bounds[mode][0]:.1f}x the bound) ({card})", flush=True)
+        errors[mode], times[mode], bounds[mode] = traversal_case(
+            mode, planar, oo, dd, tm, mode, cull, card)
 
     # ---- 4. render slice: card vs CPU twin ---------------------------------
     phase("slice vs twin")
@@ -564,10 +558,10 @@ def main():
         shade_err = max(shade_err, err)
         print(f"shade {what}: {n} lanes, alive {float(kern[1].float().mean()):.4f}, masks agree "
               f"{agree:.6f}, max |err| {err:.3g} -> OK", flush=True)
-    shade_ms = cuda_time(lambda: sf.shade(*real), 20)
-    shade_plain_ms = cuda_time(lambda: sf._shade_plain(*real), 2)
+    shade_ms = tb.cuda_time(lambda: sf.shade(*real), 20)
+    shade_plain_ms = tb.cuda_time(lambda: sf._shade_plain(*real), 2)
     s_bytes, s_ops = shade_bytes(n, x.flags), n * SHADE_OPS_PER_LANE
-    shade_bound = bound(s_bytes, s_ops)
+    shade_bound = tb.bound(s_bytes, s_ops)
     print(f"shade kernel {shade_ms:.3f} ms, plain {shade_plain_ms:.3f} ms at {n} lanes; bound "
           f"{shade_bound[0]:.4f} ms by {shade_bound[1]} ({s_bytes / 1e6:.1f} MB, "
           f"{s_bytes / n:.0f} B per lane, {s_ops / 1e9:.3f} Gop; flags {x.flags}; "
@@ -634,37 +628,18 @@ def main():
         "any": ("opq", oc, dc, t_near, False),
         "candidate": ("alp", o_leaf, d_leaf, t_far, True),
     }
-    for mode, (subset, oo, dd, tm, cull) in root_cases.items():
-        name = f"{mode}_roots"
-        planar = getattr(acc, f"blas_planar_{subset}")
-        oo, dd, tm, root0, share_c = first_candidates(acc, subset, oo, dd, tm, n)
-        kern = tf.traverse(planar, oo, dd, tm, mode=mode, cull=cull, root0=root0)
-        seen = torch.zeros(planar.rows.shape[0], dtype=torch.int8, device=dev)
-        twin = tf._traverse_plain(planar, oo, dd, tm, None, mode, cull, seen, root0=root0)
-        torch.cuda.synchronize()
-        errors[name] = compare(mode, kern, twin)
-        hit_share = float((kern[1] >= 0).float().mean())
-        steps = float(kern[4].float().mean())
-        ms = cuda_time(lambda: tf.traverse(planar, oo, dd, tm, mode=mode, cull=cull, root0=root0), 20)
-        plain_ms = cuda_time(
-            lambda: tf._traverse_plain(planar, oo, dd, tm, None, mode, cull, root0=root0), 2)
-        times[name] = (ms, plain_ms)
-        # Bytes: rays in (origin, direction, t_max, root) and out, plus each
-        # distinct row the rays visit once.
-        nodes = float(kern[4].double().sum())
-        out_b = 28 if mode == "candidate" else 20
-        n_inner, n_leaf = int((seen == 1).sum()), int((seen == 2).sum())
-        n_bytes = (n * (32 + out_b) + n_inner * INTERIOR_ROW_BYTES
-                   + n_leaf * LEAF_ROW_BYTES[mode])
-        bounds[name] = bound(n_bytes, nodes * OPS_PER_NODE)
-        print(f"mode {name} ({subset} subset): {n} rays ({share_c:.3f} of the generated rays "
-              f"enter an instance box), hit share {hit_share:.4f}, mean nodes/ray {steps:.2f}, "
-              f"max |err| {errors[name]:.3g} -> OK; kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, "
-              f"bound {bounds[name][0]:.4f} ms by {bounds[name][1]} ({n_bytes / 1e6:.1f} MB with "
-              f"{n_inner} interior + {n_leaf} leaf rows of {planar.rows.shape[0]} visited, "
-              f"{nodes * OPS_PER_NODE / 1e9:.3f} Gop; {ms / bounds[name][0]:.1f}x the bound) "
-              f"({card})", flush=True)
-    del oc, dc, o_leaf, d_leaf, kern, twin
+    def roots_cases(acc, suffix):
+        """Phase 8's world rays at each mode's first instance candidates of
+        ``acc``, against the twin (kept for phase 12's width-32 tables)."""
+        for mode, (subset, oo, dd, tm, cull) in root_cases.items():
+            name = f"{mode}_roots{suffix}"
+            planar = getattr(acc, f"blas_planar_{subset}")
+            oo, dd, tm, root0, share_c = first_candidates(acc, subset, oo, dd, tm, n)
+            errors[name], times[name], bounds[name] = traversal_case(
+                name, planar, oo, dd, tm, mode, cull, card, root0,
+                f" ({subset} subset, {share_c:.3f} of the generated rays enter an instance box)")
+
+    roots_cases(acc, "")
 
     # ---- 9. two-level render slice: card vs CPU twin ------------------------
     phase("bistro slice vs twin")
@@ -723,10 +698,10 @@ def main():
         inst_err = max(inst_err, err)
         print(f"shade {what}: {n} lanes, alive {float(kern[1].float().mean()):.4f}, masks agree "
               f"{agree:.6f}, max |err| {err:.3g} -> OK", flush=True)
-    inst_ms = cuda_time(lambda: sf.shade(*real), 20)
-    inst_plain_ms = cuda_time(lambda: sf._shade_plain(*real), 2)
+    inst_ms = tb.cuda_time(lambda: sf.shade(*real), 20)
+    inst_plain_ms = tb.cuda_time(lambda: sf._shade_plain(*real), 2)
     i_bytes, i_ops = shade_bytes(n, x.flags), n * SHADE_INST_OPS_PER_LANE
-    inst_bound = bound(i_bytes, i_ops)
+    inst_bound = tb.bound(i_bytes, i_ops)
     print(f"instanced shade kernel {inst_ms:.3f} ms, plain {inst_plain_ms:.3f} ms at {n} lanes; "
           f"bound {inst_bound[0]:.4f} ms by {inst_bound[1]} ({i_bytes / 1e6:.1f} MB, "
           f"{i_bytes / n:.0f} B per lane, {i_ops / 1e9:.3f} Gop; flags {x.flags}; "
@@ -759,6 +734,115 @@ def main():
           f"{b_peak_mb:.1f} MiB allocated, mean radiance {b_img.mean():.4f}; build s: "
           + ", ".join(f"{k} {v:.2f}" for k, v in b_build.items()) + f" [{card}]", flush=True)
 
+    # ---- 12. the width-32 kernel against its twin ---------------------------
+    phase("width-32 kernel vs twin")
+    del rb
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    bundle32 = build_accel_bundle(geom, width=32)
+    accel32_s = time.time() - t0
+    g32 = bundle32.to(dev)
+    print(f"atrium width 32: opaque rows {g32.opaque_planar.rows.shape[0]} (stack "
+          f"{bundle32.opaque_planar.stack_depth}), alpha rows {g32.alpha_planar.rows.shape[0]} "
+          f"(stack {bundle32.alpha_planar.stack_depth}); accel {accel32_s:.2f} s", flush=True)
+    for mode, (planar, oo, dd, tm, cull) in cases.items():
+        planar = g32.alpha_planar if mode == "candidate" else g32.opaque_planar
+        name = f"{mode}_w32"
+        errors[name], times[name], bounds[name] = traversal_case(
+            name, planar, oo, dd, tm, mode, cull, card)
+    t0 = time.time()
+    bscene32 = R.build_instanced_scene(pool, inst, b_mats, b_lights, b_cam, atlas=b_atlas,
+                                       width=32)
+    b_tables32_s = time.time() - t0
+    acc32 = bscene32.instances.to(dev)
+    print(f"bistro width 32: rows full {acc32.blas_planar.rows.shape[0]}, opaque "
+          f"{acc32.blas_planar_opq.rows.shape[0]} (stack {acc32.blas_planar_opq.stack_depth}), "
+          f"alpha {acc32.blas_planar_alp.rows.shape[0]} (stack "
+          f"{acc32.blas_planar_alp.stack_depth}); tables and accel {b_tables32_s:.2f} s",
+          flush=True)
+    roots_cases(acc32, "_w32")
+    del acc32
+
+    # ---- 13. the child sort against its plain version -----------------------
+    phase("child sort vs plain")
+    sort_res = {}
+    for width in tf.WIDTHS:
+        name = tf.launch_key("sort_children", width)
+        keys = torch.tensor(rng.integers(0, 8, (n, width)) / 4.0 - 0.5, dtype=torch.float32,
+                            device=dev)
+        keys[torch.tensor(rng.random((n, width)) < 0.3, device=dev)] = tf.INF  # misses
+        refs = torch.tensor(rng.integers(-2**30, 2**30, (n, width)), dtype=torch.int32,
+                            device=dev)
+        kern = tf.sort_children(keys, refs)
+        plain = tf._sort_children_plain(keys, refs)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(kern, plain)), f"{name}: differs"
+        ms = tb.cuda_time(lambda: tf.sort_children(keys, refs), 20)
+        plain_ms = tb.cuda_time(lambda: tf._sort_children_plain(keys, refs), 5)
+        lib_ms = tb.cuda_time(lambda: torch.sort(keys, dim=1, stable=True), 20)
+        s_bytes, s_ops = tb.sort_bytes(keys), tb.sort_ops(keys)
+        sort_res[name] = (ms, plain_ms, lib_ms, tb.bound(s_bytes, s_ops))
+        print(f"{name}: {n} rows of {width}, hits/row {float(plain[2].float().mean()):.2f}, "
+              f"exact -> OK; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sort "
+              f"{lib_ms:.4f} ms; bound {sort_res[name][3][0]:.4f} ms by {sort_res[name][3][1]} "
+              f"({s_bytes / 1e6:.1f} MB, {s_ops / 1e6:.1f} Mop) ({card})", flush=True)
+    del keys, refs, kern, plain
+
+    # ---- 14. the traversal micro-bench --------------------------------------
+    phase("traversal micro-bench")
+    tf.reset_launches()
+    bench = {(x["variant"], x["width"]): x for x in tb.run(
+        dev, {16: gbundle.opaque_planar, 32: g32.opaque_planar}, cam, card=card)}
+    t_launches = dict(tf.LAUNCHES)
+    print(f"launches {t_launches}", flush=True)
+    bench_keys = tf.CAPPED_KEYS + tf.SORT_KEYS
+    assert all(t_launches[m] > 0 for m in bench_keys), f"a bench kernel never launched: {t_launches}"
+
+    def frames(r, what, want, refuse, beside):
+        """Phase 15/16: warm-up and three frames of renderer ``r``; the modes
+        ``want`` must launch and ``refuse`` must not."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tf.reset_launches()
+        sf.reset_launches()
+        warm, f_s, f_rays = run_frames(r)
+        lau = {**tf.LAUNCHES, **sf.LAUNCHES}
+        img, ldr = r.accum.cpu().numpy(), r.postprocess().cpu().numpy()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        print(f"warm-up frame {warm:.3f} s; frames {['%.4f' % x for x in f_s]} s; rays/frame "
+              f"{f_rays}; launches {lau}")
+        assert all(lau[m] > 0 for m in want), f"{what}: a width-32 kernel never launched: {lau}"
+        assert not any(lau[m] for m in refuse), f"{what}: a width-16 kernel launched: {lau}"
+        assert lau["shade_bounce"] > 0, f"{what}: the shading kernel never launched: {lau}"
+        assert np.isfinite(img).all() and np.isfinite(ldr).all(), f"{what}: non-finite pixels"
+        assert img.mean() > 0.0 and ldr.max() > 0.0, f"{what}: black image"
+        assert min(f_rays) > 1920 * 1080, f"{what}: fewer rays than primary rays"
+        s_f = float(np.mean(f_s))
+        mr = float(np.sum(f_rays) / np.sum(f_s) / 1e6)
+        print(f"{what} 1080p d4 1spp fused, width 32: {s_f:.4f} s/frame, {mr:.4f} Mrays/s, "
+              f"peak {peak:.1f} MiB allocated, {float(np.mean(f_rays)):.0f} rays/frame, mean "
+              f"radiance {img.mean():.4f}; width 16 in this call: {beside} [{card}]", flush=True)
+        return lau
+
+    # ---- 15. the atrium main path at width 32 -------------------------------
+    phase("main path, width 32")
+    del g32
+    r32 = R.Renderer(scene, cfg, device=dev, packed=bundle32, fused_shade=True)
+    w_launches = frames(
+        r32, "atrium", [f"{m}_w32" for m in tf.MODES], tf.MODES + tf.ROOT_MODES,
+        f"{f_s_frame:.4f} s/frame, {f_mrays:.4f} Mrays/s, peak {f_peak_mb:.1f} MiB, "
+        f"{float(np.mean(f_frame_rays)):.0f} rays/frame")
+    del r32
+
+    # ---- 16. the bistro main path at width 32 -------------------------------
+    phase("two-level main path, width 32")
+    rb32 = R.Renderer(bscene32, b_cfg, device=dev, fused_shade=True)
+    wb_launches = frames(
+        rb32, "bistro", [f"{m}_w32" for m in tf.ROOT_MODES], tf.MODES + tf.ROOT_MODES,
+        f"{b_s_frame:.4f} s/frame, {b_mrays:.4f} Mrays/s, peak {b_peak_mb:.1f} MiB, "
+        f"{float(np.mean(b_frame_rays)):.0f} rays/frame")
+    del rb32
+
     kernels = [
         {"name": f"traverse_{m}", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
          "launches": launches[m], "max_abs_err": errors[m], "ms": times[m][0],
@@ -785,6 +869,27 @@ def main():
          "max_abs_err": inst_err, "ms": inst_ms, "plain_ms": inst_plain_ms,
          "bound_ms": inst_bound[0], "bound_by": inst_bound[1], "library_ms": None}
     )
+
+    def traverse_entry(m, lau, replaces):
+        return {"name": f"traverse_{m}", "route": "cuda", "source": SOURCE, "replaces": replaces,
+                "launches": lau[m], "max_abs_err": errors[m], "ms": times[m][0],
+                "plain_ms": times[m][1], "bound_ms": bounds[m][0], "bound_by": bounds[m][1],
+                "library_ms": None}
+
+    kernels += [traverse_entry(f"{m}_w32", w_launches, REPLACES) for m in tf.MODES]
+    kernels += [traverse_entry(f"{m}_w32", wb_launches, ROOTS_REPLACES) for m in tf.ROOT_MODES]
+    for name, (ms, plain_ms, lib_ms, (b_ms, b_by)) in sort_res.items():
+        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
+                        "replaces": SORT_REPLACES, "launches": t_launches[name],
+                        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": lib_ms})
+    for key in tf.CAPPED_KEYS:
+        x = bench[(f"{key.split('_')[0]}8", 32 if key.endswith("_w32") else 16)]
+        kernels.append({"name": f"traverse_{key}", "route": "cuda", "source": SOURCE,
+                        "replaces": NOGATHER_REPLACES if key.startswith("nogather") else REPLACES,
+                        "launches": t_launches[key], "max_abs_err": 0.0, "ms": x["ms"],
+                        "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
+                        "bound_by": x["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

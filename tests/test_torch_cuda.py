@@ -5,9 +5,10 @@ they also run on a machine without it:
 
 The traversal kernel against its plain twin (CPU) for modes a/b/c on the
 reduced atrium with banners and, with per-lane roots, on the small bistro's
-subset tables; the shading kernel (single-level and instanced) against its
-plain version; and the render slices (atrium, bistro) on the card against
-the CPU. Kernel vs twin: same float32 operations in the same order, rounded
+subset tables, at row widths 16 and 32; the child sort and the capped and
+no-gather entries against their plain versions (exact); the shading kernel
+(single-level and instanced) against its plain version; and the render
+slices (atrium, bistro) on the card against the CPU. Kernel vs twin: same float32 operations in the same order, rounded
 per operation (nvcc -fmad=false), so ``tri`` and the hit masks are equal
 and t within rtol 1e-5. Render: CUDA and CPU transcendentals round
 differently, so 99% of pixels within rtol 1e-3 / atol 1e-4 and ray counts
@@ -56,8 +57,17 @@ def _rays(seed, geom, n, alpha):
 @pytest.mark.parametrize("mode", tf.MODES)
 def test_kernel_matches_twin(scene, mode):
     _need_cuda()
-    geom = scene[0]
-    bundle = build_accel_bundle(geom)
+    _kernel_vs_twin(scene[0], mode, 16)
+
+
+@pytest.mark.parametrize("mode", tf.MODES)
+def test_w32_kernel_matches_twin(scene, mode):
+    _need_cuda()
+    _kernel_vs_twin(scene[0], mode, 32)
+
+
+def _kernel_vs_twin(geom, mode, width):
+    bundle = build_accel_bundle(geom, width=width)
     planar = bundle.alpha_planar if mode == "candidate" else bundle.opaque_planar
     n = 4099
     o, d = _rays(3, geom, n, alpha=mode == "candidate")
@@ -66,11 +76,12 @@ def test_kernel_matches_twin(scene, mode):
     active = torch.tensor(rng.random(n) < 0.9)
     cull = mode != "any"
     twin = tf.traverse(planar.to("cpu"), o, d, t_max, active, mode=mode, cull=cull)
-    before = tf.LAUNCHES[mode]
+    key = tf.launch_key(mode, width)
+    before = tf.LAUNCHES[key]
     kern = tf.traverse(planar.to("cuda"), o.cuda(), d.cuda(), t_max.cuda(), active.cuda(),
                        mode=mode, cull=cull)
     torch.cuda.synchronize()
-    assert tf.LAUNCHES[mode] == before + 1
+    assert tf.LAUNCHES[key] == before + 1
     k = [None if x is None else x.cpu().numpy() for x in kern]
     p = [None if x is None else x.numpy() for x in twin]
     np.testing.assert_array_equal(k[1], p[1])
@@ -166,9 +177,19 @@ def test_roots_kernel_matches_twin(bistro, mode):
     """Per-lane roots (the two-level path): each ray's first instance
     candidate in object space, the kernel against the CPU twin."""
     _need_cuda()
+    _roots_vs_twin(bistro, mode, 16)
+
+
+@pytest.mark.parametrize("mode", tf.MODES)
+def test_w32_roots_kernel_matches_twin(bistro, mode):
+    _need_cuda()
+    _roots_vs_twin(bistro, mode, 32)
+
+
+def _roots_vs_twin(bistro, mode, width):
     import chip_smoke
 
-    acc = tlas.build_instanced_accel(bistro[0], bistro[1]).to("cuda")
+    acc = tlas.build_instanced_accel(bistro[0], bistro[1], width=width).to("cuda")
     subset = "alp" if mode == "candidate" else "opq"
     rng = np.random.default_rng(9)
     origins = rng.uniform([-50, 0.5, -10], [50, 8, 10], (6000, 3))
@@ -184,10 +205,11 @@ def test_roots_kernel_matches_twin(bistro, mode):
     oo, dd, tm, root0, _ = chip_smoke.first_candidates(acc, subset, o, d, tm, 4099)
     planar = getattr(acc, f"blas_planar_{subset}")
     cull = mode != "any"
-    before = tf.LAUNCHES[f"{mode}_roots"]
+    key = tf.launch_key(f"{mode}_roots", width)
+    before = tf.LAUNCHES[key]
     kern = tf.traverse(planar, oo, dd, tm, mode=mode, cull=cull, root0=root0)
     torch.cuda.synchronize()
-    assert tf.LAUNCHES[f"{mode}_roots"] == before + 1
+    assert tf.LAUNCHES[key] == before + 1
     twin = tf.traverse(planar.to("cpu"), oo.cpu(), dd.cpu(), tm.cpu(), mode=mode, cull=cull,
                        root0=root0.cpu())
     k = [None if x is None else x.cpu().numpy() for x in kern]
@@ -196,6 +218,48 @@ def test_roots_kernel_matches_twin(bistro, mode):
     np.testing.assert_allclose(k[0], p[0], rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(k[4], p[4])  # identical node visits
     assert 0.05 < (p[1] >= 0).mean()
+
+
+@pytest.mark.parametrize("width", tf.WIDTHS)
+def test_sort_kernel_matches_plain(width):
+    """The child sort on the card against ``torch.sort`` (stable) and a
+    gather: keys with ties and misses, exact."""
+    _need_cuda()
+    rng = np.random.default_rng(50 + width)
+    n = 20000
+    keys = torch.tensor(rng.integers(0, 8, (n, width)) / 4.0 - 0.5, dtype=torch.float32)
+    keys[torch.tensor(rng.random((n, width)) < 0.3)] = tf.INF
+    refs = torch.tensor(rng.integers(-2**30, 2**30, (n, width)), dtype=torch.int32)
+    plain = tf.sort_children(keys, refs)
+    key = tf.launch_key("sort_children", width)
+    before = tf.LAUNCHES[key]
+    kern = tf.sort_children(keys.cuda(), refs.cuda())
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES[key] == before + 1
+    for a, b in zip(kern, plain):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("nogather", [False, True])
+@pytest.mark.parametrize("width", tf.WIDTHS)
+def test_capped_kernel_matches_plain(scene, width, nogather):
+    """The capped entry (8 nodes per ray) and its no-gather variant against
+    the plain versions on the CPU: exact."""
+    _need_cuda()
+    geom = scene[0]
+    planar = build_accel_bundle(geom, width=width).opaque_planar
+    o, d = _rays(11, geom, 4099, alpha=False)
+    t_max = torch.full((4099,), tf.INF)
+    plain = tf.traverse_capped(planar.to("cpu"), o, d, t_max, 8, nogather=nogather)
+    key = tf.launch_key("nogather" if nogather else "capped", width)
+    before = tf.LAUNCHES[key]
+    kern = tf.traverse_capped(planar.to("cuda"), o.cuda(), d.cuda(), t_max.cuda(), 8,
+                              nogather=nogather)
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES[key] == before + 1
+    for a, b in zip(kern[:5], plain[:5]):
+        assert torch.equal(a.cpu(), b)
+    assert int(plain[4].max()) == 8 or nogather
 
 
 @pytest.mark.parametrize("full_mis", [True, False])

@@ -2,7 +2,9 @@
 build the Cornell box with its own (numpy + native runtime) pipeline,
 render one 32x32 frame on the CPU, and check that neither JAX nor the JAX
 package was ever imported; the same for the two-level path (instance
-tables, ``ops/tlas.py``, the small bistro through the fused stage)."""
+tables, ``ops/tlas.py``, the small bistro through the fused stage) and for
+the width-32 builds (``build_bvh32``) with the traversal micro-bench
+(``vk_raytrace_torch.travbench``)."""
 
 import ast
 import os
@@ -55,6 +57,23 @@ print("ok")
 """
 
 
+TRAVBENCH_SCRIPT = """
+import sys
+import numpy as np
+from vk_raytrace_torch import runtime, travbench
+from vk_raytrace_torch.models import procedural
+
+g, m, l, c = procedural.city_scene(n_blocks=6)
+rows, depth = runtime.build_planar_rows(g.positions, g.indices, g.uv, g.tri_flags, width=32)
+assert rows.shape[1] == 256 and depth >= 1
+travbench.main(["--device", "cpu", "--small", "--rays", "64", "--reps", "1"])
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+assert "vk_raytrace_tpu" not in sys.modules, sorted(
+    m for m in sys.modules if m.startswith("vk_raytrace_tpu"))
+print("ok")
+"""
+
+
 def _run(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
@@ -72,6 +91,10 @@ def test_port_never_imports_jax():
 
 def test_instanced_path_never_imports_jax():
     _run(INSTANCED_SCRIPT)
+
+
+def test_width32_and_travbench_never_import_jax():
+    _run(TRAVBENCH_SCRIPT)
 
 
 def _non_doc_strings(tree):

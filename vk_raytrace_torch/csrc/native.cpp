@@ -6,6 +6,7 @@
 //   smooth_normals    area-weighted vertex normals
 //   pack_rgba8        RGBA8 vertex-colour packing
 //   build_bvh16       binned-SAH build of 16-wide planar 512-byte rows
+//   build_bvh32       the same at width 32: 1024-byte rows
 // The tables they produce must stay byte-identical to the reference's
 // (tests/test_torch_scene.py).
 
@@ -228,10 +229,11 @@ inline int64_t split_range(Ctx& c, int64_t lo, int64_t hi) {
 }  // namespace wbvh
 
 // ---------------------------------------------------------------------------
-// 16-wide planar BVH builder: 512-byte rows in the layout csrc/traverse.cu
-// reads (ops/traverse_fused.py).
+// W-wide planar BVH builder (W = 16 or 32): rows of W*8 f32 lanes in the
+// layout csrc/traverse.cu reads (ops/traverse_fused.py). At W = 32 every
+// 16 and 8 below doubles: leaves hold 16 triangles, refs -(row*16+cnt-1+1).
 //
-// Row layout (128 f32 lanes):
+// Row layout at W = 16 (128 f32 lanes):
 //   interior: [c]=bmin.x(c) [16+c]=bmin.y [32+c]=bmin.z
 //             [48+c]=bmax.x [64+c]=bmax.y [80+c]=bmax.z
 //             [96+c]=child ref (>=0 interior row; <0 => -(leaf_row*8+cnt-1+1))
@@ -250,6 +252,7 @@ using wbvh::Ctx;
 using wbvh::kInvalid;
 
 // Width-templated: kWidth children per interior row, kWidth/2 triangles per
+// leaf row.
 template <int kWidth>
 inline int64_t alloc_row(Ctx& c) {
   constexpr int kLanes = kWidth * 8;
@@ -532,6 +535,17 @@ int64_t build_bvh16(const float* positions, const int32_t* indices,
                     float* rows_out, int64_t max_rows,
                     int32_t* stack_depth_out, float presplit) {
   return wplanar::build_planar<16>(positions, indices, uv, tri_ids, tri_flags,
+                                   n_tris, rows_out, max_rows, stack_depth_out,
+                                   presplit);
+}
+
+// 32-wide variant: 1024-byte rows, leaves of up to 16 triangles.
+int64_t build_bvh32(const float* positions, const int32_t* indices,
+                    const float* uv, const int32_t* tri_ids,
+                    const int32_t* tri_flags, int64_t n_tris,
+                    float* rows_out, int64_t max_rows,
+                    int32_t* stack_depth_out, float presplit) {
+  return wplanar::build_planar<32>(positions, indices, uv, tri_ids, tri_flags,
                                    n_tris, rows_out, max_rows, stack_depth_out,
                                    presplit);
 }

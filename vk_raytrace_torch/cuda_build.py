@@ -50,12 +50,14 @@ def compile_if_stale(out: str, src_path: str, cmd: list) -> str:
     return res.stderr
 
 
-def build(name: str, src: str, verbose: bool = False) -> str:
+def build(name: str, src: str, verbose: bool = False, defines=()) -> str:
     """Compile ``csrc/<src>`` into ``_build/lib<name>.so`` unless the library
-    is newer than the source. Returns the library path; with ``verbose``,
+    is newer than the source, with ``-D`` of each of ``defines`` (one source
+    can make several libraries). Returns the library path; with ``verbose``,
     prints what ``-Xptxas -v`` reports (registers, spills, stack frame)."""
     out = lib_path(name)
-    log = compile_if_stale(out, os.path.join(CSRC, src), [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v"])
+    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines), "-Xptxas", "-v"]
+    log = compile_if_stale(out, os.path.join(CSRC, src), [nvcc(), *flags])
     if verbose and log:
         print(log.strip())
     return out

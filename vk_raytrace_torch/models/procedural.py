@@ -1,6 +1,7 @@
 """Procedural scenes (counterpart of ``vk_raytrace_tpu/models/procedural.py``).
 
-The Cornell box for small tests; the atrium, the renderer's full-size
+The Cornell box for small tests; the many-box city with alpha panels (the
+width-32 gate scene); the atrium, the renderer's full-size
 single-level workload: two stories of fluted columns, tessellated slabs and
 walls, alpha-cutout banners and textured glTF PBR (~217k triangles at
 defaults); and the bistro street, the two-level workload (579k unique and
@@ -111,6 +112,47 @@ def cornell_box(light_intensity: float = 40.0):
     cam = look_at_camera(
         eye=[0.0, 5.0, 24.0], center=[0.0, 5.0, 0.0], up=[0, 1, 0],
         fov_deg=40.0, aspect=1.0,
+    )
+    return g.build(), mats, lights, cam
+
+
+def city_scene(n_blocks: int = 24, seed: int = 7, alpha_panels: bool = True):
+    """Many-box city (~30k-1M triangles with ``n_blocks``) with optional
+    double-sided alpha-cutout panels: the reference's width-32 gate scene.
+    Returns (geometry, materials, lights, camera)."""
+    rng = np.random.default_rng(seed)
+    rows = [
+        dict(base_color_factor=[0.75, 0.75, 0.75, 1.0], roughness_factor=0.8, metallic_factor=0.0),
+        dict(base_color_factor=[0.8, 0.45, 0.25, 1.0], roughness_factor=0.6, metallic_factor=0.0),
+        dict(base_color_factor=[0.55, 0.65, 0.8, 1.0], roughness_factor=0.25, metallic_factor=0.9),
+        dict(base_color_factor=[0.9, 0.9, 0.9, 0.55], roughness_factor=0.9, metallic_factor=0.0,
+             alpha_mode=ALPHA_MASK, alpha_cutoff=0.5, double_sided=1),
+    ]
+    g = GeometryBuilder()
+    e = n_blocks * 2.2
+    gv, gi = _quad([-e, 0, -e], [-e, 0, e], [e, 0, e], [e, 0, -e])
+    g.add_mesh(gv, gi, 0)
+    for i in range(n_blocks):
+        for j in range(n_blocks):
+            h = float(rng.uniform(1.0, 8.0))
+            w = float(rng.uniform(0.8, 1.8))
+            x = (i - n_blocks / 2) * 4.0 + float(rng.uniform(-0.5, 0.5))
+            z = (j - n_blocks / 2) * 4.0 + float(rng.uniform(-0.5, 0.5))
+            bv, bi = _box([x, h / 2, z], [w, h, w])
+            g.add_mesh(bv, bi, int(rng.integers(1, 3)))
+            if alpha_panels and rng.uniform() < 0.3:
+                pv, pi = _quad(
+                    [x - w, h * 0.6, z + w * 1.2], [x + w, h * 0.6, z + w * 1.2],
+                    [x + w, h * 1.1, z + w * 1.2], [x - w, h * 1.1, z + w * 1.2],
+                )
+                g.add_mesh(pv, pi, 3, double_sided=True, alpha_mode=ALPHA_MASK)
+    mats = make_materials(rows)
+    lights = make_lights([
+        dict(type=LIGHT_POINT, position=[0.0, 30.0, 0.0], intensity=2000.0),
+    ])
+    cam = look_at_camera(
+        eye=[e * 0.7, 14.0, e * 0.7], center=[0, 2.0, 0], up=[0, 1, 0],
+        fov_deg=55.0, aspect=16 / 9,
     )
     return g.build(), mats, lights, cam
 

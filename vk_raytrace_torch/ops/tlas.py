@@ -1,14 +1,14 @@
 """Two-level acceleration: an instance table over shared per-mesh BVHs
 (counterpart of ``vk_raytrace_tpu/ops/tlas.py``, planar tables only).
 
-Each mesh keeps one object-space 16-wide planar BVH; the meshes' tables are
-concatenated into one row table with absolute refs, and every instance is a
-3x4 transform and a mesh id. The top level runs as candidate rounds: each
-ray picks its nearest not yet processed instance whose world box it enters
-before its current best hit (an (R, I) slab test, computed once per
-traversal), moves into that instance's object space and traverses the
-mesh's BVH from its own root with ``t_max = t_best`` (kernel modes a/b/c
-with per-lane roots, ``ops/traverse_fused.py``). World-space t is kept by
+Each mesh keeps one object-space planar BVH (16 or 32 wide); the meshes'
+tables are concatenated into one row table with absolute refs, and every
+instance is a 3x4 transform and a mesh id. The top level runs as candidate
+rounds: each ray picks its nearest not yet processed instance whose world
+box it enters before its current best hit (an (R, I) slab test, computed
+once per traversal), moves into that instance's object space and traverses
+the mesh's BVH from its own root with ``t_max = t_best`` (kernel modes
+a/b/c with per-lane roots, ``ops/traverse_fused.py``). World-space t is kept by
 not renormalising the object-space direction, so hits in different
 instances compare directly. Rays overlapping instance boxes at equal entry
 t are ordered by instance id, so each overlap is visited once.
@@ -38,7 +38,6 @@ from . import traverse_fused as tf
 from .math import mat3_vec
 from .traverse_fused import INF, Hit, PlanarScene
 
-_W = 16                    # planar row width
 _NEG = -3.0e38             # "before every entry t" for the enumeration
 _DENSE_I_MAX = 512         # instances up to which the (R, I) entry table is kept
 _SLAB_CHUNK = 1 << 15      # rays per chunk of the (R, I, 3) slab test
@@ -129,11 +128,12 @@ def _assert_interior_roots(rows: np.ndarray, roots, width: int) -> None:
         )
 
 
-def _planar_concat(pool: MeshPool, pos, idx, uvs, flg, sel):
-    """Per-mesh planar tables over the pool-global triangle mask ``sel``
-    (None = all), concatenated with their refs made absolute: interior refs
-    shift by the table's base row, leaf refs ``-(row*8 + count)`` by
-    ``8 * base``. Meshes with no selected triangle get root -1."""
+def _planar_concat(pool: MeshPool, pos, idx, uvs, flg, sel, width):
+    """Per-mesh ``width``-wide planar tables over the pool-global triangle
+    mask ``sel`` (None = all), concatenated with their refs made absolute:
+    interior refs shift by the table's base row, leaf refs
+    ``-(row*(width/2) + count)`` by ``(width/2) * base``. Meshes with no
+    selected triangle get root -1."""
     tables, roots = [], []
     base, depth = 0, 1
     for m in range(len(pool.tri_start)):
@@ -144,21 +144,23 @@ def _planar_concat(pool: MeshPool, pos, idx, uvs, flg, sel):
         if ids.size == 0:
             roots.append(-1)
             continue
-        rows, d = runtime.build_planar_rows(pos, idx[ids], uvs, flg[ids], tri_ids=ids)
+        rows, d = runtime.build_planar_rows(pos, idx[ids], uvs, flg[ids], tri_ids=ids,
+                                            width=width)
         depth = max(depth, d)
         if base:
-            interior = _classify_interior_planar(rows, _W)
-            valid = rows[:, 0:_W] <= rows[:, 3 * _W:4 * _W]
-            refs = rows[:, 6 * _W:7 * _W]
-            fixed = np.where(refs >= 0, refs + base, refs - (_W // 2) * base)
-            rows[:, 6 * _W:7 * _W] = np.where(interior[:, None] & valid, fixed, refs)
+            interior = _classify_interior_planar(rows, width)
+            valid = rows[:, 0:width] <= rows[:, 3 * width:4 * width]
+            refs = rows[:, 6 * width:7 * width]
+            fixed = np.where(refs >= 0, refs + base, refs - (width // 2) * base)
+            rows[:, 6 * width:7 * width] = np.where(interior[:, None] & valid, fixed, refs)
         roots.append(base)
         base += len(rows)
         tables.append(rows)
-    runtime._check_ref_ceiling(base, _W // 2)
+    runtime._check_ref_ceiling(base, width // 2)
     all_rows = np.concatenate(tables, axis=0)
-    _assert_interior_roots(all_rows, roots, _W)
-    return PlanarScene(rows=all_rows, stack_depth=depth, width=_W), np.asarray(roots, np.int32)
+    _assert_interior_roots(all_rows, roots, width)
+    return (PlanarScene(rows=all_rows, stack_depth=depth, width=width),
+            np.asarray(roots, np.int32))
 
 
 def _subset_obj_aabb(pos, idx, pool, sel):
@@ -195,10 +197,11 @@ def _inst_world_aabb(inst: InstanceTable, omin, omax):
     return bmin.astype(np.float32), bmax.astype(np.float32)
 
 
-def build_instanced_accel(pool: MeshPool, inst: InstanceTable) -> InstancedAccel:
-    """Per-mesh planar BVHs (object space, pool-global triangle ids) for
-    every triangle and, where the pool mixes the two, for the opaque and
-    the alpha subsets; concatenated with absolute refs."""
+def build_instanced_accel(pool: MeshPool, inst: InstanceTable, width: int = 16) -> InstancedAccel:
+    """Per-mesh ``width``-wide (16 or 32) planar BVHs (object space,
+    pool-global triangle ids) for every triangle and, where the pool mixes
+    the two, for the opaque and the alpha subsets; concatenated with
+    absolute refs."""
     geom = pool.geometry
     pos = np.asarray(geom.positions)
     idx = np.asarray(geom.indices)
@@ -214,14 +217,14 @@ def build_instanced_accel(pool: MeshPool, inst: InstanceTable) -> InstancedAccel
             for m in range(n_mesh)
         ])
 
-    planar, roots = _planar_concat(pool, pos, idx, uvs, flg, None)
+    planar, roots = _planar_concat(pool, pos, idx, uvs, flg, None, width)
     accel = InstancedAccel(
         blas_planar=planar, mesh_root_planar=roots, inst=inst,
         inst_alpha=per_mesh_any(alpha_sel)[mid],
     )
     if alpha_sel.any() and (~alpha_sel).any():
-        opq, opq_roots = _planar_concat(pool, pos, idx, uvs, flg, ~alpha_sel)
-        alp, alp_roots = _planar_concat(pool, pos, idx, uvs, flg, alpha_sel)
+        opq, opq_roots = _planar_concat(pool, pos, idx, uvs, flg, ~alpha_sel, width)
+        alp, alp_roots = _planar_concat(pool, pos, idx, uvs, flg, alpha_sel, width)
         io_min, io_max = _inst_world_aabb(inst, *_subset_obj_aabb(pos, idx, pool, ~alpha_sel))
         ia_min, ia_max = _inst_world_aabb(inst, *_subset_obj_aabb(pos, idx, pool, alpha_sel))
         accel = dataclasses.replace(

@@ -1,10 +1,12 @@
-"""BVH traversal over 16-wide planar rows: the CUDA kernel and its plain twin.
+"""BVH traversal over planar rows (16 or 32 wide): the CUDA kernel and its
+plain twin.
 
 Counterpart of ``vk_raytrace_tpu/ops/traverse_fused.py``. The TPU kernel
 (``_make_step_kernel``, launched once per traversal step) becomes
 ``csrc/traverse.cu``: one launch per traversal, one thread per ray looping
 to termination with a full-depth stack. The kernel is bound by dependent
-512-byte row reads and divergence, not arithmetic.
+row reads (512 B at width 16, 1024 B at width 32) and divergence, not
+arithmetic.
 
 Three modes run on the main path:
 
@@ -22,7 +24,17 @@ the instance's box test has already done.
 :func:`traverse` dispatches on the tensors' device: CPU tensors run
 :func:`_traverse_plain` (vectorised torch over all rays), CUDA tensors launch
 the kernel or raise. :data:`LAUNCHES` counts kernel launches per mode, with
-per-lane roots under ``<mode>_roots``.
+per-lane roots under ``<mode>_roots`` and width-32 rows under ``..._w32``.
+
+Two more entries, each with its plain version beside it:
+
+* :func:`sort_children`: the child order of interior rows alone (the stable
+  insertion sort every interior step runs; the counterpart of the TPU
+  kernel's bitonic network ``_bitonic``);
+* :func:`traverse_capped`: closest hit stopped after ``max_steps`` nodes per
+  ray, and its no-gather timing variant (``nogather=True``: ray r reads
+  row r at every step, so the hits are wrong by design; the counterpart of
+  ``scripts/stepbench.py``'s no-gather kernel).
 """
 
 from __future__ import annotations
@@ -43,16 +55,31 @@ _MODE_ID = {m: i for i, m in enumerate(MODES)}
 # any hit never does, candidates either way.
 _MODE_CULL = {("closest", True), ("any", False), ("candidate", True), ("candidate", False)}
 
+WIDTHS = (16, 32)
 ROOT_MODES = tuple(f"{m}_roots" for m in MODES)
+W32_MODES = tuple(f"{m}_w32" for m in MODES + ROOT_MODES)
+CAPPED_KEYS = ("capped", "nogather", "capped_w32", "nogather_w32")
+SORT_KEYS = ("sort_children", "sort_children_w32")
 
-# Kernel launches per mode (``<mode>_roots`` with per-lane roots), counted
-# where the wrapper launches.
-LAUNCHES = {m: 0 for m in MODES + ROOT_MODES}
+# Kernel launches per entry, counted where the wrapper launches: traversal
+# per mode (``<mode>_roots`` with per-lane roots, ``_w32`` at width 32), the
+# capped and no-gather entries, and the child sort.
+LAUNCHES = {m: 0 for m in MODES + ROOT_MODES + W32_MODES + CAPPED_KEYS + SORT_KEYS}
 
 
 def reset_launches() -> None:
     for m in LAUNCHES:
         LAUNCHES[m] = 0
+
+
+def launch_key(name: str, width: int) -> str:
+    """The :data:`LAUNCHES` key of entry ``name`` at row ``width``."""
+    return name if width == 16 else f"{name}_w32"
+
+
+# The stack of the kernel's capped entry (``vkrt_traverse_capped``), which
+# the no-gather twin mirrors.
+CAPPED_STACK = 128
 
 
 @dataclasses.dataclass
@@ -136,7 +163,7 @@ def _minfold(cols):
 
 def _traverse_plain(
     planar: PlanarScene, origin, direction, t_max, active, mode: str, cull: bool, seen=None,
-    root0=None,
+    root0=None, max_steps=None, nogather=False,
 ):
     """Plain torch twin of the kernel: every step advances all live rays by
     one node, with an (R, D) stack, ``torch.sort`` for the child order and
@@ -144,9 +171,16 @@ def _traverse_plain(
     optional (X,) int8 tensor over the rows, is set to 1 at every interior
     row and 2 at every leaf row that some ray visits. ``root0``, an optional
     (R,) integer tensor, starts each ray at its own interior row instead of
-    the root union-box test."""
+    the root union-box test.
+
+    ``max_steps`` stops every ray after that many nodes. ``nogather`` (the
+    no-gather timing variant) gives ray r row r of the table (zeros past its
+    end) at every step, read as its node's kind, and the capped kernel's
+    stack of :data:`CAPPED_STACK` entries: pushes past it are dropped and a
+    pop past it ends the ray, which only such made-up nodes can reach."""
     rows = planar.rows
     W = planar.width
+    X = rows.shape[0]
     LT = W // 2
     CB = LT.bit_length() - 1
     dev = origin.device
@@ -168,13 +202,16 @@ def _traverse_plain(
     c_tri = tri.clone()
     c_u, c_v, c_uvu, c_uvv = (torch.zeros(R, device=dev) for _ in range(4))
     steps = torch.zeros(R, dtype=torch.int32, device=dev)
-    D = max(planar.stack_depth, 1)
+    D = CAPPED_STACK if nogather else max(planar.stack_depth, 1)
     stack = torch.zeros((R, D + W), dtype=torch.int64, device=dev)
     depth = torch.zeros(R, dtype=torch.int64, device=dev)
     lane = torch.arange(LT, device=dev)
 
     while True:
-        act = torch.nonzero(cur != TERM).squeeze(1)
+        live = cur != TERM
+        if max_steps is not None:
+            live &= steps < max_steps
+        act = torch.nonzero(live).squeeze(1)
         if act.numel() == 0:
             break
         c = cur[act]
@@ -185,10 +222,18 @@ def _traverse_plain(
         t_prune = torch.minimum(tb, ct) if cand else tb
         is_wide = c >= 0
         vleaf = -c - 1
-        row_id = torch.where(is_wide, c, vleaf >> CB)
-        row = rows[row_id]
+        if nogather:
+            row_id = act
+            past = row_id >= X
+            row = torch.where(past[:, None], 0.0, rows[torch.clamp(row_id, max=X - 1)])
+        else:
+            row_id = torch.where(is_wide, c, vleaf >> CB)
+            row = rows[row_id]
         if seen is not None:
-            seen[row_id] = torch.where(is_wide, 1, 2).to(seen.dtype)
+            kind = torch.where(is_wide, 1, 2).to(seen.dtype)
+            if nogather:
+                row_id, kind = row_id[~past], kind[~past]
+            seen[row_id] = kind
         dep = depth[act]
         nxt = torch.full_like(c, TERM)
         need_pop = ~is_wide
@@ -214,8 +259,9 @@ def _traverse_plain(
                 sel = n_valid - 1 >= k
                 if not bool(sel.any()):
                     break
-                rows_k = act[wi[sel]]
-                stack[rows_k, d0[sel] + (n_valid[sel] - 1 - k)] = sref[sel, k]
+                pos = d0 + (n_valid - 1 - k)
+                sel &= pos < D  # past the stack: dropped, as the kernel does
+                stack[act[wi[sel]], pos[sel]] = sref[sel, k]
             dep_w = d0 + torch.where(has, n_valid - 1, 0)
             depth[act[wi]] = dep_w
             dep[wi] = dep_w
@@ -289,7 +335,8 @@ def _traverse_plain(
         # ---- next node: pop where done with the node ---------------------
         need_pop = need_pop & ~found
         can_pop = need_pop & (dep > 0)
-        top = stack[act, torch.clamp(dep - 1, min=0)]
+        top = stack[act, torch.clamp(dep - 1, min=0, max=D - 1)]
+        top = torch.where(dep - 1 < D, top, TERM)
         nxt = torch.where(can_pop, top, nxt)
         depth[act] = dep - can_pop.long()
         cur[act] = nxt
@@ -305,84 +352,101 @@ def _traverse_plain(
 # CUDA kernel: build at first use, bind through ctypes, launch.
 # ---------------------------------------------------------------------------
 
-_lib = None
+_libs = {}
 
 
-def build(verbose: bool = False) -> str:
-    """Compile ``csrc/traverse.cu`` into ``_build/libtraverse.so`` when the
-    library is missing or older than the source. Returns the library path."""
-    return cuda_build.build("traverse", "traverse.cu", verbose=verbose)
+def build(width: int = 16, verbose: bool = False) -> str:
+    """Compile ``csrc/traverse.cu`` for rows ``width`` wide into
+    ``_build/libtraverse<width>.so`` when the library is missing or older
+    than the source (one library per width, so the two build in parallel).
+    Returns the library path."""
+    if width not in WIDTHS:
+        raise ValueError(f"the kernel takes rows 16 or 32 wide, not {width}")
+    return cuda_build.build(f"traverse{width}", "traverse.cu", verbose=verbose,
+                            defines=[f"VKRT_WIDTH={width}"])
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
+def _load(width: int):
+    if width not in _libs:
+        lib = ctypes.CDLL(build(width))
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.vkrt_traverse.argtypes = [
-            i32, i32, p, i32, p, p, p, p, p, i64, p, p, p, p, p, p, p, p,
+            i32, i32, i32, p, i32, p, p, p, p, p, i64, p, p, p, p, p, p, p, p,
         ]
         lib.vkrt_traverse.restype = i32
+        lib.vkrt_traverse_capped.argtypes = [
+            i32, p, i64, i32, p, p, p, p, i64, i32, i32, p, p, p, p, p, p,
+        ]
+        lib.vkrt_traverse_capped.restype = i32
+        lib.vkrt_sort_children.argtypes = [p, p, i64, i32, p, p, p, p]
+        lib.vkrt_sort_children.restype = i32
         lib.vkrt_traverse_max_stack.restype = i32
-        _lib = lib
-    return _lib
+        _libs[width] = lib
+    return _libs[width]
 
 
-def _traverse_cuda(planar, origin, direction, t_max, active, mode, cull, root0=None):
-    lib = _load()
-    R = origin.shape[0]
-    dev = origin.device
-    rows = planar.rows
-    for name, x, shape, dt in (
-        ("rows", rows, (rows.shape[0], 128), torch.float32),
-        ("origin", origin, (R, 3), torch.float32),
-        ("direction", direction, (R, 3), torch.float32),
-        ("t_max", t_max, (R,), torch.float32),
-    ):
-        if x.device != dev or x.dtype != dt or tuple(x.shape) != shape or not x.is_contiguous():
-            raise ValueError(
-                f"{name}: want contiguous {dt} {shape} on {dev}, got "
-                f"{x.dtype} {tuple(x.shape)} on {x.device}"
-            )
-    if planar.width != 16:
-        raise ValueError(f"the CUDA kernel takes width-16 rows, got {planar.width}")
+def _check(name, x, shape, dt, dev):
+    if x.device != dev or x.dtype != dt or tuple(x.shape) != shape or not x.is_contiguous():
+        raise ValueError(
+            f"{name}: want contiguous {dt} {shape} on {dev}, got "
+            f"{x.dtype} {tuple(x.shape)} on {x.device}"
+        )
+
+
+def _check_rays(lib, planar, origin, direction, t_max, active):
+    """Shapes, types and devices the kernel takes; returns the active
+    mask's pointer (None without one)."""
+    R, dev, rows = origin.shape[0], origin.device, planar.rows
+    if planar.width not in WIDTHS:
+        raise ValueError(f"the CUDA kernel takes rows 16 or 32 wide, got {planar.width}")
+    _check("rows", rows, (rows.shape[0], planar.width * 8), torch.float32, dev)
+    _check("origin", origin, (R, 3), torch.float32, dev)
+    _check("direction", direction, (R, 3), torch.float32, dev)
+    _check("t_max", t_max, (R,), torch.float32, dev)
     if planar.stack_depth > lib.vkrt_traverse_max_stack():
         raise ValueError(
             f"tree stack bound {planar.stack_depth} exceeds the kernel's "
             f"{lib.vkrt_traverse_max_stack()}"
         )
-    act_ptr = None
-    if active is not None:
-        if active.device != dev or active.dtype != torch.bool or tuple(active.shape) != (R,):
-            raise ValueError("active: want a (R,) bool tensor on the rays' device")
-        active = active.contiguous()
-        act_ptr = active.data_ptr()
-    root_ptr = None
+    if active is None:
+        return None
+    if active.device != dev or active.dtype != torch.bool or tuple(active.shape) != (R,):
+        raise ValueError("active: want a (R,) bool tensor on the rays' device")
+    return active.contiguous().data_ptr()
+
+
+def _outputs(R, dev, cand):
+    f = lambda: torch.empty(R, dtype=torch.float32, device=dev)  # noqa: E731
+    return (f(), torch.empty(R, dtype=torch.int32, device=dev), f(), f(),
+            torch.empty(R, dtype=torch.int32, device=dev),
+            f() if cand else None, f() if cand else None)
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _traverse_cuda(planar, origin, direction, t_max, active, mode, cull, root0=None):
+    lib = _load(planar.width)
+    R, dev = origin.shape[0], origin.device
+    act_ptr = _check_rays(lib, planar, origin, direction, t_max, active)
     if root0 is not None:
         if (root0.device != dev or root0.dtype != torch.int32 or tuple(root0.shape) != (R,)
                 or not root0.is_contiguous()):
             raise ValueError("root0: want a contiguous (R,) int32 tensor on the rays' device")
-        root_ptr = root0.data_ptr()
-    t = torch.empty(R, dtype=torch.float32, device=dev)
-    tri = torch.empty(R, dtype=torch.int32, device=dev)
-    u = torch.empty(R, dtype=torch.float32, device=dev)
-    v = torch.empty(R, dtype=torch.float32, device=dev)
-    steps = torch.empty(R, dtype=torch.int32, device=dev)
-    cand = mode == "candidate"
-    uvu = torch.empty(R, dtype=torch.float32, device=dev) if cand else None
-    uvv = torch.empty(R, dtype=torch.float32, device=dev) if cand else None
+    t, tri, u, v, steps, uvu, uvv = _outputs(R, dev, mode == "candidate")
     if R == 0:  # nothing to launch, and so nothing to count
         return t, tri.long(), u, v, steps, uvu, uvv
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.vkrt_traverse(
-        _MODE_ID[mode], int(cull), rows.data_ptr(), planar.stack_depth,
-        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), act_ptr, root_ptr, R,
+        _MODE_ID[mode], int(cull), planar.width, planar.rows.data_ptr(), planar.stack_depth,
+        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), act_ptr, _ptr(root0), R,
         t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), steps.data_ptr(),
-        uvu.data_ptr() if cand else None, uvv.data_ptr() if cand else None, stream,
+        _ptr(uvu), _ptr(uvv), stream,
     )
     if err != 0:
         raise RuntimeError(f"traverse kernel launch failed: cudaError {err}")
-    LAUNCHES[mode if root0 is None else f"{mode}_roots"] += 1
+    LAUNCHES[launch_key(mode if root0 is None else f"{mode}_roots", planar.width)] += 1
     return t, tri.long(), u, v, steps, uvu, uvv
 
 
@@ -400,6 +464,79 @@ def traverse(planar, origin, direction, t_max, active=None, mode="closest", cull
     if origin.device.type != "cpu":
         raise ValueError(f"no traversal for device {origin.device}")
     return _traverse_plain(planar, origin, direction, t_max, active, mode, cull, root0=root0)
+
+
+def traverse_capped(planar, origin, direction, t_max, max_steps: int, nogather=False,
+                    active=None):
+    """Closest hit (backface culling, from the tree's root) stopped after
+    ``max_steps`` nodes per ray; with ``nogather``, the no-gather timing
+    variant (ray r reads row r at every step: wrong hits by design, the
+    same on both devices). CPU tensors take the plain twin; CUDA tensors
+    launch the kernel's capped entry (or raise). Returns (t, tri, u, v,
+    steps, None, None)."""
+    if max_steps < 0:
+        raise ValueError(f"max_steps must be >= 0, got {max_steps}")
+    if origin.device.type == "cpu":
+        return _traverse_plain(planar, origin, direction, t_max, active, "closest", True,
+                               max_steps=max_steps, nogather=nogather)
+    if origin.device.type != "cuda":
+        raise ValueError(f"no traversal for device {origin.device}")
+    lib = _load(planar.width)
+    R, dev = origin.shape[0], origin.device
+    act_ptr = _check_rays(lib, planar, origin, direction, t_max, active)
+    t, tri, u, v, steps, _, _ = _outputs(R, dev, False)
+    if R == 0:
+        return t, tri.long(), u, v, steps, None, None
+    err = lib.vkrt_traverse_capped(
+        planar.width, planar.rows.data_ptr(), planar.rows.shape[0], planar.stack_depth,
+        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), act_ptr, R, int(max_steps),
+        int(bool(nogather)), t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
+        steps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"capped traverse kernel launch failed: cudaError {err}")
+    LAUNCHES[launch_key("nogather" if nogather else "capped", planar.width)] += 1
+    return t, tri.long(), u, v, steps, None, None
+
+
+def _sort_children_plain(keys, refs):
+    """Plain version of :func:`sort_children`: a stable ``torch.sort`` of
+    each row and the refs gathered after their keys."""
+    skey, order = torch.sort(keys, dim=1, stable=True)
+    return skey, torch.gather(refs, 1, order), (keys < INF).sum(dim=1, dtype=torch.int32)
+
+
+def sort_children(keys, refs):
+    """The child order of interior rows: ``keys`` (N, W) f32 entry
+    distances, ``INF`` for a child the ray misses, ``refs`` (N, W) int32.
+    Returns (sorted keys, refs in key order, (N,) int32 hit count): keys
+    ascending and stable, the misses last in row order. CPU tensors take the
+    plain version; CUDA tensors launch ``vkrt_sort_children`` (or raise)."""
+    if keys.dim() != 2 or keys.shape[1] not in WIDTHS:
+        raise ValueError(f"keys: want (N, 16) or (N, 32), got {tuple(keys.shape)}")
+    if keys.device.type == "cpu":
+        return _sort_children_plain(keys, refs)
+    if keys.device.type != "cuda":
+        raise ValueError(f"no child sort for device {keys.device}")
+    n, w = keys.shape
+    dev = keys.device
+    _check("keys", keys, (n, w), torch.float32, dev)
+    _check("refs", refs, (n, w), torch.int32, dev)
+    if keys.data_ptr() % 16 or refs.data_ptr() % 16:
+        raise ValueError("keys, refs: the kernel loads 16-byte vectors; want aligned storage")
+    out_k = torch.empty_like(keys)
+    out_r = torch.empty_like(refs)
+    count = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out_k, out_r, count
+    err = _load(w).vkrt_sort_children(
+        keys.data_ptr(), refs.data_ptr(), n, w, out_k.data_ptr(), out_r.data_ptr(),
+        count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"sort_children kernel launch failed: cudaError {err}")
+    LAUNCHES[launch_key("sort_children", w)] += 1
+    return out_k, out_r, count
 
 
 def closest_hit_fused(planar, origin, direction) -> Hit:

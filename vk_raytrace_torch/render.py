@@ -46,16 +46,16 @@ def build_scene(geometry, materials, lights, camera, *, env=None, sun_sky=None,
 
 
 def build_instanced_scene(pool, instances, materials, lights, camera, *, env=None,
-                          sun_sky=None, atlas=None) -> SceneData:
+                          sun_sky=None, atlas=None, width: int = 16) -> SceneData:
     """Assemble a two-level SceneData: ``pool`` is a ``models.instances.
     MeshPool`` of object-space meshes, ``instances`` its ``InstanceTable``;
-    the instanced acceleration structure is built here and rides in
-    ``SceneData.instances``."""
+    the instanced acceleration structure (``width``-wide planar rows, 16 or
+    32) is built here and rides in ``SceneData.instances``."""
     from .ops.tlas import build_instanced_accel
 
     scene = build_scene(pool.geometry, materials, lights, camera, env=env, sun_sky=sun_sky,
                         atlas=atlas)
-    return dataclasses.replace(scene, instances=build_instanced_accel(pool, instances))
+    return dataclasses.replace(scene, instances=build_instanced_accel(pool, instances, width))
 
 
 def with_env_rows(env):

@@ -1,8 +1,9 @@
 """The port's binding to the native host builders (C++ through ctypes).
 
-``csrc/native.cpp`` holds the hot host loops: binned-SAH planar BVH rows,
-oct encoding, RGBA8 packing and smooth normals (the port's own copy of the
-reference's host runtime, trimmed to these calls). It is compiled with g++
+``csrc/native.cpp`` holds the hot host loops: binned-SAH planar BVH rows
+(16 or 32 wide), oct encoding, RGBA8 packing and smooth normals (the port's
+own copy of the reference's host runtime, trimmed to these calls). It is
+compiled with g++
 into ``vk_raytrace_torch/_build/libnative.so`` (rebuilt when the source is
 newer) and bound here. There is no numpy fallback: every call raises when
 the library cannot be built or loaded.
@@ -37,6 +38,7 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build())
         lib.build_bvh16.restype = ctypes.c_int64
+        lib.build_bvh32.restype = ctypes.c_int64
         _lib = lib
     return _lib
 
@@ -73,14 +75,18 @@ def smooth_normals(positions: np.ndarray, indices: np.ndarray) -> np.ndarray:
     return out
 
 
-def build_planar_rows(positions, indices, uv, tri_flags, tri_ids=None):
-    """Binned-SAH build of 16-wide planar rows (512 B each). Returns
-    ``(rows (n, 128) f32, stack_depth)``.
+def build_planar_rows(positions, indices, uv, tri_flags, tri_ids=None, width=16):
+    """Binned-SAH build of ``width``-wide planar rows (16: 512 B rows of
+    8-triangle leaves; 32: 1024 B rows of 16-triangle leaves). Returns
+    ``(rows (n, width*8) f32, stack_depth)``.
 
     Triangle ids ride in f32 leaf lanes as ``orig*4 + flags`` and child refs
-    in interior lanes as ``row*8 + count``; both must stay exact in f32, so
-    the build raises past those ceilings."""
+    in interior lanes as ``row*(width/2) + count``; both must stay exact in
+    f32, so the build raises past those ceilings."""
+    if width not in (16, 32):
+        raise ValueError(f"planar rows are 16 or 32 wide, not {width}")
     lib = _load()
+    build = lib.build_bvh16 if width == 16 else lib.build_bvh32
     positions = np.ascontiguousarray(positions, np.float32)
     indices = np.ascontiguousarray(indices, np.int32)
     uv = np.ascontiguousarray(uv, np.float32)
@@ -93,12 +99,12 @@ def build_planar_rows(positions, indices, uv, tri_flags, tri_ids=None):
         max_orig = int(tri_ids.max(initial=0))
     if max_orig * 4 + 3 >= 2**24:
         raise ValueError(f"triangle id {max_orig} exceeds the exact-f32 ceiling {2**22 - 1}")
-    leaf = 8
+    leaf = width // 2
     depth = ctypes.c_int32(0)
     f = t + 1  # row bound: a leaf holds at least leaf/2 triangles
     for max_rows in (f // (leaf // 2) + f // leaf + 16, f + 8):
-        rows = np.empty((max_rows, 128), np.float32)
-        n = lib.build_bvh16(
+        rows = np.empty((max_rows, width * 8), np.float32)
+        n = build(
             _ptr(positions), _ptr(indices), _ptr(uv), ids_arg, _ptr(tri_flags),
             ctypes.c_int64(t), _ptr(rows), ctypes.c_int64(max_rows),
             ctypes.byref(depth), ctypes.c_float(0.0),
