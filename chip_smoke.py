@@ -777,14 +777,16 @@ def main():
         plain = tf._sort_children_plain(keys, refs)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(kern, plain)), f"{name}: differs"
+        s_err = tb.sort_err(kern, plain)
         ms = tb.cuda_time(lambda: tf.sort_children(keys, refs), 20)
         plain_ms = tb.cuda_time(lambda: tf._sort_children_plain(keys, refs), 5)
         lib_ms = tb.cuda_time(lambda: torch.sort(keys, dim=1, stable=True), 20)
         s_bytes, s_ops = tb.sort_bytes(keys), tb.sort_ops(keys)
-        sort_res[name] = (ms, plain_ms, lib_ms, tb.bound(s_bytes, s_ops))
+        sort_res[name] = (s_err, ms, plain_ms, lib_ms, tb.bound(s_bytes, s_ops))
         print(f"{name}: {n} rows of {width}, hits/row {float(plain[2].float().mean()):.2f}, "
-              f"exact -> OK; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sort "
-              f"{lib_ms:.4f} ms; bound {sort_res[name][3][0]:.4f} ms by {sort_res[name][3][1]} "
+              f"max |err| {s_err:.3g} -> OK; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.sort {lib_ms:.4f} ms; bound {sort_res[name][4][0]:.4f} ms by "
+              f"{sort_res[name][4][1]} "
               f"({s_bytes / 1e6:.1f} MB, {s_ops / 1e6:.1f} Mop) ({card})", flush=True)
     del keys, refs, kern, plain
 
@@ -878,16 +880,17 @@ def main():
 
     kernels += [traverse_entry(f"{m}_w32", w_launches, REPLACES) for m in tf.MODES]
     kernels += [traverse_entry(f"{m}_w32", wb_launches, ROOTS_REPLACES) for m in tf.ROOT_MODES]
-    for name, (ms, plain_ms, lib_ms, (b_ms, b_by)) in sort_res.items():
+    for name, (s_err, ms, plain_ms, lib_ms, (b_ms, b_by)) in sort_res.items():
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": SORT_REPLACES, "launches": t_launches[name],
-                        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "max_abs_err": s_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": lib_ms})
     for key in tf.CAPPED_KEYS:
         x = bench[(f"{key.split('_')[0]}8", 32 if key.endswith("_w32") else 16)]
         kernels.append({"name": f"traverse_{key}", "route": "cuda", "source": SOURCE,
                         "replaces": NOGATHER_REPLACES if key.startswith("nogather") else REPLACES,
-                        "launches": t_launches[key], "max_abs_err": 0.0, "ms": x["ms"],
+                        "launches": t_launches[key], "max_abs_err": x["max_abs_err"],
+                        "ms": x["ms"],
                         "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
                         "bound_by": x["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))

@@ -36,8 +36,10 @@
 //     reference unit-tests through its own pallas_call, tests/test_fused.py);
 //   vkrt_traverse_capped: closest hit stopped after max_steps nodes, and its
 //     no-gather variant, in which ray r reads row r at every step whatever
-//     its node is (the timing variant of scripts/stepbench.py: it shows what
-//     the dependent row gather costs; its hits are wrong by design).
+//     its node is and starts over at the root whenever its made-up nodes end
+//     it, so every ray runs max_steps nodes (the timing variant of
+//     scripts/stepbench.py: it shows what the dependent row gather costs; its
+//     hits are wrong by design).
 //
 // Numerics follow the plain torch twin (ops/traverse_fused.py
 // _traverse_plain) operation by operation, with explicitly rounded
@@ -95,11 +97,6 @@ __device__ __forceinline__ int i4get(const int4& v, int k) {
   return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
 }
 
-// Row load; `zero` stands for a row past the table's end (no-gather only).
-__device__ __forceinline__ float4 ld(const float4* row, int i, bool zero) {
-  return zero ? make_float4(0.f, 0.f, 0.f, 0.f) : row[i];
-}
-
 // Slab test of the ray against box [lo, hi]; returns (tn, tf).
 __device__ __forceinline__ void slab(const Ray& y, float bxm, float bym, float bzm, float bxM,
                                      float byM, float bzM, float& tn, float& tf) {
@@ -132,16 +129,16 @@ __device__ __forceinline__ void insert_child(float (&key)[W], int (&ref)[W], int
 // Interior row: W-way slab test, the hit children in ascending entry order.
 // Returns their number.
 template <int W>
-__device__ __forceinline__ int order_children(const float4* row, bool zero, const Ray& y,
+__device__ __forceinline__ int order_children(const float4* row, const Ray& y,
                                               float t_prune, float (&key)[W], int (&ref)[W]) {
   constexpr int G = Planar<W>::kG;
   int n = 0;
 #pragma unroll(Planar<W>::kUnrollG)
   for (int g = 0; g < G; ++g) {
-    const float4 bxm = ld(row, 0 * G + g, zero), bym = ld(row, 1 * G + g, zero);
-    const float4 bzm = ld(row, 2 * G + g, zero), bxM = ld(row, 3 * G + g, zero);
-    const float4 byM = ld(row, 4 * G + g, zero), bzM = ld(row, 5 * G + g, zero);
-    const float4 rf = ld(row, 6 * G + g, zero);
+    const float4 bxm = row[0 * G + g], bym = row[1 * G + g];
+    const float4 bzm = row[2 * G + g], bxM = row[3 * G + g];
+    const float4 byM = row[4 * G + g], bzM = row[5 * G + g];
+    const float4 rf = row[6 * G + g];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       float tn, tf;
@@ -191,7 +188,7 @@ struct LeafSlots {
 // the first bracket (i, i+8) of the 16-lane tournament, so only 8 slots
 // stay live.
 template <int MODE, bool CULL, int W, bool FOLD>
-__device__ __forceinline__ void leaf_group(const float4* row, bool zero, int g, int s, int cnt,
+__device__ __forceinline__ void leaf_group(const float4* row, int g, int s, int cnt,
                                            const Ray& y, float t_best, float c_t,
                                            LeafSlots& L) {
   constexpr int LG = Planar<W>::kLG;
@@ -199,7 +196,7 @@ __device__ __forceinline__ void leaf_group(const float4* row, bool zero, int g, 
 #pragma unroll
   for (int at = 0; at < 16; ++at) {
     const bool need = at <= 8 || at == 15 || MODE == kCandidate;
-    if (need && g * 4 < cnt) a[at] = ld(row, at * LG + g, zero);
+    if (need && g * 4 < cnt) a[at] = row[at * LG + g];
     else a[at] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 #pragma unroll
@@ -271,27 +268,26 @@ __device__ __forceinline__ void leaf_group(const float4* row, bool zero, int g, 
 // slots 0-3 and 4-7. W = 32: groups 0 then 2 fold into slots 0-3, groups 1
 // then 3 into slots 4-7, streaming the first fold bracket.
 template <int MODE, bool CULL, int W>
-__device__ __forceinline__ void leaf_tests(const float4* row, bool zero, int cnt, const Ray& y,
+__device__ __forceinline__ void leaf_tests(const float4* row, int cnt, const Ray& y,
                                            float t_best, float c_t, LeafSlots& L) {
-  leaf_group<MODE, CULL, W, false>(row, zero, 0, 0, cnt, y, t_best, c_t, L);
-  if (W == 32) leaf_group<MODE, CULL, W, true>(row, zero, 2, 0, cnt, y, t_best, c_t, L);
-  leaf_group<MODE, CULL, W, false>(row, zero, 1, 4, cnt, y, t_best, c_t, L);
-  if (W == 32) leaf_group<MODE, CULL, W, true>(row, zero, 3, 4, cnt, y, t_best, c_t, L);
+  leaf_group<MODE, CULL, W, false>(row, 0, 0, cnt, y, t_best, c_t, L);
+  if (W == 32) leaf_group<MODE, CULL, W, true>(row, 2, 0, cnt, y, t_best, c_t, L);
+  leaf_group<MODE, CULL, W, false>(row, 1, 4, cnt, y, t_best, c_t, L);
+  if (W == 32) leaf_group<MODE, CULL, W, true>(row, 3, 4, cnt, y, t_best, c_t, L);
 }
 
 // One ray from setup to its outputs. CAPPED (the capped entry only) stops
-// after max_steps nodes and, with nogather, reads row r (zeros past the
-// table's n_rows) at every step instead of the node's row.
+// after max_steps nodes and, with nogather, reads row r at every step
+// instead of the node's row and starts over at the root where it would end.
 template <int MODE, bool CULL, int MAXD, int W, bool CAPPED>
 __global__ void __launch_bounds__(128)
-traverse_kernel(const float4* __restrict__ rows, int64_t n_rows,
-                const float* __restrict__ origin, const float* __restrict__ direction,
-                const float* __restrict__ t_max, const uint8_t* __restrict__ active,
-                const int32_t* __restrict__ root0, int64_t n_rays, int max_steps, int nogather,
-                float* __restrict__ out_t, int32_t* __restrict__ out_tri,
-                float* __restrict__ out_u, float* __restrict__ out_v,
-                int32_t* __restrict__ out_steps, float* __restrict__ out_uvu,
-                float* __restrict__ out_uvv) {
+traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origin,
+                const float* __restrict__ direction, const float* __restrict__ t_max,
+                const uint8_t* __restrict__ active, const int32_t* __restrict__ root0,
+                int64_t n_rays, int max_steps, int nogather, float* __restrict__ out_t,
+                int32_t* __restrict__ out_tri, float* __restrict__ out_u,
+                float* __restrict__ out_v, int32_t* __restrict__ out_steps,
+                float* __restrict__ out_uvu, float* __restrict__ out_uvv) {
   using P = Planar<W>;
   const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
@@ -307,10 +303,10 @@ traverse_kernel(const float4* __restrict__ rows, int64_t n_rows,
   y.iy = guard_inv(y.dy);
   y.iz = guard_inv(y.dz);
   const float tmax = t_max[r];
-  // The no-gather variant reads this ray's own row at every step.
+  // The no-gather variant reads this ray's own row at every step (the
+  // caller's table has a row for every ray).
   const bool own_row = CAPPED && nogather != 0;
-  const bool zero = own_row && r >= n_rows;
-  const float4* own = rows + (zero ? 0 : r) * P::kRowF4;
+  const float4* own = rows + r * P::kRowF4;
 
   // Opaque slot; candidate slot (nearest alpha-flagged hit) in mode c.
   float t_best = tmax, u_best = 0.0f, v_best = 0.0f;
@@ -353,7 +349,15 @@ traverse_kernel(const float4* __restrict__ rows, int64_t n_rows,
   int stack[MAXD];
   int depth = 0;
 
-  while (cur != kTerm && (!CAPPED || steps < max_steps)) {
+  while (true) {
+    if (cur == kTerm) {
+      // A no-gather ray never ends: it starts over at the root, as a TPU
+      // lane keeps paying for every step of the scan.
+      if (!own_row) break;
+      cur = 0;
+      depth = 0;
+    }
+    if (CAPPED && steps >= max_steps) break;
     ++steps;
     const float t_prune = MODE == kCandidate ? fminf(t_best, c_t) : t_best;
     if (cur >= 0) {
@@ -361,7 +365,7 @@ traverse_kernel(const float4* __restrict__ rows, int64_t n_rows,
       float key[W];
       int ref[W];
       const float4* row = own_row ? own : rows + (int64_t)cur * P::kRowF4;
-      const int n = order_children<W>(row, zero, y, t_prune, key, ref);
+      const int n = order_children<W>(row, y, t_prune, key, ref);
       if (n > 0) {
         // Push far-to-near; descend into the nearest.
         for (int k = n - 1; k >= 1; --k) {
@@ -377,7 +381,7 @@ traverse_kernel(const float4* __restrict__ rows, int64_t n_rows,
       const int cnt = (vleaf & (P::kLT - 1)) + 1;
       const float4* row = own_row ? own : rows + (int64_t)(vleaf >> P::kLeafShift) * P::kRowF4;
       LeafSlots L;
-      leaf_tests<MODE, CULL, W>(row, zero, cnt, y, t_best, c_t, L);
+      leaf_tests<MODE, CULL, W>(row, cnt, y, t_best, c_t, L);
       minfold<3>(L.tt_o, L.pay_o);
       const bool found = L.tt_o[0] < t_best;
       if (found) {
@@ -402,7 +406,7 @@ traverse_kernel(const float4* __restrict__ rows, int64_t n_rows,
     // Childless interior or finished leaf: pop. (depth never passes MAXD on
     // a real tree: the wrapper refuses trees whose exact stack bound exceeds
     // it. Only the no-gather variant's made-up nodes can push past it; those
-    // pushes are dropped and their pops end the ray, as in the twin.)
+    // pushes are dropped and their pops end the node's run, as in the twin.)
     if (depth > 0) {
       --depth;
       cur = depth < MAXD ? stack[depth] : kTerm;
@@ -480,7 +484,6 @@ sort_children_kernel(const float* __restrict__ keys, const int32_t* __restrict__
 
 struct Args {
   const float* rows;
-  int64_t n_rows;
   const float* o;
   const float* d;
   const float* tmax;
@@ -503,7 +506,7 @@ void launch(const Args& a, cudaStream_t stream) {
   const int threads = 128;
   const int64_t blocks = (a.n + threads - 1) / threads;
   traverse_kernel<MODE, CULL, MAXD, W, CAPPED><<<(unsigned)blocks, threads, 0, stream>>>(
-      reinterpret_cast<const float4*>(a.rows), a.n_rows, a.o, a.d, a.tmax, a.active, a.root0,
+      reinterpret_cast<const float4*>(a.rows), a.o, a.d, a.tmax, a.active, a.root0,
       a.n, a.max_steps, a.nogather, a.t, a.tri, a.u, a.v, a.steps, a.uvu, a.uvv);
 }
 
@@ -540,7 +543,7 @@ int vkrt_traverse(int mode, int cull, int width, const float* rows, int stack_de
   if (width != kWidth) return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const Args a{rows, 0, origin, direction, t_max, active, root0, n_rays, 0, 0,
+  const Args a{rows, origin, direction, t_max, active, root0, n_rays, 0, 0,
                t, tri, u, v, steps, uvu, uvv};
   if (stack_depth <= 64) dispatch<64>(mode, cull, a, s);
   else dispatch<128>(mode, cull, a, s);
@@ -549,20 +552,21 @@ int vkrt_traverse(int mode, int cull, int width, const float* rows, int stack_de
 
 // Closest hit (backface culling, from the root) stopped after `max_steps`
 // nodes per ray, with a 128-entry stack. With `nogather` != 0, ray r reads
-// row r of the n_rows-row table (zeros past its end) at every step, whatever
-// its node is, and interprets it by the sign of its node ref: a timing
+// row r of the n_rows-row table (n_rows >= n_rays) at every step, whatever
+// its node is, interprets it by the sign of its node ref, and starts over at
+// the root where it would end, so every ray runs max_steps nodes: a timing
 // variant whose hits are wrong by design. Returns cudaGetLastError() after
 // launch.
 int vkrt_traverse_capped(int width, const float* rows, int64_t n_rows, int stack_depth,
                          const float* origin, const float* direction, const float* t_max,
-                         const uint8_t* active, int64_t n_rays, int max_steps, int nogather,
-                         float* t, int32_t* tri, float* u, float* v, int32_t* steps,
-                         void* stream) {
-  if (width != kWidth || stack_depth > 128) return (int)cudaErrorInvalidValue;
+                         int64_t n_rays, int max_steps, int nogather, float* t, int32_t* tri,
+                         float* u, float* v, int32_t* steps, void* stream) {
+  if (width != kWidth || stack_depth > 128 || (nogather && n_rows < n_rays))
+    return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const Args a{rows, n_rows, origin, direction, t_max, active, nullptr, n_rays, max_steps,
-               nogather, t, tri, u, v, steps, nullptr, nullptr};
+  const Args a{rows, origin, direction, t_max, nullptr, nullptr, n_rays, max_steps, nogather,
+               t, tri, u, v, steps, nullptr, nullptr};
   launch<kClosest, true, 128, kWidth, true>(a, s);
   return (int)cudaGetLastError();
 }

@@ -33,7 +33,8 @@ Two more entries, each with its plain version beside it:
   kernel's bitonic network ``_bitonic``);
 * :func:`traverse_capped`: closest hit stopped after ``max_steps`` nodes per
   ray, and its no-gather timing variant (``nogather=True``: ray r reads
-  row r at every step, so the hits are wrong by design; the counterpart of
+  row r of :func:`own_rows` at every step and starts over at the root where
+  it would end, so the hits are wrong by design; the counterpart of
   ``scripts/stepbench.py``'s no-gather kernel).
 """
 
@@ -174,13 +175,16 @@ def _traverse_plain(
     the root union-box test.
 
     ``max_steps`` stops every ray after that many nodes. ``nogather`` (the
-    no-gather timing variant) gives ray r row r of the table (zeros past its
-    end) at every step, read as its node's kind, and the capped kernel's
-    stack of :data:`CAPPED_STACK` entries: pushes past it are dropped and a
-    pop past it ends the ray, which only such made-up nodes can reach."""
+    no-gather timing variant) gives ray r row r of the table (which must
+    have a row per ray, :func:`own_rows`) at every step, read as its node's
+    kind, restarts at the root (row 0, empty stack) a ray that would end,
+    so every ray runs ``max_steps`` nodes, and has the capped kernel's stack
+    of :data:`CAPPED_STACK` entries: pushes past it are dropped and a pop
+    past it ends the node's run, which only such made-up nodes can reach."""
+    if nogather and max_steps is None:
+        raise ValueError("the no-gather variant never ends a ray: give it max_steps")
     rows = planar.rows
     W = planar.width
-    X = rows.shape[0]
     LT = W // 2
     CB = LT.bit_length() - 1
     dev = origin.device
@@ -208,6 +212,10 @@ def _traverse_plain(
     lane = torch.arange(LT, device=dev)
 
     while True:
+        if nogather:
+            over = cur == TERM
+            cur[over] = 0
+            depth[over] = 0
         live = cur != TERM
         if max_steps is not None:
             live &= steps < max_steps
@@ -222,18 +230,10 @@ def _traverse_plain(
         t_prune = torch.minimum(tb, ct) if cand else tb
         is_wide = c >= 0
         vleaf = -c - 1
-        if nogather:
-            row_id = act
-            past = row_id >= X
-            row = torch.where(past[:, None], 0.0, rows[torch.clamp(row_id, max=X - 1)])
-        else:
-            row_id = torch.where(is_wide, c, vleaf >> CB)
-            row = rows[row_id]
+        row_id = act if nogather else torch.where(is_wide, c, vleaf >> CB)
+        row = rows[row_id]
         if seen is not None:
-            kind = torch.where(is_wide, 1, 2).to(seen.dtype)
-            if nogather:
-                row_id, kind = row_id[~past], kind[~past]
-            seen[row_id] = kind
+            seen[row_id] = torch.where(is_wide, 1, 2).to(seen.dtype)
         dep = depth[act]
         nxt = torch.full_like(c, TERM)
         need_pop = ~is_wide
@@ -375,7 +375,7 @@ def _load(width: int):
         ]
         lib.vkrt_traverse.restype = i32
         lib.vkrt_traverse_capped.argtypes = [
-            i32, p, i64, i32, p, p, p, p, i64, i32, i32, p, p, p, p, p, p,
+            i32, p, i64, i32, p, p, p, i64, i32, i32, p, p, p, p, p, p,
         ]
         lib.vkrt_traverse_capped.restype = i32
         lib.vkrt_sort_children.argtypes = [p, p, i64, i32, p, p, p, p]
@@ -393,9 +393,10 @@ def _check(name, x, shape, dt, dev):
         )
 
 
-def _check_rays(lib, planar, origin, direction, t_max, active):
-    """Shapes, types and devices the kernel takes; returns the active
-    mask's pointer (None without one)."""
+def _check_rays(lib, planar, origin, direction, t_max, active=None):
+    """Shapes, types and devices the kernel takes; returns the active mask
+    as a contiguous tensor (None without one), which the caller keeps alive
+    until the launch."""
     R, dev, rows = origin.shape[0], origin.device, planar.rows
     if planar.width not in WIDTHS:
         raise ValueError(f"the CUDA kernel takes rows 16 or 32 wide, got {planar.width}")
@@ -412,7 +413,7 @@ def _check_rays(lib, planar, origin, direction, t_max, active):
         return None
     if active.device != dev or active.dtype != torch.bool or tuple(active.shape) != (R,):
         raise ValueError("active: want a (R,) bool tensor on the rays' device")
-    return active.contiguous().data_ptr()
+    return active.contiguous()
 
 
 def _outputs(R, dev, cand):
@@ -429,7 +430,7 @@ def _ptr(x):
 def _traverse_cuda(planar, origin, direction, t_max, active, mode, cull, root0=None):
     lib = _load(planar.width)
     R, dev = origin.shape[0], origin.device
-    act_ptr = _check_rays(lib, planar, origin, direction, t_max, active)
+    active = _check_rays(lib, planar, origin, direction, t_max, active)
     if root0 is not None:
         if (root0.device != dev or root0.dtype != torch.int32 or tuple(root0.shape) != (R,)
                 or not root0.is_contiguous()):
@@ -440,7 +441,7 @@ def _traverse_cuda(planar, origin, direction, t_max, active, mode, cull, root0=N
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.vkrt_traverse(
         _MODE_ID[mode], int(cull), planar.width, planar.rows.data_ptr(), planar.stack_depth,
-        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), act_ptr, _ptr(root0), R,
+        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), _ptr(active), _ptr(root0), R,
         t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), steps.data_ptr(),
         _ptr(uvu), _ptr(uvv), stream,
     )
@@ -466,30 +467,45 @@ def traverse(planar, origin, direction, t_max, active=None, mode="closest", cull
     return _traverse_plain(planar, origin, direction, t_max, active, mode, cull, root0=root0)
 
 
-def traverse_capped(planar, origin, direction, t_max, max_steps: int, nogather=False,
-                    active=None):
+def own_rows(planar: PlanarScene, n: int) -> PlanarScene:
+    """The no-gather variant's table for ``n`` rays: ``planar``'s rows,
+    zero-padded to ``n`` rows where it has fewer, so that ray r reads row r
+    (``scripts/stepbench.py`` feeds ``rows[0:P]``, zero-padded)."""
+    rows = planar.rows
+    if rows.shape[0] >= n:
+        return planar
+    pad = rows.new_zeros((n - rows.shape[0], rows.shape[1]))
+    return dataclasses.replace(planar, rows=torch.cat([rows, pad]))
+
+
+def traverse_capped(planar, origin, direction, t_max, max_steps: int, nogather=False):
     """Closest hit (backface culling, from the tree's root) stopped after
     ``max_steps`` nodes per ray; with ``nogather``, the no-gather timing
-    variant (ray r reads row r at every step: wrong hits by design, the
-    same on both devices). CPU tensors take the plain twin; CUDA tensors
-    launch the kernel's capped entry (or raise). Returns (t, tri, u, v,
-    steps, None, None)."""
+    variant (ray r reads row r of ``planar``, which needs a row per ray,
+    :func:`own_rows`, and starts over at the root where it would end: wrong
+    hits by design, the same on both devices). CPU tensors take the plain
+    twin; CUDA tensors launch the kernel's capped entry (or raise). Returns
+    (t, tri, u, v, steps, None, None)."""
     if max_steps < 0:
         raise ValueError(f"max_steps must be >= 0, got {max_steps}")
+    R = origin.shape[0]
+    if nogather and planar.rows.shape[0] < R:
+        raise ValueError(f"no-gather: {R} rays need {R} rows, the table has "
+                         f"{planar.rows.shape[0]}; pad it with own_rows()")
     if origin.device.type == "cpu":
-        return _traverse_plain(planar, origin, direction, t_max, active, "closest", True,
+        return _traverse_plain(planar, origin, direction, t_max, None, "closest", True,
                                max_steps=max_steps, nogather=nogather)
     if origin.device.type != "cuda":
         raise ValueError(f"no traversal for device {origin.device}")
     lib = _load(planar.width)
-    R, dev = origin.shape[0], origin.device
-    act_ptr = _check_rays(lib, planar, origin, direction, t_max, active)
+    dev = origin.device
+    _check_rays(lib, planar, origin, direction, t_max)
     t, tri, u, v, steps, _, _ = _outputs(R, dev, False)
     if R == 0:
         return t, tri.long(), u, v, steps, None, None
     err = lib.vkrt_traverse_capped(
         planar.width, planar.rows.data_ptr(), planar.rows.shape[0], planar.stack_depth,
-        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), act_ptr, R, int(max_steps),
+        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), R, int(max_steps),
         int(bool(nogather)), t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
         steps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )

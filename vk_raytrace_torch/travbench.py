@@ -1,7 +1,7 @@
 """Traversal micro-bench: the traversal kernel alone, at the main path's width.
 
     python -m vk_raytrace_torch.travbench [--device cuda|cpu] [--rays P]
-        [--reps N] [--widths 16 32] [--small]
+        [--reps N] [--small]
 
 Counterpart of ``scripts/travbench.py`` and ``scripts/stepbench.py``. It
 builds the full atrium's opaque tree at each width (``--small``: the atrium
@@ -12,11 +12,12 @@ default). Variants at each width:
 * ``full``: closest hit to termination (kernel mode a);
 * ``capped8``: closest hit stopped after 8 nodes per ray, the reference's
   ``base`` (8 production steps);
-* ``nogather8``: the same with ray r reading row r at every step, whatever
-  its node is (zeros past the table's end), the reference's measure of what
-  the dependent row gather costs. Its hits are wrong by design, and on the
-  card, where each ray stops on its own, a made-up node ends most rays
-  after one node: compare it per node visited;
+* ``nogather8``: 8 nodes per ray with ray r reading row r at every step,
+  whatever its node is (the table zero-padded to a row per ray), the
+  reference's measure of what the dependent row gather costs. Its hits are
+  wrong by design. A ray its made-up nodes would end starts over at the
+  root, as a TPU lane keeps paying for every step, so every ray runs 8
+  nodes: compare it with ``capped8`` per node visited;
 * ``root_order``: the child order alone (``sort_children``) on the entry
   distances of every ray into the root row's children.
 
@@ -24,7 +25,8 @@ Each variant prints one JSON line: mean ms per call (CUDA events, after a
 warm-up) and its plain version's, mean nodes per ray, the distinct rows the
 rays visit, the call's bytes and operations and its bound on the card, and
 the card's name and power limit. Every kernel result is held against its
-plain version first (the no-gather and capped ones exactly). It runs on the
+plain version first (the no-gather and capped ones exactly) and the largest
+difference is printed (``max_abs_err``). It runs on the
 card unless given ``--device cpu``, where it runs the plain versions and
 times them on the host clock (``cpu_ms``; no device number).
 """
@@ -163,11 +165,29 @@ def _same(a, b) -> bool:
     return all(x is None and y is None or torch.equal(x, y) for x, y in zip(a, b))
 
 
+def max_abs_err(a, b) -> float:
+    """Largest |a - b| over the t, u and v of two traversal results, on the
+    rays where both report the same hit triangle."""
+    same = (a[1] == b[1]) & (a[1] >= 0)
+    if not bool(same.any()):
+        return 0.0
+    return max(float((a[k][same] - b[k][same]).abs().max()) for k in (0, 2, 3))
+
+
+def sort_err(a, b) -> float:
+    """Largest |a - b| over the sorted keys, refs and hit counts of two
+    child-sort results."""
+    return max(float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
+               for x, y in zip(a, b))
+
+
 def _variant(name, planar, o, d, t_max, cuda, reps):
     """One traversal variant: kernel (or plain on the CPU) vs plain, times,
     nodes and bound."""
     capped = name != "full"
     nogather = name.startswith("nogather")
+    if nogather:
+        planar = tf.own_rows(planar, o.shape[0])
 
     def kern():
         if capped:
@@ -193,6 +213,8 @@ def _variant(name, planar, o, d, t_max, cuda, reps):
     res = dict(nodes_per_ray=nodes / n, interior_rows=n_inner, leaf_rows=n_leaf,
                bytes=n_bytes, ops=nodes * ops_per_node(planar.width),
                hit_share=float((plain[1] >= 0).float().mean()))
+    if cuda:
+        res["max_abs_err"] = max_abs_err(out, plain)
     timer = cuda_time if cuda else host_time
     res["ms" if cuda else "cpu_ms"] = timer(kern, reps)
     res["plain_ms" if cuda else "plain_cpu_ms"] = timer(
@@ -210,6 +232,8 @@ def _root_order(planar, o, d, cuda, reps):
     timer = cuda_time if cuda else host_time
     res = dict(nodes_per_ray=1.0, hits_per_ray=float(plain[2].double().mean()),
                bytes=sort_bytes(keys), ops=sort_ops(keys))
+    if cuda:
+        res["max_abs_err"] = sort_err(out, plain)
     res["ms" if cuda else "cpu_ms"] = timer(lambda: tf.sort_children(keys, refs), reps)
     res["plain_ms" if cuda else "plain_cpu_ms"] = timer(
         lambda: tf._sort_children_plain(keys, refs), 2)
@@ -255,7 +279,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--rays", type=int, default=RAYS)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--widths", type=int, nargs="+", default=list(tf.WIDTHS))
     ap.add_argument("--small", action="store_true", help="the atrium cut to 2x2 bays")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -265,7 +288,7 @@ def main(argv=None):
 
     geom, _, _, cam, _ = procedural.atrium_scene(**(SMALL_ATRIUM if args.small else {}))
     planars = {w: build_accel_bundle(geom, width=w).opaque_planar.to(args.device)
-               for w in args.widths}
+               for w in tf.WIDTHS}
     run(args.device, planars, cam, rays=args.rays, reps=args.reps)
 
 
