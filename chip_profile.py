@@ -17,11 +17,13 @@ more frame with ``torch.profiler``. It prints, for the traced frame:
 * traversal: device ms and launches of the traversal kernel, in all and
   by mode (closest, any, candidate; with per-lane roots in the bistro,
   whose two-level path runs no other traversal, from the tree's root in
-  the atrium);
+  the atrium), and of the two-level alpha machine kernel (the bistro's
+  alpha pass, one launch per call);
 * shading: device ms and launches of the kernels that ran inside the
   device spans of the wavefront's ``shade_stage`` ranges (the whole stage,
   eager or fused), and the fused shading kernel's own ms and launches;
-* the top K device kernels by total time.
+* the top K device kernels by total time;
+* peak device memory allocated over the timed and the traced frames.
 """
 
 import argparse
@@ -35,6 +37,7 @@ import torch
 TRAVERSE = "traverse_kernel"
 TRAVERSE_MODE = re.compile(r"traverse_kernel<(\d)")  # the template's MODE argument
 MODES = ("closest", "any", "candidate")  # csrc/traverse.cu enum Mode
+MACHINE = "alpha_machine_kernel"
 SHADE = "shade_kernel"
 STAGE = "shade_stage"  # the wavefront's profiler range around its shading stage
 
@@ -101,6 +104,7 @@ def main():
     for _ in range(2):
         r.step()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     frames = []
     for _ in range(args.frames):
         t0 = time.perf_counter()
@@ -143,9 +147,13 @@ def main():
         evs = [ev for ev in trav if (m := TRAVERSE_MODE.search(ev[0])) and int(m.group(1)) == i]
         print(f"  {mode} ({roots}): {sum(e - s for _, s, e in evs) / 1e3:.3f} ms in "
               f"{len(evs)} launches")
+    machine = [ev for ev in kernels if MACHINE in ev[0]]
+    print(f"alpha machine: {sum(e - s for _, s, e in machine) / 1e3:.3f} ms in "
+          f"{len(machine)} launches")
     print(f"shading stage: {stage_ms:.3f} device ms in {len(in_stage)} launches "
           f"({len(stages)} stage spans); fused kernel "
           f"{sum(e - s for _, s, e in shade_k) / 1e3:.3f} ms in {len(shade_k)} launches")
+    print(f"peak allocated after warm-up: {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
     print(f"top {args.top} kernels by device ms:")
     for name, (ms, cnt) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[: args.top]:
         print(f"  {ms:9.3f} ms {cnt:7d}x  {name[:110]}")

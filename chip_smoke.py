@@ -40,15 +40,16 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
 11. the two-level main path: the full bistro through
     ``build_instanced_scene`` and ``Renderer(..., fused_shade=True)`` at
     1920x1080, depth 4, 1 spp, glTF PBR, sun&sky, firefly clamp 10,
-    full_mis off; one warm-up and three timed frames; every traversal mode
-    with roots and the shading kernel must have launched;
+    full_mis off; one warm-up and three timed frames; modes a and b with
+    roots, the alpha machine kernel and the shading kernel must have
+    launched, and the per-round mode c with roots must not have;
 12. the width-32 traversal kernel (1024-byte rows, 16-triangle leaves)
     against its twin: the full atrium's width-32 trees on phase 3's ray
     sets, then per-lane roots on the full bistro's width-32 tables on phase
     8's; all timed;
 13. the child sort (``sort_children``) against its plain version at 2^18
-    rows of 16 and of 32 keys with ties and misses, exact; timed beside one
-    stable ``torch.sort``;
+    rows of 16 and of 32 keys with ties, misses and NaN, exact; timed beside
+    one stable ``torch.sort``;
 14. the traversal micro-bench (``vk_raytrace_torch.travbench``) at full
     size on the atrium, widths 16 and 32: each capped and no-gather kernel
     against its plain version (exact) and timed, with the full traversal
@@ -58,7 +59,16 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
     width=32)``, fused shading), beside phase 7: every width-32 mode must
     have launched and no width-16 one;
 16. the bistro main path at width 32 (``build_instanced_scene(...,
-    width=32)``), beside phase 11: the same for the modes with roots.
+    width=32)``), beside phase 11: the same for modes a and b with roots
+    and the alpha machine;
+17. the alpha machine kernel (``vkrt_alpha_machine``, the two-level alpha
+    pass of ``ops/tlas.py`` in one launch) on the full bistro at 2^18 rays
+    toward the foliage, at widths 16 and 32, closest and any hit: exact on
+    tri/inst/seed/steps against the round loop driving the per-round kernel
+    (mode c with roots, held against its twin in phases 8 and 12) and
+    against the fully plain round loop (the twin in every round); the
+    kernel, the round loop (its wall and device time) and the plain loop
+    timed, the bound counted from the plain run.
 
 The line before the last is the per-kernel JSON summary (times, launches,
 errors and each kernel's bound on this card); the last line is
@@ -78,6 +88,9 @@ SOURCE = "vk_raytrace_torch/csrc/traverse.cu"
 REPLACES = "vk_raytrace_tpu/ops/traverse_fused.py:255"  # _make_step_kernel
 ROOTS_REPLACES = "vk_raytrace_tpu/ops/traverse_fused.py:724"  # root0 (mode d)
 SORT_REPLACES = "tests/test_fused.py:88"  # the pallas_call around _bitonic
+# The mode-c step kernel with per-lane roots, launched once per round by the
+# reference's _two_level_alpha_pass: the rounds the alpha machine runs whole.
+MACHINE_REPLACES = "vk_raytrace_tpu/ops/tlas.py:695"
 NOGATHER_REPLACES = "scripts/stepbench.py:121"  # the no-gather step kernel
 SHADE_SOURCE = "vk_raytrace_torch/csrc/shade.cu"
 SHADE_REPLACES = "vk_raytrace_tpu/integrator/shade_fused.py:290"  # _make_kernel
@@ -94,6 +107,18 @@ SHADE_OPS_PER_LANE = 1400
 # the tangent (9 products and 6 sums each, 3 more sums for the position)
 # and three normalisations of 9 operations: 90.
 SHADE_INST_OPS_PER_LANE = SHADE_OPS_PER_LANE + 90
+# The alpha machine's work beside its traversal nodes, counted from
+# csrc/traverse.cu: per round the window start and the ray transform (3
+# multiply-adds, then 9 products and 9 sums for the origin, 9 and 6 for the
+# direction, 3 reciprocals: 42); per candidate the alpha test (uv transform,
+# texel index, opacity and the PCG draw as float operations: about 20). Its
+# bytes: rays in (origin, direction, t_max, active, seed: 37 B) and out (t,
+# tri, u, v, inst, steps, seed: 32 B), the instance table once (76 B an
+# instance), each distinct alpha BLAS row once, and per candidate its
+# 64-byte AlphaPack row and one 32-byte texel sector. Its per-round scan of
+# the instance boxes is this design's choice, not counted.
+MACHINE_ROUND_OPS, MACHINE_CAND_OPS = 42, 20
+MACHINE_RAY_BYTES, MACHINE_INST_BYTES, MACHINE_CAND_BYTES = 37 + 32, 76, 64 + 32
 # The bistro's render configuration (BASELINE config #5,
 # scripts/baseline_configs.py:74-75, 93-97), at the main path's size.
 BISTRO_CFG = dict(max_depth=4, max_samples=1, hdr_multiplier=1.0, firefly_clamp=10.0,
@@ -384,6 +409,82 @@ def first_candidates(acc, subset, o, d, t_max, n):
     return oo.contiguous(), dd.contiguous(), t_max[sel].contiguous(), root0.contiguous(), share
 
 
+def alpha_machine_case(name, acc, pack, o, d, t_max, seed, act, any_hit, card):
+    """Phase 17: the alpha machine kernel on these world rays against the
+    round loop driving the per-round kernel and against the fully plain
+    round loop, exact on tri/inst/seed/steps (t/u/v within RTOL/ATOL); the
+    kernel timed (CUDA events), the round loop's wall (CUDA events, which
+    span its host syncs) and device time (profiler), the plain loop once on
+    the host clock; the bound counted from the rows, rounds and candidates
+    of the plain run. Returns ((max |err|, (ms, plain_ms), bound), the
+    per-round kernel's launches in one round-loop call)."""
+    import chip_profile
+    from vk_raytrace_torch import travbench as tb
+    from vk_raytrace_torch.ops import tlas
+    from vk_raytrace_torch.ops import traverse_fused as tf
+
+    planar = acc.blas_planar_alp
+    args = (acc, pack, o, d, t_max, seed, act, any_hit, not any_hit)
+    key_m = tf.launch_key("alpha_machine", planar.width)
+    key_c = tf.launch_key("candidate_roots", planar.width)
+    before = dict(tf.LAUNCHES)
+    kern = tlas._two_level_alpha_pass(*args)
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES[key_m] == before[key_m] + 1 and tf.LAUNCHES[key_c] == before[key_c], (
+        f"{name}: the alpha pass did not run as one alpha machine launch")
+    loop = tlas._alpha_rounds(*args)
+    torch.cuda.synchronize()
+    loop_launches = tf.LAUNCHES[key_c] - before[key_c]
+    seen = torch.zeros(planar.rows.shape[0], dtype=torch.int8, device=o.device)
+    work = {"rounds": 0, "cands": 0}
+
+    def plain_trav(planar, o, d, tm, active, mode, cull, root0=None):
+        out = tf._traverse_plain(planar, o, d, tm, active, mode, cull, seen, root0=root0)
+        work["rounds"] += o.shape[0]
+        work["cands"] += int((out[1] >= 0).sum())
+        return out
+
+    t0 = time.perf_counter()
+    plain = tlas._alpha_rounds(*args, trav=plain_trav)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+
+    def check(what, a, b):
+        for k, field in ((1, "tri"), (4, "inst"), (5, "seed"), (6, "steps")):
+            assert torch.equal(a[k], b[k]), f"{name}: {field} differs from the {what}"
+        for k in (0, 2, 3):
+            torch.testing.assert_close(a[k], b[k], rtol=RTOL, atol=ATOL)
+        return max(float((a[k] - b[k]).abs().max()) for k in (0, 2, 3))
+
+    err = max(check("round loop", kern, loop), check("plain round loop", kern, plain))
+    ms = tb.cuda_time(lambda: tlas._two_level_alpha_pass(*args), 20)
+    loop_ms = tb.cuda_time(lambda: tlas._alpha_rounds(*args), 3)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        tlas._alpha_rounds(*args)
+        torch.cuda.synchronize()
+    events, _ = chip_profile.device_events(prof)
+    loop_busy = chip_profile.busy_us(events) / 1e3
+    n, n_inst = o.shape[0], acc.inst.aabb_min.shape[0]
+    rounds, cands = work["rounds"], work["cands"]
+    nodes = float(plain[6].double().sum()) - rounds
+    rows_b, n_inner, n_leaf = tb.traversal_bytes(0, 0, seen, planar.width, "candidate")
+    n_bytes = n * MACHINE_RAY_BYTES + n_inst * MACHINE_INST_BYTES + rows_b + cands * MACHINE_CAND_BYTES
+    n_ops = (nodes * tb.ops_per_node(planar.width) + rounds * MACHINE_ROUND_OPS
+             + cands * MACHINE_CAND_OPS)
+    bnd = tb.bound(n_bytes, n_ops)
+    accepted = float((kern[1] >= 0).float().mean())
+    print(f"{name}: {n} rays ({float(act.float().mean()):.3f} active), {rounds} rounds "
+          f"({rounds / n:.2f} per ray, at most {tlas._A_MAX_ROUNDS}), {cands} candidates, "
+          f"accepted {accepted:.4f}, mean steps {float(kern[6].float().mean()):.2f}; exact vs "
+          f"round loop and plain loop, max |err| {err:.3g} -> OK; kernel {ms:.3f} ms (1 launch); "
+          f"round loop {loop_ms:.3f} ms wall, {loop_busy:.3f} ms device busy, "
+          f"{len(events)} device activities, {loop_launches} per-round launches; plain loop "
+          f"{plain_ms:.1f} ms; bound {bnd[0]:.4f} ms by {bnd[1]} ({n_bytes / 1e6:.1f} MB with "
+          f"{n_inner} interior + {n_leaf} leaf rows of {planar.rows.shape[0]}, "
+          f"{n_ops / 1e9:.3f} Gop; {ms / bnd[0]:.1f}x the bound) ({card})", flush=True)
+    return (err, (ms, plain_ms), bnd), loop_launches
+
+
 def main():
     # ---- 1. environment ----------------------------------------------------
     phase("environment")
@@ -413,6 +514,7 @@ def main():
     from vk_raytrace_torch.models import procedural
     from vk_raytrace_torch.models.schema import PBR_GLTF, RenderConfig
     from vk_raytrace_torch.ops.bvh8 import build_accel_bundle
+    from vk_raytrace_torch.ops.traverse_wide import make_alpha_pack
 
     t0 = time.time()
     geom, mats, lights, cam, atlas = procedural.atrium_scene()
@@ -674,6 +776,7 @@ def main():
     t0 = time.time()
     rb = R.Renderer(bscene, b_cfg, device=dev, fused_shade=True)
     b_renderer_s = time.time() - t0
+    b_inst = bscene.instances  # host tables, for phase 17
     del acc, bscene
     b_run = rb._run_cfg
     oc, dc = camera_rays(rb.scene.camera, 1920, 1080, n, rng, dev)
@@ -725,8 +828,9 @@ def main():
                "renderer_s": b_renderer_s, **rb.build_times}
     print(f"warm-up frame {b_warm_s:.3f} s; frames {['%.4f' % s for s in b_frame_s]} s; "
           f"rays/frame {b_frame_rays}; launches {b_launches}")
-    assert all(b_launches[m] > 0 for m in tf.ROOT_MODES), f"a roots mode never launched: {b_launches}"
-    assert b_launches["shade_bounce"] > 0, f"the shading kernel never launched: {b_launches}"
+    want = ("closest_roots", "any_roots", "alpha_machine", "shade_bounce")
+    assert all(b_launches[m] > 0 for m in want), f"a kernel never launched: {b_launches}"
+    assert b_launches["candidate_roots"] == 0, f"a per-round alpha launch ran: {b_launches}"
     assert np.isfinite(b_img).all() and np.isfinite(b_ldr).all(), "bistro: non-finite pixels"
     assert b_img.mean() > 0.0 and b_ldr.max() > 0.0, "bistro: black image"
     assert min(b_frame_rays) > 1920 * 1080, "bistro: fewer rays than primary rays"
@@ -771,12 +875,13 @@ def main():
         keys = torch.tensor(rng.integers(0, 8, (n, width)) / 4.0 - 0.5, dtype=torch.float32,
                             device=dev)
         keys[torch.tensor(rng.random((n, width)) < 0.3, device=dev)] = tf.INF  # misses
+        keys[torch.tensor(rng.random((n, width)) < 0.02, device=dev)] = float("nan")
         refs = torch.tensor(rng.integers(-2**30, 2**30, (n, width)), dtype=torch.int32,
                             device=dev)
         kern = tf.sort_children(keys, refs)
         plain = tf._sort_children_plain(keys, refs)
         torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(kern, plain)), f"{name}: differs"
+        assert tb.same_sort(kern, plain), f"{name}: differs"
         s_err = tb.sort_err(kern, plain)
         ms = tb.cuda_time(lambda: tf.sort_children(keys, refs), 20)
         plain_ms = tb.cuda_time(lambda: tf._sort_children_plain(keys, refs), 5)
@@ -801,8 +906,9 @@ def main():
     assert all(t_launches[m] > 0 for m in bench_keys), f"a bench kernel never launched: {t_launches}"
 
     def frames(r, what, want, refuse, beside):
-        """Phase 15/16: warm-up and three frames of renderer ``r``; the modes
-        ``want`` must launch and ``refuse`` must not."""
+        """Phase 15/16: warm-up and three frames of renderer ``r``; the kernels
+        ``want`` must launch and ``refuse`` (width 16, and the per-round
+        alpha rounds) must not."""
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         tf.reset_launches()
@@ -814,7 +920,7 @@ def main():
         print(f"warm-up frame {warm:.3f} s; frames {['%.4f' % x for x in f_s]} s; rays/frame "
               f"{f_rays}; launches {lau}")
         assert all(lau[m] > 0 for m in want), f"{what}: a width-32 kernel never launched: {lau}"
-        assert not any(lau[m] for m in refuse), f"{what}: a width-16 kernel launched: {lau}"
+        assert not any(lau[m] for m in refuse), f"{what}: a refused kernel launched: {lau}"
         assert lau["shade_bounce"] > 0, f"{what}: the shading kernel never launched: {lau}"
         assert np.isfinite(img).all() and np.isfinite(ldr).all(), f"{what}: non-finite pixels"
         assert img.mean() > 0.0 and ldr.max() > 0.0, f"{what}: black image"
@@ -831,7 +937,7 @@ def main():
     del g32
     r32 = R.Renderer(scene, cfg, device=dev, packed=bundle32, fused_shade=True)
     w_launches = frames(
-        r32, "atrium", [f"{m}_w32" for m in tf.MODES], tf.MODES + tf.ROOT_MODES,
+        r32, "atrium", [f"{m}_w32" for m in tf.MODES], tf.MODES + tf.ROOT_MODES + tf.MACHINE_KEYS,
         f"{f_s_frame:.4f} s/frame, {f_mrays:.4f} Mrays/s, peak {f_peak_mb:.1f} MiB, "
         f"{float(np.mean(f_frame_rays)):.0f} rays/frame")
     del r32
@@ -840,10 +946,31 @@ def main():
     phase("two-level main path, width 32")
     rb32 = R.Renderer(bscene32, b_cfg, device=dev, fused_shade=True)
     wb_launches = frames(
-        rb32, "bistro", [f"{m}_w32" for m in tf.ROOT_MODES], tf.MODES + tf.ROOT_MODES,
+        rb32, "bistro", ["closest_roots_w32", "any_roots_w32", "alpha_machine_w32"],
+        tf.MODES + tf.ROOT_MODES + ("candidate_roots_w32", "alpha_machine"),
         f"{b_s_frame:.4f} s/frame, {b_mrays:.4f} Mrays/s, peak {b_peak_mb:.1f} MiB, "
         f"{float(np.mean(b_frame_rays)):.0f} rays/frame")
     del rb32
+
+    # ---- 17. the alpha machine against the round loops ----------------------
+    phase("alpha machine vs round loops")
+    torch.cuda.empty_cache()
+    sc = bscene32.to(dev)
+    b_pack = make_alpha_pack(sc.materials, sc.atlas, sc.geometry.tri_material)
+    act = torch.tensor(rng.random(n) < 0.95, device=dev)
+    seed = torch.tensor(rng.integers(0, 2**32, n), device=dev)
+    t_shadow = torch.tensor(rng.uniform(1.0, 60.0, n), dtype=torch.float32, device=dev)
+    machine_res, loop_launches = {}, {}
+    for suffix, a in (("", b_inst.to(dev)), ("_w32", sc.instances)):
+        for any_hit in (False, True):
+            tm = t_shadow if any_hit else t_far[:n]
+            name = f"alpha_machine{'_any' if any_hit else ''}{suffix}"
+            machine_res[name], lau = alpha_machine_case(
+                name, a, b_pack, o_leaf[:n].contiguous(), d_leaf[:n].contiguous(), tm, seed, act,
+                any_hit, card)
+            key = f"candidate_roots{suffix}"
+            loop_launches[key] = loop_launches.get(key, 0) + lau
+    del sc, a, b_pack
 
     kernels = [
         {"name": f"traverse_{m}", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
@@ -858,9 +985,13 @@ def main():
          "max_abs_err": shade_err, "ms": shade_ms, "plain_ms": shade_plain_ms,
          "bound_ms": shade_bound[0], "bound_by": shade_bound[1], "library_ms": None}
     )
+    # The per-round mode c with roots is off the main path: its launches are
+    # those of phase 17's round loops (one call each mode).
+    lau16 = {**b_launches, **loop_launches}
+    lau32 = {**wb_launches, **loop_launches}
     kernels += [
         {"name": f"traverse_{m}", "route": "cuda", "source": SOURCE, "replaces": ROOTS_REPLACES,
-         "launches": b_launches[m], "max_abs_err": errors[m], "ms": times[m][0],
+         "launches": lau16[m], "max_abs_err": errors[m], "ms": times[m][0],
          "plain_ms": times[m][1], "bound_ms": bounds[m][0], "bound_by": bounds[m][1],
          "library_ms": None}
         for m in tf.ROOT_MODES
@@ -879,7 +1010,14 @@ def main():
                 "library_ms": None}
 
     kernels += [traverse_entry(f"{m}_w32", w_launches, REPLACES) for m in tf.MODES]
-    kernels += [traverse_entry(f"{m}_w32", wb_launches, ROOTS_REPLACES) for m in tf.ROOT_MODES]
+    kernels += [traverse_entry(f"{m}_w32", lau32, ROOTS_REPLACES) for m in tf.ROOT_MODES]
+    for key, lau in (("alpha_machine", b_launches), ("alpha_machine_w32", wb_launches)):
+        err, (ms, plain_ms), (b_ms, b_by) = machine_res[key]  # closest hit
+        err = max(err, machine_res[key.replace("machine", "machine_any")][0])
+        kernels.append({"name": key, "route": "cuda", "source": SOURCE,
+                        "replaces": MACHINE_REPLACES, "launches": lau[key], "max_abs_err": err,
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None})
     for name, (s_err, ms, plain_ms, lib_ms, (b_ms, b_by)) in sort_res.items():
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": SORT_REPLACES, "launches": t_launches[name],

@@ -16,6 +16,7 @@ thresholds of ``tests/test_torch_render.py``: >= 99% of pixels within rtol
 import numpy as np
 import pytest
 
+from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
 from vk_raytrace_tpu import render as ref_render
 from vk_raytrace_tpu.models import procedural as ref_proc
 from vk_raytrace_tpu.models.schema import PBR_GLTF, RenderConfig as RefConfig

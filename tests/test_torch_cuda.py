@@ -5,8 +5,9 @@ they also run on a machine without it:
 
 The traversal kernel against its plain twin (CPU) for modes a/b/c on the
 reduced atrium with banners and, with per-lane roots, on the small bistro's
-subset tables, at row widths 16 and 32; the child sort and the capped and
-no-gather entries against their plain versions (exact); the shading kernel
+subset tables, at row widths 16 and 32; the child sort, the capped and
+no-gather entries and the two-level alpha machine against their plain
+versions (exact); the shading kernel
 (single-level and instanced) against its plain version; and the render
 slices (atrium, bistro) on the card against the CPU. Kernel vs twin: same float32 operations in the same order, rounded
 per operation (nvcc -fmad=false), so ``tri`` and the hit masks are equal
@@ -25,6 +26,12 @@ from vk_raytrace_torch.models.schema import PBR_GLTF, RenderConfig
 from vk_raytrace_torch.ops import tlas
 from vk_raytrace_torch.ops import traverse_fused as tf
 from vk_raytrace_torch.ops.bvh8 import build_accel_bundle
+from vk_raytrace_torch.ops.traverse_wide import make_alpha_pack
+
+try:  # where the reference is installed, its cache is kept out of these tests too
+    from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
+except ImportError:  # a card machine without JAX: nothing here reads that cache
+    pass
 
 SMALL_ATRIUM = dict(bays_x=3, bays_z=2, column_segments=16, column_rows=12)
 
@@ -222,13 +229,19 @@ def _roots_vs_twin(bistro, mode, width):
 
 @pytest.mark.parametrize("width", tf.WIDTHS)
 def test_sort_kernel_matches_plain(width):
-    """The child sort on the card against ``torch.sort`` (stable) and a
-    gather: keys with ties and misses, exact."""
+    """The child sort on the card against its plain version (a stable
+    ``torch.sort`` with every miss as ``INF``, and a gather): keys with
+    ties, misses (``INF``, larger keys, +inf, NaN) and signed zeros, exact
+    bit for bit; a row count that leaves a partial block."""
     _need_cuda()
+    from vk_raytrace_torch import travbench as tb
+
     rng = np.random.default_rng(50 + width)
-    n = 20000
+    n = 20001
     keys = torch.tensor(rng.integers(0, 8, (n, width)) / 4.0 - 0.5, dtype=torch.float32)
-    keys[torch.tensor(rng.random((n, width)) < 0.3)] = tf.INF
+    for share, value in ((0.3, tf.INF), (0.03, 3e33), (0.03, float("inf")), (0.05, float("nan")),
+                         (0.05, -0.0)):
+        keys[torch.tensor(rng.random((n, width)) < share)] = value
     refs = torch.tensor(rng.integers(-2**30, 2**30, (n, width)), dtype=torch.int32)
     plain = tf.sort_children(keys, refs)
     key = tf.launch_key("sort_children", width)
@@ -236,8 +249,52 @@ def test_sort_kernel_matches_plain(width):
     kern = tf.sort_children(keys.cuda(), refs.cuda())
     torch.cuda.synchronize()
     assert tf.LAUNCHES[key] == before + 1
-    for a, b in zip(kern, plain):
-        assert torch.equal(a.cpu(), b)
+    assert tb.same_sort([x.cpu() for x in kern], plain)
+
+
+@pytest.mark.parametrize("width", tf.WIDTHS)
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_alpha_machine_matches_round_loop(bistro, width, any_hit):
+    """The alpha machine kernel (one launch, every ray's rounds) on the
+    small bistro's rays toward its foliage against the round loop on the
+    CPU (the plain version): tri, inst, seed and steps exact, t/u/v within
+    rtol 1e-5 / atol 1e-6 (the same float32 operations, rounded alike);
+    closest hit with culling and any hit without."""
+    _need_cuda()
+    import chip_smoke
+
+    pool, inst, m, l, c, a = bistro
+    scene = R.build_instanced_scene(pool, inst, m, l, c, atlas=a, width=width).to("cpu")
+    acc = scene.instances
+    pack = make_alpha_pack(scene.materials, scene.atlas, scene.geometry.tri_material)
+    rng = np.random.default_rng(12 + width)
+    n = 4099
+    pick = rng.choice(np.nonzero(acc.inst_alpha.numpy())[0], n)
+    o, d = chip_smoke.rays_toward_instances(rng, pool, inst, pick,
+                                            rng.uniform([-50, 0.5, -10], [50, 8, 10], (n, 3)),
+                                            "cpu")
+    t_max = (torch.tensor(rng.uniform(1.0, 60.0, n), dtype=torch.float32) if any_hit
+             else torch.full((n,), tf.INF))
+    seed = torch.tensor(rng.integers(0, 2**32, n))
+    act = torch.tensor(rng.random(n) < 0.95)
+    plain = tlas._two_level_alpha_pass(acc, pack, o, d, t_max, seed, act, any_hit, not any_hit)
+    key = tf.launch_key("alpha_machine", width)
+    before = dict(tf.LAUNCHES)
+    cuda = lambda x: x.to("cuda")  # noqa: E731
+    kern = tlas._two_level_alpha_pass(acc.to("cuda"), make_alpha_pack(*(
+        cuda(x) for x in (scene.materials, scene.atlas, scene.geometry.tri_material))),
+        cuda(o), cuda(d), cuda(t_max), cuda(seed), cuda(act), any_hit, not any_hit)
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES[key] == before[key] + 1
+    assert tf.LAUNCHES[tf.launch_key("candidate_roots", width)] == before[
+        tf.launch_key("candidate_roots", width)]
+    k = [x.cpu() for x in kern]
+    for i in (1, 4, 5, 6):  # tri, inst, seed, steps
+        assert torch.equal(k[i], plain[i]), i
+    for i in (0, 2, 3):
+        np.testing.assert_allclose(k[i].numpy(), plain[i].numpy(), rtol=1e-5, atol=1e-6)
+    assert 0.05 < (plain[1] >= 0).float().mean() < 0.99
+    assert (plain[5] != seed).any()
 
 
 @pytest.mark.parametrize("nogather", [False, True])

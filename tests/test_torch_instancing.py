@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
 from vk_raytrace_tpu import render as ref_render
 from vk_raytrace_tpu.integrator import shade as ref_shade
 from vk_raytrace_tpu.integrator import shade_fused as ref_fused
@@ -239,6 +240,155 @@ def test_panels_match_reference(alpha, mixed, want):
                                         torch.from_numpy(d), torch.full((64,), 9.0),
                                         seed=torch.from_numpy(s.astype(np.int64)))
         assert bool(occ.all()) == (alpha == 1.0) and bool(occ.any()) == (alpha == 1.0)
+
+
+# ---------------------------------------------------------------------------
+# The alpha pass alone: the round loop against the reference's machine
+# ---------------------------------------------------------------------------
+
+STACK_PANELS = 33  # alpha-0 panels: 2 rounds each, so 66 rounds > _A_MAX_ROUNDS
+
+
+def _panel_stack(alpha):
+    """A backstop at z=0, an alpha-1 panel at z=1 and, above it,
+    ``STACK_PANELS`` BLEND panels of opacity ``alpha``. A ray straight down
+    needs two rounds for each panel it does not accept (the reject, then the
+    instance found empty), so with ``alpha`` 0 it meets the 64-round cap
+    before the alpha-1 panel."""
+    quad = np.asarray([[0, 1, 2], [0, 2, 3]])
+    b = RefBuilder()
+    m_bs = b.add_mesh(np.asarray([[-10, -10, 0], [10, -10, 0], [10, 10, 0], [-10, 10, 0]], float),
+                      quad, 0)
+    panel = np.asarray([[-2, -2, 0], [2, -2, 0], [2, 2, 0], [-2, 2, 0]], float)
+    m_stop = b.add_mesh(panel, quad, 1, alpha_mode=ALPHA_BLEND)
+    m_p = b.add_mesh(panel, quad, 2, alpha_mode=ALPHA_BLEND)
+    b.add_instance(m_bs, np.eye(4))
+    for k, mesh in enumerate([m_stop] + [m_p] * STACK_PANELS):
+        m = np.eye(4)
+        m[2, 3] = 1.0 + 0.2 * k
+        b.add_instance(mesh, m)
+    pool, inst = b.build()
+    mats = make_materials([
+        dict(base_color_factor=[0.5, 0.5, 0.5, 1.0]),
+        dict(base_color_factor=[1.0, 1.0, 1.0, 1.0], alpha_mode=ALPHA_BLEND),
+        dict(base_color_factor=[1.0, 1.0, 1.0, alpha], alpha_mode=ALPHA_BLEND),
+    ])
+    return pool, inst, mats, dummy_atlas()
+
+
+def _foliage_rays(case, pool, inst, seed, n):
+    """World rays from the small bistro's street toward random points of its
+    alpha-carrying instances."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform([-50, 0.5, -10], [50, 8, 10], (n, 3))
+    pick = rng.choice(np.nonzero(np.asarray(case.acc.inst_alpha))[0], n)
+    mesh = np.asarray(inst.mesh_id)[pick]
+    tri = np.asarray(pool.tri_start)[mesh] + (rng.random(n) * np.asarray(pool.tri_count)[mesh]).astype(int)
+    p = np.einsum("rk,rkc->rc", rng.dirichlet(np.ones(3), n),
+                  np.asarray(pool.geometry.positions)[np.asarray(pool.geometry.indices)[tri]])
+    m = np.asarray(inst.object_to_world)[pick]
+    d = np.einsum("rij,rj->ri", m[:, :, :3], p) + m[:, :, 3] - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def _alpha_pass_case(scene, width, kind):
+    """(case, origin, direction, t_max, seed, active) for the alpha pass
+    alone: the small bistro's rays toward its foliage, or the panel stack's
+    rays straight down (opacity 0, 64-round cap, or 0.5)."""
+    rng = np.random.default_rng(60 + width + (kind == "any"))
+    if scene == "bistro":
+        pool, inst, mats, _, _, atlas = ref_proc.bistro_scene(detail=0.05)
+        n = 128
+    else:
+        pool, inst, mats, atlas = _panel_stack(0.0 if scene == "stack0" else 0.5)
+        n = 32
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VKRT_WIDE", str(width))
+        case = _case(pool, inst, mats, atlas)
+    assert case.acc.blas_planar_alp.width == width
+    if scene == "bistro":
+        o, d = _foliage_rays(case, pool, inst, 70 + width, n)
+    else:
+        o = np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(-1.5, 1.5, n), np.full(n, 10.0)], -1)
+        d = np.tile(np.asarray([[0, 0, -1.0]]), (n, 1))
+    if scene != "bistro":  # past the backstop: every panel lies in the window
+        t_max = np.full(n, 20.0, np.float32)
+    else:
+        t_max = (rng.uniform(1.0, 60.0, n) if kind == "any" else np.full(n, 1e32)).astype(np.float32)
+    seed = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    act = rng.random(n) < 0.95
+    return case, o.astype(np.float32), d.astype(np.float32), t_max, seed, act
+
+
+def _check_alpha_pass(case, o, d, t_max, seed, act, kind):
+    """The port's plain alpha pass (the round loop) against the reference's
+    ``_two_level_alpha_pass`` (Pallas in interpret mode), called directly
+    with the same seeds: seeds and accept masks exact, ``tri`` and ``inst``
+    equal wherever t is not tied, t within rtol 1e-5, u/v within 1e-3 (a
+    grazing hit magnifies the reference's FMA contraction, as in
+    ``tests/test_torch_traverse.py``). Returns the port's outputs."""
+    from vk_raytrace_tpu.ops.traverse_wide import make_alpha_pack as ref_make_alpha_pack
+
+    any_hit = kind == "any"
+    ref_acc = jax.tree.map(jnp.asarray, case.ref_acc)
+    ref = ref_tlas._two_level_alpha_pass(
+        ref_acc, ref_make_alpha_pack(case.ctx, jnp.asarray(case.tri_material)), jnp.asarray(o),
+        jnp.asarray(d), jnp.asarray(t_max), jnp.asarray(seed), jnp.asarray(act), any_hit,
+        not any_hit,
+    )
+    port = tlas._two_level_alpha_pass(
+        case.acc, case.pack, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(t_max),
+        torch.from_numpy(seed.astype(np.int64)), torch.from_numpy(act), any_hit, not any_hit,
+    )
+    rt, rtri, ru, rv, ri, rs = (np.asarray(x) for x in ref[:6])
+    pt, ptri, pu, pv, pi, ps = (x.numpy() for x in port[:6])
+    np.testing.assert_array_equal(ps.astype(np.uint32), rs)
+    np.testing.assert_array_equal(ptri >= 0, rtri >= 0)
+    np.testing.assert_allclose(pt, rt, rtol=RTOL_T)
+    differ = (ptri != rtri) | (pi != ri)
+    np.testing.assert_array_equal(pt[differ], rt[differ])  # a tie of t only
+    assert differ.mean() < 0.01
+    same = ~differ & (ptri >= 0)
+    np.testing.assert_allclose(pu[same], ru[same], atol=1e-3)
+    np.testing.assert_allclose(pv[same], rv[same], atol=1e-3)
+    return port
+
+
+@pytest.mark.parametrize("scene", ["bistro", "stack0", "stack05"])
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_alpha_pass_matches_reference(scene, kind):
+    """The alpha pass alone at width 16: the small bistro toward its
+    foliage, and the panel stack (opacity 0 meets the 64-round cap)."""
+    port = _check_alpha_pass(*_alpha_pass_case(scene, 16, kind), kind)
+    _check_alpha_outcome(scene, port)
+
+
+def _check_alpha_outcome(scene, port):
+    """What each ray set must show: bistro rays both pass and fail their
+    tests; the opacity-0 stack ends every live ray at the round cap, short
+    of the alpha-1 panel below it; the opacity-0.5 stack accepts most rays."""
+    tri, steps = port[1].numpy(), port[6].numpy()
+    if scene == "bistro":
+        assert 0.05 < (tri >= 0).mean() < 0.95
+    elif scene == "stack0":
+        assert (tri < 0).all() and (steps >= tlas._A_MAX_ROUNDS).sum() >= 0.9 * len(tri)
+    else:
+        assert (tri >= 0).mean() > 0.8
+
+
+def test_round_cap_decides_the_stack():
+    """The opacity-0 stack with the cap raised past its 66 rounds: every
+    live ray reaches the alpha-1 panel. So the cap, not the scene, ends the
+    rays in ``test_alpha_pass_matches_reference[*-stack0]``."""
+    case, o, d, t_max, seed, act = _alpha_pass_case("stack0", 16, "closest")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tlas, "_A_MAX_ROUNDS", 2 * STACK_PANELS + 2)
+        out = tlas._two_level_alpha_pass(
+            case.acc, case.pack, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(t_max),
+            torch.from_numpy(seed.astype(np.int64)), torch.from_numpy(act), False, True)
+    np.testing.assert_array_equal(out[1].numpy() >= 0, act)
+    np.testing.assert_allclose(out[0].numpy()[act], 9.0)  # z = 10 down to the panel at z = 1
 
 
 @pytest.mark.parametrize("name", ["sphere_box", "panels", "bistro"])

@@ -19,6 +19,7 @@ import torch
 
 import jax.numpy as jnp
 
+from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
 from vk_raytrace_tpu import render as ref_render
 from vk_raytrace_tpu.integrator import shade as ref_shade
 from vk_raytrace_tpu.models import procedural as ref_proc

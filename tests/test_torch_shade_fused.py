@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
 from vk_raytrace_tpu import render as ref_render
 from vk_raytrace_tpu.integrator import shade as ref_shade
 from vk_raytrace_tpu.integrator import shade_fused as ref_fused

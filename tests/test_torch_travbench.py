@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
 from vk_raytrace_tpu.ops import traverse_fused as ref_tf
 from vk_raytrace_torch import travbench
 from vk_raytrace_torch.models import procedural

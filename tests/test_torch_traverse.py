@@ -12,7 +12,15 @@ magnifies that one-ulp difference in the barycentric numerators (2.5e-4
 observed). The any-hit mask, and the alpha rounds' accept mask and seeds,
 must be exact; those rays meet the banners head-on, where the texel a
 candidate's uv falls in does not hang on the last ulp.
+
+:func:`isolated_reference` (module-scoped, autouse) is imported by every
+port test module that builds reference bundles or renderers: it keeps the
+reference's scene cache inside pytest's per-run temp directory and makes
+sure the reference's native builder is loaded.
 """
+
+import fcntl
+import os
 
 import numpy as np
 import pytest
@@ -33,6 +41,42 @@ from vk_raytrace_torch.ops.traverse_wide import make_alpha_pack
 
 N_RAYS = 257  # odd: exercises the reference's block padding
 RTOL, ATOL = 1e-5, 1e-6
+
+
+def _load_reference_native(lock_path) -> bool:
+    """Load the reference's native library once, under a lock that every
+    xdist worker of the run shares. Each process that finds the library
+    missing compiles it into the same temporary file, and a process that
+    loses that race marks the library unavailable for good; so a failed
+    first try resets that mark and tries once more under the lock."""
+    from vk_raytrace_tpu import runtime as ref_runtime
+
+    with open(lock_path, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not ref_runtime.available():
+                ref_runtime._lib = None
+            return ref_runtime.available()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def isolated_reference(tmp_path_factory):
+    """The reference's scene cache lies in pytest's per-run temp directory
+    while a port test module runs, so no entry of the shared
+    ``~/.cache/vkrt_scene`` is read; and the reference's native builder is
+    loaded, without which the reference falls back without a word to its
+    8-wide LBVH, whatever width was asked for. Yields the cache directory."""
+    base = tmp_path_factory.getbasetemp()
+    assert _load_reference_native(base.parent / "vkrt_native_build.lock"), (
+        "the reference's native library (vk_raytrace_tpu/runtime/_native.so) did not load: "
+        "its accel builds would fall back to the 8-wide LBVH"
+    )
+    cache = base / "vkrt_scene"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VKRT_SCENE_CACHE", str(cache))
+        yield cache
 
 
 @pytest.fixture(scope="module")
@@ -230,3 +274,52 @@ def test_cuda_kernel_matches_twin(atrium):
     np.testing.assert_array_equal(kern[1].cpu().numpy(), twin[1].numpy())
     np.testing.assert_allclose(kern[0].cpu().numpy(), twin[0].numpy(), rtol=RTOL, atol=ATOL)
     np.testing.assert_array_equal(kern[4].cpu().numpy(), twin[4].numpy())
+
+
+# ---------------------------------------------------------------------------
+# The reference's scene cache stays out of the port's tests
+# ---------------------------------------------------------------------------
+
+
+def test_reference_cache_lies_in_the_run_temp_dir(isolated_reference, tmp_path_factory):
+    cache = os.environ["VKRT_SCENE_CACHE"]
+    assert cache == str(isolated_reference)
+    assert isolated_reference.is_relative_to(tmp_path_factory.getbasetemp())
+    from vk_raytrace_tpu import runtime as ref_runtime
+
+    assert ref_runtime.available()
+
+
+def test_planted_shared_cache_entry_is_never_read(isolated_reference, tmp_path, monkeypatch):
+    """A width-8 bundle (the reference's LBVH fallback) planted in a fake
+    ``~/.cache/vkrt_scene`` under the key of a width-32 build: read where
+    the cache is left at its default, never under the fixture."""
+    from vk_raytrace_tpu import runtime as ref_runtime
+    from vk_raytrace_tpu.utils import cache as ref_cache
+
+    geom = ref_proc.city_scene(n_blocks=6)[0]
+    monkeypatch.setenv("VKRT_WIDE", "32")
+    # The key of this geometry's width-32 bundle: the one entry a build writes.
+    probe = tmp_path / "probe"
+    monkeypatch.setenv("VKRT_SCENE_CACHE", str(probe))
+    assert ref_bvh8.build_accel_bundle(geom).opaque_planar.width == 32
+    (entry,) = os.listdir(probe)
+    # The fallback's bundle, as a process without the native library stores it.
+    home = tmp_path / "home"
+    shared = home / ".cache" / "vkrt_scene"
+    with monkeypatch.context() as mp:
+        mp.setattr(ref_runtime, "_lib", False)
+        poisoned = ref_bvh8._build_accel_bundle_impl(geom)
+        mp.setenv("VKRT_SCENE_CACHE", str(shared))
+        ref_bvh8._bundle_to_cache(entry[:-len(".npz")], poisoned, ref_cache)
+    planted = (shared / entry).read_bytes()
+    with np.load(shared / entry) as z:
+        assert int(z["planar_width"]) == 8
+    monkeypatch.setenv("HOME", str(home))
+    monkeypatch.delenv("VKRT_SCENE_CACHE")
+    assert ref_bvh8.build_accel_bundle(geom).opaque_planar.width == 8  # the plant bites
+    monkeypatch.setenv("VKRT_SCENE_CACHE", str(isolated_reference))
+    b = ref_bvh8.build_accel_bundle(geom)
+    assert b.opaque_planar.width == 32 and b.alpha_planar.width == 32
+    assert (shared / entry).read_bytes() == planted
+    assert (isolated_reference / entry).exists()

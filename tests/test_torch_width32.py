@@ -20,9 +20,11 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_instancing import _case, _check_closest, _port_pool, _sphere_box, _trace
+from test_torch_instancing import _alpha_pass_case, _case, _check_alpha_outcome, _check_alpha_pass
+from test_torch_instancing import _check_closest, _port_pool, _sphere_box, _trace
 from test_torch_instancing import _rays as _inst_rays
 from test_torch_traverse import N_RAYS, _banner_rays, _check_hits, _close_bary, _rays, _t
+from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
 from vk_raytrace_tpu import render as ref_render
 from vk_raytrace_tpu import runtime as ref_runtime
 from vk_raytrace_tpu.models import procedural as ref_proc
@@ -247,6 +249,16 @@ def test_bistro_w32_hits_match_reference(alpha):
         rh, rs, ph, ps = _trace(case, o, d, s, alpha, any_hit=False)
     _check_closest(rh, ph)
     np.testing.assert_array_equal(ps, rs)
+
+
+@pytest.mark.parametrize("scene", ["bistro", "stack0", "stack05"])
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_alpha_pass_w32_matches_reference(scene, kind):
+    """The alpha pass alone at width 32 against the reference's
+    ``VKRT_WIDE=32`` machine (``tests/test_torch_instancing.py``'s cases:
+    the small bistro toward its foliage, the panel stack at the round cap)."""
+    port = _check_alpha_pass(*_alpha_pass_case(scene, 32, kind), kind)
+    _check_alpha_outcome(scene, port)
 
 
 # ---------------------------------------------------------------------------

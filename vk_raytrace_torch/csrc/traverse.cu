@@ -28,12 +28,21 @@
 // non-null root0 each ray starts at its own interior row root0[r] of a
 // concatenated per-mesh table (the instance's BLAS root) and skips the root
 // union-box test; refs in such a table are absolute rows, so nothing else
-// changes. The two-level round loop stays on the host side.
+// changes.
 //
-// Three more entries share the per-node device functions:
-//   vkrt_sort_children: the child order of an interior row alone (the
+// Three more entries:
+//   vkrt_alpha_machine: the two-level alpha machine of ops/tlas.py
+//     (_two_level_alpha_pass, whose rounds the TPU ran as one mode-c
+//     traversal with per-lane roots each, in a device-side loop over the
+//     whole batch) whole, one thread per ray: instance enumeration in
+//     entry order over the instance table held in shared memory, the ray
+//     transform, the candidate traversal of the instance's alpha BLAS (the
+//     same device function as vkrt_traverse) and the stochastic alpha
+//     test, round after round;
+//   vkrt_sort_children: the child order of interior rows alone (the
 //     counterpart of the TPU kernel's bitonic network _bitonic, which the
-//     reference unit-tests through its own pallas_call, tests/test_fused.py);
+//     reference unit-tests through its own pallas_call, tests/test_fused.py),
+//     a row per W lanes ranked in registers;
 //   vkrt_traverse_capped: closest hit stopped after max_steps nodes, and its
 //     no-gather variant, in which ray r reads row r at every step whatever
 //     its node is and starts over at the root whenever its made-up nodes end
@@ -47,7 +56,7 @@
 // to within a few ulp and child order and leaf tie-breaks are the twin's.
 //
 // One library per row width: the wrapper builds this file twice, with
-// -DVKRT_WIDTH=16 and -DVKRT_WIDTH=32, in parallel (each holds 10 kernels).
+// -DVKRT_WIDTH=16 and -DVKRT_WIDTH=32, in parallel (each holds 14 kernels).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,10 +99,6 @@ __device__ __forceinline__ float guard_inv(float c) {
 }
 
 __device__ __forceinline__ float f4get(const float4& v, int k) {
-  return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
-}
-
-__device__ __forceinline__ int i4get(const int4& v, int k) {
   return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
 }
 
@@ -276,37 +281,24 @@ __device__ __forceinline__ void leaf_tests(const float4* row, int cnt, const Ray
   if (W == 32) leaf_group<MODE, CULL, W, true>(row, 3, 4, cnt, y, t_best, c_t, L);
 }
 
-// One ray from setup to its outputs. CAPPED (the capped entry only) stops
-// after max_steps nodes and, with nogather, reads row r at every step
-// instead of the node's row and starts over at the root where it would end.
-template <int MODE, bool CULL, int MAXD, int W, bool CAPPED>
-__global__ void __launch_bounds__(128)
-traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origin,
-                const float* __restrict__ direction, const float* __restrict__ t_max,
-                const uint8_t* __restrict__ active, const int32_t* __restrict__ root0,
-                int64_t n_rays, int max_steps, int nogather, float* __restrict__ out_t,
-                int32_t* __restrict__ out_tri, float* __restrict__ out_u,
-                float* __restrict__ out_v, int32_t* __restrict__ out_steps,
-                float* __restrict__ out_uvu, float* __restrict__ out_uvv) {
-  using P = Planar<W>;
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
+// What one traversal gives back for its ray: mode c reports the nearest
+// alpha candidate (with its texture uv), modes a and b the nearest hit; t is
+// kInf where there is none.
+struct TraceOut {
+  float t, u, v, uvu, uvv;
+  int tri, steps;
+};
 
-  Ray y;
-  y.ox = origin[3 * r];
-  y.oy = origin[3 * r + 1];
-  y.oz = origin[3 * r + 2];
-  y.dx = direction[3 * r];
-  y.dy = direction[3 * r + 1];
-  y.dz = direction[3 * r + 2];
-  y.ix = guard_inv(y.dx);
-  y.iy = guard_inv(y.dy);
-  y.iz = guard_inv(y.dz);
-  const float tmax = t_max[r];
-  // The no-gather variant reads this ray's own row at every step (the
-  // caller's table has a row for every ray).
-  const bool own_row = CAPPED && nogather != 0;
-  const float4* own = rows + r * P::kRowF4;
+// One ray's traversal from node `cur` (kTerm: nothing to do) with window
+// (0, tmax): the per-node code of every entry. CAPPED (the capped entry
+// only) stops after max_steps nodes and, with a non-null `own` (the
+// no-gather variant), reads that row at every step instead of the node's
+// row and starts over at the root where it would end.
+template <int MODE, bool CULL, int MAXD, int W, bool CAPPED>
+__device__ __forceinline__ void trace(const float4* __restrict__ rows, const Ray& y, float tmax,
+                                      int cur, const float4* own, int max_steps, TraceOut& out) {
+  using P = Planar<W>;
+  const bool own_row = CAPPED && own != nullptr;
 
   // Opaque slot; candidate slot (nearest alpha-flagged hit) in mode c.
   float t_best = tmax, u_best = 0.0f, v_best = 0.0f;
@@ -314,37 +306,6 @@ traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origi
   float c_t = tmax, c_u = 0.0f, c_v = 0.0f, c_uvu = 0.0f, c_uvv = 0.0f;
   int c_tri = -1;
   int steps = 0;
-
-  // Ray setup: the lane must be active, and without per-lane roots the
-  // union box of the root's valid children must be hit within (0, t_max).
-  int cur = 0;
-  if (root0 != nullptr) {
-    cur = (active != nullptr && !active[r]) ? kTerm : root0[r];
-  } else {
-    float rmin[3] = {3.0e38f, 3.0e38f, 3.0e38f};
-    float rmax[3] = {-3.0e38f, -3.0e38f, -3.0e38f};
-#pragma unroll
-    for (int g = 0; g < P::kG; ++g) {
-      const float4 bxm = rows[0 * P::kG + g], bym = rows[1 * P::kG + g];
-      const float4 bzm = rows[2 * P::kG + g], bxM = rows[3 * P::kG + g];
-      const float4 byM = rows[4 * P::kG + g], bzM = rows[5 * P::kG + g];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (f4get(bxm, k) <= f4get(bxM, k)) {
-          rmin[0] = fminf(rmin[0], f4get(bxm, k));
-          rmin[1] = fminf(rmin[1], f4get(bym, k));
-          rmin[2] = fminf(rmin[2], f4get(bzm, k));
-          rmax[0] = fmaxf(rmax[0], f4get(bxM, k));
-          rmax[1] = fmaxf(rmax[1], f4get(byM, k));
-          rmax[2] = fmaxf(rmax[2], f4get(bzM, k));
-        }
-      }
-    }
-    float tn0, tf0;
-    slab(y, rmin[0], rmin[1], rmin[2], rmax[0], rmax[1], rmax[2], tn0, tf0);
-    const bool hit_root = (tn0 <= tf0) && (tf0 >= 0.0f) && (tn0 < tmax);
-    if (!hit_root || (active != nullptr && !active[r])) cur = kTerm;
-  }
 
   int stack[MAXD];
   int depth = 0;
@@ -416,70 +377,323 @@ traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origi
   }
 
   if (MODE == kCandidate) {
-    out_t[r] = c_tri >= 0 ? c_t : kInf;
-    out_tri[r] = c_tri;
-    out_u[r] = c_u;
-    out_v[r] = c_v;
-    out_uvu[r] = c_uvu;
-    out_uvv[r] = c_uvv;
+    out.t = c_tri >= 0 ? c_t : kInf;
+    out.tri = c_tri;
+    out.u = c_u;
+    out.v = c_v;
+    out.uvu = c_uvu;
+    out.uvv = c_uvv;
   } else {
-    out_t[r] = tri_best >= 0 ? t_best : kInf;
-    out_tri[r] = tri_best;
-    out_u[r] = u_best;
-    out_v[r] = v_best;
+    out.t = tri_best >= 0 ? t_best : kInf;
+    out.tri = tri_best;
+    out.u = u_best;
+    out.v = v_best;
   }
+  out.steps = steps;
+}
+
+__device__ __forceinline__ Ray load_ray(const float* origin, const float* direction, int64_t r) {
+  Ray y;
+  y.ox = origin[3 * r];
+  y.oy = origin[3 * r + 1];
+  y.oz = origin[3 * r + 2];
+  y.dx = direction[3 * r];
+  y.dy = direction[3 * r + 1];
+  y.dz = direction[3 * r + 2];
+  y.ix = guard_inv(y.dx);
+  y.iy = guard_inv(y.dy);
+  y.iz = guard_inv(y.dz);
+  return y;
+}
+
+// One ray from setup to its outputs.
+template <int MODE, bool CULL, int MAXD, int W, bool CAPPED>
+__global__ void __launch_bounds__(128)
+traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origin,
+                const float* __restrict__ direction, const float* __restrict__ t_max,
+                const uint8_t* __restrict__ active, const int32_t* __restrict__ root0,
+                int64_t n_rays, int max_steps, int nogather, float* __restrict__ out_t,
+                int32_t* __restrict__ out_tri, float* __restrict__ out_u,
+                float* __restrict__ out_v, int32_t* __restrict__ out_steps,
+                float* __restrict__ out_uvu, float* __restrict__ out_uvv) {
+  using P = Planar<W>;
+  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_rays) return;
+
+  const Ray y = load_ray(origin, direction, r);
+  const float tmax = t_max[r];
+
+  // Ray setup: the lane must be active, and without per-lane roots the
+  // union box of the root's valid children must be hit within (0, t_max).
+  int cur = 0;
+  if (root0 != nullptr) {
+    cur = (active != nullptr && !active[r]) ? kTerm : root0[r];
+  } else {
+    float rmin[3] = {3.0e38f, 3.0e38f, 3.0e38f};
+    float rmax[3] = {-3.0e38f, -3.0e38f, -3.0e38f};
+#pragma unroll
+    for (int g = 0; g < P::kG; ++g) {
+      const float4 bxm = rows[0 * P::kG + g], bym = rows[1 * P::kG + g];
+      const float4 bzm = rows[2 * P::kG + g], bxM = rows[3 * P::kG + g];
+      const float4 byM = rows[4 * P::kG + g], bzM = rows[5 * P::kG + g];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (f4get(bxm, k) <= f4get(bxM, k)) {
+          rmin[0] = fminf(rmin[0], f4get(bxm, k));
+          rmin[1] = fminf(rmin[1], f4get(bym, k));
+          rmin[2] = fminf(rmin[2], f4get(bzm, k));
+          rmax[0] = fmaxf(rmax[0], f4get(bxM, k));
+          rmax[1] = fmaxf(rmax[1], f4get(byM, k));
+          rmax[2] = fmaxf(rmax[2], f4get(bzM, k));
+        }
+      }
+    }
+    float tn0, tf0;
+    slab(y, rmin[0], rmin[1], rmin[2], rmax[0], rmax[1], rmax[2], tn0, tf0);
+    const bool hit_root = (tn0 <= tf0) && (tf0 >= 0.0f) && (tn0 < tmax);
+    if (!hit_root || (active != nullptr && !active[r])) cur = kTerm;
+  }
+
+  // The no-gather variant reads this ray's own row at every step (the
+  // caller's table has a row for every ray).
+  const float4* own = CAPPED && nogather != 0 ? rows + r * P::kRowF4 : nullptr;
+  TraceOut h;
+  trace<MODE, CULL, MAXD, W, CAPPED>(rows, y, tmax, cur, own, max_steps, h);
+  out_t[r] = h.t;
+  out_tri[r] = h.tri;
+  out_u[r] = h.u;
+  out_v[r] = h.v;
+  if (MODE == kCandidate) {
+    out_uvu[r] = h.uvu;
+    out_uvv[r] = h.uvv;
+  }
+  out_steps[r] = h.steps;
+}
+
+// ---------------------------------------------------------------------------
+// The two-level alpha machine (ops/tlas.py _two_level_alpha_pass), one thread
+// per ray for all of its rounds.
+//
+// What bounds it: the candidate traversals (dependent BLAS row reads and
+// divergence, as in vkrt_traverse) and the per-round instance scan; the
+// rounds' host loop (a gather, transform, launch, alpha test, candidate
+// argmin over an (R, I) entry table and a host sync per round) is gone. The
+// instance table (alpha-subset world box, world-to-object rows and BLAS root
+// of each instance, 76 B) sits in shared memory, where every thread of a
+// warp reads the same instance at once; the next candidate is the slab test
+// recomputed against it, so no per-ray entry table exists.
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxInstances = 512;  // tlas._DENSE_I_MAX: 38,912 B of shared memory
+constexpr int kInstWords = 19;      // box 6, world_to_object 12, root 1
+constexpr float kNeg = -3.0e38f;    // tlas._NEG: before every entry t
+constexpr float kAlphaMask = 1.0f;  // models/schema.py ALPHA_MASK
+constexpr int kWrapRepeat = 0, kWrapClamp = 1;  // ops/texture.py
+// traverse_alpha._ADV_REL / _ADV_ABS, rounded to float32 from the Python
+// doubles as torch rounds a scalar operand.
+constexpr float kAdvMul = (float)(1.0 + 1e-4);
+constexpr float kAdvAbs = (float)1e-5;
+constexpr float kInv255 = (float)(1.0 / 255.0);
+
+// The next instance after (last_t, last_id) in (entry t, id) order among
+// those whose alpha-subset box the world ray enters before both its window
+// end tmax0 and its best hit t_best: tlas._instance_slab's slab test and
+// tlas._next_candidate's argmin (ties to the lowest id). Instances outside
+// the alpha mask have root -1. Returns the id (-1: none) and its entry t.
+__device__ __forceinline__ int next_instance(const float* s_box, const int* s_root, int n_inst,
+                                             const Ray& w, float tmax0, float t_best,
+                                             float last_t, int last_id, float& nt) {
+  float best = kInf;
+  int id = -1;
+  for (int i = 0; i < n_inst; ++i) {
+    if (s_root[i] < 0) continue;
+    const float* b = s_box + 6 * i;
+    float tn, tf;
+    slab(w, b[0], b[1], b[2], b[3], b[4], b[5], tn, tf);
+    const bool hit = (tn <= tf) && (tf >= 0.0f) && (tn < tmax0) && (tn < t_best);
+    const bool after = (tn > last_t) || (tn == last_t && i > last_id);
+    if (hit && after && tn < best) {
+      best = tn;
+      id = i;
+    }
+  }
+  nt = best;
+  return id;
+}
+
+// torch.remainder of integers: the sign of the divisor (size >= 1).
+__device__ __forceinline__ long long floor_mod(long long c, long long size) {
+  const long long m = c % size;
+  return m < 0 ? m + size : m;
+}
+
+// ops/texture.py _wrap: REPEAT, CLAMP or MIRROR of an integer texel coord.
+__device__ __forceinline__ long long wrap_coord(long long c, long long size, long long mode) {
+  if (mode == kWrapRepeat) return floor_mod(c, size);
+  if (mode == kWrapClamp) return c < 0 ? 0 : (c > size - 1 ? size - 1 : c);
+  const long long period = 2 * size;
+  const long long m = floor_mod(c, period);
+  return m >= size ? period - 1 - m : m;
+}
+
+// traverse_alpha._alpha_accept for one candidate, operation for operation:
+// the triangle's AlphaPack row (a_factor, mode, cutoff, tex_id, uv transform
+// 3x2, atlas x/y/w/h, wrap s/t), the texel its uv falls in, and one PCG step
+// (ops/rng.py rand), which advances `seed`. Returns whether it passes.
+__device__ __forceinline__ bool alpha_accept(const float* __restrict__ pack, int64_t n_pack,
+                                             const uint8_t* __restrict__ plane, int64_t n_plane,
+                                             int64_t atlas_w, int tri, float uvu, float uvv,
+                                             uint32_t& seed) {
+  const int64_t row = tri < 0 ? 0 : (tri >= n_pack ? n_pack - 1 : tri);
+  const float4* a = reinterpret_cast<const float4*>(pack + row * 16);
+  const float4 a0 = a[0], a1 = a[1], a2 = a[2], a3 = a[3];
+  const float ut = __fadd_rn(__fadd_rn(__fmul_rn(uvu, a1.x), __fmul_rn(uvv, a1.z)), a2.x);
+  const float vt = __fadd_rn(__fadd_rn(__fmul_rn(uvu, a1.y), __fmul_rn(uvv, a1.w)), a2.y);
+  float alpha = a0.x;
+  if (a0.w >= 0.0f) {  // textured: the atlas alpha texel times the factor
+    const long long tw = (long long)a3.x < 1 ? 1 : (long long)a3.x;
+    const long long th = (long long)a3.y < 1 ? 1 : (long long)a3.y;
+    const long long xi = (long long)floorf(__fmul_rn(ut, (float)tw));
+    const long long yi = (long long)floorf(__fmul_rn(vt, (float)th));
+    const long long xw = wrap_coord(xi, tw, (long long)a3.z) + (long long)a2.z;
+    const long long yw = wrap_coord(yi, th, (long long)a3.w) + (long long)a2.w;
+    long long flat = yw * atlas_w + xw;
+    flat = flat < 0 ? 0 : (flat > n_plane - 1 ? n_plane - 1 : flat);
+    alpha = __fmul_rn(a0.x, __fmul_rn((float)plane[flat], kInv255));
+  }
+  const float opacity = a0.y == kAlphaMask ? (alpha > a0.z ? 1.0f : 0.0f) : alpha;
+  const uint32_t prev = seed * 747796405u + 2891336453u;
+  const uint32_t word = ((prev >> ((prev >> 28) + 4u)) ^ prev) * 277803737u;
+  const uint32_t bits = (word >> 22) ^ word;
+  seed = prev;
+  return __fmul_rn((float)(bits >> 9), 1.0f / 8388608.0f) <= opacity;
+}
+
+template <bool CULL, bool ANY, int MAXD, int W>
+__global__ void __launch_bounds__(128)
+alpha_machine_kernel(const float4* __restrict__ rows, const float* __restrict__ inst_box,
+                     const float* __restrict__ inst_w2o, const int32_t* __restrict__ inst_root,
+                     int n_inst, const float* __restrict__ pack, int64_t n_pack,
+                     const uint8_t* __restrict__ plane, int64_t n_plane, int64_t atlas_w,
+                     const float* __restrict__ origin, const float* __restrict__ direction,
+                     const float* __restrict__ t_max, const uint8_t* __restrict__ active,
+                     const int64_t* __restrict__ seed_in, int64_t n_rays, int max_rounds,
+                     float* __restrict__ out_t, int32_t* __restrict__ out_tri,
+                     float* __restrict__ out_u, float* __restrict__ out_v,
+                     int32_t* __restrict__ out_inst, int64_t* __restrict__ out_seed,
+                     int32_t* __restrict__ out_steps) {
+  extern __shared__ float smem[];
+  float* s_box = smem;                // (I, 6): min xyz, max xyz
+  float* s_m = smem + 6 * n_inst;     // (I, 12): world_to_object rows
+  int* s_root = reinterpret_cast<int*>(smem + 18 * n_inst);
+  for (int k = threadIdx.x; k < 6 * n_inst; k += blockDim.x) s_box[k] = inst_box[k];
+  for (int k = threadIdx.x; k < 12 * n_inst; k += blockDim.x) s_m[k] = inst_w2o[k];
+  for (int k = threadIdx.x; k < n_inst; k += blockDim.x) s_root[k] = inst_root[k];
+  __syncthreads();
+  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_rays) return;
+
+  const Ray w = load_ray(origin, direction, r);
+  const float tmax0 = t_max[r];
+  uint32_t seed = (uint32_t)seed_in[r];
+  float t_best = tmax0, u = 0.0f, v = 0.0f, last_t = kNeg, t_lo = 0.0f, nt;
+  int tri = -1, ibest = 0, steps = 0, last_id = -1;
+  int cid = next_instance(s_box, s_root, n_inst, w, tmax0, t_best, last_t, last_id, nt);
+  bool live = (active == nullptr || active[r]) && cid >= 0;
+  for (int round = 0; live && round < max_rounds; ++round) {
+    // The window start moved along the world ray, then into the instance's
+    // object space (tlas._transform_rays: direction not renormalised).
+    const float* m = s_m + 12 * cid;
+    const float px = __fadd_rn(w.ox, __fmul_rn(w.dx, t_lo));
+    const float py = __fadd_rn(w.oy, __fmul_rn(w.dy, t_lo));
+    const float pz = __fadd_rn(w.oz, __fmul_rn(w.dz, t_lo));
+    Ray y;
+    y.ox = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[0], px), __fmul_rn(m[1], py)),
+                               __fmul_rn(m[2], pz)), m[3]);
+    y.oy = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[4], px), __fmul_rn(m[5], py)),
+                               __fmul_rn(m[6], pz)), m[7]);
+    y.oz = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[8], px), __fmul_rn(m[9], py)),
+                               __fmul_rn(m[10], pz)), m[11]);
+    y.dx = __fadd_rn(__fadd_rn(__fmul_rn(m[0], w.dx), __fmul_rn(m[1], w.dy)), __fmul_rn(m[2], w.dz));
+    y.dy = __fadd_rn(__fadd_rn(__fmul_rn(m[4], w.dx), __fmul_rn(m[5], w.dy)), __fmul_rn(m[6], w.dz));
+    y.dz = __fadd_rn(__fadd_rn(__fmul_rn(m[8], w.dx), __fmul_rn(m[9], w.dy)),
+                     __fmul_rn(m[10], w.dz));
+    y.ix = guard_inv(y.dx);
+    y.iy = guard_inv(y.dy);
+    y.iz = guard_inv(y.dz);
+    TraceOut h;
+    trace<kCandidate, CULL, MAXD, W, false>(rows, y, fmaxf(__fsub_rn(t_best, t_lo), 0.0f),
+                                            s_root[cid], nullptr, 0, h);
+    // The nearest alpha surface in the window takes its stochastic test:
+    // pass records it and moves on, reject advances the window past it and
+    // stays in the instance, no surface moves on.
+    const bool cand = h.tri >= 0;
+    const bool passed =
+        cand && alpha_accept(pack, n_pack, plane, n_plane, atlas_w, h.tri, h.uvu, h.uvv, seed);
+    const float t_abs = __fadd_rn(t_lo, h.t);
+    if (passed) {
+      t_best = t_abs;
+      tri = h.tri;
+      u = h.u;
+      v = h.v;
+      ibest = cid;
+    }
+    steps += h.steps + 1;
+    if (cand && !passed) {
+      t_lo = __fadd_rn(__fmul_rn(t_abs, kAdvMul), kAdvAbs);
+    } else {
+      last_t = nt;
+      last_id = cid;
+      t_lo = 0.0f;
+      cid = next_instance(s_box, s_root, n_inst, w, tmax0, t_best, last_t, last_id, nt);
+    }
+    live = cid >= 0 && !(ANY && tri >= 0);  // any hit: the first accepted surface occludes
+  }
+  out_t[r] = t_best;
+  out_tri[r] = tri;
+  out_u[r] = u;
+  out_v[r] = v;
+  out_inst[r] = ibest;
+  out_seed[r] = (int64_t)seed;
   out_steps[r] = steps;
 }
 
-// The child order alone: row r's W keys (kInf for a miss) and refs, sorted
-// ascending and stable by insert_child, the misses after the hits in their
-// row order; out_count[r] = number of hits.
+// The child order alone, one row per W lanes (a warp at W = 32, a half-warp
+// at W = 16): lane i loads child i, so a row's keys and refs are one
+// coalesced access each. A hit's rank is the number of hits before it in
+// (key, slot) order, counted over the row's keys passed round the group with
+// __shfl_sync; a miss (a key not below kInf, NaN included) follows the hits
+// in row order, its rank counted from the group's __ballot_sync hit bits.
+// Key and ref are stored at their rank: keys ascending and stable, the
+// misses after the hits in their row order; out_count[r] = number of hits.
+// Bound by its bytes; the W shuffles and compares per lane stay in registers.
 template <int W>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(256)
 sort_children_kernel(const float* __restrict__ keys, const int32_t* __restrict__ refs,
                      int64_t n, float* __restrict__ out_keys, int32_t* __restrict__ out_refs,
                      int32_t* __restrict__ out_count) {
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  const float4* kin = reinterpret_cast<const float4*>(keys + r * W);
-  const int4* rin = reinterpret_cast<const int4*>(refs + r * W);
-  float4 kv[W / 4];
-  int4 rv[W / 4];
-  float key[W];
-  int ref[W];
-  int cnt = 0;
+  static_assert(W == 16 || W == 32, "a row spans a half-warp or a warp");
+  const int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / W;
+  const int lane = threadIdx.x & (W - 1);
+  const bool valid = row < n;  // whole groups: blockDim is a multiple of W
+  const float k = valid ? keys[row * W + lane] : kInf;
+  const int32_t ref = valid ? refs[row * W + lane] : 0;
+  const bool hit = k < kInf;
+  const unsigned group = W == 32 ? 0xffffffffu : 0xffffu;
+  const unsigned hits = (__ballot_sync(0xffffffffu, hit) >> (threadIdx.x & 31 & ~(W - 1))) & group;
+  int before = 0;  // hits ahead of this lane's key in (key, slot) order
 #pragma unroll
-  for (int g = 0; g < W / 4; ++g) {
-    kv[g] = kin[g];
-    rv[g] = rin[g];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (f4get(kv[g], k) < kInf) {
-        insert_child<W>(key, ref, cnt, f4get(kv[g], k), i4get(rv[g], k));
-        ++cnt;
-      }
-    }
+  for (int j = 0; j < W; ++j) {
+    const float kj = __shfl_sync(0xffffffffu, k, j, W);
+    before += (kj < k || (kj == k && j < lane)) ? 1 : 0;  // a miss kj is never below a hit
   }
-  int m = cnt;
-#pragma unroll
-  for (int g = 0; g < W / 4; ++g) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (!(f4get(kv[g], k) < kInf)) {
-        key[m] = f4get(kv[g], k);
-        ref[m] = i4get(rv[g], k);
-        ++m;
-      }
-    }
+  const int n_hits = __popc(hits);
+  const int rank = hit ? before : n_hits + __popc(~hits & group & ((1u << lane) - 1u));
+  if (valid) {
+    out_keys[row * W + rank] = k;
+    out_refs[row * W + rank] = ref;
+    if (lane == 0) out_count[row] = n_hits;
   }
-  float4* kout = reinterpret_cast<float4*>(out_keys + r * W);
-  int4* rout = reinterpret_cast<int4*>(out_refs + r * W);
-#pragma unroll
-  for (int g = 0; g < W / 4; ++g) {
-    kout[g] = make_float4(key[4 * g], key[4 * g + 1], key[4 * g + 2], key[4 * g + 3]);
-    rout[g] = make_int4(ref[4 * g], ref[4 * g + 1], ref[4 * g + 2], ref[4 * g + 3]);
-  }
-  out_count[r] = cnt;
 }
 
 struct Args {
@@ -520,6 +734,22 @@ void dispatch(int mode, int cull, const Args& a, cudaStream_t s) {
     launch<kCandidate, true, MAXD, W, false>(a, s);
   else
     launch<kCandidate, false, MAXD, W, false>(a, s);
+}
+
+template <bool CULL, bool ANY, int MAXD>
+void launch_machine(const float* rows, const float* box, const float* w2o, const int32_t* root,
+                    int n_inst, const float* pack, int64_t n_pack, const uint8_t* plane,
+                    int64_t n_plane, int64_t atlas_w, const float* o, const float* d,
+                    const float* tmax, const uint8_t* active, const int64_t* seed, int64_t n,
+                    int max_rounds, float* t, int32_t* tri, float* u, float* v, int32_t* inst,
+                    int64_t* seed_out, int32_t* steps, cudaStream_t stream) {
+  const int threads = 128;
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  const size_t smem = (size_t)n_inst * kInstWords * sizeof(float);
+  alpha_machine_kernel<CULL, ANY, MAXD, kWidth><<<blocks, threads, smem, stream>>>(
+      reinterpret_cast<const float4*>(rows), box, w2o, root, n_inst, pack, n_pack, plane,
+      n_plane, atlas_w, o, d, tmax, active, seed, n, max_rounds, t, tri, u, v, inst, seed_out,
+      steps);
 }
 
 }  // namespace
@@ -580,10 +810,46 @@ int vkrt_sort_children(const float* keys, const int32_t* refs, int64_t n, int wi
   if (width != kWidth) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((n * kWidth + threads - 1) / threads);
   sort_children_kernel<kWidth><<<blocks, threads, 0, s>>>(keys, refs, n, out_keys, out_refs,
                                                           out_count);
+  return (int)cudaGetLastError();
+}
+
+// The two-level alpha machine over n_rays world rays, to the end of each
+// ray's rounds (at most max_rounds): closest hit with culling (cull 1,
+// any_hit 0) or any hit without (cull 0, any_hit 1). rows: the alpha-subset
+// BLAS table (this library's width) with its stack bound; per instance
+// (n_inst <= 512): inst_box (I, 6) the alpha-subset world box (min, max),
+// inst_w2o (I, 3, 4) world to object, inst_root (I,) the BLAS root row, -1
+// outside the alpha mask; pack (n_pack, 16) the AlphaPack rows, plane the
+// atlas alpha channel (n_plane bytes, rows atlas_w wide); seed (n_rays,)
+// uint32 values in int64. Outputs per ray: t (t_max where no surface was
+// accepted), tri (-1 then), u, v, inst, seed, steps. Returns
+// cudaGetLastError() after launch.
+int vkrt_alpha_machine(int cull, int any_hit, int width, const float* rows, int stack_depth,
+                       const float* inst_box, const float* inst_w2o, const int32_t* inst_root,
+                       int n_inst, const float* pack, int64_t n_pack, const uint8_t* plane,
+                       int64_t n_plane, int64_t atlas_w, const float* origin,
+                       const float* direction, const float* t_max, const uint8_t* active,
+                       const int64_t* seed, int64_t n_rays, int max_rounds, float* t,
+                       int32_t* tri, float* u, float* v, int32_t* inst, int64_t* seed_out,
+                       int32_t* steps, void* stream) {
+  if (width != kWidth || stack_depth > 128 || n_inst < 0 || n_inst > kMaxInstances ||
+      n_pack < 1 || n_plane < 1 || (cull != 0) == (any_hit != 0))
+    return (int)cudaErrorInvalidValue;
+  if (n_rays <= 0) return 0;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+#define VKRT_MACHINE(C, A, D)                                                                  \
+  launch_machine<C, A, D>(rows, inst_box, inst_w2o, inst_root, n_inst, pack, n_pack, plane,   \
+                          n_plane, atlas_w, origin, direction, t_max, active, seed, n_rays,   \
+                          max_rounds, t, tri, u, v, inst, seed_out, steps, s)
+  if (cull && stack_depth <= 64) VKRT_MACHINE(true, false, 64);
+  else if (cull) VKRT_MACHINE(true, false, 128);
+  else if (stack_depth <= 64) VKRT_MACHINE(false, true, 64);
+  else VKRT_MACHINE(false, true, 128);
+#undef VKRT_MACHINE
   return (int)cudaGetLastError();
 }
 

@@ -16,11 +16,16 @@ t are ordered by instance id, so each overlap is visited once.
 With alpha-tested triangles the tables split per mesh into an opaque subset
 and an alpha subset: the opaque rounds run over every instance's opaque
 subset, then a second machine runs candidate rounds over the alpha subsets,
-one stochastic alpha test per round (:func:`_two_level_alpha_pass`).
+one stochastic alpha test per round (:func:`_two_level_alpha_pass`). On the
+card that machine is one kernel launch (``vkrt_alpha_machine`` in
+``csrc/traverse.cu``: each thread runs its ray's rounds to the end, the
+instance table in shared memory); its plain version, the round loop
+:func:`_alpha_rounds`, runs the CPU tensors.
 
-Every round runs on the lanes still live (gathered, then scattered back);
-results are lane for lane those of the reference's full-width rounds, since
-a lane's state changes only in the rounds where it is live.
+Every round of a loop runs on the lanes still live (gathered, then
+scattered back); results are lane for lane those of the reference's
+full-width rounds, since a lane's state changes only in the rounds where it
+is live.
 """
 
 from __future__ import annotations
@@ -39,7 +44,9 @@ from .math import mat3_vec
 from .traverse_fused import INF, Hit, PlanarScene
 
 _NEG = -3.0e38             # "before every entry t" for the enumeration
-_DENSE_I_MAX = 512         # instances up to which the (R, I) entry table is kept
+# Instances up to which the rounds keep an (R, I) entry table and the alpha
+# machine kernel its instance table in shared memory (76 B each).
+_DENSE_I_MAX = 512
 _SLAB_CHUNK = 1 << 15      # rays per chunk of the (R, I, 3) slab test
 # Bound on state-machine rounds in the alpha pass: instances overlapped
 # along one ray plus stochastic rejections. One global count, as in the
@@ -350,9 +357,25 @@ def _two_level_alpha_pass(accel, pack, origin, direction, t_max, seed, act, any_
     alpha BLAS in candidate mode over ``(t_lo, t_best)``; the nearest alpha
     surface takes one stochastic test (``traverse_alpha._alpha_accept``):
     pass records the hit and moves to the next instance, reject advances
-    ``t_lo`` just past the surface and stays, a miss moves on. Returns
-    ``(t_best, tri, u, v, inst, seed, steps)``; ``tri`` is -1 (``t_best`` =
-    ``t_max``) where no surface was accepted."""
+    ``t_lo`` just past the surface and stays, a miss moves on; a ray stops
+    after ``_A_MAX_ROUNDS`` rounds. Returns ``(t_best, tri, u, v, inst,
+    seed, steps)``; ``tri`` is -1 (``t_best`` = ``t_max``) where no surface
+    was accepted. CUDA tensors launch the alpha machine kernel (or raise),
+    CPU tensors run the round loop."""
+    if origin.device.type == "cuda":
+        return _alpha_machine_cuda(accel, pack, origin, direction, t_max, seed, act, any_hit,
+                                   cull)
+    if origin.device.type != "cpu":
+        raise ValueError(f"no alpha machine for device {origin.device}")
+    return _alpha_rounds(accel, pack, origin, direction, t_max, seed, act, any_hit, cull)
+
+
+def _alpha_rounds(accel, pack, origin, direction, t_max, seed, act, any_hit, cull,
+                  trav=tf.traverse):
+    """The alpha machine as a loop of rounds on the live lanes (the plain
+    version of the alpha machine kernel): each round's candidate traversal
+    is one ``trav`` call (``traverse_fused.traverse``: the per-round kernel
+    with per-lane roots on CUDA tensors, the twin on CPU ones)."""
     from .traverse_alpha import _ADV_ABS, _ADV_REL, _alpha_accept
 
     r, dev = origin.shape[0], origin.device
@@ -381,7 +404,7 @@ def _two_level_alpha_pass(accel, pack, origin, direction, t_max, seed, act, any_
         o_obj, d_obj = _transform_rays(accel.inst, cid, origin[live] + d * tl[:, None], d)
         root0 = roots[accel.inst.mesh_id[cid]].to(torch.int32)
         tb = t_best[live]
-        t, h_tri, hu, hv, hs, uvu, uvv = tf.traverse(
+        t, h_tri, hu, hv, hs, uvu, uvv = trav(
             accel.blas_planar_alp, o_obj, d_obj, torch.clamp(tb - tl, min=0.0), None,
             "candidate", cull, root0=root0,
         )
@@ -413,6 +436,56 @@ def _two_level_alpha_pass(accel, pack, origin, direction, t_max, seed, act, any_
             keep = keep & (tri[live] < 0)  # the first accepted surface occludes
         live = live[keep]
     return t_best, tri, u, v, ibest, seed, steps
+
+
+def _machine_tables(accel: InstancedAccel):
+    """The alpha machine kernel's instance table: (I, 6) alpha-subset world
+    boxes (min, max), (I, 12) world-to-object rows and (I,) int32 alpha BLAS
+    roots, -1 for an instance outside the alpha mask."""
+    box = torch.cat([accel.inst_aabb_alp_min, accel.inst_aabb_alp_max], dim=1)
+    w2o = accel.inst.world_to_object.reshape(-1, 12)
+    roots = torch.clamp(accel.mesh_root_alp, min=0)[accel.inst.mesh_id.long()]
+    root = torch.where(accel.inst_alpha.bool(), roots, -1).to(torch.int32)
+    return box.float().contiguous(), w2o.float().contiguous(), root.contiguous()
+
+
+def _alpha_machine_cuda(accel, pack, origin, direction, t_max, seed, act, any_hit, cull):
+    """One launch of ``vkrt_alpha_machine``: every ray's rounds, to the
+    end, in one thread (closest hit with culling or any hit without)."""
+    if bool(cull) == bool(any_hit):
+        raise ValueError("the alpha machine kernel runs closest hit with culling or any hit "
+                         f"without, not cull={cull} with any_hit={any_hit}")
+    planar = accel.blas_planar_alp
+    lib = tf._load(planar.width)
+    r, dev = origin.shape[0], origin.device
+    act = tf._check_rays(lib, planar, origin, direction, t_max, act)
+    tf._check("seed", seed, (r,), torch.int64, dev)
+    box, w2o, root = _machine_tables(accel)
+    n_inst = root.shape[0]
+    tf._check("pack rows", pack.rows, (pack.rows.shape[0], 16), torch.float32, dev)
+    tf._check("alpha plane", pack.alpha_plane, (pack.alpha_plane.numel(),), torch.uint8, dev)
+    for name, x in (("instance boxes", box), ("world_to_object", w2o), ("roots", root)):
+        if x.device != dev:
+            raise ValueError(f"{name}: on {x.device}, the rays on {dev}")
+    f = lambda: torch.empty(r, dtype=torch.float32, device=dev)  # noqa: E731
+    i32 = lambda: torch.empty(r, dtype=torch.int32, device=dev)  # noqa: E731
+    t, u, v, tri, inst, steps = f(), f(), f(), i32(), i32(), i32()
+    seed_out = torch.empty_like(seed)
+    if r == 0:  # nothing to launch, and so nothing to count
+        return t, tri.long(), u, v, inst.long(), seed_out, steps
+    err = lib.vkrt_alpha_machine(
+        int(bool(cull)), int(bool(any_hit)), planar.width, planar.rows.data_ptr(),
+        planar.stack_depth, box.data_ptr(), w2o.data_ptr(), root.data_ptr(), n_inst,
+        pack.rows.data_ptr(), pack.rows.shape[0], pack.alpha_plane.data_ptr(),
+        pack.alpha_plane.numel(), pack.atlas_width, origin.data_ptr(), direction.data_ptr(),
+        t_max.data_ptr(), tf._ptr(act), seed.data_ptr(), r, _A_MAX_ROUNDS, t.data_ptr(),
+        tri.data_ptr(), u.data_ptr(), v.data_ptr(), inst.data_ptr(), seed_out.data_ptr(),
+        steps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"alpha machine kernel launch failed: cudaError {err}")
+    tf.LAUNCHES[tf.launch_key("alpha_machine", planar.width)] += 1
+    return t, tri.long(), u, v, inst.long(), seed_out, steps
 
 
 def _two_level(accel: InstancedAccel, pack, origin, direction, t_max, seed, cull, any_hit,

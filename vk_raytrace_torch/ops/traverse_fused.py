@@ -28,9 +28,9 @@ per-lane roots under ``<mode>_roots`` and width-32 rows under ``..._w32``.
 
 Two more entries, each with its plain version beside it:
 
-* :func:`sort_children`: the child order of interior rows alone (the stable
-  insertion sort every interior step runs; the counterpart of the TPU
-  kernel's bitonic network ``_bitonic``);
+* :func:`sort_children`: the child order of interior rows alone (the order
+  every interior step takes; the counterpart of the TPU kernel's bitonic
+  network ``_bitonic``), a row per warp or half-warp on the card;
 * :func:`traverse_capped`: closest hit stopped after ``max_steps`` nodes per
   ray, and its no-gather timing variant (``nogather=True``: ray r reads
   row r of :func:`own_rows` at every step and starts over at the root where
@@ -61,11 +61,14 @@ ROOT_MODES = tuple(f"{m}_roots" for m in MODES)
 W32_MODES = tuple(f"{m}_w32" for m in MODES + ROOT_MODES)
 CAPPED_KEYS = ("capped", "nogather", "capped_w32", "nogather_w32")
 SORT_KEYS = ("sort_children", "sort_children_w32")
+MACHINE_KEYS = ("alpha_machine", "alpha_machine_w32")
 
 # Kernel launches per entry, counted where the wrapper launches: traversal
 # per mode (``<mode>_roots`` with per-lane roots, ``_w32`` at width 32), the
-# capped and no-gather entries, and the child sort.
-LAUNCHES = {m: 0 for m in MODES + ROOT_MODES + W32_MODES + CAPPED_KEYS + SORT_KEYS}
+# capped and no-gather entries, the child sort and the two-level alpha
+# machine (``ops/tlas.py``).
+LAUNCHES = {m: 0 for m in (MODES + ROOT_MODES + W32_MODES + CAPPED_KEYS + SORT_KEYS
+                           + MACHINE_KEYS)}
 
 
 def reset_launches() -> None:
@@ -380,6 +383,11 @@ def _load(width: int):
         lib.vkrt_traverse_capped.restype = i32
         lib.vkrt_sort_children.argtypes = [p, p, i64, i32, p, p, p, p]
         lib.vkrt_sort_children.restype = i32
+        lib.vkrt_alpha_machine.argtypes = [
+            i32, i32, i32, p, i32, p, p, p, i32, p, i64, p, i64, i64, p, p, p, p, p, i64, i32,
+            p, p, p, p, p, p, p, p,
+        ]
+        lib.vkrt_alpha_machine.restype = i32
         lib.vkrt_traverse_max_stack.restype = i32
         _libs[width] = lib
     return _libs[width]
@@ -517,16 +525,20 @@ def traverse_capped(planar, origin, direction, t_max, max_steps: int, nogather=F
 
 def _sort_children_plain(keys, refs):
     """Plain version of :func:`sort_children`: a stable ``torch.sort`` of
-    each row and the refs gathered after their keys."""
-    skey, order = torch.sort(keys, dim=1, stable=True)
-    return skey, torch.gather(refs, 1, order), (keys < INF).sum(dim=1, dtype=torch.int32)
+    each row with every miss (a key not below ``INF``, NaN included) sorted
+    as ``INF``, and the keys and refs gathered in that order."""
+    hit = keys < INF
+    _, order = torch.sort(torch.where(hit, keys, INF), dim=1, stable=True)
+    return (torch.gather(keys, 1, order), torch.gather(refs, 1, order),
+            hit.sum(dim=1, dtype=torch.int32))
 
 
 def sort_children(keys, refs):
     """The child order of interior rows: ``keys`` (N, W) f32 entry
     distances, ``INF`` for a child the ray misses, ``refs`` (N, W) int32.
     Returns (sorted keys, refs in key order, (N,) int32 hit count): keys
-    ascending and stable, the misses last in row order. CPU tensors take the
+    ascending and stable, the misses (keys not below ``INF``, NaN
+    included) last in row order. CPU tensors take the
     plain version; CUDA tensors launch ``vkrt_sort_children`` (or raise)."""
     if keys.dim() != 2 or keys.shape[1] not in WIDTHS:
         raise ValueError(f"keys: want (N, 16) or (N, 32), got {tuple(keys.shape)}")
@@ -538,8 +550,6 @@ def sort_children(keys, refs):
     dev = keys.device
     _check("keys", keys, (n, w), torch.float32, dev)
     _check("refs", refs, (n, w), torch.int32, dev)
-    if keys.data_ptr() % 16 or refs.data_ptr() % 16:
-        raise ValueError("keys, refs: the kernel loads 16-byte vectors; want aligned storage")
     out_k = torch.empty_like(keys)
     out_r = torch.empty_like(refs)
     count = torch.empty(n, dtype=torch.int32, device=dev)

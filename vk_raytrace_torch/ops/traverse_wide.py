@@ -52,7 +52,7 @@ def make_alpha_pack(materials, atlas, tri_material=None) -> AlphaPack:
         rows = rows[torch.clamp(tri_material, 0, rows.shape[0] - 1)]
     return AlphaPack(
         rows=rows,
-        alpha_plane=at.data[:, :, 3].reshape(-1),
+        alpha_plane=at.data[:, :, 3].reshape(-1).contiguous(),  # read by the alpha machine kernel
         atlas_width=int(at.data.shape[1]),
     )
 

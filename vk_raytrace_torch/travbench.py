@@ -176,9 +176,18 @@ def max_abs_err(a, b) -> float:
 
 def sort_err(a, b) -> float:
     """Largest |a - b| over the sorted keys, refs and hit counts of two
-    child-sort results."""
-    return max(float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
-               for x, y in zip(a, b))
+    child-sort results (a NaN key against a NaN key counts as 0)."""
+    def err(x, y):
+        d = (x.double() - y.double()).abs()
+        return float(torch.where(x.isnan() & y.isnan(), 0.0, d).max()) if x.numel() else 0.0
+
+    return max(err(x, y) for x, y in zip(a, b))
+
+
+def same_sort(a, b) -> bool:
+    """Two child-sort results equal bit for bit (NaN keys included)."""
+    return (torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+            and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2]))
 
 
 def _variant(name, planar, o, d, t_max, cuda, reps):
@@ -228,7 +237,7 @@ def _root_order(planar, o, d, cuda, reps):
     plain = tf._sort_children_plain(keys, refs)
     if cuda:
         torch.cuda.synchronize()
-        assert _same(out, plain), "root_order: kernel and plain version differ"
+        assert same_sort(out, plain), "root_order: kernel and plain version differ"
     timer = cuda_time if cuda else host_time
     res = dict(nodes_per_ray=1.0, hits_per_ray=float(plain[2].double().mean()),
                bytes=sort_bytes(keys), ops=sort_ops(keys))
