@@ -14,11 +14,15 @@ more frame with ``torch.profiler``. It prints, for the traced frame:
 * device busy: the union of the intervals of every device activity
   (kernels, copies, sets) in the trace, in ms and as a share of wall;
 * launches: the number of device kernels, and how many distinct ones;
-* traversal: device ms and launches of the traversal kernel, in all and
-  by mode (closest, any, candidate; with per-lane roots in the bistro,
-  whose two-level path runs no other traversal, from the tree's root in
-  the atrium), and of the two-level alpha machine kernel (the bistro's
-  alpha pass, one launch per call);
+* host syncs: the CUDA runtime's stream and device synchronize calls
+  that the host made during the frame (``nonzero``, ``item()`` and the
+  like wait so);
+* traversal: device ms and launches of the per-round traversal kernel, in
+  all and by mode (closest, any, candidate; with per-lane roots in the
+  bistro, from the tree's root in the atrium), and of each round machine
+  kernel: the single-level alpha rounds (the atrium's alpha pass), the
+  two-level opaque machine and alpha machine (the bistro's passes), one
+  launch per call each;
 * shading: device ms and launches of the kernels that ran inside the
   device spans of the wavefront's ``shade_stage`` ranges (the whole stage,
   eager or fused), and the fused shading kernel's own ms and launches;
@@ -37,7 +41,10 @@ import torch
 TRAVERSE = "traverse_kernel"
 TRAVERSE_MODE = re.compile(r"traverse_kernel<(\d)")  # the template's MODE argument
 MODES = ("closest", "any", "candidate")  # csrc/traverse.cu enum Mode
-MACHINE = "alpha_machine_kernel"
+# The round machine kernels (csrc/traverse.cu), each one launch per call.
+MACHINES = (("alpha rounds", "alpha_rounds_kernel"), ("opaque machine", "opaque_machine_kernel"),
+            ("alpha machine", "alpha_machine_kernel"))
+SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
 SHADE = "shade_kernel"
 STAGE = "shade_stage"  # the wavefront's profiler range around its shading stage
 
@@ -141,15 +148,18 @@ def main():
           f"({100 * busy / (wall * 1e3):.1f}%)")
     print(f"launches: {len(kernels)} kernels, {len(per_name)} distinct; "
           f"device activities {len(events)}")
+    syncs = sum(1 for e in prof.events() if e.device_type != torch.autograd.DeviceType.CUDA
+                and e.name in SYNCS)
+    print(f"host syncs: {syncs}")
     print(f"traversal: {sum(e - s for _, s, e in trav) / 1e3:.3f} ms in {len(trav)} launches")
     roots = "with per-lane roots" if args.scene == "bistro" else "from the root"
     for i, mode in enumerate(MODES):
         evs = [ev for ev in trav if (m := TRAVERSE_MODE.search(ev[0])) and int(m.group(1)) == i]
         print(f"  {mode} ({roots}): {sum(e - s for _, s, e in evs) / 1e3:.3f} ms in "
               f"{len(evs)} launches")
-    machine = [ev for ev in kernels if MACHINE in ev[0]]
-    print(f"alpha machine: {sum(e - s for _, s, e in machine) / 1e3:.3f} ms in "
-          f"{len(machine)} launches")
+    for label, name in MACHINES:
+        evs = [ev for ev in kernels if name in ev[0]]
+        print(f"{label}: {sum(e - s for _, s, e in evs) / 1e3:.3f} ms in {len(evs)} launches")
     print(f"shading stage: {stage_ms:.3f} device ms in {len(in_stage)} launches "
           f"({len(stages)} stage spans); fused kernel "
           f"{sum(e - s for _, s, e in shade_k) / 1e3:.3f} ms in {len(shade_k)} launches")

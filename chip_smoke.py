@@ -18,14 +18,15 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
    random streams; then the same with the fused shading stage on the card
    and on the CPU, and fused against unfused on the card;
 5. the main path: the full atrium (~217k triangles) at 1920x1080, depth 4,
-   1 spp, sun&sky, one warm-up and three timed frames; every traversal mode
-   must have launched its kernel;
+   1 spp, sun&sky, one warm-up and three timed frames; modes a and b and the
+   alpha rounds kernel must have launched, and the per-round mode c not;
 6. shading kernel against its plain torch version on the card at 2^18
    lanes: the hits of atrium camera rays, then every branch (all flags on,
    material lanes redrawn from a seed) with full MIS on and off; both timed;
 7. the main path with the fused shading stage (``Renderer(...,
    fused_shade=True)``): one warm-up and three timed frames; the shading
-   kernel and every traversal mode must have launched;
+   kernel and the kernels of phase 5 must have launched, and the per-round
+   mode c not;
 8. traversal with per-lane roots (the two-level path's kernel modes)
    against its twin on the full bistro (579k unique, >1M instanced
    triangles) at 2^18 rays: each ray's first instance candidate, moved into
@@ -40,9 +41,9 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
 11. the two-level main path: the full bistro through
     ``build_instanced_scene`` and ``Renderer(..., fused_shade=True)`` at
     1920x1080, depth 4, 1 spp, glTF PBR, sun&sky, firefly clamp 10,
-    full_mis off; one warm-up and three timed frames; modes a and b with
-    roots, the alpha machine kernel and the shading kernel must have
-    launched, and the per-round mode c with roots must not have;
+    full_mis off; one warm-up and three timed frames; the opaque machine,
+    the alpha machine and the shading kernel must have launched, and no
+    per-round kernel with roots;
 12. the width-32 traversal kernel (1024-byte rows, 16-triangle leaves)
     against its twin: the full atrium's width-32 trees on phase 3's ray
     sets, then per-lane roots on the full bistro's width-32 tables on phase
@@ -56,11 +57,12 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
     and the root child order; the capped, no-gather and sort kernels must
     have launched;
 15. the atrium main path at width 32 (``build_accel_bundle(geom,
-    width=32)``, fused shading), beside phase 7: every width-32 mode must
-    have launched and no width-16 one;
+    width=32)``, fused shading), beside phase 7: the width-32 kernels of
+    phase 5 must have launched, and no width-16 kernel and no per-round
+    mode c;
 16. the bistro main path at width 32 (``build_instanced_scene(...,
-    width=32)``), beside phase 11: the same for modes a and b with roots
-    and the alpha machine;
+    width=32)``), beside phase 11: the same for the opaque and alpha
+    machines;
 17. the alpha machine kernel (``vkrt_alpha_machine``, the two-level alpha
     pass of ``ops/tlas.py`` in one launch) on the full bistro at 2^18 rays
     toward the foliage, at widths 16 and 32, closest and any hit: exact on
@@ -68,7 +70,21 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
     (mode c with roots, held against its twin in phases 8 and 12) and
     against the fully plain round loop (the twin in every round); the
     kernel, the round loop (its wall and device time) and the plain loop
-    timed, the bound counted from the plain run.
+    timed, the bound counted from the plain run;
+18. the single-level alpha rounds kernel (``vkrt_alpha_rounds``,
+    ``ops/traverse_alpha.py``'s rounds in one launch) on the full atrium at
+    2^18 rays toward the banners, at widths 16 and 32, closest (windowed by
+    the opaque hit) and any hit: the same comparisons and times as phase 17,
+    against the round loop driving the per-round mode c;
+19. the two-level opaque machine kernel (``vkrt_opaque_machine``, the
+    opaque rounds of ``ops/tlas.py`` in one launch) on the full bistro at
+    2^18 camera rays, at widths 16 and 32, closest and any hit, over the
+    opaque subsets and over the full table: the same, against the round
+    loop driving modes a/b with roots.
+
+Phases 17-19 also print how each machine's rounds spread over its warps
+(32 consecutive rays): the mean rounds per ray, the mean of each warp's
+most, and the share of the warps' lane-rounds that do work.
 
 The line before the last is the per-kernel JSON summary (times, launches,
 errors and each kernel's bound on this card); the last line is
@@ -91,6 +107,11 @@ SORT_REPLACES = "tests/test_fused.py:88"  # the pallas_call around _bitonic
 # The mode-c step kernel with per-lane roots, launched once per round by the
 # reference's _two_level_alpha_pass: the rounds the alpha machine runs whole.
 MACHINE_REPLACES = "vk_raytrace_tpu/ops/tlas.py:695"
+# The step kernel as the reference's single-level alpha rounds and its
+# two-level opaque rounds call it, once per round: the rounds the alpha
+# rounds kernel and the opaque machine run whole.
+ROUNDS_REPLACES = "vk_raytrace_tpu/ops/traverse_alpha.py:128"
+OPAQUE_REPLACES = "vk_raytrace_tpu/ops/tlas.py:495"
 NOGATHER_REPLACES = "scripts/stepbench.py:121"  # the no-gather step kernel
 SHADE_SOURCE = "vk_raytrace_torch/csrc/shade.cu"
 SHADE_REPLACES = "vk_raytrace_tpu/integrator/shade_fused.py:290"  # _make_kernel
@@ -119,6 +140,19 @@ SHADE_INST_OPS_PER_LANE = SHADE_OPS_PER_LANE + 90
 # the instance boxes is this design's choice, not counted.
 MACHINE_ROUND_OPS, MACHINE_CAND_OPS = 42, 20
 MACHINE_RAY_BYTES, MACHINE_INST_BYTES, MACHINE_CAND_BYTES = 37 + 32, 76, 64 + 32
+# The single-level alpha rounds kernel: per round the window start (3
+# multiply-adds), its end (a subtract and a compare) and the root union box's
+# slab test (6 subtracts, 6 multiplies, 10 min/max, 3 compares): 33; per
+# candidate the alpha test as above. Its bytes: rays in (origin, direction,
+# t_limit, active, seed: 37 B) and out (t, tri, u, v, steps, seed: 28 B), each
+# distinct alpha row once, and per candidate its AlphaPack row and texel.
+ROUNDS_ROUND_OPS, ROUNDS_RAY_BYTES = 33, 37 + 28
+# The opaque machine: per round the transform of the world origin and
+# direction (9 products and 9 sums, 9 and 6, 3 reciprocals: 36). Its bytes:
+# rays in (origin, direction, t_max, active: 29 B) and out (t, tri, u, v,
+# inst, steps: 24 B), the instance table once and each distinct BLAS row once.
+# Its per-round instance scan is this design's choice, not counted.
+OPAQUE_ROUND_OPS, OPAQUE_RAY_BYTES = 36, 29 + 24
 # The bistro's render configuration (BASELINE config #5,
 # scripts/baseline_configs.py:74-75, 93-97), at the main path's size.
 BISTRO_CFG = dict(max_depth=4, max_samples=1, hdr_multiplier=1.0, firefly_clamp=10.0,
@@ -127,6 +161,9 @@ BISTRO_CFG = dict(max_depth=4, max_samples=1, hdr_multiplier=1.0, firefly_clamp=
 # operations in the same order with the same device math functions.
 SHADE_RTOL, SHADE_ATOL, SHADE_MASK_SHARE = 1e-5, 1e-6, 0.9999
 SMALL_ATRIUM = dict(bays_x=2, bays_z=2, column_segments=16, column_rows=12)
+# The single-level main path's kernels (LAUNCHES keys at width 16): modes a
+# and b over the opaque tree, the alpha rounds over the alpha tree.
+ATRIUM_KERNELS = ("closest", "any", "alpha_rounds")
 # Kernel vs twin: the same float32 operations in the same order, rounded
 # per operation on both sides (nvcc -fmad=false); t/u/v within a few ulp.
 RTOL, ATOL = 1e-5, 1e-5
@@ -389,13 +426,9 @@ def first_candidates(acc, subset, o, d, t_max, n):
     their instance's object space; ``n`` of the rays that have one (cycled
     when fewer do). Returns (origin, direction, t_max, root0, share of rays
     with a candidate)."""
-    import dataclasses
-
     from vk_raytrace_torch.ops import tlas
 
-    view = dataclasses.replace(acc.inst, aabb_min=getattr(acc, f"inst_aabb_{subset}_min"),
-                               aabb_max=getattr(acc, f"inst_aabb_{subset}_max"))
-    mask = acc.inst_opaque if subset == "opq" else acc.inst_alpha
+    _, roots, view, mask = tlas._subset(acc, subset)
     entry = tlas._instance_slab(view, o, d, t_max, mask)
     r = o.shape[0]
     _, nid = tlas._next_candidate(entry, torch.full((r,), tlas._NEG, device=o.device),
@@ -404,85 +437,172 @@ def first_candidates(acc, subset, o, d, t_max, n):
     share = sel.numel() / r
     sel = sel[torch.arange(n, device=o.device) % sel.numel()]
     oo, dd = tlas._transform_rays(acc.inst, nid[sel], o[sel], d[sel])
-    roots = torch.clamp(getattr(acc, f"mesh_root_{subset}"), min=0)
     root0 = roots[acc.inst.mesh_id[nid[sel]]].to(torch.int32)
     return oo.contiguous(), dd.contiguous(), t_max[sel].contiguous(), root0.contiguous(), share
 
 
-def alpha_machine_case(name, acc, pack, o, d, t_max, seed, act, any_hit, card):
-    """Phase 17: the alpha machine kernel on these world rays against the
-    round loop driving the per-round kernel and against the fully plain
-    round loop, exact on tri/inst/seed/steps (t/u/v within RTOL/ATOL); the
-    kernel timed (CUDA events), the round loop's wall (CUDA events, which
-    span its host syncs) and device time (profiler), the plain loop once on
-    the host clock; the bound counted from the rows, rounds and candidates
-    of the plain run. Returns ((max |err|, (ms, plain_ms), bound), the
-    per-round kernel's launches in one round-loop call)."""
+def warp_rounds(rounds):
+    """How a machine's rounds spread over its warps (a thread per ray, 32
+    consecutive rays a warp): (mean rounds per ray, mean of each warp's
+    most rounds, the share of a warp's lane-rounds that do work)."""
+    r = rounds.double()
+    w = torch.nn.functional.pad(r, (0, (-r.numel()) % 32)).view(-1, 32)
+    wmax = w.amax(dim=1)
+    return float(r.mean()), float(wmax.mean()), float(w.sum() / (32 * wmax).sum().clamp(min=1))
+
+
+def machine_case(name, planar, kernel, loop, key, loop_key, exact, work_bytes_ops, card):
+    """A round machine kernel (``kernel()``, one launch of ``key``) against
+    its round loop driving the per-round kernel (``loop()``, launches of
+    ``loop_key``) and against the fully plain round loop (``loop(trav=the
+    twin, rounds=...)``): the output fields ``exact`` equal, the others
+    (t, u, v) within RTOL/ATOL. The kernel is timed (CUDA events), the round
+    loop's wall (CUDA events, which span its host syncs) and device time
+    (profiler), the plain loop once on the host clock; the bound is counted
+    by ``work_bytes_ops(seen rows, rounds per ray, candidates, plain outputs)``
+    from the plain run, which also gives the rounds per warp. Returns
+    ((max |err|, (ms, plain_ms), bound), the per-round kernel's launches in
+    one round-loop call)."""
     import chip_profile
+    from vk_raytrace_torch import travbench as tb
+    from vk_raytrace_torch.ops import traverse_fused as tf
+
+    before = dict(tf.LAUNCHES)
+    kern = kernel()
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES[key] == before[key] + 1 and tf.LAUNCHES[loop_key] == before[loop_key], (
+        f"{name}: the pass did not run as one {key} launch")
+    looped = loop()
+    torch.cuda.synchronize()
+    loop_launches = tf.LAUNCHES[loop_key] - before[loop_key]
+    seen = torch.zeros(planar.rows.shape[0], dtype=torch.int8, device=planar.rows.device)
+    cands = [0]
+
+    def plain_trav(planar, o, d, tm, active, mode, cull, root0=None):
+        out = tf._traverse_plain(planar, o, d, tm, active, mode, cull, seen, root0=root0)
+        cands[0] += int((out[1] >= 0).sum())
+        return out
+
+    n = kern[0].shape[0]
+    rounds = torch.zeros(n, dtype=torch.int32, device=kern[0].device)
+    t0 = time.perf_counter()
+    plain = loop(trav=plain_trav, rounds=rounds)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+
+    def check(what, a, b):
+        for k in range(len(a)):
+            if k in exact:
+                assert torch.equal(a[k], b[k]), f"{name}: output {k} differs from the {what}"
+            else:
+                torch.testing.assert_close(a[k], b[k], rtol=RTOL, atol=ATOL)
+        return max(float((a[k] - b[k]).abs().max()) for k in range(len(a)) if k not in exact)
+
+    err = max(check("round loop", kern, looped), check("plain round loop", kern, plain))
+    ms = tb.cuda_time(kernel, 20)
+    loop_ms = tb.cuda_time(loop, 3)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        loop()
+        torch.cuda.synchronize()
+    events, _ = chip_profile.device_events(prof)
+    loop_busy = chip_profile.busy_us(events) / 1e3
+    n_bytes, n_ops = work_bytes_ops(seen, rounds, cands[0], plain)
+    bnd = tb.bound(n_bytes, n_ops)
+    mean_r, warp_max, used = warp_rounds(rounds)
+    print(f"{name}: {n} rays, {int(rounds.sum())} rounds ({mean_r:.2f} per ray, the warps' most "
+          f"{warp_max:.2f} on average, {used:.3f} of the warps' lane-rounds used, at most "
+          f"{int(rounds.max())}), {cands[0]} candidates, hit {float((kern[1] >= 0).float().mean()):.4f}; "
+          f"exact vs round loop and plain loop, max |err| {err:.3g} -> OK; kernel {ms:.3f} ms "
+          f"(1 launch); round loop {loop_ms:.3f} ms wall, {loop_busy:.3f} ms device busy, "
+          f"{len(events)} device activities, {loop_launches} per-round launches; plain loop "
+          f"{plain_ms:.1f} ms; bound {bnd[0]:.4f} ms by {bnd[1]} ({n_bytes / 1e6:.1f} MB, "
+          f"{int((seen == 1).sum())} interior + {int((seen == 2).sum())} leaf rows of "
+          f"{planar.rows.shape[0]}, {n_ops / 1e9:.3f} Gop; {ms / bnd[0]:.1f}x the bound) ({card})",
+          flush=True)
+    return (err, (ms, plain_ms), bnd), loop_launches
+
+
+def alpha_machine_case(name, acc, pack, o, d, t_max, seed, act, any_hit, card):
+    """Phase 17: the alpha machine kernel on these world rays; see
+    :func:`machine_case`. Bound: MACHINE_* per ray, instance and candidate,
+    each distinct alpha BLAS row, and the rounds' nodes."""
     from vk_raytrace_torch import travbench as tb
     from vk_raytrace_torch.ops import tlas
     from vk_raytrace_torch.ops import traverse_fused as tf
 
     planar = acc.blas_planar_alp
     args = (acc, pack, o, d, t_max, seed, act, any_hit, not any_hit)
-    key_m = tf.launch_key("alpha_machine", planar.width)
-    key_c = tf.launch_key("candidate_roots", planar.width)
-    before = dict(tf.LAUNCHES)
-    kern = tlas._two_level_alpha_pass(*args)
-    torch.cuda.synchronize()
-    assert tf.LAUNCHES[key_m] == before[key_m] + 1 and tf.LAUNCHES[key_c] == before[key_c], (
-        f"{name}: the alpha pass did not run as one alpha machine launch")
-    loop = tlas._alpha_rounds(*args)
-    torch.cuda.synchronize()
-    loop_launches = tf.LAUNCHES[key_c] - before[key_c]
-    seen = torch.zeros(planar.rows.shape[0], dtype=torch.int8, device=o.device)
-    work = {"rounds": 0, "cands": 0}
-
-    def plain_trav(planar, o, d, tm, active, mode, cull, root0=None):
-        out = tf._traverse_plain(planar, o, d, tm, active, mode, cull, seen, root0=root0)
-        work["rounds"] += o.shape[0]
-        work["cands"] += int((out[1] >= 0).sum())
-        return out
-
-    t0 = time.perf_counter()
-    plain = tlas._alpha_rounds(*args, trav=plain_trav)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-
-    def check(what, a, b):
-        for k, field in ((1, "tri"), (4, "inst"), (5, "seed"), (6, "steps")):
-            assert torch.equal(a[k], b[k]), f"{name}: {field} differs from the {what}"
-        for k in (0, 2, 3):
-            torch.testing.assert_close(a[k], b[k], rtol=RTOL, atol=ATOL)
-        return max(float((a[k] - b[k]).abs().max()) for k in (0, 2, 3))
-
-    err = max(check("round loop", kern, loop), check("plain round loop", kern, plain))
-    ms = tb.cuda_time(lambda: tlas._two_level_alpha_pass(*args), 20)
-    loop_ms = tb.cuda_time(lambda: tlas._alpha_rounds(*args), 3)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        tlas._alpha_rounds(*args)
-        torch.cuda.synchronize()
-    events, _ = chip_profile.device_events(prof)
-    loop_busy = chip_profile.busy_us(events) / 1e3
     n, n_inst = o.shape[0], acc.inst.aabb_min.shape[0]
-    rounds, cands = work["rounds"], work["cands"]
-    nodes = float(plain[6].double().sum()) - rounds
-    rows_b, n_inner, n_leaf = tb.traversal_bytes(0, 0, seen, planar.width, "candidate")
-    n_bytes = n * MACHINE_RAY_BYTES + n_inst * MACHINE_INST_BYTES + rows_b + cands * MACHINE_CAND_BYTES
-    n_ops = (nodes * tb.ops_per_node(planar.width) + rounds * MACHINE_ROUND_OPS
-             + cands * MACHINE_CAND_OPS)
-    bnd = tb.bound(n_bytes, n_ops)
-    accepted = float((kern[1] >= 0).float().mean())
-    print(f"{name}: {n} rays ({float(act.float().mean()):.3f} active), {rounds} rounds "
-          f"({rounds / n:.2f} per ray, at most {tlas._A_MAX_ROUNDS}), {cands} candidates, "
-          f"accepted {accepted:.4f}, mean steps {float(kern[6].float().mean()):.2f}; exact vs "
-          f"round loop and plain loop, max |err| {err:.3g} -> OK; kernel {ms:.3f} ms (1 launch); "
-          f"round loop {loop_ms:.3f} ms wall, {loop_busy:.3f} ms device busy, "
-          f"{len(events)} device activities, {loop_launches} per-round launches; plain loop "
-          f"{plain_ms:.1f} ms; bound {bnd[0]:.4f} ms by {bnd[1]} ({n_bytes / 1e6:.1f} MB with "
-          f"{n_inner} interior + {n_leaf} leaf rows of {planar.rows.shape[0]}, "
-          f"{n_ops / 1e9:.3f} Gop; {ms / bnd[0]:.1f}x the bound) ({card})", flush=True)
-    return (err, (ms, plain_ms), bnd), loop_launches
+
+    def work(seen, rounds, cands, plain):
+        n_rounds = float(rounds.double().sum())
+        nodes = float(plain[6].double().sum()) - n_rounds
+        rows_b, _, _ = tb.traversal_bytes(0, 0, seen, planar.width, "candidate")
+        return (n * MACHINE_RAY_BYTES + n_inst * MACHINE_INST_BYTES + rows_b
+                + cands * MACHINE_CAND_BYTES,
+                nodes * tb.ops_per_node(planar.width) + n_rounds * MACHINE_ROUND_OPS
+                + cands * MACHINE_CAND_OPS)
+
+    return machine_case(
+        name, planar, lambda: tlas._two_level_alpha_pass(*args),
+        lambda **kw: tlas._alpha_rounds(*args, **kw), tf.launch_key("alpha_machine", planar.width),
+        tf.launch_key("candidate_roots", planar.width), (1, 4, 5, 6), work, card)
+
+
+def alpha_rounds_case(name, planar, pack, o, d, t_lim, seed, act, cull, card):
+    """Phase 18: the single-level alpha rounds kernel on these rays, with the
+    window the caller gives them (``traverse_alpha._alpha_rounds``: active,
+    a window past 0 and the root prefilter); see :func:`machine_case`.
+    Bound: ROUNDS_* per ray and round, MACHINE_CAND_* per candidate, each
+    distinct alpha row, and the rounds' nodes."""
+    from vk_raytrace_torch import travbench as tb
+    from vk_raytrace_torch.ops import traverse_alpha as ta
+    from vk_raytrace_torch.ops import traverse_fused as tf
+
+    need = act & (t_lim > 0.0) & tf.root_prefilter(planar, o, d, t_lim)
+    args = (planar, pack, o, d, t_lim, seed, need, cull)
+    n = o.shape[0]
+
+    def work(seen, rounds, cands, plain):
+        rows_b, _, _ = tb.traversal_bytes(0, 0, seen, planar.width, "candidate")
+        return (n * ROUNDS_RAY_BYTES + rows_b + cands * MACHINE_CAND_BYTES,
+                float(plain[5].double().sum()) * tb.ops_per_node(planar.width)
+                + float(rounds.double().sum()) * ROUNDS_ROUND_OPS + cands * MACHINE_CAND_OPS)
+
+    return machine_case(
+        name, planar, lambda: ta._rounds(*args), lambda **kw: ta._rounds_core(*args, **kw),
+        tf.launch_key("alpha_rounds", planar.width), tf.launch_key("candidate", planar.width),
+        (1, 4, 5), work, card)
+
+
+def opaque_machine_case(name, acc, subset, o, d, t_max, act, any_hit, card):
+    """Phase 19: the two-level opaque machine kernel on these world rays over
+    ``acc``'s ``subset`` ("opq" or "full", ``tlas._subset``); see
+    :func:`machine_case`. Bound: OPAQUE_* per ray and round,
+    MACHINE_INST_BYTES per instance, each distinct BLAS row, and the rounds'
+    nodes."""
+    from vk_raytrace_torch import travbench as tb
+    from vk_raytrace_torch.ops import tlas
+    from vk_raytrace_torch.ops import traverse_fused as tf
+
+    planar, roots, inst, mask = tlas._subset(acc, subset)
+    args = (planar, roots, inst, o, d, t_max, act, mask, not any_hit, any_hit)
+    mode = "any" if any_hit else "closest"
+    n, n_inst = o.shape[0], inst.aabb_min.shape[0]
+
+    def work(seen, rounds, cands, plain):
+        n_rounds = float(rounds.double().sum())
+        nodes = float(plain[5].double().sum()) - n_rounds
+        rows_b, _, _ = tb.traversal_bytes(0, 0, seen, planar.width, mode)
+        return (n * OPAQUE_RAY_BYTES + n_inst * MACHINE_INST_BYTES + rows_b,
+                nodes * tb.ops_per_node(planar.width) + n_rounds * OPAQUE_ROUND_OPS)
+
+    return machine_case(
+        name, planar,
+        lambda: tlas._two_level_opaque_pass(acc, subset, o, d, t_max, act, not any_hit, any_hit),
+        lambda **kw: tlas._two_level_pass(*args, **kw),
+        tf.launch_key("opaque_machine", planar.width), tf.launch_key(f"{mode}_roots", planar.width),
+        (1, 4, 5), work, card)
 
 
 def main():
@@ -625,7 +745,8 @@ def main():
     build_txt = ", ".join(f"{k} {v:.2f}" for k, v in build.items())
     print(f"warm-up frame {warm_s:.3f} s; frames {['%.4f' % s for s in frame_s]} s; "
           f"rays/frame {frame_rays}; launches {launches}")
-    assert all(launches[m] > 0 for m in tf.MODES), f"a traversal mode never launched: {launches}"
+    assert all(launches[m] > 0 for m in ATRIUM_KERNELS), f"a traversal kernel never launched: {launches}"
+    assert launches["candidate"] == 0, f"a per-round alpha launch ran: {launches}"
     assert np.isfinite(img).all() and np.isfinite(ldr).all(), "non-finite pixels"
     assert img.mean() > 0.0 and ldr.max() > 0.0, "black image"
     assert min(frame_rays) > 1920 * 1080, "fewer rays than primary rays"
@@ -687,7 +808,8 @@ def main():
     print(f"warm-up frame {f_warm_s:.3f} s; frames {['%.4f' % s for s in f_frame_s]} s; "
           f"rays/frame {f_frame_rays}; launches {f_launches}")
     assert f_launches["shade_bounce"] > 0, f"the shading kernel never launched: {f_launches}"
-    assert all(f_launches[m] > 0 for m in tf.MODES), f"a traversal mode never launched: {f_launches}"
+    assert all(f_launches[m] > 0 for m in ATRIUM_KERNELS), f"a traversal kernel never launched: {f_launches}"
+    assert f_launches["candidate"] == 0, f"a per-round alpha launch ran: {f_launches}"
     assert np.isfinite(f_img).all() and np.isfinite(f_ldr).all(), "fused: non-finite pixels"
     assert f_img.mean() > 0.0 and f_ldr.max() > 0.0, "fused: black image"
     assert min(f_frame_rays) > 1920 * 1080, "fused: fewer rays than primary rays"
@@ -828,9 +950,9 @@ def main():
                "renderer_s": b_renderer_s, **rb.build_times}
     print(f"warm-up frame {b_warm_s:.3f} s; frames {['%.4f' % s for s in b_frame_s]} s; "
           f"rays/frame {b_frame_rays}; launches {b_launches}")
-    want = ("closest_roots", "any_roots", "alpha_machine", "shade_bounce")
+    want = ("opaque_machine", "alpha_machine", "shade_bounce")
     assert all(b_launches[m] > 0 for m in want), f"a kernel never launched: {b_launches}"
-    assert b_launches["candidate_roots"] == 0, f"a per-round alpha launch ran: {b_launches}"
+    assert not any(b_launches[m] for m in tf.ROOT_MODES), f"a per-round launch ran: {b_launches}"
     assert np.isfinite(b_img).all() and np.isfinite(b_ldr).all(), "bistro: non-finite pixels"
     assert b_img.mean() > 0.0 and b_ldr.max() > 0.0, "bistro: black image"
     assert min(b_frame_rays) > 1920 * 1080, "bistro: fewer rays than primary rays"
@@ -908,7 +1030,7 @@ def main():
     def frames(r, what, want, refuse, beside):
         """Phase 15/16: warm-up and three frames of renderer ``r``; the kernels
         ``want`` must launch and ``refuse`` (width 16, and the per-round
-        alpha rounds) must not."""
+        kernels of the modes the machines run) must not."""
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         tf.reset_launches()
@@ -935,9 +1057,11 @@ def main():
     # ---- 15. the atrium main path at width 32 -------------------------------
     phase("main path, width 32")
     del g32
+    w16_keys = tf.MODES + tf.ROOT_MODES + ("alpha_machine", "alpha_rounds", "opaque_machine")
     r32 = R.Renderer(scene, cfg, device=dev, packed=bundle32, fused_shade=True)
     w_launches = frames(
-        r32, "atrium", [f"{m}_w32" for m in tf.MODES], tf.MODES + tf.ROOT_MODES + tf.MACHINE_KEYS,
+        r32, "atrium", [f"{m}_w32" for m in ATRIUM_KERNELS],
+        w16_keys + ("candidate_w32",) + tuple(f"{m}_w32" for m in tf.ROOT_MODES),
         f"{f_s_frame:.4f} s/frame, {f_mrays:.4f} Mrays/s, peak {f_peak_mb:.1f} MiB, "
         f"{float(np.mean(f_frame_rays)):.0f} rays/frame")
     del r32
@@ -946,8 +1070,8 @@ def main():
     phase("two-level main path, width 32")
     rb32 = R.Renderer(bscene32, b_cfg, device=dev, fused_shade=True)
     wb_launches = frames(
-        rb32, "bistro", ["closest_roots_w32", "any_roots_w32", "alpha_machine_w32"],
-        tf.MODES + tf.ROOT_MODES + ("candidate_roots_w32", "alpha_machine"),
+        rb32, "bistro", ["opaque_machine_w32", "alpha_machine_w32"],
+        w16_keys + tuple(f"{m}_w32" for m in tf.ROOT_MODES),
         f"{b_s_frame:.4f} s/frame, {b_mrays:.4f} Mrays/s, peak {b_peak_mb:.1f} MiB, "
         f"{float(np.mean(b_frame_rays)):.0f} rays/frame")
     del rb32
@@ -961,7 +1085,8 @@ def main():
     seed = torch.tensor(rng.integers(0, 2**32, n), device=dev)
     t_shadow = torch.tensor(rng.uniform(1.0, 60.0, n), dtype=torch.float32, device=dev)
     machine_res, loop_launches = {}, {}
-    for suffix, a in (("", b_inst.to(dev)), ("_w32", sc.instances)):
+    b_accs = (("", b_inst.to(dev)), ("_w32", sc.instances))
+    for suffix, a in b_accs:
         for any_hit in (False, True):
             tm = t_shadow if any_hit else t_far[:n]
             name = f"alpha_machine{'_any' if any_hit else ''}{suffix}"
@@ -970,52 +1095,81 @@ def main():
                 any_hit, card)
             key = f"candidate_roots{suffix}"
             loop_launches[key] = loop_launches.get(key, 0) + lau
-    del sc, a, b_pack
+    del sc, b_pack
 
-    kernels = [
-        {"name": f"traverse_{m}", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-         "launches": launches[m], "max_abs_err": errors[m], "ms": times[m][0],
-         "plain_ms": times[m][1], "bound_ms": bounds[m][0], "bound_by": bounds[m][1],
-         "library_ms": None}
-        for m in tf.MODES
-    ]
+    # ---- 18. the single-level alpha rounds against the round loops -----------
+    phase("alpha rounds vs round loops")
+    a_scene = scene.to(dev)
+    a_pack = make_alpha_pack(a_scene.materials, a_scene.atlas, a_scene.geometry.tri_material)
+    for suffix, bnd_ in (("", gbundle), ("_w32", bundle32.to(dev))):
+        t_open = tf.closest_hit_fused(bnd_.opaque_planar, oa, da).t
+        for any_hit in (False, True):
+            name = f"alpha_rounds{'_any' if any_hit else ''}{suffix}"
+            machine_res[name], lau = alpha_rounds_case(
+                name, bnd_.alpha_planar, a_pack, oa, da, t_short if any_hit else t_open, seed,
+                act, not any_hit, card)
+            key = f"candidate{suffix}"
+            loop_launches[key] = loop_launches.get(key, 0) + lau
+    del a_scene, a_pack, bnd_
+
+    # ---- 19. the two-level opaque rounds against the round loops -------------
+    phase("opaque machine vs round loops")
+    oc, dc = camera_rays(bcam_dev, 1920, 1080, n, rng, dev)
+    for suffix, a in b_accs:
+        for table, subset in (("", "opq"), ("_full", "full")):
+            for any_hit in (False, True):
+                name = f"opaque_machine{'_any' if any_hit else ''}{table}{suffix}"
+                machine_res[name], lau = opaque_machine_case(
+                    name, a, subset, oc, dc, t_near[:n] if any_hit else t_far[:n], act, any_hit,
+                    card)
+                key = f"{'any' if any_hit else 'closest'}_roots{suffix}"
+                loop_launches[key] = loop_launches.get(key, 0) + lau
+    del b_accs, a, oc, dc
+
+    def traverse_entry(m, lau, replaces):
+        """``launches``: the main path's count (``lau``). The per-round kernels
+        of the modes the machines run (mode c from the root, modes a/b/c with
+        roots) are off the main path, so theirs is 0; ``loop_launches`` gives
+        their launches in phases 17-19's round loops (one call each case)."""
+        entry = {"name": f"traverse_{m}", "route": "cuda", "source": SOURCE,
+                 "replaces": replaces, "launches": lau[m], "max_abs_err": errors[m],
+                 "ms": times[m][0], "plain_ms": times[m][1], "bound_ms": bounds[m][0],
+                 "bound_by": bounds[m][1], "library_ms": None}
+        if m in loop_launches:
+            entry["loop_launches"] = loop_launches[m]
+        return entry
+
+    kernels = [traverse_entry(m, launches, REPLACES) for m in tf.MODES]
     kernels.append(
         {"name": "shade_bounce", "route": "cuda", "source": SHADE_SOURCE,
          "replaces": SHADE_REPLACES, "launches": f_launches["shade_bounce"],
          "max_abs_err": shade_err, "ms": shade_ms, "plain_ms": shade_plain_ms,
          "bound_ms": shade_bound[0], "bound_by": shade_bound[1], "library_ms": None}
     )
-    # The per-round mode c with roots is off the main path: its launches are
-    # those of phase 17's round loops (one call each mode).
-    lau16 = {**b_launches, **loop_launches}
-    lau32 = {**wb_launches, **loop_launches}
-    kernels += [
-        {"name": f"traverse_{m}", "route": "cuda", "source": SOURCE, "replaces": ROOTS_REPLACES,
-         "launches": lau16[m], "max_abs_err": errors[m], "ms": times[m][0],
-         "plain_ms": times[m][1], "bound_ms": bounds[m][0], "bound_by": bounds[m][1],
-         "library_ms": None}
-        for m in tf.ROOT_MODES
-    ]
+    kernels += [traverse_entry(m, b_launches, ROOTS_REPLACES) for m in tf.ROOT_MODES]
     kernels.append(
         {"name": "shade_bounce_instanced", "route": "cuda", "source": SHADE_SOURCE,
          "replaces": SHADE_INST_REPLACES, "launches": b_launches["shade_bounce"],
          "max_abs_err": inst_err, "ms": inst_ms, "plain_ms": inst_plain_ms,
          "bound_ms": inst_bound[0], "bound_by": inst_bound[1], "library_ms": None}
     )
-
-    def traverse_entry(m, lau, replaces):
-        return {"name": f"traverse_{m}", "route": "cuda", "source": SOURCE, "replaces": replaces,
-                "launches": lau[m], "max_abs_err": errors[m], "ms": times[m][0],
-                "plain_ms": times[m][1], "bound_ms": bounds[m][0], "bound_by": bounds[m][1],
-                "library_ms": None}
-
     kernels += [traverse_entry(f"{m}_w32", w_launches, REPLACES) for m in tf.MODES]
-    kernels += [traverse_entry(f"{m}_w32", lau32, ROOTS_REPLACES) for m in tf.ROOT_MODES]
-    for key, lau in (("alpha_machine", b_launches), ("alpha_machine_w32", wb_launches)):
-        err, (ms, plain_ms), (b_ms, b_by) = machine_res[key]  # closest hit
-        err = max(err, machine_res[key.replace("machine", "machine_any")][0])
+    kernels += [traverse_entry(f"{m}_w32", wb_launches, ROOTS_REPLACES) for m in tf.ROOT_MODES]
+    for key, lau, replaces in (
+        ("alpha_machine", b_launches, MACHINE_REPLACES),
+        ("alpha_machine_w32", wb_launches, MACHINE_REPLACES),
+        ("alpha_rounds", launches, ROUNDS_REPLACES),
+        ("alpha_rounds_w32", w_launches, ROUNDS_REPLACES),
+        ("opaque_machine", b_launches, OPAQUE_REPLACES),
+        ("opaque_machine_w32", wb_launches, OPAQUE_REPLACES),
+    ):
+        # Times and bound: the closest-hit case (the opaque subset for the
+        # opaque machine); the error: the largest of all its cases.
+        err, (ms, plain_ms), (b_ms, b_by) = machine_res[key]
+        err = max(v[0] for k, v in machine_res.items()
+                  if k.startswith(key.replace("_w32", "")) and k.endswith("_w32") == key.endswith("_w32"))
         kernels.append({"name": key, "route": "cuda", "source": SOURCE,
-                        "replaces": MACHINE_REPLACES, "launches": lau[key], "max_abs_err": err,
+                        "replaces": replaces, "launches": lau[key], "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": None})
     for name, (s_err, ms, plain_ms, lib_ms, (b_ms, b_by)) in sort_res.items():

@@ -7,7 +7,9 @@ The traversal kernel against its plain twin (CPU) for modes a/b/c on the
 reduced atrium with banners and, with per-lane roots, on the small bistro's
 subset tables, at row widths 16 and 32; the child sort, the capped and
 no-gather entries and the two-level alpha machine against their plain
-versions (exact); the shading kernel
+versions (exact), the single-level alpha rounds and the two-level opaque
+machine against their round loops (exact on tri/inst/seed/steps); the
+shading kernel
 (single-level and instanced) against its plain version; and the render
 slices (atrium, bistro) on the card against the CPU. Kernel vs twin: same float32 operations in the same order, rounded
 per operation (nvcc -fmad=false), so ``tri`` and the hit masks are equal
@@ -295,6 +297,115 @@ def test_alpha_machine_matches_round_loop(bistro, width, any_hit):
         np.testing.assert_allclose(k[i].numpy(), plain[i].numpy(), rtol=1e-5, atol=1e-6)
     assert 0.05 < (plain[1] >= 0).float().mean() < 0.99
     assert (plain[5] != seed).any()
+
+
+def _pack_to(pack, dev):
+    import dataclasses
+
+    return dataclasses.replace(pack, rows=pack.rows.to(dev), alpha_plane=pack.alpha_plane.to(dev))
+
+
+def _cpu_and_cuda_outputs_equal(kern, plain, exact, what):
+    """Kernel outputs (on the card) against the loop's (on the CPU): the
+    fields ``exact`` equal, the rest (t, u, v) within rtol 1e-5 / atol 1e-6."""
+    k = [x.cpu() for x in kern]
+    for i in range(len(k)):
+        if i in exact:
+            assert torch.equal(k[i].long(), plain[i].long()), (what, i)
+        else:
+            np.testing.assert_allclose(k[i].numpy(), plain[i].numpy(), rtol=1e-5, atol=1e-6,
+                                       err_msg=f"{what} field {i}")
+
+
+@pytest.mark.parametrize("width", tf.WIDTHS)
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_alpha_rounds_kernel_matches_round_loop(scene, width, kind):
+    """The single-level alpha rounds kernel (one launch, every ray's rounds)
+    on the reduced atrium's rays toward its banners against the round loop
+    on the CPU (the plain version), with the alpha pack and without it:
+    tri, seed and steps exact, t/u/v within rtol 1e-5 / atol 1e-6; and
+    ``closest_hit_bundle`` / ``any_hit_bundle`` on the card launch it once
+    and the per-round candidate kernel never."""
+    _need_cuda()
+    from vk_raytrace_torch.ops import traverse_alpha as ta
+    from vk_raytrace_torch.ops import traverse_wide as tw
+
+    g, m, l, c, a = scene
+    small = R.build_scene(g, m, l, c, atlas=a).to("cpu")
+    bundle = build_accel_bundle(g, width=width).to("cpu")
+    pack = make_alpha_pack(small.materials, small.atlas, small.geometry.tri_material)
+    n = 4099
+    o, d = _rays(13, g, n, alpha=True)
+    rng = np.random.default_rng(14)
+    t_lim = torch.tensor(rng.uniform(1.0, 40.0, n), dtype=torch.float32)
+    seed = torch.tensor(rng.integers(0, 2**32, n))
+    need = torch.tensor(rng.random(n) < 0.95)
+    cull = kind == "closest"
+    cuda = lambda x: x.to("cuda")  # noqa: E731
+    planar = bundle.alpha_planar
+    key = tf.launch_key("alpha_rounds", width)
+    for pk in (pack, None):
+        plain = ta._rounds_core(planar, pk, o, d, t_lim, seed, need, cull)
+        before = tf.LAUNCHES[key]
+        kern = ta._rounds(planar.to("cuda"), None if pk is None else _pack_to(pk, "cuda"),
+                          cuda(o), cuda(d), cuda(t_lim), cuda(seed), cuda(need), cull)
+        torch.cuda.synchronize()
+        assert tf.LAUNCHES[key] == before + 1
+        _cpu_and_cuda_outputs_equal(kern, plain, (1, 4, 5), f"pack={pk is not None}")
+        assert 0.05 < (plain[1] >= 0).float().mean() < 0.99
+    assert (plain[4] == seed).all()  # the null pack draws nothing
+    before = dict(tf.LAUNCHES)
+    gb, gp = bundle.to("cuda"), _pack_to(pack, "cuda")
+    if kind == "closest":
+        tw.closest_hit_bundle(gb, gp, cuda(o), cuda(d), cuda(seed))
+    else:
+        tw.any_hit_bundle(gb, gp, cuda(o), cuda(d), cuda(t_lim), cuda(seed))
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES[key] == before[key] + 1
+    ck = tf.launch_key("candidate", width)
+    assert tf.LAUNCHES[ck] == before[ck]
+
+
+@pytest.mark.parametrize("width", tf.WIDTHS)
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_opaque_machine_matches_round_loop(bistro, width, any_hit):
+    """The two-level opaque machine kernel (one launch, every ray's opaque
+    rounds) on the small bistro against the round loop on the CPU, over
+    the opaque subsets (the alpha scenes' pass) and over the full table
+    (the pass without an alpha pack): tri, inst and steps exact, t/u/v
+    within rtol 1e-5 / atol 1e-6; closest hit with culling and any hit
+    without. Some origins carry -0 coordinates, which the machine must
+    move into object space unchanged."""
+    _need_cuda()
+    import chip_smoke
+
+    pool, inst, m, l, c, a = bistro
+    acc = R.build_instanced_scene(pool, inst, m, l, c, atlas=a, width=width).instances.to("cpu")
+    rng = np.random.default_rng(15 + width)
+    n = 4099
+    origins = rng.uniform([-50, 0.5, -10], [50, 8, 10], (n, 3))
+    origins[:64, 0] = -0.0
+    o, d = chip_smoke.rays_toward_instances(rng, pool, inst, rng.choice(len(inst.mesh_id), n),
+                                            origins, "cpu")
+    t_max = (torch.tensor(rng.uniform(0.5, 20.0, n), dtype=torch.float32) if any_hit
+             else torch.full((n,), tf.INF))
+    act = torch.tensor(rng.random(n) < 0.95)
+    key = tf.launch_key("opaque_machine", width)
+    cacc = acc.to("cuda")
+    for subset in ("opq", "full"):
+        planar, roots, view, mask = tlas._subset(acc, subset)
+        plain = tlas._two_level_pass(planar, roots, view, o, d, t_max, act, mask, not any_hit,
+                                     any_hit)
+        before = dict(tf.LAUNCHES)
+        kern = tlas._two_level_opaque_pass(cacc, subset, o.to("cuda"), d.to("cuda"),
+                                           t_max.to("cuda"), act.to("cuda"), not any_hit,
+                                           any_hit)
+        torch.cuda.synchronize()
+        assert tf.LAUNCHES[key] == before[key] + 1
+        roots_key = tf.launch_key("any_roots" if any_hit else "closest_roots", width)
+        assert tf.LAUNCHES[roots_key] == before[roots_key]
+        _cpu_and_cuda_outputs_equal(kern, plain, (1, 4, 5), subset)
+        assert 0.05 < (plain[1] >= 0).float().mean() < 0.99
 
 
 @pytest.mark.parametrize("nogather", [False, True])

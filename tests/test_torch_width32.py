@@ -1,15 +1,15 @@
 """Width-32 planar rows (1024 B, 16-triangle leaves) of the port against the
-reference's ``VKRT_WIDE=32`` builds, kernel (Pallas, interpret mode on the
-CPU), alpha rounds, two-level path and renderer; the city scene; and the
-child order against the reference's bitonic network.
+reference's ``VKRT_WIDE=32`` builds: the native builder, the city scene,
+the kernel's plain twin (the reference's kernel in Pallas interpret mode on
+the CPU), and the child order against the reference's bitonic network.
+The alpha rounds, the two-level path and the render slices at width 32 are
+in ``tests/test_torch_width32_{alpha,instanced,alpha_pass,render}.py``,
+which share this module's scenes.
 
 The reference picks the width from ``VKRT_WIDE`` when it builds; the port
 takes ``width=32``. Builds, scenes and sorted keys must be exact. Hits use
 the tie-aware compare and tolerances of ``tests/test_torch_traverse.py``
-(t rtol 1e-5 / atol 1e-6; a differing triangle only where t ties), the
-two-level ones those of ``tests/test_torch_instancing.py``, and the render
-slices the thresholds of ``tests/test_torch_render.py``: >= 99% of pixels
-within rtol 1e-3 / atol 1e-4, ray counts within 0.1%.
+(t rtol 1e-5 / atol 1e-6; a differing triangle only where t ties).
 """
 
 import dataclasses
@@ -20,31 +20,18 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_instancing import _alpha_pass_case, _case, _check_alpha_outcome, _check_alpha_pass
-from test_torch_instancing import _check_closest, _port_pool, _sphere_box, _trace
-from test_torch_instancing import _rays as _inst_rays
-from test_torch_traverse import N_RAYS, _banner_rays, _check_hits, _close_bary, _rays, _t
+from test_torch_traverse import N_RAYS, _check_hits, _close_bary, _rays, _t
 from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
 from vk_raytrace_tpu import render as ref_render
 from vk_raytrace_tpu import runtime as ref_runtime
 from vk_raytrace_tpu.models import procedural as ref_proc
-from vk_raytrace_tpu.models.schema import PBR_GLTF, RenderConfig as RefConfig
 from vk_raytrace_tpu.ops import bvh8 as ref_bvh8
-from vk_raytrace_tpu.ops import tlas as ref_tlas
 from vk_raytrace_tpu.ops import traverse_fused as ref_tf
-from vk_raytrace_tpu.ops import traverse_wide as ref_tw
-from vk_raytrace_tpu.ops.traverse import AlphaCtx as RefAlphaCtx
-from vk_raytrace_torch import render as port_render
 from vk_raytrace_torch import runtime as port_runtime
-from vk_raytrace_torch.convert import _conv, from_reference
+from vk_raytrace_torch.convert import from_reference
 from vk_raytrace_torch.models import procedural as port_proc
-from vk_raytrace_torch.models.instances import InstanceTable
-from vk_raytrace_torch.models.schema import RenderConfig
-from vk_raytrace_torch.ops import tlas
 from vk_raytrace_torch.ops import traverse_fused as port_tf
-from vk_raytrace_torch.ops import traverse_wide as port_tw
 from vk_raytrace_torch.ops.bvh8 import build_accel_bundle
-from vk_raytrace_torch.ops.traverse_wide import make_alpha_pack
 
 SMALL_ATRIUM = dict(bays_x=2, bays_z=2, column_segments=16, column_rows=12)
 
@@ -153,173 +140,6 @@ def test_twin_w32_matches_reference_kernel(scene32, mode, cull):
         same = hit.tri.numpy() == np.asarray(ref.tri)
         _close_bary(uvu.numpy()[same], np.asarray(ref_uvu)[same])
         _close_bary(uvv.numpy()[same], np.asarray(ref_uvv)[same])
-
-
-def test_alpha_rounds_w32_match_reference(scene32):
-    """Opaque hit, then the alpha rounds in front of it (``closest_hit_bundle``),
-    with the same seeds: accept masks and seeds exact."""
-    name, scene, packed, port_scene, bundle = scene32
-    o, d = _banner_rays(14, scene.geometry)
-    seed = np.random.default_rng(15).integers(0, 2**32, N_RAYS, dtype=np.uint64).astype(np.uint32)
-    ctx = RefAlphaCtx(materials=scene.materials, atlas=scene.atlas)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("VKRT_FUSED", "1")
-        ref, ref_seed = ref_tw.closest_hit_bundle(
-            packed, jnp.asarray(scene.geometry.tri_material), jnp.asarray(o), jnp.asarray(d),
-            seed=jnp.asarray(seed), alpha_ctx=ctx,
-        )
-    pack = make_alpha_pack(port_scene.materials, port_scene.atlas, port_scene.geometry.tri_material)
-    hit, out_seed = port_tw.closest_hit_bundle(bundle, pack, _t(o), _t(d),
-                                               _t(seed.astype(np.int64)))
-    np.testing.assert_array_equal(out_seed.numpy().astype(np.uint32), np.asarray(ref_seed))
-    _check_hits(hit.tri.numpy(), hit.t.numpy(), hit.u.numpy(), hit.v.numpy(),
-                ref.tri, ref.t, ref.u, ref.v)
-    alpha = (np.asarray(scene.geometry.tri_flags) & 2) != 0
-    on_alpha = alpha[np.maximum(hit.tri.numpy(), 0)] & (hit.tri.numpy() >= 0)
-    assert on_alpha.any() and (out_seed.numpy().astype(np.uint32) != seed).any()
-
-
-# ---------------------------------------------------------------------------
-# Two-level scenes at width 32
-# ---------------------------------------------------------------------------
-
-
-def _ref_case32(pool, inst, mats, atlas):
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("VKRT_WIDE", "32")
-        case = _case(pool, inst, mats, atlas)
-    assert case.acc.blas_planar.width == 32
-    return case
-
-
-@pytest.mark.parametrize("name", ["sphere_box", "bistro"])
-def test_instanced_w32_build_matches_reference(name):
-    """``build_instanced_accel(width=32)``: every planar table and root
-    table equals the reference's ``VKRT_WIDE=32`` build (leaf-ref fixup
-    ``(width/2) * base``)."""
-    if name == "bistro":
-        pool, inst, *_ = ref_proc.bistro_scene(detail=0.05)
-    else:
-        pool, inst = _sphere_box()
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("VKRT_WIDE", "32")
-        ref = ref_tlas.build_instanced_accel(pool, inst)
-    acc = tlas.build_instanced_accel(_port_pool(pool), _conv(InstanceTable, inst), width=32)
-    for f in ("blas_planar", "blas_planar_opq", "blas_planar_alp"):
-        r, p = getattr(ref, f), getattr(acc, f)
-        assert (r is None) == (p is None), f
-        if p is not None:
-            assert (p.width, p.stack_depth) == (32, r.stack_depth), f
-            assert np.array_equal(p.rows, np.asarray(r.rows)), f
-    for f in ("mesh_root_planar", "mesh_root_opq", "mesh_root_alp"):
-        r, p = getattr(ref, f), getattr(acc, f)
-        assert (r is None) == (p is None) and (p is None or np.array_equal(p, np.asarray(r))), f
-
-
-def test_instanced_w32_hits_equal_w16():
-    """The analog of the reference's width-32 instancing gate: a multi-mesh
-    pool gives the same hits at both widths."""
-    pool, inst = _sphere_box()
-    pool, inst = _port_pool(pool), _conv(InstanceTable, inst)
-    o, d, _ = _inst_rays(21, 1024, [-6, 2.5, -6], [6, 8, 6])
-    target = np.random.default_rng(22).uniform([-4, 0, -3], [4, 1.5, 3], (1024, 3))
-    d = (target - o).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    hits = {}
-    for w in (16, 32):
-        acc = tlas.build_instanced_accel(pool, inst, width=w).to("cpu")
-        assert acc.blas_planar.width == w
-        hits[w], _ = tlas.closest_hit_instanced(acc, None, torch.from_numpy(o), torch.from_numpy(d))
-    np.testing.assert_array_equal(hits[16].tri.numpy(), hits[32].tri.numpy())
-    np.testing.assert_array_equal(hits[16].inst.numpy(), hits[32].inst.numpy())
-    np.testing.assert_allclose(hits[16].t.numpy(), hits[32].t.numpy(), rtol=1e-6)
-    assert (hits[32].tri.numpy() >= 0).mean() > 0.3
-
-
-@pytest.mark.parametrize("alpha", [False, True])
-def test_bistro_w32_hits_match_reference(alpha):
-    """The small bistro at width 32, closest hit through the opaque rounds
-    and the alpha machine, against the reference's ``VKRT_WIDE=32`` path
-    with the same seeds."""
-    pool, inst, mats, _, _, atlas = ref_proc.bistro_scene(detail=0.05)
-    case = _ref_case32(pool, inst, mats, atlas)
-    o, d, s = _inst_rays(31 + alpha, 320, [-50, 0.5, -10], [50, 8, 10])
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("VKRT_FUSED", "1")
-        rh, rs, ph, ps = _trace(case, o, d, s, alpha, any_hit=False)
-    _check_closest(rh, ph)
-    np.testing.assert_array_equal(ps, rs)
-
-
-@pytest.mark.parametrize("scene", ["bistro", "stack0", "stack05"])
-@pytest.mark.parametrize("kind", ["closest", "any"])
-def test_alpha_pass_w32_matches_reference(scene, kind):
-    """The alpha pass alone at width 32 against the reference's
-    ``VKRT_WIDE=32`` machine (``tests/test_torch_instancing.py``'s cases:
-    the small bistro toward its foliage, the panel stack at the round cap)."""
-    port = _check_alpha_pass(*_alpha_pass_case(scene, 32, kind), kind)
-    _check_alpha_outcome(scene, port)
-
-
-# ---------------------------------------------------------------------------
-# Render slices at width 32
-# ---------------------------------------------------------------------------
-
-RENDER_CFG = dict(max_depth=4, max_samples=1, pbr_mode=PBR_GLTF, firefly_clamp=10.0,
-                  use_sun_sky=True)
-
-
-def _render_both(ref, packed, cfg, frames=2, first_frame=0):
-    """Step the reference renderer and the port's (CPU, the reference's
-    tables and width-32 trees) ``frames`` times; (images, ray counts)."""
-    scene, acc = from_reference(ref.scene, packed)
-    port = port_render.Renderer(
-        scene, RenderConfig(**{**cfg, "use_sun_sky": False, "sun_disk": True}), device="cpu",
-        packed=acc,
-    )
-    imgs, rays = [], []
-    for r in (ref, port):
-        r.frame = first_frame
-        rays.append([])
-        for _ in range(frames):
-            r.step()
-            rays[-1].append(r.last_rays)
-        imgs.append(np.asarray(r.accum if r is ref else r.accum.numpy()))
-    return imgs, rays
-
-
-def _check_render(imgs, rays, w, h):
-    ref_img, img = imgs
-    assert np.isfinite(img).all() and img.mean() > 0.0
-    share = np.isclose(img, ref_img, rtol=1e-3, atol=1e-4).all(-1).mean()
-    assert share >= 0.99, share
-    for r, p in zip(*rays):
-        assert abs(p - r) <= 1e-3 * r, rays
-    assert min(rays[1]) > w * h
-
-
-def test_render_w32_atrium_matches_reference(monkeypatch):
-    monkeypatch.setenv("VKRT_WIDE", "32")
-    monkeypatch.setenv("VKRT_FUSED", "1")
-    g, m, l, c, a = ref_proc.atrium_scene(**SMALL_ATRIUM)
-    cfg = dict(width=64, height=48, **RENDER_CFG)
-    ref = ref_render.Renderer(ref_render.build_scene(g, m, l, c, atlas=a), RefConfig(**cfg))
-    assert ref.packed.opaque_planar.width == 32 and ref.packed.alpha_planar.width == 32
-    _check_render(*_render_both(ref, ref.packed, cfg), 64, 48)
-
-
-def test_render_w32_bistro_matches_reference(monkeypatch):
-    """From frame 1 (jittered), as ``tests/test_torch_bistro.py`` does."""
-    monkeypatch.setenv("VKRT_WIDE", "32")
-    monkeypatch.setenv("VKRT_FUSED", "1")
-    pool, inst, mats, lights, cam, atlas = ref_proc.bistro_scene(detail=0.05)
-    cfg = dict(width=64, height=36, hdr_multiplier=1.0, full_mis=False, **RENDER_CFG)
-    ref = ref_render.Renderer(
-        ref_render.build_instanced_scene(pool, inst, mats, lights, cam, atlas=atlas),
-        RefConfig(**cfg),
-    )
-    assert ref.packed.blas_planar.width == 32
-    _check_render(*_render_both(ref, ref.packed, cfg, first_frame=1), 64, 36)
 
 
 # ---------------------------------------------------------------------------

@@ -30,15 +30,15 @@
 // union-box test; refs in such a table are absolute rows, so nothing else
 // changes.
 //
-// Three more entries:
-//   vkrt_alpha_machine: the two-level alpha machine of ops/tlas.py
-//     (_two_level_alpha_pass, whose rounds the TPU ran as one mode-c
-//     traversal with per-lane roots each, in a device-side loop over the
-//     whole batch) whole, one thread per ray: instance enumeration in
-//     entry order over the instance table held in shared memory, the ray
-//     transform, the candidate traversal of the instance's alpha BLAS (the
-//     same device function as vkrt_traverse) and the stochastic alpha
-//     test, round after round;
+// Five more entries:
+//   vkrt_alpha_rounds, vkrt_opaque_machine, vkrt_alpha_machine: the round
+//     machines (see "The round machines" below), each a host loop of
+//     traversal rounds run whole, one thread per ray: the single-level alpha
+//     candidate rounds of ops/traverse_alpha.py, and the two-level opaque and
+//     alpha rounds of ops/tlas.py (instance enumeration in entry order over
+//     the instance table held in shared memory, the ray transform, the
+//     traversal of the instance's BLAS and, for alpha, the stochastic test),
+//     all through the same per-node code as vkrt_traverse;
 //   vkrt_sort_children: the child order of interior rows alone (the
 //     counterpart of the TPU kernel's bitonic network _bitonic, which the
 //     reference unit-tests through its own pallas_call, tests/test_fused.py),
@@ -56,7 +56,7 @@
 // to within a few ulp and child order and leaf tie-breaks are the twin's.
 //
 // One library per row width: the wrapper builds this file twice, with
-// -DVKRT_WIDTH=16 and -DVKRT_WIDTH=32, in parallel (each holds 14 kernels).
+// -DVKRT_WIDTH=16 and -DVKRT_WIDTH=32, in parallel (each holds 22 kernels).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -392,6 +392,47 @@ __device__ __forceinline__ void trace(const float4* __restrict__ rows, const Ray
   out.steps = steps;
 }
 
+// The union box of the root row's valid children (rows from row 0).
+template <int W>
+__device__ __forceinline__ void root_union(const float4* __restrict__ rows, float (&rmin)[3],
+                                           float (&rmax)[3]) {
+  using P = Planar<W>;
+  rmin[0] = rmin[1] = rmin[2] = 3.0e38f;
+  rmax[0] = rmax[1] = rmax[2] = -3.0e38f;
+#pragma unroll
+  for (int g = 0; g < P::kG; ++g) {
+    const float4 bxm = rows[0 * P::kG + g], bym = rows[1 * P::kG + g];
+    const float4 bzm = rows[2 * P::kG + g], bxM = rows[3 * P::kG + g];
+    const float4 byM = rows[4 * P::kG + g], bzM = rows[5 * P::kG + g];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (f4get(bxm, k) <= f4get(bxM, k)) {
+        rmin[0] = fminf(rmin[0], f4get(bxm, k));
+        rmin[1] = fminf(rmin[1], f4get(bym, k));
+        rmin[2] = fminf(rmin[2], f4get(bzm, k));
+        rmax[0] = fmaxf(rmax[0], f4get(bxM, k));
+        rmax[1] = fmaxf(rmax[1], f4get(byM, k));
+        rmax[2] = fmaxf(rmax[2], f4get(bzM, k));
+      }
+    }
+  }
+}
+
+// Ray setup from the tree's root: the union box hit within (0, tmax).
+__device__ __forceinline__ bool enters_root(const Ray& y, const float (&rmin)[3],
+                                            const float (&rmax)[3], float tmax) {
+  float tn0, tf0;
+  slab(y, rmin[0], rmin[1], rmin[2], rmax[0], rmax[1], rmax[2], tn0, tf0);
+  return (tn0 <= tf0) && (tf0 >= 0.0f) && (tn0 < tmax);
+}
+
+// The guarded reciprocal of a ray's direction.
+__device__ __forceinline__ void set_inverse(Ray& y) {
+  y.ix = guard_inv(y.dx);
+  y.iy = guard_inv(y.dy);
+  y.iz = guard_inv(y.dz);
+}
+
 __device__ __forceinline__ Ray load_ray(const float* origin, const float* direction, int64_t r) {
   Ray y;
   y.ox = origin[3 * r];
@@ -400,9 +441,7 @@ __device__ __forceinline__ Ray load_ray(const float* origin, const float* direct
   y.dx = direction[3 * r];
   y.dy = direction[3 * r + 1];
   y.dz = direction[3 * r + 2];
-  y.ix = guard_inv(y.dx);
-  y.iy = guard_inv(y.dy);
-  y.iz = guard_inv(y.dz);
+  set_inverse(y);
   return y;
 }
 
@@ -429,29 +468,9 @@ traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origi
   if (root0 != nullptr) {
     cur = (active != nullptr && !active[r]) ? kTerm : root0[r];
   } else {
-    float rmin[3] = {3.0e38f, 3.0e38f, 3.0e38f};
-    float rmax[3] = {-3.0e38f, -3.0e38f, -3.0e38f};
-#pragma unroll
-    for (int g = 0; g < P::kG; ++g) {
-      const float4 bxm = rows[0 * P::kG + g], bym = rows[1 * P::kG + g];
-      const float4 bzm = rows[2 * P::kG + g], bxM = rows[3 * P::kG + g];
-      const float4 byM = rows[4 * P::kG + g], bzM = rows[5 * P::kG + g];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (f4get(bxm, k) <= f4get(bxM, k)) {
-          rmin[0] = fminf(rmin[0], f4get(bxm, k));
-          rmin[1] = fminf(rmin[1], f4get(bym, k));
-          rmin[2] = fminf(rmin[2], f4get(bzm, k));
-          rmax[0] = fmaxf(rmax[0], f4get(bxM, k));
-          rmax[1] = fmaxf(rmax[1], f4get(byM, k));
-          rmax[2] = fmaxf(rmax[2], f4get(bzM, k));
-        }
-      }
-    }
-    float tn0, tf0;
-    slab(y, rmin[0], rmin[1], rmin[2], rmax[0], rmax[1], rmax[2], tn0, tf0);
-    const bool hit_root = (tn0 <= tf0) && (tf0 >= 0.0f) && (tn0 < tmax);
-    if (!hit_root || (active != nullptr && !active[r])) cur = kTerm;
+    float rmin[3], rmax[3];
+    root_union<W>(rows, rmin, rmax);
+    if (!enters_root(y, rmin, rmax, tmax) || (active != nullptr && !active[r])) cur = kTerm;
   }
 
   // The no-gather variant reads this ray's own row at every step (the
@@ -471,17 +490,31 @@ traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origi
 }
 
 // ---------------------------------------------------------------------------
-// The two-level alpha machine (ops/tlas.py _two_level_alpha_pass), one thread
-// per ray for all of its rounds.
+// The round machines: each runs a host loop of rounds whole, one thread per
+// ray for all of its rounds. The TPU ran every round as one traversal of its
+// step kernel (vk_raytrace_tpu/ops/traverse_fused.py:644) inside a device-side
+// loop over the whole batch:
+//   alpha_rounds_kernel: the single-level alpha candidate rounds
+//     (ops/traverse_alpha.py _rounds_core; the reference's rounds reach the
+//     step kernel through vk_raytrace_tpu/ops/traverse_alpha.py:128);
+//   opaque_machine_kernel: the two-level opaque rounds, modes a and b with
+//     per-lane roots (ops/tlas.py _two_level_pass; the reference's rounds at
+//     vk_raytrace_tpu/ops/tlas.py:495-505);
+//   alpha_machine_kernel: the two-level alpha rounds (ops/tlas.py
+//     _two_level_alpha_pass; vk_raytrace_tpu/ops/tlas.py:695).
 //
-// What bounds it: the candidate traversals (dependent BLAS row reads and
-// divergence, as in vkrt_traverse) and the per-round instance scan; the
-// rounds' host loop (a gather, transform, launch, alpha test, candidate
-// argmin over an (R, I) entry table and a host sync per round) is gone. The
-// instance table (alpha-subset world box, world-to-object rows and BLAS root
-// of each instance, 76 B) sits in shared memory, where every thread of a
-// warp reads the same instance at once; the next candidate is the slab test
-// recomputed against it, so no per-ray entry table exists.
+// What bounds them: the traversals (dependent BLAS row reads and divergence,
+// as in vkrt_traverse), rays of one warp that need different numbers of
+// rounds, and in the two-level machines the per-round instance scan. What
+// the design removes is the host loop: per round a live-lane gather, the
+// window or transform, a launch, the alpha test or the candidate argmin over
+// an (R, I) entry table as tens of small torch ops, the scatters and a host
+// sync. A ray's state (window, best hit, seed, last instance) stays in
+// registers across its rounds. The two-level machines hold the instance
+// table (subset world box, world-to-object rows and BLAS root of each
+// instance, 76 B) in shared memory, where every thread of a warp reads the
+// same instance at once; the next candidate is the slab test recomputed
+// against it, so no per-ray entry table exists.
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxInstances = 512;  // tlas._DENSE_I_MAX: 38,912 B of shared memory
@@ -495,19 +528,43 @@ constexpr float kAdvMul = (float)(1.0 + 1e-4);
 constexpr float kAdvAbs = (float)1e-5;
 constexpr float kInv255 = (float)(1.0 / 255.0);
 
+// The instance table in shared memory: (I, 6) subset world boxes (min xyz,
+// max xyz), (I, 12) world-to-object rows, (I,) BLAS roots (-1: outside the
+// pass's instance mask).
+struct Instances {
+  const float* box;
+  const float* m;
+  const int* root;
+};
+
+// Every thread of the block copies its share, then waits for the rest: call
+// before any thread of the block returns.
+__device__ __forceinline__ Instances load_instances(float* smem, const float* inst_box,
+                                                    const float* inst_w2o,
+                                                    const int32_t* inst_root, int n_inst) {
+  float* s_box = smem;
+  float* s_m = smem + 6 * n_inst;
+  int* s_root = reinterpret_cast<int*>(smem + 18 * n_inst);
+  for (int k = threadIdx.x; k < 6 * n_inst; k += blockDim.x) s_box[k] = inst_box[k];
+  for (int k = threadIdx.x; k < 12 * n_inst; k += blockDim.x) s_m[k] = inst_w2o[k];
+  for (int k = threadIdx.x; k < n_inst; k += blockDim.x) s_root[k] = inst_root[k];
+  __syncthreads();
+  return Instances{s_box, s_m, s_root};
+}
+
 // The next instance after (last_t, last_id) in (entry t, id) order among
-// those whose alpha-subset box the world ray enters before both its window
-// end tmax0 and its best hit t_best: tlas._instance_slab's slab test and
+// those whose subset box the world ray enters before both its window end
+// tmax0 and its best hit t_best: tlas._instance_slab's slab test and
 // tlas._next_candidate's argmin (ties to the lowest id). Instances outside
-// the alpha mask have root -1. Returns the id (-1: none) and its entry t.
-__device__ __forceinline__ int next_instance(const float* s_box, const int* s_root, int n_inst,
-                                             const Ray& w, float tmax0, float t_best,
-                                             float last_t, int last_id, float& nt) {
+// the mask have root -1. Returns the id (-1: none) and its entry t.
+__device__ __forceinline__ int next_instance(const Instances& it, int n_inst, const Ray& w,
+                                             float tmax0, float t_best, float last_t,
+                                             int last_id, float& nt) {
   float best = kInf;
   int id = -1;
   for (int i = 0; i < n_inst; ++i) {
-    if (s_root[i] < 0) continue;
-    const float* b = s_box + 6 * i;
+    if (it.root[i] < 0) continue;
+    const float* b = it.box + 6 * i;
     float tn, tf;
     slab(w, b[0], b[1], b[2], b[3], b[4], b[5], tn, tf);
     const bool hit = (tn <= tf) && (tf >= 0.0f) && (tn < tmax0) && (tn < t_best);
@@ -519,6 +576,27 @@ __device__ __forceinline__ int next_instance(const float* s_box, const int* s_ro
   }
   nt = best;
   return id;
+}
+
+// tlas._transform_rays for one ray: the point (px, py, pz) and the world
+// direction of w into the object space of the world-to-object rows m (3x4),
+// the direction not renormalised, in mat3_vec's order ((m0 x + m1 y) + m2 z,
+// then + m3).
+__device__ __forceinline__ Ray to_object(const float* m, float px, float py, float pz,
+                                         const Ray& w) {
+  Ray y;
+  y.ox = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[0], px), __fmul_rn(m[1], py)),
+                             __fmul_rn(m[2], pz)), m[3]);
+  y.oy = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[4], px), __fmul_rn(m[5], py)),
+                             __fmul_rn(m[6], pz)), m[7]);
+  y.oz = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[8], px), __fmul_rn(m[9], py)),
+                             __fmul_rn(m[10], pz)), m[11]);
+  y.dx = __fadd_rn(__fadd_rn(__fmul_rn(m[0], w.dx), __fmul_rn(m[1], w.dy)), __fmul_rn(m[2], w.dz));
+  y.dy = __fadd_rn(__fadd_rn(__fmul_rn(m[4], w.dx), __fmul_rn(m[5], w.dy)), __fmul_rn(m[6], w.dz));
+  y.dz = __fadd_rn(__fadd_rn(__fmul_rn(m[8], w.dx), __fmul_rn(m[9], w.dy)),
+                   __fmul_rn(m[10], w.dz));
+  set_inverse(y);
+  return y;
 }
 
 // torch.remainder of integers: the sign of the divisor (size >= 1).
@@ -569,6 +647,135 @@ __device__ __forceinline__ bool alpha_accept(const float* __restrict__ pack, int
   return __fmul_rn((float)(bits >> 9), 1.0f / 8388608.0f) <= opacity;
 }
 
+// The single-level alpha rounds (traverse_alpha._rounds_core) for one ray:
+// round after round, the candidate traversal of the alpha tree from its root
+// over the window (t_lo, t_limit), then the stochastic test of the nearest
+// candidate (with a null pack every candidate passes and nothing is drawn).
+// Pass records it and stops, reject advances t_lo just past it and goes round
+// again, no candidate stops. A ray stops after max_rounds rounds.
+template <bool CULL, int MAXD, int W>
+__global__ void __launch_bounds__(128)
+alpha_rounds_kernel(const float4* __restrict__ rows, const float* __restrict__ origin,
+                    const float* __restrict__ direction, const float* __restrict__ t_limit,
+                    const uint8_t* __restrict__ active, const int64_t* __restrict__ seed_in,
+                    const float* __restrict__ pack, int64_t n_pack,
+                    const uint8_t* __restrict__ plane, int64_t n_plane, int64_t atlas_w,
+                    int64_t n_rays, int max_rounds, float* __restrict__ out_t,
+                    int32_t* __restrict__ out_tri, float* __restrict__ out_u,
+                    float* __restrict__ out_v, int64_t* __restrict__ out_seed,
+                    int32_t* __restrict__ out_steps) {
+  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_rays) return;
+
+  const Ray w = load_ray(origin, direction, r);
+  const float tlim = t_limit[r];
+  const int64_t seed0 = seed_in[r];
+  uint32_t seed = (uint32_t)seed0;
+  bool drew = false;
+  float rmin[3], rmax[3];
+  root_union<W>(rows, rmin, rmax);
+  float t_lo = 0.0f, t = kInf, u = 0.0f, v = 0.0f;
+  int tri = -1, steps = 0;
+  bool live = active == nullptr || active[r];
+  for (int round = 0; live && round < max_rounds; ++round) {
+    // The window start moved along the ray (o + d * t_lo, in torch's order;
+    // the direction and its reciprocal stay), the window end clamped at 0 as
+    // torch.clamp does it (NaN stays NaN, where fmaxf would give 0).
+    Ray y = w;
+    y.ox = __fadd_rn(w.ox, __fmul_rn(w.dx, t_lo));
+    y.oy = __fadd_rn(w.oy, __fmul_rn(w.dy, t_lo));
+    y.oz = __fadd_rn(w.oz, __fmul_rn(w.dz, t_lo));
+    const float left = __fsub_rn(tlim, t_lo);
+    const float win = left < 0.0f ? 0.0f : left;
+    TraceOut h;
+    trace<kCandidate, CULL, MAXD, W, false>(rows, y, win,
+                                            enters_root(y, rmin, rmax, win) ? 0 : kTerm, nullptr,
+                                            0, h);
+    const bool cand = h.tri >= 0;
+    bool passed = cand;
+    if (cand && pack != nullptr) {
+      passed = alpha_accept(pack, n_pack, plane, n_plane, atlas_w, h.tri, h.uvu, h.uvv, seed);
+      drew = true;
+    }
+    const float t_abs = __fadd_rn(t_lo, h.t);
+    if (passed) {
+      t = t_abs;
+      tri = h.tri;
+      u = h.u;
+      v = h.v;
+    }
+    steps += h.steps;
+    live = cand && !passed;
+    if (live) t_lo = __fadd_rn(__fmul_rn(t_abs, kAdvMul), kAdvAbs);
+  }
+  out_t[r] = t;
+  out_tri[r] = tri;
+  out_u[r] = u;
+  out_v[r] = v;
+  out_seed[r] = drew ? (int64_t)seed : seed0;
+  out_steps[r] = steps;
+}
+
+// The two-level opaque rounds (tlas._two_level_pass) for one ray: the
+// instances of the mask in (entry t, id) order, each traversed from its BLAS
+// root in its own object space with t_max = the best hit so far, in mode a
+// (closest, culling) or mode b (any, no culling: the first hit ends the ray).
+// Every round consumes an instance, so a ray ends within n_inst rounds.
+template <bool ANY, int MAXD, int W>
+__global__ void __launch_bounds__(128)
+opaque_machine_kernel(const float4* __restrict__ rows, const float* __restrict__ inst_box,
+                      const float* __restrict__ inst_w2o, const int32_t* __restrict__ inst_root,
+                      int n_inst, const float* __restrict__ origin,
+                      const float* __restrict__ direction, const float* __restrict__ t_max,
+                      const uint8_t* __restrict__ active, int64_t n_rays,
+                      float* __restrict__ out_t, int32_t* __restrict__ out_tri,
+                      float* __restrict__ out_u, float* __restrict__ out_v,
+                      int32_t* __restrict__ out_inst, int32_t* __restrict__ out_steps) {
+  extern __shared__ float smem[];
+  const Instances it = load_instances(smem, inst_box, inst_w2o, inst_root, n_inst);
+  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_rays) return;
+
+  const Ray w = load_ray(origin, direction, r);
+  const float tmax0 = t_max[r];
+  float t_best = tmax0, u = 0.0f, v = 0.0f, last_t = kNeg, nt;
+  int tri = -1, ibest = 0, steps = 0, last_id = -1;
+  int cid = next_instance(it, n_inst, w, tmax0, t_best, last_t, last_id, nt);
+  bool live = (active == nullptr || active[r]) && cid >= 0;
+  while (live) {
+    // The world origin itself goes into object space: o + d * 0 would make
+    // a -0 coordinate +0.
+    const Ray y = to_object(it.m + 12 * cid, w.ox, w.oy, w.oz, w);
+    TraceOut h;
+    trace<ANY ? kAny : kClosest, !ANY, MAXD, W, false>(rows, y, t_best, it.root[cid], nullptr,
+                                                       0, h);
+    if (h.tri >= 0) {
+      t_best = h.t;
+      tri = h.tri;
+      u = h.u;
+      v = h.v;
+      ibest = cid;
+    }
+    steps += h.steps + 1;
+    last_t = nt;
+    last_id = cid;
+    cid = next_instance(it, n_inst, w, tmax0, t_best, last_t, last_id, nt);
+    live = cid >= 0 && !(ANY && tri >= 0);  // any hit: the first hit occludes
+  }
+  out_t[r] = t_best;
+  out_tri[r] = tri;
+  out_u[r] = u;
+  out_v[r] = v;
+  out_inst[r] = ibest;
+  out_steps[r] = steps;
+}
+
+// The two-level alpha rounds (tlas._two_level_alpha_pass) for one ray: a
+// live ray holds a candidate instance and a window start t_lo inside it. A
+// round traverses the instance's alpha BLAS in candidate mode over
+// (t_lo, t_best); the nearest alpha surface takes its stochastic test: pass
+// records it and moves to the next instance, reject advances t_lo past it and
+// stays, no surface moves on. A ray stops after max_rounds rounds.
 template <bool CULL, bool ANY, int MAXD, int W>
 __global__ void __launch_bounds__(128)
 alpha_machine_kernel(const float4* __restrict__ rows, const float* __restrict__ inst_box,
@@ -583,13 +790,7 @@ alpha_machine_kernel(const float4* __restrict__ rows, const float* __restrict__ 
                      int32_t* __restrict__ out_inst, int64_t* __restrict__ out_seed,
                      int32_t* __restrict__ out_steps) {
   extern __shared__ float smem[];
-  float* s_box = smem;                // (I, 6): min xyz, max xyz
-  float* s_m = smem + 6 * n_inst;     // (I, 12): world_to_object rows
-  int* s_root = reinterpret_cast<int*>(smem + 18 * n_inst);
-  for (int k = threadIdx.x; k < 6 * n_inst; k += blockDim.x) s_box[k] = inst_box[k];
-  for (int k = threadIdx.x; k < 12 * n_inst; k += blockDim.x) s_m[k] = inst_w2o[k];
-  for (int k = threadIdx.x; k < n_inst; k += blockDim.x) s_root[k] = inst_root[k];
-  __syncthreads();
+  const Instances it = load_instances(smem, inst_box, inst_w2o, inst_root, n_inst);
   const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
 
@@ -598,35 +799,17 @@ alpha_machine_kernel(const float4* __restrict__ rows, const float* __restrict__ 
   uint32_t seed = (uint32_t)seed_in[r];
   float t_best = tmax0, u = 0.0f, v = 0.0f, last_t = kNeg, t_lo = 0.0f, nt;
   int tri = -1, ibest = 0, steps = 0, last_id = -1;
-  int cid = next_instance(s_box, s_root, n_inst, w, tmax0, t_best, last_t, last_id, nt);
+  int cid = next_instance(it, n_inst, w, tmax0, t_best, last_t, last_id, nt);
   bool live = (active == nullptr || active[r]) && cid >= 0;
   for (int round = 0; live && round < max_rounds; ++round) {
     // The window start moved along the world ray, then into the instance's
-    // object space (tlas._transform_rays: direction not renormalised).
-    const float* m = s_m + 12 * cid;
-    const float px = __fadd_rn(w.ox, __fmul_rn(w.dx, t_lo));
-    const float py = __fadd_rn(w.oy, __fmul_rn(w.dy, t_lo));
-    const float pz = __fadd_rn(w.oz, __fmul_rn(w.dz, t_lo));
-    Ray y;
-    y.ox = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[0], px), __fmul_rn(m[1], py)),
-                               __fmul_rn(m[2], pz)), m[3]);
-    y.oy = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[4], px), __fmul_rn(m[5], py)),
-                               __fmul_rn(m[6], pz)), m[7]);
-    y.oz = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[8], px), __fmul_rn(m[9], py)),
-                               __fmul_rn(m[10], pz)), m[11]);
-    y.dx = __fadd_rn(__fadd_rn(__fmul_rn(m[0], w.dx), __fmul_rn(m[1], w.dy)), __fmul_rn(m[2], w.dz));
-    y.dy = __fadd_rn(__fadd_rn(__fmul_rn(m[4], w.dx), __fmul_rn(m[5], w.dy)), __fmul_rn(m[6], w.dz));
-    y.dz = __fadd_rn(__fadd_rn(__fmul_rn(m[8], w.dx), __fmul_rn(m[9], w.dy)),
-                     __fmul_rn(m[10], w.dz));
-    y.ix = guard_inv(y.dx);
-    y.iy = guard_inv(y.dy);
-    y.iz = guard_inv(y.dz);
+    // object space.
+    const Ray y = to_object(it.m + 12 * cid, __fadd_rn(w.ox, __fmul_rn(w.dx, t_lo)),
+                            __fadd_rn(w.oy, __fmul_rn(w.dy, t_lo)),
+                            __fadd_rn(w.oz, __fmul_rn(w.dz, t_lo)), w);
     TraceOut h;
     trace<kCandidate, CULL, MAXD, W, false>(rows, y, fmaxf(__fsub_rn(t_best, t_lo), 0.0f),
-                                            s_root[cid], nullptr, 0, h);
-    // The nearest alpha surface in the window takes its stochastic test:
-    // pass records it and moves on, reject advances the window past it and
-    // stays in the instance, no surface moves on.
+                                            it.root[cid], nullptr, 0, h);
     const bool cand = h.tri >= 0;
     const bool passed =
         cand && alpha_accept(pack, n_pack, plane, n_plane, atlas_w, h.tri, h.uvu, h.uvv, seed);
@@ -645,7 +828,7 @@ alpha_machine_kernel(const float4* __restrict__ rows, const float* __restrict__ 
       last_t = nt;
       last_id = cid;
       t_lo = 0.0f;
-      cid = next_instance(s_box, s_root, n_inst, w, tmax0, t_best, last_t, last_id, nt);
+      cid = next_instance(it, n_inst, w, tmax0, t_best, last_t, last_id, nt);
     }
     live = cid >= 0 && !(ANY && tri >= 0);  // any hit: the first accepted surface occludes
   }
@@ -752,6 +935,32 @@ void launch_machine(const float* rows, const float* box, const float* w2o, const
       steps);
 }
 
+template <bool CULL, int MAXD>
+void launch_rounds(const float* rows, const float* o, const float* d, const float* t_limit,
+                   const uint8_t* active, const int64_t* seed, const float* pack, int64_t n_pack,
+                   const uint8_t* plane, int64_t n_plane, int64_t atlas_w, int64_t n,
+                   int max_rounds, float* t, int32_t* tri, float* u, float* v, int64_t* seed_out,
+                   int32_t* steps, cudaStream_t stream) {
+  const int threads = 128;
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  alpha_rounds_kernel<CULL, MAXD, kWidth><<<blocks, threads, 0, stream>>>(
+      reinterpret_cast<const float4*>(rows), o, d, t_limit, active, seed, pack, n_pack, plane,
+      n_plane, atlas_w, n, max_rounds, t, tri, u, v, seed_out, steps);
+}
+
+template <bool ANY, int MAXD>
+void launch_opaque(const float* rows, const float* box, const float* w2o, const int32_t* root,
+                   int n_inst, const float* o, const float* d, const float* tmax,
+                   const uint8_t* active, int64_t n, float* t, int32_t* tri, float* u, float* v,
+                   int32_t* inst, int32_t* steps, cudaStream_t stream) {
+  const int threads = 128;
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  const size_t smem = (size_t)n_inst * kInstWords * sizeof(float);
+  opaque_machine_kernel<ANY, MAXD, kWidth><<<blocks, threads, smem, stream>>>(
+      reinterpret_cast<const float4*>(rows), box, w2o, root, n_inst, o, d, tmax, active, n, t,
+      tri, u, v, inst, steps);
+}
+
 }  // namespace
 
 extern "C" {
@@ -850,6 +1059,66 @@ int vkrt_alpha_machine(int cull, int any_hit, int width, const float* rows, int 
   else if (stack_depth <= 64) VKRT_MACHINE(false, true, 64);
   else VKRT_MACHINE(false, true, 128);
 #undef VKRT_MACHINE
+  return (int)cudaGetLastError();
+}
+
+// The single-level alpha rounds over n_rays rays, each to the end of its
+// rounds (at most max_rounds): rows, the alpha tree (this library's width)
+// with its stack bound; t_limit (n_rays,) the window ends; active may be null;
+// seed (n_rays,) uint32 values in int64. pack (n_pack, 16) the AlphaPack rows
+// and plane the atlas alpha channel (n_plane bytes, rows atlas_w wide), or a
+// null pack: every candidate passes and no seed moves. cull: backface culling
+// of the candidates. Outputs per ray: t (1e32 where no surface was accepted),
+// tri (-1 then), u, v, seed, steps (nodes over all rounds). Returns
+// cudaGetLastError() after launch.
+int vkrt_alpha_rounds(int cull, int width, const float* rows, int stack_depth,
+                      const float* origin, const float* direction, const float* t_limit,
+                      const uint8_t* active, const int64_t* seed, const float* pack,
+                      int64_t n_pack, const uint8_t* plane, int64_t n_plane, int64_t atlas_w,
+                      int64_t n_rays, int max_rounds, float* t, int32_t* tri, float* u, float* v,
+                      int64_t* seed_out, int32_t* steps, void* stream) {
+  if (width != kWidth || stack_depth > 128 || (pack != nullptr && (n_pack < 1 || n_plane < 1)))
+    return (int)cudaErrorInvalidValue;
+  if (n_rays <= 0) return 0;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+#define VKRT_ROUNDS(C, D)                                                                      \
+  launch_rounds<C, D>(rows, origin, direction, t_limit, active, seed, pack, n_pack, plane,    \
+                      n_plane, atlas_w, n_rays, max_rounds, t, tri, u, v, seed_out, steps, s)
+  if (cull && stack_depth <= 64) VKRT_ROUNDS(true, 64);
+  else if (cull) VKRT_ROUNDS(true, 128);
+  else if (stack_depth <= 64) VKRT_ROUNDS(false, 64);
+  else VKRT_ROUNDS(false, 128);
+#undef VKRT_ROUNDS
+  return (int)cudaGetLastError();
+}
+
+// The two-level opaque rounds over n_rays world rays, each to its last
+// instance: closest hit with culling (cull 1, any_hit 0) or any hit without
+// (cull 0, any_hit 1). rows: the BLAS table (this library's width) with its
+// stack bound; per instance (n_inst <= 512): inst_box (I, 6) the subset world
+// box (min, max), inst_w2o (I, 3, 4) world to object, inst_root (I,) the BLAS
+// root row, -1 outside the pass's mask; active may be null. Outputs per ray:
+// t (t_max where nothing was hit), tri (-1 then), u, v, inst, steps. Returns
+// cudaGetLastError() after launch.
+int vkrt_opaque_machine(int cull, int any_hit, int width, const float* rows, int stack_depth,
+                        const float* inst_box, const float* inst_w2o, const int32_t* inst_root,
+                        int n_inst, const float* origin, const float* direction,
+                        const float* t_max, const uint8_t* active, int64_t n_rays, float* t,
+                        int32_t* tri, float* u, float* v, int32_t* inst, int32_t* steps,
+                        void* stream) {
+  if (width != kWidth || stack_depth > 128 || n_inst < 0 || n_inst > kMaxInstances ||
+      (cull != 0) == (any_hit != 0))
+    return (int)cudaErrorInvalidValue;
+  if (n_rays <= 0) return 0;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+#define VKRT_OPAQUE(A, D)                                                                      \
+  launch_opaque<A, D>(rows, inst_box, inst_w2o, inst_root, n_inst, origin, direction, t_max,  \
+                      active, n_rays, t, tri, u, v, inst, steps, s)
+  if (!any_hit && stack_depth <= 64) VKRT_OPAQUE(false, 64);
+  else if (!any_hit) VKRT_OPAQUE(false, 128);
+  else if (stack_depth <= 64) VKRT_OPAQUE(true, 64);
+  else VKRT_OPAQUE(true, 128);
+#undef VKRT_OPAQUE
   return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,9 @@ Each mesh keeps one object-space planar BVH (16 or 32 wide); the meshes'
 tables are concatenated into one row table with absolute refs, and every
 instance is a 3x4 transform and a mesh id. The top level runs as candidate
 rounds: each ray picks its nearest not yet processed instance whose world
-box it enters before its current best hit (an (R, I) slab test, computed
-once per traversal), moves into that instance's object space and traverses
+box it enters before its current best hit (in the round loops an (R, I)
+slab test computed once per traversal; the kernels recompute each box's
+slab test per round), moves into that instance's object space and traverses
 the mesh's BVH from its own root with ``t_max = t_best`` (kernel modes
 a/b/c with per-lane roots, ``ops/traverse_fused.py``). World-space t is kept by
 not renormalising the object-space direction, so hits in different
@@ -16,13 +17,16 @@ t are ordered by instance id, so each overlap is visited once.
 With alpha-tested triangles the tables split per mesh into an opaque subset
 and an alpha subset: the opaque rounds run over every instance's opaque
 subset, then a second machine runs candidate rounds over the alpha subsets,
-one stochastic alpha test per round (:func:`_two_level_alpha_pass`). On the
-card that machine is one kernel launch (``vkrt_alpha_machine`` in
-``csrc/traverse.cu``: each thread runs its ray's rounds to the end, the
-instance table in shared memory); its plain version, the round loop
-:func:`_alpha_rounds`, runs the CPU tensors.
+one stochastic alpha test per round (:func:`_two_level_alpha_pass`).
 
-Every round of a loop runs on the lanes still live (gathered, then
+On the card each pass is one kernel launch (``csrc/traverse.cu``:
+``vkrt_opaque_machine`` for the opaque rounds, ``vkrt_alpha_machine`` for
+the alpha rounds): each thread runs its ray's rounds to the end, the
+instance table in shared memory, with no (R, I) entry table and no host
+sync. Their plain versions, the round loops :func:`_two_level_pass` and
+:func:`_alpha_rounds`, run the CPU tensors.
+
+In the loops every round runs on the lanes still live (gathered, then
 scattered back); results are lane for lane those of the reference's
 full-width rounds, since a lane's state changes only in the rounds where it
 is live.
@@ -44,8 +48,8 @@ from .math import mat3_vec
 from .traverse_fused import INF, Hit, PlanarScene
 
 _NEG = -3.0e38             # "before every entry t" for the enumeration
-# Instances up to which the rounds keep an (R, I) entry table and the alpha
-# machine kernel its instance table in shared memory (76 B each).
+# Instances up to which the round loops keep an (R, I) entry table and the
+# machine kernels their instance table in shared memory (76 B each).
 _DENSE_I_MAX = 512
 _SLAB_CHUNK = 1 << 15      # rays per chunk of the (R, I, 3) slab test
 # Bound on state-machine rounds in the alpha pass: instances overlapped
@@ -78,6 +82,12 @@ class InstancedAccel(Tables):
     inst_aabb_opq_max: object = None
     inst_aabb_alp_min: object = None
     inst_aabb_alp_max: object = None
+
+    def __post_init__(self):
+        # The round machine kernels' instance tables by subset, built at
+        # first use (``_machine_tables``); a copy (``to``, ``replace``)
+        # starts empty.
+        self._machine = {}
 
     def check_root_masks(self) -> None:
         """The passes clamp a subset root of -1 (mesh without triangles in
@@ -288,6 +298,15 @@ def _transform_rays(inst: InstanceTable, iid, origin, direction):
     return mat3_vec(w2o, origin) + w2o[:, :, 3], mat3_vec(w2o, direction)
 
 
+def _check_pair(cull, any_hit) -> None:
+    """The two-level passes run closest hit with culling or any hit
+    without, the pairs their kernels instantiate; checked before the device
+    dispatch, so that the CPU loops refuse what the card refuses."""
+    if bool(cull) == bool(any_hit):
+        raise ValueError("the two-level passes run closest hit with culling or any hit "
+                         f"without, not cull={cull} with any_hit={any_hit}")
+
+
 def _check_instance_count(inst: InstanceTable) -> None:
     n = inst.aabb_min.shape[0]
     if n > _DENSE_I_MAX:
@@ -302,11 +321,45 @@ def _check_instance_count(inst: InstanceTable) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _two_level_pass(planar, roots, inst, origin, direction, t_max, act, mask, cull, any_hit):
-    """Candidate rounds over the instances selected by ``mask`` (None =
-    all), traversing ``planar`` from ``roots[mesh]``. Returns per-lane
-    ``(t_best, tri, u, v, inst, steps)``; ``t_best`` is ``t_max`` where
-    nothing was hit."""
+def _subset(accel: InstancedAccel, subset: str):
+    """A pass's ``(planar, roots, inst, mask)`` over ``subset``: "full"
+    (every triangle, every instance), "opq" or "alp" (each mesh's opaque or
+    alpha subset, ``inst`` with the subset world boxes, the instances of
+    ``inst_opaque`` or ``inst_alpha``; a subset root of -1 clamps to 0, safe
+    under the mask, see ``check_root_masks``)."""
+    if subset == "full":
+        return accel.blas_planar, accel.mesh_root_planar, accel.inst, None
+    view = dataclasses.replace(accel.inst, aabb_min=getattr(accel, f"inst_aabb_{subset}_min"),
+                               aabb_max=getattr(accel, f"inst_aabb_{subset}_max"))
+    mask = accel.inst_opaque if subset == "opq" else accel.inst_alpha
+    return (getattr(accel, f"blas_planar_{subset}"),
+            torch.clamp(getattr(accel, f"mesh_root_{subset}"), min=0), view, mask)
+
+
+def _two_level_opaque_pass(accel, subset, origin, direction, t_max, act, cull, any_hit):
+    """Candidate rounds over the instances of ``subset`` ("full" or "opq",
+    :func:`_subset`), traversing each instance's BLAS from its mesh root in
+    mode a (closest hit, ``cull``) or b (``any_hit``, no culling). Returns
+    per-lane ``(t_best, tri, u, v, inst, steps)``; ``t_best`` is ``t_max``
+    where nothing was hit. CUDA tensors launch the opaque machine kernel
+    (or raise), CPU tensors run the round loop."""
+    _check_pair(cull, any_hit)
+    if origin.device.type == "cuda":
+        return _opaque_machine_cuda(accel, subset, origin, direction, t_max, act, any_hit)
+    if origin.device.type != "cpu":
+        raise ValueError(f"no opaque machine for device {origin.device}")
+    planar, roots, inst, mask = _subset(accel, subset)
+    return _two_level_pass(planar, roots, inst, origin, direction, t_max, act, mask, cull,
+                           any_hit)
+
+
+def _two_level_pass(planar, roots, inst, origin, direction, t_max, act, mask, cull, any_hit,
+                    trav=tf.traverse, rounds=None):
+    """The opaque rounds as a loop of rounds on the live lanes (the plain
+    version of the opaque machine kernel): each round's traversal is one
+    ``trav`` call (``traverse_fused.traverse``: the per-round kernel with
+    per-lane roots on CUDA tensors, the twin on CPU ones). ``rounds``, an
+    optional (R,) integer tensor, counts each ray's rounds."""
     r, dev = origin.shape[0], origin.device
     mode = "any" if any_hit else "closest"
     entry0 = _instance_slab(inst, origin, direction, t_max, mask)
@@ -321,13 +374,13 @@ def _two_level_pass(planar, roots, inst, origin, direction, t_max, act, mask, cu
     nt, nid = _next_candidate(entry0, last_t, last_id)
     live = torch.nonzero(act & (nid >= 0)).squeeze(1)
     while live.numel():
+        if rounds is not None:
+            rounds[live] += 1
         cid = nid[live]
         o_obj, d_obj = _transform_rays(inst, cid, origin[live], direction[live])
         root0 = roots[inst.mesh_id[cid]].to(torch.int32)
         tb = t_best[live]
-        t, h_tri, hu, hv, hs, _, _ = tf.traverse(
-            planar, o_obj, d_obj, tb, None, mode, cull, root0=root0
-        )
+        t, h_tri, hu, hv, hs, _, _ = trav(planar, o_obj, d_obj, tb, None, mode, cull, root0=root0)
         upd = h_tri >= 0
         tb = torch.where(upd, t, tb)
         t_best[live] = tb
@@ -362,6 +415,7 @@ def _two_level_alpha_pass(accel, pack, origin, direction, t_max, seed, act, any_
     seed, steps)``; ``tri`` is -1 (``t_best`` = ``t_max``) where no surface
     was accepted. CUDA tensors launch the alpha machine kernel (or raise),
     CPU tensors run the round loop."""
+    _check_pair(cull, any_hit)
     if origin.device.type == "cuda":
         return _alpha_machine_cuda(accel, pack, origin, direction, t_max, seed, act, any_hit,
                                    cull)
@@ -371,19 +425,17 @@ def _two_level_alpha_pass(accel, pack, origin, direction, t_max, seed, act, any_
 
 
 def _alpha_rounds(accel, pack, origin, direction, t_max, seed, act, any_hit, cull,
-                  trav=tf.traverse):
+                  trav=tf.traverse, rounds=None):
     """The alpha machine as a loop of rounds on the live lanes (the plain
     version of the alpha machine kernel): each round's candidate traversal
     is one ``trav`` call (``traverse_fused.traverse``: the per-round kernel
-    with per-lane roots on CUDA tensors, the twin on CPU ones)."""
+    with per-lane roots on CUDA tensors, the twin on CPU ones). ``rounds``,
+    an optional (R,) integer tensor, counts each ray's rounds."""
     from .traverse_alpha import _ADV_ABS, _ADV_REL, _alpha_accept
 
     r, dev = origin.shape[0], origin.device
-    view = dataclasses.replace(
-        accel.inst, aabb_min=accel.inst_aabb_alp_min, aabb_max=accel.inst_aabb_alp_max
-    )
-    roots = torch.clamp(accel.mesh_root_alp, min=0)  # safe under inst_alpha (check_root_masks)
-    entry0 = _instance_slab(view, origin, direction, t_max, accel.inst_alpha)
+    _, roots, view, mask = _subset(accel, "alp")
+    entry0 = _instance_slab(view, origin, direction, t_max, mask)
     t_best = t_max.clone()
     tri = torch.full((r,), -1, dtype=torch.int64, device=dev)
     u = torch.zeros(r, device=dev)
@@ -396,8 +448,10 @@ def _alpha_rounds(accel, pack, origin, direction, t_max, seed, act, any_hit, cul
     t_lo = torch.zeros(r, device=dev)
     nt, nid = _next_candidate(entry0, last_t, last_id)
     live = torch.nonzero(act & (nid >= 0)).squeeze(1)
-    rounds = 0
-    while live.numel() and rounds < _A_MAX_ROUNDS:
+    n_rounds = 0
+    while live.numel() and n_rounds < _A_MAX_ROUNDS:
+        if rounds is not None:
+            rounds[live] += 1
         cid = nid[live]
         tl = t_lo[live]
         d = direction[live]
@@ -430,7 +484,7 @@ def _alpha_rounds(accel, pack, origin, direction, t_max, seed, act, any_hit, cul
         cid = torch.where(reject, cid, nid2)
         nt[live] = torch.where(reject, nt[live], nt2)
         nid[live] = cid
-        rounds += 1
+        n_rounds += 1
         keep = cid >= 0
         if any_hit:
             keep = keep & (tri[live] < 0)  # the first accepted surface occludes
@@ -438,35 +492,74 @@ def _alpha_rounds(accel, pack, origin, direction, t_max, seed, act, any_hit, cul
     return t_best, tri, u, v, ibest, seed, steps
 
 
-def _machine_tables(accel: InstancedAccel):
-    """The alpha machine kernel's instance table: (I, 6) alpha-subset world
-    boxes (min, max), (I, 12) world-to-object rows and (I,) int32 alpha BLAS
-    roots, -1 for an instance outside the alpha mask."""
-    box = torch.cat([accel.inst_aabb_alp_min, accel.inst_aabb_alp_max], dim=1)
-    w2o = accel.inst.world_to_object.reshape(-1, 12)
-    roots = torch.clamp(accel.mesh_root_alp, min=0)[accel.inst.mesh_id.long()]
-    root = torch.where(accel.inst_alpha.bool(), roots, -1).to(torch.int32)
-    return box.float().contiguous(), w2o.float().contiguous(), root.contiguous()
+def _instance_tables(inst: InstanceTable, roots, mask):
+    """A round machine's instance table: (I, 6) world boxes (``inst``'s
+    ``aabb_min``, ``aabb_max``: the pass's subset boxes), (I, 12)
+    world-to-object rows and (I,) int32 BLAS roots ``roots[mesh]``, -1 for an
+    instance outside ``mask`` (None: every instance)."""
+    box = torch.cat([inst.aabb_min, inst.aabb_max], dim=1)
+    w2o = inst.world_to_object.reshape(-1, 12)
+    root = roots[inst.mesh_id.long()]
+    if mask is not None:
+        root = torch.where(mask.bool(), root, -1)
+    return box.float().contiguous(), w2o.float().contiguous(), root.to(torch.int32).contiguous()
+
+
+def _machine_tables(accel: InstancedAccel, subset: str):
+    """The machine kernels' instance table over ``subset`` (:func:`_subset`),
+    built once per accel and kept on it."""
+    if subset not in accel._machine:
+        _, roots, inst, mask = _subset(accel, subset)
+        accel._machine[subset] = _instance_tables(inst, roots, mask)
+    return accel._machine[subset]
+
+
+def _check_tables(tables, dev):
+    for name, x in zip(("instance boxes", "world_to_object", "roots"), tables):
+        if x.device != dev:
+            raise ValueError(f"{name}: on {x.device}, the rays on {dev}")
+
+
+def _opaque_machine_cuda(accel, subset, origin, direction, t_max, act, any_hit):
+    """One launch of ``vkrt_opaque_machine``: every ray's opaque rounds, to
+    its last instance, in one thread."""
+    planar = accel.blas_planar if subset == "full" else getattr(accel, f"blas_planar_{subset}")
+    lib = tf._load(planar.width)
+    r, dev = origin.shape[0], origin.device
+    act = tf._check_rays(lib, planar, origin, direction, t_max, act)
+    box, w2o, root = tables = _machine_tables(accel, subset)
+    _check_tables(tables, dev)
+    f = lambda: torch.empty(r, dtype=torch.float32, device=dev)  # noqa: E731
+    i32 = lambda: torch.empty(r, dtype=torch.int32, device=dev)  # noqa: E731
+    t, u, v, tri, ibest, steps = f(), f(), f(), i32(), i32(), i32()
+    if r == 0:  # nothing to launch, and so nothing to count
+        return t, tri.long(), u, v, ibest.long(), steps
+    err = lib.vkrt_opaque_machine(
+        int(not any_hit), int(bool(any_hit)), planar.width, planar.rows.data_ptr(),
+        planar.stack_depth, box.data_ptr(), w2o.data_ptr(), root.data_ptr(), root.shape[0],
+        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), tf._ptr(act), r,
+        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), ibest.data_ptr(),
+        steps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"opaque machine kernel launch failed: cudaError {err}")
+    tf.LAUNCHES[tf.launch_key("opaque_machine", planar.width)] += 1
+    return t, tri.long(), u, v, ibest.long(), steps
 
 
 def _alpha_machine_cuda(accel, pack, origin, direction, t_max, seed, act, any_hit, cull):
     """One launch of ``vkrt_alpha_machine``: every ray's rounds, to the
     end, in one thread (closest hit with culling or any hit without)."""
-    if bool(cull) == bool(any_hit):
-        raise ValueError("the alpha machine kernel runs closest hit with culling or any hit "
-                         f"without, not cull={cull} with any_hit={any_hit}")
     planar = accel.blas_planar_alp
     lib = tf._load(planar.width)
     r, dev = origin.shape[0], origin.device
     act = tf._check_rays(lib, planar, origin, direction, t_max, act)
     tf._check("seed", seed, (r,), torch.int64, dev)
-    box, w2o, root = _machine_tables(accel)
+    box, w2o, root = tables = _machine_tables(accel, "alp")
+    _check_tables(tables, dev)
     n_inst = root.shape[0]
     tf._check("pack rows", pack.rows, (pack.rows.shape[0], 16), torch.float32, dev)
     tf._check("alpha plane", pack.alpha_plane, (pack.alpha_plane.numel(),), torch.uint8, dev)
-    for name, x in (("instance boxes", box), ("world_to_object", w2o), ("roots", root)):
-        if x.device != dev:
-            raise ValueError(f"{name}: on {x.device}, the rays on {dev}")
     f = lambda: torch.empty(r, dtype=torch.float32, device=dev)  # noqa: E731
     i32 = lambda: torch.empty(r, dtype=torch.int32, device=dev)  # noqa: E731
     t, u, v, tri, inst, steps = f(), f(), f(), i32(), i32(), i32()
@@ -499,9 +592,8 @@ def _two_level(accel: InstancedAccel, pack, origin, direction, t_max, seed, cull
         seed = torch.zeros(r, dtype=torch.int64, device=dev)
     act = torch.ones(r, dtype=torch.bool, device=dev) if active is None else active
     if pack is None:
-        t_best, tri, u, v, ibest, steps = _two_level_pass(
-            accel.blas_planar, accel.mesh_root_planar, accel.inst, origin, direction, t_max,
-            act, None, cull, any_hit,
+        t_best, tri, u, v, ibest, steps = _two_level_opaque_pass(
+            accel, "full", origin, direction, t_max, act, cull, any_hit
         )
         return Hit(torch.where(tri >= 0, t_best, INF), tri, u, v, steps, ibest), seed
     if accel.blas_planar_opq is None or accel.blas_planar_alp is None:
@@ -509,12 +601,8 @@ def _two_level(accel: InstancedAccel, pack, origin, direction, t_max, seed, cull
             "alpha testing in an instanced scene whose triangles are all alpha-tested or "
             "all opaque needs the instance-level fallback, not ported yet (ROADMAP A10)"
         )
-    view = dataclasses.replace(
-        accel.inst, aabb_min=accel.inst_aabb_opq_min, aabb_max=accel.inst_aabb_opq_max
-    )
-    t_o, tri_o, u_o, v_o, i_o, st_o = _two_level_pass(
-        accel.blas_planar_opq, torch.clamp(accel.mesh_root_opq, min=0), view, origin,
-        direction, t_max, act, accel.inst_opaque, cull, any_hit,
+    t_o, tri_o, u_o, v_o, i_o, st_o = _two_level_opaque_pass(
+        accel, "opq", origin, direction, t_max, act, cull, any_hit
     )
     act_a = act & (tri_o < 0) if any_hit else act
     t_a, tri_a, u_a, v_a, i_a, seed, st_a = _two_level_alpha_pass(

@@ -36,6 +36,11 @@ Two more entries, each with its plain version beside it:
   row r of :func:`own_rows` at every step and starts over at the root where
   it would end, so the hits are wrong by design; the counterpart of
   ``scripts/stepbench.py``'s no-gather kernel).
+
+The same library holds the round machines, whose wrappers live beside
+their plain loops: the single-level alpha rounds
+(``ops/traverse_alpha.py``) and the two-level opaque and alpha rounds
+(``ops/tlas.py``), each one launch per call on the card.
 """
 
 from __future__ import annotations
@@ -62,13 +67,16 @@ W32_MODES = tuple(f"{m}_w32" for m in MODES + ROOT_MODES)
 CAPPED_KEYS = ("capped", "nogather", "capped_w32", "nogather_w32")
 SORT_KEYS = ("sort_children", "sort_children_w32")
 MACHINE_KEYS = ("alpha_machine", "alpha_machine_w32")
+ROUNDS_KEYS = ("alpha_rounds", "alpha_rounds_w32")
+OPAQUE_KEYS = ("opaque_machine", "opaque_machine_w32")
 
 # Kernel launches per entry, counted where the wrapper launches: traversal
 # per mode (``<mode>_roots`` with per-lane roots, ``_w32`` at width 32), the
-# capped and no-gather entries, the child sort and the two-level alpha
-# machine (``ops/tlas.py``).
+# capped and no-gather entries, the child sort, and the round machines: the
+# single-level alpha rounds (``ops/traverse_alpha.py``), the two-level opaque
+# rounds and the two-level alpha machine (``ops/tlas.py``).
 LAUNCHES = {m: 0 for m in (MODES + ROOT_MODES + W32_MODES + CAPPED_KEYS + SORT_KEYS
-                           + MACHINE_KEYS)}
+                           + MACHINE_KEYS + ROUNDS_KEYS + OPAQUE_KEYS)}
 
 
 def reset_launches() -> None:
@@ -388,6 +396,14 @@ def _load(width: int):
             p, p, p, p, p, p, p, p,
         ]
         lib.vkrt_alpha_machine.restype = i32
+        lib.vkrt_alpha_rounds.argtypes = [
+            i32, i32, p, i32, p, p, p, p, p, p, i64, p, i64, i64, i64, i32, p, p, p, p, p, p, p,
+        ]
+        lib.vkrt_alpha_rounds.restype = i32
+        lib.vkrt_opaque_machine.argtypes = [
+            i32, i32, i32, p, i32, p, p, p, i32, p, p, p, p, i64, p, p, p, p, p, p, p,
+        ]
+        lib.vkrt_opaque_machine.restype = i32
         lib.vkrt_traverse_max_stack.restype = i32
         _libs[width] = lib
     return _libs[width]
