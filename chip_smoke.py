@@ -13,6 +13,10 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
 3. traversal kernel against its plain torch twin on the card, for modes a
    (closest hit), b (any hit) and c (alpha candidates), on the full atrium's
    trees at 2^18 rays (the main path's pool width), and both timed there;
+   modes a and b (the persistent entry) bit for bit in t, tri, u, v and
+   steps, each printed with its registers, stack frame and spill (ptxas),
+   its resident blocks per SM, the deepest stack its rays reached and the
+   tree's stack bound;
 4. the render slice on the card against the same slice on the CPU twin:
    a small atrium at 128x72, depth 4, 1 spp, 2 frames, identical tables and
    random streams; then the same with the fused shading stage on the card
@@ -400,6 +404,9 @@ def traversal_case(name, planar, oo, dd, tm, mode, cull, card, root0=None, note=
     twin = tf._traverse_plain(planar, oo, dd, tm, None, mode, cull, seen, root0=root0)
     torch.cuda.synchronize()
     err = compare(mode, kern, twin)
+    persistent = root0 is None and mode != "candidate"  # the a/b entry from the root
+    if persistent:
+        assert tb.same_hits(kern, twin), f"{name}: t/tri/u/v/steps not bit-exact with the twin"
     hit_share = float((kern[1] >= 0).float().mean())
     steps = float(kern[4].float().mean())
     ms = tb.cuda_time(lambda: tf.traverse(planar, oo, dd, tm, mode=mode, cull=cull, root0=root0),
@@ -412,6 +419,12 @@ def traversal_case(name, planar, oo, dd, tm, mode, cull, card, root0=None, note=
     n_bytes, n_inner, n_leaf = tb.traversal_bytes(n, ray_b, seen, planar.width, mode)
     n_ops = float(kern[4].double().sum()) * tb.ops_per_node(planar.width)
     bnd = tb.bound(n_bytes, n_ops)
+    if persistent:
+        rep = tb.ab_report(planar.width, mode, oo.device)
+        note += (f" [persistent kernel: bit-exact; {rep['registers']} registers, "
+                 f"{rep['stack_frame']} B stack frame, {rep['spill_bytes']} B spill, "
+                 f"{rep['blocks_per_sm']} blocks of 128 per SM; deepest stack "
+                 f"{rep['deepest_stack']} of the tree's bound {planar.stack_depth}]")
     print(f"mode {name}{note}: {n} rays, hit share {hit_share:.4f}, mean nodes/ray {steps:.2f}, "
           f"max |err| {err:.3g} -> OK; kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound "
           f"{bnd[0]:.4f} ms by {bnd[1]} ({n_bytes / 1e6:.1f} MB with {n_inner} interior + "

@@ -9,7 +9,9 @@ subset tables, at row widths 16 and 32; the child sort, the capped and
 no-gather entries and the two-level alpha machine against their plain
 versions (exact), the single-level alpha rounds and the two-level opaque
 machine against their round loops (exact on tri/inst/seed/steps); the
-shading kernel
+persistent mode a/b entry on the full atrium at both widths (bit for bit,
+steps included), its occupancy and ptxas report, and its scratch reused
+across calls; the shading kernel
 (single-level and instanced) against its plain version; and the render
 slices (atrium, bistro) on the card against the CPU. Kernel vs twin: same float32 operations in the same order, rounded
 per operation (nvcc -fmad=false), so ``tri`` and the hit masks are equal
@@ -491,3 +493,82 @@ def test_bistro_slice_cuda_matches_cpu(bistro, fused):
     share = np.isclose(out["cuda"][0], out["cpu"][0], rtol=1e-3, atol=1e-4).all(-1).mean()
     assert share >= 0.99, share
     assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-3 * out["cpu"][1]
+
+
+@pytest.fixture(scope="module")
+def full_atrium():
+    """The full atrium's geometry and camera (built only where a card runs
+    the tests that take it)."""
+    geom, _, _, cam, _ = procedural.atrium_scene()
+    return geom, cam
+
+
+@pytest.mark.parametrize("width", tf.WIDTHS)
+@pytest.mark.parametrize("mode", ["closest", "any"])
+def test_persistent_ab_matches_twin_full_atrium(full_atrium, width, mode):
+    """Modes a/b from the root (the persistent entry) on the full atrium,
+    chip_smoke's phase-3 rays cut to 2^16: t, tri, u, v and steps equal the
+    twin's bit for bit; the deepest stack within the tree's bound."""
+    _need_cuda()
+    import chip_smoke as cs
+    from vk_raytrace_torch import travbench as tb
+    from vk_raytrace_torch.integrator.camera import with_aspect
+
+    geom, cam = full_atrium
+    planar = build_accel_bundle(geom, width=width).opaque_planar.to("cuda")
+    rng = np.random.default_rng(1234)
+    n = 1 << 16
+    oc, dc = cs.camera_rays(with_aspect(cam, 1920, 1080).to("cuda"), 1920, 1080, n // 2, rng,
+                            "cuda")
+    orr, drr = cs.random_rays(rng, np.asarray(geom.positions), n // 2, "cuda")
+    o, d = torch.cat([oc, orr]).contiguous(), torch.cat([dc, drr]).contiguous()
+    tm = (torch.full((n,), tf.INF, device="cuda") if mode == "closest" else
+          torch.tensor(rng.uniform(0.5, 20.0, n), dtype=torch.float32, device="cuda"))
+    cull = mode == "closest"
+    kern = tf.traverse(planar, o, d, tm, mode=mode, cull=cull)
+    twin = tf._traverse_plain(planar, o, d, tm, None, mode, cull)
+    torch.cuda.synchronize()
+    assert tb.same_hits(kern, twin)
+    assert 0 < tf.stack_reached(width, "cuda") <= planar.stack_depth
+
+
+@pytest.mark.parametrize("mode", ["closest", "any"])
+def test_persistent_ab_occupancy_and_report(mode):
+    """The occupancy entry: at least one block of 128 resides per SM, and
+    ptxas's report of the kernel is kept beside the library."""
+    _need_cuda()
+    from vk_raytrace_torch import cuda_build
+
+    for width in tf.WIDTHS:
+        assert tf.ab_occupancy(width, mode) >= 1
+        res = cuda_build.resources(f"traverse{width}",
+                                   f"persistent_traverse_kernelILi{tf._MODE_ID[mode]}E")
+        assert res["registers"] > 0
+
+
+def test_persistent_ab_scratch_reused(scene):
+    """Two calls on one stream share the entry's scratch (its ray counter is
+    zeroed by each call): the second call, on other rays, and a third on the
+    first rays give what each gives alone; a deeper tree grows the scratch."""
+    _need_cuda()
+    planar = build_accel_bundle(scene[0]).opaque_planar.to("cuda")
+    inf = lambda n: torch.full((n,), tf.INF, device="cuda")  # noqa: E731
+    o1, d1 = (x.cuda() for x in _rays(21, scene[0], 5000, alpha=False))
+    o2, d2 = (x.cuda() for x in _rays(22, scene[0], 3001, alpha=False))
+    first = tf.traverse(planar, o1, d1, inf(5000))
+    second = tf.traverse(planar, o2, d2, inf(3001))
+    third = tf.traverse(planar, o1, d1, inf(5000))
+    torch.cuda.synchronize()
+    from vk_raytrace_torch import travbench as tb
+
+    assert tb.same_hits(first, third)
+    assert tb.same_hits(second, tf._traverse_plain(planar, o2, d2, inf(3001), None, "closest",
+                                                   True))
+    key = (torch.device("cuda", torch.cuda.current_device()), 16,
+           torch.cuda.current_stream().cuda_stream)
+    before = tf._ab_scratch[key].numel()
+    deep = tf.PlanarScene(planar.rows, 100, 16)  # a stack bound past the shared entries
+    again = tf.traverse(deep, o1, d1, inf(5000))
+    torch.cuda.synchronize()
+    assert tf._ab_scratch[key].numel() > before
+    assert tb.same_hits(first, again)

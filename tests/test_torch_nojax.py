@@ -4,12 +4,17 @@ render one 32x32 frame on the CPU, and check that neither JAX nor the JAX
 package was ever imported; the same for the two-level path (instance
 tables, ``ops/tlas.py``, the small bistro through the fused stage) and for
 the width-32 builds (``build_bvh32``) with the traversal micro-bench
-(``vk_raytrace_torch.travbench``)."""
+(``vk_raytrace_torch.travbench``); and, statically, that no import
+statement of the package or of the chip scripts (``chip_smoke.py``,
+``chip_ab.py``, ``chip_profile.py``) names JAX or the JAX package, and that
+the chip scripts import without them."""
 
 import ast
 import os
 import subprocess
 import sys
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -133,3 +138,42 @@ def test_port_builds_only_its_own_sources():
                     offenders += [(path, ln) for ln in fh
                                   if ln.startswith("#include") and "vk_raytrace_tpu" in ln]
     assert not offenders, offenders
+
+
+def _jax_imports(path):
+    """Import statements of a module, at any depth, that name JAX or the JAX
+    package."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    return [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "vk_raytrace_tpu")]
+
+
+CHIP_SCRIPTS = ("chip_smoke.py", "chip_ab.py", "chip_profile.py")
+
+
+@pytest.mark.parametrize("where", ("vk_raytrace_torch",) + CHIP_SCRIPTS)
+def test_no_jax_import_statement(where):
+    """No module of the port and none of the chip scripts imports JAX or the
+    JAX package, not even inside a function (the chip machine runs them
+    without JAX)."""
+    path = os.path.join(ROOT, where)
+    files = [path] if where.endswith(".py") else [
+        os.path.join(d, f) for d, _, fs in os.walk(path) for f in fs if f.endswith(".py")]
+    offenders = [(f, n) for f in files for n in _jax_imports(f)]
+    assert not offenders, offenders
+
+
+def test_chip_scripts_import_without_jax():
+    """Importing the chip scripts in a fresh interpreter loads neither JAX
+    nor the JAX package."""
+    _run("import sys\n" + "".join(f"import {s[:-3]}\n" for s in CHIP_SCRIPTS) + """
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+assert "vk_raytrace_tpu" not in sys.modules
+print("ok")
+""")

@@ -1,5 +1,9 @@
 // BVH traversal over planar rows of width W = 16 or 32: one CUDA thread per
-// ray, looping to termination with a full-depth stack in local memory.
+// ray, looping to termination. Modes a and b from the root (the main path's
+// closest-hit and shadow rays) run in persistent warps with the stack in
+// shared memory (vkrt_traverse_ab, see "Modes a and b from the root"
+// below); every other entry runs trace<>, a thread per launched ray with a
+// full-depth stack in local memory.
 //
 // Replaces the TPU step kernel vk_raytrace_tpu/ops/traverse_fused.py
 // (_make_step_kernel, launched once per traversal step by _step). That
@@ -30,7 +34,8 @@
 // union-box test; refs in such a table are absolute rows, so nothing else
 // changes.
 //
-// Five more entries:
+// Six more entries:
+//   vkrt_traverse_ab: modes a and b from the root, persistent warps;
 //   vkrt_alpha_rounds, vkrt_opaque_machine, vkrt_alpha_machine: the round
 //     machines (see "The round machines" below), each a host loop of
 //     traversal rounds run whole, one thread per ray: the single-level alpha
@@ -56,7 +61,7 @@
 // to within a few ulp and child order and leaf tie-breaks are the twin's.
 //
 // One library per row width: the wrapper builds this file twice, with
-// -DVKRT_WIDTH=16 and -DVKRT_WIDTH=32, in parallel (each holds 22 kernels).
+// -DVKRT_WIDTH=16 and -DVKRT_WIDTH=32, in parallel (each holds 24 kernels).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -487,6 +492,240 @@ traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origi
     out_uvv[r] = h.uvv;
   }
   out_steps[r] = h.steps;
+}
+
+// ---------------------------------------------------------------------------
+// Modes a and b from the root (vkrt_traverse_ab): the main path's closest-hit
+// and shadow rays. Each ray visits the same nodes in the same order as in
+// trace<>, with the same float32 operations, so every output (steps
+// included) is the same bit for bit; what changes is how the work executes:
+//   * persistent warps (Aila & Laine, "Understanding the Efficiency of Ray
+//     Traversal on GPUs", HPG 2009): as many blocks as reside on the card; a
+//     warp takes rays from a global counter, one atomicAdd for all its idle
+//     lanes, once kRefill of them are idle, so lanes whose rays ended (any
+//     hit ends at the first hit) get new rays instead of waiting for the
+//     warp's slowest ray; it steps interior nodes until every lane is at a
+//     leaf or done, then leaves until every lane is at an interior node or
+//     done, so a warp does not run both kinds of node in one step;
+//   * the stack out of local memory: entries [0, kShStack) of each thread in
+//     shared memory, laid out by thread (entry d of thread t at
+//     d * blockDim.x + t, so the lanes of a warp hit 32 banks), deeper ones
+//     in the thread's column of a global spill that the wrapper allocates
+//     (exact: a ray keeps its whole stack, up to the tree's bound);
+//   * an interior row skips the slab tests and loads of a lane group of 4
+//     children with no valid child (most interior rows of the atrium's
+//     16-wide tree hold fewer than 8 children);
+//   * registers against warps: 96 a thread at width 16 (5 blocks of 128, 20
+//     warps, an SM), 128 at width 32 (4 blocks); 64 for 32 warps spilled and
+//     ran slower.
+// The child order stays trace<>'s insertion into a key/ref list: ranking
+// the W children in registers (each hit child's rank the number of hits j
+// with key_j < key_i, or key_j == key_i and j < i) costs W * (W - 1)
+// compares a row and ran 11-18% slower on the H100 (PERF.md). At width 16
+// the list lies in shared memory, laid out by thread like the stack, which
+// ran 9% faster than local memory; at width 32 its 256 B a thread would
+// take 32 KB a block from the L1, which ran 5% slower, so it stays in local
+// memory.
+// Which ray a lane carries never changes that ray's result. (The entries
+// that run trace<> keep its per-node code as it was.)
+// ---------------------------------------------------------------------------
+
+constexpr int kAbThreads = 128;
+constexpr int kAbMinBlocks = kWidth == 16 ? 5 : 4;  // __launch_bounds__: 96 / 128 registers
+// Stack entries a thread keeps in shared memory (8 KB a block, beside the
+// child list's 16 KB at width 16); the rays of the atrium reach depth 12 at
+// either width. (A build may set fewer, to run the spill on shallow trees:
+// the host-C++ test.)
+#ifndef VKRT_SHARED_STACK
+#define VKRT_SHARED_STACK 16
+#endif
+constexpr int kShStack = VKRT_SHARED_STACK;
+constexpr int kRefill = 8;  // a warp fetches rays once this many lanes idle
+// Scratch words before the spill: the ray counter, the deepest stack
+// reached, two spare (keeps the spill 16-byte aligned).
+constexpr int kScratchHead = 4;
+
+// One thread's stack: `sh` its first shared entry (stride blockDim.x),
+// `spill` its first spill entry (stride n_slots).
+struct Stack {
+  int* sh;
+  int stride;
+  int* spill;
+  int64_t n_slots;
+
+  __device__ __forceinline__ void put(int d, int v) const {
+    if (d < kShStack) sh[d * stride] = v;
+    else spill[(int64_t)(d - kShStack) * n_slots] = v;
+  }
+  __device__ __forceinline__ int get(int d) const {
+    return d < kShStack ? sh[d * stride] : spill[(int64_t)(d - kShStack) * n_slots];
+  }
+};
+
+// One thread's child list: entry j at key[j * stride], ref[j * stride].
+struct ChildList {
+  float* key;
+  int* ref;
+  int stride;
+};
+
+// Pop the next node (kTerm on an empty stack). lim: the tree's exact stack
+// bound, which no real traversal passes; pushes past it are dropped and
+// their pops end the ray, as in the twin.
+__device__ __forceinline__ int pop(const Stack& st, int& depth, int lim) {
+  if (depth == 0) return kTerm;
+  --depth;
+  return depth < lim ? st.get(depth) : kTerm;
+}
+
+// Interior row: order_children's hit children in ascending entry order (a
+// stable insertion into the list, after every key <= the new one), a lane
+// group with no valid child skipped; all but the nearest pushed
+// far-to-near, as trace<> pushes them. Returns the nearest, or pops where
+// no child is hit.
+template <int W>
+__device__ __forceinline__ int interior_step(const float4* __restrict__ row, const Ray& y,
+                                             float t_prune, const ChildList& cl, const Stack& st,
+                                             int& depth, int lim, int& deepest) {
+  constexpr int G = Planar<W>::kG;
+  float* const key = cl.key;
+  int* const ref = cl.ref;
+  const int ls = cl.stride;
+  int n = 0;
+#pragma unroll(Planar<W>::kUnrollG)
+  for (int g = 0; g < G; ++g) {
+    const float4 bxm = row[0 * G + g], bxM = row[3 * G + g];
+    if (!(bxm.x <= bxM.x || bxm.y <= bxM.y || bxm.z <= bxM.z || bxm.w <= bxM.w)) continue;
+    const float4 bym = row[1 * G + g], bzm = row[2 * G + g];
+    const float4 byM = row[4 * G + g], bzM = row[5 * G + g];
+    const float4 rf = row[6 * G + g];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float tn, tf;
+      slab(y, f4get(bxm, k), f4get(bym, k), f4get(bzm, k), f4get(bxM, k), f4get(byM, k),
+           f4get(bzM, k), tn, tf);
+      const bool hit = (f4get(bxm, k) <= f4get(bxM, k)) && (tn <= tf) && (tf >= 0.0f) &&
+                       (tn < t_prune);
+      if (hit) {
+        int j = n;
+        while (j > 0 && key[(j - 1) * ls] > tn) {
+          key[j * ls] = key[(j - 1) * ls];
+          ref[j * ls] = ref[(j - 1) * ls];
+          --j;
+        }
+        key[j * ls] = tn;
+        ref[j * ls] = (int)f4get(rf, k);
+        ++n;
+      }
+    }
+  }
+  if (n == 0) return pop(st, depth, lim);
+  for (int k = n - 1; k >= 1; --k) {
+    if (depth < lim) st.put(depth, ref[k * ls]);
+    ++depth;
+  }
+  deepest = max(deepest, depth);
+  return ref[0];
+}
+
+template <int MODE, bool CULL, int W>
+__global__ void __launch_bounds__(kAbThreads, kAbMinBlocks)
+persistent_traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origin,
+                           const float* __restrict__ direction, const float* __restrict__ t_max,
+                           const uint8_t* __restrict__ active, int n_rays, int lim,
+                           int* __restrict__ scratch, int64_t n_slots,
+                           float* __restrict__ out_t, int32_t* __restrict__ out_tri,
+                           float* __restrict__ out_u, float* __restrict__ out_v,
+                           int32_t* __restrict__ out_steps) {
+  using P = Planar<W>;
+  constexpr bool kListShared = W == 16;
+  __shared__ int sh_stack[kShStack * kAbThreads];
+  __shared__ float s_root[6];
+  __shared__ float sh_key[kListShared ? W * kAbThreads : 1];
+  __shared__ int sh_ref[kListShared ? W * kAbThreads : 1];
+  float l_key[kListShared ? 1 : W];
+  int l_ref[kListShared ? 1 : W];
+  if (threadIdx.x == 0) {
+    float rmin[3], rmax[3];
+    root_union<W>(rows, rmin, rmax);
+    for (int k = 0; k < 3; ++k) {
+      s_root[k] = rmin[k];
+      s_root[3 + k] = rmax[k];
+    }
+  }
+  __syncthreads();
+
+  const unsigned lanes = __ballot_sync(0xffffffffu, true);
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int64_t slot = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const Stack st{sh_stack + threadIdx.x, (int)blockDim.x, scratch + kScratchHead + slot, n_slots};
+  const ChildList cl = kListShared
+                           ? ChildList{sh_key + threadIdx.x, sh_ref + threadIdx.x, (int)blockDim.x}
+                           : ChildList{l_key, l_ref, 1};
+
+  Ray y;
+  int ray = -1, cur = kTerm, depth = 0, steps = 0, tri = -1, deepest = 0;
+  float t_best = 0.0f, u = 0.0f, v = 0.0f;
+  bool more = true;  // the counter may still hold rays (the same in every lane)
+  while (true) {
+    const unsigned idle = __ballot_sync(lanes, cur == kTerm);
+    if (!more && idle == lanes) break;
+    if (more && (idle == lanes || __popc(idle) >= kRefill)) {
+      int base = 0;
+      if (lane == 0) base = atomicAdd(scratch, __popc(idle));
+      base = __shfl_sync(lanes, base, 0);
+      more = (int64_t)base + __popc(idle) < n_rays;
+      const int64_t r = (int64_t)base + __popc(idle & below);
+      if (((idle >> lane) & 1u) && r < n_rays) {
+        ray = (int)r;
+        y = load_ray(origin, direction, r);
+        t_best = t_max[r];
+        tri = -1;
+        u = v = 0.0f;
+        steps = 0;
+        depth = 0;
+        const float rmin[3] = {s_root[0], s_root[1], s_root[2]};
+        const float rmax[3] = {s_root[3], s_root[4], s_root[5]};
+        const bool go = enters_root(y, rmin, rmax, t_best) && (active == nullptr || active[r]);
+        cur = go ? 0 : kTerm;
+      }
+    }
+    // Interior nodes until this lane is at a leaf or done.
+    while (cur >= 0) {
+      ++steps;
+      cur = interior_step<W>(rows + (int64_t)cur * P::kRowF4, y, t_best, cl, st, depth, lim,
+                             deepest);
+    }
+    // Leaves until this lane is at an interior node or done.
+    while (cur < 0 && cur != kTerm) {
+      ++steps;
+      const int vleaf = -cur - 1;
+      const int cnt = (vleaf & (P::kLT - 1)) + 1;
+      LeafSlots L;
+      leaf_tests<MODE, CULL, W>(rows + (int64_t)(vleaf >> P::kLeafShift) * P::kRowF4, cnt, y,
+                                t_best, t_best, L);
+      minfold<3>(L.tt_o, L.pay_o);
+      const bool found = L.tt_o[0] < t_best;
+      if (found) {
+        t_best = L.tt_o[0];
+        tri = (int)L.pay_o[0][0];
+        u = L.pay_o[1][0];
+        v = L.pay_o[2][0];
+      }
+      cur = MODE == kAny && found ? kTerm : pop(st, depth, lim);
+    }
+    if (ray >= 0 && cur == kTerm) {
+      out_t[ray] = tri >= 0 ? t_best : kInf;
+      out_tri[ray] = tri;
+      out_u[ray] = u;
+      out_v[ray] = v;
+      out_steps[ray] = steps;
+      ray = -1;
+    }
+  }
+  deepest = __reduce_max_sync(lanes, deepest);
+  if (lane == 0) atomicMax(scratch + 1, deepest);
 }
 
 // ---------------------------------------------------------------------------
@@ -961,9 +1200,75 @@ void launch_opaque(const float* rows, const float* box, const float* w2o, const 
       tri, u, v, inst, steps);
 }
 
+// The persistent a/b kernel of `mode` (closest with culling, any without),
+// or null for another mode.
+template <int W = kWidth>
+auto ab_kernel(int mode) -> decltype(&persistent_traverse_kernel<kClosest, true, W>) {
+  if (mode == kClosest) return &persistent_traverse_kernel<kClosest, true, W>;
+  if (mode == kAny) return &persistent_traverse_kernel<kAny, false, W>;
+  return nullptr;
+}
+
 }  // namespace
 
 extern "C" {
+
+// Blocks of the a/b kernel of `mode` (0 closest, 1 any) that reside on one
+// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1.
+int vkrt_traverse_ab_occupancy(int mode) {
+  const auto k = ab_kernel(mode);
+  int blocks = 0;
+  if (k == nullptr ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kAbThreads, 0) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// Threads of the a/b kernel of `mode` that reside on the current device
+// (the persistent grid), or -1.
+int64_t vkrt_traverse_ab_slots(int mode) {
+  const int blocks = vkrt_traverse_ab_occupancy(mode);
+  int dev = 0, sms = 0;
+  if (blocks <= 0 || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return -1;
+  return (int64_t)blocks * sms * kAbThreads;
+}
+
+// int32 words of the a/b entry's scratch for a tree with this stack bound
+// and n_slots resident threads: the head, then the stack entries past the
+// shared ones, a column per thread.
+int64_t vkrt_traverse_ab_words(int stack_depth, int64_t n_slots) {
+  const int deep = stack_depth > kShStack ? stack_depth - kShStack : 0;
+  return kScratchHead + (int64_t)deep * n_slots;
+}
+
+// Modes a (0: closest hit, backface culling) and b (1: any hit, no culling)
+// from the tree's root on n_rays rays (< 2^31): the persistent kernel on
+// min(n_slots, rays) threads. scratch: vkrt_traverse_ab_words(stack_depth,
+// n_slots) int32 words; this entry zeroes its head on the stream, and the
+// kernel leaves the deepest stack any ray reached in scratch[1]. `active`
+// may be null. Outputs as vkrt_traverse. Returns the first CUDA error.
+int vkrt_traverse_ab(int mode, int width, const float* rows, int stack_depth,
+                     const float* origin, const float* direction, const float* t_max,
+                     const uint8_t* active, int64_t n_rays, int* scratch, int64_t scratch_words,
+                     int64_t n_slots, float* t, int32_t* tri, float* u, float* v, int32_t* steps,
+                     void* stream) {
+  const auto k = ab_kernel(mode);
+  if (width != kWidth || k == nullptr || n_rays >= ((int64_t)1 << 31) || n_slots < kAbThreads ||
+      scratch_words < vkrt_traverse_ab_words(stack_depth, n_slots))
+    return (int)cudaErrorInvalidValue;
+  if (n_rays <= 0) return 0;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const cudaError_t err = cudaMemsetAsync(scratch, 0, kScratchHead * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t need = (n_rays + kAbThreads - 1) / kAbThreads;
+  const int64_t blocks = need < n_slots / kAbThreads ? need : n_slots / kAbThreads;
+  k<<<(unsigned)blocks, kAbThreads, 0, s>>>(
+      reinterpret_cast<const float4*>(rows), origin, direction, t_max, active, (int)n_rays,
+      stack_depth > 1 ? stack_depth : 1, scratch, n_slots, t, tri, u, v, steps);
+  return (int)cudaGetLastError();
+}
 
 // Largest stack depth any instantiation holds; the wrapper refuses trees
 // whose exact stack bound exceeds it.
@@ -972,14 +1277,17 @@ int vkrt_traverse_max_stack() { return 128; }
 // mode: 0 closest hit (backface culling), 1 any hit (no culling, first
 // accepted hit ends the ray), 2 nearest alpha candidate (culling per
 // `cull`); width: this library's VKRT_WIDTH. `active` may be null; `root0`
-// may be null (every ray starts at row 0 after the root union-box test) or
-// hold each ray's interior root row. Returns cudaGetLastError() after launch.
+// may be null (every ray starts at row 0 after the root union-box test;
+// modes 0 and 1 only with roots: from the root they run in vkrt_traverse_ab)
+// or hold each ray's interior root row. Returns cudaGetLastError() after
+// launch.
 int vkrt_traverse(int mode, int cull, int width, const float* rows, int stack_depth,
                   const float* origin, const float* direction, const float* t_max,
                   const uint8_t* active, const int32_t* root0, int64_t n_rays, float* t,
                   int32_t* tri, float* u, float* v, int32_t* steps, float* uvu, float* uvv,
                   void* stream) {
-  if (width != kWidth) return (int)cudaErrorInvalidValue;
+  if (width != kWidth || (root0 == nullptr && mode != kCandidate))
+    return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const Args a{rows, origin, direction, t_max, active, root0, n_rays, 0, 0,

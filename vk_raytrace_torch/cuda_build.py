@@ -12,6 +12,7 @@ native host runtime's g++ build shares); builds go into ``_build/``.
 from __future__ import annotations
 
 import os
+import re
 import subprocess
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -53,11 +54,35 @@ def compile_if_stale(out: str, src_path: str, cmd: list) -> str:
 def build(name: str, src: str, verbose: bool = False, defines=()) -> str:
     """Compile ``csrc/<src>`` into ``_build/lib<name>.so`` unless the library
     is newer than the source, with ``-D`` of each of ``defines`` (one source
-    can make several libraries). Returns the library path; with ``verbose``,
-    prints what ``-Xptxas -v`` reports (registers, spills, stack frame)."""
+    can make several libraries). What ``-Xptxas -v`` reports (registers,
+    spills, stack frame) is kept beside the library (:func:`resources`) and,
+    with ``verbose``, printed. Returns the library path."""
     out = lib_path(name)
     flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines), "-Xptxas", "-v"]
     log = compile_if_stale(out, os.path.join(CSRC, src), [nvcc(), *flags])
+    if log:
+        with open(out + ".ptxas", "w") as f:
+            f.write(log)
     if verbose and log:
         print(log.strip())
     return out
+
+
+def resources(name: str, entry: str) -> dict:
+    """What ptxas reported for the first kernel of library ``name`` whose
+    mangled name contains ``entry``: registers, stack frame, spill stores
+    and loads, static shared memory (bytes). Raises where the build kept no
+    report or it names no such kernel."""
+    with open(lib_path(name) + ".ptxas") as f:
+        log = f.read()
+    for chunk in log.split("Compiling entry function '")[1:]:
+        if entry not in chunk.split("'", 1)[0]:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", chunk)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        smem = re.search(r"(\d+) bytes smem", chunk)
+        return {"registers": int(regs.group(1)), "stack_frame": int(frame.group(1)),
+                "spill_stores": int(frame.group(2)), "spill_loads": int(frame.group(3)),
+                "smem": int(smem.group(1)) if smem else 0}
+    raise KeyError(f"no kernel {entry!r} in the ptxas report of lib{name}.so")

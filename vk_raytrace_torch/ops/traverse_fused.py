@@ -23,7 +23,12 @@ the instance's box test has already done.
 
 :func:`traverse` dispatches on the tensors' device: CPU tensors run
 :func:`_traverse_plain` (vectorised torch over all rays), CUDA tensors launch
-the kernel or raise. :data:`LAUNCHES` counts kernel launches per mode, with
+the kernel or raise. Modes a and b from the root launch the persistent entry
+``vkrt_traverse_ab`` (the same nodes and outputs, bit for bit; warps that
+fetch rays from a counter, the stack in shared memory with a spill in a
+scratch kept per device, width and stream): :func:`ab_occupancy` gives its
+resident blocks per SM and :func:`stack_reached` the deepest stack of its
+last call. :data:`LAUNCHES` counts kernel launches per mode, with
 per-lane roots under ``<mode>_roots`` and width-32 rows under ``..._w32``.
 
 Two more entries, each with its plain version beside it:
@@ -405,6 +410,16 @@ def _load(width: int):
         ]
         lib.vkrt_opaque_machine.restype = i32
         lib.vkrt_traverse_max_stack.restype = i32
+        lib.vkrt_traverse_ab_occupancy.argtypes = [i32]
+        lib.vkrt_traverse_ab_occupancy.restype = i32
+        lib.vkrt_traverse_ab_slots.argtypes = [i32]
+        lib.vkrt_traverse_ab_slots.restype = i64
+        lib.vkrt_traverse_ab_words.argtypes = [i32, i64]
+        lib.vkrt_traverse_ab_words.restype = i64
+        lib.vkrt_traverse_ab.argtypes = [
+            i32, i32, p, i32, p, p, p, p, i64, p, i64, i64, p, p, p, p, p, p,
+        ]
+        lib.vkrt_traverse_ab.restype = i32
         _libs[width] = lib
     return _libs[width]
 
@@ -451,10 +466,75 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+# Per (device, width, stream): the resident threads of each a/b kernel and
+# the scratch of ``vkrt_traverse_ab`` (its ray counter, the deepest stack a
+# ray reached, the stack spill), reused by every call on that stream.
+_ab_slots = {}
+_ab_scratch = {}
+
+
+def ab_occupancy(width: int, mode: str) -> int:
+    """Blocks of the persistent mode a/b kernel (``mode`` "closest" or
+    "any") that reside on one SM of the current device."""
+    blocks = _load(width).vkrt_traverse_ab_occupancy(_MODE_ID[mode])
+    if blocks <= 0:
+        raise RuntimeError(f"no occupancy for the {mode} kernel at width {width}")
+    return blocks
+
+
+def _ab_state(lib, planar, mode, dev, stream):
+    """The a/b kernel's resident threads and a scratch large enough for this
+    tree's stack bound."""
+    key = (dev, planar.width, stream)
+    if (key, mode) not in _ab_slots:
+        slots = lib.vkrt_traverse_ab_slots(_MODE_ID[mode])
+        if slots <= 0:
+            raise RuntimeError(f"no resident threads for the {mode} kernel")
+        _ab_slots[key, mode] = slots
+    slots = _ab_slots[key, mode]
+    words = lib.vkrt_traverse_ab_words(planar.stack_depth, slots)
+    scratch = _ab_scratch.get(key)
+    if scratch is None or scratch.numel() < words:
+        scratch = torch.empty(words, dtype=torch.int32, device=dev)
+        _ab_scratch[key] = scratch
+    return scratch, slots
+
+
+def stack_reached(width: int, device) -> int:
+    """The deepest stack a ray reached in the last mode a/b call from the
+    root at ``width`` on ``device``'s current stream (waits for it)."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    return int(_ab_scratch[(dev, width, torch.cuda.current_stream(dev).cuda_stream)][1])
+
+
+def _traverse_ab(lib, planar, origin, direction, t_max, active, mode):
+    """Modes a/b from the root: the persistent kernel ``vkrt_traverse_ab``."""
+    R, dev = origin.shape[0], origin.device
+    t, tri, u, v, steps, _, _ = _outputs(R, dev, False)
+    if R == 0:  # nothing to launch, and so nothing to count
+        return t, tri.long(), u, v, steps, None, None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch, slots = _ab_state(lib, planar, mode, dev, stream)
+    err = lib.vkrt_traverse_ab(
+        _MODE_ID[mode], planar.width, planar.rows.data_ptr(), planar.stack_depth,
+        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), _ptr(active), R,
+        scratch.data_ptr(), scratch.numel(), slots, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
+        v.data_ptr(), steps.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"traverse kernel launch failed: cudaError {err}")
+    LAUNCHES[launch_key(mode, planar.width)] += 1
+    return t, tri.long(), u, v, steps, None, None
+
+
 def _traverse_cuda(planar, origin, direction, t_max, active, mode, cull, root0=None):
     lib = _load(planar.width)
     R, dev = origin.shape[0], origin.device
     active = _check_rays(lib, planar, origin, direction, t_max, active)
+    if root0 is None and mode != "candidate":
+        return _traverse_ab(lib, planar, origin, direction, t_max, active, mode)
     if root0 is not None:
         if (root0.device != dev or root0.dtype != torch.int32 or tuple(root0.shape) != (R,)
                 or not root0.is_contiguous()):

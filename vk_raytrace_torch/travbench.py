@@ -24,8 +24,10 @@ default). Variants at each width:
 Each variant prints one JSON line: mean ms per call (CUDA events, after a
 warm-up) and its plain version's, mean nodes per ray, the distinct rows the
 rays visit, the call's bytes and operations and its bound on the card, and
-the card's name and power limit. Every kernel result is held against its
-plain version first (the no-gather and capped ones exactly) and the largest
+the card's name and power limit; ``full`` adds the persistent mode a kernel's
+registers, stack frame and spill bytes (ptxas), resident blocks per SM and
+the deepest stack a ray reached. Every kernel result is held against its
+plain version first, bit for bit (t, tri, u, v, steps), and the largest
 difference is printed (``max_abs_err``). It runs on the
 card unless given ``--device cpu``, where it runs the plain versions and
 times them on the host clock (``cpu_ms``; no device number).
@@ -40,6 +42,7 @@ import time
 
 import torch
 
+from . import cuda_build
 from .ops import traverse_fused as tf
 
 RAYS = 524288
@@ -161,8 +164,23 @@ def root_keys(planar, o, d):
     return keys, refs.contiguous()
 
 
-def _same(a, b) -> bool:
-    return all(x is None and y is None or torch.equal(x, y) for x, y in zip(a, b))
+def ab_report(width: int, mode: str, device) -> dict:
+    """The persistent mode a/b kernel (``mode`` "closest" or "any") at
+    ``width``: registers, stack frame and spill bytes (stores + loads) as
+    ptxas reported them, resident blocks per SM, and the deepest stack a ray
+    reached in its last call on ``device``."""
+    res = cuda_build.resources(f"traverse{width}",
+                               f"persistent_traverse_kernelILi{tf._MODE_ID[mode]}E")
+    return dict(registers=res["registers"], stack_frame=res["stack_frame"],
+                spill_bytes=res["spill_stores"] + res["spill_loads"],
+                blocks_per_sm=tf.ab_occupancy(width, mode),
+                deepest_stack=tf.stack_reached(width, device))
+
+
+def same_hits(a, b) -> bool:
+    """Two traversal results equal bit for bit in t, tri, u, v and steps."""
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) if x.is_floating_point()
+               else torch.equal(x, y) for x, y in zip(a[:5], b[:5]))
 
 
 def max_abs_err(a, b) -> float:
@@ -209,12 +227,7 @@ def _variant(name, planar, o, d, t_max, cuda, reps):
     out = kern()
     if cuda:
         torch.cuda.synchronize()
-        if capped:
-            assert _same(out[:5], plain[:5]), f"{name}: kernel and plain version differ"
-        else:
-            assert torch.equal(out[4], plain[4]), f"{name}: node counts differ"
-            assert torch.equal(out[1], plain[1]), f"{name}: triangles differ"
-            torch.testing.assert_close(out[0], plain[0], rtol=1e-5, atol=1e-5)
+        assert same_hits(out, plain), f"{name}: kernel and plain version differ"
     nodes = float(plain[4].double().sum())
     n = o.shape[0]
     # rays in (origin, direction, t_max) and out (t, tri, u, v, steps)
@@ -224,6 +237,8 @@ def _variant(name, planar, o, d, t_max, cuda, reps):
                hit_share=float((plain[1] >= 0).float().mean()))
     if cuda:
         res["max_abs_err"] = max_abs_err(out, plain)
+        if not capped:
+            res.update(ab_report(planar.width, "closest", o.device))
     timer = cuda_time if cuda else host_time
     res["ms" if cuda else "cpu_ms"] = timer(kern, reps)
     res["plain_ms" if cuda else "plain_cpu_ms"] = timer(
