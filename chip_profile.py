@@ -25,7 +25,8 @@ more frame with ``torch.profiler``. It prints, for the traced frame:
   launch per call each;
 * shading: device ms and launches of the kernels that ran inside the
   device spans of the wavefront's ``shade_stage`` ranges (the whole stage,
-  eager or fused), and the fused shading kernel's own ms and launches;
+  eager or fused), and the fused shading kernels' own ms and launches
+  (``vkrt_shade_stage``, or the body alone);
 * the top K device kernels by total time;
 * peak device memory allocated over the timed and the traced frames.
 """
@@ -45,7 +46,7 @@ MODES = ("closest", "any", "candidate")  # csrc/traverse.cu enum Mode
 MACHINES = (("alpha rounds", "alpha_rounds_kernel"), ("opaque machine", "opaque_machine_kernel"),
             ("alpha machine", "alpha_machine_kernel"))
 SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
-SHADE = "shade_kernel"
+SHADE = ("shade_stage_kernel", "shade_kernel")  # csrc/shade.cu: the whole stage, the body alone
 STAGE = "shade_stage"  # the wavefront's profiler range around its shading stage
 
 
@@ -131,7 +132,7 @@ def main():
     busy = busy_us(events) / 1e3
     kernels = [ev for ev in events if not ev[0].startswith(("Memcpy", "Memset"))]
     trav = [ev for ev in kernels if TRAVERSE in ev[0]]
-    shade_k = [ev for ev in kernels if SHADE in ev[0]]
+    shade_k = [ev for ev in kernels if any(k in ev[0] for k in SHADE)]
     in_stage = [
         ev for ev in kernels if any(s <= ev[1] < e for _, s, e in stages)
     ]

@@ -24,13 +24,18 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
 5. the main path: the full atrium (~217k triangles) at 1920x1080, depth 4,
    1 spp, sun&sky, one warm-up and three timed frames; modes a and b and the
    alpha rounds kernel must have launched, and the per-round mode c not;
-6. shading kernel against its plain torch version on the card at 2^18
-   lanes: the hits of atrium camera rays, then every branch (all flags on,
-   material lanes redrawn from a seed) with full MIS on and off; both timed;
+6. the shading stage kernel (``vkrt_shade_stage``, the whole fused stage)
+   against the plain stage (``shade_inputs`` + ``_shade_plain``) on the
+   card at 2^18 lanes: the hits of atrium camera rays with random lane
+   states, sun disk / full MIS / mip LOD each both ways, then every branch through a
+   synthetic shade-row and tap-row table (``tri = arange(R)``); each timed,
+   with its ``stage_bytes`` bound and the ptxas report of each
+   instantiation; then the body alone (``vkrt_shade``) on gathered inputs:
+   the camera hits, and every branch with full MIS on and off; timed;
 7. the main path with the fused shading stage (``Renderer(...,
-   fused_shade=True)``): one warm-up and three timed frames; the shading
-   kernel and the kernels of phase 5 must have launched, and the per-round
-   mode c not;
+   fused_shade=True)``): one warm-up and three timed frames; the stage
+   kernel and the kernels of phase 5 must have launched, and neither the
+   body alone nor the per-round mode c;
 8. traversal with per-lane roots (the two-level path's kernel modes)
    against its twin on the full bistro (579k unique, >1M instanced
    triangles) at 2^18 rays: each ray's first instance candidate, moved into
@@ -39,15 +44,15 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
 9. the two-level render slice on the card against the CPU twin: a small
    bistro at 128x72, depth 4, 1 spp, 2 frames, unfused and fused, and
    fused against unfused on the card;
-10. the instanced shading kernel against its plain version at 2^18 lanes:
-    the bistro's camera hits (with their instances), then every branch
-    with full MIS on and off; timed;
+10. the instanced stage kernel against the plain stage at 2^18 lanes as in
+    phase 6, on the bistro's camera hits (with their instances); then the
+    instanced body alone on gathered inputs; timed;
 11. the two-level main path: the full bistro through
     ``build_instanced_scene`` and ``Renderer(..., fused_shade=True)`` at
     1920x1080, depth 4, 1 spp, glTF PBR, sun&sky, firefly clamp 10,
     full_mis off; one warm-up and three timed frames; the opaque machine,
-    the alpha machine and the shading kernel must have launched, and no
-    per-round kernel with roots;
+    the alpha machine and the stage kernel must have launched, and no
+    per-round kernel with roots and not the body alone;
 12. the width-32 traversal kernel (1024-byte rows, 16-triangle leaves)
     against its twin: the full atrium's width-32 trees on phase 3's ray
     sets, then per-lane roots on the full bistro's width-32 tables on phase
@@ -62,8 +67,8 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
     have launched;
 15. the atrium main path at width 32 (``build_accel_bundle(geom,
     width=32)``, fused shading), beside phase 7: the width-32 kernels of
-    phase 5 must have launched, and no width-16 kernel and no per-round
-    mode c;
+    phase 5 and the stage kernel must have launched, and no width-16
+    kernel, no per-round mode c and not the body alone;
 16. the bistro main path at width 32 (``build_instanced_scene(...,
     width=32)``), beside phase 11: the same for the opaque and alpha
     machines;
@@ -120,6 +125,9 @@ NOGATHER_REPLACES = "scripts/stepbench.py:121"  # the no-gather step kernel
 SHADE_SOURCE = "vk_raytrace_torch/csrc/shade.cu"
 SHADE_REPLACES = "vk_raytrace_tpu/integrator/shade_fused.py:290"  # _make_kernel
 SHADE_INST_REPLACES = "vk_raytrace_tpu/integrator/shade_fused.py:367"  # instanced
+# The whole stage: shade_bounce_fused (:901), its pallas_call (:1094) and
+# the XLA prologue around it.
+STAGE_REPLACES = "vk_raytrace_tpu/integrator/shade_fused.py:1094"
 # Bytes, operations and bounds of the traversal kernel's calls, and the
 # card's peak rates, are counted by vk_raytrace_torch/travbench.py.
 # Float operations of one shading lane, counted from csrc/shade.cu for the
@@ -132,6 +140,14 @@ SHADE_OPS_PER_LANE = 1400
 # the tangent (9 products and 6 sums each, 3 more sums for the position)
 # and three normalisations of 9 operations: 90.
 SHADE_INST_OPS_PER_LANE = SHADE_OPS_PER_LANE + 90
+# The stage's prologue, counted from csrc/shade.cu: 11-12 PCG draws (~8 integer
+# operations and a conversion each, ~100), the uv transform and ray-cone LOD
+# (~45), each enabled texture's placement, mip level and two wrapped axes
+# (~45 each), the light sample (~60) or the env sample (alias and bilinear
+# tap ~55, with the sun cone and disk ~110 more), and on a miss the env tap,
+# disk and MIS weight (~150 on the few miss lanes): ~400 for the atrium's
+# one texture with the sun disk.
+STAGE_PROLOGUE_OPS = 400
 # The alpha machine's work beside its traversal nodes, counted from
 # csrc/traverse.cu: per round the window start and the ray transform (3
 # multiply-adds, then 9 products and 9 sums for the origin, 9 and 6 for the
@@ -320,16 +336,15 @@ def camera_rays(cam, w, h, n, rng, dev):
     return o.contiguous(), d.contiguous()
 
 
-def every_branch(x, rng, full_mis):
-    """The shading kernel's inputs ``x`` (a ``ShadeInputs``) with every flag
-    on and the material lanes of the gathered rows redrawn, so that each
-    lane takes its own mix of branches: roughness, metallic, transmission,
-    ior, clearcoat, anisotropy > 0 on half the lanes, thickness 0 and not
-    0, unlit lanes, and texture ids >= 0 over random footprint texels."""
+def redraw_material(srow, rng):
+    """Redraw the material lanes of gathered shade rows ``srow`` (R, 128)
+    in place, so that each lane takes its own mix of branches: roughness,
+    metallic, transmission, ior, clearcoat, anisotropy > 0 on half the
+    lanes, thickness 0 and not 0, unlit lanes, and texture ids >= 0 on 90%
+    of the lanes."""
     from vk_raytrace_torch.integrator import shade_fused as sf
     from vk_raytrace_torch.integrator.shade import _OFFS
 
-    srow = x.srow.clone()
     r, dev = srow.shape[0], srow.device
     u = lambda lo=0.0, hi=1.0, k=1: torch.tensor(  # noqa: E731
         rng.uniform(lo, hi, (r, k)), dtype=torch.float32, device=dev)
@@ -357,12 +372,312 @@ def every_branch(x, rng, full_mis):
     put("thickness", torch.where(half(), u(0.1, 2.0), 0.0))
     put("cc_f", torch.where(half(), u(), 0.0))
     put("cc_rough", u(0.0, 1.0))
+
+
+def every_branch(x, rng, full_mis):
+    """The body's inputs ``x`` (a ``ShadeInputs``) with every flag on, the
+    material lanes of the gathered rows redrawn (:func:`redraw_material`)
+    and random footprint texels and weights."""
+    from vk_raytrace_torch.integrator import shade_fused as sf
+
+    srow = x.srow.clone()
+    redraw_material(srow, rng)
+    r, dev = srow.shape[0], srow.device
     taps = torch.tensor(rng.integers(-2**31, 2**31, (r, 16), dtype=np.int64).astype(np.int32),
                         device=dev)
     aux = x.aux.clone()
-    aux[:, 0:8] = u(0.0, 1.0, 8)
+    aux[:, 0:8] = torch.tensor(rng.uniform(0.0, 1.0, (r, 8)), dtype=torch.float32, device=dev)
     flags = sf.ShadeFlags(True, True, True, True, True, full_mis, x.flags.instanced)
     return srow.contiguous(), taps, aux.contiguous(), flags
+
+
+# Rows of the synthetic tap table of the every-branch stage case (atlas rows).
+SYNTH_TAP_ROWS = 64
+# Lights of the every-branch stage case: directional, point and spot in turn.
+SYNTH_LIGHTS = 9
+
+
+def synthetic_lights(rng, dev):
+    """``SYNTH_LIGHTS`` punctual lights of every type (``schema.LIGHT_*``):
+    positions in a 10-unit box, random directions and colours, half of the
+    point and spot lights with a range (the rest unlimited), spot cones of
+    random width."""
+    from vk_raytrace_torch.models.schema import make_lights
+
+    rows = []
+    for k in range(SYNTH_LIGHTS):
+        d = rng.standard_normal(3)
+        outer = rng.uniform(0.2, 0.9)
+        rows.append(dict(type=k % 3, position=rng.uniform(-5.0, 5.0, 3),
+                         direction=d / np.linalg.norm(d), color=rng.uniform(0.2, 1.0, 3), intensity=rng.uniform(1.0, 50.0),
+                         range=rng.uniform(2.0, 20.0) if rng.random() < 0.5 else 0.0,
+                         outer_cone_cos=outer, inner_cone_cos=outer + rng.uniform(0.01, 0.09)))
+    return make_lights(rows).to(dev)
+
+
+def every_branch_stage(scene, tables, hit, rng):
+    """The stage's every-branch case: a synthetic shade-row table holding
+    each lane's gathered row with its material lanes redrawn
+    (:func:`redraw_material`), its vertex uvs drawn in [-2, 3] (negative
+    texel coordinates, every wrap mode) and random texture placements and
+    mip chains; a random tap-row table of ``SYNTH_TAP_ROWS`` atlas rows;
+    lights of every type (:func:`synthetic_lights`); the hits ``tri =
+    arange(R)``, 5% of them misses. Returns (scene', tables', hit', features
+    with every texture and anisotropy on)."""
+    import dataclasses
+
+    from vk_raytrace_torch.integrator import shade_fused as sf
+    from vk_raytrace_torch.integrator.shade import _OFFS, MatFeatures
+
+    r, dev = hit.tri.shape[0], hit.tri.device
+    srow = tables.shade_rows[torch.clamp(hit.tri, min=0)].clone()
+    redraw_material(srow, rng)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    srow[:, 22:28] = f32(rng.uniform(-2.0, 3.0, (r, 6)))
+    aw = tables.atlas_w
+    for name in ("base", "mr", "normal", "emissive"):
+        o = sf._SROW_MAT0 + _OFFS[f"{name}_tex"]
+        w = rng.integers(1, 65, r)
+        h = rng.integers(1, 65, r)
+        span = np.maximum(aw - 2 * w, 1)
+        mx = np.where(rng.random(r) < 0.5, -1, rng.integers(0, 1 << 30, r) % span)
+        lanes = np.stack([np.zeros(r), rng.integers(0, 1 << 30, r) % span,
+                          rng.integers(0, SYNTH_TAP_ROWS, r) % np.maximum(SYNTH_TAP_ROWS - h, 1),
+                          w, h, rng.integers(0, 3, r) * 3 + rng.integers(0, 3, r), mx,
+                          rng.integers(0, 1 << 30, r) % np.maximum(SYNTH_TAP_ROWS - h, 1)], 1)
+        srow[:, o + 1:o + 8] = f32(lanes[:, 1:])
+    taps = torch.tensor(
+        rng.integers(-2**31, 2**31, (aw * SYNTH_TAP_ROWS, 4), dtype=np.int64).astype(np.int32),
+        device=dev)
+    tri = torch.arange(r, device=dev)
+    tri[torch.tensor(rng.random(r) < 0.05, device=dev)] = -1
+    srow = srow.contiguous()
+    lights = synthetic_lights(rng, dev)
+    scene2 = dataclasses.replace(scene, shade_rows=srow, tap_rows=taps, lights=lights,
+                                 n_lights=SYNTH_LIGHTS)
+    tables2 = tables._replace(shade_rows=srow, tap_rows=taps, lights=sf.light_rows(lights),
+                              n_lights=SYNTH_LIGHTS)
+    feats = MatFeatures(base_tex=True, mr_tex=True, normal_tex=True, emissive_tex=True,
+                        transmission_tex=False, clearcoat_tex=False, anisotropy=True)
+    return scene2, tables2, hit._replace(tri=tri), feats
+
+
+class StageState:
+    """Random lane states of the stage's inputs (numpy-seeded): origins in a
+    box, unit directions given, radiance, throughput, absorption, seeds,
+    bsdf_pdf (0 on 30% of the lanes: camera rays) and the path length
+    before the hit."""
+
+    def __init__(self, rng, direction, origin=None):
+        n, dev = direction.shape[0], direction.device
+        f32 = lambda lo, hi, *s: torch.tensor(  # noqa: E731
+            rng.uniform(lo, hi, (n, *s)), dtype=torch.float32, device=dev)
+        self.origin = origin if origin is not None else f32(-5.0, 5.0, 3)
+        self.direction = direction
+        self.radiance = f32(0.0, 1.0, 3)
+        self.throughput = f32(0.05, 1.0, 3)
+        self.absorption = f32(0.0, 0.2, 3)
+        self.seed = torch.tensor(rng.integers(0, 2**32, n), device=dev)
+        self.bsdf_pdf = torch.where(torch.tensor(rng.random(n) < 0.3, device=dev), 0.0,
+                                    f32(0.1, 4.0))
+        self.tdist = f32(0.5, 30.0)
+
+    def lanes(self):
+        return (self.origin, self.direction, self.seed, None, self.radiance, self.throughput,
+                self.absorption, self.bsdf_pdf)
+
+
+STAGE_VEC_KEYS = ("new_origin", "new_dir", "radiance", "throughput", "absorption", "nee",
+                  "light_dir", "light_dist", "rr_pcont", "pdf_b", "tdist")
+
+
+def compare_stage(kern, plain):
+    """The stage kernel's dict against the plain stage's (the card gate of
+    the body): seeds and miss exact, alive and visible agree on
+    ``SHADE_MASK_SHARE`` of the lanes, every vector within SHADE_RTOL /
+    SHADE_ATOL where they agree. Returns (max |error|, mask share)."""
+    for k in ("seed", "miss"):
+        assert torch.equal(kern[k], plain[k]), f"stage: {k} differs from the plain stage"
+    same = (kern["alive"] == plain["alive"]) & (kern["visible"] == plain["visible"])
+    share = float(same.float().mean())
+    assert share >= SHADE_MASK_SHARE, f"stage: masks agree on only {share:.6f} of lanes"
+    err = 0.0
+    for k in STAGE_VEC_KEYS:
+        if k not in plain:
+            continue
+        a, b = kern[k][same].cpu().numpy(), plain[k][same].cpu().numpy()
+        np.testing.assert_allclose(a, b, rtol=SHADE_RTOL, atol=SHADE_ATOL, err_msg=k)
+        err = max(err, float(np.nanmax(np.abs(a - b), initial=0.0)))
+    assert float(kern["alive"].float().mean()) > 0.2, "stage: too few live lanes to compare"
+    return err, share
+
+
+class _Logged(torch.Tensor):
+    """A table whose indexing logs its index (:func:`stage_bytes`)."""
+
+    __torch_function__ = torch._C._disabled_torch_function_impl
+
+    def __getitem__(self, idx):
+        self.log.append(idx)
+        return torch.Tensor.__getitem__(self.as_subclass(torch.Tensor), idx)
+
+
+def _logged(t):
+    out = t.as_subclass(_Logged)
+    out.log = []
+    return out
+
+
+def stage_bytes(plain_fn, scene, tables, flags, n):
+    """Bytes the stage must move for this call, in 32-byte sectors: each
+    lane's hit and state in and its outputs (``flags``), and each distinct
+    row of the scene's tables that the plain stage gathers, once: shade
+    rows (the lanes the kernel reads, :func:`shade_row_lanes`), tap rows
+    (16 B), env rows (a whole-row gather counts the row's 64 B, a gather of
+    its pdf lane 32 B), instance rows (2 x 48 B); the light table and the
+    sun's constants whole. ``plain_fn(scene)`` runs the plain stage."""
+    import dataclasses
+
+    shade = _logged(scene.shade_rows)
+    tap = _logged(scene.tap_rows)
+    env = _logged(scene.env.rows)
+    plain_fn(dataclasses.replace(scene, shade_rows=shade, tap_rows=tap,
+                                 env=dataclasses.replace(scene.env, rows=env)))
+    rows = torch.unique(torch.cat([i.reshape(-1) for i in shade.log]))
+    sectors = len({4 * k // 32 for k in shade_row_lanes(flags)})
+    n_bytes = rows.numel() * sectors * 32
+    if tap.log:
+        n_bytes += torch.unique(torch.cat([i.reshape(-1) for i in tap.log]) // 2).numel() * 32
+    env_sec = []
+    for idx in env.log:
+        if isinstance(idx, tuple):  # rows[i, 14]: the pdf lane's sector
+            env_sec.append(idx[0].reshape(-1) * 2 + 1)
+        else:
+            i = idx.reshape(-1)
+            env_sec += [i * 2, i * 2 + 1]
+    n_bytes += torch.unique(torch.cat(env_sec)).numel() * 32 if env_sec else 0
+    lane_in = 12 + 8 + 60 + 8 + 4 + (8 if flags.instanced else 0) + (4 if flags.full_mis else 0)
+    lane_out = 7 * 12 + 4 * 4 + 3 + 8
+    tables_b = (tables.lights.numel() + tables.sun_lanes.numel()) * 4
+    return n_bytes + n * (lane_in + lane_out) + tables_b
+
+
+def shade_row_lanes(flags):
+    """The shade-row lanes csrc/shade.cu reads under ``flags``: the vertex
+    positions, normals, tangents, handedness, uvs and colours, the uv
+    transform, each enabled texture's id and placement (with its mip chain
+    under flags.mip), and the material lanes the body reads."""
+    from vk_raytrace_torch.integrator import shade_fused as sf
+    from vk_raytrace_torch.integrator.shade import _OFFS
+
+    def mat(name, k=1):
+        return range(sf._SROW_MAT0 + _OFFS[name], sf._SROW_MAT0 + _OFFS[name] + k)
+
+    lanes = [*range(0, 34), *mat("uvT", 6)]
+    for name, k in (("emissive_factor", 3), ("ior", 1), ("rough_f", 1), ("metal_f", 1),
+                    ("base_factor", 3), ("transmission_f", 1), ("unlit", 1), ("aniso", 1),
+                    ("atten_color", 3), ("atten_dist", 1), ("thickness", 1), ("cc_f", 1),
+                    ("cc_rough", 1)):
+        lanes += mat(name, k)
+    for name, on in (("base", flags.base_tex), ("mr", flags.mr_tex),
+                     ("normal", flags.normal_tex), ("emissive", flags.emissive_tex)):
+        if on:
+            lanes += mat(f"{name}_tex", 8 if flags.mip else 6)
+    if flags.normal_tex:
+        lanes += mat("normal_scale")
+    if flags.anisotropy:
+        lanes += mat("aniso_dir", 3)
+    return lanes
+
+
+def stage_case(what, scene, tables, features, hit, st, instances, sun_disk, full_mis, spread,
+               hdr_mult, card, reps=20):
+    """The stage kernel against the plain stage on the card at these hits
+    and lane states (:func:`compare_stage`); the kernel timed (CUDA events
+    over ``reps`` launches of prepared arguments, and the wrapper's wall per
+    call), the plain stage timed, and the call's bound (:func:`stage_bytes`,
+    ops per lane). Returns (max |err|, ms, plain_ms, (bound_ms, bound_by))."""
+    from vk_raytrace_torch import travbench as tb
+    from vk_raytrace_torch.integrator import shade_fused as sf
+
+    n = hit.tri.shape[0]
+    mip = (spread, None) if spread is not None else None
+    lanes = st.lanes()
+    args = (features, full_mis, 0.5, hdr_mult, hit, *lanes)
+    tail = (instances, sun_disk, mip, st.tdist, tables)
+    before = dict(sf.LAUNCHES)
+    kern = sf._stage_launch(scene, *args, *tail)
+    torch.cuda.synchronize()
+    assert sf.LAUNCHES["shade_stage"] == before["shade_stage"] + 1, "stage: not one launch"
+    assert sf.LAUNCHES["shade_bounce"] == before["shade_bounce"], "stage: the body launched"
+    plain = sf._stage_plain(scene, *args, *tail[:-1])
+    err, share = compare_stage(kern, plain)
+    flags = sf.ShadeFlags(features.base_tex, features.mr_tex, features.normal_tex,
+                          features.emissive_tex, features.anisotropy, full_mis,
+                          instances is not None, sun_disk, mip is not None)
+    a, _ = sf.stage_args(tables, flags, 0.5, hdr_mult, spread, hit, *lanes, st.tdist)
+    ms = tb.cuda_time(lambda: sf.launch_stage(a, hit.tri.device), reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        sf._stage_launch(scene, *args, *tail)
+    torch.cuda.synchronize()
+    wrap_ms = (time.perf_counter() - t0) * 1e3 / reps
+    plain_ms = tb.cuda_time(lambda: sf._stage_plain(scene, *args, *tail[:-1]), 2)
+    n_bytes = stage_bytes(lambda sc: sf._stage_plain(sc, *args, *tail[:-1]), scene, tables, flags,
+                          n)
+    ops = (SHADE_INST_OPS_PER_LANE if flags.instanced else SHADE_OPS_PER_LANE) + STAGE_PROLOGUE_OPS
+    bnd = tb.bound(n_bytes, n * ops)
+    print(f"stage {what}: {n} lanes, alive {float(kern['alive'].float().mean()):.4f}, miss "
+          f"{float(kern['miss'].float().mean()):.4f}, masks agree {share:.6f}, seeds and miss "
+          f"exact, max |err| {err:.3g} -> OK; kernel {ms:.4f} ms, "
+          f"wrapper {wrap_ms:.4f} ms wall a call, plain {plain_ms:.3f} ms; bound {bnd[0]:.4f} ms "
+          f"by "
+          f"{bnd[1]} ({n_bytes / 1e6:.1f} MB, {n_bytes / n:.0f} B per lane; {ms / bnd[0]:.1f}x "
+          f"the bound) ({card})", flush=True)
+    return err, ms, plain_ms, bnd
+
+
+def stage_cases(name, scene, tables, features, hit, st, instances, main, spread, hdr_mult, rng,
+                card):
+    """Phases 6 and 10: :func:`stage_case` on the camera hits with the main
+    path's (sun disk, full MIS, mip) ``main``; with each of the three
+    flipped; and every branch (:func:`every_branch_stage`) with full MIS on
+    and off. Returns {"main": result on the main path's flags, "err": max
+    |err| of all}."""
+    sun, mis, mip = main
+    sp = lambda on: spread if on else None  # noqa: E731
+    flags = f"sun disk {sun}, full MIS {mis}, mip {mip}"
+    res = {"main": stage_case(f"{name} camera hits, the main path's flags ({flags})", scene,
+                              tables, features, hit, st, instances, sun, mis, sp(mip), hdr_mult,
+                              card)}
+    errs = [res["main"][0]]
+    flipped = f"sun disk {not sun}, full MIS {not mis}, mip {not mip}"
+    errs.append(stage_case(f"{name} camera hits, flipped ({flipped})", scene, tables, features,
+                           hit, st, instances, not sun, not mis, sp(not mip), hdr_mult, card,
+                           reps=3)[0])
+    scene2, tables2, hit2, feats2 = every_branch_stage(scene, tables, hit, rng)
+    for full_mis in (True, False):
+        errs.append(stage_case(
+            f"{name} every branch (synthetic tables, tri = arange(R)), full MIS {full_mis}",
+            scene2, tables2, feats2, hit2, st, instances, True, full_mis, spread, hdr_mult, card,
+            reps=3)[0])
+    res["err"] = max(errs)
+    return res
+
+
+def stage_report(card):
+    """ptxas of each instantiation of the stage and the body (registers,
+    stack frame, spill) from the shading library's build."""
+    from vk_raytrace_torch import cuda_build
+
+    for label, entry in (("stage single-level", "shade_stage_kernelILb0E"),
+                         ("stage instanced", "shade_stage_kernelILb1E"),
+                         ("body single-level", "shade_kernelILb0E"),
+                         ("body instanced", "shade_kernelILb1E")):
+        rep = cuda_build.resources("shade", entry)
+        print(f"ptxas {label}: {rep['registers']} registers, {rep['stack_frame']} B stack "
+              f"frame, {rep['spill_stores']} B spill stores, {rep['spill_loads']} B spill "
+              f"loads, {rep['smem']} B shared ({card})", flush=True)
 
 
 def compare(mode, kern, twin):
@@ -767,20 +1082,28 @@ def main():
           f"peak {peak_mb:.1f} MiB allocated, mean radiance {img.mean():.4f}; "
           f"build s: {build_txt} [{card}]", flush=True)
 
-    # ---- 6. shading kernel vs plain on the card -----------------------------
-    phase("shade kernel vs plain")
-    from vk_raytrace_torch.integrator.path import pixel_spread
+    # ---- 6. the stage kernel vs the plain stage on the card ----------------
+    phase("shade stage vs plain")
+    from vk_raytrace_torch.integrator.path import mip_lod_enabled, pixel_spread
 
+    stage_report(card)
     run_cfg = r._run_cfg
     oc, dc = camera_rays(cam_dev, 1920, 1080, n, rng, dev)
     hit = tf.closest_hit_fused(gbundle.opaque_planar, oc, dc)
+    st = StageState(rng, dc, origin=oc)
+    spread = pixel_spread(r.scene, 1080)
+    main = (run_cfg.sun_disk, run_cfg.full_mis, mip_lod_enabled(r.scene, run_cfg))
+    stage_res = stage_cases("atrium", r.scene, sf.stage_tables(r.scene), r.features, hit, st,
+                            None, main, spread, run_cfg.hdr_multiplier, rng, card)
+
+    # The body alone (vkrt_shade) on gathered inputs, with its every-branch gate.
     seed = torch.tensor(rng.integers(0, 2**32, n), device=dev)
     zeros3 = torch.zeros(n, 3, device=dev)
     x = sf.shade_inputs(
         r.scene, r.features, run_cfg.full_mis, 0.5, run_cfg.hdr_multiplier, hit, oc, dc, seed,
         None, zeros3, torch.ones(n, 3, device=dev), zeros3, torch.zeros(n, device=dev),
         sun_disk=run_cfg.sun_disk,
-        mip=(pixel_spread(r.scene, 1080), torch.clamp(hit.t, max=1e30)),
+        mip=(spread, torch.clamp(hit.t, max=1e30)),
     )
     real = (x.srow, x.taps, x.aux, x.flags)
     sets = [("atrium camera hits", real)]
@@ -792,13 +1115,13 @@ def main():
         torch.cuda.synchronize()
         err, agree = compare_shade(kern, sf._shade_plain(*args))
         shade_err = max(shade_err, err)
-        print(f"shade {what}: {n} lanes, alive {float(kern[1].float().mean()):.4f}, masks agree "
-              f"{agree:.6f}, max |err| {err:.3g} -> OK", flush=True)
+        print(f"body alone, {what}: {n} lanes, alive {float(kern[1].float().mean()):.4f}, masks "
+              f"agree {agree:.6f}, max |err| {err:.3g} -> OK", flush=True)
     shade_ms = tb.cuda_time(lambda: sf.shade(*real), 20)
     shade_plain_ms = tb.cuda_time(lambda: sf._shade_plain(*real), 2)
     s_bytes, s_ops = shade_bytes(n, x.flags), n * SHADE_OPS_PER_LANE
     shade_bound = tb.bound(s_bytes, s_ops)
-    print(f"shade kernel {shade_ms:.3f} ms, plain {shade_plain_ms:.3f} ms at {n} lanes; bound "
+    print(f"body alone {shade_ms:.3f} ms, plain {shade_plain_ms:.3f} ms at {n} lanes; bound "
           f"{shade_bound[0]:.4f} ms by {shade_bound[1]} ({s_bytes / 1e6:.1f} MB, "
           f"{s_bytes / n:.0f} B per lane, {s_ops / 1e9:.3f} Gop; flags {x.flags}; "
           f"{shade_ms / shade_bound[0]:.1f}x the bound) ({card})", flush=True)
@@ -820,7 +1143,8 @@ def main():
     f_mrays = float(np.sum(f_frame_rays) / np.sum(f_frame_s) / 1e6)
     print(f"warm-up frame {f_warm_s:.3f} s; frames {['%.4f' % s for s in f_frame_s]} s; "
           f"rays/frame {f_frame_rays}; launches {f_launches}")
-    assert f_launches["shade_bounce"] > 0, f"the shading kernel never launched: {f_launches}"
+    assert f_launches["shade_stage"] > 0, f"the stage kernel never launched: {f_launches}"
+    assert f_launches["shade_bounce"] == 0, f"the body alone launched: {f_launches}"
     assert all(f_launches[m] > 0 for m in ATRIUM_KERNELS), f"a traversal kernel never launched: {f_launches}"
     assert f_launches["candidate"] == 0, f"a per-round alpha launch ran: {f_launches}"
     assert np.isfinite(f_img).all() and np.isfinite(f_ldr).all(), "fused: non-finite pixels"
@@ -906,7 +1230,7 @@ def main():
         assert ray_rel <= RAY_REL, f"bistro slice {what}: ray counts differ by {ray_rel:.2e}"
 
     # ---- 10. instanced shading kernel vs plain on the card -------------------
-    phase("instanced shade kernel vs plain")
+    phase("instanced shade stage vs plain")
     b_cfg = RenderConfig(width=1920, height=1080, pbr_mode=PBR_GLTF, **BISTRO_CFG)
     t0 = time.time()
     rb = R.Renderer(bscene, b_cfg, device=dev, fused_shade=True)
@@ -917,11 +1241,17 @@ def main():
     oc, dc = camera_rays(rb.scene.camera, 1920, 1080, n, rng, dev)
     seed = torch.tensor(rng.integers(0, 2**32, n), device=dev)
     hit, _ = tlas.closest_hit_instanced(rb.packed, rb.alpha_pack, oc, dc, seed=seed)
+    assert rb._shade_tables is not None and rb._shade_tables.o2w is not None
+    st = StageState(rng, dc, origin=oc)
+    spread = pixel_spread(rb.scene, 1080)
+    main = (b_run.sun_disk, b_run.full_mis, mip_lod_enabled(rb.scene, b_run))
+    stage_inst_res = stage_cases("bistro", rb.scene, rb._shade_tables, rb.features, hit, st,
+                                 rb.packed.inst, main, spread, b_run.hdr_multiplier, rng, card)
     x = sf.shade_inputs(
         rb.scene, rb.features, b_run.full_mis, 0.5, b_run.hdr_multiplier, hit, oc, dc, seed, None,
         zeros3, torch.ones(n, 3, device=dev), zeros3, torch.zeros(n, device=dev),
         instances=rb.packed.inst, sun_disk=b_run.sun_disk,
-        mip=(pixel_spread(rb.scene, 1080), torch.clamp(hit.t, max=1e30)),
+        mip=(spread, torch.clamp(hit.t, max=1e30)),
     )
     assert x.flags.instanced and x.aux.shape[1] == sf.aux_width(True)
     real = (x.srow, x.taps, x.aux, x.flags)
@@ -934,13 +1264,13 @@ def main():
         torch.cuda.synchronize()
         err, agree = compare_shade(kern, sf._shade_plain(*args))
         inst_err = max(inst_err, err)
-        print(f"shade {what}: {n} lanes, alive {float(kern[1].float().mean()):.4f}, masks agree "
-              f"{agree:.6f}, max |err| {err:.3g} -> OK", flush=True)
+        print(f"body alone, {what}: {n} lanes, alive {float(kern[1].float().mean()):.4f}, masks "
+              f"agree {agree:.6f}, max |err| {err:.3g} -> OK", flush=True)
     inst_ms = tb.cuda_time(lambda: sf.shade(*real), 20)
     inst_plain_ms = tb.cuda_time(lambda: sf._shade_plain(*real), 2)
     i_bytes, i_ops = shade_bytes(n, x.flags), n * SHADE_INST_OPS_PER_LANE
     inst_bound = tb.bound(i_bytes, i_ops)
-    print(f"instanced shade kernel {inst_ms:.3f} ms, plain {inst_plain_ms:.3f} ms at {n} lanes; "
+    print(f"instanced body alone {inst_ms:.3f} ms, plain {inst_plain_ms:.3f} ms at {n} lanes; "
           f"bound {inst_bound[0]:.4f} ms by {inst_bound[1]} ({i_bytes / 1e6:.1f} MB, "
           f"{i_bytes / n:.0f} B per lane, {i_ops / 1e9:.3f} Gop; flags {x.flags}; "
           f"{inst_ms / inst_bound[0]:.1f}x the bound) ({card})", flush=True)
@@ -963,8 +1293,9 @@ def main():
                "renderer_s": b_renderer_s, **rb.build_times}
     print(f"warm-up frame {b_warm_s:.3f} s; frames {['%.4f' % s for s in b_frame_s]} s; "
           f"rays/frame {b_frame_rays}; launches {b_launches}")
-    want = ("opaque_machine", "alpha_machine", "shade_bounce")
+    want = ("opaque_machine", "alpha_machine", "shade_stage")
     assert all(b_launches[m] > 0 for m in want), f"a kernel never launched: {b_launches}"
+    assert b_launches["shade_bounce"] == 0, f"the body alone launched: {b_launches}"
     assert not any(b_launches[m] for m in tf.ROOT_MODES), f"a per-round launch ran: {b_launches}"
     assert np.isfinite(b_img).all() and np.isfinite(b_ldr).all(), "bistro: non-finite pixels"
     assert b_img.mean() > 0.0 and b_ldr.max() > 0.0, "bistro: black image"
@@ -1056,7 +1387,8 @@ def main():
               f"{f_rays}; launches {lau}")
         assert all(lau[m] > 0 for m in want), f"{what}: a width-32 kernel never launched: {lau}"
         assert not any(lau[m] for m in refuse), f"{what}: a refused kernel launched: {lau}"
-        assert lau["shade_bounce"] > 0, f"{what}: the shading kernel never launched: {lau}"
+        assert lau["shade_stage"] > 0, f"{what}: the stage kernel never launched: {lau}"
+        assert lau["shade_bounce"] == 0, f"{what}: the body alone launched: {lau}"
         assert np.isfinite(img).all() and np.isfinite(ldr).all(), f"{what}: non-finite pixels"
         assert img.mean() > 0.0 and ldr.max() > 0.0, f"{what}: black image"
         assert min(f_rays) > 1920 * 1080, f"{what}: fewer rays than primary rays"
@@ -1153,6 +1485,14 @@ def main():
         return entry
 
     kernels = [traverse_entry(m, launches, REPLACES) for m in tf.MODES]
+    def stage_entry(name, lau, res):
+        """The stage kernel's row, timed on the main path's flags."""
+        _, ms, plain_ms, (b_ms, b_by) = res["main"]
+        return {"name": name, "route": "cuda", "source": SHADE_SOURCE, "replaces": STAGE_REPLACES,
+                "launches": lau["shade_stage"], "max_abs_err": res["err"], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    kernels.append(stage_entry("shade_stage", f_launches, stage_res))
     kernels.append(
         {"name": "shade_bounce", "route": "cuda", "source": SHADE_SOURCE,
          "replaces": SHADE_REPLACES, "launches": f_launches["shade_bounce"],
@@ -1160,6 +1500,7 @@ def main():
          "bound_ms": shade_bound[0], "bound_by": shade_bound[1], "library_ms": None}
     )
     kernels += [traverse_entry(m, b_launches, ROOTS_REPLACES) for m in tf.ROOT_MODES]
+    kernels.append(stage_entry("shade_stage_instanced", b_launches, stage_inst_res))
     kernels.append(
         {"name": "shade_bounce_instanced", "route": "cuda", "source": SHADE_SOURCE,
          "replaces": SHADE_INST_REPLACES, "launches": b_launches["shade_bounce"],

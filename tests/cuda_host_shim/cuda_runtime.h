@@ -30,6 +30,12 @@ struct float4 {
   float x, y, z, w;
 };
 inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
+struct int4 {
+  int x, y, z, w;
+};
+// __ldg: a plain load.
+template <class T>
+inline T __ldg(const T* p) { return *p; }
 
 struct vkrt_dim3 {
   unsigned x, y, z;
@@ -85,6 +91,11 @@ inline float __int_as_float(int v) {
   float f;
   memcpy(&f, &v, sizeof f);
   return f;
+}
+inline int __float_as_int(float f) {
+  int v;
+  memcpy(&v, &f, sizeof v);
+  return v;
 }
 #define VKRT_ROUNDED(name, op)                              \
   inline float name(float a, float b) {                     \

@@ -11,8 +11,8 @@ versions (exact), the single-level alpha rounds and the two-level opaque
 machine against their round loops (exact on tri/inst/seed/steps); the
 persistent mode a/b entry on the full atrium at both widths (bit for bit,
 steps included), its occupancy and ptxas report, and its scratch reused
-across calls; the shading kernel
-(single-level and instanced) against its plain version; and the render
+across calls; the whole shading stage kernel and the body alone
+(single-level and instanced) against their plain versions; and the render
 slices (atrium, bistro) on the card against the CPU. Kernel vs twin: same float32 operations in the same order, rounded
 per operation (nvcc -fmad=false), so ``tri`` and the hit masks are equal
 and t within rtol 1e-5. Render: CUDA and CPU transcendentals round
@@ -176,6 +176,57 @@ def test_shade_kernel_matches_plain(scene, full_mis):
         np.testing.assert_allclose(kern[0][same].cpu().numpy(), plain[0][same].cpu().numpy(),
                                    rtol=1e-5, atol=1e-6)
         assert kern[1].float().mean().item() > 0.2
+
+
+def _stage_vs_plain(scene, features, hit, st, instances, tables, full_mis, sun_disk, mip,
+                    rng):
+    """The stage kernel (one launch, not the body alone) against the plain
+    stage on the card, then every branch through the synthetic tables
+    (``chip_smoke.every_branch_stage``): ``chip_smoke.compare_stage``."""
+    import chip_smoke
+    from vk_raytrace_torch.integrator import shade_fused as sf
+
+    args = (scene, features, full_mis, 0.5, 1.0, hit, *st.lanes())
+    tail = (instances, sun_disk, (0.002, None) if mip else None, st.tdist)
+    before = dict(sf.LAUNCHES)
+    kern = sf.shade_bounce_fused(*args, *tail, tables)
+    torch.cuda.synchronize()
+    assert sf.LAUNCHES["shade_stage"] == before["shade_stage"] + 1
+    assert sf.LAUNCHES["shade_bounce"] == before["shade_bounce"]
+    chip_smoke.compare_stage(kern, sf._stage_plain(*args, *tail))
+    scene2, tables2, hit2, feats = chip_smoke.every_branch_stage(scene, tables, hit, rng)
+    args = (scene2, feats, full_mis, 0.5, 1.0, hit2, *st.lanes())
+    tail = (instances, True, (0.002, None), st.tdist)
+    chip_smoke.compare_stage(sf._stage_launch(*args, *tail, tables2), sf._stage_plain(*args, *tail))
+
+
+@pytest.mark.parametrize("full_mis,sun_disk,mip", [(True, True, True), (False, False, False),
+                                                   (False, True, False)])
+def test_stage_kernel_matches_plain(scene, full_mis, sun_disk, mip):
+    """The whole stage (``vkrt_shade_stage``) against ``shade_inputs`` +
+    ``_shade_plain`` on the card, on the reduced atrium's camera-ray hits
+    with random lane states: seeds and miss exact, masks on 99.99% of
+    lanes, vectors within rtol 1e-5 / atol 1e-6 where they agree."""
+    _need_cuda()
+    import chip_smoke
+    from vk_raytrace_torch.integrator import shade_fused as sf
+    from vk_raytrace_torch.integrator.shade import mat_features
+
+    g, m, l, c, a = scene
+    small = R.build_scene(g, m, l, c, atlas=a)
+    cfg = RenderConfig(width=64, height=48, pbr_mode=PBR_GLTF, use_sun_sky=True)
+    small, _ = R.prepare_sun_sky(small, cfg, "cpu")
+    feats = mat_features(small.materials)
+    small = small.to("cuda")
+    planar = build_accel_bundle(g).opaque_planar.to("cuda")
+    n = 8192
+    o, d = _rays(9, g, n, alpha=False)
+    o, d = o.cuda(), d.cuda()
+    hit = tf.closest_hit_fused(planar, o, d)
+    rng = np.random.default_rng(12)
+    st = chip_smoke.StageState(rng, d, origin=o)
+    _stage_vs_plain(small, feats, hit, st, None, sf.stage_tables(small), full_mis, sun_disk,
+                    mip, rng)
 
 
 @pytest.fixture(scope="module")
@@ -474,6 +525,34 @@ def test_instanced_shade_kernel_matches_plain(bistro, full_mis):
         np.testing.assert_allclose(kern[0][same].cpu().numpy(), plain[0][same].cpu().numpy(),
                                    rtol=1e-5, atol=1e-6)
         assert kern[1].float().mean().item() > 0.2
+
+
+@pytest.mark.parametrize("full_mis,sun_disk,mip", [(True, True, True), (False, False, False),
+                                                   (False, True, True)])
+def test_instanced_stage_kernel_matches_plain(bistro, full_mis, sun_disk, mip):
+    """The instanced whole stage against the plain stage on the card: the
+    small bistro's camera hits with their instances, random lane states,
+    the renderer's own stage tables."""
+    _need_cuda()
+    import chip_smoke
+    from vk_raytrace_torch.integrator import shade_fused as sf
+    from vk_raytrace_torch.integrator.camera import generate_rays_for_pixels
+    from vk_raytrace_torch.ops import rng as vrng
+
+    pool, inst, m, l, c, a = bistro
+    cfg = RenderConfig(width=128, height=72, pbr_mode=PBR_GLTF, use_sun_sky=True)
+    r = R.Renderer(R.build_instanced_scene(pool, inst, m, l, c, atlas=a), cfg, device="cuda",
+                   fused_shade=True)
+    pix = torch.arange(128 * 72, device="cuda")
+    o, d, _ = generate_rays_for_pixels(r.scene.camera, 128, 72, pix, 1, vrng.tea(pix, 0))
+    o, d = o.contiguous(), d.contiguous()
+    rng = np.random.default_rng(13)
+    seed = torch.tensor(rng.integers(0, 2**32, o.shape[0]), device="cuda")
+    hit, _ = tlas.closest_hit_instanced(r.packed, r.alpha_pack, o, d, seed=seed)
+    st = chip_smoke.StageState(rng, d, origin=o)
+    assert r._shade_tables is not None and r._shade_tables.o2w is not None
+    _stage_vs_plain(r.scene, r.features, hit, st, r.packed.inst, r._shade_tables, full_mis,
+                    sun_disk, mip, rng)
 
 
 @pytest.mark.parametrize("fused", [False, True])

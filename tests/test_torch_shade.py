@@ -32,6 +32,7 @@ from vk_raytrace_torch.integrator import shade as port_shade
 from vk_raytrace_torch.ops import bsdf_gltf as port_bsdf
 from vk_raytrace_torch.ops import env as port_env
 from vk_raytrace_torch.ops import lights as port_lights
+from vk_raytrace_torch.ops.sunsky import sun_disk_consts
 
 N = 2048
 RTOL, ATOL = 1e-4, 1e-5
@@ -163,7 +164,7 @@ def test_env_sample_sun_mixture(scenes):
         scene.env, scene.sun_sky, False, 1.0, jnp.asarray(seed), sun_disk=True
     )
     rad_p, dir_p, pdf_p, s_p = port_env.env_sample(
-        port.env, port.sun_sky, 1.0, _t(seed.astype(np.int64)), sun_disk=True
+        port.env, sun_disk_consts(port.sun_sky), 1.0, _t(seed.astype(np.int64))
     )
     np.testing.assert_array_equal(s_p.numpy().astype(np.uint32), np.asarray(s_r))
     _close(dir_p.numpy(), dir_r)
@@ -180,11 +181,11 @@ def test_env_radiance_and_pdf(scenes, hits):
     near = axis + 0.002 * np.random.default_rng(16).standard_normal((N // 2, 3))
     d = np.concatenate([d[: N // 2], near / np.linalg.norm(near, axis=1, keepdims=True)]).astype(np.float32)
     e_r = ref_env.env_radiance(scene.env, scene.sun_sky, False, 1.0, jnp.asarray(d), sun_disk=True)
-    e_p = port_env.env_radiance(port.env, port.sun_sky, 1.0, _t(d), sun_disk=True)
+    e_p = port_env.env_radiance(port.env, sun_disk_consts(port.sun_sky), 1.0, _t(d))
     _close(e_p.numpy(), e_r, frac=0.99)
     assert np.asarray(e_r)[N // 2:].max() > 10 * np.asarray(e_r)[: N // 2].max()  # the disk
     p_r = ref_env.environment_pdf(scene.env, jnp.asarray(d), scene.sun_sky, True)
-    p_p = port_env.environment_pdf(port.env, _t(d), port.sun_sky, True)
+    p_p = port_env.environment_pdf(port.env, _t(d), sun_disk_consts(port.sun_sky))
     _close(p_p.numpy(), p_r, frac=0.99)
 
 

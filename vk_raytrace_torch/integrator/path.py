@@ -4,10 +4,13 @@ density, BSDF-side env MIS weight, and the ray-cone texture LOD."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..ops.env import environment_pdf
 from ..ops.math import power_heuristic
+from ..ops.sunsky import SunDisk
 
 
 def nee_strategy_pdf(full_mis: bool, n_lights: int, use_light, e_pdf, p_select_light: float):
@@ -20,11 +23,13 @@ def nee_strategy_pdf(full_mis: bool, n_lights: int, use_light, e_pdf, p_select_l
     return torch.where(use_light, p_light_sel / n_lf, (1.0 - p_light_sel) * e_pdf)
 
 
-def env_bsdf_mis_weight(scene, bsdf_pdf, direction, p_select_light: float, sun_disk: bool = False):
+def env_bsdf_mis_weight(scene, bsdf_pdf, direction, p_select_light: float,
+                        sun: Optional[SunDisk] = None):
     """Power-heuristic weight of a BSDF-sampled ray that escaped to the
-    environment; camera rays (bsdf_pdf == 0) get weight 1."""
+    environment; camera rays (bsdf_pdf == 0) get weight 1. ``sun``: the sun
+    disk's constants, where the NEE mixture samples the disk."""
     p_light_sel = p_select_light if scene.n_lights > 0 else 0.0
-    pdf_env = environment_pdf(scene.env, direction, scene.sun_sky, sun_disk) * (1.0 - p_light_sel)
+    pdf_env = environment_pdf(scene.env, direction, sun) * (1.0 - p_light_sel)
     return torch.where(
         bsdf_pdf > 0.0, torch.clamp(power_heuristic(bsdf_pdf, pdf_env), min=0.0), 1.0
     )

@@ -1,38 +1,40 @@
 """Fused shading stage: one CUDA kernel for everything between the two
 traversals of a pooled-wavefront bounce (counterpart of
-``vk_raytrace_tpu/integrator/shade_fused.py``).
+``vk_raytrace_tpu/integrator/shade_fused.py``: its ``pallas_call`` body and
+the XLA prologue around it).
 
-Split of labour:
+On CUDA tensors :func:`shade_bounce_fused` is one launch of
+``vkrt_shade_stage`` (``csrc/shade.cu``): the bounce's RNG draws, the shade
+row and footprint tap reads, the uv transform and ray-cone LOD, the punctual
+light and environment NEE samples, the miss radiance with its MIS weight,
+then shade-state reconstruction, material resolve, NEE evaluation with MIS,
+the glTF BSDF sample, absorption, the Russian-roulette continuation
+probability and the next ray; it reads the scene's tables where they lie
+(:class:`StageTables`, built once per renderer) and writes each epilogue
+tensor. Its plain version, which CPU tensors take, is the prologue
+:func:`shade_inputs` (everything that gathers, in torch) followed by
+:func:`_shade_plain` (the body); the draws are taken up front in the order
+the unfused stage consumes them, so every lane's random stream is
+bit-identical either way. The epilogue (shadow ray, Russian roulette,
+scatter) stays in ``integrator/wavefront.py``.
 
-* **torch (prologue, :func:`shade_inputs`)**: everything that gathers — the
-  merged shade+material row (one (R, 128) row per lane,
-  ``integrator/shade.py::build_shade_rows``), the four footprint texture
-  taps (their indices depend on the row's uv, so the uv transform and the
-  ray-cone mip level are computed here), the punctual light and
-  environment NEE samples, the environment miss radiance with its MIS
-  weight, and the bounce's RNG draws. The draws are taken up front in the
-  order the unfused stage consumes them, so every lane's random stream is
-  bit-identical either way.
-* **the kernel (``csrc/shade.cu``) or, on CPU tensors, its plain version
-  :func:`_shade_plain`**: shade-state reconstruction, material resolve from
-  the taps, NEE evaluation with MIS, the glTF BSDF sample, absorption, the
-  Russian-roulette continuation probability and the next ray.
-* **torch (epilogue, ``integrator/wavefront.py``)**: the shadow ray, Russian
-  roulette and the scatter, as in the unfused stage.
+:func:`shade` runs the body alone on gathered inputs (``vkrt_shade`` on the
+card), off the main path.
 
 Supported statically (:func:`supported`): glTF PBR, a baked sky, merged
 shade rows, footprint tap rows and no transmission or clearcoat textures,
 in single-level and two-level (instanced) scenes. In an instanced scene the
-rows are object space: each lane's instance rows (object-to-world, then
-world-to-object) ride in 24 more aux lanes, the kernel brings the hit to
-world space, and the prologue's light position and ray-cone edges go
-through object-to-world too. :data:`LAUNCHES` counts kernel launches.
+rows are object space: the lane's instance rows (object-to-world, then
+world-to-object) bring the hit to world space, and the light position and
+ray-cone edges go through object-to-world too. :data:`LAUNCHES` counts
+kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -43,6 +45,7 @@ from ..ops import rng
 from ..ops.env import env_radiance, environment_sample, sample_env_mixture
 from ..ops.lights import sample_light
 from ..ops.math import mat3_vec, mat3t_vec
+from ..ops.sunsky import SunDisk, sun_disk_consts
 from .path import env_bsdf_mis_weight, nee_strategy_pdf
 from .shade import _OFFS, _PACK_LANES, _axis_base, _mip_lanes
 
@@ -65,16 +68,20 @@ def aux_width(instanced: bool) -> int:
 OUT_W = 24  # new_origin3 new_dir3 radiance3 throughput3 absorption3 nee3 ldir3 ldist rr_pcont pdf_b
 _TAPS = ("base", "mr", "normal", "emissive")
 
-# Kernel launches, counted where the wrapper launches.
-LAUNCHES = {"shade_bounce": 0}
+# Kernel launches, counted where the wrapper launches: the whole stage
+# (vkrt_shade_stage) and the body alone (vkrt_shade).
+LAUNCHES = {"shade_stage": 0, "shade_bounce": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["shade_bounce"] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 class ShadeFlags(NamedTuple):
-    """The kernel's static switches; branches on them are uniform per call."""
+    """The kernel's static switches; branches on them are uniform per call.
+    The body reads the first seven; the stage entry all (``csrc/shade.cu``
+    enum Flag)."""
 
     base_tex: bool
     mr_tex: bool
@@ -83,9 +90,69 @@ class ShadeFlags(NamedTuple):
     anisotropy: bool
     full_mis: bool
     instanced: bool
+    sun_disk: bool = False
+    mip: bool = False
 
     def bits(self) -> int:
         return sum(int(bool(f)) << i for i, f in enumerate(self))
+
+
+class StageTables(NamedTuple):
+    """What the stage reads of the scene besides the hit and the lane state,
+    on the scene's device (:func:`stage_tables`, once per renderer)."""
+
+    shade_rows: torch.Tensor           # (T, 128) f32
+    tap_rows: torch.Tensor             # (n_tap, 4) i32; one zero row without textures
+    atlas_w: int
+    env_rows: torch.Tensor             # (h * w, 16) f32
+    env_h: int
+    env_w: int
+    lights: torch.Tensor               # (L, 16) f32, :func:`light_rows`
+    n_lights: int
+    sun_lanes: torch.Tensor            # (44,) f32, the sun disk's constants (:func:`sun_lanes`)
+    o2w: Optional[torch.Tensor]        # (I, 12) f32 instance rows (instanced scenes)
+    w2o: Optional[torch.Tensor]
+
+
+def light_rows(lights) -> torch.Tensor:
+    """The light table as (L, 16) f32 rows (``csrc/shade.cu`` enum
+    LightLane): position, direction, color, intensity, range, inner and
+    outer cone cosines, type."""
+    col = lambda x: x.float().reshape(x.shape[0], -1)  # noqa: E731
+    parts = [lights.position, lights.direction, lights.color, lights.intensity, lights.range,
+             lights.inner_cone_cos, lights.outer_cone_cos, lights.type]
+    rows = torch.cat([col(x) for x in parts], dim=1)
+    return torch.nn.functional.pad(rows, (0, 16 - rows.shape[1])).contiguous()
+
+
+SUN_LANES = 44
+
+
+def sun_lanes(sd: SunDisk) -> torch.Tensor:
+    """The disk's constants as (44,) f32 in ``SunDisk``'s field order
+    (``csrc/shade.cu`` enum SunLane); booleans as 0 / 1."""
+    out = torch.cat([x.float().reshape(-1) for x in sd]).contiguous()
+    assert out.shape == (SUN_LANES,), out.shape
+    return out
+
+
+def stage_tables(scene, instances=None) -> StageTables:
+    """The stage's tables of ``scene`` (and of its ``InstanceTable``), on
+    the scene's device; what the kernel reads besides the lanes."""
+    tap = scene.tap_rows
+    if tap is None:
+        tap = torch.zeros(1, 4, dtype=torch.int32, device=scene.shade_rows.device)
+    o2w = w2o = None
+    if instances is not None:
+        o2w = instances.object_to_world.float().reshape(-1, 12).contiguous()
+        w2o = instances.world_to_object.float().reshape(-1, 12).contiguous()
+    return StageTables(
+        shade_rows=scene.shade_rows.contiguous(), tap_rows=tap.contiguous(),
+        atlas_w=int(scene.atlas.data.shape[1]), env_rows=scene.env.rows.contiguous(),
+        env_h=int(scene.env.image.shape[0]), env_w=int(scene.env.image.shape[1]),
+        lights=light_rows(scene.lights), n_lights=int(scene.n_lights),
+        sun_lanes=sun_lanes(sun_disk_consts(scene.sun_sky)), o2w=o2w, w2o=w2o,
+    )
 
 
 def supported(fused_shade: bool, cfg, scene, features) -> bool:
@@ -156,11 +223,12 @@ def shade_inputs(
     st_origin, st_direction, seed, active, radiance, throughput, absorption, bsdf_pdf,
     instances=None, sun_disk: bool = False, mip=None,
 ) -> ShadeInputs:
-    """The prologue of :func:`shade_bounce_fused`: the kernel's inputs.
-    ``active`` None means every lane is live; ``instances`` is the
-    ``InstanceTable`` of a two-level scene (``hit.inst`` then names each
-    lane's instance); ``mip`` is ``(pixel_spread, tdist including this
-    hit)`` for ray-cone mip selection, or None."""
+    """The prologue of :func:`shade_bounce_fused`'s plain version: the
+    body's inputs. ``active`` None means every lane is live; ``instances``
+    is the ``InstanceTable`` of a two-level scene (``hit.inst`` then names
+    each lane's instance); ``mip`` is ``(pixel_spread, tdist including this
+    hit)`` for ray-cone mip selection, or None. Every sum over x, y, z runs
+    in that order, as the kernel sums."""
     r = st_direction.shape[0]
     dev = st_direction.device
     if active is None:
@@ -171,6 +239,7 @@ def shade_inputs(
         ii = torch.clamp(hit.inst, min=0)
         o2w = instances.object_to_world[ii]
         w2o = instances.world_to_object[ii]
+    sun = sun_disk_consts(scene.sun_sky) if sun_disk else None
 
     # ---- RNG draws, in the unfused stage's order (env.py, bsdf_gltf.py) ---
     seed, u_sel = rng.rand(seed)
@@ -207,7 +276,8 @@ def shade_inputs(
         e2 = p3[:, 2] - p3[:, 0]
         if o2w is not None:
             e1, e2 = mat3_vec(o2w, e1), mat3_vec(o2w, e2)
-        area_w = torch.linalg.norm(torch.cross(e1, e2, dim=-1), dim=-1)
+        c = _cross(e1, e2)
+        area_w = torch.sqrt(_dot(c, c))[:, 0]
         u1 = uv3[:, 1] - uv3[:, 0]
         u2 = uv3[:, 2] - uv3[:, 0]
         area_uv = torch.abs(u1[:, 0] * u2[:, 1] - u1[:, 1] * u2[:, 0])
@@ -240,7 +310,7 @@ def shade_inputs(
     light_index = torch.clamp((u_li * float(n_l)).long(), max=n_l - 1)
     l_int, l_dir, l_dist = _positioned_light(scene, light_index, srow, hit, o2w)
     if sun_disk:
-        e_rad, e_dir, e_pdf = sample_env_mixture(scene.env, scene.sun_sky, u_mix, xi)
+        e_rad, e_dir, e_pdf = sample_env_mixture(scene.env, sun, u_mix, xi)
     else:
         e_rad, e_dir, e_pdf = environment_sample(scene.env, xi)
     e_rad = e_rad * hdr_mult
@@ -250,9 +320,9 @@ def shade_inputs(
     light_pdf = nee_strategy_pdf(full_mis, n_lights, use_light, e_pdf, p_select_light)
 
     # ---- environment miss radiance with its MIS weight --------------------
-    env = env_radiance(scene.env, scene.sun_sky, hdr_mult, st_direction, sun_disk=sun_disk)
+    env = env_radiance(scene.env, sun, hdr_mult, st_direction)
     if full_mis:
-        w_env = env_bsdf_mis_weight(scene, bsdf_pdf, st_direction, p_select_light, sun_disk=sun_disk)
+        w_env = env_bsdf_mis_weight(scene, bsdf_pdf, st_direction, p_select_light, sun)
         env = env * w_env[..., None]
 
     col = lambda x: x.float()[:, None]  # noqa: E731
@@ -275,38 +345,83 @@ def shade_inputs(
     return ShadeInputs(srow.contiguous(), taps, aux, flags, seed, miss)
 
 
+_VEC_OUT = ("new_origin", "new_dir", "radiance", "throughput", "absorption", "nee", "light_dir")
+_COL_OUT = ("light_dist", "rr_pcont", "pdf_b")
+
+
 def shade_bounce_fused(
     scene, features, full_mis: bool, p_select_light: float, hdr_mult: float, hit,
     st_origin, st_direction, seed, active, radiance, throughput, absorption, bsdf_pdf,
-    instances=None, sun_disk: bool = False, mip=None,
+    instances=None, sun_disk: bool = False, mip=None, path_tdist=None,
+    tables: Optional[StageTables] = None,
 ) -> dict:
     """Run the fused shading stage for one pooled bounce. Returns a dict with
     radiance, throughput, absorption, alive, visible, nee, light_dir,
     light_dist, new_origin, new_dir, rr_pcont, pdf_b, seed and miss: the
-    epilogue inputs of ``wavefront.py::bounce``."""
+    epilogue inputs of ``wavefront.py::bounce``.
+
+    The wavefront passes ``path_tdist`` (R,), the path length before this
+    hit: the stage adds the hit's t (where it hit) and returns the sum as
+    ``tdist``, and ``mip=(pixel_spread, None)`` takes the ray-cone LOD from
+    that sum (``mip=None``: the base level). The reference's own form,
+    ``mip=(pixel_spread, tdist)`` with tdist including this hit and no
+    ``path_tdist``, only the plain version takes.
+
+    CUDA tensors launch ``vkrt_shade_stage`` once, reading ``tables`` (the
+    scene's :class:`StageTables`, built once per renderer), or raise; CPU
+    tensors run the plain version, :func:`shade_inputs` then
+    :func:`_shade_plain`, which reads the scene itself."""
+    dev = st_direction.device
+    args = (scene, features, full_mis, p_select_light, hdr_mult, hit, st_origin, st_direction,
+            seed, active, radiance, throughput, absorption, bsdf_pdf, instances, sun_disk, mip,
+            path_tdist)
+    if dev.type == "cuda":
+        return _stage_launch(*args, tables)
+    if dev.type != "cpu":
+        raise ValueError(f"no shading stage for device {dev}")
+    return _stage_plain(*args)
+
+
+def _stage_plain(scene, features, full_mis, p_select_light, hdr_mult, hit, st_origin,
+                 st_direction, seed, active, radiance, throughput, absorption, bsdf_pdf,
+                 instances, sun_disk, mip, path_tdist) -> dict:
+    """The plain version of the stage (any device): :func:`shade_inputs`
+    then :func:`_shade_plain`, arguments as :func:`shade_bounce_fused`'s."""
+    extra = {}
+    if path_tdist is not None:
+        extra["tdist"] = path_tdist + torch.where(
+            hit.tri >= 0, torch.clamp(hit.t, max=1e30), 0.0)
+        if mip is not None:
+            mip = (mip[0], extra["tdist"])
     x = shade_inputs(
         scene, features, full_mis, p_select_light, hdr_mult, hit, st_origin, st_direction,
         seed, active, radiance, throughput, absorption, bsdf_pdf, instances=instances,
         sun_disk=sun_disk, mip=mip,
     )
-    out_vec, alive, visible = shade(x.srow, x.taps, x.aux, x.flags)
+    out_vec, alive, visible = _shade_plain(x.srow, x.taps, x.aux, x.flags)
     col = lambda a, b: out_vec[:, a:b].contiguous()  # noqa: E731  (the traversals want dense rays)
-    return dict(
-        new_origin=col(0, 3),
-        new_dir=col(3, 6),
-        radiance=col(6, 9),
-        throughput=col(9, 12),
-        absorption=col(12, 15),
-        nee=col(15, 18),
-        light_dir=col(18, 21),
-        light_dist=out_vec[:, 21].contiguous(),
-        rr_pcont=out_vec[:, 22].contiguous(),
-        pdf_b=out_vec[:, 23].contiguous(),
-        alive=alive,
-        visible=visible,
-        seed=x.seed,
-        miss=x.miss,
+    out = {k: col(3 * j, 3 * j + 3) for j, k in enumerate(_VEC_OUT)}
+    out.update({k: out_vec[:, 21 + j].contiguous() for j, k in enumerate(_COL_OUT)})
+    return dict(out, alive=alive, visible=visible, seed=x.seed, miss=x.miss, **extra)
+
+
+def _stage_launch(scene, features, full_mis, p_select_light, hdr_mult, hit, st_origin,
+                  st_direction, seed, active, radiance, throughput, absorption, bsdf_pdf,
+                  instances, sun_disk, mip, path_tdist, tables) -> dict:
+    """The stage kernel, arguments as :func:`_stage_plain`'s and the
+    scene's :class:`StageTables`: the wavefront's form only."""
+    if tables is None:
+        raise ValueError("the stage kernel reads the scene's StageTables: pass tables")
+    if path_tdist is None or (mip is not None and mip[1] is not None):
+        raise ValueError("the stage kernel adds the hit's t to path_tdist: pass path_tdist, "
+                         "and mip=(pixel_spread, None)")
+    flags = ShadeFlags(
+        features.base_tex, features.mr_tex, features.normal_tex, features.emissive_tex,
+        features.anisotropy, full_mis, instances is not None, sun_disk, mip is not None,
     )
+    return _stage_cuda(tables, flags, p_select_light, hdr_mult,
+                       mip[0] if mip is not None else None, hit, st_origin, st_direction, seed,
+                       active, radiance, throughput, absorption, bsdf_pdf, path_tdist)
 
 
 def shade(srow, taps, aux, flags: ShadeFlags):
@@ -828,6 +943,29 @@ def build(verbose: bool = False) -> str:
     return cuda_build.build("shade", "shade.cu", verbose=verbose)
 
 
+_P = ctypes.c_void_p
+_IN_PTRS = ("t", "u", "v", "tri", "inst", "origin", "direction", "radiance", "throughput",
+            "absorption", "seed", "bsdf_pdf", "tdist", "active", "shade_rows", "tap_rows",
+            "env_rows", "lights", "sun", "o2w", "w2o")
+# The output fields, named as the dict keys but for the three that share an
+# input's name.
+_OUT_PTRS = tuple(k + "_out" if k in _IN_PTRS else k for k in _VEC_OUT + _COL_OUT) + (
+    "tdist_out", "alive", "visible", "miss", "seed_out")
+
+
+class _StageArgs(ctypes.Structure):
+    """``csrc/shade.cu``'s StageArgs, field for field."""
+
+    _fields_ = (
+        [(k, _P) for k in _IN_PTRS]
+        + [(k, ctypes.c_int64) for k in ("n_tap", "atlas_w", "env_h", "env_w", "n_lights")]
+        + [(k, ctypes.c_float) for k in ("spread", "hdr_mult", "p_select", "p_light_n", "p_env",
+                                         "env_step")]
+        + [("n", ctypes.c_int64), ("flags", ctypes.c_int)]
+        + [(k, _P) for k in _OUT_PTRS]
+    )
+
+
 def _load():
     global _lib
     if _lib is None:
@@ -835,8 +973,98 @@ def _load():
         p = ctypes.c_void_p
         lib.vkrt_shade.argtypes = [p, p, p, ctypes.c_int64, ctypes.c_int, p, p, p, p]
         lib.vkrt_shade.restype = ctypes.c_int
+        lib.vkrt_shade_stage.argtypes = [ctypes.POINTER(_StageArgs), p]
+        lib.vkrt_shade_stage.restype = ctypes.c_int
+        lib.vkrt_shade_stage_args_size.restype = ctypes.c_int
+        size = lib.vkrt_shade_stage_args_size()
+        if size != ctypes.sizeof(_StageArgs):
+            raise RuntimeError(f"StageArgs: {size} bytes in the library, "
+                               f"{ctypes.sizeof(_StageArgs)} in the binding")
         _lib = lib
     return _lib
+
+
+def _check(name, x, shape, dtype, dev):
+    if (x.device != dev or x.dtype != dtype or tuple(x.shape) != tuple(shape)
+            or not x.is_contiguous()):
+        raise ValueError(f"{name}: want contiguous {dtype} {tuple(shape)} on {dev}, got "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    return x.data_ptr()
+
+
+def _stage_cuda(*args):
+    """One launch of ``vkrt_shade_stage`` (arguments as :func:`stage_args`'s);
+    returns the epilogue's dict."""
+    a, out = stage_args(*args)
+    launch_stage(a, args[6].device)
+    return out
+
+
+def launch_stage(a: "_StageArgs", dev) -> None:
+    """Launch ``vkrt_shade_stage`` on prepared arguments (nothing when it has
+    no lanes) and count it."""
+    if a.n == 0:  # nothing to launch, and so nothing to count
+        return
+    err = _load().vkrt_shade_stage(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"shade stage kernel launch failed: cudaError {err}")
+    LAUNCHES["shade_stage"] += 1
+
+
+def stage_args(tables: StageTables, flags: ShadeFlags, p_select_light, hdr_mult, spread, hit,
+               st_origin, st_direction, seed, active, radiance, throughput, absorption,
+               bsdf_pdf, tdist):
+    """The kernel's checked arguments and its freshly allocated outputs:
+    ``(_StageArgs, dict)``. ``tdist`` is the path length before this hit."""
+    _load()
+    dev = st_direction.device
+    r = st_direction.shape[0]
+    f32, i64 = torch.float32, torch.int64
+    a = _StageArgs()
+    for name, x, shape, dt in (
+        ("t", hit.t, (r,), f32), ("u", hit.u, (r,), f32), ("v", hit.v, (r,), f32),
+        ("tri", hit.tri, (r,), i64), ("origin", st_origin, (r, 3), f32),
+        ("direction", st_direction, (r, 3), f32), ("radiance", radiance, (r, 3), f32),
+        ("throughput", throughput, (r, 3), f32), ("absorption", absorption, (r, 3), f32),
+        ("seed", seed, (r,), i64), ("tdist", tdist, (r,), f32),
+        ("shade_rows", tables.shade_rows, (tables.shade_rows.shape[0], 128), f32),
+        ("tap_rows", tables.tap_rows, (tables.tap_rows.shape[0], 4), torch.int32),
+        ("env_rows", tables.env_rows, (tables.env_h * tables.env_w, 16), f32),
+        ("lights", tables.lights, (tables.lights.shape[0], 16), f32),
+        ("sun", tables.sun_lanes, (SUN_LANES,), f32),
+    ):
+        setattr(a, name, _check(name, x, shape, dt, dev))
+    if flags.full_mis:
+        a.bsdf_pdf = _check("bsdf_pdf", bsdf_pdf, (r,), f32, dev)
+    if active is not None:
+        a.active = _check("active", active, (r,), torch.bool, dev)
+    if flags.instanced:
+        a.inst = _check("inst", hit.inst, (r,), i64, dev)
+        n_inst = tables.o2w.shape[0]
+        a.o2w = _check("o2w", tables.o2w, (n_inst, 12), f32, dev)
+        a.w2o = _check("w2o", tables.w2o, (n_inst, 12), f32, dev)
+    if tables.tap_rows.data_ptr() % 16:
+        raise ValueError("tap_rows: the kernel reads 16-byte rows, want a 16-byte aligned table")
+    a.n_tap, a.atlas_w = tables.tap_rows.shape[0], tables.atlas_w
+    a.env_h, a.env_w, a.n_lights = tables.env_h, tables.env_w, tables.n_lights
+    p_light_sel = p_select_light if tables.n_lights > 0 else 0.0
+    a.spread = float(spread) if spread is not None else 0.0
+    a.hdr_mult = float(hdr_mult)
+    a.p_select = float(p_select_light)
+    a.p_light_n = p_light_sel / float(max(tables.n_lights, 1))
+    a.p_env = 1.0 - p_light_sel
+    a.env_step = math.pi / tables.env_h  # ops/env.py's step_theta
+    a.n, a.flags = r, flags.bits()
+    out = {k: torch.empty(r, 3, dtype=f32, device=dev) for k in _VEC_OUT}
+    out.update({k: torch.empty(r, dtype=f32, device=dev) for k in _COL_OUT})
+    for k in ("alive", "visible", "miss"):
+        out[k] = torch.empty(r, dtype=torch.bool, device=dev)
+    out["seed"] = torch.empty(r, dtype=i64, device=dev)
+    out["tdist"] = torch.empty(r, dtype=f32, device=dev)
+    for field, k in zip(_OUT_PTRS, (*_VEC_OUT, *_COL_OUT, "tdist", "alive", "visible", "miss",
+                                    "seed")):
+        setattr(a, field, out[k].data_ptr())
+    return a, out
 
 
 def _shade_cuda(srow, taps, aux, flags: ShadeFlags):

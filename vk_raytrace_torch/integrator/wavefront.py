@@ -14,7 +14,8 @@ two-level scene, instance candidate rounds over per-mesh BVHs, ``ops/tlas.py``),
 shade state and material, NEE with MIS, glTF BSDF sample, shadow any-hit,
 Russian roulette, and a scatter of finished paths into the per-unit image.
 With ``fused_shade`` the shading runs as one kernel launch per bounce
-(``integrator/shade_fused.py``) wherever its static conditions hold.
+(``integrator/shade_fused.py``) wherever its static conditions hold; the
+kernel also adds each hit's distance to the path length (``tdist``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from ..ops.bsdf_gltf import pbr_eval, pbr_sample
 from ..ops.env import env_radiance, env_sample
 from ..ops.lights import sample_light
 from ..ops.math import dot, firefly_luminance, offset_ray, power_heuristic
+from ..ops.sunsky import sun_disk_consts
 from ..ops.tlas import InstancedAccel, any_hit_instanced, closest_hit_instanced
 from ..ops.traverse_wide import any_hit_bundle, closest_hit_bundle
 from .camera import generate_rays_for_pixels
@@ -45,13 +47,15 @@ _FIELDS = (
 
 def render_units_pooled(
     scene, packed, cfg, frame: int, pix0: int, n_pix: int, pool: int,
-    alpha_pack=None, features=None, fused_shade: bool = False,
+    alpha_pack=None, features=None, fused_shade: bool = False, shade_tables=None,
 ):
     """Trace ``n_pix * cfg.max_samples`` paths of pixels ``[pix0, pix0 +
     n_pix)``. Returns ``(radiance_mean (n_pix, 3), rays)``; ``rays`` counts
     every traced ray (closest-hit rays plus shadow rays) as a 0-d tensor.
     ``fused_shade`` asks for the fused shading stage; it runs where
-    ``shade_fused.supported`` holds, the unfused stage elsewhere."""
+    ``shade_fused.supported`` holds, the unfused stage elsewhere.
+    ``shade_tables``: the fused stage's ``StageTables`` (built here when
+    None and the fused stage runs)."""
     if cfg.pbr_mode == PBR_DISNEY:
         raise NotImplementedError("the Disney BSDF is not ported yet; use PBR_GLTF")
     if cfg.use_sun_sky:
@@ -71,6 +75,10 @@ def render_units_pooled(
     pack = alpha_pack if cfg.use_any_hit else None
     use_fused = shade_fused.supported(fused_shade, cfg, scene, features)
     instances = packed.inst if isinstance(packed, InstancedAccel) else None
+    if use_fused and shade_tables is None:
+        shade_tables = shade_fused.stage_tables(scene, instances)
+    # The sun disk's per-scene constants, once per call (the eager stage).
+    sun = sun_disk_consts(scene.sun_sky) if cfg.sun_disk and not use_fused else None
 
     def closest(o, d, seed):
         if instances is not None:
@@ -138,20 +146,16 @@ def render_units_pooled(
         """The XLA shading stage of the reference, clause for clause."""
         # Environment miss (pathtrace.glsl:203-228); every lane here is live.
         miss = hit.tri < 0
-        env = env_radiance(scene.env, scene.sun_sky, hdr_mult, s["direction"], sun_disk=cfg.sun_disk)
+        env = env_radiance(scene.env, sun, hdr_mult, s["direction"])
         if cfg.full_mis:
-            w_env = env_bsdf_mis_weight(
-                scene, s["bsdf_pdf"], s["direction"], p_select_light, sun_disk=cfg.sun_disk
-            )
+            w_env = env_bsdf_mis_weight(scene, s["bsdf_pdf"], s["direction"], p_select_light, sun)
             env = env * w_env[..., None]
         radiance = s["radiance"] + torch.where(miss[..., None], env * s["throughput"], 0.0)
         alive = ~miss
 
         ss = get_shade_state(scene.shade_rows, hit.tri, hit.u, hit.v, instances, hit.inst)
-        lod = None
-        if use_mips:
-            tdist = s["tdist"] + torch.where(hit.tri >= 0, torch.clamp(hit.t, max=1e30), 0.0)
-            lod = cone_lod(ss, spread, tdist)
+        tdist = s["tdist"] + torch.where(hit.tri >= 0, torch.clamp(hit.t, max=1e30), 0.0)
+        lod = cone_lod(ss, spread, tdist) if use_mips else None
         state = resolve_material(
             ss, scene.atlas, s["direction"], features=features,
             tap_rows=scene.tap_rows, lod=lod,
@@ -179,9 +183,7 @@ def render_units_pooled(
         n_l = max(n_lights, 1)
         light_index = torch.clamp((u_li * float(n_l)).long(), max=n_l - 1)
         l_int, l_dir, l_dist = sample_light(scene.lights, light_index, state.position)
-        e_rad, e_dir, e_pdf, seed = env_sample(
-            scene.env, scene.sun_sky, hdr_mult, seed, sun_disk=cfg.sun_disk
-        )
+        e_rad, e_dir, e_pdf, seed = env_sample(scene.env, sun, hdr_mult, seed)
         light_contrib = torch.where(use_light[..., None], l_int, e_rad)
         light_dir = torch.where(use_light[..., None], l_dir, e_dir)
         light_dist = torch.where(use_light, l_dist, 1e32)
@@ -221,24 +223,23 @@ def render_units_pooled(
         new_dir = torch.where(alive[..., None], l_b, s["direction"])
         return (
             radiance, alive, throughput, absorption, new_origin, new_dir,
-            nee, light_dir, light_dist, visible, rr_pcont, pdf_b, seed,
+            nee, light_dir, light_dist, visible, rr_pcont, pdf_b, seed, tdist,
         )
 
     def shade_stage_fused(s, hit, seed):
-        """The same clauses as :func:`shade_stage` in one kernel launch."""
-        mip = None
-        if use_mips:
-            tdist = s["tdist"] + torch.where(hit.tri >= 0, torch.clamp(hit.t, max=1e30), 0.0)
-            mip = (spread, tdist)
+        """The same clauses as :func:`shade_stage` in one kernel launch,
+        which also adds the hit's t to the path length."""
         # bounce() receives the live lanes only, so every lane is active.
         out = shade_fused.shade_bounce_fused(
             scene, features, cfg.full_mis, p_select_light, hdr_mult, hit, s["origin"],
             s["direction"], seed, None, s["radiance"], s["throughput"], s["absorption"],
-            s["bsdf_pdf"], instances=instances, sun_disk=cfg.sun_disk, mip=mip,
+            s["bsdf_pdf"], instances=instances, sun_disk=cfg.sun_disk,
+            mip=(spread, None) if use_mips else None, path_tdist=s["tdist"],
+            tables=shade_tables,
         )
         return tuple(out[k] for k in (
             "radiance", "alive", "throughput", "absorption", "new_origin", "new_dir",
-            "nee", "light_dir", "light_dist", "visible", "rr_pcont", "pdf_b", "seed",
+            "nee", "light_dir", "light_dist", "visible", "rr_pcont", "pdf_b", "seed", "tdist",
         ))
 
     def bounce(s):
@@ -255,7 +256,7 @@ def render_units_pooled(
         with stage_range:
             (
                 radiance, alive, throughput, absorption, new_origin, new_dir,
-                nee, light_dir, light_dist, visible, rr_pcont, pdf_b, seed,
+                nee, light_dir, light_dist, visible, rr_pcont, pdf_b, seed, tdist,
             ) = (shade_stage_fused if use_fused else shade_stage)(s, hit, seed)
         rr_gate = s["depth"] >= cfg.rr_depth if cfg.rr else torch.zeros_like(alive)
         rr_pcont = torch.where(rr_gate, rr_pcont, 1.0)
@@ -279,7 +280,7 @@ def render_units_pooled(
             radiance=radiance, throughput=throughput, absorption=absorption,
             seed=seed, depth=depth,
             bsdf_pdf=torch.where(alive, pdf_b, s["bsdf_pdf"]),
-            tdist=s["tdist"] + torch.where(hit.tri >= 0, torch.clamp(hit.t, max=1e30), 0.0),
+            tdist=tdist,
         )
         return s, alive, n_rays + shadow_rays
 

@@ -2,20 +2,22 @@
 ``Environment_sample`` / ``EnvSample`` of ``shaders/env_sampling.glsl``).
 
 The environment is always a baked lat-long map with packed per-texel rows
-(``render.with_env_rows``); the sun&sky path adds ``sun_disk=True``: the
-baked, disk-less sky is alias-sampled, the analytic sun disk is a uniform
-cone, and NEE draws from their 50/50 mixture with the mixture density.
+(``render.with_env_rows``); the sun&sky path passes the sun disk's
+per-scene constants (``ops/sunsky.SunDisk``): the baked, disk-less sky is
+alias-sampled, the analytic sun disk is a uniform cone, and NEE draws from
+their 50/50 mixture with the mixture density.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from . import rng
-from .math import make_coordinate_system, normalize, spherical_uv
-from .sunsky import sun_disk_cone, sun_disk_radiance
+from .math import dot3, normalize3, spherical_uv
+from .sunsky import SunDisk, sun_disk_at
 
 M_PI = math.pi
 
@@ -54,59 +56,53 @@ def environment_sample(env, xi):
     return radiance, direction, pdf
 
 
-def _cone_pdf(sun_sky, direction):
-    """(q, p_cone(direction)) of the sun-cone half of the NEE mixture."""
-    present, axis, cos_theta = sun_disk_cone(sun_sky)
-    q = torch.where(present, 0.5, 0.0)
-    solid_angle = 2.0 * M_PI * torch.clamp(1.0 - cos_theta, min=1e-12)
-    inside = torch.sum(direction * axis, dim=-1) >= cos_theta - 1e-6
-    return q, torch.where(inside, 1.0 / solid_angle, 0.0)
+def _cone_pdf(sd: SunDisk, direction):
+    """p_cone(direction) of the sun-cone half of the NEE mixture."""
+    inside = dot3(direction, sd.axis) >= sd.cos_lo
+    return torch.where(inside, sd.inv_solid, 0.0)
 
 
-def environment_pdf(env, direction, sun_sky=None, sun_disk: bool = False):
+def environment_pdf(env, direction, sun: Optional[SunDisk] = None):
     """Density of the env NEE strategy at ``direction`` (per steradian)."""
     h, w = env.image.shape[0], env.image.shape[1]
     uv = spherical_uv(direction)
     x = torch.clamp((uv[..., 0] * w).long(), 0, w - 1)
     y = torch.clamp((uv[..., 1] * h).long(), 0, h - 1)
     pdf = env.rows[y * w + x, 14]
-    if sun_disk:
-        q, p_cone = _cone_pdf(sun_sky, direction)
-        pdf = (1.0 - q) * pdf + q * p_cone
+    if sun is not None:
+        pdf = sun.one_minus_q * pdf + sun.q * _cone_pdf(sun, direction)
     return pdf
 
 
-def sample_env_mixture(env, sun_sky, u_mix, xi):
+def sample_env_mixture(env, sd: SunDisk, u_mix, xi):
     """Sun-disk NEE mixture with pre-drawn variates: ``(radiance, dir,
     pdf)``, radiance the total env (baked + analytic disk)."""
     a_rad, a_dir, a_pdf = environment_sample(env, xi)
-    present, axis, cos_theta = sun_disk_cone(sun_sky)
-    q = torch.where(present, 0.5, 0.0)
-    cz = 1.0 - xi[..., 1] * (1.0 - cos_theta)
+    cz = 1.0 - xi[..., 1] * sd.one_minus_cos
     sz = torch.sqrt(torch.clamp(1.0 - cz * cz, min=0.0))
     phi = xi[..., 2] * (2.0 * M_PI)
-    t, b = make_coordinate_system(axis.expand(xi.shape[:-1] + (3,)))
-    c_dir = normalize(
-        t * (sz * torch.cos(phi))[..., None]
-        + b * (sz * torch.sin(phi))[..., None]
-        + axis * cz[..., None]
+    c_dir = normalize3(
+        sd.cone_t * (sz * torch.cos(phi))[..., None]
+        + sd.cone_b * (sz * torch.sin(phi))[..., None]
+        + sd.axis * cz[..., None]
     )
-    take_cone = u_mix < q
+    take_cone = u_mix < sd.q
     direction = torch.where(take_cone[..., None], c_dir, a_dir)
-    _, p_cone_at = _cone_pdf(sun_sky, direction)
+    p_cone_at = _cone_pdf(sd, direction)
     p_alias_at = torch.where(take_cone, environment_pdf(env, c_dir), a_pdf)
-    pdf = (1.0 - q) * p_alias_at + q * p_cone_at
+    pdf = sd.one_minus_q * p_alias_at + sd.q * p_cone_at
     c_rad = _bilinear_packed(env.rows, env.image.shape[0], env.image.shape[1], spherical_uv(c_dir))
     radiance = torch.where(take_cone[..., None], c_rad, a_rad)
-    return radiance + sun_disk_radiance(sun_sky, direction), direction, pdf
+    return radiance + sun_disk_at(sd, direction), direction, pdf
 
 
-def env_sample(env, sun_sky, hdr_multiplier: float, seed, sun_disk: bool = False):
-    """``EnvSample`` (env_sampling.glsl:105-135): ``(radiance, dir, pdf, seed')``."""
-    if sun_disk:
+def env_sample(env, sun: Optional[SunDisk], hdr_multiplier: float, seed):
+    """``EnvSample`` (env_sampling.glsl:105-135): ``(radiance, dir, pdf,
+    seed')``; with the sun disk's constants ``sun``, its NEE mixture."""
+    if sun is not None:
         seed, u_mix = rng.rand(seed)
         seed, xi = rng.rand3(seed)
-        radiance, direction, pdf = sample_env_mixture(env, sun_sky, u_mix, xi)
+        radiance, direction, pdf = sample_env_mixture(env, sun, u_mix, xi)
     else:
         seed, xi = rng.rand3(seed)
         radiance, direction, pdf = environment_sample(env, xi)
@@ -131,9 +127,10 @@ def _bilinear_packed(rows, h: int, w: int, uv):
     return top + (bot - top) * fy
 
 
-def env_radiance(env, sun_sky, hdr_multiplier: float, direction, sun_disk: bool = False):
-    """Environment radiance along a miss direction (pathtrace.glsl:218-227)."""
+def env_radiance(env, sun: Optional[SunDisk], hdr_multiplier: float, direction):
+    """Environment radiance along a miss direction (pathtrace.glsl:218-227),
+    with the analytic disk of ``sun`` (the sun disk's constants) added."""
     e = _bilinear_packed(env.rows, env.image.shape[0], env.image.shape[1], spherical_uv(direction))
-    if sun_disk:
-        e = e + sun_disk_radiance(sun_sky, direction)
+    if sun is not None:
+        e = e + sun_disk_at(sun, direction)
     return e * hdr_multiplier

@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 
 from ..models.schema import LIGHT_DIRECTIONAL, LIGHT_SPOT
-from .math import normalize, smoothstep
+from .math import dot3, normalize3, smoothstep
 
 
 def range_attenuation(light_range, distance):
@@ -18,7 +18,7 @@ def range_attenuation(light_range, distance):
 
 def spot_attenuation(point_to_light, spot_direction, outer_cone_cos, inner_cone_cos):
     """(punctual.glsl:39-51)"""
-    actual_cos = torch.sum(normalize(spot_direction) * normalize(-point_to_light), dim=-1)
+    actual_cos = dot3(normalize3(spot_direction), normalize3(-point_to_light))
     ramp = smoothstep(outer_cone_cos, inner_cone_cos, actual_cos)
     full = torch.where(actual_cos < inner_cone_cos, ramp, 1.0)
     return torch.where(actual_cos > outer_cone_cos, full, 0.0)
@@ -26,13 +26,14 @@ def spot_attenuation(point_to_light, spot_direction, outer_cone_cos, inner_cone_
 
 def sample_light(lights, light_index, position):
     """One punctual light toward each shading point (pathtrace.glsl:119-152):
-    ``(intensity (R,3), light_dir (R,3), light_dist (R,))``, pdf 1."""
+    ``(intensity (R,3), light_dir (R,3), light_dist (R,))``, pdf 1. Sums
+    over x, y, z run in that order, as ``csrc/shade.cu`` sums."""
     i = light_index
     ltype = lights.type[i]
     is_dir = ltype == LIGHT_DIRECTIONAL
     ldirection = lights.direction[i]
     point_to_light = torch.where(is_dir[..., None], -ldirection, lights.position[i] - position)
-    light_dist = torch.sqrt(torch.clamp(torch.sum(point_to_light ** 2, dim=-1), min=1e-20))
+    light_dist = torch.sqrt(torch.clamp(dot3(point_to_light, point_to_light), min=1e-20))
     light_dist = torch.where(is_dir, 1e32, light_dist)
     r_att = torch.where(is_dir, 1.0, range_attenuation(lights.range[i], light_dist))
     s_att = torch.where(
@@ -41,4 +42,4 @@ def sample_light(lights, light_index, position):
         1.0,
     )
     intensity = (r_att * s_att * lights.intensity[i])[..., None] * lights.color[i]
-    return intensity, normalize(point_to_light), light_dist
+    return intensity, normalize3(point_to_light), light_dist

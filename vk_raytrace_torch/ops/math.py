@@ -37,6 +37,18 @@ def normalize(v: torch.Tensor) -> torch.Tensor:
     return v / torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
 
 
+def dot3(a, b):
+    """Dot product over the last axis of 3, summed x, y, z in that order on
+    every device (a reduction's order is not fixed on the card); on the CPU
+    it equals ``dot``."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def normalize3(v: torch.Tensor) -> torch.Tensor:
+    """``normalize`` with the sum of :func:`dot3`."""
+    return v / torch.sqrt(dot3(v, v))[..., None]
+
+
 def dot(a, b, keepdim: bool = False):
     return torch.sum(a * b, dim=-1, keepdim=keepdim)
 

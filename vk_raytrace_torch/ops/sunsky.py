@@ -10,11 +10,12 @@ and adds the core back per ray with :func:`sun_disk_radiance`.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .math import luminance, normalize, smoothstep
+from .math import dot3, luminance, make_coordinate_system, normalize, normalize3, smoothstep
 
 M_PI = math.pi
 
@@ -340,55 +341,118 @@ def sun_and_sky(ss, direction, disk: bool = True):
     return torch.where(ss.multiplier <= 0.0, torch.zeros_like(result), result)
 
 
-def sun_disk_radiance(ss, direction):
-    """The exact term dropped by ``sun_and_sky(..., disk=False)``: the disk
-    core (sun_and_sky.glsl:543-548), horizon-blended and color-tweaked."""
+class SunDisk(NamedTuple):
+    """The analytic sun disk's per-scene constants (:func:`sun_disk_consts`):
+    0-d or (3,) tensors on the sky's device. The per-direction half of
+    :func:`sun_disk_radiance` and of the sun-cone NEE strategy
+    (``ops/env.py``) reads only these, and so does the fused shading kernel
+    (``csrc/shade.cu``, packed by ``shade_fused.stage_tables``)."""
+
+    y_is_up: torch.Tensor        # bool: swap y and z before the bend
+    hh: torch.Tensor             # horizon height / 10
+    sun_dir0: torch.Tensor       # (3,) the tweaked sun direction
+    sun_radius: torch.Tensor     # disk radius (rad)
+    radius_c: torch.Tensor       # clamp(sun_radius, min=1e-9)
+    disk_ok: torch.Tensor        # bool: disk intensity > 0 and disk scale > 0
+    ss_den: torch.Tensor         # smoothstep(8.5, 9.5 + haze / 50, .)'s e1 - e0
+    intensity: torch.Tensor      # sun disk intensity
+    disk_scale: torch.Tensor     # physical disk scale (1 unless physically scaled)
+    color_up: torch.Tensor       # (3,) _sun_color at the local haze (downness > 0)
+    color_down: torch.Tensor     # (3,) _sun_color at haze 2.0
+    rgb_scale: torch.Tensor      # (3,)
+    hor_blur: torch.Tensor       # horizon blur / 10
+    hor_blur_c: torch.Tensor     # clamp(hor_blur, min=1e-9)
+    sat: torch.Tensor            # tweaked saturation
+    one_minus_sat: torch.Tensor  # 1 - sat
+    tweak: torch.Tensor          # (3,) (1 + redness, 1, 1 - redness)
+    dark: torch.Tensor           # bool: multiplier <= 0 (no disk)
+    present: torch.Tensor        # bool: the sampling cone exists
+    axis: torch.Tensor           # (3,) cone axis: normalize(sun_direction)
+    cos_theta: torch.Tensor      # cone half-angle cosine
+    q: torch.Tensor              # cone share of the NEE mixture (0.5 or 0)
+    one_minus_q: torch.Tensor    # 1 - q
+    one_minus_cos: torch.Tensor  # 1 - cos_theta
+    cos_lo: torch.Tensor         # cos_theta - 1e-6, the cone's inside test
+    inv_solid: torch.Tensor      # 1 / the cone's solid angle
+    cone_t: torch.Tensor         # (3,) make_coordinate_system(axis)
+    cone_b: torch.Tensor         # (3,)
+
+
+def sun_disk_consts(ss) -> SunDisk:
+    """Everything of :func:`sun_disk_radiance` and :func:`sun_disk_cone`
+    that does not depend on the direction, computed once from ``ss``."""
     horiz_height = ss.horizon_height / 10.0
-    d = _vector_tweak(direction, ss.y_is_up, horiz_height)
     local_haze = torch.clamp(2.0 + ss.haze, min=2.0)
     local_sat = _tweak_saturation(ss.saturation, local_haze)
-    rgb_scale = _rgb_scale(ss)
-
-    downness = d[..., 2]
     sun_dir0 = _vector_tweak(normalize(ss.sun_direction), ss.y_is_up, horiz_height)
-    cosang = torch.clamp(torch.sum(d * sun_dir0, dim=-1), -1.0, 1.0)
-    sun_angle = torch.acos(cosang)
     sun_radius = 0.00465 * ss.sun_disk_scale * 10.0
-    in_disk = (
-        (sun_angle < sun_radius)
-        & (ss.sun_disk_intensity > 0.0)
-        & (ss.sun_disk_scale > 0.0)
-    )
     disk_scale, _ = _physical_scale(
         ss.sun_disk_scale, ss.sun_glow_intensity, ss.sun_disk_intensity
     )
     disk_scale = torch.where(
         ss.physically_scaled_sun == 1, disk_scale, torch.ones_like(disk_scale)
     )
-    sf = (1.0 - sun_angle / torch.clamp(sun_radius, min=1e-9)) * 10.0
-    disk_term = (
-        smoothstep(8.5, 9.5 + local_haze / 50.0, sf)
-        * 100.0 * ss.sun_disk_intensity * disk_scale
-    )
-    sun_color = _sun_color(
-        _with_z_floor(sun_dir0), torch.where(downness > 0.0, local_haze, 2.0)
-    )
-    delta = torch.where(in_disk[..., None], sun_color * disk_term[..., None], 0.0)
-    delta = delta * rgb_scale
-
+    hazes = torch.stack([local_haze, torch.full_like(local_haze, 2.0)])
+    colors = _sun_color(_with_z_floor(sun_dir0), hazes)  # downness > 0, and not
+    red = ss.redblueshift
+    present, axis, cos_theta = sun_disk_cone(ss)
+    q = torch.where(present, 0.5, 0.0)
+    solid_angle = 2.0 * M_PI * torch.clamp(1.0 - cos_theta, min=1e-12)
+    cone_t, cone_b = make_coordinate_system(axis)
     hor_blur = ss.horizon_blur / 10.0
-    dness = smoothstep(
-        0.0, 1.0, torch.clamp(-downness / torch.clamp(hor_blur, min=1e-9), 0.0, 1.0)
+    return SunDisk(
+        y_is_up=ss.y_is_up == 1, hh=horiz_height, sun_dir0=sun_dir0, sun_radius=sun_radius,
+        radius_c=torch.clamp(sun_radius, min=1e-9),
+        disk_ok=(ss.sun_disk_intensity > 0.0) & (ss.sun_disk_scale > 0.0),
+        ss_den=(9.5 + local_haze / 50.0) - 8.5, intensity=ss.sun_disk_intensity,
+        disk_scale=disk_scale, color_up=colors[0], color_down=colors[1],
+        rgb_scale=_rgb_scale(ss), hor_blur=hor_blur,
+        hor_blur_c=torch.clamp(hor_blur, min=1e-9), sat=local_sat,
+        one_minus_sat=1.0 - local_sat,
+        tweak=torch.stack([1.0 + red, torch.ones_like(red), 1.0 - red], dim=-1),
+        dark=ss.multiplier <= 0.0, present=present, axis=axis, cos_theta=cos_theta, q=q,
+        one_minus_q=1.0 - q, one_minus_cos=1.0 - cos_theta, cos_lo=cos_theta - 1e-6,
+        inv_solid=1.0 / solid_angle, cone_t=cone_t, cone_b=cone_b,
     )
+
+
+def sun_disk_at(sd: SunDisk, direction):
+    """The per-direction half of :func:`sun_disk_radiance` from its
+    constants ``sd``; every sum over x, y, z in that order."""
+    d_sw = torch.stack([direction[..., 0], direction[..., 2], direction[..., 1]], dim=-1)
+    d = torch.where(sd.y_is_up, d_sw, direction)
+    bent = normalize3(torch.stack([d[..., 0], d[..., 1], d[..., 2] - sd.hh], dim=-1))
+    d = torch.where(sd.hh != 0.0, bent, d)
+    downness = d[..., 2]
+    cosang = torch.clamp(dot3(d, sd.sun_dir0), -1.0, 1.0)
+    sun_angle = torch.acos(cosang)
+    in_disk = (sun_angle < sd.sun_radius) & sd.disk_ok
+    sf = (1.0 - sun_angle / sd.radius_c) * 10.0
+    t = torch.clamp((sf - 8.5) / sd.ss_den, 0.0, 1.0)
+    disk_term = t * t * (3.0 - 2.0 * t) * 100.0 * sd.intensity * sd.disk_scale
+    sun_color = torch.where((downness > 0.0)[..., None], sd.color_up, sd.color_down)
+    delta = torch.where(in_disk[..., None], sun_color * disk_term[..., None], 0.0)
+    delta = delta * sd.rgb_scale
+    dness = smoothstep(0.0, 1.0, torch.clamp(-downness / sd.hor_blur_c, 0.0, 1.0))
     h_scale = torch.where(
         downness <= 0.0,
-        torch.where(hor_blur > 0.0, 1.0 - dness, torch.zeros_like(dness)),
+        torch.where(sd.hor_blur > 0.0, 1.0 - dness, torch.zeros_like(dness)),
         torch.ones_like(dness),
     )
     delta = delta * h_scale[..., None]
-    delta = _color_tweak(delta, local_sat, ss.redblueshift)
+    # _color_tweak(delta, sat, redblueshift) with its constants
+    inten = luminance(delta)[..., None]
+    desat = delta * sd.sat + inten * sd.one_minus_sat
+    delta = torch.where(sd.sat <= 0.0, inten * torch.ones_like(delta), desat) * sd.tweak
     delta = delta * M_PI
-    return torch.where(ss.multiplier <= 0.0, torch.zeros_like(delta), delta)
+    return torch.where(sd.dark, torch.zeros_like(delta), delta)
+
+
+def sun_disk_radiance(ss, direction):
+    """The exact term dropped by ``sun_and_sky(..., disk=False)``: the disk
+    core (sun_and_sky.glsl:543-548), horizon-blended and color-tweaked:
+    :func:`sun_disk_at` of :func:`sun_disk_consts`."""
+    return sun_disk_at(sun_disk_consts(ss), direction)
 
 
 def sun_disk_cone(ss):

@@ -15,11 +15,13 @@ import time
 import numpy as np
 import torch
 
+from .integrator import shade_fused
 from .integrator.camera import with_aspect
 from .integrator.shade import build_shade_rows, mat_features
 from .integrator.wavefront import render_units_pooled
 from .models.schema import SceneData, default_sun_sky, default_tonemapper, dummy_atlas, dummy_environment
 from .ops.bvh8 import build_accel_bundle
+from .ops.tlas import InstancedAccel
 from .ops.texture import build_tap_rows
 from .ops.tonemap import TM_UNCHARTED, apply_post
 from .ops.traverse_wide import make_alpha_pack
@@ -130,6 +132,12 @@ class Renderer:
             else None
         )
         self.tonemapper = default_tonemapper().to(self.device)
+        # The fused shading stage's tables (light rows, sun-disk constants,
+        # instance rows), built once here where that stage runs.
+        self._shade_tables = None
+        if shade_fused.supported(fused_shade, self._run_cfg, self.scene, self.features):
+            inst = self.packed.inst if isinstance(self.packed, InstancedAccel) else None
+            self._shade_tables = shade_fused.stage_tables(self.scene, inst)
         self._sync()
         self.build_times["upload_s"] = time.time() - t0
         self.last_rays = 0
@@ -170,7 +178,7 @@ class Renderer:
             img, r = render_units_pooled(
                 self.scene, self.packed, cfg, frame, i * n_pix, n_pix, pool,
                 alpha_pack=self.alpha_pack, features=self.features,
-                fused_shade=self.fused_shade,
+                fused_shade=self.fused_shade, shade_tables=self._shade_tables,
             )
             parts.append(img)
             rays = rays + r
