@@ -1,14 +1,20 @@
 #!/usr/bin/env python3
 """Where a frame of the port's main path spends its time on one GPU.
 
-    python3 chip_profile.py [--scene atrium|bistro] [--frames N] [--top K] [--fused-shade]
+    python3 chip_profile.py [--scene atrium|bistro|grid|helmet] [--frames N] [--top K]
+                            [--fused-shade]
 
 Builds the full atrium (single level) or the full bistro (two levels,
 ``build_instanced_scene``, the configuration of ``chip_smoke.py`` phase 11:
-full_mis off, HDR multiplier 1), renders it at 1920x1080, depth 4, 1 spp,
-sun&sky, firefly clamp 10 (with ``--fused-shade`` through the fused shading
-stage), times N unprofiled frames after two warm-up frames, then traces one
-more frame with ``torch.profiler``. It prints, for the traced frame:
+full_mis off, HDR multiplier 1) and renders it at 1920x1080, depth 4, 1
+spp, sun&sky, firefly clamp 10; or BASELINE configuration #4 (``grid``:
+the material grid under the procedural sky, 512x512, 4 spp, depth 8, the
+Disney BSDF) or #2 (``helmet``: 512x512, 16 spp, depth 5, glTF), both
+firefly clamp 10 and full_mis off, as ``chip_smoke.py`` phases 20-21. With
+``--fused-shade`` the renderer asks for the fused shading stage (the
+Disney grid keeps the eager one). It times N unprofiled frames after two
+warm-up frames, then traces one more frame with ``torch.profiler``. It
+prints, for the traced frame:
 
 * wall: host clock around ``Renderer.step()`` + synchronize, profiled;
 * device busy: the union of the intervals of every device activity
@@ -82,7 +88,7 @@ def busy_us(events) -> float:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("atrium", "bistro"), default="atrium")
+    ap.add_argument("--scene", choices=("atrium", "bistro", "grid", "helmet"), default="atrium")
     ap.add_argument("--frames", type=int, default=3, help="unprofiled timed frames")
     ap.add_argument("--top", type=int, default=20, help="kernels listed by device time")
     ap.add_argument("--fused-shade", action="store_true", help="render with the fused shading stage")
@@ -90,24 +96,35 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: this script needs an NVIDIA GPU")
     from vk_raytrace_torch import render as R
-    from vk_raytrace_torch.models import procedural
-    from vk_raytrace_torch.models.schema import PBR_GLTF, RenderConfig
+    from vk_raytrace_torch.models import hdr, procedural
+    from vk_raytrace_torch.models.schema import PBR_DISNEY, PBR_GLTF, RenderConfig
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
+    main_path = dict(width=1920, height=1080, max_depth=4, max_samples=1, pbr_mode=PBR_GLTF,
+                     firefly_clamp=10.0, use_sun_sky=True)
+    baseline = dict(width=512, height=512, hdr_multiplier=1.0, firefly_clamp=10.0, full_mis=False)
     if args.scene == "bistro":
         pool, inst, mats, lights, cam, atlas = procedural.bistro_scene()
         scene = R.build_instanced_scene(pool, inst, mats, lights, cam, atlas=atlas)
-        extra = dict(hdr_multiplier=1.0, full_mis=False)
-    else:
+        cfg = RenderConfig(**main_path, hdr_multiplier=1.0, full_mis=False)
+    elif args.scene == "atrium":
         geom, mats, lights, cam, atlas = procedural.atrium_scene()
         scene = R.build_scene(geom, mats, lights, cam, atlas=atlas)
-        extra = {}
-    cfg = RenderConfig(width=1920, height=1080, max_depth=4, max_samples=1, pbr_mode=PBR_GLTF,
-                       firefly_clamp=10.0, use_sun_sky=True, **extra)
+        cfg = RenderConfig(**main_path)
+    else:
+        sky = hdr.build_environment(hdr.procedural_sky_hdr())
+        if args.scene == "grid":
+            geom, mats, lights, cam = procedural.material_test_grid()
+            scene = R.build_scene(geom, mats, lights, cam, env=sky)
+            cfg = RenderConfig(**baseline, max_samples=4, max_depth=8, pbr_mode=PBR_DISNEY)
+        else:
+            geom, mats, lights, cam, atlas = procedural.helmet_scene()
+            scene = R.build_scene(geom, mats, lights, cam, env=sky, atlas=atlas)
+            cfg = RenderConfig(**baseline, max_samples=16, max_depth=5, pbr_mode=PBR_GLTF)
     r = R.Renderer(scene, cfg, device=dev, fused_shade=args.fused_shade)
     for _ in range(2):
         r.step()
@@ -142,8 +159,7 @@ def main():
         tot, cnt = per_name.get(name, (0.0, 0))
         per_name[name] = (tot + (e - s) / 1e3, cnt + 1)
 
-    print(f"card: {card}; scene {args.scene}; shading stage "
-          f"{'fused' if args.fused_shade else 'eager'}")
+    print(f"card: {card}; scene {args.scene}; shading stage {r.stage}")
     print(f"unprofiled frames (s): {frames}; rays/frame {r.last_rays}")
     print(f"profiled frame: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
           f"({100 * busy / (wall * 1e3):.1f}%)")

@@ -95,11 +95,42 @@ Phases 17-19 also print how each machine's rounds spread over its warps
 (32 consecutive rays): the mean rounds per ray, the mean of each warp's
 most, and the share of the warps' lane-rounds that do work.
 
+Then the Disney path, the unrolled integrator and the anchor, each render
+phase printing s/frame, Mrays/s, the counted kernel launches per frame,
+build s and peak MiB beside the card's name and power limit:
+
+20. BASELINE configuration #4 (``disney_materials_d8``,
+    ``scripts/baseline_configs.py:72-73``) at full size: the material grid
+    (25 spheres and the ground, 55,202 triangles) under the procedural sky,
+    512x512, 4 spp, depth 8, the Disney BSDF, HDR 1.0, firefly clamp 10,
+    ``full_mis=False``; one warm-up and three timed frames through the
+    pooled wavefront; modes a and b must have launched and the eager stage
+    run (the reference keeps Disney off the fused stage);
+21. BASELINE configuration #2 (``helmet_512_16spp``, ``:66-67``) at full
+    size: the helmet (146,690 triangles, 1024^2 and 512^2 textures) under
+    the same sky, 512x512, 16 spp, depth 5, glTF, eager and then
+    ``fused_shade=True``; the fused frames must have launched the stage
+    kernel;
+22. the unrolled integrator on the card: every debug mode 1-12 on the full
+    atrium (banners on) at 160x90, depth 4, through ``Renderer.step``'s row
+    strips; modes a/b and the alpha rounds kernel must have launched; the
+    first-hit modes 1-8 against the same render on the CPU at depth 1 (a
+    first-hit state does not depend on the depth), 99% of pixels within
+    rtol 1e-3 / atol 1e-4;
+23. the anchor on the card: the Cornell box at 64x64 and the material grid
+    (n=2) at 48x32 through the BVH kernels and through ``BruteTracer``, the
+    configurations of ``tests/test_anchor.py``, under its criterion
+    (``integrator/brute.images_match``).
+
+No depth was cut for time: the whole script ran in about half its time
+limit on the card.
+
 The line before the last is the per-kernel JSON summary (times, launches,
 errors and each kernel's bound on this card); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
 import json
 import os
 import sys
@@ -181,6 +212,14 @@ BISTRO_CFG = dict(max_depth=4, max_samples=1, hdr_multiplier=1.0, firefly_clamp=
 # operations in the same order with the same device math functions.
 SHADE_RTOL, SHADE_ATOL, SHADE_MASK_SHARE = 1e-5, 1e-6, 0.9999
 SMALL_ATRIUM = dict(bays_x=2, bays_z=2, column_segments=16, column_rows=12)
+# BASELINE configurations #4 and #2 (scripts/baseline_configs.py:66-73, with
+# the config's fixed fields at :85-89): the reference-compat estimator.
+BASELINE4_CFG = dict(width=512, height=512, max_samples=4, max_depth=8, hdr_multiplier=1.0,
+                     firefly_clamp=10.0, full_mis=False)
+BASELINE2_CFG = dict(width=512, height=512, max_samples=16, max_depth=5, hdr_multiplier=1.0,
+                     firefly_clamp=10.0, full_mis=False)
+# The debug-mode phase: the full atrium at reduced resolution.
+DEBUG_W, DEBUG_H, DEBUG_DEPTH = 160, 90, 4
 # The single-level main path's kernels (LAUNCHES keys at width 16): modes a
 # and b over the opaque tree, the alpha rounds over the alpha tree.
 ATRIUM_KERNELS = ("closest", "any", "alpha_rounds")
@@ -285,6 +324,44 @@ def run_frames(r, n=3):
         frame_s.append(time.perf_counter() - t0)
         frame_rays.append(r.last_rays)
     return warm_s, frame_s, frame_rays
+
+
+def render_phase(what, make, card, n=3, want=(), stage=None, black_ok=False):
+    """Build a renderer with ``make()`` on a fresh peak and fresh counters,
+    run one warm-up and ``n`` timed frames, check the image and the
+    launches, and print s/frame, Mrays/s, counted launches per frame, build
+    s and peak MiB. Returns (renderer, s/frame, Mrays/s, launches per
+    frame, peak MiB)."""
+    from vk_raytrace_torch.integrator import shade_fused as sf
+    from vk_raytrace_torch.ops import traverse_fused as tf
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tf.reset_launches()
+    sf.reset_launches()
+    t0 = time.time()
+    r = make()
+    torch.cuda.synchronize()
+    renderer_s = time.time() - t0
+    warm_s, frame_s, frame_rays = run_frames(r, n)
+    per_frame = {k: v / (n + 1) for k, v in {**tf.LAUNCHES, **sf.LAUNCHES}.items() if v}
+    img = r.hdr().cpu().numpy()
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+    s_frame = float(np.mean(frame_s))
+    mrays = float(np.sum(frame_rays) / np.sum(frame_s) / 1e6)
+    assert np.isfinite(img).all(), f"{what}: non-finite pixels"
+    assert black_ok or img.mean() > 0.0, f"{what}: black image"
+    assert all(per_frame.get(k, 0) > 0 for k in want), f"{what}: a kernel never launched: {per_frame}"
+    if stage is not None:
+        assert r.stage == stage, f"{what}: the {r.stage} stage ran, not the {stage} one"
+    print(f"{what}: {s_frame:.4f} s/frame (frames {['%.4f' % x for x in frame_s]}, warm-up "
+          f"{warm_s:.3f}), {mrays:.4f} Mrays/s, rays/frame {frame_rays}, {r.stage} shading, "
+          f"launches/frame {per_frame}, build s: renderer {renderer_s:.2f}, "
+          + ", ".join(f"{k} {v:.2f}" for k, v in r.build_times.items())
+          + f"; peak {peak_mb:.1f} MiB allocated, mean radiance {img.mean():.4f} [{card}]",
+          flush=True)
+    return r, s_frame, mrays, per_frame, peak_mb
 
 
 def random_rays(rng, positions, n, dev):
@@ -1470,6 +1547,102 @@ def main():
                 key = f"{'any' if any_hit else 'closest'}_roots{suffix}"
                 loop_launches[key] = loop_launches.get(key, 0) + lau
     del b_accs, a, oc, dc
+
+    # ---- 20. BASELINE #4: the Disney material grid ----------------------------
+    phase("BASELINE #4: Disney material grid")
+    from vk_raytrace_torch.models import hdr
+    from vk_raytrace_torch.models.schema import PBR_DISNEY
+
+    t0 = time.time()
+    sky = hdr.build_environment(hdr.procedural_sky_hdr())
+    gg, gm, gl, gc = procedural.material_test_grid()
+    grid = R.build_scene(gg, gm, gl, gc, env=sky)
+    print(f"material grid: {len(gg.indices)} triangles; scene and sky {time.time() - t0:.2f} s",
+          flush=True)
+    cfg4 = RenderConfig(**BASELINE4_CFG, pbr_mode=PBR_DISNEY)
+    r4, *_ = render_phase("disney_materials_d8 512x512 4spp d8", lambda: R.Renderer(
+        grid, cfg4, device=dev, fused_shade=True), card, want=("closest", "any"), stage="eager")
+    del r4
+
+    # ---- 21. BASELINE #2: the helmet, eager and fused -------------------------
+    phase("BASELINE #2: helmet")
+    t0 = time.time()
+    hg, hm, hl, hc, ha = procedural.helmet_scene()
+    helmet = R.build_scene(hg, hm, hl, hc, env=sky, atlas=ha)
+    hbundle = build_accel_bundle(hg)
+    print(f"helmet: {len(hg.indices)} triangles; scene, tables and accel {time.time() - t0:.2f} s",
+          flush=True)
+    cfg2 = RenderConfig(**BASELINE2_CFG, pbr_mode=PBR_GLTF)
+    for fused in (False, True):
+        rh, *_ = render_phase(
+            f"helmet_512_16spp {'fused' if fused else 'eager'}",
+            lambda: R.Renderer(helmet, cfg2, device=dev, packed=hbundle, fused_shade=fused),
+            card, want=("closest", "any") + (("shade_stage",) if fused else ()),
+            stage="fused" if fused else "eager")
+        del rh
+    del helmet, hbundle
+
+    # ---- 22. the unrolled integrator: every debug mode on the atrium ----------
+    phase("debug modes on the card")
+    from vk_raytrace_torch.models import schema as S
+
+    dbg_scene, dbg_cfg = R.prepare_sun_sky(
+        scene, RenderConfig(width=DEBUG_W, height=DEBUG_H, max_depth=DEBUG_DEPTH, max_samples=1,
+                            pbr_mode=PBR_GLTF, firefly_clamp=10.0, use_sun_sky=True), "cpu")
+    for mode in range(S.DEBUG_BASECOLOR, S.DEBUG_HEATMAP + 1):
+        mcfg = dataclasses.replace(dbg_cfg, debug_mode=mode)
+        rd, *_ = render_phase(f"debug mode {mode} {DEBUG_W}x{DEBUG_H} d{DEBUG_DEPTH}", lambda: R.Renderer(
+            dbg_scene, mcfg, device=dev, packed=bundle), card, n=1, want=ATRIUM_KERNELS,
+            black_ok=mode == S.DEBUG_EMISSIVE)  # the atrium has no emissive material
+        img = rd.hdr().cpu().numpy()
+        del rd
+        if mode < S.DEBUG_RADIANCE:
+            rc = R.Renderer(dbg_scene, dataclasses.replace(mcfg, max_depth=1), device="cpu",
+                            packed=bundle)
+            rc.step()
+            rc.step()  # the card's warm-up and timed frame
+            share = float(np.isclose(img, rc.hdr().numpy(), rtol=PIX_RTOL, atol=PIX_ATOL)
+                          .all(-1).mean())
+            print(f"debug mode {mode}: card (depth {DEBUG_DEPTH}) against the CPU (depth 1): "
+                  f"pixels within rtol {PIX_RTOL}/atol {PIX_ATOL}: {share:.5f}", flush=True)
+            assert share >= PIX_SHARE, f"debug mode {mode}: only {share:.4f} of pixels agree"
+
+    # ---- 23. the anchor on the card --------------------------------------------
+    phase("anchor on the card")
+    from vk_raytrace_torch.integrator import brute
+    from vk_raytrace_torch.integrator.camera import with_aspect
+    from vk_raytrace_torch.integrator.shade import mat_features
+
+    cg, cm, cl, ccam = procedural.cornell_box()
+    ng, nm, nl, ncam = procedural.material_test_grid(n=2)
+    anchor_cases = (
+        ("cornell 64x64", R.build_scene(cg, cm, cl, ccam),
+         RenderConfig(width=64, height=64, max_depth=4, max_samples=2, pbr_mode=PBR_GLTF,
+                      hdr_multiplier=0.0, rr=False)),
+        ("material grid 48x32", R.build_scene(
+            ng, nm, nl, ncam, env=hdr.build_environment(np.full((8, 16, 3), 0.8, np.float32))),
+         RenderConfig(width=48, height=32, max_depth=3, max_samples=1, hdr_multiplier=1.0,
+                      rr=False)),
+    )
+    for what, asc, acfg in anchor_cases:
+        feats = mat_features(asc.materials)
+        abundle = build_accel_bundle(asc.geometry).to(dev)
+        asc = dataclasses.replace(asc, camera=with_aspect(asc.camera, acfg.width, acfg.height)).to(dev)
+        tf.reset_launches()
+        t0 = time.perf_counter()
+        img_bvh = brute.anchor_render(asc, abundle, acfg, 2, feats).cpu().numpy()
+        bvh_s = time.perf_counter() - t0
+        lau = {k: v for k, v in tf.LAUNCHES.items() if v}
+        assert lau.get("closest", 0) > 0 and lau.get("any", 0) > 0, f"anchor: {lau}"
+        t0 = time.perf_counter()
+        img_brute = brute.anchor_render(asc, abundle, acfg, 2, feats,
+                                        tracer=brute.BruteTracer(asc.geometry)).cpu().numpy()
+        brute_s = time.perf_counter() - t0
+        ok, share, rmse = brute.images_match(img_bvh, img_brute)
+        print(f"anchor {what}: BVH kernels ({bvh_s:.3f} s, launches {lau}) against BruteTracer "
+              f"({brute_s:.3f} s) on the card: matched {share:.5f} (>= {brute.MATCH_SHARE}), "
+              f"matched-set RMSE {rmse:.5f} (< {brute.MATCH_RMSE}) [{card}]", flush=True)
+        assert ok and np.isfinite(img_bvh).all() and img_bvh.mean() > 0.0, f"anchor {what} failed"
 
     def traverse_entry(m, lau, replaces):
         """``launches``: the main path's count (``lau``). The per-round kernels

@@ -13,7 +13,10 @@ persistent mode a/b entry on the full atrium at both widths (bit for bit,
 steps included), its occupancy and ptxas report, and its scratch reused
 across calls; the whole shading stage kernel and the body alone
 (single-level and instanced) against their plain versions; and the render
-slices (atrium, bistro) on the card against the CPU. Kernel vs twin: same float32 operations in the same order, rounded
+slices (atrium, bistro) on the card against the CPU; the Disney BSDF
+(material grid), the debug modes through the unrolled integrator and its
+masked closest hit on the card against the CPU; and the brute-force
+anchor on the card. Kernel vs twin: same float32 operations in the same order, rounded
 per operation (nvcc -fmad=false), so ``tri`` and the hit masks are equal
 and t within rtol 1e-5. Render: CUDA and CPU transcendentals round
 differently, so 99% of pixels within rtol 1e-3 / atol 1e-4 and ray counts
@@ -651,3 +654,94 @@ def test_persistent_ab_scratch_reused(scene):
     torch.cuda.synchronize()
     assert tf._ab_scratch[key].numel() > before
     assert tb.same_hits(first, again)
+
+
+def _two_renders(scene, cfg, n_frames=2, **kw):
+    """The same renderer on the card and on the CPU: {dev: (accum, rays)}."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        r = R.Renderer(scene, cfg, device=dev, **kw)
+        for _ in range(n_frames):
+            r.step()
+        out[dev] = (r.hdr().cpu().numpy(), r.last_rays)
+    assert np.isfinite(out["cuda"][0]).all() and out["cuda"][0].max() > 0.0
+    share = np.isclose(out["cuda"][0], out["cpu"][0], rtol=1e-3, atol=1e-4).all(-1).mean()
+    assert share >= 0.99, share
+    return out
+
+
+def test_disney_slice_cuda_matches_cpu():
+    """The Disney BSDF (the default config) on the material grid under the
+    procedural sky: card against CPU."""
+    _need_cuda()
+    from vk_raytrace_torch.models import hdr
+
+    g, m, l, c = procedural.material_test_grid(n=2)
+    scene = R.build_scene(g, m, l, c, env=hdr.build_environment(hdr.procedural_sky_hdr()))
+    out = _two_renders(scene, RenderConfig(width=48, height=32, max_depth=6, max_samples=2,
+                                           firefly_clamp=10.0, full_mis=False))
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-3 * out["cpu"][1]
+
+
+@pytest.mark.parametrize("mode", [1, 2, 7, 12])
+def test_debug_mode_cuda_matches_cpu(scene, mode):
+    """The unrolled integrator on the card (modes a/b and the alpha rounds
+    kernel with an active mask) against the CPU, on the atrium with
+    banners: base colour, normal, texcoord and the step heatmap."""
+    _need_cuda()
+    g, m, l, c, a = scene
+    small = R.build_scene(g, m, l, c, atlas=a)
+    cfg = RenderConfig(width=64, height=48, max_depth=3, pbr_mode=PBR_GLTF, firefly_clamp=10.0,
+                       use_sun_sky=True, debug_mode=mode)
+    small, run_cfg = R.prepare_sun_sky(small, cfg, "cpu")
+    tf.reset_launches()
+    _two_renders(small, run_cfg, n_frames=1, packed=build_accel_bundle(small.geometry))
+    assert all(tf.LAUNCHES[k] > 0 for k in ("closest", "any", "alpha_rounds")), tf.LAUNCHES
+
+
+def test_closest_hit_bundle_mask_on_card(scene):
+    """Rays outside the active mask miss and keep their seed on the card as
+    on the CPU, through mode a and the alpha rounds kernel."""
+    _need_cuda()
+    from vk_raytrace_torch.ops.traverse_wide import closest_hit_bundle
+
+    g = scene[0]
+    o, d = _rays(31, g, 4096, alpha=True)
+    active = torch.arange(4096) % 3 != 0
+    seed = torch.arange(4096, dtype=torch.int64) * 2654435761 % 2**32
+    sc = R.build_scene(*scene[:4], atlas=scene[4])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = sc.to(dev)
+        acc = build_accel_bundle(g).to(dev)
+        pack = make_alpha_pack(s.materials, s.atlas, s.geometry.tri_material)
+        hit, sd = closest_hit_bundle(acc, pack, o.to(dev), d.to(dev), seed.to(dev),
+                                     active=active.to(dev))
+        out[dev] = (hit.tri.cpu(), hit.t.cpu(), sd.cpu())
+    assert torch.equal(out["cuda"][0], out["cpu"][0]) and torch.equal(out["cuda"][2], out["cpu"][2])
+    assert (out["cuda"][0][~active] == -1).all() and torch.equal(out["cuda"][2][~active], seed[~active])
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-5, atol=1e-5)
+
+
+def test_anchor_on_card():
+    """The BVH kernels against the brute-force tracer on the card (the
+    anchor's criterion), Cornell box, glTF."""
+    _need_cuda()
+    import dataclasses
+
+    from vk_raytrace_torch.integrator import brute
+    from vk_raytrace_torch.integrator.camera import with_aspect
+    from vk_raytrace_torch.integrator.shade import mat_features
+
+    g, m, l, c = procedural.cornell_box()
+    sc = R.build_scene(g, m, l, c)
+    cfg = RenderConfig(width=64, height=64, max_depth=4, max_samples=2, pbr_mode=PBR_GLTF,
+                       hdr_multiplier=0.0, rr=False)
+    feats = mat_features(sc.materials)
+    sc = dataclasses.replace(sc, camera=with_aspect(sc.camera, 64, 64)).to("cuda")
+    packed = build_accel_bundle(g).to("cuda")
+    img = brute.anchor_render(sc, packed, cfg, 2, feats).cpu().numpy()
+    ref = brute.anchor_render(sc, packed, cfg, 2, feats,
+                              tracer=brute.BruteTracer(sc.geometry)).cpu().numpy()
+    ok, share, rmse = brute.images_match(img, ref)
+    assert ok, (share, rmse)

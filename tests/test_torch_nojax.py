@@ -2,9 +2,10 @@
 build the Cornell box with its own (numpy + native runtime) pipeline,
 render one 32x32 frame on the CPU, and check that neither JAX nor the JAX
 package was ever imported; the same for the two-level path (instance
-tables, ``ops/tlas.py``, the small bistro through the fused stage) and for
+tables, ``ops/tlas.py``, the small bistro through the fused stage), for
 the width-32 builds (``build_bvh32``) with the traversal micro-bench
-(``vk_raytrace_torch.travbench``); and, statically, that no import
+(``vk_raytrace_torch.travbench``) and for the Disney BSDF, the debug modes,
+the BASELINE #2/#4 scenes and the brute-force anchor; and, statically, that no import
 statement of the package or of the chip scripts (``chip_smoke.py``,
 ``chip_ab.py``, ``chip_profile.py``) names JAX or the JAX package, and that
 the chip scripts import without them."""
@@ -79,6 +80,41 @@ print("ok")
 """
 
 
+DISNEY_SCRIPT = """
+import sys
+import numpy as np
+from vk_raytrace_torch import render as R
+from vk_raytrace_torch.integrator import brute
+from vk_raytrace_torch.models import hdr, procedural
+from vk_raytrace_torch.models.schema import DEBUG_HEATMAP, DEBUG_NORMAL, PBR_GLTF, RenderConfig
+
+env = hdr.build_environment(hdr.procedural_sky_hdr())
+g, m, l, c = procedural.material_test_grid(n=2)
+scene = R.build_scene(g, m, l, c, env=env)
+r = R.Renderer(scene, RenderConfig(width=24, height=16, max_depth=3), device="cpu")
+img = r.render(1)
+assert np.isfinite(img).all() and img.mean() > 0.01 and r.last_rays > 24 * 16
+for mode in (DEBUG_NORMAL, DEBUG_HEATMAP):
+    r = R.Renderer(scene, RenderConfig(width=24, height=16, max_depth=2, debug_mode=mode),
+                   device="cpu")
+    r.step()
+    assert np.isfinite(r.hdr().numpy()).all() and r.hdr().numpy().max() > 0.0
+g, m, l, c, a = procedural.helmet_scene(n_lat=8, n_lon=16)
+r = R.Renderer(R.build_scene(g, m, l, c, env=env, atlas=a),
+               RenderConfig(width=16, height=16, max_depth=2, pbr_mode=PBR_GLTF), device="cpu",
+               fused_shade=True)
+assert r.stage == "fused"
+r.step()
+tracer = brute.BruteTracer(r.scene.geometry)
+img = brute.anchor_render(r.scene, r.packed, r._run_cfg, 1, r.features, tracer=tracer)
+assert np.isfinite(img.numpy()).all()
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+assert "vk_raytrace_tpu" not in sys.modules, sorted(
+    m for m in sys.modules if m.startswith("vk_raytrace_tpu"))
+print("ok")
+"""
+
+
 def _run(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
@@ -100,6 +136,12 @@ def test_instanced_path_never_imports_jax():
 
 def test_width32_and_travbench_never_import_jax():
     _run(TRAVBENCH_SCRIPT)
+
+
+def test_disney_debug_and_anchor_never_import_jax():
+    """The Disney BSDF on the material grid under the procedural sky, two
+    debug modes through the strips, the helmet, and the brute-force anchor."""
+    _run(DISNEY_SCRIPT)
 
 
 def _non_doc_strings(tree):

@@ -61,6 +61,20 @@ def _load_reference_native(lock_path) -> bool:
             fcntl.flock(lock, fcntl.LOCK_UN)
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """The module's torch CPU work on one intra-op thread (modules opt in
+    with ``pytestmark = pytest.mark.usefixtures("one_torch_thread")``).
+    Tier-1 runs six xdist workers on the machine's cores at once, and
+    torch's default of a thread per core makes each parallel op wait for
+    descheduled threads: ``tests/test_torch_golden.py`` took 12 s alone and
+    420 s beside five other port modules."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def isolated_reference(tmp_path_factory):
     """The reference's scene cache lies in pytest's per-run temp directory

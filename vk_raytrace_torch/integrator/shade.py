@@ -20,6 +20,7 @@ from ..ops.math import (
     cross, dot, make_coordinate_system, mat3_vec, mat3t_vec, normalize, oct_decode, srgb_to_linear,
 )
 from ..ops.state import MatState, SurfState
+from ..ops.texture import sample_atlas
 
 # Packed material row layout: (name, lane count).
 _TEX = ["base", "mr", "normal", "emissive"]
@@ -313,8 +314,6 @@ def resolve_material(ss, atlas, ray_dir, features=None, tap_rows=None, lod=None)
     """``GetMaterialsAndTextures`` (gltf_material.glsl:105-193)."""
     if features is None:
         features = MatFeatures()
-    if features.transmission_tex or features.clearcoat_tex:
-        raise NotImplementedError("transmission and clearcoat textures are not ported yet")
     prow = ss["prow"]
 
     def tap(name, uv, srgb=False):
@@ -366,6 +365,13 @@ def resolve_material(ss, atlas, ray_dir, features=None, tap_rows=None, lod=None)
     roughness = torch.clamp(roughness, min=0.001)
 
     transmission = _col(prow, "transmission_f")
+    if features.transmission_tex:
+        # The cold textures read the atlas itself, not the tap rows
+        # (gltf_material.glsl:144-149).
+        ttid = _col(prow, "transmission_tid").long()
+        transmission = transmission * torch.where(
+            ttid >= 0, sample_atlas(atlas, ttid, uv)[..., 0], 1.0
+        )
     eta = torch.where(dot(normal, ffnormal) > 0.0, 1.0 / ior, ior)
     unlit = _col(prow, "unlit") == 1.0
 
@@ -383,7 +389,16 @@ def resolve_material(ss, atlas, ray_dir, features=None, tap_rows=None, lod=None)
         tangent = torch.where(has_aniso, t_rot, tangent)
         bitangent = torch.where(has_aniso, b_rot, bitangent)
 
-    ccr = torch.clamp(_col(prow, "cc_rough"), min=0.001)
+    clearcoat = _col(prow, "cc_f")
+    ccr = _col(prow, "cc_rough")
+    if features.clearcoat_tex:  # gltf_material.glsl:176-188
+        cctid = _col(prow, "cc_tid").long()
+        clearcoat = clearcoat * torch.where(
+            cctid >= 0, sample_atlas(atlas, cctid, uv)[..., 0], 1.0
+        )
+        ccrtid = _col(prow, "cc_rough_tid").long()
+        ccr = ccr * torch.where(ccrtid >= 0, sample_atlas(atlas, ccrtid, uv)[..., 1], 1.0)
+    ccr = torch.clamp(ccr, min=0.001)
 
     mat = MatState(
         albedo=albedo * ss["color"],
@@ -401,7 +416,7 @@ def resolve_material(ss, atlas, ray_dir, features=None, tap_rows=None, lod=None)
         attenuation_color=_col(prow, "atten_color", 3),
         attenuation_distance=_col(prow, "atten_dist"),
         thinwalled=_col(prow, "thickness") == 0.0,
-        clearcoat=_col(prow, "cc_f"),
+        clearcoat=clearcoat,
         clearcoat_roughness=ccr,
         sheen_color=_col(prow, "sheen_color", 3),
         sheen_roughness=_col(prow, "sheen_rough"),

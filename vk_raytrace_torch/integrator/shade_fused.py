@@ -157,8 +157,12 @@ def stage_tables(scene, instances=None) -> StageTables:
 
 def supported(fused_shade: bool, cfg, scene, features) -> bool:
     """Whether the fused stage serves this request: it was asked for
-    (``fused_shade``) and the scene and config meet its static conditions.
-    Otherwise the unfused stage runs, as in the reference."""
+    (``fused_shade``) and the scene and config meet its static conditions,
+    which are the reference's (``vk_raytrace_tpu/integrator/shade_fused.py::
+    supported``): glTF PBR only (the Disney BSDF stays on the eager stage
+    there too), a baked sky, no transmission or clearcoat textures, merged
+    shade rows. Otherwise the eager stage runs; this is the reference's
+    rule, not a fallback from a failed kernel."""
     if not fused_shade or cfg.pbr_mode != PBR_GLTF or cfg.use_sun_sky:
         return False
     if features is None or features.transmission_tex or features.clearcoat_tex:

@@ -11,11 +11,13 @@ sample, so the schedule never changes the estimator.
 
 Per bounce: closest hit (opaque kernel, then alpha candidate rounds; in a
 two-level scene, instance candidate rounds over per-mesh BVHs, ``ops/tlas.py``),
-shade state and material, NEE with MIS, glTF BSDF sample, shadow any-hit,
-Russian roulette, and a scatter of finished paths into the per-unit image.
-With ``fused_shade`` the shading runs as one kernel launch per bounce
-(``integrator/shade_fused.py``) wherever its static conditions hold; the
-kernel also adds each hit's distance to the path length (``tdist``).
+shade state and material, NEE with MIS, a BSDF sample (glTF or Disney, by
+``cfg.pbr_mode``), shadow any-hit, Russian roulette, and a scatter of
+finished paths into the per-unit image. With ``fused_shade`` the shading
+runs as one kernel launch per bounce (``integrator/shade_fused.py``)
+wherever its static conditions hold (glTF only, as in the reference: the
+Disney BSDF always runs the eager stage); the kernel also adds each hit's
+distance to the path length (``tdist``).
 """
 
 from __future__ import annotations
@@ -24,9 +26,7 @@ import contextlib
 
 import torch
 
-from ..models.schema import PBR_DISNEY
 from ..ops import rng
-from ..ops.bsdf_gltf import pbr_eval, pbr_sample
 from ..ops.env import env_radiance, env_sample
 from ..ops.lights import sample_light
 from ..ops.math import dot, firefly_luminance, offset_ray, power_heuristic
@@ -35,7 +35,10 @@ from ..ops.tlas import InstancedAccel, any_hit_instanced, closest_hit_instanced
 from ..ops.traverse_wide import any_hit_bundle, closest_hit_bundle
 from .camera import generate_rays_for_pixels
 from . import shade_fused
-from .path import cone_lod, env_bsdf_mis_weight, mip_lod_enabled, nee_strategy_pdf, pixel_spread
+from .path import (
+    _eval_bsdf, _sample_bsdf, cone_lod, env_bsdf_mis_weight, mip_lod_enabled, nee_strategy_pdf,
+    pixel_spread,
+)
 from .shade import get_shade_state, resolve_material
 
 # Per-lane path state carried between iterations.
@@ -53,11 +56,10 @@ def render_units_pooled(
     n_pix)``. Returns ``(radiance_mean (n_pix, 3), rays)``; ``rays`` counts
     every traced ray (closest-hit rays plus shadow rays) as a 0-d tensor.
     ``fused_shade`` asks for the fused shading stage; it runs where
-    ``shade_fused.supported`` holds, the unfused stage elsewhere.
+    ``shade_fused.supported`` holds, the unfused stage elsewhere (the
+    reference's rule; ``shade_fused.supported`` says which ran).
     ``shade_tables``: the fused stage's ``StageTables`` (built here when
     None and the fused stage runs)."""
-    if cfg.pbr_mode == PBR_DISNEY:
-        raise NotImplementedError("the Disney BSDF is not ported yet; use PBR_GLTF")
     if cfg.use_sun_sky:
         raise ValueError("bake the sun&sky first (render.prepare_sun_sky)")
     dev = scene.shade_rows.device
@@ -188,7 +190,7 @@ def render_units_pooled(
         light_dir = torch.where(use_light[..., None], l_dir, e_dir)
         light_dist = torch.where(use_light, l_dist, 1e32)
         light_pdf = nee_strategy_pdf(cfg.full_mis, n_lights, use_light, e_pdf, p_select_light)
-        f_l, pdf_l = pbr_eval(state, v_dir, state.ffnormal, light_dir)
+        f_l, pdf_l = _eval_bsdf(cfg, state, v_dir, state.ffnormal, light_dir)
         mis = torch.where(
             use_light, 1.0, torch.clamp(power_heuristic(light_pdf, pdf_l), min=0.0)
         )
@@ -202,7 +204,7 @@ def render_units_pooled(
         nee = nee * throughput
 
         # BSDF sampling (pathtrace.glsl:281-296)
-        f_b, l_b, pdf_b, seed = pbr_sample(state, v_dir, state.ffnormal, seed, combined=cfg.full_mis)
+        f_b, l_b, pdf_b, seed = _sample_bsdf(cfg, state, v_dir, state.ffnormal, seed)
         entering = dot(state.ffnormal, l_b) < 0.0
         new_abs = -torch.log(torch.clamp(m.attenuation_color, 1e-6, 1.0)) / torch.clamp(
             m.attenuation_distance, min=1e-9

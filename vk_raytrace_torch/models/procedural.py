@@ -1,11 +1,12 @@
 """Procedural scenes (counterpart of ``vk_raytrace_tpu/models/procedural.py``).
 
-The Cornell box for small tests; the many-box city with alpha panels (the
-width-32 gate scene); the atrium, the renderer's full-size
-single-level workload: two stories of fluted columns, tessellated slabs and
-walls, alpha-cutout banners and textured glTF PBR (~217k triangles at
-defaults); and the bistro street, the two-level workload (579k unique and
->1M instantiated triangles, alpha-cutout foliage).
+The Cornell box for small tests; the Disney material grid (BASELINE #4);
+the many-box city with alpha panels (the width-32 gate scene); the atrium,
+the renderer's full-size single-level workload: two stories of fluted
+columns, tessellated slabs and walls, alpha-cutout banners and textured
+glTF PBR (~217k triangles at defaults); the helmet, a textured hero asset
+(BASELINE #2); and the bistro street, the two-level workload (579k unique
+and >1M instantiated triangles, alpha-cutout foliage).
 Pure numpy with the reference's seeds, so every array is byte-identical.
 """
 
@@ -116,6 +117,55 @@ def cornell_box(light_intensity: float = 40.0):
     return g.build(), mats, lights, cam
 
 
+def material_test_grid(n: int = 5):
+    """Grid of n x n UV spheres (2,208 triangles each) over a ground plane:
+    roughness sweeps along x, and the rows are dielectric, metal,
+    clearcoat, sheen and transmission (glass with attenuation) in turn —
+    BASELINE config #4's scene. Returns (geometry, materials, lights,
+    camera)."""
+    rows = []
+    g = GeometryBuilder()
+    sphere_v, sphere_i, sphere_n, sphere_uv = _uv_sphere(24, 48)
+
+    spacing = 2.5
+    for iy in range(n):
+        for ix in range(n):
+            mid = len(rows)
+            t = ix / max(n - 1, 1)
+            kind = iy % 5
+            m = dict(base_color_factor=[0.8, 0.3, 0.25, 1.0], roughness_factor=max(0.05, t))
+            if kind == 0:
+                m["metallic_factor"] = 0.0
+            elif kind == 1:
+                m["metallic_factor"] = 1.0
+            elif kind == 2:
+                m.update(metallic_factor=0.0, clearcoat_factor=1.0, clearcoat_roughness=max(0.03, t))
+            elif kind == 3:
+                m.update(metallic_factor=0.0, sheen_color=[0.9, 0.9, 0.9], sheen_roughness=1.0)
+            else:
+                m.update(metallic_factor=0.0, transmission_factor=1.0, ior=1.5,
+                         thickness_factor=1.0, attenuation_color=[0.9, 0.6, 0.6],
+                         attenuation_distance=2.0, base_color_factor=[1.0, 1.0, 1.0, 1.0])
+            rows.append(m)
+            tr = np.eye(4)
+            tr[:3, 3] = [(ix - (n - 1) / 2) * spacing, 1.0, (iy - (n - 1) / 2) * spacing]
+            g.add_mesh(sphere_v, sphere_i, mid, normals=sphere_n, uv=sphere_uv, transform=tr)
+
+    ground = len(rows)
+    rows.append(dict(base_color_factor=[0.6, 0.6, 0.6, 1.0], metallic_factor=0.0, roughness_factor=0.9))
+    e = n * spacing
+    gv, gi = _quad([-e, 0, -e], [-e, 0, e], [e, 0, e], [e, 0, -e])
+    g.add_mesh(gv, gi, ground)
+
+    mats = make_materials(rows)
+    lights = make_lights([])
+    cam = look_at_camera(
+        eye=[0.0, n * 1.6, n * 2.3], center=[0, 0.5, 0], up=[0, 1, 0],
+        fov_deg=45.0, aspect=16 / 9,
+    )
+    return g.build(), mats, lights, cam
+
+
 def city_scene(n_blocks: int = 24, seed: int = 7, alpha_panels: bool = True):
     """Many-box city (~30k-1M triangles with ``n_blocks``) with optional
     double-sided alpha-cutout panels: the reference's width-32 gate scene.
@@ -155,6 +205,39 @@ def city_scene(n_blocks: int = 24, seed: int = 7, alpha_panels: bool = True):
         fov_deg=55.0, aspect=16 / 9,
     )
     return g.build(), mats, lights, cam
+
+
+def _uv_sphere(n_lat: int, n_lon: int, radius: float = 1.0):
+    """UV sphere with positions/normals/uv."""
+    lats = np.linspace(0, np.pi, n_lat + 1)
+    lons = np.linspace(0, 2 * np.pi, n_lon + 1)
+    verts, norms, uvs = [], [], []
+    for i, th in enumerate(lats):
+        for j, ph in enumerate(lons):
+            nx = np.sin(th) * np.cos(ph)
+            ny = np.cos(th)
+            nz = np.sin(th) * np.sin(ph)
+            verts.append([radius * nx, radius * ny, radius * nz])
+            norms.append([nx, ny, nz])
+            uvs.append([j / n_lon, i / n_lat])
+    idx = []
+    stride = n_lon + 1
+    for i in range(n_lat):
+        for j in range(n_lon):
+            a = i * stride + j
+            b = a + 1
+            c = a + stride
+            d = c + 1
+            if i > 0:
+                idx.append([a, c, b])
+            if i < n_lat - 1:
+                idx.append([b, c, d])
+    return (
+        np.asarray(verts),
+        np.asarray(idx, np.int64),
+        np.asarray(norms),
+        np.asarray(uvs),
+    )
 
 
 def _grid_mesh(nx: int, ny: int):
@@ -254,6 +337,19 @@ def _tex_banner(size: int, seed: int, color=(0.55, 0.12, 0.10)) -> np.ndarray:
     shade = 0.7 + 0.3 * _value_noise(size, size, seed + 2)
     rgb = np.stack([shade * color[0], shade * color[1], shade * color[2]], axis=-1)
     return _rgba(rgb, alpha)
+
+
+def _tex_mr(size: int, seed: int, rough_lo=0.3, rough_hi=0.9, metal_patches=True):
+    """glTF metallic-roughness texture: G=roughness, B=metallic."""
+    n = _value_noise(size, size, seed)
+    rough = rough_lo + (rough_hi - rough_lo) * n
+    metal = (
+        (_value_noise(size, size, seed + 7) > 0.55).astype(np.float64)
+        if metal_patches
+        else np.zeros((size, size))
+    )
+    rgb = np.stack([np.zeros_like(rough), rough, metal], axis=-1)
+    return _rgba(rgb)
 
 
 def atrium_scene(
@@ -394,6 +490,67 @@ def atrium_scene(
         up=[0, 1, 0], fov_deg=60.0, aspect=16 / 9,
     )
     return g.build(), mats, lights, cam, atlas.build()
+
+def helmet_scene(n_lat: int = 192, n_lon: int = 384):
+    """DamagedHelmet-class hero asset: a noise-displaced UV sphere (146,688
+    triangles at the defaults) with a 1024^2 base-colour and a 512^2
+    metallic-roughness texture over a textured ground — BASELINE config
+    #2's scene, to be lit by an HDR environment.
+
+    Returns (geometry, materials, lights, camera, atlas).
+    """
+    from .textures import AtlasBuilder
+
+    atlas = AtlasBuilder()
+    # Mottled painted-metal base color with "damage" streaks.
+    size = 1024
+    n1 = _value_noise(size, size, 21)
+    n2 = _value_noise(size, size, 22, octaves=7)
+    paint = np.stack([0.30 + 0.2 * n1, 0.32 + 0.1 * n1, 0.38 + 0.05 * n1], -1)
+    rust = np.stack([0.45 + 0.2 * n2, 0.22 * n2 + 0.18, 0.10 + 0.05 * n2], -1)
+    damaged = (n2 > 0.58)[..., None]
+    base = np.where(damaged, rust, paint)
+    t_base = atlas.add(_rgba(base), {})
+    t_mr = atlas.add(_tex_mr(512, 23, rough_lo=0.25, rough_hi=0.85), {})
+    t_ground = atlas.add(_tex_floor(512, 24, tiles=6), {})
+
+    rows = [
+        dict(
+            base_color_factor=[1, 1, 1, 1], metallic_factor=1.0,
+            roughness_factor=1.0, base_color_texture=t_base,
+            metallic_roughness_texture=t_mr,
+        ),
+        dict(
+            base_color_factor=[1, 1, 1, 1], metallic_factor=0.0,
+            roughness_factor=0.7, base_color_texture=t_ground,
+        ),
+    ]
+
+    sv, si, sn, suv = _uv_sphere(n_lat, n_lon, radius=1.0)
+    # Displace along the normal by low-frequency noise sampled at uv
+    # (recompute smooth normals from the displaced mesh: normals=None).
+    disp_map = _value_noise(256, 256, 25, octaves=5)
+    ui = np.clip((suv[:, 0] * 255).astype(int), 0, 255)
+    vi = np.clip((suv[:, 1] * 255).astype(int), 0, 255)
+    disp = 0.12 * (disp_map[vi, ui] - 0.5) * 2.0
+    sv = sv * (1.0 + disp[:, None])
+
+    g = GeometryBuilder()
+    tr = np.eye(4)
+    tr[:3, 3] = [0.0, 1.1, 0.0]
+    g.add_mesh(sv, si, 0, uv=suv, transform=tr)
+    e = 6.0
+    gv, gi = _quad([-e, 0, -e], [-e, 0, e], [e, 0, e], [e, 0, -e])
+    g.add_mesh(gv, gi, 1, uv=np.asarray([[0, 0], [0, 4], [4, 4], [4, 0]], np.float64))
+
+    mats = make_materials(rows)
+    lights = make_lights([])
+    cam = look_at_camera(
+        eye=[0.0, 1.6, 3.2], center=[0.0, 1.0, 0.0], up=[0, 1, 0],
+        fov_deg=40.0, aspect=1.0,
+    )
+    return g.build(), mats, lights, cam, atlas.build()
+
 
 # ---------------------------------------------------------------------------
 # Bistro-class street: >1M instantiated triangles from 8 shared meshes,

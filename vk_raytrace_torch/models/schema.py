@@ -28,6 +28,23 @@ LIGHT_DIRECTIONAL = 0
 LIGHT_POINT = 1
 LIGHT_SPOT = 2
 
+# Debug render modes (host_device.h:88-102): 1-8 show the first hit's
+# state, 9 the radiance, 10 the last throughput, 11 the last ray direction,
+# 12 the traversal steps as a heatmap.
+DEBUG_NONE = 0
+DEBUG_BASECOLOR = 1
+DEBUG_NORMAL = 2
+DEBUG_METALLIC = 3
+DEBUG_EMISSIVE = 4
+DEBUG_ALPHA = 5
+DEBUG_ROUGHNESS = 6
+DEBUG_TEXCOORD = 7
+DEBUG_TANGENT = 8
+DEBUG_RADIANCE = 9
+DEBUG_WEIGHT = 10
+DEBUG_RAYDIR = 11
+DEBUG_HEATMAP = 12
+
 # PBR models (RtxState.pbrMode, host_device.h:191)
 PBR_DISNEY = 0
 PBR_GLTF = 1
@@ -277,9 +294,12 @@ def default_tonemapper() -> Tonemapper:
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static render state (``RtxState`` minus the frame counter): the
-    reference's fields and defaults, less debug modes, render scale and
-    heatmap range (not ported). ``use_sun_sky`` is baked by
-    ``render.prepare_sun_sky`` into the environment plus ``sun_disk``."""
+    reference's fields and defaults, less ``render_scale`` (the CLI's).
+    ``use_sun_sky`` is baked by ``render.prepare_sun_sky`` into the
+    environment plus ``sun_disk``. A ``debug_mode`` other than
+    ``DEBUG_NONE`` renders through the unrolled integrator
+    (``integrator/path.py``); the heatmap maps the traversal kernels' node
+    counts in [``min_heatmap``, ``max_heatmap``] onto the colour ramp."""
 
     width: int = 1280
     height: int = 720
@@ -287,11 +307,14 @@ class RenderConfig:
     max_samples: int = 1
     firefly_clamp: float = 1.0e20
     hdr_multiplier: float = 1.0
+    debug_mode: int = DEBUG_NONE
     pbr_mode: int = PBR_DISNEY
     use_sun_sky: bool = False
     mip_sample: bool = True
     sun_disk: bool = False
     max_frames: int = 100000
+    min_heatmap: float = 0.0
+    max_heatmap: float = 256.0
     use_any_hit: bool = True
     rr: bool = True
     rr_depth: int = 0

@@ -97,6 +97,11 @@ def make_coordinate_system(n: torch.Tensor):
     return t, cross(t, n)
 
 
+def to_local(v, t, b, n):
+    """World -> tangent-space components (dot with each basis vector)."""
+    return torch.stack([dot(v, t), dot(v, b), dot(v, n)], dim=-1)
+
+
 def from_local(v, t, b, n):
     """Tangent space -> world: ``x*T + y*B + z*N``."""
     return v[..., 0:1] * t + v[..., 1:2] * b + v[..., 2:3] * n
@@ -123,6 +128,28 @@ def mix(a, b, t):
 def smoothstep(e0, e1, x):
     t = torch.clamp((x - e0) / (e1 - e0), 0.0, 1.0)
     return t * t * (3.0 - 2.0 * t)
+
+
+def temperature(intensity):
+    """Cold-hot heatmap ramp (``temperature``, common.glsl:48-62)."""
+
+    def fade(low, high, value):
+        mid = (low + high) * 0.5
+        rng = (high - low) * 0.5
+        x = 1.0 - torch.clamp(torch.abs(mid - value) / rng, 0.0, 1.0)
+        return smoothstep(0.0, 1.0, x)
+
+    def color(rgb):
+        return torch.tensor(rgb, dtype=torch.float32, device=intensity.device)
+
+    i = intensity[..., None]
+    return (
+        fade(-0.25, 0.25, i) * color([0.0, 0.0, 1.0])
+        + fade(0.0, 0.5, i) * color([0.0, 1.0, 1.0])
+        + fade(0.25, 0.75, i) * color([0.0, 1.0, 0.0])
+        + fade(0.5, 1.0, i) * color([1.0, 1.0, 0.0])
+        + smoothstep(0.75, 1.0, i) * color([1.0, 0.0, 0.0])
+    )
 
 
 def power_heuristic(a, b):

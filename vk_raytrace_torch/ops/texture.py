@@ -1,9 +1,10 @@
 """Atlas texture helpers (counterpart of ``vk_raytrace_tpu/ops/texture.py``).
 
 Host side (numpy): the mip-strip layout, the 2x2 box downsample and the
-per-texel footprint rows. Device side (torch): the per-texture wrap modes
-and the plain bilinear tap of the lat-long environment (the reference that
-the packed env rows of ``ops/env.py`` reproduce).
+per-texel footprint rows. Device side (torch): the per-texture wrap modes,
+the plain bilinear atlas tap (the transmission and clearcoat textures read
+it) and the plain bilinear tap of the lat-long environment (the reference
+that the packed env rows of ``ops/env.py`` reproduce).
 """
 
 from __future__ import annotations
@@ -98,6 +99,35 @@ def _wrap(coord, size, mode):
     m = torch.remainder(coord, period)
     mir = torch.where(m >= size, period - 1 - m, m)
     return torch.where(mode == WRAP_REPEAT, rep, torch.where(mode == WRAP_CLAMP, clm, mir))
+
+
+def sample_atlas(atlas, tex_id, uv):
+    """Bilinear RGBA fetch of texture ``tex_id`` (...,) at ``uv`` (..., 2)
+    from the atlas: (..., 4) raw values in [0, 1]; ids < 0 give white."""
+    tid = torch.clamp(tex_id, 0, atlas.x.shape[0] - 1)
+    w = torch.clamp(atlas.width[tid], min=1)
+    h = torch.clamp(atlas.height[tid], min=1)
+    ox, oy = atlas.x[tid], atlas.y[tid]
+    ws, wt = atlas.wrap_s[tid], atlas.wrap_t[tid]
+    px = uv[..., 0] * atlas.width[tid].float() - 0.5
+    py = uv[..., 1] * atlas.height[tid].float() - 0.5
+    x0 = torch.floor(px).long()
+    y0 = torch.floor(py).long()
+    fx = (px - x0.float())[..., None]
+    fy = (py - y0.float())[..., None]
+    aw = atlas.data.shape[1]
+    flat = atlas.data.reshape(-1, 4)
+
+    def tap(xi, yi):
+        texel = flat[(_wrap(yi, h, wt) + oy) * aw + _wrap(xi, w, ws) + ox]
+        return texel.float() * (1.0 / 255.0)
+
+    c00, c10 = tap(x0, y0), tap(x0 + 1, y0)
+    c01, c11 = tap(x0, y0 + 1), tap(x0 + 1, y0 + 1)
+    top = c00 + (c10 - c00) * fx
+    bot = c01 + (c11 - c01) * fx
+    out = top + (bot - top) * fy
+    return torch.where((tex_id < 0)[..., None], torch.ones_like(out), out)
 
 
 def sample_env(image, uv):

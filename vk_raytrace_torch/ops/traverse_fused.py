@@ -661,10 +661,11 @@ def sort_children(keys, refs):
     return out_k, out_r, count
 
 
-def closest_hit_fused(planar, origin, direction) -> Hit:
-    """Mode a: nearest hit with backface culling."""
+def closest_hit_fused(planar, origin, direction, active=None) -> Hit:
+    """Mode a: nearest hit with backface culling; rays outside ``active``
+    (an optional (R,) bool mask) miss."""
     t_max = torch.full(origin.shape[:1], INF, device=origin.device)
-    t, tri, u, v, steps, _, _ = traverse(planar, origin, direction, t_max, None, "closest", True)
+    t, tri, u, v, steps, _, _ = traverse(planar, origin, direction, t_max, active, "closest", True)
     return Hit(t, tri, u, v, steps)
 
 

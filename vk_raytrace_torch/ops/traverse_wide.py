@@ -72,16 +72,17 @@ class AccelBundle:
         )
 
 
-def closest_hit_bundle(bundle, pack, origin, direction, seed):
+def closest_hit_bundle(bundle, pack, origin, direction, seed, active=None):
     """Opaque closest hit, then the nearest alpha surface in front of it
-    that passes its stochastic test. Returns ``(Hit, seed')``."""
+    that passes its stochastic test. Returns ``(Hit, seed')``; rays outside
+    ``active`` (an optional (R,) bool mask) miss and keep their seed."""
     from . import traverse_alpha as ta
 
-    hit_o = tf.closest_hit_fused(bundle.opaque_planar, origin, direction)
+    hit_o = tf.closest_hit_fused(bundle.opaque_planar, origin, direction, active=active)
     if bundle.alpha_planar is None:
         return hit_o, seed
     hit_a, seed = ta.closest_hit_alpha(
-        bundle.alpha_planar, pack, origin, direction, hit_o.t, seed=seed
+        bundle.alpha_planar, pack, origin, direction, hit_o.t, seed=seed, active=active
     )
     take_a = hit_a.tri >= 0
     return Hit(

@@ -3,8 +3,10 @@
 
 ``Renderer(scene, cfg, device=...)`` builds the acceleration structures and
 the sun&sky environment, uploads every table once, and renders progressive
-frames with the pooled wavefront: ``accum = mix(accum, new, 1/(frame+1))``
-(pathtrace.rgen:96-107). The device is always explicit.
+frames: ``accum = mix(accum, new, 1/(frame+1))`` (pathtrace.rgen:96-107).
+A frame runs the pooled wavefront; a debug render mode runs the unrolled
+integrator over row strips (:func:`render_strip_impl`). The device is
+always explicit.
 """
 
 from __future__ import annotations
@@ -16,10 +18,12 @@ import numpy as np
 import torch
 
 from .integrator import shade_fused
-from .integrator.camera import with_aspect
+from .integrator.camera import generate_rays_for_pixels, with_aspect
+from .integrator.path import sample_pixels
 from .integrator.shade import build_shade_rows, mat_features
 from .integrator.wavefront import render_units_pooled
-from .models.schema import SceneData, default_sun_sky, default_tonemapper, dummy_atlas, dummy_environment
+from .models.schema import DEBUG_NONE, SceneData, default_sun_sky, default_tonemapper, dummy_atlas, dummy_environment
+from .ops import rng
 from .ops.bvh8 import build_accel_bundle
 from .ops.tlas import InstancedAccel
 from .ops.texture import build_tap_rows
@@ -93,6 +97,43 @@ def prepare_sun_sky(scene: SceneData, cfg, device):
 # in the pool, as in the reference.
 MAX_PATHS_PER_DISPATCH = 1 << 21
 POOL_LANES = 1 << 18
+# Rays per strip of the unrolled integrator, which carries every ray of a
+# strip through every bounce: the cap bounds its state.
+MAX_RAYS_PER_DISPATCH = 1 << 19
+
+
+def strip_rows_for(cfg) -> int:
+    """Rows per strip: about ``MAX_RAYS_PER_DISPATCH`` rays, at least 8
+    rows, in equal strips that divide the image."""
+    rows = min(max(8, MAX_RAYS_PER_DISPATCH // max(cfg.width, 1)), cfg.height)
+    n = -(-cfg.height // rows)
+    while cfg.height % n:
+        n += 1
+    return cfg.height // n
+
+
+def render_strip_impl(scene, packed, cfg, row0: int, n_rows: int, frame: int, alpha_pack=None,
+                      features=None, tracer=None):
+    """``cfg.max_samples`` paths per pixel of image rows ``[row0, row0 +
+    n_rows)`` through the unrolled integrator, averaged: ``(image (n_rows,
+    W, 3), rays)``, ``rays`` the closest-hit and shadow rays traced (0-d).
+    ``tracer``: a traversal back end in place of ``packed``
+    (``integrator/path.py::trace_paths``)."""
+    w = cfg.width
+    dev = scene.shade_rows.device
+    pix = torch.arange(n_rows * w, dtype=torch.int64, device=dev) + row0 * w
+    total = torch.zeros(n_rows * w, 3, device=dev)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    for s in range(cfg.max_samples):
+        seed = rng.tea(pix, frame * cfg.max_samples + s)
+        o, d, seed = generate_rays_for_pixels(scene.camera, w, cfg.height, pix, frame, seed)
+        radiance, _, st = sample_pixels(
+            scene, packed, cfg, o, d, seed, alpha_pack=alpha_pack, tracer=tracer,
+            features=features,
+        )
+        total = total + radiance
+        rays = rays + st.rays.sum()
+    return (total / cfg.max_samples).reshape(n_rows, w, 3), rays
 
 
 class Renderer:
@@ -103,7 +144,9 @@ class Renderer:
         two-level scene brings its own in ``scene.instances``. The renderer
         keeps the structure in ``self.packed`` only. ``fused_shade`` runs
         each bounce's shading as one kernel launch where the scene allows it
-        (``integrator/shade_fused.py::supported``); off by default."""
+        (``integrator/shade_fused.py::supported``); off by default.
+        ``stage`` says which shading stage the frames run: ``"fused"`` or
+        ``"eager"``."""
         self.cfg = cfg
         self.fused_shade = fused_shade
         self.device = torch.device(device)
@@ -135,9 +178,11 @@ class Renderer:
         # The fused shading stage's tables (light rows, sun-disk constants,
         # instance rows), built once here where that stage runs.
         self._shade_tables = None
+        self.stage = "eager"
         if shade_fused.supported(fused_shade, self._run_cfg, self.scene, self.features):
             inst = self.packed.inst if isinstance(self.packed, InstancedAccel) else None
             self._shade_tables = shade_fused.stage_tables(self.scene, inst)
+            self.stage = "fused"
         self._sync()
         self.build_times["upload_s"] = time.time() - t0
         self.last_rays = 0
@@ -156,10 +201,15 @@ class Renderer:
         self.accum = torch.zeros((self.cfg.height, self.cfg.width, 3), device=self.device)
 
     def step(self) -> None:
-        """Render one progressive frame into the running mean."""
+        """Render one progressive frame into the running mean: the pooled
+        wavefront, or with a debug render mode the unrolled integrator,
+        which carries the first-hit debug outputs, over row strips."""
         if self.converged:
             return
-        new = self._frame_pooled(self.frame)
+        if self._run_cfg.debug_mode == DEBUG_NONE:
+            new = self._frame_pooled(self.frame)
+        else:
+            new = self._frame_strips(self.frame)
         self.accum = self.accum + (new - self.accum) * (1.0 / (self.frame + 1.0))
         self.frame += 1
 
@@ -184,6 +234,23 @@ class Renderer:
             rays = rays + r
         self.last_rays = int(rays)
         return torch.cat(parts, dim=0).reshape(h, w, 3)
+
+    def _frame_strips(self, frame: int) -> torch.Tensor:
+        rows = strip_rows_for(self.cfg)
+        strips, rays = [], 0
+        for row0 in range(0, self.cfg.height, rows):
+            img, r = render_strip_impl(
+                self.scene, self.packed, self._run_cfg, row0, rows, frame,
+                alpha_pack=self.alpha_pack, features=self.features,
+            )
+            strips.append(img)
+            rays = rays + r
+        self.last_rays = int(rays)
+        return torch.cat(strips, dim=0)
+
+    def hdr(self) -> torch.Tensor:
+        """The accumulated radiance image (H, W, 3), before the post chain."""
+        return self.accum
 
     def render(self, frames: int = 1) -> np.ndarray:
         """Accumulate ``frames`` frames; the post-processed (H, W, 3) image."""
