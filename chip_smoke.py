@@ -122,18 +122,51 @@ build s and peak MiB beside the card's name and power limit:
     configurations of ``tests/test_anchor.py``, under its criterion
     (``integrator/brute.images_match``).
 
-No depth was cut for time: the whole script ran in about half its time
-limit on the card.
+Then the application path, through the entry points a user calls, at
+full size (each CLI run prints s/frame, Mrays/s, launches per frame, build
+s and peak MiB beside the card's name and power limit):
+
+24. the CLI (``vk_raytrace_torch.cli.main``) at the reference CLI's own
+    defaults: the atrium with sun&sky at 1280x720, depth 10, 16 spp, Disney
+    (the eager stage); modes a/b and the alpha rounds kernel must have
+    launched; then 8 spp with ``--checkpoint`` and 8 more resumed from it,
+    held against the straight 16 (bit for bit is printed; the slice's pixel
+    tolerance is asserted); the PNG decodes with ``utils/png.py`` and is lit;
+    then the bistro, glTF PBR, ``--fused-shade``, sun&sky, 1280x720, depth
+    10, 4 spp (two levels): the opaque and alpha machines and the stage
+    kernel must have launched;
+25. glTF: ``tests/assets/quirks.glb`` loaded baked and two-level, each
+    rendered at 128x72 on the card against the CPU (phase 9's pixel share;
+    the single-level kernels, then the machines, must have launched), then
+    through the CLI at 1280x720, depth 10, 16 spp;
+26. ``Renderer.pick`` on 256 pixels of the atrium and of the bistro on the
+    card, against ``pick_many`` of the same pixels on the CPU: the same
+    hits, triangle, material and instance equal where t is not tied, t
+    within rtol 1e-5; mode a (the opaque machine in the bistro) must have
+    launched;
+27. the scene cache (``utils/cache.py``): the atrium's accel built cold
+    into a temporary cache directory, then loaded warm; both bit-identical
+    to a fresh build; and the sun&sky bake on the card timed against a load
+    of its tables from the cache.
+
+The script keeps its files (checkpoints, images, the port's scene cache)
+in a temporary directory that it removes at exit. No depth was cut for
+time: the whole script ran in about half its time limit on the card.
 
 The line before the last is the per-kernel JSON summary (times, launches,
 errors and each kernel's bound on this card); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import atexit
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import shutil
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -231,8 +264,11 @@ RTOL, ATOL = 1e-5, 1e-5
 PIX_RTOL, PIX_ATOL, PIX_SHARE, RAY_REL = 1e-3, 1e-4, 0.99, 1e-3
 
 
+T_START = time.time()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.time() - T_START:.1f} s)", flush=True)
 
 
 def shade_bytes(n, flags):
@@ -1010,6 +1046,67 @@ def opaque_machine_case(name, acc, subset, o, d, t_max, act, any_hit, card):
         (1, 4, 5), work, card)
 
 
+def cli_run(what, argv, card, want=(), stage=None):
+    """``cli.main(argv + ["--profile"])`` on a fresh peak and fresh counters:
+    checks its exit code, the counted launches (``want`` must have
+    launched) and the shading stage, prints the CLI's own lines and s/frame
+    (the frames after the first, which carries the warm-up), Mrays/s, build
+    s and peak MiB. Returns (profile dict, launches)."""
+    from vk_raytrace_torch import cli
+    from vk_raytrace_torch.integrator import shade_fused as sf
+    from vk_raytrace_torch.ops import traverse_fused as tf
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tf.reset_launches()
+    sf.reset_launches()
+    err = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main([*argv, "--profile"])
+    wall = time.time() - t0
+    lau = {k: v for k, v in {**tf.LAUNCHES, **sf.LAUNCHES}.items() if v}
+    lines = err.getvalue().splitlines()
+    prof = json.loads([ln for ln in lines if ln.startswith('{"profile"')][-1])["profile"]
+    for ln in lines:
+        if not ln.startswith('{"profile"'):
+            print(f"  cli: {ln}")
+    assert rc == 0, f"{what}: the CLI returned {rc}"
+    assert all(lau.get(k, 0) > 0 for k in want), f"{what}: a kernel never launched: {lau}"
+    if stage is not None:
+        assert prof["stage"] == stage, f"{what}: the {prof['stage']} stage ran, not {stage}"
+    timed = prof["frame_s"][1:] or prof["frame_s"]
+    rays = prof["rays"][1:] or prof["rays"]
+    s_frame = float(np.mean(timed))
+    mrays = float(np.sum(rays) / np.sum(timed) / 1e6)
+    frames = len(prof["frame_s"])
+    print(f"{what}: {s_frame:.4f} s/frame (frames 2-{frames}; first {prof['frame_s'][0]:.3f}), "
+          f"{mrays:.4f} Mrays/s, rays/frame {prof['rays'][-1]}, {prof['stage']} shading, "
+          f"launches/frame {({k: v / frames for k, v in lau.items()})}, build s: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in prof["build_s"].items())
+          + f"; peak {prof['peak_mib']:.1f} MiB allocated; wall {wall:.1f} s [{card}]", flush=True)
+    return prof, lau
+
+
+def check_picks(what, card_p, cpu_p):
+    """The card's picks against the CPU's: the same hits; triangle, material
+    and instance equal wherever t is not tied; t within rtol 1e-5. Returns
+    (hits, picks differing by a tie)."""
+    assert [p is None for p in card_p] == [p is None for p in cpu_p], f"{what}: hits differ"
+    ties = 0
+    for a, b in zip(card_p, cpu_p):
+        if a is None:
+            continue
+        assert abs(a["t"] - b["t"]) <= RTOL * abs(b["t"]), f"{what}: t {a} vs {b}"
+        if (a["triangle"], a.get("instance")) != (b["triangle"], b.get("instance")):
+            assert a["t"] == b["t"], f"{what}: differ where t is not tied: {a} vs {b}"
+            ties += 1
+        else:
+            assert a["material"] == b["material"], f"{what}: {a} vs {b}"
+    return sum(p is not None for p in card_p), ties
+
+
 def main():
     # ---- 1. environment ----------------------------------------------------
     phase("environment")
@@ -1023,6 +1120,13 @@ def main():
     from vk_raytrace_torch import travbench as tb
 
     card = tb.card_line()
+    # The script's files (checkpoints, images, the port's scene cache) live in
+    # a temporary directory, removed at exit.
+    work = tempfile.mkdtemp(prefix="vkrt_smoke_")
+    atexit.register(shutil.rmtree, work, True)
+    from vk_raytrace_torch.utils import cache as scene_cache
+
+    os.environ[scene_cache.ENV] = os.path.join(work, "scene_cache")
     print(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"card: {card}", flush=True)
 
@@ -1644,6 +1748,153 @@ def main():
               f"matched-set RMSE {rmse:.5f} (< {brute.MATCH_RMSE}) [{card}]", flush=True)
         assert ok and np.isfinite(img_bvh).all() and img_bvh.mean() > 0.0, f"anchor {what} failed"
 
+    # ---- 24. the CLI at the reference CLI's defaults -----------------------------
+    phase("CLI: the atrium at the reference CLI's defaults, a checkpoint, the bistro")
+    from vk_raytrace_torch.utils import png as png_mod
+
+    def out(name):
+        return os.path.join(work, name)
+
+    atrium_args = ["--scene", "atrium", "--sun-sky", "--size", "1280", "720", "--depth", "10"]
+    cli_run("CLI atrium 1280x720 d10 16 spp (Disney)", atrium_args + [
+        "--spp", "16", "-o", out("atrium.png"), "--hdr-out", out("atrium.npy")], card,
+        want=ATRIUM_KERNELS, stage="eager")
+    ck = out("atrium_ck.npz")
+    for k in (1, 2):
+        cli_run(f"CLI atrium, checkpointed run {k} of 2 (8 spp)", atrium_args + [
+            "--spp", "8", "--checkpoint", ck, "-o", out(f"atrium_ck{k}.png"), "--hdr-out",
+            out(f"atrium_ck{k}.npy")], card, want=ATRIUM_KERNELS)
+    straight, resumed = np.load(out("atrium.npy")), np.load(out("atrium_ck2.npy"))
+    assert int(np.load(ck)["frame"]) == 16
+    exact = bool(np.array_equal(resumed, straight))
+    share = float(np.isclose(resumed, straight, rtol=PIX_RTOL, atol=PIX_ATOL).all(-1).mean())
+    print(f"checkpoint: 8 + 8 spp resumed against 16 straight: "
+          f"{'bit for bit' if exact else 'NOT bit for bit'}, max |diff| "
+          f"{float(np.abs(resumed - straight).max()):.3g}, pixels within rtol {PIX_RTOL}/atol "
+          f"{PIX_ATOL}: {share:.5f}", flush=True)
+    assert share >= PIX_SHARE, f"checkpoint: only {share:.4f} of pixels agree"
+    png_px = png_mod.decode_rgba(open(out("atrium.png"), "rb").read())
+    assert png_px.shape == (720, 1280, 4) and np.isfinite(straight).all()
+    assert png_px[..., :3].mean() > 5.0 and straight.mean() > 0.0, "CLI atrium: unlit image"
+    print(f"atrium.png: {png_px.shape[1]}x{png_px.shape[0]}, mean 8-bit value "
+          f"{png_px[..., :3].mean():.2f}, HDR mean {straight.mean():.4f}", flush=True)
+    cli_run("CLI bistro 1280x720 d10 4 spp (glTF, fused, two levels)", [
+        "--scene", "bistro", "--pbr", "gltf", "--fused-shade", "--sun-sky", "--size", "1280",
+        "720", "--depth", "10", "--spp", "4", "-o", out("bistro.png")], card,
+        want=("opaque_machine", "alpha_machine", "shade_stage"), stage="fused")
+    assert png_mod.decode_rgba(open(out("bistro.png"), "rb").read())[..., :3].mean() > 5.0
+
+    # ---- 25. glTF: quirks.glb baked and two-level --------------------------------
+    phase("glTF: quirks.glb")
+    from vk_raytrace_torch.models.gltf import load_gltf
+
+    quirks = os.path.join(REPO, "tests", "assets", "quirks.glb")
+    cfg_q = RenderConfig(width=128, height=72, max_depth=4, max_samples=1, pbr_mode=PBR_GLTF,
+                         firefly_clamp=10.0, use_sun_sky=True)
+    for mode, want in (("bake", ATRIUM_KERNELS), ("auto", ("opaque_machine", "alpha_machine"))):
+        gq, mq, lq, cq, aq = load_gltf(quirks, instancing=mode)
+        if mode == "bake":
+            qscene = R.build_scene(gq, mq, lq, cq, atlas=aq)
+        else:
+            qscene = R.build_instanced_scene(*gq, mq, lq, cq, atlas=aq)
+        qscene, q_run = R.prepare_sun_sky(qscene, cfg_q, "cpu")  # one sky for both
+        q_imgs, q_rays = {}, {}
+        for where in ("cuda", "cpu"):
+            tf.reset_launches()
+            r = R.Renderer(qscene, q_run, device=where)
+            q_rays[where] = []
+            for _ in range(2):
+                r.step()
+                q_rays[where].append(r.last_rays)
+            q_imgs[where] = r.accum.cpu().numpy()
+            if where == "cuda":
+                q_lau = {k: v for k, v in tf.LAUNCHES.items() if v}
+        share = float(np.isclose(q_imgs["cuda"], q_imgs["cpu"], rtol=PIX_RTOL, atol=PIX_ATOL)
+                      .all(-1).mean())
+        ray_rel = abs(sum(q_rays["cuda"]) - sum(q_rays["cpu"])) / sum(q_rays["cpu"])
+        print(f"quirks.glb {mode} 128x72 d4: card against CPU, pixels within rtol {PIX_RTOL}/"
+              f"atol {PIX_ATOL}: {share:.5f}; rays {q_rays['cuda']} vs {q_rays['cpu']}; card "
+              f"launches {q_lau}", flush=True)
+        assert np.isfinite(q_imgs["cuda"]).all() and q_imgs["cuda"].mean() > 0.0
+        assert share >= PIX_SHARE, f"quirks {mode}: only {share:.4f} of pixels agree"
+        assert ray_rel <= RAY_REL, f"quirks {mode}: ray counts differ by {ray_rel:.2e}"
+        assert all(q_lau.get(k, 0) > 0 for k in want), f"quirks {mode}: {q_lau}"
+    cli_run("CLI quirks.glb 1280x720 d10 16 spp (Disney, two levels)", [
+        "-f", quirks, "--size", "1280", "720", "--depth", "10", "--spp", "16", "-o",
+        out("quirks.png")], card, want=("opaque_machine", "alpha_machine"), stage="eager")
+
+    # ---- 26. pick on the card and on the CPU --------------------------------------
+    phase("pick: the atrium and the bistro, card against CPU")
+    pick_cfg = RenderConfig(width=1280, height=720)
+    b_pick_scene = R.build_scene(pool.geometry, b_mats, b_lights, b_cam, atlas=b_atlas)
+    prng = np.random.default_rng(26)
+    for what, psc, packed, want in (("atrium", scene, bundle, ("closest",)),
+                                    ("bistro", b_pick_scene, b_inst, ("opaque_machine",))):
+        xs, ys = prng.integers(0, 1280, 256), prng.integers(0, 720, 256)
+        rc = R.Renderer(psc, pick_cfg, device=dev, packed=packed)
+        tf.reset_launches()
+        t0 = time.perf_counter()
+        card_p = [rc.pick(int(x), int(y)) for x, y in zip(xs, ys)]
+        card_s = time.perf_counter() - t0
+        lau = {k: v for k, v in tf.LAUNCHES.items() if v}
+        t0 = time.perf_counter()
+        cpu_p = R.Renderer(psc, pick_cfg, device="cpu", packed=packed).pick_many(xs, ys)
+        cpu_s = time.perf_counter() - t0
+        hits, ties = check_picks(what, card_p, cpu_p)
+        assert hits > 64 and all(lau.get(k, 0) > 0 for k in want), f"pick {what}: {hits}, {lau}"
+        print(f"pick {what}: 256 pixels, {hits} hits, {ties} differ by a tie of t; card "
+              f"{card_s / 256 * 1e3:.2f} ms a pick (launches {lau}), CPU batch {cpu_s:.2f} s; "
+              f"card = CPU [{card}]", flush=True)
+        del rc
+    del b_pick_scene
+
+    # ---- 27. the scene cache: cold build, warm load ----------------------------------
+    phase("scene cache: the atrium's accel cold and warm")
+    from vk_raytrace_torch.ops import bvh8
+
+    t0 = time.time()
+    fresh = bvh8._build(geom, 16)
+    fresh_s = time.time() - t0
+    os.environ[scene_cache.ENV] = out("phase27_cache")
+    t0 = time.time()
+    cold = bvh8.build_accel_bundle(geom)
+    cold_s = time.time() - t0
+    t0 = time.time()
+    warm = bvh8.build_accel_bundle(geom)
+    warm_s = time.time() - t0
+    entry = os.path.join(out("phase27_cache"), os.listdir(out("phase27_cache"))[0])
+    for got in (cold, warm):
+        for a, b in ((got.opaque_planar, fresh.opaque_planar),
+                     (got.alpha_planar, fresh.alpha_planar)):
+            assert np.array_equal(a.rows, b.rows) and a.stack_depth == b.stack_depth
+    # The sky: its bake on the card against a load of the same tables.
+    cfg_sky = RenderConfig(width=1280, height=720, use_sun_sky=True)
+    bake_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sky_scene, _ = R.prepare_sun_sky(scene, cfg_sky, dev)
+        torch.cuda.synchronize()
+        bake_s.append(time.time() - t0)
+    env = sky_scene.env
+    sky = {"image": env.image, "alias": env.accel.alias, "q": env.accel.q, "pdf": env.accel.pdf,
+           "alias_pdf": env.accel.alias_pdf, "rows": env.rows}
+    sky_np = {k: v.cpu().numpy() for k, v in sky.items()}
+    sky_key = scene_cache.content_key("sky-probe", *sky_np.values())
+    scene_cache.save(sky_key, **sky_np)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    loaded = {k: torch.from_numpy(v).to(dev) for k, v in scene_cache.load(sky_key).items()}
+    torch.cuda.synchronize()
+    sky_load_s = time.time() - t0
+    assert all(torch.equal(loaded[k], sky[k]) for k in sky)
+    print(f"atrium accel: fresh build {fresh_s:.3f} s, cold (build + save) {cold_s:.3f} s, "
+          f"warm (load) {warm_s:.3f} s; rows bit-identical to the fresh build; entry "
+          f"{os.path.getsize(entry) / 2**20:.1f} MiB. Sun&sky bake on the card "
+          f"{bake_s[0]:.4f} s then {bake_s[1]:.4f} s, a load of its tables from the cache with "
+          f"the upload {sky_load_s:.4f} s [{card}]", flush=True)
+    os.environ[scene_cache.ENV] = os.path.join(work, "scene_cache")
+
     def traverse_entry(m, lau, replaces):
         """``launches``: the main path's count (``lau``). The per-round kernels
         of the modes the machines run (mode c from the root, modes a/b/c with
@@ -1712,6 +1963,7 @@ def main():
                         "ms": x["ms"],
                         "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
                         "bound_by": x["bound_by"], "library_ms": None})
+    print(f"phases 1-27 passed in {time.time() - T_START:.1f} s [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -15,8 +15,10 @@ across calls; the whole shading stage kernel and the body alone
 (single-level and instanced) against their plain versions; and the render
 slices (atrium, bistro) on the card against the CPU; the Disney BSDF
 (material grid), the debug modes through the unrolled integrator and its
-masked closest hit on the card against the CPU; and the brute-force
-anchor on the card. Kernel vs twin: same float32 operations in the same order, rounded
+masked closest hit on the card against the CPU; the brute-force
+anchor on the card; ``Renderer.pick`` on the card against the CPU; and the
+CLI on the card (against ``--device cpu``, and a checkpointed run against
+a straight one). Kernel vs twin: same float32 operations in the same order, rounded
 per operation (nvcc -fmad=false), so ``tri`` and the hit masks are equal
 and t within rtol 1e-5. Render: CUDA and CPU transcendentals round
 differently, so 99% of pixels within rtol 1e-3 / atol 1e-4 and ray counts
@@ -745,3 +747,52 @@ def test_anchor_on_card():
                               tracer=brute.BruteTracer(sc.geometry)).cpu().numpy()
     ok, share, rmse = brute.images_match(img, ref)
     assert ok, (share, rmse)
+
+
+def test_pick_on_card_matches_cpu():
+    """``pick`` on the card against ``pick_many`` on the CPU: the reduced
+    atrium (banners picked as opaque) and the small bistro (two levels)."""
+    _need_cuda()
+    g, m, l, c, a = procedural.atrium_scene(**SMALL_ATRIUM)
+    pool, inst, bm, bl, bc, ba = procedural.bistro_scene(detail=0.05)
+    cfg = RenderConfig(width=96, height=54)
+    rng = np.random.default_rng(4)
+    xs, ys = rng.integers(0, 96, 64), rng.integers(0, 54, 64)
+    for sc in (R.build_scene(g, m, l, c, atlas=a),
+               R.build_instanced_scene(pool, inst, bm, bl, bc, atlas=ba)):
+        card = R.Renderer(sc, cfg, device="cuda")
+        got = [card.pick(int(x), int(y)) for x, y in zip(xs, ys)]
+        want = R.Renderer(sc, cfg, device="cpu").pick_many(xs, ys)
+        assert [p is None for p in got] == [p is None for p in want]
+        assert sum(p is not None for p in got) > 16
+        for p, q in zip(got, want):
+            if p is not None:
+                assert (p["triangle"], p["material"], p.get("instance")) == (
+                    q["triangle"], q["material"], q.get("instance")) or p["t"] == q["t"]
+                np.testing.assert_allclose(p["t"], q["t"], rtol=1e-5)
+
+
+def test_cli_on_card(tmp_path):
+    """The CLI on the card: quirks.glb (two levels) against ``--device cpu``
+    (the render slice's tolerance), and 1 + 1 spp through ``--checkpoint``
+    equal to 2 straight, bit for bit."""
+    _need_cuda()
+    import os
+
+    from vk_raytrace_torch import cli
+
+    quirks = os.path.join(os.path.dirname(__file__), "assets", "quirks.glb")
+    base = ["-f", quirks, "--size", "64", "48", "--depth", "4", "--pbr", "gltf"]
+
+    def run(name, *extra):
+        out = str(tmp_path / f"{name}.npy")
+        assert cli.main([*base, "-o", str(tmp_path / f"{name}.png"), "--hdr-out", out,
+                         *extra]) == 0
+        return np.load(out)
+
+    card, cpu = run("card", "--spp", "2"), run("cpu", "--spp", "2", "--device", "cpu")
+    assert np.isfinite(card).all() and card.mean() > 0.0
+    assert np.isclose(card, cpu, rtol=1e-3, atol=1e-4).all(-1).mean() >= 0.99
+    ck = str(tmp_path / "ck.npz")
+    run("half", "--spp", "1", "--checkpoint", ck)
+    assert np.array_equal(run("resumed", "--spp", "1", "--checkpoint", ck), card)

@@ -5,7 +5,9 @@ package was ever imported; the same for the two-level path (instance
 tables, ``ops/tlas.py``, the small bistro through the fused stage), for
 the width-32 builds (``build_bvh32``) with the traversal micro-bench
 (``vk_raytrace_torch.travbench``) and for the Disney BSDF, the debug modes,
-the BASELINE #2/#4 scenes and the brute-force anchor; and, statically, that no import
+the BASELINE #2/#4 scenes and the brute-force anchor; for the application
+path (the CLI on quirks.glb, the glTF loader, the PNG codec, the scene
+cache and the profiler), also without Pillow; and, statically, that no import
 statement of the package or of the chip scripts (``chip_smoke.py``,
 ``chip_ab.py``, ``chip_profile.py``) names JAX or the JAX package, and that
 the chip scripts import without them."""
@@ -115,6 +117,31 @@ print("ok")
 """
 
 
+APP_SCRIPT = """
+import os, sys, tempfile
+import numpy as np
+from vk_raytrace_torch import cli
+from vk_raytrace_torch.models import gltf
+from vk_raytrace_torch.utils import cache, png, profiler
+
+with tempfile.TemporaryDirectory() as d:
+    os.environ[cache.ENV] = os.path.join(d, "cache")
+    out = os.path.join(d, "q.png")
+    for _ in range(2):  # the second run loads its accel from the cache
+        assert cli.main(["--device", "cpu", "-f", os.path.join("tests", "assets", "quirks.glb"),
+                         "--instancing", "bake", "--size", "32", "24", "--depth", "3", "--spp", "1",
+                         "--profile", "-o", out]) == 0
+    assert len(os.listdir(os.path.join(d, "cache"))) == 1
+    img = png.decode_rgba(open(out, "rb").read())
+    assert img.shape == (24, 32, 4) and img[..., :3].max() > 0
+    g, m, l, c, a = gltf.load_gltf(os.path.join("tests", "assets", "quirks.glb"), instancing="auto")
+    assert a is not None and len(g) == 2
+for name in ("jax", "vk_raytrace_tpu", "PIL"):
+    assert name not in sys.modules, sorted(m for m in sys.modules if m.startswith(name))
+print("ok")
+"""
+
+
 def _run(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
@@ -142,6 +169,14 @@ def test_disney_debug_and_anchor_never_import_jax():
     """The Disney BSDF on the material grid under the procedural sky, two
     debug modes through the strips, the helmet, and the brute-force anchor."""
     _run(DISNEY_SCRIPT)
+
+
+def test_application_path_never_imports_jax_or_pillow():
+    """The CLI on quirks.glb (textures decoded by the port's PNG decoder,
+    the accel cached and loaded again, the PNG written by its encoder), the
+    glTF loader in two levels, the cache and the profiler: neither JAX, nor
+    the JAX package, nor Pillow, which the card's machine does not have."""
+    _run(APP_SCRIPT)
 
 
 def _non_doc_strings(tree):

@@ -81,7 +81,9 @@ def isolated_reference(tmp_path_factory):
     while a port test module runs, so no entry of the shared
     ``~/.cache/vkrt_scene`` is read; and the reference's native builder is
     loaded, without which the reference falls back without a word to its
-    8-wide LBVH, whatever width was asked for. Yields the cache directory."""
+    8-wide LBVH, whatever width was asked for. The port's own scene cache
+    (``VKRT_TORCH_SCENE_CACHE``) lies beside it. Yields the reference's
+    cache directory."""
     base = tmp_path_factory.getbasetemp()
     assert _load_reference_native(base.parent / "vkrt_native_build.lock"), (
         "the reference's native library (vk_raytrace_tpu/runtime/_native.so) did not load: "
@@ -90,6 +92,7 @@ def isolated_reference(tmp_path_factory):
     cache = base / "vkrt_scene"
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("VKRT_SCENE_CACHE", str(cache))
+        mp.setenv("VKRT_TORCH_SCENE_CACHE", str(base / "vkrt_torch_scene"))
         yield cache
 
 

@@ -7,6 +7,8 @@
 //   pack_rgba8        RGBA8 vertex-colour packing
 //   build_bvh16       binned-SAH build of 16-wide planar 512-byte rows
 //   build_bvh32       the same at width 32: 1024-byte rows
+//   png_unfilter      PNG scanline reconstruction (filters 0-4), for the
+//                     port's PNG decoder (utils/png.py)
 // The tables they produce must stay byte-identical to the reference's
 // (tests/test_torch_scene.py).
 
@@ -97,6 +99,44 @@ void pack_rgba8(const float* colors /* n*4 */, int64_t n, uint32_t* out) {
     }
     out[i] = v;
   }
+}
+
+// ---------------------------------------------------------------------------
+// PNG scanline reconstruction (PNG spec section 9): ``raw`` holds h rows of a
+// filter-type byte and ``stride`` bytes; ``out`` receives h * stride bytes.
+// ``bpp`` is the bytes per complete pixel. Returns 0, or 1 + the row of the
+// first unknown filter type.
+// ---------------------------------------------------------------------------
+int64_t png_unfilter(const uint8_t* raw, int64_t h, int64_t stride, int64_t bpp,
+                     uint8_t* out) {
+  for (int64_t y = 0; y < h; ++y) {
+    const uint8_t* in = raw + y * (stride + 1);
+    const uint8_t ft = in[0];
+    ++in;
+    uint8_t* cur = out + y * stride;
+    const uint8_t* up = y > 0 ? cur - stride : nullptr;
+    for (int64_t i = 0; i < stride; ++i) {
+      const int a = i >= bpp ? cur[i - bpp] : 0;
+      const int b = up ? up[i] : 0;
+      const int c = (up && i >= bpp) ? up[i - bpp] : 0;
+      int pred;
+      switch (ft) {
+        case 0: pred = 0; break;
+        case 1: pred = a; break;
+        case 2: pred = b; break;
+        case 3: pred = (a + b) >> 1; break;
+        case 4: {
+          const int p = a + b - c;
+          const int pa = std::abs(p - a), pb = std::abs(p - b), pc = std::abs(p - c);
+          pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+          break;
+        }
+        default: return 1 + y;
+      }
+      cur[i] = uint8_t(in[i] + pred);
+    }
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -6,7 +6,9 @@ the sun&sky environment, uploads every table once, and renders progressive
 frames: ``accum = mix(accum, new, 1/(frame+1))`` (pathtrace.rgen:96-107).
 A frame runs the pooled wavefront; a debug render mode runs the unrolled
 integrator over row strips (:func:`render_strip_impl`). The device is
-always explicit.
+always explicit. ``pick`` traces one camera ray; ``save_state`` /
+``load_state`` checkpoint the accumulation; :func:`write_png` writes the
+post-processed image without Pillow (``utils/png.py``).
 """
 
 from __future__ import annotations
@@ -25,10 +27,11 @@ from .integrator.wavefront import render_units_pooled
 from .models.schema import DEBUG_NONE, SceneData, default_sun_sky, default_tonemapper, dummy_atlas, dummy_environment
 from .ops import rng
 from .ops.bvh8 import build_accel_bundle
-from .ops.tlas import InstancedAccel
+from .ops.tlas import InstancedAccel, closest_hit_instanced
 from .ops.texture import build_tap_rows
 from .ops.tonemap import TM_UNCHARTED, apply_post
-from .ops.traverse_wide import make_alpha_pack
+from .ops.traverse_wide import closest_hit_bundle, make_alpha_pack
+from .utils import png
 
 
 def build_scene(geometry, materials, lights, camera, *, env=None, sun_sky=None,
@@ -139,14 +142,16 @@ def render_strip_impl(scene, packed, cfg, row0: int, n_rows: int, frame: int, al
 class Renderer:
     """Progressive path tracer over one scene on an explicit device."""
 
-    def __init__(self, scene: SceneData, cfg, device, packed=None, fused_shade: bool = False):
+    def __init__(self, scene: SceneData, cfg, device, packed=None, fused_shade: bool = False,
+                 tonemapper=None):
         """``packed`` reuses a prebuilt AccelBundle or InstancedAccel; a
         two-level scene brings its own in ``scene.instances``. The renderer
         keeps the structure in ``self.packed`` only. ``fused_shade`` runs
         each bounce's shading as one kernel launch where the scene allows it
         (``integrator/shade_fused.py::supported``); off by default.
         ``stage`` says which shading stage the frames run: ``"fused"`` or
-        ``"eager"``."""
+        ``"eager"``. ``tonemapper``: the post chain's ``Tonemapper`` table
+        (default ``default_tonemapper()``)."""
         self.cfg = cfg
         self.fused_shade = fused_shade
         self.device = torch.device(device)
@@ -174,7 +179,7 @@ class Renderer:
             if has_alpha
             else None
         )
-        self.tonemapper = default_tonemapper().to(self.device)
+        self.tonemapper = (default_tonemapper() if tonemapper is None else tonemapper).to(self.device)
         # The fused shading stage's tables (light rows, sun-disk constants,
         # instance rows), built once here where that stage runs.
         self._shade_tables = None
@@ -261,3 +266,65 @@ class Renderer:
     def postprocess(self, mode: int = TM_UNCHARTED) -> torch.Tensor:
         """Tonemap + post chain of the running mean, (H, W, 3) in [0, 1]."""
         return apply_post(self.accum, self.tonemapper, mode=mode)
+
+    def pick(self, x: int, y: int):
+        """Trace the camera ray through the centre of pixel (x, y): None on
+        a miss, else a dict of the hit's ``triangle``, ``material``, ``t``,
+        world ``position`` and ``barycentrics`` (and ``instance`` in a
+        two-level scene). As in the reference, the ray runs without an
+        alpha test: every alpha-tested triangle counts as opaque, on the
+        single-level path (the alpha rounds with a null pack accept each
+        candidate) and on the two-level one (one pass over every
+        instance's full table)."""
+        return self.pick_many([x], [y])[0]
+
+    def pick_many(self, xs, ys) -> list:
+        """:meth:`pick` of the pixels (xs[i], ys[i]), their rays traced in
+        one call (each ray's result is its own)."""
+        w, h = self.cfg.width, self.cfg.height
+        pix = torch.as_tensor(np.asarray(ys, np.int64) * w + np.asarray(xs, np.int64),
+                              device=self.device)
+        o, d, _ = generate_rays_for_pixels(self.scene.camera, w, h, pix, 0, rng.tea(pix, 0))
+        if isinstance(self.packed, InstancedAccel):
+            hit, _ = closest_hit_instanced(self.packed, None, o, d)
+        else:
+            hit, _ = closest_hit_bundle(self.packed, None, o, d, torch.zeros_like(pix))
+        tri = hit.tri.cpu().numpy()
+        mat = self.scene.geometry.tri_material[torch.clamp(hit.tri, min=0)].cpu().numpy()
+        t, u, v = (a.cpu().numpy() for a in (hit.t, hit.u, hit.v))
+        pos = (o + d * hit.t[:, None]).cpu().numpy()
+        inst = None if hit.inst is None else hit.inst.cpu().numpy()
+        out = []
+        for i in range(len(tri)):
+            if tri[i] < 0:
+                out.append(None)
+                continue
+            p = {"triangle": int(tri[i]), "material": int(mat[i]), "t": float(t[i]),
+                 "position": pos[i], "barycentrics": (float(u[i]), float(v[i]))}
+            if inst is not None:
+                p["instance"] = int(inst[i])
+            out.append(p)
+        return out
+
+    def save_state(self) -> dict:
+        """The checkpoint: ``accum`` (H, W, 3) float32 numpy and ``frame``."""
+        return {"accum": self.accum.cpu().numpy(), "frame": self.frame}
+
+    def load_state(self, state) -> None:
+        """Resume from a checkpoint (numpy or a tensor on any device): the
+        accumulation becomes a float32 tensor on this renderer's device."""
+        accum = torch.as_tensor(state["accum"])
+        want = (self.cfg.height, self.cfg.width, 3)
+        if tuple(accum.shape) != want:
+            raise ValueError(f"checkpoint accumulation of shape {tuple(accum.shape)}, "
+                             f"the renderer's is {want}")
+        self.accum = accum.to(self.device, torch.float32, copy=True)
+        self.frame = int(state["frame"])
+
+
+def write_png(path: str, img01) -> None:
+    """Write a [0, 1] float image (numpy or a tensor) to PNG: 8 bits,
+    ``clip(x * 255 + 0.5, 0, 255)`` as in the reference."""
+    if isinstance(img01, torch.Tensor):
+        img01 = img01.cpu().numpy()
+    png.write_png(path, img01)

@@ -2,8 +2,8 @@
 
 ``csrc/native.cpp`` holds the hot host loops: binned-SAH planar BVH rows
 (16 or 32 wide), oct encoding, RGBA8 packing and smooth normals (the port's
-own copy of the reference's host runtime, trimmed to these calls). It is
-compiled with g++
+own copy of the reference's host runtime, trimmed to these calls), and the
+PNG decoder's scanline reconstruction. It is compiled with g++
 into ``vk_raytrace_torch/_build/libnative.so`` (rebuilt when the source is
 newer) and bound here. There is no numpy fallback: every call raises when
 the library cannot be built or loaded.
@@ -39,6 +39,7 @@ def _load():
         lib = ctypes.CDLL(build())
         lib.build_bvh16.restype = ctypes.c_int64
         lib.build_bvh32.restype = ctypes.c_int64
+        lib.png_unfilter.restype = ctypes.c_int64
         _lib = lib
     return _lib
 
@@ -72,6 +73,21 @@ def smooth_normals(positions: np.ndarray, indices: np.ndarray) -> np.ndarray:
         _ptr(positions), ctypes.c_int64(len(positions)),
         _ptr(indices), ctypes.c_int64(len(indices)), _ptr(out),
     )
+    return out
+
+
+def png_unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the PNG filters of ``h`` scanlines, each a filter-type byte and
+    ``stride`` bytes, ``bpp`` bytes per pixel: (h, stride) uint8. Raises on
+    a truncated stream or an unknown filter type."""
+    if len(raw) < h * (stride + 1):
+        raise ValueError(f"{len(raw)} bytes of image data, {h * (stride + 1)} needed")
+    src = np.frombuffer(raw, np.uint8, count=h * (stride + 1))
+    out = np.empty((h, stride), np.uint8)
+    bad = _load().png_unfilter(_ptr(src), ctypes.c_int64(h), ctypes.c_int64(stride),
+                               ctypes.c_int64(bpp), _ptr(out))
+    if bad:
+        raise ValueError(f"unknown PNG filter type in scanline {bad - 1}")
     return out
 
 
