@@ -10,8 +10,11 @@ checkout's kernels (``chip_smoke.build_kernels``), takes ``chip_smoke.py``'s
 phase-3 ray sets (2^18 rays on the full atrium, seed 1234) and prints, at
 row widths 16 and 32, per mode a/b/c and for the capped entry (closest hit
 stopped after 8 nodes, on the mode-a rays), the least and the median of
-three means of 50 launches (CUDA events), in ms. The card's name and power
-limit come first.
+three means of 50 launches (CUDA events), in ms; then the same for the two
+round machines on the full bistro at width 16, closest hit (the opaque
+machine over the opaque subsets on 2^18 camera rays, the alpha machine
+over the alpha subsets on 2^18 rays toward the foliage, seed 1234; 10
+launches a mean). The card's name and power limit come first.
 """
 
 import os
@@ -60,6 +63,30 @@ def time_tree(tree):
             ms = [tb.cuda_time(fn, REPS) for _ in range(ROUNDS)]
             out.append(f"w{width} {name} {min(ms):.4f}/{float(np.median(ms)):.4f}")
         del g
+    from vk_raytrace_torch import render as R
+    from vk_raytrace_torch.ops import tlas
+    from vk_raytrace_torch.ops.traverse_wide import make_alpha_pack
+
+    pool, inst, mats, lights, b_cam, atlas = procedural.bistro_scene()
+    bs = R.build_instanced_scene(pool, inst, mats, lights, b_cam, atlas=atlas).to(dev)
+    acc = bs.instances
+    pack = make_alpha_pack(bs.materials, bs.atlas, bs.geometry.tri_material)
+    ob, db = cs.camera_rays(with_aspect(b_cam, 1920, 1080).to(dev), 1920, 1080, n, rng, dev)
+    leaf = np.nonzero(np.asarray(acc.inst_alpha.cpu()))[0]
+    eye = np.asarray(b_cam.view_inverse)[:3, 3]
+    ol, dl = cs.rays_toward_instances(rng, pool, inst, rng.choice(leaf, n),
+                                      eye + rng.uniform(-2.0, 2.0, (n, 3)), dev)
+    act = torch.ones(n, dtype=torch.bool, device=dev)
+    seed = torch.tensor(rng.integers(0, 2**32, n), device=dev)
+    machines = {
+        "opaque_machine": lambda: tlas._two_level_opaque_pass(acc, "opq", ob, db, inf, act, True,
+                                                              False),
+        "alpha_machine": lambda: tlas._two_level_alpha_pass(acc, pack, ol, dl, inf, seed, act,
+                                                            False, True),
+    }
+    for name, fn in machines.items():
+        ms = [tb.cuda_time(fn, 10) for _ in range(ROUNDS)]
+        out.append(f"bistro {name} {min(ms):.4f}/{float(np.median(ms)):.4f}")
     print(os.path.basename(tree), " ".join(out), flush=True)
 
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where a frame of the port's main path spends its time on one GPU.
 
-    python3 chip_profile.py [--scene atrium|bistro|grid|helmet] [--frames N] [--top K]
-                            [--fused-shade]
+    python3 chip_profile.py [--scene atrium|bistro|grid|helmet|plaza] [--frames N]
+                            [--top K] [--fused-shade]
 
 Builds the full atrium (single level) or the full bistro (two levels,
 ``build_instanced_scene``, the configuration of ``chip_smoke.py`` phase 11:
@@ -10,7 +10,11 @@ full_mis off, HDR multiplier 1) and renders it at 1920x1080, depth 4, 1
 spp, sun&sky, firefly clamp 10; or BASELINE configuration #4 (``grid``:
 the material grid under the procedural sky, 512x512, 4 spp, depth 8, the
 Disney BSDF) or #2 (``helmet``: 512x512, 16 spp, depth 5, glTF), both
-firefly clamp 10 and full_mis off, as ``chip_smoke.py`` phases 20-21. With
+firefly clamp 10 and full_mis off, as ``chip_smoke.py`` phases 20-21; or
+the plaza (``plaza``: ``chip_smoke.write_plaza``'s glTF, 4,609 instances,
+loaded in two levels) at the configuration of ``chip_smoke.py`` phase 29,
+the reference CLI's defaults with sun&sky: 1280x720, depth 10, 1 spp a
+frame, Disney (glTF with ``--fused-shade``), firefly clamp 10. With
 ``--fused-shade`` the renderer asks for the fused shading stage (the
 Disney grid keeps the eager one). It times N unprofiled frames after two
 warm-up frames, then traces one more frame with ``torch.profiler``. It
@@ -88,7 +92,8 @@ def busy_us(events) -> float:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("atrium", "bistro", "grid", "helmet"), default="atrium")
+    ap.add_argument("--scene", choices=("atrium", "bistro", "grid", "helmet", "plaza"),
+                    default="atrium")
     ap.add_argument("--frames", type=int, default=3, help="unprofiled timed frames")
     ap.add_argument("--top", type=int, default=20, help="kernels listed by device time")
     ap.add_argument("--fused-shade", action="store_true", help="render with the fused shading stage")
@@ -111,6 +116,21 @@ def main():
         pool, inst, mats, lights, cam, atlas = procedural.bistro_scene()
         scene = R.build_instanced_scene(pool, inst, mats, lights, cam, atlas=atlas)
         cfg = RenderConfig(**main_path, hdr_multiplier=1.0, full_mis=False)
+    elif args.scene == "plaza":
+        import os
+        import tempfile
+
+        import chip_smoke
+        from vk_raytrace_torch.models.gltf import load_gltf
+
+        with tempfile.TemporaryDirectory() as work:
+            path = os.path.join(work, "plaza.gltf")
+            chip_smoke.write_plaza(path, **chip_smoke.PLAZA)
+            (pool, inst), mats, lights, cam, atlas = load_gltf(path, instancing="auto")
+        scene = R.build_instanced_scene(pool, inst, mats, lights, cam, atlas=atlas)
+        cfg = RenderConfig(width=1280, height=720, max_depth=10, max_samples=1,
+                           pbr_mode=PBR_GLTF if args.fused_shade else PBR_DISNEY,
+                           firefly_clamp=10.0, hdr_multiplier=1.0, use_sun_sky=True)
     elif args.scene == "atrium":
         geom, mats, lights, cam, atlas = procedural.atrium_scene()
         scene = R.build_scene(geom, mats, lights, cam, atlas=atlas)
@@ -169,7 +189,7 @@ def main():
                 and e.name in SYNCS)
     print(f"host syncs: {syncs}")
     print(f"traversal: {sum(e - s for _, s, e in trav) / 1e3:.3f} ms in {len(trav)} launches")
-    roots = "with per-lane roots" if args.scene == "bistro" else "from the root"
+    roots = "with per-lane roots" if args.scene in ("bistro", "plaza") else "from the root"
     for i, mode in enumerate(MODES):
         evs = [ev for ev in trav if (m := TRAVERSE_MODE.search(ev[0])) and int(m.group(1)) == i]
         print(f"  {mode} ({roots}): {sum(e - s for _, s, e in evs) / 1e3:.3f} ms in "

@@ -149,6 +149,33 @@ s and peak MiB beside the card's name and power limit):
     to a fresh build; and the sun&sky bake on the card timed against a load
     of its tables from the cache.
 
+Then two-level scenes beyond 512 instances: the plaza (:func:`write_plaza`,
+a glTF this script writes: 48 x 48 trees, each an opaque trunk and an
+alpha-MASK foliage cluster, and the ground; 4,609 instances of 3 meshes,
+1,032,194 instanced triangles; its instance table, 76 B an instance, does
+not fit a block's 232,448 B of shared memory):
+
+28. each round machine on 2^18 plaza rays (camera rays at 1280x720 and the
+    shadow rays of their hits), closest and any hit, the opaque machine over
+    the opaque subsets and the alpha machine over the alpha subsets (the
+    instance table read from global memory): bit for bit against its round
+    loop on the card (the twin each round, the chunked candidate scan),
+    timed, with its bound and, beside it, the per-round instance scans;
+    then the bistro's table padded with 400 masked instances (the global
+    path) against the same table unpadded (shared memory): bit for bit,
+    both timed;
+29. the CLI on the plaza at the reference CLI's defaults (1280x720, depth
+    10, Disney, ``--instancing auto``) with sun&sky and 4 spp, then with
+    ``--pbr gltf --fused-shade``; the machines (and the stage kernel) must
+    have launched; then the plaza at 128x72, depth 4, on the card against
+    the CPU (the chunked loops), as phase 25 holds quirks.glb;
+30. the instance-level split: the plaza's foliage alone (2,304 instances,
+    every triangle alpha-tested, so no subset tables) through the CLI at
+    128x72 on the card against the CPU; the alpha machine over the full
+    tables on 2^18 rays bit for bit against its round loop on the card,
+    timed as in phase 28; and ``closest_hit_instanced`` /
+    ``any_hit_instanced`` (that one launch alone) equal to it.
+
 The script keeps its files (checkpoints, images, the port's scene cache)
 in a temporary directory that it removes at exit. No depth was cut for
 time: the whole script ran in about half its time limit on the card.
@@ -221,7 +248,7 @@ STAGE_PROLOGUE_OPS = 400
 # tri, u, v, inst, steps, seed: 32 B), the instance table once (76 B an
 # instance), each distinct alpha BLAS row once, and per candidate its
 # 64-byte AlphaPack row and one 32-byte texel sector. Its per-round scan of
-# the instance boxes is this design's choice, not counted.
+# the instance boxes is this design's choice, not counted (SCAN_OPS below).
 MACHINE_ROUND_OPS, MACHINE_CAND_OPS = 42, 20
 MACHINE_RAY_BYTES, MACHINE_INST_BYTES, MACHINE_CAND_BYTES = 37 + 32, 76, 64 + 32
 # The single-level alpha rounds kernel: per round the window start (3
@@ -237,6 +264,41 @@ ROUNDS_ROUND_OPS, ROUNDS_RAY_BYTES = 33, 37 + 28
 # inst, steps: 24 B), the instance table once and each distinct BLAS row once.
 # Its per-round instance scan is this design's choice, not counted.
 OPAQUE_ROUND_OPS, OPAQUE_RAY_BYTES = 36, 29 + 24
+# The two-level machines' instance scan (next_instance in csrc/traverse.cu),
+# one a ray and one a round, per instance: the root test; for an instance
+# inside the pass's mask its slab test (6 subtracts, 6 multiplies, 10
+# min/max) and the 8 compares of the hit and (entry t, id) order tests: 31
+# in all. Its bytes through L1 (every lane of a warp reads the same
+# instance): the box and the root, 28 B, for a masked-in instance, the root
+# alone otherwise. None of it is in the bound: a ray needs no test of every
+# instance in every round (a tree over the instances would test a few), so
+# the scans are printed beside the bound, with a second bound that counts
+# them, and not in the kernels line.
+SCAN_OPS, SCAN_L1_BYTES = 31, 28
+
+
+def scan_work(n_rays, n_rounds, mask, n_inst):
+    """(operations, L1 bytes) of the machines' instance scans: one scan a
+    ray and one a round that moves on (``n_rounds``: the alpha machine's
+    rejecting rounds stay and do not scan) over ``n_inst`` instances,
+    ``mask`` (None: all) those inside the pass."""
+    n_in = n_inst if mask is None else int(mask.sum())
+    scans = n_rays + n_rounds
+    return (scans * (n_inst + (SCAN_OPS - 1) * n_in),
+            scans * (n_in * SCAN_L1_BYTES + (n_inst - n_in) * 4))
+
+
+def scan_text(scans, n_bytes, n_ops):
+    """The instance scans' line beside a machine's bound: their operations
+    (every round's rescan), the bound with them counted, and their L1 bytes
+    at the memory rate."""
+    from vk_raytrace_torch import travbench as tb
+
+    s_ops, l1_bytes = scans
+    return (f"the instance scans (this design's work, not in the bound) {s_ops / 1e9:.3f} Gop, "
+            f"with them the bound {tb.bound(n_bytes, n_ops + s_ops)[0]:.4f} ms; their L1 bytes "
+            f"{l1_bytes / 1e9:.2f} GB, at the memory rate "
+            f"{tb.bound(n_bytes + l1_bytes, n_ops + s_ops)[0]:.3f} ms")
 # The bistro's render configuration (BASELINE config #5,
 # scripts/baseline_configs.py:74-75, 93-97), at the main path's size.
 BISTRO_CFG = dict(max_depth=4, max_samples=1, hdr_multiplier=1.0, firefly_clamp=10.0,
@@ -437,6 +499,133 @@ def rays_toward_instances(rng, pool, inst, pick, origins, dev):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return (torch.tensor(origins, dtype=torch.float32, device=dev),
             torch.tensor(d, dtype=torch.float32, device=dev))
+
+
+# The plaza (phases 28-30): a 48 x 48 grid of trees, each an opaque trunk and
+# an alpha-MASK foliage cluster (two nodes of shared meshes), and the ground:
+# 4,609 instances, more than a block's shared memory holds (76 B each).
+PLAZA = dict(nx=48, nz=48, trunk_segments=16, trunk_rings=8, cards=96)
+
+
+def write_plaza(path, nx, nz, trunk_segments, trunk_rings, cards, ground=True, trunks=True):
+    """Write a glTF of an ``nx`` x ``nz`` grid of trees: each position a
+    trunk node (an open cylinder of ``2 * trunk_segments * trunk_rings``
+    opaque triangles) and a foliage node (``cards`` double-sided vertical
+    quads around the trunk's top, ``alphaMode: MASK`` with an 8-bit RGBA
+    texture whose alpha cuts gaps into the cards), plus one ground node and
+    a camera over a corner looking across the grid. ``trunks``/``ground``
+    False leaves those nodes out (without both, every triangle is
+    alpha-tested). The meshes are shared, so ``--instancing auto`` loads two
+    levels. Returns the number of nodes that draw a mesh."""
+    import base64
+
+    from vk_raytrace_torch.utils import png as png_mod
+
+    spacing, tex = 3.0, 32  # metres between trees; the texture's side in texels
+
+    def ring(k, y, r):
+        a = 2 * np.pi * k / trunk_segments
+        return [r * np.cos(a), y, r * np.sin(a)]
+
+    # The trunk: rings of vertices up a tapering cylinder, quads between.
+    tv = [ring(k, 2.2 * j / trunk_rings, 0.18 - 0.06 * j / trunk_rings)
+          for j in range(trunk_rings + 1) for k in range(trunk_segments)]
+    ti = []
+    for j in range(trunk_rings):
+        for k in range(trunk_segments):
+            a, b = j * trunk_segments + k, j * trunk_segments + (k + 1) % trunk_segments
+            ti += [[a, b + trunk_segments, b], [a, a + trunk_segments, b + trunk_segments]]
+    tuv = [[k / trunk_segments, j / trunk_rings] for j in range(trunk_rings + 1)
+           for k in range(trunk_segments)]
+    # The foliage: vertical cards turned about the axis, at rising heights.
+    fv, fi, fuv = [], [], []
+    for c in range(cards):
+        a = np.pi * c / cards * 7.0
+        y0 = 1.4 + 1.6 * ((c * 0.618) % 1.0)
+        dx, dz = 0.9 * np.cos(a), 0.9 * np.sin(a)
+        base = len(fv)
+        fv += [[-dx, y0, -dz], [dx, y0, dz], [dx, y0 + 1.2, dz], [-dx, y0 + 1.2, -dz]]
+        fuv += [[0, 1], [1, 1], [1, 0], [0, 0]]
+        fi += [[base, base + 1, base + 2], [base, base + 2, base + 3]]
+    half = spacing * max(nx, nz) / 2 + 4.0
+    gv = [[-half, 0, -half], [half, 0, -half], [half, 0, half], [-half, 0, half]]
+    gi = [[0, 2, 1], [0, 3, 2]]
+    guv = [[0, 0], [1, 0], [1, 1], [0, 1]]
+
+    blob, views, accessors = bytearray(), [], []
+
+    def add(arr, ctype, kind, target):
+        data = np.ascontiguousarray(arr).tobytes()
+        views.append({"buffer": 0, "byteOffset": len(blob), "byteLength": len(data),
+                      "target": target})
+        blob.extend(data + b"\0" * (-len(data) % 4))
+        acc = {"bufferView": len(views) - 1, "componentType": ctype, "count": len(arr),
+               "type": kind}
+        if kind == "VEC3":
+            acc["min"] = np.asarray(arr).min(0).tolist()
+            acc["max"] = np.asarray(arr).max(0).tolist()
+        accessors.append(acc)
+        return len(accessors) - 1
+
+    def mesh(v, i, uv, mat):
+        prim = {"attributes": {"POSITION": add(np.asarray(v, np.float32), 5126, "VEC3", 34962),
+                               "TEXCOORD_0": add(np.asarray(uv, np.float32), 5126, "VEC2", 34962)},
+                "indices": add(np.asarray(i, np.uint32).ravel(), 5125, "SCALAR", 34963),
+                "material": mat}
+        return {"primitives": [prim]}
+
+    # The foliage texture: green cards with round holes (alpha 0) in them.
+    yy, xx = np.mgrid[0:tex, 0:tex]
+    holes = ((xx % 8 - 3.5) ** 2 + (yy % 8 - 3.5) ** 2) < 6.0
+    rgba = np.stack([40 + (xx * 3) % 60, 120 + (yy * 5) % 100, np.full_like(xx, 30),
+                     np.where(holes, 0, 255)], -1).astype(np.uint8)
+    img_uri = "data:image/png;base64," + base64.b64encode(png_mod.encode(rgba)).decode()
+    meshes = [mesh(gv, gi, guv, 0), mesh(tv, ti, tuv, 1), mesh(fv, fi, fuv, 2)]
+    nodes = [{"mesh": 0}] if ground else []
+    for ix in range(nx):
+        for iz in range(nz):
+            turn = 0.37 * (ix * nz + iz)
+            rot = [0.0, float(np.sin(turn / 2)), 0.0, float(np.cos(turn / 2))]
+            at = [spacing * (ix - (nx - 1) / 2), 0.0, spacing * (iz - (nz - 1) / 2)]
+            if trunks:
+                nodes.append({"mesh": 1, "translation": at, "rotation": rot})
+            nodes.append({"mesh": 2, "translation": at, "rotation": rot,
+                          "scale": [1.0, 0.8 + 0.4 * ((ix + 2 * iz) % 5) / 4, 1.0]})
+    n_draw = len(nodes)
+    # The camera over a corner, looking across the grid and down at it.
+    eye = np.array([-spacing * nx / 2 - 2.0, 9.0, -spacing * nz / 2 - 2.0])
+    fwd = -eye * np.array([1.0, 0.0, 1.0]) / np.linalg.norm(eye[[0, 2]]) + [0, -0.35, 0]
+    fwd /= np.linalg.norm(fwd)
+    right = np.cross(fwd, [0, 1, 0])
+    right /= np.linalg.norm(right)
+    up = np.cross(right, fwd)
+    m = np.eye(4)
+    m[:3, 0], m[:3, 1], m[:3, 2], m[:3, 3] = right, up, -fwd, eye
+    nodes.append({"camera": 0, "matrix": m.T.ravel().tolist()})
+    doc = {
+        "asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": list(range(len(nodes)))}],
+        "nodes": nodes, "meshes": meshes,
+        "cameras": [{"type": "perspective", "perspective": {"yfov": 0.8, "aspectRatio": 16 / 9,
+                                                            "znear": 0.1}}],
+        "materials": [
+            {"pbrMetallicRoughness": {"baseColorFactor": [0.5, 0.48, 0.45, 1.0],
+                                      "roughnessFactor": 0.9, "metallicFactor": 0.0}},
+            {"pbrMetallicRoughness": {"baseColorFactor": [0.35, 0.22, 0.12, 1.0],
+                                      "roughnessFactor": 0.8, "metallicFactor": 0.0}},
+            {"pbrMetallicRoughness": {"baseColorTexture": {"index": 0},
+                                      "roughnessFactor": 0.6, "metallicFactor": 0.0},
+             "alphaMode": "MASK", "alphaCutoff": 0.5, "doubleSided": True},
+        ],
+        "textures": [{"source": 0, "sampler": 0}], "samplers": [{}],
+        "images": [{"uri": img_uri}],
+        "accessors": accessors, "bufferViews": views,
+        "buffers": [{"byteLength": len(blob),
+                     "uri": "data:application/octet-stream;base64,"
+                            + base64.b64encode(bytes(blob)).decode()}],
+    }
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return n_draw
 
 
 def camera_rays(cam, w, h, n, rng, dev):
@@ -900,8 +1089,10 @@ def machine_case(name, planar, kernel, loop, key, loop_key, exact, work_bytes_op
     (t, u, v) within RTOL/ATOL. The kernel is timed (CUDA events), the round
     loop's wall (CUDA events, which span its host syncs) and device time
     (profiler), the plain loop once on the host clock; the bound is counted
-    by ``work_bytes_ops(seen rows, rounds per ray, candidates, plain outputs)``
-    from the plain run, which also gives the rounds per warp. Returns
+    by ``work_bytes_ops(seen rows, rounds per ray, candidates, plain outputs,
+    rejected candidates)`` -> (bytes, operations, the instance scans'
+    (operations, L1 bytes) or None, printed beside the bound) from the plain
+    run, which also gives the rounds per warp. Returns
     ((max |err|, (ms, plain_ms), bound), the per-round kernel's launches in
     one round-loop call)."""
     import chip_profile
@@ -927,8 +1118,9 @@ def machine_case(name, planar, kernel, loop, key, loop_key, exact, work_bytes_op
     n = kern[0].shape[0]
     rounds = torch.zeros(n, dtype=torch.int32, device=kern[0].device)
     t0 = time.perf_counter()
-    plain = loop(trav=plain_trav, rounds=rounds)
-    torch.cuda.synchronize()
+    with counting_rejects() as rejects:
+        plain = loop(trav=plain_trav, rounds=rounds)
+        torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
 
     def check(what, a, b):
@@ -947,9 +1139,10 @@ def machine_case(name, planar, kernel, loop, key, loop_key, exact, work_bytes_op
         torch.cuda.synchronize()
     events, _ = chip_profile.device_events(prof)
     loop_busy = chip_profile.busy_us(events) / 1e3
-    n_bytes, n_ops = work_bytes_ops(seen, rounds, cands[0], plain)
+    n_bytes, n_ops, scans = work_bytes_ops(seen, rounds, cands[0], plain, rejects[0])
     bnd = tb.bound(n_bytes, n_ops)
     mean_r, warp_max, used = warp_rounds(rounds)
+    scan_note = "" if scans is None else "; " + scan_text(scans, n_bytes, n_ops)
     print(f"{name}: {n} rays, {int(rounds.sum())} rounds ({mean_r:.2f} per ray, the warps' most "
           f"{warp_max:.2f} on average, {used:.3f} of the warps' lane-rounds used, at most "
           f"{int(rounds.max())}), {cands[0]} candidates, hit {float((kern[1] >= 0).float().mean()):.4f}; "
@@ -958,15 +1151,16 @@ def machine_case(name, planar, kernel, loop, key, loop_key, exact, work_bytes_op
           f"{len(events)} device activities, {loop_launches} per-round launches; plain loop "
           f"{plain_ms:.1f} ms; bound {bnd[0]:.4f} ms by {bnd[1]} ({n_bytes / 1e6:.1f} MB, "
           f"{int((seen == 1).sum())} interior + {int((seen == 2).sum())} leaf rows of "
-          f"{planar.rows.shape[0]}, {n_ops / 1e9:.3f} Gop; {ms / bnd[0]:.1f}x the bound) ({card})",
-          flush=True)
+          f"{planar.rows.shape[0]}, {n_ops / 1e9:.3f} Gop; {ms / bnd[0]:.1f}x the bound)"
+          f"{scan_note} ({card})", flush=True)
     return (err, (ms, plain_ms), bnd), loop_launches
 
 
 def alpha_machine_case(name, acc, pack, o, d, t_max, seed, act, any_hit, card):
     """Phase 17: the alpha machine kernel on these world rays; see
     :func:`machine_case`. Bound: MACHINE_* per ray, instance and candidate,
-    each distinct alpha BLAS row, and the rounds' nodes."""
+    each distinct alpha BLAS row, and the rounds' nodes; the instance scans
+    beside it."""
     from vk_raytrace_torch import travbench as tb
     from vk_raytrace_torch.ops import tlas
     from vk_raytrace_torch.ops import traverse_fused as tf
@@ -975,14 +1169,15 @@ def alpha_machine_case(name, acc, pack, o, d, t_max, seed, act, any_hit, card):
     args = (acc, pack, o, d, t_max, seed, act, any_hit, not any_hit)
     n, n_inst = o.shape[0], acc.inst.aabb_min.shape[0]
 
-    def work(seen, rounds, cands, plain):
+    def work(seen, rounds, cands, plain, rejects):
         n_rounds = float(rounds.double().sum())
         nodes = float(plain[6].double().sum()) - n_rounds
         rows_b, _, _ = tb.traversal_bytes(0, 0, seen, planar.width, "candidate")
         return (n * MACHINE_RAY_BYTES + n_inst * MACHINE_INST_BYTES + rows_b
                 + cands * MACHINE_CAND_BYTES,
                 nodes * tb.ops_per_node(planar.width) + n_rounds * MACHINE_ROUND_OPS
-                + cands * MACHINE_CAND_OPS)
+                + cands * MACHINE_CAND_OPS,
+                scan_work(n, n_rounds - rejects, acc.inst_alpha, n_inst))
 
     return machine_case(
         name, planar, lambda: tlas._two_level_alpha_pass(*args),
@@ -1004,11 +1199,12 @@ def alpha_rounds_case(name, planar, pack, o, d, t_lim, seed, act, cull, card):
     args = (planar, pack, o, d, t_lim, seed, need, cull)
     n = o.shape[0]
 
-    def work(seen, rounds, cands, plain):
+    def work(seen, rounds, cands, plain, rejects):
         rows_b, _, _ = tb.traversal_bytes(0, 0, seen, planar.width, "candidate")
         return (n * ROUNDS_RAY_BYTES + rows_b + cands * MACHINE_CAND_BYTES,
                 float(plain[5].double().sum()) * tb.ops_per_node(planar.width)
-                + float(rounds.double().sum()) * ROUNDS_ROUND_OPS + cands * MACHINE_CAND_OPS)
+                + float(rounds.double().sum()) * ROUNDS_ROUND_OPS + cands * MACHINE_CAND_OPS,
+                None)
 
     return machine_case(
         name, planar, lambda: ta._rounds(*args), lambda **kw: ta._rounds_core(*args, **kw),
@@ -1021,7 +1217,7 @@ def opaque_machine_case(name, acc, subset, o, d, t_max, act, any_hit, card):
     ``acc``'s ``subset`` ("opq" or "full", ``tlas._subset``); see
     :func:`machine_case`. Bound: OPAQUE_* per ray and round,
     MACHINE_INST_BYTES per instance, each distinct BLAS row, and the rounds'
-    nodes."""
+    nodes; the instance scans beside it."""
     from vk_raytrace_torch import travbench as tb
     from vk_raytrace_torch.ops import tlas
     from vk_raytrace_torch.ops import traverse_fused as tf
@@ -1031,12 +1227,13 @@ def opaque_machine_case(name, acc, subset, o, d, t_max, act, any_hit, card):
     mode = "any" if any_hit else "closest"
     n, n_inst = o.shape[0], inst.aabb_min.shape[0]
 
-    def work(seen, rounds, cands, plain):
+    def work(seen, rounds, cands, plain, rejects):
         n_rounds = float(rounds.double().sum())
         nodes = float(plain[5].double().sum()) - n_rounds
         rows_b, _, _ = tb.traversal_bytes(0, 0, seen, planar.width, mode)
         return (n * OPAQUE_RAY_BYTES + n_inst * MACHINE_INST_BYTES + rows_b,
-                nodes * tb.ops_per_node(planar.width) + n_rounds * OPAQUE_ROUND_OPS)
+                nodes * tb.ops_per_node(planar.width) + n_rounds * OPAQUE_ROUND_OPS,
+                scan_work(n, n_rounds, mask, n_inst))
 
     return machine_case(
         name, planar,
@@ -1044,6 +1241,114 @@ def opaque_machine_case(name, acc, subset, o, d, t_max, act, any_hit, card):
         lambda **kw: tlas._two_level_pass(*args, **kw),
         tf.launch_key("opaque_machine", planar.width), tf.launch_key(f"{mode}_roots", planar.width),
         (1, 4, 5), work, card)
+
+
+@contextlib.contextmanager
+def counting_rejects():
+    """Count the alpha tests that reject a candidate while the block runs
+    (``traverse_alpha._alpha_accept``, which the round loops look up at
+    call time); yields a one-element list."""
+    from vk_raytrace_torch.ops import traverse_alpha as ta
+
+    real, count = ta._alpha_accept, [0]
+
+    def counted(pack, tri, uvu, uvv, seed, cand):
+        passed, seed = real(pack, tri, uvu, uvv, seed, cand)
+        count[0] += int((cand & ~passed).sum())
+        return passed, seed
+
+    ta._alpha_accept = counted
+    try:
+        yield count
+    finally:
+        ta._alpha_accept = real
+
+
+def plaza_machine_case(name, acc, subset, pack, o, d, t_max, seed, act, any_hit, card):
+    """Phases 28 and 30: one round machine (the opaque machine over
+    ``subset``, or the alpha machine over it with ``pack``) against its
+    round loop on the card, every round's traversal by the twin and the
+    candidates by the chunked scan above 512 instances: every output bit
+    for bit. The kernel timed (CUDA events), the loop once on the host
+    clock; the bound counts the rays once, the instance table once, each
+    distinct BLAS row once and the rounds' nodes; the instance scans
+    (:func:`scan_work`) are printed beside it (:func:`scan_text`). Returns
+    (max |err|, (ms, plain_ms), bound) and the kernel's launches."""
+    from vk_raytrace_torch import travbench as tb
+    from vk_raytrace_torch.ops import tlas
+    from vk_raytrace_torch.ops import traverse_fused as tf
+
+    planar, roots, inst, mask = tlas._subset(acc, subset)
+    alpha = pack is not None
+    key = tf.launch_key("alpha_machine" if alpha else "opaque_machine", planar.width)
+    if alpha:
+        args = (acc, pack, o, d, t_max, seed, act, any_hit, not any_hit)
+
+        def run():
+            return tlas._two_level_alpha_pass(*args, subset=subset)
+
+        def loop(**kw):
+            return tlas._alpha_rounds(*args, subset=subset, **kw)
+    else:
+        def run():
+            return tlas._two_level_opaque_pass(acc, subset, o, d, t_max, act, not any_hit,
+                                               any_hit)
+
+        def loop(**kw):
+            return tlas._two_level_pass(planar, roots, inst, o, d, t_max, act, mask,
+                                        not any_hit, any_hit, **kw)
+    before = tf.LAUNCHES[key]
+    kern = run()
+    torch.cuda.synchronize()
+    launches = tf.LAUNCHES[key] - before
+    assert launches == 1, f"{name}: {launches} launches of {key}"
+    seen = torch.zeros(planar.rows.shape[0], dtype=torch.int8, device=planar.rows.device)
+    cands = [0]
+
+    def plain_trav(planar, o, d, tm, active, mode, cull, root0=None):
+        out = tf._traverse_plain(planar, o, d, tm, active, mode, cull, seen, root0=root0)
+        cands[0] += int((out[1] >= 0).sum())
+        return out
+
+    n = o.shape[0]
+    rounds = torch.zeros(n, dtype=torch.int32, device=o.device)
+    t0 = time.perf_counter()
+    with counting_rejects() as rejects:
+        plain = loop(trav=plain_trav, rounds=rounds)
+        torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for k, (a, b) in enumerate(zip(kern, plain)):
+        a, b = a.to(b.dtype), b
+        same = (torch.equal(a.view(torch.int32), b.view(torch.int32)) if b.dtype == torch.float32
+                else torch.equal(a, b))
+        assert same, f"{name}: output {k} not bit-exact with the chunked round loop"
+    ms = tb.cuda_time(run, 5)
+    n_inst = acc.inst.aabb_min.shape[0]
+    n_in = int(mask.sum()) if mask is not None else n_inst
+    n_rounds = float(rounds.double().sum())
+    steps = plain[6] if alpha else plain[5]
+    nodes = float(steps.double().sum()) - n_rounds
+    mode = "candidate" if alpha else ("any" if any_hit else "closest")
+    rows_b, _, _ = tb.traversal_bytes(0, 0, seen, planar.width, mode)
+    scans = scan_work(n, n_rounds - rejects[0], mask, n_inst)
+    n_bytes = (n * (MACHINE_RAY_BYTES if alpha else OPAQUE_RAY_BYTES)
+               + n_inst * MACHINE_INST_BYTES + rows_b + (cands[0] * MACHINE_CAND_BYTES if alpha
+                                                         else 0))
+    n_ops = (nodes * tb.ops_per_node(planar.width)
+             + n_rounds * (MACHINE_ROUND_OPS if alpha else OPAQUE_ROUND_OPS)
+             + (cands[0] * MACHINE_CAND_OPS if alpha else 0))
+    bnd = tb.bound(n_bytes, n_ops)
+    mean_r, warp_max, used = warp_rounds(rounds)
+    print(f"{name}: {n} rays, {n_inst} instances ({n_in} in the pass, table in "
+          f"{'global' if n_inst > tlas._DENSE_I_MAX else 'shared'} memory), {int(n_rounds)} "
+          f"rounds ({mean_r:.2f} per ray, the warps' most {warp_max:.2f} on average, {used:.3f} "
+          f"of the warps' lane-rounds used, at most {int(rounds.max())}), {cands[0]} "
+          f"candidates, hit {float((kern[1] >= 0).float().mean()):.4f}; bit-exact vs the "
+          f"chunked round loop -> OK; kernel {ms:.3f} ms (1 launch); plain loop {plain_ms:.1f} "
+          f"ms; bound {bnd[0]:.4f} ms by {bnd[1]} ({n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} "
+          f"Gop; {ms / bnd[0]:.1f}x the bound); {scan_text(scans, n_bytes, n_ops)} ({card})",
+          flush=True)
+    return (0.0, (ms, plain_ms), bnd), launches
 
 
 def cli_run(what, argv, card, want=(), stage=None):
@@ -1895,6 +2200,206 @@ def main():
           f"the upload {sky_load_s:.4f} s [{card}]", flush=True)
     os.environ[scene_cache.ENV] = os.path.join(work, "scene_cache")
 
+    # ---- 28. the machines beyond 512 instances: the plaza ------------------------
+    phase("the machines beyond 512 instances: the plaza, and the bistro padded")
+    plaza = out("plaza.gltf")
+    t0 = time.time()
+    n_nodes = write_plaza(plaza, **PLAZA)
+    write_s = time.time() - t0
+    t0 = time.time()
+    (p_pool, p_inst), p_mats, p_lights, p_cam, p_atlas = load_gltf(plaza, instancing="auto")
+    load_s = time.time() - t0
+    t0 = time.time()
+    p_scene = R.build_instanced_scene(p_pool, p_inst, p_mats, p_lights, p_cam, atlas=p_atlas)
+    p_tables_s = time.time() - t0
+    p_acc = p_scene.instances.to(dev)
+    n_pinst = len(p_inst.mesh_id)
+    p_tris = int(np.asarray(p_pool.tri_count)[np.asarray(p_inst.mesh_id)].sum())
+    assert n_pinst == n_nodes == 4609 and n_pinst * MACHINE_INST_BYTES > 232448, n_pinst
+    assert p_tris >= 500_000 and p_acc.blas_planar_alp is not None, p_tris
+    print(f"plaza: {n_pinst} instances of {len(p_pool.tri_start)} meshes, {p_tris} instanced "
+          f"triangles ({len(p_pool.geometry.indices)} unique), instance table "
+          f"{n_pinst * MACHINE_INST_BYTES} B; glTF written in {write_s:.2f} s "
+          f"({os.path.getsize(plaza) / 2**20:.2f} MiB), loaded in {load_s:.2f} s, tables and "
+          f"accel {p_tables_s:.2f} s", flush=True)
+    psc = p_scene.to(dev)
+    p_pack = make_alpha_pack(psc.materials, psc.atlas, psc.geometry.tri_material)
+    del psc
+    # 2^18 world rays: camera rays at 1280x720 and the shadow rays of their
+    # hits toward the sun.
+    pcam_dev = with_aspect(p_cam, 1280, 720).to(dev)
+    poc, pdc = camera_rays(pcam_dev, 1280, 720, n // 2, rng, dev)
+    first, _ = tlas.closest_hit_instanced(p_acc, None, poc, pdc)
+    hit_ids = torch.nonzero(first.tri >= 0).squeeze(1)
+    hit_ids = hit_ids[torch.arange(n // 2, device=dev) % hit_ids.numel()]
+    sun = torch.tensor([0.35, 0.85, 0.4], device=dev)
+    sun = sun / sun.norm()
+    pso = poc[hit_ids] + pdc[hit_ids] * (first.t[hit_ids] * (1.0 - 1e-4))[:, None]
+    po = torch.cat([poc, pso]).contiguous()
+    pd = torch.cat([pdc, sun.expand(n // 2, 3)]).contiguous()
+    p_inf = torch.full((n,), tf.INF, device=dev)
+    p_short = torch.tensor(rng.uniform(1.0, 60.0, n), dtype=torch.float32, device=dev)
+    p_seed = torch.tensor(rng.integers(0, 2**32, n), device=dev)
+    p_act = torch.ones(n, dtype=torch.bool, device=dev)
+    plaza_res, plaza_launch = {}, {}
+    for any_hit in (False, True):
+        suffix = "_any" if any_hit else ""
+        tm = p_short if any_hit else p_inf
+        name = f"opaque_machine{suffix}"
+        plaza_res[name], plaza_launch[name] = plaza_machine_case(
+            f"plaza {name}", p_acc, "opq", None, po, pd, tm, p_seed, p_act, any_hit, card)
+        t_o, tri_o = tlas._two_level_opaque_pass(p_acc, "opq", po, pd, tm, p_act, not any_hit,
+                                                 any_hit)[:2]
+        name = f"alpha_machine{suffix}"
+        plaza_res[name], plaza_launch[name] = plaza_machine_case(
+            f"plaza {name}", p_acc, "alp", p_pack, po, pd, t_o, p_seed,
+            p_act & (tri_o < 0) if any_hit else p_act, any_hit, card)
+    # The global path against the shared one: the bistro's table padded with
+    # 400 instances outside the mask (root -1), so that it no longer fits.
+    oc, dc = camera_rays(bcam_dev, 1920, 1080, n, rng, dev)
+    pad = 400
+    bsc = bscene32.to(dev)  # the scene's tables do not depend on the row width
+    b_pack16 = make_alpha_pack(bsc.materials, bsc.atlas, bsc.geometry.tri_material)
+    del bsc
+    for what, subset in (("opaque", "opq"), ("alpha", "alp")):
+        shared, padded = b_inst.to(dev), b_inst.to(dev)
+        box, w2o, root = tlas._machine_tables(padded, subset)
+        padded._machine[subset] = (torch.cat([box, box[:1].expand(pad, 6)]).contiguous(),
+                                   torch.cat([w2o, w2o[:1].expand(pad, 12)]).contiguous(),
+                                   torch.cat([root, torch.full((pad,), -1, dtype=torch.int32,
+                                                               device=dev)]).contiguous())
+        assert padded._machine[subset][2].shape[0] > tlas._DENSE_I_MAX >= box.shape[0]
+        if what == "opaque":
+            def run(a):
+                return tlas._two_level_opaque_pass(a, subset, oc, dc, t_far[:n], act, True, False)
+        else:
+            def run(a):
+                return tlas._two_level_alpha_pass(a, b_pack16, o_leaf[:n].contiguous(),
+                                                  d_leaf[:n].contiguous(), t_far[:n], seed, act,
+                                                  False, True)
+        a_out, b_out = run(shared), run(padded)
+        torch.cuda.synchronize()
+        for k, (x, y) in enumerate(zip(a_out, b_out)):
+            assert torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                               y.view(torch.int32) if y.dtype == torch.float32 else y), (
+                f"bistro {what} machine: output {k} of the padded (global) table differs")
+        ms_shared, ms_padded = tb.cuda_time(lambda: run(shared), 10), tb.cuda_time(
+            lambda: run(padded), 10)
+        ms_shared2 = tb.cuda_time(lambda: run(shared), 10)
+        print(f"bistro {what} machine, closest, {n} rays: the table of {box.shape[0]} instances "
+              f"in shared memory {ms_shared:.3f} / {ms_shared2:.3f} ms, padded to "
+              f"{box.shape[0] + pad} (global memory) {ms_padded:.3f} ms, difference "
+              f"{ms_padded - (ms_shared + ms_shared2) / 2:+.3f} ms; outputs bit for bit equal "
+              f"({card})", flush=True)
+        del shared, padded
+    del first, hit_ids, pso, po, pd, oc, dc, b_pack16
+
+    # ---- 29. the CLI on the plaza ------------------------------------------------
+    phase("CLI: the plaza (4,609 instances), card and CPU")
+    plaza_args = ["-f", plaza, "--sun-sky", "--size", "1280", "720", "--depth", "10", "--spp",
+                  "4"]
+    plaza_cli = {}
+    plaza_cli["eager"] = cli_run("CLI plaza 1280x720 d10 4 spp (Disney, two levels, 4,609 "
+                                 "instances)", plaza_args + ["-o", out("plaza.png")], card,
+                                 want=("opaque_machine", "alpha_machine"), stage="eager")
+    plaza_cli["fused"] = cli_run("CLI plaza 1280x720 d10 4 spp (glTF, fused)", plaza_args + [
+        "--pbr", "gltf", "--fused-shade", "-o", out("plaza_fused.png")], card,
+        want=("opaque_machine", "alpha_machine", "shade_stage"), stage="fused")
+    for name in ("plaza.png", "plaza_fused.png"):
+        assert png_mod.decode_rgba(open(out(name), "rb").read())[..., :3].mean() > 5.0, name
+    cfg_p = RenderConfig(width=128, height=72, max_depth=4, max_samples=1, pbr_mode=PBR_GLTF,
+                         firefly_clamp=10.0, use_sun_sky=True)
+    pq_scene, p_run = R.prepare_sun_sky(p_scene, cfg_p, "cpu")  # one sky for both
+    p_imgs, p_rays, p_secs = {}, {}, {}
+    for where in ("cuda", "cpu"):
+        tf.reset_launches()
+        t0 = time.time()
+        r = R.Renderer(pq_scene, p_run, device=where)
+        p_rays[where] = []
+        for _ in range(2):
+            r.step()
+            p_rays[where].append(r.last_rays)
+        p_imgs[where] = r.accum.cpu().numpy()
+        p_secs[where] = time.time() - t0
+        if where == "cuda":
+            p_lau = {k: v for k, v in tf.LAUNCHES.items() if v}
+        del r
+    share = float(np.isclose(p_imgs["cuda"], p_imgs["cpu"], rtol=PIX_RTOL, atol=PIX_ATOL)
+                  .all(-1).mean())
+    ray_rel = abs(sum(p_rays["cuda"]) - sum(p_rays["cpu"])) / sum(p_rays["cpu"])
+    print(f"plaza 128x72 d4: card against CPU, pixels within rtol {PIX_RTOL}/atol {PIX_ATOL}: "
+          f"{share:.5f}; rays {p_rays['cuda']} vs {p_rays['cpu']}; card launches {p_lau}; "
+          f"wall card {p_secs['cuda']:.1f} s, CPU {p_secs['cpu']:.1f} s", flush=True)
+    assert np.isfinite(p_imgs["cuda"]).all() and p_imgs["cuda"].mean() > 0.0
+    assert share >= PIX_SHARE, f"plaza: only {share:.4f} of pixels agree"
+    assert ray_rel <= RAY_REL, f"plaza: ray counts differ by {ray_rel:.2e}"
+    assert all(p_lau.get(k, 0) > 0 for k in ("opaque_machine", "alpha_machine")), p_lau
+    del pq_scene, p_scene
+
+    # ---- 30. the instance-level split: the plaza's foliage alone -----------------
+    phase("the instance-level split: the all-alpha plaza, card and CPU")
+    from vk_raytrace_torch import cli
+    foliage = out("foliage.gltf")
+    n_fol = write_plaza(foliage, **PLAZA, ground=False, trunks=False)
+    (f_pool, f_inst), f_mats, f_lights, f_cam, f_atlas = load_gltf(foliage, instancing="auto")
+    f_scene = R.build_instanced_scene(f_pool, f_inst, f_mats, f_lights, f_cam, atlas=f_atlas)
+    f_acc = f_scene.instances.to(dev)
+    assert len(f_inst.mesh_id) == n_fol == 2304 and f_acc.blas_planar_opq is None
+    assert bool(f_acc.inst_alpha.all())
+    fol_args = ["-f", foliage, "--sun-sky", "--size", "128", "72", "--depth", "4", "--spp", "2",
+                "--pbr", "gltf"]
+    _, fol_lau = cli_run("CLI all-alpha plaza 128x72 d4 2 spp (glTF, 2,304 instances, card)",
+                         fol_args + ["-o", out("foliage.png"), "--hdr-out",
+                                     out("foliage_card.npy")], card, want=("alpha_machine",))
+    assert fol_lau.get("opaque_machine", 0) == 0, fol_lau
+    t0 = time.time()
+    assert cli.main(fol_args + ["--device", "cpu", "-o", out("foliage_cpu.png"), "--hdr-out",
+                                out("foliage_cpu.npy")]) == 0
+    fol_cpu_s = time.time() - t0
+    fa, fb = np.load(out("foliage_card.npy")), np.load(out("foliage_cpu.npy"))
+    share = float(np.isclose(fa, fb, rtol=PIX_RTOL, atol=PIX_ATOL).all(-1).mean())
+    print(f"all-alpha plaza CLI 128x72 d4: card against CPU ({fol_cpu_s:.1f} s), pixels within "
+          f"rtol {PIX_RTOL}/atol {PIX_ATOL}: {share:.5f}", flush=True)
+    assert np.isfinite(fa).all() and fa.mean() > 0.0 and share >= PIX_SHARE, share
+    fsc = f_scene.to(dev)
+    f_pack = make_alpha_pack(fsc.materials, fsc.atlas, fsc.geometry.tri_material)
+    del fsc
+    foc, fdc = camera_rays(with_aspect(f_cam, 1280, 720).to(dev), 1280, 720, n, rng, dev)
+    for any_hit in (False, True):
+        tm = p_short if any_hit else p_inf
+        what = "any_hit" if any_hit else "closest_hit"
+        # The machine over the full tables against its round loop.
+        plaza_machine_case(f"all-alpha plaza alpha_machine{'_any' if any_hit else ''} (full "
+                           f"tables)", f_acc, "full_alp", f_pack, foc, fdc, tm, p_seed, p_act,
+                           any_hit, card)
+        # The entry point: that one launch alone, the same bits.
+        tf.reset_launches()
+        t0 = time.perf_counter()
+        if any_hit:
+            occ, k_seed = tlas.any_hit_instanced(f_acc, f_pack, foc, fdc, tm, seed=p_seed)
+        else:
+            hit, k_seed = tlas.closest_hit_instanced(f_acc, f_pack, foc, fdc, seed=p_seed)
+        torch.cuda.synchronize()
+        k_s = time.perf_counter() - t0
+        lau = {k: v for k, v in tf.LAUNCHES.items() if v}
+        assert lau == {"alpha_machine": 1}, lau
+        t_a, tri_a, u_a, v_a, i_a, seed_a, st_a = tlas._two_level_alpha_pass(
+            f_acc, f_pack, foc, fdc, tm, p_seed, p_act, any_hit, not any_hit, subset="full_alp")
+        if any_hit:
+            kern, want = (occ, k_seed), (tri_a >= 0, seed_a)
+        else:
+            kern = (hit.t, hit.tri, hit.u, hit.v, hit.inst, hit.steps, k_seed)
+            want = (torch.where(tri_a >= 0, t_a, tf.INF), tri_a, u_a, v_a, i_a, st_a, seed_a)
+        for k, (x, y) in enumerate(zip(kern, want)):
+            assert torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                               y.view(torch.int32) if y.dtype == torch.float32 else y), (
+                f"all-alpha plaza {what}_instanced: output {k} differs from the machine's")
+        print(f"all-alpha plaza {what}_instanced, {n} rays: the alpha machine alone over the "
+              f"full tables, one launch, {k_s * 1e3:.2f} ms with the host's share; equal to the "
+              f"pass bit for bit; hit or occluded {float((tri_a >= 0).float().mean()):.4f} "
+              f"({card})", flush=True)
+    del f_acc, f_pack, f_scene, p_acc, p_pack
+
     def traverse_entry(m, lau, replaces):
         """``launches``: the main path's count (``lau``). The per-round kernels
         of the modes the machines run (mode c from the root, modes a/b/c with
@@ -1946,10 +2451,18 @@ def main():
         err, (ms, plain_ms), (b_ms, b_by) = machine_res[key]
         err = max(v[0] for k, v in machine_res.items()
                   if k.startswith(key.replace("_w32", "")) and k.endswith("_w32") == key.endswith("_w32"))
-        kernels.append({"name": key, "route": "cuda", "source": SOURCE,
-                        "replaces": replaces, "launches": lau[key], "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": None})
+        entry = {"name": key, "route": "cuda", "source": SOURCE,
+                 "replaces": replaces, "launches": lau[key], "max_abs_err": err,
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": None}
+        if key in plaza_res:
+            # Beyond 512 instances (phase 28, closest hit; the table in
+            # global memory) and the launches of phase 29's CLI runs.
+            _, (p_ms, p_plain_ms), (p_b_ms, p_b_by) = plaza_res[key]
+            entry["plaza"] = {"ms": p_ms, "plain_ms": p_plain_ms, "bound_ms": p_b_ms,
+                              "bound_by": p_b_by,
+                              "launches": {k: v[1].get(key, 0) for k, v in plaza_cli.items()}}
+        kernels.append(entry)
     for name, (s_err, ms, plain_ms, lib_ms, (b_ms, b_by)) in sort_res.items():
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": SORT_REPLACES, "launches": t_launches[name],
@@ -1963,7 +2476,7 @@ def main():
                         "ms": x["ms"],
                         "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
                         "bound_by": x["bound_by"], "library_ms": None})
-    print(f"phases 1-27 passed in {time.time() - T_START:.1f} s [{card}]", flush=True)
+    print(f"phases 1-30 passed in {time.time() - T_START:.1f} s [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

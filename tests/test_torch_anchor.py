@@ -34,7 +34,7 @@ from vk_raytrace_torch.models import procedural
 from vk_raytrace_torch.models.hdr import build_environment
 from vk_raytrace_torch.models.schema import PBR_GLTF, RenderConfig
 from vk_raytrace_torch.ops.bvh8 import build_accel_bundle
-from test_torch_traverse import one_torch_thread  # noqa: F401 (used below)
+from test_torch_traverse import isolated_reference, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 

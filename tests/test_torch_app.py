@@ -249,6 +249,31 @@ def test_cache_corrupt_entry_is_rebuilt(tmp_path, monkeypatch):
     _same_bundle(bvh8.build_accel_bundle(geom), built)
 
 
+@pytest.mark.parametrize("source", ["native.cpp", "runtime.py", "bvh8.py"])
+def test_builder_digest_hashes_every_builder_source(tmp_path, monkeypatch, source):
+    """The cache key's builder digest changes when any source of the build
+    changes: the native builder, its binding and the Python side of the
+    split (``ops/bvh8.py``), so no entry made by older code is served.
+    The sources are copies; no real file is edited."""
+    copies = []
+    for path in bvh8.DIGEST_SOURCES:
+        dst = tmp_path / os.path.basename(path)
+        dst.write_bytes(open(path, "rb").read())
+        copies.append(str(dst))
+    assert [os.path.basename(p) for p in copies] == ["native.cpp", "runtime.py", "bvh8.py"]
+    monkeypatch.setattr(bvh8, "DIGEST_SOURCES", tuple(copies))
+    bvh8.builder_digest.cache_clear()
+    try:
+        before = bvh8.builder_digest()
+        with open(tmp_path / source, "ab") as f:
+            f.write(b"\n")
+        bvh8.builder_digest.cache_clear()
+        assert bvh8.builder_digest() != before
+    finally:
+        monkeypatch.undo()
+        bvh8.builder_digest.cache_clear()
+
+
 @pytest.mark.parametrize("off", ["off", "0", ""])
 def test_cache_switch_turns_it_off(tmp_path, monkeypatch, off):
     monkeypatch.setenv(cache.ENV, off)

@@ -16,9 +16,11 @@ across calls; the whole shading stage kernel and the body alone
 slices (atrium, bistro) on the card against the CPU; the Disney BSDF
 (material grid), the debug modes through the unrolled integrator and its
 masked closest hit on the card against the CPU; the brute-force
-anchor on the card; ``Renderer.pick`` on the card against the CPU; and the
+anchor on the card; ``Renderer.pick`` on the card against the CPU; the
 CLI on the card (against ``--device cpu``, and a checkpointed run against
-a straight one). Kernel vs twin: same float32 operations in the same order, rounded
+a straight one); the machines beyond 512 instances (their instance table in
+global memory) on a small plaza against the chunked round loops; and the
+instance-level split of an all-alpha pool on the card against the CPU. Kernel vs twin: same float32 operations in the same order, rounded
 per operation (nvcc -fmad=false), so ``tri`` and the hit masks are equal
 and t within rtol 1e-5. Render: CUDA and CPU transcendentals round
 differently, so 99% of pixels within rtol 1e-3 / atol 1e-4 and ray counts
@@ -796,3 +798,99 @@ def test_cli_on_card(tmp_path):
     ck = str(tmp_path / "ck.npz")
     run("half", "--spp", "1", "--checkpoint", ck)
     assert np.array_equal(run("resumed", "--spp", "1", "--checkpoint", ck), card)
+
+
+def _small_plaza(tmp_path, name, **kw):
+    """A small plaza glTF (``chip_smoke.write_plaza``) loaded in two levels:
+    (pool, inst, accel on the CPU, alpha pack on the CPU or None)."""
+    import chip_smoke
+    from vk_raytrace_torch.models.gltf import load_gltf
+
+    path = str(tmp_path / f"{name}.gltf")
+    chip_smoke.write_plaza(path, **{**dict(nx=15, nz=20, trunk_segments=6, trunk_rings=2,
+                                           cards=4), **kw})
+    (pool, inst), m, l, c, a = load_gltf(path, instancing="auto")
+    sc = R.build_instanced_scene(pool, inst, m, l, c, atlas=a)
+    pack = make_alpha_pack(sc.materials.to("cpu"), sc.atlas.to("cpu"),
+                           torch.as_tensor(np.asarray(pool.geometry.tri_material)).long())
+    return pool, inst, sc.instances.to("cpu"), pack
+
+
+@pytest.mark.parametrize("which", ["opaque", "alpha"])
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_global_table_machines_match_chunked_loop(tmp_path, which, kind):
+    """The machines beyond 512 instances (the instance table read from global
+    memory) on a 601-instance plaza against the chunked round loops on the
+    CPU: tri, inst, steps (and seed) exact, t/u/v within rtol 1e-5 / atol
+    1e-6; one launch each. (On the card against the loop on the card, bit
+    for bit: ``chip_smoke.py`` phase 28.)"""
+    _need_cuda()
+    import chip_smoke
+
+    pool, inst, acc, pack = _small_plaza(tmp_path, "plaza")
+    assert acc.inst.aabb_min.shape[0] > tlas._DENSE_I_MAX
+    rng = np.random.default_rng(28)
+    n = 4099
+    origins = rng.uniform([-25, 0.5, -32], [25, 12, 32], (n, 3))
+    o, d = chip_smoke.rays_toward_instances(rng, pool, inst, rng.integers(0, len(inst.mesh_id), n),
+                                            origins, "cpu")
+    any_hit = kind == "any"
+    t_max = (torch.tensor(rng.uniform(1.0, 40.0, n), dtype=torch.float32) if any_hit
+             else torch.full((n,), tf.INF))
+    act = torch.tensor(rng.random(n) < 0.95)
+    seed = torch.tensor(rng.integers(0, 2**32, n), dtype=torch.int64)
+    cacc, cpack = acc.to("cuda"), _pack_to(pack, "cuda")
+    if which == "alpha":
+        args = (o, d, t_max, seed, act)
+        plain = tlas._alpha_rounds(acc, pack, *args, any_hit, not any_hit)
+        key = tf.launch_key("alpha_machine", 16)
+        before = tf.LAUNCHES[key]
+        kern = tlas._two_level_alpha_pass(cacc, cpack, *(x.to("cuda") for x in args), any_hit,
+                                          not any_hit)
+        exact = (1, 4, 5, 6)
+    else:
+        planar, roots, view, mask = tlas._subset(acc, "opq")
+        plain = tlas._two_level_pass(planar, roots, view, o, d, t_max, act, mask, not any_hit,
+                                     any_hit)
+        key = tf.launch_key("opaque_machine", 16)
+        before = tf.LAUNCHES[key]
+        kern = tlas._two_level_opaque_pass(cacc, "opq", o.to("cuda"), d.to("cuda"),
+                                           t_max.to("cuda"), act.to("cuda"), not any_hit, any_hit)
+        exact = (1, 4, 5)
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES[key] == before + 1
+    _cpu_and_cuda_outputs_equal(kern, plain, exact, f"{which} {kind}")
+    assert 0.05 < (plain[1] >= 0).float().mean() < 1.0
+
+
+def test_instance_level_split_on_card(tmp_path):
+    """An all-alpha instanced pool (the plaza's foliage alone, 300
+    instances of one mesh): ``closest_hit_instanced`` / ``any_hit_instanced``
+    on the card launch the alpha machine alone over the full tables, and
+    equal the CPU's loops."""
+    _need_cuda()
+    import chip_smoke
+
+    pool, inst, acc, pack = _small_plaza(tmp_path, "foliage", ground=False, trunks=False)
+    assert acc.blas_planar_opq is None and bool(acc.inst_alpha.all())
+    rng = np.random.default_rng(30)
+    n = 4099
+    o, d = chip_smoke.rays_toward_instances(rng, pool, inst, rng.integers(0, len(inst.mesh_id), n),
+                                            rng.uniform([-25, 0.5, -32], [25, 12, 32], (n, 3)),
+                                            "cpu")
+    seed = torch.tensor(rng.integers(0, 2**32, n), dtype=torch.int64)
+    t_max = torch.tensor(rng.uniform(1.0, 40.0, n), dtype=torch.float32)
+    cacc, cpack = acc.to("cuda"), _pack_to(pack, "cuda")
+    tf.reset_launches()
+    hc, sc = tlas.closest_hit_instanced(cacc, cpack, o.cuda(), d.cuda(), seed=seed.cuda())
+    occ_c, so = tlas.any_hit_instanced(cacc, cpack, o.cuda(), d.cuda(), t_max.cuda(),
+                                       seed=seed.cuda())
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES["opaque_machine"] == 0 and tf.LAUNCHES["alpha_machine"] == 2
+    hp, sp = tlas.closest_hit_instanced(acc, pack, o, d, seed=seed)
+    occ_p, sop = tlas.any_hit_instanced(acc, pack, o, d, t_max, seed=seed)
+    _cpu_and_cuda_outputs_equal((hc.t, hc.tri, hc.u, hc.v, hc.inst, hc.steps, sc),
+                                (hp.t, hp.tri, hp.u, hp.v, hp.inst, hp.steps, sp),
+                                (1, 4, 5, 6), "closest")
+    assert torch.equal(occ_c.cpu(), occ_p) and torch.equal(so.cpu(), sop)
+    assert 0.05 < (hp.tri >= 0).float().mean() < 1.0

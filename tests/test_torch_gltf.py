@@ -14,10 +14,12 @@ decoder (``vk_raytrace_torch/utils/png.py``) against the reference.
 * The PNG decoder against Pillow's ``.convert("RGBA")``, equal, on quirks'
   textures and on PNGs written here of every colour type (grey, RGB,
   palette, grey + alpha, RGBA) under every scanline filter, with ``tRNS``;
-  the forms it refuses raise naming the image; JPEG goes through Pillow
-  and, without Pillow, raises.
-* A two-level glTF of more than 512 instances loads and its render raises
-  ``NotImplementedError`` naming ROADMAP A10; it is never baked instead.
+  every bit depth (1, 2, 4, 8, 16) of each colour type, flat and
+  Adam7-interlaced, sizes with empty passes included; the forms the format
+  does not define raise naming the image; JPEG goes through Pillow and,
+  without Pillow, raises.
+* A two-level glTF of more than 512 instances loads, renders, picks and
+  goes through the CLI as the reference's does; it is never baked instead.
 """
 
 import base64
@@ -409,21 +411,40 @@ def _filter_row(row, prev, ft, bpp):
     return bytes([ft]) + bytes(out)
 
 
-def _encode_png(px, ctype, filters, palette=None, trns=None, interlace=0, depth=8):
-    """A PNG of ``px`` (H, W, C) uint8 samples of ``depth`` bits with the
-    scanline filter of each row from ``filters`` (cycled)."""
-    h, w = px.shape[:2]
-    bpp = max(1, _CHANNELS[ctype] * depth // 8)
-    rows = px.reshape(h, -1)
+def _scanlines(px, depth):
+    """(H, stride) bytes of ``px`` (H, W, C) samples of ``depth`` bits: big
+    endian at 16, packed from each byte's high bits below 8."""
+    h, w, ch = px.shape
+    if depth == 16:
+        return np.ascontiguousarray(px, ">u2").reshape(h, -1).view(np.uint8)
+    rows = px.reshape(h, -1).astype(np.uint8)
     if depth < 8:
         per = 8 // depth
-        pad = np.zeros((h, -w % per), np.uint8)
+        pad = np.zeros((h, -(w * ch) % per), np.uint8)
         grouped = np.concatenate([rows, pad], 1).reshape(h, -1, per).astype(np.uint16)
         rows = sum(grouped[:, :, k] << (8 - depth * (k + 1)) for k in range(per)).astype(np.uint8)
-    raw, prev = b"", bytes(rows.shape[1])
-    for y in range(h):
-        raw += _filter_row(bytes(rows[y]), prev, filters[y % len(filters)], bpp)
-        prev = bytes(rows[y])
+    return rows
+
+
+def _encode_png(px, ctype, filters, palette=None, trns=None, interlace=0, depth=8):
+    """A PNG of ``px`` (H, W, C) samples of ``depth`` bits (uint16 at 16,
+    else uint8) with the scanline filter of each row from ``filters``
+    (cycled over the rows of every pass); ``interlace=1`` writes the seven
+    Adam7 passes, an empty pass with no scanline at all."""
+    h, w = px.shape[:2]
+    bpp = max(1, _CHANNELS[ctype] * depth // 8)
+    passes = png._ADAM7 if interlace else ((0, 0, 1, 1),)
+    raw, n = b"", 0
+    for x0, y0, dx, dy in passes:
+        sub = px[y0::dy, x0::dx]
+        if not sub.size:
+            continue
+        rows = _scanlines(sub, depth)
+        prev = bytes(rows.shape[1])
+        for y in range(rows.shape[0]):
+            raw += _filter_row(bytes(rows[y]), prev, filters[n % len(filters)], bpp)
+            prev = bytes(rows[y])
+            n += 1
 
     def chunk(tag, body):
         return (struct.pack(">I", len(body)) + tag + body
@@ -524,12 +545,57 @@ def test_png_decoder_matches_pil_on_quirks_textures():
         np.testing.assert_array_equal(png.decode_rgba(data), _pil_rgba(data))
 
 
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+
+
+@pytest.mark.parametrize("size", [(1, 1), (3, 5), (2, 1), (9, 17)],
+                         ids=["1x1", "3x5", "2x1", "9x17"])
+@pytest.mark.parametrize("interlace", [0, 1], ids=["flat", "adam7"])
+@pytest.mark.parametrize("form", [(c, d) for c in sorted(_DEPTHS) for d in _DEPTHS[c]],
+                         ids=[f"{_MODES[c]}{d}" for c in sorted(_DEPTHS) for d in _DEPTHS[c]])
+def test_png_16bit_and_adam7_match_pil(form, interlace, size):
+    """Every colour type at every bit depth, flat and Adam7-interlaced,
+    at sizes where some of the seven passes are empty (1x1: six of them;
+    3x5; 2x1), with a colour key or palette alphas: Pillow keeps a 16-bit
+    sample's high byte but clips 16-bit grey at 255, and compares a key's
+    low byte with the 8-bit samples."""
+    ctype, depth = form
+    h, w = size
+    rng = np.random.default_rng([ctype, depth, interlace, h, w])
+    hi = 1 << depth
+    px = rng.integers(0, hi, (h, w, _CHANNELS[ctype])).astype(np.uint16 if depth == 16 else np.uint8)
+    if depth == 16 and ctype == 0:
+        px[::2] %= 300  # samples on both sides of the clip at 255
+    palette, trns = None, None
+    if ctype == 3:
+        palette = rng.integers(0, 256, (min(hi, 256), 3))
+        trns = bytes(rng.integers(0, 256, 5, dtype=np.uint8))
+    elif ctype in (0, 2):
+        # A key whose low byte matches the first pixel, with a high byte set.
+        first = px[0, 0].astype(np.int64)
+        if depth == 16:
+            first = np.minimum(first, 255) if ctype == 0 else first >> 8
+        elif ctype == 0 and depth < 8:
+            first = first if depth == 1 else first * (255 // (hi - 1))
+        trns = struct.pack(f">{len(first)}H", *(int(k) | 0x100 for k in first))
+    data = _encode_png(px, ctype, (0, 1, 2, 3, 4), palette=palette, trns=trns,
+                       interlace=interlace, depth=depth)
+    got = png.decode_rgba(data)
+    assert got.dtype == np.uint8 and got.shape == (h, w, 4)
+    np.testing.assert_array_equal(got, _pil_rgba(data))
+
+
 def test_png_forms_not_supported_raise():
+    """Forms the PNG format does not define raise naming the image, and so
+    does a chunk that fails its CRC."""
     px = np.zeros((4, 4, 3), np.uint8)
-    with pytest.raises(ValueError, match="texture 7: interlaced"):
-        png.decode_rgba(_encode_png(px, 2, (0,), interlace=1), "texture 7")
-    with pytest.raises(ValueError, match="texture 8: .*bit depth 16"):
-        png.decode_rgba(_encode_png(px[..., :2], 0, (0,), depth=16), "texture 8")
+    with pytest.raises(ValueError, match="texture 7: .*interlace method 2"):
+        png.decode_rgba(_encode_png(px, 2, (0,), interlace=2), "texture 7")
+    with pytest.raises(ValueError, match="texture 8: .*bit depth 16, colour type 3"):
+        png.decode_rgba(_encode_png(px[..., :1], 3, (0,), palette=np.zeros((1, 3)), depth=16),
+                        "texture 8")
+    with pytest.raises(ValueError, match="texture 9: .*bit depth 4, colour type 2"):
+        png.decode_rgba(_encode_png(px, 2, (0,), depth=4), "texture 9")
     good = _encode_png(px, 2, (0,))
     with pytest.raises(ValueError, match="CRC"):
         png.decode_rgba(good[:40] + bytes([good[40] ^ 1]) + good[41:])
@@ -551,14 +617,25 @@ def test_jpeg_through_pillow_or_raises(monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-def test_auto_over_512_instances_raises(tmp_path):
+def test_auto_over_512_instances_raises(tmp_path, monkeypatch):
     """520 nodes drawing one triangle: ``auto`` loads two levels, as the
-    reference does, and rendering or picking raises naming A10; nothing
-    bakes in its place."""
+    reference does, and nothing raises any more: the scene renders (the
+    reference's tables through ``Renderer``, 16x12, depth 2, sun&sky, under
+    ``tests/test_torch_render.py``'s criterion), picks (the same hits,
+    triangles and instances, t within rtol 1e-5) and goes through the CLI
+    (against the reference CLI's ``--hdr-out``) as the reference's does,
+    on the chunked candidate scan; nothing bakes in its place."""
+    from vk_raytrace_tpu import cli as ref_cli
+    from vk_raytrace_tpu import render as ref_render
+    from vk_raytrace_tpu.models.schema import PBR_GLTF, RenderConfig as RefConfig
+    from vk_raytrace_tpu.utils import cache as ref_cache
     from vk_raytrace_torch import cli
     from vk_raytrace_torch import render as R
+    from vk_raytrace_torch.convert import from_reference
     from vk_raytrace_torch.models.schema import RenderConfig
+    from vk_raytrace_torch.ops import tlas
 
+    monkeypatch.setattr(ref_cache, "enable_compile_cache", lambda: None)
     pos = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
     doc = {
         "asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": list(range(520))}],
@@ -571,15 +648,48 @@ def test_auto_over_512_instances_raises(tmp_path):
     }
     path = _write(tmp_path, "many.gltf", doc)
     (pool, inst), mats, lights, cam, atlas = load_gltf(path, instancing="auto")
-    (ref_pool, ref_inst), *_ = ref_load(path, instancing="auto")
-    assert len(inst.mesh_id) == len(ref_inst.mesh_id) == 520
-    r = R.Renderer(R.build_instanced_scene(pool, inst, mats, lights, cam),
-                   RenderConfig(width=16, height=12, max_depth=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        r.step()
-    with pytest.raises(NotImplementedError, match="A10"):
-        r.pick(8, 6)
-    with pytest.raises(NotImplementedError, match="A10"):
-        cli.main(["--device", "cpu", "-f", path, "--size", "16", "12", "--spp", "1",
-                  "-o", str(tmp_path / "many.png")])
-    assert not (tmp_path / "many.png").exists()
+    (ref_pool, ref_inst), ref_mats, ref_lights, ref_cam, ref_atlas = ref_load(path,
+                                                                            instancing="auto")
+    assert len(inst.mesh_id) == len(ref_inst.mesh_id) == 520 > tlas._DENSE_I_MAX
+    cfg = dict(width=16, height=12, max_depth=2, max_samples=1, pbr_mode=PBR_GLTF,
+               firefly_clamp=10.0, use_sun_sky=True)
+    ref = ref_render.Renderer(ref_render.build_instanced_scene(
+        ref_pool, ref_inst, ref_mats, ref_lights, ref_cam, atlas=ref_atlas), RefConfig(**cfg))
+    scene, acc = from_reference(ref.scene, ref.packed)
+    port = R.Renderer(scene, RenderConfig(**{**cfg, "use_sun_sky": False, "sun_disk": True}),
+                      device="cpu", packed=acc)
+    rays = [[], []]
+    for k, r in enumerate((ref, port)):
+        for _ in range(2):
+            r.step()
+            rays[k].append(r.last_rays)
+    img = port.accum.numpy()
+    assert np.isfinite(img).all() and img.mean() > 0.0
+    assert np.isclose(img, np.asarray(ref.accum), rtol=1e-3, atol=1e-4).all(-1).mean() >= 0.99
+    assert all(abs(p - q) <= 1e-3 * q for p, q in zip(rays[1], rays[0])), rays
+    # Picks of the port's own scene against the reference renderer's.
+    own = R.Renderer(R.build_instanced_scene(pool, inst, mats, lights, cam, atlas=atlas),
+                     RenderConfig(width=16, height=12), device="cpu")
+    ref_pick = ref_render.Renderer(ref.scene, RefConfig(width=16, height=12), packed=ref.packed)
+    ys, xs = np.divmod(np.arange(16 * 12), 16)
+    picks = own.pick_many(xs, ys)
+    hit = [i for i, p in enumerate(picks) if p is not None]
+    miss = [i for i, p in enumerate(picks) if p is None]
+    assert len(hit) >= 24 and miss
+    for i in hit[::len(hit) // 3][:3] + miss[:1]:
+        p, q = picks[i], ref_pick.pick(int(xs[i]), int(ys[i]))
+        assert (p is None) == (q is None), (i, p, q)
+        if p is not None:
+            assert (p["triangle"], p["instance"]) == (q["triangle"], q["instance"]) or (
+                p["t"] == q["t"]), (p, q)
+            np.testing.assert_allclose(p["t"], q["t"], rtol=1e-5)
+    # The CLI, both packages.
+    args = ["-f", path, "--size", "16", "12", "--depth", "2", "--spp", "1", "--sun-sky"]
+    assert cli.main([*args, "--device", "cpu", "-o", str(tmp_path / "many.png"), "--hdr-out",
+                     str(tmp_path / "port.npy")]) == 0
+    assert ref_cli.main([*args, "-o", str(tmp_path / "ref.png"), "--hdr-out",
+                         str(tmp_path / "ref.npy")]) == 0
+    a, b = np.load(tmp_path / "port.npy"), np.load(tmp_path / "ref.npy")
+    assert a.shape == b.shape and np.isfinite(a).all() and a.mean() > 0.0
+    assert np.isclose(a, b, rtol=1e-3, atol=1e-4).all(-1).mean() >= 0.99
+    assert (tmp_path / "many.png").exists()

@@ -14,7 +14,7 @@ import pytest
 from vk_raytrace_torch import render as R
 from vk_raytrace_torch.models import procedural
 from vk_raytrace_torch.models.schema import PBR_DISNEY, PBR_GLTF, RenderConfig
-from test_torch_traverse import one_torch_thread  # noqa: F401 (used below)
+from test_torch_traverse import isolated_reference, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 

@@ -419,7 +419,9 @@ def test_build_matches_reference_bytes(name):
 
 def test_root_guards():
     """The build refuses a leaf row as a mesh root, the root masks must
-    cover every clamped root, and the unported paths raise."""
+    cover every clamped root, and the two cases the port once refused run:
+    a pool without subset tables given a pack (the instance-level split)
+    and a table of more than 512 instances (the chunked scan)."""
     pool, inst, *_ = _panels(0.5, mixed=True)
     acc = tlas.build_instanced_accel(_port_pool(pool), _conv(InstanceTable, inst))
     # The backstop mesh has no alpha triangle: its alpha root is -1 and the
@@ -437,13 +439,30 @@ def test_root_guards():
         _conv(S.Materials, make_materials([dict(), dict()])).to("cpu"),
         _conv(S.TextureAtlas, dummy_atlas()).to("cpu"), None,
     )
-    with pytest.raises(NotImplementedError, match="A10"):  # no subset tables
-        tlas.closest_hit_instanced(dataclasses.replace(dev, blas_planar_opq=None), pack,
-                                   torch.from_numpy(o), torch.from_numpy(d))
-    many = dataclasses.replace(dev.inst, aabb_min=dev.inst.aabb_min.repeat(200, 1))
-    with pytest.raises(NotImplementedError, match="A10"):  # > 512 instances
-        tlas.closest_hit_instanced(dataclasses.replace(dev, inst=many), None,
-                                   torch.from_numpy(o), torch.from_numpy(d))
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    # No subset tables: the same scene with every triangle alpha-tested, and
+    # materials that pass every test, so the alpha machine over the full
+    # tables finds the hits of the pass without a pack.
+    flags = np.asarray(pool.geometry.tri_flags) | 2
+    all_alpha = tlas.build_instanced_accel(
+        _port_pool(pool._replace(geometry=pool.geometry._replace(tri_flags=flags))),
+        _conv(InstanceTable, inst)).to("cpu")
+    assert all_alpha.blas_planar_opq is None and all_alpha._any_alpha()
+    hit, _ = tlas.closest_hit_instanced(all_alpha, pack, o, d)
+    want, _ = tlas.closest_hit_instanced(all_alpha, None, o, d)
+    assert bool((hit.tri >= 0).all())
+    for k in ("t", "tri", "inst"):
+        assert torch.equal(getattr(hit, k), getattr(want, k)), k
+    # Each instance 200 times (800 > 512): the scan takes the first copy of
+    # each box, so the hits are the table's own.
+    many = dataclasses.replace(dev.inst, **{
+        f.name: torch.cat([getattr(dev.inst, f.name)] * 200)
+        for f in dataclasses.fields(dev.inst)})
+    assert many.aabb_min.shape[0] == 800 > tlas._DENSE_I_MAX
+    want, _ = tlas.closest_hit_instanced(dev, None, o, d)
+    got, _ = tlas.closest_hit_instanced(dataclasses.replace(dev, inst=many), None, o, d)
+    for k in ("t", "tri", "u", "v", "inst"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
 
 
 # ---------------------------------------------------------------------------

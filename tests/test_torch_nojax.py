@@ -7,7 +7,9 @@ the width-32 builds (``build_bvh32``) with the traversal micro-bench
 (``vk_raytrace_torch.travbench``) and for the Disney BSDF, the debug modes,
 the BASELINE #2/#4 scenes and the brute-force anchor; for the application
 path (the CLI on quirks.glb, the glTF loader, the PNG codec, the scene
-cache and the profiler), also without Pillow; and, statically, that no import
+cache and the profiler), also without Pillow, and the CLI on two-level
+scenes beyond 512 instances and of alpha-tested triangles alone; and,
+statically, that no import
 statement of the package or of the chip scripts (``chip_smoke.py``,
 ``chip_ab.py``, ``chip_profile.py``) names JAX or the JAX package, and that
 the chip scripts import without them."""
@@ -142,6 +144,27 @@ print("ok")
 """
 
 
+PLAZA_SCRIPT = """
+import os, sys, tempfile
+import numpy as np
+import chip_smoke
+from vk_raytrace_torch import cli
+from vk_raytrace_torch.utils import png
+
+with tempfile.TemporaryDirectory() as d:
+    for name, kw in (("plaza", {}), ("foliage", dict(ground=False, trunks=False))):
+        path = os.path.join(d, name + ".gltf")
+        chip_smoke.write_plaza(path, nx=15, nz=20, trunk_segments=6, trunk_rings=2, cards=4, **kw)
+        out = os.path.join(d, name + ".png")
+        assert cli.main(["--device", "cpu", "-f", path, "--size", "16", "12", "--depth", "2",
+                         "--spp", "1", "--sun-sky", "-o", out]) == 0
+        assert png.decode_rgba(open(out, "rb").read()).shape == (12, 16, 4)
+for name in ("jax", "vk_raytrace_tpu", "PIL"):
+    assert name not in sys.modules, sorted(m for m in sys.modules if m.startswith(name))
+print("ok")
+"""
+
+
 def _run(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
@@ -177,6 +200,13 @@ def test_application_path_never_imports_jax_or_pillow():
     glTF loader in two levels, the cache and the profiler: neither JAX, nor
     the JAX package, nor Pillow, which the card's machine does not have."""
     _run(APP_SCRIPT)
+
+
+def test_large_two_level_path_never_imports_jax_or_pillow():
+    """The CLI on plaza glTFs written by ``chip_smoke.write_plaza``: 601
+    instances (the chunked candidate scan) and the foliage alone (every
+    triangle alpha-tested: the instance-level split)."""
+    _run(PLAZA_SCRIPT)
 
 
 def _non_doc_strings(tree):

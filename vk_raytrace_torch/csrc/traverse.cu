@@ -751,12 +751,16 @@ persistent_traverse_kernel(const float4* __restrict__ rows, const float* __restr
 // sync. A ray's state (window, best hit, seed, last instance) stays in
 // registers across its rounds. The two-level machines hold the instance
 // table (subset world box, world-to-object rows and BLAS root of each
-// instance, 76 B) in shared memory, where every thread of a warp reads the
-// same instance at once; the next candidate is the slab test recomputed
-// against it, so no per-ray entry table exists.
+// instance, 76 B) in shared memory up to kMaxInstances instances, where every
+// thread of a warp reads the same instance at once; above, a table too large
+// for a block's shared memory, they read it from global memory through the
+// read-only path (GLOBAL instantiations, no dynamic shared memory), with the
+// same arithmetic, so both give the same bits. The next candidate is the
+// slab test recomputed against the table, so no per-ray entry table exists.
 // ---------------------------------------------------------------------------
 
-constexpr int kMaxInstances = 512;  // tlas._DENSE_I_MAX: 38,912 B of shared memory
+// tlas._DENSE_I_MAX: the largest table held in shared memory (38,912 B).
+constexpr int kMaxInstances = 512;
 constexpr int kInstWords = 19;      // box 6, world_to_object 12, root 1
 constexpr float kNeg = -3.0e38f;    // tlas._NEG: before every entry t
 constexpr float kAlphaMask = 1.0f;  // models/schema.py ALPHA_MASK
@@ -767,20 +771,33 @@ constexpr float kAdvMul = (float)(1.0 + 1e-4);
 constexpr float kAdvAbs = (float)1e-5;
 constexpr float kInv255 = (float)(1.0 / 255.0);
 
-// The instance table in shared memory: (I, 6) subset world boxes (min xyz,
-// max xyz), (I, 12) world-to-object rows, (I,) BLAS roots (-1: outside the
-// pass's instance mask).
+// The instance table: (I, 6) subset world boxes (min xyz, max xyz), (I, 12)
+// world-to-object rows, (I,) BLAS roots (-1: outside the pass's instance
+// mask); in shared memory, or (GLOBAL) the caller's global tables, read-only.
+template <bool GLOBAL>
 struct Instances {
   const float* box;
   const float* m;
   const int* root;
+  __device__ __forceinline__ float box_at(int k) const {
+    return GLOBAL ? __ldg(box + k) : box[k];
+  }
+  __device__ __forceinline__ float m_at(int k) const { return GLOBAL ? __ldg(m + k) : m[k]; }
+  __device__ __forceinline__ int root_at(int i) const {
+    return GLOBAL ? __ldg(root + i) : root[i];
+  }
 };
 
-// Every thread of the block copies its share, then waits for the rest: call
-// before any thread of the block returns.
-__device__ __forceinline__ Instances load_instances(float* smem, const float* inst_box,
-                                                    const float* inst_w2o,
-                                                    const int32_t* inst_root, int n_inst) {
+// The shared table: every thread of the block copies its share, then waits
+// for the rest (call before any thread of the block returns). GLOBAL: the
+// global tables themselves, nothing copied.
+template <bool GLOBAL>
+__device__ __forceinline__ Instances<GLOBAL> load_instances(float* smem,
+                                                            const float* __restrict__ inst_box,
+                                                            const float* __restrict__ inst_w2o,
+                                                            const int32_t* __restrict__ inst_root,
+                                                            int n_inst) {
+  if (GLOBAL) return Instances<GLOBAL>{inst_box, inst_w2o, inst_root};
   float* s_box = smem;
   float* s_m = smem + 6 * n_inst;
   int* s_root = reinterpret_cast<int*>(smem + 18 * n_inst);
@@ -788,7 +805,7 @@ __device__ __forceinline__ Instances load_instances(float* smem, const float* in
   for (int k = threadIdx.x; k < 12 * n_inst; k += blockDim.x) s_m[k] = inst_w2o[k];
   for (int k = threadIdx.x; k < n_inst; k += blockDim.x) s_root[k] = inst_root[k];
   __syncthreads();
-  return Instances{s_box, s_m, s_root};
+  return Instances<GLOBAL>{s_box, s_m, s_root};
 }
 
 // The next instance after (last_t, last_id) in (entry t, id) order among
@@ -796,16 +813,18 @@ __device__ __forceinline__ Instances load_instances(float* smem, const float* in
 // tmax0 and its best hit t_best: tlas._instance_slab's slab test and
 // tlas._next_candidate's argmin (ties to the lowest id). Instances outside
 // the mask have root -1. Returns the id (-1: none) and its entry t.
-__device__ __forceinline__ int next_instance(const Instances& it, int n_inst, const Ray& w,
-                                             float tmax0, float t_best, float last_t,
-                                             int last_id, float& nt) {
+template <bool GLOBAL>
+__device__ __forceinline__ int next_instance(const Instances<GLOBAL>& it, int n_inst,
+                                             const Ray& w, float tmax0, float t_best,
+                                             float last_t, int last_id, float& nt) {
   float best = kInf;
   int id = -1;
   for (int i = 0; i < n_inst; ++i) {
-    if (it.root[i] < 0) continue;
-    const float* b = it.box + 6 * i;
+    if (it.root_at(i) < 0) continue;
+    const int b = 6 * i;
     float tn, tf;
-    slab(w, b[0], b[1], b[2], b[3], b[4], b[5], tn, tf);
+    slab(w, it.box_at(b), it.box_at(b + 1), it.box_at(b + 2), it.box_at(b + 3), it.box_at(b + 4),
+         it.box_at(b + 5), tn, tf);
     const bool hit = (tn <= tf) && (tf >= 0.0f) && (tn < tmax0) && (tn < t_best);
     const bool after = (tn > last_t) || (tn == last_t && i > last_id);
     if (hit && after && tn < best) {
@@ -836,6 +855,16 @@ __device__ __forceinline__ Ray to_object(const float* m, float px, float py, flo
                    __fmul_rn(m[10], w.dz));
   set_inverse(y);
   return y;
+}
+
+// to_object with instance cid's world-to-object rows.
+template <bool GLOBAL>
+__device__ __forceinline__ Ray instance_ray(const Instances<GLOBAL>& it, int cid, float px,
+                                            float py, float pz, const Ray& w) {
+  float m[12];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) m[k] = it.m_at(12 * cid + k);
+  return to_object(m, px, py, pz, w);
 }
 
 // torch.remainder of integers: the sign of the divisor (size >= 1).
@@ -960,7 +989,8 @@ alpha_rounds_kernel(const float4* __restrict__ rows, const float* __restrict__ o
 // root in its own object space with t_max = the best hit so far, in mode a
 // (closest, culling) or mode b (any, no culling: the first hit ends the ray).
 // Every round consumes an instance, so a ray ends within n_inst rounds.
-template <bool ANY, int MAXD, int W>
+// GLOBAL: the instance table in global memory (n_inst > kMaxInstances).
+template <bool ANY, int MAXD, int W, bool GLOBAL>
 __global__ void __launch_bounds__(128)
 opaque_machine_kernel(const float4* __restrict__ rows, const float* __restrict__ inst_box,
                       const float* __restrict__ inst_w2o, const int32_t* __restrict__ inst_root,
@@ -971,7 +1001,8 @@ opaque_machine_kernel(const float4* __restrict__ rows, const float* __restrict__
                       float* __restrict__ out_u, float* __restrict__ out_v,
                       int32_t* __restrict__ out_inst, int32_t* __restrict__ out_steps) {
   extern __shared__ float smem[];
-  const Instances it = load_instances(smem, inst_box, inst_w2o, inst_root, n_inst);
+  const Instances<GLOBAL> it =
+      load_instances<GLOBAL>(smem, inst_box, inst_w2o, inst_root, n_inst);
   const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
 
@@ -984,10 +1015,10 @@ opaque_machine_kernel(const float4* __restrict__ rows, const float* __restrict__
   while (live) {
     // The world origin itself goes into object space: o + d * 0 would make
     // a -0 coordinate +0.
-    const Ray y = to_object(it.m + 12 * cid, w.ox, w.oy, w.oz, w);
+    const Ray y = instance_ray(it, cid, w.ox, w.oy, w.oz, w);
     TraceOut h;
-    trace<ANY ? kAny : kClosest, !ANY, MAXD, W, false>(rows, y, t_best, it.root[cid], nullptr,
-                                                       0, h);
+    trace<ANY ? kAny : kClosest, !ANY, MAXD, W, false>(rows, y, t_best, it.root_at(cid),
+                                                       nullptr, 0, h);
     if (h.tri >= 0) {
       t_best = h.t;
       tri = h.tri;
@@ -1015,7 +1046,8 @@ opaque_machine_kernel(const float4* __restrict__ rows, const float* __restrict__
 // (t_lo, t_best); the nearest alpha surface takes its stochastic test: pass
 // records it and moves to the next instance, reject advances t_lo past it and
 // stays, no surface moves on. A ray stops after max_rounds rounds.
-template <bool CULL, bool ANY, int MAXD, int W>
+// GLOBAL: the instance table in global memory (n_inst > kMaxInstances).
+template <bool CULL, bool ANY, int MAXD, int W, bool GLOBAL>
 __global__ void __launch_bounds__(128)
 alpha_machine_kernel(const float4* __restrict__ rows, const float* __restrict__ inst_box,
                      const float* __restrict__ inst_w2o, const int32_t* __restrict__ inst_root,
@@ -1029,7 +1061,8 @@ alpha_machine_kernel(const float4* __restrict__ rows, const float* __restrict__ 
                      int32_t* __restrict__ out_inst, int64_t* __restrict__ out_seed,
                      int32_t* __restrict__ out_steps) {
   extern __shared__ float smem[];
-  const Instances it = load_instances(smem, inst_box, inst_w2o, inst_root, n_inst);
+  const Instances<GLOBAL> it =
+      load_instances<GLOBAL>(smem, inst_box, inst_w2o, inst_root, n_inst);
   const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
 
@@ -1043,12 +1076,12 @@ alpha_machine_kernel(const float4* __restrict__ rows, const float* __restrict__ 
   for (int round = 0; live && round < max_rounds; ++round) {
     // The window start moved along the world ray, then into the instance's
     // object space.
-    const Ray y = to_object(it.m + 12 * cid, __fadd_rn(w.ox, __fmul_rn(w.dx, t_lo)),
-                            __fadd_rn(w.oy, __fmul_rn(w.dy, t_lo)),
-                            __fadd_rn(w.oz, __fmul_rn(w.dz, t_lo)), w);
+    const Ray y = instance_ray(it, cid, __fadd_rn(w.ox, __fmul_rn(w.dx, t_lo)),
+                               __fadd_rn(w.oy, __fmul_rn(w.dy, t_lo)),
+                               __fadd_rn(w.oz, __fmul_rn(w.dz, t_lo)), w);
     TraceOut h;
     trace<kCandidate, CULL, MAXD, W, false>(rows, y, fmaxf(__fsub_rn(t_best, t_lo), 0.0f),
-                                            it.root[cid], nullptr, 0, h);
+                                            it.root_at(cid), nullptr, 0, h);
     const bool cand = h.tri >= 0;
     const bool passed =
         cand && alpha_accept(pack, n_pack, plane, n_plane, atlas_w, h.tri, h.uvu, h.uvv, seed);
@@ -1167,11 +1200,17 @@ void launch_machine(const float* rows, const float* box, const float* w2o, const
                     int64_t* seed_out, int32_t* steps, cudaStream_t stream) {
   const int threads = 128;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  const auto* r4 = reinterpret_cast<const float4*>(rows);
+  if (n_inst > kMaxInstances) {
+    alpha_machine_kernel<CULL, ANY, MAXD, kWidth, true><<<blocks, threads, 0, stream>>>(
+        r4, box, w2o, root, n_inst, pack, n_pack, plane, n_plane, atlas_w, o, d, tmax, active,
+        seed, n, max_rounds, t, tri, u, v, inst, seed_out, steps);
+    return;
+  }
   const size_t smem = (size_t)n_inst * kInstWords * sizeof(float);
-  alpha_machine_kernel<CULL, ANY, MAXD, kWidth><<<blocks, threads, smem, stream>>>(
-      reinterpret_cast<const float4*>(rows), box, w2o, root, n_inst, pack, n_pack, plane,
-      n_plane, atlas_w, o, d, tmax, active, seed, n, max_rounds, t, tri, u, v, inst, seed_out,
-      steps);
+  alpha_machine_kernel<CULL, ANY, MAXD, kWidth, false><<<blocks, threads, smem, stream>>>(
+      r4, box, w2o, root, n_inst, pack, n_pack, plane, n_plane, atlas_w, o, d, tmax, active,
+      seed, n, max_rounds, t, tri, u, v, inst, seed_out, steps);
 }
 
 template <bool CULL, int MAXD>
@@ -1194,10 +1233,15 @@ void launch_opaque(const float* rows, const float* box, const float* w2o, const 
                    int32_t* inst, int32_t* steps, cudaStream_t stream) {
   const int threads = 128;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  const auto* r4 = reinterpret_cast<const float4*>(rows);
+  if (n_inst > kMaxInstances) {
+    opaque_machine_kernel<ANY, MAXD, kWidth, true><<<blocks, threads, 0, stream>>>(
+        r4, box, w2o, root, n_inst, o, d, tmax, active, n, t, tri, u, v, inst, steps);
+    return;
+  }
   const size_t smem = (size_t)n_inst * kInstWords * sizeof(float);
-  opaque_machine_kernel<ANY, MAXD, kWidth><<<blocks, threads, smem, stream>>>(
-      reinterpret_cast<const float4*>(rows), box, w2o, root, n_inst, o, d, tmax, active, n, t,
-      tri, u, v, inst, steps);
+  opaque_machine_kernel<ANY, MAXD, kWidth, false><<<blocks, threads, smem, stream>>>(
+      r4, box, w2o, root, n_inst, o, d, tmax, active, n, t, tri, u, v, inst, steps);
 }
 
 // The persistent a/b kernel of `mode` (closest with culling, any without),
@@ -1337,10 +1381,11 @@ int vkrt_sort_children(const float* keys, const int32_t* refs, int64_t n, int wi
 // The two-level alpha machine over n_rays world rays, to the end of each
 // ray's rounds (at most max_rounds): closest hit with culling (cull 1,
 // any_hit 0) or any hit without (cull 0, any_hit 1). rows: the alpha-subset
-// BLAS table (this library's width) with its stack bound; per instance
-// (n_inst <= 512): inst_box (I, 6) the alpha-subset world box (min, max),
-// inst_w2o (I, 3, 4) world to object, inst_root (I,) the BLAS root row, -1
-// outside the alpha mask; pack (n_pack, 16) the AlphaPack rows, plane the
+// BLAS table (this library's width) with its stack bound; per instance (in
+// shared memory up to kMaxInstances, read from global memory above):
+// inst_box (I, 6) the alpha-subset world box (min, max), inst_w2o (I, 3, 4)
+// world to object, inst_root (I,) the BLAS root row, -1 outside the alpha
+// mask; pack (n_pack, 16) the AlphaPack rows, plane the
 // atlas alpha channel (n_plane bytes, rows atlas_w wide); seed (n_rays,)
 // uint32 values in int64. Outputs per ray: t (t_max where no surface was
 // accepted), tri (-1 then), u, v, inst, seed, steps. Returns
@@ -1353,8 +1398,8 @@ int vkrt_alpha_machine(int cull, int any_hit, int width, const float* rows, int 
                        const int64_t* seed, int64_t n_rays, int max_rounds, float* t,
                        int32_t* tri, float* u, float* v, int32_t* inst, int64_t* seed_out,
                        int32_t* steps, void* stream) {
-  if (width != kWidth || stack_depth > 128 || n_inst < 0 || n_inst > kMaxInstances ||
-      n_pack < 1 || n_plane < 1 || (cull != 0) == (any_hit != 0))
+  if (width != kWidth || stack_depth > 128 || n_inst < 0 || n_pack < 1 || n_plane < 1 ||
+      (cull != 0) == (any_hit != 0))
     return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -1403,9 +1448,10 @@ int vkrt_alpha_rounds(int cull, int width, const float* rows, int stack_depth,
 // The two-level opaque rounds over n_rays world rays, each to its last
 // instance: closest hit with culling (cull 1, any_hit 0) or any hit without
 // (cull 0, any_hit 1). rows: the BLAS table (this library's width) with its
-// stack bound; per instance (n_inst <= 512): inst_box (I, 6) the subset world
-// box (min, max), inst_w2o (I, 3, 4) world to object, inst_root (I,) the BLAS
-// root row, -1 outside the pass's mask; active may be null. Outputs per ray:
+// stack bound; per instance (in shared memory up to kMaxInstances, read from
+// global memory above): inst_box (I, 6) the subset world box (min, max),
+// inst_w2o (I, 3, 4) world to object, inst_root (I,) the BLAS root row, -1
+// outside the pass's mask; active may be null. Outputs per ray:
 // t (t_max where nothing was hit), tri (-1 then), u, v, inst, steps. Returns
 // cudaGetLastError() after launch.
 int vkrt_opaque_machine(int cull, int any_hit, int width, const float* rows, int stack_depth,
@@ -1414,8 +1460,7 @@ int vkrt_opaque_machine(int cull, int any_hit, int width, const float* rows, int
                         const float* t_max, const uint8_t* active, int64_t n_rays, float* t,
                         int32_t* tri, float* u, float* v, int32_t* inst, int32_t* steps,
                         void* stream) {
-  if (width != kWidth || stack_depth > 128 || n_inst < 0 || n_inst > kMaxInstances ||
-      (cull != 0) == (any_hit != 0))
+  if (width != kWidth || stack_depth > 128 || n_inst < 0 || (cull != 0) == (any_hit != 0))
     return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);

@@ -17,8 +17,8 @@ every array equals the reference's).
 ``instancing="bake"`` bakes node transforms into one world-space geometry;
 ``"auto"`` returns a mesh pool and an instance table when a primitive is
 drawn by more than one node (``render.build_instanced_scene``); ``"always"``
-does so without sharing. A two-level scene of more than 512 instances
-loads, and its traversal raises ``NotImplementedError`` (ROADMAP A10): the
+does so without sharing. A two-level scene of any instance count, and of
+any mix of opaque and alpha-tested triangles, renders (``ops/tlas.py``): the
 loader never bakes in its place.
 """
 

@@ -10,8 +10,9 @@ caller asks for 32 (1024 B); the reference picks the same width from
 tables are not built.
 
 Bundles are disk-cached (``utils/cache.py``), keyed by the geometry, the
-row width and a digest of the native builder's source, so that a changed
-builder misses every entry it did not make.
+row width and a digest of the builder's sources (the native builder, its
+binding ``runtime.py`` and this module), so that a changed builder misses
+every entry it did not make.
 """
 
 from __future__ import annotations
@@ -35,11 +36,19 @@ def _planar(geom, indices, tri_flags, tri_ids, width) -> PlanarScene:
     return PlanarScene(rows=rows, stack_depth=depth, width=width)
 
 
+# The sources whose content the cache key hashes: every file that decides
+# what a build produces.
+DIGEST_SOURCES = (runtime._SRC, runtime.__file__, __file__)
+
+
 @functools.lru_cache(maxsize=None)
 def builder_digest() -> str:
-    """Content hash of ``csrc/native.cpp``."""
-    with open(runtime._SRC, "rb") as f:
-        return hashlib.blake2b(f.read(), digest_size=10).hexdigest()
+    """Content hash of :data:`DIGEST_SOURCES`."""
+    h = hashlib.blake2b(digest_size=10)
+    for path in DIGEST_SOURCES:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
 
 
 def build_accel_bundle(geom, width: int = 16) -> AccelBundle:

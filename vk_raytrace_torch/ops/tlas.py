@@ -6,7 +6,8 @@ tables are concatenated into one row table with absolute refs, and every
 instance is a 3x4 transform and a mesh id. The top level runs as candidate
 rounds: each ray picks its nearest not yet processed instance whose world
 box it enters before its current best hit (in the round loops an (R, I)
-slab test computed once per traversal; the kernels recompute each box's
+slab test computed once per traversal up to ``_DENSE_I_MAX`` instances, a
+chunked scan recomputed per round above; the kernels recompute each box's
 slab test per round), moves into that instance's object space and traverses
 the mesh's BVH from its own root with ``t_max = t_best`` (kernel modes
 a/b/c with per-lane roots, ``ops/traverse_fused.py``). World-space t is kept by
@@ -17,13 +18,17 @@ t are ordered by instance id, so each overlap is visited once.
 With alpha-tested triangles the tables split per mesh into an opaque subset
 and an alpha subset: the opaque rounds run over every instance's opaque
 subset, then a second machine runs candidate rounds over the alpha subsets,
-one stochastic alpha test per round (:func:`_two_level_alpha_pass`).
+one stochastic alpha test per round (:func:`_two_level_alpha_pass`). A pool
+whose triangles are all alpha-tested has no subsets: the instance-level
+split runs the alpha machine alone, over the full tables of the instances
+that carry alpha triangles (the rest have none).
 
 On the card each pass is one kernel launch (``csrc/traverse.cu``:
 ``vkrt_opaque_machine`` for the opaque rounds, ``vkrt_alpha_machine`` for
 the alpha rounds): each thread runs its ray's rounds to the end, the
-instance table in shared memory, with no (R, I) entry table and no host
-sync. Their plain versions, the round loops :func:`_two_level_pass` and
+instance table in shared memory (in global memory above ``_DENSE_I_MAX``
+instances), with no (R, I) entry table and no host sync. Their plain
+versions, the round loops :func:`_two_level_pass` and
 :func:`_alpha_rounds`, run the CPU tensors.
 
 In the loops every round runs on the lanes still live (gathered, then
@@ -49,8 +54,11 @@ from .traverse_fused import INF, Hit, PlanarScene
 
 _NEG = -3.0e38             # "before every entry t" for the enumeration
 # Instances up to which the round loops keep an (R, I) entry table and the
-# machine kernels their instance table in shared memory (76 B each).
+# machine kernels their instance table in shared memory (76 B each); above
+# it the loops scan the instance table in chunks of _SCAN_CHUNK per round
+# and the kernels read it from global memory.
 _DENSE_I_MAX = 512
+_SCAN_CHUNK = 128
 _SLAB_CHUNK = 1 << 15      # rays per chunk of the (R, I, 3) slab test
 # Bound on state-machine rounds in the alpha pass: instances overlapped
 # along one ray plus stochastic rejections. One global count, as in the
@@ -85,9 +93,16 @@ class InstancedAccel(Tables):
 
     def __post_init__(self):
         # The round machine kernels' instance tables by subset, built at
-        # first use (``_machine_tables``); a copy (``to``, ``replace``)
+        # first use (``_machine_tables``), and whether any instance carries
+        # alpha triangles (``_any_alpha``); a copy (``to``, ``replace``)
         # starts empty.
         self._machine = {}
+        self._alpha = None
+
+    def _any_alpha(self) -> bool:
+        if self._alpha is None:
+            self._alpha = bool(torch.as_tensor(self.inst_alpha).any())
+        return self._alpha
 
     def check_root_masks(self) -> None:
         """The passes clamp a subset root of -1 (mesh without triangles in
@@ -280,6 +295,64 @@ def _instance_slab(inst: InstanceTable, origin, direction, t_best, mask=None):
     return torch.cat(out)
 
 
+def _scan_candidate(inst: InstanceTable, origin, direction, t_best, last_t, last_id, mask=None):
+    """Per ray: the smallest (entry t, instance id) strictly after ``(last_t,
+    last_id)`` among the instance boxes the ray enters before ``t_best``
+    (and inside the (I,) ``mask``); id -1 where there is none. The instance
+    table is scanned in chunks of ``_SCAN_CHUNK``, padded with empty boxes
+    (min > max), so the working set is (R, chunk), never (R, I): the same
+    result as :func:`_next_candidate` over :func:`_instance_slab`, bit for
+    bit (the reference's ``_scan_candidate``)."""
+    n, dev = inst.aabb_min.shape[0], origin.device
+    chunk = min(_SCAN_CHUNK, 1 << max(n - 1, 0).bit_length())
+    pad = -n % chunk
+    amin = torch.cat([inst.aabb_min, torch.ones((pad, 3), dtype=inst.aabb_min.dtype, device=dev)])
+    amax = torch.cat([inst.aabb_max, torch.zeros((pad, 3), dtype=inst.aabb_max.dtype, device=dev)])
+    keep = torch.ones(n, dtype=torch.bool, device=dev) if mask is None else mask.bool()
+    keep = torch.cat([keep, torch.zeros(pad, dtype=torch.bool, device=dev)])
+    inv_d = tf.inv_dir(direction)
+    o, i = origin[:, None, :], inv_d[:, None, :]
+    r = origin.shape[0]
+    bt = torch.full((r,), INF, device=dev)
+    bi = torch.full((r,), 1 << 30, dtype=torch.int64, device=dev)
+    ids = torch.arange(chunk, device=dev)[None]
+    for base in range(0, n + pad, chunk):
+        lo = (amin[None, base:base + chunk] - o) * i
+        hi = (amax[None, base:base + chunk] - o) * i
+        tn = torch.amax(torch.minimum(lo, hi), dim=-1)
+        tfar = torch.amin(torch.maximum(lo, hi), dim=-1)
+        ok = (tn <= tfar) & (tfar >= 0.0) & (tn < t_best[:, None]) & keep[None, base:base + chunk]
+        after = (tn > last_t[:, None]) | ((tn == last_t[:, None]) & (base + ids > last_id[:, None]))
+        key = torch.where(ok & after, tn, INF)
+        ct = torch.amin(key, dim=1)
+        ci = base + torch.argmin(key, dim=1)  # the first minimum: the lowest id
+        better = (ct < bt) | ((ct == bt) & (ci < bi))
+        bt = torch.where(better, ct, bt)
+        bi = torch.where(better, ci, bi)
+    return bt, torch.where(bt < INF, bi, -1)
+
+
+def _candidates(inst: InstanceTable, origin, direction, t_max, mask, scan):
+    """The round loops' candidate enumeration over ``inst``: a function of
+    ``(lanes, t_best, last_t, last_id)`` giving the lanes' next (entry t,
+    id), the lanes an index (or ``slice(None)`` for all). Up to
+    ``_DENSE_I_MAX`` instances (``scan`` None) or with ``scan`` False, the
+    (R, I) entry table computed once here, masked by each lane's best hit;
+    above, or with ``scan`` True, the chunked scan per call."""
+    if scan is None:
+        scan = inst.aabb_min.shape[0] > _DENSE_I_MAX
+    if scan:
+        return lambda lanes, tb, lt, li: _scan_candidate(inst, origin[lanes], direction[lanes],
+                                                          tb, lt, li, mask)
+    entry0 = _instance_slab(inst, origin, direction, t_max, mask)
+
+    def dense(lanes, tb, lt, li):
+        e = entry0[lanes]
+        return _next_candidate(torch.where(e < tb[:, None], e, INF), lt, li)
+
+    return dense
+
+
 def _next_candidate(entry, last_t, last_id):
     """Per ray: the smallest (entry t, instance id) strictly after
     ``(last_t, last_id)`` in that order; id -1 where there is none."""
@@ -307,15 +380,6 @@ def _check_pair(cull, any_hit) -> None:
                          f"without, not cull={cull} with any_hit={any_hit}")
 
 
-def _check_instance_count(inst: InstanceTable) -> None:
-    n = inst.aabb_min.shape[0]
-    if n > _DENSE_I_MAX:
-        raise NotImplementedError(
-            f"{n} instances: the chunked candidate scan for more than {_DENSE_I_MAX} "
-            "instances is not ported yet (ROADMAP A10)"
-        )
-
-
 # ---------------------------------------------------------------------------
 # Candidate rounds
 # ---------------------------------------------------------------------------
@@ -323,12 +387,17 @@ def _check_instance_count(inst: InstanceTable) -> None:
 
 def _subset(accel: InstancedAccel, subset: str):
     """A pass's ``(planar, roots, inst, mask)`` over ``subset``: "full"
-    (every triangle, every instance), "opq" or "alp" (each mesh's opaque or
-    alpha subset, ``inst`` with the subset world boxes, the instances of
+    (every triangle, every instance); "full_alp", the full tables masked to
+    the instances with alpha triangles (the instance-level split); "opq" or
+    "alp" (each mesh's opaque or alpha
+    subset, ``inst`` with the subset world boxes, the instances of
     ``inst_opaque`` or ``inst_alpha``; a subset root of -1 clamps to 0, safe
     under the mask, see ``check_root_masks``)."""
     if subset == "full":
         return accel.blas_planar, accel.mesh_root_planar, accel.inst, None
+    if subset == "full_alp":
+        return (accel.blas_planar, accel.mesh_root_planar, accel.inst,
+                torch.as_tensor(accel.inst_alpha).bool())
     view = dataclasses.replace(accel.inst, aabb_min=getattr(accel, f"inst_aabb_{subset}_min"),
                                aabb_max=getattr(accel, f"inst_aabb_{subset}_max"))
     mask = accel.inst_opaque if subset == "opq" else accel.inst_alpha
@@ -354,15 +423,17 @@ def _two_level_opaque_pass(accel, subset, origin, direction, t_max, act, cull, a
 
 
 def _two_level_pass(planar, roots, inst, origin, direction, t_max, act, mask, cull, any_hit,
-                    trav=tf.traverse, rounds=None):
+                    trav=tf.traverse, rounds=None, scan=None):
     """The opaque rounds as a loop of rounds on the live lanes (the plain
     version of the opaque machine kernel): each round's traversal is one
     ``trav`` call (``traverse_fused.traverse``: the per-round kernel with
     per-lane roots on CUDA tensors, the twin on CPU ones). ``rounds``, an
-    optional (R,) integer tensor, counts each ray's rounds."""
+    optional (R,) integer tensor, counts each ray's rounds; ``scan`` picks
+    the candidate enumeration (:func:`_candidates`; None: by the instance
+    count)."""
     r, dev = origin.shape[0], origin.device
     mode = "any" if any_hit else "closest"
-    entry0 = _instance_slab(inst, origin, direction, t_max, mask)
+    next_cand = _candidates(inst, origin, direction, t_max, mask, scan)
     t_best = t_max.clone()
     tri = torch.full((r,), -1, dtype=torch.int64, device=dev)
     u = torch.zeros(r, device=dev)
@@ -371,7 +442,7 @@ def _two_level_pass(planar, roots, inst, origin, direction, t_max, act, mask, cu
     steps = torch.zeros(r, dtype=torch.int32, device=dev)
     last_t = torch.full((r,), _NEG, device=dev)
     last_id = torch.full((r,), -1, dtype=torch.int64, device=dev)
-    nt, nid = _next_candidate(entry0, last_t, last_id)
+    nt, nid = next_cand(slice(None), t_max, last_t, last_id)
     live = torch.nonzero(act & (nid >= 0)).squeeze(1)
     while live.numel():
         if rounds is not None:
@@ -391,8 +462,7 @@ def _two_level_pass(planar, roots, inst, origin, direction, t_max, act, mask, cu
         last_t[live] = nt[live]
         last_id[live] = cid
         steps[live] += hs + 1
-        e = entry0[live]
-        nt2, nid2 = _next_candidate(torch.where(e < tb[:, None], e, INF), nt[live], cid)
+        nt2, nid2 = next_cand(live, tb, nt[live], cid)
         nt[live] = nt2
         nid[live] = nid2
         keep = nid2 >= 0
@@ -402,13 +472,16 @@ def _two_level_pass(planar, roots, inst, origin, direction, t_max, act, mask, cu
     return t_best, tri, u, v, ibest, steps
 
 
-def _two_level_alpha_pass(accel, pack, origin, direction, t_max, seed, act, any_hit, cull):
+def _two_level_alpha_pass(accel, pack, origin, direction, t_max, seed, act, any_hit, cull,
+                          subset="alp"):
     """Candidate rounds over the alpha subsets of the alpha-carrying
-    instances, instance enumeration and stochastic window advance in one
-    state machine: a live lane holds a candidate instance (entry-t order)
-    and a window start ``t_lo`` inside it. A round traverses the instance's
-    alpha BLAS in candidate mode over ``(t_lo, t_best)``; the nearest alpha
-    surface takes one stochastic test (``traverse_alpha._alpha_accept``):
+    instances (``subset`` "alp"; "full_alp": their full tables, the
+    instance-level split), instance enumeration and stochastic window
+    advance in one state machine: a live lane holds a candidate instance
+    (entry-t order) and a window start ``t_lo`` inside it. A round
+    traverses the instance's alpha BLAS in candidate mode over ``(t_lo,
+    t_best)``; the nearest alpha surface takes one stochastic test
+    (``traverse_alpha._alpha_accept``):
     pass records the hit and moves to the next instance, reject advances
     ``t_lo`` just past the surface and stays, a miss moves on; a ray stops
     after ``_A_MAX_ROUNDS`` rounds. Returns ``(t_best, tri, u, v, inst,
@@ -418,24 +491,27 @@ def _two_level_alpha_pass(accel, pack, origin, direction, t_max, seed, act, any_
     _check_pair(cull, any_hit)
     if origin.device.type == "cuda":
         return _alpha_machine_cuda(accel, pack, origin, direction, t_max, seed, act, any_hit,
-                                   cull)
+                                   cull, subset)
     if origin.device.type != "cpu":
         raise ValueError(f"no alpha machine for device {origin.device}")
-    return _alpha_rounds(accel, pack, origin, direction, t_max, seed, act, any_hit, cull)
+    return _alpha_rounds(accel, pack, origin, direction, t_max, seed, act, any_hit, cull,
+                         subset=subset)
 
 
 def _alpha_rounds(accel, pack, origin, direction, t_max, seed, act, any_hit, cull,
-                  trav=tf.traverse, rounds=None):
+                  trav=tf.traverse, rounds=None, scan=None, subset="alp"):
     """The alpha machine as a loop of rounds on the live lanes (the plain
-    version of the alpha machine kernel): each round's candidate traversal
-    is one ``trav`` call (``traverse_fused.traverse``: the per-round kernel
-    with per-lane roots on CUDA tensors, the twin on CPU ones). ``rounds``,
-    an optional (R,) integer tensor, counts each ray's rounds."""
+    version of the alpha machine kernel) over ``subset`` ("alp" or
+    "full_alp"): each round's candidate traversal is one ``trav`` call
+    (``traverse_fused.traverse``: the per-round kernel with per-lane roots
+    on CUDA tensors, the twin on CPU ones). ``rounds``, an optional (R,)
+    integer tensor, counts each ray's rounds; ``scan`` picks the candidate
+    enumeration (:func:`_candidates`)."""
     from .traverse_alpha import _ADV_ABS, _ADV_REL, _alpha_accept
 
     r, dev = origin.shape[0], origin.device
-    _, roots, view, mask = _subset(accel, "alp")
-    entry0 = _instance_slab(view, origin, direction, t_max, mask)
+    planar, roots, view, mask = _subset(accel, subset)
+    next_cand = _candidates(view, origin, direction, t_max, mask, scan)
     t_best = t_max.clone()
     tri = torch.full((r,), -1, dtype=torch.int64, device=dev)
     u = torch.zeros(r, device=dev)
@@ -446,7 +522,7 @@ def _alpha_rounds(accel, pack, origin, direction, t_max, seed, act, any_hit, cul
     last_t = torch.full((r,), _NEG, device=dev)
     last_id = torch.full((r,), -1, dtype=torch.int64, device=dev)
     t_lo = torch.zeros(r, device=dev)
-    nt, nid = _next_candidate(entry0, last_t, last_id)
+    nt, nid = next_cand(slice(None), t_max, last_t, last_id)
     live = torch.nonzero(act & (nid >= 0)).squeeze(1)
     n_rounds = 0
     while live.numel() and n_rounds < _A_MAX_ROUNDS:
@@ -459,7 +535,7 @@ def _alpha_rounds(accel, pack, origin, direction, t_max, seed, act, any_hit, cul
         root0 = roots[accel.inst.mesh_id[cid]].to(torch.int32)
         tb = t_best[live]
         t, h_tri, hu, hv, hs, uvu, uvv = trav(
-            accel.blas_planar_alp, o_obj, d_obj, torch.clamp(tb - tl, min=0.0), None,
+            planar, o_obj, d_obj, torch.clamp(tb - tl, min=0.0), None,
             "candidate", cull, root0=root0,
         )
         cand = h_tri >= 0
@@ -479,8 +555,7 @@ def _alpha_rounds(accel, pack, origin, direction, t_max, seed, act, any_hit, cul
         last_id[live] = li
         t_lo[live] = torch.where(reject, t_abs * (1.0 + _ADV_REL) + _ADV_ABS, 0.0)
         steps[live] += hs + 1
-        e = entry0[live]
-        nt2, nid2 = _next_candidate(torch.where(e < tb[:, None], e, INF), lt, li)
+        nt2, nid2 = next_cand(live, tb, lt, li)
         cid = torch.where(reject, cid, nid2)
         nt[live] = torch.where(reject, nt[live], nt2)
         nid[live] = cid
@@ -520,10 +595,15 @@ def _check_tables(tables, dev):
             raise ValueError(f"{name}: on {x.device}, the rays on {dev}")
 
 
+def _planar(accel: InstancedAccel, subset: str):
+    """The BLAS row table of ``subset`` (:func:`_subset`) alone."""
+    return accel.blas_planar if subset.startswith("full") else getattr(accel, f"blas_planar_{subset}")
+
+
 def _opaque_machine_cuda(accel, subset, origin, direction, t_max, act, any_hit):
     """One launch of ``vkrt_opaque_machine``: every ray's opaque rounds, to
     its last instance, in one thread."""
-    planar = accel.blas_planar if subset == "full" else getattr(accel, f"blas_planar_{subset}")
+    planar = _planar(accel, subset)
     lib = tf._load(planar.width)
     r, dev = origin.shape[0], origin.device
     act = tf._check_rays(lib, planar, origin, direction, t_max, act)
@@ -547,15 +627,17 @@ def _opaque_machine_cuda(accel, subset, origin, direction, t_max, act, any_hit):
     return t, tri.long(), u, v, ibest.long(), steps
 
 
-def _alpha_machine_cuda(accel, pack, origin, direction, t_max, seed, act, any_hit, cull):
-    """One launch of ``vkrt_alpha_machine``: every ray's rounds, to the
-    end, in one thread (closest hit with culling or any hit without)."""
-    planar = accel.blas_planar_alp
+def _alpha_machine_cuda(accel, pack, origin, direction, t_max, seed, act, any_hit, cull,
+                        subset):
+    """One launch of ``vkrt_alpha_machine``: every ray's rounds over
+    ``subset``, to the end, in one thread (closest hit with culling or any
+    hit without)."""
+    planar = _planar(accel, subset)
     lib = tf._load(planar.width)
     r, dev = origin.shape[0], origin.device
     act = tf._check_rays(lib, planar, origin, direction, t_max, act)
     tf._check("seed", seed, (r,), torch.int64, dev)
-    box, w2o, root = tables = _machine_tables(accel, "alp")
+    box, w2o, root = tables = _machine_tables(accel, subset)
     _check_tables(tables, dev)
     n_inst = root.shape[0]
     tf._check("pack rows", pack.rows, (pack.rows.shape[0], 16), torch.float32, dev)
@@ -584,23 +666,29 @@ def _alpha_machine_cuda(accel, pack, origin, direction, t_max, seed, act, any_hi
 def _two_level(accel: InstancedAccel, pack, origin, direction, t_max, seed, cull, any_hit,
                active):
     """Closest or any hit over the instances. Without an alpha pack, one
-    pass over every instance's full table; with one, the opaque subsets
-    first, then the alpha machine windowed by the opaque result."""
+    pass over every instance's full table. With one, the opaque subsets
+    first, then the alpha machine over the alpha subsets windowed by the
+    opaque result. A pool without subsets is all opaque or all alpha-tested
+    (the reference's instance-level split): all opaque, it takes the pass
+    without a pack (the alpha pass would have no instance); all
+    alpha-tested, the alpha machine alone over the full tables of the
+    instances with alpha triangles (the opaque pass would have none but
+    empty meshes)."""
     r, dev = origin.shape[0], origin.device
-    _check_instance_count(accel.inst)
     if seed is None:
         seed = torch.zeros(r, dtype=torch.int64, device=dev)
     act = torch.ones(r, dtype=torch.bool, device=dev) if active is None else active
-    if pack is None:
+    split = accel.blas_planar_opq is not None and accel.blas_planar_alp is not None
+    if pack is None or not (split or accel._any_alpha()):
         t_best, tri, u, v, ibest, steps = _two_level_opaque_pass(
             accel, "full", origin, direction, t_max, act, cull, any_hit
         )
         return Hit(torch.where(tri >= 0, t_best, INF), tri, u, v, steps, ibest), seed
-    if accel.blas_planar_opq is None or accel.blas_planar_alp is None:
-        raise NotImplementedError(
-            "alpha testing in an instanced scene whose triangles are all alpha-tested or "
-            "all opaque needs the instance-level fallback, not ported yet (ROADMAP A10)"
+    if not split:
+        t_a, tri_a, u_a, v_a, i_a, seed, st_a = _two_level_alpha_pass(
+            accel, pack, origin, direction, t_max, seed, act, any_hit, cull, subset="full_alp"
         )
+        return Hit(torch.where(tri_a >= 0, t_a, INF), tri_a, u_a, v_a, st_a, i_a), seed
     t_o, tri_o, u_o, v_o, i_o, st_o = _two_level_opaque_pass(
         accel, "opq", origin, direction, t_max, act, cull, any_hit
     )

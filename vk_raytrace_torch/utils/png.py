@@ -1,12 +1,15 @@
 """PNG decoding and encoding without Pillow (the card's machine has none).
 
-:func:`decode_rgba` reads what the glTF loader's textures need: PNG files,
-non-interlaced, bit depth 8 in colour types 0 (grey), 2 (RGB), 3
-(palette), 4 (grey + alpha) and 6 (RGBA), and bit depths 1, 2 and 4 in
-types 0 and 3; scanline filters 0-4, and ``tRNS`` transparency. It returns
-what Pillow's ``Image.open(...).convert("RGBA")`` returns for the same file
-(``tests/test_torch_gltf.py`` holds it so). Any other form of PNG (16-bit
-samples, Adam7 interlacing) raises.
+:func:`decode_rgba` reads what the glTF loader's textures need: PNG files
+in colour types 0 (grey), 2 (RGB), 3 (palette), 4 (grey + alpha) and 6
+(RGBA) at every bit depth the format allows (1, 2, 4 and 8 in grey and
+palette, 16 in every type but palette), non-interlaced or Adam7-interlaced;
+scanline filters 0-4, and ``tRNS`` transparency. It returns what Pillow's
+``Image.open(...).convert("RGBA")`` returns for the same file
+(``tests/test_torch_gltf.py`` holds it so), Pillow's quirks included: a
+16-bit sample keeps its high byte, but 16-bit grey clips at 255; a colour
+key compares its low byte with the 8-bit samples (a 1-bit grey key is 0 or
+255, a 2- or 4-bit one is held against the scaled samples).
 :func:`decode_image` routes other formats (JPEG, ...) to Pillow where it
 can be imported, and otherwise raises naming the image.
 
@@ -22,8 +25,11 @@ import zlib
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# Channels of each colour type at bit depth 8.
+# Samples per pixel of each colour type.
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# The Adam7 passes: (x0, y0, dx, dy) of the pixels each one carries.
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
 
 
 def _chunks(data: bytes, name: str):
@@ -45,10 +51,25 @@ def _chunks(data: bytes, name: str):
     raise ValueError(f"{name}: PNG stream ends without IEND")
 
 
-def decode_rgba(data: bytes, name: str = "PNG image") -> np.ndarray:
-    """A PNG file's bytes as (H, W, 4) uint8 RGBA; ``name`` labels errors."""
+def _samples(raw: bytes, w: int, h: int, ch: int, depth: int):
+    """The (h, w, ch) samples of ``h`` filtered scanlines at the start of
+    ``raw`` (an image, or one Adam7 pass of it) and the bytes they take:
+    uint16 at depth 16, raw (unscaled) uint8 values otherwise."""
     from .. import runtime
 
+    stride = (w * ch * depth + 7) // 8
+    rows = runtime.png_unfilter(raw, h, stride, max(1, ch * depth // 8))
+    if depth == 16:
+        rows = rows.view(">u2").astype(np.uint16)
+    elif depth < 8:
+        # Samples packed from the high bits of each byte.
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        rows = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w * ch]
+    return rows.reshape(h, w, ch), h * (stride + 1)
+
+
+def decode_rgba(data: bytes, name: str = "PNG image") -> np.ndarray:
+    """A PNG file's bytes as (H, W, 4) uint8 RGBA; ``name`` labels errors."""
     if not data.startswith(SIGNATURE):
         raise ValueError(f"{name}: not a PNG file")
     header, palette, trns, idat = None, None, None, []
@@ -64,26 +85,35 @@ def decode_rgba(data: bytes, name: str = "PNG image") -> np.ndarray:
     if header is None:
         raise ValueError(f"{name}: PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = header
-    if ctype not in _CHANNELS or not (depth == 8 or (ctype in (0, 3) and depth in (1, 2, 4))):
-        raise ValueError(f"{name}: PNG of bit depth {depth} and colour type {ctype} is not "
-                         "supported (8-bit samples, or 1, 2 or 4 bits of grey or palette)")
-    if interlace:
-        raise ValueError(f"{name}: interlaced (Adam7) PNG is not supported")
+    allowed = (1, 2, 4, 8) if ctype == 3 else (1, 2, 4, 8, 16) if ctype == 0 else (8, 16)
+    if ctype not in _CHANNELS or depth not in allowed or interlace not in (0, 1):
+        raise ValueError(f"{name}: not a valid PNG: bit depth {depth}, colour type {ctype}, "
+                         f"interlace method {interlace}")
     ch = _CHANNELS[ctype]
-    stride = (w * ch * depth + 7) // 8
-    rows = runtime.png_unfilter(zlib.decompress(b"".join(idat)), h, stride, max(1, ch * depth // 8))
-    if depth < 8:
-        # Samples packed from the high bits of each byte; grey scales to 0-255.
-        per = 8 // depth
-        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
-        rows = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, stride * per)[:, :w]
-        if ctype == 0:
-            rows = rows * np.uint8(255 // ((1 << depth) - 1))
-            # Pillow holds a grey key against the scaled samples: a 1-bit
-            # key as 0 or 255, a 2- or 4-bit key as it stands.
-            if depth == 1 and trns is not None and len(trns) >= 2:
-                trns = struct.pack(">H", 255 if struct.unpack(">H", trns[:2])[0] else 0)
-    px = rows.reshape(h, w, ch)
+    raw = zlib.decompress(b"".join(idat))
+    if interlace:
+        px = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = max(0, (w - x0 + dx - 1) // dx), max(0, (h - y0 + dy - 1) // dy)
+            if pw and ph:  # an empty pass has no scanlines, not even filter bytes
+                sub, n = _samples(raw[pos:], pw, ph, ch, depth)
+                px[y0::dy, x0::dx] = sub
+                pos += n
+    else:
+        px = _samples(raw, w, h, ch, depth)[0]
+    key = None
+    if trns is not None and ctype in (0, 2) and len(trns) >= 2 * ch:
+        key = np.asarray(struct.unpack(f">{ch}H", trns[:2 * ch]))
+    if ctype == 0 and depth < 8:
+        px = px * np.uint8(255 // ((1 << depth) - 1))  # grey scales to 0-255
+        if depth == 1 and key is not None:
+            key = np.full(1, 255 if key[0] else 0)  # a 1-bit key: 0 or 255
+    if depth == 16:
+        px = np.minimum(px, 255) if ctype == 0 else px >> 8
+        px = px.astype(np.uint8)
+    if key is not None:
+        key = key & 0xFF
 
     out = np.empty((h, w, 4), np.uint8)
     alpha = out[..., 3]
@@ -102,15 +132,14 @@ def decode_rgba(data: bytes, name: str = "PNG image") -> np.ndarray:
         out[..., :3] = px[..., :1]
         if ctype == 4:
             alpha[...] = px[..., 1]
-        elif trns is not None and len(trns) >= 2:
-            alpha[px[..., 0] == struct.unpack(">H", trns[:2])[0]] = 0
+        elif key is not None:
+            alpha[px[..., 0] == key[0]] = 0
         return out
     out[..., :3] = px[..., :3]
     if ctype == 6:
         alpha[...] = px[..., 3]
-    elif trns is not None and len(trns) >= 6:
-        key = np.asarray(struct.unpack(">HHH", trns[:6]))
-        alpha[(px.astype(np.int64) == key).all(-1)] = 0
+    elif key is not None:
+        alpha[(px == key).all(-1)] = 0
     return out
 
 
