@@ -2,7 +2,7 @@
 """Where a frame of the port's main path spends its time on one GPU.
 
     python3 chip_profile.py [--scene atrium|bistro|grid|helmet|plaza] [--frames N]
-                            [--top K] [--fused-shade]
+                            [--top K] [--fused-shade] [--nccl]
 
 Builds the full atrium (single level) or the full bistro (two levels,
 ``build_instanced_scene``, the configuration of ``chip_smoke.py`` phase 11:
@@ -39,9 +39,22 @@ prints, for the traced frame:
   (``vkrt_shade_stage``, or the body alone);
 * the top K device kernels by total time;
 * peak device memory allocated over the timed and the traced frames.
+
+With ``--nccl`` it measures the same renderer's ``Renderer.step`` in the
+states a process passes through in ``chip_smoke.py`` phase 31 (NCCL at
+world size 1), in one process, twice over: no process group; an NCCL
+group joined, before any collective; after the collectives of phase 31's
+sharded path (``sharding.replicate`` and one ``sharded_render_step``
+frame), which create NCCL's communicator; and after
+``destroy_process_group``. For each state: the unprofiled frames, the
+process's CPU seconds per wall second over them and the threads that
+spent it (``/proc/self/task``, by name), then one traced frame's wall,
+device busy, launches, host syncs, the host's mean time in a kernel
+launch call and the device's idle gaps inside the frame.
 """
 
 import argparse
+import os
 import re
 import subprocess
 import sys
@@ -90,6 +103,116 @@ def busy_us(events) -> float:
     return total
 
 
+def idle_gaps_us(events):
+    """The gaps between the union intervals of the events, in order."""
+    gaps, end = [], None
+    for _, s, e in sorted(events, key=lambda x: x[1]):
+        if end is not None and s > end:
+            gaps.append(s - end)
+        end = e if end is None else max(end, e)
+    return gaps
+
+
+def thread_cpu_s():
+    """{(tid, name): user + system CPU seconds} of this process's threads."""
+    tick = os.sysconf("SC_CLK_TCK")
+    out = {}
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/comm") as f:
+                name = f.read().strip()
+            with open(f"/proc/self/task/{tid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:  # the thread ended meanwhile
+            continue
+        out[(tid, name)] = (int(fields[11]) + int(fields[12])) / tick  # utime, stime
+    return out
+
+
+def timed_frames(r, n):
+    """``n`` unprofiled frames: their seconds, the process's CPU seconds per
+    wall second over them and the CPU seconds of each thread name."""
+    cpu0, th0, w0 = time.process_time(), thread_cpu_s(), time.perf_counter()
+    frames = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        r.step()
+        torch.cuda.synchronize()
+        frames.append(time.perf_counter() - t0)
+    wall = time.perf_counter() - w0
+    cpu = time.process_time() - cpu0
+    th1, by_name = thread_cpu_s(), {}
+    for key, v in th1.items():
+        d = v - th0.get(key, 0.0)
+        if d > 0:
+            by_name[key[1]] = by_name.get(key[1], 0.0) + d
+    return frames, cpu / wall, by_name, len(th1)
+
+
+def traced_frame(r):
+    """One frame under ``torch.profiler``: (wall s, profile)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        r.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, prof
+
+
+def host_syncs(prof) -> int:
+    return sum(1 for e in prof.events() if e.device_type != torch.autograd.DeviceType.CUDA
+               and e.name in SYNCS)
+
+
+def nccl_states(r, n, card, cycles=2):
+    """``--nccl``: ``Renderer.step`` with no process group, with an NCCL
+    group of world size 1 before and after its communicator exists, and
+    after the group is destroyed (see the module's docstring)."""
+    import torch.distributed as dist
+
+    from vk_raytrace_torch.parallel import sharding
+
+    def measure(state):
+        frames, cpu_per_s, threads, n_threads = timed_frames(r, n)
+        wall, prof = traced_frame(r)
+        events, _ = device_events(prof)
+        kernels = [ev for ev in events if not ev[0].startswith(("Memcpy", "Memset"))]
+        busy = busy_us(events) / 1e3
+        gaps = idle_gaps_us(events)
+        launch = [e.time_range.end - e.time_range.start for e in prof.events()
+                  if e.device_type != torch.autograd.DeviceType.CUDA
+                  and e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")]
+        top = ", ".join(f"{k} {v:.3f}" for k, v in sorted(threads.items(), key=lambda kv: -kv[1])[:6])
+        print(f"[{state}] unprofiled s/frame {['%.4f' % x for x in frames]} (mean "
+              f"{sum(frames) / len(frames):.4f}); process CPU s per wall s {cpu_per_s:.3f}; "
+              f"{n_threads} threads; CPU s by thread name over the frames: {top}", flush=True)
+        print(f"[{state}] traced frame: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
+              f"({100 * busy / (wall * 1e3):.1f}%), {len(kernels)} kernels, host syncs "
+              f"{host_syncs(prof)}, kernel launch calls {len(launch)} at mean "
+              f"{sum(launch) / max(len(launch), 1):.2f} us (host); device idle gaps in the "
+              f"frame: {len(gaps)}, sum {sum(gaps) / 1e3:.1f} ms, > 1 ms {sum(g > 1e3 for g in gaps)}, "
+              f"largest {max(gaps, default=0) / 1e3:.2f} ms [{card}]", flush=True)
+
+    measure("no process group")
+    for c in range(cycles):
+        port = sharding.free_port()
+        assert sharding.init_process_group("cuda", 0, 1, f"tcp://127.0.0.1:{port}") == "nccl"
+        try:
+            mesh = sharding.make_mesh("cuda")
+            measure(f"cycle {c + 1}: NCCL group, no collective yet")
+            sharding.replicate(mesh, (r.scene, r.packed, r.alpha_pack, r._shade_tables))
+            step = sharding.sharded_render_step(
+                mesh, r.scene, r.packed, r._run_cfg, alpha_pack=r.alpha_pack,
+                features=r.features, fused_shade=r.fused_shade, shade_tables=r._shade_tables)
+            step(sharding.shard_accum(mesh, torch.zeros_like(r.accum)), 0)
+            torch.cuda.synchronize()
+            measure(f"cycle {c + 1}: NCCL group after its collectives")
+        finally:
+            dist.destroy_process_group()
+        measure(f"cycle {c + 1}: group destroyed")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", choices=("atrium", "bistro", "grid", "helmet", "plaza"),
@@ -97,6 +220,8 @@ def main():
     ap.add_argument("--frames", type=int, default=3, help="unprofiled timed frames")
     ap.add_argument("--top", type=int, default=20, help="kernels listed by device time")
     ap.add_argument("--fused-shade", action="store_true", help="render with the fused shading stage")
+    ap.add_argument("--nccl", action="store_true",
+                    help="Renderer.step before, while and after an NCCL group of world size 1 lives")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: this script needs an NVIDIA GPU")
@@ -117,7 +242,6 @@ def main():
         scene = R.build_instanced_scene(pool, inst, mats, lights, cam, atlas=atlas)
         cfg = RenderConfig(**main_path, hdr_multiplier=1.0, full_mis=False)
     elif args.scene == "plaza":
-        import os
         import tempfile
 
         import chip_smoke
@@ -150,19 +274,13 @@ def main():
         r.step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    frames = []
-    for _ in range(args.frames):
-        t0 = time.perf_counter()
-        r.step()
-        torch.cuda.synchronize()
-        frames.append(time.perf_counter() - t0)
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        r.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    if args.nccl:
+        print(f"card: {card}; scene {args.scene}; shading stage {r.stage}; {os.cpu_count()} CPUs, "
+              f"torch threads {torch.get_num_threads()}", flush=True)
+        nccl_states(r, args.frames, card)
+        return
+    frames, _, _, _ = timed_frames(r, args.frames)
+    wall, prof = traced_frame(r)
     events, stages = device_events(prof)
     if not events:
         raise SystemExit("the trace holds no device activity")
@@ -185,9 +303,7 @@ def main():
           f"({100 * busy / (wall * 1e3):.1f}%)")
     print(f"launches: {len(kernels)} kernels, {len(per_name)} distinct; "
           f"device activities {len(events)}")
-    syncs = sum(1 for e in prof.events() if e.device_type != torch.autograd.DeviceType.CUDA
-                and e.name in SYNCS)
-    print(f"host syncs: {syncs}")
+    print(f"host syncs: {host_syncs(prof)}")
     print(f"traversal: {sum(e - s for _, s, e in trav) / 1e3:.3f} ms in {len(trav)} launches")
     roots = "with per-lane roots" if args.scene in ("bistro", "plaza") else "from the root"
     for i, mode in enumerate(MODES):

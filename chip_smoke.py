@@ -176,12 +176,45 @@ not fit a block's 232,448 B of shared memory):
     timed as in phase 28; and ``closest_hit_instanced`` /
     ``any_hit_instanced`` (that one launch alone) equal to it.
 
+Then the last modules of the port, each path driven with the launch
+counters set to 0 just before it and read just after:
+
+31. sharding (``parallel/sharding.py``) on phase 5's configuration (the
+    full atrium, 1920x1080, depth 4, 1 spp, glTF, sun&sky): NCCL at world
+    size 1 in this process (NCCL refuses two ranks on one card), one
+    warm-up and three timed frames, against ``Renderer.step`` on the same
+    tables (the pixels that differ printed, at most
+    :data:`SHARD_DIFFER_MAX` of them, the slice's criterion asserted, the
+    rays equal); then 2 gloo ranks on cuda:0, spawned, the backend asked
+    for by name: tile 2 x sample 1 held the same way (the rays within
+    :data:`RAY_REL`: each rank builds its own tables), tile 1 x sample
+    2 with its mean within 10% of the single render; modes a/b and the
+    alpha rounds must have launched in each rank; s/frame, Mrays/s and
+    peak MiB of every rank;
+32. the viewer (``vk_raytrace_torch.viewer``) at the reference CLI's
+    defaults (the atrium with sun&sky, 1280x720, depth 10, Disney), its
+    HTTP server on localhost: ``/frame.png`` decodes with ``utils/png.py``
+    and is lit, ``/state``'s frame count grows, a POST orbit gives
+    descaled frames and a reset and then full-resolution accumulation
+    again, ``/pick`` at 16 pixels equals ``Renderer.pick`` on the camera
+    the service used; the ms/frame and Mrays/s rings printed;
+33. ``graft_entry.entry()`` on the card: one Cornell frame, lit, against
+    the same entry on the CPU under phase 9's pixel share;
+34. JPEG: the textures of ``tests/assets/jpeg_textures.glb`` (baseline
+    4:2:0 and 4:4:4, grey, 4:2:2 with a restart interval, progressive
+    4:2:0) decoded by the port without Pillow, each equal to the Pillow RGBA
+    committed beside it; ``tests/assets/jpeg_2k_420.jpg`` (2048x2048
+    4:2:0, the size a scene loads) decoded three times and timed, each
+    decode's RGBA held against the SHA-256 of Pillow's committed beside it;
+    the scene at 128x72, depth 4, on the card against the CPU.
+
 The script keeps its files (checkpoints, images, the port's scene cache)
 in a temporary directory that it removes at exit. No depth was cut for
 time: the whole script ran in about half its time limit on the card.
 
 The line before the last is the per-kernel JSON summary (times, launches,
-errors and each kernel's bound on this card); the last line is
+errors and each kernel's bound on this card; ``paths_launches``: the
+launches of phases 31-34's paths); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1412,6 +1445,405 @@ def check_picks(what, card_p, cpu_p):
     return sum(p is not None for p in card_p), ties
 
 
+# ---- Phases 31-34: the last modules (sharding, the viewer, the graft entry, JPEG) ----
+
+# Phase 5's configuration: the full atrium at 1080p, depth 4, 1 spp, glTF, sun&sky.
+SHARD_CFG = dict(width=1920, height=1080, max_depth=4, max_samples=1, pbr_mode=1,
+                 firefly_clamp=10.0, use_sun_sky=True)
+SHARD_FRAMES = 3  # timed, after one warm-up
+# The most pixels the card's image has moved between two runs of one
+# configuration in one process: 48 of 9,216 (the all-alpha plaza at
+# 128x72, share 0.99479; PERF.md section 7). NCCL at world size 1 runs
+# the dispatches of Renderer.step on the same tables, so its image may
+# move no more than that, and its rays not at all.
+SHARD_DIFFER_MAX = 48
+JPEG_GLB = os.path.join("tests", "assets", "jpeg_textures.glb")
+JPEG_2K = os.path.join("tests", "assets", "jpeg_2k_420.jpg")
+JPEG_2K_SHA = os.path.join("tests", "assets", "jpeg_2k_420.sha256")
+
+
+def atrium_renderer(device):
+    """The full atrium at :data:`SHARD_CFG` on ``device``."""
+    from vk_raytrace_torch import render as R
+    from vk_raytrace_torch.models import procedural
+    from vk_raytrace_torch.models.schema import RenderConfig
+
+    geom, mats, lights, cam, atlas = procedural.atrium_scene()
+    return R.Renderer(R.build_scene(geom, mats, lights, cam, atlas=atlas),
+                      RenderConfig(**SHARD_CFG), device=device)
+
+
+def sharded_run(mesh, r, n=SHARD_FRAMES):
+    """Renderer ``r``'s frames through ``sharding.sharded_render_step`` over
+    ``mesh``: rank 0's tables replicated, then one warm-up and ``n`` timed
+    frames from a zero image with fresh launch counters. Returns the whole
+    image, the seconds and rays of every frame, the launches and the peak
+    MiB of this rank."""
+    from vk_raytrace_torch.integrator import shade_fused as sf
+    from vk_raytrace_torch.ops import traverse_fused as tf
+    from vk_raytrace_torch.parallel import sharding
+
+    sharding.replicate(mesh, (r.scene, r.packed, r.alpha_pack, r._shade_tables))
+    step = sharding.sharded_render_step(
+        mesh, r.scene, r.packed, r._run_cfg, alpha_pack=r.alpha_pack, features=r.features,
+        fused_shade=r.fused_shade, shade_tables=r._shade_tables)
+    rows = sharding.shard_accum(mesh, torch.zeros(r.cfg.height, r.cfg.width, 3, device=r.device))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(r.device)
+    tf.reset_launches()
+    sf.reset_launches()
+    frame_s, rays = [], []
+    for f in range(n + 1):
+        t0 = time.perf_counter()
+        rows, k = step(rows, f)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+        rays.append(k)
+    launches = {k: v for k, v in {**tf.LAUNCHES, **sf.LAUNCHES}.items() if v}
+    img = sharding.gather_accum(mesh, rows).cpu().numpy()
+    return dict(img=img, frame_s=frame_s, rays=rays, launches=launches,
+                peak_mib=torch.cuda.max_memory_allocated(r.device) / 2**20)
+
+
+def sharded_card_rank(rank, world_size, out_dir, cases):
+    """A rank of phase 31's gloo launch on the card (both ranks on cuda:0):
+    each case ``(name, tile, sample)`` through :func:`sharded_run`; each rank
+    writes ``<name>_rank<r>.json`` (and rank 0 ``<name>.npy``, the image).
+    Then rank 0 renders the same frames with ``Renderer.step`` on its own
+    tables (``single_rank0.json`` / ``.npy``): the sharded frames against
+    the one-device frames of the same process."""
+    from vk_raytrace_torch.parallel import sharding
+
+    r = atrium_renderer("cuda:0")
+    for name, tile, sample in cases:
+        mesh = sharding.make_mesh("cuda", tile=tile, sample=sample, backend="gloo",
+                                  device="cuda:0")
+        res = sharded_run(mesh, r)
+        img = res.pop("img")
+        if rank == 0:
+            np.save(os.path.join(out_dir, f"{name}.npy"), img)
+        with open(os.path.join(out_dir, f"{name}_rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    if rank == 0:
+        r.reset()
+        _, frame_s, rays = run_frames(r, SHARD_FRAMES)
+        np.save(os.path.join(out_dir, "single_rank0.npy"), r.accum.cpu().numpy())
+        with open(os.path.join(out_dir, "single_rank0.json"), "w") as f:
+            json.dump({"frame_s": frame_s, "rays": rays}, f)
+
+
+def frames_text(frame_s, rays):
+    """s/frame and Mrays/s of the timed frames (after the warm-up)."""
+    timed, timed_rays = frame_s[1:], rays[1:]
+    return (f"{float(np.mean(timed)):.4f} s/frame (frames {['%.4f' % x for x in timed]}, warm-up "
+            f"{frame_s[0]:.3f}), {np.sum(timed_rays) / np.sum(timed) / 1e6:.4f} Mrays/s")
+
+
+def hold(what, img, ref, rays=None, ref_rays=None):
+    """``img`` against ``ref`` under the slice's criterion (and the rays
+    within :data:`RAY_REL`); prints the pixels that differ at all."""
+    differ = int((img != ref).any(-1).sum())
+    share = float(np.isclose(img, ref, rtol=PIX_RTOL, atol=PIX_ATOL).all(-1).mean())
+    text = (f"{what}: {differ} of {img.shape[0] * img.shape[1]} pixels differ, within rtol "
+            f"{PIX_RTOL}/atol {PIX_ATOL}: {share:.5f}")
+    if rays is not None:
+        text += f"; rays {rays} vs {ref_rays} ({'equal' if rays == ref_rays else 'NOT equal'})"
+    print(text, flush=True)
+    assert np.isfinite(img).all() and img.mean() > 0.0, f"{what}: unlit or non-finite"
+    assert share >= PIX_SHARE, f"{what}: only {share:.4f} of pixels agree"
+    if rays is not None:
+        rel = abs(sum(rays) - sum(ref_rays)) / sum(ref_rays)
+        assert rel <= RAY_REL, f"{what}: rays differ by {rel:.2e}"
+    return differ, share
+
+
+def phase_sharding(card, work):
+    """Phase 31. Returns the launches of each sharded run (rank 0)."""
+    import torch.distributed as dist
+
+    from vk_raytrace_torch.parallel import sharding
+
+    dev = torch.device("cuda", 0)
+    r = atrium_renderer(dev)
+    # NCCL at world size 1 in this process: the real NCCL path (NCCL refuses
+    # two ranks on one card). Sharded and one-device frames alternate, both
+    # while the process group lives: sharded, single, sharded, single.
+    backend = sharding.init_process_group("cuda", 0, 1, f"tcp://127.0.0.1:{sharding.free_port()}")
+    assert backend == "nccl", backend
+    runs = []
+    try:
+        mesh = sharding.make_mesh("cuda")
+        for _ in range(2):
+            res = sharded_run(mesh, r)
+            r.reset()
+            _, single_s, single_rays = run_frames(r, SHARD_FRAMES)
+            runs.append((res, single_s, single_rays))
+    finally:
+        dist.destroy_process_group()
+    single = r.accum.cpu().numpy()
+    for k, (res, single_s, single_rays) in enumerate(runs):
+        print(f"sharded NCCL world 1 (tile 1 x sample 1), atrium 1920x1080 d4, pair {k + 1} of 2: "
+              f"{frames_text(res['frame_s'], res['rays'])}, launches/frame "
+              f"{({m: v / (SHARD_FRAMES + 1) for m, v in res['launches'].items()})}, peak "
+              f"{res['peak_mib']:.1f} MiB; then Renderer.step {float(np.mean(single_s)):.4f} "
+              f"s/frame (frames {['%.4f' % x for x in single_s]}) [{card}]", flush=True)
+        assert all(res["launches"].get(m, 0) > 0 for m in ATRIUM_KERNELS), res["launches"]
+        what = f"sharded NCCL against Renderer.step (4 frames), pair {k + 1}"
+        differ, _ = hold(what, res["img"], single, res["rays"][1:], single_rays)
+        assert res["rays"][1:] == single_rays, f"{what}: rays {res['rays'][1:]} vs {single_rays}"
+        assert differ <= SHARD_DIFFER_MAX, f"{what}: {differ} pixels differ"
+    launches = {"sharded_nccl": res["launches"]}
+    # Two gloo ranks on the same card, asked for by name: tile 2 x 1, then 1 x 2.
+    d = os.path.join(work, "sharded")
+    os.makedirs(d, exist_ok=True)
+    t0 = time.time()
+    sharding.spawn_ranks(sharded_card_rank, 2, (d, (("t2", 2, 1), ("s2", 1, 2))),
+                         timeout_s=600, device_type="cuda", backend="gloo")
+    spawn_s = time.time() - t0
+    for name, what in (("t2", "tile 2 x sample 1"), ("s2", "tile 1 x sample 2")):
+        ranks = []
+        for k in range(2):
+            with open(os.path.join(d, f"{name}_rank{k}.json")) as f:
+                ranks.append(json.load(f))
+        img = np.load(os.path.join(d, f"{name}.npy"))
+        for k, rr in enumerate(ranks):
+            assert all(rr["launches"].get(m, 0) > 0 for m in ATRIUM_KERNELS), (name, k, rr)
+            print(f"sharded gloo {what}, rank {k} on cuda:0: "
+                  f"{frames_text(rr['frame_s'], rr['rays'])}, launches/frame "
+                  f"{({m: v / (SHARD_FRAMES + 1) for m, v in rr['launches'].items()})}, peak "
+                  f"{rr['peak_mib']:.1f} MiB [{card}]", flush=True)
+        if name == "t2":
+            t2_rays = ranks[0]["rays"][1:]
+            hold(f"sharded gloo {what} against Renderer.step (4 frames)", img, single, t2_rays,
+                 single_rays)
+        else:
+            rel = abs(img.mean() - single.mean()) / single.mean()
+            print(f"sharded gloo {what}: image mean {img.mean():.5f} against the single render's "
+                  f"{single.mean():.5f} (rel {rel:.4f}); rays/frame {ranks[0]['rays']} (both "
+                  f"sample shards)", flush=True)
+            assert np.isfinite(img).all() and rel < 0.1, rel
+        launches[f"sharded_gloo_{name}"] = ranks[0]["launches"]
+    with open(os.path.join(d, "single_rank0.json")) as f:
+        own = json.load(f)
+    hold("sharded gloo tile 2 x sample 1 against Renderer.step in rank 0 (its own tables)",
+         np.load(os.path.join(d, "t2.npy")), np.load(os.path.join(d, "single_rank0.npy")),
+         t2_rays, own["rays"])
+    hold("Renderer.step in rank 0 against Renderer.step here (tables built in two processes)",
+         np.load(os.path.join(d, "single_rank0.npy")), single, own["rays"], single_rays)
+    print(f"sharded gloo: 2 ranks spawned, built, ran and joined in {spawn_s:.1f} s", flush=True)
+    return launches
+
+
+def phase_viewer(card):
+    """Phase 32: the viewer at the reference CLI's defaults on the card,
+    driven over HTTP on localhost. Returns its launches."""
+    import urllib.request
+
+    from vk_raytrace_torch import render as R
+    from vk_raytrace_torch import viewer as V
+    from vk_raytrace_torch.integrator import shade_fused as sf
+    from vk_raytrace_torch.ops import traverse_fused as tf
+    from vk_raytrace_torch.utils import png as png_mod
+
+    import threading
+
+    tf.reset_launches()
+    sf.reset_launches()
+    svc = V.ViewerService(V.build_parser().parse_args(
+        ["--scene", "atrium", "--sun-sky", "--size", "1280", "720", "--depth", "10"]))
+    t = threading.Thread(target=svc.run_render_loop, daemon=True)
+    t.start()
+    httpd = V.serve(svc, "127.0.0.1", 0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=120) as resp:
+            return resp.read()
+
+    def state():
+        return json.loads(get("/state"))
+
+    def wait(pred, timeout=300.0):
+        t0 = time.time()
+        while time.time() - t0 < timeout:
+            st = state()
+            if pred(st):
+                return st
+            assert t.is_alive(), "the viewer's render loop died"
+            time.sleep(0.05)
+        raise AssertionError(f"viewer: timeout, last state {st}")
+
+    try:
+        t0 = time.time()
+        st = wait(lambda s: s.get("frame", 0) >= 3)
+        first_s = time.time() - t0
+        vw, vh = svc.args.size
+        px = png_mod.decode_rgba(get("/frame.png"))
+        assert px.shape == (vh, vw, 4) and px[..., :3].mean() > 5.0, "viewer: unlit frame"
+        f0 = st["frame"]
+        wait(lambda s: s["frame"] > f0)
+        req = urllib.request.Request(base + "/control", method="POST",
+                                     data=json.dumps({"cmd": "orbit", "dx": 40.0, "dy": 10.0}).encode())
+        urllib.request.urlopen(req, timeout=60).close()
+        st1 = wait(lambda s: s["descale_frames"] > st["descale_frames"] and s["resets"] > st["resets"])
+        st2 = wait(lambda s: not s["descaled"] and s["frame"] >= 2)
+        lau = {k: v for k, v in {**tf.LAUNCHES, **sf.LAUNCHES}.items() if v}  # before the picks
+        # /pick at 16 pixels against Renderer.pick on the camera the service
+        # used (each pick moves the pivot, so the camera is read before each).
+        ref = R.Renderer(svc._scene0, svc._renderer.cfg, device=svc.device,
+                         packed=svc._renderer.packed)
+        prng = np.random.default_rng(32)
+        hits = 0
+        for x, y in zip(prng.integers(0, vw, 16), prng.integers(0, vh, 16)):
+            resets = state()["resets"]
+            cam = svc._renderer.scene.camera
+            got = json.loads(get(f"/pick?x={x}&y={y}"))
+            ref.scene = dataclasses.replace(ref.scene, camera=cam)
+            want = ref.pick(int(x), int(y))
+            assert (got is None) == (want is None), (x, y, got, want)
+            if got is not None:
+                hits += 1
+                assert (got["triangle"], got["material"], got["t"]) == (
+                    want["triangle"], want["material"], want["t"]), (x, y, got, want)
+                np.testing.assert_array_equal(np.asarray(got["position"], np.float32),
+                                              want["position"])
+                wait(lambda s: s["resets"] > resets)  # the pick's pivot applied
+        assert hits >= 8, hits
+        st3 = state()
+        assert all(lau.get(k, 0) > 0 for k in ATRIUM_KERNELS), lau
+        ms, mrays, mem = (st3["hist"][k] for k in ("ms", "mrays", "mem"))
+        print(f"viewer atrium {vw}x{vh} d10 (Disney, sun&sky) on the card over HTTP: first 3 "
+              f"frames in {first_s:.1f} s; the orbit gave {st1['descale_frames'] - st['descale_frames']}"
+              f"+ descaled frames and a reset, then full-resolution frame {st2['frame']}; /pick "
+              f"at 16 pixels = Renderer.pick ({hits} hits); ms/frame ring "
+              f"(last {len(ms)}) mean {np.mean(ms):.1f}, min {min(ms):.1f}, max {max(ms):.1f}; "
+              f"Mrays/s ring mean {np.mean(mrays):.3f}; dev mem ring last {mem[-1] if mem else -1} "
+              f"MiB; launches before the picks {lau} [{card}]", flush=True)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=30)
+        svc._stop = True
+        t.join(timeout=120)
+    assert not t.is_alive(), "viewer: the render loop did not stop"
+    return lau
+
+
+def phase_graft_entry(card):
+    """Phase 33: ``graft_entry.entry()`` on the card against the CPU."""
+    from vk_raytrace_torch import graft_entry
+    from vk_raytrace_torch.ops import traverse_fused as tf
+
+    fn, (accum, frame) = graft_entry.entry()
+    tf.reset_launches()
+    t0 = time.perf_counter()
+    out = fn(accum, frame)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    lau = {k: v for k, v in tf.LAUNCHES.items() if v}
+    cfn, (caccum, cframe) = graft_entry.entry("cpu")
+    cpu = cfn(caccum, cframe).numpy()
+    img = out.cpu().numpy()
+    print(f"graft_entry.entry(): Cornell 64x64 d2 frame on the card in {ms:.1f} ms, launches "
+          f"{lau} [{card}]", flush=True)
+    assert img.shape == (64, 64, 3) and all(lau.get(k, 0) > 0 for k in ("closest", "any")), lau
+    hold("graft_entry.entry() card against CPU", img, cpu)
+    return lau
+
+
+def glb_images(path):
+    """The encoded images of a GLB's buffer views, in image order."""
+    import struct
+
+    with open(path, "rb") as f:
+        glb = f.read()
+    (js_len,) = struct.unpack_from("<I", glb, 12)
+    doc = json.loads(glb[20:20 + js_len])
+    blob = glb[20 + js_len + 8:]
+    views = [doc["bufferViews"][im["bufferView"]] for im in doc["images"]]
+    return [blob[v.get("byteOffset", 0):v.get("byteOffset", 0) + v["byteLength"]] for v in views]
+
+
+def phase_jpeg(card):
+    """Phase 34: the committed JPEG textures decoded without Pillow, equal to
+    the Pillow RGBA stored beside them; the glTF at 128x72 card vs CPU."""
+    import importlib.util
+
+    from vk_raytrace_torch import render as R
+    from vk_raytrace_torch.models.gltf import load_gltf
+    from vk_raytrace_torch.models.schema import PBR_GLTF, RenderConfig
+    from vk_raytrace_torch.ops import traverse_fused as tf
+    from vk_raytrace_torch.utils import png as png_mod
+
+    glb = os.path.join(REPO, JPEG_GLB)
+    for k, data in enumerate(glb_images(glb)):
+        t0 = time.perf_counter()
+        px = png_mod.decode_image(data, f"image {k} of {JPEG_GLB}")
+        dec_ms = (time.perf_counter() - t0) * 1e3
+        want = np.load(os.path.join(REPO, "tests", "assets", f"jpeg_texture_{k}.npy"))
+        assert px.shape == want.shape and np.array_equal(px, want), f"JPEG texture {k} differs"
+        print(f"JPEG texture {k}: {px.shape[1]}x{px.shape[0]}, {len(data)} bytes, decoded in "
+              f"{dec_ms:.2f} ms, equal to Pillow's RGBA", flush=True)
+    # A texture at the size a scene loads, held against the SHA-256 of
+    # Pillow's RGBA of it (tests/assets/jpeg_2k_420.sha256).
+    import hashlib
+
+    with open(os.path.join(REPO, JPEG_2K), "rb") as f:
+        data = f.read()
+    with open(os.path.join(REPO, JPEG_2K_SHA)) as f:
+        digest, shape = f.read().split()
+    big_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        px = png_mod.decode_image(data, JPEG_2K)
+        big_ms.append((time.perf_counter() - t0) * 1e3)
+        assert "x".join(map(str, px.shape)) == shape, (px.shape, shape)
+        assert hashlib.sha256(np.ascontiguousarray(px).tobytes()).hexdigest() == digest, (
+            f"{JPEG_2K} differs from Pillow's RGBA")
+    print(f"JPEG {JPEG_2K}: {px.shape[1]}x{px.shape[0]} 4:2:0, {len(data)} bytes, decoded in "
+          f"{['%.2f' % x for x in big_ms]} ms (3 decodes, host), SHA-256 equal to Pillow's "
+          f"RGBA [{card}]", flush=True)
+    assert "PIL" not in sys.modules, "the JPEG path imported Pillow"
+    print(f"Pillow on this machine: {'installed' if importlib.util.find_spec('PIL') else 'absent'}"
+          "; not imported", flush=True)
+    g, m, l, c, a = load_gltf(glb, instancing="bake")
+    cfg = RenderConfig(width=128, height=72, max_depth=4, max_samples=1, pbr_mode=PBR_GLTF,
+                       firefly_clamp=10.0, use_sun_sky=True)
+    scene, run_cfg = R.prepare_sun_sky(R.build_scene(g, m, l, c, atlas=a), cfg, "cpu")
+    imgs, rays = {}, {}
+    for where in ("cuda", "cpu"):
+        tf.reset_launches()
+        r = R.Renderer(scene, run_cfg, device=where)
+        rays[where] = []
+        for _ in range(2):
+            r.step()
+            rays[where].append(r.last_rays)
+        imgs[where] = r.accum.cpu().numpy()
+        if where == "cuda":
+            lau = {k: v for k, v in tf.LAUNCHES.items() if v}
+    print(f"jpeg_textures.glb 128x72 d4 (glTF, sun&sky): card launches {lau} [{card}]", flush=True)
+    assert all(lau.get(k, 0) > 0 for k in ("closest", "any")), lau
+    hold("jpeg_textures.glb card against CPU", imgs["cuda"], imgs["cpu"], rays["cuda"],
+         rays["cpu"])
+    return lau
+
+
+def last_modules(card, work):
+    """Phases 31-34; the launches of each new path (counters set to 0 just
+    before it, read just after)."""
+    phase("31. sharding on the card: NCCL at world size 1, 2 gloo ranks on cuda:0")
+    launches = phase_sharding(card, work)
+    phase("32. the viewer on the card over HTTP")
+    launches["viewer"] = phase_viewer(card)
+    phase("33. graft_entry.entry() on the card")
+    launches["graft_entry"] = phase_graft_entry(card)
+    phase("34. JPEG textures without Pillow")
+    launches["jpeg_gltf"] = phase_jpeg(card)
+    return launches
+
+
 def main():
     # ---- 1. environment ----------------------------------------------------
     phase("environment")
@@ -2400,6 +2832,9 @@ def main():
               f"({card})", flush=True)
     del f_acc, f_pack, f_scene, p_acc, p_pack
 
+    # ---- 31-34. the last modules: sharding, the viewer, the graft entry, JPEG ----
+    path_launches = last_modules(card, work)
+
     def traverse_entry(m, lau, replaces):
         """``launches``: the main path's count (``lau``). The per-round kernels
         of the modes the machines run (mode c from the root, modes a/b/c with
@@ -2411,6 +2846,9 @@ def main():
                  "bound_by": bounds[m][1], "library_ms": None}
         if m in loop_launches:
             entry["loop_launches"] = loop_launches[m]
+        if replaces == REPLACES and m in tf.MODES:
+            # The launches of phases 31-34's paths (rank 0 for the gloo ranks).
+            entry["paths_launches"] = {p: v.get(m, 0) for p, v in path_launches.items()}
         return entry
 
     kernels = [traverse_entry(m, launches, REPLACES) for m in tf.MODES]
@@ -2455,6 +2893,8 @@ def main():
                  "replaces": replaces, "launches": lau[key], "max_abs_err": err,
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                  "library_ms": None}
+        if key == "alpha_rounds":  # the launches of phases 31-34's paths
+            entry["paths_launches"] = {p: v.get(key, 0) for p, v in path_launches.items()}
         if key in plaza_res:
             # Beyond 512 instances (phase 28, closest hit; the table in
             # global memory) and the launches of phase 29's CLI runs.
@@ -2476,7 +2916,7 @@ def main():
                         "ms": x["ms"],
                         "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
                         "bound_by": x["bound_by"], "library_ms": None})
-    print(f"phases 1-30 passed in {time.time() - T_START:.1f} s [{card}]", flush=True)
+    print(f"phases 1-34 passed in {time.time() - T_START:.1f} s [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

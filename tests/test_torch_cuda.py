@@ -19,8 +19,10 @@ masked closest hit on the card against the CPU; the brute-force
 anchor on the card; ``Renderer.pick`` on the card against the CPU; the
 CLI on the card (against ``--device cpu``, and a checkpointed run against
 a straight one); the machines beyond 512 instances (their instance table in
-global memory) on a small plaza against the chunked round loops; and the
-instance-level split of an all-alpha pool on the card against the CPU. Kernel vs twin: same float32 operations in the same order, rounded
+global memory) on a small plaza against the chunked round loops; the
+instance-level split of an all-alpha pool on the card against the CPU; the
+sharded step under NCCL at world size 1 against ``Renderer.step``; and the
+graft entry on the card against the CPU. Kernel vs twin: same float32 operations in the same order, rounded
 per operation (nvcc -fmad=false), so ``tri`` and the hit masks are equal
 and t within rtol 1e-5. Render: CUDA and CPU transcendentals round
 differently, so 99% of pixels within rtol 1e-3 / atol 1e-4 and ray counts
@@ -894,3 +896,54 @@ def test_instance_level_split_on_card(tmp_path):
                                 (1, 4, 5, 6), "closest")
     assert torch.equal(occ_c.cpu(), occ_p) and torch.equal(so.cpu(), sop)
     assert 0.05 < (hp.tri >= 0).float().mean() < 1.0
+
+
+def test_sharded_nccl_world_one_matches_renderer():
+    """``parallel/sharding.py`` on the card: NCCL at world size 1 in this
+    process (tile 1 x sample 1) over 3 frames of the reduced atrium equals
+    ``Renderer.step`` on the same tables bit for bit, rays included."""
+    _need_cuda()
+    import torch.distributed as dist
+
+    from vk_raytrace_torch.parallel import sharding
+
+    g, m, l, c, a = procedural.atrium_scene(**SMALL_ATRIUM)
+    cfg = RenderConfig(width=96, height=54, max_depth=4, pbr_mode=PBR_GLTF, use_sun_sky=True)
+    r = R.Renderer(R.build_scene(g, m, l, c, atlas=a), cfg, device="cuda")
+    assert sharding.init_process_group(
+        "cuda", 0, 1, f"tcp://127.0.0.1:{sharding.free_port()}", timeout_s=120) == "nccl"
+    try:
+        mesh = sharding.make_mesh("cuda")
+        sharding.replicate(mesh, (r.scene, r.packed, r.alpha_pack, r._shade_tables))
+        step = sharding.sharded_render_step(mesh, r.scene, r.packed, r._run_cfg,
+                                            alpha_pack=r.alpha_pack, features=r.features)
+        rows = sharding.shard_accum(mesh, torch.zeros(54, 96, 3, device="cuda"))
+        rays = []
+        for f in range(3):
+            rows, n = step(rows, f)
+            rays.append(n)
+        img = sharding.gather_accum(mesh, rows).cpu().numpy()
+    finally:
+        dist.destroy_process_group()
+    single = []
+    for _ in range(3):
+        r.step()
+        single.append(r.last_rays)
+    assert rays == single
+    np.testing.assert_array_equal(img, r.accum.cpu().numpy())
+
+
+def test_graft_entry_on_card():
+    """``graft_entry.entry()`` on the card against the CPU under the render
+    criterion; modes a/b launched."""
+    _need_cuda()
+    from vk_raytrace_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    tf.reset_launches()
+    img = fn(*args).cpu().numpy()
+    assert tf.LAUNCHES["closest"] > 0 and tf.LAUNCHES["any"] > 0
+    cfn, cargs = graft_entry.entry("cpu")
+    cpu = cfn(*cargs).numpy()
+    assert np.isfinite(img).all() and img.mean() > 0.0
+    assert np.isclose(img, cpu, rtol=1e-3, atol=1e-4).all(-1).mean() >= 0.99

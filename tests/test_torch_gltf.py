@@ -16,8 +16,8 @@ decoder (``vk_raytrace_torch/utils/png.py``) against the reference.
   palette, grey + alpha, RGBA) under every scanline filter, with ``tRNS``;
   every bit depth (1, 2, 4, 8, 16) of each colour type, flat and
   Adam7-interlaced, sizes with empty passes included; the forms the format
-  does not define raise naming the image; JPEG goes through Pillow and,
-  without Pillow, raises.
+  does not define raise naming the image; JPEG goes through the port's own
+  decoder (``tests/test_torch_jpeg.py``), with or without Pillow.
 * A two-level glTF of more than 512 instances loads, renders, picks and
   goes through the CLI as the reference's does; it is never baked instead.
 """
@@ -602,14 +602,25 @@ def test_png_forms_not_supported_raise():
 
 
 def test_jpeg_through_pillow_or_raises(monkeypatch):
+    """A JPEG, baseline or progressive, decodes to Pillow's array with
+    Pillow installed and without it (the port's own decoder either way); an
+    arithmetic-coded one (a baseline frame header rewritten to SOF9)
+    raises naming the image."""
     img = np.random.default_rng(1).integers(0, 256, (8, 8, 3), dtype=np.uint8)
-    b = io.BytesIO()
-    Image.fromarray(img).save(b, "JPEG")
-    data = b.getvalue()
-    np.testing.assert_array_equal(png.decode_image(data, "image 0"), _pil_rgba(data))
+    streams = []
+    for kw in ({}, dict(progressive=True)):
+        b = io.BytesIO()
+        Image.fromarray(img).save(b, "JPEG", **kw)
+        streams.append(b.getvalue())
+    want = [_pil_rgba(d) for d in streams]
+    for data, ref in zip(streams, want):
+        np.testing.assert_array_equal(png.decode_image(data, "image 0"), ref)
     monkeypatch.setitem(sys.modules, "PIL", None)  # Pillow not installed
-    with pytest.raises(RuntimeError, match="image 0.*JPEG.*Pillow"):
-        png.decode_image(data, "image 0")
+    for data, ref in zip(streams, want):
+        np.testing.assert_array_equal(png.decode_image(data, "image 0"), ref)
+    i = streams[0].index(b"\xff\xc0")
+    with pytest.raises(RuntimeError, match=r"image 0.*arithmetic sequential \(SOF9\) JPEG"):
+        png.decode_image(streams[0][:i + 1] + b"\xc9" + streams[0][i + 2:], "image 0")
 
 
 # ---------------------------------------------------------------------------

@@ -12,14 +12,20 @@ tonemapper as flags), with these differences:
   no environment toggle.
 * ``--renderer`` accepts only ``fused``: the reference's ``wide`` back end
   is its XLA body, which the port does not have.
-* ``--multichip`` renders on the one visible card; with more than one it
-  raises (ROADMAP A13, sharding, is not ported).
+* ``--multichip`` shards the image over ranks (``parallel/sharding.py``:
+  tile x sample, all ranks on the tile axis) when the process was started
+  by ``torchrun``, one rank per card (NCCL), or per CPU process with
+  ``--device cpu`` (gloo); rank 0 writes the PNG, ``--hdr-out``,
+  ``--checkpoint`` and the ``--profile`` lines. Without ``torchrun`` it
+  renders on the one visible card, and with more than one visible card it
+  exits asking for ``torchrun``.
 
 Examples::
 
     python -m vk_raytrace_torch.cli --scene atrium --sun-sky -o out.png
     python -m vk_raytrace_torch.cli -f scene.glb -e env.hdr --depth 4 --spp 64 -o out.png
     python -m vk_raytrace_torch.cli --device cpu --scene cornell --size 64 48 --spp 2 -o c.png
+    torchrun --nproc-per-node 4 -m vk_raytrace_torch.cli --multichip --scene atrium -o out.png
 
 ``--checkpoint ck.npz`` resumes from ``ck.npz`` when it exists and writes
 the accumulation back after the run: its keys, ``accum`` (H, W, 3) float32
@@ -41,6 +47,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 import time
 
@@ -86,8 +93,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint", default=None,
                    help="accumulation checkpoint (.npz) to resume/save")
     p.add_argument("--multichip", action="store_true",
-                   help="shard the image over all visible cards (one card only: "
-                        "sharding, ROADMAP A13, is not ported)")
+                   help="shard the image over the ranks of a torchrun launch (one per card, "
+                        "NCCL; gloo with --device cpu)")
     p.add_argument("--profile", action="store_true", help="print per-frame timings")
     p.add_argument("--stats", action="store_true", help="print scene statistics")
     p.add_argument("--instancing", choices=["auto", "bake", "always"], default="auto",
@@ -190,11 +197,18 @@ def _device(args):
         if not torch.cuda.is_available():
             raise SystemExit("vk_raytrace_torch: CUDA is not available; this CLI renders on "
                              "an NVIDIA GPU, or on the CPU with --device cpu")
-        if args.multichip and torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                f"--multichip over {torch.cuda.device_count()} cards: sharding the image "
-                "over several cards is not ported yet (ROADMAP A13)")
+        if args.multichip and not _launched() and torch.cuda.device_count() > 1:
+            raise SystemExit(
+                f"vk_raytrace_torch: --multichip over {torch.cuda.device_count()} cards runs "
+                "one process per card: torchrun --nproc-per-node "
+                f"{torch.cuda.device_count()} -m vk_raytrace_torch.cli --multichip ...")
     return dev
+
+
+def _launched() -> bool:
+    """Started by ``torchrun`` (or another launcher that sets its
+    variables)."""
+    return "WORLD_SIZE" in os.environ
 
 
 def _planar_rows(packed) -> int:
@@ -212,7 +226,25 @@ def _sync(dev):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    dev = _device(args)
+    mesh = None
+    if args.multichip and _launched():
+        from .parallel import sharding
 
+        mesh = sharding.make_mesh(dev.type)
+        dev = sharding.mesh_device(mesh)
+    try:
+        return _run(args, dev, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(args, dev, mesh) -> int:
+    """Render as the arguments say on ``dev``; with ``mesh`` (a
+    ``parallel/sharding.py`` mesh) over its ranks, rank 0 writing."""
     import numpy as np
     import torch
 
@@ -221,7 +253,7 @@ def main(argv=None) -> int:
     from .ops.bvh8 import build_accel_bundle
     from .utils.profiler import Profiler, device_memory_stats
 
-    dev = _device(args)
+    rank0 = mesh is None or mesh.get_rank() == 0
     t_start = time.time()
     scene, env = load_scene_from_args(args, dev)
     build_s = {"scene_s": time.time() - t_start}
@@ -269,7 +301,7 @@ def main(argv=None) -> int:
     build_s["renderer_s"] = time.time() - t0
     build_s.update(r.build_times)
 
-    if args.stats:
+    if args.stats and rank0:
         g = r.scene.geometry
         print(json.dumps({
             "triangles": int(g.indices.shape[0]),
@@ -278,7 +310,7 @@ def main(argv=None) -> int:
             "lights": int(r.scene.n_lights),
             "textures": int(r.scene.atlas.x.shape[0]),
             "bvh_nodes": _planar_rows(r.packed),
-            "devices": [str(dev)],
+            "devices": [str(dev)] if mesh is None else [f"{dev.type} x {mesh.size()} ranks"],
         }), file=sys.stderr)
 
     frames = max(1, args.spp // cfg.max_samples)
@@ -286,23 +318,29 @@ def main(argv=None) -> int:
         try:
             with np.load(args.checkpoint) as ck:
                 r.load_state({"accum": ck["accum"], "frame": int(ck["frame"])})
-            print(f"resumed at frame {r.frame}", file=sys.stderr)
+            if rank0:
+                print(f"resumed at frame {r.frame}", file=sys.stderr)
         except FileNotFoundError:
             pass
     prof = Profiler()
     rays = []
+    advance = r.step if mesh is None else _ShardedFrames(mesh, r)
     t0 = time.time()
     for _ in range(frames):
         if args.profile:
             with prof.scope("frame"):
-                r.step()
+                advance()
                 _sync(dev)
             rays.append(r.last_rays)
-            if r.frame % 16 == 0:
+            if r.frame % 16 == 0 and rank0:
                 print(f"frame {r.frame}: {(time.time() - t0) / len(rays) * 1000:.1f} ms/frame",
                       file=sys.stderr)
         else:
-            r.step()
+            advance()
+    if mesh is not None:
+        advance.finish()
+    if not rank0:
+        return 0
     img = r.postprocess().cpu().numpy()
     hdr_img = r.hdr().cpu().numpy()
     if args.checkpoint:
@@ -321,10 +359,44 @@ def main(argv=None) -> int:
         print(json.dumps({"profile": {
             "device": str(dev), "stage": r.stage, "frames": frames, "frame": r.frame,
             "frame_s": prof.samples("frame"), "rays": rays, "build_s": build_s,
-            "peak_mib": peak}}), file=sys.stderr)
+            "peak_mib": peak, "ranks": 1 if mesh is None else mesh.size()}}), file=sys.stderr)
     print(f"wrote {args.output} ({w}x{h}, {frames * cfg.max_samples} spp, "
           f"{time.time() - t_start:.1f}s total)", file=sys.stderr)
     return 0
+
+
+class _ShardedFrames:
+    """The renderer's frames over a ``parallel/sharding.py`` mesh: rank 0's
+    tables replicated, this rank's rows of ``r.accum`` (zeros, or the
+    checkpoint) accumulated by ``sharded_render_step`` (the unrolled step
+    for a debug mode). A call renders a frame and sets ``r.frame`` and
+    ``r.last_rays`` (every rank's rays); :meth:`finish` gathers the image
+    into ``r.accum``."""
+
+    def __init__(self, mesh, r):
+        from .models.schema import DEBUG_NONE
+        from .parallel import sharding
+
+        self.mesh, self.r = mesh, r
+        sharding.replicate(mesh, (r.scene, r.packed, r.alpha_pack, r._shade_tables))
+        if r._run_cfg.debug_mode == DEBUG_NONE:
+            self.step = sharding.sharded_render_step(
+                mesh, r.scene, r.packed, r._run_cfg, alpha_pack=r.alpha_pack,
+                features=r.features, fused_shade=r.fused_shade, shade_tables=r._shade_tables)
+        else:
+            self.step = sharding.sharded_render_step_unrolled(
+                mesh, r.scene, r.packed, r._run_cfg, alpha_pack=r.alpha_pack,
+                features=r.features)
+        self.rows = sharding.shard_accum(mesh, r.accum)
+
+    def __call__(self) -> None:
+        self.rows, self.r.last_rays = self.step(self.rows, self.r.frame)
+        self.r.frame += 1
+
+    def finish(self) -> None:
+        from .parallel import sharding
+
+        self.r.accum = sharding.gather_accum(self.mesh, self.rows)
 
 
 if __name__ == "__main__":

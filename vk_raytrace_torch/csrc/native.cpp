@@ -9,6 +9,8 @@
 //   build_bvh32       the same at width 32: 1024-byte rows
 //   png_unfilter      PNG scanline reconstruction (filters 0-4), for the
 //                     port's PNG decoder (utils/png.py)
+//   jpeg_decode       Huffman JPEG (SOF0/SOF1/SOF2, 8 bit) to RGBA8,
+//                     in libjpeg-turbo's integer arithmetic (utils/jpeg.py)
 // The tables they produce must stay byte-identical to the reference's
 // (tests/test_torch_scene.py).
 
@@ -137,6 +139,568 @@ int64_t png_unfilter(const uint8_t* raw, int64_t h, int64_t stride, int64_t bpp,
     }
   }
   return 0;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Huffman JPEG (ITU T.81: baseline, extended sequential and progressive,
+// SOF0 / SOF1 / SOF2, 8-bit samples, 1 or 3 components) decoded to RGBA8
+// exactly as libjpeg-turbo decodes it with its defaults (JDCT_ISLOW, fancy
+// upsampling), which is what Pillow returns:
+//   entropy decoding                     jdhuff.c decode_mcu; progressive
+//                                        scans jdphuff.c (every scan is read
+//                                        before the output, so no block
+//                                        smoothing applies)
+//   the integer IDCT                     jidctint.c jpeg_idct_islow
+//   the upsampling                       jdsample.c h2v1 / h1v2 / h2v2 fancy
+//                                        (box below 3 columns), int_upsample
+//   the colour conversion                jdcolor.c ycc_rgb_convert tables
+// Image edges follow libjpeg's context rows: the row above the first is the
+// first, the rows below the last real one repeat it (jdmainct.c).
+// ---------------------------------------------------------------------------
+namespace jpeg {
+
+enum Err : int64_t {
+  kOk = 0, kTruncated = 1, kNoFrame = 2, kBadSof = 3, kBadTable = 4, kBadScan = 5,
+  kSampling = 6, kSize = 7,
+};
+
+// Zigzag index -> natural index; entries past 63 absorb a corrupt run
+// (jutils.c jpeg_natural_order).
+static const int kNatural[80] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,  12, 19, 26, 33,
+    40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36,
+    29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54,
+    47, 55, 62, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+struct Huff {
+  bool defined = false;
+  int32_t mincode[17] = {}, maxcode[18] = {}, valptr[17] = {};
+  uint8_t vals[256] = {};
+};
+
+struct Comp {
+  int id = 0, h = 1, v = 1, tq = 0, td = 0, ta = 0;
+  bool latched = false;
+  uint16_t quant[64] = {};  // natural order
+  int64_t bw = 0, bh = 0;   // blocks allocated (whole MCUs)
+  std::vector<int16_t> coef;
+  int dc = 0;
+};
+
+struct Bits {
+  const uint8_t* d;
+  int64_t n, pos;
+  uint64_t buf = 0;
+  int cnt = 0;
+  bool marker = false;  // stopped at a marker: zeros from here (jdhuff.c)
+  void fill() {
+    while (cnt <= 56) {
+      int c = 0;
+      if (!marker && pos < n) {
+        c = d[pos];
+        if (c == 0xFF) {
+          const int next = pos + 1 < n ? d[pos + 1] : -1;
+          if (next == 0x00) {
+            pos += 2;
+          } else {
+            marker = true;
+            c = 0;
+          }
+        } else {
+          ++pos;
+        }
+      }
+      buf |= uint64_t(c) << (56 - cnt);
+      cnt += 8;
+    }
+  }
+  int get(int k) {
+    if (k == 0) return 0;
+    if (cnt < k) fill();
+    const int r = int(buf >> (64 - k));
+    buf <<= k;
+    cnt -= k;
+    return r;
+  }
+  int bit() { return get(1); }
+  void reset() { buf = 0; cnt = 0; }
+};
+
+static int decode_sym(Bits& b, const Huff& t) {
+  int l = 1;
+  int32_t code = b.bit();
+  while (l <= 16 && code > t.maxcode[l]) {
+    code = (code << 1) | b.bit();
+    ++l;
+  }
+  if (l > 16) return 0;  // corrupt: libjpeg warns and returns 0
+  return t.vals[(t.valptr[l] + code - t.mincode[l]) & 0xFF];
+}
+
+static inline int extend(int x, int s) { return x < (1 << (s - 1)) ? x + (-1 << s) + 1 : x; }
+
+// jidctint.c jpeg_idct_islow, with its range-limit table folded into
+// ``limit`` (a wrap to [-512, 511], then a clamp of x + 128).
+static inline uint8_t limit(int64_t x) {
+  const int64_t s = ((x + 512) & 1023) - 512;
+  return uint8_t(std::min<int64_t>(255, std::max<int64_t>(0, s + 128)));
+}
+
+static void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int64_t stride) {
+  const int64_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373,
+                F1175 = 9633, F1501 = 12299, F1847 = 15137, F1961 = 16069, F2053 = 16819,
+                F2562 = 20995, F3072 = 25172;
+  const int CB = 13, P1 = 2;
+  auto descale = [](int64_t x, int n) { return (x + (int64_t(1) << (n - 1))) >> n; };
+  int ws[64];
+  for (int c = 0; c < 8; ++c) {
+    auto dq = [&](int r) { return int64_t(in[r * 8 + c]) * int64_t(q[r * 8 + c]); };
+    if (!in[8 + c] && !in[16 + c] && !in[24 + c] && !in[32 + c] && !in[40 + c] &&
+        !in[48 + c] && !in[56 + c]) {
+      const int dcval = int(dq(0) * (1 << P1));
+      for (int r = 0; r < 8; ++r) ws[r * 8 + c] = dcval;
+      continue;
+    }
+    int64_t z2 = dq(2), z3 = dq(6);
+    int64_t z1 = (z2 + z3) * F0541;
+    int64_t tmp2 = z1 + z3 * -F1847, tmp3 = z1 + z2 * F0765;
+    z2 = dq(0);
+    z3 = dq(4);
+    int64_t tmp0 = (z2 + z3) * (1 << CB), tmp1 = (z2 - z3) * (1 << CB);
+    const int64_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3, t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
+    tmp0 = dq(7);
+    tmp1 = dq(5);
+    tmp2 = dq(3);
+    tmp3 = dq(1);
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    const int64_t z5 = (z3 + z4) * F1175;
+    tmp0 *= F0298;
+    tmp1 *= F2053;
+    tmp2 *= F3072;
+    tmp3 *= F1501;
+    z1 *= -F0899;
+    z2 *= -F2562;
+    z3 *= -F1961;
+    z4 *= -F0390;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    ws[0 * 8 + c] = int(descale(t10 + tmp3, CB - P1));
+    ws[7 * 8 + c] = int(descale(t10 - tmp3, CB - P1));
+    ws[1 * 8 + c] = int(descale(t11 + tmp2, CB - P1));
+    ws[6 * 8 + c] = int(descale(t11 - tmp2, CB - P1));
+    ws[2 * 8 + c] = int(descale(t12 + tmp1, CB - P1));
+    ws[5 * 8 + c] = int(descale(t12 - tmp1, CB - P1));
+    ws[3 * 8 + c] = int(descale(t13 + tmp0, CB - P1));
+    ws[4 * 8 + c] = int(descale(t13 - tmp0, CB - P1));
+  }
+  for (int r = 0; r < 8; ++r) {
+    const int* w = ws + r * 8;
+    uint8_t* o = out + r * stride;
+    if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
+      const uint8_t dcval = limit(descale(w[0], P1 + 3));
+      for (int c = 0; c < 8; ++c) o[c] = dcval;
+      continue;
+    }
+    int64_t z2 = w[2], z3 = w[6];
+    int64_t z1 = (z2 + z3) * F0541;
+    int64_t tmp2 = z1 + z3 * -F1847, tmp3 = z1 + z2 * F0765;
+    int64_t tmp0 = (int64_t(w[0]) + w[4]) * (1 << CB), tmp1 = (int64_t(w[0]) - w[4]) * (1 << CB);
+    const int64_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3, t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
+    tmp0 = w[7];
+    tmp1 = w[5];
+    tmp2 = w[3];
+    tmp3 = w[1];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    const int64_t z5 = (z3 + z4) * F1175;
+    tmp0 *= F0298;
+    tmp1 *= F2053;
+    tmp2 *= F3072;
+    tmp3 *= F1501;
+    z1 *= -F0899;
+    z2 *= -F2562;
+    z3 *= -F1961;
+    z4 *= -F0390;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    const int S = CB + P1 + 3;
+    o[0] = limit(descale(t10 + tmp3, S));
+    o[7] = limit(descale(t10 - tmp3, S));
+    o[1] = limit(descale(t11 + tmp2, S));
+    o[6] = limit(descale(t11 - tmp2, S));
+    o[2] = limit(descale(t12 + tmp1, S));
+    o[5] = limit(descale(t12 - tmp1, S));
+    o[3] = limit(descale(t13 + tmp0, S));
+    o[4] = limit(descale(t13 - tmp0, S));
+  }
+}
+
+// One component's samples (dw x dh, row stride ``stride``) upsampled by
+// (fx, fy) into ``out`` (W x H, the first W columns and H rows of the
+// fx*dw x fy*dh result).
+static int64_t upsample(const uint8_t* in, int64_t stride, int64_t dw, int64_t dh, int fx,
+                        int fy, uint8_t* out, int64_t W, int64_t H) {
+  auto px = [&](int64_t x, int64_t y) -> int {
+    y = std::min(std::max<int64_t>(y, 0), dh - 1);
+    x = std::min(std::max<int64_t>(x, 0), dw - 1);
+    return in[y * stride + x];
+  };
+  const bool h2 = fx == 2 && dw > 2;
+  for (int64_t y = 0; y < H; ++y) {
+    const int64_t sy = y / fy;
+    const bool up = (y % fy) == 0;  // the next-nearest row is above
+    for (int64_t x = 0; x < W; ++x) {
+      const int64_t sx = x / fx;
+      const bool left = (x % fx) == 0;
+      int v;
+      if (fx == 1 && fy == 1) {
+        v = px(sx, sy);
+      } else if (fy == 2 && fx == 1) {  // h1v2_fancy_upsample (libjpeg-turbo)
+        const int s = px(sx, sy) * 3 + px(sx, up ? sy - 1 : sy + 1);
+        v = (s + (up ? 1 : 2)) >> 2;
+      } else if (fy == 1 && h2) {  // h2v1_fancy_upsample
+        const int c = px(sx, sy) * 3;
+        v = left ? (c + px(sx - 1, sy) + 1) >> 2 : (c + px(sx + 1, sy) + 2) >> 2;
+      } else if (fy == 2 && h2) {  // h2v2_fancy_upsample
+        const int64_t ny = up ? sy - 1 : sy + 1;
+        const int here = px(sx, sy) * 3 + px(sx, ny);
+        const int other = px(left ? sx - 1 : sx + 1, sy) * 3 + px(left ? sx - 1 : sx + 1, ny);
+        v = left ? (here * 3 + other + 8) >> 4 : (here * 3 + other + 7) >> 4;
+      } else {  // box: h2v1 / h2v2 below 3 columns, int_upsample
+        v = px(sx, sy);
+      }
+      out[y * W + x] = uint8_t(v);
+    }
+  }
+  return kOk;
+}
+
+}  // namespace jpeg
+
+extern "C" {
+
+// Decode a Huffman JPEG of ``w`` x ``h`` pixels into ``out`` (h * w * 4
+// bytes, RGBA, alpha 255). ``ycc``: convert three components from YCbCr
+// (libjpeg's colour-space guess, made by the caller). Returns 0 or an error
+// code (jpeg::Err); arithmetic, lossless, hierarchical and 12-bit frames are
+// refused by the caller before this.
+int64_t jpeg_decode(const uint8_t* d, int64_t n, int64_t ycc, uint8_t* out, int64_t w,
+                    int64_t h) {
+  using namespace jpeg;
+  uint16_t qt[4][64] = {};
+  Huff dc[4], ac[4];
+  std::vector<Comp> comps;
+  int hmax = 1, vmax = 1;
+  int64_t ri = 0, mcux = 0, mcuy = 0;
+  bool frame = false, progressive = false;
+  int64_t pos = 2;
+  if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) return kTruncated;
+  for (;;) {
+    while (pos < n && d[pos] != 0xFF) ++pos;  // garbage between segments
+    while (pos < n && d[pos] == 0xFF) ++pos;  // fill bytes
+    if (pos >= n) return frame ? kOk : kTruncated;
+    const int m = d[pos++];
+    if (m == 0xD9) break;
+    if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;  // standalone markers
+    if (pos + 2 > n) return kTruncated;
+    const int64_t len = (int64_t(d[pos]) << 8) | d[pos + 1];
+    if (len < 2 || pos + len > n) return kTruncated;
+    const uint8_t* s = d + pos + 2;
+    const int64_t sl = len - 2;
+    pos += len;
+    if (m == 0xDB) {  // DQT
+      for (int64_t i = 0; i < sl;) {
+        const int pq = s[i] >> 4, tq = s[i] & 15;
+        ++i;
+        if (tq > 3 || i + 64 * (pq + 1) > sl) return kBadTable;
+        for (int k = 0; k < 64; ++k) {
+          qt[tq][kNatural[k]] = pq ? uint16_t((s[i + 2 * k] << 8) | s[i + 2 * k + 1]) : s[i + k];
+        }
+        i += 64 * (pq + 1);
+      }
+    } else if (m == 0xC4) {  // DHT
+      for (int64_t i = 0; i < sl;) {
+        if (i + 17 > sl) return kBadTable;
+        const int tc = s[i] >> 4, th = s[i] & 15;
+        if (tc > 1 || th > 3) return kBadTable;
+        Huff& t = tc ? ac[th] : dc[th];
+        int total = 0;
+        for (int l = 1; l <= 16; ++l) total += s[i + l];
+        if (total > 256 || i + 17 + total > sl) return kBadTable;
+        int32_t code = 0, k = 0;
+        for (int l = 1; l <= 16; ++l) {
+          const int cnt = s[i + l];
+          t.valptr[l] = k;
+          t.mincode[l] = code;
+          code += cnt;
+          k += cnt;
+          t.maxcode[l] = cnt ? code - 1 : -1;
+          code <<= 1;
+        }
+        t.maxcode[17] = 0x7FFFFFFF;
+        std::memcpy(t.vals, s + i + 17, total);
+        t.defined = true;
+        i += 17 + total;
+      }
+    } else if (m == 0xDD) {  // DRI
+      if (sl < 2) return kBadTable;
+      ri = (int64_t(s[0]) << 8) | s[1];
+    } else if (m == 0xC0 || m == 0xC1 || m == 0xC2) {  // SOF0 / SOF1 / SOF2
+      progressive = m == 0xC2;
+      if (sl < 6 || s[0] != 8) return kBadSof;
+      const int64_t fh = (int64_t(s[1]) << 8) | s[2], fw = (int64_t(s[3]) << 8) | s[4];
+      const int nc = s[5];
+      if (fh != h || fw != w || (nc != 1 && nc != 3) || sl < 6 + 3 * nc) return kBadSof;
+      comps.assign(nc, Comp());
+      for (int c = 0; c < nc; ++c) {
+        comps[c].id = s[6 + 3 * c];
+        comps[c].h = s[7 + 3 * c] >> 4;
+        comps[c].v = s[7 + 3 * c] & 15;
+        comps[c].tq = s[8 + 3 * c];
+        if (comps[c].h < 1 || comps[c].h > 4 || comps[c].v < 1 || comps[c].v > 4 ||
+            comps[c].tq > 3)
+          return kBadSof;
+        hmax = std::max(hmax, comps[c].h);
+        vmax = std::max(vmax, comps[c].v);
+      }
+      mcux = (w + 8 * hmax - 1) / (8 * hmax);
+      mcuy = (h + 8 * vmax - 1) / (8 * vmax);
+      for (Comp& c : comps) {
+        if (hmax % c.h || vmax % c.v) return kSampling;
+        c.bw = mcux * c.h;
+        c.bh = mcuy * c.v;
+        c.coef.assign(size_t(c.bw * c.bh * 64), 0);
+      }
+      frame = true;
+    } else if (m == 0xDA) {  // SOS: one scan's entropy-coded data follows
+      if (!frame || sl < 1) return kBadScan;
+      const int ns = s[0];
+      if (ns < 1 || ns > 4 || sl < 4 + 2 * ns) return kBadScan;
+      std::vector<Comp*> sc;
+      for (int j = 0; j < ns; ++j) {
+        Comp* c = nullptr;
+        for (Comp& k : comps)
+          if (k.id == s[1 + 2 * j]) c = &k;
+        if (!c) return kBadScan;
+        c->td = s[2 + 2 * j] >> 4;
+        c->ta = s[2 + 2 * j] & 15;
+        if (c->td > 3 || c->ta > 3) return kBadTable;
+        if (!c->latched) {  // jdinput.c latch_quant_tables
+          std::memcpy(c->quant, qt[c->tq], sizeof(c->quant));
+          c->latched = true;
+        }
+        c->dc = 0;
+        sc.push_back(c);
+      }
+      // The spectral band and successive approximation (sequential: 0-63,
+      // no refinement); what the scan codes and the tables it needs.
+      const int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], ah = s[3 + 2 * ns] >> 4,
+                al = s[3 + 2 * ns] & 15;
+      enum Kind { kSeq, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
+      Kind kind = kSeq;
+      if (progressive) {
+        if (ss == 0 && se != 0) return kBadScan;
+        if (ss > 0 && (se < ss || se > 63 || ns != 1)) return kBadScan;
+        kind = ss == 0 ? (ah ? kDcRefine : kDcFirst) : (ah ? kAcRefine : kAcFirst);
+      }
+      for (Comp* c : sc) {
+        const bool need_dc = kind == kSeq || kind == kDcFirst;
+        const bool need_ac = kind == kSeq || kind == kAcFirst || kind == kAcRefine;
+        if ((need_dc && !dc[c->td].defined) || (need_ac && !ac[c->ta].defined)) return kBadTable;
+      }
+      int64_t eobrun = 0;
+      // One block of the scan (jdhuff.c decode_mcu, jdphuff.c decode_mcu_DC_first,
+      // _DC_refine, _AC_first, _AC_refine).
+      auto block = [&](Bits& b, Comp* c, int16_t* blk) {
+        if (kind == kSeq || kind == kDcFirst) {
+          int t = decode_sym(b, dc[c->td]);
+          if (t) t = extend(b.get(t), t);
+          c->dc += t;
+          blk[0] = int16_t(kind == kSeq ? c->dc : c->dc * (1 << al));
+          if (kind == kDcFirst) return;
+          for (int k = 1; k < 64; ++k) {
+            int rs = decode_sym(b, ac[c->ta]);
+            const int r = rs >> 4;
+            rs &= 15;
+            if (rs) {
+              k += r;
+              blk[kNatural[std::min(k, 79)]] = int16_t(extend(b.get(rs), rs));
+            } else {
+              if (r != 15) break;
+              k += 15;
+            }
+          }
+        } else if (kind == kDcRefine) {
+          if (b.get(1)) blk[0] = int16_t(blk[0] | (1 << al));
+        } else if (kind == kAcFirst) {
+          if (eobrun > 0) {
+            --eobrun;
+            return;
+          }
+          for (int k = ss; k <= se; ++k) {
+            int rs = decode_sym(b, ac[c->ta]);
+            const int r = rs >> 4;
+            rs &= 15;
+            if (rs) {
+              k += r;
+              blk[kNatural[std::min(k, 79)]] = int16_t(extend(b.get(rs), rs) * (1 << al));
+            } else if (r == 15) {
+              k += 15;
+            } else {
+              eobrun = int64_t(1) << r;
+              if (r) eobrun += b.get(r);
+              --eobrun;
+              break;
+            }
+          }
+        } else {  // kAcRefine
+          const int p1 = 1 << al, m1 = -1 * (1 << al);
+          auto correct = [&](int16_t& v) {
+            if (b.get(1) && (v & p1) == 0) v = int16_t(v >= 0 ? v + p1 : v + m1);
+          };
+          int k = ss;
+          if (eobrun == 0) {
+            for (; k <= se; ++k) {
+              int rs = decode_sym(b, ac[c->ta]);
+              int r = rs >> 4;
+              rs &= 15;
+              int v = 0;
+              if (rs) {
+                v = b.get(1) ? p1 : m1;
+              } else if (r != 15) {
+                eobrun = int64_t(1) << r;
+                if (r) eobrun += b.get(r);
+                break;
+              }
+              // Past the nonzero coefficients (a correction bit each) and r
+              // zero ones, to the position of the new coefficient.
+              do {
+                int16_t& cur = blk[kNatural[k]];
+                if (cur != 0) {
+                  correct(cur);
+                } else if (--r < 0) {
+                  break;
+                }
+                ++k;
+              } while (k <= se);
+              if (v) blk[kNatural[std::min(k, 79)]] = int16_t(v);
+            }
+          }
+          if (eobrun > 0) {
+            for (; k <= se; ++k) {
+              int16_t& cur = blk[kNatural[k]];
+              if (cur != 0) correct(cur);
+            }
+            --eobrun;
+          }
+        }
+      };
+      // A one-component scan codes that component's own blocks, row by row
+      // (not whole MCUs); an interleaved scan codes whole MCUs.
+      int64_t nx = mcux, ny = mcuy;
+      if (ns == 1) {
+        const Comp& c = *sc[0];
+        nx = ((w * c.h + hmax - 1) / hmax + 7) / 8;
+        ny = ((h * c.v + vmax - 1) / vmax + 7) / 8;
+      }
+      Bits b{d, n, pos};
+      int64_t todo = ri;
+      for (int64_t my = 0; my < ny; ++my) {
+        for (int64_t mx = 0; mx < nx; ++mx) {
+          if (ri && todo == 0) {  // jdhuff.c process_restart
+            b.reset();
+            b.marker = false;
+            while (b.pos + 1 < n && !(d[b.pos] == 0xFF && d[b.pos + 1] >= 0xD0 &&
+                                      d[b.pos + 1] <= 0xD7))
+              ++b.pos;
+            b.pos += 2;
+            for (Comp* c : sc) c->dc = 0;
+            eobrun = 0;
+            todo = ri;
+          }
+          for (Comp* c : sc) {
+            const int bh = ns == 1 ? 1 : c->v, bwn = ns == 1 ? 1 : c->h;
+            for (int by = 0; by < bh; ++by) {
+              for (int bx = 0; bx < bwn; ++bx) {
+                const int64_t gx = ns == 1 ? mx : mx * c->h + bx;
+                const int64_t gy = ns == 1 ? my : my * c->v + by;
+                block(b, c, c->coef.data() + (gy * c->bw + gx) * 64);
+              }
+            }
+          }
+          if (ri) --todo;
+        }
+      }
+      // Resume the segment walk at the marker that ends the scan.
+      pos = b.pos;
+      while (pos + 1 < n && !(d[pos] == 0xFF && d[pos + 1] != 0x00 &&
+                              !(d[pos + 1] >= 0xD0 && d[pos + 1] <= 0xD7)))
+        ++pos;
+    } else if ((m >= 0xC3 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC)) {
+      return kBadSof;  // another frame type: the caller names it first
+    }
+    // APPn, COM, DNL, DAC and the rest: skipped.
+  }
+  if (!frame) return kNoFrame;
+  // IDCT, upsampling and colour conversion.
+  const int nc = int(comps.size());
+  std::vector<std::vector<uint8_t>> planes(nc);
+  for (int ci = 0; ci < nc; ++ci) {
+    Comp& c = comps[ci];
+    const int64_t stride = c.bw * 8;
+    std::vector<uint8_t> plane(size_t(stride * c.bh * 8));
+    for (int64_t by = 0; by < c.bh; ++by)
+      for (int64_t bx = 0; bx < c.bw; ++bx)
+        idct_islow(c.coef.data() + (by * c.bw + bx) * 64, c.quant,
+                   plane.data() + by * 8 * stride + bx * 8, stride);
+    const int64_t dw = (w * c.h + hmax - 1) / hmax, dh = (h * c.v + vmax - 1) / vmax;
+    planes[ci].resize(size_t(w * h));
+    upsample(plane.data(), stride, dw, dh, hmax / c.h, vmax / c.v, planes[ci].data(), w, h);
+  }
+  const int64_t SB = 16, HALF = int64_t(1) << (SB - 1);
+  auto fix = [](double x) { return int64_t(x * 65536.0 + 0.5); };
+  int cr_r[256], cb_b[256];
+  int64_t cr_g[256], cb_g[256];
+  for (int i = 0; i < 256; ++i) {  // jdcolor.c build_ycc_rgb_table
+    const int64_t x = i - 128;
+    cr_r[i] = int((fix(1.40200) * x + HALF) >> SB);
+    cb_b[i] = int((fix(1.77200) * x + HALF) >> SB);
+    cr_g[i] = -fix(0.71414) * x;
+    cb_g[i] = -fix(0.34414) * x + HALF;
+  }
+  auto clamp = [](int v) { return uint8_t(std::min(255, std::max(0, v))); };
+  for (int64_t i = 0; i < w * h; ++i) {
+    uint8_t* o = out + 4 * i;
+    if (nc == 1) {
+      o[0] = o[1] = o[2] = planes[0][i];
+    } else if (!ycc) {
+      o[0] = planes[0][i];
+      o[1] = planes[1][i];
+      o[2] = planes[2][i];
+    } else {
+      const int y = planes[0][i], cb = planes[1][i], cr = planes[2][i];
+      o[0] = clamp(y + cr_r[cr]);
+      o[1] = clamp(y + int((cb_g[cb] + cr_g[cr]) >> SB));
+      o[2] = clamp(y + cb_b[cb]);
+    }
+    o[3] = 255;
+  }
+  return kOk;
 }
 
 }  // extern "C"

@@ -50,10 +50,13 @@ _FIELDS = (
 
 def render_units_pooled(
     scene, packed, cfg, frame: int, pix0: int, n_pix: int, pool: int,
-    alpha_pack=None, features=None, fused_shade: bool = False, shade_tables=None,
+    alpha_pack=None, features=None, fused_shade: bool = False, shade_tables=None, stream=None,
 ):
     """Trace ``n_pix * cfg.max_samples`` paths of pixels ``[pix0, pix0 +
-    n_pix)``. Returns ``(radiance_mean (n_pix, 3), rays)``; ``rays`` counts
+    n_pix)``. A path's random stream is ``rng.tea(pixel, stream * spp +
+    sample)``; ``stream`` defaults to ``frame``, which also drives the
+    camera jitter (sample shards pass a stream of their own,
+    ``parallel/sharding.py``). Returns ``(radiance_mean (n_pix, 3), rays)``; ``rays`` counts
     every traced ray (closest-hit rays plus shadow rays) as a 0-d tensor.
     ``fused_shade`` asks for the fused shading stage; it runs where
     ``shade_fused.supported`` holds, the unfused stage elsewhere (the
@@ -66,6 +69,7 @@ def render_units_pooled(
     w, h = cfg.width, cfg.height
     spp = cfg.max_samples
     total_units = n_pix * spp
+    stream = frame if stream is None else stream
     tiled = w % 8 == 0 and n_pix % (w * 8) == 0
     tiles_x = w // 8
     use_mips = mip_lod_enabled(scene, cfg)
@@ -128,7 +132,7 @@ def render_units_pooled(
         local = unit_to_local(p_rank) if tiled else p_rank
         upix = pix0 + local
         usamp = unit % spp
-        seed_new = rng.tea(upix, frame * spp + usamp)
+        seed_new = rng.tea(upix, stream * spp + usamp)
         o, d, seed_new = generate_rays_for_pixels(scene.camera, w, h, upix, frame, seed_new)
         g3 = granted[:, None]
         st["pix"] = torch.where(granted, upix, st["pix"])

@@ -11,8 +11,9 @@ every array equals the reference's).
   sheen, unlit, anisotropy, emissive_strength
 * imports KHR_lights_punctual and the first perspective camera, or frames
   the scene's bounding box when there is none
-* decodes textures with the port's own PNG decoder (``utils/png.py``;
-  other formats need Pillow) and packs them into the atlas
+* decodes textures with the port's own PNG and JPEG decoders
+  (``utils/png.py``, ``utils/jpeg.py``; no Pillow) and packs them into the
+  atlas
 
 ``instancing="bake"`` bakes node transforms into one world-space geometry;
 ``"auto"`` returns a mesh pool and an instance table when a primitive is
@@ -458,7 +459,8 @@ def load_gltf(path: str, instancing: str = "bake"):
 
 
 def _decode_image(g: GltfFile, doc: dict, source: int) -> Optional[np.ndarray]:
-    """Decode a glTF image to (H, W, 4) uint8 RGBA (``utils/png.py``)."""
+    """Decode a glTF image to (H, W, 4) uint8 RGBA (``utils/png.py``,
+    ``utils/jpeg.py``)."""
     from ..utils import png
 
     spec = doc["images"][source]

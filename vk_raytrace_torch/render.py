@@ -105,6 +105,24 @@ POOL_LANES = 1 << 18
 MAX_RAYS_PER_DISPATCH = 1 << 19
 
 
+def progressive_update(accum: torch.Tensor, new: torch.Tensor, frame: int) -> torch.Tensor:
+    """The running mean after frame ``frame`` (0-based) adds ``new``: the
+    progressive update of ``Renderer.step`` and of the sharded steps."""
+    return accum + (new - accum) * (1.0 / (frame + 1.0))
+
+
+def dispatch_split(n_pix: int, spp: int, pool=None):
+    """``(dispatches, pixels each, pool lanes)`` of a frame's ``n_pix``
+    pixels: at most ``MAX_PATHS_PER_DISPATCH`` paths a wavefront call, in
+    equal parts; the pool (unless given) at most ``POOL_LANES``."""
+    per_dispatch = max(1, MAX_PATHS_PER_DISPATCH // max(spp, 1))
+    n = max(1, -(-n_pix // per_dispatch))
+    while n_pix % n:
+        n += 1
+    part = n_pix // n
+    return n, part, pool if pool is not None else min(POOL_LANES, max(1024, part * spp))
+
+
 def strip_rows_for(cfg) -> int:
     """Rows per strip: about ``MAX_RAYS_PER_DISPATCH`` rays, at least 8
     rows, in equal strips that divide the image."""
@@ -116,19 +134,22 @@ def strip_rows_for(cfg) -> int:
 
 
 def render_strip_impl(scene, packed, cfg, row0: int, n_rows: int, frame: int, alpha_pack=None,
-                      features=None, tracer=None):
+                      features=None, tracer=None, stream=None):
     """``cfg.max_samples`` paths per pixel of image rows ``[row0, row0 +
     n_rows)`` through the unrolled integrator, averaged: ``(image (n_rows,
     W, 3), rays)``, ``rays`` the closest-hit and shadow rays traced (0-d).
     ``tracer``: a traversal back end in place of ``packed``
-    (``integrator/path.py::trace_paths``)."""
+    (``integrator/path.py::trace_paths``). Sample ``s`` of a pixel draws
+    from ``rng.tea(pixel, stream * spp + s)``; ``stream`` defaults to
+    ``frame``, which also drives the camera jitter."""
     w = cfg.width
     dev = scene.shade_rows.device
     pix = torch.arange(n_rows * w, dtype=torch.int64, device=dev) + row0 * w
     total = torch.zeros(n_rows * w, 3, device=dev)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
+    stream = frame if stream is None else stream
     for s in range(cfg.max_samples):
-        seed = rng.tea(pix, frame * cfg.max_samples + s)
+        seed = rng.tea(pix, stream * cfg.max_samples + s)
         o, d, seed = generate_rays_for_pixels(scene.camera, w, cfg.height, pix, frame, seed)
         radiance, _, st = sample_pixels(
             scene, packed, cfg, o, d, seed, alpha_pack=alpha_pack, tracer=tracer,
@@ -211,23 +232,20 @@ class Renderer:
         which carries the first-hit debug outputs, over row strips."""
         if self.converged:
             return
-        if self._run_cfg.debug_mode == DEBUG_NONE:
-            new = self._frame_pooled(self.frame)
-        else:
-            new = self._frame_strips(self.frame)
-        self.accum = self.accum + (new - self.accum) * (1.0 / (self.frame + 1.0))
+        self.accum = progressive_update(self.accum, self.render_frame(self.frame), self.frame)
         self.frame += 1
+
+    def render_frame(self, frame: int) -> torch.Tensor:
+        """Frame ``frame``'s radiance (H, W, 3), not yet in the running mean;
+        ``last_rays`` its rays. Leaves ``accum`` and ``frame`` as they are."""
+        if self._run_cfg.debug_mode == DEBUG_NONE:
+            return self._frame_pooled(frame)
+        return self._frame_strips(frame)
 
     def _frame_pooled(self, frame: int) -> torch.Tensor:
         h, w = self.cfg.height, self.cfg.width
         cfg = self._run_cfg
-        total_px = h * w
-        px_per_dispatch = max(1, MAX_PATHS_PER_DISPATCH // max(cfg.max_samples, 1))
-        n = max(1, -(-total_px // px_per_dispatch))
-        while total_px % n:
-            n += 1
-        n_pix = total_px // n
-        pool = min(POOL_LANES, max(1024, n_pix * cfg.max_samples))
+        n, n_pix, pool = dispatch_split(h * w, cfg.max_samples)
         parts, rays = [], 0
         for i in range(n):
             img, r = render_units_pooled(

@@ -2,8 +2,8 @@
 
 ``csrc/native.cpp`` holds the hot host loops: binned-SAH planar BVH rows
 (16 or 32 wide), oct encoding, RGBA8 packing and smooth normals (the port's
-own copy of the reference's host runtime, trimmed to these calls), and the
-PNG decoder's scanline reconstruction. It is compiled with g++
+own copy of the reference's host runtime, trimmed to these calls), the
+PNG decoder's scanline reconstruction and the JPEG decoder. It is compiled with g++
 into ``vk_raytrace_torch/_build/libnative.so`` (rebuilt when the source is
 newer) and bound here. There is no numpy fallback: every call raises when
 the library cannot be built or loaded.
@@ -40,6 +40,7 @@ def _load():
         lib.build_bvh16.restype = ctypes.c_int64
         lib.build_bvh32.restype = ctypes.c_int64
         lib.png_unfilter.restype = ctypes.c_int64
+        lib.jpeg_decode.restype = ctypes.c_int64
         _lib = lib
     return _lib
 
@@ -89,6 +90,18 @@ def png_unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     if bad:
         raise ValueError(f"unknown PNG filter type in scanline {bad - 1}")
     return out
+
+
+def jpeg_decode(data: bytes, w: int, h: int, ycc: bool) -> tuple:
+    """Decode a sequential Huffman JPEG of ``w`` x ``h`` pixels: ``(error
+    code, (h, w, 4) uint8 RGBA)``, the code 0 on success (the codes are
+    ``jpeg::Err`` in ``csrc/native.cpp``). ``ycc``: three components are
+    YCbCr, converted to RGB."""
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty((h, w, 4), np.uint8)
+    code = _load().jpeg_decode(_ptr(src), ctypes.c_int64(len(src)), ctypes.c_int64(int(ycc)),
+                               _ptr(out), ctypes.c_int64(w), ctypes.c_int64(h))
+    return int(code), out
 
 
 def build_planar_rows(positions, indices, uv, tri_flags, tri_ids=None, width=16):

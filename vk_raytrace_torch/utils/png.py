@@ -10,8 +10,10 @@ scanline filters 0-4, and ``tRNS`` transparency. It returns what Pillow's
 16-bit sample keeps its high byte, but 16-bit grey clips at 255; a colour
 key compares its low byte with the 8-bit samples (a 1-bit grey key is 0 or
 255, a 2- or 4-bit one is held against the scaled samples).
-:func:`decode_image` routes other formats (JPEG, ...) to Pillow where it
-can be imported, and otherwise raises naming the image.
+:func:`decode_image` sends a JPEG to the port's own decoder
+(``utils/jpeg.py``), whether or not Pillow is installed; another format
+goes to Pillow where it can be imported, and otherwise raises naming the
+image.
 
 :func:`encode` and :func:`write_png` write an 8-bit PNG with filter 0 and
 zlib, from a [0, 1] float image rounded as the reference's ``write_png``.
@@ -145,18 +147,22 @@ def decode_rgba(data: bytes, name: str = "PNG image") -> np.ndarray:
 
 def decode_image(data: bytes, name: str) -> np.ndarray:
     """An image file's bytes as (H, W, 4) uint8 RGBA: PNG by
-    :func:`decode_rgba`; another format (JPEG, ...) through Pillow, which
-    must then be importable, or the call raises naming ``name``."""
+    :func:`decode_rgba`, JPEG by ``utils/jpeg.decode_rgba`` (never Pillow);
+    another format (neither of glTF 2.0's two) through Pillow, which must
+    then be importable, or the call raises naming ``name``."""
+    from . import jpeg
+
     if data.startswith(SIGNATURE):
         return decode_rgba(data, name)
-    kind = "JPEG" if data[:2] == b"\xff\xd8" else "non-PNG"
+    if data.startswith(jpeg.SOI):
+        return jpeg.decode_rgba(data, name)
     try:
         import io
 
         from PIL import Image
     except ImportError as e:
-        raise RuntimeError(f"{name}: a {kind} image, and no decoder for it: Pillow is not "
-                           "installed (the port decodes PNG itself)") from e
+        raise RuntimeError(f"{name}: neither PNG nor JPEG, and no decoder for it: Pillow is not "
+                           "installed (the port decodes PNG and JPEG itself)") from e
     return np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
 
 
