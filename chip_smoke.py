@@ -7,7 +7,8 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
 
 1. environment: the card's name and power limit; CUDA must be available;
 2. build: the traversal kernels (``vk_raytrace_torch/csrc/traverse.cu``,
-   one library per row width) and the shading kernel (``shade.cu``), nvcc
+   one library per row width), the wide back end's kernel
+   (``traverse_wide.cu``) and the shading kernel (``shade.cu``), nvcc
    processes started together, and the native host runtime
    (``csrc/native.cpp``, g++), from this checkout;
 3. traversal kernel against its plain torch twin on the card, for modes a
@@ -208,13 +209,40 @@ counters set to 0 just before it and read just after:
     decode's RGBA held against the SHA-256 of Pillow's committed beside it;
     the scene at 128x72, depth 4, on the card against the CPU.
 
+Then the wide back end (``renderer="wide"``: the 8-wide trees and
+``vkrt_traverse_wide``, ``csrc/traverse_wide.cu``, the alpha test inside
+the traversal), each path driven with the launch counters set to 0 just
+before it and read just after:
+
+35. the kernel against its plain version on the 1080p atrium's 2^18
+    camera rays and their shadow rays toward the sun: closest and any hit
+    over the opaque tree, the closest-hit alpha pass windowed by the opaque
+    t and the any-hit alpha pass on the rays the opaque tree left open,
+    with seeds; every output bit for bit (t, tri, u, v, steps, seed); each
+    timed with its bound (distinct 256-byte rows in 32-byte sectors, nodes
+    x 26·8 operations, the alpha tests' pack rows and texels), registers
+    and spill (ptxas), beside the fused back end's kernels on the same rays;
+36. the atrium at 1080p (d4, 1 spp, glTF, sun&sky) with
+    ``renderer="wide"`` against ``"fused"`` in one process: rays within
+    0.1%, the pixels that differ printed (the alpha draws come in another
+    order, so the random streams of paths that meet the banners part);
+    s/frame, launches a frame and peak MiB of both; the wide run may launch
+    no fused traversal kernel;
+37. the full bistro at 1080p (fused shading) wide against fused on the
+    same criterion, with rounds per ray of each pass (wide and fused) and
+    the wide alpha pass toward the foliage beside the alpha machine; the
+    CLI's ``--renderer wide`` at the reference CLI's defaults on the
+    atrium; the viewer on the atrium switched to wide over HTTP, its
+    picks equal to ``Renderer(renderer="wide").pick``.
+
 The script keeps its files (checkpoints, images, the port's scene cache)
 in a temporary directory that it removes at exit. No depth was cut for
 time: the whole script ran in about half its time limit on the card.
 
 The line before the last is the per-kernel JSON summary (times, launches,
 errors and each kernel's bound on this card; ``paths_launches``: the
-launches of phases 31-34's paths); the last line is
+launches of phases 31-34's paths, and for ``traverse_wide`` of phase 37's);
+the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -418,11 +446,14 @@ def build_kernels():
         fn(*args, **kw)
         return time.time() - t0
 
-    with ThreadPoolExecutor(4) as pool:
+    from vk_raytrace_torch.ops import traverse_wide as tw
+
+    with ThreadPoolExecutor(5) as pool:
         futures = {
             "native": pool.submit(timed, runtime.build),
             **{f"traverse{w}": pool.submit(timed, tf.build, w, verbose=True) for w in tf.WIDTHS},
             "shade": pool.submit(timed, sf.build, verbose=True),
+            "traverse_wide": pool.submit(timed, tw.build, verbose=True),
         }
         return {k: f.result() for k, f in futures.items()}
 
@@ -1844,6 +1875,352 @@ def last_modules(card, work):
     return launches
 
 
+# ---- Phases 35-37: the wide back end (renderer="wide") ----------------------
+
+WIDE_SOURCE = "vk_raytrace_torch/csrc/traverse_wide.cu"
+# The reference's wide traversal: an XLA body (the RayQuery analog), not a
+# pallas_call.
+WIDE_REPLACES = "vk_raytrace_tpu/ops/traverse_wide.py:114"
+WIDE_REPLACES_KIND = "XLA body (_traverse_wide), not a pallas_call"
+# Its bytes per ray: origin, direction, t_max (28 B) in, an active byte and
+# an 8-byte seed where given, and t, tri, u, v, steps and the seed (28 B)
+# out; each distinct 256-byte row once in 32-byte sectors
+# (travbench.wide_row_bytes); per alpha test its AlphaPack row and a texel
+# sector (MACHINE_CAND_BYTES) and about MACHINE_CAND_OPS operations.
+WIDE_RAY_IN, WIDE_RAY_OUT = 28, 28
+# The main path's sizes: 2^18 rays (the pool width), 1080p frames; the
+# viewer's atrium at a size whose frames keep the phase short.
+WIDE_RAYS, WIDE_W, WIDE_H = 1 << 18, 1920, 1080
+WIDE_VIEWER = ["--scene", "atrium", "--sun-sky", "--size", "640", "360", "--depth", "4"]
+
+
+def wide_case(name, wide, pack, o, d, t_max, seed, active, any_hit, card):
+    """``vkrt_traverse_wide`` against its plain version on these rays, every
+    output (t, tri, u, v, steps, seed) bit for bit; both timed, and the
+    call's bound counted from the rows the plain version visits and the
+    alpha tests it draws. Returns (max |err|, (ms, plain_ms), (bound_ms,
+    bound_by), registers)."""
+    from vk_raytrace_torch import cuda_build
+    from vk_raytrace_torch import travbench as tb
+    from vk_raytrace_torch.ops import traverse_wide as tw
+
+    n = o.shape[0]
+    seen = torch.zeros(wide.rows.shape[0], dtype=torch.int8, device=o.device)
+    draws = torch.zeros(n, dtype=torch.int64, device=o.device)
+    plain = tw._traverse_wide_plain(wide, pack, o, d, t_max, seed, active, any_hit, seen=seen,
+                                    draws=draws)
+    kern = tw.traverse_wide(wide, pack, o, d, t_max, seed, active, any_hit)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("t", "tri", "u", "v", "steps", "seed"), kern, plain):
+        same = torch.equal(a.view(torch.int32), b.view(torch.int32)) if a.is_floating_point() \
+            else torch.equal(a, b)
+        assert same, f"wide {name}: {what} differs from the plain version"
+    hit_share = float((kern[1] >= 0).float().mean())
+    steps = float(kern[4].double().mean())
+    n_draws = int(draws.sum())
+    ms = tb.cuda_time(lambda: tw.traverse_wide(wide, pack, o, d, t_max, seed, active, any_hit),
+                      20)
+    plain_ms = tb.cuda_time(
+        lambda: tw._traverse_wide_plain(wide, pack, o, d, t_max, seed, active, any_hit), 2)
+    ray_b = (WIDE_RAY_IN + (1 if active is not None else 0) + (8 if seed is not None else 0)
+             + WIDE_RAY_OUT)
+    n_bytes, n_inner, n_leaf = tb.traversal_bytes(n, ray_b, seen, 8, "closest")
+    n_bytes += n_draws * MACHINE_CAND_BYTES
+    n_ops = float(kern[4].double().sum()) * tb.ops_per_node(8) + n_draws * MACHINE_CAND_OPS
+    bnd = tb.bound(n_bytes, n_ops)
+    res = cuda_build.resources("traverse_wide",
+                               f"wide_kernelILb{int(any_hit)}ELb{int(pack is not None)}E")
+    print(f"wide {name}: {n} rays, hit share {hit_share:.4f}, mean nodes/ray {steps:.2f}, alpha "
+          f"tests {n_draws} ({n_draws / n:.3f}/ray), bit for bit (t, tri, u, v, steps, seed) -> "
+          f"OK; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bnd[0]:.4f} ms by {bnd[1]} "
+          f"({n_bytes / 1e6:.1f} MB with {n_inner} interior + {n_leaf} leaf rows of "
+          f"{wide.rows.shape[0]} visited, {n_ops / 1e9:.3f} Gop; {ms / bnd[0]:.1f}x the bound); "
+          f"{res['registers']} registers, {res['stack_frame']} B stack frame, "
+          f"{res['spill_stores'] + res['spill_loads']} B spill ({card})", flush=True)
+    return 0.0, (ms, plain_ms), bnd, res["registers"]
+
+
+def phase_wide_kernel(card, geom, scene, cam, gbundle, rng):
+    """Phase 35: the kernel against its plain version on the 1080p atrium's
+    2^18 camera rays and their shadow rays toward the sun: closest and any
+    hit over the opaque tree, and the alpha passes with their seeds; the
+    fused back end's kernels timed on the same rays."""
+    from vk_raytrace_torch import travbench as tb
+    from vk_raytrace_torch.integrator.camera import with_aspect
+    from vk_raytrace_torch.ops import bvh8
+    from vk_raytrace_torch.ops import traverse_alpha as ta
+    from vk_raytrace_torch.ops import traverse_fused as tf
+    from vk_raytrace_torch.ops import traverse_wide as tw
+
+    dev = torch.device("cuda", 0)
+    t0 = time.time()
+    opq, alp = (w.to(dev) for w in bvh8.build_wide(geom))
+    print(f"atrium 8-wide trees: opaque {opq.rows.shape[0]} rows (stack {opq.stack_depth}), "
+          f"alpha {alp.rows.shape[0]} rows (stack {alp.stack_depth}); built in "
+          f"{time.time() - t0:.2f} s", flush=True)
+    n = WIDE_RAYS
+    o, d = camera_rays(with_aspect(cam, WIDE_W, WIDE_H).to(dev), WIDE_W, WIDE_H, n, rng, dev)
+    inf = torch.full((n,), tf.INF, device=dev)
+    sc = scene.to(dev)
+    pack = tw.make_alpha_pack(sc.materials, sc.atlas, sc.geometry.tri_material)
+    seed = torch.tensor(rng.integers(0, 2**32, n), device=dev)
+    res = {"closest": wide_case("closest, opaque tree (camera rays)", opq, None, o, d, inf, None,
+                                None, False, card)}
+    hit_o, _ = tw.closest_hit_wide(opq, None, o, d)
+    hit = hit_o.tri >= 0
+    sun = torch.as_tensor(np.asarray(scene.sun_sky.sun_direction, np.float32), device=dev)
+    sun = sun / torch.linalg.vector_norm(sun)
+    so = (o + d * torch.where(hit, hit_o.t, 0.0)[:, None] + sun * 1e-3).contiguous()
+    sd = sun.expand(n, 3).contiguous()
+    t_sh = torch.full((n,), 1e4, device=dev)
+    res["any"] = wide_case("any, opaque tree (shadow rays of the hits toward the sun)", opq,
+                           None, so, sd, t_sh, None, hit, True, card)
+    res["alpha_closest"] = wide_case("closest, alpha tree windowed by the opaque t, test inline",
+                                     alp, pack, o, d, hit_o.t.contiguous(), seed, None, False,
+                                     card)
+    occ, _ = tw.any_hit_wide(opq, None, so, sd, t_sh, None, hit)
+    res["alpha_any"] = wide_case("any, alpha tree (shadow rays the opaque tree left open)", alp,
+                                 pack, so, sd, t_sh, seed, hit & ~occ, True, card)
+    # Rays toward the banners (phase 18's kind), where most meet a candidate.
+    oa, da = rays_at(rng, geom, np.where(np.asarray(geom.tri_flags) & 2)[0], n, dev)
+    t_ba = tw.closest_hit_wide(opq, None, oa, da)[0].t.contiguous()
+    t_bs = torch.tensor(rng.uniform(0.5, 20.0, n), dtype=torch.float32, device=dev)
+    open_b = ~tw.any_hit_wide(opq, None, oa, da, t_bs)[0]
+    res["alpha_closest_banners"] = wide_case("closest, alpha tree, rays toward the banners", alp,
+                                             pack, oa, da, t_ba, seed, None, False, card)
+    res["alpha_any_banners"] = wide_case("any, alpha tree, rays toward the banners", alp, pack, oa,
+                                         da, t_bs, seed, open_b, True, card)
+    # The fused back end's kernels on the same rays, in the same call.
+    f_t = tf.closest_hit_fused(gbundle.opaque_planar, o, d).t
+    f_ba = tf.closest_hit_fused(gbundle.opaque_planar, oa, da).t
+    fused = {
+        "closest": lambda: tf.closest_hit_fused(gbundle.opaque_planar, o, d),
+        "any": lambda: tf.any_hit_fused(gbundle.opaque_planar, so, sd, t_sh, active=hit),
+        "alpha_closest": lambda: ta.closest_hit_alpha(gbundle.alpha_planar, pack, o, d, f_t,
+                                                      seed=seed),
+        "alpha_any": lambda: ta.any_hit_alpha(gbundle.alpha_planar, pack, so, sd, t_sh,
+                                              seed=seed, active=hit & ~occ),
+        "alpha_closest_banners": lambda: ta.closest_hit_alpha(gbundle.alpha_planar, pack, oa, da,
+                                                              f_ba, seed=seed),
+        "alpha_any_banners": lambda: ta.any_hit_alpha(gbundle.alpha_planar, pack, oa, da, t_bs,
+                                                      seed=seed, active=open_b),
+    }
+    fused_ms = {k: tb.cuda_time(fn, 20) for k, fn in fused.items()}
+    print("the same rays through the fused back end's kernels (mode a, mode b, the alpha rounds "
+          "kernel): " + ", ".join(f"{k} {v:.4f} ms (wide {res[k][1][0]:.4f} ms)"
+                                        for k, v in fused_ms.items()) + f" [{card}]", flush=True)
+    return res, fused_ms
+
+
+def compare_frames(what, a, b, card):
+    """Two renderers' accumulated frames (the same frames of one scene):
+    their last frame's rays within RAY_REL; the pixels that differ (outside
+    rtol PIX_RTOL / atol PIX_ATOL) printed."""
+    ia, ib = a.hdr().cpu().numpy(), b.hdr().cpu().numpy()
+    close = np.isclose(ia, ib, rtol=PIX_RTOL, atol=PIX_ATOL).all(-1)
+    ray_rel = abs(a.last_rays - b.last_rays) / b.last_rays
+    print(f"{what}: rays {a.last_rays} vs {b.last_rays} (rel {ray_rel:.2e}); pixels within "
+          f"rtol {PIX_RTOL}/atol {PIX_ATOL}: {close.mean():.5f} ({int((~close).sum())} of "
+          f"{close.size} differ); mean radiance {ia.mean():.5f} vs {ib.mean():.5f} [{card}]",
+          flush=True)
+    assert np.isfinite(ia).all() and ia.mean() > 0.0, f"{what}: black or non-finite"
+    assert ray_rel <= RAY_REL, f"{what}: ray counts differ by {ray_rel:.2e}"
+    return ray_rel, int((~close).sum())
+
+
+def phase_wide_frames(card, scene):
+    """Phase 36: the 1080p atrium with renderer="wide" against "fused" in
+    one process. Returns the wide run's launches and per-frame numbers."""
+    from vk_raytrace_torch import render as R
+    from vk_raytrace_torch.models.schema import PBR_GLTF, RenderConfig
+    from vk_raytrace_torch.ops import traverse_fused as tf
+
+    dev = torch.device("cuda", 0)
+    cfg = RenderConfig(width=WIDE_W, height=WIDE_H, max_depth=4, max_samples=1, pbr_mode=PBR_GLTF,
+                       firefly_clamp=10.0, use_sun_sky=True)
+    rw, w_s, w_mrays, w_frame, w_peak = render_phase(
+        "atrium 1080p d4 1spp, renderer=wide", lambda: R.Renderer(scene, cfg, device=dev,
+                                                                  renderer="wide"),
+        card, want=("traverse_wide",))
+    w_launches = dict(tf.LAUNCHES)
+    assert not any(w_frame.get(k) for k in ATRIUM_KERNELS), f"wide: a fused kernel ran: {w_frame}"
+    rf, f_s, f_mrays, f_frame, f_peak = render_phase(
+        "atrium 1080p d4 1spp, renderer=fused", lambda: R.Renderer(scene, cfg, device=dev),
+        card, want=ATRIUM_KERNELS)
+    assert not f_frame.get("traverse_wide"), f"fused: the wide kernel ran: {f_frame}"
+    compare_frames("atrium 1080p wide vs fused", rw, rf, card)
+    print(f"atrium 1080p: wide {w_s:.4f} s/frame ({w_mrays:.3f} Mrays/s, peak {w_peak:.1f} MiB, "
+          f"launches/frame {w_frame}) vs fused {f_s:.4f} s/frame ({f_mrays:.3f} Mrays/s, peak "
+          f"{f_peak:.1f} MiB, launches/frame {f_frame}) [{card}]", flush=True)
+    del rw, rf
+    torch.cuda.empty_cache()
+    return w_launches, {"s_frame": w_s, "launches_per_frame": w_frame.get("traverse_wide", 0)}
+
+
+def phase_wide_bistro(card, pool, inst, b_mats, b_lights, b_cam, b_atlas, rng):
+    """Phase 37a: the full bistro at 1080p, wide against fused (rounds per
+    ray of each pass), and the wide alpha pass beside the alpha machine on
+    2^18 rays toward the foliage."""
+    from vk_raytrace_torch import render as R
+    from vk_raytrace_torch import travbench as tb
+    from vk_raytrace_torch.integrator.camera import with_aspect
+    from vk_raytrace_torch.models.schema import PBR_GLTF, RenderConfig
+    from vk_raytrace_torch.ops import tlas
+    from vk_raytrace_torch.ops import traverse_fused as tf
+    from vk_raytrace_torch.ops.traverse_wide import make_alpha_pack
+
+    dev = torch.device("cuda", 0)
+    bscene = R.build_instanced_scene(pool, inst, b_mats, b_lights, b_cam, atlas=b_atlas)
+    t0 = time.time()
+    acc_w = tlas.with_wide(bscene.instances, bscene.geometry)
+    print(f"bistro 8-wide BLAS: {acc_w.blas.rows.shape[0]} rows (stack {acc_w.blas.stack_depth}) "
+          f"built in {time.time() - t0:.2f} s", flush=True)
+    b_cfg = RenderConfig(width=WIDE_W, height=WIDE_H, pbr_mode=PBR_GLTF, **BISTRO_CFG)
+    scene_w = dataclasses.replace(bscene, instances=acc_w)
+    rw, w_s, w_mrays, w_frame, w_peak = render_phase(
+        "bistro 1080p d4 1spp fused shading, renderer=wide",
+        lambda: R.Renderer(scene_w, b_cfg, device=dev, fused_shade=True, renderer="wide"), card,
+        want=("traverse_wide", "shade_stage"))
+    w_launches = dict(tf.LAUNCHES)
+    assert not w_frame.get("opaque_machine") and not w_frame.get("alpha_machine"), w_frame
+    rf, f_s, f_mrays, f_frame, f_peak = render_phase(
+        "bistro 1080p d4 1spp fused shading, renderer=fused",
+        lambda: R.Renderer(bscene, b_cfg, device=dev, fused_shade=True), card,
+        want=("opaque_machine", "alpha_machine", "shade_stage"))
+    compare_frames("bistro 1080p wide vs fused", rw, rf, card)
+    print(f"bistro 1080p: wide {w_s:.4f} s/frame ({w_mrays:.3f} Mrays/s, peak {w_peak:.1f} MiB, "
+          f"launches/frame {w_frame}) vs fused {f_s:.4f} s/frame ({f_mrays:.3f} Mrays/s, peak "
+          f"{f_peak:.1f} MiB, launches/frame {f_frame}) [{card}]", flush=True)
+    acc_d = rw.packed
+    del rw, rf
+    torch.cuda.empty_cache()
+    # Rounds per ray of each pass on 2^18 camera rays, and the alpha pass
+    # toward the foliage: the wide rounds (a launch and a host sync each)
+    # beside the alpha machine (one launch).
+    n = WIDE_RAYS
+    o, d = camera_rays(with_aspect(b_cam, WIDE_W, WIDE_H).to(dev), WIDE_W, WIDE_H, n, rng, dev)
+    sc = bscene.to(dev)
+    pack = make_alpha_pack(sc.materials, sc.atlas, sc.geometry.tri_material)
+    seed = torch.tensor(rng.integers(0, 2**32, n), device=dev)
+    act = torch.ones(n, dtype=torch.bool, device=dev)
+    alpha = torch.as_tensor(acc_d.inst_alpha, device=dev).bool()
+    inf = torch.full((n,), tf.INF, device=dev)
+    r_o = torch.zeros(n, dtype=torch.int64, device=dev)
+    r_a = torch.zeros(n, dtype=torch.int64, device=dev)
+    t_o, *_ = tlas._wide_pass(acc_d, None, o, d, inf, seed, act, ~alpha, False, rounds=r_o)
+    tlas._wide_pass(acc_d, pack, o, d, t_o, seed, act, alpha, False, rounds=r_a)
+    fr_o = torch.zeros(n, dtype=torch.int64, device=dev)
+    fr_a = torch.zeros(n, dtype=torch.int64, device=dev)
+    planar, roots, view, mask = tlas._subset(acc_d, "opq")
+    ft_o, *_ = tlas._two_level_pass(planar, roots, view, o, d, inf, act, mask, True, False,
+                                    rounds=fr_o)
+    tlas._alpha_rounds(acc_d, pack, o, d, ft_o, seed, act, False, True, rounds=fr_a)
+    print("bistro camera rays, rounds per ray (mean, mean of each warp's most, busy share): "
+          f"wide opaque pass {warp_rounds(r_o)}, wide alpha pass {warp_rounds(r_a)}; fused "
+          f"opaque rounds {warp_rounds(fr_o)}, fused alpha rounds {warp_rounds(fr_a)}", flush=True)
+    leaf = np.nonzero(np.asarray(bscene.instances.inst_alpha))[0]
+    eye = np.asarray(b_cam.view_inverse)[:3, 3]
+    ol, dl = rays_toward_instances(rng, pool, inst, rng.choice(leaf, n),
+                                   eye + rng.uniform(-2.0, 2.0, (n, 3)), dev)
+    tl, *_ = tlas._two_level_opaque_pass(acc_d, "opq", ol, dl, inf, act, True, False)
+    tl = tl.contiguous()
+    w_ms = tb.cuda_time(lambda: tlas._wide_pass(acc_d, pack, ol, dl, tl, seed, act, alpha, False),
+                        3)
+    m_ms = tb.cuda_time(lambda: tlas._two_level_alpha_pass(acc_d, pack, ol, dl, tl, seed, act,
+                                                           False, True), 10)
+    ra = torch.zeros(n, dtype=torch.int64, device=dev)
+    tlas._wide_pass(acc_d, pack, ol, dl, tl, seed, act, alpha, False, rounds=ra)
+    print(f"bistro alpha pass, 2^18 rays toward the foliage windowed by the opaque t: wide "
+          f"(instance-level split, {warp_rounds(ra)[0]:.2f} rounds/ray, a launch and a host "
+          f"sync each) {w_ms:.3f} ms; the alpha machine (one launch) {m_ms:.3f} ms [{card}]",
+          flush=True)
+    return w_launches, {"s_frame": w_s, "launches_per_frame": w_frame.get("traverse_wide", 0),
+                        "rounds_per_ray": warp_rounds(r_o)[0] + warp_rounds(r_a)[0],
+                        "alpha_pass_ms": w_ms, "alpha_machine_ms": m_ms}
+
+
+def phase_wide_viewer(card):
+    """Phase 37c: the viewer on the atrium switched to wide over HTTP; its
+    picks equal ``Renderer(renderer="wide").pick`` on the camera the
+    service used. Returns the launches after the switch."""
+    import threading
+    import urllib.request
+
+    from vk_raytrace_torch import render as R
+    from vk_raytrace_torch import viewer as V
+    from vk_raytrace_torch.ops import traverse_fused as tf
+
+    svc = V.ViewerService(V.build_parser().parse_args(WIDE_VIEWER))
+    t = threading.Thread(target=svc.run_render_loop, daemon=True)
+    t.start()
+    httpd = V.serve(svc, "127.0.0.1", 0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=120) as resp:
+            return resp.read()
+
+    def post(body):
+        req = urllib.request.Request(base + "/control", method="POST",
+                                     data=json.dumps(body).encode())
+        urllib.request.urlopen(req, timeout=60).close()
+
+    def wait(pred, timeout=300.0):
+        t0 = time.time()
+        while time.time() - t0 < timeout:
+            st = json.loads(get("/state"))
+            if pred(st):
+                return st
+            assert t.is_alive(), "the viewer's render loop died"
+            time.sleep(0.05)
+        raise AssertionError("viewer: timeout")
+
+    try:
+        wait(lambda s: s.get("frame", 0) >= 2)
+        post({"cmd": "set", "key": "renderer", "value": "wide"})
+        t0 = time.time()
+        while (svc._renderer is None or svc._renderer.renderer != "wide") and time.time() - t0 < 300:
+            time.sleep(0.05)
+        assert svc._renderer.renderer == "wide", "viewer: the switch to wide did not happen"
+        # Counted from the first frame the wide renderer finished: the frames
+        # after it are its own.
+        tf.reset_launches()
+        f0 = json.loads(get("/state"))["frame"]
+        wait(lambda s: s.get("frame", 0) >= f0 + 2)
+        lau = {k: v for k, v in tf.LAUNCHES.items() if v}
+        assert lau.get("traverse_wide", 0) > 0, f"viewer: the wide kernel never launched: {lau}"
+        assert not any(lau.get(k) for k in ATRIUM_KERNELS), f"viewer: a fused kernel ran: {lau}"
+        ref = R.Renderer(svc._scene0, svc._renderer.cfg, device=svc.device,
+                         packed=svc._renderer.packed, renderer="wide")
+        vw, vh = svc.args.size
+        prng = np.random.default_rng(37)
+        hits = 0
+        for x, y in zip(prng.integers(0, vw, 8), prng.integers(0, vh, 8)):
+            cam = svc._renderer.scene.camera
+            got = json.loads(get(f"/pick?x={x}&y={y}"))
+            ref.scene = dataclasses.replace(ref.scene, camera=cam)
+            want = ref.pick(int(x), int(y))
+            assert (got is None) == (want is None), (x, y, got, want)
+            if got is not None:
+                hits += 1
+                assert (got["triangle"], got["material"], got["t"]) == (
+                    want["triangle"], want["material"], want["t"]), (x, y, got, want)
+        assert hits >= 4 or WIDE_VIEWER[1] != "atrium", hits
+        print(f"viewer {' '.join(WIDE_VIEWER)} switched to wide over HTTP: frames go on, {hits} of 8 "
+              f"picks hit, each equal to Renderer(renderer='wide').pick; launches after the "
+              f"switch {lau} [{card}]", flush=True)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=30)
+        svc._stop = True
+        t.join(timeout=120)
+    assert not t.is_alive(), "viewer: the render loop did not stop"
+    return lau
+
+
 def main():
     # ---- 1. environment ----------------------------------------------------
     phase("environment")
@@ -2835,6 +3212,22 @@ def main():
     # ---- 31-34. the last modules: sharding, the viewer, the graft entry, JPEG ----
     path_launches = last_modules(card, work)
 
+    # ---- 35-37. the wide back end -------------------------------------------
+    phase("35. the wide kernel against its plain version on the atrium's camera and shadow rays")
+    wide_res, wide_fused_ms = phase_wide_kernel(card, geom, scene, cam, gbundle, rng)
+    phase("36. the atrium at 1080p, renderer=wide against renderer=fused")
+    wide_launches, wide_atrium = phase_wide_frames(card, scene)
+    phase("37. the bistro at 1080p wide against fused; the CLI and the viewer on wide")
+    wide_paths = {}
+    wide_paths["bistro"], wide_bistro = phase_wide_bistro(card, pool, inst, b_mats, b_lights,
+                                                          b_cam, b_atlas, rng)
+    _, wide_paths["cli"] = cli_run(
+        "CLI --renderer wide: the atrium at the reference CLI's defaults",
+        ["--scene", "atrium", "--sun-sky", "--renderer", "wide", "-o",
+         os.path.join(work, "atrium_wide.png")], card, want=("traverse_wide",))
+    assert not any(wide_paths["cli"].get(k) for k in ATRIUM_KERNELS), wide_paths["cli"]
+    wide_paths["viewer"] = phase_wide_viewer(card)
+
     def traverse_entry(m, lau, replaces):
         """``launches``: the main path's count (``lau``). The per-round kernels
         of the modes the machines run (mode c from the root, modes a/b/c with
@@ -2916,7 +3309,20 @@ def main():
                         "ms": x["ms"],
                         "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
                         "bound_by": x["bound_by"], "library_ms": None})
-    print(f"phases 1-34 passed in {time.time() - T_START:.1f} s [{card}]", flush=True)
+    err, (ms, plain_ms), (b_ms, b_by), _ = wide_res["closest"]
+    kernels.append({
+        "name": "traverse_wide", "route": "cuda", "source": WIDE_SOURCE,
+        "replaces": WIDE_REPLACES, "replaces_kind": WIDE_REPLACES_KIND,
+        "launches": wide_launches["traverse_wide"],
+        "max_abs_err": max(v[0] for v in wide_res.values()), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "cases": {k: {"ms": v[1][0], "plain_ms": v[1][1], "bound_ms": v[2][0],
+                      "bound_by": v[2][1], "fused_ms": wide_fused_ms[k]}
+                  for k, v in wide_res.items()},
+        "per_frame": {"atrium": wide_atrium, "bistro": wide_bistro},
+        "paths_launches": {p: v.get("traverse_wide", 0) for p, v in wide_paths.items()},
+    })
+    print(f"phases 1-37 passed in {time.time() - T_START:.1f} s [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

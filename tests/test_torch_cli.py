@@ -191,5 +191,5 @@ def test_cli_stats_profile_and_options(tmp_path, capsys):
     assert prof["frames"] == prof["frame"] == 2 and len(prof["frame_s"]) == 2
     assert prof["stage"] == "fused" and min(prof["rays"]) > 16 * 12
     assert np.asarray(Image.open(tmp_path / "s.png")).shape == (12, 16, 3)
-    with pytest.raises(SystemExit):
-        cli.main(["--renderer", "wide", "--device", "cpu"])
+    with pytest.raises(SystemExit):  # a back end neither package has
+        cli.main(["--renderer", "rtx", "--device", "cpu"])

@@ -603,9 +603,9 @@ def test_png_forms_not_supported_raise():
 
 def test_jpeg_through_pillow_or_raises(monkeypatch):
     """A JPEG, baseline or progressive, decodes to Pillow's array with
-    Pillow installed and without it (the port's own decoder either way); an
-    arithmetic-coded one (a baseline frame header rewritten to SOF9)
-    raises naming the image."""
+    Pillow installed and without it (the port's own decoder either way); a
+    form that Pillow rejects too, hierarchical (a baseline frame header
+    rewritten to SOF5), raises naming the image."""
     img = np.random.default_rng(1).integers(0, 256, (8, 8, 3), dtype=np.uint8)
     streams = []
     for kw in ({}, dict(progressive=True)):
@@ -619,8 +619,8 @@ def test_jpeg_through_pillow_or_raises(monkeypatch):
     for data, ref in zip(streams, want):
         np.testing.assert_array_equal(png.decode_image(data, "image 0"), ref)
     i = streams[0].index(b"\xff\xc0")
-    with pytest.raises(RuntimeError, match=r"image 0.*arithmetic sequential \(SOF9\) JPEG"):
-        png.decode_image(streams[0][:i + 1] + b"\xc9" + streams[0][i + 2:], "image 0")
+    with pytest.raises(RuntimeError, match=r"image 0.*differential sequential \(SOF5\) JPEG"):
+        png.decode_image(streams[0][:i + 1] + b"\xc5" + streams[0][i + 2:], "image 0")
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,15 @@ writes here at qualities 50 and 95 in 4:4:4, 4:2:2 and 4:2:0 and grey, at
 sizes that are not multiples of the MCU, baseline and progressive (with
 optimised Huffman tables too); restart intervals; 4:4:0 (a 4:2:2 stream
 whose frame header is rewritten to 1x2 luma sampling, its MCU grid
-transposed: Pillow does not write 4:4:0); an EXIF segment. The forms the
-port does not decode (arithmetic coding, 12-bit samples, CMYK) raise
+transposed: Pillow does not write 4:4:0); an EXIF segment; CMYK (Pillow's
+own, its Adobe segment removed, or its transform set to YCCK). The forms
+Pillow cannot write come from the small encoders of
+``tests/jpeg_encoders.py``, Pillow's decoding of the same bytes the judge:
+arithmetic-coded sequential and progressive frames (with restart intervals
+and DAC conditioning) and lossless frames (every predictor, point
+transforms, restarts). The forms Pillow rejects (hierarchical frames,
+arithmetic lossless, 12- and 16-bit samples, lossless YCbCr and YCCK)
+raise in the reference (which decodes through Pillow) and in the port,
 naming the image. The
 committed ``tests/assets/jpeg_textures.glb`` loads in the port as in the
 reference (every atlas array equal), and its textures decode to the Pillow
@@ -27,6 +34,8 @@ from vk_raytrace_torch.utils import jpeg, png
 ASSETS = os.path.join(os.path.dirname(__file__), "assets")
 sys.path.insert(0, ASSETS)
 import make_jpeg_glb  # noqa: E402
+
+import jpeg_encoders as enc  # noqa: E402
 
 
 def _pixels(w, h, chans, seed):
@@ -152,24 +161,136 @@ def test_jpeg_exif_segment_skipped():
     _check(data)
 
 
+def _reference_decode(data):
+    """The reference's texture decoding (``vk_raytrace_tpu/models/gltf.py::
+    _decode_image``, Pillow), of a data-URI image."""
+    import base64
+
+    from vk_raytrace_tpu.models.gltf import _decode_image
+
+    doc = {"images": [{"uri": "data:image/jpeg;base64," + base64.b64encode(data).decode()}]}
+    return _decode_image(None, doc, 0)
+
+
+def _sof_patched(data, sof=None, precision=None):
+    i = data.index(b"\xff\xc0") if b"\xff\xc0" in data else data.index(b"\xff\xc3")
+    if sof is not None:
+        data = data[:i + 1] + bytes([sof]) + data[i + 2:]
+    if precision is not None:
+        data = data[:i + 4] + bytes([precision]) + data[i + 5:]
+    return data
+
+
+def _rejected_forms():
+    base = _jpeg(33, 31, "RGB", seed=2)
+    lossless = enc.lossless_jpeg(_pixels(13, 11, 3, 3), 4)
+    forms = {f"SOF{m - 0xC0}": (_sof_patched(base, sof=m), rf"a .*\(SOF{m - 0xC0}\) JPEG")
+             for m in (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF)}
+    forms["SOF11"] = (_sof_patched(lossless, sof=0xCB), r"a arithmetic lossless \(SOF11\) JPEG")
+    forms["12-bit"] = (_sof_patched(base, precision=12), r"a .* JPEG of 12-bit samples")
+    forms["12-bit lossless"] = (_sof_patched(lossless, precision=12), r"a .* JPEG of 12-bit samples")
+    forms["16-bit lossless"] = (_sof_patched(lossless, precision=16), r"a .* JPEG of 16-bit samples")
+    return forms
+
+
 def test_arithmetic_and_12bit_jpeg_raise_naming_the_image():
-    """Frames the port does not decode, made by rewriting a baseline
-    stream's frame header: arithmetic coding (SOF9) and 12-bit samples."""
-    data = _jpeg(33, 31, "RGB", seed=2)
-    i = data.index(b"\xff\xc0")
-    arithmetic = data[:i + 1] + b"\xc9" + data[i + 2:]
-    with pytest.raises(RuntimeError, match=r"image 7 of scene\.glb: a arithmetic sequential "
-                                           r"\(SOF9\) JPEG"):
-        png.decode_image(arithmetic, "image 7 of scene.glb")
-    twelve = data[:i + 4] + b"\x0c" + data[i + 5:]
-    with pytest.raises(RuntimeError, match=r"image 8: .*12-bit samples"):
-        png.decode_image(twelve, "image 8")
+    """Frames that neither the reference (Pillow) nor the port decodes,
+    made by rewriting a stream's frame header: arithmetic-coded lossless
+    (SOF11), hierarchical (SOF5-7, SOF13-15) and 12- or 16-bit samples;
+    the port names the image and the frame."""
+    for label, (data, pattern) in _rejected_forms().items():
+        with pytest.raises(Exception):
+            _reference_decode(data)
+        with pytest.raises(RuntimeError, match=r"image 7 of scene\.glb: " + pattern):
+            png.decode_image(data, "image 7 of scene.glb")
 
 
 def test_cmyk_jpeg_raises_naming_the_image():
-    data = _jpeg(16, 16, "CMYK", seed=2)
-    with pytest.raises(RuntimeError, match=r"image 2: .*4 components \(CMYK or YCCK\)"):
-        png.decode_image(data, "image 2")
+    """A lossless frame in YCbCr (a JFIF segment) or YCCK (an Adobe segment
+    of transform 2): libjpeg converts no colour in a lossless image, so the
+    reference raises, and the port raises naming the image."""
+    px = _pixels(13, 11, 4, 4)
+    jfif = enc._seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    adobe = enc._seg(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00\x02")
+    for data, space in ((enc.lossless_jpeg(px[..., :3], 1, app=jfif), "YCbCr"),
+                        (enc.lossless_jpeg(px, 1, app=adobe, ids=(1, 2, 3, 4)), "YCCK")):
+        with pytest.raises(Exception):
+            _reference_decode(data)
+        with pytest.raises(RuntimeError, match=rf"image 2: a lossless \(SOF3\) JPEG in {space}"):
+            png.decode_image(data, "image 2")
+
+
+QUANT = {"fine": [np.ones((8, 8), int), np.full((8, 8), 2)],
+         "coarse": [np.full((8, 8), 4), np.full((8, 8), 8)]}
+ARITH_FORMS = {
+    "grey": [(1, 1, 1, 0)],
+    "444": [(1, 1, 1, 0), (2, 1, 1, 1), (3, 1, 1, 1)],
+    "422": [(1, 2, 1, 0), (2, 1, 1, 1), (3, 1, 1, 1)],
+    "420": [(1, 2, 2, 0), (2, 1, 1, 1), (3, 1, 1, 1)],
+    "cmyk": [(1, 1, 1, 0), (2, 1, 1, 1), (3, 1, 1, 1), (4, 1, 1, 0)],
+}
+
+
+@pytest.mark.parametrize("progressive", (False, True))
+@pytest.mark.parametrize("form", sorted(ARITH_FORMS))
+@pytest.mark.parametrize("case", ("plain", "restart_dac"))
+def test_arithmetic_jpeg_matches_pil(form, progressive, case):
+    """Arithmetic-coded frames (SOF9 / SOF10, the QM decoder and its
+    statistics model) from random coefficients at two quantisations, with
+    a restart interval and DAC conditioning in one case: the same RGBA
+    array as Pillow's (the CMYK form through an Adobe segment)."""
+    comps = ARITH_FORMS[form]
+    size = (37, 29) if case == "plain" else (61, 23)
+    quant = QUANT["coarse" if progressive else "fine"]
+    coefs = enc.random_coefficients(*size, comps, len(form) * 7 + progressive, quant)
+    app = enc._seg(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00\x00") if form == "cmyk" else b""
+    kw = dict(restart=3, dac=(1, 3, 9)) if case == "restart_dac" else {}
+    _check(enc.arithmetic_jpeg(*size, comps, coefs, quant, progressive=progressive, app=app, **kw))
+
+
+@pytest.mark.parametrize("predictor", range(1, 8))
+@pytest.mark.parametrize("chans", (1, 3))
+def test_lossless_jpeg_matches_pil(predictor, chans):
+    """Lossless frames (SOF3): each predictor, a point transform and a
+    restart interval of whole rows varying with it; grey and RGB (component
+    ids 1-3: without a JFIF segment libjpeg reads a lossless frame as RGB)."""
+    px = _pixels(21, 17, 3, predictor)
+    img = px[..., 0] if chans == 1 else px
+    _check(enc.lossless_jpeg(img, predictor, pt=predictor % 3, restart=21 * (predictor % 3)))
+
+
+@pytest.mark.parametrize("variant", ("adobe", "no_adobe", "ycck", "progressive_ycck"))
+@pytest.mark.parametrize("size", ((21, 19), (64, 48)))
+def test_cmyk_and_ycck_jpeg_match_pil(variant, size):
+    """Four components: Pillow's CMYK JPEG (an Adobe segment of transform
+    0), the same without the segment, and with its transform set to 2
+    (YCCK, which libjpeg converts to CMYK); Pillow inverts every channel
+    and converts CMYK to RGB with K."""
+    kw = dict(quality=85, progressive=variant == "progressive_ycck")
+    data = _jpeg(*size, "CMYK", seed=size[0], **kw)
+    i = data.index(b"\xff\xee")
+    if variant == "no_adobe":
+        data = data[:i] + data[i + 2 + ((data[i + 2] << 8) | data[i + 3]):]
+    elif variant != "adobe":
+        data = data[:i + 15] + b"\x02" + data[i + 16:]
+        assert data[i + 4:i + 9] == b"Adobe"
+    _check(data)
+
+
+def test_new_forms_decode_without_pillow(monkeypatch):
+    """Arithmetic, lossless and CMYK frames, with Pillow hidden, decode to
+    Pillow's arrays (taken before hiding it)."""
+    quant = QUANT["fine"]
+    comps = ARITH_FORMS["420"]
+    cases = [enc.arithmetic_jpeg(37, 29, comps, enc.random_coefficients(37, 29, comps, 1, quant),
+                                 quant, progressive=True),
+             enc.lossless_jpeg(_pixels(21, 17, 3, 2), 7, pt=1),
+             _jpeg(33, 31, "CMYK", seed=3, quality=90)]
+    want = [_pil(d) for d in cases]
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "PIL.Image", None)
+    for data, ref in zip(cases, want):
+        assert np.array_equal(png.decode_image(data, "texture"), ref)
 
 
 def test_other_formats_through_pillow_or_raise(monkeypatch):

@@ -215,7 +215,7 @@ def test_travbench_runs_on_the_cpu():
     lines = [json.loads(ln) for ln in res.stdout.strip().splitlines()]
     assert [(x["variant"], x["width"]) for x in lines] == [
         (v, w) for w in tf.WIDTHS for v in travbench.VARIANTS
-    ]
+    ] + [("wide", 8)]
     for x in lines:
         assert x["device"] == "cpu" and x["rays"] == 256
         assert "ms" not in x and "bound_ms" not in x  # no device number from a CPU run
@@ -227,6 +227,8 @@ def test_travbench_runs_on_the_cpu():
         assert by["nogather8", w]["nodes_per_ray"] == 8
     # Wider rows: fewer nodes per ray.
     assert by["full", 32]["nodes_per_ray"] < by["full", 16]["nodes_per_ray"]
+    assert by["full", 16]["nodes_per_ray"] < by["wide", 8]["nodes_per_ray"]
+    assert by["wide", 8]["hit_share"] == by["full", 16]["hit_share"]
 
 
 def test_travbench_refuses_cuda_without_a_card():

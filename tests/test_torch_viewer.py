@@ -133,8 +133,8 @@ def test_control_page_covers_sample_gui_inventory():
     """Every sample_gui.cpp control family has a counterpart on the page:
     the 13 debug modes, the tonemapper, the sun&sky editor, aperture and
     focal distance, the back-end select (offering exactly what the port's
-    CLI accepts: ``fused``), the statistics and profiler panels and the
-    plots."""
+    CLI accepts: ``fused`` and ``wide``), the statistics and profiler panels
+    and the plots."""
     from vk_raytrace_torch.cli import build_parser
 
     page = V._PAGE
@@ -154,7 +154,7 @@ def test_control_page_covers_sample_gui_inventory():
     select = re.search(r'<select id="renderer">(.*?)</select>', page).group(1)
     offered = re.findall(r'<option value="([^"]+)"', select)
     accepted = next(a.choices for a in build_parser()._actions if a.dest == "renderer")
-    assert offered == list(accepted) == ["fused"]
+    assert offered == list(accepted) == ["fused", "wide"]
 
 
 def test_scene_derived_pivot_and_set_pivot():

@@ -10,8 +10,11 @@ tonemapper as flags), with these differences:
 * ``--fused-shade`` and ``--row-width 16|32`` spell out the reference's
   ``VKRT_FUSED_SHADE`` and ``VKRT_WIDE`` environment toggles; the port reads
   no environment toggle.
-* ``--renderer`` accepts only ``fused``: the reference's ``wide`` back end
-  is its XLA body, which the port does not have.
+* ``--renderer fused|wide`` picks the traversal back end as in the
+  reference (its createRender analog): ``fused`` (the default here) the
+  planar trees and the round machines, ``wide`` the 8-wide trees with the
+  alpha test inside the traversal (``csrc/traverse_wide.cu``), single- and
+  two-level; the reference defaults to ``wide`` off the TPU.
 * ``--multichip`` shards the image over ranks (``parallel/sharding.py``:
   tile x sample, all ranks on the tile axis) when the process was started
   by ``torchrun``, one rank per card (NCCL), or per CPU process with
@@ -34,9 +37,10 @@ resumes in the other. As in the reference, each run adds ``--spp`` samples
 to what the checkpoint holds.
 
 ``--stats`` prints the scene's inventory as JSON on stderr. Its
-``bvh_nodes`` counts the rows of the planar tables the renderer traverses
-(opaque and alpha trees, or the two-level pool's tables): the port builds
-no binary BVH, whose nodes the reference counts there. ``--profile``
+``bvh_nodes`` counts the rows of the tables the renderer traverses (the
+planar trees, or with ``--renderer wide`` the 8-wide ones; opaque and
+alpha trees, or the two-level pool's tables): the port builds no binary
+BVH, whose nodes the reference counts there. ``--profile``
 prints the frame times, the card's memory and, last, one JSON line
 ``{"profile": {...}}`` with each frame's seconds and rays, the build
 seconds and the peak device memory.
@@ -101,9 +105,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="glTF node instancing: 'auto' shares meshes drawn by several "
                         "nodes through the two-level structure, 'bake' flattens to world "
                         "space, 'always' forces two levels")
-    p.add_argument("--renderer", choices=["fused"], default=None,
-                   help="traversal back end: 'fused', the hand-written kernels (the "
-                        "reference's 'wide' XLA body is not ported)")
+    p.add_argument("--renderer", choices=["fused", "wide"], default="fused",
+                   help="traversal back end (createRender analog, sample_example.cpp:322-337): "
+                        "'fused' = the planar trees' kernels (default), 'wide' = the 8-wide "
+                        "trees with the alpha test inside the traversal (RayQuery analog)")
     p.add_argument("--device", default="cuda",
                    help="torch device: 'cuda' (default; fails without a card) or 'cpu'")
     p.add_argument("--fused-shade", action="store_true",
@@ -211,9 +216,11 @@ def _launched() -> bool:
     return "WORLD_SIZE" in os.environ
 
 
-def _planar_rows(packed) -> int:
-    tables = [getattr(packed, k, None) for k in (
-        "opaque_planar", "alpha_planar", "blas_planar", "blas_planar_opq", "blas_planar_alp")]
+def _bvh_rows(packed, renderer: str) -> int:
+    """Rows of the tables the back end traverses."""
+    names = ("opaque", "alpha", "blas") if renderer == "wide" else (
+        "opaque_planar", "alpha_planar", "blas_planar", "blas_planar_opq", "blas_planar_alp")
+    tables = [getattr(packed, k, None) for k in names]
     return sum(int(t.rows.shape[0]) for t in tables if t is not None)
 
 
@@ -296,7 +303,7 @@ def _run(args, dev, mesh) -> int:
     if scene.instances is None and args.row_width != 16:
         packed = build_accel_bundle(scene.geometry, width=args.row_width)
     r = R.Renderer(scene, cfg, device=dev, packed=packed, fused_shade=args.fused_shade,
-                   tonemapper=tm)
+                   tonemapper=tm, renderer=args.renderer)
     _sync(dev)
     build_s["renderer_s"] = time.time() - t0
     build_s.update(r.build_times)
@@ -309,7 +316,7 @@ def _run(args, dev, mesh) -> int:
             "materials": int(r.scene.materials.ior.shape[0]),
             "lights": int(r.scene.n_lights),
             "textures": int(r.scene.atlas.x.shape[0]),
-            "bvh_nodes": _planar_rows(r.packed),
+            "bvh_nodes": _bvh_rows(r.packed, r.renderer),
             "devices": [str(dev)] if mesh is None else [f"{dev.type} x {mesh.size()} ranks"],
         }), file=sys.stderr)
 
@@ -382,11 +389,12 @@ class _ShardedFrames:
         if r._run_cfg.debug_mode == DEBUG_NONE:
             self.step = sharding.sharded_render_step(
                 mesh, r.scene, r.packed, r._run_cfg, alpha_pack=r.alpha_pack,
-                features=r.features, fused_shade=r.fused_shade, shade_tables=r._shade_tables)
+                features=r.features, fused_shade=r.fused_shade, shade_tables=r._shade_tables,
+                backend=r.renderer)
         else:
             self.step = sharding.sharded_render_step_unrolled(
                 mesh, r.scene, r.packed, r._run_cfg, alpha_pack=r.alpha_pack,
-                features=r.features)
+                features=r.features, backend=r.renderer)
         self.rows = sharding.shard_accum(mesh, r.accum)
 
     def __call__(self) -> None:

@@ -15,6 +15,7 @@ import numpy as np
 
 from .models import schema as S
 from .models.instances import InstanceTable
+from .ops.bvh8 import WideScene
 from .ops.tlas import InstancedAccel
 from .ops.traverse_fused import PlanarScene
 from .ops.traverse_wide import AccelBundle
@@ -34,10 +35,16 @@ def _planar(p):
     return PlanarScene(rows=np.asarray(p.rows), stack_depth=int(p.stack_depth), width=int(p.width))
 
 
+def _wide(w):
+    if w is None:
+        return None
+    return WideScene(rows=np.asarray(w.rows), stack_depth=int(w.stack_depth))
+
+
 def _instanced(acc):
     """The reference's InstancedAccel -> the port's: the planar tables,
-    roots, masks, subset boxes and instance table (not the 8-wide table,
-    which only the reference's XLA fallback reads)."""
+    roots, masks, subset boxes and instance table, and the 8-wide table
+    and its mesh roots (the wide back end's)."""
     arr = lambda x: None if x is None else np.asarray(x)  # noqa: E731
     out = InstancedAccel(
         blas_planar=_planar(acc.blas_planar),
@@ -53,6 +60,8 @@ def _instanced(acc):
         inst_aabb_opq_max=arr(acc.inst_aabb_opq_max),
         inst_aabb_alp_min=arr(acc.inst_aabb_alp_min),
         inst_aabb_alp_max=arr(acc.inst_aabb_alp_max),
+        blas=_wide(acc.blas),
+        mesh_root=arr(acc.mesh_root),
     )
     out.check_root_masks()
     return out
@@ -63,14 +72,15 @@ def _accel(packed):
         return None
     if hasattr(packed, "inst"):
         return _instanced(packed)
-    return AccelBundle(_planar(packed.opaque_planar), _planar(packed.alpha_planar))
+    return AccelBundle(_planar(packed.opaque_planar), _planar(packed.alpha_planar),
+                       _wide(packed.opaque), _wide(packed.alpha))
 
 
 def from_reference(scene, packed=None):
     """Reference (SceneData, AccelBundle or InstancedAccel) -> port
-    (SceneData, AccelBundle or InstancedAccel, or None). The port's
-    structures keep only the planar tables; a two-level scene's own
-    ``instances`` come across too."""
+    (SceneData, AccelBundle or InstancedAccel, or None), with the planar
+    tables of the fused back end and the 8-wide ones of the wide back end;
+    a two-level scene's own ``instances`` come across too."""
     env = scene.env
     port_env = S.Environment(
         image=np.asarray(env.image),

@@ -5,6 +5,8 @@
 //   oct_encode_batch  octahedral unit-vector compression (compress.glsl)
 //   smooth_normals    area-weighted vertex normals
 //   pack_rgba8        RGBA8 vertex-colour packing
+//   build_bvh8        binned-SAH build of 8-wide 256-byte rows (the wide
+//                     back end's layout, ops/bvh8.py::WideScene)
 //   build_bvh16       binned-SAH build of 16-wide planar 512-byte rows
 //   build_bvh32       the same at width 32: 1024-byte rows
 //   png_unfilter      PNG scanline reconstruction (filters 0-4), for the
@@ -144,18 +146,27 @@ int64_t png_unfilter(const uint8_t* raw, int64_t h, int64_t stride, int64_t bpp,
 }  // extern "C"
 
 // ---------------------------------------------------------------------------
-// Huffman JPEG (ITU T.81: baseline, extended sequential and progressive,
-// SOF0 / SOF1 / SOF2, 8-bit samples, 1 or 3 components) decoded to RGBA8
-// exactly as libjpeg-turbo decodes it with its defaults (JDCT_ISLOW, fancy
-// upsampling), which is what Pillow returns:
-//   entropy decoding                     jdhuff.c decode_mcu; progressive
-//                                        scans jdphuff.c (every scan is read
-//                                        before the output, so no block
-//                                        smoothing applies)
+// JPEG (ITU T.81) decoded to RGBA8 exactly as libjpeg-turbo decodes it with
+// its defaults (JDCT_ISLOW, fancy upsampling) and Pillow converts it, 8-bit
+// samples, 1, 3 or 4 components:
+//   Huffman sequential / progressive     jdhuff.c decode_mcu; jdphuff.c
+//     (SOF0, SOF1, SOF2)                 (every scan is read before the
+//                                        output, so no block smoothing)
+//   arithmetic sequential / progressive  jdarith.c: the QM decoder and its
+//     (SOF9, SOF10)                      statistics model (T.81 Annexes D, F,
+//                                        G), DAC conditioning; it fills the
+//                                        same coefficients
+//   lossless, Huffman (SOF3)             jdlhuff.c / jdpred.c: predictors
+//                                        1-7, point transform, every
+//                                        component sampled 1x1
 //   the integer IDCT                     jidctint.c jpeg_idct_islow
 //   the upsampling                       jdsample.c h2v1 / h1v2 / h2v2 fancy
 //                                        (box below 3 columns), int_upsample
-//   the colour conversion                jdcolor.c ycc_rgb_convert tables
+//   the colour conversion                jdcolor.c ycc_rgb_convert and
+//                                        ycck_cmyk_convert tables; CMYK then
+//                                        as Pillow reads it ("CMYK;I", every
+//                                        channel inverted) and converts it
+//                                        (cmyk2rgb: R = (255-K) - C(255-K)/255)
 // Image edges follow libjpeg's context rows: the row above the first is the
 // first, the rows below the last real one repeat it (jdmainct.c).
 // ---------------------------------------------------------------------------
@@ -163,7 +174,104 @@ namespace jpeg {
 
 enum Err : int64_t {
   kOk = 0, kTruncated = 1, kNoFrame = 2, kBadSof = 3, kBadTable = 4, kBadScan = 5,
-  kSampling = 6, kSize = 7,
+  kSampling = 6, kSize = 7, kLosslessSampling = 8,
+};
+
+// T.81 Table D.2 as jaricom.c packs it: Qe << 16 | next index after an MPS
+// << 8 | switch-MPS flag << 7 | next index after an LPS. Entry 113 is the
+// fixed 0.5 bin of the sign and refinement decisions.
+static const uint32_t kAritab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171,
+};
+
+// jdarith.c arith_decode over the entropy-coded bytes from `pos`: a stuffed
+// 0xFF 0x00 reads as 0xFF, a marker stops the input (zeros from there on;
+// `mpos` is where it starts).
+struct Arith {
+  const uint8_t* d;
+  int64_t n, pos;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  bool marker = false, dead = false;
+  int64_t mpos = 0;
+  void restart(int64_t p) {
+    pos = p;
+    c = 0;
+    a = 0;
+    ct = -16;  // forces reading 2 initial bytes to fill C
+    marker = dead = false;
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int data = 0;
+        if (!marker && pos < n) {
+          const int64_t p0 = pos;
+          data = d[pos++];
+          if (data == 0xFF) {
+            do data = pos < n ? d[pos++] : 0xD9; while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;
+            } else {
+              marker = true;
+              mpos = p0;
+              data = 0;
+            }
+          }
+        }
+        c = (c << 8) | data;
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;  // => a = 0x10000 after the loop
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAritab[sv & 0x7F];
+    const int nl = int(qe & 0xFF);
+    qe >>= 8;
+    const int nm = int(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
 };
 
 // Zigzag index -> natural index; entries past 63 absorb a corrupt run
@@ -186,7 +294,8 @@ struct Comp {
   uint16_t quant[64] = {};  // natural order
   int64_t bw = 0, bh = 0;   // blocks allocated (whole MCUs)
   std::vector<int16_t> coef;
-  int dc = 0;
+  std::vector<int32_t> samples;  // lossless frames: the undifferenced samples
+  int dc = 0, ctx = 0;           // DC prediction; arithmetic DC context
 };
 
 struct Bits {
@@ -394,20 +503,22 @@ static int64_t upsample(const uint8_t* in, int64_t stride, int64_t dw, int64_t d
 
 extern "C" {
 
-// Decode a Huffman JPEG of ``w`` x ``h`` pixels into ``out`` (h * w * 4
-// bytes, RGBA, alpha 255). ``ycc``: convert three components from YCbCr
+// Decode a JPEG of ``w`` x ``h`` pixels into ``out`` (h * w * 4 bytes, RGBA,
+// alpha 255). ``ycc``: convert three components from YCbCr, four from YCCK
 // (libjpeg's colour-space guess, made by the caller). Returns 0 or an error
-// code (jpeg::Err); arithmetic, lossless, hierarchical and 12-bit frames are
-// refused by the caller before this.
+// code (jpeg::Err); hierarchical and arithmetic lossless frames and 12-bit
+// samples are refused by the caller before this.
 int64_t jpeg_decode(const uint8_t* d, int64_t n, int64_t ycc, uint8_t* out, int64_t w,
                     int64_t h) {
   using namespace jpeg;
   uint16_t qt[4][64] = {};
   Huff dc[4], ac[4];
+  uint8_t dac_l[4] = {0, 0, 0, 0}, dac_u[4] = {1, 1, 1, 1}, dac_k[4] = {5, 5, 5, 5};
+  uint8_t dc_stats[4][64], ac_stats[4][256];
   std::vector<Comp> comps;
   int hmax = 1, vmax = 1;
   int64_t ri = 0, mcux = 0, mcuy = 0;
-  bool frame = false, progressive = false;
+  bool frame = false, progressive = false, arith = false, lossless = false;
   int64_t pos = 2;
   if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) return kTruncated;
   for (;;) {
@@ -457,15 +568,31 @@ int64_t jpeg_decode(const uint8_t* d, int64_t n, int64_t ycc, uint8_t* out, int6
         t.defined = true;
         i += 17 + total;
       }
+    } else if (m == 0xCC) {  // DAC: arithmetic conditioning (jdmarker.c get_dac)
+      for (int64_t i = 0; i + 1 < sl; i += 2) {
+        const int idx = s[i], val = s[i + 1];
+        if (idx >= 32) return kBadTable;
+        if (idx >= 16) {
+          if (val < 1 || val > 63) return kBadTable;
+          dac_k[(idx - 16) & 3] = uint8_t(val);
+        } else {
+          dac_l[idx & 3] = uint8_t(val & 15);
+          dac_u[idx & 3] = uint8_t(val >> 4);
+          if (dac_l[idx & 3] > dac_u[idx & 3]) return kBadTable;
+        }
+      }
     } else if (m == 0xDD) {  // DRI
       if (sl < 2) return kBadTable;
       ri = (int64_t(s[0]) << 8) | s[1];
-    } else if (m == 0xC0 || m == 0xC1 || m == 0xC2) {  // SOF0 / SOF1 / SOF2
-      progressive = m == 0xC2;
+    } else if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 || m == 0xCA) {
+      progressive = m == 0xC2 || m == 0xCA;
+      arith = m == 0xC9 || m == 0xCA;
+      lossless = m == 0xC3;
       if (sl < 6 || s[0] != 8) return kBadSof;
       const int64_t fh = (int64_t(s[1]) << 8) | s[2], fw = (int64_t(s[3]) << 8) | s[4];
       const int nc = s[5];
-      if (fh != h || fw != w || (nc != 1 && nc != 3) || sl < 6 + 3 * nc) return kBadSof;
+      if (fh != h || fw != w || (nc != 1 && nc != 3 && nc != 4) || sl < 6 + 3 * nc)
+        return kBadSof;
       comps.assign(nc, Comp());
       for (int c = 0; c < nc; ++c) {
         comps[c].id = s[6 + 3 * c];
@@ -478,13 +605,18 @@ int64_t jpeg_decode(const uint8_t* d, int64_t n, int64_t ycc, uint8_t* out, int6
         hmax = std::max(hmax, comps[c].h);
         vmax = std::max(vmax, comps[c].v);
       }
-      mcux = (w + 8 * hmax - 1) / (8 * hmax);
-      mcuy = (h + 8 * vmax - 1) / (8 * vmax);
-      for (Comp& c : comps) {
-        if (hmax % c.h || vmax % c.v) return kSampling;
-        c.bw = mcux * c.h;
-        c.bh = mcuy * c.v;
-        c.coef.assign(size_t(c.bw * c.bh * 64), 0);
+      if (lossless) {  // a sample per block
+        if (hmax != 1 || vmax != 1) return kLosslessSampling;
+        for (Comp& c : comps) c.samples.assign(size_t(w * h), 0);
+      } else {
+        mcux = (w + 8 * hmax - 1) / (8 * hmax);
+        mcuy = (h + 8 * vmax - 1) / (8 * vmax);
+        for (Comp& c : comps) {
+          if (hmax % c.h || vmax % c.v) return kSampling;
+          c.bw = mcux * c.h;
+          c.bh = mcuy * c.v;
+          c.coef.assign(size_t(c.bw * c.bh * 64), 0);
+        }
       }
       frame = true;
     } else if (m == 0xDA) {  // SOS: one scan's entropy-coded data follows
@@ -505,21 +637,25 @@ int64_t jpeg_decode(const uint8_t* d, int64_t n, int64_t ycc, uint8_t* out, int6
           c->latched = true;
         }
         c->dc = 0;
+        c->ctx = 0;
         sc.push_back(c);
       }
       // The spectral band and successive approximation (sequential: 0-63,
-      // no refinement); what the scan codes and the tables it needs.
+      // no refinement; lossless: the predictor and the point transform);
+      // what the scan codes and the tables it needs.
       const int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], ah = s[3 + 2 * ns] >> 4,
                 al = s[3 + 2 * ns] & 15;
-      enum Kind { kSeq, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
-      Kind kind = kSeq;
+      enum Kind { kSeq, kDcFirst, kDcRefine, kAcFirst, kAcRefine, kLossless };
+      Kind kind = lossless ? kLossless : kSeq;
+      if (lossless && (ss < 1 || ss > 7 || al > 7)) return kBadScan;
       if (progressive) {
         if (ss == 0 && se != 0) return kBadScan;
         if (ss > 0 && (se < ss || se > 63 || ns != 1)) return kBadScan;
         kind = ss == 0 ? (ah ? kDcRefine : kDcFirst) : (ah ? kAcRefine : kAcFirst);
       }
       for (Comp* c : sc) {
-        const bool need_dc = kind == kSeq || kind == kDcFirst;
+        if (arith) break;
+        const bool need_dc = kind == kSeq || kind == kDcFirst || kind == kLossless;
         const bool need_ac = kind == kSeq || kind == kAcFirst || kind == kAcRefine;
         if ((need_dc && !dc[c->td].defined) || (need_ac && !ac[c->ta].defined)) return kBadTable;
       }
@@ -610,51 +746,221 @@ int64_t jpeg_decode(const uint8_t* d, int64_t n, int64_t ycc, uint8_t* out, int6
           }
         }
       };
+      // The same blocks, arithmetic-coded (jdarith.c decode_mcu,
+      // decode_mcu_DC_first, _DC_refine, _AC_first, _AC_refine). A decision
+      // past the spectral end or a magnitude past 15 bits marks the rest of
+      // the restart interval dead, as libjpeg does (ct = -1).
+      uint8_t fixed_bin = 113;
+      auto ablock = [&](Arith& ar, Comp* c, int16_t* blk) {
+        if (ar.dead) return;
+        if (kind == kSeq || kind == kDcFirst) {
+          uint8_t* S = dc_stats[c->td];
+          int st = c->ctx;
+          if (ar.decode(S + st) == 0) {
+            c->ctx = 0;
+          } else {
+            const int sign = ar.decode(S + st + 1);
+            st += 2 + sign;
+            int mm = ar.decode(S + st);
+            if (mm != 0) {
+              st = 20;
+              while (ar.decode(S + st)) {
+                if ((mm <<= 1) == 0x8000) {
+                  ar.dead = true;
+                  return;
+                }
+                st += 1;
+              }
+            }
+            if (mm < ((1 << dac_l[c->td]) >> 1))
+              c->ctx = 0;
+            else if (mm > ((1 << dac_u[c->td]) >> 1))
+              c->ctx = 12 + sign * 4;
+            else
+              c->ctx = 4 + sign * 4;
+            int v = mm;
+            st += 14;
+            while (mm >>= 1)
+              if (ar.decode(S + st)) v |= mm;
+            v += 1;
+            if (sign) v = -v;
+            c->dc = (c->dc + v) & 0xFFFF;
+          }
+          blk[0] = int16_t(uint16_t(kind == kSeq ? c->dc : c->dc << al));
+          if (kind == kDcFirst) return;
+        }
+        if (kind == kDcRefine) {
+          if (ar.decode(&fixed_bin)) blk[0] = int16_t(blk[0] | (1 << al));
+          return;
+        }
+        uint8_t* S = ac_stats[c->ta];
+        const int k0 = kind == kSeq ? 1 : ss, k1 = kind == kSeq ? 63 : se;
+        if (kind == kAcRefine) {
+          const int p1 = 1 << al, m1 = -1 * (1 << al);
+          int kex = k1;
+          for (; kex > 0; --kex)
+            if (blk[kNatural[kex]]) break;
+          for (int k = k0; k <= k1; ++k) {
+            int st = 3 * (k - 1);
+            if (k > kex && ar.decode(S + st)) break;  // end of band
+            for (;;) {
+              int16_t& coef = blk[kNatural[k]];
+              if (coef) {  // previously nonzero: a correction bit
+                if (ar.decode(S + st + 2)) coef = int16_t(coef < 0 ? coef + m1 : coef + p1);
+                break;
+              }
+              if (ar.decode(S + st + 1)) {  // newly nonzero
+                coef = int16_t(ar.decode(&fixed_bin) ? m1 : p1);
+                break;
+              }
+              st += 3;
+              if (++k > k1) {
+                ar.dead = true;
+                return;
+              }
+            }
+          }
+          return;
+        }
+        for (int k = k0; k <= k1; ++k) {
+          int st = 3 * (k - 1);
+          if (ar.decode(S + st)) break;  // end of block
+          while (ar.decode(S + st + 1) == 0) {
+            st += 3;
+            if (++k > k1) {
+              ar.dead = true;
+              return;
+            }
+          }
+          const int sign = ar.decode(&fixed_bin);
+          st += 2;
+          int mm = ar.decode(S + st);
+          if (mm != 0 && ar.decode(S + st)) {
+            mm <<= 1;
+            st = k <= dac_k[c->ta] ? 189 : 217;
+            while (ar.decode(S + st)) {
+              if ((mm <<= 1) == 0x8000) {
+                ar.dead = true;
+                return;
+              }
+              st += 1;
+            }
+          }
+          int v = mm;
+          st += 14;
+          while (mm >>= 1)
+            if (ar.decode(S + st)) v |= mm;
+          v += 1;
+          if (sign) v = -v;
+          blk[kNatural[k]] = int16_t(kind == kSeq ? v : int(unsigned(v) << al));
+        }
+      };
+      // The statistics a scan starts (and each restart interval restarts)
+      // from: the DC bins of DC scans, the AC bins of AC scans.
+      auto reset_stats = [&]() {
+        for (Comp* c : sc) {
+          if (kind == kSeq || kind == kDcFirst) std::memset(dc_stats[c->td], 0, 64);
+          if (kind == kSeq || kind == kAcFirst || kind == kAcRefine)
+            std::memset(ac_stats[c->ta], 0, 256);
+          c->dc = 0;
+          c->ctx = 0;
+        }
+      };
       // A one-component scan codes that component's own blocks, row by row
-      // (not whole MCUs); an interleaved scan codes whole MCUs.
+      // (not whole MCUs); an interleaved scan codes whole MCUs. A lossless
+      // scan's block is one sample.
       int64_t nx = mcux, ny = mcuy;
-      if (ns == 1) {
+      if (lossless) {
+        nx = w;
+        ny = h;
+      } else if (ns == 1) {
         const Comp& c = *sc[0];
         nx = ((w * c.h + hmax - 1) / hmax + 7) / 8;
         ny = ((h * c.v + vmax - 1) / vmax + 7) / 8;
       }
       Bits b{d, n, pos};
+      Arith ar{d, n, pos};
+      if (arith) reset_stats();
       int64_t todo = ri;
+      // Lossless prediction state: the first sample of an interval takes
+      // 2^(7 - Pt), the rest of its first line the left neighbour.
+      bool first_sample = true;
+      int64_t first_line = 0;
       for (int64_t my = 0; my < ny; ++my) {
         for (int64_t mx = 0; mx < nx; ++mx) {
-          if (ri && todo == 0) {  // jdhuff.c process_restart
-            b.reset();
-            b.marker = false;
-            while (b.pos + 1 < n && !(d[b.pos] == 0xFF && d[b.pos + 1] >= 0xD0 &&
-                                      d[b.pos + 1] <= 0xD7))
-              ++b.pos;
-            b.pos += 2;
+          if (ri && todo == 0) {  // jdhuff.c / jdarith.c process_restart
+            int64_t p = arith ? (ar.marker ? ar.mpos : ar.pos) : b.pos;
+            while (p + 1 < n && !(d[p] == 0xFF && d[p + 1] >= 0xD0 && d[p + 1] <= 0xD7)) ++p;
+            p += 2;
+            if (arith) {
+              ar.restart(p);
+              reset_stats();
+            } else {
+              b.reset();
+              b.marker = false;
+              b.pos = p;
+            }
             for (Comp* c : sc) c->dc = 0;
             eobrun = 0;
             todo = ri;
+            first_sample = true;
+            first_line = my;
           }
           for (Comp* c : sc) {
+            if (kind == kLossless) {  // jdlhuff.c decode_mcus, jdpred.c
+              const int t = decode_sym(b, dc[c->td]);
+              const int diff = t == 16 ? 32768 : (t ? extend(b.get(t), t) : 0);
+              int32_t* px = c->samples.data();
+              const int64_t i = my * w + mx;
+              int pred;
+              if (first_sample) {
+                pred = 1 << (7 - al);
+              } else if (my == first_line) {
+                pred = px[i - 1];
+              } else if (mx == 0) {
+                pred = px[i - w];
+              } else {
+                const int ra = px[i - 1], rb = px[i - w], rc = px[i - w - 1];
+                switch (ss) {
+                  case 1: pred = ra; break;
+                  case 2: pred = rb; break;
+                  case 3: pred = rc; break;
+                  case 4: pred = ra + rb - rc; break;
+                  case 5: pred = ra + ((rb - rc) >> 1); break;
+                  case 6: pred = rb + ((ra - rc) >> 1); break;
+                  default: pred = (ra + rb) >> 1; break;
+                }
+              }
+              px[i] = (pred + diff) & 0xFFFF;
+              continue;
+            }
             const int bh = ns == 1 ? 1 : c->v, bwn = ns == 1 ? 1 : c->h;
             for (int by = 0; by < bh; ++by) {
               for (int bx = 0; bx < bwn; ++bx) {
                 const int64_t gx = ns == 1 ? mx : mx * c->h + bx;
                 const int64_t gy = ns == 1 ? my : my * c->v + by;
-                block(b, c, c->coef.data() + (gy * c->bw + gx) * 64);
+                int16_t* blk = c->coef.data() + (gy * c->bw + gx) * 64;
+                if (arith) ablock(ar, c, blk);
+                else block(b, c, blk);
               }
             }
           }
+          first_sample = false;
           if (ri) --todo;
         }
       }
       // Resume the segment walk at the marker that ends the scan.
-      pos = b.pos;
+      pos = arith ? (ar.marker ? ar.mpos : ar.pos) : b.pos;
       while (pos + 1 < n && !(d[pos] == 0xFF && d[pos + 1] != 0x00 &&
                               !(d[pos + 1] >= 0xD0 && d[pos + 1] <= 0xD7)))
         ++pos;
-    } else if ((m >= 0xC3 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC)) {
+      if (lossless)
+        for (Comp* c : sc)
+          for (int32_t& v : c->samples) v = uint8_t(v << al);  // the point transform
+    } else if ((m >= 0xC5 && m <= 0xCF && m != 0xC8 && m != 0xCC)) {
       return kBadSof;  // another frame type: the caller names it first
     }
-    // APPn, COM, DNL, DAC and the rest: skipped.
+    // APPn, COM, DNL and the rest: skipped.
   }
   if (!frame) return kNoFrame;
   // IDCT, upsampling and colour conversion.
@@ -662,6 +968,10 @@ int64_t jpeg_decode(const uint8_t* d, int64_t n, int64_t ycc, uint8_t* out, int6
   std::vector<std::vector<uint8_t>> planes(nc);
   for (int ci = 0; ci < nc; ++ci) {
     Comp& c = comps[ci];
+    if (lossless) {
+      planes[ci].assign(c.samples.begin(), c.samples.end());
+      continue;
+    }
     const int64_t stride = c.bw * 8;
     std::vector<uint8_t> plane(size_t(stride * c.bh * 8));
     for (int64_t by = 0; by < c.bh; ++by)
@@ -688,6 +998,20 @@ int64_t jpeg_decode(const uint8_t* d, int64_t n, int64_t ycc, uint8_t* out, int6
     uint8_t* o = out + 4 * i;
     if (nc == 1) {
       o[0] = o[1] = o[2] = planes[0][i];
+    } else if (nc == 4) {
+      int cmyk[4] = {planes[0][i], planes[1][i], planes[2][i], planes[3][i]};
+      if (ycc) {  // jdcolor.c ycck_cmyk_convert
+        const int y = cmyk[0], cb = cmyk[1], cr = cmyk[2];
+        cmyk[0] = clamp(255 - (y + cr_r[cr]));
+        cmyk[1] = clamp(255 - (y + int((cb_g[cb] + cr_g[cr]) >> SB)));
+        cmyk[2] = clamp(255 - (y + cb_b[cb]));
+      }
+      // Pillow: "CMYK;I" inverts every channel, then cmyk2rgb.
+      const int nk = cmyk[3];  // 255 - (255 - K)
+      for (int k = 0; k < 3; ++k) {
+        const int tmp = (255 - cmyk[k]) * nk + 128;
+        o[k] = clamp(nk - (((tmp >> 8) + tmp) >> 8));
+      }
     } else if (!ycc) {
       o[0] = planes[0][i];
       o[1] = planes[1][i];
@@ -831,6 +1155,161 @@ inline int64_t split_range(Ctx& c, int64_t lo, int64_t hi) {
 }
 
 }  // namespace wbvh
+
+// ---------------------------------------------------------------------------
+// 8-wide builder: top-down binned SAH emitting the wide back end's 256-byte
+// rows (ops/bvh8.py::WideScene, read by csrc/traverse_wide.cu).
+//
+// Row layout:
+//   interior: lanes [6c..6c+5] = child c AABB (min.xyz, max.xyz),
+//             lanes [48+c]     = child ref (>=0 interior row id;
+//                                <0 => -(leaf_row*4 + count-1 + 1));
+//             empty slots: inverted AABB (+3e38/-3e38), ref 0.
+//   leaf:     4 x 16-lane packed triangles: p0 p1 p2 (9), uv0 uv1 uv2 (6),
+//             lane 15 = original_tri_id*4 + (flags & 3).
+// Shares the binned-SAH splitter with the planar builders below.
+// ---------------------------------------------------------------------------
+
+namespace w8 {
+
+using wbvh::BBox;
+using wbvh::Ctx;
+using wbvh::kInvalid;
+constexpr int kLeafMax = 4;
+
+inline int64_t alloc_row(Ctx& c) {
+  if (c.n_rows >= c.max_rows) {
+    c.overflow = true;
+    return 0;
+  }
+  std::memset(c.rows + c.n_rows * 64, 0, 64 * sizeof(float));
+  return c.n_rows++;
+}
+
+inline float make_leaf(Ctx& c, int64_t lo, int64_t hi) {
+  const int64_t row = alloc_row(c);
+  float* r = c.rows + row * 64;
+  const int cnt = int(hi - lo);
+  for (int j = 0; j < cnt; ++j) {
+    const int32_t p = c.prim[size_t(lo + j)];
+    float* e = r + j * 16;
+    for (int v = 0; v < 3; ++v) {
+      const int32_t vi = c.idx[p * 3 + v];
+      e[v * 3 + 0] = c.pos[vi * 3 + 0];
+      e[v * 3 + 1] = c.pos[vi * 3 + 1];
+      e[v * 3 + 2] = c.pos[vi * 3 + 2];
+      e[9 + v * 2 + 0] = c.uv[vi * 2 + 0];
+      e[9 + v * 2 + 1] = c.uv[vi * 2 + 1];
+    }
+    const int64_t orig = c.tri_ids ? c.tri_ids[p] : p;
+    e[15] = float(orig * 4 + (c.flags[p] & 3));
+  }
+  const int64_t leaf_code = row * 4 + (cnt - 1);
+  return float(-(leaf_code + 1));
+}
+
+float build_node(Ctx& c, int64_t lo, int64_t hi, BBox& out, bool force_interior);
+
+// Split [lo, hi) into up to 8 parts (the part of largest bounds area x count
+// first) and emit one interior row over them.
+inline float make_interior(Ctx& c, int64_t lo, int64_t hi) {
+  int64_t parts[9];  // part i = [parts[i], parts[i+1])
+  int n_parts = 1;
+  parts[0] = lo;
+  parts[1] = hi;
+  float metric[8];
+  auto part_metric = [&](int64_t a, int64_t b) {
+    if (b - a <= kLeafMax) return -1.0f;
+    BBox bx;
+    bx.reset();
+    for (int64_t i = a; i < b; ++i) bx.grow(c.tbox[size_t(c.prim[size_t(i)])]);
+    return bx.area() * float(b - a);
+  };
+  metric[0] = part_metric(lo, hi);
+  while (n_parts < 8) {
+    int pick = -1;
+    float best = 0.0f;
+    for (int i = 0; i < n_parts; ++i) {
+      if (metric[i] > best) { best = metric[i]; pick = i; }
+    }
+    if (pick < 0) break;
+    const int64_t mid = wbvh::split_range(c, parts[pick], parts[pick + 1]);
+    for (int i = n_parts; i > pick; --i) {
+      parts[i + 1] = parts[i];
+      metric[i] = metric[i - 1];
+    }
+    parts[pick + 1] = mid;
+    metric[pick] = part_metric(parts[pick], mid);
+    metric[pick + 1] = part_metric(mid, parts[pick + 2]);
+    ++n_parts;
+  }
+
+  const int64_t row = alloc_row(c);
+  for (int i = 0; i < n_parts && !c.overflow; ++i) {
+    BBox box;
+    const float ref = build_node(c, parts[i], parts[i + 1], box, false);
+    float* r = c.rows + row * 64;
+    r[i * 6 + 0] = box.mn[0];
+    r[i * 6 + 1] = box.mn[1];
+    r[i * 6 + 2] = box.mn[2];
+    r[i * 6 + 3] = box.mx[0];
+    r[i * 6 + 4] = box.mx[1];
+    r[i * 6 + 5] = box.mx[2];
+    r[48 + i] = ref;
+  }
+  float* r = c.rows + row * 64;
+  for (int i = n_parts; i < 8; ++i) {
+    r[i * 6 + 0] = r[i * 6 + 1] = r[i * 6 + 2] = kInvalid;
+    r[i * 6 + 3] = r[i * 6 + 4] = r[i * 6 + 5] = -kInvalid;
+    r[48 + i] = 0.0f;
+  }
+  return float(row);
+}
+
+float build_node(Ctx& c, int64_t lo, int64_t hi, BBox& out, bool force_interior) {
+  out.reset();
+  for (int64_t i = lo; i < hi; ++i) out.grow(c.tbox[size_t(c.prim[size_t(i)])]);
+  if (c.overflow) return 0.0f;
+  if (!force_interior && hi - lo <= kLeafMax) return make_leaf(c, lo, hi);
+  return make_interior(c, lo, hi);
+}
+
+}  // namespace w8
+
+extern "C" {
+
+// Returns the number of rows written, or -1 if max_rows was insufficient.
+// Row 0 is always the interior root.
+int64_t build_bvh8(const float* positions, const int32_t* indices, const float* uv,
+                   const int32_t* tri_ids, const int32_t* tri_flags, int64_t n_tris,
+                   float* rows_out, int64_t max_rows) {
+  if (n_tris < 1 || max_rows < 2) return -1;
+  wbvh::Ctx c;
+  c.pos = positions;
+  c.idx = indices;
+  c.uv = uv;
+  c.tri_ids = tri_ids;
+  c.flags = tri_flags;
+  c.n_tris = n_tris;
+  c.rows = rows_out;
+  c.max_rows = max_rows;
+  c.tbox.resize(size_t(n_tris));
+  c.cent.resize(size_t(n_tris) * 3);
+  c.prim.resize(size_t(n_tris));
+  for (int64_t t = 0; t < n_tris; ++t) {
+    wbvh::BBox& b = c.tbox[size_t(t)];
+    b.reset();
+    for (int v = 0; v < 3; ++v) b.grow(positions + size_t(indices[t * 3 + v]) * 3);
+    for (int k = 0; k < 3; ++k) c.cent[size_t(t) * 3 + k] = 0.5f * (b.mn[k] + b.mx[k]);
+    c.prim[size_t(t)] = int32_t(t);
+  }
+  wbvh::BBox root_box;
+  const float root = w8::build_node(c, 0, n_tris, root_box, /*force_interior=*/true);
+  if (c.overflow || root != 0.0f) return -1;
+  return c.n_rows;
+}
+
+}  // extern "C"
 
 // ---------------------------------------------------------------------------
 // W-wide planar BVH builder (W = 16 or 32): rows of W*8 f32 lanes in the

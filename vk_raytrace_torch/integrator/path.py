@@ -131,29 +131,33 @@ def _debug_info(cfg, state) -> torch.Tensor:
     raise ValueError(f"debug mode {mode} shows no first-hit state")
 
 
-def _bundle_tracer(scene, packed, pack):
-    """``(closest, occluded)`` over the scene's own acceleration structure:
-    the two-level rounds for an ``InstancedAccel``, else the bundle's trees."""
+def _bundle_tracer(scene, packed, pack, backend="fused"):
+    """``(closest, occluded)`` over the scene's own acceleration structure
+    by traversal ``backend`` ("fused" or "wide"): the two-level rounds for
+    an ``InstancedAccel``, else the bundle's trees."""
     from ..ops.tlas import InstancedAccel, any_hit_instanced, closest_hit_instanced
     from ..ops.traverse_wide import any_hit_bundle, closest_hit_bundle
 
     if isinstance(packed, InstancedAccel):
         def closest(o, d, seed, active):
-            return closest_hit_instanced(packed, pack, o, d, seed=seed, active=active)
+            return closest_hit_instanced(packed, pack, o, d, seed=seed, active=active,
+                                         backend=backend)
 
         def occluded(o, d, t_max, seed, active):
-            return any_hit_instanced(packed, pack, o, d, t_max, seed=seed, active=active)
+            return any_hit_instanced(packed, pack, o, d, t_max, seed=seed, active=active,
+                                     backend=backend)
     else:
         def closest(o, d, seed, active):
-            return closest_hit_bundle(packed, pack, o, d, seed, active=active)
+            return closest_hit_bundle(packed, pack, o, d, seed, active=active, backend=backend)
 
         def occluded(o, d, t_max, seed, active):
-            return any_hit_bundle(packed, pack, o, d, t_max, seed, active=active)
+            return any_hit_bundle(packed, pack, o, d, t_max, seed, active=active,
+                                  backend=backend)
     return closest, occluded
 
 
 def trace_paths(scene, packed, cfg, origin, direction, seed, alpha_pack=None, tracer=None,
-                features=None) -> PathState:
+                features=None, backend="fused") -> PathState:
     """Run the bounce loop for a batch of primary rays; returns the final
     :class:`PathState` (``radiance`` before the firefly clamp).
 
@@ -161,7 +165,8 @@ def trace_paths(scene, packed, cfg, origin, direction, seed, alpha_pack=None, tr
     triangles). ``tracer``: a traversal back end with ``closest(o, d, seed,
     active)`` and ``occluded(o, d, t_max, seed, active)`` in place of the
     scene's acceleration structure (the BVH-free anchor,
-    :class:`integrator.brute.BruteTracer`)."""
+    :class:`integrator.brute.BruteTracer`). ``backend``: the traversal back
+    end over ``packed``, "fused" or "wide"."""
     if cfg.use_sun_sky:
         raise ValueError("bake the sun&sky first (render.prepare_sun_sky)")
     r = origin.shape[0]
@@ -182,7 +187,7 @@ def trace_paths(scene, packed, cfg, origin, direction, seed, alpha_pack=None, tr
     if tracer is not None:
         closest, occluded = tracer.closest, tracer.occluded
     else:
-        closest, occluded = _bundle_tracer(scene, packed, pack)
+        closest, occluded = _bundle_tracer(scene, packed, pack, backend)
     use_mips = mip_lod_enabled(scene, cfg)
     spread = pixel_spread(scene, cfg.height) if use_mips else None
     p_select_light = 0.5 if cfg.hdr_multiplier > 0.0 else 1.0
@@ -304,12 +309,12 @@ def trace_paths(scene, packed, cfg, origin, direction, seed, alpha_pack=None, tr
 
 
 def sample_pixels(scene, packed, cfg, origin, direction, seed, alpha_pack=None, tracer=None,
-                  features=None):
+                  features=None, backend="fused"):
     """One sample per ray: :func:`trace_paths`, the firefly clamp and the
     debug outputs (``samplePixel``, pathtrace.glsl:348-387). Returns
     ``(radiance (R, 3), seed', PathState)``."""
     st = trace_paths(scene, packed, cfg, origin, direction, seed, alpha_pack=alpha_pack,
-                     tracer=tracer, features=features)
+                     tracer=tracer, features=features, backend=backend)
     lum = firefly_luminance(st.radiance)
     clamp = cfg.firefly_clamp
     scale = torch.where(lum > clamp, clamp / torch.clamp(lum, min=1e-20), 1.0)

@@ -51,6 +51,7 @@ _FIELDS = (
 def render_units_pooled(
     scene, packed, cfg, frame: int, pix0: int, n_pix: int, pool: int,
     alpha_pack=None, features=None, fused_shade: bool = False, shade_tables=None, stream=None,
+    backend: str = "fused",
 ):
     """Trace ``n_pix * cfg.max_samples`` paths of pixels ``[pix0, pix0 +
     n_pix)``. A path's random stream is ``rng.tea(pixel, stream * spp +
@@ -58,6 +59,9 @@ def render_units_pooled(
     camera jitter (sample shards pass a stream of their own,
     ``parallel/sharding.py``). Returns ``(radiance_mean (n_pix, 3), rays)``; ``rays`` counts
     every traced ray (closest-hit rays plus shadow rays) as a 0-d tensor.
+    ``backend``: the traversal back end, "fused" or "wide"
+    (``ops/traverse_wide.py``; the wide one needs ``packed``'s 8-wide
+    tables).
     ``fused_shade`` asks for the fused shading stage; it runs where
     ``shade_fused.supported`` holds, the unfused stage elsewhere (the
     reference's rule; ``shade_fused.supported`` says which ran).
@@ -88,13 +92,14 @@ def render_units_pooled(
 
     def closest(o, d, seed):
         if instances is not None:
-            return closest_hit_instanced(packed, pack, o, d, seed=seed)
-        return closest_hit_bundle(packed, pack, o, d, seed)
+            return closest_hit_instanced(packed, pack, o, d, seed=seed, backend=backend)
+        return closest_hit_bundle(packed, pack, o, d, seed, backend=backend)
 
     def occluded(o, d, t_max, seed, active):
         if instances is not None:
-            return any_hit_instanced(packed, pack, o, d, t_max, seed=seed, active=active)
-        return any_hit_bundle(packed, pack, o, d, t_max, seed, active=active)
+            return any_hit_instanced(packed, pack, o, d, t_max, seed=seed, active=active,
+                                     backend=backend)
+        return any_hit_bundle(packed, pack, o, d, t_max, seed, active=active, backend=backend)
 
     def unit_to_local(p_rank):
         t_id = p_rank // 64

@@ -23,6 +23,15 @@ whose triangles are all alpha-tested has no subsets: the instance-level
 split runs the alpha machine alone, over the full tables of the instances
 that carry alpha triangles (the rest have none).
 
+The wide back end (``backend="wide"``, the reference's non-fused route)
+reads the meshes' 8-wide tables instead (``blas``, ``mesh_root``, built at
+its first use by :func:`with_wide`): one pass of rounds over every instance
+without an alpha pack; with one, the instance-level split: the instances
+without alpha triangles first, then the alpha-carrying instances with the
+alpha test inline (``ops/traverse_wide.py``), windowed by the opaque result.
+Each round is one ``vkrt_traverse_wide`` launch with per-lane roots (a host
+sync a round; :func:`_wide_pass`).
+
 On the card each pass is one kernel launch (``csrc/traverse.cu``:
 ``vkrt_opaque_machine`` for the opaque rounds, ``vkrt_alpha_machine`` for
 the alpha rounds): each thread runs its ray's rounds to the end, the
@@ -51,6 +60,7 @@ from ..models.schema import Tables
 from . import traverse_fused as tf
 from .math import mat3_vec
 from .traverse_fused import INF, Hit, PlanarScene
+from .traverse_wide import check_backend
 
 _NEG = -3.0e38             # "before every entry t" for the enumeration
 # Instances up to which the round loops keep an (R, I) entry table and the
@@ -90,6 +100,13 @@ class InstancedAccel(Tables):
     inst_aabb_opq_max: object = None
     inst_aabb_alp_min: object = None
     inst_aabb_alp_max: object = None
+    # The wide back end's tables: every mesh's 8-wide BVH concatenated
+    # (``bvh8.WideScene``) and the mesh roots in it, None until
+    # :func:`with_wide` builds them from the pool's triangle ranges.
+    blas: object = None
+    mesh_root: object = None
+    mesh_tri_start: object = None     # (M,) first triangle of each mesh
+    mesh_tri_count: object = None     # (M,)
 
     def __post_init__(self):
         # The round machine kernels' instance tables by subset, built at
@@ -253,6 +270,8 @@ def build_instanced_accel(pool: MeshPool, inst: InstanceTable, width: int = 16) 
     accel = InstancedAccel(
         blas_planar=planar, mesh_root_planar=roots, inst=inst,
         inst_alpha=per_mesh_any(alpha_sel)[mid],
+        mesh_tri_start=np.asarray(pool.tri_start, np.int64),
+        mesh_tri_count=np.asarray(pool.tri_count, np.int64),
     )
     if alpha_sel.any() and (~alpha_sel).any():
         opq, opq_roots = _planar_concat(pool, pos, idx, uvs, flg, ~alpha_sel, width)
@@ -269,6 +288,83 @@ def build_instanced_accel(pool: MeshPool, inst: InstanceTable, width: int = 16) 
         )
     accel.check_root_masks()
     return accel
+
+
+def _classify_interior8(rows: np.ndarray) -> np.ndarray:
+    """Interior-row mask of an 8-wide table (``bvh8.WideScene`` layout): a
+    frontier walk of the interior refs from row 0."""
+    n = len(rows)
+    valid = rows[:, 0:48:6] <= rows[:, 3:48:6]
+    refs = rows[:, 48:56]
+    interior = np.zeros(n, bool)
+    frontier = np.asarray([0], np.int64)
+    while frontier.size:
+        interior[frontier] = True
+        r = refs[frontier]
+        kids = np.unique(r[valid[frontier] & (r >= 0.5)].astype(np.int64))
+        kids = kids[kids < n]
+        frontier = kids[~interior[kids]]
+    return interior
+
+
+def build_wide_blas(geometry, tri_start, tri_count):
+    """Every mesh's 8-wide BVH (object space, pool-global triangle ids)
+    concatenated with absolute refs (interior refs shift by the table's
+    base row, leaf refs ``-(row*4 + count)`` by ``4 * base``): ``(WideScene,
+    (M,) int32 roots)``, from the disk cache when it holds them."""
+    from ..utils import cache
+    from .bvh8 import WideScene, builder_digest, host_geometry, stack_bound
+
+    g = host_geometry(geometry)
+    pos, idx, uvs, flg = g.positions, g.indices, g.uv, g.tri_flags
+    tri_start = np.asarray(tri_start, np.int64)
+    tri_count = np.asarray(tri_count, np.int64)
+    key = cache.content_key("wide-blas-v1", pos, idx, uvs, flg, tri_start, tri_count,
+                            builder_digest())
+    hit = cache.load(key)
+    if hit is not None:
+        try:
+            return (WideScene(np.ascontiguousarray(hit["rows"], np.float32), int(hit["depth"])),
+                    np.asarray(hit["roots"], np.int32))
+        except (KeyError, ValueError):
+            cache.remove(key)
+    tables, roots = [], []
+    base, depth = 0, 1
+    for lo, cnt in zip(tri_start, tri_count):
+        ids = np.arange(lo, lo + cnt, dtype=np.int32)
+        rows = runtime.build_bvh8_rows(pos, idx[lo:lo + cnt], uvs, flg[lo:lo + cnt], tri_ids=ids)
+        depth = max(depth, stack_bound(rows))
+        if base:
+            interior = _classify_interior8(rows)
+            valid = rows[:, 0:48:6] <= rows[:, 3:48:6]
+            refs = rows[:, 48:56]
+            fixed = np.where(refs >= 0, refs + base, refs - 4 * base)
+            rows[:, 48:56] = np.where(interior[:, None] & valid, fixed, refs)
+        roots.append(base)
+        base += len(rows)
+        tables.append(rows)
+    runtime._check_ref_ceiling(base, 4)
+    blas = WideScene(rows=np.concatenate(tables, axis=0), stack_depth=depth)
+    roots = np.asarray(roots, np.int32)
+    cache.save(key, rows=blas.rows, depth=blas.stack_depth, roots=roots)
+    return blas, roots
+
+
+def with_wide(accel: InstancedAccel, geometry) -> InstancedAccel:
+    """``accel`` with the wide back end's tables (built by
+    :func:`build_wide_blas` from the pool ``geometry`` and the accel's mesh
+    ranges when it has none), on the device of its planar rows."""
+    if accel.blas is not None:
+        return accel
+    if accel.mesh_tri_start is None:
+        raise ValueError("the accel has no 8-wide tables and no mesh ranges to build them from")
+    blas, roots = build_wide_blas(geometry, np.asarray(torch.as_tensor(accel.mesh_tri_start).cpu()),
+                                  np.asarray(torch.as_tensor(accel.mesh_tri_count).cpu()))
+    rows = accel.blas_planar.rows
+    if isinstance(rows, torch.Tensor):
+        blas = blas.to(rows.device)
+        roots = torch.as_tensor(roots, device=rows.device)
+    return dataclasses.replace(accel, blas=blas, mesh_root=roots)
 
 
 # ---------------------------------------------------------------------------
@@ -663,8 +759,99 @@ def _alpha_machine_cuda(accel, pack, origin, direction, t_max, seed, act, any_hi
     return t, tri.long(), u, v, inst.long(), seed_out, steps
 
 
+def _wide_pass(accel, pack, origin, direction, t_max, seed, act, mask, any_hit, rounds=None,
+               scan=None):
+    """The wide back end's rounds over the instances of ``mask`` (None:
+    every instance; the reference's ``_two_level_pass`` with its XLA body):
+    each round traverses the candidate instance's 8-wide BLAS from its mesh
+    root with ``t_max = t_best`` (``traverse_wide.traverse_wide``: one
+    ``vkrt_traverse_wide`` launch on CUDA tensors, the plain version on CPU
+    ones), closest hit with culling or any hit without, the alpha test
+    inline with ``pack``. Returns ``(t_best, tri, u, v, inst, seed,
+    steps)``; ``t_best`` is ``t_max`` where nothing was hit. ``rounds``, an
+    optional (R,) integer tensor, counts each ray's rounds; ``scan`` picks
+    the candidate enumeration (:func:`_candidates`)."""
+    from .traverse_wide import traverse_wide
+
+    r, dev = origin.shape[0], origin.device
+    inst, roots = accel.inst, torch.as_tensor(accel.mesh_root, device=dev)
+    next_cand = _candidates(inst, origin, direction, t_max, mask, scan)
+    t_best = t_max.clone()
+    tri = torch.full((r,), -1, dtype=torch.int64, device=dev)
+    u = torch.zeros(r, device=dev)
+    v = torch.zeros(r, device=dev)
+    ibest = torch.zeros(r, dtype=torch.int64, device=dev)
+    seed = seed.clone()
+    steps = torch.zeros(r, dtype=torch.int32, device=dev)
+    last_t = torch.full((r,), _NEG, device=dev)
+    last_id = torch.full((r,), -1, dtype=torch.int64, device=dev)
+    nt, nid = next_cand(slice(None), t_max, last_t, last_id)
+    live = torch.nonzero(act & (nid >= 0)).squeeze(1)
+    while live.numel():
+        if rounds is not None:
+            rounds[live] += 1
+        cid = nid[live]
+        o_obj, d_obj = _transform_rays(inst, cid, origin[live], direction[live])
+        root0 = roots[inst.mesh_id[cid].long()].to(torch.int32).contiguous()
+        tb = t_best[live]
+        t, h_tri, hu, hv, hs, seed[live] = traverse_wide(
+            accel.blas, pack, o_obj.contiguous(), d_obj.contiguous(), tb.contiguous(),
+            seed[live].contiguous(), None, any_hit, root0=root0)
+        upd = h_tri >= 0
+        tb = torch.where(upd, t, tb)
+        t_best[live] = tb
+        tri[live] = torch.where(upd, h_tri, tri[live])
+        u[live] = torch.where(upd, hu, u[live])
+        v[live] = torch.where(upd, hv, v[live])
+        ibest[live] = torch.where(upd, cid, ibest[live])
+        last_t[live] = nt[live]
+        last_id[live] = cid
+        steps[live] += hs + 1
+        nt2, nid2 = next_cand(live, tb, nt[live], cid)
+        nt[live] = nt2
+        nid[live] = nid2
+        keep = nid2 >= 0
+        if any_hit:
+            keep = keep & (tri[live] < 0)  # the first accepted hit occludes
+        live = live[keep]
+    return t_best, tri, u, v, ibest, seed, steps
+
+
+def _two_level_wide(accel, pack, origin, direction, t_max, seed, act, any_hit):
+    """The wide back end over the instances: one pass over every instance
+    without a pack (or without alpha-carrying instances); with one, the
+    opaque instances first, then the alpha-carrying ones with the test
+    inline, windowed by the opaque t (closest) or only for the rays still
+    unoccluded (any)."""
+    if accel.blas is None:
+        raise ValueError("the wide back end needs the accel's 8-wide tables: "
+                         "ops/tlas.with_wide(accel, geometry)")
+    if pack is None or not accel._any_alpha():
+        t_best, tri, u, v, ibest, seed, steps = _wide_pass(
+            accel, None, origin, direction, t_max, seed, act, None, any_hit)
+        return Hit(torch.where(tri >= 0, t_best, INF), tri, u, v, steps, ibest), seed
+    alpha = torch.as_tensor(accel.inst_alpha, device=origin.device).bool()
+    t_o, tri_o, u_o, v_o, i_o, seed, st_o = _wide_pass(
+        accel, None, origin, direction, t_max, seed, act, ~alpha, any_hit)
+    if any_hit:
+        t_a, tri_a, u_a, v_a, i_a, seed, st_a = _wide_pass(
+            accel, pack, origin, direction, t_max, seed, act & (tri_o < 0), alpha, any_hit)
+        take_a = tri_o < 0
+    else:
+        t_a, tri_a, u_a, v_a, i_a, seed, st_a = _wide_pass(
+            accel, pack, origin, direction, t_o, seed, act, alpha, any_hit)
+        take_a = (tri_a >= 0) & (t_a < t_o)
+    tri = torch.where(take_a, tri_a, tri_o)
+    t_best = torch.where(take_a, t_a, t_o)
+    return Hit(
+        t=torch.where(tri >= 0, t_best, INF), tri=tri,
+        u=torch.where(take_a, u_a, u_o), v=torch.where(take_a, v_a, v_o),
+        steps=st_o + st_a, inst=torch.where(take_a, i_a, i_o),
+    ), seed
+
+
 def _two_level(accel: InstancedAccel, pack, origin, direction, t_max, seed, cull, any_hit,
-               active):
+               active, backend="fused"):
     """Closest or any hit over the instances. Without an alpha pack, one
     pass over every instance's full table. With one, the opaque subsets
     first, then the alpha machine over the alpha subsets windowed by the
@@ -674,10 +861,14 @@ def _two_level(accel: InstancedAccel, pack, origin, direction, t_max, seed, cull
     alpha-tested, the alpha machine alone over the full tables of the
     instances with alpha triangles (the opaque pass would have none but
     empty meshes)."""
+    check_backend(backend)
     r, dev = origin.shape[0], origin.device
     if seed is None:
         seed = torch.zeros(r, dtype=torch.int64, device=dev)
     act = torch.ones(r, dtype=torch.bool, device=dev) if active is None else active
+    if backend == "wide":
+        _check_pair(cull, any_hit)
+        return _two_level_wide(accel, pack, origin, direction, t_max, seed, act, any_hit)
     split = accel.blas_planar_opq is not None and accel.blas_planar_alp is not None
     if pack is None or not (split or accel._any_alpha()):
         t_best, tri, u, v, ibest, steps = _two_level_opaque_pass(
@@ -708,17 +899,21 @@ def _two_level(accel: InstancedAccel, pack, origin, direction, t_max, seed, cull
     ), seed
 
 
-def closest_hit_instanced(accel, pack, origin, direction, seed=None, active=None, t_max=None):
-    """Nearest hit with backface culling; with an alpha ``pack``, alpha
-    surfaces pass their stochastic test. Returns ``(Hit, seed')``; the hit
-    carries its instance in ``inst``."""
+def closest_hit_instanced(accel, pack, origin, direction, seed=None, active=None, t_max=None,
+                          backend="fused"):
+    """Nearest hit with backface culling by ``backend`` ("fused" or
+    "wide"); with an alpha ``pack``, alpha surfaces pass their stochastic
+    test. Returns ``(Hit, seed')``; the hit carries its instance in
+    ``inst``."""
     if t_max is None:
         t_max = torch.full(origin.shape[:1], INF, device=origin.device)
-    return _two_level(accel, pack, origin, direction, t_max, seed, True, False, active)
+    return _two_level(accel, pack, origin, direction, t_max, seed, True, False, active, backend)
 
 
-def any_hit_instanced(accel, pack, origin, direction, t_max, seed=None, active=None):
-    """Shadow-ray occlusion within ``t_max`` (no culling). Returns
-    ``(occluded, seed')``."""
-    hit, seed = _two_level(accel, pack, origin, direction, t_max, seed, False, True, active)
+def any_hit_instanced(accel, pack, origin, direction, t_max, seed=None, active=None,
+                      backend="fused"):
+    """Shadow-ray occlusion within ``t_max`` (no culling) by ``backend``.
+    Returns ``(occluded, seed')``."""
+    hit, seed = _two_level(accel, pack, origin, direction, t_max, seed, False, True, active,
+                           backend)
     return hit.tri >= 0, seed

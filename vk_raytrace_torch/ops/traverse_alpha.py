@@ -29,9 +29,10 @@ _ADV_REL = 1e-4           # window advance past a rejected candidate
 _ADV_ABS = 1e-5
 
 
-def _alpha_accept(pack, tri, uvu, uvv, seed, cand):
-    """One stochastic alpha test per candidate ray; a random number is drawn
-    only on candidate rays. Returns ``(passed, seed')``."""
+def _alpha_opacity(pack, tri, uvu, uvv):
+    """Opacity of each candidate (triangle ``tri`` at texture uv ``(uvu,
+    uvv)``): its alpha factor times the nearest atlas texel's alpha, or the
+    mask cutoff's 0 / 1."""
     arow = pack.rows[torch.clamp(tri, 0, pack.rows.shape[0] - 1)]
     ut = uvu * arow[:, 4] + uvv * arow[:, 6] + arow[:, 8]
     vt = uvu * arow[:, 5] + uvv * arow[:, 7] + arow[:, 9]
@@ -46,7 +47,13 @@ def _alpha_accept(pack, tri, uvu, uvv, seed, cand):
     texel_a = pack.alpha_plane[flat].float() * (1.0 / 255.0)
     a = arow[:, 0] * torch.where(arow[:, 3] >= 0.0, texel_a, 1.0)
     is_mask = arow[:, 1] == float(ALPHA_MASK)
-    opacity = torch.where(is_mask, (a > arow[:, 2]).float(), a)
+    return torch.where(is_mask, (a > arow[:, 2]).float(), a)
+
+
+def _alpha_accept(pack, tri, uvu, uvv, seed, cand):
+    """One stochastic alpha test per candidate ray; a random number is drawn
+    only on candidate rays. Returns ``(passed, seed')``."""
+    opacity = _alpha_opacity(pack, tri, uvu, uvv)
     seed2, rnd = rng.rand(seed)
     return rnd <= opacity, torch.where(cand, seed2, seed)
 

@@ -74,14 +74,17 @@ SORT_KEYS = ("sort_children", "sort_children_w32")
 MACHINE_KEYS = ("alpha_machine", "alpha_machine_w32")
 ROUNDS_KEYS = ("alpha_rounds", "alpha_rounds_w32")
 OPAQUE_KEYS = ("opaque_machine", "opaque_machine_w32")
+# The wide back end's kernel (ops/traverse_wide.py, csrc/traverse_wide.cu).
+WIDE_KEYS = ("traverse_wide",)
 
 # Kernel launches per entry, counted where the wrapper launches: traversal
 # per mode (``<mode>_roots`` with per-lane roots, ``_w32`` at width 32), the
 # capped and no-gather entries, the child sort, and the round machines: the
 # single-level alpha rounds (``ops/traverse_alpha.py``), the two-level opaque
-# rounds and the two-level alpha machine (``ops/tlas.py``).
+# rounds and the two-level alpha machine (``ops/tlas.py``), and the wide
+# back end's traversal (every launch of ``vkrt_traverse_wide``).
 LAUNCHES = {m: 0 for m in (MODES + ROOT_MODES + W32_MODES + CAPPED_KEYS + SORT_KEYS
-                           + MACHINE_KEYS + ROUNDS_KEYS + OPAQUE_KEYS)}
+                           + MACHINE_KEYS + ROUNDS_KEYS + OPAQUE_KEYS + WIDE_KEYS)}
 
 
 def reset_launches() -> None:

@@ -192,7 +192,7 @@ def _mean_and_rays(mesh, new, rays, n_sample, dev):
 
 def rank_frame(scene, packed, cfg, frame: int, tile_idx: int, n_tile: int, sample_idx: int,
                n_sample: int, alpha_pack=None, features=None, fused_shade: bool = False,
-               shade_tables=None, pool=None):
+               shade_tables=None, pool=None, backend="fused"):
     """What rank (``tile_idx``, ``sample_idx``) of a ``n_tile`` x
     ``n_sample`` mesh traces of frame ``frame``, before any collective:
     ``(its rows' new radiance (H / n_tile, W, 3), its rays (0-d))``."""
@@ -208,6 +208,7 @@ def rank_frame(scene, packed, cfg, frame: int, tile_idx: int, n_tile: int, sampl
         img, r = render_units_pooled(
             scene, packed, cfg, frame, pix0 + i * n_pix, n_pix, pool, alpha_pack=alpha_pack,
             features=features, fused_shade=fused_shade, shade_tables=shade_tables, stream=stream,
+            backend=backend,
         )
         parts.append(img)
         rays = rays + r
@@ -215,7 +216,7 @@ def rank_frame(scene, packed, cfg, frame: int, tile_idx: int, n_tile: int, sampl
 
 
 def sharded_render_step(mesh, scene, packed, cfg, alpha_pack=None, features=None,
-                        fused_shade: bool = False, shade_tables=None, pool=None):
+                        fused_shade: bool = False, shade_tables=None, pool=None, backend="fused"):
     """The progressive frame over ``mesh`` through the pooled wavefront.
 
     ``scene``, ``packed`` (an ``AccelBundle``, or an ``InstancedAccel`` for
@@ -224,7 +225,8 @@ def sharded_render_step(mesh, scene, packed, cfg, alpha_pack=None, features=None
     ``Renderer``'s ``scene``, ``packed``, ``alpha_pack``, ``features``,
     ``fused_shade`` and ``_shade_tables``, with its run configuration
     ``_run_cfg`` as ``cfg``: the sun&sky baked), on this rank's device.
-    ``pool``: lanes per dispatch (default as ``Renderer``).
+    ``pool``: lanes per dispatch (default as ``Renderer``). ``backend``:
+    the traversal back end (a ``Renderer``'s ``renderer``).
 
     Returns ``step(accum_rows, frame) -> (accum_rows, rays)``: this rank's
     rows of the running mean, updated as ``Renderer.step`` updates the
@@ -239,14 +241,15 @@ def sharded_render_step(mesh, scene, packed, cfg, alpha_pack=None, features=None
         frame = int(frame)
         new, rays = rank_frame(scene, packed, cfg, frame, tile_idx, shape["tile"], sample_idx,
                                shape["sample"], alpha_pack, features, fused_shade, shade_tables,
-                               pool)
+                               pool, backend)
         new, rays = _mean_and_rays(mesh, new, rays, shape["sample"], dev)
         return progressive_update(accum_rows, new, frame), rays
 
     return step
 
 
-def sharded_render_step_unrolled(mesh, scene, packed, cfg, alpha_pack=None, features=None):
+def sharded_render_step_unrolled(mesh, scene, packed, cfg, alpha_pack=None, features=None,
+                                 backend="fused"):
     """The unrolled per-depth integrator over the same mesh (the debug
     render modes; ``Renderer._frame_strips``): ``render.render_strip_impl``
     over strips of ``render.strip_rows_for`` rows of this rank's slice, on
@@ -264,7 +267,8 @@ def sharded_render_step_unrolled(mesh, scene, packed, cfg, alpha_pack=None, feat
         strips, rays = [], 0
         for r0 in range(tile_idx * rows, (tile_idx + 1) * rows, strip):
             img, r = render_strip_impl(scene, packed, cfg, r0, strip, frame, alpha_pack=alpha_pack,
-                                       features=features, stream=frame * n_sample + sample_idx)
+                                       features=features, stream=frame * n_sample + sample_idx,
+                                       backend=backend)
             strips.append(img)
             rays = rays + r
         new, rays = _mean_and_rays(mesh, torch.cat(strips, dim=0), rays, n_sample, dev)

@@ -27,10 +27,12 @@ from .integrator.wavefront import render_units_pooled
 from .models.schema import DEBUG_NONE, SceneData, default_sun_sky, default_tonemapper, dummy_atlas, dummy_environment
 from .ops import rng
 from .ops.bvh8 import build_accel_bundle
+from .ops.bvh8 import with_wide as bvh8_with_wide
 from .ops.tlas import InstancedAccel, closest_hit_instanced
+from .ops.tlas import with_wide as tlas_with_wide
 from .ops.texture import build_tap_rows
 from .ops.tonemap import TM_UNCHARTED, apply_post
-from .ops.traverse_wide import closest_hit_bundle, make_alpha_pack
+from .ops.traverse_wide import check_backend, closest_hit_bundle, make_alpha_pack
 from .utils import png
 
 
@@ -134,12 +136,13 @@ def strip_rows_for(cfg) -> int:
 
 
 def render_strip_impl(scene, packed, cfg, row0: int, n_rows: int, frame: int, alpha_pack=None,
-                      features=None, tracer=None, stream=None):
+                      features=None, tracer=None, stream=None, backend="fused"):
     """``cfg.max_samples`` paths per pixel of image rows ``[row0, row0 +
     n_rows)`` through the unrolled integrator, averaged: ``(image (n_rows,
     W, 3), rays)``, ``rays`` the closest-hit and shadow rays traced (0-d).
     ``tracer``: a traversal back end in place of ``packed``
-    (``integrator/path.py::trace_paths``). Sample ``s`` of a pixel draws
+    (``integrator/path.py::trace_paths``); ``backend`` the traversal back end
+    over ``packed``, "fused" or "wide". Sample ``s`` of a pixel draws
     from ``rng.tea(pixel, stream * spp + s)``; ``stream`` defaults to
     ``frame``, which also drives the camera jitter."""
     w = cfg.width
@@ -153,7 +156,7 @@ def render_strip_impl(scene, packed, cfg, row0: int, n_rows: int, frame: int, al
         o, d, seed = generate_rays_for_pixels(scene.camera, w, cfg.height, pix, frame, seed)
         radiance, _, st = sample_pixels(
             scene, packed, cfg, o, d, seed, alpha_pack=alpha_pack, tracer=tracer,
-            features=features,
+            features=features, backend=backend,
         )
         total = total + radiance
         rays = rays + st.rays.sum()
@@ -164,7 +167,7 @@ class Renderer:
     """Progressive path tracer over one scene on an explicit device."""
 
     def __init__(self, scene: SceneData, cfg, device, packed=None, fused_shade: bool = False,
-                 tonemapper=None):
+                 tonemapper=None, renderer: str = "fused"):
         """``packed`` reuses a prebuilt AccelBundle or InstancedAccel; a
         two-level scene brings its own in ``scene.instances``. The renderer
         keeps the structure in ``self.packed`` only. ``fused_shade`` runs
@@ -172,7 +175,15 @@ class Renderer:
         (``integrator/shade_fused.py::supported``); off by default.
         ``stage`` says which shading stage the frames run: ``"fused"`` or
         ``"eager"``. ``tonemapper``: the post chain's ``Tonemapper`` table
-        (default ``default_tonemapper()``)."""
+        (default ``default_tonemapper()``). ``renderer``: the traversal
+        back end of every ray (frames, debug strips, picks), "fused" (the
+        planar trees, ``csrc/traverse.cu``) or "wide" (the 8-wide trees
+        with the alpha test inside the traversal, ``csrc/traverse_wide.cu``;
+        the reference's ``--renderer``); the wide tables are built here, at
+        the back end's first use, unless ``packed`` already holds them.
+        ``fused_shade`` is independent of it."""
+        check_backend(renderer)
+        self.renderer = renderer
         self.cfg = cfg
         self.fused_shade = fused_shade
         self.device = torch.device(device)
@@ -187,6 +198,9 @@ class Renderer:
             packed = scene.instances
         if packed is None:
             packed = build_accel_bundle(scene.geometry)
+        if renderer == "wide":
+            packed = (tlas_with_wide if isinstance(packed, InstancedAccel) else bvh8_with_wide)(
+                packed, scene.geometry)
         self.packed = packed
         scene = dataclasses.replace(scene, instances=None)
         self.build_times["accel_s"] = time.time() - t0
@@ -252,6 +266,7 @@ class Renderer:
                 self.scene, self.packed, cfg, frame, i * n_pix, n_pix, pool,
                 alpha_pack=self.alpha_pack, features=self.features,
                 fused_shade=self.fused_shade, shade_tables=self._shade_tables,
+                backend=self.renderer,
             )
             parts.append(img)
             rays = rays + r
@@ -264,7 +279,7 @@ class Renderer:
         for row0 in range(0, self.cfg.height, rows):
             img, r = render_strip_impl(
                 self.scene, self.packed, self._run_cfg, row0, rows, frame,
-                alpha_pack=self.alpha_pack, features=self.features,
+                alpha_pack=self.alpha_pack, features=self.features, backend=self.renderer,
             )
             strips.append(img)
             rays = rays + r
@@ -304,9 +319,10 @@ class Renderer:
                               device=self.device)
         o, d, _ = generate_rays_for_pixels(self.scene.camera, w, h, pix, 0, rng.tea(pix, 0))
         if isinstance(self.packed, InstancedAccel):
-            hit, _ = closest_hit_instanced(self.packed, None, o, d)
+            hit, _ = closest_hit_instanced(self.packed, None, o, d, backend=self.renderer)
         else:
-            hit, _ = closest_hit_bundle(self.packed, None, o, d, torch.zeros_like(pix))
+            hit, _ = closest_hit_bundle(self.packed, None, o, d, torch.zeros_like(pix),
+                                        backend=self.renderer)
         tri = hit.tri.cpu().numpy()
         mat = self.scene.geometry.tri_material[torch.clamp(hit.tri, min=0)].cpu().numpy()
         t, u, v = (a.cpu().numpy() for a in (hit.t, hit.u, hit.v))

@@ -1,7 +1,7 @@
 """The port's binding to the native host builders (C++ through ctypes).
 
-``csrc/native.cpp`` holds the hot host loops: binned-SAH planar BVH rows
-(16 or 32 wide), oct encoding, RGBA8 packing and smooth normals (the port's
+``csrc/native.cpp`` holds the hot host loops: binned-SAH BVH rows (the
+wide back end's 8-wide rows and the planar 16- or 32-wide ones), oct encoding, RGBA8 packing and smooth normals (the port's
 own copy of the reference's host runtime, trimmed to these calls), the
 PNG decoder's scanline reconstruction and the JPEG decoder. It is compiled with g++
 into ``vk_raytrace_torch/_build/libnative.so`` (rebuilt when the source is
@@ -37,6 +37,7 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
+        lib.build_bvh8.restype = ctypes.c_int64
         lib.build_bvh16.restype = ctypes.c_int64
         lib.build_bvh32.restype = ctypes.c_int64
         lib.png_unfilter.restype = ctypes.c_int64
@@ -93,15 +94,61 @@ def png_unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def jpeg_decode(data: bytes, w: int, h: int, ycc: bool) -> tuple:
-    """Decode a sequential Huffman JPEG of ``w`` x ``h`` pixels: ``(error
-    code, (h, w, 4) uint8 RGBA)``, the code 0 on success (the codes are
-    ``jpeg::Err`` in ``csrc/native.cpp``). ``ycc``: three components are
-    YCbCr, converted to RGB."""
+    """Decode a JPEG of ``w`` x ``h`` pixels: ``(error code, (h, w, 4)
+    uint8 RGBA)``, the code 0 on success (the codes are ``jpeg::Err`` in
+    ``csrc/native.cpp``). ``ycc``: three components are YCbCr, converted to
+    RGB; four are YCCK, converted to CMYK."""
     src = np.frombuffer(data, np.uint8)
     out = np.empty((h, w, 4), np.uint8)
     code = _load().jpeg_decode(_ptr(src), ctypes.c_int64(len(src)), ctypes.c_int64(int(ycc)),
                                _ptr(out), ctypes.c_int64(w), ctypes.c_int64(h))
     return int(code), out
+
+
+def _check_id_ceiling(max_orig: int) -> None:
+    """A triangle id rides in an f32 leaf lane as ``orig*4 + flags``, exact
+    only below ``2**24``: at most ``2**22`` triangles per id space."""
+    if max_orig * 4 + 3 >= 2**24:
+        raise ValueError(f"triangle id {max_orig} exceeds the exact-f32 ceiling {2**22 - 1}; "
+                         "instance repeated geometry or split the scene")
+
+
+def _host_tris(positions, indices, uv, tri_flags, tri_ids):
+    """Contiguous builder inputs and the largest triangle id."""
+    positions = np.ascontiguousarray(positions, np.float32)
+    indices = np.ascontiguousarray(indices, np.int32)
+    uv = np.ascontiguousarray(uv, np.float32)
+    tri_flags = np.ascontiguousarray(tri_flags, np.int32)
+    max_orig = len(indices) - 1
+    if tri_ids is not None:
+        tri_ids = np.ascontiguousarray(tri_ids, np.int32)
+        max_orig = int(tri_ids.max(initial=0))
+    _check_id_ceiling(max_orig)
+    return positions, indices, uv, tri_flags, tri_ids
+
+
+def build_bvh8_rows(positions, indices, uv, tri_flags, tri_ids=None) -> np.ndarray:
+    """Binned-SAH build of the wide back end's 8-wide rows (256 B: 8 child
+    boxes and refs, or a leaf of 4 packed triangles; ``ops/bvh8.py::
+    WideScene``). Returns (n_rows, 64) f32, row 0 the root.
+
+    Triangle ids ride in f32 leaf lanes as ``orig*4 + flags`` and leaf refs
+    as ``-(row*4 + count)``; both must stay exact in f32, so the build
+    raises past those ceilings."""
+    positions, indices, uv, tri_flags, tri_ids = _host_tris(positions, indices, uv, tri_flags,
+                                                            tri_ids)
+    t = len(indices)
+    for max_rows in (t + t // 3 + 16, 2 * t + 8):
+        rows = np.empty((max_rows, 64), np.float32)
+        n = _load().build_bvh8(
+            _ptr(positions), _ptr(indices), _ptr(uv),
+            None if tri_ids is None else _ptr(tri_ids), _ptr(tri_flags),
+            ctypes.c_int64(t), _ptr(rows), ctypes.c_int64(max_rows),
+        )
+        if n > 0:
+            _check_ref_ceiling(n, 4)
+            return np.ascontiguousarray(rows[:n])
+    raise RuntimeError("native 8-wide BVH build failed")
 
 
 def build_planar_rows(positions, indices, uv, tri_flags, tri_ids=None, width=16):
@@ -116,18 +163,10 @@ def build_planar_rows(positions, indices, uv, tri_flags, tri_ids=None, width=16)
         raise ValueError(f"planar rows are 16 or 32 wide, not {width}")
     lib = _load()
     build = lib.build_bvh16 if width == 16 else lib.build_bvh32
-    positions = np.ascontiguousarray(positions, np.float32)
-    indices = np.ascontiguousarray(indices, np.int32)
-    uv = np.ascontiguousarray(uv, np.float32)
-    tri_flags = np.ascontiguousarray(tri_flags, np.int32)
+    positions, indices, uv, tri_flags, tri_ids = _host_tris(positions, indices, uv, tri_flags,
+                                                            tri_ids)
     t = len(indices)
-    ids_arg, max_orig = None, t - 1
-    if tri_ids is not None:
-        tri_ids = np.ascontiguousarray(tri_ids, np.int32)
-        ids_arg = _ptr(tri_ids)
-        max_orig = int(tri_ids.max(initial=0))
-    if max_orig * 4 + 3 >= 2**24:
-        raise ValueError(f"triangle id {max_orig} exceeds the exact-f32 ceiling {2**22 - 1}")
+    ids_arg = None if tri_ids is None else _ptr(tri_ids)
     leaf = width // 2
     depth = ctypes.c_int32(0)
     f = t + 1  # row bound: a leaf holds at least leaf/2 triangles

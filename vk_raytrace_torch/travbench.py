@@ -21,6 +21,11 @@ default). Variants at each width:
 * ``root_order``: the child order alone (``sort_children``) on the entry
   distances of every ray into the root row's children.
 
+and once, on the same rays, ``wide`` (width 8): the wide back end's
+closest hit over the 8-wide opaque tree (``vkrt_traverse_wide``,
+``ops/traverse_wide.py``), bytes in 32-byte sectors over the distinct
+256-byte rows it visits, operations ``nodes * 26 * 8``.
+
 Each variant prints one JSON line: mean ms per call (CUDA events, after a
 warm-up) and its plain version's, mean nodes per ray, the distinct rows the
 rays visit, the call's bytes and operations and its bound on the card, and
@@ -80,11 +85,19 @@ def row_bytes(width: int, mode: str):
     return 7 * width * 4, leaf_attrs * (width // 2) * 4
 
 
+def wide_row_bytes():
+    """(interior, leaf) bytes csrc/traverse_wide.cu loads from an 8-wide row
+    it visits, in 32-byte sectors: 8 child boxes and refs (56 lanes, 7
+    sectors); 4 whole triangles (64 lanes, 8 sectors)."""
+    return 7 * 32, 8 * 32
+
+
 def traversal_bytes(n_rays, ray_bytes, seen, width, mode):
     """Bytes of one traversal call: ``ray_bytes`` in and out per ray, and
-    each distinct row the rays visit (``seen`` from the twin) once."""
+    each distinct row the rays visit (``seen`` from the twin) once; width 8
+    is the wide back end's table."""
     n_inner, n_leaf = int((seen == 1).sum()), int((seen == 2).sum())
-    inner_b, leaf_b = row_bytes(width, mode)
+    inner_b, leaf_b = wide_row_bytes() if width == 8 else row_bytes(width, mode)
     return n_rays * ray_bytes + n_inner * inner_b + n_leaf * leaf_b, n_inner, n_leaf
 
 
@@ -266,13 +279,48 @@ def _root_order(planar, o, d, cuda, reps):
     return res
 
 
+def _wide(wide, o, d, t_max, cuda, reps):
+    """The wide back end's closest hit: kernel (or plain on the CPU) vs
+    plain, times, nodes and bound."""
+    from .ops import traverse_wide as tw
+
+    def kern():
+        return tw.traverse_wide(wide, None, o, d, t_max)
+
+    seen = torch.zeros(wide.rows.shape[0], dtype=torch.int8, device=o.device)
+    plain = tw._traverse_wide_plain(wide, None, o, d, t_max, None, None, False, seen=seen)
+    out = kern()
+    if cuda:
+        torch.cuda.synchronize()
+        assert same_hits(out, plain) and torch.equal(out[5], plain[5]), (
+            "wide: kernel and plain version differ")
+    nodes = float(plain[4].double().sum())
+    n = o.shape[0]
+    # rays in (origin, direction, t_max) and out (t, tri, u, v, steps, seed)
+    n_bytes, n_inner, n_leaf = traversal_bytes(n, 28 + 28, seen, 8, "closest")
+    res = dict(nodes_per_ray=nodes / n, interior_rows=n_inner, leaf_rows=n_leaf,
+               bytes=n_bytes, ops=nodes * ops_per_node(8),
+               hit_share=float((plain[1] >= 0).float().mean()))
+    if cuda:
+        res["max_abs_err"] = max_abs_err(out, plain)
+        r = cuda_build.resources("traverse_wide", "wide_kernelILb0ELb0E")
+        res.update(registers=r["registers"], stack_frame=r["stack_frame"],
+                   spill_bytes=r["spill_stores"] + r["spill_loads"])
+    timer = cuda_time if cuda else host_time
+    res["ms" if cuda else "cpu_ms"] = timer(kern, reps)
+    res["plain_ms" if cuda else "plain_cpu_ms"] = timer(
+        lambda: tw._traverse_wide_plain(wide, None, o, d, t_max, None, None, False), 2)
+    return res
+
+
 VARIANTS = ("full", f"capped{CAP}", f"nogather{CAP}", "root_order")
 
 
-def run(device, planars, cam, rays=RAYS, reps=20, card=None, emit=print):
+def run(device, planars, cam, rays=RAYS, reps=20, card=None, emit=print, wide=None):
     """Every variant at every width of ``planars`` ({width: PlanarScene} of
-    the opaque tree, on ``device``) on ``rays`` camera rays of ``cam``.
-    Emits and returns one dict per variant."""
+    the opaque tree, on ``device``) on ``rays`` camera rays of ``cam``, and
+    with ``wide`` (the 8-wide opaque tree, ``bvh8.WideScene``) the wide back
+    end's variant. Emits and returns one dict per variant."""
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     if cuda and card is None:
@@ -287,15 +335,24 @@ def run(device, planars, cam, rays=RAYS, reps=20, card=None, emit=print):
                 res = _root_order(planar, o, d, cuda, reps)
             else:
                 res = _variant(name, planar, o, d, t_max, cuda, reps)
-            res = dict(bench="travbench", variant=name, width=width, rays=rays,
-                       rows=int(planar.rows.shape[0]), stack=planar.stack_depth, device=kind,
-                       **res)
-            if cuda:
-                res["bound_ms"], res["bound_by"] = bound(res["bytes"], res["ops"])
-                res["card"] = card
-            emit(json.dumps(res))
-            results.append(res)
+            results.append(_emit(dict(bench="travbench", variant=name, width=width, rays=rays,
+                                      rows=int(planar.rows.shape[0]),
+                                      stack=planar.stack_depth, device=kind, **res),
+                                 cuda, card, emit))
+    if wide is not None:
+        res = _wide(wide, o, d, t_max, cuda, reps)
+        results.append(_emit(dict(bench="travbench", variant="wide", width=8, rays=rays,
+                                  rows=int(wide.rows.shape[0]), stack=wide.stack_depth,
+                                  device=kind, **res), cuda, card, emit))
     return results
+
+
+def _emit(res, cuda, card, emit):
+    if cuda:
+        res["bound_ms"], res["bound_by"] = bound(res["bytes"], res["ops"])
+        res["card"] = card
+    emit(json.dumps(res))
+    return res
 
 
 def main(argv=None):
@@ -308,12 +365,13 @@ def main(argv=None):
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: run on the card or pass --device cpu")
     from .models import procedural
-    from .ops.bvh8 import build_accel_bundle
+    from .ops.bvh8 import build_accel_bundle, build_wide
 
     geom, _, _, cam, _ = procedural.atrium_scene(**(SMALL_ATRIUM if args.small else {}))
     planars = {w: build_accel_bundle(geom, width=w).opaque_planar.to(args.device)
                for w in tf.WIDTHS}
-    run(args.device, planars, cam, rays=args.rays, reps=args.reps)
+    run(args.device, planars, cam, rays=args.rays, reps=args.reps,
+        wide=build_wide(geom)[0].to(args.device))
 
 
 if __name__ == "__main__":

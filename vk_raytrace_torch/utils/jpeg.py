@@ -1,18 +1,28 @@
 """JPEG decoding without Pillow (the card's machine has none).
 
-:func:`decode_rgba` decodes Huffman-coded JPEG, baseline, extended
-sequential and progressive (SOF0 / SOF1 / SOF2), of 8-bit samples, grey or three-component, at any sampling
-factors whose ratios are integers (4:4:4, 4:2:2, 4:2:0, 4:4:0, ...), with
-restart intervals, at any size, into (H, W, 4) uint8 RGBA. It returns what
-Pillow's ``Image.open(...).convert("RGBA")`` returns for the same file, array
-for array (``tests/test_torch_jpeg.py``): the decoding, the integer IDCT, the
-fancy upsampling and the colour conversion run in ``csrc/native.cpp`` in
-libjpeg-turbo's own integer arithmetic (``runtime.jpeg_decode``). Three
-components are YCbCr or RGB by libjpeg's rule (a JFIF segment, else an
-Adobe segment's transform, else the component ids).
+:func:`decode_rgba` decodes the JPEG forms that Pillow decodes, into (H, W,
+4) uint8 RGBA, array for array what Pillow's ``Image.open(...).convert(
+"RGBA")`` returns for the same file (``tests/test_torch_jpeg.py``):
 
-Lossless, hierarchical and arithmetic-coded frames, 12-bit samples and four-component (CMYK / YCCK) images raise a
-``RuntimeError`` naming the image and its frame type.
+* Huffman-coded baseline, extended sequential and progressive frames
+  (SOF0 / SOF1 / SOF2) and arithmetic-coded sequential and progressive
+  frames (SOF9 / SOF10), at any sampling factors whose ratios are integers
+  (4:4:4, 4:2:2, 4:2:0, 4:4:0, ...), with restart intervals;
+* lossless frames (SOF3, Huffman-coded), every component sampled 1x1;
+* 8-bit samples, grey, three components (YCbCr or RGB by libjpeg's rule: a
+  JFIF segment, else an Adobe segment's transform, else the component ids)
+  or four (CMYK, or YCCK by an Adobe segment's transform 2), at any size.
+
+The decoding, the integer IDCT, the fancy upsampling and the colour
+conversion run in ``csrc/native.cpp`` in libjpeg-turbo's own integer
+arithmetic (``runtime.jpeg_decode``); four components then go through
+Pillow's reading of them (every channel inverted, as Adobe's CMYK is) and
+its CMYK to RGB conversion.
+
+What Pillow does not decode raises a ``RuntimeError`` naming the image and
+its frame type: hierarchical (differential) frames, arithmetic-coded
+lossless frames, samples of other than 8 bits, and lossless frames in
+YCbCr or YCCK (libjpeg converts no colour in a lossless image).
 """
 
 from __future__ import annotations
@@ -32,7 +42,9 @@ _ERRORS = {
     1: "the stream is truncated", 2: "no frame header", 3: "a bad frame header",
     4: "a bad quantisation, Huffman or restart table", 5: "a bad scan header",
     6: "sampling factors whose ratios are not integers", 7: "a bad image size",
+    8: "a lossless frame with subsampled components (not decoded by the port)",
 }
+_DECODED = (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA)
 
 
 def frame_header(data: bytes, name: str) -> dict:
@@ -75,13 +87,17 @@ def frame_header(data: bytes, name: str) -> dict:
 
 
 def _is_ycc(hdr: dict) -> bool:
-    """libjpeg's colour-space guess for three components
-    (jdapimin.c default_decompress_parms)."""
+    """libjpeg's colour-space guess (jdapimin.c default_decompress_parms):
+    whether three components are YCbCr (rather than RGB), four YCCK
+    (rather than CMYK). Without a JFIF or Adobe segment, three components
+    are YCbCr unless their ids spell 'RGB' or the frame is lossless."""
+    if len(hdr["ids"]) == 4:
+        return hdr["adobe_transform"] is not None and hdr["adobe_transform"] != 0
     if hdr["jfif"]:
         return True
     if hdr["adobe_transform"] is not None:
         return hdr["adobe_transform"] != 0
-    return tuple(hdr["ids"]) != (82, 71, 66)  # 'R', 'G', 'B'
+    return hdr["sof"] != 0xC3 and tuple(hdr["ids"]) != (82, 71, 66)  # 'R', 'G', 'B'
 
 
 def decode_rgba(data: bytes, name: str = "JPEG image"):
@@ -92,20 +108,26 @@ def decode_rgba(data: bytes, name: str = "JPEG image"):
         raise ValueError(f"{name}: not a JPEG file")
     hdr = frame_header(data, name)
     kind = _SOF_NAMES[hdr["sof"]]
-    if hdr["sof"] not in (0xC0, 0xC1, 0xC2):
-        raise RuntimeError(f"{name}: a {kind} JPEG; the port decodes Huffman-coded "
-                           "sequential and progressive JPEG (SOF0 / SOF1 / SOF2) only")
+    if hdr["sof"] not in _DECODED:
+        raise RuntimeError(f"{name}: a {kind} JPEG; the port decodes the forms Pillow decodes: "
+                           "sequential and progressive JPEG, Huffman- or arithmetic-coded "
+                           "(SOF0 / SOF1 / SOF2 / SOF9 / SOF10), and lossless Huffman (SOF3)")
     if hdr["precision"] != 8:
         raise RuntimeError(f"{name}: a {kind} JPEG of {hdr['precision']}-bit samples; the port "
                            "decodes 8-bit samples only")
-    if len(hdr["ids"]) not in (1, 3):
-        raise RuntimeError(f"{name}: a {kind} JPEG of {len(hdr['ids'])} components (CMYK or "
-                           "YCCK); the port decodes grey and three-component images only")
+    nc = len(hdr["ids"])
+    if nc not in (1, 3, 4):
+        raise RuntimeError(f"{name}: a {kind} JPEG of {nc} components; the port decodes grey, "
+                           "three- and four-component images")
+    ycc = nc > 1 and _is_ycc(hdr)
+    if hdr["sof"] == 0xC3 and ycc:
+        raise RuntimeError(f"{name}: a {kind} JPEG in {'YCCK' if nc == 4 else 'YCbCr'}; "
+                           "libjpeg converts no colour in a lossless image")
     w, h = hdr["width"], hdr["height"]
     if w == 0 or h == 0:
         raise RuntimeError(f"{name}: a {kind} JPEG of size {w}x{h} (a DNL height is not "
                            "supported)")
-    code, out = runtime.jpeg_decode(data, w, h, _is_ycc(hdr))
+    code, out = runtime.jpeg_decode(data, w, h, ycc)
     if code:
         raise ValueError(f"{name}: not a valid {kind} JPEG: {_ERRORS.get(code, code)}")
     return out

@@ -18,8 +18,12 @@ place of the reference application's window and panel.
   and the per-frame ms, Mrays/s and device-memory rings;
 * a scene file is watched; saving it loads it again on a worker thread.
 
-The renderer's back end is the port's only one, ``fused`` (the hand-written
-kernels); the tone curve is the service's, passed to
+The renderer's traversal back end is ``--renderer`` (the CLI's flag,
+``fused`` by default) and switches at run time with ``set renderer wide``
+or ``fused`` (the reference's pipeline switch, sample_gui.cpp:180-189): the
+renderer is rebuilt over the same scene and acceleration structures, the
+wide back end's 8-wide tables built at its first use. The tone curve is the
+service's, passed to
 ``Renderer.postprocess(mode=)``. Device memory is read from the caching
 allocator's counters after the frame's own synchronisation (no device sync
 of its own).
@@ -178,13 +182,15 @@ def _scene_stats(r) -> str:
     ]
     p = r.packed
     if isinstance(p, InstancedAccel):
+        blas = p.blas if r.renderer == "wide" else p.blas_planar
         lines += [
             f"instances {int(p.inst.mesh_id.shape[0]):>10,}",
             f"meshes    {int(p.mesh_root_planar.shape[0]):>10,}",
-            f"BVH rows  {int(p.blas_planar.rows.shape[0]):>10,}",
+            f"BVH rows  {int(blas.rows.shape[0]):>10,}",
         ]
     else:
-        rows = sum(int(t.rows.shape[0]) for t in (p.opaque_planar, p.alpha_planar) if t is not None)
+        trees = (p.opaque, p.alpha) if r.renderer == "wide" else (p.opaque_planar, p.alpha_planar)
+        rows = sum(int(t.rows.shape[0]) for t in trees if t is not None)
         lines.append(f"BVH rows  {rows:>10,}")
     return "\n".join(lines)
 
@@ -252,7 +258,7 @@ summary{color:#ca8;cursor:pointer}
   <label>samples/frame <span class="v" id="v_spp">1</span><input type="range" id="spp" min="1" max="8" step="1" value="1"></label>
   <label>max frames <span class="v" id="v_maxframes">0</span><input type="range" id="maxframes" min="0" max="4096" step="16" value="0"></label>
   <label>pbr model <select id="pbr"><option value="1">glTF</option><option value="0">Disney</option></select></label>
-  <label>renderer <select id="renderer"><option value="fused">fused (CUDA kernels)</option></select></label>
+  <label>renderer <select id="renderer"><option value="fused">fused (planar trees)</option><option value="wide">wide (8-wide, alpha in traversal)</option></select></label>
   <label>debug mode <select id="debug">
    <option value="0">none</option><option value="1">base color</option>
    <option value="2">normal</option><option value="3">metallic</option>
@@ -424,7 +430,8 @@ class ViewerService:
         cfg = RenderConfig(width=w, height=h, max_depth=args.depth, max_samples=1,
                            firefly_clamp=10.0, hdr_multiplier=hdr_mult(args.sun_sky),
                            use_sun_sky=bool(args.sun_sky))
-        r = R.Renderer(scene, cfg, device=dev, fused_shade=args.fused_shade)
+        backend = [args.renderer]  # the traversal back end, switched by "set renderer"
+        r = R.Renderer(scene, cfg, device=dev, fused_shade=args.fused_shade, renderer=backend[0])
         cam = OrbitCamera(scene.camera, w, h, bounds=_bounds(scene))
         self._cam = cam
         pause = False
@@ -435,7 +442,7 @@ class ViewerService:
 
         def renderer(sc, c):
             return R.Renderer(sc, c, device=dev, tonemapper=r.tonemapper, packed=r.packed,
-                              fused_shade=args.fused_shade)
+                              fused_shade=args.fused_shade, renderer=backend[0])
 
         def rebuild(new_cfg, new_sunsky=None):
             """A path-setting edit: retrace, but keep the acceleration
@@ -555,9 +562,15 @@ class ViewerService:
                         cfg = dataclasses.replace(cfg, max_frames=mf)
                         r.cfg = dataclasses.replace(r.cfg, max_frames=mf)
                     elif key == "renderer":
-                        if val != "fused":  # the port's only back end
-                            print(f"viewer: renderer {val!r} is not the port's; it has "
-                                  "'fused' only", file=sys.stderr)
+                        # The pipeline switch (sample_gui.cpp:180-189): the
+                        # renderer rebuilt over the same scene and tables.
+                        if val in ("fused", "wide"):
+                            backend[0] = val
+                            rebuild(cfg)
+                            dirty_cam = True
+                        else:
+                            print(f"viewer: no renderer {val!r}; the port has 'fused' and "
+                                  "'wide'", file=sys.stderr)
                     # -- sun & sky (:247-325)
                     elif key == "sunsky":
                         rebuild(dataclasses.replace(cfg, use_sun_sky=bool(val),
@@ -585,7 +598,8 @@ class ViewerService:
                 if m != self._mtime:
                     self._mtime = m
                     self._busy = True
-                    threading.Thread(target=self._load_async, args=(cfg, r.tonemapper),
+                    threading.Thread(target=self._load_async,
+                                     args=(cfg, r.tonemapper, backend[0]),
                                      daemon=True).start()
 
             if pause or r.converged:
@@ -635,7 +649,7 @@ class ViewerService:
                 self._renderer = r
                 self._state = state
 
-    def _load_async(self, cfg, tonemapper):
+    def _load_async(self, cfg, tonemapper, renderer="fused"):
         """Load the scene file again and build its renderer; queue the swap.
         A failure is reported on stderr, and the old scene stays."""
         from . import cli as C
@@ -644,7 +658,7 @@ class ViewerService:
         try:
             scene, _ = C.load_scene_from_args(self.args, self.device)
             nr = R.Renderer(scene, cfg, device=self.device, tonemapper=tonemapper,
-                            fused_shade=self.args.fused_shade)
+                            fused_shade=self.args.fused_shade, renderer=renderer)
             nc = OrbitCamera(scene.camera, *self.args.size, bounds=_bounds(scene))
             with self._lock:
                 self._controls.append({"cmd": "_swap", "scene": scene, "renderer": nr, "cam": nc})
