@@ -14,7 +14,15 @@ three means of 50 launches (CUDA events), in ms; then the same for the two
 round machines on the full bistro at width 16, closest hit (the opaque
 machine over the opaque subsets on 2^18 camera rays, the alpha machine
 over the alpha subsets on 2^18 rays toward the foliage, seed 1234; 10
-launches a mean). The card's name and power limit come first.
+launches a mean); then the wide back end through the calls every checkout
+has: ``traverse_wide`` on the atrium's 8-wide trees (closest and any hit
+over the opaque tree on the mode a/b rays, closest over the alpha tree
+with the pack toward the banners, and any over it with a tenth of those
+rays active) and the bistro's two-level wide calls
+(``closest_hit_instanced(..., backend="wide")`` with the pack on the
+camera rays and on the rays toward the foliage: an opaque and an alpha
+pass each, per-round launches and host syncs where a checkout has no
+machine; 3 calls a mean). The card's name and power limit come first.
 """
 
 import os
@@ -40,7 +48,7 @@ def time_tree(tree):
 
     dev = torch.device("cuda")
     cs.build_kernels()
-    geom, _, _, cam, _ = procedural.atrium_scene()
+    geom, a_mats, a_lights, cam, a_atlas = procedural.atrium_scene()
     rng = np.random.default_rng(1234)
     n = 1 << 18
     oc, dc = cs.camera_rays(with_aspect(cam, 1920, 1080).to(dev), 1920, 1080, n // 2, rng, dev)
@@ -68,7 +76,8 @@ def time_tree(tree):
     from vk_raytrace_torch.ops.traverse_wide import make_alpha_pack
 
     pool, inst, mats, lights, b_cam, atlas = procedural.bistro_scene()
-    bs = R.build_instanced_scene(pool, inst, mats, lights, b_cam, atlas=atlas).to(dev)
+    bs_host = R.build_instanced_scene(pool, inst, mats, lights, b_cam, atlas=atlas)
+    bs = bs_host.to(dev)
     acc = bs.instances
     pack = make_alpha_pack(bs.materials, bs.atlas, bs.geometry.tri_material)
     ob, db = cs.camera_rays(with_aspect(b_cam, 1920, 1080).to(dev), 1920, 1080, n, rng, dev)
@@ -87,6 +96,33 @@ def time_tree(tree):
     for name, fn in machines.items():
         ms = [tb.cuda_time(fn, 10) for _ in range(ROUNDS)]
         out.append(f"bistro {name} {min(ms):.4f}/{float(np.median(ms)):.4f}")
+    from vk_raytrace_torch.ops import bvh8
+    from vk_raytrace_torch.ops import traverse_wide as tw
+
+    opq, alp = (w.to(dev) for w in bvh8.build_wide(geom))
+    sparse = torch.tensor(rng.random(n) < 0.1, device=dev)
+    a_sc = R.build_scene(geom, a_mats, a_lights, cam, atlas=a_atlas).to(dev)
+    a_pack = make_alpha_pack(a_sc.materials, a_sc.atlas, a_sc.geometry.tri_material)
+    wide = {
+        "closest": lambda: tw.traverse_wide(opq, None, o, d, inf),
+        "any": lambda: tw.traverse_wide(opq, None, o, d, t_short, any_hit=True),
+        "alpha_banners": lambda: tw.traverse_wide(alp, a_pack, oa, da, inf, seed),
+        "alpha_any_sparse": lambda: tw.traverse_wide(alp, a_pack, oa, da, t_short, seed, sparse,
+                                                     any_hit=True),
+    }
+    for name, fn in wide.items():
+        ms = [tb.cuda_time(fn, REPS) for _ in range(ROUNDS)]
+        out.append(f"wide {name} {min(ms):.4f}/{float(np.median(ms)):.4f}")
+    acc_w = tlas.with_wide(bs_host.instances, bs_host.geometry).to(dev)
+    two_level = {
+        "camera": lambda: tlas.closest_hit_instanced(acc_w, pack, ob, db, seed=seed,
+                                                     backend="wide"),
+        "foliage": lambda: tlas.closest_hit_instanced(acc_w, pack, ol, dl, seed=seed,
+                                                      backend="wide"),
+    }
+    for name, fn in two_level.items():
+        ms = [tb.cuda_time(fn, 3) for _ in range(ROUNDS)]
+        out.append(f"bistro wide {name} {min(ms):.4f}/{float(np.median(ms)):.4f}")
     print(os.path.basename(tree), " ".join(out), flush=True)
 
 

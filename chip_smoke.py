@@ -7,7 +7,7 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
 
 1. environment: the card's name and power limit; CUDA must be available;
 2. build: the traversal kernels (``vk_raytrace_torch/csrc/traverse.cu``,
-   one library per row width), the wide back end's kernel
+   one library per row width), the wide back end's kernels
    (``traverse_wide.cu``) and the shading kernel (``shade.cu``), nvcc
    processes started together, and the native host runtime
    (``csrc/native.cpp``, g++), from this checkout;
@@ -209,19 +209,26 @@ counters set to 0 just before it and read just after:
     decode's RGBA held against the SHA-256 of Pillow's committed beside it;
     the scene at 128x72, depth 4, on the card against the CPU.
 
-Then the wide back end (``renderer="wide"``: the 8-wide trees and
-``vkrt_traverse_wide``, ``csrc/traverse_wide.cu``, the alpha test inside
-the traversal), each path driven with the launch counters set to 0 just
-before it and read just after:
+Then the wide back end (``renderer="wide"``: the 8-wide trees,
+``csrc/traverse_wide.cu``'s ``vkrt_traverse_wide`` for one tree and
+``vkrt_wide_machine`` for the two-level rounds, the alpha test inside the
+traversal, both in persistent warps with the stack in shared memory), each
+path driven with the launch counters set to 0 just before it and read just
+after:
 
-35. the kernel against its plain version on the 1080p atrium's 2^18
+35. the tree kernel against its plain version on the 1080p atrium's 2^18
     camera rays and their shadow rays toward the sun: closest and any hit
-    over the opaque tree, the closest-hit alpha pass windowed by the opaque
+    over the opaque tree, closest from per-lane roots (interior rows at
+    most two levels below the root), the closest-hit alpha pass windowed by the opaque
     t and the any-hit alpha pass on the rays the opaque tree left open,
-    with seeds; every output bit for bit (t, tri, u, v, steps, seed); each
-    timed with its bound (distinct 256-byte rows in 32-byte sectors, nodes
-    x 26·8 operations, the alpha tests' pack rows and texels), registers
-    and spill (ptxas), beside the fused back end's kernels on the same rays;
+    with seeds, and both alpha passes on rays toward the banners; every
+    output bit for bit (t, tri, u, v, steps, seed); each timed with its
+    bound (distinct 256-byte rows in 32-byte sectors, nodes x 26·8
+    operations, the alpha tests' pack rows and texels), beside the first
+    design's time (a thread per ray, the stack in local memory),
+    registers, stack frame, spill and resident blocks (ptxas, the occupancy
+    query), the deepest stack a ray reached, and the fused back end's
+    kernels on the same rays;
 36. the atrium at 1080p (d4, 1 spp, glTF, sun&sky) with
     ``renderer="wide"`` against ``"fused"`` in one process: rays within
     0.1%, the pixels that differ printed (the alpha draws come in another
@@ -229,11 +236,22 @@ before it and read just after:
     s/frame, launches a frame and peak MiB of both; the wide run may launch
     no fused traversal kernel;
 37. the full bistro at 1080p (fused shading) wide against fused on the
-    same criterion, with rounds per ray of each pass (wide and fused) and
-    the wide alpha pass toward the foliage beside the alpha machine; the
-    CLI's ``--renderer wide`` at the reference CLI's defaults on the
-    atrium; the viewer on the atrium switched to wide over HTTP, its
-    picks equal to ``Renderer(renderer="wide").pick``.
+    same criterion: the wide frame may launch no ``vkrt_traverse_wide`` (a
+    two-level call is one ``vkrt_wide_machine`` launch a pass); then the
+    machine against its round loops on the bistro's 2^18 camera rays (the
+    opaque and the alpha pass of the instance-level split, closest and any)
+    and on 2^18 rays toward the foliage: every output bit for bit against
+    its plain version, the round loop ``tlas._wide_rounds``, no host sync inside a pass (torch's sync debug mode),
+    rounds per ray and per warp, each timed with its bound beside the fused
+    back end's machines on the same rays; the CLI's ``--renderer wide`` at
+    the reference CLI's defaults on the atrium; the viewer on the atrium
+    switched to wide over HTTP, its picks equal to
+    ``Renderer(renderer="wide").pick``;
+38. the plaza of phase 28 (4,609 instances: the machine's instance table
+    in global memory): the machine against its round loops on 2^18 world
+    rays (closest and any, the opaque instances without the pack and the
+    alpha instances with it), bit for bit, timed beside the fused back end's
+    opaque and alpha machines on the same rays.
 
 The script keeps its files (checkpoints, images, the port's scene cache)
 in a temporary directory that it removes at exit. No depth was cut for
@@ -241,7 +259,7 @@ time: the whole script ran in about half its time limit on the card.
 
 The line before the last is the per-kernel JSON summary (times, launches,
 errors and each kernel's bound on this card; ``paths_launches``: the
-launches of phases 31-34's paths, and for ``traverse_wide`` of phase 37's);
+launches of phases 31-34's paths, and for the wide kernels of phase 37's);
 the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1875,13 +1893,16 @@ def last_modules(card, work):
     return launches
 
 
-# ---- Phases 35-37: the wide back end (renderer="wide") ----------------------
+# ---- Phases 35-38: the wide back end (renderer="wide") ----------------------
 
 WIDE_SOURCE = "vk_raytrace_torch/csrc/traverse_wide.cu"
 # The reference's wide traversal: an XLA body (the RayQuery analog), not a
-# pallas_call.
+# pallas_call; and the XLA while-loops of its two-level rounds around it.
 WIDE_REPLACES = "vk_raytrace_tpu/ops/traverse_wide.py:114"
 WIDE_REPLACES_KIND = "XLA body (_traverse_wide), not a pallas_call"
+WIDE_MACHINE_REPLACES = "vk_raytrace_tpu/ops/tlas.py:432"
+WIDE_MACHINE_REPLACES_KIND = ("XLA body (_two_level_pass around _traverse_wide), not a "
+                              "pallas_call")
 # Its bytes per ray: origin, direction, t_max (28 B) in, an active byte and
 # an 8-byte seed where given, and t, tri, u, v, steps and the seed (28 B)
 # out; each distinct 256-byte row once in 32-byte sectors
@@ -1892,14 +1913,29 @@ WIDE_RAY_IN, WIDE_RAY_OUT = 28, 28
 # viewer's atrium at a size whose frames keep the phase short.
 WIDE_RAYS, WIDE_W, WIDE_H = 1 << 18, 1920, 1080
 WIDE_VIEWER = ["--scene", "atrium", "--sun-sky", "--size", "640", "360", "--depth", "4"]
+# The first design of vkrt_traverse_wide (a thread per ray, a 64-entry stack
+# in local memory) on phase 35's rays: ms per case as this script measured
+# it then (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6), and its ptxas
+# report.
+WIDE_FIRST_MS = {"closest": 0.2270, "any": 0.1618, "alpha_closest": 0.0568,
+                 "alpha_any": 0.1053, "alpha_closest_banners": 0.1556,
+                 "alpha_any_banners": 0.0704}
+WIDE_FIRST_PTXAS = "56-72 registers, 320-352 B stack frame, no spill"
 
 
-def wide_case(name, wide, pack, o, d, t_max, seed, active, any_hit, card):
-    """``vkrt_traverse_wide`` against its plain version on these rays, every
-    output (t, tri, u, v, steps, seed) bit for bit; both timed, and the
-    call's bound counted from the rows the plain version visits and the
-    alpha tests it draws. Returns (max |err|, (ms, plain_ms), (bound_ms,
-    bound_by), registers)."""
+def resident_blocks(slots):
+    """Blocks of 128 threads an SM holds, from a persistent grid's slots."""
+    return slots / (128 * torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def wide_case(name, key, wide, pack, o, d, t_max, seed, active, any_hit, card, root0=None):
+    """``vkrt_traverse_wide`` against its plain version on these rays (with
+    ``root0``: from each ray's own interior row), every output (t, tri, u,
+    v, steps, seed) bit for bit; both timed, and the call's bound counted
+    from the rows the plain version visits and the alpha tests it draws;
+    printed beside the first design's time (:data:`WIDE_FIRST_MS` under
+    ``key``, where it was measured). Returns (max |err|, (ms, plain_ms),
+    (bound_ms, bound_by), registers)."""
     from vk_raytrace_torch import cuda_build
     from vk_raytrace_torch import travbench as tb
     from vk_raytrace_torch.ops import traverse_wide as tw
@@ -1907,37 +1943,134 @@ def wide_case(name, wide, pack, o, d, t_max, seed, active, any_hit, card):
     n = o.shape[0]
     seen = torch.zeros(wide.rows.shape[0], dtype=torch.int8, device=o.device)
     draws = torch.zeros(n, dtype=torch.int64, device=o.device)
-    plain = tw._traverse_wide_plain(wide, pack, o, d, t_max, seed, active, any_hit, seen=seen,
-                                    draws=draws)
-    kern = tw.traverse_wide(wide, pack, o, d, t_max, seed, active, any_hit)
+    plain = tw._traverse_wide_plain(wide, pack, o, d, t_max, seed, active, any_hit, root0=root0,
+                                    seen=seen, draws=draws)
+    kern = tw.traverse_wide(wide, pack, o, d, t_max, seed, active, any_hit, root0=root0)
     torch.cuda.synchronize()
     for what, a, b in zip(("t", "tri", "u", "v", "steps", "seed"), kern, plain):
         same = torch.equal(a.view(torch.int32), b.view(torch.int32)) if a.is_floating_point() \
             else torch.equal(a, b)
         assert same, f"wide {name}: {what} differs from the plain version"
+    deepest = tw.stack_reached(o.device)
+    slots = tw._GRID.slots[(o.device, (0, int(any_hit), int(pack is not None), 0))]
     hit_share = float((kern[1] >= 0).float().mean())
     steps = float(kern[4].double().mean())
     n_draws = int(draws.sum())
-    ms = tb.cuda_time(lambda: tw.traverse_wide(wide, pack, o, d, t_max, seed, active, any_hit),
-                      20)
+    ms = tb.cuda_time(
+        lambda: tw.traverse_wide(wide, pack, o, d, t_max, seed, active, any_hit, root0=root0), 20)
     plain_ms = tb.cuda_time(
-        lambda: tw._traverse_wide_plain(wide, pack, o, d, t_max, seed, active, any_hit), 2)
+        lambda: tw._traverse_wide_plain(wide, pack, o, d, t_max, seed, active, any_hit,
+                                        root0=root0), 2)
     ray_b = (WIDE_RAY_IN + (1 if active is not None else 0) + (8 if seed is not None else 0)
-             + WIDE_RAY_OUT)
+             + (4 if root0 is not None else 0) + WIDE_RAY_OUT)
     n_bytes, n_inner, n_leaf = tb.traversal_bytes(n, ray_b, seen, 8, "closest")
     n_bytes += n_draws * MACHINE_CAND_BYTES
     n_ops = float(kern[4].double().sum()) * tb.ops_per_node(8) + n_draws * MACHINE_CAND_OPS
     bnd = tb.bound(n_bytes, n_ops)
     res = cuda_build.resources("traverse_wide",
                                f"wide_kernelILb{int(any_hit)}ELb{int(pack is not None)}E")
+    first = (f"the first design {WIDE_FIRST_MS[key]:.4f} ms" if key in WIDE_FIRST_MS
+             else "the first design not timed on these rays")
     print(f"wide {name}: {n} rays, hit share {hit_share:.4f}, mean nodes/ray {steps:.2f}, alpha "
-          f"tests {n_draws} ({n_draws / n:.3f}/ray), bit for bit (t, tri, u, v, steps, seed) -> "
-          f"OK; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bnd[0]:.4f} ms by {bnd[1]} "
-          f"({n_bytes / 1e6:.1f} MB with {n_inner} interior + {n_leaf} leaf rows of "
-          f"{wide.rows.shape[0]} visited, {n_ops / 1e9:.3f} Gop; {ms / bnd[0]:.1f}x the bound); "
-          f"{res['registers']} registers, {res['stack_frame']} B stack frame, "
-          f"{res['spill_stores'] + res['spill_loads']} B spill ({card})", flush=True)
+          f"tests {n_draws} ({n_draws / n:.3f}/ray), deepest stack {deepest} of "
+          f"{wide.stack_depth}, bit for bit (t, tri, u, v, steps, seed) -> OK; kernel {ms:.4f} "
+          f"ms ({first}, {WIDE_FIRST_PTXAS}), plain "
+          f"{plain_ms:.2f} ms, bound {bnd[0]:.4f} ms by {bnd[1]} ({n_bytes / 1e6:.1f} MB with "
+          f"{n_inner} interior + {n_leaf} leaf rows of {wide.rows.shape[0]} visited, "
+          f"{n_ops / 1e9:.3f} Gop; {ms / bnd[0]:.1f}x the bound); {res['registers']} registers, "
+          f"{res['stack_frame']} B stack frame, {res['spill_stores'] + res['spill_loads']} B "
+          f"spill, {res['smem']} B static shared, {resident_blocks(slots):.0f} blocks of 128 an "
+          f"SM ({card})", flush=True)
     return 0.0, (ms, plain_ms), bnd, res["registers"]
+
+
+def wide_machine_case(name, acc, part, pack, o, d, t_max, seed, act, any_hit, card):
+    """``vkrt_wide_machine`` (one launch, no host sync: torch's sync debug
+    mode raises around a warm call) against its plain version, the round
+    loop ``tlas._wide_rounds``, on the same CUDA tensors: every output
+    (t_best, tri, u, v, inst, seed, steps) bit for bit. The machine
+    timed (CUDA events), the plain loop once on the host clock; the bound
+    counts the rays once, the instance table once, each distinct BLAS row
+    once, the rounds' nodes and transforms and the alpha tests; the instance
+    scans (:func:`scan_work`) printed beside it. Returns ((max |err|, (ms,
+    plain_ms), bound), the machine's outputs, rounds per ray)."""
+    from vk_raytrace_torch import cuda_build
+    from vk_raytrace_torch import travbench as tb
+    from vk_raytrace_torch.ops import tlas
+    from vk_raytrace_torch.ops import traverse_fused as tf
+    from vk_raytrace_torch.ops import traverse_wide as tw
+
+    args = (acc, pack, o, d, t_max, seed, act, part, any_hit)
+    before = tf.LAUNCHES["wide_machine"]
+    kern = tlas._wide_pass(*args)
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES["wide_machine"] == before + 1, f"{name}: not one machine launch"
+    deepest = tw.stack_reached(o.device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tlas._wide_pass(*args)  # raises on a host sync inside the pass
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    n = o.shape[0]
+    rounds = torch.zeros(n, dtype=torch.int64, device=o.device)
+    seen = torch.zeros(acc.blas.rows.shape[0], dtype=torch.int8, device=o.device)
+    n_draws = torch.zeros(n, dtype=torch.int64, device=o.device)
+    t0 = time.perf_counter()
+    plain = tlas._wide_rounds(*args, rounds=rounds, seen=seen, draws=n_draws)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for k, (a, b) in enumerate(zip(kern, plain)):
+        a = a.to(b.dtype)
+        same = (torch.equal(a.view(torch.int32), b.view(torch.int32))
+                if b.dtype == torch.float32 else torch.equal(a, b))
+        assert same, f"{name}: output {k} not bit-exact with the plain round loop"
+    draws = int(n_draws.sum())
+    ms = tb.cuda_time(lambda: tlas._wide_pass(*args), 5)
+    n_inst = acc.inst.aabb_min.shape[0]
+    mask = tlas._wide_mask(acc, part)
+    n_in = int(mask.sum()) if mask is not None else n_inst
+    n_rounds = float(rounds.double().sum())
+    nodes = float(plain[6].double().sum()) - n_rounds
+    rows_b, _, _ = tb.traversal_bytes(0, 0, seen, 8, "closest")
+    n_bytes = n * MACHINE_RAY_BYTES + n_inst * MACHINE_INST_BYTES + rows_b + (
+        draws * MACHINE_CAND_BYTES)
+    n_ops = (nodes * tb.ops_per_node(8) + n_rounds * OPAQUE_ROUND_OPS
+             + draws * MACHINE_CAND_OPS)
+    bnd = tb.bound(n_bytes, n_ops)
+    scans = scan_work(n, n_rounds, mask, n_inst)
+    mean_r, warp_max, used = warp_rounds(rounds)
+    table = "global" if n_inst > tlas._DENSE_I_MAX else "shared"
+    res = cuda_build.resources(
+        "traverse_wide", f"wide_machine_kernelILb{int(any_hit)}ELb{int(pack is not None)}ELb"
+                         f"{int(table == 'global')}E")
+    slots = tw._GRID.slots[(o.device, (1, int(any_hit), int(pack is not None), n_inst))]
+    print(f"{name}: {n} rays, {n_inst} instances ({n_in} in the pass, table in {table} memory), "
+          f"{int(n_rounds)} rounds ({mean_r:.2f} per ray, the warps' most {warp_max:.2f} on "
+          f"average, {used:.3f} of the warps' lane-rounds used, at most {int(rounds.max())}), "
+          f"{draws} alpha tests, hit {float((kern[1] >= 0).float().mean()):.4f}, deepest "
+          f"stack {deepest}; bit-exact vs the plain round loop -> OK; no host sync in the pass; kernel {ms:.3f} ms (1 launch); plain loop "
+          f"{plain_ms:.1f} ms; bound {bnd[0]:.4f} ms by {bnd[1]} ({n_bytes / 1e6:.1f} MB, "
+          f"{n_ops / 1e9:.3f} Gop; {ms / bnd[0]:.1f}x the bound); {scan_text(scans, n_bytes, n_ops)}"
+          f"; {res['registers']} registers, {res['stack_frame']} B stack frame, "
+          f"{res['spill_stores'] + res['spill_loads']} B spill, {resident_blocks(slots):.0f} "
+          f"blocks of 128 an SM ({card})", flush=True)
+    return (0.0, (ms, plain_ms), bnd), kern, rounds
+
+
+def wide_interior_rows(wide, levels):
+    """The interior rows of an 8-wide tree at most ``levels`` levels below
+    its root (the root included): valid children with a ref >= 0."""
+    rows = wide.rows.cpu().numpy()
+    found, front = [0], [0]
+    for _ in range(levels):
+        nxt = []
+        for r in front:
+            box = rows[r, :48].reshape(8, 6)
+            nxt += [int(c) for c, ok in zip(rows[r, 48:56], box[:, 0] <= box[:, 3])
+                    if ok and c >= 0]
+        found += nxt
+        front = nxt
+    return np.asarray(found)
 
 
 def phase_wide_kernel(card, geom, scene, cam, gbundle, rng):
@@ -1964,8 +2097,17 @@ def phase_wide_kernel(card, geom, scene, cam, gbundle, rng):
     sc = scene.to(dev)
     pack = tw.make_alpha_pack(sc.materials, sc.atlas, sc.geometry.tri_material)
     seed = torch.tensor(rng.integers(0, 2**32, n), device=dev)
-    res = {"closest": wide_case("closest, opaque tree (camera rays)", opq, None, o, d, inf, None,
-                                None, False, card)}
+    res = {"closest": wide_case("closest, opaque tree (camera rays)", "closest", opq, None, o,
+                                d, inf, None, None, False, card)}
+    # Per-lane roots (the entry's other route): the same rays, each from an
+    # interior row at most two levels below the root (drawn from a generator
+    # of their own, so that the other cases keep their rays).
+    starts = wide_interior_rows(opq, 2)
+    pick = np.random.default_rng(35).integers(0, len(starts), n)
+    root0 = torch.tensor(starts[pick], dtype=torch.int32, device=dev)
+    res["roots"] = wide_case(f"closest from per-lane roots ({len(starts)} interior rows), "
+                             "opaque tree (camera rays)", "roots", opq, None, o, d, inf, None,
+                             None, False, card, root0=root0)
     hit_o, _ = tw.closest_hit_wide(opq, None, o, d)
     hit = hit_o.tri >= 0
     sun = torch.as_tensor(np.asarray(scene.sun_sky.sun_direction, np.float32), device=dev)
@@ -1973,23 +2115,26 @@ def phase_wide_kernel(card, geom, scene, cam, gbundle, rng):
     so = (o + d * torch.where(hit, hit_o.t, 0.0)[:, None] + sun * 1e-3).contiguous()
     sd = sun.expand(n, 3).contiguous()
     t_sh = torch.full((n,), 1e4, device=dev)
-    res["any"] = wide_case("any, opaque tree (shadow rays of the hits toward the sun)", opq,
-                           None, so, sd, t_sh, None, hit, True, card)
-    res["alpha_closest"] = wide_case("closest, alpha tree windowed by the opaque t, test inline",
-                                     alp, pack, o, d, hit_o.t.contiguous(), seed, None, False,
-                                     card)
+    res["any"] = wide_case("any, opaque tree (shadow rays of the hits toward the sun)", "any",
+                           opq, None, so, sd, t_sh, None, hit, True, card)
+    res["alpha_closest"] = wide_case(
+        "closest, alpha tree windowed by the opaque t, test inline", "alpha_closest", alp, pack,
+        o, d, hit_o.t.contiguous(), seed, None, False, card)
     occ, _ = tw.any_hit_wide(opq, None, so, sd, t_sh, None, hit)
-    res["alpha_any"] = wide_case("any, alpha tree (shadow rays the opaque tree left open)", alp,
-                                 pack, so, sd, t_sh, seed, hit & ~occ, True, card)
+    res["alpha_any"] = wide_case("any, alpha tree (shadow rays the opaque tree left open)",
+                                 "alpha_any", alp, pack, so, sd, t_sh, seed, hit & ~occ, True,
+                                 card)
     # Rays toward the banners (phase 18's kind), where most meet a candidate.
     oa, da = rays_at(rng, geom, np.where(np.asarray(geom.tri_flags) & 2)[0], n, dev)
     t_ba = tw.closest_hit_wide(opq, None, oa, da)[0].t.contiguous()
     t_bs = torch.tensor(rng.uniform(0.5, 20.0, n), dtype=torch.float32, device=dev)
     open_b = ~tw.any_hit_wide(opq, None, oa, da, t_bs)[0]
-    res["alpha_closest_banners"] = wide_case("closest, alpha tree, rays toward the banners", alp,
-                                             pack, oa, da, t_ba, seed, None, False, card)
-    res["alpha_any_banners"] = wide_case("any, alpha tree, rays toward the banners", alp, pack, oa,
-                                         da, t_bs, seed, open_b, True, card)
+    res["alpha_closest_banners"] = wide_case(
+        "closest, alpha tree, rays toward the banners", "alpha_closest_banners", alp, pack, oa,
+        da, t_ba, seed, None, False, card)
+    res["alpha_any_banners"] = wide_case(
+        "any, alpha tree, rays toward the banners", "alpha_any_banners", alp, pack, oa, da, t_bs,
+        seed, open_b, True, card)
     # The fused back end's kernels on the same rays, in the same call.
     f_t = tf.closest_hit_fused(gbundle.opaque_planar, o, d).t
     f_ba = tf.closest_hit_fused(gbundle.opaque_planar, oa, da).t
@@ -2058,9 +2203,12 @@ def phase_wide_frames(card, scene):
 
 
 def phase_wide_bistro(card, pool, inst, b_mats, b_lights, b_cam, b_atlas, rng):
-    """Phase 37a: the full bistro at 1080p, wide against fused (rounds per
-    ray of each pass), and the wide alpha pass beside the alpha machine on
-    2^18 rays toward the foliage."""
+    """Phase 37a: the full bistro at 1080p, wide against fused (the wide
+    frame makes no ``vkrt_traverse_wide`` launch: each two-level call is a
+    ``vkrt_wide_machine`` launch a pass); then the wide machine against its
+    round loops on 2^18 camera rays (the opaque and the alpha pass of the
+    split, closest and any) and on 2^18 rays toward the foliage, beside the
+    fused back end's machines on the same rays."""
     from vk_raytrace_torch import render as R
     from vk_raytrace_torch import travbench as tb
     from vk_raytrace_torch.integrator.camera import with_aspect
@@ -2080,8 +2228,9 @@ def phase_wide_bistro(card, pool, inst, b_mats, b_lights, b_cam, b_atlas, rng):
     rw, w_s, w_mrays, w_frame, w_peak = render_phase(
         "bistro 1080p d4 1spp fused shading, renderer=wide",
         lambda: R.Renderer(scene_w, b_cfg, device=dev, fused_shade=True, renderer="wide"), card,
-        want=("traverse_wide", "shade_stage"))
+        want=("wide_machine", "shade_stage"))
     w_launches = dict(tf.LAUNCHES)
+    assert not w_frame.get("traverse_wide"), f"bistro wide: a per-round launch ran: {w_frame}"
     assert not w_frame.get("opaque_machine") and not w_frame.get("alpha_machine"), w_frame
     rf, f_s, f_mrays, f_frame, f_peak = render_phase(
         "bistro 1080p d4 1spp fused shading, renderer=fused",
@@ -2090,25 +2239,34 @@ def phase_wide_bistro(card, pool, inst, b_mats, b_lights, b_cam, b_atlas, rng):
     compare_frames("bistro 1080p wide vs fused", rw, rf, card)
     print(f"bistro 1080p: wide {w_s:.4f} s/frame ({w_mrays:.3f} Mrays/s, peak {w_peak:.1f} MiB, "
           f"launches/frame {w_frame}) vs fused {f_s:.4f} s/frame ({f_mrays:.3f} Mrays/s, peak "
-          f"{f_peak:.1f} MiB, launches/frame {f_frame}) [{card}]", flush=True)
+          f"{f_peak:.1f} MiB, launches/frame {f_frame}); wide/fused {w_s / f_s:.2f}x [{card}]",
+          flush=True)
     acc_d = rw.packed
     del rw, rf
     torch.cuda.empty_cache()
-    # Rounds per ray of each pass on 2^18 camera rays, and the alpha pass
-    # toward the foliage: the wide rounds (a launch and a host sync each)
-    # beside the alpha machine (one launch).
     n = WIDE_RAYS
     o, d = camera_rays(with_aspect(b_cam, WIDE_W, WIDE_H).to(dev), WIDE_W, WIDE_H, n, rng, dev)
     sc = bscene.to(dev)
     pack = make_alpha_pack(sc.materials, sc.atlas, sc.geometry.tri_material)
     seed = torch.tensor(rng.integers(0, 2**32, n), device=dev)
     act = torch.ones(n, dtype=torch.bool, device=dev)
-    alpha = torch.as_tensor(acc_d.inst_alpha, device=dev).bool()
     inf = torch.full((n,), tf.INF, device=dev)
-    r_o = torch.zeros(n, dtype=torch.int64, device=dev)
-    r_a = torch.zeros(n, dtype=torch.int64, device=dev)
-    t_o, *_ = tlas._wide_pass(acc_d, None, o, d, inf, seed, act, ~alpha, False, rounds=r_o)
-    tlas._wide_pass(acc_d, pack, o, d, t_o, seed, act, alpha, False, rounds=r_a)
+    t_sh = torch.tensor(rng.uniform(1.0, 60.0, n), dtype=torch.float32, device=dev)
+    res = {}
+    res["closest"], out_o, r_o = wide_machine_case(
+        "bistro wide machine, camera rays, closest, the opaque instances", acc_d, "opaque", None,
+        o, d, inf, seed, act, False, card)
+    res["alpha_closest"], _, r_a = wide_machine_case(
+        "bistro wide machine, camera rays, closest, the alpha instances windowed by the opaque "
+        "t, test inline", acc_d, "alpha", pack, o, d, out_o[0].contiguous(), seed, act, False,
+        card)
+    res["any"], occ, _ = wide_machine_case(
+        "bistro wide machine, camera rays within 1-60, any, the opaque instances", acc_d,
+        "opaque", None, o, d, t_sh, seed, act, True, card)
+    res["alpha_any"], _, _ = wide_machine_case(
+        "bistro wide machine, camera rays within 1-60, any, the alpha instances for the rays "
+        "left open, test inline", acc_d, "alpha", pack, o, d, t_sh, seed, occ[1] < 0, True, card)
+    # The fused back end's rounds per ray on the same camera rays.
     fr_o = torch.zeros(n, dtype=torch.int64, device=dev)
     fr_a = torch.zeros(n, dtype=torch.int64, device=dev)
     planar, roots, view, mask = tlas._subset(acc_d, "opq")
@@ -2124,19 +2282,95 @@ def phase_wide_bistro(card, pool, inst, b_mats, b_lights, b_cam, b_atlas, rng):
                                    eye + rng.uniform(-2.0, 2.0, (n, 3)), dev)
     tl, *_ = tlas._two_level_opaque_pass(acc_d, "opq", ol, dl, inf, act, True, False)
     tl = tl.contiguous()
-    w_ms = tb.cuda_time(lambda: tlas._wide_pass(acc_d, pack, ol, dl, tl, seed, act, alpha, False),
-                        3)
+    res["foliage"], _, ra = wide_machine_case(
+        "bistro wide machine, 2^18 rays toward the foliage, closest, the alpha instances "
+        "windowed by the opaque t", acc_d, "alpha", pack, ol, dl, tl, seed, act, False, card)
+    w_ms = res["foliage"][1][0]
     m_ms = tb.cuda_time(lambda: tlas._two_level_alpha_pass(acc_d, pack, ol, dl, tl, seed, act,
                                                            False, True), 10)
-    ra = torch.zeros(n, dtype=torch.int64, device=dev)
-    tlas._wide_pass(acc_d, pack, ol, dl, tl, seed, act, alpha, False, rounds=ra)
-    print(f"bistro alpha pass, 2^18 rays toward the foliage windowed by the opaque t: wide "
-          f"(instance-level split, {warp_rounds(ra)[0]:.2f} rounds/ray, a launch and a host "
-          f"sync each) {w_ms:.3f} ms; the alpha machine (one launch) {m_ms:.3f} ms [{card}]",
+    o_ms = tb.cuda_time(lambda: tlas._two_level_opaque_pass(acc_d, "opq", o, d, inf, act, True,
+                                                            False), 10)
+    print(f"bistro, the same rays through the fused back end's machines: the alpha pass toward "
+          f"the foliage, wide machine {w_ms:.3f} ms ({warp_rounds(ra)[0]:.2f} rounds/ray) "
+          f"against the alpha machine {m_ms:.3f} ms; the camera rays' opaque pass, wide machine "
+          f"{res['closest'][1][0]:.3f} ms against the opaque machine {o_ms:.3f} ms [{card}]",
           flush=True)
-    return w_launches, {"s_frame": w_s, "launches_per_frame": w_frame.get("traverse_wide", 0),
-                        "rounds_per_ray": warp_rounds(r_o)[0] + warp_rounds(r_a)[0],
-                        "alpha_pass_ms": w_ms, "alpha_machine_ms": m_ms}
+    return w_launches, res, {
+        "s_frame": w_s, "fused_s_frame": f_s,
+        "launches_per_frame": w_frame.get("wide_machine", 0),
+        "rounds_per_ray": warp_rounds(r_o)[0] + warp_rounds(r_a)[0],
+        "alpha_pass_ms": w_ms, "alpha_machine_ms": m_ms, "opaque_machine_ms": o_ms}
+
+
+def phase_wide_plaza(card, plaza, rng):
+    """Phase 38: the plaza (4,609 instances: the wide machine's instance
+    table in global memory) from phase 28's glTF, the wide machine against
+    its round loops on 2^18 world rays (camera rays at 1280x720 and the
+    shadow rays of their hits toward the sun), the two passes of the
+    instance-level split: closest over the opaque instances without the
+    pack, then over the alpha instances with it windowed by that t; any over
+    the opaque instances, then over the alpha instances for the rays left
+    open. Timed beside the fused back end's machines on the same rays.
+    Returns the cases' results and the fused machines' ms."""
+    from vk_raytrace_torch import render as R
+    from vk_raytrace_torch import travbench as tb
+    from vk_raytrace_torch.integrator.camera import with_aspect
+    from vk_raytrace_torch.models.gltf import load_gltf
+    from vk_raytrace_torch.ops import tlas
+    from vk_raytrace_torch.ops import traverse_fused as tf
+    from vk_raytrace_torch.ops.traverse_wide import make_alpha_pack
+
+    dev = torch.device("cuda", 0)
+    (pool, inst), mats, lights, cam, atlas = load_gltf(plaza, instancing="auto")
+    scene = R.build_instanced_scene(pool, inst, mats, lights, cam, atlas=atlas)
+    t0 = time.time()
+    acc = tlas.with_wide(scene.instances, scene.geometry).to(dev)
+    n_inst = acc.inst.aabb_min.shape[0]
+    assert n_inst == 4609 and n_inst > tlas._DENSE_I_MAX, n_inst
+    print(f"plaza 8-wide BLAS: {acc.blas.rows.shape[0]} rows (stack {acc.blas.stack_depth}) for "
+          f"{n_inst} instances, built in {time.time() - t0:.2f} s", flush=True)
+    sc = scene.to(dev)
+    pack = make_alpha_pack(sc.materials, sc.atlas, sc.geometry.tri_material)
+    del sc
+    n = WIDE_RAYS
+    poc, pdc = camera_rays(with_aspect(cam, 1280, 720).to(dev), 1280, 720, n // 2, rng, dev)
+    first, _ = tlas.closest_hit_instanced(acc, None, poc, pdc, backend="wide")
+    hit_ids = torch.nonzero(first.tri >= 0).squeeze(1)
+    hit_ids = hit_ids[torch.arange(n // 2, device=dev) % hit_ids.numel()]
+    sun = torch.tensor([0.35, 0.85, 0.4], device=dev)
+    sun = sun / sun.norm()
+    pso = poc[hit_ids] + pdc[hit_ids] * (first.t[hit_ids] * (1.0 - 1e-4))[:, None]
+    o = torch.cat([poc, pso]).contiguous()
+    d = torch.cat([pdc, sun.expand(n // 2, 3)]).contiguous()
+    inf = torch.full((n,), tf.INF, device=dev)
+    t_short = torch.tensor(rng.uniform(1.0, 60.0, n), dtype=torch.float32, device=dev)
+    seed = torch.tensor(rng.integers(0, 2**32, n), device=dev)
+    act = torch.ones(n, dtype=torch.bool, device=dev)
+    res = {}
+    res["closest"], out_c, _ = wide_machine_case(
+        "plaza wide machine, closest, the opaque instances (trunks, ground), no pack", acc,
+        "opaque", None, o, d, inf, seed, act, False, card)
+    res["alpha_closest"], _, _ = wide_machine_case(
+        "plaza wide machine, closest, the alpha instances (foliage) with the pack, windowed by "
+        "the opaque t", acc, "alpha", pack, o, d, out_c[0].contiguous(), seed, act, False, card)
+    res["any"], out_a, _ = wide_machine_case(
+        "plaza wide machine, any within 1-60, the opaque instances, no pack", acc, "opaque",
+        None, o, d, t_short, seed, act, True, card)
+    res["alpha_any"], _, _ = wide_machine_case(
+        "plaza wide machine, any within 1-60, the alpha instances with the pack for the rays "
+        "left open", acc, "alpha", pack, o, d, t_short, seed, out_a[1] < 0, True, card)
+    fused = {
+        "opaque_machine": tb.cuda_time(lambda: tlas._two_level_opaque_pass(
+            acc, "opq", o, d, inf, act, True, False), 3),
+        "alpha_machine": tb.cuda_time(lambda: tlas._two_level_alpha_pass(
+            acc, pack, o, d, out_c[0].contiguous(), seed, act, False, True), 3),
+    }
+    print(f"plaza, the same rays: wide machine closest {res['closest'][1][0]:.3f} ms (the "
+          f"opaque instances) and {res['alpha_closest'][1][0]:.3f} ms (the alpha instances); the "
+          f"fused back end's opaque machine {fused['opaque_machine']:.3f} ms (opaque subsets), "
+          f"alpha machine {fused['alpha_machine']:.3f} ms (alpha subsets, windowed by the wide "
+          f"opaque t) [{card}]", flush=True)
+    return res, fused
 
 
 def phase_wide_viewer(card):
@@ -3212,21 +3446,25 @@ def main():
     # ---- 31-34. the last modules: sharding, the viewer, the graft entry, JPEG ----
     path_launches = last_modules(card, work)
 
-    # ---- 35-37. the wide back end -------------------------------------------
+    # ---- 35-38. the wide back end -------------------------------------------
     phase("35. the wide kernel against its plain version on the atrium's camera and shadow rays")
     wide_res, wide_fused_ms = phase_wide_kernel(card, geom, scene, cam, gbundle, rng)
     phase("36. the atrium at 1080p, renderer=wide against renderer=fused")
     wide_launches, wide_atrium = phase_wide_frames(card, scene)
-    phase("37. the bistro at 1080p wide against fused; the CLI and the viewer on wide")
+    phase("37. the bistro at 1080p wide against fused, the wide machine against its round loops; "
+          "the CLI and the viewer on wide")
     wide_paths = {}
-    wide_paths["bistro"], wide_bistro = phase_wide_bistro(card, pool, inst, b_mats, b_lights,
-                                                          b_cam, b_atlas, rng)
+    wide_paths["bistro"], machine_wide_res, wide_bistro = phase_wide_bistro(
+        card, pool, inst, b_mats, b_lights, b_cam, b_atlas, rng)
     _, wide_paths["cli"] = cli_run(
         "CLI --renderer wide: the atrium at the reference CLI's defaults",
         ["--scene", "atrium", "--sun-sky", "--renderer", "wide", "-o",
          os.path.join(work, "atrium_wide.png")], card, want=("traverse_wide",))
     assert not any(wide_paths["cli"].get(k) for k in ATRIUM_KERNELS), wide_paths["cli"]
     wide_paths["viewer"] = phase_wide_viewer(card)
+    phase("38. the plaza (4,609 instances): the wide machine's global table against its round "
+          "loops")
+    plaza_wide_res, plaza_fused_ms = phase_wide_plaza(card, plaza, rng)
 
     def traverse_entry(m, lau, replaces):
         """``launches``: the main path's count (``lau``). The per-round kernels
@@ -3317,12 +3555,27 @@ def main():
         "max_abs_err": max(v[0] for v in wide_res.values()), "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "cases": {k: {"ms": v[1][0], "plain_ms": v[1][1], "bound_ms": v[2][0],
-                      "bound_by": v[2][1], "fused_ms": wide_fused_ms[k]}
+                      "bound_by": v[2][1], "fused_ms": wide_fused_ms.get(k)}
                   for k, v in wide_res.items()},
-        "per_frame": {"atrium": wide_atrium, "bistro": wide_bistro},
+        "per_frame": {"atrium": wide_atrium},
         "paths_launches": {p: v.get("traverse_wide", 0) for p, v in wide_paths.items()},
     })
-    print(f"phases 1-37 passed in {time.time() - T_START:.1f} s [{card}]", flush=True)
+    err, (ms, plain_ms), (b_ms, b_by) = machine_wide_res["closest"]
+    kernels.append({
+        "name": "wide_machine", "route": "cuda", "source": WIDE_SOURCE,
+        "replaces": WIDE_MACHINE_REPLACES, "replaces_kind": WIDE_MACHINE_REPLACES_KIND,
+        "launches": wide_paths["bistro"]["wide_machine"],
+        "max_abs_err": max(v[0] for v in machine_wide_res.values()), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "cases": {k: {"ms": v[1][0], "plain_ms": v[1][1], "bound_ms": v[2][0],
+                      "bound_by": v[2][1]} for k, v in machine_wide_res.items()},
+        "plaza": {k: {"ms": v[1][0], "plain_ms": v[1][1], "bound_ms": v[2][0],
+                      "bound_by": v[2][1]} for k, v in plaza_wide_res.items()},
+        "plaza_fused_ms": plaza_fused_ms,
+        "per_frame": {"bistro": wide_bistro},
+        "paths_launches": {p: v.get("wide_machine", 0) for p, v in wide_paths.items()},
+    })
+    print(f"phases 1-38 passed in {time.time() - T_START:.1f} s [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -22,7 +22,9 @@ a straight one); the machines beyond 512 instances (their instance table in
 global memory) on a small plaza against the chunked round loops; the
 instance-level split of an all-alpha pool on the card against the CPU; the
 sharded step under NCCL at world size 1 against ``Renderer.step``; and the
-graft entry on the card against the CPU. Kernel vs twin: same float32 operations in the same order, rounded
+graft entry on the card against the CPU; the wide back end's tree kernel
+against its plain version and its two-level machine against its round loop
+on the same CUDA tensors (bit for bit). Kernel vs twin: same float32 operations in the same order, rounded
 per operation (nvcc -fmad=false), so ``tri`` and the hit masks are equal
 and t within rtol 1e-5. Render: CUDA and CPU transcendentals round
 differently, so 99% of pixels within rtol 1e-3 / atol 1e-4 and ray counts
@@ -470,6 +472,102 @@ def test_opaque_machine_matches_round_loop(bistro, width, any_hit):
         assert 0.05 < (plain[1] >= 0).float().mean() < 0.99
 
 
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("case", ["opaque", "alpha", "roots"])
+def test_wide_kernel_matches_plain(scene, bistro, case, any_hit):
+    """``vkrt_traverse_wide`` (persistent warps, the stack in shared memory
+    with its spill) against its plain version on the same CUDA tensors:
+    every output (t, tri, u, v, steps, seed) bit for bit; the small atrium's
+    opaque tree, its alpha tree toward the banners with the pack, and the
+    small bistro's 8-wide BLAS from per-lane roots with the pack."""
+    _need_cuda()
+    import chip_smoke
+    from vk_raytrace_torch.ops import bvh8
+    from vk_raytrace_torch.ops import traverse_wide as tw
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(21 + any_hit)
+    n = 8191
+    root0 = None
+    if case == "roots":
+        pool, inst, m, l, c, a = bistro
+        bs = R.build_instanced_scene(pool, inst, m, l, c, atlas=a)
+        acc = tlas.with_wide(bs.instances, bs.geometry).to(dev)
+        wide = acc.blas
+        o = torch.tensor(rng.uniform(-3, 3, (n, 3)), dtype=torch.float32, device=dev)
+        d = torch.nn.functional.normalize(torch.tensor(rng.standard_normal((n, 3)),
+                                                       dtype=torch.float32, device=dev), dim=1)
+        roots = np.asarray(torch.as_tensor(acc.mesh_root).cpu())
+        root0 = torch.tensor(roots[rng.integers(0, len(roots), n)], dtype=torch.int32,
+                             device=dev)
+        sc = bs.to(dev)
+    else:
+        geom, mats, lights, cam, atlas = scene
+        opq, alp = bvh8.build_wide(geom)
+        wide = (opq if case == "opaque" else alp).to(dev)
+        ids = np.where(np.asarray(geom.tri_flags) & 2)[0] if case == "alpha" else np.arange(
+            len(geom.indices))
+        o, d = chip_smoke.rays_at(rng, geom, ids, n, dev)
+        sc = R.build_scene(geom, mats, lights, cam, atlas=atlas).to(dev)
+    pack = None if case == "opaque" else make_alpha_pack(sc.materials, sc.atlas,
+                                                         sc.geometry.tri_material)
+    t_max = (torch.tensor(rng.uniform(0.5, 30.0, n), dtype=torch.float32, device=dev) if any_hit
+             else torch.full((n,), tf.INF, device=dev))
+    seed = torch.tensor(rng.integers(0, 2**32, n), device=dev)
+    active = torch.tensor(rng.random(n) < 0.95, device=dev)
+    plain = tw._traverse_wide_plain(wide, pack, o, d, t_max, seed, active, any_hit, root0=root0)
+    before = tf.LAUNCHES["traverse_wide"]
+    kern = tw.traverse_wide(wide, pack, o, d, t_max, seed, active, any_hit, root0=root0)
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES["traverse_wide"] == before + 1
+    for name, a, b in zip(("t", "tri", "u", "v", "steps", "seed"), kern, plain):
+        assert _same_bits(a, b), name
+    assert (plain[1] >= 0).any()
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_wide_machine_matches_round_loop(bistro, any_hit):
+    """``vkrt_wide_machine`` (one launch a pass) on the small bistro against
+    its plain version, the round loop, on the same CUDA tensors: every
+    output bit for bit, for each pass of the instance-level split with and
+    without the pack."""
+    _need_cuda()
+    import chip_smoke
+
+    dev = torch.device("cuda")
+    pool, inst, m, l, c, a = bistro
+    bs = R.build_instanced_scene(pool, inst, m, l, c, atlas=a)
+    acc = tlas.with_wide(bs.instances, bs.geometry).to(dev)
+    sc = bs.to(dev)
+    pack = make_alpha_pack(sc.materials, sc.atlas, sc.geometry.tri_material)
+    rng = np.random.default_rng(31 + any_hit)
+    n = 8191
+    pick = rng.choice(len(inst.mesh_id), n)
+    o, d = chip_smoke.rays_toward_instances(rng, pool, inst, pick,
+                                            rng.uniform([-50, 0.5, -10], [50, 8, 10], (n, 3)),
+                                            dev)
+    t_max = (torch.tensor(rng.uniform(1.0, 60.0, n), dtype=torch.float32, device=dev)
+             if any_hit else torch.full((n,), tf.INF, device=dev))
+    seed = torch.tensor(rng.integers(0, 2**32, n), device=dev)
+    act = torch.tensor(rng.random(n) < 0.95, device=dev)
+    for part, with_pack in (("all", False), ("all", True), ("opaque", False), ("alpha", True)):
+        args = (acc, pack if with_pack else None, o, d, t_max, seed, act, part, any_hit)
+        before = tf.LAUNCHES["wide_machine"]
+        kern = tlas._wide_pass(*args)
+        torch.cuda.synchronize()
+        assert tf.LAUNCHES["wide_machine"] == before + 1
+        plain = tlas._wide_rounds(*args)
+        for name, x, y in zip(("t", "tri", "u", "v", "inst", "seed", "steps"), kern, plain):
+            assert _same_bits(x.to(y.dtype), y), (part, with_pack, name)
+        assert (plain[1] >= 0).any()
+
+
 @pytest.mark.parametrize("nogather", [False, True])
 @pytest.mark.parametrize("width", tf.WIDTHS)
 def test_capped_kernel_matches_plain(scene, width, nogather):
@@ -652,13 +750,13 @@ def test_persistent_ab_scratch_reused(scene):
     assert tb.same_hits(first, third)
     assert tb.same_hits(second, tf._traverse_plain(planar, o2, d2, inf(3001), None, "closest",
                                                    True))
-    key = (torch.device("cuda", torch.cuda.current_device()), 16,
+    key = (torch.device("cuda", torch.cuda.current_device()),
            torch.cuda.current_stream().cuda_stream)
-    before = tf._ab_scratch[key].numel()
+    before = tf._AB_GRIDS[16].scratch[key].numel()
     deep = tf.PlanarScene(planar.rows, 100, 16)  # a stack bound past the shared entries
     again = tf.traverse(deep, o1, d1, inf(5000))
     torch.cuda.synchronize()
-    assert tf._ab_scratch[key].numel() > before
+    assert tf._AB_GRIDS[16].scratch[key].numel() > before
     assert tb.same_hits(first, again)
 
 

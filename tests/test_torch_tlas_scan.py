@@ -376,7 +376,8 @@ def host_lib(tmp_path_factory):
         cpp.write_text(_host_source(f.read()))
     lib = out / "libw16.so"
     res = subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-                          "-DVKRT_WIDTH=16", f"-I{SHIM}", "-o", str(lib), str(cpp)],
+                          "-DVKRT_WIDTH=16", f"-I{SHIM}", f"-I{cuda_build.CSRC}", "-o",
+                          str(lib), str(cpp)],
                          capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
     return str(lib)

@@ -58,9 +58,10 @@ def host_libs(tmp_path_factory):
     def build(name, width, shared):
         lib = out / f"lib{name}.so"
         cmd = ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-               f"-DVKRT_WIDTH={width}", f"-I{SHIM}", "-o", str(lib), str(cpp)]
+               f"-DVKRT_WIDTH={width}", f"-I{SHIM}", f"-I{cuda_build.CSRC}", "-o", str(lib),
+               str(cpp)]
         if shared is not None:
-            cmd.insert(-4, f"-DVKRT_SHARED_STACK={shared}")
+            cmd.insert(-3, f"-DVKRT_SHARED_STACK={shared}")
         res = subprocess.run(cmd, capture_output=True, text=True)
         assert res.returncode == 0, res.stderr
         return str(lib)
@@ -80,14 +81,13 @@ def host_kernel(host_libs, monkeypatch):
     width (the wrapper's argtypes and scratch as on the card)."""
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: _Stream())
     monkeypatch.setattr(tf, "_libs", {})
-    monkeypatch.setattr(tf, "_ab_slots", {})
-    monkeypatch.setattr(tf, "_ab_scratch", {})
+    monkeypatch.setattr(tf, "_AB_GRIDS", {w: tf.PersistentGrid() for w in tf.WIDTHS})
 
     def use(name):
         monkeypatch.setattr(tf, "build", lambda width, verbose=False: host_libs[name])
         tf._libs.clear()
-        tf._ab_slots.clear()
-        tf._ab_scratch.clear()
+        for grid in tf._AB_GRIDS.values():
+            grid.clear()
 
     return use
 
@@ -145,7 +145,7 @@ def test_host_kernel_matches_twin(host_kernel, atrium, name, mode):
     assert 0.2 < float((twin[1] >= 0).float().mean()) < 0.999
     # The deepest stack any ray reached: within the tree's exact bound, and
     # past the two shared entries in the spill build.
-    deepest = int(tf._ab_scratch[(o.device, width, 0)][1])
+    deepest = tf.stack_reached(width, o.device)
     assert 0 < deepest <= planar.stack_depth
     if name.endswith("spill"):
         assert deepest > 2

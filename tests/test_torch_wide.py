@@ -392,20 +392,52 @@ def test_two_level_wide_matches_fused(bistro):
 # ---------------------------------------------------------------------------
 
 
+# (library, shared stack entries): the card's layout, and one that sends
+# every stack entry past the second to the spill.
+HOST_BUILDS = (("shared", None), ("spill", 2))
+
+
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
+    """``csrc/traverse_wide.cu`` built as host C++ under the shim, once per
+    entry of :data:`HOST_BUILDS` (its launches and dynamic shared memory
+    rewritten for the stand-in header)."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel source as host C++")
     out = tmp_path_factory.mktemp("traverse_wide_host")
     cpp = out / "traverse_wide_host.cpp"
     with open(os.path.join(cuda_build.CSRC, "traverse_wide.cu")) as f:
+        src = f.read().replace("extern __shared__ float smem[];",
+                               "float* smem = vkrt_dynamic_shared;")
         cpp.write_text(re.sub(r"([A-Za-z_]\w*(?:<[^<>;()]*>)?)<<<(.*?)>>>\(",
-                              r"vkrt_launch(\1, \2)(", f.read(), flags=re.S))
-    lib = out / "libtraverse_wide_host.so"
-    res = subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-                          f"-I{SHIM}", "-o", str(lib), str(cpp)], capture_output=True, text=True)
-    assert res.returncode == 0, res.stderr
-    return str(lib)
+                              r"vkrt_launch(\1, \2)(", src, flags=re.S))
+    libs = {}
+    for name, shared in HOST_BUILDS:
+        lib = out / f"libtraverse_wide_{name}.so"
+        cmd = ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+               f"-I{SHIM}", f"-I{cuda_build.CSRC}", "-o", str(lib), str(cpp)]
+        if shared is not None:
+            cmd.insert(-3, f"-DVKRT_SHARED_STACK={shared}")
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        assert res.returncode == 0, res.stderr
+        libs[name] = str(lib)
+    return libs
+
+
+@pytest.fixture
+def host_wide(host_lib, monkeypatch):
+    """Point the wrappers at a host library: ``use(name)`` loads it (the
+    wrappers' argtypes, resident threads and scratch as on the card)."""
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: _Stream())
+    monkeypatch.setattr(tw, "_lib", None)
+    monkeypatch.setattr(tw, "_GRID", tf.PersistentGrid())
+
+    def use(name):
+        monkeypatch.setattr(tw, "build", lambda verbose=False: host_lib[name])
+        tw._lib = None
+        tw._GRID.clear()
+
+    return use
 
 
 class _Stream:
@@ -420,12 +452,22 @@ def _same_bits(a, b):
 
 @pytest.mark.parametrize("any_hit", [False, True])
 @pytest.mark.parametrize("case", ["opaque", "alpha", "roots"])
-def test_host_kernel_matches_plain(host_lib, monkeypatch, city, bistro, case, any_hit):
+def test_host_kernel_matches_plain(host_wide, city, bistro, case, any_hit):
     """Every output (t, tri, u, v, steps, seed) bit for bit; the launch
     counted once."""
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: _Stream())
-    monkeypatch.setattr(tw, "_lib", None)
-    monkeypatch.setattr(tw, "build", lambda verbose=False: host_lib)
+    _host_case(host_wide, city, bistro, case, any_hit, "shared")
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("case", ["opaque", "alpha", "roots"])
+def test_host_kernel_spill_matches_plain(host_wide, city, bistro, case, any_hit):
+    """The same with two stack entries a thread in shared memory, so that
+    deeper entries go through the global spill (which the rays reach)."""
+    _host_case(host_wide, city, bistro, case, any_hit, "spill")
+
+
+def _host_case(host_wide, city, bistro, case, any_hit, build):
+    host_wide(build)
     rng = np.random.default_rng(31 + any_hit)
     root0 = None
     pack = None
@@ -457,6 +499,8 @@ def test_host_kernel_matches_plain(host_lib, monkeypatch, city, bistro, case, an
     assert (plain[1] >= 0).any()
     if pack is not None:
         assert not torch.equal(plain[5], seed)
+    if build == "spill" and case != "alpha":  # the city's alpha tree reaches two entries
+        assert tw.stack_reached("cpu") > 2  # the spill ran
 
 
 def test_card_kernel_matches_plain(city):

@@ -66,6 +66,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "traverse_common.cuh"
+
 #ifndef VKRT_WIDTH
 #error "build with -DVKRT_WIDTH=16 or -DVKRT_WIDTH=32"
 #endif
@@ -75,7 +77,6 @@ namespace {
 constexpr int kWidth = VKRT_WIDTH;
 
 constexpr int kTerm = -(1 << 30);
-constexpr float kInf = 1e32f;
 
 enum Mode { kClosest = 0, kAny = 1, kCandidate = 2 };
 
@@ -94,30 +95,8 @@ struct Planar {
   static constexpr int kUnrollG = W == 16 ? kG : 1;
 };
 
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
-};
-
-__device__ __forceinline__ float guard_inv(float c) {
-  float g = fabsf(c) < 1e-20f ? (c < 0.0f ? -1e-20f : 1e-20f) : c;
-  return __fdiv_rn(1.0f, g);
-}
-
 __device__ __forceinline__ float f4get(const float4& v, int k) {
   return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
-}
-
-// Slab test of the ray against box [lo, hi]; returns (tn, tf).
-__device__ __forceinline__ void slab(const Ray& y, float bxm, float bym, float bzm, float bxM,
-                                     float byM, float bzM, float& tn, float& tf) {
-  float lx = __fmul_rn(__fsub_rn(bxm, y.ox), y.ix);
-  float hx = __fmul_rn(__fsub_rn(bxM, y.ox), y.ix);
-  float ly = __fmul_rn(__fsub_rn(bym, y.oy), y.iy);
-  float hy = __fmul_rn(__fsub_rn(byM, y.oy), y.iy);
-  float lz = __fmul_rn(__fsub_rn(bzm, y.oz), y.iz);
-  float hz = __fmul_rn(__fsub_rn(bzM, y.oz), y.iz);
-  tn = fmaxf(fmaxf(fminf(lx, hx), fminf(ly, hy)), fminf(lz, hz));
-  tf = fminf(fminf(fmaxf(lx, hx), fmaxf(ly, hy)), fmaxf(lz, hz));
 }
 
 // Child order: stable ascending insertion of (k, r) into the n sorted
@@ -431,25 +410,6 @@ __device__ __forceinline__ bool enters_root(const Ray& y, const float (&rmin)[3]
   return (tn0 <= tf0) && (tf0 >= 0.0f) && (tn0 < tmax);
 }
 
-// The guarded reciprocal of a ray's direction.
-__device__ __forceinline__ void set_inverse(Ray& y) {
-  y.ix = guard_inv(y.dx);
-  y.iy = guard_inv(y.dy);
-  y.iz = guard_inv(y.dz);
-}
-
-__device__ __forceinline__ Ray load_ray(const float* origin, const float* direction, int64_t r) {
-  Ray y;
-  y.ox = origin[3 * r];
-  y.oy = origin[3 * r + 1];
-  y.oz = origin[3 * r + 2];
-  y.dx = direction[3 * r];
-  y.dy = direction[3 * r + 1];
-  y.dz = direction[3 * r + 2];
-  set_inverse(y);
-  return y;
-}
-
 // One ray from setup to its outputs.
 template <int MODE, bool CULL, int MAXD, int W, bool CAPPED>
 __global__ void __launch_bounds__(128)
@@ -532,35 +492,10 @@ traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origi
 
 constexpr int kAbThreads = 128;
 constexpr int kAbMinBlocks = kWidth == 16 ? 5 : 4;  // __launch_bounds__: 96 / 128 registers
-// Stack entries a thread keeps in shared memory (8 KB a block, beside the
-// child list's 16 KB at width 16); the rays of the atrium reach depth 12 at
-// either width. (A build may set fewer, to run the spill on shallow trees:
-// the host-C++ test.)
-#ifndef VKRT_SHARED_STACK
-#define VKRT_SHARED_STACK 16
-#endif
-constexpr int kShStack = VKRT_SHARED_STACK;
 constexpr int kRefill = 8;  // a warp fetches rays once this many lanes idle
-// Scratch words before the spill: the ray counter, the deepest stack
-// reached, two spare (keeps the spill 16-byte aligned).
-constexpr int kScratchHead = 4;
-
-// One thread's stack: `sh` its first shared entry (stride blockDim.x),
-// `spill` its first spill entry (stride n_slots).
-struct Stack {
-  int* sh;
-  int stride;
-  int* spill;
-  int64_t n_slots;
-
-  __device__ __forceinline__ void put(int d, int v) const {
-    if (d < kShStack) sh[d * stride] = v;
-    else spill[(int64_t)(d - kShStack) * n_slots] = v;
-  }
-  __device__ __forceinline__ int get(int d) const {
-    return d < kShStack ? sh[d * stride] : spill[(int64_t)(d - kShStack) * n_slots];
-  }
-};
+// The stack (traverse_common.cuh): kShStack entries a thread in shared memory
+// (8 KB a block, beside the child list's 16 KB at width 16); the rays of the
+// atrium reach depth 12 at either width.
 
 // One thread's child list: entry j at key[j * stride], ref[j * stride].
 struct ChildList {
@@ -657,7 +592,6 @@ persistent_traverse_kernel(const float4* __restrict__ rows, const float* __restr
 
   const unsigned lanes = __ballot_sync(0xffffffffu, true);
   const int lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
   const int64_t slot = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const Stack st{sh_stack + threadIdx.x, (int)blockDim.x, scratch + kScratchHead + slot, n_slots};
   const ChildList cl = kListShared
@@ -671,25 +605,19 @@ persistent_traverse_kernel(const float4* __restrict__ rows, const float* __restr
   while (true) {
     const unsigned idle = __ballot_sync(lanes, cur == kTerm);
     if (!more && idle == lanes) break;
-    if (more && (idle == lanes || __popc(idle) >= kRefill)) {
-      int base = 0;
-      if (lane == 0) base = atomicAdd(scratch, __popc(idle));
-      base = __shfl_sync(lanes, base, 0);
-      more = (int64_t)base + __popc(idle) < n_rays;
-      const int64_t r = (int64_t)base + __popc(idle & below);
-      if (((idle >> lane) & 1u) && r < n_rays) {
-        ray = (int)r;
-        y = load_ray(origin, direction, r);
-        t_best = t_max[r];
-        tri = -1;
-        u = v = 0.0f;
-        steps = 0;
-        depth = 0;
-        const float rmin[3] = {s_root[0], s_root[1], s_root[2]};
-        const float rmax[3] = {s_root[3], s_root[4], s_root[5]};
-        const bool go = enters_root(y, rmin, rmax, t_best) && (active == nullptr || active[r]);
-        cur = go ? 0 : kTerm;
-      }
+    const int64_t r = fetch<kRefill>(lanes, idle, lane, scratch, n_rays, more);
+    if (r >= 0) {
+      ray = (int)r;
+      y = load_ray(origin, direction, r);
+      t_best = t_max[r];
+      tri = -1;
+      u = v = 0.0f;
+      steps = 0;
+      depth = 0;
+      const float rmin[3] = {s_root[0], s_root[1], s_root[2]};
+      const float rmax[3] = {s_root[3], s_root[4], s_root[5]};
+      const bool go = enters_root(y, rmin, rmax, t_best) && (active == nullptr || active[r]);
+      cur = go ? 0 : kTerm;
     }
     // Interior nodes until this lane is at a leaf or done.
     while (cur >= 0) {
@@ -757,12 +685,10 @@ persistent_traverse_kernel(const float4* __restrict__ rows, const float* __restr
 // read-only path (GLOBAL instantiations, no dynamic shared memory), with the
 // same arithmetic, so both give the same bits. The next candidate is the
 // slab test recomputed against the table, so no per-ray entry table exists.
+// The table, the enumeration and the ray transform live in traverse_common.cuh,
+// which the wide back end's machine (traverse_wide.cu) shares.
 // ---------------------------------------------------------------------------
 
-// tlas._DENSE_I_MAX: the largest table held in shared memory (38,912 B).
-constexpr int kMaxInstances = 512;
-constexpr int kInstWords = 19;      // box 6, world_to_object 12, root 1
-constexpr float kNeg = -3.0e38f;    // tlas._NEG: before every entry t
 constexpr float kAlphaMask = 1.0f;  // models/schema.py ALPHA_MASK
 constexpr int kWrapRepeat = 0, kWrapClamp = 1;  // ops/texture.py
 // traverse_alpha._ADV_REL / _ADV_ABS, rounded to float32 from the Python
@@ -770,102 +696,6 @@ constexpr int kWrapRepeat = 0, kWrapClamp = 1;  // ops/texture.py
 constexpr float kAdvMul = (float)(1.0 + 1e-4);
 constexpr float kAdvAbs = (float)1e-5;
 constexpr float kInv255 = (float)(1.0 / 255.0);
-
-// The instance table: (I, 6) subset world boxes (min xyz, max xyz), (I, 12)
-// world-to-object rows, (I,) BLAS roots (-1: outside the pass's instance
-// mask); in shared memory, or (GLOBAL) the caller's global tables, read-only.
-template <bool GLOBAL>
-struct Instances {
-  const float* box;
-  const float* m;
-  const int* root;
-  __device__ __forceinline__ float box_at(int k) const {
-    return GLOBAL ? __ldg(box + k) : box[k];
-  }
-  __device__ __forceinline__ float m_at(int k) const { return GLOBAL ? __ldg(m + k) : m[k]; }
-  __device__ __forceinline__ int root_at(int i) const {
-    return GLOBAL ? __ldg(root + i) : root[i];
-  }
-};
-
-// The shared table: every thread of the block copies its share, then waits
-// for the rest (call before any thread of the block returns). GLOBAL: the
-// global tables themselves, nothing copied.
-template <bool GLOBAL>
-__device__ __forceinline__ Instances<GLOBAL> load_instances(float* smem,
-                                                            const float* __restrict__ inst_box,
-                                                            const float* __restrict__ inst_w2o,
-                                                            const int32_t* __restrict__ inst_root,
-                                                            int n_inst) {
-  if (GLOBAL) return Instances<GLOBAL>{inst_box, inst_w2o, inst_root};
-  float* s_box = smem;
-  float* s_m = smem + 6 * n_inst;
-  int* s_root = reinterpret_cast<int*>(smem + 18 * n_inst);
-  for (int k = threadIdx.x; k < 6 * n_inst; k += blockDim.x) s_box[k] = inst_box[k];
-  for (int k = threadIdx.x; k < 12 * n_inst; k += blockDim.x) s_m[k] = inst_w2o[k];
-  for (int k = threadIdx.x; k < n_inst; k += blockDim.x) s_root[k] = inst_root[k];
-  __syncthreads();
-  return Instances<GLOBAL>{s_box, s_m, s_root};
-}
-
-// The next instance after (last_t, last_id) in (entry t, id) order among
-// those whose subset box the world ray enters before both its window end
-// tmax0 and its best hit t_best: tlas._instance_slab's slab test and
-// tlas._next_candidate's argmin (ties to the lowest id). Instances outside
-// the mask have root -1. Returns the id (-1: none) and its entry t.
-template <bool GLOBAL>
-__device__ __forceinline__ int next_instance(const Instances<GLOBAL>& it, int n_inst,
-                                             const Ray& w, float tmax0, float t_best,
-                                             float last_t, int last_id, float& nt) {
-  float best = kInf;
-  int id = -1;
-  for (int i = 0; i < n_inst; ++i) {
-    if (it.root_at(i) < 0) continue;
-    const int b = 6 * i;
-    float tn, tf;
-    slab(w, it.box_at(b), it.box_at(b + 1), it.box_at(b + 2), it.box_at(b + 3), it.box_at(b + 4),
-         it.box_at(b + 5), tn, tf);
-    const bool hit = (tn <= tf) && (tf >= 0.0f) && (tn < tmax0) && (tn < t_best);
-    const bool after = (tn > last_t) || (tn == last_t && i > last_id);
-    if (hit && after && tn < best) {
-      best = tn;
-      id = i;
-    }
-  }
-  nt = best;
-  return id;
-}
-
-// tlas._transform_rays for one ray: the point (px, py, pz) and the world
-// direction of w into the object space of the world-to-object rows m (3x4),
-// the direction not renormalised, in mat3_vec's order ((m0 x + m1 y) + m2 z,
-// then + m3).
-__device__ __forceinline__ Ray to_object(const float* m, float px, float py, float pz,
-                                         const Ray& w) {
-  Ray y;
-  y.ox = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[0], px), __fmul_rn(m[1], py)),
-                             __fmul_rn(m[2], pz)), m[3]);
-  y.oy = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[4], px), __fmul_rn(m[5], py)),
-                             __fmul_rn(m[6], pz)), m[7]);
-  y.oz = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[8], px), __fmul_rn(m[9], py)),
-                             __fmul_rn(m[10], pz)), m[11]);
-  y.dx = __fadd_rn(__fadd_rn(__fmul_rn(m[0], w.dx), __fmul_rn(m[1], w.dy)), __fmul_rn(m[2], w.dz));
-  y.dy = __fadd_rn(__fadd_rn(__fmul_rn(m[4], w.dx), __fmul_rn(m[5], w.dy)), __fmul_rn(m[6], w.dz));
-  y.dz = __fadd_rn(__fadd_rn(__fmul_rn(m[8], w.dx), __fmul_rn(m[9], w.dy)),
-                   __fmul_rn(m[10], w.dz));
-  set_inverse(y);
-  return y;
-}
-
-// to_object with instance cid's world-to-object rows.
-template <bool GLOBAL>
-__device__ __forceinline__ Ray instance_ray(const Instances<GLOBAL>& it, int cid, float px,
-                                            float py, float pz, const Ray& w) {
-  float m[12];
-#pragma unroll
-  for (int k = 0; k < 12; ++k) m[k] = it.m_at(12 * cid + k);
-  return to_object(m, px, py, pz, w);
-}
 
 // torch.remainder of integers: the sign of the divisor (size >= 1).
 __device__ __forceinline__ long long floor_mod(long long c, long long size) {

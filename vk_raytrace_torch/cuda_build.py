@@ -5,12 +5,14 @@ Every kernel source lives in ``csrc/`` and is built with the same flags:
 ``sm_90a`` (Hopper), and float arithmetic rounded per operation (no FMA
 contraction, IEEE division and square root, denormals kept), so that a
 kernel and its plain torch version round alike. A library is rebuilt when
-it is missing or older than its source (:func:`compile_if_stale`, which the
-native host runtime's g++ build shares); builds go into ``_build/``.
+it is missing or older than its source or a header of ``csrc/``
+(:func:`compile_if_stale`, which the native host runtime's g++ build
+shares); builds go into ``_build/``.
 """
 
 from __future__ import annotations
 
+import glob
 import os
 import re
 import subprocess
@@ -35,11 +37,13 @@ def lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
-def compile_if_stale(out: str, src_path: str, cmd: list) -> str:
+def compile_if_stale(out: str, src_path: str, cmd: list, deps=()) -> str:
     """Run ``cmd + ["-o", tmp, src_path]`` and move ``tmp`` to ``out`` unless
-    ``out`` is newer than its source. Returns the compiler's stderr ("" when
-    nothing was built); raises with its output when it fails."""
-    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src_path):
+    ``out`` is newer than its source and each of ``deps`` (the headers it
+    includes). Returns the compiler's stderr ("" when nothing was built);
+    raises with its output when it fails."""
+    newest = max(os.path.getmtime(f) for f in (src_path, *deps))
+    if os.path.exists(out) and os.path.getmtime(out) >= newest:
         return ""
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = out + f".{os.getpid()}.tmp"
@@ -53,13 +57,15 @@ def compile_if_stale(out: str, src_path: str, cmd: list) -> str:
 
 def build(name: str, src: str, verbose: bool = False, defines=()) -> str:
     """Compile ``csrc/<src>`` into ``_build/lib<name>.so`` unless the library
-    is newer than the source, with ``-D`` of each of ``defines`` (one source
-    can make several libraries). What ``-Xptxas -v`` reports (registers,
-    spills, stack frame) is kept beside the library (:func:`resources`) and,
-    with ``verbose``, printed. Returns the library path."""
+    is newer than the source and the headers of ``csrc/``, with ``-D`` of
+    each of ``defines`` (one source can make several libraries). What
+    ``-Xptxas -v`` reports (registers, spills, stack frame) is kept beside the
+    library (:func:`resources`) and, with ``verbose``, printed. Returns the
+    library path."""
     out = lib_path(name)
     flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines), "-Xptxas", "-v"]
-    log = compile_if_stale(out, os.path.join(CSRC, src), [nvcc(), *flags])
+    log = compile_if_stale(out, os.path.join(CSRC, src), [nvcc(), *flags],
+                           deps=glob.glob(os.path.join(CSRC, "*.cuh")))
     if log:
         with open(out + ".ptxas", "w") as f:
             f.write(log)

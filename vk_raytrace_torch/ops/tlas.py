@@ -29,8 +29,9 @@ its first use by :func:`with_wide`): one pass of rounds over every instance
 without an alpha pack; with one, the instance-level split: the instances
 without alpha triangles first, then the alpha-carrying instances with the
 alpha test inline (``ops/traverse_wide.py``), windowed by the opaque result.
-Each round is one ``vkrt_traverse_wide`` launch with per-lane roots (a host
-sync a round; :func:`_wide_pass`).
+On the card each pass is one launch of ``vkrt_wide_machine``
+(``csrc/traverse_wide.cu``: every round of a ray in one lane, no host sync);
+its plain version is the round loop :func:`_wide_rounds` (:func:`_wide_pass`).
 
 On the card each pass is one kernel launch (``csrc/traverse.cu``:
 ``vkrt_opaque_machine`` for the opaque rounds, ``vkrt_alpha_machine`` for
@@ -759,23 +760,103 @@ def _alpha_machine_cuda(accel, pack, origin, direction, t_max, seed, act, any_hi
     return t, tri.long(), u, v, inst.long(), seed_out, steps
 
 
-def _wide_pass(accel, pack, origin, direction, t_max, seed, act, mask, any_hit, rounds=None,
-               scan=None):
-    """The wide back end's rounds over the instances of ``mask`` (None:
-    every instance; the reference's ``_two_level_pass`` with its XLA body):
-    each round traverses the candidate instance's 8-wide BLAS from its mesh
-    root with ``t_max = t_best`` (``traverse_wide.traverse_wide``: one
-    ``vkrt_traverse_wide`` launch on CUDA tensors, the plain version on CPU
-    ones), closest hit with culling or any hit without, the alpha test
-    inline with ``pack``. Returns ``(t_best, tri, u, v, inst, seed,
-    steps)``; ``t_best`` is ``t_max`` where nothing was hit. ``rounds``, an
-    optional (R,) integer tensor, counts each ray's rounds; ``scan`` picks
-    the candidate enumeration (:func:`_candidates`)."""
-    from .traverse_wide import traverse_wide
+_WIDE_PARTS = ("all", "opaque", "alpha")
+
+
+def _wide_mask(accel: InstancedAccel, part: str):
+    """The instances of a wide pass: "all" (None), "opaque" (those without
+    alpha triangles) or "alpha" (those with), the instance-level split."""
+    if part not in _WIDE_PARTS:
+        raise ValueError(f"no wide pass over {part!r}; the passes are {_WIDE_PARTS}")
+    if part == "all":
+        return None
+    alpha = torch.as_tensor(accel.inst_alpha, device=accel.inst.aabb_min.device).bool()
+    return alpha if part == "alpha" else ~alpha
+
+
+def _wide_tables(accel: InstancedAccel, part: str):
+    """The wide machine's instance table over ``part`` (:func:`_wide_mask`):
+    the instances' world boxes, world-to-object rows and 8-wide BLAS roots
+    (-1 outside the pass), built once per accel and kept on it."""
+    key = ("wide", part)
+    if key not in accel._machine:
+        roots = torch.as_tensor(accel.mesh_root, device=accel.inst.aabb_min.device)
+        accel._machine[key] = _instance_tables(accel.inst, roots, _wide_mask(accel, part))
+    return accel._machine[key]
+
+
+def _wide_machine_cuda(accel, pack, origin, direction, t_max, seed, act, part, any_hit):
+    """One launch of ``vkrt_wide_machine``: every ray's wide rounds over the
+    instances of ``part``, to its last instance, in one lane of a persistent
+    warp."""
+    from . import traverse_wide as tw
+
+    lib = tw._load()
+    blas = accel.blas
+    r, dev = origin.shape[0], origin.device
+    depth = tw.check_stack(blas)
+    tf._check("rows", blas.rows, (blas.rows.shape[0], 64), torch.float32, dev)
+    tf._check("origin", origin, (r, 3), torch.float32, dev)
+    tf._check("direction", direction, (r, 3), torch.float32, dev)
+    tf._check("t_max", t_max, (r,), torch.float32, dev)
+    tf._check("seed", seed, (r,), torch.int64, dev)
+    act = tw._check_active(act, r, dev)
+    box, w2o, root = tables = _wide_tables(accel, part)
+    _check_tables(tables, dev)
+    n_inst = root.shape[0]
+    alpha = tw._pack_args(pack, dev)
+    f = lambda: torch.empty(r, dtype=torch.float32, device=dev)  # noqa: E731
+    i32 = lambda: torch.empty(r, dtype=torch.int32, device=dev)  # noqa: E731
+    t, u, v, tri, inst, steps = f(), f(), f(), i32(), i32(), i32()
+    seed_out = torch.empty_like(seed)
+    if r == 0:  # nothing to launch, and so nothing to count
+        return t, tri.long(), u, v, inst.long(), seed_out, steps
+    scratch, slots, stream = tw._persistent(
+        lib, (1, int(bool(any_hit)), int(pack is not None), n_inst), depth, dev)
+    err = lib.vkrt_wide_machine(
+        int(bool(any_hit)), blas.rows.data_ptr(), depth, box.data_ptr(), w2o.data_ptr(),
+        root.data_ptr(), n_inst, origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(),
+        tf._ptr(act), seed.data_ptr(), *alpha, r, scratch.data_ptr(), scratch.numel(), slots,
+        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), inst.data_ptr(),
+        seed_out.data_ptr(), steps.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"wide machine kernel launch failed: cudaError {err}")
+    tf.LAUNCHES["wide_machine"] += 1
+    return t, tri.long(), u, v, inst.long(), seed_out, steps
+
+
+def _wide_pass(accel, pack, origin, direction, t_max, seed, act, part, any_hit):
+    """The wide back end's rounds over the instances of ``part`` ("all",
+    "opaque" or "alpha", :func:`_wide_mask`; the reference's
+    ``_two_level_pass`` with its XLA body): closest hit with culling or any
+    hit without, the alpha test inline with ``pack``. Returns ``(t_best,
+    tri, u, v, inst, seed, steps)``; ``t_best`` is ``t_max`` where nothing
+    was hit. CUDA tensors launch the wide machine kernel once (or raise),
+    CPU tensors run its plain version, the round loop :func:`_wide_rounds`."""
+    if origin.device.type == "cuda":
+        return _wide_machine_cuda(accel, pack, origin, direction, t_max, seed, act, part,
+                                  any_hit)
+    if origin.device.type != "cpu":
+        raise ValueError(f"no wide machine for device {origin.device}")
+    return _wide_rounds(accel, pack, origin, direction, t_max, seed, act, part, any_hit)
+
+
+def _wide_rounds(accel, pack, origin, direction, t_max, seed, act, part, any_hit, rounds=None,
+                 scan=None, seen=None, draws=None):
+    """The wide machine as a loop of rounds on the live lanes (its plain
+    version, on any device): each round traverses the candidate instance's
+    8-wide BLAS from its mesh root with ``t_max = t_best`` by the plain
+    traversal ``traverse_wide._traverse_wide_plain``, the seed carried,
+    ``steps`` the round's nodes + 1. ``rounds``, an optional (R,) integer
+    tensor, counts each ray's rounds; ``scan`` picks the candidate
+    enumeration (:func:`_candidates`); ``seen`` (over the BLAS rows) and
+    ``draws`` (per ray) go to the traversal's counters."""
+    from .traverse_wide import _traverse_wide_plain
 
     r, dev = origin.shape[0], origin.device
     inst, roots = accel.inst, torch.as_tensor(accel.mesh_root, device=dev)
-    next_cand = _candidates(inst, origin, direction, t_max, mask, scan)
+    next_cand = _candidates(inst, origin, direction, t_max, _wide_mask(accel, part), scan)
     t_best = t_max.clone()
     tri = torch.full((r,), -1, dtype=torch.int64, device=dev)
     u = torch.zeros(r, device=dev)
@@ -794,9 +875,12 @@ def _wide_pass(accel, pack, origin, direction, t_max, seed, act, mask, any_hit, 
         o_obj, d_obj = _transform_rays(inst, cid, origin[live], direction[live])
         root0 = roots[inst.mesh_id[cid].long()].to(torch.int32).contiguous()
         tb = t_best[live]
-        t, h_tri, hu, hv, hs, seed[live] = traverse_wide(
-            accel.blas, pack, o_obj.contiguous(), d_obj.contiguous(), tb.contiguous(),
-            seed[live].contiguous(), None, any_hit, root0=root0)
+        dr = None if draws is None else torch.zeros_like(draws[live])
+        t, h_tri, hu, hv, hs, seed[live] = _traverse_wide_plain(
+            accel.blas, pack, o_obj, d_obj, tb, seed[live], None, any_hit, root0=root0,
+            seen=seen, draws=dr)
+        if draws is not None:
+            draws[live] += dr
         upd = h_tri >= 0
         tb = torch.where(upd, t, tb)
         t_best[live] = tb
@@ -828,18 +912,17 @@ def _two_level_wide(accel, pack, origin, direction, t_max, seed, act, any_hit):
                          "ops/tlas.with_wide(accel, geometry)")
     if pack is None or not accel._any_alpha():
         t_best, tri, u, v, ibest, seed, steps = _wide_pass(
-            accel, None, origin, direction, t_max, seed, act, None, any_hit)
+            accel, None, origin, direction, t_max, seed, act, "all", any_hit)
         return Hit(torch.where(tri >= 0, t_best, INF), tri, u, v, steps, ibest), seed
-    alpha = torch.as_tensor(accel.inst_alpha, device=origin.device).bool()
     t_o, tri_o, u_o, v_o, i_o, seed, st_o = _wide_pass(
-        accel, None, origin, direction, t_max, seed, act, ~alpha, any_hit)
+        accel, None, origin, direction, t_max, seed, act, "opaque", any_hit)
     if any_hit:
         t_a, tri_a, u_a, v_a, i_a, seed, st_a = _wide_pass(
-            accel, pack, origin, direction, t_max, seed, act & (tri_o < 0), alpha, any_hit)
+            accel, pack, origin, direction, t_max, seed, act & (tri_o < 0), "alpha", any_hit)
         take_a = tri_o < 0
     else:
         t_a, tri_a, u_a, v_a, i_a, seed, st_a = _wide_pass(
-            accel, pack, origin, direction, t_o, seed, act, alpha, any_hit)
+            accel, pack, origin, direction, t_o, seed, act, "alpha", any_hit)
         take_a = (tri_a >= 0) & (t_a < t_o)
     tri = torch.where(take_a, tri_a, tri_o)
     t_best = torch.where(take_a, t_a, t_o)

@@ -74,15 +74,16 @@ SORT_KEYS = ("sort_children", "sort_children_w32")
 MACHINE_KEYS = ("alpha_machine", "alpha_machine_w32")
 ROUNDS_KEYS = ("alpha_rounds", "alpha_rounds_w32")
 OPAQUE_KEYS = ("opaque_machine", "opaque_machine_w32")
-# The wide back end's kernel (ops/traverse_wide.py, csrc/traverse_wide.cu).
-WIDE_KEYS = ("traverse_wide",)
+# The wide back end's kernels (ops/traverse_wide.py, ops/tlas.py,
+# csrc/traverse_wide.cu): one tree, and the two-level rounds whole.
+WIDE_KEYS = ("traverse_wide", "wide_machine")
 
 # Kernel launches per entry, counted where the wrapper launches: traversal
 # per mode (``<mode>_roots`` with per-lane roots, ``_w32`` at width 32), the
 # capped and no-gather entries, the child sort, and the round machines: the
 # single-level alpha rounds (``ops/traverse_alpha.py``), the two-level opaque
 # rounds and the two-level alpha machine (``ops/tlas.py``), and the wide
-# back end's traversal (every launch of ``vkrt_traverse_wide``).
+# back end's kernels (``vkrt_traverse_wide``, ``vkrt_wide_machine``).
 LAUNCHES = {m: 0 for m in (MODES + ROOT_MODES + W32_MODES + CAPPED_KEYS + SORT_KEYS
                            + MACHINE_KEYS + ROUNDS_KEYS + OPAQUE_KEYS + WIDE_KEYS)}
 
@@ -469,11 +470,56 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-# Per (device, width, stream): the resident threads of each a/b kernel and
-# the scratch of ``vkrt_traverse_ab`` (its ray counter, the deepest stack a
-# ray reached, the stack spill), reused by every call on that stream.
-_ab_slots = {}
-_ab_scratch = {}
+class PersistentGrid:
+    """The host state of one library's persistent entries: per (device,
+    entry) the entry's resident threads, and per (device, stream) one scratch
+    (the ray counter, the deepest stack a ray reached, the stack spill) that
+    every call of its entries on that stream reuses."""
+
+    def __init__(self):
+        self.slots = {}
+        self.scratch = {}
+
+    def clear(self):
+        self.slots.clear()
+        self.scratch.clear()
+
+    def state(self, dev, entry, slots_of, words_of):
+        """Entry ``entry``'s resident threads (``slots_of()``, asked once a
+        device) and the scratch on ``dev``'s current stream, grown to
+        ``words_of(slots)`` int32 words. Returns (scratch, slots, stream)."""
+        dev = cuda_device(dev)
+        if (dev, entry) not in self.slots:
+            slots = slots_of()
+            if slots <= 0:
+                raise RuntimeError(f"no resident threads for the persistent entry {entry}")
+            self.slots[dev, entry] = slots
+        slots = self.slots[dev, entry]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        words = words_of(slots)
+        scratch = self.scratch.get((dev, stream))
+        if scratch is None or scratch.numel() < words:
+            scratch = torch.empty(words, dtype=torch.int32, device=dev)
+            self.scratch[dev, stream] = scratch
+        return scratch, slots, stream
+
+    def stack_reached(self, device) -> int:
+        """The deepest stack a ray reached in the last call of any entry on
+        ``device``'s current stream (waits for it)."""
+        dev = cuda_device(device)
+        return int(self.scratch[(dev, torch.cuda.current_stream(dev).cuda_stream)][1])
+
+
+def cuda_device(dev):
+    """``dev`` with its index (the current CUDA device where it has none)."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+# Per row width: the persistent a/b entries of that width's library.
+_AB_GRIDS = {w: PersistentGrid() for w in WIDTHS}
 
 
 def ab_occupancy(width: int, mode: str) -> int:
@@ -485,31 +531,10 @@ def ab_occupancy(width: int, mode: str) -> int:
     return blocks
 
 
-def _ab_state(lib, planar, mode, dev, stream):
-    """The a/b kernel's resident threads and a scratch large enough for this
-    tree's stack bound."""
-    key = (dev, planar.width, stream)
-    if (key, mode) not in _ab_slots:
-        slots = lib.vkrt_traverse_ab_slots(_MODE_ID[mode])
-        if slots <= 0:
-            raise RuntimeError(f"no resident threads for the {mode} kernel")
-        _ab_slots[key, mode] = slots
-    slots = _ab_slots[key, mode]
-    words = lib.vkrt_traverse_ab_words(planar.stack_depth, slots)
-    scratch = _ab_scratch.get(key)
-    if scratch is None or scratch.numel() < words:
-        scratch = torch.empty(words, dtype=torch.int32, device=dev)
-        _ab_scratch[key] = scratch
-    return scratch, slots
-
-
 def stack_reached(width: int, device) -> int:
     """The deepest stack a ray reached in the last mode a/b call from the
     root at ``width`` on ``device``'s current stream (waits for it)."""
-    dev = torch.device(device)
-    if dev.index is None:
-        dev = torch.device(dev.type, torch.cuda.current_device())
-    return int(_ab_scratch[(dev, width, torch.cuda.current_stream(dev).cuda_stream)][1])
+    return _AB_GRIDS[width].stack_reached(device)
 
 
 def _traverse_ab(lib, planar, origin, direction, t_max, active, mode):
@@ -518,8 +543,9 @@ def _traverse_ab(lib, planar, origin, direction, t_max, active, mode):
     t, tri, u, v, steps, _, _ = _outputs(R, dev, False)
     if R == 0:  # nothing to launch, and so nothing to count
         return t, tri.long(), u, v, steps, None, None
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    scratch, slots = _ab_state(lib, planar, mode, dev, stream)
+    scratch, slots, stream = _AB_GRIDS[planar.width].state(
+        dev, mode, lambda: lib.vkrt_traverse_ab_slots(_MODE_ID[mode]),
+        lambda slots: lib.vkrt_traverse_ab_words(planar.stack_depth, slots))
     err = lib.vkrt_traverse_ab(
         _MODE_ID[mode], planar.width, planar.rows.data_ptr(), planar.stack_depth,
         origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), _ptr(active), R,

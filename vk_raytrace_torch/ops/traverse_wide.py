@@ -17,10 +17,12 @@ fused|wide``, the createRender analog of ``sample_example.cpp:322-337``):
   any hit runs the alpha tree only for rays the opaque tree left unoccluded.
 
 :func:`traverse_wide` dispatches on the tensors' device: CUDA tensors launch
-``vkrt_traverse_wide`` (``csrc/traverse_wide.cu``, one thread per ray) or
-raise; CPU tensors run the plain version :func:`_traverse_wide_plain`, a
-torch loop over the same rows with the same semantics that advances every
-live ray by one node a step. The reference's phased while-loop, compaction
+``vkrt_traverse_wide`` (``csrc/traverse_wide.cu``: persistent warps, the
+stack in shared memory) or raise; CPU tensors run the plain version
+:func:`_traverse_wide_plain`, a torch loop over the same rows with the same
+semantics that advances every live ray by one node a step. The two-level
+passes' machine ``vkrt_wide_machine`` lives in the same library; its wrapper
+is ``tlas._wide_machine_cuda``. The reference's phased while-loop, compaction
 and merge are XLA scaffolding and have no counterpart.
 """
 
@@ -408,6 +410,9 @@ def _traverse_wide_plain(wide, pack, origin, direction, t_max, seed, active, any
 
 
 _lib = None
+# Both wide entries' persistent state; an entry is (machine, any hit, alpha
+# and, for the machine, the instance table's size).
+_GRID = tf.PersistentGrid()
 
 
 def build(verbose: bool = False) -> str:
@@ -421,12 +426,54 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build())
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.vkrt_wide_slots.argtypes = [i32, i32, i32, i32]
+        lib.vkrt_wide_slots.restype = i64
+        lib.vkrt_wide_words.argtypes = [i32, i64]
+        lib.vkrt_wide_words.restype = i64
         lib.vkrt_traverse_wide.argtypes = [
-            i32, p, i32, p, p, p, p, p, p, p, i64, p, i64, i64, i64, p, p, p, p, p, p, p,
+            i32, p, i32, p, p, p, p, p, p, p, i64, p, i64, i64, i64, p, i64, i64,
+            p, p, p, p, p, p, p,
         ]
         lib.vkrt_traverse_wide.restype = i32
+        lib.vkrt_wide_machine.argtypes = [
+            i32, p, i32, p, p, p, i32, p, p, p, p, p, p, i64, p, i64, i64, i64, p, i64, i64,
+            p, p, p, p, p, p, p, p,
+        ]
+        lib.vkrt_wide_machine.restype = i32
         _lib = lib
     return _lib
+
+
+def _persistent(lib, entry, stack_depth, dev):
+    """The persistent grid of ``entry``: its resident threads and a scratch
+    on the current stream large enough for a tree with this stack bound.
+    Returns (scratch, slots, stream)."""
+    return _GRID.state(dev, entry, lambda: lib.vkrt_wide_slots(*entry),
+                       lambda slots: lib.vkrt_wide_words(stack_depth, slots))
+
+
+def stack_reached(device) -> int:
+    """The deepest stack a ray reached in the last wide call (either entry)
+    on ``device``'s current stream (waits for it)."""
+    return _GRID.stack_reached(device)
+
+
+def _pack_args(pack, dev):
+    """The alpha pack's pointers and sizes for either entry (null: none)."""
+    if pack is None:
+        return None, 0, None, 0, 0
+    tf._check("pack rows", pack.rows, (pack.rows.shape[0], 16), torch.float32, dev)
+    tf._check("alpha plane", pack.alpha_plane, (pack.alpha_plane.numel(),), torch.uint8, dev)
+    return (pack.rows.data_ptr(), pack.rows.shape[0], pack.alpha_plane.data_ptr(),
+            pack.alpha_plane.numel(), pack.atlas_width)
+
+
+def _check_active(active, R, dev):
+    if active is None:
+        return None
+    if active.device != dev or active.dtype != torch.bool or tuple(active.shape) != (R,):
+        raise ValueError("active: want a (R,) bool tensor on the rays' device")
+    return active.contiguous()
 
 
 def _traverse_wide_cuda(wide, pack, origin, direction, t_max, seed, active, any_hit, root0):
@@ -437,20 +484,12 @@ def _traverse_wide_cuda(wide, pack, origin, direction, t_max, seed, active, any_
     tf._check("origin", origin, (R, 3), torch.float32, dev)
     tf._check("direction", direction, (R, 3), torch.float32, dev)
     tf._check("t_max", t_max, (R,), torch.float32, dev)
-    if active is not None:
-        if active.device != dev or active.dtype != torch.bool or tuple(active.shape) != (R,):
-            raise ValueError("active: want a (R,) bool tensor on the rays' device")
-        active = active.contiguous()
+    active = _check_active(active, R, dev)
     if root0 is not None:
         tf._check("root0", root0, (R,), torch.int32, dev)
     if seed is not None:
         tf._check("seed", seed, (R,), torch.int64, dev)
-    alpha = (None, 0, None, 0, 0)
-    if pack is not None:
-        tf._check("pack rows", pack.rows, (pack.rows.shape[0], 16), torch.float32, dev)
-        tf._check("alpha plane", pack.alpha_plane, (pack.alpha_plane.numel(),), torch.uint8, dev)
-        alpha = (pack.rows.data_ptr(), pack.rows.shape[0], pack.alpha_plane.data_ptr(),
-                 pack.alpha_plane.numel(), pack.atlas_width)
+    alpha = _pack_args(pack, dev)
     f = lambda: torch.empty(R, dtype=torch.float32, device=dev)  # noqa: E731
     t, u, v = f(), f(), f()
     tri = torch.empty(R, dtype=torch.int32, device=dev)
@@ -458,11 +497,13 @@ def _traverse_wide_cuda(wide, pack, origin, direction, t_max, seed, active, any_
     seed_out = torch.empty(R, dtype=torch.int64, device=dev)
     if R == 0:  # nothing to launch, and so nothing to count
         return t, tri.long(), u, v, steps, seed_out
+    scratch, slots, stream = _persistent(lib, (0, int(bool(any_hit)), int(pack is not None), 0),
+                                         depth, dev)
     err = lib.vkrt_traverse_wide(
         int(bool(any_hit)), rows.data_ptr(), depth, origin.data_ptr(), direction.data_ptr(),
         t_max.data_ptr(), tf._ptr(active), tf._ptr(root0), tf._ptr(seed), *alpha, R,
-        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), steps.data_ptr(),
-        seed_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        scratch.data_ptr(), scratch.numel(), slots, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
+        v.data_ptr(), steps.data_ptr(), seed_out.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"wide traverse kernel launch failed: cudaError {err}")
