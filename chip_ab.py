@@ -11,10 +11,12 @@ phase-3 ray sets (2^18 rays on the full atrium, seed 1234) and prints, at
 row widths 16 and 32, per mode a/b/c and for the capped entry (closest hit
 stopped after 8 nodes, on the mode-a rays), the least and the median of
 three means of 50 launches (CUDA events), in ms; then the same for the two
-round machines on the full bistro at width 16, closest hit (the opaque
-machine over the opaque subsets on 2^18 camera rays, the alpha machine
-over the alpha subsets on 2^18 rays toward the foliage, seed 1234; 10
-launches a mean); then the wide back end through the calls every checkout
+round machines (10 launches a mean) on the full bistro at widths 16 and
+32, closest hit with culling and any hit without (the opaque machine over
+the opaque subsets on 2^18 camera rays, phase 19's; the alpha machine over
+the alpha subsets on 2^18 rays toward the foliage, phase 17's), and on the
+plaza at width 16 (phase 28's 2^18 world rays; the instance table in
+global memory); then the wide back end through the calls every checkout
 has: ``traverse_wide`` on the atrium's 8-wide trees (closest and any hit
 over the opaque tree on the mode a/b rays, closest over the alpha tree
 with the pack toward the banners, and any over it with a tenth of those
@@ -22,7 +24,10 @@ rays active) and the bistro's two-level wide calls
 (``closest_hit_instanced(..., backend="wide")`` with the pack on the
 camera rays and on the rays toward the foliage: an opaque and an alpha
 pass each, per-round launches and host syncs where a checkout has no
-machine; 3 calls a mean). The card's name and power limit come first.
+machine; 3 calls a mean). Last, a line per checkout with ptxas's report
+(registers, stack frame, spill) of each round machine and a/b
+instantiation of its traversal libraries. The card's name and power limit
+come first.
 """
 
 import os
@@ -87,15 +92,23 @@ def time_tree(tree):
                                       eye + rng.uniform(-2.0, 2.0, (n, 3)), dev)
     act = torch.ones(n, dtype=torch.bool, device=dev)
     seed = torch.tensor(rng.integers(0, 2**32, n), device=dev)
-    machines = {
-        "opaque_machine": lambda: tlas._two_level_opaque_pass(acc, "opq", ob, db, inf, act, True,
-                                                              False),
-        "alpha_machine": lambda: tlas._two_level_alpha_pass(acc, pack, ol, dl, inf, seed, act,
-                                                            False, True),
-    }
+    t_long = torch.tensor(rng.uniform(1.0, 60.0, n), dtype=torch.float32, device=dev)
+    accs = {16: acc, 32: R.build_instanced_scene(pool, inst, mats, lights, b_cam, atlas=atlas,
+                                                 width=32).instances.to(dev)}
+    machines = {}
+    for width, a in accs.items():
+        for any_hit in (False, True):
+            kind = "any" if any_hit else "closest"
+            machines[f"bistro w{width} opaque_machine {kind}"] = (
+                lambda a=a, h=any_hit: tlas._two_level_opaque_pass(
+                    a, "opq", ob, db, t_short if h else inf, act, not h, h))
+            machines[f"bistro w{width} alpha_machine {kind}"] = (
+                lambda a=a, h=any_hit: tlas._two_level_alpha_pass(
+                    a, pack, ol, dl, t_long if h else inf, seed, act, h, not h))
+    machines.update(plaza_machines(cs, tlas, dev, rng, n, inf, t_long, seed, act))
     for name, fn in machines.items():
         ms = [tb.cuda_time(fn, 10) for _ in range(ROUNDS)]
-        out.append(f"bistro {name} {min(ms):.4f}/{float(np.median(ms)):.4f}")
+        out.append(f"{name} {min(ms):.4f}/{float(np.median(ms)):.4f}")
     from vk_raytrace_torch.ops import bvh8
     from vk_raytrace_torch.ops import traverse_wide as tw
 
@@ -124,6 +137,70 @@ def time_tree(tree):
         ms = [tb.cuda_time(fn, 3) for _ in range(ROUNDS)]
         out.append(f"bistro wide {name} {min(ms):.4f}/{float(np.median(ms)):.4f}")
     print(os.path.basename(tree), " ".join(out), flush=True)
+    print(os.path.basename(tree), "ptxas:", "; ".join(machine_ptxas(tree)), flush=True)
+
+
+def plaza_machines(cs, tlas, dev, rng, n, inf, t_long, seed, act):
+    """``chip_smoke.py``'s phase 28: the plaza (4,609 instances, the
+    machines' instance table in global memory) and its 2^18 world rays
+    (camera rays at 1280x720 and their hits' shadow rays toward the sun);
+    the opaque and the alpha machine, closest and any hit, as calls."""
+    import tempfile
+
+    import torch
+
+    from vk_raytrace_torch import render as R
+    from vk_raytrace_torch.integrator.camera import with_aspect
+    from vk_raytrace_torch.models.gltf import load_gltf
+    from vk_raytrace_torch.ops.traverse_wide import make_alpha_pack
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "plaza.gltf")
+        cs.write_plaza(path, **cs.PLAZA)
+        (pool, inst), mats, lights, cam, atlas = load_gltf(path, instancing="auto")
+    sc = R.build_instanced_scene(pool, inst, mats, lights, cam, atlas=atlas).to(dev)
+    acc = sc.instances
+    pack = make_alpha_pack(sc.materials, sc.atlas, sc.geometry.tri_material)
+    oc, dc = cs.camera_rays(with_aspect(cam, 1280, 720).to(dev), 1280, 720, n // 2, rng, dev)
+    first, _ = tlas.closest_hit_instanced(acc, None, oc, dc)
+    hit = torch.nonzero(first.tri >= 0).squeeze(1)
+    hit = hit[torch.arange(n // 2, device=dev) % hit.numel()]
+    sun = torch.tensor([0.35, 0.85, 0.4], device=dev)
+    sun = sun / sun.norm()
+    o = torch.cat([oc, oc[hit] + dc[hit] * (first.t[hit] * (1.0 - 1e-4))[:, None]]).contiguous()
+    d = torch.cat([dc, sun.expand(n // 2, 3)]).contiguous()
+    out = {}
+    for h in (False, True):
+        kind = "any" if h else "closest"
+        out[f"plaza opaque_machine {kind}"] = lambda h=h: tlas._two_level_opaque_pass(
+            acc, "opq", o, d, t_long if h else inf, act, not h, h)
+        out[f"plaza alpha_machine {kind}"] = lambda h=h: tlas._two_level_alpha_pass(
+            acc, pack, o, d, t_long if h else inf, seed, act, h, not h)
+    return out
+
+
+def machine_ptxas(tree):
+    """ptxas's registers, stack frame and spill of each round machine and
+    a/b instantiation in ``tree``'s built traversal libraries."""
+    import glob
+    import re
+
+    out = []
+    for log in sorted(glob.glob(os.path.join(tree, "vk_raytrace_torch", "_build",
+                                             "libtraverse*.so.ptxas"))):
+        text = open(log).read()
+        for chunk in text.split("Compiling entry function '")[1:]:
+            name = chunk.split("'", 1)[0]
+            if "machine_kernel" not in name and "persistent_traverse_kernel" not in name:
+                continue
+            regs = re.search(r"Used (\d+) registers", chunk)
+            frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                              r"(\d+) bytes spill loads", chunk)
+            out.append(f"{os.path.basename(log).split('.')[0][3:]}:{name[:80]} "
+                       f"{regs.group(1) if regs else '?'} regs, "
+                       f"{frame.group(1) if frame else '?'} B frame, "
+                       f"{int(frame.group(2)) + int(frame.group(3)) if frame else '?'} B spill")
+    return out
 
 
 def main(argv):

@@ -92,9 +92,16 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
     opaque subsets and over the full table: the same, against the round
     loop driving modes a/b with roots.
 
-Phases 17-19 also print how each machine's rounds spread over its warps
-(32 consecutive rays): the mean rounds per ray, the mean of each warp's
-most, and the share of the warps' lane-rounds that do work.
+Phases 17-19 also print how each machine's rounds would spread over warps
+of a thread per ray (32 consecutive rays, the first design's grouping): the
+mean rounds per ray, the mean of each warp's most, and the share of the
+warps' lane-rounds that do work. The two-level machines run in persistent
+warps; for each of their instantiations phases 17, 19, 28 and
+30 print registers, stack frame, spill and static shared memory (ptxas),
+resident blocks per SM, the deepest stack its rays reached, the share of
+its warps' lane-steps that do work (the kernel's own counts) and the first
+design's time on the same rays (``MACHINE_FIRST_MS``), and run the pass
+once more under torch's sync debug mode (no host sync inside a pass).
 
 Then the Disney path, the unrolled integrator and the anchor, each render
 phase printing s/frame, Mrays/s, the counted kernel launches per frame,
@@ -378,6 +385,58 @@ def scan_text(scans, n_bytes, n_ops):
             f"with them the bound {tb.bound(n_bytes, n_ops + s_ops)[0]:.4f} ms; their L1 bytes "
             f"{l1_bytes / 1e9:.2f} GB, at the memory rate "
             f"{tb.bound(n_bytes + l1_bytes, n_ops + s_ops)[0]:.3f} ms")
+# The two-level machines' first design (a thread per ray through trace<>,
+# the stack and child list in local memory) on phases 17, 19, 28 and 30's
+# rays: ms per case as this script measured it then (NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md section 6). The cases it did not time are missing.
+MACHINE_FIRST_MS = {
+    "alpha_machine": 8.230, "alpha_machine_any": 5.239, "alpha_machine_w32": 12.494,
+    "alpha_machine_any_w32": 8.336, "opaque_machine": 0.496, "opaque_machine_any": 0.304,
+    "opaque_machine_full": 1.552, "opaque_machine_w32": 0.667, "opaque_machine_any_w32": 0.373,
+    "opaque_machine_full_w32": 2.193, "plaza opaque_machine": 7.220,
+    "plaza opaque_machine_any": 5.310, "plaza alpha_machine": 16.004,
+    "plaza alpha_machine_any": 12.630, "all-alpha plaza alpha_machine (full tables)": 16.880,
+    "all-alpha plaza alpha_machine_any (full tables)": 13.800,
+}
+
+
+def no_host_sync(run):
+    """``run()`` (one pass) under torch's sync debug mode: it raises on a
+    host sync inside the pass."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def machine_report(name, alpha, planar, any_hit, n_inst, dev):
+    """What the persistent machine's last call on ``dev``'s current stream
+    shows (call it right after that call): ptxas of its instantiation
+    (registers, stack frame, spill, static shared memory), its resident
+    blocks of 128 an SM with this instance table, the deepest stack its rays
+    reached against the tree's bound, the share of its warps' lane-steps that
+    did work (the kernel's own counts: the lanes' node steps over the lane
+    slots of the warps' node loops), and the first design's time
+    (:data:`MACHINE_FIRST_MS` under ``name``), as one text."""
+    from vk_raytrace_torch import cuda_build
+    from vk_raytrace_torch.ops import traverse_fused as tf
+
+    w = planar.width
+    which = "alpha" if alpha else "opaque"
+    res = cuda_build.resources(f"traverse{w}", f"{which}_machine_kernelILb{int(any_hit)}ELi{w}ELb"
+                                               f"{int(n_inst > 512)}E")
+    busy, slots = tf._AB_GRIDS[w].lane_steps(dev)
+    first = MACHINE_FIRST_MS.get(name)
+    return (f"persistent warps: {res['registers']} registers, {res['stack_frame']} B stack "
+            f"frame, {res['spill_stores'] + res['spill_loads']} B spill, {res['smem']} B static "
+            f"shared, {tf.machine_occupancy(w, alpha, any_hit, n_inst)} blocks of 128 an SM; "
+            f"deepest stack {tf.stack_reached(w, dev)} of the tree's {planar.stack_depth}; "
+            f"{busy / max(slots, 1):.3f} of the warps' lane-steps busy ({busy} node steps); the "
+            f"first design "
+            + (f"{first:.3f} ms" if first is not None else "not timed on these rays"))
+
+
 # The bistro's render configuration (BASELINE config #5,
 # scripts/baseline_configs.py:74-75, 93-97), at the main path's size.
 BISTRO_CFG = dict(max_depth=4, max_samples=1, hdr_multiplier=1.0, firefly_clamp=10.0,
@@ -708,6 +767,36 @@ def write_plaza(path, nx, nz, trunk_segments, trunk_rings, cards, ground=True, t
     with open(path, "w") as f:
         json.dump(doc, f)
     return n_draw
+
+
+def cloud_instances(rng, n_tris=1500, n_inst=6, width=16):
+    """A two-level scene whose traversals go deep, for the persistent
+    machines' stack spill: an opaque and an alpha-blended (alpha 0.5) cloud
+    of ``n_tris`` large random triangles about the unit cube, whose boxes
+    overlap, so that a ray entering a cloud enters most child boxes of every
+    row it meets and pushes them; each cloud instanced ``n_inst // 2`` times
+    along x. Returns (accel, alpha pack) on the CPU, the pack per triangle."""
+    from vk_raytrace_torch.models import schema as S
+    from vk_raytrace_torch.models.instances import InstancedSceneBuilder
+    from vk_raytrace_torch.ops import tlas
+    from vk_raytrace_torch.ops.traverse_wide import make_alpha_pack
+
+    b = InstancedSceneBuilder()
+    meshes = []
+    for mat, mode in ((0, S.ALPHA_OPAQUE), (1, S.ALPHA_BLEND)):
+        pos = rng.uniform(0.0, 1.0, (n_tris, 1, 3)) + rng.normal(0.0, 0.3, (n_tris, 3, 3))
+        meshes.append(b.add_mesh(pos.reshape(-1, 3), np.arange(3 * n_tris).reshape(-1, 3), mat,
+                                 uv=rng.uniform(0.0, 1.0, (3 * n_tris, 2)), alpha_mode=mode))
+    for i in range(n_inst):
+        x = np.eye(4)
+        x[:3, 3] = (1.25 * i, 0.1 * (i % 3), 0.0)
+        b.add_instance(meshes[i % 2], x)
+    pool, inst = b.build()
+    mats = S.make_materials([dict(), dict(alpha_mode=S.ALPHA_BLEND,
+                                          base_color_factor=[1, 1, 1, 0.5])]).to("cpu")
+    pack = make_alpha_pack(mats, S.dummy_atlas().to("cpu"),
+                           torch.as_tensor(np.asarray(pool.geometry.tri_material)).long())
+    return tlas.build_instanced_accel(pool, inst, width).to("cpu"), pack
 
 
 def camera_rays(cam, w, h, n, rng, dev):
@@ -1163,7 +1252,18 @@ def warp_rounds(rounds):
     return float(r.mean()), float(wmax.mean()), float(w.sum() / (32 * wmax).sum().clamp(min=1))
 
 
-def machine_case(name, planar, kernel, loop, key, loop_key, exact, work_bytes_ops, card):
+def warp_steps(nodes):
+    """The share of a thread-per-ray warp's lane-steps that do work (32
+    consecutive rays a warp, each warp running its longest ray's node
+    steps), from each ray's node steps: an upper bound for the first design,
+    which also split a warp between interior and leaf rows within a step."""
+    w = nodes.double()
+    w = torch.nn.functional.pad(w, (0, (-w.numel()) % 32)).view(-1, 32)
+    return float(w.sum() / (32 * w.amax(dim=1)).sum().clamp(min=1))
+
+
+def machine_case(name, planar, kernel, loop, key, loop_key, exact, work_bytes_ops, card,
+                 report=None):
     """A round machine kernel (``kernel()``, one launch of ``key``) against
     its round loop driving the per-round kernel (``loop()``, launches of
     ``loop_key``) and against the fully plain round loop (``loop(trav=the
@@ -1174,9 +1274,13 @@ def machine_case(name, planar, kernel, loop, key, loop_key, exact, work_bytes_op
     by ``work_bytes_ops(seen rows, rounds per ray, candidates, plain outputs,
     rejected candidates)`` -> (bytes, operations, the instance scans'
     (operations, L1 bytes) or None, printed beside the bound) from the plain
-    run, which also gives the rounds per warp. Returns
-    ((max |err|, (ms, plain_ms), bound), the per-round kernel's launches in
-    one round-loop call)."""
+    run, which also gives the rounds per warp (a thread per ray, 32
+    consecutive rays a warp: the first design's grouping). ``report`` (the
+    persistent two-level machines), called right after the kernel's first
+    call, gives the kernel's own line (:func:`machine_report`); the pass
+    then runs once more under torch's sync debug mode (no host sync inside).
+    Returns ((max |err|, (ms, plain_ms), bound), the per-round kernel's
+    launches in one round-loop call)."""
     import chip_profile
     from vk_raytrace_torch import travbench as tb
     from vk_raytrace_torch.ops import traverse_fused as tf
@@ -1186,6 +1290,11 @@ def machine_case(name, planar, kernel, loop, key, loop_key, exact, work_bytes_op
     torch.cuda.synchronize()
     assert tf.LAUNCHES[key] == before[key] + 1 and tf.LAUNCHES[loop_key] == before[loop_key], (
         f"{name}: the pass did not run as one {key} launch")
+    own = ""
+    if report is not None:
+        own = "; " + report()
+        no_host_sync(kernel)
+        own += "; no host sync in the pass"
     looped = loop()
     torch.cuda.synchronize()
     loop_launches = tf.LAUNCHES[loop_key] - before[loop_key]
@@ -1225,8 +1334,11 @@ def machine_case(name, planar, kernel, loop, key, loop_key, exact, work_bytes_op
     bnd = tb.bound(n_bytes, n_ops)
     mean_r, warp_max, used = warp_rounds(rounds)
     scan_note = "" if scans is None else "; " + scan_text(scans, n_bytes, n_ops)
-    print(f"{name}: {n} rays, {int(rounds.sum())} rounds ({mean_r:.2f} per ray, the warps' most "
-          f"{warp_max:.2f} on average, {used:.3f} of the warps' lane-rounds used, at most "
+    if report is not None:  # the plain steps (the last output) count + 1 a round
+        own += (f"; a thread-per-ray warp's lane-steps busy at most "
+                f"{warp_steps(plain[-1] - rounds):.3f}")
+    print(f"{name}: {n} rays, {int(rounds.sum())} rounds ({mean_r:.2f} per ray; a thread per "
+          f"ray: the warps' most {warp_max:.2f} on average, {used:.3f} of their lane-rounds used; at most "
           f"{int(rounds.max())}), {cands[0]} candidates, hit {float((kern[1] >= 0).float().mean()):.4f}; "
           f"exact vs round loop and plain loop, max |err| {err:.3g} -> OK; kernel {ms:.3f} ms "
           f"(1 launch); round loop {loop_ms:.3f} ms wall, {loop_busy:.3f} ms device busy, "
@@ -1234,7 +1346,7 @@ def machine_case(name, planar, kernel, loop, key, loop_key, exact, work_bytes_op
           f"{plain_ms:.1f} ms; bound {bnd[0]:.4f} ms by {bnd[1]} ({n_bytes / 1e6:.1f} MB, "
           f"{int((seen == 1).sum())} interior + {int((seen == 2).sum())} leaf rows of "
           f"{planar.rows.shape[0]}, {n_ops / 1e9:.3f} Gop; {ms / bnd[0]:.1f}x the bound)"
-          f"{scan_note} ({card})", flush=True)
+          f"{scan_note}{own} ({card})", flush=True)
     return (err, (ms, plain_ms), bnd), loop_launches
 
 
@@ -1264,7 +1376,8 @@ def alpha_machine_case(name, acc, pack, o, d, t_max, seed, act, any_hit, card):
     return machine_case(
         name, planar, lambda: tlas._two_level_alpha_pass(*args),
         lambda **kw: tlas._alpha_rounds(*args, **kw), tf.launch_key("alpha_machine", planar.width),
-        tf.launch_key("candidate_roots", planar.width), (1, 4, 5, 6), work, card)
+        tf.launch_key("candidate_roots", planar.width), (1, 4, 5, 6), work, card,
+        report=lambda: machine_report(name, True, planar, any_hit, n_inst, o.device))
 
 
 def alpha_rounds_case(name, planar, pack, o, d, t_lim, seed, act, cull, card):
@@ -1322,7 +1435,8 @@ def opaque_machine_case(name, acc, subset, o, d, t_max, act, any_hit, card):
         lambda: tlas._two_level_opaque_pass(acc, subset, o, d, t_max, act, not any_hit, any_hit),
         lambda **kw: tlas._two_level_pass(*args, **kw),
         tf.launch_key("opaque_machine", planar.width), tf.launch_key(f"{mode}_roots", planar.width),
-        (1, 4, 5), work, card)
+        (1, 4, 5), work, card,
+        report=lambda: machine_report(name, False, planar, any_hit, n_inst, o.device))
 
 
 @contextlib.contextmanager
@@ -1384,6 +1498,8 @@ def plaza_machine_case(name, acc, subset, pack, o, d, t_max, seed, act, any_hit,
     torch.cuda.synchronize()
     launches = tf.LAUNCHES[key] - before
     assert launches == 1, f"{name}: {launches} launches of {key}"
+    own = machine_report(name, alpha, planar, any_hit, acc.inst.aabb_min.shape[0], o.device)
+    no_host_sync(run)
     seen = torch.zeros(planar.rows.shape[0], dtype=torch.int8, device=planar.rows.device)
     cands = [0]
 
@@ -1421,15 +1537,17 @@ def plaza_machine_case(name, acc, subset, pack, o, d, t_max, seed, act, any_hit,
              + (cands[0] * MACHINE_CAND_OPS if alpha else 0))
     bnd = tb.bound(n_bytes, n_ops)
     mean_r, warp_max, used = warp_rounds(rounds)
+    own += (f"; a thread-per-ray warp's lane-steps busy at most "
+            f"{warp_steps(steps - rounds):.3f}")
     print(f"{name}: {n} rays, {n_inst} instances ({n_in} in the pass, table in "
           f"{'global' if n_inst > tlas._DENSE_I_MAX else 'shared'} memory), {int(n_rounds)} "
-          f"rounds ({mean_r:.2f} per ray, the warps' most {warp_max:.2f} on average, {used:.3f} "
-          f"of the warps' lane-rounds used, at most {int(rounds.max())}), {cands[0]} "
-          f"candidates, hit {float((kern[1] >= 0).float().mean()):.4f}; bit-exact vs the "
-          f"chunked round loop -> OK; kernel {ms:.3f} ms (1 launch); plain loop {plain_ms:.1f} "
-          f"ms; bound {bnd[0]:.4f} ms by {bnd[1]} ({n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} "
-          f"Gop; {ms / bnd[0]:.1f}x the bound); {scan_text(scans, n_bytes, n_ops)} ({card})",
-          flush=True)
+          f"rounds ({mean_r:.2f} per ray; a thread per ray: the warps' most {warp_max:.2f} on "
+          f"average, {used:.3f} of their lane-rounds used; at most {int(rounds.max())}), "
+          f"{cands[0]} candidates, hit {float((kern[1] >= 0).float().mean()):.4f}; bit-exact vs "
+          f"the chunked round loop -> OK; no host sync in the pass; kernel {ms:.3f} ms (1 "
+          f"launch); plain loop {plain_ms:.1f} ms; bound {bnd[0]:.4f} ms by {bnd[1]} "
+          f"({n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} Gop; {ms / bnd[0]:.1f}x the bound); "
+          f"{scan_text(scans, n_bytes, n_ops)}; {own} ({card})", flush=True)
     return (0.0, (ms, plain_ms), bnd), launches
 
 

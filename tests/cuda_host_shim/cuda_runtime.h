@@ -47,6 +47,7 @@ typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 
 // Resident blocks an SM and SMs of the stand-in device: small, so that a
 // persistent grid is a few hundred one-thread blocks.
@@ -63,6 +64,10 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
   *n = kVkrtHostBlocksPerSm;
   return cudaSuccess;
 }
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
 inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   memset(p, v, n);
   return cudaSuccess;
@@ -73,6 +78,7 @@ inline unsigned __ballot_sync(unsigned, bool p) { return p ? 1u : 0u; }
 template <class T>
 inline T __shfl_sync(unsigned, T v, int, int = 32) { return v; }
 inline int __reduce_max_sync(unsigned, int v) { return v; }
+inline unsigned __reduce_add_sync(unsigned, unsigned v) { return v; }
 inline int atomicAdd(int* p, int v) {
   const int old = *p;
   *p = old + v;

@@ -20,6 +20,8 @@ anchor on the card; ``Renderer.pick`` on the card against the CPU; the
 CLI on the card (against ``--device cpu``, and a checkpointed run against
 a straight one); the machines beyond 512 instances (their instance table in
 global memory) on a small plaza against the chunked round loops; the
+persistent machines' occupancy and ptxas report, and their stack's spill
+on ``chip_smoke.cloud_instances`` against the round loops; the
 instance-level split of an all-alpha pool on the card against the CPU; the
 sharded step under NCCL at world size 1 against ``Renderer.step``; and the
 graft entry on the card against the CPU; the wide back end's tree kernel
@@ -961,6 +963,69 @@ def test_global_table_machines_match_chunked_loop(tmp_path, which, kind):
     assert tf.LAUNCHES[key] == before + 1
     _cpu_and_cuda_outputs_equal(kern, plain, exact, f"{which} {kind}")
     assert 0.05 < (plain[1] >= 0).float().mean() < 1.0
+
+
+@pytest.mark.parametrize("which", ["opaque", "alpha"])
+def test_machine_occupancy_and_report(which):
+    """The machines' occupancy entry, with the instance table in shared
+    memory (166 instances, the bistro's) and in global memory (600): at least
+    one block of 128 resides per SM, no more with the larger shared table;
+    ptxas's report of every instantiation is kept beside the library."""
+    _need_cuda()
+    from vk_raytrace_torch import cuda_build
+
+    alpha = which == "alpha"
+    for width in tf.WIDTHS:
+        for any_hit in (False, True):
+            small, large = (tf.machine_occupancy(width, alpha, any_hit, n) for n in (166, 512))
+            assert small >= large >= 1
+            assert tf.machine_occupancy(width, alpha, any_hit, 600) >= 1
+            for table in (0, 1):
+                res = cuda_build.resources(
+                    f"traverse{width}", f"{which}_machine_kernelILb{int(any_hit)}ELi{width}ELb"
+                                        f"{table}E")
+                assert res["registers"] > 0
+
+
+@pytest.mark.parametrize("which", ["opaque", "alpha"])
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_machines_spill_match_round_loop(which, kind):
+    """The stack's spill on the card: the machines on
+    ``chip_smoke.cloud_instances`` (BLAS stack bounds past the sixteen
+    shared entries a thread, which its rays pass) against the round loops on
+    the CPU: tri, inst, steps (and seed) exact, t/u/v within rtol 1e-5 /
+    atol 1e-6; the deepest stack past the shared entries."""
+    _need_cuda()
+    import chip_smoke
+
+    rng = np.random.default_rng(31)
+    acc, pack = chip_smoke.cloud_instances(rng)
+    n = 4099
+    o = torch.tensor(rng.uniform([-1.0, 0.0, 0.0], [-0.2, 1.0, 1.0], (n, 3)), dtype=torch.float32)
+    d = torch.tensor(rng.normal([1.0, 0.0, 0.0], 0.3, (n, 3)), dtype=torch.float32)
+    d = (d / d.norm(dim=1, keepdim=True)).contiguous()
+    any_hit = kind == "any"
+    t_max = (torch.tensor(rng.uniform(1.0, 8.0, n), dtype=torch.float32) if any_hit
+             else torch.full((n,), tf.INF))
+    act = torch.tensor(rng.random(n) < 0.95)
+    seed = torch.tensor(rng.integers(0, 2**32, n), dtype=torch.int64)
+    cacc, cpack = acc.to("cuda"), _pack_to(pack, "cuda")
+    cuda = [x.to("cuda") for x in (o, d, t_max, seed, act)]
+    if which == "alpha":
+        plain = tlas._alpha_rounds(acc, pack, o, d, t_max, seed, act, any_hit, not any_hit)
+        kern = tlas._two_level_alpha_pass(cacc, cpack, *cuda, any_hit, not any_hit)
+        exact, planar = (1, 4, 5, 6), acc.blas_planar_alp
+    else:
+        planar, roots, view, mask = tlas._subset(acc, "opq")
+        plain = tlas._two_level_pass(planar, roots, view, o, d, t_max, act, mask, not any_hit,
+                                     any_hit)
+        kern = tlas._two_level_opaque_pass(cacc, "opq", cuda[0], cuda[1], cuda[2], cuda[4],
+                                           not any_hit, any_hit)
+        exact = (1, 4, 5)
+    torch.cuda.synchronize()
+    _cpu_and_cuda_outputs_equal(kern, plain, exact, f"cloud {which} {kind}")
+    assert 16 < tf.stack_reached(16, "cuda") <= planar.stack_depth
+    assert (plain[1] >= 0).any()
 
 
 def test_instance_level_split_on_card(tmp_path):

@@ -22,17 +22,23 @@ table in global memory, and the instance-level split.
   at alpha 0.5 the mean hit distance against the exact expectation (the
   reference tests its candidates in another order, so a lane's seed and
   draw differ). An all-opaque pool given a pack equals the pass without.
-* The round machines (``csrc/traverse.cu``) compiled as host C++ under the
-  stand-in header of ``tests/test_torch_traverse_host.py``: the shared-
-  memory table (201 instances) and the global one (601) bit for bit against
-  the chunked loop, both machines, both kinds; and a shared-memory table
-  padded past 512 with masked instances, which takes the global path and
-  gives the same bits.
+* The round machines (``csrc/traverse.cu``, persistent warps) compiled as
+  host C++ under the stand-in header of ``tests/test_torch_traverse_host.py``
+  and bound through the port's wrappers (``tlas._opaque_machine_cuda``,
+  ``_alpha_machine_cuda``): the shared-memory table (201 instances) and the
+  global one (601) bit for bit against the chunked loop, both machines, both
+  kinds; a shared-memory table padded past 512 with masked instances, which
+  takes the global path and gives the same bits; the stack's spill (a build
+  with two shared stack entries on the small bistro, and the card's layout
+  on ``chip_smoke.cloud_instances``, whose rays push past sixteen) bit for
+  bit, with the warps' node-step counts; zero rays launching nothing, and
+  the scratch shared with the a/b entry across calls.
 """
 
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 import jax.numpy as jnp
 import numpy as np
@@ -54,6 +60,7 @@ from vk_raytrace_tpu.ops import tlas as ref_tlas
 from vk_raytrace_torch import cuda_build
 from vk_raytrace_torch import render as port_render
 from vk_raytrace_torch.convert import from_reference
+from vk_raytrace_torch.models import procedural
 from vk_raytrace_torch.models.gltf import load_gltf
 from vk_raytrace_torch.models.schema import RenderConfig
 from vk_raytrace_torch.ops import tlas
@@ -366,6 +373,11 @@ def test_all_opaque_pool_with_pack_equals_no_pack():
 # ---------------------------------------------------------------------------
 
 
+# Host builds of traverse.cu: the card's layout, and two shared stack entries
+# a thread (every deeper entry in the spill).
+HOST_BUILDS = {"w16": [], "spill": ["-DVKRT_SHARED_STACK=2"]}
+
+
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     if shutil.which("g++") is None:
@@ -374,22 +386,39 @@ def host_lib(tmp_path_factory):
     cpp = out / "traverse_host.cpp"
     with open(os.path.join(cuda_build.CSRC, "traverse.cu")) as f:
         cpp.write_text(_host_source(f.read()))
-    lib = out / "libw16.so"
-    res = subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-                          "-DVKRT_WIDTH=16", f"-I{SHIM}", f"-I{cuda_build.CSRC}", "-o",
-                          str(lib), str(cpp)],
-                         capture_output=True, text=True)
-    assert res.returncode == 0, res.stderr
-    return str(lib)
+
+    def build(name):
+        lib = out / f"lib{name}.so"
+        res = subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+                              "-DVKRT_WIDTH=16", *HOST_BUILDS[name], f"-I{SHIM}",
+                              f"-I{cuda_build.CSRC}", "-o", str(lib), str(cpp)],
+                             capture_output=True, text=True)
+        assert res.returncode == 0, res.stderr
+        return str(lib)
+
+    with ThreadPoolExecutor(len(HOST_BUILDS)) as pool:
+        futures = {name: pool.submit(build, name) for name in HOST_BUILDS}
+        return {name: f.result() for name, f in futures.items()}
 
 
 @pytest.fixture
 def host_machines(host_lib, monkeypatch):
-    """The wrappers' CUDA dispatch pointed at the host library: CPU tensors
-    go through ``_opaque_machine_cuda`` / ``_alpha_machine_cuda``."""
+    """The wrappers' CUDA dispatch pointed at a host library (the card's
+    layout; ``use(name)`` switches): CPU tensors go through
+    ``_opaque_machine_cuda`` / ``_alpha_machine_cuda``, each persistent grid
+    and scratch fresh."""
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: _Stream())
     monkeypatch.setattr(tf, "_libs", {})
-    monkeypatch.setattr(tf, "build", lambda width, verbose=False: host_lib)
+    monkeypatch.setattr(tf, "_AB_GRIDS", {w: tf.PersistentGrid() for w in tf.WIDTHS})
+
+    def use(name):
+        monkeypatch.setattr(tf, "build", lambda width, verbose=False: host_lib[name])
+        tf._libs.clear()
+        for grid in tf._AB_GRIDS.values():
+            grid.clear()
+
+    use("w16")
+    return use
 
 
 @pytest.fixture(scope="module")
@@ -443,3 +472,99 @@ def test_host_machines_match_chunked_loop(host_machines, plaza, small_grove, tab
     for k, (a, b) in enumerate(zip(kern, loop)):
         assert _same_bits(a.to(b.dtype), b), f"output {k} differs"
     assert (loop[1] >= 0).any()
+
+
+@pytest.fixture(scope="module")
+def small_bistro():
+    """The small bistro (``detail=0.05``: 36 instances, BLAS stack bounds
+    30 and 7) and rays from its street, half toward the triangles of its
+    alpha instances, half toward any instance's."""
+    pool, inst, mats, lights, cam, atlas = procedural.bistro_scene(detail=0.05)
+    scene = port_render.build_instanced_scene(pool, inst, mats, lights, cam, atlas=atlas)
+    acc = scene.instances.to("cpu")
+    pack = make_alpha_pack(scene.materials.to("cpu"), scene.atlas.to("cpu"),
+                           torch.as_tensor(np.asarray(pool.geometry.tri_material)).long())
+    rng = np.random.default_rng(9)
+    alpha = np.nonzero(np.asarray(acc.inst_alpha))[0]
+    pick = np.concatenate([rng.choice(alpha, N // 2), rng.integers(0, len(inst.mesh_id), N // 2)])
+    o, d = chip_smoke.rays_toward_instances(rng, pool, inst, pick,
+                                            rng.uniform([-50, 0.5, -10], [50, 8, 10], (N, 3)),
+                                            "cpu")
+    return (acc, pack, o, d, torch.tensor(rng.integers(0, 2**32, N), dtype=torch.int64),
+            torch.tensor(rng.random(N) < 0.95),
+            torch.tensor(rng.uniform(2.0, 60.0, N), dtype=torch.float32))
+
+
+@pytest.fixture(scope="module")
+def cloud():
+    """``chip_smoke.cloud_instances``: six instances of an opaque and an
+    alpha cloud of 1,500 triangles (BLAS stack bounds past 16), and rays
+    along the row of clouds from random points beside its start."""
+    rng = np.random.default_rng(10)
+    acc, pack = chip_smoke.cloud_instances(rng)
+    o = torch.tensor(rng.uniform([-1.0, 0.0, 0.0], [-0.2, 1.0, 1.0], (N, 3)), dtype=torch.float32)
+    d = torch.tensor(rng.normal([1.0, 0.0, 0.0], 0.3, (N, 3)), dtype=torch.float32)
+    d = (d / d.norm(dim=1, keepdim=True)).contiguous()
+    return (acc, pack, o, d, torch.tensor(rng.integers(0, 2**32, N), dtype=torch.int64),
+            torch.tensor(rng.random(N) < 0.95),
+            torch.tensor(rng.uniform(1.0, 8.0, N), dtype=torch.float32))
+
+
+@pytest.mark.parametrize("kind", ["closest", "any"])
+@pytest.mark.parametrize("which", ["opaque", "alpha"])
+@pytest.mark.parametrize("case", ["bistro_spill", "cloud"])
+def test_host_machines_spill_match_loop(host_machines, small_bistro, cloud, case, which, kind):
+    """The stack's spill: both machines with two shared stack entries a
+    thread on the small bistro, and with the card's sixteen on the clouds,
+    whose rays push past them; every output bit for bit against the loops,
+    the deepest stack past the shared entries and within the tree's bound.
+    The warps' counts: on the host's one-lane warps every lane slot is busy,
+    one node step for each of the loop's steps but the one a round adds."""
+    host_machines("spill" if case == "bistro_spill" else "w16")
+    acc, pack, o, d, seed, act, t_max = small_bistro if case == "bistro_spill" else cloud
+    kern, loop = _machine_runs(acc, pack, o, d, seed, act, t_max, which, kind)
+    for k, (a, b) in enumerate(zip(kern, loop)):
+        assert _same_bits(a.to(b.dtype), b), f"output {k} differs"
+    assert (loop[1] >= 0).any()
+    shared = 2 if case == "bistro_spill" else 16
+    planar = tlas._planar(acc, "alp" if which == "alpha" else "opq")
+    assert shared < tf.stack_reached(16, "cpu") <= planar.stack_depth
+    rounds = torch.zeros(N, dtype=torch.int64)
+    if which == "alpha":
+        steps = tlas._alpha_rounds(acc, pack, o, d, t_max if kind == "any" else
+                                   torch.full((N,), tf.INF), seed, act, kind == "any",
+                                   kind == "closest", rounds=rounds)[6]
+    else:
+        planar, roots, view, mask = tlas._subset(acc, "opq")
+        steps = tlas._two_level_pass(planar, roots, view, o, d, t_max if kind == "any" else
+                                     torch.full((N,), tf.INF), act, mask, kind == "closest",
+                                     kind == "any", rounds=rounds)[5]
+    busy, slots = tf._AB_GRIDS[16].lane_steps("cpu")
+    assert busy == slots == int(steps.sum() - rounds.sum()) > 0
+
+
+def test_host_machines_zero_rays_and_scratch_reused(host_machines, small_bistro):
+    """No ray: no launch and empty outputs. The machines and the a/b entry
+    share one scratch per device and stream (each call zeroes its head):
+    calls of both machines on other rays in between leave a call on the
+    first rays bit for bit as it was, and the a/b entry's call uses the
+    same tensor."""
+    acc, pack, o, d, seed, act, t_max = small_bistro
+    inf = torch.full((N,), tf.INF)
+    for which in ("opaque", "alpha"):
+        key = tf.launch_key(f"{which}_machine", 16)
+        before = tf.LAUNCHES[key]
+        none = _machine_runs(acc, pack, o[:0], d[:0], seed[:0], act[:0], t_max[:0], which,
+                             "closest")[0]
+        assert tf.LAUNCHES[key] == before and all(x.numel() == 0 for x in none)
+    first = _machine_runs(acc, pack, o, d, seed, act, t_max, "opaque", "closest")[0]
+    half = N // 2
+    scratch = tf._AB_GRIDS[16].scratch[(torch.device("cpu"), 0)]
+    _machine_runs(acc, pack, o[half:], d[half:], seed[half:], act[half:], t_max[half:],
+                  "opaque", "any")
+    _machine_runs(acc, pack, o[:half], d[:half], seed[:half], act[:half], t_max[:half], "alpha",
+                  "any")
+    again = _machine_runs(acc, pack, o, d, seed, act, t_max, "opaque", "closest")[0]
+    assert all(_same_bits(a, b) for a, b in zip(first, again))
+    tf._traverse_cuda(acc.blas_planar, o, d, inf, None, "closest", True)
+    assert tf._AB_GRIDS[16].scratch[(torch.device("cpu"), 0)] is scratch

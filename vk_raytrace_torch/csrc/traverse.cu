@@ -1,9 +1,10 @@
-// BVH traversal over planar rows of width W = 16 or 32: one CUDA thread per
-// ray, looping to termination. Modes a and b from the root (the main path's
-// closest-hit and shadow rays) run in persistent warps with the stack in
-// shared memory (vkrt_traverse_ab, see "Modes a and b from the root"
-// below); every other entry runs trace<>, a thread per launched ray with a
-// full-depth stack in local memory.
+// BVH traversal over planar rows of width W = 16 or 32. Modes a and b from
+// the root (the main path's closest-hit and shadow rays) and the two-level
+// round machines run in persistent warps with the stack in shared memory
+// (vkrt_traverse_ab, vkrt_opaque_machine, vkrt_alpha_machine: see "Modes a
+// and b from the root" and "The round machines" below); every other entry
+// runs trace<>, a thread per launched ray with a full-depth stack in local
+// memory.
 //
 // Replaces the TPU step kernel vk_raytrace_tpu/ops/traverse_fused.py
 // (_make_step_kernel, launched once per traversal step by _step). That
@@ -38,12 +39,12 @@
 //   vkrt_traverse_ab: modes a and b from the root, persistent warps;
 //   vkrt_alpha_rounds, vkrt_opaque_machine, vkrt_alpha_machine: the round
 //     machines (see "The round machines" below), each a host loop of
-//     traversal rounds run whole, one thread per ray: the single-level alpha
-//     candidate rounds of ops/traverse_alpha.py, and the two-level opaque and
-//     alpha rounds of ops/tlas.py (instance enumeration in entry order over
-//     the instance table held in shared memory, the ray transform, the
-//     traversal of the instance's BLAS and, for alpha, the stochastic test),
-//     all through the same per-node code as vkrt_traverse;
+//     traversal rounds run whole in one launch: the single-level alpha
+//     candidate rounds of ops/traverse_alpha.py (a thread per ray through
+//     trace<>), and the two-level opaque and alpha rounds of ops/tlas.py
+//     (persistent warps; instance enumeration in entry order over the
+//     instance table, the ray transform, the traversal of the instance's BLAS
+//     by the a/b entry's node code and, for alpha, the stochastic test);
 //   vkrt_sort_children: the child order of interior rows alone (the
 //     counterpart of the TPU kernel's bitonic network _bitonic, which the
 //     reference unit-tests through its own pallas_call, tests/test_fused.py),
@@ -563,6 +564,77 @@ __device__ __forceinline__ int interior_step(const float4* __restrict__ row, con
   return ref[0];
 }
 
+// One lane's hits in a traversal: the nearest opaque hit (t starts at the
+// window end) and, in mode c, the nearest alpha-flagged candidate (ct starts
+// there too), as trace<> keeps them.
+struct Hits {
+  float t, u, v;
+  int tri;
+  float ct, cu, cv, cuvu, cuvv;
+  int ctri;
+};
+
+// Leaf row `cur`: its triangles against both slots in trace<>'s order (the
+// opaque tournament, then in mode c the candidate's). Returns the next node:
+// kTerm at any hit's first hit, else a pop.
+template <int MODE, bool CULL, int W>
+__device__ __forceinline__ int leaf_step(const float4* __restrict__ rows, int cur, const Ray& y,
+                                         Hits& h, const Stack& st, int& depth, int lim) {
+  using P = Planar<W>;
+  const int vleaf = -cur - 1;
+  const int cnt = (vleaf & (P::kLT - 1)) + 1;
+  LeafSlots L;
+  leaf_tests<MODE, CULL, W>(rows + (int64_t)(vleaf >> P::kLeafShift) * P::kRowF4, cnt, y, h.t,
+                            MODE == kCandidate ? h.ct : h.t, L);
+  minfold<3>(L.tt_o, L.pay_o);
+  const bool found = L.tt_o[0] < h.t;
+  if (found) {
+    h.t = L.tt_o[0];
+    h.tri = (int)L.pay_o[0][0];
+    h.u = L.pay_o[1][0];
+    h.v = L.pay_o[2][0];
+  }
+  if (MODE == kCandidate) {
+    minfold<5>(L.tt_c, L.pay_c);
+    if (L.tt_c[0] < h.ct) {
+      h.ct = L.tt_c[0];
+      h.ctri = (int)L.pay_c[0][0];
+      h.cu = L.pay_c[1][0];
+      h.cv = L.pay_c[2][0];
+      h.cuvu = L.pay_c[3][0];
+      h.cuvv = L.pay_c[4][0];
+    }
+  }
+  return MODE == kAny && found ? kTerm : pop(st, depth, lim);
+}
+
+// Interior rows until this lane is at a leaf or done (mode c prunes with
+// the nearer of both slots, as trace<> does), one step counted for each.
+template <int MODE, int W>
+__device__ __forceinline__ void interior_nodes(const float4* __restrict__ rows, int& cur,
+                                               const Ray& y, const Hits& h, const ChildList& cl,
+                                               const Stack& st, int& depth, int lim,
+                                               int& deepest, int& steps) {
+  while (cur >= 0) {
+    ++steps;
+    cur = interior_step<W>(rows + (int64_t)cur * Planar<W>::kRowF4, y,
+                           MODE == kCandidate ? fminf(h.t, h.ct) : h.t, cl, st, depth, lim,
+                           deepest);
+  }
+}
+
+// Leaves until this lane is at an interior row or done, one step counted
+// for each.
+template <int MODE, bool CULL, int W>
+__device__ __forceinline__ void leaf_nodes(const float4* __restrict__ rows, int& cur,
+                                           const Ray& y, Hits& h, const Stack& st, int& depth,
+                                           int lim, int& steps) {
+  while (cur < 0 && cur != kTerm) {
+    ++steps;
+    cur = leaf_step<MODE, CULL, W>(rows, cur, y, h, st, depth, lim);
+  }
+}
+
 template <int MODE, bool CULL, int W>
 __global__ void __launch_bounds__(kAbThreads, kAbMinBlocks)
 persistent_traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origin,
@@ -572,7 +644,6 @@ persistent_traverse_kernel(const float4* __restrict__ rows, const float* __restr
                            float* __restrict__ out_t, int32_t* __restrict__ out_tri,
                            float* __restrict__ out_u, float* __restrict__ out_v,
                            int32_t* __restrict__ out_steps) {
-  using P = Planar<W>;
   constexpr bool kListShared = W == 16;
   __shared__ int sh_stack[kShStack * kAbThreads];
   __shared__ float s_root[6];
@@ -599,8 +670,8 @@ persistent_traverse_kernel(const float4* __restrict__ rows, const float* __restr
                            : ChildList{l_key, l_ref, 1};
 
   Ray y;
-  int ray = -1, cur = kTerm, depth = 0, steps = 0, tri = -1, deepest = 0;
-  float t_best = 0.0f, u = 0.0f, v = 0.0f;
+  Hits h;
+  int ray = -1, cur = kTerm, depth = 0, steps = 0, deepest = 0;
   bool more = true;  // the counter may still hold rays (the same in every lane)
   while (true) {
     const unsigned idle = __ballot_sync(lanes, cur == kTerm);
@@ -609,45 +680,23 @@ persistent_traverse_kernel(const float4* __restrict__ rows, const float* __restr
     if (r >= 0) {
       ray = (int)r;
       y = load_ray(origin, direction, r);
-      t_best = t_max[r];
-      tri = -1;
-      u = v = 0.0f;
+      h.t = t_max[r];
+      h.tri = -1;
+      h.u = h.v = 0.0f;
       steps = 0;
       depth = 0;
       const float rmin[3] = {s_root[0], s_root[1], s_root[2]};
       const float rmax[3] = {s_root[3], s_root[4], s_root[5]};
-      const bool go = enters_root(y, rmin, rmax, t_best) && (active == nullptr || active[r]);
+      const bool go = enters_root(y, rmin, rmax, h.t) && (active == nullptr || active[r]);
       cur = go ? 0 : kTerm;
     }
-    // Interior nodes until this lane is at a leaf or done.
-    while (cur >= 0) {
-      ++steps;
-      cur = interior_step<W>(rows + (int64_t)cur * P::kRowF4, y, t_best, cl, st, depth, lim,
-                             deepest);
-    }
-    // Leaves until this lane is at an interior node or done.
-    while (cur < 0 && cur != kTerm) {
-      ++steps;
-      const int vleaf = -cur - 1;
-      const int cnt = (vleaf & (P::kLT - 1)) + 1;
-      LeafSlots L;
-      leaf_tests<MODE, CULL, W>(rows + (int64_t)(vleaf >> P::kLeafShift) * P::kRowF4, cnt, y,
-                                t_best, t_best, L);
-      minfold<3>(L.tt_o, L.pay_o);
-      const bool found = L.tt_o[0] < t_best;
-      if (found) {
-        t_best = L.tt_o[0];
-        tri = (int)L.pay_o[0][0];
-        u = L.pay_o[1][0];
-        v = L.pay_o[2][0];
-      }
-      cur = MODE == kAny && found ? kTerm : pop(st, depth, lim);
-    }
+    interior_nodes<MODE, W>(rows, cur, y, h, cl, st, depth, lim, deepest, steps);
+    leaf_nodes<MODE, CULL, W>(rows, cur, y, h, st, depth, lim, steps);
     if (ray >= 0 && cur == kTerm) {
-      out_t[ray] = tri >= 0 ? t_best : kInf;
-      out_tri[ray] = tri;
-      out_u[ray] = u;
-      out_v[ray] = v;
+      out_t[ray] = h.tri >= 0 ? h.t : kInf;
+      out_tri[ray] = h.tri;
+      out_u[ray] = h.u;
+      out_v[ray] = h.v;
       out_steps[ray] = steps;
       ray = -1;
     }
@@ -657,13 +706,14 @@ persistent_traverse_kernel(const float4* __restrict__ rows, const float* __restr
 }
 
 // ---------------------------------------------------------------------------
-// The round machines: each runs a host loop of rounds whole, one thread per
-// ray for all of its rounds. The TPU ran every round as one traversal of its
-// step kernel (vk_raytrace_tpu/ops/traverse_fused.py:644) inside a device-side
-// loop over the whole batch:
+// The round machines: each runs a host loop of rounds whole, one launch for
+// every round of every ray. The TPU ran every round as one traversal of its
+// step kernel (vk_raytrace_tpu/ops/traverse_fused.py:644) inside a
+// device-side loop over the whole batch:
 //   alpha_rounds_kernel: the single-level alpha candidate rounds
 //     (ops/traverse_alpha.py _rounds_core; the reference's rounds reach the
-//     step kernel through vk_raytrace_tpu/ops/traverse_alpha.py:128);
+//     step kernel through vk_raytrace_tpu/ops/traverse_alpha.py:128), one
+//     thread per ray through trace<>;
 //   opaque_machine_kernel: the two-level opaque rounds, modes a and b with
 //     per-lane roots (ops/tlas.py _two_level_pass; the reference's rounds at
 //     vk_raytrace_tpu/ops/tlas.py:495-505);
@@ -672,21 +722,39 @@ persistent_traverse_kernel(const float4* __restrict__ rows, const float* __restr
 //
 // What bounds them: the traversals (dependent BLAS row reads and divergence,
 // as in vkrt_traverse), rays of one warp that need different numbers of
-// rounds, and in the two-level machines the per-round instance scan. What
-// the design removes is the host loop: per round a live-lane gather, the
-// window or transform, a launch, the alpha test or the candidate argmin over
-// an (R, I) entry table as tens of small torch ops, the scatters and a host
-// sync. A ray's state (window, best hit, seed, last instance) stays in
-// registers across its rounds. The two-level machines hold the instance
-// table (subset world box, world-to-object rows and BLAS root of each
-// instance, 76 B) in shared memory up to kMaxInstances instances, where every
-// thread of a warp reads the same instance at once; above, a table too large
-// for a block's shared memory, they read it from global memory through the
-// read-only path (GLOBAL instantiations, no dynamic shared memory), with the
-// same arithmetic, so both give the same bits. The next candidate is the
+// rounds (1 to 64), and in the two-level machines the per-round instance
+// scan. What a machine removes is the host loop: per round a live-lane
+// gather, the window or transform, a launch, the alpha test or the candidate
+// argmin over an (R, I) entry table as tens of small torch ops, the scatters
+// and a host sync. A ray's state (window, best hit, seed, last instance)
+// stays in registers across its rounds. The two-level machines hold the
+// instance table (subset world box, world-to-object rows and BLAS root of
+// each instance, 76 B) in shared memory up to kMaxInstances instances, where
+// every thread of a warp reads the same instance at once; above, a table too
+// large for a block's shared memory, they read it from global memory through
+// the read-only path (GLOBAL instantiations, no dynamic shared memory), with
+// the same arithmetic, so both give the same bits. The next candidate is the
 // slab test recomputed against the table, so no per-ray entry table exists.
-// The table, the enumeration and the ray transform live in traverse_common.cuh,
-// which the wide back end's machine (traverse_wide.cu) shares.
+// The table, the enumeration and the ray transform live in
+// traverse_common.cuh, which the wide back end's machine (traverse_wide.cu)
+// shares.
+//
+// The two-level machines run in persistent warps, as vkrt_traverse_ab (their
+// first design ran a thread per ray through trace<>, which made a warp wait
+// for its slowest ray's last round): a lane whose ray has ended takes a new
+// one from the counter; a lane keeps its ray's state between rounds, and its
+// round ends where the round's BLAS traversal does, inside the warp's
+// interior and leaf loops (interior_nodes, leaf_nodes: the node code of the
+// a/b entry, with mode c's candidate slot); before the warp's next node step
+// the lane settles the round (the alpha test, the window advance) and starts
+// its next round or writes its outputs; a lane that needs its next instance
+// waits until enough lanes of its warp do (scan_batch), so that their scans
+// of the table run together. The stack, and at width 16 the child list, lie
+// in shared memory beside the instance table.
+// Every arithmetic step is the first design's, in its order, so every output
+// is the same bit for bit; which lane carries a ray never changes its result.
+// Each warp also counts its node steps, for the share of its lanes' steps
+// that do work (scratch words 2 and 3, machine_counts below).
 // ---------------------------------------------------------------------------
 
 constexpr float kAlphaMask = 1.0f;  // models/schema.py ALPHA_MASK
@@ -814,133 +882,311 @@ alpha_rounds_kernel(const float4* __restrict__ rows, const float* __restrict__ o
   out_steps[r] = steps;
 }
 
-// The two-level opaque rounds (tlas._two_level_pass) for one ray: the
+// Resident blocks of 128 an SM that __launch_bounds__ asks of the machines
+// (registers: 65536 / (128 * blocks)); the instance table's shared memory may
+// hold fewer. Measured on the H100 (chip_ab.py, PERF.md section 6): the
+// opaque machine at 4 blocks (128 registers, no spill) ran 7% faster than at
+// 5 (96, 358 B spill) at width 16; the alpha machine at 3 (168) 5% faster
+// than at 4 (128) there; at width 32 fewer blocks ran slower.
+constexpr int kOpaqueMinBlocks = 4;
+constexpr int kAlphaMinBlocks = 3;
+// A warp fetches rays once this many lanes idle (measured: 1-7% faster than
+// at 8 on every machine case but the plaza's any-hit alpha pass, 1-2%
+// slower; 4 as for the wide entries).
+constexpr int kMachineRefill = 4;
+// Instances of the table for each lane that waits for an instance scan
+// (scan_batch below). Measured on the H100 (chip_ab.py, PERF.md section 6):
+// with every lane scanning as soon as its round ended, the plaza's alpha
+// machine (4,609 instances) ran 1.7x slower than the first design; with 32
+// it ran 1.26x faster than the first design, and the bistro (166: 5 lanes)
+// within 2% of 128 (1 lane); at 8 (20 lanes) the bistro's alpha machine
+// ran 20% slower.
+constexpr int kScanShare = 32;
+
+// Lanes that wait for their next instance before the warp scans the table:
+// the scan (next_instance) costs a warp the same for one lane as for all
+// that run it together, so a larger table gathers more lanes first (one for
+// every kScanShare instances, at most a warp); once no lane of the warp
+// traverses, the waiting lanes scan whatever their number.
+inline int scan_batch(int n_inst) {
+  const int k = n_inst / kScanShare;
+  return k < 1 ? 1 : (k > 32 ? 32 : k);
+}
+
+// The per-thread stack and child list of the machines: the stack's shared
+// entries and, at width 16, the list in shared memory, laid out by thread.
+template <int W>
+struct NodeMem {
+  static constexpr bool kListShared = W == 16;
+  int stack[kShStack * kAbThreads];
+  float key[kListShared ? W * kAbThreads : 1];
+  int ref[kListShared ? W * kAbThreads : 1];
+};
+
+// The warp's counts after its node loops: the node steps of its lanes
+// (busy) and the lane slots of the two loops (each runs as long as its
+// slowest lane), from each lane's steps before the loops (s0) and between
+// them (s1).
+__device__ __forceinline__ void count_steps(unsigned lanes, int s0, int s1, int s2,
+                                            unsigned& busy, unsigned& slots) {
+  busy += (unsigned)(s2 - s0);
+  slots += (unsigned)(__reduce_max_sync(lanes, s1 - s0) + __reduce_max_sync(lanes, s2 - s1));
+}
+
+// At the end: the deepest stack to scratch word 1, the warp's busy node
+// steps and lane slots (the lanes' slots times the warp's lanes) added to
+// words 2 and 3 (32-bit, wrapping).
+__device__ __forceinline__ void machine_counts(unsigned lanes, int lane, int* scratch,
+                                               int deepest, unsigned busy, unsigned slots) {
+  deepest = __reduce_max_sync(lanes, deepest);
+  busy = __reduce_add_sync(lanes, busy);
+  if (lane == 0) {
+    atomicMax(scratch + 1, deepest);
+    atomicAdd(scratch + 2, (int)busy);
+    atomicAdd(scratch + 3, (int)(slots * (unsigned)__popc(lanes)));
+  }
+}
+
+// The two-level opaque rounds (tlas._two_level_pass) for every ray: the
 // instances of the mask in (entry t, id) order, each traversed from its BLAS
 // root in its own object space with t_max = the best hit so far, in mode a
 // (closest, culling) or mode b (any, no culling: the first hit ends the ray).
-// Every round consumes an instance, so a ray ends within n_inst rounds.
+// Every round consumes an instance, so a ray ends within n_inst rounds. A
+// lane's ray keeps its world ray, window end tmax0, last instance (last_t,
+// last_id) and the instance of its current round (cid, entered at nt, with
+// the best t at the round's start t0); the round's traversal updates the best
+// hit in place, and every hit lowers its t strictly. settle: scan_batch.
 // GLOBAL: the instance table in global memory (n_inst > kMaxInstances).
-template <bool ANY, int MAXD, int W, bool GLOBAL>
-__global__ void __launch_bounds__(128)
-opaque_machine_kernel(const float4* __restrict__ rows, const float* __restrict__ inst_box,
+template <bool ANY, int W, bool GLOBAL>
+__global__ void __launch_bounds__(kAbThreads, kOpaqueMinBlocks)
+opaque_machine_kernel(const float4* __restrict__ rows, int lim, const float* __restrict__ inst_box,
                       const float* __restrict__ inst_w2o, const int32_t* __restrict__ inst_root,
                       int n_inst, const float* __restrict__ origin,
                       const float* __restrict__ direction, const float* __restrict__ t_max,
-                      const uint8_t* __restrict__ active, int64_t n_rays,
-                      float* __restrict__ out_t, int32_t* __restrict__ out_tri,
-                      float* __restrict__ out_u, float* __restrict__ out_v,
-                      int32_t* __restrict__ out_inst, int32_t* __restrict__ out_steps) {
+                      const uint8_t* __restrict__ active, int n_rays, int settle,
+                      int* __restrict__ scratch, int64_t n_slots, float* __restrict__ out_t,
+                      int32_t* __restrict__ out_tri, float* __restrict__ out_u,
+                      float* __restrict__ out_v, int32_t* __restrict__ out_inst,
+                      int32_t* __restrict__ out_steps) {
+  constexpr int MODE = ANY ? kAny : kClosest;
+  using M = NodeMem<W>;
   extern __shared__ float smem[];
-  const Instances<GLOBAL> it =
-      load_instances<GLOBAL>(smem, inst_box, inst_w2o, inst_root, n_inst);
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
+  __shared__ M mem;
+  float l_key[M::kListShared ? 1 : W];
+  int l_ref[M::kListShared ? 1 : W];
+  const Instances<GLOBAL> it = load_instances<GLOBAL>(smem, inst_box, inst_w2o, inst_root, n_inst);
 
-  const Ray w = load_ray(origin, direction, r);
-  const float tmax0 = t_max[r];
-  float t_best = tmax0, u = 0.0f, v = 0.0f, last_t = kNeg, nt;
-  int tri = -1, ibest = 0, steps = 0, last_id = -1;
-  int cid = next_instance(it, n_inst, w, tmax0, t_best, last_t, last_id, nt);
-  bool live = (active == nullptr || active[r]) && cid >= 0;
-  while (live) {
-    // The world origin itself goes into object space: o + d * 0 would make
-    // a -0 coordinate +0.
-    const Ray y = instance_ray(it, cid, w.ox, w.oy, w.oz, w);
-    TraceOut h;
-    trace<ANY ? kAny : kClosest, !ANY, MAXD, W, false>(rows, y, t_best, it.root_at(cid),
-                                                       nullptr, 0, h);
-    if (h.tri >= 0) {
-      t_best = h.t;
-      tri = h.tri;
-      u = h.u;
-      v = h.v;
-      ibest = cid;
+  const unsigned lanes = __ballot_sync(0xffffffffu, true);
+  const int lane = threadIdx.x & 31;
+  const int64_t slot = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const Stack st{mem.stack + threadIdx.x, (int)blockDim.x, scratch + kScratchHead + slot, n_slots};
+  const ChildList cl = M::kListShared ? ChildList{mem.key + threadIdx.x, mem.ref + threadIdx.x,
+                                                  (int)blockDim.x}
+                                      : ChildList{l_key, l_ref, 1};
+  Ray w, y;
+  Hits h;
+  float tmax0 = 0.0f, last_t = kNeg, nt = kInf, t0 = 0.0f;
+  int ray = -1, cur = kTerm, depth = 0, steps = 0, cid = -1, last_id = -1, ibest = 0;
+  int deepest = 0;
+  unsigned busy = 0, slots = 0;
+  bool more = true, live = false;  // more: the counter may still hold rays (every lane)
+  const auto finish = [&]() {
+    out_t[ray] = h.t;
+    out_tri[ray] = h.tri;
+    out_u[ray] = h.u;
+    out_v[ray] = h.v;
+    out_inst[ray] = ibest;
+    out_steps[ray] = steps;
+    ray = -1;
+  };
+  while (true) {
+    const unsigned idle = __ballot_sync(lanes, ray < 0);
+    if (!more && idle == lanes) break;
+    const int64_t r = fetch<kMachineRefill>(lanes, idle, lane, scratch, n_rays, more);
+    if (r >= 0) {  // a new ray, before its first round
+      ray = (int)r;
+      w = load_ray(origin, direction, r);
+      tmax0 = t_max[r];
+      h.t = tmax0;
+      h.tri = -1;
+      h.u = h.v = 0.0f;
+      steps = 0;
+      last_t = kNeg;
+      last_id = -1;
+      ibest = 0;
+      cid = -1;
+      live = active == nullptr || active[r];
     }
-    steps += h.steps + 1;
-    last_t = nt;
-    last_id = cid;
-    cid = next_instance(it, n_inst, w, tmax0, t_best, last_t, last_id, nt);
-    live = cid >= 0 && !(ANY && tri >= 0);  // any hit: the first hit occludes
+    if (ray >= 0 && cur == kTerm) {  // between two rounds
+      if (cid >= 0) {                // the round's tree is done
+        if (h.t < t0) ibest = cid;
+        ++steps;
+        last_t = nt;
+        last_id = cid;
+        cid = -1;
+      }
+      if (!live || (ANY && h.tri >= 0)) finish();  // any hit: the first hit occludes
+    }
+    // The lanes that wait for their next instance scan the table together.
+    const unsigned want = __ballot_sync(lanes, ray >= 0 && cur == kTerm);
+    const unsigned moving = __ballot_sync(lanes, cur != kTerm);
+    if (want != 0 && (moving == 0 || __popc(want) >= settle) && ((want >> lane) & 1u)) {
+      cid = next_instance(it, n_inst, w, tmax0, h.t, last_t, last_id, nt);
+      if (cid >= 0) {
+        // The world origin itself goes into object space: o + d * 0 would
+        // make a -0 coordinate +0.
+        y = instance_ray(it, cid, w.ox, w.oy, w.oz, w);
+        depth = 0;
+        cur = it.root_at(cid);
+        t0 = h.t;
+      } else {
+        finish();
+      }
+    }
+    const int s0 = steps;
+    interior_nodes<MODE, W>(rows, cur, y, h, cl, st, depth, lim, deepest, steps);
+    const int s1 = steps;
+    leaf_nodes<MODE, !ANY, W>(rows, cur, y, h, st, depth, lim, steps);
+    count_steps(lanes, s0, s1, steps, busy, slots);
   }
-  out_t[r] = t_best;
-  out_tri[r] = tri;
-  out_u[r] = u;
-  out_v[r] = v;
-  out_inst[r] = ibest;
-  out_steps[r] = steps;
+  machine_counts(lanes, lane, scratch, deepest, busy, slots);
 }
 
-// The two-level alpha rounds (tlas._two_level_alpha_pass) for one ray: a
+// The two-level alpha rounds (tlas._two_level_alpha_pass) for every ray: a
 // live ray holds a candidate instance and a window start t_lo inside it. A
-// round traverses the instance's alpha BLAS in candidate mode over
-// (t_lo, t_best); the nearest alpha surface takes its stochastic test: pass
-// records it and moves to the next instance, reject advances t_lo past it and
-// stays, no surface moves on. A ray stops after max_rounds rounds.
-// GLOBAL: the instance table in global memory (n_inst > kMaxInstances).
-template <bool CULL, bool ANY, int MAXD, int W, bool GLOBAL>
-__global__ void __launch_bounds__(128)
-alpha_machine_kernel(const float4* __restrict__ rows, const float* __restrict__ inst_box,
+// round traverses the instance's alpha BLAS in candidate mode over (t_lo,
+// t_best); the nearest alpha surface takes its stochastic test: pass records
+// it and moves to the next instance, reject advances t_lo past it and stays
+// (the next round starts at once), no surface moves on. A ray stops after
+// max_rounds rounds (rejections and instance moves alike). Closest hit with
+// culling or (ANY) any hit without: the first accepted surface occludes. A
+// lane keeps its ray's best accepted surface apart from the round's
+// traversal (h: the window's opaque and candidate slots). settle:
+// scan_batch. GLOBAL: the instance table in global memory (n_inst >
+// kMaxInstances).
+template <bool ANY, int W, bool GLOBAL>
+__global__ void __launch_bounds__(kAbThreads, kAlphaMinBlocks)
+alpha_machine_kernel(const float4* __restrict__ rows, int lim, const float* __restrict__ inst_box,
                      const float* __restrict__ inst_w2o, const int32_t* __restrict__ inst_root,
                      int n_inst, const float* __restrict__ pack, int64_t n_pack,
                      const uint8_t* __restrict__ plane, int64_t n_plane, int64_t atlas_w,
                      const float* __restrict__ origin, const float* __restrict__ direction,
                      const float* __restrict__ t_max, const uint8_t* __restrict__ active,
-                     const int64_t* __restrict__ seed_in, int64_t n_rays, int max_rounds,
-                     float* __restrict__ out_t, int32_t* __restrict__ out_tri,
-                     float* __restrict__ out_u, float* __restrict__ out_v,
-                     int32_t* __restrict__ out_inst, int64_t* __restrict__ out_seed,
-                     int32_t* __restrict__ out_steps) {
+                     const int64_t* __restrict__ seed_in, int n_rays, int max_rounds, int settle,
+                     int* __restrict__ scratch, int64_t n_slots, float* __restrict__ out_t,
+                     int32_t* __restrict__ out_tri, float* __restrict__ out_u,
+                     float* __restrict__ out_v, int32_t* __restrict__ out_inst,
+                     int64_t* __restrict__ out_seed, int32_t* __restrict__ out_steps) {
+  using M = NodeMem<W>;
   extern __shared__ float smem[];
-  const Instances<GLOBAL> it =
-      load_instances<GLOBAL>(smem, inst_box, inst_w2o, inst_root, n_inst);
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
+  __shared__ M mem;
+  float l_key[M::kListShared ? 1 : W];
+  int l_ref[M::kListShared ? 1 : W];
+  const Instances<GLOBAL> it = load_instances<GLOBAL>(smem, inst_box, inst_w2o, inst_root, n_inst);
 
-  const Ray w = load_ray(origin, direction, r);
-  const float tmax0 = t_max[r];
-  uint32_t seed = (uint32_t)seed_in[r];
-  float t_best = tmax0, u = 0.0f, v = 0.0f, last_t = kNeg, t_lo = 0.0f, nt;
-  int tri = -1, ibest = 0, steps = 0, last_id = -1;
-  int cid = next_instance(it, n_inst, w, tmax0, t_best, last_t, last_id, nt);
-  bool live = (active == nullptr || active[r]) && cid >= 0;
-  for (int round = 0; live && round < max_rounds; ++round) {
+  const unsigned lanes = __ballot_sync(0xffffffffu, true);
+  const int lane = threadIdx.x & 31;
+  const int64_t slot = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const Stack st{mem.stack + threadIdx.x, (int)blockDim.x, scratch + kScratchHead + slot, n_slots};
+  const ChildList cl = M::kListShared ? ChildList{mem.key + threadIdx.x, mem.ref + threadIdx.x,
+                                                  (int)blockDim.x}
+                                      : ChildList{l_key, l_ref, 1};
+  Ray w, y;
+  Hits h;
+  uint32_t seed = 0;
+  float tmax0 = 0.0f, t_best = 0.0f, u = 0.0f, v = 0.0f, t_lo = 0.0f, last_t = kNeg, nt = kInf;
+  int ray = -1, cur = kTerm, depth = 0, steps = 0, cid = -1, last_id = -1, ibest = 0, tri = -1;
+  int round = 0, deepest = 0;
+  unsigned busy = 0, slots = 0;
+  bool more = true, live = false;  // more: the counter may still hold rays (every lane)
+  const auto begin = [&]() {  // a round over instance cid from t_lo
     // The window start moved along the world ray, then into the instance's
     // object space.
-    const Ray y = instance_ray(it, cid, __fadd_rn(w.ox, __fmul_rn(w.dx, t_lo)),
-                               __fadd_rn(w.oy, __fmul_rn(w.dy, t_lo)),
-                               __fadd_rn(w.oz, __fmul_rn(w.dz, t_lo)), w);
-    TraceOut h;
-    trace<kCandidate, CULL, MAXD, W, false>(rows, y, fmaxf(__fsub_rn(t_best, t_lo), 0.0f),
-                                            it.root_at(cid), nullptr, 0, h);
-    const bool cand = h.tri >= 0;
-    const bool passed =
-        cand && alpha_accept(pack, n_pack, plane, n_plane, atlas_w, h.tri, h.uvu, h.uvv, seed);
-    const float t_abs = __fadd_rn(t_lo, h.t);
-    if (passed) {
-      t_best = t_abs;
-      tri = h.tri;
-      u = h.u;
-      v = h.v;
-      ibest = cid;
-    }
-    steps += h.steps + 1;
-    if (cand && !passed) {
-      t_lo = __fadd_rn(__fmul_rn(t_abs, kAdvMul), kAdvAbs);
-    } else {
-      last_t = nt;
-      last_id = cid;
+    y = instance_ray(it, cid, __fadd_rn(w.ox, __fmul_rn(w.dx, t_lo)),
+                     __fadd_rn(w.oy, __fmul_rn(w.dy, t_lo)),
+                     __fadd_rn(w.oz, __fmul_rn(w.dz, t_lo)), w);
+    h.t = h.ct = fmaxf(__fsub_rn(t_best, t_lo), 0.0f);
+    h.tri = h.ctri = -1;
+    h.u = h.v = h.cu = h.cv = h.cuvu = h.cuvv = 0.0f;
+    depth = 0;
+    cur = it.root_at(cid);
+  };
+  const auto finish = [&]() {
+    out_t[ray] = t_best;
+    out_tri[ray] = tri;
+    out_u[ray] = u;
+    out_v[ray] = v;
+    out_inst[ray] = ibest;
+    out_seed[ray] = (int64_t)seed;
+    out_steps[ray] = steps;
+    ray = -1;
+    cid = -1;
+  };
+  while (true) {
+    const unsigned idle = __ballot_sync(lanes, ray < 0);
+    if (!more && idle == lanes) break;
+    const int64_t r = fetch<kMachineRefill>(lanes, idle, lane, scratch, n_rays, more);
+    if (r >= 0) {  // a new ray, before its first round
+      ray = (int)r;
+      w = load_ray(origin, direction, r);
+      tmax0 = t_max[r];
+      seed = (uint32_t)seed_in[r];
+      t_best = tmax0;
+      u = v = 0.0f;
+      tri = -1;
+      ibest = 0;
+      steps = 0;
+      last_t = kNeg;
+      last_id = -1;
       t_lo = 0.0f;
-      cid = next_instance(it, n_inst, w, tmax0, t_best, last_t, last_id, nt);
+      round = 0;
+      cid = -1;
+      live = active == nullptr || active[r];
     }
-    live = cid >= 0 && !(ANY && tri >= 0);  // any hit: the first accepted surface occludes
+    if (ray >= 0 && cur == kTerm) {  // between two rounds
+      if (cid >= 0) {                // the round's tree is done: its candidate's test
+        const bool cand = h.ctri >= 0;
+        const bool passed =
+            cand && alpha_accept(pack, n_pack, plane, n_plane, atlas_w, h.ctri, h.cuvu, h.cuvv,
+                                 seed);
+        const float t_abs = __fadd_rn(t_lo, cand ? h.ct : kInf);
+        if (passed) {
+          t_best = t_abs;
+          tri = h.ctri;
+          u = h.cu;
+          v = h.cv;
+          ibest = cid;
+        }
+        ++steps;
+        ++round;
+        if (cand && !passed) {
+          t_lo = __fadd_rn(__fmul_rn(t_abs, kAdvMul), kAdvAbs);
+        } else {
+          last_t = nt;
+          last_id = cid;
+          t_lo = 0.0f;
+          cid = -1;
+        }
+      }
+      // Any hit: the first accepted surface occludes.
+      if (!live || round >= max_rounds || (ANY && tri >= 0)) finish();
+      else if (cid >= 0) begin();  // a rejection: the same instance again
+    }
+    // The lanes that wait for their next instance scan the table together.
+    const unsigned want = __ballot_sync(lanes, ray >= 0 && cur == kTerm);
+    const unsigned moving = __ballot_sync(lanes, cur != kTerm);
+    if (want != 0 && (moving == 0 || __popc(want) >= settle) && ((want >> lane) & 1u)) {
+      cid = next_instance(it, n_inst, w, tmax0, t_best, last_t, last_id, nt);
+      if (cid >= 0) begin();
+      else finish();
+    }
+    const int s0 = steps;
+    interior_nodes<kCandidate, W>(rows, cur, y, h, cl, st, depth, lim, deepest, steps);
+    const int s1 = steps;
+    leaf_nodes<kCandidate, !ANY, W>(rows, cur, y, h, st, depth, lim, steps);
+    count_steps(lanes, s0, s1, steps, busy, slots);
   }
-  out_t[r] = t_best;
-  out_tri[r] = tri;
-  out_u[r] = u;
-  out_v[r] = v;
-  out_inst[r] = ibest;
-  out_seed[r] = (int64_t)seed;
-  out_steps[r] = steps;
+  machine_counts(lanes, lane, scratch, deepest, busy, slots);
 }
 
 // The child order alone, one row per W lanes (a warp at W = 32, a half-warp
@@ -1021,28 +1267,6 @@ void dispatch(int mode, int cull, const Args& a, cudaStream_t s) {
     launch<kCandidate, false, MAXD, W, false>(a, s);
 }
 
-template <bool CULL, bool ANY, int MAXD>
-void launch_machine(const float* rows, const float* box, const float* w2o, const int32_t* root,
-                    int n_inst, const float* pack, int64_t n_pack, const uint8_t* plane,
-                    int64_t n_plane, int64_t atlas_w, const float* o, const float* d,
-                    const float* tmax, const uint8_t* active, const int64_t* seed, int64_t n,
-                    int max_rounds, float* t, int32_t* tri, float* u, float* v, int32_t* inst,
-                    int64_t* seed_out, int32_t* steps, cudaStream_t stream) {
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  const auto* r4 = reinterpret_cast<const float4*>(rows);
-  if (n_inst > kMaxInstances) {
-    alpha_machine_kernel<CULL, ANY, MAXD, kWidth, true><<<blocks, threads, 0, stream>>>(
-        r4, box, w2o, root, n_inst, pack, n_pack, plane, n_plane, atlas_w, o, d, tmax, active,
-        seed, n, max_rounds, t, tri, u, v, inst, seed_out, steps);
-    return;
-  }
-  const size_t smem = (size_t)n_inst * kInstWords * sizeof(float);
-  alpha_machine_kernel<CULL, ANY, MAXD, kWidth, false><<<blocks, threads, smem, stream>>>(
-      r4, box, w2o, root, n_inst, pack, n_pack, plane, n_plane, atlas_w, o, d, tmax, active,
-      seed, n, max_rounds, t, tri, u, v, inst, seed_out, steps);
-}
-
 template <bool CULL, int MAXD>
 void launch_rounds(const float* rows, const float* o, const float* d, const float* t_limit,
                    const uint8_t* active, const int64_t* seed, const float* pack, int64_t n_pack,
@@ -1056,22 +1280,60 @@ void launch_rounds(const float* rows, const float* o, const float* d, const floa
       n_plane, atlas_w, n, max_rounds, t, tri, u, v, seed_out, steps);
 }
 
-template <bool ANY, int MAXD>
-void launch_opaque(const float* rows, const float* box, const float* w2o, const int32_t* root,
-                   int n_inst, const float* o, const float* d, const float* tmax,
-                   const uint8_t* active, int64_t n, float* t, int32_t* tri, float* u, float* v,
-                   int32_t* inst, int32_t* steps, cudaStream_t stream) {
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  const auto* r4 = reinterpret_cast<const float4*>(rows);
-  if (n_inst > kMaxInstances) {
-    opaque_machine_kernel<ANY, MAXD, kWidth, true><<<blocks, threads, 0, stream>>>(
-        r4, box, w2o, root, n_inst, o, d, tmax, active, n, t, tri, u, v, inst, steps);
-    return;
-  }
-  const size_t smem = (size_t)n_inst * kInstWords * sizeof(float);
-  opaque_machine_kernel<ANY, MAXD, kWidth, false><<<blocks, threads, smem, stream>>>(
-      r4, box, w2o, root, n_inst, o, d, tmax, active, n, t, tri, u, v, inst, steps);
+// The largest instance table a machine holds in dynamic shared memory.
+constexpr int kTableBytes = kMaxInstances * kInstWords * (int)sizeof(float);
+
+// f(the opaque machine kernel of any_hit for n_inst instances, its dynamic
+// shared memory): the instance table in shared memory up to kMaxInstances,
+// the GLOBAL instantiation (none) above.
+template <class F>
+int64_t with_opaque(int any_hit, int n_inst, F f) {
+  const bool global = n_inst > kMaxInstances;
+  const size_t smem = global ? 0 : (size_t)n_inst * kInstWords * sizeof(float);
+  if (any_hit)
+    return global ? f(&opaque_machine_kernel<true, kWidth, true>, smem)
+                  : f(&opaque_machine_kernel<true, kWidth, false>, smem);
+  return global ? f(&opaque_machine_kernel<false, kWidth, true>, smem)
+                : f(&opaque_machine_kernel<false, kWidth, false>, smem);
+}
+
+// The same for the alpha machine.
+template <class F>
+int64_t with_alpha(int any_hit, int n_inst, F f) {
+  const bool global = n_inst > kMaxInstances;
+  const size_t smem = global ? 0 : (size_t)n_inst * kInstWords * sizeof(float);
+  if (any_hit)
+    return global ? f(&alpha_machine_kernel<true, kWidth, true>, smem)
+                  : f(&alpha_machine_kernel<true, kWidth, false>, smem);
+  return global ? f(&alpha_machine_kernel<false, kWidth, true>, smem)
+                : f(&alpha_machine_kernel<false, kWidth, false>, smem);
+}
+
+// Let machine kernel k take the largest instance table in dynamic shared
+// memory beside its static stack and child list (past the 48 KB a block
+// that a kernel gets without asking).
+template <class K>
+bool prepare_machine(K k) {
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kTableBytes) ==
+         cudaSuccess;
+}
+
+// Blocks of machine kernel k with `smem` bytes of dynamic shared memory that
+// reside on one SM, or -1.
+template <class K>
+int64_t machine_occupancy(K k, size_t smem) {
+  int blocks = 0;
+  if (!prepare_machine(k) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kAbThreads, smem) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// The persistent grid's blocks: the rays' blocks of kAbThreads, at most the
+// resident threads n_slots.
+inline unsigned grid_blocks(int64_t n_rays, int64_t n_slots) {
+  const int64_t need = (n_rays + kAbThreads - 1) / kAbThreads;
+  return (unsigned)(need < n_slots / kAbThreads ? need : n_slots / kAbThreads);
 }
 
 // The persistent a/b kernel of `mode` (closest with culling, any without),
@@ -1109,9 +1371,9 @@ int64_t vkrt_traverse_ab_slots(int mode) {
   return (int64_t)blocks * sms * kAbThreads;
 }
 
-// int32 words of the a/b entry's scratch for a tree with this stack bound
-// and n_slots resident threads: the head, then the stack entries past the
-// shared ones, a column per thread.
+// int32 words of a persistent entry's scratch (the a/b entry's and the
+// machines') for a tree with this stack bound and n_slots resident threads:
+// the head, then the stack entries past the shared ones, a column per thread.
 int64_t vkrt_traverse_ab_words(int stack_depth, int64_t n_slots) {
   const int deep = stack_depth > kShStack ? stack_depth - kShStack : 0;
   return kScratchHead + (int64_t)deep * n_slots;
@@ -1136,9 +1398,7 @@ int vkrt_traverse_ab(int mode, int width, const float* rows, int stack_depth,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const cudaError_t err = cudaMemsetAsync(scratch, 0, kScratchHead * sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
-  const int64_t need = (n_rays + kAbThreads - 1) / kAbThreads;
-  const int64_t blocks = need < n_slots / kAbThreads ? need : n_slots / kAbThreads;
-  k<<<(unsigned)blocks, kAbThreads, 0, s>>>(
+  k<<<grid_blocks(n_rays, n_slots), kAbThreads, 0, s>>>(
       reinterpret_cast<const float4*>(rows), origin, direction, t_max, active, (int)n_rays,
       stack_depth > 1 ? stack_depth : 1, scratch, n_slots, t, tri, u, v, steps);
   return (int)cudaGetLastError();
@@ -1208,41 +1468,67 @@ int vkrt_sort_children(const float* keys, const int32_t* refs, int64_t n, int wi
   return (int)cudaGetLastError();
 }
 
-// The two-level alpha machine over n_rays world rays, to the end of each
-// ray's rounds (at most max_rounds): closest hit with culling (cull 1,
+// Blocks of the opaque (alpha 0) or alpha (1) machine of closest hit
+// (any_hit 0) or any hit (1) for n_inst instances that reside on one SM
+// (the instance table's shared memory counted), or -1.
+int vkrt_machine_occupancy(int alpha, int any_hit, int n_inst) {
+  const auto occ = [](auto k, size_t smem) { return machine_occupancy(k, smem); };
+  return (int)(alpha ? with_alpha(any_hit, n_inst, occ) : with_opaque(any_hit, n_inst, occ));
+}
+
+// Threads of that machine that reside on the current device (its persistent
+// grid), or -1. Its scratch takes vkrt_traverse_ab_words(stack_depth, slots).
+int64_t vkrt_machine_slots(int alpha, int any_hit, int n_inst) {
+  const int blocks = vkrt_machine_occupancy(alpha, any_hit, n_inst);
+  int dev = 0, sms = 0;
+  if (blocks <= 0 || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return -1;
+  return (int64_t)blocks * sms * kAbThreads;
+}
+
+// The two-level alpha machine over n_rays world rays (< 2^31), to the end of
+// each ray's rounds (at most max_rounds): closest hit with culling (cull 1,
 // any_hit 0) or any hit without (cull 0, any_hit 1). rows: the alpha-subset
 // BLAS table (this library's width) with its stack bound; per instance (in
 // shared memory up to kMaxInstances, read from global memory above):
 // inst_box (I, 6) the alpha-subset world box (min, max), inst_w2o (I, 3, 4)
 // world to object, inst_root (I,) the BLAS root row, -1 outside the alpha
-// mask; pack (n_pack, 16) the AlphaPack rows, plane the
-// atlas alpha channel (n_plane bytes, rows atlas_w wide); seed (n_rays,)
-// uint32 values in int64. Outputs per ray: t (t_max where no surface was
-// accepted), tri (-1 then), u, v, inst, seed, steps. Returns
-// cudaGetLastError() after launch.
+// mask; pack (n_pack, 16) the AlphaPack rows, plane the atlas alpha channel
+// (n_plane bytes, rows atlas_w wide); seed (n_rays,) uint32 values in int64.
+// Persistent warps on min(n_slots, rays) threads (vkrt_machine_slots with
+// alpha 1 and this n_inst); scratch: vkrt_traverse_ab_words(stack_depth,
+// n_slots) int32 words, whose head this entry zeroes on the stream; the
+// kernel leaves the deepest stack in scratch[1] and its warps' busy node
+// steps and node-loop lane slots in scratch[2] and [3]. Outputs per ray: t
+// (t_max where no surface was accepted), tri (-1 then), u, v, inst, seed,
+// steps (nodes + 1 a round). Returns the first CUDA error.
 int vkrt_alpha_machine(int cull, int any_hit, int width, const float* rows, int stack_depth,
                        const float* inst_box, const float* inst_w2o, const int32_t* inst_root,
                        int n_inst, const float* pack, int64_t n_pack, const uint8_t* plane,
                        int64_t n_plane, int64_t atlas_w, const float* origin,
                        const float* direction, const float* t_max, const uint8_t* active,
-                       const int64_t* seed, int64_t n_rays, int max_rounds, float* t,
-                       int32_t* tri, float* u, float* v, int32_t* inst, int64_t* seed_out,
-                       int32_t* steps, void* stream) {
-  if (width != kWidth || stack_depth > 128 || n_inst < 0 || n_pack < 1 || n_plane < 1 ||
-      (cull != 0) == (any_hit != 0))
+                       const int64_t* seed, int64_t n_rays, int max_rounds, int* scratch,
+                       int64_t scratch_words, int64_t n_slots, float* t, int32_t* tri, float* u,
+                       float* v, int32_t* inst, int64_t* seed_out, int32_t* steps,
+                       void* stream) {
+  if (width != kWidth || stack_depth > vkrt_traverse_max_stack() || n_inst < 0 || n_pack < 1 ||
+      n_plane < 1 || (cull != 0) == (any_hit != 0) || n_rays >= ((int64_t)1 << 31) ||
+      n_slots < kAbThreads || scratch_words < vkrt_traverse_ab_words(stack_depth, n_slots))
     return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-#define VKRT_MACHINE(C, A, D)                                                                  \
-  launch_machine<C, A, D>(rows, inst_box, inst_w2o, inst_root, n_inst, pack, n_pack, plane,   \
-                          n_plane, atlas_w, origin, direction, t_max, active, seed, n_rays,   \
-                          max_rounds, t, tri, u, v, inst, seed_out, steps, s)
-  if (cull && stack_depth <= 64) VKRT_MACHINE(true, false, 64);
-  else if (cull) VKRT_MACHINE(true, false, 128);
-  else if (stack_depth <= 64) VKRT_MACHINE(false, true, 64);
-  else VKRT_MACHINE(false, true, 128);
-#undef VKRT_MACHINE
-  return (int)cudaGetLastError();
+  const cudaError_t err = cudaMemsetAsync(scratch, 0, kScratchHead * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  const int lim = stack_depth > 1 ? stack_depth : 1;
+  return (int)with_alpha(any_hit, n_inst, [&](auto k, size_t smem) -> int64_t {
+    if (!prepare_machine(k)) return (int64_t)cudaGetLastError();
+    k<<<grid_blocks(n_rays, n_slots), kAbThreads, smem, s>>>(
+        reinterpret_cast<const float4*>(rows), lim, inst_box, inst_w2o, inst_root, n_inst, pack,
+        n_pack, plane, n_plane, atlas_w, origin, direction, t_max, active, seed, (int)n_rays,
+        max_rounds, scan_batch(n_inst), scratch, n_slots, t, tri, u, v, inst, seed_out, steps);
+    return (int64_t)cudaGetLastError();
+  });
 }
 
 // The single-level alpha rounds over n_rays rays, each to the end of its
@@ -1275,34 +1561,39 @@ int vkrt_alpha_rounds(int cull, int width, const float* rows, int stack_depth,
   return (int)cudaGetLastError();
 }
 
-// The two-level opaque rounds over n_rays world rays, each to its last
-// instance: closest hit with culling (cull 1, any_hit 0) or any hit without
-// (cull 0, any_hit 1). rows: the BLAS table (this library's width) with its
-// stack bound; per instance (in shared memory up to kMaxInstances, read from
-// global memory above): inst_box (I, 6) the subset world box (min, max),
-// inst_w2o (I, 3, 4) world to object, inst_root (I,) the BLAS root row, -1
-// outside the pass's mask; active may be null. Outputs per ray:
-// t (t_max where nothing was hit), tri (-1 then), u, v, inst, steps. Returns
-// cudaGetLastError() after launch.
+// The two-level opaque rounds over n_rays world rays (< 2^31), each to its
+// last instance: closest hit with culling (cull 1, any_hit 0) or any hit
+// without (cull 0, any_hit 1). rows: the BLAS table (this library's width)
+// with its stack bound; per instance (in shared memory up to kMaxInstances,
+// read from global memory above): inst_box (I, 6) the subset world box (min,
+// max), inst_w2o (I, 3, 4) world to object, inst_root (I,) the BLAS root row,
+// -1 outside the pass's mask; active may be null. Persistent warps and
+// scratch as vkrt_alpha_machine's (vkrt_machine_slots with alpha 0). Outputs
+// per ray: t (t_max where nothing was hit), tri (-1 then), u, v, inst, steps
+// (nodes + 1 a round). Returns the first CUDA error.
 int vkrt_opaque_machine(int cull, int any_hit, int width, const float* rows, int stack_depth,
                         const float* inst_box, const float* inst_w2o, const int32_t* inst_root,
                         int n_inst, const float* origin, const float* direction,
-                        const float* t_max, const uint8_t* active, int64_t n_rays, float* t,
-                        int32_t* tri, float* u, float* v, int32_t* inst, int32_t* steps,
-                        void* stream) {
-  if (width != kWidth || stack_depth > 128 || n_inst < 0 || (cull != 0) == (any_hit != 0))
+                        const float* t_max, const uint8_t* active, int64_t n_rays, int* scratch,
+                        int64_t scratch_words, int64_t n_slots, float* t, int32_t* tri, float* u,
+                        float* v, int32_t* inst, int32_t* steps, void* stream) {
+  if (width != kWidth || stack_depth > vkrt_traverse_max_stack() || n_inst < 0 ||
+      (cull != 0) == (any_hit != 0) || n_rays >= ((int64_t)1 << 31) || n_slots < kAbThreads ||
+      scratch_words < vkrt_traverse_ab_words(stack_depth, n_slots))
     return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-#define VKRT_OPAQUE(A, D)                                                                      \
-  launch_opaque<A, D>(rows, inst_box, inst_w2o, inst_root, n_inst, origin, direction, t_max,  \
-                      active, n_rays, t, tri, u, v, inst, steps, s)
-  if (!any_hit && stack_depth <= 64) VKRT_OPAQUE(false, 64);
-  else if (!any_hit) VKRT_OPAQUE(false, 128);
-  else if (stack_depth <= 64) VKRT_OPAQUE(true, 64);
-  else VKRT_OPAQUE(true, 128);
-#undef VKRT_OPAQUE
-  return (int)cudaGetLastError();
+  const cudaError_t err = cudaMemsetAsync(scratch, 0, kScratchHead * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  const int lim = stack_depth > 1 ? stack_depth : 1;
+  return (int)with_opaque(any_hit, n_inst, [&](auto k, size_t smem) -> int64_t {
+    if (!prepare_machine(k)) return (int64_t)cudaGetLastError();
+    k<<<grid_blocks(n_rays, n_slots), kAbThreads, smem, s>>>(
+        reinterpret_cast<const float4*>(rows), lim, inst_box, inst_w2o, inst_root, n_inst,
+        origin, direction, t_max, active, (int)n_rays, scan_batch(n_inst), scratch, n_slots, t,
+        tri, u, v, inst, steps);
+    return (int64_t)cudaGetLastError();
+  });
 }
 
 }  // extern "C"

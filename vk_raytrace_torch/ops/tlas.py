@@ -35,9 +35,11 @@ its plain version is the round loop :func:`_wide_rounds` (:func:`_wide_pass`).
 
 On the card each pass is one kernel launch (``csrc/traverse.cu``:
 ``vkrt_opaque_machine`` for the opaque rounds, ``vkrt_alpha_machine`` for
-the alpha rounds): each thread runs its ray's rounds to the end, the
-instance table in shared memory (in global memory above ``_DENSE_I_MAX``
-instances), with no (R, I) entry table and no host sync. Their plain
+the alpha rounds): a lane of a persistent warp runs a ray's rounds to the
+end and takes the next ray, the instance table in shared memory (in global
+memory above ``_DENSE_I_MAX`` instances), with no (R, I) entry table and
+no host sync; their grid and scratch are ``traverse_fused.machine_state``'s.
+Their plain
 versions, the round loops :func:`_two_level_pass` and
 :func:`_alpha_rounds`, run the CPU tensors.
 
@@ -699,7 +701,7 @@ def _planar(accel: InstancedAccel, subset: str):
 
 def _opaque_machine_cuda(accel, subset, origin, direction, t_max, act, any_hit):
     """One launch of ``vkrt_opaque_machine``: every ray's opaque rounds, to
-    its last instance, in one thread."""
+    its last instance, in one lane of a persistent warp."""
     planar = _planar(accel, subset)
     lib = tf._load(planar.width)
     r, dev = origin.shape[0], origin.device
@@ -711,12 +713,13 @@ def _opaque_machine_cuda(accel, subset, origin, direction, t_max, act, any_hit):
     t, u, v, tri, ibest, steps = f(), f(), f(), i32(), i32(), i32()
     if r == 0:  # nothing to launch, and so nothing to count
         return t, tri.long(), u, v, ibest.long(), steps
+    scratch, slots, stream = tf.machine_state(lib, planar, dev, False, any_hit, root.shape[0])
     err = lib.vkrt_opaque_machine(
         int(not any_hit), int(bool(any_hit)), planar.width, planar.rows.data_ptr(),
         planar.stack_depth, box.data_ptr(), w2o.data_ptr(), root.data_ptr(), root.shape[0],
         origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), tf._ptr(act), r,
-        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), ibest.data_ptr(),
-        steps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        scratch.data_ptr(), scratch.numel(), slots, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
+        v.data_ptr(), ibest.data_ptr(), steps.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"opaque machine kernel launch failed: cudaError {err}")
@@ -727,8 +730,8 @@ def _opaque_machine_cuda(accel, subset, origin, direction, t_max, act, any_hit):
 def _alpha_machine_cuda(accel, pack, origin, direction, t_max, seed, act, any_hit, cull,
                         subset):
     """One launch of ``vkrt_alpha_machine``: every ray's rounds over
-    ``subset``, to the end, in one thread (closest hit with culling or any
-    hit without)."""
+    ``subset``, to the end, in one lane of a persistent warp (closest hit
+    with culling or any hit without)."""
     planar = _planar(accel, subset)
     lib = tf._load(planar.width)
     r, dev = origin.shape[0], origin.device
@@ -745,14 +748,15 @@ def _alpha_machine_cuda(accel, pack, origin, direction, t_max, seed, act, any_hi
     seed_out = torch.empty_like(seed)
     if r == 0:  # nothing to launch, and so nothing to count
         return t, tri.long(), u, v, inst.long(), seed_out, steps
+    scratch, slots, stream = tf.machine_state(lib, planar, dev, True, any_hit, n_inst)
     err = lib.vkrt_alpha_machine(
         int(bool(cull)), int(bool(any_hit)), planar.width, planar.rows.data_ptr(),
         planar.stack_depth, box.data_ptr(), w2o.data_ptr(), root.data_ptr(), n_inst,
         pack.rows.data_ptr(), pack.rows.shape[0], pack.alpha_plane.data_ptr(),
         pack.alpha_plane.numel(), pack.atlas_width, origin.data_ptr(), direction.data_ptr(),
-        t_max.data_ptr(), tf._ptr(act), seed.data_ptr(), r, _A_MAX_ROUNDS, t.data_ptr(),
-        tri.data_ptr(), u.data_ptr(), v.data_ptr(), inst.data_ptr(), seed_out.data_ptr(),
-        steps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        t_max.data_ptr(), tf._ptr(act), seed.data_ptr(), r, _A_MAX_ROUNDS, scratch.data_ptr(),
+        scratch.numel(), slots, t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
+        inst.data_ptr(), seed_out.data_ptr(), steps.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"alpha machine kernel launch failed: cudaError {err}")

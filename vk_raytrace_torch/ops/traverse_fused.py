@@ -45,7 +45,11 @@ Two more entries, each with its plain version beside it:
 The same library holds the round machines, whose wrappers live beside
 their plain loops: the single-level alpha rounds
 (``ops/traverse_alpha.py``) and the two-level opaque and alpha rounds
-(``ops/tlas.py``), each one launch per call on the card.
+(``ops/tlas.py``), each one launch per call on the card. The two-level
+machines run in persistent warps too: :func:`machine_state` gives their
+grid and scratch (shared with the a/b entries of the width),
+:func:`machine_occupancy` their resident blocks per SM, and
+``_AB_GRIDS[width].lane_steps`` what their warps counted.
 """
 
 from __future__ import annotations
@@ -402,7 +406,7 @@ def _load(width: int):
         lib.vkrt_sort_children.restype = i32
         lib.vkrt_alpha_machine.argtypes = [
             i32, i32, i32, p, i32, p, p, p, i32, p, i64, p, i64, i64, p, p, p, p, p, i64, i32,
-            p, p, p, p, p, p, p, p,
+            p, i64, i64, p, p, p, p, p, p, p, p,
         ]
         lib.vkrt_alpha_machine.restype = i32
         lib.vkrt_alpha_rounds.argtypes = [
@@ -410,9 +414,14 @@ def _load(width: int):
         ]
         lib.vkrt_alpha_rounds.restype = i32
         lib.vkrt_opaque_machine.argtypes = [
-            i32, i32, i32, p, i32, p, p, p, i32, p, p, p, p, i64, p, p, p, p, p, p, p,
+            i32, i32, i32, p, i32, p, p, p, i32, p, p, p, p, i64, p, i64, i64, p, p, p, p, p, p,
+            p,
         ]
         lib.vkrt_opaque_machine.restype = i32
+        lib.vkrt_machine_occupancy.argtypes = [i32, i32, i32]
+        lib.vkrt_machine_occupancy.restype = i32
+        lib.vkrt_machine_slots.argtypes = [i32, i32, i32]
+        lib.vkrt_machine_slots.restype = i64
         lib.vkrt_traverse_max_stack.restype = i32
         lib.vkrt_traverse_ab_occupancy.argtypes = [i32]
         lib.vkrt_traverse_ab_occupancy.restype = i32
@@ -503,11 +512,22 @@ class PersistentGrid:
             self.scratch[dev, stream] = scratch
         return scratch, slots, stream
 
+    def _head(self, device):
+        dev = cuda_device(device)
+        return self.scratch[(dev, torch.cuda.current_stream(dev).cuda_stream)][:4].tolist()
+
     def stack_reached(self, device) -> int:
         """The deepest stack a ray reached in the last call of any entry on
         ``device``'s current stream (waits for it)."""
-        dev = cuda_device(device)
-        return int(self.scratch[(dev, torch.cuda.current_stream(dev).cuda_stream)][1])
+        return self._head(device)[1]
+
+    def lane_steps(self, device):
+        """What the last call's warps counted on ``device``'s current stream,
+        where the entry counts (the two-level machines; waits for it): (the
+        lanes' node steps, the lane slots of the warps' node loops). Their
+        quotient is the share of the warps' lane-steps that do work."""
+        _, _, busy, slots = self._head(device)
+        return busy % 2**32, slots % 2**32
 
 
 def cuda_device(dev):
@@ -529,6 +549,27 @@ def ab_occupancy(width: int, mode: str) -> int:
     if blocks <= 0:
         raise RuntimeError(f"no occupancy for the {mode} kernel at width {width}")
     return blocks
+
+
+def machine_occupancy(width: int, alpha: bool, any_hit: bool, n_inst: int) -> int:
+    """Blocks of the opaque or (``alpha``) alpha machine kernel, closest or
+    any hit, for ``n_inst`` instances (the instance table in shared memory up
+    to 512) that reside on one SM of the current device."""
+    blocks = _load(width).vkrt_machine_occupancy(int(alpha), int(any_hit), n_inst)
+    if blocks <= 0:
+        raise RuntimeError(f"no occupancy for the {'alpha' if alpha else 'opaque'} machine at "
+                           f"width {width}")
+    return blocks
+
+
+def machine_state(lib, planar, dev, alpha: bool, any_hit: bool, n_inst: int):
+    """The persistent grid of a two-level machine (``alpha``: the alpha
+    machine) on ``planar``'s width: (scratch, resident threads, stream) on
+    ``dev``'s current stream, the scratch shared with the a/b entries."""
+    entry = ("alpha_machine" if alpha else "opaque_machine", int(any_hit), n_inst)
+    return _AB_GRIDS[planar.width].state(
+        dev, entry, lambda: lib.vkrt_machine_slots(int(alpha), int(any_hit), n_inst),
+        lambda slots: lib.vkrt_traverse_ab_words(planar.stack_depth, slots))
 
 
 def stack_reached(width: int, device) -> int:
