@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Time the traversal kernels of several checkouts on one GPU.
 
-    python3 chip_ab.py PARENT CHANGE CHANGE PARENT ...
+    python3 chip_ab.py [--atrium] PARENT CHANGE CHANGE PARENT ...
 
 Each argument is the root of a checkout (for example a ``git archive`` of
 the parent commit unpacked into a git-ignored directory). Each runs in its
 own process, in the order given, so alternate them. A process builds that
 checkout's kernels (``chip_smoke.build_kernels``), takes ``chip_smoke.py``'s
 phase-3 ray sets (2^18 rays on the full atrium, seed 1234) and prints, at
-row widths 16 and 32, per mode a/b/c and for the capped entry (closest hit
-stopped after 8 nodes, on the mode-a rays), the least and the median of
-three means of 50 launches (CUDA events), in ms; then the same for the two
+row widths 16 and 32, per mode a/b/c, for the capped entry (closest hit
+stopped after 8 nodes, on the mode-a rays) and for the single-level alpha
+rounds through ``traverse_alpha._rounds`` (phase 18's cases: the mode-c
+rays toward the banners, closest windowed by their opaque hit and any
+hit over the mode-b windows, 95% of rays active, with the alpha pack),
+the least and the median of three means of 50 launches (CUDA events), in
+ms; then the same for the two
 round machines (10 launches a mean) on the full bistro at widths 16 and
 32, closest hit with culling and any hit without (the opaque machine over
 the opaque subsets on 2^18 camera rays, phase 19's; the alpha machine over
@@ -25,9 +29,11 @@ rays active) and the bistro's two-level wide calls
 camera rays and on the rays toward the foliage: an opaque and an alpha
 pass each, per-round launches and host syncs where a checkout has no
 machine; 3 calls a mean). Last, a line per checkout with ptxas's report
-(registers, stack frame, spill) of each round machine and a/b
-instantiation of its traversal libraries. The card's name and power limit
-come first.
+(registers, stack frame, spill) of each round machine (the single-level
+alpha rounds too) and a/b instantiation of its traversal libraries. The
+card's name and power limit come first. ``--atrium`` times the atrium's kernels alone (modes a/b/c, the
+capped entry, the alpha rounds) and skips the bistro, the plaza and the
+wide back end.
 """
 
 import os
@@ -37,7 +43,7 @@ import sys
 REPS, ROUNDS = 50, 3
 
 
-def time_tree(tree):
+def time_tree(tree, atrium_only=False):
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     os.chdir(tree)
@@ -62,23 +68,42 @@ def time_tree(tree):
     inf = torch.full((n,), tf.INF, device=dev)
     t_short = torch.tensor(rng.uniform(0.5, 20.0, n), dtype=torch.float32, device=dev)
     oa, da = cs.rays_at(rng, geom, np.where(np.asarray(geom.tri_flags) & 2)[0], n, dev)
+    from vk_raytrace_torch import render as R
+    from vk_raytrace_torch.ops import traverse_alpha as ta
+    from vk_raytrace_torch.ops.traverse_wide import make_alpha_pack
+
+    a_sc = R.build_scene(geom, a_mats, a_lights, cam, atlas=a_atlas).to(dev)
+    a_pack = make_alpha_pack(a_sc.materials, a_sc.atlas, a_sc.geometry.tri_material)
+    r_rng = np.random.default_rng(18)  # the rounds' own draws leave the other rays as they were
+    r_seed = torch.tensor(r_rng.integers(0, 2**32, n), device=dev)
+    r_act = torch.tensor(r_rng.random(n) < 0.95, device=dev)
+
+    def rounds(planar, t_lim, cull):
+        need = r_act & (t_lim > 0.0) & tf.root_prefilter(planar, oa, da, t_lim)
+        return lambda: ta._rounds(planar, a_pack, oa, da, t_lim, r_seed, need, cull)
+
     out = []
     for width in (16, 32):
         g = build_accel_bundle(geom, width=width).to(dev)
+        t_open = tf.closest_hit_fused(g.opaque_planar, oa, da).t
         cases = {
             "closest": lambda: tf.traverse(g.opaque_planar, o, d, inf, mode="closest", cull=True),
             "any": lambda: tf.traverse(g.opaque_planar, o, d, t_short, mode="any", cull=False),
             "candidate": lambda: tf.traverse(g.alpha_planar, oa, da, inf, mode="candidate",
                                              cull=True),
             "capped8": lambda: tf.traverse_capped(g.opaque_planar, o, d, inf, 8),
+            "alpha_rounds": rounds(g.alpha_planar, t_open, True),
+            "alpha_rounds_any": rounds(g.alpha_planar, t_short, False),
         }
         for name, fn in cases.items():
             ms = [tb.cuda_time(fn, REPS) for _ in range(ROUNDS)]
             out.append(f"w{width} {name} {min(ms):.4f}/{float(np.median(ms)):.4f}")
         del g
-    from vk_raytrace_torch import render as R
+    if atrium_only:
+        print(os.path.basename(tree), " ".join(out), flush=True)
+        print(os.path.basename(tree), "ptxas:", "; ".join(machine_ptxas(tree)), flush=True)
+        return
     from vk_raytrace_torch.ops import tlas
-    from vk_raytrace_torch.ops.traverse_wide import make_alpha_pack
 
     pool, inst, mats, lights, b_cam, atlas = procedural.bistro_scene()
     bs_host = R.build_instanced_scene(pool, inst, mats, lights, b_cam, atlas=atlas)
@@ -114,8 +139,6 @@ def time_tree(tree):
 
     opq, alp = (w.to(dev) for w in bvh8.build_wide(geom))
     sparse = torch.tensor(rng.random(n) < 0.1, device=dev)
-    a_sc = R.build_scene(geom, a_mats, a_lights, cam, atlas=a_atlas).to(dev)
-    a_pack = make_alpha_pack(a_sc.materials, a_sc.atlas, a_sc.geometry.tri_material)
     wide = {
         "closest": lambda: tw.traverse_wide(opq, None, o, d, inf),
         "any": lambda: tw.traverse_wide(opq, None, o, d, t_short, any_hit=True),
@@ -191,7 +214,8 @@ def machine_ptxas(tree):
         text = open(log).read()
         for chunk in text.split("Compiling entry function '")[1:]:
             name = chunk.split("'", 1)[0]
-            if "machine_kernel" not in name and "persistent_traverse_kernel" not in name:
+            if not any(k in name for k in ("machine_kernel", "persistent_traverse_kernel",
+                                           "alpha_rounds_kernel")):
                 continue
             regs = re.search(r"Used (\d+) registers", chunk)
             frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -205,14 +229,17 @@ def machine_ptxas(tree):
 
 def main(argv):
     if argv[:1] == ["--one"]:
-        time_tree(argv[1])
+        time_tree(argv[-1], atrium_only="--atrium" in argv)
         return
-    if not argv:
+    atrium = argv[:1] == ["--atrium"]
+    trees = argv[1:] if atrium else argv
+    if not trees:
         raise SystemExit(__doc__)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    for tree in argv:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree], check=True)
+    for tree in trees:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
+                        *(["--atrium"] if atrium else []), tree], check=True)
 
 
 if __name__ == "__main__":

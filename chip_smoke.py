@@ -25,6 +25,8 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
 5. the main path: the full atrium (~217k triangles) at 1920x1080, depth 4,
    1 spp, sun&sky, one warm-up and three timed frames; modes a and b and the
    alpha rounds kernel must have launched, and the per-round mode c not;
+   the sun&sky environment built a second time equals the renderer's byte
+   for byte (image, alias table, pdfs, rows);
 6. the shading stage kernel (``vkrt_shade_stage``, the whole fused stage)
    against the plain stage (``shade_inputs`` + ``_shade_plain``) on the
    card at 2^18 lanes: the hits of atrium camera rays with random lane
@@ -82,10 +84,11 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
     kernel, the round loop (its wall and device time) and the plain loop
     timed, the bound counted from the plain run;
 18. the single-level alpha rounds kernel (``vkrt_alpha_rounds``,
-    ``ops/traverse_alpha.py``'s rounds in one launch) on the full atrium at
-    2^18 rays toward the banners, at widths 16 and 32, closest (windowed by
-    the opaque hit) and any hit: the same comparisons and times as phase 17,
-    against the round loop driving the per-round mode c;
+    ``ops/traverse_alpha.py``'s rounds in one launch, persistent warps) on
+    the full atrium at 2^18 rays toward the banners, at widths 16 and 32,
+    closest (windowed by the opaque hit) and any hit: the same comparisons
+    and times as phase 17, against the round loop driving the per-round
+    mode c;
 19. the two-level opaque machine kernel (``vkrt_opaque_machine``, the
     opaque rounds of ``ops/tlas.py`` in one launch) on the full bistro at
     2^18 camera rays, at widths 16 and 32, closest and any hit, over the
@@ -95,8 +98,8 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
 Phases 17-19 also print how each machine's rounds would spread over warps
 of a thread per ray (32 consecutive rays, the first design's grouping): the
 mean rounds per ray, the mean of each warp's most, and the share of the
-warps' lane-rounds that do work. The two-level machines run in persistent
-warps; for each of their instantiations phases 17, 19, 28 and
+warps' lane-rounds that do work. The round machines run in persistent
+warps; for each of their instantiations phases 17, 18, 19, 28 and
 30 print registers, stack frame, spill and static shared memory (ptxas),
 resident blocks per SM, the deepest stack its rays reached, the share of
 its warps' lane-steps that do work (the kernel's own counts) and the first
@@ -385,11 +388,13 @@ def scan_text(scans, n_bytes, n_ops):
             f"with them the bound {tb.bound(n_bytes, n_ops + s_ops)[0]:.4f} ms; their L1 bytes "
             f"{l1_bytes / 1e9:.2f} GB, at the memory rate "
             f"{tb.bound(n_bytes + l1_bytes, n_ops + s_ops)[0]:.3f} ms")
-# The two-level machines' first design (a thread per ray through trace<>,
-# the stack and child list in local memory) on phases 17, 19, 28 and 30's
+# The round machines' first design (a thread per ray through trace<>, the
+# stack and child list in local memory) on phases 17, 18, 19, 28 and 30's
 # rays: ms per case as this script measured it then (NVIDIA H100 80GB
 # HBM3, 700 W; PERF.md section 6). The cases it did not time are missing.
 MACHINE_FIRST_MS = {
+    "alpha_rounds": 0.392, "alpha_rounds_any": 0.264, "alpha_rounds_w32": 0.544,
+    "alpha_rounds_any_w32": 0.360,
     "alpha_machine": 8.230, "alpha_machine_any": 5.239, "alpha_machine_w32": 12.494,
     "alpha_machine_any_w32": 8.336, "opaque_machine": 0.496, "opaque_machine_any": 0.304,
     "opaque_machine_full": 1.552, "opaque_machine_w32": 0.667, "opaque_machine_any_w32": 0.373,
@@ -398,6 +403,36 @@ MACHINE_FIRST_MS = {
     "plaza alpha_machine_any": 12.630, "all-alpha plaza alpha_machine (full tables)": 16.880,
     "all-alpha plaza alpha_machine_any (full tables)": 13.800,
 }
+
+
+# The arrays of an environment that the renderer samples and reads.
+ENV_ARRAYS = ("image", "q", "alias", "pdf", "alias_pdf", "rows")
+
+
+def environment_arrays(env):
+    """An environment's tensors by name (:data:`ENV_ARRAYS`): the baked
+    image, its alias table (q, alias), the pdfs and the packed rows."""
+    a = env.accel
+    return dict(image=env.image, q=a.q, alias=a.alias, pdf=a.pdf, alias_pdf=a.alias_pdf,
+                rows=env.rows)
+
+
+def same_environment(r, scene, cfg):
+    """Renderer ``r``'s sun&sky environment against a second build of it on
+    its device (``render.prepare_sun_sky``, as the renderer builds it):
+    every array of :data:`ENV_ARRAYS` byte for byte. Returns the bytes
+    compared."""
+    from vk_raytrace_torch import render as R
+
+    mine = environment_arrays(r.scene.env)
+    again = environment_arrays(R.prepare_sun_sky(scene, cfg, r.device)[0].env)
+    n = 0
+    for k in ENV_ARRAYS:
+        a, b = (x.contiguous().view(torch.uint8) for x in (mine[k], again[k]))
+        assert mine[k].dtype == again[k].dtype and torch.equal(a, b), (
+            f"two builds of the environment differ in {k}")
+        n += a.numel()
+    return n
 
 
 def no_host_sync(run):
@@ -410,30 +445,37 @@ def no_host_sync(run):
         torch.cuda.set_sync_debug_mode("default")
 
 
-def machine_report(name, alpha, planar, any_hit, n_inst, dev):
+def machine_report(name, kind, planar, any_hit, n_inst, dev):
     """What the persistent machine's last call on ``dev``'s current stream
     shows (call it right after that call): ptxas of its instantiation
     (registers, stack frame, spill, static shared memory), its resident
-    blocks of 128 an SM with this instance table, the deepest stack its rays
-    reached against the tree's bound, the share of its warps' lane-steps that
-    did work (the kernel's own counts: the lanes' node steps over the lane
-    slots of the warps' node loops), and the first design's time
-    (:data:`MACHINE_FIRST_MS` under ``name``), as one text."""
+    blocks of 128 an SM (with this instance table), the deepest stack its
+    rays reached against the tree's bound, the share of its warps'
+    lane-steps that did work (the kernel's own counts: the lanes' node steps
+    over the lane slots of the warps' node loops), and the first design's
+    time (:data:`MACHINE_FIRST_MS` under ``name``), as one text. ``kind``:
+    False the opaque machine, True the alpha machine, ``tf.ROUNDS`` the
+    single-level alpha rounds (``any_hit``: without culling), whose warps
+    count their steps at width 16 only."""
     from vk_raytrace_torch import cuda_build
     from vk_raytrace_torch.ops import traverse_fused as tf
 
     w = planar.width
-    which = "alpha" if alpha else "opaque"
-    res = cuda_build.resources(f"traverse{w}", f"{which}_machine_kernelILb{int(any_hit)}ELi{w}ELb"
-                                               f"{int(n_inst > 512)}E")
+    if kind == tf.ROUNDS:
+        entry = f"alpha_rounds_kernelILb{int(not any_hit)}ELi{w}EE"
+    else:
+        entry = (f"{'alpha' if kind else 'opaque'}_machine_kernelILb{int(any_hit)}ELi{w}ELb"
+                 f"{int(n_inst > 512)}E")
+    res = cuda_build.resources(f"traverse{w}", entry)
     busy, slots = tf._AB_GRIDS[w].lane_steps(dev)
     first = MACHINE_FIRST_MS.get(name)
     return (f"persistent warps: {res['registers']} registers, {res['stack_frame']} B stack "
             f"frame, {res['spill_stores'] + res['spill_loads']} B spill, {res['smem']} B static "
-            f"shared, {tf.machine_occupancy(w, alpha, any_hit, n_inst)} blocks of 128 an SM; "
+            f"shared, {tf.machine_occupancy(w, kind, any_hit, n_inst)} blocks of 128 an SM; "
             f"deepest stack {tf.stack_reached(w, dev)} of the tree's {planar.stack_depth}; "
-            f"{busy / max(slots, 1):.3f} of the warps' lane-steps busy ({busy} node steps); the "
-            f"first design "
+            + (f"{busy / slots:.3f} of the warps' lane-steps busy ({busy} node steps)" if slots
+               else "its warps count no steps at this width")
+            + "; the first design "
             + (f"{first:.3f} ms" if first is not None else "not timed on these rays"))
 
 
@@ -797,6 +839,38 @@ def cloud_instances(rng, n_tris=1500, n_inst=6, width=16):
     pack = make_alpha_pack(mats, S.dummy_atlas().to("cpu"),
                            torch.as_tensor(np.asarray(pool.geometry.tri_material)).long())
     return tlas.build_instanced_accel(pool, inst, width).to("cpu"), pack
+
+
+def alpha_cloud(rng, n_tris, dev, width=16, n_rays=4099):
+    """A single-level scene whose alpha rounds go deep, for the spill of the
+    rounds kernel's stack: an alpha-blended (alpha 0.5) cloud of ``n_tris``
+    large random triangles about the unit cube, whose boxes overlap, so that
+    a ray entering it enters most child boxes of every row it meets and
+    pushes them. Returns (alpha tree, alpha pack, (origin, direction,
+    window, seed, need)) on ``dev``: ``n_rays`` rays from beside the cloud
+    into it, windows 1 to 8 long, 95% of them active."""
+    from vk_raytrace_torch.models import schema as S
+    from vk_raytrace_torch.models.builder import GeometryBuilder
+    from vk_raytrace_torch.ops.bvh8 import build_accel_bundle
+    from vk_raytrace_torch.ops.traverse_wide import make_alpha_pack
+
+    b = GeometryBuilder()
+    pos = rng.uniform(0.0, 1.0, (n_tris, 1, 3)) + rng.normal(0.0, 0.3, (n_tris, 3, 3))
+    b.add_mesh(pos.reshape(-1, 3), np.arange(3 * n_tris).reshape(-1, 3), 0,
+               uv=rng.uniform(0.0, 1.0, (3 * n_tris, 2)), alpha_mode=S.ALPHA_BLEND)
+    geom = b.build()
+    mats = S.make_materials([dict(alpha_mode=S.ALPHA_BLEND, base_color_factor=[1, 1, 1, 0.5])])
+    pack = make_alpha_pack(mats.to(dev), S.dummy_atlas().to(dev),
+                           torch.as_tensor(np.asarray(geom.tri_material), device=dev).long())
+    planar = build_accel_bundle(geom, width=width).alpha_planar.to(dev)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    o = f32(rng.uniform([-1.0, 0.0, 0.0], [-0.2, 1.0, 1.0], (n_rays, 3)))
+    d = f32(rng.normal([1.0, 0.0, 0.0], 0.3, (n_rays, 3)))
+    d = (d / d.norm(dim=1, keepdim=True)).contiguous()
+    rays = (o, d, f32(rng.uniform(1.0, 8.0, n_rays)),
+            torch.tensor(rng.integers(0, 2**32, n_rays), dtype=torch.int64, device=dev),
+            torch.tensor(rng.random(n_rays) < 0.95, device=dev))
+    return planar, pack, rays
 
 
 def camera_rays(cam, w, h, n, rng, dev):
@@ -1263,7 +1337,7 @@ def warp_steps(nodes):
 
 
 def machine_case(name, planar, kernel, loop, key, loop_key, exact, work_bytes_ops, card,
-                 report=None):
+                 report=None, round_steps=1):
     """A round machine kernel (``kernel()``, one launch of ``key``) against
     its round loop driving the per-round kernel (``loop()``, launches of
     ``loop_key``) and against the fully plain round loop (``loop(trav=the
@@ -1276,9 +1350,11 @@ def machine_case(name, planar, kernel, loop, key, loop_key, exact, work_bytes_op
     (operations, L1 bytes) or None, printed beside the bound) from the plain
     run, which also gives the rounds per warp (a thread per ray, 32
     consecutive rays a warp: the first design's grouping). ``report`` (the
-    persistent two-level machines), called right after the kernel's first
-    call, gives the kernel's own line (:func:`machine_report`); the pass
-    then runs once more under torch's sync debug mode (no host sync inside).
+    persistent machines), called right after the kernel's first call, gives
+    the kernel's own line (:func:`machine_report`); the pass then runs once
+    more under torch's sync debug mode (no host sync inside).
+    ``round_steps``: the steps each round adds to the plain steps (the last
+    output) beside its nodes.
     Returns ((max |err|, (ms, plain_ms), bound), the per-round kernel's
     launches in one round-loop call)."""
     import chip_profile
@@ -1334,9 +1410,9 @@ def machine_case(name, planar, kernel, loop, key, loop_key, exact, work_bytes_op
     bnd = tb.bound(n_bytes, n_ops)
     mean_r, warp_max, used = warp_rounds(rounds)
     scan_note = "" if scans is None else "; " + scan_text(scans, n_bytes, n_ops)
-    if report is not None:  # the plain steps (the last output) count + 1 a round
+    if report is not None:
         own += (f"; a thread-per-ray warp's lane-steps busy at most "
-                f"{warp_steps(plain[-1] - rounds):.3f}")
+                f"{warp_steps(plain[-1] - round_steps * rounds):.3f}")
     print(f"{name}: {n} rays, {int(rounds.sum())} rounds ({mean_r:.2f} per ray; a thread per "
           f"ray: the warps' most {warp_max:.2f} on average, {used:.3f} of their lane-rounds used; at most "
           f"{int(rounds.max())}), {cands[0]} candidates, hit {float((kern[1] >= 0).float().mean()):.4f}; "
@@ -1381,9 +1457,10 @@ def alpha_machine_case(name, acc, pack, o, d, t_max, seed, act, any_hit, card):
 
 
 def alpha_rounds_case(name, planar, pack, o, d, t_lim, seed, act, cull, card):
-    """Phase 18: the single-level alpha rounds kernel on these rays, with the
-    window the caller gives them (``traverse_alpha._alpha_rounds``: active,
-    a window past 0 and the root prefilter); see :func:`machine_case`.
+    """Phase 18: the single-level alpha rounds kernel (persistent warps) on
+    these rays, with the window the caller gives them
+    (``traverse_alpha._alpha_rounds``: active, a window past 0 and the root
+    prefilter); see :func:`machine_case`; its own line (:func:`machine_report`).
     Bound: ROUNDS_* per ray and round, MACHINE_CAND_* per candidate, each
     distinct alpha row, and the rounds' nodes."""
     from vk_raytrace_torch import travbench as tb
@@ -1404,7 +1481,9 @@ def alpha_rounds_case(name, planar, pack, o, d, t_lim, seed, act, cull, card):
     return machine_case(
         name, planar, lambda: ta._rounds(*args), lambda **kw: ta._rounds_core(*args, **kw),
         tf.launch_key("alpha_rounds", planar.width), tf.launch_key("candidate", planar.width),
-        (1, 4, 5), work, card)
+        (1, 4, 5), work, card,
+        report=lambda: machine_report(name, tf.ROUNDS, planar, not cull, 0, o.device),
+        round_steps=0)
 
 
 def opaque_machine_case(name, acc, subset, o, d, t_max, act, any_hit, card):
@@ -2728,6 +2807,9 @@ def main():
     print(f"atrium 1080p d4 1spp: {s_frame:.4f} s/frame, {mrays:.4f} Mrays/s, "
           f"peak {peak_mb:.1f} MiB allocated, mean radiance {img.mean():.4f}; "
           f"build s: {build_txt} [{card}]", flush=True)
+    env_bytes = same_environment(r, scene, cfg)
+    print(f"the sun&sky environment built again on the card: its {env_bytes} bytes (image, "
+          f"alias table, pdfs, rows) equal the renderer's", flush=True)
 
     # ---- 6. the stage kernel vs the plain stage on the card ----------------
     phase("shade stage vs plain")

@@ -523,50 +523,68 @@ def _predict(p, ra, rb, rc):
     return (ra + rb) >> 1
 
 
-def lossless_jpeg(img, predictor, pt=0, restart=0, ids=(1, 2, 3), app=b"") -> bytes:
-    """A lossless (SOF3) JPEG of an (H, W) or (H, W, C) uint8 image, every
-    component sampled 1x1, interleaved in one scan: ``predictor`` 1-7,
-    point transform ``pt``, ``restart`` interval in MCUs (a restart
-    interval of whole rows, as libjpeg needs)."""
+def lossless_jpeg(img, predictor, pt=0, restart=0, ids=(1, 2, 3), app=b"", sampling=None) -> bytes:
+    """A lossless (SOF3) JPEG of an (H, W) or (H, W, C) uint8 image,
+    interleaved in one scan: ``predictor`` 1-7, point transform ``pt``,
+    ``restart`` interval in MCUs (a restart interval of whole MCU rows, as
+    libjpeg needs). ``sampling``: each component's (h, v) factors (default
+    1x1 each); a component sampled below the largest factors takes every
+    (hmax / h)-th column and (vmax / v)-th row of its channel, and an
+    interleaved MCU codes h x v samples of it, the samples past the
+    component's edge (T.81 A.2.4's dummy data units) repeating its last
+    column and row."""
     img = np.asarray(img, np.int64)
     if img.ndim == 2:
         img = img[..., None]
     h, w, nc = img.shape
-    x = img >> pt
+    sampling = [(1, 1)] * nc if sampling is None else list(sampling)
+    hmax = max(f[0] for f in sampling)
+    vmax = max(f[1] for f in sampling)
+    mcux, mcuy = (w + hmax - 1) // hmax, (h + vmax - 1) // vmax
+    if nc == 1:  # a one-component scan codes the component's own samples
+        mcux, mcuy, hmax, vmax, sampling = w, h, 1, 1, [(1, 1)]
+    planes = []
+    for c, (hs, vs) in enumerate(sampling):
+        cw, ch = (w * hs + hmax - 1) // hmax, (h * vs + vmax - 1) // vmax
+        plane = (img[:, :, c] >> pt)[::vmax // vs, ::hmax // hs][:ch, :cw]
+        planes.append(np.pad(plane, ((0, mcuy * vs - ch), (0, mcux * hs - cw)), mode="edge"))
     codes = dict(zip(_LL_SYMS, _huff_table(_LL_COUNTS)))
     dht = b""
     for t in range(nc):
         dht += _seg(0xC4, bytes([t]) + bytes(_LL_COUNTS) + bytes(_LL_SYMS))
     out = b"\xff\xd8" + app
-    out += _sof(0xC3, w, h, [(ids[c] if nc > 1 else 1, 1, 1, 0) for c in range(nc)]) + dht
+    out += _sof(0xC3, w, h, [(ids[c] if nc > 1 else 1, *sampling[c], 0) for c in range(nc)]) + dht
     if restart:
         out += _seg(0xDD, struct.pack(">H", restart))
     out += _sos([(ids[c] if nc > 1 else 1, c, 0) for c in range(nc)], predictor, 0, 0, pt)
     bits = _Bits()
     data = b""
-    first_row = 0
+    first_row = 0  # the MCU row that starts the restart interval
     n_mcu = 0
-    for yy in range(h):
-        for xx in range(w):
+    for my in range(mcuy):
+        for mx in range(mcux):
             if restart and n_mcu and n_mcu % restart == 0:
                 data += bits.flush() + bytes([0xFF, 0xD0 + ((n_mcu // restart - 1) & 7)])
-                first_row = yy
+                first_row = my
             n_mcu += 1
-            for c in range(nc):
-                if yy == first_row:
-                    pred = (1 << (8 - pt - 1)) if xx == 0 else x[yy, xx - 1, c]
-                elif xx == 0:
-                    pred = x[yy - 1, xx, c]
-                else:
-                    pred = _predict(predictor, x[yy, xx - 1, c], x[yy - 1, xx, c],
-                                    x[yy - 1, xx - 1, c])
-                diff = int(x[yy, xx, c] - pred) & 0xFFFF
-                if diff >= 0x8000:
-                    diff -= 0x10000
-                ssss = 16 if diff == -32768 else int(abs(diff)).bit_length()
-                code, length = codes[ssss]
-                bits.put(code, length)
-                if 0 < ssss < 16:
-                    bits.put(diff if diff > 0 else diff + (1 << ssss) - 1, ssss)
+            for c, (hs, vs) in enumerate(sampling):
+                x = planes[c]
+                for yy in range(my * vs, my * vs + vs):
+                    for xx in range(mx * hs, mx * hs + hs):
+                        if yy == first_row * vs:
+                            pred = (1 << (8 - pt - 1)) if xx == 0 else x[yy, xx - 1]
+                        elif xx == 0:
+                            pred = x[yy - 1, xx]
+                        else:
+                            pred = _predict(predictor, x[yy, xx - 1], x[yy - 1, xx],
+                                            x[yy - 1, xx - 1])
+                        diff = int(x[yy, xx] - pred) & 0xFFFF
+                        if diff >= 0x8000:
+                            diff -= 0x10000
+                        ssss = 16 if diff == -32768 else int(abs(diff)).bit_length()
+                        code, length = codes[ssss]
+                        bits.put(code, length)
+                        if 0 < ssss < 16:
+                            bits.put(diff if diff > 0 else diff + (1 << ssss) - 1, ssss)
     data += bits.flush()
     return out + data + b"\xff\xd9"

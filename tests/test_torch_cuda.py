@@ -7,8 +7,10 @@ The traversal kernel against its plain twin (CPU) for modes a/b/c on the
 reduced atrium with banners and, with per-lane roots, on the small bistro's
 subset tables, at row widths 16 and 32; the child sort, the capped and
 no-gather entries and the two-level alpha machine against their plain
-versions (exact), the single-level alpha rounds and the two-level opaque
-machine against their round loops (exact on tri/inst/seed/steps); the
+versions (exact), the single-level alpha rounds (their stack's spill
+on ``chip_smoke.alpha_cloud`` too) and the two-level opaque
+machine against their round loops (exact on tri/inst/seed/steps); two
+builds of the sun&sky environment on the card, byte for byte; the
 persistent mode a/b entry on the full atrium at both widths (bit for bit,
 steps included), its occupancy and ptxas report, and its scratch reused
 across calls; the whole shading stage kernel and the body alone
@@ -430,6 +432,44 @@ def test_alpha_rounds_kernel_matches_round_loop(scene, width, kind):
     assert tf.LAUNCHES[key] == before[key] + 1
     ck = tf.launch_key("candidate", width)
     assert tf.LAUNCHES[ck] == before[ck]
+
+
+@pytest.mark.parametrize("width", tf.WIDTHS)
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_alpha_rounds_spill_matches_round_loop(width, kind):
+    """The single-level rounds kernel's stack spill: ``chip_smoke.
+    alpha_cloud`` (an alpha tree whose rays push past the sixteen shared
+    stack entries a thread) against the round loop on the CPU: tri, seed
+    and steps exact, t/u/v within rtol 1e-5 / atol 1e-6; the deepest stack
+    past the shared entries."""
+    _need_cuda()
+    import chip_smoke
+    from vk_raytrace_torch.ops import traverse_alpha as ta
+
+    planar, pack, rays = chip_smoke.alpha_cloud(np.random.default_rng(43), 1500, "cpu",
+                                                width=width)
+    cull = kind == "closest"
+    plain = ta._rounds_core(planar, pack, *rays, cull)
+    kern = ta._rounds(planar.to("cuda"), _pack_to(pack, "cuda"), *(x.to("cuda") for x in rays),
+                      cull)
+    torch.cuda.synchronize()
+    _cpu_and_cuda_outputs_equal(kern, plain, (1, 4, 5), f"cloud w{width} {kind}")
+    assert 16 < tf.stack_reached(width, "cuda") <= planar.stack_depth
+    assert (plain[1] >= 0).any()
+
+
+def test_environment_builds_equal_on_card():
+    """Two builds of the atrium's sun&sky environment on the card (as
+    ``Renderer`` builds it, ``render.prepare_sun_sky``): the baked image,
+    the alias table, the pdfs and the packed rows byte for byte."""
+    _need_cuda()
+    import chip_smoke
+
+    geom, mats, lights, cam, atlas = procedural.atrium_scene(**SMALL_ATRIUM)
+    scene = R.build_scene(geom, mats, lights, cam, atlas=atlas)
+    cfg = RenderConfig(width=64, height=48, use_sun_sky=True)
+    r = R.Renderer(scene, cfg, device="cuda")
+    assert chip_smoke.same_environment(r, scene, cfg) > 0
 
 
 @pytest.mark.parametrize("width", tf.WIDTHS)

@@ -11,7 +11,8 @@ Pillow cannot write come from the small encoders of
 ``tests/jpeg_encoders.py``, Pillow's decoding of the same bytes the judge:
 arithmetic-coded sequential and progressive frames (with restart intervals
 and DAC conditioning) and lossless frames (every predictor, point
-transforms, restarts). The forms Pillow rejects (hierarchical frames,
+transforms, restarts, components sampled 1x1 or above, which Pillow
+upsamples by repetition). The forms Pillow rejects (hierarchical frames,
 arithmetic lossless, 12- and 16-bit samples, lossless YCbCr and YCCK)
 raise in the reference (which decodes through Pillow) and in the port,
 naming the image. The
@@ -257,6 +258,26 @@ def test_lossless_jpeg_matches_pil(predictor, chans):
     px = _pixels(21, 17, 3, predictor)
     img = px[..., 0] if chans == 1 else px
     _check(enc.lossless_jpeg(img, predictor, pt=predictor % 3, restart=21 * (predictor % 3)))
+
+
+# Sampling factors of a lossless frame's three components.
+LOSSLESS_SAMPLING = {"2x1": ((2, 1), (1, 1), (1, 1)), "2x2": ((2, 2), (1, 1), (1, 1)),
+                     "1x2": ((1, 2), (1, 1), (1, 1)), "chroma_2x2": ((1, 1), (2, 2), (2, 2))}
+
+
+@pytest.mark.parametrize("predictor", (1, 4, 7))
+@pytest.mark.parametrize("sampling", sorted(LOSSLESS_SAMPLING))
+def test_subsampled_lossless_jpeg_matches_pil(predictor, sampling):
+    """Lossless frames (SOF3) whose components are sampled above 1x1, as
+    Pillow decodes them (each subsampled component's samples repeated):
+    sizes that leave partial MCUs and whole ones, a point transform, and a
+    restart interval of whole MCU rows."""
+    factors = LOSSLESS_SAMPLING[sampling]
+    hmax, vmax = (max(f[k] for f in factors) for k in (0, 1))
+    for w, h, pt, rows in ((21, 17, 0, 0), (20, 16, predictor % 3, 2), (3, 2, 1, 1)):
+        img = _pixels(w, h, 3, predictor + w)
+        restart = rows * -(-w // hmax)
+        _check(enc.lossless_jpeg(img, predictor, pt=pt, restart=restart, sampling=factors))
 
 
 @pytest.mark.parametrize("variant", ("adobe", "no_adobe", "ycck", "progressive_ycck"))

@@ -14,7 +14,7 @@ last modules (the viewer over HTTP, ``parallel/sharding.py`` through
 and the JPEG decoder through the CLI on ``tests/assets/jpeg_textures.glb``),
 also without Pillow; and, statically, that no import
 statement of the package or of the chip scripts (``chip_smoke.py``,
-``chip_ab.py``, ``chip_profile.py``) names JAX or the JAX package, and that
+``chip_ab.py``, ``chip_profile.py``, ``chip_repro.py``) names JAX or the JAX package, and that
 the chip scripts import without them."""
 
 import ast
@@ -318,7 +318,7 @@ def _jax_imports(path):
     return [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "vk_raytrace_tpu")]
 
 
-CHIP_SCRIPTS = ("chip_smoke.py", "chip_ab.py", "chip_profile.py")
+CHIP_SCRIPTS = ("chip_smoke.py", "chip_ab.py", "chip_profile.py", "chip_repro.py")
 
 
 @pytest.mark.parametrize("where", ("vk_raytrace_torch",) + CHIP_SCRIPTS)

@@ -8,6 +8,16 @@ through the port's own ctypes wrapper, and held against the plain twin
 32: t, tri, u, v and steps bit for bit. A build with two shared stack
 entries runs the global spill. Skips where g++ is missing.
 
+The single-level alpha rounds (``vkrt_alpha_rounds``, persistent warps)
+through the same host libraries: ``traverse_alpha._alpha_rounds_cuda``
+against the round loop ``traverse_alpha._rounds_core`` on rays toward the
+atrium's banners, each build, closest (culling) and any (none), with the
+alpha pack and without (every candidate passes): t, tri, u, v, seed and
+steps bit for bit; the deepest stack, the warps' step counts, the scratch
+reused, zero rays, a deep alpha cloud past the sixteen shared entries, the
+24-round cap on a stack of 30 rejecting panels, and the refusal of a
+scratch too small.
+
 Also the rank formula of a child order in registers (each hit child's rank
 the number of hits j with key_j < key_i, or key_j == key_i and j < i: how
 ``sort_children_kernel`` ranks, and the a/b entry's first design, which
@@ -25,10 +35,16 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from vk_raytrace_torch import cuda_build
+from vk_raytrace_torch import render as R
 from vk_raytrace_torch.models import procedural
+from vk_raytrace_torch.models import schema as S
+from vk_raytrace_torch.models.builder import GeometryBuilder
+from vk_raytrace_torch.ops import traverse_alpha as ta
 from vk_raytrace_torch.ops import traverse_fused as tf
 from vk_raytrace_torch.ops.bvh8 import build_accel_bundle
+from vk_raytrace_torch.ops.traverse_wide import make_alpha_pack
 
 SHIM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_host_shim")
 SMALL_ATRIUM = dict(bays_x=2, bays_z=2, column_segments=16, column_rows=12)
@@ -93,10 +109,15 @@ def host_kernel(host_libs, monkeypatch):
 
 
 @pytest.fixture(scope="module")
-def atrium():
-    geom = procedural.atrium_scene(**SMALL_ATRIUM)[0]
-    return geom, {w: build_accel_bundle(geom, width=w).opaque_planar.to("cpu")
-                  for w in tf.WIDTHS}
+def atrium_bundles():
+    scene = procedural.atrium_scene(**SMALL_ATRIUM)
+    return scene, {w: build_accel_bundle(scene[0], width=w).to("cpu") for w in tf.WIDTHS}
+
+
+@pytest.fixture(scope="module")
+def atrium(atrium_bundles):
+    (geom, *_), bundles = atrium_bundles
+    return geom, {w: b.opaque_planar for w, b in bundles.items()}
 
 
 def _rays(geom, seed):
@@ -223,3 +244,164 @@ def test_child_rank_matches_insertion(width):
         # child the ray misses.
         hit = (keys < np.float32(np.inf)) & (rng.random(width) < 0.7)
         assert _rank_order(keys, hit) == _insertion_order(keys, hit), keys
+
+
+# ---------------------------------------------------------------------------
+# The single-level alpha rounds (vkrt_alpha_rounds)
+# ---------------------------------------------------------------------------
+
+N_BANNER_RAYS = 2048
+ROUNDS_OUT = ("t", "tri", "u", "v", "seed", "steps")
+
+
+@pytest.fixture(scope="module")
+def banners(atrium_bundles):
+    """The atrium's alpha trees and alpha pack, and rays from inside the
+    scene toward random points of its banners (the alpha-tested
+    triangles), windows 1 to 40 long, 95% of them active, a seed each."""
+    (geom, mats, lights, cam, atlas), bundles = atrium_bundles
+    small = R.build_scene(geom, mats, lights, cam, atlas=atlas).to("cpu")
+    pack = make_alpha_pack(small.materials, small.atlas, small.geometry.tri_material)
+    rng = np.random.default_rng(17)
+    o, d = chip_smoke.rays_at(rng, geom, np.where(np.asarray(geom.tri_flags) & 2)[0],
+                              N_BANNER_RAYS, "cpu")
+    t_lim = torch.tensor(rng.uniform(1.0, 40.0, N_BANNER_RAYS), dtype=torch.float32)
+    seed = torch.tensor(rng.integers(0, 2**32, N_BANNER_RAYS), dtype=torch.int64)
+    need = torch.tensor(rng.random(N_BANNER_RAYS) < 0.95)
+    return {w: b.alpha_planar for w, b in bundles.items()}, pack, (o, d, t_lim, seed, need)
+
+
+def _check_rounds(planar, pack, rays, cull, what):
+    """The kernel (one launch) against the round loop: every output bit for
+    bit. Returns both."""
+    key = tf.launch_key("alpha_rounds", planar.width)
+    before = tf.LAUNCHES[key]
+    kern = ta._alpha_rounds_cuda(planar, pack, *rays, cull)
+    assert tf.LAUNCHES[key] == before + 1
+    loop = ta._rounds_core(planar, pack, *rays, cull)
+    for k, name in enumerate(ROUNDS_OUT):
+        assert _same_bits(kern[k], loop[k]), f"{what}: {name} differs from the round loop"
+    return kern, loop
+
+
+@pytest.mark.parametrize("with_pack", [True, False], ids=["pack", "null_pack"])
+@pytest.mark.parametrize("kind", ["closest", "any"])
+@pytest.mark.parametrize("name", [b[0] for b in BUILDS])
+def test_host_alpha_rounds_match_loop(host_kernel, banners, name, kind, with_pack):
+    """Every ray's rounds in one launch against the loop, bit for bit; the
+    deepest stack within the alpha tree's bound (past the two shared
+    entries in the spill build); at width 16, on the host's one-lane warps,
+    every lane slot busy, one node step for each of the loop's (which count
+    nodes only; width 32 counts none); the scratch reused by the next call,
+    with the same result."""
+    planars, pack, rays = banners
+    width = dict((b[0], b[1]) for b in BUILDS)[name]
+    planar = planars[width]
+    host_kernel(name)
+    pk = pack if with_pack else None
+    kern, loop = _check_rounds(planar, pk, rays, kind == "closest", f"{name} {kind}")
+    assert 0.05 < float((loop[1] >= 0).float().mean()) < 0.99
+    seed = rays[3]
+    assert torch.equal(kern[4], seed) if pk is None else bool((kern[4] != seed).any())
+    deepest = tf.stack_reached(width, "cpu")
+    assert 0 < deepest <= planar.stack_depth
+    if name.endswith("spill"):
+        assert deepest > 2
+    busy, slots = tf._AB_GRIDS[width].lane_steps("cpu")
+    assert busy == slots == (int(loop[5].sum()) if width == 16 else 0)
+    again = ta._alpha_rounds_cuda(planar, pk, *rays, kind == "closest")
+    assert all(_same_bits(a, b) for a, b in zip(kern, again))
+
+
+def test_host_alpha_rounds_zero_rays_and_refusals(host_kernel, banners):
+    """No ray: no launch and empty outputs. The C entry refuses a scratch
+    too small for the tree, 2^31 rays and a pack without its plane."""
+    planars, pack, (o, d, t_lim, seed, need) = banners
+    host_kernel("w16")
+    planar = planars[16]
+    key = tf.launch_key("alpha_rounds", 16)
+    before = tf.LAUNCHES[key]
+    none = ta._alpha_rounds_cuda(planar, pack, o[:0], d[:0], t_lim[:0], seed[:0], need[:0], True)
+    assert tf.LAUNCHES[key] == before and all(x.numel() == 0 for x in none)
+    lib = tf._load(16)
+    slots = lib.vkrt_machine_slots(tf.ROUNDS, 0, 0)
+    assert slots > 0 and lib.vkrt_machine_occupancy(tf.ROUNDS, 1, 0) > 0
+    words = lib.vkrt_traverse_ab_words(planar.stack_depth, slots)
+    n = 8
+    out = [torch.empty(n, dtype=dt) for dt in (torch.float32, torch.int32, torch.float32,
+                                               torch.float32, torch.int64, torch.int32)]
+    args = lambda scratch, n_rays, n_plane: (  # noqa: E731
+        1, 16, planar.rows.data_ptr(), planar.stack_depth, o.data_ptr(), d.data_ptr(),
+        t_lim.data_ptr(), None, seed.data_ptr(), pack.rows.data_ptr(), pack.rows.shape[0],
+        pack.alpha_plane.data_ptr(), n_plane, pack.atlas_width, n_rays, ta._MAX_ROUNDS,
+        scratch.data_ptr(), scratch.numel(), slots, *(x.data_ptr() for x in out), None)
+    plane = pack.alpha_plane.numel()
+    small = torch.zeros(words - 1, dtype=torch.int32)
+    enough = torch.zeros(words, dtype=torch.int32)
+    assert lib.vkrt_alpha_rounds(*args(small, n, plane)) != 0
+    assert lib.vkrt_alpha_rounds(*args(enough, 2**31, plane)) != 0
+    assert lib.vkrt_alpha_rounds(*args(enough, n, 0)) != 0
+    assert lib.vkrt_alpha_rounds(*args(enough, n, plane)) == 0
+
+
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_host_alpha_rounds_deep_cloud(host_kernel, kind):
+    """``chip_smoke.alpha_cloud`` (a single-level alpha tree whose rays
+    push past the sixteen shared stack entries) with the card's layout:
+    bit for bit against the loop, the deepest stack past 16."""
+    rng = np.random.default_rng(41)
+    planar, pack, rays = chip_smoke.alpha_cloud(rng, 1024, "cpu")
+    host_kernel("w16")
+    _, loop = _check_rounds(planar, pack, rays, kind == "closest", f"cloud {kind}")
+    assert (loop[1] >= 0).any()
+    assert 16 < tf.stack_reached(16, "cpu") <= planar.stack_depth
+
+
+STACK = 30  # opacity-0 panels above an alpha-1 one: more than the cap
+
+
+def _quad(z, r=2.0):
+    return np.asarray([[-r, -r, z], [r, -r, z], [r, r, z], [-r, r, z]], float)
+
+
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_host_alpha_rounds_cap_each_ray_at_24(host_kernel, kind):
+    """``tests/test_torch_machines.py``'s stack through the kernel: an
+    opaque backstop at z = 0, an alpha-1 BLEND panel at z = 1 and ``STACK``
+    opacity-0 ones above it, rays straight down from z = 10. Every active
+    ray rejects one panel a round and stops after exactly 24 rounds with
+    nothing accepted, its seed advanced by 24 PCG steps; inactive rays keep
+    their seeds and count no step; bit for bit against the loop."""
+    quad = np.asarray([[0, 1, 2], [0, 2, 3]])
+    b = GeometryBuilder()
+    b.add_mesh(_quad(0.0, 10.0), quad, 0)
+    b.add_mesh(_quad(1.0), quad, 1, alpha_mode=S.ALPHA_BLEND)
+    for k in range(STACK):
+        b.add_mesh(_quad(1.2 + 0.2 * k), quad, 2, alpha_mode=S.ALPHA_BLEND)
+    geom = b.build()
+    mats = S.make_materials([
+        dict(base_color_factor=[0.5, 0.5, 0.5, 1.0]),
+        dict(base_color_factor=[1.0, 1.0, 1.0, 1.0], alpha_mode=S.ALPHA_BLEND),
+        dict(base_color_factor=[1.0, 1.0, 1.0, 0.0], alpha_mode=S.ALPHA_BLEND),
+    ]).to("cpu")
+    pack = make_alpha_pack(mats, S.dummy_atlas().to("cpu"),
+                           torch.as_tensor(np.asarray(geom.tri_material)).long())
+    planar = build_accel_bundle(geom).to("cpu").alpha_planar
+    g = np.random.default_rng(81)
+    n = 40
+    o = torch.tensor(np.stack([g.uniform(-1.5, 1.5, n), g.uniform(-1.5, 1.5, n),
+                               np.full(n, 10.0)], -1), dtype=torch.float32)
+    d = torch.tensor([[0.0, 0.0, -1.0]]).repeat(n, 1)
+    seed = torch.tensor(g.integers(0, 2**32, n), dtype=torch.int64)
+    act = torch.tensor(g.random(n) < 0.9)
+    host_kernel("w16")
+    kern, _ = _check_rounds(planar, pack, (o, d, torch.full((n,), 10.0), seed, act),
+                            kind == "closest", f"stack {kind}")
+    assert not (kern[1] >= 0).any()
+    s = seed.numpy().astype(np.uint64)
+    for _ in range(ta._MAX_ROUNDS):
+        s = (s * 747796405 + 2891336453) & 0xFFFFFFFF
+    a = act.numpy()
+    np.testing.assert_array_equal(kern[4].numpy()[a], s.astype(np.int64)[a])
+    np.testing.assert_array_equal(kern[4].numpy()[~a], seed.numpy()[~a])
+    assert (kern[5][~act] == 0).all() and (kern[5][act] > 0).all()

@@ -157,8 +157,11 @@ int64_t png_unfilter(const uint8_t* raw, int64_t h, int64_t stride, int64_t bpp,
 //                                        G), DAC conditioning; it fills the
 //                                        same coefficients
 //   lossless, Huffman (SOF3)             jdlhuff.c / jdpred.c: predictors
-//                                        1-7, point transform, every
-//                                        component sampled 1x1
+//                                        1-7, point transform, any integer
+//                                        sampling (an interleaved MCU codes
+//                                        h x v samples of a component), no
+//                                        fancy upsampling (libjpeg-turbo
+//                                        turns it off for a lossless frame)
 //   the integer IDCT                     jidctint.c jpeg_idct_islow
 //   the upsampling                       jdsample.c h2v1 / h1v2 / h2v2 fancy
 //                                        (box below 3 columns), int_upsample
@@ -174,7 +177,7 @@ namespace jpeg {
 
 enum Err : int64_t {
   kOk = 0, kTruncated = 1, kNoFrame = 2, kBadSof = 3, kBadTable = 4, kBadScan = 5,
-  kSampling = 6, kSize = 7, kLosslessSampling = 8,
+  kSampling = 6, kSize = 7,
 };
 
 // T.81 Table D.2 as jaricom.c packs it: Qe << 16 | next index after an MPS
@@ -292,9 +295,9 @@ struct Comp {
   int id = 0, h = 1, v = 1, tq = 0, td = 0, ta = 0;
   bool latched = false;
   uint16_t quant[64] = {};  // natural order
-  int64_t bw = 0, bh = 0;   // blocks allocated (whole MCUs)
+  int64_t bw = 0, bh = 0;   // blocks (lossless: samples) allocated, whole MCUs
   std::vector<int16_t> coef;
-  std::vector<int32_t> samples;  // lossless frames: the undifferenced samples
+  std::vector<int32_t> samples;  // lossless frames: the undifferenced samples, bw x bh
   int dc = 0, ctx = 0;           // DC prediction; arithmetic DC context
 };
 
@@ -605,18 +608,15 @@ int64_t jpeg_decode(const uint8_t* d, int64_t n, int64_t ycc, uint8_t* out, int6
         hmax = std::max(hmax, comps[c].h);
         vmax = std::max(vmax, comps[c].v);
       }
-      if (lossless) {  // a sample per block
-        if (hmax != 1 || vmax != 1) return kLosslessSampling;
-        for (Comp& c : comps) c.samples.assign(size_t(w * h), 0);
-      } else {
-        mcux = (w + 8 * hmax - 1) / (8 * hmax);
-        mcuy = (h + 8 * vmax - 1) / (8 * vmax);
-        for (Comp& c : comps) {
-          if (hmax % c.h || vmax % c.v) return kSampling;
-          c.bw = mcux * c.h;
-          c.bh = mcuy * c.v;
-          c.coef.assign(size_t(c.bw * c.bh * 64), 0);
-        }
+      const int du = lossless ? 1 : 8;  // a data unit's side: a lossless block is a sample
+      mcux = (w + du * hmax - 1) / (du * hmax);
+      mcuy = (h + du * vmax - 1) / (du * vmax);
+      for (Comp& c : comps) {
+        if (hmax % c.h || vmax % c.v) return kSampling;
+        c.bw = mcux * c.h;
+        c.bh = mcuy * c.v;
+        if (lossless) c.samples.assign(size_t(c.bw * c.bh), 0);
+        else c.coef.assign(size_t(c.bw * c.bh * 64), 0);
       }
       frame = true;
     } else if (m == 0xDA) {  // SOS: one scan's entropy-coded data follows
@@ -870,22 +870,21 @@ int64_t jpeg_decode(const uint8_t* d, int64_t n, int64_t ycc, uint8_t* out, int6
       // (not whole MCUs); an interleaved scan codes whole MCUs. A lossless
       // scan's block is one sample.
       int64_t nx = mcux, ny = mcuy;
-      if (lossless) {
-        nx = w;
-        ny = h;
-      } else if (ns == 1) {
+      if (ns == 1) {
         const Comp& c = *sc[0];
-        nx = ((w * c.h + hmax - 1) / hmax + 7) / 8;
-        ny = ((h * c.v + vmax - 1) / vmax + 7) / 8;
+        const int du = lossless ? 1 : 8;
+        nx = ((w * c.h + hmax - 1) / hmax + du - 1) / du;
+        ny = ((h * c.v + vmax - 1) / vmax + du - 1) / du;
       }
       Bits b{d, n, pos};
       Arith ar{d, n, pos};
       if (arith) reset_stats();
       int64_t todo = ri;
-      // Lossless prediction state: the first sample of an interval takes
-      // 2^(7 - Pt), the rest of its first line the left neighbour.
-      bool first_sample = true;
-      int64_t first_line = 0;
+      // Lossless prediction state (per component, jddiffct.c / jdpred.c):
+      // the first sample of an interval takes 2^(7 - Pt), the rest of the
+      // component's first line in the interval the left neighbour, the
+      // first column below it the sample above.
+      int64_t first_line = 0;  // the MCU row that starts the interval
       for (int64_t my = 0; my < ny; ++my) {
         for (int64_t mx = 0; mx < nx; ++mx) {
           if (ri && todo == 0) {  // jdhuff.c / jdarith.c process_restart
@@ -903,49 +902,45 @@ int64_t jpeg_decode(const uint8_t* d, int64_t n, int64_t ycc, uint8_t* out, int6
             for (Comp* c : sc) c->dc = 0;
             eobrun = 0;
             todo = ri;
-            first_sample = true;
             first_line = my;
           }
           for (Comp* c : sc) {
-            if (kind == kLossless) {  // jdlhuff.c decode_mcus, jdpred.c
-              const int t = decode_sym(b, dc[c->td]);
-              const int diff = t == 16 ? 32768 : (t ? extend(b.get(t), t) : 0);
-              int32_t* px = c->samples.data();
-              const int64_t i = my * w + mx;
-              int pred;
-              if (first_sample) {
-                pred = 1 << (7 - al);
-              } else if (my == first_line) {
-                pred = px[i - 1];
-              } else if (mx == 0) {
-                pred = px[i - w];
-              } else {
-                const int ra = px[i - 1], rb = px[i - w], rc = px[i - w - 1];
-                switch (ss) {
-                  case 1: pred = ra; break;
-                  case 2: pred = rb; break;
-                  case 3: pred = rc; break;
-                  case 4: pred = ra + rb - rc; break;
-                  case 5: pred = ra + ((rb - rc) >> 1); break;
-                  case 6: pred = rb + ((ra - rc) >> 1); break;
-                  default: pred = (ra + rb) >> 1; break;
-                }
-              }
-              px[i] = (pred + diff) & 0xFFFF;
-              continue;
-            }
             const int bh = ns == 1 ? 1 : c->v, bwn = ns == 1 ? 1 : c->h;
             for (int by = 0; by < bh; ++by) {
               for (int bx = 0; bx < bwn; ++bx) {
                 const int64_t gx = ns == 1 ? mx : mx * c->h + bx;
                 const int64_t gy = ns == 1 ? my : my * c->v + by;
+                if (kind == kLossless) {  // jdlhuff.c decode_mcus, jdpred.c
+                  const int t = decode_sym(b, dc[c->td]);
+                  const int diff = t == 16 ? 32768 : (t ? extend(b.get(t), t) : 0);
+                  const int64_t sw = c->bw;
+                  int32_t* px = c->samples.data() + gy * sw + gx;
+                  int pred;
+                  if (gy == first_line * bh) {
+                    pred = gx == 0 ? 1 << (7 - al) : px[-1];
+                  } else if (gx == 0) {
+                    pred = px[-sw];
+                  } else {
+                    const int ra = px[-1], rb = px[-sw], rc = px[-sw - 1];
+                    switch (ss) {
+                      case 1: pred = ra; break;
+                      case 2: pred = rb; break;
+                      case 3: pred = rc; break;
+                      case 4: pred = ra + rb - rc; break;
+                      case 5: pred = ra + ((rb - rc) >> 1); break;
+                      case 6: pred = rb + ((ra - rc) >> 1); break;
+                      default: pred = (ra + rb) >> 1; break;
+                    }
+                  }
+                  *px = (pred + diff) & 0xFFFF;
+                  continue;
+                }
                 int16_t* blk = c->coef.data() + (gy * c->bw + gx) * 64;
                 if (arith) ablock(ar, c, blk);
                 else block(b, c, blk);
               }
             }
           }
-          first_sample = false;
           if (ri) --todo;
         }
       }
@@ -968,8 +963,12 @@ int64_t jpeg_decode(const uint8_t* d, int64_t n, int64_t ycc, uint8_t* out, int6
   std::vector<std::vector<uint8_t>> planes(nc);
   for (int ci = 0; ci < nc; ++ci) {
     Comp& c = comps[ci];
-    if (lossless) {
-      planes[ci].assign(c.samples.begin(), c.samples.end());
+    if (lossless) {  // int_upsample / h2v1 / h2v2 plain: each sample repeated
+      const int fx = hmax / c.h, fy = vmax / c.v;
+      planes[ci].resize(size_t(w * h));
+      for (int64_t y = 0; y < h; ++y)
+        for (int64_t x = 0; x < w; ++x)
+          planes[ci][y * w + x] = uint8_t(c.samples[(y / fy) * c.bw + x / fx]);
       continue;
     }
     const int64_t stride = c.bw * 8;

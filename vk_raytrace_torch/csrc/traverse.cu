@@ -1,10 +1,10 @@
 // BVH traversal over planar rows of width W = 16 or 32. Modes a and b from
-// the root (the main path's closest-hit and shadow rays) and the two-level
-// round machines run in persistent warps with the stack in shared memory
-// (vkrt_traverse_ab, vkrt_opaque_machine, vkrt_alpha_machine: see "Modes a
-// and b from the root" and "The round machines" below); every other entry
-// runs trace<>, a thread per launched ray with a full-depth stack in local
-// memory.
+// the root (the main path's closest-hit and shadow rays) and the round
+// machines run in persistent warps with the stack in shared memory
+// (vkrt_traverse_ab, vkrt_alpha_rounds, vkrt_opaque_machine,
+// vkrt_alpha_machine: see "Modes a and b from the root" and "The round
+// machines" below); every other entry runs trace<>, a thread per launched
+// ray with a full-depth stack in local memory.
 //
 // Replaces the TPU step kernel vk_raytrace_tpu/ops/traverse_fused.py
 // (_make_step_kernel, launched once per traversal step by _step). That
@@ -39,12 +39,13 @@
 //   vkrt_traverse_ab: modes a and b from the root, persistent warps;
 //   vkrt_alpha_rounds, vkrt_opaque_machine, vkrt_alpha_machine: the round
 //     machines (see "The round machines" below), each a host loop of
-//     traversal rounds run whole in one launch: the single-level alpha
-//     candidate rounds of ops/traverse_alpha.py (a thread per ray through
-//     trace<>), and the two-level opaque and alpha rounds of ops/tlas.py
-//     (persistent warps; instance enumeration in entry order over the
-//     instance table, the ray transform, the traversal of the instance's BLAS
-//     by the a/b entry's node code and, for alpha, the stochastic test);
+//     traversal rounds run whole in one launch, in persistent warps on the
+//     a/b entry's node code: the single-level alpha candidate rounds of
+//     ops/traverse_alpha.py (each round from the alpha tree's root, then
+//     the stochastic test), and the two-level opaque and alpha rounds of
+//     ops/tlas.py (instance enumeration in entry order over the instance
+//     table, the ray transform, the traversal of the instance's BLAS and,
+//     for alpha, the stochastic test);
 //   vkrt_sort_children: the child order of interior rows alone (the
 //     counterpart of the TPU kernel's bitonic network _bitonic, which the
 //     reference unit-tests through its own pallas_call, tests/test_fused.py),
@@ -62,7 +63,7 @@
 // to within a few ulp and child order and leaf tie-breaks are the twin's.
 //
 // One library per row width: the wrapper builds this file twice, with
-// -DVKRT_WIDTH=16 and -DVKRT_WIDTH=32, in parallel (each holds 24 kernels).
+// -DVKRT_WIDTH=16 and -DVKRT_WIDTH=32, in parallel (each holds 22 kernels).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -411,6 +412,29 @@ __device__ __forceinline__ bool enters_root(const Ray& y, const float (&rmin)[3]
   return (tn0 <= tf0) && (tf0 >= 0.0f) && (tn0 < tmax);
 }
 
+// The persistent entries' copy of the root's union box in shared memory:
+// thread 0 of the block writes it to s_root (min xyz, max xyz); the block
+// syncs before reading it.
+template <int W>
+__device__ __forceinline__ void share_root_box(const float4* __restrict__ rows, float* s_root) {
+  if (threadIdx.x == 0) {
+    float rmin[3], rmax[3];
+    root_union<W>(rows, rmin, rmax);
+    for (int k = 0; k < 3; ++k) {
+      s_root[k] = rmin[k];
+      s_root[3 + k] = rmax[k];
+    }
+  }
+}
+
+// enters_root against the shared box.
+__device__ __forceinline__ bool enters_shared_root(const Ray& y, const float* s_root,
+                                                   float tmax) {
+  const float rmin[3] = {s_root[0], s_root[1], s_root[2]};
+  const float rmax[3] = {s_root[3], s_root[4], s_root[5]};
+  return enters_root(y, rmin, rmax, tmax);
+}
+
 // One ray from setup to its outputs.
 template <int MODE, bool CULL, int MAXD, int W, bool CAPPED>
 __global__ void __launch_bounds__(128)
@@ -651,14 +675,7 @@ persistent_traverse_kernel(const float4* __restrict__ rows, const float* __restr
   __shared__ int sh_ref[kListShared ? W * kAbThreads : 1];
   float l_key[kListShared ? 1 : W];
   int l_ref[kListShared ? 1 : W];
-  if (threadIdx.x == 0) {
-    float rmin[3], rmax[3];
-    root_union<W>(rows, rmin, rmax);
-    for (int k = 0; k < 3; ++k) {
-      s_root[k] = rmin[k];
-      s_root[3 + k] = rmax[k];
-    }
-  }
+  share_root_box<W>(rows, s_root);
   __syncthreads();
 
   const unsigned lanes = __ballot_sync(0xffffffffu, true);
@@ -685,9 +702,7 @@ persistent_traverse_kernel(const float4* __restrict__ rows, const float* __restr
       h.u = h.v = 0.0f;
       steps = 0;
       depth = 0;
-      const float rmin[3] = {s_root[0], s_root[1], s_root[2]};
-      const float rmax[3] = {s_root[3], s_root[4], s_root[5]};
-      const bool go = enters_root(y, rmin, rmax, h.t) && (active == nullptr || active[r]);
+      const bool go = enters_shared_root(y, s_root, h.t) && (active == nullptr || active[r]);
       cur = go ? 0 : kTerm;
     }
     interior_nodes<MODE, W>(rows, cur, y, h, cl, st, depth, lim, deepest, steps);
@@ -712,8 +727,7 @@ persistent_traverse_kernel(const float4* __restrict__ rows, const float* __restr
 // device-side loop over the whole batch:
 //   alpha_rounds_kernel: the single-level alpha candidate rounds
 //     (ops/traverse_alpha.py _rounds_core; the reference's rounds reach the
-//     step kernel through vk_raytrace_tpu/ops/traverse_alpha.py:128), one
-//     thread per ray through trace<>;
+//     step kernel through vk_raytrace_tpu/ops/traverse_alpha.py:128);
 //   opaque_machine_kernel: the two-level opaque rounds, modes a and b with
 //     per-lane roots (ops/tlas.py _two_level_pass; the reference's rounds at
 //     vk_raytrace_tpu/ops/tlas.py:495-505);
@@ -739,22 +753,26 @@ persistent_traverse_kernel(const float4* __restrict__ rows, const float* __restr
 // traverse_common.cuh, which the wide back end's machine (traverse_wide.cu)
 // shares.
 //
-// The two-level machines run in persistent warps, as vkrt_traverse_ab (their
-// first design ran a thread per ray through trace<>, which made a warp wait
-// for its slowest ray's last round): a lane whose ray has ended takes a new
-// one from the counter; a lane keeps its ray's state between rounds, and its
-// round ends where the round's BLAS traversal does, inside the warp's
-// interior and leaf loops (interior_nodes, leaf_nodes: the node code of the
-// a/b entry, with mode c's candidate slot); before the warp's next node step
-// the lane settles the round (the alpha test, the window advance) and starts
-// its next round or writes its outputs; a lane that needs its next instance
-// waits until enough lanes of its warp do (scan_batch), so that their scans
-// of the table run together. The stack, and at width 16 the child list, lie
-// in shared memory beside the instance table.
+// All three run in persistent warps, as vkrt_traverse_ab (their first
+// design ran a thread per ray through trace<>, with a full-depth stack in
+// local memory, which made a warp wait for its slowest ray's last round): a
+// lane whose ray has ended takes a new one from the counter; a lane keeps
+// its ray's state between rounds, and its round ends where the round's
+// traversal does, inside the warp's interior and leaf loops
+// (interior_nodes, leaf_nodes: the node code of the a/b entry, with mode
+// c's candidate slot); before the warp's next node step the lane settles
+// the round (the alpha test, the window advance) and starts its next round
+// or writes its outputs; in the two-level machines a lane
+// that needs its next instance waits until enough lanes of its warp do
+// (scan_batch), so that their scans of the table run together. The stack,
+// and at width 16 the child list, lie in shared memory (beside the instance
+// table in the two-level machines; beside the root's union box in the
+// single-level rounds, which start every round at the root).
 // Every arithmetic step is the first design's, in its order, so every output
 // is the same bit for bit; which lane carries a ray never changes its result.
 // Each warp also counts its node steps, for the share of its lanes' steps
-// that do work (scratch words 2 and 3, machine_counts below).
+// that do work (scratch words 2 and 3, machine_counts below; the
+// single-level rounds at width 16 only).
 // ---------------------------------------------------------------------------
 
 constexpr float kAlphaMask = 1.0f;  // models/schema.py ALPHA_MASK
@@ -813,75 +831,6 @@ __device__ __forceinline__ bool alpha_accept(const float* __restrict__ pack, int
   return __fmul_rn((float)(bits >> 9), 1.0f / 8388608.0f) <= opacity;
 }
 
-// The single-level alpha rounds (traverse_alpha._rounds_core) for one ray:
-// round after round, the candidate traversal of the alpha tree from its root
-// over the window (t_lo, t_limit), then the stochastic test of the nearest
-// candidate (with a null pack every candidate passes and nothing is drawn).
-// Pass records it and stops, reject advances t_lo just past it and goes round
-// again, no candidate stops. A ray stops after max_rounds rounds.
-template <bool CULL, int MAXD, int W>
-__global__ void __launch_bounds__(128)
-alpha_rounds_kernel(const float4* __restrict__ rows, const float* __restrict__ origin,
-                    const float* __restrict__ direction, const float* __restrict__ t_limit,
-                    const uint8_t* __restrict__ active, const int64_t* __restrict__ seed_in,
-                    const float* __restrict__ pack, int64_t n_pack,
-                    const uint8_t* __restrict__ plane, int64_t n_plane, int64_t atlas_w,
-                    int64_t n_rays, int max_rounds, float* __restrict__ out_t,
-                    int32_t* __restrict__ out_tri, float* __restrict__ out_u,
-                    float* __restrict__ out_v, int64_t* __restrict__ out_seed,
-                    int32_t* __restrict__ out_steps) {
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
-
-  const Ray w = load_ray(origin, direction, r);
-  const float tlim = t_limit[r];
-  const int64_t seed0 = seed_in[r];
-  uint32_t seed = (uint32_t)seed0;
-  bool drew = false;
-  float rmin[3], rmax[3];
-  root_union<W>(rows, rmin, rmax);
-  float t_lo = 0.0f, t = kInf, u = 0.0f, v = 0.0f;
-  int tri = -1, steps = 0;
-  bool live = active == nullptr || active[r];
-  for (int round = 0; live && round < max_rounds; ++round) {
-    // The window start moved along the ray (o + d * t_lo, in torch's order;
-    // the direction and its reciprocal stay), the window end clamped at 0 as
-    // torch.clamp does it (NaN stays NaN, where fmaxf would give 0).
-    Ray y = w;
-    y.ox = __fadd_rn(w.ox, __fmul_rn(w.dx, t_lo));
-    y.oy = __fadd_rn(w.oy, __fmul_rn(w.dy, t_lo));
-    y.oz = __fadd_rn(w.oz, __fmul_rn(w.dz, t_lo));
-    const float left = __fsub_rn(tlim, t_lo);
-    const float win = left < 0.0f ? 0.0f : left;
-    TraceOut h;
-    trace<kCandidate, CULL, MAXD, W, false>(rows, y, win,
-                                            enters_root(y, rmin, rmax, win) ? 0 : kTerm, nullptr,
-                                            0, h);
-    const bool cand = h.tri >= 0;
-    bool passed = cand;
-    if (cand && pack != nullptr) {
-      passed = alpha_accept(pack, n_pack, plane, n_plane, atlas_w, h.tri, h.uvu, h.uvv, seed);
-      drew = true;
-    }
-    const float t_abs = __fadd_rn(t_lo, h.t);
-    if (passed) {
-      t = t_abs;
-      tri = h.tri;
-      u = h.u;
-      v = h.v;
-    }
-    steps += h.steps;
-    live = cand && !passed;
-    if (live) t_lo = __fadd_rn(__fmul_rn(t_abs, kAdvMul), kAdvAbs);
-  }
-  out_t[r] = t;
-  out_tri[r] = tri;
-  out_u[r] = u;
-  out_v[r] = v;
-  out_seed[r] = drew ? (int64_t)seed : seed0;
-  out_steps[r] = steps;
-}
-
 // Resident blocks of 128 an SM that __launch_bounds__ asks of the machines
 // (registers: 65536 / (128 * blocks)); the instance table's shared memory may
 // hold fewer. Measured on the H100 (chip_ab.py, PERF.md section 6): the
@@ -894,6 +843,14 @@ constexpr int kAlphaMinBlocks = 3;
 // at 8 on every machine case but the plaza's any-hit alpha pass, 1-2%
 // slower; 4 as for the wide entries).
 constexpr int kMachineRefill = 4;
+// The single-level alpha rounds: resident blocks of 128 an SM, and the idle
+// lanes at which a warp fetches rays. Measured on the H100 (chip_ab.py,
+// PERF.md section 6): 3 blocks (164-168 registers; no spill at width 16)
+// ran 7-10% faster than 4 (128, 584-1096 B spill) and 30-50% faster than
+// 5; 2 ran as fast as 3 at width 16 and 5% slower at width 32; a refill
+// at 8 idle lanes within 1% of 4.
+constexpr int kRoundsMinBlocks = 3;
+constexpr int kRoundsRefill = 4;
 // Instances of the table for each lane that waits for an instance scan
 // (scan_batch below). Measured on the H100 (chip_ab.py, PERF.md section 6):
 // with every lane scanning as soon as its round ended, the plaza's alpha
@@ -1189,6 +1146,137 @@ alpha_machine_kernel(const float4* __restrict__ rows, int lim, const float* __re
   machine_counts(lanes, lane, scratch, deepest, busy, slots);
 }
 
+// The single-level alpha rounds (traverse_alpha._rounds_core) for every ray:
+// round after round, the candidate traversal of the alpha tree from its root
+// over the window (t_lo, t_limit), then the stochastic test of the nearest
+// candidate (with a null pack every candidate passes and nothing is drawn).
+// Pass records it and ends the ray, reject advances t_lo just past it and
+// starts the next round at once, no candidate ends the ray; so does the
+// max_rounds-th round. A lane keeps its ray's state between rounds: the world
+// origin (ox, oy, oz; the round's ray y shares its direction), the window end
+// tlim and start t_lo, the round count, the best accepted surface and the
+// seed; its round ends inside the warp's node loops and is settled (the test,
+// the advance) after them, before the warp's next node step. `going`: a
+// round is under way (cur == kTerm alone cannot tell a round that just ended
+// from one that never entered the root). The warps count their node steps
+// at width 16 (machine_counts; at width 32 scratch words 2 and 3 stay 0).
+template <bool CULL, int W>
+__global__ void __launch_bounds__(kAbThreads, kRoundsMinBlocks)
+alpha_rounds_kernel(const float4* __restrict__ rows, int lim, const float* __restrict__ origin,
+                    const float* __restrict__ direction, const float* __restrict__ t_limit,
+                    const uint8_t* __restrict__ active, const int64_t* __restrict__ seed_in,
+                    const float* __restrict__ pack, int64_t n_pack,
+                    const uint8_t* __restrict__ plane, int64_t n_plane, int64_t atlas_w,
+                    int n_rays, int max_rounds, int* __restrict__ scratch, int64_t n_slots,
+                    float* __restrict__ out_t, int32_t* __restrict__ out_tri,
+                    float* __restrict__ out_u, float* __restrict__ out_v,
+                    int64_t* __restrict__ out_seed, int32_t* __restrict__ out_steps) {
+  using M = NodeMem<W>;
+  __shared__ M mem;
+  __shared__ float s_root[6];
+  float l_key[M::kListShared ? 1 : W];
+  int l_ref[M::kListShared ? 1 : W];
+  share_root_box<W>(rows, s_root);
+  __syncthreads();
+
+  const unsigned lanes = __ballot_sync(0xffffffffu, true);
+  const int lane = threadIdx.x & 31;
+  const int64_t slot = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const Stack st{mem.stack + threadIdx.x, (int)blockDim.x, scratch + kScratchHead + slot, n_slots};
+  const ChildList cl = M::kListShared ? ChildList{mem.key + threadIdx.x, mem.ref + threadIdx.x,
+                                                  (int)blockDim.x}
+                                      : ChildList{l_key, l_ref, 1};
+  Ray y;
+  Hits h;
+  int64_t seed0 = 0;
+  uint32_t seed = 0;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, tlim = 0.0f, t_lo = 0.0f, t_best = kInf, u = 0.0f,
+        v = 0.0f;
+  int ray = -1, cur = kTerm, depth = 0, steps = 0, tri = -1, round = 0, deepest = 0;
+  unsigned busy = 0, slots = 0;
+  bool more = true, going = false, drew = false;  // more: the counter may hold rays (every lane)
+  const auto begin = [&]() {  // a round from t_lo
+    // The window start moved along the ray (o + d * t_lo, in torch's order;
+    // the direction and its reciprocal stay), the window end clamped at 0 as
+    // torch.clamp does it (NaN stays NaN, where fmaxf would give 0).
+    y.ox = __fadd_rn(ox, __fmul_rn(y.dx, t_lo));
+    y.oy = __fadd_rn(oy, __fmul_rn(y.dy, t_lo));
+    y.oz = __fadd_rn(oz, __fmul_rn(y.dz, t_lo));
+    const float left = __fsub_rn(tlim, t_lo);
+    const float win = left < 0.0f ? 0.0f : left;
+    h.t = h.ct = win;
+    h.tri = h.ctri = -1;
+    h.u = h.v = h.cu = h.cv = h.cuvu = h.cuvv = 0.0f;
+    depth = 0;
+    cur = enters_shared_root(y, s_root, win) ? 0 : kTerm;
+    going = true;
+  };
+  const auto finish = [&]() {
+    out_t[ray] = t_best;
+    out_tri[ray] = tri;
+    out_u[ray] = u;
+    out_v[ray] = v;
+    out_seed[ray] = drew ? (int64_t)seed : seed0;
+    out_steps[ray] = steps;
+    ray = -1;
+    going = false;
+  };
+  while (true) {
+    const unsigned idle = __ballot_sync(lanes, ray < 0);
+    if (!more && idle == lanes) break;
+    const int64_t r = fetch<kRoundsRefill>(lanes, idle, lane, scratch, n_rays, more);
+    if (r >= 0) {  // a new ray: its first round
+      ray = (int)r;
+      y = load_ray(origin, direction, r);
+      ox = y.ox;
+      oy = y.oy;
+      oz = y.oz;
+      tlim = t_limit[r];
+      seed0 = seed_in[r];
+      seed = (uint32_t)seed0;
+      drew = false;
+      t_lo = 0.0f;
+      t_best = kInf;
+      u = v = 0.0f;
+      tri = -1;
+      steps = 0;
+      round = 0;
+      if ((active == nullptr || active[r]) && max_rounds > 0) begin();
+      else finish();
+    }
+    const int s0 = steps;
+    interior_nodes<kCandidate, W>(rows, cur, y, h, cl, st, depth, lim, deepest, steps);
+    const int s1 = steps;
+    leaf_nodes<kCandidate, CULL, W>(rows, cur, y, h, st, depth, lim, steps);
+    // The warps' step counts, at width 16 only: at width 32 they cost the
+    // kernel 2% (chip_ab.py), at 16 under 2%.
+    if (W == 16) count_steps(lanes, s0, s1, steps, busy, slots);
+    if (going && cur == kTerm) {  // the round's tree is done: its candidate's test
+      const bool cand = h.ctri >= 0;
+      bool passed = cand;
+      if (cand && pack != nullptr) {
+        passed = alpha_accept(pack, n_pack, plane, n_plane, atlas_w, h.ctri, h.cuvu, h.cuvv, seed);
+        drew = true;
+      }
+      const float t_abs = __fadd_rn(t_lo, cand ? h.ct : kInf);
+      if (passed) {
+        t_best = t_abs;
+        tri = h.ctri;
+        u = h.cu;
+        v = h.cv;
+      }
+      ++round;
+      if (cand && !passed && round < max_rounds) {
+        t_lo = __fadd_rn(__fmul_rn(t_abs, kAdvMul), kAdvAbs);
+        begin();
+      } else {
+        finish();
+      }
+    }
+  }
+  machine_counts(lanes, lane, scratch, deepest, busy, slots);
+}
+
 // The child order alone, one row per W lanes (a warp at W = 32, a half-warp
 // at W = 16): lane i loads child i, so a row's keys and refs are one
 // coalesced access each. A hit's rank is the number of hits before it in
@@ -1267,19 +1355,6 @@ void dispatch(int mode, int cull, const Args& a, cudaStream_t s) {
     launch<kCandidate, false, MAXD, W, false>(a, s);
 }
 
-template <bool CULL, int MAXD>
-void launch_rounds(const float* rows, const float* o, const float* d, const float* t_limit,
-                   const uint8_t* active, const int64_t* seed, const float* pack, int64_t n_pack,
-                   const uint8_t* plane, int64_t n_plane, int64_t atlas_w, int64_t n,
-                   int max_rounds, float* t, int32_t* tri, float* u, float* v, int64_t* seed_out,
-                   int32_t* steps, cudaStream_t stream) {
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  alpha_rounds_kernel<CULL, MAXD, kWidth><<<blocks, threads, 0, stream>>>(
-      reinterpret_cast<const float4*>(rows), o, d, t_limit, active, seed, pack, n_pack, plane,
-      n_plane, atlas_w, n, max_rounds, t, tri, u, v, seed_out, steps);
-}
-
 // The largest instance table a machine holds in dynamic shared memory.
 constexpr int kTableBytes = kMaxInstances * kInstWords * (int)sizeof(float);
 
@@ -1307,6 +1382,11 @@ int64_t with_alpha(int any_hit, int n_inst, F f) {
                   : f(&alpha_machine_kernel<true, kWidth, false>, smem);
   return global ? f(&alpha_machine_kernel<false, kWidth, true>, smem)
                 : f(&alpha_machine_kernel<false, kWidth, false>, smem);
+}
+
+// The single-level alpha rounds kernel with (cull) or without backface culling.
+inline auto rounds_kernel(int cull) -> decltype(&alpha_rounds_kernel<true, kWidth>) {
+  return cull ? &alpha_rounds_kernel<true, kWidth> : &alpha_rounds_kernel<false, kWidth>;
 }
 
 // Let machine kernel k take the largest instance table in dynamic shared
@@ -1468,18 +1548,27 @@ int vkrt_sort_children(const float* keys, const int32_t* refs, int64_t n, int wi
   return (int)cudaGetLastError();
 }
 
-// Blocks of the opaque (alpha 0) or alpha (1) machine of closest hit
-// (any_hit 0) or any hit (1) for n_inst instances that reside on one SM
-// (the instance table's shared memory counted), or -1.
-int vkrt_machine_occupancy(int alpha, int any_hit, int n_inst) {
+// Blocks that reside on one SM, or -1, of a round machine of `kind`: 0 the
+// opaque machine, 1 the alpha machine, of closest hit (any_hit 0) or any hit
+// (1) for n_inst instances (the instance table's shared memory counted); 2
+// the single-level alpha rounds with culling (any_hit 0) or without (1),
+// n_inst unused.
+int vkrt_machine_occupancy(int kind, int any_hit, int n_inst) {
+  if (kind == 2) {
+    int blocks = 0;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rounds_kernel(!any_hit),
+                                                         kAbThreads, 0) == cudaSuccess
+               ? blocks
+               : -1;
+  }
   const auto occ = [](auto k, size_t smem) { return machine_occupancy(k, smem); };
-  return (int)(alpha ? with_alpha(any_hit, n_inst, occ) : with_opaque(any_hit, n_inst, occ));
+  return (int)(kind ? with_alpha(any_hit, n_inst, occ) : with_opaque(any_hit, n_inst, occ));
 }
 
 // Threads of that machine that reside on the current device (its persistent
 // grid), or -1. Its scratch takes vkrt_traverse_ab_words(stack_depth, slots).
-int64_t vkrt_machine_slots(int alpha, int any_hit, int n_inst) {
-  const int blocks = vkrt_machine_occupancy(alpha, any_hit, n_inst);
+int64_t vkrt_machine_slots(int kind, int any_hit, int n_inst) {
+  const int blocks = vkrt_machine_occupancy(kind, any_hit, n_inst);
   int dev = 0, sms = 0;
   if (blocks <= 0 || cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
@@ -1531,33 +1620,41 @@ int vkrt_alpha_machine(int cull, int any_hit, int width, const float* rows, int 
   });
 }
 
-// The single-level alpha rounds over n_rays rays, each to the end of its
-// rounds (at most max_rounds): rows, the alpha tree (this library's width)
-// with its stack bound; t_limit (n_rays,) the window ends; active may be null;
-// seed (n_rays,) uint32 values in int64. pack (n_pack, 16) the AlphaPack rows
-// and plane the atlas alpha channel (n_plane bytes, rows atlas_w wide), or a
-// null pack: every candidate passes and no seed moves. cull: backface culling
-// of the candidates. Outputs per ray: t (1e32 where no surface was accepted),
-// tri (-1 then), u, v, seed, steps (nodes over all rounds). Returns
-// cudaGetLastError() after launch.
+// The single-level alpha rounds over n_rays rays (< 2^31), each to the end
+// of its rounds (at most max_rounds): rows, the alpha tree (this library's
+// width) with its stack bound; t_limit (n_rays,) the window ends; active may
+// be null; seed (n_rays,) uint32 values in int64. pack (n_pack, 16) the
+// AlphaPack rows and plane the atlas alpha channel (n_plane bytes, rows
+// atlas_w wide), or a null pack: every candidate passes and no seed moves.
+// cull: backface culling of the candidates. Persistent warps on
+// min(n_slots, rays) threads (vkrt_machine_slots with kind 2 and any_hit =
+// !cull); scratch: vkrt_traverse_ab_words(stack_depth, n_slots) int32 words,
+// whose head this entry zeroes on the stream; the kernel leaves the deepest
+// stack in scratch[1] and, at width 16, its warps' busy node steps and
+// node-loop lane slots in scratch[2] and [3]. Outputs per ray: t (1e32
+// where no surface was accepted), tri (-1 then), u, v, seed (the input where
+// nothing was drawn), steps (nodes over all rounds). Returns the first CUDA
+// error.
 int vkrt_alpha_rounds(int cull, int width, const float* rows, int stack_depth,
                       const float* origin, const float* direction, const float* t_limit,
                       const uint8_t* active, const int64_t* seed, const float* pack,
                       int64_t n_pack, const uint8_t* plane, int64_t n_plane, int64_t atlas_w,
-                      int64_t n_rays, int max_rounds, float* t, int32_t* tri, float* u, float* v,
+                      int64_t n_rays, int max_rounds, int* scratch, int64_t scratch_words,
+                      int64_t n_slots, float* t, int32_t* tri, float* u, float* v,
                       int64_t* seed_out, int32_t* steps, void* stream) {
-  if (width != kWidth || stack_depth > 128 || (pack != nullptr && (n_pack < 1 || n_plane < 1)))
+  if (width != kWidth || stack_depth > vkrt_traverse_max_stack() ||
+      (pack != nullptr && (n_pack < 1 || n_plane < 1)) || n_rays >= ((int64_t)1 << 31) ||
+      n_slots < kAbThreads || scratch_words < vkrt_traverse_ab_words(stack_depth, n_slots))
     return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-#define VKRT_ROUNDS(C, D)                                                                      \
-  launch_rounds<C, D>(rows, origin, direction, t_limit, active, seed, pack, n_pack, plane,    \
-                      n_plane, atlas_w, n_rays, max_rounds, t, tri, u, v, seed_out, steps, s)
-  if (cull && stack_depth <= 64) VKRT_ROUNDS(true, 64);
-  else if (cull) VKRT_ROUNDS(true, 128);
-  else if (stack_depth <= 64) VKRT_ROUNDS(false, 64);
-  else VKRT_ROUNDS(false, 128);
-#undef VKRT_ROUNDS
+  const cudaError_t err = cudaMemsetAsync(scratch, 0, kScratchHead * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  const auto k = rounds_kernel(cull);
+  k<<<grid_blocks(n_rays, n_slots), kAbThreads, 0, s>>>(
+      reinterpret_cast<const float4*>(rows), stack_depth > 1 ? stack_depth : 1, origin,
+      direction, t_limit, active, seed, pack, n_pack, plane, n_plane, atlas_w, (int)n_rays,
+      max_rounds, scratch, n_slots, t, tri, u, v, seed_out, steps);
   return (int)cudaGetLastError();
 }
 

@@ -97,7 +97,19 @@ _ALIAS_ROUNDS = 8
 
 def build_alias_table(importance: torch.Tensor):
     """Walker alias table from unnormalized weights (N,): ``(q, alias,
-    integral)`` with the semantics of ``HdrSampling::buildAliasmap``."""
+    integral)`` with the semantics of ``HdrSampling::buildAliasmap``, on
+    the device of ``importance``. It is built on the CPU and then moved
+    there: on CUDA, torch's float32 ``cumsum`` and ``index_add_`` with
+    repeated targets add in no fixed order, and the table is chaotic under
+    ulp changes, so two builds of one environment on the card gave other
+    tables (and images); the CPU's order is fixed."""
+    dev = importance.device
+    q, alias, total = _alias_table(importance.cpu())
+    return q.to(dev), alias.to(dev), total.to(dev)
+
+
+def _alias_table(importance: torch.Tensor):
+    """:func:`build_alias_table` on ``importance``'s own device."""
     n = importance.shape[0]
     dev = importance.device
     idx = torch.arange(n, dtype=torch.int64, device=dev)

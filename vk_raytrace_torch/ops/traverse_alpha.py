@@ -8,8 +8,9 @@ Testing candidates in t order is distribution-identical to testing them in
 encounter order.
 
 On the card the rounds are one launch of ``vkrt_alpha_rounds``
-(``csrc/traverse.cu``): each thread runs its ray's rounds to the end, its
-state in registers, with no host sync. Their plain version, the round loop
+(``csrc/traverse.cu``): persistent warps, in which a lane runs its ray's
+rounds to the end, its state in registers, and takes a new ray when its ray
+ends, with no host sync. Their plain version, the round loop
 :func:`_rounds_core`, runs the CPU tensors; it compacts the rays to the live
 set before every round.
 """
@@ -118,9 +119,10 @@ def _rounds(planar, pack, origin, direction, t_limit, seed, need, cull):
 
 def _alpha_rounds_cuda(planar, pack, origin, direction, t_limit, seed, need, cull):
     """One launch of ``vkrt_alpha_rounds``: every ray's rounds, to the end
-    or to ``_MAX_ROUNDS``, in one thread. The cap is each ray's own: the
-    loop counts rounds for the whole batch, but a lane that is live stays
-    live without a gap until it ends, so its rounds are the batch's."""
+    or to ``_MAX_ROUNDS``, in one lane of a persistent warp (its grid and
+    scratch from ``traverse_fused.machine_state``). The cap is each ray's
+    own: the loop counts rounds for the whole batch, but a lane that is live
+    stays live without a gap until it ends, so its rounds are the batch's."""
     lib = tf._load(planar.width)
     r, dev = origin.shape[0], origin.device
     need = tf._check_rays(lib, planar, origin, direction, t_limit, need)
@@ -139,12 +141,13 @@ def _alpha_rounds_cuda(planar, pack, origin, direction, t_limit, seed, need, cul
     alpha = (None, 0, None, 0, 0) if pack is None else (
         pack.rows.data_ptr(), pack.rows.shape[0], pack.alpha_plane.data_ptr(),
         pack.alpha_plane.numel(), pack.atlas_width)
+    scratch, slots, stream = tf.machine_state(lib, planar, dev, tf.ROUNDS, not cull, 0)
     err = lib.vkrt_alpha_rounds(
         int(bool(cull)), planar.width, planar.rows.data_ptr(), planar.stack_depth,
         origin.data_ptr(), direction.data_ptr(), t_limit.data_ptr(), tf._ptr(need),
-        seed.data_ptr(), *alpha, r, _MAX_ROUNDS, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
-        v.data_ptr(), seed_out.data_ptr(), steps.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        seed.data_ptr(), *alpha, r, _MAX_ROUNDS, scratch.data_ptr(), scratch.numel(), slots,
+        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), seed_out.data_ptr(),
+        steps.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"alpha rounds kernel launch failed: cudaError {err}")

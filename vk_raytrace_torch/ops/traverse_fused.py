@@ -45,11 +45,11 @@ Two more entries, each with its plain version beside it:
 The same library holds the round machines, whose wrappers live beside
 their plain loops: the single-level alpha rounds
 (``ops/traverse_alpha.py``) and the two-level opaque and alpha rounds
-(``ops/tlas.py``), each one launch per call on the card. The two-level
-machines run in persistent warps too: :func:`machine_state` gives their
-grid and scratch (shared with the a/b entries of the width),
-:func:`machine_occupancy` their resident blocks per SM, and
-``_AB_GRIDS[width].lane_steps`` what their warps counted.
+(``ops/tlas.py``), each one launch per call on the card. They run in
+persistent warps too: :func:`machine_state` gives their grid and scratch
+(shared with the a/b entries of the width), :func:`machine_occupancy` their
+resident blocks per SM, and ``_AB_GRIDS[width].lane_steps`` what their warps
+counted.
 """
 
 from __future__ import annotations
@@ -410,7 +410,8 @@ def _load(width: int):
         ]
         lib.vkrt_alpha_machine.restype = i32
         lib.vkrt_alpha_rounds.argtypes = [
-            i32, i32, p, i32, p, p, p, p, p, p, i64, p, i64, i64, i64, i32, p, p, p, p, p, p, p,
+            i32, i32, p, i32, p, p, p, p, p, p, i64, p, i64, i64, i64, i32, p, i64, i64, p, p, p,
+            p, p, p, p,
         ]
         lib.vkrt_alpha_rounds.restype = i32
         lib.vkrt_opaque_machine.argtypes = [
@@ -523,7 +524,8 @@ class PersistentGrid:
 
     def lane_steps(self, device):
         """What the last call's warps counted on ``device``'s current stream,
-        where the entry counts (the two-level machines; waits for it): (the
+        where the entry counts (the round machines, the single-level alpha
+        rounds at width 16 only; waits for it): (the
         lanes' node steps, the lane slots of the warps' node loops). Their
         quotient is the share of the warps' lane-steps that do work."""
         _, _, busy, slots = self._head(device)
@@ -551,24 +553,35 @@ def ab_occupancy(width: int, mode: str) -> int:
     return blocks
 
 
-def machine_occupancy(width: int, alpha: bool, any_hit: bool, n_inst: int) -> int:
-    """Blocks of the opaque or (``alpha``) alpha machine kernel, closest or
-    any hit, for ``n_inst`` instances (the instance table in shared memory up
-    to 512) that reside on one SM of the current device."""
-    blocks = _load(width).vkrt_machine_occupancy(int(alpha), int(any_hit), n_inst)
+# The round machines' kinds (``vkrt_machine_occupancy``): the two-level
+# opaque (0, False) and alpha (1, True) machines and the single-level alpha
+# rounds (2).
+ROUNDS = 2
+_MACHINE_NAMES = ("opaque_machine", "alpha_machine", "alpha_rounds")
+
+
+def machine_occupancy(width: int, kind, any_hit: bool, n_inst: int) -> int:
+    """Blocks of a round machine kernel that reside on one SM of the current
+    device: ``kind`` False (0) the opaque machine, True (1) the alpha
+    machine, closest or any hit, for ``n_inst`` instances (the instance
+    table in shared memory up to 512); :data:`ROUNDS` the single-level alpha
+    rounds with culling (``any_hit`` False) or without (True), ``n_inst``
+    unused."""
+    blocks = _load(width).vkrt_machine_occupancy(int(kind), int(any_hit), n_inst)
     if blocks <= 0:
-        raise RuntimeError(f"no occupancy for the {'alpha' if alpha else 'opaque'} machine at "
-                           f"width {width}")
+        raise RuntimeError(f"no occupancy for the {_MACHINE_NAMES[int(kind)]} kernel at width "
+                           f"{width}")
     return blocks
 
 
-def machine_state(lib, planar, dev, alpha: bool, any_hit: bool, n_inst: int):
-    """The persistent grid of a two-level machine (``alpha``: the alpha
-    machine) on ``planar``'s width: (scratch, resident threads, stream) on
-    ``dev``'s current stream, the scratch shared with the a/b entries."""
-    entry = ("alpha_machine" if alpha else "opaque_machine", int(any_hit), n_inst)
+def machine_state(lib, planar, dev, kind, any_hit: bool, n_inst: int):
+    """The persistent grid of a round machine (``kind`` as in
+    :func:`machine_occupancy`) on ``planar``'s width: (scratch, resident
+    threads, stream) on ``dev``'s current stream, the scratch shared with
+    the a/b entries."""
+    entry = (_MACHINE_NAMES[int(kind)], int(any_hit), n_inst)
     return _AB_GRIDS[planar.width].state(
-        dev, entry, lambda: lib.vkrt_machine_slots(int(alpha), int(any_hit), n_inst),
+        dev, entry, lambda: lib.vkrt_machine_slots(int(kind), int(any_hit), n_inst),
         lambda slots: lib.vkrt_traverse_ab_words(planar.stack_depth, slots))
 
 

@@ -8,7 +8,9 @@
   (SOF0 / SOF1 / SOF2) and arithmetic-coded sequential and progressive
   frames (SOF9 / SOF10), at any sampling factors whose ratios are integers
   (4:4:4, 4:2:2, 4:2:0, 4:4:0, ...), with restart intervals;
-* lossless frames (SOF3, Huffman-coded), every component sampled 1x1;
+* lossless frames (SOF3, Huffman-coded), at the same sampling factors
+  (a subsampled component repeated, not interpolated, as libjpeg-turbo
+  upsamples a lossless frame);
 * 8-bit samples, grey, three components (YCbCr or RGB by libjpeg's rule: a
   JFIF segment, else an Adobe segment's transform, else the component ids)
   or four (CMYK, or YCCK by an Adobe segment's transform 2), at any size.
@@ -42,7 +44,6 @@ _ERRORS = {
     1: "the stream is truncated", 2: "no frame header", 3: "a bad frame header",
     4: "a bad quantisation, Huffman or restart table", 5: "a bad scan header",
     6: "sampling factors whose ratios are not integers", 7: "a bad image size",
-    8: "a lossless frame with subsampled components (not decoded by the port)",
 }
 _DECODED = (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA)
 
