@@ -24,9 +24,9 @@ prints, for the traced frame:
 * device busy: the union of the intervals of every device activity
   (kernels, copies, sets) in the trace, in ms and as a share of wall;
 * launches: the number of device kernels, and how many distinct ones;
-* host syncs: the CUDA runtime's stream and device synchronize calls
-  that the host made during the frame (``nonzero``, ``item()`` and the
-  like wait so);
+* host syncs: the CUDA runtime's stream, device and event synchronize
+  calls that the host made during the frame (``nonzero``, ``item()`` and
+  the like wait so; the wavefront waits on an event once an iteration);
 * traversal: device ms and launches of the per-round traversal kernel, in
   all and by mode (closest, any, candidate; with per-lane roots in the
   bistro, from the tree's root in the atrium), and of each round machine
@@ -37,6 +37,11 @@ prints, for the traced frame:
   device spans of the wavefront's ``shade_stage`` ranges (the whole stage,
   eager or fused), and the fused shading kernels' own ms and launches
   (``vkrt_shade_stage``, or the body alone);
+* the wavefront loop: its iterations, the host's reads of the loop control
+  (one an iteration), the lanes active at each iteration's bounce (the
+  traced frame asks ``render_units_pooled`` for its occupancy record), and
+  the device ms and launches of the loop's kernels (``vkrt_regenerate``'s
+  count and apply passes, ``vkrt_retire``);
 * the top K device kernels by total time;
 * peak device memory allocated over the timed and the traced frames.
 
@@ -68,9 +73,14 @@ MODES = ("closest", "any", "candidate")  # csrc/traverse.cu enum Mode
 # The round machine kernels (csrc/traverse.cu), each one launch per call.
 MACHINES = (("alpha rounds", "alpha_rounds_kernel"), ("opaque machine", "opaque_machine_kernel"),
             ("alpha machine", "alpha_machine_kernel"))
-SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+# The host's waits on the device: stream and device synchronizes (item(),
+# nonzero and the like wait so) and event synchronizes (the wavefront's one
+# read of its loop control an iteration).
+SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 SHADE = ("shade_stage_kernel", "shade_kernel")  # csrc/shade.cu: the whole stage, the body alone
 STAGE = "shade_stage"  # the wavefront's profiler range around its shading stage
+# csrc/wavefront.cu: vkrt_regenerate's two passes, vkrt_retire.
+LOOP_KERNELS = ("regenerate_count_kernel", "regenerate_kernel", "retire_kernel")
 
 
 def device_events(prof):
@@ -149,14 +159,29 @@ def timed_frames(r, n):
     return frames, cpu / wall, by_name, len(th1)
 
 
-def traced_frame(r):
-    """One frame under ``torch.profiler``: (wall s, profile)."""
+def traced_frame(r, occupancy=None):
+    """One frame under ``torch.profiler``: (wall s, profile). With a list
+    ``occupancy`` the frame's wavefront calls record their occupancy into
+    it (one list of live lanes per call)."""
+    from vk_raytrace_torch import render as R
+
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        r.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    pooled = R.render_units_pooled
+    if occupancy is not None:
+        def recording(*args, **kw):
+            img, rays, _, occ = pooled(*args, track_occupancy=True, **kw)
+            occupancy.append(occ)
+            return img, rays
+
+        R.render_units_pooled = recording
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            r.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        R.render_units_pooled = pooled
     return wall, prof
 
 
@@ -279,8 +304,13 @@ def main():
               f"torch threads {torch.get_num_threads()}", flush=True)
         nccl_states(r, args.frames, card)
         return
+    from vk_raytrace_torch.integrator import wavefront as wf
+
     frames, _, _, _ = timed_frames(r, args.frames)
-    wall, prof = traced_frame(r)
+    occupancy = []
+    wf.reset_counts()
+    wall, prof = traced_frame(r, occupancy)
+    loop = dict(wf.LOOP)
     events, stages = device_events(prof)
     if not events:
         raise SystemExit("the trace holds no device activity")
@@ -316,6 +346,14 @@ def main():
     print(f"shading stage: {stage_ms:.3f} device ms in {len(in_stage)} launches "
           f"({len(stages)} stage spans); fused kernel "
           f"{sum(e - s for _, s, e in shade_k) / 1e3:.3f} ms in {len(shade_k)} launches")
+    print(f"wavefront loop: {loop['iterations']} iterations, {loop['host_reads']} host reads of "
+          f"the loop control in {len(occupancy)} calls")
+    for i, occ in enumerate(occupancy):
+        live = [int(x) for x in occ.tolist() if x >= 0]
+        print(f"  call {i}: lanes active at each iteration's bounce {live}")
+    for name in LOOP_KERNELS:
+        evs = [ev for ev in kernels if re.search(rf"\b{name}\b", ev[0])]
+        print(f"  {name}: {sum(e - s for _, s, e in evs) / 1e3:.3f} ms in {len(evs)} launches")
     print(f"peak allocated after warm-up: {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
     print(f"top {args.top} kernels by device ms:")
     for name, (ms, cnt) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[: args.top]:

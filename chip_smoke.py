@@ -8,8 +8,9 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
 1. environment: the card's name and power limit; CUDA must be available;
 2. build: the traversal kernels (``vk_raytrace_torch/csrc/traverse.cu``,
    one library per row width), the wide back end's kernels
-   (``traverse_wide.cu``) and the shading kernel (``shade.cu``), nvcc
-   processes started together, and the native host runtime
+   (``traverse_wide.cu``), the shading kernel (``shade.cu``) and the
+   wavefront loop's kernels (``wavefront.cu``), nvcc processes started
+   together, and the native host runtime
    (``csrc/native.cpp``, g++), from this checkout;
 3. traversal kernel against its plain torch twin on the card, for modes a
    (closest hit), b (any hit) and c (alpha candidates), on the full atrium's
@@ -23,8 +24,9 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
    random streams; then the same with the fused shading stage on the card
    and on the CPU, and fused against unfused on the card;
 5. the main path: the full atrium (~217k triangles) at 1920x1080, depth 4,
-   1 spp, sun&sky, one warm-up and three timed frames; modes a and b and the
-   alpha rounds kernel must have launched, and the per-round mode c not;
+   1 spp, sun&sky, one warm-up and three timed frames; modes a and b, the
+   alpha rounds kernel and the loop's kernels (``vkrt_regenerate``,
+   ``vkrt_retire``) must have launched, and the per-round mode c not;
    the sun&sky environment built a second time equals the renderer's byte
    for byte (image, alias table, pdfs, rows);
 6. the shading stage kernel (``vkrt_shade_stage``, the whole fused stage)
@@ -33,7 +35,9 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
    states, sun disk / full MIS / mip LOD each both ways, then every branch through a
    synthetic shade-row and tap-row table (``tri = arange(R)``); each timed,
    with its ``stage_bytes`` bound and the ptxas report of each
-   instantiation; then the body alone (``vkrt_shade``) on gathered inputs:
+   instantiation; the main flags again under an ``active`` mask with 30%
+   of the lanes dead among the live ones (the pooled loop's form); then
+   the body alone (``vkrt_shade``) on gathered inputs:
    the camera hits, and every branch with full MIS on and off; timed;
 7. the main path with the fused shading stage (``Renderer(...,
    fused_shade=True)``): one warm-up and three timed frames; the stage
@@ -54,7 +58,8 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
     ``build_instanced_scene`` and ``Renderer(..., fused_shade=True)`` at
     1920x1080, depth 4, 1 spp, glTF PBR, sun&sky, firefly clamp 10,
     full_mis off; one warm-up and three timed frames; the opaque machine,
-    the alpha machine and the stage kernel must have launched, and no
+    the alpha machine, the stage kernel and the loop's kernels must have
+    launched, and no
     per-round kernel with roots and not the body alone;
 12. the width-32 traversal kernel (1024-byte rows, 16-triangle leaves)
     against its twin: the full atrium's width-32 trees on phase 3's ray
@@ -244,7 +249,7 @@ after:
     0.1%, the pixels that differ printed (the alpha draws come in another
     order, so the random streams of paths that meet the banners part);
     s/frame, launches a frame and peak MiB of both; the wide run may launch
-    no fused traversal kernel;
+    no fused traversal kernel, and both must launch the loop's kernels;
 37. the full bistro at 1080p (fused shading) wide against fused on the
     same criterion: the wide frame may launch no ``vkrt_traverse_wide`` (a
     two-level call is one ``vkrt_wide_machine`` launch a pass); then the
@@ -263,6 +268,26 @@ after:
     alpha instances with it), bit for bit, timed beside the fused back end's
     opaque and alpha machines on the same rays.
 
+The pooled wavefront's loop (``integrator/wavefront.py``: the reference's
+form, the state over the whole pool under its mask, the tiered tail, the
+loop control on the card) and its two kernels (``csrc/wavefront.cu``):
+
+39. ``vkrt_regenerate`` and ``vkrt_retire`` against their plain versions
+    (``integrator/pool.py``) on the pools of a real 1080p fused atrium
+    frame, as each stage met them at the loop's first iteration (a fresh
+    pool of 2^18 lanes), its third (a full pool, some lanes regenerating)
+    and the first of each tier (2^16, 2^14 lanes): every field, the loop
+    control, the occupancy entry, the retired units' radiance and the step
+    record bit for bit; each timed on fresh copies with CUDA events beside
+    the plain version and its bound (this pool's bytes: the flags, the
+    granted lanes, the gated / visible / lit / alive / retiring lanes); the
+    fused atrium, the fused atrium with ``renderer="wide"`` and the fused
+    bistro at 1080p, frame 1, through the kernels and through the plain
+    versions on the card, byte for byte and ray for ray; and a frame of each
+    under torch's sync debug mode "error" inside every iteration
+    (``wavefront.CHECK_SYNCS``): the iterations, one host read of the loop
+    control an iteration, and the launches a frame and an iteration.
+
 The script keeps its files (checkpoints, images, the port's scene cache)
 in a temporary directory that it removes at exit. No depth was cut for
 time: the whole script ran in about half its time limit on the card.
@@ -276,6 +301,7 @@ the last line is
 
 import atexit
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -557,6 +583,7 @@ def build_kernels():
     from concurrent.futures import ThreadPoolExecutor
 
     from vk_raytrace_torch import runtime
+    from vk_raytrace_torch.integrator import pool as wp
     from vk_raytrace_torch.integrator import shade_fused as sf
     from vk_raytrace_torch.ops import traverse_fused as tf
 
@@ -567,12 +594,13 @@ def build_kernels():
 
     from vk_raytrace_torch.ops import traverse_wide as tw
 
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         futures = {
             "native": pool.submit(timed, runtime.build),
             **{f"traverse{w}": pool.submit(timed, tf.build, w, verbose=True) for w in tf.WIDTHS},
             "shade": pool.submit(timed, sf.build, verbose=True),
             "traverse_wide": pool.submit(timed, tw.build, verbose=True),
+            "wavefront": pool.submit(timed, wp.build, verbose=True),
         }
         return {k: f.result() for k, f in futures.items()}
 
@@ -613,6 +641,7 @@ def render_phase(what, make, card, n=3, want=(), stage=None, black_ok=False):
     launches, and print s/frame, Mrays/s, counted launches per frame, build
     s and peak MiB. Returns (renderer, s/frame, Mrays/s, launches per
     frame, peak MiB)."""
+    from vk_raytrace_torch.integrator import pool as wp
     from vk_raytrace_torch.integrator import shade_fused as sf
     from vk_raytrace_torch.ops import traverse_fused as tf
 
@@ -621,12 +650,14 @@ def render_phase(what, make, card, n=3, want=(), stage=None, black_ok=False):
     torch.cuda.reset_peak_memory_stats(dev)
     tf.reset_launches()
     sf.reset_launches()
+    wp.reset_launches()
     t0 = time.time()
     r = make()
     torch.cuda.synchronize()
     renderer_s = time.time() - t0
     warm_s, frame_s, frame_rays = run_frames(r, n)
-    per_frame = {k: v / (n + 1) for k, v in {**tf.LAUNCHES, **sf.LAUNCHES}.items() if v}
+    per_frame = {k: v / (n + 1) for k, v in {**tf.LAUNCHES, **sf.LAUNCHES, **wp.LAUNCHES}.items()
+                 if v}
     img = r.hdr().cpu().numpy()
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
     s_frame = float(np.mean(frame_s))
@@ -1028,10 +1059,20 @@ class StageState:
         self.bsdf_pdf = torch.where(torch.tensor(rng.random(n) < 0.3, device=dev), 0.0,
                                     f32(0.1, 4.0))
         self.tdist = f32(0.5, 30.0)
+        self.active = None  # every lane live
+
+    def masked(self, rng, live_share):
+        """The same lanes under an ``active`` mask with ``1 - live_share``
+        of them dead, scattered among the live ones (the pooled loop's
+        state)."""
+        out = copy.copy(self)
+        out.active = torch.tensor(rng.random(self.seed.shape[0]) < live_share,
+                                  device=self.seed.device)
+        return out
 
     def lanes(self):
-        return (self.origin, self.direction, self.seed, None, self.radiance, self.throughput,
-                self.absorption, self.bsdf_pdf)
+        return (self.origin, self.direction, self.seed, self.active, self.radiance,
+                self.throughput, self.absorption, self.bsdf_pdf)
 
 
 STAGE_VEC_KEYS = ("new_origin", "new_dir", "radiance", "throughput", "absorption", "nee",
@@ -1187,9 +1228,10 @@ def stage_case(what, scene, tables, features, hit, st, instances, sun_disk, full
 def stage_cases(name, scene, tables, features, hit, st, instances, main, spread, hdr_mult, rng,
                 card):
     """Phases 6 and 10: :func:`stage_case` on the camera hits with the main
-    path's (sun disk, full MIS, mip) ``main``; with each of the three
-    flipped; and every branch (:func:`every_branch_stage`) with full MIS on
-    and off. Returns {"main": result on the main path's flags, "err": max
+    path's (sun disk, full MIS, mip) ``main``; the same under an ``active``
+    mask with 30% of the lanes dead; with each of the three flipped; and
+    every branch (:func:`every_branch_stage`) with full MIS on and off.
+    Returns {"main": result on the main path's flags, "err": max
     |err| of all}."""
     sun, mis, mip = main
     sp = lambda on: spread if on else None  # noqa: E731
@@ -1198,6 +1240,10 @@ def stage_cases(name, scene, tables, features, hit, st, instances, main, spread,
                               tables, features, hit, st, instances, sun, mis, sp(mip), hdr_mult,
                               card)}
     errs = [res["main"][0]]
+    # The pooled loop's form: dead lanes among the live ones, under the mask.
+    errs.append(stage_case(f"{name} camera hits, the main path's flags, 30% of the lanes dead "
+                           f"(active mask)", scene, tables, features, hit, st.masked(rng, 0.7),
+                           instances, sun, mis, sp(mip), hdr_mult, card, reps=3)[0])
     flipped = f"sun disk {not sun}, full MIS {not mis}, mip {not mip}"
     errs.append(stage_case(f"{name} camera hits, flipped ({flipped})", scene, tables, features,
                            hit, st, instances, not sun, not mis, sp(not mip), hdr_mult, card,
@@ -1637,6 +1683,7 @@ def cli_run(what, argv, card, want=(), stage=None):
     (the frames after the first, which carries the warm-up), Mrays/s, build
     s and peak MiB. Returns (profile dict, launches)."""
     from vk_raytrace_torch import cli
+    from vk_raytrace_torch.integrator import pool as wp
     from vk_raytrace_torch.integrator import shade_fused as sf
     from vk_raytrace_torch.ops import traverse_fused as tf
 
@@ -2383,12 +2430,12 @@ def phase_wide_frames(card, scene):
     rw, w_s, w_mrays, w_frame, w_peak = render_phase(
         "atrium 1080p d4 1spp, renderer=wide", lambda: R.Renderer(scene, cfg, device=dev,
                                                                   renderer="wide"),
-        card, want=("traverse_wide",))
+        card, want=("traverse_wide", *WAVEFRONT_KERNELS))
     w_launches = dict(tf.LAUNCHES)
     assert not any(w_frame.get(k) for k in ATRIUM_KERNELS), f"wide: a fused kernel ran: {w_frame}"
     rf, f_s, f_mrays, f_frame, f_peak = render_phase(
         "atrium 1080p d4 1spp, renderer=fused", lambda: R.Renderer(scene, cfg, device=dev),
-        card, want=ATRIUM_KERNELS)
+        card, want=(*ATRIUM_KERNELS, *WAVEFRONT_KERNELS))
     assert not f_frame.get("traverse_wide"), f"fused: the wide kernel ran: {f_frame}"
     compare_frames("atrium 1080p wide vs fused", rw, rf, card)
     print(f"atrium 1080p: wide {w_s:.4f} s/frame ({w_mrays:.3f} Mrays/s, peak {w_peak:.1f} MiB, "
@@ -2652,6 +2699,307 @@ def phase_wide_viewer(card):
     return lau
 
 
+# ---- Phase 39: the pooled wavefront's loop and its two kernels ---------------
+WAVEFRONT_SOURCE = "vk_raytrace_torch/csrc/wavefront.cu"
+REGEN_REPLACES = "vk_raytrace_tpu/integrator/wavefront.py:158"  # regenerate
+RETIRE_REPLACES = "vk_raytrace_tpu/integrator/wavefront.py:404"  # the epilogue after the shadow ray
+WAVEFRONT_REPLACES_KIND = "XLA body (render_units_pooled's regenerate / bounce epilogue), not a pallas_call"
+WAVEFRONT_KERNELS = ("regenerate", "retire")
+# Bytes and operations of the function, not of the kernel's two passes
+# (which read every flag twice): a regeneration reads every flag once and
+# writes a granted lane's 101 bytes (pix, unit, seed, depth 8 each; origin,
+# direction, radiance, throughput, absorption 12 each; bsdf_pdf, tdist 4
+# each; the flag); a granted lane's TEA (16 rounds of ~14 integer operations), four
+# PCG draws (~8 each) and camera (~60 float operations), counted at the
+# float rate: ~320.
+REGEN_FLAG_BYTES, REGEN_GRANT_BYTES, REGEN_GRANT_OPS = 1, 101, 320
+# A retirement reads a lane's flags (active, alive, visible), depth, seed,
+# radiance and throughput (43 B) and writes its radiance, throughput, seed,
+# depth and flag (41 B); rr_pcont where the roulette gates (4), occluded where
+# visible (1), nee where lit (12), pdf_b read and bsdf_pdf written where
+# alive (8), unit read and out written where it retires (20), pix, steps and
+# the step add where it is active with a step record (16). ~25 operations a
+# lane (the adds, a PCG draw, the divisions, the clamp).
+RETIRE_LANE_BYTES, RETIRE_LANE_OPS = 84, 25
+
+
+def regen_work(st, ctrl, total_units):
+    """(bytes, ops) one regeneration moves and does on this pool."""
+    n = st["active"].shape[0]
+    dead = int((~st["active"]).sum())
+    granted = min(dead, total_units - int(ctrl[0]))
+    return n * REGEN_FLAG_BYTES + granted * REGEN_GRANT_BYTES, granted * REGEN_GRANT_OPS
+
+
+def retire_work(st, b, sl, track):
+    """(bytes, ops) one retirement moves and does on this pool (its data:
+    the gated, visible, lit, alive and retiring lanes)."""
+    act = st["active"]
+    gate = (st["depth"] >= sl.rr_depth) & act if sl.rr else torch.zeros_like(act)
+    lit = b["visible"] & ~b["occluded"]
+    n = int(act.shape[0])
+    extra = (4 * int(gate.sum()) + int(b["visible"].sum()) + 12 * int(lit.sum())
+             + 8 * int(b["alive"].sum()) + 20 * int((act & ~b["alive"]).sum())
+             + (16 * int(act.sum()) if track else 0))
+    return n * RETIRE_LANE_BYTES + extra, n * RETIRE_LANE_OPS
+
+
+@contextlib.contextmanager
+def plain_pool():
+    """The loop's two stages through their plain versions (on the card too)."""
+    from vk_raytrace_torch.integrator import pool as wp
+
+    saved = wp.regenerate, wp.retire
+    wp.regenerate, wp.retire = wp._regenerate_plain, wp._retire_plain
+    try:
+        yield
+    finally:
+        wp.regenerate, wp.retire = saved
+
+
+def capture_states(r, frame):
+    """Render ``frame`` through ``r`` and keep copies of the pool's state as
+    each stage met it at the loop's first iteration (a fresh pool), its
+    third (a full pool, some lanes regenerating) and the first at each
+    tier's width (a quarter, a sixteenth). Returns (regeneration inputs,
+    retirement inputs), each a list of (label, args)."""
+    from vk_raytrace_torch.integrator import pool as wp
+
+    regen, retire, seen = [], [], {"it": -1, "widths": set()}
+    orig_regen, orig_retire = wp.regenerate, wp.retire
+
+    def copy(st):
+        return {k: v.clone() for k, v in st.items()}
+
+    def label(it, width):
+        return f"iteration {it}, {width} lanes"
+
+    def want(it, width):
+        return it in (0, 2) or width not in seen["widths"]
+
+    def hook_regen(st, ctrl, occ, it, sl):
+        seen["it"] = it
+        width = st["active"].shape[0]
+        if want(it, width):
+            regen.append((label(it, width), (copy(st), ctrl.clone(), it, sl)))
+        return orig_regen(st, ctrl, occ, it, sl)
+
+    def hook_retire(st, b, ctrl, out, steps, sl):
+        it, width = seen["it"], st["active"].shape[0]
+        if want(it, width):
+            seen["widths"].add(width)
+            retire.append((label(it, width), (copy(st), {k: v.clone() for k, v in b.items()},
+                                               ctrl.clone(), sl)))
+        return orig_retire(st, b, ctrl, out, steps, sl)
+
+    wp.regenerate, wp.retire = hook_regen, hook_retire
+    try:
+        r.render_frame(frame)
+        torch.cuda.synchronize()
+    finally:
+        wp.regenerate, wp.retire = orig_regen, orig_retire
+    return regen, retire
+
+
+def events_ms(calls):
+    """Mean ms per call of ``calls`` run back to back between two CUDA
+    events, after the first as a warm-up (each call on inputs of its own,
+    prepared beforehand, so that the events time the device's work)."""
+    calls[0]()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for call in calls[1:]:
+        call()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (len(calls) - 1)
+
+
+def same_bits(what, a, b):
+    """Assert every field of ``a`` equal to ``b``'s bit for bit; return the
+    largest |a - b| over the float fields' finite values."""
+    err = 0.0
+    for k in a:
+        x, y = a[k], b[k]
+        if x is None:
+            continue
+        eq = x.shape == y.shape and torch.equal(
+            x.view(torch.int32) if x.dtype == torch.float32 else x,
+            y.view(torch.int32) if y.dtype == torch.float32 else y)
+        assert eq, f"{what}: {k} differs from the plain version"
+        if x.dtype == torch.float32:
+            fin = torch.isfinite(x) & torch.isfinite(y)
+            if bool(fin.any()):
+                err = max(err, float((x[fin] - y[fin]).abs().max()))
+    return err
+
+
+def regen_case(what, args, card, reps=10):
+    """vkrt_regenerate against its plain version on a captured pool, bit for
+    bit (every field, the loop control, the occupancy entry); both timed on
+    fresh copies (the kernel's launches back to back on arguments built
+    beforehand). Returns (ms, plain_ms, (bound_ms, bound_by), bytes, granted,
+    max_abs_err)."""
+    from vk_raytrace_torch import travbench as tb
+    from vk_raytrace_torch.integrator import pool as wp
+
+    st0, ctrl0, it, sl = args
+    dev = st0["active"].device
+
+    def fresh():
+        return ({k: v.clone() for k, v in st0.items()}, ctrl0.clone(),
+                torch.full((wp.OCC_LEN,), -1, dtype=torch.int32, device=dev), it, sl)
+
+    kern, plain = fresh(), fresh()
+    before = wp.LAUNCHES["regenerate"]
+    wp._regenerate_cuda(*kern)
+    wp._regenerate_plain(*plain)
+    torch.cuda.synchronize()
+    assert wp.LAUNCHES["regenerate"] == before + 1
+    err = same_bits(f"regenerate, {what}", kern[0], plain[0])
+    same_bits(f"regenerate, {what}", {"ctrl": kern[1], "occ": kern[2]},
+              {"ctrl": plain[1], "occ": plain[2]})
+    granted = int(kern[0]["active"].sum()) - int(st0["active"].sum())
+    # The kernel on arguments built beforehand, one fresh pool each.
+    pools = [fresh() for _ in range(reps + 1)]
+    ms = events_ms([lambda x=wp.regenerate_args(*p): wp.launch("regenerate", x) for p in pools])
+    plain_ms = events_ms([lambda a=fresh(): wp._regenerate_plain(*a) for _ in range(3)])
+    n_bytes, n_ops = regen_work(st0, ctrl0, sl.total_units)
+    bnd = tb.bound(n_bytes, n_ops)
+    print(f"regenerate, {what}: {granted} lanes granted, bit for bit (max |err| {err}) -> "
+          f"OK; kernel {ms:.4f} ms (two launches), plain {plain_ms:.3f} ms; bound "
+          f"{bnd[0]:.4f} ms by {bnd[1]} "
+          f"({n_bytes / 1e6:.2f} MB; {ms / bnd[0]:.1f}x the bound) ({card})", flush=True)
+    return ms, plain_ms, bnd, n_bytes, granted, err
+
+
+def retire_case(what, args, card, reps=10):
+    """vkrt_retire against its plain version on a captured pool and bounce,
+    with the step record, bit for bit (every field, the control, the
+    retired units' rows, the steps); both timed on fresh copies.
+    Returns (ms, plain_ms, (bound_ms, bound_by), bytes, max_abs_err)."""
+    from vk_raytrace_torch import travbench as tb
+    from vk_raytrace_torch.integrator import pool as wp
+
+    st0, b, ctrl0, sl = args
+    n = st0["active"].shape[0]
+    dev = st0["active"].device
+
+    def fresh():
+        return ({k: v.clone() for k, v in st0.items()}, b, ctrl0.clone(),
+                torch.zeros(sl.total_units + n, 3, device=dev),
+                torch.zeros(sl.n_pix + 1, dtype=torch.int32, device=dev), sl)
+
+    kern, plain = fresh(), fresh()
+    wp._retire_cuda(*kern)
+    wp._retire_plain(*plain)
+    torch.cuda.synchronize()
+    err = max(same_bits(f"retire, {what}", kern[0], plain[0]),
+              same_bits(f"retire, {what}", {"ctrl": kern[2], "out": kern[3][:sl.total_units],
+                                            "steps": kern[4][:sl.n_pix]},
+                        {"ctrl": plain[2], "out": plain[3][:sl.total_units],
+                         "steps": plain[4][:sl.n_pix]}))
+    died = int((st0["active"] & ~kern[0]["active"]).sum())
+    pools = [fresh() for _ in range(reps + 1)]
+    ms = events_ms([lambda x=wp.retire_args(*p): wp.launch("retire", x) for p in pools])
+    plain_ms = events_ms([lambda a=fresh(): wp._retire_plain(*a) for _ in range(3)])
+    n_bytes, n_ops = retire_work(st0, b, sl, True)
+    bnd = tb.bound(n_bytes, n_ops)
+    print(f"retire, {what}: {int(st0['active'].sum())} active, {died} retired, bit for bit "
+          f"(max |err| {err}) -> OK; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
+          f"{bnd[0]:.4f} ms by {bnd[1]} ({n_bytes / 1e6:.2f} MB; {ms / bnd[0]:.1f}x the bound) "
+          f"({card})", flush=True)
+    return ms, plain_ms, bnd, n_bytes, err
+
+
+def loop_counts(what, r, frame, card):
+    """One frame under torch's sync debug mode "error" inside each
+    iteration (``wavefront.CHECK_SYNCS``): the loop's iterations, the host's
+    reads of the loop control (one an iteration), and the launches per
+    iteration and per frame. Returns the counts."""
+    from vk_raytrace_torch.integrator import pool as wp
+    from vk_raytrace_torch.integrator import shade_fused as sf
+    from vk_raytrace_torch.integrator import wavefront as wf
+    from vk_raytrace_torch.ops import traverse_fused as tf
+
+    for m in (tf, sf, wp):
+        m.reset_launches()
+    wf.reset_counts()
+    wf.CHECK_SYNCS = True
+    try:
+        r.render_frame(frame)
+        torch.cuda.synchronize()
+    finally:
+        wf.CHECK_SYNCS = False
+    it, reads = wf.LOOP["iterations"], wf.LOOP["host_reads"]
+    lau = {k: v for k, v in {**tf.LAUNCHES, **sf.LAUNCHES, **wp.LAUNCHES}.items() if v}
+    assert reads == it > 0, f"{what}: {reads} host reads in {it} iterations"
+    assert lau.get("regenerate") == lau.get("retire") == it, f"{what}: {lau} in {it} iterations"
+    print(f"{what}: {it} iterations, {reads} host reads of the loop control (one an iteration; "
+          f"no other sync inside them: sync debug mode \"error\"), launches per frame {lau}, per "
+          f"iteration {({k: round(v / it, 2) for k, v in lau.items()})} [{card}]", flush=True)
+    return {"iterations": it, "host_reads": reads, "launches": lau}
+
+
+def frames_vs_plain(what, r, card, frame=1):
+    """Frame ``frame`` through the kernels and through the plain versions on
+    the card: the same image bytes and rays."""
+    t0 = time.perf_counter()
+    img = r.render_frame(frame).cpu().numpy()
+    k_s, k_rays = time.perf_counter() - t0, r.last_rays
+    with plain_pool():
+        t0 = time.perf_counter()
+        ref = r.render_frame(frame).cpu().numpy()
+        p_s, p_rays = time.perf_counter() - t0, r.last_rays
+    assert np.isfinite(img).all() and img.mean() > 0.0, f"{what}: bad image"
+    assert img.tobytes() == ref.tobytes(), (
+        f"{what}: {int((img != ref).any(-1).sum())} pixels differ from the plain versions' frame")
+    assert k_rays == p_rays, f"{what}: rays {k_rays} vs {p_rays}"
+    print(f"{what}, frame {frame}: through the kernels equal to the plain versions' frame byte "
+          f"for byte, rays {k_rays} both; {k_s:.4f} s vs {p_s:.4f} s [{card}]", flush=True)
+
+
+def phase_wavefront(card, scene, cfg, bundle, bistro_args):
+    """Phase 39: the loop's two kernels against their plain versions on the
+    fused atrium's 2^18-lane pools of a real 1080p frame (a fresh pool, a
+    full one, the quarter and sixteenth tiers), timed beside their bounds;
+    the fused atrium, the bistro and the wide atrium at 1080p through the
+    kernels against the same frames through the plain versions; the loop's
+    iterations, host reads and launches a frame under the sync check.
+    Returns (regenerate result, retire result, loop counts by scene)."""
+    from vk_raytrace_torch import render as R
+    from vk_raytrace_torch.models.schema import PBR_GLTF, RenderConfig
+
+    dev = torch.device("cuda", 0)
+    rf = R.Renderer(scene, cfg, device=dev, packed=bundle, fused_shade=True)
+    rf.render_frame(0)
+    regen, retire = capture_states(rf, 1)
+    widths = {a[0]["active"].shape[0] for _, a in regen}
+    assert R.POOL_LANES in widths and len(widths) > 1, [w for w, _ in regen]
+    regen_res = {w: regen_case(w, a, card) for w, a in regen}
+    retire_res = {w: retire_case(w, a, card) for w, a in retire}
+    del regen, retire
+    counts = {"atrium_fused": loop_counts("atrium 1080p fused", rf, 2, card)}
+    frames_vs_plain("atrium 1080p fused", rf, card)
+    del rf
+    rw = R.Renderer(scene, cfg, device=dev, fused_shade=True, renderer="wide")
+    rw.render_frame(0)
+    counts["atrium_wide"] = loop_counts("atrium 1080p fused, renderer=wide", rw, 2, card)
+    frames_vs_plain("atrium 1080p fused, renderer=wide", rw, card)
+    del rw
+    pool, inst, b_mats, b_lights, b_cam, b_atlas = bistro_args
+    bscene = R.build_instanced_scene(pool, inst, b_mats, b_lights, b_cam, atlas=b_atlas)
+    b_cfg = RenderConfig(width=1920, height=1080, pbr_mode=PBR_GLTF, **BISTRO_CFG)
+    rb = R.Renderer(bscene, b_cfg, device=dev, fused_shade=True)
+    rb.render_frame(0)
+    counts["bistro_fused"] = loop_counts("bistro 1080p fused", rb, 2, card)
+    frames_vs_plain("bistro 1080p fused", rb, card)
+    del rb, bscene
+    torch.cuda.empty_cache()
+    return regen_res, retire_res, counts
+
+
 def main():
     # ---- 1. environment ----------------------------------------------------
     phase("environment")
@@ -2677,6 +3025,7 @@ def main():
 
     # ---- 2. build -----------------------------------------------------------
     phase("build")
+    from vk_raytrace_torch.integrator import pool as wp
     from vk_raytrace_torch.integrator import shade_fused as sf
 
     build_s = build_kernels()
@@ -2784,13 +3133,14 @@ def main():
     torch.cuda.reset_peak_memory_stats(dev)
     tf.reset_launches()
     sf.reset_launches()
+    wp.reset_launches()
     t0 = time.time()
     r = R.Renderer(scene, cfg, device=dev)
     renderer_s = time.time() - t0
     build = {"scene_gen_s": scene_gen_s, "scene_tables_s": tables_s,
              "renderer_s": renderer_s, **r.build_times}
     warm_s, frame_s, frame_rays = run_frames(r)
-    launches = dict(tf.LAUNCHES)
+    launches = {**tf.LAUNCHES, **wp.LAUNCHES}
     img = r.accum.cpu().numpy()
     ldr = r.postprocess().cpu().numpy()
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
@@ -2800,6 +3150,7 @@ def main():
     print(f"warm-up frame {warm_s:.3f} s; frames {['%.4f' % s for s in frame_s]} s; "
           f"rays/frame {frame_rays}; launches {launches}")
     assert all(launches[m] > 0 for m in ATRIUM_KERNELS), f"a traversal kernel never launched: {launches}"
+    assert all(launches[m] > 0 for m in WAVEFRONT_KERNELS), f"a loop kernel never launched: {launches}"
     assert launches["candidate"] == 0, f"a per-round alpha launch ran: {launches}"
     assert np.isfinite(img).all() and np.isfinite(ldr).all(), "non-finite pixels"
     assert img.mean() > 0.0 and ldr.max() > 0.0, "black image"
@@ -2862,9 +3213,10 @@ def main():
     torch.cuda.reset_peak_memory_stats(dev)
     tf.reset_launches()
     sf.reset_launches()
+    wp.reset_launches()
     rf = R.Renderer(scene, cfg, device=dev, packed=bundle, fused_shade=True)
     f_warm_s, f_frame_s, f_frame_rays = run_frames(rf)
-    f_launches = {**tf.LAUNCHES, **sf.LAUNCHES}
+    f_launches = {**tf.LAUNCHES, **sf.LAUNCHES, **wp.LAUNCHES}
     f_img = rf.accum.cpu().numpy()
     f_ldr = rf.postprocess().cpu().numpy()
     f_peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
@@ -2875,6 +3227,7 @@ def main():
     assert f_launches["shade_stage"] > 0, f"the stage kernel never launched: {f_launches}"
     assert f_launches["shade_bounce"] == 0, f"the body alone launched: {f_launches}"
     assert all(f_launches[m] > 0 for m in ATRIUM_KERNELS), f"a traversal kernel never launched: {f_launches}"
+    assert all(f_launches[m] > 0 for m in WAVEFRONT_KERNELS), f"a loop kernel never launched: {f_launches}"
     assert f_launches["candidate"] == 0, f"a per-round alpha launch ran: {f_launches}"
     assert np.isfinite(f_img).all() and np.isfinite(f_ldr).all(), "fused: non-finite pixels"
     assert f_img.mean() > 0.0 and f_ldr.max() > 0.0, "fused: black image"
@@ -3011,8 +3364,9 @@ def main():
     torch.cuda.reset_peak_memory_stats(dev)
     tf.reset_launches()
     sf.reset_launches()
+    wp.reset_launches()
     b_warm_s, b_frame_s, b_frame_rays = run_frames(rb)
-    b_launches = {**tf.LAUNCHES, **sf.LAUNCHES}
+    b_launches = {**tf.LAUNCHES, **sf.LAUNCHES, **wp.LAUNCHES}
     b_img = rb.accum.cpu().numpy()
     b_ldr = rb.postprocess().cpu().numpy()
     b_peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
@@ -3022,7 +3376,7 @@ def main():
                "renderer_s": b_renderer_s, **rb.build_times}
     print(f"warm-up frame {b_warm_s:.3f} s; frames {['%.4f' % s for s in b_frame_s]} s; "
           f"rays/frame {b_frame_rays}; launches {b_launches}")
-    want = ("opaque_machine", "alpha_machine", "shade_stage")
+    want = ("opaque_machine", "alpha_machine", "shade_stage", *WAVEFRONT_KERNELS)
     assert all(b_launches[m] > 0 for m in want), f"a kernel never launched: {b_launches}"
     assert b_launches["shade_bounce"] == 0, f"the body alone launched: {b_launches}"
     assert not any(b_launches[m] for m in tf.ROOT_MODES), f"a per-round launch ran: {b_launches}"
@@ -3666,6 +4020,13 @@ def main():
           "loops")
     plaza_wide_res, plaza_fused_ms = phase_wide_plaza(card, plaza, rng)
 
+    # ---- 39. the pooled wavefront's loop and its two kernels ----------------
+    phase("39. the wavefront loop: vkrt_regenerate and vkrt_retire against their plain "
+          "versions on a 1080p frame's pools; frames through the kernels and the plain "
+          "versions; host reads and launches a frame")
+    regen_res, retire_res, loop_res = phase_wavefront(
+        card, scene, cfg, bundle, (pool, inst, b_mats, b_lights, b_cam, b_atlas))
+
     def traverse_entry(m, lau, replaces):
         """``launches``: the main path's count (``lau``). The per-round kernels
         of the modes the machines run (mode c from the root, modes a/b/c with
@@ -3775,7 +4136,23 @@ def main():
         "per_frame": {"bistro": wide_bistro},
         "paths_launches": {p: v.get("wide_machine", 0) for p, v in wide_paths.items()},
     })
-    print(f"phases 1-38 passed in {time.time() - T_START:.1f} s [{card}]", flush=True)
+    for name, res, replaces, lau in (("regenerate", regen_res, REGEN_REPLACES, launches),
+                                     ("retire", retire_res, RETIRE_REPLACES, launches)):
+        # Times and bound: the full pool's first regenerating case (iteration
+        # 2); every case in "cases".
+        ms, plain_ms, (b_ms, b_by), *_ = next(
+            (v for k, v in res.items() if k.startswith("iteration 2,")), next(iter(res.values())))
+        kernels.append({
+            "name": name, "route": "cuda", "source": WAVEFRONT_SOURCE, "replaces": replaces,
+            "replaces_kind": WAVEFRONT_REPLACES_KIND, "launches": lau[name],
+            "max_abs_err": max(v[-1] for v in res.values()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "cases": {k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2][0], "bound_by": v[2][1]}
+                      for k, v in res.items()},
+            "per_frame": {k: v["launches"].get(name, 0) for k, v in loop_res.items()},
+            "host_reads": {k: v["host_reads"] for k, v in loop_res.items()},
+        })
+    print(f"phases 1-39 passed in {time.time() - T_START:.1f} s [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

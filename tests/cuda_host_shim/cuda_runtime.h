@@ -77,10 +77,17 @@ inline void __syncthreads() {}
 inline unsigned __ballot_sync(unsigned, bool p) { return p ? 1u : 0u; }
 template <class T>
 inline T __shfl_sync(unsigned, T v, int, int = 32) { return v; }
+template <class T>
+inline T __shfl_up_sync(unsigned, T v, unsigned, int = 32) { return v; }
 inline int __reduce_max_sync(unsigned, int v) { return v; }
 inline unsigned __reduce_add_sync(unsigned, unsigned v) { return v; }
 inline int atomicAdd(int* p, int v) {
   const int old = *p;
+  *p = old + v;
+  return old;
+}
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  const unsigned long long old = *p;
   *p = old + v;
   return old;
 }

@@ -18,7 +18,8 @@ across calls; the whole shading stage kernel and the body alone
 slices (atrium, bistro) on the card against the CPU; the Disney BSDF
 (material grid), the debug modes through the unrolled integrator and its
 masked closest hit on the card against the CPU; the brute-force
-anchor on the card; ``Renderer.pick`` on the card against the CPU; the
+anchor on the card; ``Renderer.pick`` on the card against the CPU, and
+beside a render loop in another thread against picks and frames made alone; the
 CLI on the card (against ``--device cpu``, and a checkpointed run against
 a straight one); the machines beyond 512 instances (their instance table in
 global memory) on a small plaza against the chunked round loops; the
@@ -914,6 +915,57 @@ def test_pick_on_card_matches_cpu():
                 assert (p["triangle"], p["material"], p.get("instance")) == (
                     q["triangle"], q["material"], q.get("instance")) or p["t"] == q["t"]
                 np.testing.assert_allclose(p["t"], q["t"], rtol=1e-5)
+
+
+def test_pick_beside_render_loop_on_card():
+    """``pick`` from this thread while another thread renders on the same
+    stream, as the viewer's ``/pick`` runs beside its render loop: every
+    pick equals the same pick made alone, and the frames equal those
+    rendered alone, bit for bit. The persistent kernels share one scratch a
+    stream; each call holds its grid's lock from the scratch's reset
+    through its launch, so neither finds the other's ray counter."""
+    _need_cuda()
+    import threading
+
+    g, m, l, c, a = procedural.atrium_scene(**SMALL_ATRIUM)
+    sc = R.build_scene(g, m, l, c, atlas=a)
+    cfg = RenderConfig(width=96, height=54, max_depth=4)
+    rng = np.random.default_rng(6)
+    xs, ys = rng.integers(0, 96, 32), rng.integers(0, 54, 32)
+    alone = R.Renderer(sc, cfg, device="cuda", fused_shade=True)
+    want = [alone.pick(int(x), int(y)) for x, y in zip(xs, ys)]
+    assert sum(p is not None for p in want) > 8
+    n_frames = 8
+    for _ in range(n_frames):
+        alone.step()
+    busy = R.Renderer(sc, cfg, device="cuda", fused_shade=True, packed=alone.packed)
+    picker = R.Renderer(sc, cfg, device="cuda", packed=alone.packed)
+    errors = []
+
+    def render():
+        try:
+            for _ in range(n_frames):
+                busy.step()
+        except BaseException as e:  # reported below, in this thread
+            errors.append(e)
+
+    t = threading.Thread(target=render)
+    t.start()
+    rounds = 0
+    while t.is_alive() or rounds == 0:
+        for x, y, w in zip(xs, ys, want):
+            got = picker.pick(int(x), int(y))
+            assert (got is None) == (w is None), (x, y, got, w)
+            if got is not None:
+                assert (got["triangle"], got["material"], got["t"]) == (
+                    w["triangle"], w["material"], w["t"]), (x, y, got, w)
+                np.testing.assert_array_equal(got["position"], w["position"])
+        rounds += 1
+    t.join()
+    assert not errors, errors
+    torch.cuda.synchronize()
+    assert torch.equal(busy.accum, alone.accum)
+    assert busy.frame == alone.frame == n_frames
 
 
 def test_cli_on_card(tmp_path):

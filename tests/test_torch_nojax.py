@@ -14,8 +14,9 @@ last modules (the viewer over HTTP, ``parallel/sharding.py`` through
 and the JPEG decoder through the CLI on ``tests/assets/jpeg_textures.glb``),
 also without Pillow; and, statically, that no import
 statement of the package or of the chip scripts (``chip_smoke.py``,
-``chip_ab.py``, ``chip_profile.py``, ``chip_repro.py``) names JAX or the JAX package, and that
-the chip scripts import without them."""
+``chip_ab.py``, ``chip_profile.py``, ``chip_repro.py``, ``chip_frames.py``) names JAX or the
+JAX package, and that the chip scripts import without them; the pooled
+loop alone, with its records and its tiers."""
 
 import ast
 import os
@@ -230,6 +231,36 @@ def test_port_never_imports_jax():
     _run(SCRIPT)
 
 
+WAVEFRONT_SCRIPT = """
+import sys
+import numpy as np
+from vk_raytrace_torch import render as R
+from vk_raytrace_torch.integrator import pool, wavefront
+from vk_raytrace_torch.models import procedural
+from vk_raytrace_torch.models.schema import PBR_GLTF, RenderConfig
+
+g, m, l, c = procedural.cornell_box()
+r = R.Renderer(R.build_scene(g, m, l, c), RenderConfig(width=32, height=32, max_depth=3,
+               max_samples=16, pbr_mode=PBR_GLTF), device="cpu")
+img, rays, steps, occ = wavefront.render_units_pooled(
+    r.scene, r.packed, r._run_cfg, 1, 0, 32 * 32, 8192, features=r.features,
+    track_steps=True, track_occupancy=True)
+n_it = int((occ >= 0).sum())
+assert img.shape == (32 * 32, 3) and np.isfinite(img.numpy()).all() and int(rays) > 16 * 32 * 32
+assert wavefront.LOOP["host_reads"] >= n_it > 2 and int(occ[0]) == 8192 and int(occ[n_it - 1]) <= 512
+assert steps.shape == (32 * 32,) and float((steps > 0).float().mean()) > 0.5
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+assert "vk_raytrace_tpu" not in sys.modules
+print("ok")
+"""
+
+
+def test_wavefront_loop_never_imports_jax():
+    """The pooled loop with its step and occupancy records and the tiered
+    tail (``integrator/wavefront.py``, ``integrator/pool.py``)."""
+    _run(WAVEFRONT_SCRIPT)
+
+
 def test_instanced_path_never_imports_jax():
     _run(INSTANCED_SCRIPT)
 
@@ -318,7 +349,8 @@ def _jax_imports(path):
     return [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "vk_raytrace_tpu")]
 
 
-CHIP_SCRIPTS = ("chip_smoke.py", "chip_ab.py", "chip_profile.py", "chip_repro.py")
+CHIP_SCRIPTS = ("chip_smoke.py", "chip_ab.py", "chip_profile.py", "chip_repro.py",
+                "chip_frames.py")
 
 
 @pytest.mark.parametrize("where", ("vk_raytrace_torch",) + CHIP_SCRIPTS)

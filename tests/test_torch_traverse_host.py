@@ -313,6 +313,39 @@ def test_host_alpha_rounds_match_loop(host_kernel, banners, name, kind, with_pac
     assert all(_same_bits(a, b) for a, b in zip(kern, again))
 
 
+@pytest.mark.parametrize("name", ["w16", "w16_spill"])
+def test_host_threads_share_one_stream(host_kernel, atrium, banners, name):
+    """Calls from four host threads on one stream, as the viewer's render
+    loop and its ``/pick`` make them: the a/b entry (closest and any) and
+    the alpha rounds, which share the width's scratch, each against its
+    plain version bit for bit on every call. Without the grid's lock one
+    call's scratch reset lands between another's reset and launch, and a
+    kernel finds the ray counter past its rays."""
+    geom, planars = atrium
+    alpha_planars, pack, rounds_rays = banners
+    host_kernel(name)
+    cases = []
+    for k, mode in enumerate(("closest", "any")):
+        o, d, t_max, active = _rays(geom, 40 + k)
+        cull = mode == "closest"
+        args = (planars[16], o, d, torch.full((N_RAYS,), tf.INF) if cull else t_max,
+                None if cull else active, mode, cull)
+        cases.append((tf._traverse_cuda, args, tf._traverse_plain(*args)[:5]))
+    args = (alpha_planars[16], None, *rounds_rays, True)
+    cases.append((ta._alpha_rounds_cuda, args, ta._rounds_core(*args)))
+    tf._load(16)
+
+    def run(k):
+        fn, args, want = cases[k % len(cases)]
+        for rep in range(3):
+            got = fn(*args)
+            for a, b in zip(got, want):
+                assert _same_bits(a, b), f"thread task {k}, call {rep}: differs from the plain version"
+
+    with ThreadPoolExecutor(4) as pool:
+        list(pool.map(run, range(12)))
+
+
 def test_host_alpha_rounds_zero_rays_and_refusals(host_kernel, banners):
     """No ray: no launch and empty outputs. The C entry refuses a scratch
     too small for the tree, 2^31 rays and a pack without its plane."""

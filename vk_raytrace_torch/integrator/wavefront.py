@@ -4,10 +4,18 @@
 A fixed pool of lanes traces paths; a lane whose path ends claims the next
 unclaimed (pixel, sample) unit of the slice by an exclusive prefix sum over
 the dead lanes, so the pool stays full until the units run out. Units map
-to pixels in 8x8 tiles. Each loop iteration runs one bounce for the live
-lanes only (gathered, then scattered back), which plays the role of the
-reference's tiered tail. A path's random stream is keyed on its pixel and
+to pixels in 8x8 tiles. A path's random stream is keyed on its pixel and
 sample, so the schedule never changes the estimator.
+
+The loop has the reference's form: the state spans the whole pool and every
+stage takes the ``active`` mask; once the units run out, a pool of at least
+8192 lanes is cut to a quarter of its width while more than a sixteenth is
+live, then to a sixteenth (the tiered tail, a stable partition that keeps
+the live lanes in lane order). Regeneration and the bounce's epilogue are
+one kernel each (``integrator/pool.py``, ``csrc/wavefront.cu``), and the
+loop's control (next unit, live lanes, rays) stays on the device: the host
+reads it once an iteration, as the reference's while-loop tests its
+condition, and nothing else in an iteration waits for the device.
 
 Per bounce: closest hit (opaque kernel, then alpha candidate rounds; in a
 two-level scene, instance candidate rounds over per-mesh BVHs, ``ops/tlas.py``),
@@ -29,11 +37,11 @@ import torch
 from ..ops import rng
 from ..ops.env import env_radiance, env_sample
 from ..ops.lights import sample_light
-from ..ops.math import dot, firefly_luminance, offset_ray, power_heuristic
+from ..ops.math import dot, offset_ray, power_heuristic
 from ..ops.sunsky import sun_disk_consts
 from ..ops.tlas import InstancedAccel, any_hit_instanced, closest_hit_instanced
 from ..ops.traverse_wide import any_hit_bundle, closest_hit_bundle
-from .camera import generate_rays_for_pixels
+from . import pool as lanes
 from . import shade_fused
 from .path import (
     _eval_bsdf, _sample_bsdf, cone_lod, env_bsdf_mis_weight, mip_lod_enabled, nee_strategy_pdf,
@@ -41,17 +49,58 @@ from .path import (
 )
 from .shade import get_shade_state, resolve_material
 
-# Per-lane path state carried between iterations.
-_FIELDS = (
-    "pix", "unit", "origin", "direction", "radiance", "throughput",
-    "absorption", "seed", "depth", "bsdf_pdf", "tdist",
-)
+# Pools of this many lanes or more run the tiered tail (the reference's rule).
+TIER_MIN_POOL = 8192
+# The loop's own counts: iterations, and the host's reads of the loop
+# control (one an iteration).
+LOOP = {"iterations": 0, "host_reads": 0}
+# With CHECK_SYNCS, each iteration's device work on a CUDA pool runs under
+# torch's sync debug mode "error": a host sync there raises.
+CHECK_SYNCS = False
+
+
+def reset_counts() -> None:
+    for k in LOOP:
+        LOOP[k] = 0
+
+
+@contextlib.contextmanager
+def _no_sync(dev):
+    if not (CHECK_SYNCS and dev.type == "cuda"):
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+class _ControlReader:
+    """The loop control's one read an iteration: ``(next_unit, live,
+    rays)``, through pinned memory on the card."""
+
+    def __init__(self, ctrl):
+        self.ctrl = ctrl
+        if ctrl.device.type == "cuda":
+            self.host = torch.empty(3, dtype=torch.int64, pin_memory=True)
+            self.done = torch.cuda.Event()
+
+    def read(self):
+        LOOP["host_reads"] += 1
+        if self.ctrl.device.type != "cuda":
+            return self.ctrl.tolist()
+        self.host.copy_(self.ctrl, non_blocking=True)
+        self.done.record()
+        self.done.synchronize()
+        return self.host.tolist()
 
 
 def render_units_pooled(
     scene, packed, cfg, frame: int, pix0: int, n_pix: int, pool: int,
     alpha_pack=None, features=None, fused_shade: bool = False, shade_tables=None, stream=None,
-    backend: str = "fused",
+    backend: str = "fused", track_steps: bool = False, track_occupancy: bool = False,
 ):
     """Trace ``n_pix * cfg.max_samples`` paths of pixels ``[pix0, pix0 +
     n_pix)``. A path's random stream is ``rng.tea(pixel, stream * spp +
@@ -66,21 +115,25 @@ def render_units_pooled(
     ``shade_fused.supported`` holds, the unfused stage elsewhere (the
     reference's rule; ``shade_fused.supported`` says which ran).
     ``shade_tables``: the fused stage's ``StageTables`` (built here when
-    None and the fused stage runs)."""
+    None and the fused stage runs).
+    With ``track_steps`` or ``track_occupancy`` it returns ``(radiance,
+    rays, steps, occ)``: ``steps`` (n_pix,) int32, each pixel's closest-hit
+    traversal steps summed over its paths' bounces (``track_steps``, else
+    None); ``occ`` (1024,) int32, the lanes active at each iteration's
+    bounce, -1 past the last iteration (``track_occupancy``, else None),
+    as the reference records them."""
     if cfg.use_sun_sky:
         raise ValueError("bake the sun&sky first (render.prepare_sun_sky)")
     dev = scene.shade_rows.device
-    w, h = cfg.width, cfg.height
+    h = cfg.height
     spp = cfg.max_samples
     total_units = n_pix * spp
     stream = frame if stream is None else stream
-    tiled = w % 8 == 0 and n_pix % (w * 8) == 0
-    tiles_x = w // 8
+    sl = lanes.make_slice(scene.camera, cfg, n_pix, pix0, stream, frame)
     use_mips = mip_lod_enabled(scene, cfg)
     spread = pixel_spread(scene, h) if use_mips else None
     p_select_light = 0.5 if cfg.hdr_multiplier > 0.0 else 1.0
     hdr_mult = cfg.hdr_multiplier
-    clamp = cfg.firefly_clamp
     n_lights = int(scene.n_lights)
     pack = alpha_pack if cfg.use_any_hit else None
     use_fused = shade_fused.supported(fused_shade, cfg, scene, features)
@@ -90,10 +143,11 @@ def render_units_pooled(
     # The sun disk's per-scene constants, once per call (the eager stage).
     sun = sun_disk_consts(scene.sun_sky) if cfg.sun_disk and not use_fused else None
 
-    def closest(o, d, seed):
+    def closest(o, d, seed, active):
         if instances is not None:
-            return closest_hit_instanced(packed, pack, o, d, seed=seed, backend=backend)
-        return closest_hit_bundle(packed, pack, o, d, seed, backend=backend)
+            return closest_hit_instanced(packed, pack, o, d, seed=seed, active=active,
+                                         backend=backend)
+        return closest_hit_bundle(packed, pack, o, d, seed, active=active, backend=backend)
 
     def occluded(o, d, t_max, seed, active):
         if instances is not None:
@@ -101,68 +155,16 @@ def render_units_pooled(
                                      backend=backend)
         return any_hit_bundle(packed, pack, o, d, t_max, seed, active=active, backend=backend)
 
-    def unit_to_local(p_rank):
-        t_id = p_rank // 64
-        w_in = p_rank % 64
-        lx = (t_id % tiles_x) * 8 + (w_in % 8)
-        ly = (t_id // tiles_x) * 8 + (w_in // 8)
-        return ly * w + lx
-
-    p = pool
-    st = dict(
-        pix=torch.zeros(p, dtype=torch.int64, device=dev),
-        unit=torch.zeros(p, dtype=torch.int64, device=dev),
-        origin=torch.zeros(p, 3, device=dev),
-        direction=torch.zeros(p, 3, device=dev),
-        radiance=torch.zeros(p, 3, device=dev),
-        throughput=torch.zeros(p, 3, device=dev),
-        absorption=torch.zeros(p, 3, device=dev),
-        seed=torch.zeros(p, dtype=torch.int64, device=dev),
-        depth=torch.zeros(p, dtype=torch.int64, device=dev),
-        bsdf_pdf=torch.zeros(p, device=dev),
-        tdist=torch.zeros(p, device=dev),
-    )
-    active = torch.zeros(p, dtype=torch.bool, device=dev)
-    out = torch.zeros(total_units, 3, device=dev)
-    rays = torch.zeros((), dtype=torch.int64, device=dev)
-    next_unit = 0
-
-    def regenerate(active, next_unit):
-        dead = ~active
-        rank = torch.cumsum(dead.long(), 0) - dead.long()
-        unit = next_unit + rank
-        granted = dead & (unit < total_units)
-        n_granted = min(int(dead.sum()), total_units - next_unit)
-        p_rank = unit // spp
-        local = unit_to_local(p_rank) if tiled else p_rank
-        upix = pix0 + local
-        usamp = unit % spp
-        seed_new = rng.tea(upix, stream * spp + usamp)
-        o, d, seed_new = generate_rays_for_pixels(scene.camera, w, h, upix, frame, seed_new)
-        g3 = granted[:, None]
-        st["pix"] = torch.where(granted, upix, st["pix"])
-        st["unit"] = torch.where(granted, unit, st["unit"])
-        st["origin"] = torch.where(g3, o, st["origin"])
-        st["direction"] = torch.where(g3, d, st["direction"])
-        st["radiance"] = torch.where(g3, 0.0, st["radiance"])
-        st["throughput"] = torch.where(g3, 1.0, st["throughput"])
-        st["absorption"] = torch.where(g3, 0.0, st["absorption"])
-        st["seed"] = torch.where(granted, seed_new, st["seed"])
-        st["depth"] = torch.where(granted, 0, st["depth"])
-        st["bsdf_pdf"] = torch.where(granted, 0.0, st["bsdf_pdf"])
-        st["tdist"] = torch.where(granted, 0.0, st["tdist"])
-        return active | granted, next_unit + n_granted
-
     def shade_stage(s, hit, seed):
         """The XLA shading stage of the reference, clause for clause."""
-        # Environment miss (pathtrace.glsl:203-228); every lane here is live.
-        miss = hit.tri < 0
+        # Environment miss (pathtrace.glsl:203-228)
+        miss = s["active"] & (hit.tri < 0)
         env = env_radiance(scene.env, sun, hdr_mult, s["direction"])
         if cfg.full_mis:
             w_env = env_bsdf_mis_weight(scene, s["bsdf_pdf"], s["direction"], p_select_light, sun)
             env = env * w_env[..., None]
         radiance = s["radiance"] + torch.where(miss[..., None], env * s["throughput"], 0.0)
-        alive = ~miss
+        alive = s["active"] & ~miss
 
         ss = get_shade_state(scene.shade_rows, hit.tri, hit.u, hit.v, instances, hit.inst)
         tdist = s["tdist"] + torch.where(hit.tri >= 0, torch.clamp(hit.t, max=1e30), 0.0)
@@ -240,10 +242,9 @@ def render_units_pooled(
     def shade_stage_fused(s, hit, seed):
         """The same clauses as :func:`shade_stage` in one kernel launch,
         which also adds the hit's t to the path length."""
-        # bounce() receives the live lanes only, so every lane is active.
         out = shade_fused.shade_bounce_fused(
             scene, features, cfg.full_mis, p_select_light, hdr_mult, hit, s["origin"],
-            s["direction"], seed, None, s["radiance"], s["throughput"], s["absorption"],
+            s["direction"], seed, s["active"], s["radiance"], s["throughput"], s["absorption"],
             s["bsdf_pdf"], instances=instances, sun_disk=cfg.sun_disk,
             mip=(spread, None) if use_mips else None, path_tdist=s["tdist"],
             tables=shade_tables,
@@ -253,11 +254,10 @@ def render_units_pooled(
             "nee", "light_dir", "light_dist", "visible", "rr_pcont", "pdf_b", "seed", "tdist",
         ))
 
-    def bounce(s):
-        """One bounce for a batch of live lanes; returns the new state and
-        the lanes still alive."""
-        hit, seed = closest(s["origin"], s["direction"], s["seed"])
-        n_rays = hit.tri.shape[0]
+    def iteration(st, it):
+        """Regeneration and one bounce over the whole pool, under its mask."""
+        lanes.regenerate(st, ctrl, occ, it, sl)
+        hit, seed = closest(st["origin"], st["direction"], st["seed"], st["active"])
         # A profiler range read by chip_profile.py, entered only while a
         # profiler runs: it costs a dispatcher call per bounce otherwise.
         stage_range = (
@@ -268,60 +268,55 @@ def render_units_pooled(
             (
                 radiance, alive, throughput, absorption, new_origin, new_dir,
                 nee, light_dir, light_dist, visible, rr_pcont, pdf_b, seed, tdist,
-            ) = (shade_stage_fused if use_fused else shade_stage)(s, hit, seed)
-        rr_gate = s["depth"] >= cfg.rr_depth if cfg.rr else torch.zeros_like(alive)
-        rr_pcont = torch.where(rr_gate, rr_pcont, 1.0)
+            ) = (shade_stage_fused if use_fused else shade_stage)(st, hit, seed)
+        # Deferred shadow ray (:320-331), then the epilogue (:334-472).
+        occl, seed = occluded(new_origin, light_dir, light_dist, seed, visible)
+        st.update(origin=new_origin, direction=new_dir, absorption=absorption, tdist=tdist)
+        lanes.retire(st, dict(
+            alive=alive, visible=visible, occluded=occl, radiance=radiance,
+            throughput=throughput, nee=nee, rr_pcont=rr_pcont, pdf_b=pdf_b, seed=seed,
+            hit_steps=hit.steps,
+        ), ctrl, out, steps, sl)
 
-        # Deferred shadow ray (:320-331)
-        occ, seed = occluded(new_origin, light_dir, light_dist, seed, visible)
-        radiance = radiance + torch.where((visible & ~occ)[..., None], nee, 0.0)
-        shadow_rays = visible.sum()
+    p = pool
+    st = lanes.empty_pool(p, dev)
+    ctrl = torch.zeros(3, dtype=torch.int64, device=dev)  # next_unit, live, rays
+    out = torch.zeros(total_units + p, 3, device=dev)
+    steps = torch.zeros(n_pix + 1, dtype=torch.int32, device=dev) if track_steps else None
+    occ = torch.full((lanes.OCC_LEN,), -1, dtype=torch.int32, device=dev) if track_occupancy else None
+    reader = _ControlReader(ctrl)
 
-        # Russian roulette (:334-338)
-        seed, u_rr = rng.rand(seed)
-        if cfg.rr:
-            alive = alive & ~(rr_gate & (u_rr >= rr_pcont))
-            throughput = torch.where(
-                alive[..., None], throughput / torch.clamp(rr_pcont, min=1e-9)[..., None], throughput
-            )
-        depth = s["depth"] + 1
-        alive = alive & (depth < cfg.max_depth)
-        s = dict(
-            pix=s["pix"], unit=s["unit"], origin=new_origin, direction=new_dir,
-            radiance=radiance, throughput=throughput, absorption=absorption,
-            seed=seed, depth=depth,
-            bsdf_pdf=torch.where(alive, pdf_b, s["bsdf_pdf"]),
-            tdist=tdist,
-        )
-        return s, alive, n_rays + shadow_rays
+    # The reference's conditions: full width while units remain or more
+    # than a quarter of the lanes live, a quarter while more than a
+    # sixteenth live, a sixteenth until none is.
+    def any_left(next_unit, live):
+        return next_unit < total_units or live > 0
 
-    while next_unit < total_units or bool(active.any()):
-        active, next_unit = regenerate(active, next_unit)
-        live = torch.nonzero(active).squeeze(1)
-        if live.numel() == p:
-            sub, alive, n = bounce(st)
-            st = sub
-        else:
-            sub, alive, n = bounce({k: st[k][live] for k in _FIELDS})
-            for k in _FIELDS:
-                st[k][live] = sub[k]
-        rays = rays + n
-        died = ~alive
-        # Path termination: firefly clamp, then write the unit's radiance.
-        rad = sub["radiance"][died]
-        lum = firefly_luminance(rad)
-        scale = torch.where(lum > clamp, clamp / torch.clamp(lum, min=1e-20), 1.0)
-        out[sub["unit"][died]] = rad * scale[..., None]
-        if live.numel() == p:
-            active = alive
-        else:
-            active = active.clone()
-            active[live] = alive
+    if p >= TIER_MIN_POOL:
+        q, s16 = p // 4, p // 16
+        tiers = ((p, lambda nu, live: nu < total_units or live > q),
+                 (q, lambda nu, live: live > s16), (s16, any_left))
+    else:
+        tiers = ((p, any_left),)
+    next_unit = live = it = 0
+    for width, keep_going in tiers:
+        if width < st["active"].shape[0]:
+            st = lanes.compact(st, width)
+        while keep_going(next_unit, live):
+            with _no_sync(dev):
+                iteration(st, it)
+            next_unit, live, _ = reader.read()
+            it += 1
+            LOOP["iterations"] += 1
 
-    img = out.reshape(n_pix, spp, 3).sum(dim=1) / float(spp)
-    if tiled:
+    img = out[:total_units].reshape(n_pix, spp, 3).sum(dim=1) / float(spp)
+    if sl.tiled:
         # Un-swizzle: pixel-rank of every slice-local pixel (closed form).
+        w, tiles_x = cfg.width, cfg.width // 8
         local = torch.arange(n_pix, device=dev)
         y, x = local // w, local % w
         img = img[((y // 8) * tiles_x + (x // 8)) * 64 + (y % 8) * 8 + (x % 8)]
+    rays = ctrl[2].clone()
+    if track_steps or track_occupancy:
+        return img, rays, steps[:n_pix] if steps is not None else None, occ
     return img, rays

@@ -713,14 +713,15 @@ def _opaque_machine_cuda(accel, subset, origin, direction, t_max, act, any_hit):
     t, u, v, tri, ibest, steps = f(), f(), f(), i32(), i32(), i32()
     if r == 0:  # nothing to launch, and so nothing to count
         return t, tri.long(), u, v, ibest.long(), steps
-    scratch, slots, stream = tf.machine_state(lib, planar, dev, False, any_hit, root.shape[0])
-    err = lib.vkrt_opaque_machine(
-        int(not any_hit), int(bool(any_hit)), planar.width, planar.rows.data_ptr(),
-        planar.stack_depth, box.data_ptr(), w2o.data_ptr(), root.data_ptr(), root.shape[0],
-        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), tf._ptr(act), r,
-        scratch.data_ptr(), scratch.numel(), slots, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
-        v.data_ptr(), ibest.data_ptr(), steps.data_ptr(), stream,
-    )
+    with tf.machine_state(lib, planar, dev, False, any_hit, root.shape[0]) as (
+            scratch, slots, stream):
+        err = lib.vkrt_opaque_machine(
+            int(not any_hit), int(bool(any_hit)), planar.width, planar.rows.data_ptr(),
+            planar.stack_depth, box.data_ptr(), w2o.data_ptr(), root.data_ptr(), root.shape[0],
+            origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), tf._ptr(act), r,
+            scratch.data_ptr(), scratch.numel(), slots, t.data_ptr(), tri.data_ptr(),
+            u.data_ptr(), v.data_ptr(), ibest.data_ptr(), steps.data_ptr(), stream,
+        )
     if err != 0:
         raise RuntimeError(f"opaque machine kernel launch failed: cudaError {err}")
     tf.LAUNCHES[tf.launch_key("opaque_machine", planar.width)] += 1
@@ -748,16 +749,17 @@ def _alpha_machine_cuda(accel, pack, origin, direction, t_max, seed, act, any_hi
     seed_out = torch.empty_like(seed)
     if r == 0:  # nothing to launch, and so nothing to count
         return t, tri.long(), u, v, inst.long(), seed_out, steps
-    scratch, slots, stream = tf.machine_state(lib, planar, dev, True, any_hit, n_inst)
-    err = lib.vkrt_alpha_machine(
-        int(bool(cull)), int(bool(any_hit)), planar.width, planar.rows.data_ptr(),
-        planar.stack_depth, box.data_ptr(), w2o.data_ptr(), root.data_ptr(), n_inst,
-        pack.rows.data_ptr(), pack.rows.shape[0], pack.alpha_plane.data_ptr(),
-        pack.alpha_plane.numel(), pack.atlas_width, origin.data_ptr(), direction.data_ptr(),
-        t_max.data_ptr(), tf._ptr(act), seed.data_ptr(), r, _A_MAX_ROUNDS, scratch.data_ptr(),
-        scratch.numel(), slots, t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-        inst.data_ptr(), seed_out.data_ptr(), steps.data_ptr(), stream,
-    )
+    with tf.machine_state(lib, planar, dev, True, any_hit, n_inst) as (scratch, slots, stream):
+        err = lib.vkrt_alpha_machine(
+            int(bool(cull)), int(bool(any_hit)), planar.width, planar.rows.data_ptr(),
+            planar.stack_depth, box.data_ptr(), w2o.data_ptr(), root.data_ptr(), n_inst,
+            pack.rows.data_ptr(), pack.rows.shape[0], pack.alpha_plane.data_ptr(),
+            pack.alpha_plane.numel(), pack.atlas_width, origin.data_ptr(), direction.data_ptr(),
+            t_max.data_ptr(), tf._ptr(act), seed.data_ptr(), r, _A_MAX_ROUNDS,
+            scratch.data_ptr(), scratch.numel(), slots, t.data_ptr(), tri.data_ptr(),
+            u.data_ptr(), v.data_ptr(), inst.data_ptr(), seed_out.data_ptr(), steps.data_ptr(),
+            stream,
+        )
     if err != 0:
         raise RuntimeError(f"alpha machine kernel launch failed: cudaError {err}")
     tf.LAUNCHES[tf.launch_key("alpha_machine", planar.width)] += 1
@@ -815,15 +817,15 @@ def _wide_machine_cuda(accel, pack, origin, direction, t_max, seed, act, part, a
     seed_out = torch.empty_like(seed)
     if r == 0:  # nothing to launch, and so nothing to count
         return t, tri.long(), u, v, inst.long(), seed_out, steps
-    scratch, slots, stream = tw._persistent(
-        lib, (1, int(bool(any_hit)), int(pack is not None), n_inst), depth, dev)
-    err = lib.vkrt_wide_machine(
-        int(bool(any_hit)), blas.rows.data_ptr(), depth, box.data_ptr(), w2o.data_ptr(),
-        root.data_ptr(), n_inst, origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(),
-        tf._ptr(act), seed.data_ptr(), *alpha, r, scratch.data_ptr(), scratch.numel(), slots,
-        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), inst.data_ptr(),
-        seed_out.data_ptr(), steps.data_ptr(), stream,
-    )
+    with tw._persistent(lib, (1, int(bool(any_hit)), int(pack is not None), n_inst), depth,
+                        dev) as (scratch, slots, stream):
+        err = lib.vkrt_wide_machine(
+            int(bool(any_hit)), blas.rows.data_ptr(), depth, box.data_ptr(), w2o.data_ptr(),
+            root.data_ptr(), n_inst, origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(),
+            tf._ptr(act), seed.data_ptr(), *alpha, r, scratch.data_ptr(), scratch.numel(),
+            slots, t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), inst.data_ptr(),
+            seed_out.data_ptr(), steps.data_ptr(), stream,
+        )
     if err != 0:
         raise RuntimeError(f"wide machine kernel launch failed: cudaError {err}")
     tf.LAUNCHES["wide_machine"] += 1

@@ -141,14 +141,14 @@ def _alpha_rounds_cuda(planar, pack, origin, direction, t_limit, seed, need, cul
     alpha = (None, 0, None, 0, 0) if pack is None else (
         pack.rows.data_ptr(), pack.rows.shape[0], pack.alpha_plane.data_ptr(),
         pack.alpha_plane.numel(), pack.atlas_width)
-    scratch, slots, stream = tf.machine_state(lib, planar, dev, tf.ROUNDS, not cull, 0)
-    err = lib.vkrt_alpha_rounds(
-        int(bool(cull)), planar.width, planar.rows.data_ptr(), planar.stack_depth,
-        origin.data_ptr(), direction.data_ptr(), t_limit.data_ptr(), tf._ptr(need),
-        seed.data_ptr(), *alpha, r, _MAX_ROUNDS, scratch.data_ptr(), scratch.numel(), slots,
-        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), seed_out.data_ptr(),
-        steps.data_ptr(), stream,
-    )
+    with tf.machine_state(lib, planar, dev, tf.ROUNDS, not cull, 0) as (scratch, slots, stream):
+        err = lib.vkrt_alpha_rounds(
+            int(bool(cull)), planar.width, planar.rows.data_ptr(), planar.stack_depth,
+            origin.data_ptr(), direction.data_ptr(), t_limit.data_ptr(), tf._ptr(need),
+            seed.data_ptr(), *alpha, r, _MAX_ROUNDS, scratch.data_ptr(), scratch.numel(),
+            slots, t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
+            seed_out.data_ptr(), steps.data_ptr(), stream,
+        )
     if err != 0:
         raise RuntimeError(f"alpha rounds kernel launch failed: cudaError {err}")
     tf.LAUNCHES[tf.launch_key("alpha_rounds", planar.width)] += 1

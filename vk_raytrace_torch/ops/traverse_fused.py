@@ -56,6 +56,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
+from contextlib import contextmanager
 from typing import NamedTuple, Optional
 
 import torch
@@ -484,34 +486,48 @@ class PersistentGrid:
     """The host state of one library's persistent entries: per (device,
     entry) the entry's resident threads, and per (device, stream) one scratch
     (the ray counter, the deepest stack a ray reached, the stack spill) that
-    every call of its entries on that stream reuses."""
+    every call of its entries on that stream reuses.
+
+    An entry's C call resets the scratch's head and then launches on the
+    stream. Two host threads on one stream (the viewer's render loop and a
+    ``/pick``) must not interleave those: the second reset would land
+    before the first launch, and the second kernel would find the ray
+    counter already past its rays and trace none. So a call holds the
+    grid's lock from the scratch's lookup through its C call (the
+    ``with`` of :meth:`state`); the stream then runs reset, kernel, reset,
+    kernel."""
 
     def __init__(self):
         self.slots = {}
         self.scratch = {}
+        self.lock = threading.Lock()
 
     def clear(self):
         self.slots.clear()
         self.scratch.clear()
 
+    @contextmanager
     def state(self, dev, entry, slots_of, words_of):
         """Entry ``entry``'s resident threads (``slots_of()``, asked once a
         device) and the scratch on ``dev``'s current stream, grown to
-        ``words_of(slots)`` int32 words. Returns (scratch, slots, stream)."""
+        ``words_of(slots)`` int32 words, as (scratch, slots, stream), with
+        the grid's lock held until the ``with`` block (the entry's C call)
+        ends."""
         dev = cuda_device(dev)
-        if (dev, entry) not in self.slots:
-            slots = slots_of()
-            if slots <= 0:
-                raise RuntimeError(f"no resident threads for the persistent entry {entry}")
-            self.slots[dev, entry] = slots
-        slots = self.slots[dev, entry]
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        words = words_of(slots)
-        scratch = self.scratch.get((dev, stream))
-        if scratch is None or scratch.numel() < words:
-            scratch = torch.empty(words, dtype=torch.int32, device=dev)
-            self.scratch[dev, stream] = scratch
-        return scratch, slots, stream
+        with self.lock:
+            if (dev, entry) not in self.slots:
+                slots = slots_of()
+                if slots <= 0:
+                    raise RuntimeError(f"no resident threads for the persistent entry {entry}")
+                self.slots[dev, entry] = slots
+            slots = self.slots[dev, entry]
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            words = words_of(slots)
+            scratch = self.scratch.get((dev, stream))
+            if scratch is None or scratch.numel() < words:
+                scratch = torch.empty(words, dtype=torch.int32, device=dev)
+                self.scratch[dev, stream] = scratch
+            yield scratch, slots, stream
 
     def _head(self, device):
         dev = cuda_device(device)
@@ -578,7 +594,8 @@ def machine_state(lib, planar, dev, kind, any_hit: bool, n_inst: int):
     """The persistent grid of a round machine (``kind`` as in
     :func:`machine_occupancy`) on ``planar``'s width: (scratch, resident
     threads, stream) on ``dev``'s current stream, the scratch shared with
-    the a/b entries."""
+    the a/b entries; a context manager (:meth:`PersistentGrid.state`) around
+    the entry's C call."""
     entry = (_MACHINE_NAMES[int(kind)], int(any_hit), n_inst)
     return _AB_GRIDS[planar.width].state(
         dev, entry, lambda: lib.vkrt_machine_slots(int(kind), int(any_hit), n_inst),
@@ -597,15 +614,16 @@ def _traverse_ab(lib, planar, origin, direction, t_max, active, mode):
     t, tri, u, v, steps, _, _ = _outputs(R, dev, False)
     if R == 0:  # nothing to launch, and so nothing to count
         return t, tri.long(), u, v, steps, None, None
-    scratch, slots, stream = _AB_GRIDS[planar.width].state(
-        dev, mode, lambda: lib.vkrt_traverse_ab_slots(_MODE_ID[mode]),
-        lambda slots: lib.vkrt_traverse_ab_words(planar.stack_depth, slots))
-    err = lib.vkrt_traverse_ab(
-        _MODE_ID[mode], planar.width, planar.rows.data_ptr(), planar.stack_depth,
-        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), _ptr(active), R,
-        scratch.data_ptr(), scratch.numel(), slots, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
-        v.data_ptr(), steps.data_ptr(), stream,
-    )
+    with _AB_GRIDS[planar.width].state(
+            dev, mode, lambda: lib.vkrt_traverse_ab_slots(_MODE_ID[mode]),
+            lambda slots: lib.vkrt_traverse_ab_words(planar.stack_depth, slots)) as (
+            scratch, slots, stream):
+        err = lib.vkrt_traverse_ab(
+            _MODE_ID[mode], planar.width, planar.rows.data_ptr(), planar.stack_depth,
+            origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), _ptr(active), R,
+            scratch.data_ptr(), scratch.numel(), slots, t.data_ptr(), tri.data_ptr(),
+            u.data_ptr(), v.data_ptr(), steps.data_ptr(), stream,
+        )
     if err != 0:
         raise RuntimeError(f"traverse kernel launch failed: cudaError {err}")
     LAUNCHES[launch_key(mode, planar.width)] += 1

@@ -446,8 +446,9 @@ def _load():
 
 def _persistent(lib, entry, stack_depth, dev):
     """The persistent grid of ``entry``: its resident threads and a scratch
-    on the current stream large enough for a tree with this stack bound.
-    Returns (scratch, slots, stream)."""
+    on the current stream large enough for a tree with this stack bound:
+    (scratch, slots, stream), a context manager around the entry's C call
+    (:meth:`traverse_fused.PersistentGrid.state`)."""
     return _GRID.state(dev, entry, lambda: lib.vkrt_wide_slots(*entry),
                        lambda slots: lib.vkrt_wide_words(stack_depth, slots))
 
@@ -497,14 +498,14 @@ def _traverse_wide_cuda(wide, pack, origin, direction, t_max, seed, active, any_
     seed_out = torch.empty(R, dtype=torch.int64, device=dev)
     if R == 0:  # nothing to launch, and so nothing to count
         return t, tri.long(), u, v, steps, seed_out
-    scratch, slots, stream = _persistent(lib, (0, int(bool(any_hit)), int(pack is not None), 0),
-                                         depth, dev)
-    err = lib.vkrt_traverse_wide(
-        int(bool(any_hit)), rows.data_ptr(), depth, origin.data_ptr(), direction.data_ptr(),
-        t_max.data_ptr(), tf._ptr(active), tf._ptr(root0), tf._ptr(seed), *alpha, R,
-        scratch.data_ptr(), scratch.numel(), slots, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
-        v.data_ptr(), steps.data_ptr(), seed_out.data_ptr(), stream,
-    )
+    with _persistent(lib, (0, int(bool(any_hit)), int(pack is not None), 0), depth, dev) as (
+            scratch, slots, stream):
+        err = lib.vkrt_traverse_wide(
+            int(bool(any_hit)), rows.data_ptr(), depth, origin.data_ptr(), direction.data_ptr(),
+            t_max.data_ptr(), tf._ptr(active), tf._ptr(root0), tf._ptr(seed), *alpha, R,
+            scratch.data_ptr(), scratch.numel(), slots, t.data_ptr(), tri.data_ptr(),
+            u.data_ptr(), v.data_ptr(), steps.data_ptr(), seed_out.data_ptr(), stream,
+        )
     if err != 0:
         raise RuntimeError(f"wide traverse kernel launch failed: cudaError {err}")
     tf.LAUNCHES["traverse_wide"] += 1
