@@ -40,8 +40,10 @@ prints, for the traced frame:
 * the wavefront loop: its iterations, the host's reads of the loop control
   (one an iteration), the lanes active at each iteration's bounce (the
   traced frame asks ``render_units_pooled`` for its occupancy record), and
-  the device ms and launches of the loop's kernels (``vkrt_regenerate``'s
-  count and apply passes, ``vkrt_retire``);
+  the device ms and launches of the loop's kernels (``vkrt_regenerate``,
+  ``vkrt_retire``);
+* the alpha pass's root prefilter: device ms and launches of
+  ``vkrt_root_prefilter`` (one launch an alpha pass);
 * the top K device kernels by total time;
 * peak device memory allocated over the timed and the traced frames.
 
@@ -79,8 +81,10 @@ MACHINES = (("alpha rounds", "alpha_rounds_kernel"), ("opaque machine", "opaque_
 SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 SHADE = ("shade_stage_kernel", "shade_kernel")  # csrc/shade.cu: the whole stage, the body alone
 STAGE = "shade_stage"  # the wavefront's profiler range around its shading stage
-# csrc/wavefront.cu: vkrt_regenerate's two passes, vkrt_retire.
-LOOP_KERNELS = ("regenerate_count_kernel", "regenerate_kernel", "retire_kernel")
+# csrc/wavefront.cu: vkrt_regenerate (one launch), vkrt_retire.
+LOOP_KERNELS = ("regenerate_kernel", "retire_kernel")
+# csrc/traverse.cu: the alpha pass's root prefilter, one launch an alpha pass.
+PREFILTER = "root_prefilter_kernel"
 
 
 def device_events(prof):
@@ -340,7 +344,7 @@ def main():
         evs = [ev for ev in trav if (m := TRAVERSE_MODE.search(ev[0])) and int(m.group(1)) == i]
         print(f"  {mode} ({roots}): {sum(e - s for _, s, e in evs) / 1e3:.3f} ms in "
               f"{len(evs)} launches")
-    for label, name in MACHINES:
+    for label, name in MACHINES + (("root prefilter", PREFILTER),):
         evs = [ev for ev in kernels if name in ev[0]]
         print(f"{label}: {sum(e - s for _, s, e in evs) / 1e3:.3f} ms in {len(evs)} launches")
     print(f"shading stage: {stage_ms:.3f} device ms in {len(in_stage)} launches "

@@ -25,7 +25,7 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
    and on the CPU, and fused against unfused on the card;
 5. the main path: the full atrium (~217k triangles) at 1920x1080, depth 4,
    1 spp, sun&sky, one warm-up and three timed frames; modes a and b, the
-   alpha rounds kernel and the loop's kernels (``vkrt_regenerate``,
+   root prefilter, the alpha rounds kernel and the loop's kernels (``vkrt_regenerate``,
    ``vkrt_retire``) must have launched, and the per-round mode c not;
    the sun&sky environment built a second time equals the renderer's byte
    for byte (image, alias table, pdfs, rows);
@@ -288,6 +288,20 @@ loop control on the card) and its two kernels (``csrc/wavefront.cu``):
     (``wavefront.CHECK_SYNCS``): the iterations, one host read of the loop
     control an iteration, and the launches a frame and an iteration.
 
+The alpha pass's need mask (``traverse_fused.alpha_need``), one launch of
+``vkrt_root_prefilter`` a call:
+
+40. the kernel against its plain version ``_alpha_need_plain`` on the card,
+    the same bools, at widths 16 and 32: on the fused atrium's closest
+    (t_limit the opaque hit) and shadow passes of a real 1080p frame at
+    the loop's iterations 0, 2, 10 and 11 (2^18, 2^18, 2^16 and 2^14
+    lanes), each timed on fresh copies beside the plain version and its
+    bound (the flags, t_limit and rays the data needs, the children tested
+    up to the first hit); and on every synthetic set of
+    ``prefilter_rays`` (random, along the axes with +-0 and components
+    below 1e-20, NaN and +-inf, t_limit <= 0 / INF / inf / NaN,
+    subnormals) with ``active`` absent, about half and none.
+
 The script keeps its files (checkpoints, images, the port's scene cache)
 in a temporary directory that it removes at exit. No depth was cut for
 time: the whole script ran in about half its time limit on the card.
@@ -522,8 +536,9 @@ BASELINE2_CFG = dict(width=512, height=512, max_samples=16, max_depth=5, hdr_mul
 # The debug-mode phase: the full atrium at reduced resolution.
 DEBUG_W, DEBUG_H, DEBUG_DEPTH = 160, 90, 4
 # The single-level main path's kernels (LAUNCHES keys at width 16): modes a
-# and b over the opaque tree, the alpha rounds over the alpha tree.
-ATRIUM_KERNELS = ("closest", "any", "alpha_rounds")
+# and b over the opaque tree, the alpha pass's root prefilter and the alpha
+# rounds over the alpha tree.
+ATRIUM_KERNELS = ("closest", "any", "root_prefilter", "alpha_rounds")
 # Kernel vs twin: the same float32 operations in the same order, rounded
 # per operation on both sides (nvcc -fmad=false); t/u/v within a few ulp.
 RTOL, ATOL = 1e-5, 1e-5
@@ -684,6 +699,79 @@ def random_rays(rng, positions, n, dev):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return (torch.tensor(o, dtype=torch.float32, device=dev),
             torch.tensor(d, dtype=torch.float32, device=dev))
+
+
+# The root prefilter's synthetic ray sets (prefilter_rays) and its active
+# masks: none (every ray), about half, none active.
+PREFILTER_CASES = ("random", "axes", "nan", "t_limit", "subnormal")
+PREFILTER_ACTIVE = ("absent", "partial", "none")
+
+
+def prefilter_rays(case, planar, n, rng):
+    """``n`` rays for the alpha pass's root prefilter (``tf.alpha_need``)
+    against ``planar``'s root row, from the numpy generator ``rng``:
+    ``random``: origins inside and around the root children's union box,
+    half aimed at a point of a random child's box, t_limit in (0.1, twice
+    the box) or INF (a quarter); ``axes``: directions along +-x, y or z with
+    the other components among +-0 and normal magnitudes below 1e-20, a
+    tenth tiny in every component, a fifth of the origins on a child's
+    bounding plane; ``nan``: NaN or +-inf in one component of the origin or
+    the direction, or in t_limit, +-3e38 in the origin or t_limit (an eighth
+    of the rays left clean); ``t_limit``: t_limit among -1, +-0, 1e-30,
+    1e-3, INF, inf, -inf and NaN; ``subnormal``: a subnormal component of
+    the direction or the origin, or a direction component so large that its
+    reciprocal is subnormal. Returns float32 CPU tensors (origin,
+    direction, t_limit)."""
+    row = planar.rows[0].cpu().numpy().astype(np.float64)
+    w = planar.width
+    bmin, bmax = row[:3 * w].reshape(3, w).T, row[3 * w:6 * w].reshape(3, w).T
+    kids = np.flatnonzero(row[:w] <= row[3 * w:4 * w])
+    lo, hi = bmin[kids].min(0), bmax[kids].max(0)
+    ext = hi - lo
+    o = rng.uniform(lo - 0.5 * ext, hi + 0.5 * ext, (n, 3))
+    pick = rng.choice(kids, n)
+    d = rng.normal(size=(n, 3))
+    aim = rng.random(n) < 0.5
+    d[aim] = rng.uniform(bmin[pick], bmax[pick])[aim] - o[aim]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_limit = np.where(rng.random(n) < 0.25, 1e32, rng.uniform(0.1, 2.0 * ext.max(), n))
+    rows_n = np.arange(n)
+    k = rng.integers(0, 3, n)  # a component per ray
+    if case == "axes":
+        tiny = np.array([0.0, -0.0, 1e-21, -1e-21, 9.9e-21, -9.9e-21, 2e-38, -2e-38])
+        d = tiny[rng.integers(0, len(tiny), (n, 3))]
+        main = rng.random(n) >= 0.1
+        d[rows_n[main], k[main]] = rng.choice([-1.0, 1.0], int(main.sum()))
+        plane = rng.random(n) < 0.2
+        j = (k + 1) % 3
+        face = np.where(rng.random(n) < 0.5, bmin[pick, j], bmax[pick, j])
+        o[rows_n[plane], j[plane]] = face[plane]
+    elif case == "nan":
+        bad = np.array([np.nan, np.inf, -np.inf, 3e38, -3e38])[rng.integers(0, 5, n)]
+        bad_d = np.where(np.abs(bad) == 3e38, np.nan, bad)  # 1 / 3e38 is subnormal
+        where = rng.integers(0, 8, n)  # 0 origin, 1 direction, 2 t_limit, 3-7 clean
+        o[rows_n[where == 0], k[where == 0]] = bad[where == 0]
+        d[rows_n[where == 1], k[where == 1]] = bad_d[where == 1]
+        t_limit[where == 2] = bad[where == 2]
+    elif case == "t_limit":
+        t_limit = np.array([-1.0, 0.0, -0.0, 1e-30, 1e-3, 1e32, np.inf, -np.inf,
+                            np.nan])[rng.integers(0, 9, n)]
+    elif case == "subnormal":
+        sub = np.array([1e-40, -1e-40, 1e-44, -1e-44, 3e38, -3e38, 1e38, -1e38])
+        where = rng.integers(0, 3, n)  # 0 direction, 1 origin (subnormal only), 2 clean
+        d[rows_n[where == 0], k[where == 0]] = sub[rng.integers(0, len(sub), n)][where == 0]
+        o[rows_n[where == 1], k[where == 1]] = sub[rng.integers(0, 4, n)][where == 1]
+    elif case != "random":
+        raise ValueError(f"no prefilter case {case!r}")
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))  # noqa: E731
+    return f32(o), f32(d), f32(t_limit)
+
+
+def prefilter_active(kind, n, rng):
+    """The active mask of :data:`PREFILTER_ACTIVE` kind ``kind`` (None: absent)."""
+    if kind == "absent":
+        return None
+    return torch.from_numpy(rng.random(n) < (0.5 if kind == "partial" else 0.0))
 
 
 def rays_at(rng, geom, ids, n, dev):
@@ -2705,8 +2793,7 @@ REGEN_REPLACES = "vk_raytrace_tpu/integrator/wavefront.py:158"  # regenerate
 RETIRE_REPLACES = "vk_raytrace_tpu/integrator/wavefront.py:404"  # the epilogue after the shadow ray
 WAVEFRONT_REPLACES_KIND = "XLA body (render_units_pooled's regenerate / bounce epilogue), not a pallas_call"
 WAVEFRONT_KERNELS = ("regenerate", "retire")
-# Bytes and operations of the function, not of the kernel's two passes
-# (which read every flag twice): a regeneration reads every flag once and
+# Bytes and operations of the function: a regeneration reads every flag once and
 # writes a granted lane's 101 bytes (pix, unit, seed, depth 8 each; origin,
 # direction, radiance, throughput, absorption 12 each; bsdf_pdf, tdist 4
 # each; the flag); a granted lane's TEA (16 rounds of ~14 integer operations), four
@@ -2801,13 +2888,22 @@ def capture_states(r, frame):
     return regen, retire
 
 
-def events_ms(calls):
+# Device cycles (~3 ms) that the card sleeps before a queued timing starts.
+QUEUE_SLEEP_CYCLES = 5_000_000
+
+
+def events_ms(calls, queue=False):
     """Mean ms per call of ``calls`` run back to back between two CUDA
     events, after the first as a warm-up (each call on inputs of its own,
-    prepared beforehand, so that the events time the device's work)."""
+    prepared beforehand, so that the events time the device's work). With
+    ``queue`` the card first sleeps while the host queues every call, so
+    that a kernel shorter than its host call is timed, not the host's
+    launch rate."""
     calls[0]()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queue:
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     a.record()
     for call in calls[1:]:
         call()
@@ -2868,7 +2964,7 @@ def regen_case(what, args, card, reps=10):
     n_bytes, n_ops = regen_work(st0, ctrl0, sl.total_units)
     bnd = tb.bound(n_bytes, n_ops)
     print(f"regenerate, {what}: {granted} lanes granted, bit for bit (max |err| {err}) -> "
-          f"OK; kernel {ms:.4f} ms (two launches), plain {plain_ms:.3f} ms; bound "
+          f"OK; kernel {ms:.4f} ms (one launch), plain {plain_ms:.3f} ms; bound "
           f"{bnd[0]:.4f} ms by {bnd[1]} "
           f"({n_bytes / 1e6:.2f} MB; {ms / bnd[0]:.1f}x the bound) ({card})", flush=True)
     return ms, plain_ms, bnd, n_bytes, granted, err
@@ -2998,6 +3094,152 @@ def phase_wavefront(card, scene, cfg, bundle, bistro_args):
     del rb, bscene
     torch.cuda.empty_cache()
     return regen_res, retire_res, counts
+
+
+# ---- Phase 40: the alpha pass's root prefilter -------------------------------
+PREFILTER_REPLACES = "vk_raytrace_tpu/ops/traverse_fused.py:575"  # root_prefilter
+PREFILTER_REPLACES_KIND = ("XLA body (root_prefilter, with the need line of _alpha_rounds at "
+                           "vk_raytrace_tpu/ops/traverse_alpha.py:175-183), not a pallas_call")
+# The loop iterations whose alpha passes phase 40 captures: a fresh pool, a
+# full one, the first at a quarter and at a sixteenth of the pool.
+PREFILTER_ITERATIONS = (0, 2, 10, 11)
+# Operations of one root child's test (csrc/traverse.cu root_child_hit):
+# the valid compare, 6 subtract, 6 multiply, 6 NaN tests, 10 min/max, 3
+# compares.
+PREFILTER_CHILD_OPS = 32
+PREFILTER_SYNTH_RAYS = 1 << 16
+
+
+def prefilter_work(planar, o, d, t_limit, active):
+    """(bytes, ops) the alpha pass's need mask moves and does on these
+    rays: each ray's output byte and its flag (where ``active`` is given),
+    t_limit where active, the ray (24 B) where t_limit > 0 too, the root
+    row's 6·W bounds once; the root children each such ray tests, in order
+    up to its first hit."""
+    from vk_raytrace_torch.ops import traverse_fused as tf
+
+    n = o.shape[0]
+    act = torch.ones(n, dtype=torch.bool, device=o.device) if active is None else active
+    tested = act & (t_limit > 0.0)
+    valid, bmin, bmax = tf._root_boxes(planar.rows, planar.width)
+    tn, tfar = tf._slab(bmin[None], bmax[None], o[:, None, :], tf.inv_dir(d)[:, None, :])
+    hit = valid[None] & (tn <= tfar) & (tfar >= 0.0) & (tn < t_limit[:, None])
+    first = torch.where(hit.any(1), hit.int().argmax(1) + 1, planar.width)
+    n_bytes = (n * (2 if active is not None else 1) + 4 * int(act.sum())
+               + 24 * int(tested.sum()) + 24 * planar.width)
+    return n_bytes, PREFILTER_CHILD_OPS * int(first[tested].sum())
+
+
+def capture_alpha_inputs(r, frame):
+    """Render ``frame`` through ``r`` and keep copies of the alpha pass's
+    inputs, closest (culling) and shadow, at the loop iterations
+    :data:`PREFILTER_ITERATIONS` (each kind's k-th call is iteration k).
+    Returns a list of (label, (planar, origin, direction, t_limit,
+    active))."""
+    from vk_raytrace_torch.ops import traverse_alpha as ta
+
+    got, calls, orig = [], {True: -1, False: -1}, ta._alpha_rounds
+
+    def hook(planar, pack, origin, direction, t_limit, seed, active, cull):
+        calls[cull] += 1
+        if calls[cull] in PREFILTER_ITERATIONS:
+            got.append((f"iteration {calls[cull]}, {'closest' if cull else 'shadow'} pass, "
+                        f"{origin.shape[0]} lanes",
+                        (planar, origin.clone(), direction.clone(), t_limit.clone(),
+                         None if active is None else active.clone())))
+        return orig(planar, pack, origin, direction, t_limit, seed, active, cull)
+
+    ta._alpha_rounds = hook
+    try:
+        r.render_frame(frame)
+        torch.cuda.synchronize()
+    finally:
+        ta._alpha_rounds = orig
+    return got
+
+
+def prefilter_check(what, args):
+    """vkrt_root_prefilter (one launch) against ``_alpha_need_plain`` on
+    the same rays: the same bools. Returns (rays that need the rounds,
+    max_abs_err)."""
+    from vk_raytrace_torch.ops import traverse_fused as tf
+
+    planar, o, d, t_limit, act = args
+    key = tf.launch_key("root_prefilter", planar.width)
+    before = tf.LAUNCHES[key]
+    kern = tf.alpha_need(planar, o, d, t_limit, act)
+    plain = tf._alpha_need_plain(planar, o, d, t_limit, act)
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES[key] == before + 1, f"root prefilter, {what}: not one launch"
+    err = float((kern.int() - plain.int()).abs().max()) if kern.numel() else 0.0
+    assert kern.dtype == torch.bool and torch.equal(kern, plain), (
+        f"root prefilter, {what}: {int((kern != plain).sum())} rays differ from the plain version")
+    return int(kern.sum()), err
+
+
+def prefilter_case(what, args, card, reps=10):
+    """:func:`prefilter_check`, then both timed (the kernel on a fresh copy
+    of the rays a call, so that most reads come from HBM; queued behind a
+    sleep, as the host's call takes longer than the kernel). Returns (ms,
+    plain_ms, (bound_ms, bound_by), bytes, rays that need the rounds,
+    max_abs_err)."""
+    from vk_raytrace_torch import travbench as tb
+    from vk_raytrace_torch.ops import traverse_fused as tf
+
+    need, err = prefilter_check(what, args)
+    planar, o, d, t_limit, act = args
+    copies = [tuple(x if x is None else x.clone() for x in (o, d, t_limit, act))
+              for _ in range(reps + 1)]
+    ms = events_ms([lambda c=c: tf._alpha_need_cuda(planar, *c) for c in copies], queue=True)
+    plain_ms = events_ms([lambda: tf._alpha_need_plain(planar, o, d, t_limit, act)
+                          for _ in range(3)])
+    n_bytes, n_ops = prefilter_work(planar, o, d, t_limit, act)
+    bnd = tb.bound(n_bytes, n_ops)
+    print(f"root prefilter W{planar.width}, {what}: {need} of {o.shape[0]} rays need the rounds, "
+          f"equal to the plain version -> OK; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
+          f"{bnd[0]:.4f} ms by {bnd[1]} ({n_bytes / 1e6:.2f} MB, {n_ops / 1e6:.1f} M ops; "
+          f"{ms / bnd[0]:.1f}x the bound) ({card})", flush=True)
+    return ms, plain_ms, bnd, n_bytes, need, err
+
+
+def phase_prefilter(card, scene, cfg, bundles, rng):
+    """Phase 40: the alpha pass's root prefilter on the card against its
+    plain version, bit for bit, at widths 16 and 32 (``bundles``: width ->
+    accel bundle): on the fused atrium's closest and shadow passes of a
+    real 1080p frame at iterations 0, 2, 10 and 11, timed beside the bound,
+    and on every synthetic set of ``prefilter_rays`` with ``active``
+    absent, about half and none. Returns {width: ({label: the frame's case
+    result}, the largest max_abs_err of the synthetic sets)}."""
+    from vk_raytrace_torch import render as R
+
+    dev = torch.device("cuda", 0)
+    res = {}
+    for width, bnd_ in bundles.items():
+        r = R.Renderer(scene, cfg, device=dev, packed=bnd_, fused_shade=True)
+        r.render_frame(0)
+        captured = capture_alpha_inputs(r, 1)
+        del r
+        kinds = {label.split(", ")[1] for label, _ in captured}
+        assert len(captured) == 2 * len(PREFILTER_ITERATIONS) and kinds == {
+            "closest pass", "shadow pass"}, [label for label, _ in captured]
+        frame = {label: prefilter_case(label, args, card) for label, args in captured}
+        del captured
+        planar = bnd_.alpha_planar.to(dev)
+        errs = []
+        for case in PREFILTER_CASES:
+            o, d, t_limit = (x.to(dev) for x in prefilter_rays(case, planar,
+                                                                PREFILTER_SYNTH_RAYS, rng))
+            for active in PREFILTER_ACTIVE:
+                act = prefilter_active(active, PREFILTER_SYNTH_RAYS, rng)
+                act = None if act is None else act.to(dev)
+                errs.append(prefilter_check(f"{case}, active {active}",
+                                            (planar, o, d, t_limit, act))[1])
+        res[width] = frame, max(errs)
+        print(f"root prefilter W{width}: {len(errs)} synthetic sets of {PREFILTER_SYNTH_RAYS} rays "
+              f"({', '.join(PREFILTER_CASES)}; active {', '.join(PREFILTER_ACTIVE)}) equal to the "
+              f"plain version bit for bit ({card})", flush=True)
+        torch.cuda.empty_cache()
+    return res
 
 
 def main():
@@ -3485,7 +3727,8 @@ def main():
     # ---- 15. the atrium main path at width 32 -------------------------------
     phase("main path, width 32")
     del g32
-    w16_keys = tf.MODES + tf.ROOT_MODES + ("alpha_machine", "alpha_rounds", "opaque_machine")
+    w16_keys = tf.MODES + tf.ROOT_MODES + ("alpha_machine", "root_prefilter", "alpha_rounds",
+                                           "opaque_machine")
     r32 = R.Renderer(scene, cfg, device=dev, packed=bundle32, fused_shade=True)
     w_launches = frames(
         r32, "atrium", [f"{m}_w32" for m in ATRIUM_KERNELS],
@@ -4027,6 +4270,11 @@ def main():
     regen_res, retire_res, loop_res = phase_wavefront(
         card, scene, cfg, bundle, (pool, inst, b_mats, b_lights, b_cam, b_atlas))
 
+    # ---- 40. the alpha pass's root prefilter ---------------------------------
+    phase("40. vkrt_root_prefilter against its plain version at widths 16 and 32: a 1080p "
+          "frame's alpha passes and the synthetic ray sets")
+    prefilter_res = phase_prefilter(card, scene, cfg, {16: bundle, 32: bundle32}, rng)
+
     def traverse_entry(m, lau, replaces):
         """``launches``: the main path's count (``lau``). The per-round kernels
         of the modes the machines run (mode c from the root, modes a/b/c with
@@ -4152,7 +4400,24 @@ def main():
             "per_frame": {k: v["launches"].get(name, 0) for k, v in loop_res.items()},
             "host_reads": {k: v["host_reads"] for k, v in loop_res.items()},
         })
-    print(f"phases 1-39 passed in {time.time() - T_START:.1f} s [{card}]", flush=True)
+    for key, lau, (res, synth_err) in (("root_prefilter", launches, prefilter_res[16]),
+                                       ("root_prefilter_w32", w_launches, prefilter_res[32])):
+        # Times and bound: iteration 2's closest pass (the full pool); the
+        # frame's passes in "cases"; the error over every case.
+        ms, plain_ms, (b_ms, b_by), *_ = next(
+            v for k, v in res.items() if k.startswith("iteration 2, closest"))
+        entry = {
+            "name": key, "route": "cuda", "source": SOURCE, "replaces": PREFILTER_REPLACES,
+            "replaces_kind": PREFILTER_REPLACES_KIND, "launches": lau[key],
+            "max_abs_err": max([synth_err] + [v[-1] for v in res.values()]), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "cases": {k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2][0], "bound_by": v[2][1],
+                          "need": v[4]} for k, v in res.items()},
+        }
+        if key == "root_prefilter":  # the launches of phases 31-34's paths
+            entry["paths_launches"] = {p: v.get(key, 0) for p, v in path_launches.items()}
+        kernels.append(entry)
+    print(f"phases 1-40 passed in {time.time() - T_START:.1f} s [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

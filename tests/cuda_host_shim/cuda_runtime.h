@@ -91,6 +91,13 @@ inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v)
   *p = old + v;
   return old;
 }
+// atomicInc: the old value; the word wraps to 0 past `limit`.
+inline unsigned atomicInc(unsigned* p, unsigned limit) {
+  const unsigned old = *p;
+  *p = old >= limit ? 0u : old + 1u;
+  return old;
+}
+inline void __threadfence() {}
 inline int atomicMax(int* p, int v) {
   const int old = *p;
   *p = std::max(old, v);

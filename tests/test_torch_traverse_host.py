@@ -18,6 +18,13 @@ reused, zero rays, a deep alpha cloud past the sixteen shared entries, the
 24-round cap on a stack of 30 rejecting panels, and the refusal of a
 scratch too small.
 
+The alpha pass's root prefilter (``vkrt_root_prefilter``) through the
+same libraries at both widths: ``traverse_fused._alpha_need_cuda`` against
+``_alpha_need_plain`` on ``chip_smoke.prefilter_rays``'s sets (random, along
+the axes with +-0 and components below 1e-20, NaN and +-inf, t_limit <= 0,
+INF, inf and NaN, subnormals) with ``active`` absent, about half and none:
+equal bools; zero rays and refusals.
+
 Also the rank formula of a child order in registers (each hit child's rank
 the number of hits j with key_j < key_i, or key_j == key_i and j < i: how
 ``sort_children_kernel`` ranks, and the a/b entry's first design, which
@@ -438,3 +445,53 @@ def test_host_alpha_rounds_cap_each_ray_at_24(host_kernel, kind):
     np.testing.assert_array_equal(kern[4].numpy()[a], s.astype(np.int64)[a])
     np.testing.assert_array_equal(kern[4].numpy()[~a], seed.numpy()[~a])
     assert (kern[5][~act] == 0).all() and (kern[5][act] > 0).all()
+
+
+# ---------------------------------------------------------------------------
+# The alpha pass's root prefilter (vkrt_root_prefilter)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", chip_smoke.PREFILTER_CASES)
+@pytest.mark.parametrize("name", ["w16", "w32"])
+def test_host_root_prefilter_matches_plain(host_kernel, atrium_bundles, name, case):
+    """``traverse_fused._alpha_need_cuda`` on the host library against
+    ``_alpha_need_plain`` on the atrium's alpha tree, each of
+    ``chip_smoke.prefilter_rays``'s sets with ``active`` absent, about half
+    and none: the same bools, one launch a call. The host build's fminf /
+    fmaxf drop a NaN as the card's do, so the NaN set holds the kernel to
+    torch's propagation here too."""
+    width = dict((b[0], b[1]) for b in BUILDS)[name]
+    planar = atrium_bundles[1][width].alpha_planar
+    host_kernel(name)
+    key = tf.launch_key("root_prefilter", width)
+    rng = np.random.default_rng(31 * width + chip_smoke.PREFILTER_CASES.index(case))
+    o, d, t_limit = chip_smoke.prefilter_rays(case, planar, 3001, rng)
+    for active in chip_smoke.PREFILTER_ACTIVE:
+        act = chip_smoke.prefilter_active(active, 3001, rng)
+        before = tf.LAUNCHES[key]
+        kern = tf._alpha_need_cuda(planar, o, d, t_limit, act)
+        assert tf.LAUNCHES[key] == before + 1
+        plain = tf._alpha_need_plain(planar, o, d, t_limit, act)
+        assert kern.dtype == torch.bool and torch.equal(kern, plain), (
+            f"{name} {case} {active}: {int((kern != plain).sum())} rays differ")
+        if active != "none":
+            assert 0 < int(plain.sum()) < 3001
+
+
+def test_host_root_prefilter_zero_rays_and_refusals(host_kernel, atrium_bundles):
+    """No ray: no launch and an empty mask. The wrapper refuses rays it does
+    not take (an active mask that is not bool), the C entry another width."""
+    planar = atrium_bundles[1][16].alpha_planar
+    host_kernel("w16")
+    o, d, t_limit = chip_smoke.prefilter_rays("random", planar, 64, np.random.default_rng(2))
+    key = tf.launch_key("root_prefilter", 16)
+    before = tf.LAUNCHES[key]
+    none = tf._alpha_need_cuda(planar, o[:0], d[:0], t_limit[:0], None)
+    assert tf.LAUNCHES[key] == before and none.shape == (0,) and none.dtype == torch.bool
+    with pytest.raises(ValueError, match="active"):
+        tf._alpha_need_cuda(planar, o, d, t_limit, torch.ones(64, dtype=torch.uint8))
+    need = torch.empty(64, dtype=torch.bool)
+    assert tf._load(16).vkrt_root_prefilter(32, planar.rows.data_ptr(), o.data_ptr(),
+                                            d.data_ptr(), t_limit.data_ptr(), None, 64,
+                                            need.data_ptr(), None) != 0

@@ -31,7 +31,10 @@ camera's sum in the CPU's order and x / w divided, as torch does on the
 CPU), against the plain versions: bit for bit but the camera rays, whose
 normalise takes libm's correctly rounded sqrt where torch's CPU sqrt is not
 always (within 2 ulp); a full pool, a mostly dead one, one with every unit
-granted already, the tiers' widths.
+granted already, the tiers' widths, every lane dead, none dead, and a pool
+off a multiple of the card's 256-lane chunk (the host build's chunks are one
+lane, so its blocks run the scan's look-back in launch order and never
+wait).
 """
 
 import os
@@ -353,6 +356,9 @@ def _same_state(a, b, camera_ulps=False):
     (3001, 0.97, 0.4, 2, True),    # mostly dead, jittered
     (2053, 0.5, 1.0, 1, False),    # every unit granted already: nothing changes
     (8192 // 16, 0.8, 0.999, 3, True),  # the last tier's width, the last few units
+    (1000, 1.0, 0.0, 1, True),     # every lane dead, a fresh slice
+    (1500, 0.0, 0.2, 2, True),     # no lane dead: nothing granted
+    (8 * 256 + 37, 0.6, 0.5, 1, True),  # off a multiple of the card's 256-lane chunk
 ])
 def test_regenerate_kernel_matches_plain(host_kernels, cameras, n, dead_share, granted_share,
                                          frame, track):

@@ -35,8 +35,11 @@
 // union-box test; refs in such a table are absolute rows, so nothing else
 // changes.
 //
-// Six more entries:
+// Seven more entries:
 //   vkrt_traverse_ab: modes a and b from the root, persistent warps;
+//   vkrt_root_prefilter: which rays the single-level alpha rounds need (the
+//     per-child slab test against the root row; see "The alpha pass's root
+//     prefilter" below), a thread a ray;
 //   vkrt_alpha_rounds, vkrt_opaque_machine, vkrt_alpha_machine: the round
 //     machines (see "The round machines" below), each a host loop of
 //     traversal rounds run whole in one launch, in persistent warps on the
@@ -63,7 +66,7 @@
 // to within a few ulp and child order and leaf tie-breaks are the twin's.
 //
 // One library per row width: the wrapper builds this file twice, with
-// -DVKRT_WIDTH=16 and -DVKRT_WIDTH=32, in parallel (each holds 22 kernels).
+// -DVKRT_WIDTH=16 and -DVKRT_WIDTH=32, in parallel (each holds 23 kernels).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1315,6 +1318,58 @@ sort_children_kernel(const float* __restrict__ keys, const int32_t* __restrict__
   }
 }
 
+// ---- The alpha pass's root prefilter ------------------------------------------
+// Replaces the XLA body root_prefilter (vk_raytrace_tpu/ops/traverse_fused.py:575)
+// with the line of _alpha_rounds around it (vk_raytrace_tpu/ops/
+// traverse_alpha.py:175-183): ray r needs the alpha rounds where
+//   active[r] & t_limit[r] > 0 & any_c(valid_c & tn_c <= tf_c & tf_c >= 0 & tn_c < t_limit[r])
+// over the W children c of root row 0 (valid: bmin.x <= bmax.x, x alone, as
+// _root_boxes tests), tn_c / tf_c the slab test with the guarded reciprocal.
+// One thread a lane reads its flag (an inactive lane reads nothing else),
+// t_limit and its ray, and writes one byte, with no (R, W, 3) temporaries:
+// bound by those ~30 bytes a lane, the root row's 6·W bounds loaded once a
+// block into shared memory. Bit for bit with torch on the card: sub then product
+// rounded apart, IEEE reciprocal (guard_inv), and NaN as torch.minimum /
+// maximum / amax / amin propagate it: any NaN among a child's six plane
+// distances makes tn and tf NaN and the child a miss (fminf / fmaxf would
+// drop it); -0.0 takes +1e-20 in guard_inv, as inv_dir's d < 0 does.
+template <int W>
+__device__ __forceinline__ bool root_child_hit(const Ray& y, const float* b, int c, float t_limit) {
+  if (!(b[c] <= b[3 * W + c])) return false;
+  const float lx = __fmul_rn(__fsub_rn(b[c], y.ox), y.ix);
+  const float hx = __fmul_rn(__fsub_rn(b[3 * W + c], y.ox), y.ix);
+  const float ly = __fmul_rn(__fsub_rn(b[W + c], y.oy), y.iy);
+  const float hy = __fmul_rn(__fsub_rn(b[4 * W + c], y.oy), y.iy);
+  const float lz = __fmul_rn(__fsub_rn(b[2 * W + c], y.oz), y.iz);
+  const float hz = __fmul_rn(__fsub_rn(b[5 * W + c], y.oz), y.iz);
+  if (lx != lx || hx != hx || ly != ly || hy != hy || lz != lz || hz != hz) return false;
+  const float tn = fmaxf(fmaxf(fminf(lx, hx), fminf(ly, hy)), fminf(lz, hz));
+  const float tf = fminf(fminf(fmaxf(lx, hx), fmaxf(ly, hy)), fmaxf(lz, hz));
+  return tn <= tf && tf >= 0.0f && tn < t_limit;
+}
+
+template <int W>
+__global__ void __launch_bounds__(256)
+root_prefilter_kernel(const float* __restrict__ rows, const float* __restrict__ origin,
+                      const float* __restrict__ direction, const float* __restrict__ t_limit,
+                      const uint8_t* __restrict__ active, int64_t n,
+                      uint8_t* __restrict__ need) {
+  __shared__ float s_box[6 * W];  // bmin x | y | z, bmax x | y | z of the root's children
+  for (int k = threadIdx.x; k < 6 * W; k += blockDim.x) s_box[k] = rows[k];
+  __syncthreads();
+  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  bool hit = false;
+  if (active == nullptr || active[r]) {
+    const float tl = t_limit[r];
+    if (tl > 0.0f) {
+      const Ray y = load_ray(origin, direction, r);
+      for (int c = 0; c < W && !hit; ++c) hit = root_child_hit<W>(y, s_box, c, tl);
+    }
+  }
+  need[r] = hit ? 1 : 0;
+}
+
 struct Args {
   const float* rows;
   const float* o;
@@ -1691,6 +1746,22 @@ int vkrt_opaque_machine(int cull, int any_hit, int width, const float* rows, int
         tri, u, v, inst, steps);
     return (int64_t)cudaGetLastError();
   });
+}
+
+// The alpha pass's need mask over n_rays rays (root_prefilter_kernel): a
+// thread a ray, need[r] 1 or 0. `active` may be null (every ray). Returns
+// cudaGetLastError() after the launch.
+int vkrt_root_prefilter(int width, const float* rows, const float* origin,
+                        const float* direction, const float* t_limit, const uint8_t* active,
+                        int64_t n_rays, uint8_t* need, void* stream) {
+  if (width != kWidth || n_rays < 0) return (int)cudaErrorInvalidValue;
+  if (n_rays == 0) return 0;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int threads = 256;
+  const int64_t blocks = (n_rays + threads - 1) / threads;
+  root_prefilter_kernel<kWidth><<<(unsigned)blocks, threads, 0, s>>>(
+      rows, origin, direction, t_limit, active, n_rays, need);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -34,14 +34,16 @@
 // floats, the flag) against ~150 integer and ~60 float operations; a retired
 // lane reads ~90 bytes and writes ~50. Every access is per lane and
 // coalesced, one thread a lane. The only part that crosses blocks is the
-// exclusive scan over the dead flags: a one-block count pass (each warp
-// counts chunks of kChunk flags with coalesced byte loads, the block scans
-// the chunk counts and keeps a running carry) writes each chunk's offset,
-// then the apply pass (one block a chunk) ranks its lanes with a warp ballot
-// and a scan of the eight warp counts. Two launches; the count pass reads
-// the 2^18 flags (256 KB) on one SM, 39-41 us a launch in a 1080p atrium
-// frame (chip_profile.py, NVIDIA H100 80GB HBM3, 700.00 W). Integer atomics are
-// order-free, so the counts and the step record are deterministic.
+// exclusive scan over the dead flags, a single-pass scan with decoupled
+// look-back in the one launch (Merrill and Garland): each block counts its
+// chunk's dead lanes with warp ballots, publishes the count, then reads its
+// predecessors' published counts or prefixes with one warp, 32 at a time,
+// until it meets a prefix, and publishes its own. Integer sums are
+// order-free, so the ranks, the counts and the step record are
+// deterministic. The scan is in the one launch because a separate
+// one-block count pass is latency-bound on one SM (39-41 us of a 59 us
+// call in a 1080p atrium frame, chip_profile.py, NVIDIA H100 80GB HBM3,
+// 700.00 W).
 //
 // Numerics follow the plain torch versions (wavefront._regenerate_plain,
 // _retire_plain) operation by operation as torch computes them on the card:
@@ -82,7 +84,7 @@ struct RegenArgs {
   uint8_t* active;
   int64_t* ctrl;      // {next_unit, live, rays}
   int32_t* occ;       // (1024,) or null
-  int64_t* scratch;   // (ceil(n / kChunk) + 1,): chunk offsets, then next_unit
+  int64_t* scratch;   // vkrt_regenerate_scratch_words(n): the scan's ticket, epoch and statuses
   const float* camera;  // view_inverse (4, 4), proj_inverse (4, 4), focal_dist, aperture
   int64_t n, total_units, spp, pix0, stream, width, height, tiles_x;
   int32_t tiled, frame0, it;
@@ -171,89 +173,118 @@ __device__ __forceinline__ void normalize(float& x, float& y, float& z) {
   z = __fdiv_rn(z, l);
 }
 
-// Exclusive scan of v over the block (any blockDim up to 1024); writes the
-// block's total to *total. Every thread of the block must call it.
-__device__ int64_t block_exclusive_scan(int64_t v, int64_t* total) {
-  __shared__ int64_t s_warp[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = (blockDim.x + 31) >> 5;
-  int64_t x = v;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int64_t y = __shfl_up_sync(0xffffffffu, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31 || threadIdx.x == blockDim.x - 1) s_warp[warp] = x;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int64_t run = 0;
-    for (int w = 0; w < n_warps; ++w) {
-      const int64_t c = s_warp[w];
-      s_warp[w] = run;
-      run += c;
-    }
-    *total = run;
-  }
-  __syncthreads();
-  const int64_t out = s_warp[warp] + x - v;
-  __syncthreads();  // s_warp is reused by the next call
-  return out;
+// The scan's scratch, int64 words kept per device and stream by the wrapper
+// (zeroed once when made, never reset): [0] the ticket counter (its low 32
+// bits), [1] the launch's epoch, [kRegenHead + c] chunk c's status,
+// epoch << 32 | flag << 30 | value, the value the chunk's dead lanes
+// (kAggregate) or the dead lanes of chunks 0..c (kPrefix). A status of
+// another epoch is a status not yet written in this launch.
+constexpr int kRegenHead = 2;
+constexpr unsigned kAggregate = 1, kPrefix = 2;
+constexpr uint64_t kValueMask = (1ull << 30) - 1;
+
+__device__ __forceinline__ uint64_t load_volatile(const int64_t* p) {
+  return *reinterpret_cast<const volatile uint64_t*>(p);
+}
+__device__ __forceinline__ void store_volatile(int64_t* p, uint64_t v) {
+  *reinterpret_cast<volatile uint64_t*>(p) = v;
+}
+__device__ __forceinline__ uint64_t status_word(uint32_t epoch, unsigned flag, int64_t value) {
+  return ((uint64_t)epoch << 32) | ((uint64_t)flag << 30) | (uint64_t)value;
 }
 
-// The count pass: one block. Each chunk's dead lanes, their exclusive
-// prefix over the chunks (scratch[c]), next_unit before the grant
-// (scratch[nb]), and the grant itself.
-__global__ void __launch_bounds__(1024) regenerate_count_kernel(RegenArgs a) {
-  if (blockIdx.x != 0) return;
-  __shared__ int64_t s_count[1024];
-  __shared__ int64_t s_total;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = (blockDim.x + 31) >> 5, warp_width = blockDim.x < 32 ? blockDim.x : 32;
-  const int64_t nb = (a.n + kChunk - 1) / kChunk;
-  int64_t carry = 0;
-  for (int64_t g = 0; g < nb; g += blockDim.x) {
-    const int64_t g_end = g + blockDim.x < nb ? g + blockDim.x : nb;
-    for (int64_t c = g + warp; c < g_end; c += n_warps) {
-      const int64_t lo = c * kChunk, hi = lo + kChunk < a.n ? lo + kChunk : a.n;
-      unsigned dead = 0;
-      for (int64_t i = lo + lane; i < hi; i += warp_width) dead += a.active[i] ? 0u : 1u;
-      dead = __reduce_add_sync(0xffffffffu, dead);
-      if (lane == 0) s_count[c - g] = dead;
+// The decoupled look-back of chunk c > 0 by the first `nl` lanes of a warp:
+// the dead lanes of chunks 0..c-1. Each pass reads the statuses of the nl
+// chunks below `top` (lane 0 the nearest), each lane waiting until its
+// chunk has published in this epoch; the nearest prefix ends the walk,
+// else the nl aggregates are added and the window moves down. A chunk
+// below 0 reads as a prefix of 0. The sum fits 32 bits: at most one prefix
+// (< 2^30) and nl - 1 aggregates (each at most kChunk).
+__device__ int64_t look_back(const int64_t* status, int64_t c, uint32_t epoch, int lane,
+                             int nl) {
+  const unsigned lanes = nl == 32 ? 0xffffffffu : (1u << nl) - 1u;
+  int64_t exclusive = 0;
+  for (int64_t top = c - 1;; top -= nl) {
+    const int64_t k = top - lane;
+    uint64_t s = status_word(epoch, kPrefix, 0);
+    if (k >= 0) {
+      do {
+        s = load_volatile(status + k);
+      } while ((uint32_t)(s >> 32) != epoch || ((s >> 30) & 3u) == 0);
     }
-    __syncthreads();
-    const int64_t c = g + threadIdx.x;
-    const int64_t v = c < g_end ? s_count[threadIdx.x] : 0;
-    const int64_t ex = block_exclusive_scan(v, &s_total);
-    if (c < g_end) a.scratch[c] = carry + ex;
-    carry += s_total;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    const int64_t next = a.ctrl[0];
-    const int64_t remaining = a.total_units - next;
-    const int64_t granted = carry < remaining ? carry : remaining;
-    a.scratch[nb] = next;
-    a.ctrl[0] = next + granted;
-    a.ctrl[1] = 0;
-    if (a.occ != nullptr) a.occ[a.it < 1023 ? a.it : 1023] = (int32_t)(a.n - carry + granted);
+    const unsigned prefix = __ballot_sync(lanes, ((s >> 30) & 3u) == kPrefix);
+    const unsigned low = prefix & (0u - prefix);  // the nearest prefix's lane
+    const unsigned upto = prefix ? (low << 1) - 1u : 0xffffffffu;
+    const unsigned v = (upto >> lane) & 1u ? (unsigned)(s & kValueMask) : 0u;
+    exclusive += __reduce_add_sync(lanes, v);
+    if (prefix) return exclusive;
   }
 }
 
-// The apply pass: one block a chunk, one thread a lane.
+// One block a chunk of kChunk lanes, one thread a lane, in one launch: the
+// block takes its chunk from a ticket (the order blocks start in, so a block
+// only ever waits on chunks whose blocks run), counts the chunk's dead lanes
+// with warp ballots, publishes the count, finds the dead lanes below the
+// chunk by the look-back, publishes its prefix and ranks its lanes. The
+// last chunk's block writes the grant once the look-back has seen every
+// chunk publish; each block reads next_unit before it publishes, so none
+// reads it after the grant.
 __global__ void __launch_bounds__(kChunk) regenerate_kernel(RegenArgs a) {
   __shared__ int s_warp[(kChunk + 31) / 32];
+  __shared__ int64_t s_chunk, s_next, s_below;
+  __shared__ uint32_t s_epoch;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t i = (int64_t)blockIdx.x * kChunk + threadIdx.x;
+  const int n_warps = (blockDim.x + 31) >> 5;
+  const int64_t nb = (a.n + kChunk - 1) / kChunk;
+  int64_t* status = a.scratch + kRegenHead;
+  if (threadIdx.x == 0) {
+    // Tickets 0..nb-1; the last one takes the counter back to 0 for the next launch.
+    s_chunk = atomicInc(reinterpret_cast<unsigned*>(a.scratch), (unsigned)(nb - 1));
+    s_epoch = (uint32_t)load_volatile(a.scratch + 1);
+    s_next = (int64_t)load_volatile(a.ctrl);
+  }
+  __syncthreads();
+  const int64_t c = s_chunk;
+  const uint32_t epoch = s_epoch;
+  const int64_t i = c * kChunk + threadIdx.x;
   const bool dead = i < a.n && !a.active[i];
   const unsigned ballot = __ballot_sync(0xffffffffu, dead);
   const unsigned below = lane == 0 ? 0u : ballot & (0xffffffffu >> (32 - lane));
   if (lane == 0) s_warp[warp] = __popc(ballot);
   __syncthreads();
-  int before = 0;
-  for (int w = 0; w < warp; ++w) before += s_warp[w];
+  int before = 0, count = 0;
+  for (int w = 0; w < n_warps; ++w) {
+    before += w < warp ? s_warp[w] : 0;
+    count += s_warp[w];
+  }
+  if (warp == 0) {
+    if (lane == 0) {
+      __threadfence();  // next_unit and the epoch are read before the chunk publishes
+      store_volatile(status + c, status_word(epoch, c == 0 ? kPrefix : kAggregate, count));
+    }
+    const int64_t ex = c == 0 ? 0 : look_back(status, c, epoch, lane,
+                                              blockDim.x < 32 ? (int)blockDim.x : 32);
+    if (lane == 0) {
+      if (c > 0) store_volatile(status + c, status_word(epoch, kPrefix, ex + count));
+      s_below = ex;
+    }
+  }
+  __syncthreads();
+  const int64_t next = s_next;
+  if (c == nb - 1 && threadIdx.x == 0) {
+    // Every chunk has published, so every block has read next_unit.
+    const int64_t n_dead = s_below + count;
+    const int64_t remaining = a.total_units - next;
+    const int64_t granted = n_dead < remaining ? n_dead : remaining;
+    __threadfence();
+    a.ctrl[0] = next + granted;
+    a.ctrl[1] = 0;
+    if (a.occ != nullptr) a.occ[a.it < 1023 ? a.it : 1023] = (int32_t)(a.n - n_dead + granted);
+    store_volatile(a.scratch + 1, (uint64_t)(epoch + 1u));
+  }
   if (!dead) return;
-  const int64_t nb = (a.n + kChunk - 1) / kChunk;
-  const int64_t rank = a.scratch[blockIdx.x] + before + __popc(below);
-  const int64_t unit = a.scratch[nb] + rank;
+  const int64_t rank = s_below + before + __popc(below);
+  const int64_t unit = next + rank;
   if (unit >= a.total_units) return;
 
   // The unit's pixel: its rank's place in the 8x8 tiles, or its rank.
@@ -392,11 +423,12 @@ __global__ void __launch_bounds__(256) retire_kernel(RetireArgs a) {
 
 extern "C" {
 
-// Both return cudaGetLastError() after the launches.
+// Both return cudaGetLastError() after the launch; vkrt_regenerate refuses a
+// pool of 2^30 lanes or more (a chunk's status holds its count in 30 bits).
 int vkrt_regenerate(const RegenArgs* a, void* stream) {
   if (a->n <= 0) return 0;
+  if (a->n > (int64_t)kValueMask) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  regenerate_count_kernel<<<1, 1024, 0, s>>>(*a);
   const int64_t blocks = (a->n + kChunk - 1) / kChunk;
   regenerate_kernel<<<(unsigned)blocks, kChunk, 0, s>>>(*a);
   return (int)cudaGetLastError();
@@ -412,6 +444,7 @@ int vkrt_retire(const RetireArgs* a, void* stream) {
 
 int vkrt_regenerate_args_size() { return (int)sizeof(RegenArgs); }
 int vkrt_retire_args_size() { return (int)sizeof(RetireArgs); }
-int vkrt_regenerate_chunk() { return kChunk; }
+// int64 words of vkrt_regenerate's scratch for a pool of n lanes.
+int64_t vkrt_regenerate_scratch_words(int64_t n) { return kRegenHead + (n + kChunk - 1) / kChunk; }
 
 }  // extern "C"

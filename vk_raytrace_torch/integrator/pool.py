@@ -18,13 +18,13 @@ to ``rays``. The loop reads the three once an iteration.
 The pool's state is a dict of tensors over its lanes (:data:`FIELDS` and
 ``active``); both stages update it in place or rebind its entries. CUDA
 tensors launch the kernel or raise; CPU tensors run the plain version.
-:data:`LAUNCHES` counts the kernels' launches (one a call; a regeneration is
-two kernels, a count pass and the apply pass).
+:data:`LAUNCHES` counts the kernels' launches (one a call each).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -272,7 +272,8 @@ def _load():
             if size != ctypes.sizeof(args):
                 raise RuntimeError(f"{args.__name__}: {size} bytes in the library, "
                                    f"{ctypes.sizeof(args)} in the binding")
-        lib.vkrt_regenerate_chunk.restype = ctypes.c_int
+        lib.vkrt_regenerate_scratch_words.argtypes = [ctypes.c_int64]
+        lib.vkrt_regenerate_scratch_words.restype = ctypes.c_int64
         _lib = lib
     return _lib
 
@@ -310,13 +311,29 @@ def _retire_cuda(st, b, ctrl, out, steps, sl):
         launch("retire", retire_args(st, b, ctrl, out, steps, sl))
 
 
+# The regeneration scan's scratch per (device, stream): zeroed when made and
+# never reset, since each launch stamps what it publishes with its own epoch
+# and takes its ticket counter back to 0; grown for a larger pool.
+_SCRATCH = {}
+_SCRATCH_LOCK = threading.Lock()
+
+
+def _scan_scratch(dev, n):
+    words = _load().vkrt_regenerate_scratch_words(n)
+    key = (dev, _stream(dev))
+    with _SCRATCH_LOCK:
+        scratch = _SCRATCH.get(key)
+        if scratch is None or scratch.numel() < words:
+            scratch = _SCRATCH[key] = torch.zeros(words, dtype=torch.int64, device=dev)
+    return scratch
+
+
 def regenerate_args(st, ctrl, occ, it, sl):
     """``vkrt_regenerate``'s checked arguments on a pool of at least one
     lane, holding the scan's scratch."""
     dev = st["active"].device
     n = st["active"].shape[0]
-    scratch = torch.empty(-(-n // _load().vkrt_regenerate_chunk()) + 1, dtype=torch.int64,
-                          device=dev)
+    scratch = _scan_scratch(dev, n)
     a = _RegenArgs(
         *(_state_ptr(st, k, n, dev) for k in FIELDS + ("active",)),
         _ptr("ctrl", ctrl, (3,), torch.int64, dev), _ptr("occ", occ, (OCC_LEN,), torch.int32, dev),
@@ -324,7 +341,7 @@ def regenerate_args(st, ctrl, occ, it, sl):
         n, sl.total_units, sl.spp, sl.pix0, sl.stream, sl.width, sl.height, sl.width // 8,
         int(sl.tiled), int(sl.frame == 0), it,
     )
-    a.device, a.keep = dev, scratch  # the scratch lives as long as the arguments
+    a.device, a.keep = dev, scratch
     return a
 
 

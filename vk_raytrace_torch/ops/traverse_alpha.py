@@ -23,7 +23,7 @@ from ..models.schema import ALPHA_MASK
 from . import rng
 from . import traverse_fused as tf
 from .texture import _wrap
-from .traverse_fused import INF, Hit, root_prefilter
+from .traverse_fused import INF, Hit
 
 _MAX_ROUNDS = 24          # bound on rejected candidates along one ray
 _ADV_REL = 1e-4           # window advance past a rejected candidate
@@ -157,12 +157,13 @@ def _alpha_rounds_cuda(planar, pack, origin, direction, t_limit, seed, need, cul
 
 def _alpha_rounds(planar, pack, origin, direction, t_limit, seed, active, cull):
     """Rays that can reach the alpha tree within (0, t_limit) — per-child
-    root prefilter — run the candidate rounds. Returns ``(Hit, seed')``."""
+    root prefilter (``traverse_fused.alpha_need``: one launch of
+    ``vkrt_root_prefilter`` on the card) — run the candidate rounds.
+    Returns ``(Hit, seed')``."""
     r = origin.shape[0]
     if seed is None:
         seed = torch.zeros(r, dtype=torch.int64, device=origin.device)
-    need0 = torch.ones(r, dtype=torch.bool, device=origin.device) if active is None else active
-    need0 = need0 & (t_limit > 0.0) & root_prefilter(planar, origin, direction, t_limit)
+    need0 = tf.alpha_need(planar, origin, direction, t_limit, active)
     bt, btri, bu, bv, seed, steps = _rounds(
         planar, pack, origin, direction, t_limit, seed, need0, cull
     )

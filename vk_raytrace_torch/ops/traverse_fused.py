@@ -31,7 +31,12 @@ resident blocks per SM and :func:`stack_reached` the deepest stack of its
 last call. :data:`LAUNCHES` counts kernel launches per mode, with
 per-lane roots under ``<mode>_roots`` and width-32 rows under ``..._w32``.
 
-Two more entries, each with its plain version beside it:
+Three more entries, each with its plain version beside it:
+
+* :func:`alpha_need`: which rays the single-level alpha rounds trace (the
+  per-child slab test against the root row, :func:`root_prefilter`, with
+  the ``active`` and ``t_limit > 0`` gates), a thread a ray on the card
+  (``vkrt_root_prefilter``);
 
 * :func:`sort_children`: the child order of interior rows alone (the order
   every interior step takes; the counterpart of the TPU kernel's bitonic
@@ -79,6 +84,7 @@ CAPPED_KEYS = ("capped", "nogather", "capped_w32", "nogather_w32")
 SORT_KEYS = ("sort_children", "sort_children_w32")
 MACHINE_KEYS = ("alpha_machine", "alpha_machine_w32")
 ROUNDS_KEYS = ("alpha_rounds", "alpha_rounds_w32")
+PREFILTER_KEYS = ("root_prefilter", "root_prefilter_w32")
 OPAQUE_KEYS = ("opaque_machine", "opaque_machine_w32")
 # The wide back end's kernels (ops/traverse_wide.py, ops/tlas.py,
 # csrc/traverse_wide.cu): one tree, and the two-level rounds whole.
@@ -86,12 +92,14 @@ WIDE_KEYS = ("traverse_wide", "wide_machine")
 
 # Kernel launches per entry, counted where the wrapper launches: traversal
 # per mode (``<mode>_roots`` with per-lane roots, ``_w32`` at width 32), the
-# capped and no-gather entries, the child sort, and the round machines: the
+# capped and no-gather entries, the child sort, the alpha pass's root
+# prefilter, and the round machines: the
 # single-level alpha rounds (``ops/traverse_alpha.py``), the two-level opaque
 # rounds and the two-level alpha machine (``ops/tlas.py``), and the wide
 # back end's kernels (``vkrt_traverse_wide``, ``vkrt_wide_machine``).
 LAUNCHES = {m: 0 for m in (MODES + ROOT_MODES + W32_MODES + CAPPED_KEYS + SORT_KEYS
-                           + MACHINE_KEYS + ROUNDS_KEYS + OPAQUE_KEYS + WIDE_KEYS)}
+                           + MACHINE_KEYS + ROUNDS_KEYS + PREFILTER_KEYS + OPAQUE_KEYS
+                           + WIDE_KEYS)}
 
 
 def reset_launches() -> None:
@@ -163,6 +171,44 @@ def root_prefilter(planar: PlanarScene, origin, direction, t_max) -> torch.Tenso
     tn, tf = _slab(bmin[None], bmax[None], origin[:, None, :], inv_dir(direction)[:, None, :])
     hit = valid[None] & (tn <= tf) & (tf >= 0.0) & (tn < t_max[:, None])
     return torch.any(hit, dim=1)
+
+
+def _alpha_need_plain(planar: PlanarScene, origin, direction, t_limit, active=None):
+    """The plain version of :func:`alpha_need` (torch on any device)."""
+    need = torch.ones_like(t_limit, dtype=torch.bool) if active is None else active
+    return need & (t_limit > 0.0) & root_prefilter(planar, origin, direction, t_limit)
+
+
+def _alpha_need_cuda(planar: PlanarScene, origin, direction, t_limit, active):
+    """One launch of ``vkrt_root_prefilter``."""
+    lib = _load(planar.width)
+    r, dev = origin.shape[0], origin.device
+    active = _check_rays(lib, planar, origin, direction, t_limit, active)
+    need = torch.empty(r, dtype=torch.bool, device=dev)
+    if r == 0:  # nothing to launch, and so nothing to count
+        return need
+    err = lib.vkrt_root_prefilter(
+        planar.width, planar.rows.data_ptr(), origin.data_ptr(), direction.data_ptr(),
+        t_limit.data_ptr(), _ptr(active), r, need.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"root prefilter kernel launch failed: cudaError {err}")
+    LAUNCHES[launch_key("root_prefilter", planar.width)] += 1
+    return need
+
+
+def alpha_need(planar: PlanarScene, origin, direction, t_limit, active=None) -> torch.Tensor:
+    """Which rays the single-level alpha rounds must trace: ``active`` (all
+    where None), ``t_limit > 0`` and a root child hit within ``(0,
+    t_limit)`` (:func:`root_prefilter`); the reference's line before its
+    rounds (``traverse_alpha.py:175-183``). CUDA tensors launch
+    ``vkrt_root_prefilter`` (or raise), CPU tensors run the plain version."""
+    if origin.device.type == "cuda":
+        return _alpha_need_cuda(planar, origin, direction, t_limit, active)
+    if origin.device.type != "cpu":
+        raise ValueError(f"no root prefilter for device {origin.device}")
+    return _alpha_need_plain(planar, origin, direction, t_limit, active)
 
 
 def _root_union_hit(rows, W, origin, inv_d, t_max):
@@ -406,6 +452,8 @@ def _load(width: int):
         lib.vkrt_traverse_capped.restype = i32
         lib.vkrt_sort_children.argtypes = [p, p, i64, i32, p, p, p, p]
         lib.vkrt_sort_children.restype = i32
+        lib.vkrt_root_prefilter.argtypes = [i32, p, p, p, p, p, i64, p, p]
+        lib.vkrt_root_prefilter.restype = i32
         lib.vkrt_alpha_machine.argtypes = [
             i32, i32, i32, p, i32, p, p, p, i32, p, i64, p, i64, i64, p, p, p, p, p, i64, i32,
             p, i64, i64, p, p, p, p, p, p, p, p,
