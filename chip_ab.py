@@ -12,9 +12,18 @@ row widths 16 and 32, per mode a/b/c, for the capped entry (closest hit
 stopped after 8 nodes, on the mode-a rays) and for the single-level alpha
 rounds through ``traverse_alpha._rounds`` (phase 18's cases: the mode-c
 rays toward the banners, closest windowed by their opaque hit and any
-hit over the mode-b windows, 95% of rays active, with the alpha pack),
-the least and the median of three means of 50 launches (CUDA events), in
-ms; then the same for the two
+hit over the mode-b windows, 95% of rays active, with the alpha pack; the
+rounds on the need mask) and for the whole alpha pass through
+``traverse_alpha._alpha_rounds`` on the same rays (its need line and
+rounds: the prefilter's launch and the rounds' where a checkout has both,
+the rounds alone where their intake runs the line), the least and the
+median of three means of 50 launches (CUDA events), in ms; then
+``vkrt_retire`` on the pools of a 1080p fused atrium frame (phase 39's:
+iteration 0's fresh pool of 2^18 lanes, iteration 2's full one): the
+mean of 10 launches on fresh copies (read from HBM, queued behind a
+device sleep), the least and the median of three such means, unchecked (``chip_smoke.py`` phase 39 holds
+the kernel to its plain version; a variant here may break it on purpose);
+then the same for the two
 round machines (10 launches a mean) on the full bistro at widths 16 and
 32, closest hit with culling and any hit without (the opaque machine over
 the opaque subsets on 2^18 camera rays, phase 19's; the alpha machine over
@@ -33,12 +42,14 @@ machine; 3 calls a mean). Last, a line per checkout with ptxas's report
 alpha rounds too) and a/b instantiation of its traversal libraries. The
 card's name and power limit come first. ``--atrium`` times the atrium's kernels alone (modes a/b/c, the
 capped entry, the alpha rounds) and skips the bistro, the plaza and the
-wide back end.
+wide back end. Variants of a kernel (a copy of a checkout with an
+edited source) compare as checkouts.
 """
 
 import os
 import subprocess
 import sys
+import time
 
 REPS, ROUNDS = 50, 3
 
@@ -58,7 +69,9 @@ def time_tree(tree, atrium_only=False):
     from vk_raytrace_torch.ops.bvh8 import build_accel_bundle
 
     dev = torch.device("cuda")
+    t_start = time.time()
     cs.build_kernels()
+    spent = {"build": time.time() - t_start}
     geom, a_mats, a_lights, cam, a_atlas = procedural.atrium_scene()
     rng = np.random.default_rng(1234)
     n = 1 << 18
@@ -94,13 +107,22 @@ def time_tree(tree, atrium_only=False):
             "capped8": lambda: tf.traverse_capped(g.opaque_planar, o, d, inf, 8),
             "alpha_rounds": rounds(g.alpha_planar, t_open, True),
             "alpha_rounds_any": rounds(g.alpha_planar, t_short, False),
+            "alpha_pass": lambda: ta._alpha_rounds(g.alpha_planar, a_pack, oa, da, t_open,
+                                                   r_seed, r_act, True),
+            "alpha_pass_any": lambda: ta._alpha_rounds(g.alpha_planar, a_pack, oa, da, t_short,
+                                                       r_seed, r_act, False),
         }
         for name, fn in cases.items():
             ms = [tb.cuda_time(fn, REPS) for _ in range(ROUNDS)]
             out.append(f"w{width} {name} {min(ms):.4f}/{float(np.median(ms)):.4f}")
         del g
+    spent["traversal"] = time.time() - t_start - sum(spent.values())
+    out += retire_times(cs, R, geom, a_mats, a_lights, cam, a_atlas, dev)
+    spent["retire"] = time.time() - t_start - sum(spent.values())
     if atrium_only:
         print(os.path.basename(tree), " ".join(out), flush=True)
+        print(os.path.basename(tree), "seconds:", {k: round(v, 1) for k, v in spent.items()},
+              flush=True)
         print(os.path.basename(tree), "ptxas:", "; ".join(machine_ptxas(tree)), flush=True)
         return
     from vk_raytrace_torch.ops import tlas
@@ -161,6 +183,47 @@ def time_tree(tree, atrium_only=False):
         out.append(f"bistro wide {name} {min(ms):.4f}/{float(np.median(ms)):.4f}")
     print(os.path.basename(tree), " ".join(out), flush=True)
     print(os.path.basename(tree), "ptxas:", "; ".join(machine_ptxas(tree)), flush=True)
+
+
+def retire_times(cs, R, geom, mats, lights, cam, atlas, dev):
+    """``vkrt_retire`` on phase 39's pools of a 1080p fused atrium frame
+    (iteration 0: a fresh 2^18-lane pool; iteration 2: a full one): three
+    means of 10 launches, each on a fresh copy of the pool. Returns its
+    output words."""
+    import numpy as np
+    import torch
+
+    from vk_raytrace_torch.integrator import pool as wp
+    from vk_raytrace_torch.models.schema import PBR_GLTF, RenderConfig
+
+    cfg = RenderConfig(width=1920, height=1080, max_depth=4, max_samples=1, pbr_mode=PBR_GLTF,
+                       firefly_clamp=10.0, use_sun_sky=True)
+    r = R.Renderer(R.build_scene(geom, mats, lights, cam, atlas=atlas), cfg, device=dev,
+                   fused_shade=True)
+    r.render_frame(0)
+    _, retire = cs.capture_states(r, 1)
+    del r
+    out = []
+    for label, (st0, b, ctrl0, sl) in retire:
+        it = label.split(",")[0]
+        if it not in ("iteration 0", "iteration 2"):
+            continue
+        n = st0["active"].shape[0]
+
+        def fresh():
+            return ({k: v.clone() for k, v in st0.items()}, b, ctrl0.clone(),
+                    torch.zeros(sl.total_units + n, 3, device=dev),
+                    torch.zeros(sl.n_pix + 1, dtype=torch.int32, device=dev), sl)
+
+        ms = []
+        for _ in range(3):
+            pools = [fresh() for _ in range(11)]  # alive while their launches run
+            ms.append(cs.events_ms([lambda x=wp.retire_args(*p): wp.launch("retire", x)
+                                    for p in pools], queue=True))
+        out.append(f"retire {it.replace(' ', '')} {min(ms):.4f}/{float(np.median(ms)):.4f}")
+    del retire
+    torch.cuda.empty_cache()
+    return out
 
 
 def plaza_machines(cs, tlas, dev, rng, n, inf, t_long, seed, act):

@@ -42,8 +42,11 @@ prints, for the traced frame:
   traced frame asks ``render_units_pooled`` for its occupancy record), and
   the device ms and launches of the loop's kernels (``vkrt_regenerate``,
   ``vkrt_retire``);
-* the alpha pass's root prefilter: device ms and launches of
-  ``vkrt_root_prefilter`` (one launch an alpha pass);
+* the alpha pass's root prefilter: device ms and launches of the
+  standalone ``vkrt_root_prefilter`` (none: the alpha rounds' ray intake
+  runs it), and, from one more frame that reads each single-level alpha
+  pass's intake counts after it (host waits, so not traced), the passes,
+  the rays they fetched and the rays that needed the rounds;
 * the top K device kernels by total time;
 * peak device memory allocated over the timed and the traced frames.
 
@@ -83,7 +86,8 @@ SHADE = ("shade_stage_kernel", "shade_kernel")  # csrc/shade.cu: the whole stage
 STAGE = "shade_stage"  # the wavefront's profiler range around its shading stage
 # csrc/wavefront.cu: vkrt_regenerate (one launch), vkrt_retire.
 LOOP_KERNELS = ("regenerate_kernel", "retire_kernel")
-# csrc/traverse.cu: the alpha pass's root prefilter, one launch an alpha pass.
+# csrc/traverse.cu: the alpha pass's standalone root prefilter (folded into
+# the alpha rounds' ray intake: no launch on the main path).
 PREFILTER = "root_prefilter_kernel"
 
 
@@ -187,6 +191,28 @@ def traced_frame(r, occupancy=None):
     finally:
         R.render_units_pooled = pooled
     return wall, prof
+
+
+def intake_frame(r):
+    """One more frame, each single-level alpha pass's intake read after it
+    (a host wait each): [(rays fetched, rays that needed the rounds)]."""
+    from vk_raytrace_torch.ops import traverse_alpha as ta
+    from vk_raytrace_torch.ops import traverse_fused as tf
+
+    got, real = [], ta._alpha_rounds_cuda
+
+    def reading(planar, pack, origin, *args):
+        out = real(planar, pack, origin, *args)
+        got.append(tf._AB_GRIDS[planar.width].intake(origin.device))
+        return out
+
+    ta._alpha_rounds_cuda = reading
+    try:
+        r.step()
+        torch.cuda.synchronize()
+    finally:
+        ta._alpha_rounds_cuda = real
+    return got
 
 
 def host_syncs(prof) -> int:
@@ -344,9 +370,15 @@ def main():
         evs = [ev for ev in trav if (m := TRAVERSE_MODE.search(ev[0])) and int(m.group(1)) == i]
         print(f"  {mode} ({roots}): {sum(e - s for _, s, e in evs) / 1e3:.3f} ms in "
               f"{len(evs)} launches")
-    for label, name in MACHINES + (("root prefilter", PREFILTER),):
+    for label, name in MACHINES + (("root prefilter, standalone", PREFILTER),):
         evs = [ev for ev in kernels if name in ev[0]]
         print(f"{label}: {sum(e - s for _, s, e in evs) / 1e3:.3f} ms in {len(evs)} launches")
+    intake = intake_frame(r)
+    if intake:
+        fetched, needed = (sum(x[k] for x in intake) for k in (0, 1))
+        print(f"alpha pass intake (one more frame, untraced): {len(intake)} passes fetched "
+              f"{fetched} rays, {needed} needed the rounds ({needed / max(fetched, 1):.3f}); "
+              f"per pass {intake}")
     print(f"shading stage: {stage_ms:.3f} device ms in {len(in_stage)} launches "
           f"({len(stages)} stage spans); fused kernel "
           f"{sum(e - s for _, s, e in shade_k) / 1e3:.3f} ms in {len(shade_k)} launches")

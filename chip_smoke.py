@@ -25,8 +25,10 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
    and on the CPU, and fused against unfused on the card;
 5. the main path: the full atrium (~217k triangles) at 1920x1080, depth 4,
    1 spp, sun&sky, one warm-up and three timed frames; modes a and b, the
-   root prefilter, the alpha rounds kernel and the loop's kernels (``vkrt_regenerate``,
-   ``vkrt_retire``) must have launched, and the per-round mode c not;
+   alpha rounds kernel and the loop's kernels (``vkrt_regenerate``,
+   ``vkrt_retire``) must have launched, and the per-round mode c and the
+   standalone root prefilter (folded into the rounds' ray intake) not: no
+   phase's path may launch the standalone prefilter;
    the sun&sky environment built a second time equals the renderer's byte
    for byte (image, alias table, pdfs, rows);
 6. the shading stage kernel (``vkrt_shade_stage``, the whole fused stage)
@@ -278,7 +280,8 @@ loop control on the card) and its two kernels (``csrc/wavefront.cu``):
     pool of 2^18 lanes), its third (a full pool, some lanes regenerating)
     and the first of each tier (2^16, 2^14 lanes): every field, the loop
     control, the occupancy entry, the retired units' radiance and the step
-    record bit for bit; each timed on fresh copies with CUDA events beside
+    record bit for bit, and on the full pool cut to 1, 3 and 2,085 lanes
+    (grids of one block and off a block's multiple); each timed on fresh copies with CUDA events beside
     the plain version and its bound (this pool's bytes: the flags, the
     granted lanes, the gated / visible / lit / alive / retiring lanes); the
     fused atrium, the fused atrium with ``renderer="wide"`` and the fused
@@ -289,7 +292,8 @@ loop control on the card) and its two kernels (``csrc/wavefront.cu``):
     control an iteration, and the launches a frame and an iteration.
 
 The alpha pass's need mask (``traverse_fused.alpha_need``), one launch of
-``vkrt_root_prefilter`` a call:
+``vkrt_root_prefilter`` a call, and its fold into ``vkrt_alpha_rounds``'
+ray intake (the main path's form: no launch of its own):
 
 40. the kernel against its plain version ``_alpha_need_plain`` on the card,
     the same bools, at widths 16 and 32: on the fused atrium's closest
@@ -300,7 +304,13 @@ The alpha pass's need mask (``traverse_fused.alpha_need``), one launch of
     up to the first hit); and on every synthetic set of
     ``prefilter_rays`` (random, along the axes with +-0 and components
     below 1e-20, NaN and +-inf, t_limit <= 0 / INF / inf / NaN,
-    subnormals) with ``active`` absent, about half and none.
+    subnormals) with ``active`` absent, about half and none; on each of
+    those passes and sets the alpha pass's two forms, (a) the prefilter,
+    then the rounds on its mask and (b) the rounds alone on the pass's
+    ``active``, equal bit for bit in t, tri, u, v, seed and steps, with
+    (b)'s intake counts (rays fetched, rays that needed the rounds) and, at
+    width 16, its warps' busy / slot lane-steps; the frame's passes timed in
+    both forms.
 
 The script keeps its files (checkpoints, images, the port's scene cache)
 in a temporary directory that it removes at exit. No depth was cut for
@@ -536,9 +546,13 @@ BASELINE2_CFG = dict(width=512, height=512, max_samples=16, max_depth=5, hdr_mul
 # The debug-mode phase: the full atrium at reduced resolution.
 DEBUG_W, DEBUG_H, DEBUG_DEPTH = 160, 90, 4
 # The single-level main path's kernels (LAUNCHES keys at width 16): modes a
-# and b over the opaque tree, the alpha pass's root prefilter and the alpha
-# rounds over the alpha tree.
-ATRIUM_KERNELS = ("closest", "any", "root_prefilter", "alpha_rounds")
+# and b over the opaque tree and the alpha rounds over the alpha tree (whose
+# ray intake runs the alpha pass's root prefilter).
+ATRIUM_KERNELS = ("closest", "any", "alpha_rounds")
+# The standalone root prefilter (vkrt_root_prefilter, both widths): folded
+# into the alpha rounds' ray intake, so no path launches it; phase 40 holds
+# it against its plain version and against the fold.
+FOLDED_KERNELS = ("root_prefilter", "root_prefilter_w32")
 # Kernel vs twin: the same float32 operations in the same order, rounded
 # per operation on both sides (nvcc -fmad=false); t/u/v within a few ulp.
 RTOL, ATOL = 1e-5, 1e-5
@@ -548,6 +562,13 @@ PIX_RTOL, PIX_ATOL, PIX_SHARE, RAY_REL = 1e-3, 1e-4, 0.99, 1e-3
 
 
 T_START = time.time()
+
+
+def assert_folded(what, launches):
+    """No path launches the standalone root prefilter: the alpha rounds'
+    intake runs it."""
+    assert not any(launches.get(k, 0) for k in FOLDED_KERNELS), (
+        f"{what}: the standalone root prefilter launched: {launches}")
 
 
 def phase(name):
@@ -680,6 +701,7 @@ def render_phase(what, make, card, n=3, want=(), stage=None, black_ok=False):
     assert np.isfinite(img).all(), f"{what}: non-finite pixels"
     assert black_ok or img.mean() > 0.0, f"{what}: black image"
     assert all(per_frame.get(k, 0) > 0 for k in want), f"{what}: a kernel never launched: {per_frame}"
+    assert_folded(what, per_frame)
     if stage is not None:
         assert r.stage == stage, f"{what}: the {r.stage} stage ran, not the {stage} one"
     print(f"{what}: {s_frame:.4f} s/frame (frames {['%.4f' % x for x in frame_s]}, warm-up "
@@ -1793,6 +1815,7 @@ def cli_run(what, argv, card, want=(), stage=None):
             print(f"  cli: {ln}")
     assert rc == 0, f"{what}: the CLI returned {rc}"
     assert all(lau.get(k, 0) > 0 for k in want), f"{what}: a kernel never launched: {lau}"
+    assert_folded(what, lau)
     if stage is not None:
         assert prof["stage"] == stage, f"{what}: the {prof['stage']} stage ran, not {stage}"
     timed = prof["frame_s"][1:] or prof["frame_s"]
@@ -1969,6 +1992,7 @@ def phase_sharding(card, work):
               f"{res['peak_mib']:.1f} MiB; then Renderer.step {float(np.mean(single_s)):.4f} "
               f"s/frame (frames {['%.4f' % x for x in single_s]}) [{card}]", flush=True)
         assert all(res["launches"].get(m, 0) > 0 for m in ATRIUM_KERNELS), res["launches"]
+        assert_folded("sharded NCCL", res["launches"])
         what = f"sharded NCCL against Renderer.step (4 frames), pair {k + 1}"
         differ, _ = hold(what, res["img"], single, res["rays"][1:], single_rays)
         assert res["rays"][1:] == single_rays, f"{what}: rays {res['rays'][1:]} vs {single_rays}"
@@ -1989,6 +2013,7 @@ def phase_sharding(card, work):
         img = np.load(os.path.join(d, f"{name}.npy"))
         for k, rr in enumerate(ranks):
             assert all(rr["launches"].get(m, 0) > 0 for m in ATRIUM_KERNELS), (name, k, rr)
+            assert_folded(f"sharded gloo {name}, rank {k}", rr["launches"])
             print(f"sharded gloo {what}, rank {k} on cuda:0: "
                   f"{frames_text(rr['frame_s'], rr['rays'])}, launches/frame "
                   f"{({m: v / (SHARD_FRAMES + 1) for m, v in rr['launches'].items()})}, peak "
@@ -2094,6 +2119,7 @@ def phase_viewer(card):
         assert hits >= 8, hits
         st3 = state()
         assert all(lau.get(k, 0) > 0 for k in ATRIUM_KERNELS), lau
+        assert_folded("viewer", lau)
         ms, mrays, mem = (st3["hist"][k] for k in ("ms", "mrays", "mem"))
         print(f"viewer atrium {vw}x{vh} d10 (Disney, sun&sky) on the card over HTTP: first 3 "
               f"frames in {first_s:.1f} s; the orbit gave {st1['descale_frames'] - st['descale_frames']}"
@@ -2973,7 +2999,9 @@ def regen_case(what, args, card, reps=10):
 def retire_case(what, args, card, reps=10):
     """vkrt_retire against its plain version on a captured pool and bounce,
     with the step record, bit for bit (every field, the control, the
-    retired units' rows, the steps); both timed on fresh copies.
+    retired units' rows, the steps); both timed on fresh copies, the
+    kernel's launches queued behind a device sleep (its host call outlasts
+    it on the tiers' pools).
     Returns (ms, plain_ms, (bound_ms, bound_by), bytes, max_abs_err)."""
     from vk_raytrace_torch import travbench as tb
     from vk_raytrace_torch.integrator import pool as wp
@@ -2998,7 +3026,8 @@ def retire_case(what, args, card, reps=10):
                          "steps": plain[4][:sl.n_pix]}))
     died = int((st0["active"] & ~kern[0]["active"]).sum())
     pools = [fresh() for _ in range(reps + 1)]
-    ms = events_ms([lambda x=wp.retire_args(*p): wp.launch("retire", x) for p in pools])
+    ms = events_ms([lambda x=wp.retire_args(*p): wp.launch("retire", x) for p in pools],
+                   queue=True)
     plain_ms = events_ms([lambda a=fresh(): wp._retire_plain(*a) for _ in range(3)])
     n_bytes, n_ops = retire_work(st0, b, sl, True)
     bnd = tb.bound(n_bytes, n_ops)
@@ -3007,6 +3036,18 @@ def retire_case(what, args, card, reps=10):
           f"{bnd[0]:.4f} ms by {bnd[1]} ({n_bytes / 1e6:.2f} MB; {ms / bnd[0]:.1f}x the bound) "
           f"({card})", flush=True)
     return ms, plain_ms, bnd, n_bytes, err
+
+
+# Pools of one block or less and off a multiple of vkrt_retire's 256-lane
+# block.
+RETIRE_TAILS = (1, 3, 2085)
+
+
+def cut_pool(args, n):
+    """A captured retirement cut to its first ``n`` lanes (fresh tensors)."""
+    st0, b, ctrl0, sl = args
+    return ({k: v[:n].clone() for k, v in st0.items()}, {k: v[:n].clone() for k, v in b.items()},
+            ctrl0.clone(), sl)
 
 
 def loop_counts(what, r, frame, card):
@@ -3074,6 +3115,8 @@ def phase_wavefront(card, scene, cfg, bundle, bistro_args):
     widths = {a[0]["active"].shape[0] for _, a in regen}
     assert R.POOL_LANES in widths and len(widths) > 1, [w for w, _ in regen]
     regen_res = {w: regen_case(w, a, card) for w, a in regen}
+    full = next(a for w, a in retire if w.startswith("iteration 2,"))
+    retire += [(f"iteration 2, its first {n} lanes", cut_pool(full, n)) for n in RETIRE_TAILS]
     retire_res = {w: retire_case(w, a, card) for w, a in retire}
     del regen, retire
     counts = {"atrium_fused": loop_counts("atrium 1080p fused", rf, 2, card)}
@@ -3135,7 +3178,7 @@ def capture_alpha_inputs(r, frame):
     inputs, closest (culling) and shadow, at the loop iterations
     :data:`PREFILTER_ITERATIONS` (each kind's k-th call is iteration k).
     Returns a list of (label, (planar, origin, direction, t_limit,
-    active))."""
+    active), (pack, seed, cull))."""
     from vk_raytrace_torch.ops import traverse_alpha as ta
 
     got, calls, orig = [], {True: -1, False: -1}, ta._alpha_rounds
@@ -3143,10 +3186,12 @@ def capture_alpha_inputs(r, frame):
     def hook(planar, pack, origin, direction, t_limit, seed, active, cull):
         calls[cull] += 1
         if calls[cull] in PREFILTER_ITERATIONS:
+            seed0 = (torch.zeros(origin.shape[0], dtype=torch.int64, device=origin.device)
+                     if seed is None else seed.clone())
             got.append((f"iteration {calls[cull]}, {'closest' if cull else 'shadow'} pass, "
                         f"{origin.shape[0]} lanes",
                         (planar, origin.clone(), direction.clone(), t_limit.clone(),
-                         None if active is None else active.clone())))
+                         None if active is None else active.clone()), (pack, seed0, cull)))
         return orig(planar, pack, origin, direction, t_limit, seed, active, cull)
 
     ta._alpha_rounds = hook
@@ -3202,14 +3247,73 @@ def prefilter_case(what, args, card, reps=10):
     return ms, plain_ms, bnd, n_bytes, need, err
 
 
+ROUNDS_OUT = ("t", "tri", "u", "v", "seed", "steps")
+
+
+def fold_case(what, args, extra, card, reps=10):
+    """The alpha pass in its two forms on the same rays: (a) the form before
+    the fold, ``vkrt_root_prefilter`` and then ``vkrt_alpha_rounds`` on its
+    need mask; (b) ``vkrt_alpha_rounds`` alone on the pass's ``active``, its
+    ray intake running the need line. Equal bit for bit in t, tri, u, v,
+    seed and steps; (b)'s intake counts (rays fetched, rays that needed the
+    rounds, equal to the plain need mask's) and, at width 16, its warps'
+    busy / slot node lane-steps. With ``reps`` each form is timed on fresh
+    copies, queued behind a device sleep. Returns {"ms_a", "ms_b",
+    "fetched", "needed", "lane_steps"} (no times without ``reps``)."""
+    from vk_raytrace_torch.ops import traverse_alpha as ta
+    from vk_raytrace_torch.ops import traverse_fused as tf
+
+    planar, o, d, t_limit, act = args
+    pack, seed, cull = extra
+    n, dev = o.shape[0], o.device
+
+    def form_a(o, d, t_limit, act, seed):
+        need = tf._alpha_need_cuda(planar, o, d, t_limit, act)
+        return ta._alpha_rounds_cuda(planar, pack, o, d, t_limit, seed, need, cull)
+
+    def form_b(o, d, t_limit, act, seed):
+        return ta._alpha_rounds_cuda(planar, pack, o, d, t_limit, seed, act, cull)
+
+    key = tf.launch_key("alpha_rounds", planar.width)
+    before = tf.LAUNCHES[key]
+    a = form_a(o, d, t_limit, act, seed)
+    b = form_b(o, d, t_limit, act, seed)
+    grid = tf._AB_GRIDS[planar.width]
+    fetched, needed = grid.intake(dev)
+    lane_steps = grid.lane_steps(dev) if planar.width == 16 else None
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES[key] == before + 2, f"alpha pass, {what}: not one rounds launch a form"
+    same_bits(f"alpha pass, {what}: form (b) against form (a)", dict(zip(ROUNDS_OUT, b)),
+              dict(zip(ROUNDS_OUT, a)))
+    want = int(tf._alpha_need_plain(planar, o, d, t_limit, act).sum())
+    assert (fetched, needed) == (n, want), f"alpha pass, {what}: intake {fetched, needed} against {want}"
+    res = {"fetched": fetched, "needed": needed, "lane_steps": lane_steps}
+    if reps:
+        copies = lambda: [tuple(x if x is None else x.clone() for x in (o, d, t_limit, act, seed))  # noqa: E731
+                          for _ in range(reps + 1)]
+        res["ms_a"] = events_ms([lambda c=c: form_a(*c) for c in copies()], queue=True)
+        res["ms_b"] = events_ms([lambda c=c: form_b(*c) for c in copies()], queue=True)
+        steps = "" if lane_steps is None else (
+            f"; the warps' node lane-steps busy {lane_steps[0]} of {lane_steps[1]} "
+            f"({lane_steps[0] / max(lane_steps[1], 1):.3f})")
+        print(f"alpha pass W{planar.width}, {what}: (a) prefilter then rounds and (b) the rounds "
+              f"alone equal bit for bit (t, tri, u, v, seed, steps); (b)'s intake fetched "
+              f"{fetched} rays, {needed} needed the rounds{steps}; (a) {res['ms_a']:.4f} ms, "
+              f"(b) {res['ms_b']:.4f} ms ({card})", flush=True)
+    return res
+
+
 def phase_prefilter(card, scene, cfg, bundles, rng):
     """Phase 40: the alpha pass's root prefilter on the card against its
     plain version, bit for bit, at widths 16 and 32 (``bundles``: width ->
     accel bundle): on the fused atrium's closest and shadow passes of a
     real 1080p frame at iterations 0, 2, 10 and 11, timed beside the bound,
     and on every synthetic set of ``prefilter_rays`` with ``active``
-    absent, about half and none. Returns {width: ({label: the frame's case
-    result}, the largest max_abs_err of the synthetic sets)}."""
+    absent, about half and none; on each of those passes and sets the
+    alpha pass's two forms (:func:`fold_case`), equal bit for bit, the
+    frame's timed. Returns {width: ({label: the frame's case result}, the
+    largest max_abs_err of the synthetic sets, {label: the frame's
+    fold_case result})}."""
     from vk_raytrace_torch import render as R
 
     dev = torch.device("cuda", 0)
@@ -3219,25 +3323,31 @@ def phase_prefilter(card, scene, cfg, bundles, rng):
         r.render_frame(0)
         captured = capture_alpha_inputs(r, 1)
         del r
-        kinds = {label.split(", ")[1] for label, _ in captured}
+        kinds = {label.split(", ")[1] for label, *_ in captured}
         assert len(captured) == 2 * len(PREFILTER_ITERATIONS) and kinds == {
-            "closest pass", "shadow pass"}, [label for label, _ in captured]
-        frame = {label: prefilter_case(label, args, card) for label, args in captured}
+            "closest pass", "shadow pass"}, [label for label, *_ in captured]
+        frame = {label: prefilter_case(label, args, card) for label, args, _ in captured}
+        fold = {label: fold_case(label, args, extra, card) for label, args, extra in captured}
+        pack = captured[0][2][0]
         del captured
         planar = bnd_.alpha_planar.to(dev)
         errs = []
         for case in PREFILTER_CASES:
             o, d, t_limit = (x.to(dev) for x in prefilter_rays(case, planar,
                                                                 PREFILTER_SYNTH_RAYS, rng))
-            for active in PREFILTER_ACTIVE:
+            seed = torch.tensor(rng.integers(0, 2**32, PREFILTER_SYNTH_RAYS), device=dev)
+            for k, active in enumerate(PREFILTER_ACTIVE):
                 act = prefilter_active(active, PREFILTER_SYNTH_RAYS, rng)
                 act = None if act is None else act.to(dev)
                 errs.append(prefilter_check(f"{case}, active {active}",
                                             (planar, o, d, t_limit, act))[1])
-        res[width] = frame, max(errs)
+                fold_case(f"{case}, active {active}", (planar, o, d, t_limit, act),
+                          (pack, seed, k % 2 == 0), card, reps=0)
+        res[width] = frame, max(errs), fold
         print(f"root prefilter W{width}: {len(errs)} synthetic sets of {PREFILTER_SYNTH_RAYS} rays "
               f"({', '.join(PREFILTER_CASES)}; active {', '.join(PREFILTER_ACTIVE)}) equal to the "
-              f"plain version bit for bit ({card})", flush=True)
+              f"plain version bit for bit, and the alpha pass's two forms equal on each ({card})",
+              flush=True)
         torch.cuda.empty_cache()
     return res
 
@@ -3392,6 +3502,7 @@ def main():
     print(f"warm-up frame {warm_s:.3f} s; frames {['%.4f' % s for s in frame_s]} s; "
           f"rays/frame {frame_rays}; launches {launches}")
     assert all(launches[m] > 0 for m in ATRIUM_KERNELS), f"a traversal kernel never launched: {launches}"
+    assert_folded("atrium 1080p", launches)
     assert all(launches[m] > 0 for m in WAVEFRONT_KERNELS), f"a loop kernel never launched: {launches}"
     assert launches["candidate"] == 0, f"a per-round alpha launch ran: {launches}"
     assert np.isfinite(img).all() and np.isfinite(ldr).all(), "non-finite pixels"
@@ -3469,6 +3580,7 @@ def main():
     assert f_launches["shade_stage"] > 0, f"the stage kernel never launched: {f_launches}"
     assert f_launches["shade_bounce"] == 0, f"the body alone launched: {f_launches}"
     assert all(f_launches[m] > 0 for m in ATRIUM_KERNELS), f"a traversal kernel never launched: {f_launches}"
+    assert_folded("atrium 1080p fused", f_launches)
     assert all(f_launches[m] > 0 for m in WAVEFRONT_KERNELS), f"a loop kernel never launched: {f_launches}"
     assert f_launches["candidate"] == 0, f"a per-round alpha launch ran: {f_launches}"
     assert np.isfinite(f_img).all() and np.isfinite(f_ldr).all(), "fused: non-finite pixels"
@@ -3727,8 +3839,8 @@ def main():
     # ---- 15. the atrium main path at width 32 -------------------------------
     phase("main path, width 32")
     del g32
-    w16_keys = tf.MODES + tf.ROOT_MODES + ("alpha_machine", "root_prefilter", "alpha_rounds",
-                                           "opaque_machine")
+    w16_keys = tf.MODES + tf.ROOT_MODES + ("alpha_machine", "alpha_rounds",
+                                           "opaque_machine") + FOLDED_KERNELS
     r32 = R.Renderer(scene, cfg, device=dev, packed=bundle32, fused_shade=True)
     w_launches = frames(
         r32, "atrium", [f"{m}_w32" for m in ATRIUM_KERNELS],
@@ -4400,8 +4512,9 @@ def main():
             "per_frame": {k: v["launches"].get(name, 0) for k, v in loop_res.items()},
             "host_reads": {k: v["host_reads"] for k, v in loop_res.items()},
         })
-    for key, lau, (res, synth_err) in (("root_prefilter", launches, prefilter_res[16]),
-                                       ("root_prefilter_w32", w_launches, prefilter_res[32])):
+    for key, lau, (res, synth_err, fold) in (("root_prefilter", launches, prefilter_res[16]),
+                                             ("root_prefilter_w32", w_launches,
+                                              prefilter_res[32])):
         # Times and bound: iteration 2's closest pass (the full pool); the
         # frame's passes in "cases"; the error over every case.
         ms, plain_ms, (b_ms, b_by), *_ = next(
@@ -4413,6 +4526,10 @@ def main():
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "cases": {k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2][0], "bound_by": v[2][1],
                           "need": v[4]} for k, v in res.items()},
+            # Folded into the alpha rounds' ray intake: the pass's two forms
+            # (prefilter then rounds, the rounds alone), each timed.
+            "folded_into": key.replace("root_prefilter", "alpha_rounds"),
+            "fold": fold,
         }
         if key == "root_prefilter":  # the launches of phases 31-34's paths
             entry["paths_launches"] = {p: v.get(key, 0) for p, v in path_launches.items()}

@@ -86,6 +86,11 @@ inline int atomicAdd(int* p, int v) {
   *p = old + v;
   return old;
 }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  const unsigned old = *p;
+  *p = old + v;
+  return old;
+}
 inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
   const unsigned long long old = *p;
   *p = old + v;

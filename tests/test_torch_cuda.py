@@ -29,7 +29,12 @@ instance-level split of an all-alpha pool on the card against the CPU; the
 sharded step under NCCL at world size 1 against ``Renderer.step``; and the
 graft entry on the card against the CPU; the wide back end's tree kernel
 against its plain version and its two-level machine against its round loop
-on the same CUDA tensors (bit for bit). Kernel vs twin: same float32 operations in the same order, rounded
+on the same CUDA tensors (bit for bit); the alpha pass's two forms (the
+standalone root prefilter, then the rounds on its mask, against the rounds
+alone, whose ray intake runs the need line) bit for bit, a fused atrium
+frame that launches no standalone prefilter against the same frame through
+the plain need mask and the loop's plain bookkeeping, and ``vkrt_retire``
+against its plain version on a frame's pools and their tails. Kernel vs twin: same float32 operations in the same order, rounded
 per operation (nvcc -fmad=false), so ``tri`` and the hit masks are equal
 and t within rtol 1e-5. Render: CUDA and CPU transcendentals round
 differently, so 99% of pixels within rtol 1e-3 / atol 1e-4 and ray counts
@@ -414,7 +419,9 @@ def test_alpha_rounds_kernel_matches_round_loop(scene, width, kind):
     planar = bundle.alpha_planar
     key = tf.launch_key("alpha_rounds", width)
     for pk in (pack, None):
-        plain = ta._rounds_core(planar, pk, o, d, t_lim, seed, need, cull)
+        # The kernel's intake runs the alpha pass's need line on its mask.
+        plain = ta._rounds_core(planar, pk, o, d, t_lim, seed,
+                                tf._alpha_need_plain(planar, o, d, t_lim, need), cull)
         before = tf.LAUNCHES[key]
         kern = ta._rounds(planar.to("cuda"), None if pk is None else _pack_to(pk, "cuda"),
                           cuda(o), cuda(d), cuda(t_lim), cuda(seed), cuda(need), cull)
@@ -450,13 +457,130 @@ def test_alpha_rounds_spill_matches_round_loop(width, kind):
     planar, pack, rays = chip_smoke.alpha_cloud(np.random.default_rng(43), 1500, "cpu",
                                                 width=width)
     cull = kind == "closest"
-    plain = ta._rounds_core(planar, pack, *rays, cull)
+    o, d, t_lim, seed, act = rays
+    # The kernel's intake runs the alpha pass's need line on its mask.
+    plain = ta._rounds_core(planar, pack, o, d, t_lim, seed,
+                            tf._alpha_need_plain(planar, o, d, t_lim, act), cull)
     kern = ta._rounds(planar.to("cuda"), _pack_to(pack, "cuda"), *(x.to("cuda") for x in rays),
                       cull)
     torch.cuda.synchronize()
     _cpu_and_cuda_outputs_equal(kern, plain, (1, 4, 5), f"cloud w{width} {kind}")
     assert 16 < tf.stack_reached(width, "cuda") <= planar.stack_depth
     assert (plain[1] >= 0).any()
+
+
+@pytest.mark.parametrize("width", tf.WIDTHS)
+def test_alpha_pass_forms_equal_on_card(scene, width):
+    """The alpha pass's two forms on the card (``chip_smoke.fold_case``):
+    (a) ``vkrt_root_prefilter``, then ``vkrt_alpha_rounds`` on its need
+    mask; (b) ``vkrt_alpha_rounds`` alone on the pass's ``active``, its ray
+    intake running the need line: bit for bit in t, tri, u, v, seed and
+    steps, and (b)'s intake counts the need mask's rays; on the reduced
+    atrium's rays toward its banners (95% active, closest and any hit) and
+    on each of ``chip_smoke.prefilter_rays``' sets with ``active`` absent,
+    about half and none."""
+    _need_cuda()
+    import chip_smoke
+
+    g, m, l, c, a = scene
+    small = R.build_scene(g, m, l, c, atlas=a).to("cuda")
+    planar = build_accel_bundle(g, width=width).alpha_planar.to("cuda")
+    pack = make_alpha_pack(small.materials, small.atlas, small.geometry.tri_material)
+    n = 4099
+    o, d = (x.to("cuda") for x in _rays(23, g, n, alpha=True))
+    rng = np.random.default_rng(24)
+    t_lim = torch.tensor(rng.uniform(1.0, 40.0, n), dtype=torch.float32, device="cuda")
+    seed = torch.tensor(rng.integers(0, 2**32, n), device="cuda")
+    act = torch.tensor(rng.random(n) < 0.95, device="cuda")
+    for cull in (True, False):
+        res = chip_smoke.fold_case(f"banners cull {cull}", (planar, o, d, t_lim, act),
+                                   (pack, seed, cull), "card", reps=0)
+        assert 0 < res["needed"] < n
+    for k, case in enumerate(chip_smoke.PREFILTER_CASES):
+        o, d, t_lim = (x.to("cuda") for x in chip_smoke.prefilter_rays(case, planar, n, rng))
+        for j, active in enumerate(chip_smoke.PREFILTER_ACTIVE):
+            act = chip_smoke.prefilter_active(active, n, rng)
+            chip_smoke.fold_case(f"{case} {active}", (planar, o, d, t_lim,
+                                                      None if act is None else act.to("cuda")),
+                                 (pack, seed, (k + j) % 2 == 0), "card", reps=0)
+
+
+def test_fused_frame_folds_the_prefilter(scene):
+    """A fused atrium frame on the card launches the alpha rounds and no
+    standalone root prefilter, and equals, byte for byte and ray for ray,
+    the same frame through the plain versions of what the fold and the
+    loop's bookkeeping replaced: the need mask by ``_alpha_need_plain``
+    (then the rounds kernel on it) and ``_regenerate_plain`` /
+    ``_retire_plain``."""
+    _need_cuda()
+    import chip_smoke
+    from vk_raytrace_torch.integrator import pool as wp
+    from vk_raytrace_torch.ops import traverse_alpha as ta
+
+    g, m, l, c, a = scene
+    cfg = RenderConfig(width=160, height=96, max_depth=4, max_samples=2, pbr_mode=PBR_GLTF,
+                       firefly_clamp=10.0, use_sun_sky=True)
+    r = R.Renderer(R.build_scene(g, m, l, c, atlas=a), cfg, device="cuda", fused_shade=True)
+    r.render_frame(0)
+    for mod in (tf, wp):
+        mod.reset_launches()
+    img = r.render_frame(1).cpu().numpy()
+    rays = r.last_rays
+    lau = {**tf.LAUNCHES, **wp.LAUNCHES}
+    assert lau["alpha_rounds"] > 0 and lau["retire"] > 0, lau
+    chip_smoke.assert_folded("fused frame", lau)
+    real = ta._alpha_rounds
+
+    def two_launches(planar, pack, o, d, t_limit, seed, active, cull):
+        if seed is None:
+            seed = torch.zeros(o.shape[0], dtype=torch.int64, device=o.device)
+        need = tf._alpha_need_plain(planar, o, d, t_limit, active)
+        t, tri, u, v, seed, steps = ta._alpha_rounds_cuda(planar, pack, o, d, t_limit, seed,
+                                                          need, cull)
+        return tf.Hit(t=t, tri=tri, u=u, v=v, steps=steps), seed
+
+    ta._alpha_rounds = two_launches
+    try:
+        with chip_smoke.plain_pool():
+            ref = r.render_frame(1).cpu().numpy()
+    finally:
+        ta._alpha_rounds = real
+    assert np.isfinite(img).all() and img.mean() > 0.0
+    assert img.tobytes() == ref.tobytes() and rays == r.last_rays
+
+
+def test_retire_kernel_matches_plain_on_frame_pools(scene):
+    """``vkrt_retire`` against ``_retire_plain`` on the pools of a fused
+    atrium frame (``chip_smoke.capture_states``: a fresh pool, a full one,
+    the tiers) and on the full pool cut to 1, 3 and 2,085 lanes: every lane
+    field, the loop control, the retired units' radiance and the step
+    record bit for bit."""
+    _need_cuda()
+    import chip_smoke
+    from vk_raytrace_torch.integrator import pool as wp
+
+    g, m, l, c, a = scene
+    cfg = RenderConfig(width=320, height=192, max_depth=4, max_samples=1, pbr_mode=PBR_GLTF,
+                       firefly_clamp=10.0, use_sun_sky=True)
+    r = R.Renderer(R.build_scene(g, m, l, c, atlas=a), cfg, device="cuda", fused_shade=True)
+    r.render_frame(0)
+    _, retire = chip_smoke.capture_states(r, 1)
+    full = next(x for w, x in retire if w.startswith("iteration 2,"))
+    retire += [(f"first {n}", chip_smoke.cut_pool(full, n)) for n in chip_smoke.RETIRE_TAILS]
+    assert len({x[0]["active"].shape[0] for _, x in retire}) >= 5
+    for what, (st0, b, ctrl0, sl) in retire:
+        n = st0["active"].shape[0]
+        runs = []
+        for fn in (wp._retire_cuda, wp._retire_plain):
+            st, ctrl = {k: v.clone() for k, v in st0.items()}, ctrl0.clone()
+            out = torch.zeros(sl.total_units + n, 3, device="cuda")
+            steps = torch.zeros(sl.n_pix + 1, dtype=torch.int32, device="cuda")
+            fn(st, b, ctrl, out, steps, sl)
+            runs.append((st, {"ctrl": ctrl, "out": out[:sl.total_units],
+                              "steps": steps[:sl.n_pix]}))
+        torch.cuda.synchronize()
+        chip_smoke.same_bits(what, runs[0][0], runs[1][0])
+        chip_smoke.same_bits(what, runs[0][1], runs[1][1])
 
 
 def test_environment_builds_equal_on_card():

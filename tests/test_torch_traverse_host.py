@@ -8,15 +8,21 @@ through the port's own ctypes wrapper, and held against the plain twin
 32: t, tri, u, v and steps bit for bit. A build with two shared stack
 entries runs the global spill. Skips where g++ is missing.
 
-The single-level alpha rounds (``vkrt_alpha_rounds``, persistent warps)
-through the same host libraries: ``traverse_alpha._alpha_rounds_cuda``
-against the round loop ``traverse_alpha._rounds_core`` on rays toward the
-atrium's banners, each build, closest (culling) and any (none), with the
-alpha pack and without (every candidate passes): t, tri, u, v, seed and
-steps bit for bit; the deepest stack, the warps' step counts, the scratch
-reused, zero rays, a deep alpha cloud past the sixteen shared entries, the
-24-round cap on a stack of 30 rejecting panels, and the refusal of a
-scratch too small.
+The single-level alpha rounds (``vkrt_alpha_rounds``, persistent warps,
+the alpha pass's need line at their ray intake) through the same host
+libraries: ``traverse_alpha._alpha_rounds_cuda`` against the round loop
+``traverse_alpha._rounds_core`` fed ``_alpha_need_plain``'s mask (what
+``_alpha_rounds`` runs on the CPU) on rays toward the atrium's banners,
+each build, closest (culling) and any (none), with the alpha pack and
+without (every candidate passes): t, tri, u, v, seed and steps bit for
+bit; the deepest stack, the warps' step counts, the scratch reused, zero
+rays, a deep alpha cloud past the sixteen shared entries, the 24-round cap
+on a stack of 30 rejecting panels, and the refusal of a scratch too small;
+the same at every build on ``chip_smoke.prefilter_rays``' sets with
+``active`` absent, about half and none, with the intake's counts (rays
+fetched, rays that needed the rounds); a need
+mask given as ``active`` gives the same outputs. Modes a/b on the NaN set
+against the twin: a NaN plane distance at the root is a miss in both.
 
 The alpha pass's root prefilter (``vkrt_root_prefilter``) through the
 same libraries at both widths: ``traverse_fused._alpha_need_cuda`` against
@@ -183,6 +189,27 @@ def test_host_kernel_matches_twin(host_kernel, atrium, name, mode):
     assert lib.vkrt_traverse_ab_occupancy(tf._MODE_ID[mode]) > 0
 
 
+@pytest.mark.parametrize("mode", ["closest", "any"])
+@pytest.mark.parametrize("name", ["w16", "w32"])
+def test_host_kernel_matches_twin_on_nan_rays(host_kernel, atrium, name, mode):
+    """Rays with NaN, +-inf and +-3e38 components (``chip_smoke.
+    prefilter_rays``' ``nan`` set, toward the opaque tree's root children):
+    a NaN plane distance makes the root a miss in the kernel as torch's NaN
+    propagation does in the twin, so every output is the twin's bit for
+    bit, steps included."""
+    geom, planars = atrium
+    width = dict((b[0], b[1]) for b in BUILDS)[name]
+    planar = planars[width]
+    host_kernel(name)
+    o, d, t_max = chip_smoke.prefilter_rays("nan", planar, N_RAYS, np.random.default_rng(61))
+    cull = mode == "closest"
+    kern = tf._traverse_cuda(planar, o, d, t_max, None, mode, cull)
+    twin = tf._traverse_plain(planar, o, d, t_max, None, mode, cull)
+    for k, what in enumerate(("t", "tri", "u", "v", "steps")):
+        assert _same_bits(kern[k], twin[k]), f"{name} {mode}: {what} differs from the twin"
+    assert (twin[4] > 0).any() and (twin[4] == 0).any()
+
+
 def test_host_kernel_refuses(host_kernel, atrium):
     """Modes a/b from the root run only in the a/b entry, which refuses a
     scratch too small for the tree and a mode it lacks."""
@@ -201,8 +228,8 @@ def test_host_kernel_refuses(host_kernel, atrium):
                              None) != 0
     slots = lib.vkrt_traverse_ab_slots(0)
     words = lib.vkrt_traverse_ab_words(40, slots)
-    assert lib.vkrt_traverse_ab_words(8, slots) == 4  # a shallow tree: the head alone
-    assert words > 4 and (words - 4) % slots == 0  # a column of spill entries per thread
+    assert lib.vkrt_traverse_ab_words(8, slots) == 8  # a shallow tree: the head alone
+    assert words > 8 and (words - 8) % slots == 0  # a column of spill entries per thread
     scratch = torch.zeros(words - 1, dtype=torch.int32)
     for mode, stack in ((0, 40), (2, 8)):
         assert lib.vkrt_traverse_ab(mode, 16, planar.rows.data_ptr(), stack, o.data_ptr(),
@@ -261,6 +288,13 @@ N_BANNER_RAYS = 2048
 ROUNDS_OUT = ("t", "tri", "u", "v", "seed", "steps")
 
 
+def _need_rays(planar, rays):
+    """``rays`` (origin, direction, t_limit, seed, active) with the active
+    mask replaced by the alpha pass's need mask (``_alpha_need_plain``)."""
+    o, d, t_lim, seed, act = rays
+    return o, d, t_lim, seed, tf._alpha_need_plain(planar, o, d, t_lim, act)
+
+
 @pytest.fixture(scope="module")
 def banners(atrium_bundles):
     """The atrium's alpha trees and alpha pack, and rays from inside the
@@ -279,13 +313,15 @@ def banners(atrium_bundles):
 
 
 def _check_rounds(planar, pack, rays, cull, what):
-    """The kernel (one launch) against the round loop: every output bit for
-    bit. Returns both."""
+    """The kernel (one launch; its intake runs the alpha pass's need line on
+    ``rays``' active mask) against the round loop fed that line's mask
+    (``_alpha_need_plain``, as ``_alpha_rounds`` feeds it on the CPU):
+    every output bit for bit. Returns both."""
     key = tf.launch_key("alpha_rounds", planar.width)
     before = tf.LAUNCHES[key]
     kern = ta._alpha_rounds_cuda(planar, pack, *rays, cull)
     assert tf.LAUNCHES[key] == before + 1
-    loop = ta._rounds_core(planar, pack, *rays, cull)
+    loop = ta._rounds_core(planar, pack, *_need_rays(planar, rays), cull)
     for k, name in enumerate(ROUNDS_OUT):
         assert _same_bits(kern[k], loop[k]), f"{what}: {name} differs from the round loop"
     return kern, loop
@@ -339,7 +375,9 @@ def test_host_threads_share_one_stream(host_kernel, atrium, banners, name):
                 None if cull else active, mode, cull)
         cases.append((tf._traverse_cuda, args, tf._traverse_plain(*args)[:5]))
     args = (alpha_planars[16], None, *rounds_rays, True)
-    cases.append((ta._alpha_rounds_cuda, args, ta._rounds_core(*args)))
+    want = ta._rounds_core(alpha_planars[16], None, *_need_rays(alpha_planars[16], rounds_rays),
+                           True)
+    cases.append((ta._alpha_rounds_cuda, args, want))
     tf._load(16)
 
     def run(k):
@@ -445,6 +483,70 @@ def test_host_alpha_rounds_cap_each_ray_at_24(host_kernel, kind):
     np.testing.assert_array_equal(kern[4].numpy()[a], s.astype(np.int64)[a])
     np.testing.assert_array_equal(kern[4].numpy()[~a], seed.numpy()[~a])
     assert (kern[5][~act] == 0).all() and (kern[5][act] > 0).all()
+
+
+N_SET_RAYS = 1001
+
+
+@pytest.mark.parametrize("case", chip_smoke.PREFILTER_CASES)
+@pytest.mark.parametrize("name", [b[0] for b in BUILDS])
+def test_host_folded_rounds_on_prefilter_sets(host_kernel, banners, name, case):
+    """The rounds kernel's intake runs the alpha pass's need line: on each
+    of ``chip_smoke.prefilter_rays``' sets (NaN, +-inf, +-0, components
+    below 1e-20, subnormals, t_limit <= 0, INF and NaN) toward the atrium's
+    alpha tree, with ``active`` absent, about half and none, closest (with
+    culling) and any hit by turns, the kernel's outputs bit for bit those of
+    the round loop fed ``_alpha_need_plain``'s mask (what ``_alpha_rounds``
+    runs on the CPU); the rays that need nothing keep the outputs of a
+    masked ray, and the intake counts every ray fetched and the needing
+    ones."""
+    planars, pack, _ = banners
+    width = dict((b[0], b[1]) for b in BUILDS)[name]
+    planar = planars[width]
+    host_kernel(name)
+    k = chip_smoke.PREFILTER_CASES.index(case)
+    rng = np.random.default_rng(70 + 7 * width + k)
+    o, d, t_lim = chip_smoke.prefilter_rays(case, planar, N_SET_RAYS, rng)
+    seed = torch.tensor(rng.integers(0, 2**32, N_SET_RAYS), dtype=torch.int64)
+    for j, active in enumerate(chip_smoke.PREFILTER_ACTIVE):
+        act = chip_smoke.prefilter_active(active, N_SET_RAYS, rng)
+        cull = (k + j) % 2 == 0
+        what = f"{name} {case} active {active} {'closest' if cull else 'any'}"
+        kern, loop = _check_rounds(planar, pack, (o, d, t_lim, seed, act), cull, what)
+        need = tf._alpha_need_plain(planar, o, d, t_lim, act)
+        assert tf._AB_GRIDS[width].intake("cpu") == (N_SET_RAYS, int(need.sum())), what
+        assert (kern[0][~need] == tf.INF).all() and (kern[1][~need] == -1).all()
+        assert (kern[2][~need] == 0).all() and (kern[3][~need] == 0).all()
+        assert torch.equal(kern[4][~need], seed[~need]) and (kern[5][~need] == 0).all()
+        if active != "none" and case != "t_limit":
+            assert 0 < int(need.sum()) < N_SET_RAYS, what
+
+
+@pytest.mark.parametrize("name", ["w16", "w32"])
+def test_host_need_as_active_gives_the_same_outputs(host_kernel, banners, name):
+    """A need mask given to the kernel as ``active`` (the form of the alpha
+    pass before the fold: ``vkrt_root_prefilter``, then the rounds on its
+    mask) gives the outputs of the pass's own ``active``, bit for bit: every
+    ray the mask holds hits a root child. Banner rays (95% active) and the
+    random prefilter set."""
+    planars, pack, rays = banners
+    width = dict((b[0], b[1]) for b in BUILDS)[name]
+    planar = planars[width]
+    host_kernel(name)
+    o, d, t_lim = chip_smoke.prefilter_rays("random", planar, N_SET_RAYS,
+                                            np.random.default_rng(90 + width))
+    sets = [rays, (o, d, t_lim, rays[3][:N_SET_RAYS], rays[4][:N_SET_RAYS])]
+    for k, (o, d, t_lim, seed, act) in enumerate(sets):
+        for cull in (True, False):
+            own = ta._alpha_rounds_cuda(planar, pack, o, d, t_lim, seed, act, cull)
+            own_intake = tf._AB_GRIDS[width].intake("cpu")
+            need = tf._alpha_need_cuda(planar, o, d, t_lim, act)
+            assert torch.equal(need, tf._alpha_need_plain(planar, o, d, t_lim, act))
+            via = ta._alpha_rounds_cuda(planar, pack, o, d, t_lim, seed, need, cull)
+            for i, field in enumerate(ROUNDS_OUT):
+                assert _same_bits(own[i], via[i]), f"{name} set {k} cull {cull}: {field}"
+            assert own_intake == tf._AB_GRIDS[width].intake("cpu") == (o.shape[0],
+                                                                        int(need.sum()))
 
 
 # ---------------------------------------------------------------------------

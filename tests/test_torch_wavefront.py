@@ -34,7 +34,7 @@ always (within 2 ulp); a full pool, a mostly dead one, one with every unit
 granted already, the tiers' widths, every lane dead, none dead, and a pool
 off a multiple of the card's 256-lane chunk (the host build's chunks are one
 lane, so its blocks run the scan's look-back in launch order and never
-wait).
+wait); the retirement on pools of 1, 3, 2,085, 4,099 and 2^14 lanes.
 """
 
 import os
@@ -381,12 +381,17 @@ def test_regenerate_kernel_matches_plain(host_kernels, cameras, n, dead_share, g
         _same_state(a, st)
 
 
-@pytest.mark.parametrize("rr, track", [(True, True), (False, True), (True, False)])
-def test_retire_kernel_matches_plain(host_kernels, cameras, rr, track):
-    rng = np.random.default_rng(11 + rr + 2 * track)
-    sl = _slice(cameras, 3, 1, rr=rr, rr_depth=1)
-    n = 4099
-    st = _random_pool(rng, n, 0.35, n_units=sl.total_units)
+@pytest.mark.parametrize("rr, track, n, dead_share", [
+    (True, True, 4099, 0.35), (False, True, 4099, 0.35), (True, False, 4099, 0.35),
+    (True, True, 1, 0.0),       # one lane, three: part of one block
+    (False, True, 3, 0.0),
+    (True, True, 2085, 0.35),   # off a multiple of the card's 256-lane block
+    (True, True, 1 << 14, 0.35),  # the last tier's width of a 2^18 pool
+])
+def test_retire_kernel_matches_plain(host_kernels, cameras, rr, track, n, dead_share):
+    rng = np.random.default_rng(11 + rr + 2 * track + (0 if n == 4099 else n))
+    sl = _slice(cameras, 3 if n <= 4099 else 6, 1, rr=rr, rr_depth=1)  # a unit a lane
+    st = _random_pool(rng, n, dead_share, n_units=sl.total_units)
     b = _random_bounce(rng, st)
     runs = []
     for fn in (P._retire_plain, P._retire_cuda):

@@ -39,7 +39,8 @@
 //   vkrt_traverse_ab: modes a and b from the root, persistent warps;
 //   vkrt_root_prefilter: which rays the single-level alpha rounds need (the
 //     per-child slab test against the root row; see "The alpha pass's root
-//     prefilter" below), a thread a ray;
+//     prefilter" below), a thread a ray; vkrt_alpha_rounds runs the same
+//     test at its ray intake, so the main path never launches it;
 //   vkrt_alpha_rounds, vkrt_opaque_machine, vkrt_alpha_machine: the round
 //     machines (see "The round machines" below), each a host loop of
 //     traversal rounds run whole in one launch, in persistent warps on the
@@ -407,11 +408,24 @@ __device__ __forceinline__ void root_union(const float4* __restrict__ rows, floa
   }
 }
 
-// Ray setup from the tree's root: the union box hit within (0, tmax).
+// Ray setup from the tree's root: the union box hit within (0, tmax). A NaN
+// plane distance (a NaN in the origin or the direction, or an infinite
+// direction component against an infinite offset: a round's window start
+// o + d * 0) makes the root a miss, as torch's NaN propagation does in the
+// twin (_root_union_hit); fminf / fmaxf would drop it. Past the root no
+// plane distance is NaN: a child's box is finite, so its distances are NaN
+// only where the root's are.
 __device__ __forceinline__ bool enters_root(const Ray& y, const float (&rmin)[3],
                                             const float (&rmax)[3], float tmax) {
-  float tn0, tf0;
-  slab(y, rmin[0], rmin[1], rmin[2], rmax[0], rmax[1], rmax[2], tn0, tf0);
+  const float lx = __fmul_rn(__fsub_rn(rmin[0], y.ox), y.ix);
+  const float hx = __fmul_rn(__fsub_rn(rmax[0], y.ox), y.ix);
+  const float ly = __fmul_rn(__fsub_rn(rmin[1], y.oy), y.iy);
+  const float hy = __fmul_rn(__fsub_rn(rmax[1], y.oy), y.iy);
+  const float lz = __fmul_rn(__fsub_rn(rmin[2], y.oz), y.iz);
+  const float hz = __fmul_rn(__fsub_rn(rmax[2], y.oz), y.iz);
+  if (lx != lx || hx != hx || ly != ly || hy != hy || lz != lz || hz != hz) return false;
+  const float tn0 = fmaxf(fmaxf(fminf(lx, hx), fminf(ly, hy)), fminf(lz, hz));
+  const float tf0 = fminf(fminf(fmaxf(lx, hx), fmaxf(ly, hy)), fmaxf(lz, hz));
   return (tn0 <= tf0) && (tf0 >= 0.0f) && (tn0 < tmax);
 }
 
@@ -854,6 +868,9 @@ constexpr int kMachineRefill = 4;
 // at 8 idle lanes within 1% of 4.
 constexpr int kRoundsMinBlocks = 3;
 constexpr int kRoundsRefill = 4;
+// The rounds' intake: a warp fetches again, before its node loops, while
+// kRoundsRefill lanes are idle because their rays needed no round.
+constexpr bool kRoundsRefetch = true;
 // Instances of the table for each lane that waits for an instance scan
 // (scan_batch below). Measured on the H100 (chip_ab.py, PERF.md section 6):
 // with every lane scanning as soon as its round ended, the plaza's alpha
@@ -1149,6 +1166,105 @@ alpha_machine_kernel(const float4* __restrict__ rows, int lim, const float* __re
   machine_counts(lanes, lane, scratch, deepest, busy, slots);
 }
 
+// ---- The alpha pass's root prefilter ------------------------------------------
+// Replaces the XLA body root_prefilter (vk_raytrace_tpu/ops/traverse_fused.py:575)
+// with the line of _alpha_rounds around it (vk_raytrace_tpu/ops/
+// traverse_alpha.py:175-183): ray r needs the alpha rounds where
+//   active[r] & t_limit[r] > 0 & any_c(valid_c & tn_c <= tf_c & tf_c >= 0 & tn_c < t_limit[r])
+// over the W children c of root row 0 (valid: bmin.x <= bmax.x, x alone, as
+// _root_boxes tests), tn_c / tf_c the slab test with the guarded reciprocal.
+// On the main path this line is the ray intake of vkrt_alpha_rounds (below),
+// which loads each ray, its t_limit and its flag anyway: no launch, no host
+// call and no need mask of its own. The standalone entry vkrt_root_prefilter
+// (a thread a lane: it reads its flag, an inactive lane nothing else, then
+// t_limit and its ray, and writes one byte) computes the mask alone; both
+// run the same device functions. The root row's 6·W bounds are loaded once a
+// block into shared memory. Bit for bit with torch on the card: sub then product
+// rounded apart, IEEE reciprocal (guard_inv), and NaN as torch.minimum /
+// maximum / amax / amin propagate it (min_nan / max_nan; fminf / fmaxf
+// would drop it): any NaN among a child's six plane distances makes tn and
+// tf NaN and the child a miss; -0.0 takes +1e-20 in guard_inv, as inv_dir's
+// d < 0 does. The bounds are read as float4, four children at a time
+// (with the NaN-propagating min / max, 6% less device time in the alpha
+// rounds of a 1080p atrium frame than scalar reads and explicit NaN tests).
+
+// torch.minimum / maximum: NaN if either operand is NaN.
+__device__ __forceinline__ float min_nan(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return a != a || b != b ? a + b : fminf(a, b);
+#endif
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return a != a || b != b ? a + b : fmaxf(a, b);
+#endif
+}
+
+__device__ __forceinline__ bool root_child_hit(const Ray& y, float bxm, float bym, float bzm,
+                                               float bxM, float byM, float bzM, float t_limit) {
+  if (!(bxm <= bxM)) return false;
+  const float lx = __fmul_rn(__fsub_rn(bxm, y.ox), y.ix);
+  const float hx = __fmul_rn(__fsub_rn(bxM, y.ox), y.ix);
+  const float ly = __fmul_rn(__fsub_rn(bym, y.oy), y.iy);
+  const float hy = __fmul_rn(__fsub_rn(byM, y.oy), y.iy);
+  const float lz = __fmul_rn(__fsub_rn(bzm, y.oz), y.iz);
+  const float hz = __fmul_rn(__fsub_rn(bzM, y.oz), y.iz);
+  const float tn = max_nan(max_nan(min_nan(lx, hx), min_nan(ly, hy)), min_nan(lz, hz));
+  const float tf = min_nan(min_nan(max_nan(lx, hx), max_nan(ly, hy)), max_nan(lz, hz));
+  return tn <= tf && tf >= 0.0f && tn < t_limit;
+}
+
+// The root row's child bounds (bmin x | y | z, bmax x | y | z, W each) into
+// the block's shared s_box (6·W / 4 float4); the block syncs before reading them.
+template <int W>
+__device__ __forceinline__ void share_root_children(const float4* __restrict__ rows, float4* s_box) {
+  for (int k = threadIdx.x; k < 6 * W / 4; k += blockDim.x) s_box[k] = rows[k];
+}
+
+// Whether ray y hits a root child within (0, t_limit) (t_limit > 0 tested
+// by the caller): the children four at a time, each bound a float4 load.
+template <int W>
+__device__ __forceinline__ bool hits_root_child(const Ray& y, const float4* s_box, float t_limit) {
+  constexpr int G = W / 4;
+  for (int g = 0; g < G; ++g) {
+    const float4 xm = s_box[g], ym = s_box[G + g], zm = s_box[2 * G + g];
+    const float4 xM = s_box[3 * G + g], yM = s_box[4 * G + g], zM = s_box[5 * G + g];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (root_child_hit(y, f4get(xm, k), f4get(ym, k), f4get(zm, k), f4get(xM, k), f4get(yM, k),
+                         f4get(zM, k), t_limit))
+        return true;
+  }
+  return false;
+}
+
+template <int W>
+__global__ void __launch_bounds__(256)
+root_prefilter_kernel(const float* __restrict__ rows, const float* __restrict__ origin,
+                      const float* __restrict__ direction, const float* __restrict__ t_limit,
+                      const uint8_t* __restrict__ active, int64_t n,
+                      uint8_t* __restrict__ need) {
+  __shared__ float4 s_box[6 * W / 4];
+  share_root_children<W>(reinterpret_cast<const float4*>(rows), s_box);
+  __syncthreads();
+  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  bool hit = false;
+  if (active == nullptr || active[r]) {
+    const float tl = t_limit[r];
+    if (tl > 0.0f) hit = hits_root_child<W>(load_ray(origin, direction, r), s_box, tl);
+  }
+  need[r] = hit ? 1 : 0;
+}
+
 // The single-level alpha rounds (traverse_alpha._rounds_core) for every ray:
 // round after round, the candidate traversal of the alpha tree from its root
 // over the window (t_lo, t_limit), then the stochastic test of the nearest
@@ -1163,6 +1279,16 @@ alpha_machine_kernel(const float4* __restrict__ rows, int lim, const float* __re
 // round is under way (cur == kTerm alone cannot tell a round that just ended
 // from one that never entered the root). The warps count their node steps
 // at width 16 (machine_counts; at width 32 scratch words 2 and 3 stay 0).
+//
+// The ray intake runs the alpha pass's need line (the root prefilter above)
+// on each ray a lane fetches: a ray that is inactive, has t_limit <= 0 (or
+// NaN) or hits no root child within (0, t_limit) is finished at once with
+// the outputs of a ray that needs nothing (t = 1e32, tri = -1, u = v = 0,
+// its seed, steps 0). So that such rays cost the warp no node step, a warp
+// fetches again while kRoundsRefill of its lanes are idle and rays remain,
+// before its node loops run (kRoundsRefetch). The block counts its rays
+// fetched and the rays that needed the rounds in shared memory and
+// adds them to scratch words 4 and 5 at the end.
 template <bool CULL, int W>
 __global__ void __launch_bounds__(kAbThreads, kRoundsMinBlocks)
 alpha_rounds_kernel(const float4* __restrict__ rows, int lim, const float* __restrict__ origin,
@@ -1177,9 +1303,13 @@ alpha_rounds_kernel(const float4* __restrict__ rows, int lim, const float* __res
   using M = NodeMem<W>;
   __shared__ M mem;
   __shared__ float s_root[6];
+  __shared__ float4 s_box[6 * W / 4];
+  __shared__ unsigned s_intake[2];  // rays fetched, rays that needed the rounds
   float l_key[M::kListShared ? 1 : W];
   int l_ref[M::kListShared ? 1 : W];
   share_root_box<W>(rows, s_root);
+  share_root_children<W>(rows, s_box);
+  for (int k = threadIdx.x; k < 2; k += blockDim.x) s_intake[k] = 0;
   __syncthreads();
 
   const unsigned lanes = __ballot_sync(0xffffffffu, true);
@@ -1224,28 +1354,58 @@ alpha_rounds_kernel(const float4* __restrict__ rows, int lim, const float* __res
     ray = -1;
     going = false;
   };
+  // A new ray: the need line, then its first round. A ray that needs
+  // nothing gets its outputs here and leaves the lane idle. (Setting the
+  // lane's state only for a ray that runs rounds: 338 B of spill at width
+  // 32, ptxas; setting it for every ray first: 360-380 B. Testing the
+  // root's union box before the children measured 4% slower in a 1080p
+  // atrium frame: most of its rays enter the alpha tree's box.)
+  const auto take = [&](int64_t r) {
+    const Ray yy = load_ray(origin, direction, r);
+    const float tl = t_limit[r];
+    if (!((active == nullptr || active[r]) && tl > 0.0f && max_rounds > 0 &&
+          hits_root_child<W>(yy, s_box, tl))) {  // the outputs of a ray that needs nothing
+      out_t[r] = kInf;
+      out_tri[r] = -1;
+      out_u[r] = 0.0f;
+      out_v[r] = 0.0f;
+      out_seed[r] = seed_in[r];
+      out_steps[r] = 0;
+      return false;
+    }
+    ray = (int)r;
+    y = yy;
+    ox = y.ox;
+    oy = y.oy;
+    oz = y.oz;
+    tlim = tl;
+    seed0 = seed_in[r];
+    seed = (uint32_t)seed0;
+    drew = false;
+    t_lo = 0.0f;
+    t_best = kInf;
+    u = v = 0.0f;
+    tri = -1;
+    steps = 0;
+    round = 0;
+    begin();
+    return true;
+  };
   while (true) {
-    const unsigned idle = __ballot_sync(lanes, ray < 0);
+    unsigned idle = __ballot_sync(lanes, ray < 0);
     if (!more && idle == lanes) break;
-    const int64_t r = fetch<kRoundsRefill>(lanes, idle, lane, scratch, n_rays, more);
-    if (r >= 0) {  // a new ray: its first round
-      ray = (int)r;
-      y = load_ray(origin, direction, r);
-      ox = y.ox;
-      oy = y.oy;
-      oz = y.oz;
-      tlim = t_limit[r];
-      seed0 = seed_in[r];
-      seed = (uint32_t)seed0;
-      drew = false;
-      t_lo = 0.0f;
-      t_best = kInf;
-      u = v = 0.0f;
-      tri = -1;
-      steps = 0;
-      round = 0;
-      if ((active == nullptr || active[r]) && max_rounds > 0) begin();
-      else finish();
+    while (true) {  // the intake
+      const int64_t r = fetch<kRoundsRefill>(lanes, idle, lane, scratch, n_rays, more);
+      const bool need = r >= 0 && take(r);
+      const unsigned got = __ballot_sync(lanes, r >= 0);
+      const unsigned kept = __ballot_sync(lanes, need);
+      if (got == 0) break;
+      if (lane == 0) {
+        atomicAdd(s_intake, (unsigned)__popc(got));
+        atomicAdd(s_intake + 1, (unsigned)__popc(kept));
+      }
+      if (!kRoundsRefetch || kept == got) break;
+      idle = __ballot_sync(lanes, ray < 0);
     }
     const int s0 = steps;
     interior_nodes<kCandidate, W>(rows, cur, y, h, cl, st, depth, lim, deepest, steps);
@@ -1278,6 +1438,11 @@ alpha_rounds_kernel(const float4* __restrict__ rows, int lim, const float* __res
     }
   }
   machine_counts(lanes, lane, scratch, deepest, busy, slots);
+  __syncthreads();  // every warp has left its loop
+  if (threadIdx.x == 0) {
+    atomicAdd(scratch + 4, (int)s_intake[0]);
+    atomicAdd(scratch + 5, (int)s_intake[1]);
+  }
 }
 
 // The child order alone, one row per W lanes (a warp at W = 32, a half-warp
@@ -1316,58 +1481,6 @@ sort_children_kernel(const float* __restrict__ keys, const int32_t* __restrict__
     out_refs[row * W + rank] = ref;
     if (lane == 0) out_count[row] = n_hits;
   }
-}
-
-// ---- The alpha pass's root prefilter ------------------------------------------
-// Replaces the XLA body root_prefilter (vk_raytrace_tpu/ops/traverse_fused.py:575)
-// with the line of _alpha_rounds around it (vk_raytrace_tpu/ops/
-// traverse_alpha.py:175-183): ray r needs the alpha rounds where
-//   active[r] & t_limit[r] > 0 & any_c(valid_c & tn_c <= tf_c & tf_c >= 0 & tn_c < t_limit[r])
-// over the W children c of root row 0 (valid: bmin.x <= bmax.x, x alone, as
-// _root_boxes tests), tn_c / tf_c the slab test with the guarded reciprocal.
-// One thread a lane reads its flag (an inactive lane reads nothing else),
-// t_limit and its ray, and writes one byte, with no (R, W, 3) temporaries:
-// bound by those ~30 bytes a lane, the root row's 6·W bounds loaded once a
-// block into shared memory. Bit for bit with torch on the card: sub then product
-// rounded apart, IEEE reciprocal (guard_inv), and NaN as torch.minimum /
-// maximum / amax / amin propagate it: any NaN among a child's six plane
-// distances makes tn and tf NaN and the child a miss (fminf / fmaxf would
-// drop it); -0.0 takes +1e-20 in guard_inv, as inv_dir's d < 0 does.
-template <int W>
-__device__ __forceinline__ bool root_child_hit(const Ray& y, const float* b, int c, float t_limit) {
-  if (!(b[c] <= b[3 * W + c])) return false;
-  const float lx = __fmul_rn(__fsub_rn(b[c], y.ox), y.ix);
-  const float hx = __fmul_rn(__fsub_rn(b[3 * W + c], y.ox), y.ix);
-  const float ly = __fmul_rn(__fsub_rn(b[W + c], y.oy), y.iy);
-  const float hy = __fmul_rn(__fsub_rn(b[4 * W + c], y.oy), y.iy);
-  const float lz = __fmul_rn(__fsub_rn(b[2 * W + c], y.oz), y.iz);
-  const float hz = __fmul_rn(__fsub_rn(b[5 * W + c], y.oz), y.iz);
-  if (lx != lx || hx != hx || ly != ly || hy != hy || lz != lz || hz != hz) return false;
-  const float tn = fmaxf(fmaxf(fminf(lx, hx), fminf(ly, hy)), fminf(lz, hz));
-  const float tf = fminf(fminf(fmaxf(lx, hx), fmaxf(ly, hy)), fmaxf(lz, hz));
-  return tn <= tf && tf >= 0.0f && tn < t_limit;
-}
-
-template <int W>
-__global__ void __launch_bounds__(256)
-root_prefilter_kernel(const float* __restrict__ rows, const float* __restrict__ origin,
-                      const float* __restrict__ direction, const float* __restrict__ t_limit,
-                      const uint8_t* __restrict__ active, int64_t n,
-                      uint8_t* __restrict__ need) {
-  __shared__ float s_box[6 * W];  // bmin x | y | z, bmax x | y | z of the root's children
-  for (int k = threadIdx.x; k < 6 * W; k += blockDim.x) s_box[k] = rows[k];
-  __syncthreads();
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  bool hit = false;
-  if (active == nullptr || active[r]) {
-    const float tl = t_limit[r];
-    if (tl > 0.0f) {
-      const Ray y = load_ray(origin, direction, r);
-      for (int c = 0; c < W && !hit; ++c) hit = root_child_hit<W>(y, s_box, c, tl);
-    }
-  }
-  need[r] = hit ? 1 : 0;
 }
 
 struct Args {
@@ -1676,20 +1789,23 @@ int vkrt_alpha_machine(int cull, int any_hit, int width, const float* rows, int 
 }
 
 // The single-level alpha rounds over n_rays rays (< 2^31), each to the end
-// of its rounds (at most max_rounds): rows, the alpha tree (this library's
-// width) with its stack bound; t_limit (n_rays,) the window ends; active may
-// be null; seed (n_rays,) uint32 values in int64. pack (n_pack, 16) the
+// of its rounds (at most max_rounds), after the alpha pass's need line: a
+// ray runs the rounds where it is active (every ray where active is null),
+// t_limit > 0 and it hits a root child within (0, t_limit). rows, the alpha
+// tree (this library's width) with its stack bound; t_limit (n_rays,) the
+// window ends; seed (n_rays,) uint32 values in int64. pack (n_pack, 16) the
 // AlphaPack rows and plane the atlas alpha channel (n_plane bytes, rows
 // atlas_w wide), or a null pack: every candidate passes and no seed moves.
 // cull: backface culling of the candidates. Persistent warps on
 // min(n_slots, rays) threads (vkrt_machine_slots with kind 2 and any_hit =
 // !cull); scratch: vkrt_traverse_ab_words(stack_depth, n_slots) int32 words,
 // whose head this entry zeroes on the stream; the kernel leaves the deepest
-// stack in scratch[1] and, at width 16, its warps' busy node steps and
-// node-loop lane slots in scratch[2] and [3]. Outputs per ray: t (1e32
-// where no surface was accepted), tri (-1 then), u, v, seed (the input where
-// nothing was drawn), steps (nodes over all rounds). Returns the first CUDA
-// error.
+// stack in scratch[1], at width 16 its warps' busy node steps and
+// node-loop lane slots in scratch[2] and [3], and the rays it fetched and
+// those that needed the rounds in scratch[4] and [5]. Outputs per ray: t
+// (1e32 where no surface was accepted), tri (-1 then), u, v, seed (the input
+// where nothing was drawn), steps (nodes over all rounds). Returns the first
+// CUDA error.
 int vkrt_alpha_rounds(int cull, int width, const float* rows, int stack_depth,
                       const float* origin, const float* direction, const float* t_limit,
                       const uint8_t* active, const int64_t* seed, const float* pack,

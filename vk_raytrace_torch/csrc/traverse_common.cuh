@@ -72,8 +72,10 @@ __device__ __forceinline__ void slab(const Ray& y, float bxm, float bym, float b
 #endif
 constexpr int kShStack = VKRT_SHARED_STACK;
 // Scratch words before the spill: the ray counter, the deepest stack
-// reached, two spare (keeps the spill 16-byte aligned).
-constexpr int kScratchHead = 4;
+// reached, the warps' busy node steps and lane slots, the rays fetched and
+// the rays that needed the rounds (vkrt_alpha_rounds), two spare (keeps the
+// spill 16-byte aligned).
+constexpr int kScratchHead = 8;
 
 // One thread's stack: `sh` its first shared entry (stride blockDim.x),
 // `spill` its first spill entry (stride n_slots).

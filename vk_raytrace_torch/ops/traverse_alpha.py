@@ -7,12 +7,14 @@ candidate per ray, and advances ``t_lo`` just past rejected candidates.
 Testing candidates in t order is distribution-identical to testing them in
 encounter order.
 
-On the card the rounds are one launch of ``vkrt_alpha_rounds``
-(``csrc/traverse.cu``): persistent warps, in which a lane runs its ray's
-rounds to the end, its state in registers, and takes a new ray when its ray
-ends, with no host sync. Their plain version, the round loop
-:func:`_rounds_core`, runs the CPU tensors; it compacts the rays to the live
-set before every round.
+On the card the alpha pass is one launch of ``vkrt_alpha_rounds``
+(``csrc/traverse.cu``): persistent warps, in which a lane takes a ray, runs
+the pass's need line on it (the reference's root prefilter,
+``traverse_fused.alpha_need``), runs its rounds to the end, its state in
+registers, and takes a new ray when its ray ends, with no host sync. The
+plain versions run the CPU tensors: ``alpha_need``'s, then the round loop
+:func:`_rounds_core`, which compacts the rays to the live set before every
+round.
 """
 
 from __future__ import annotations
@@ -107,9 +109,11 @@ def _rounds_core(planar, pack, origin, direction, t_limit, seed, need, cull, tra
 
 
 def _rounds(planar, pack, origin, direction, t_limit, seed, need, cull):
-    """The candidate rounds: CUDA tensors launch the ``vkrt_alpha_rounds``
-    kernel (or raise), CPU tensors run the round loop. Returns ``(t, tri,
-    u, v, seed', steps)``, ``t`` ``INF`` where no surface was accepted."""
+    """The candidate rounds on the rays of ``need`` (the pass's need mask):
+    CUDA tensors launch the ``vkrt_alpha_rounds`` kernel with ``need`` as
+    its ``active`` (its intake's need line keeps every such ray) or raise,
+    CPU tensors run the round loop. Returns ``(t, tri, u, v, seed',
+    steps)``, ``t`` ``INF`` where no surface was accepted."""
     if origin.device.type == "cuda":
         return _alpha_rounds_cuda(planar, pack, origin, direction, t_limit, seed, need, cull)
     if origin.device.type != "cpu":
@@ -117,15 +121,20 @@ def _rounds(planar, pack, origin, direction, t_limit, seed, need, cull):
     return _rounds_core(planar, pack, origin, direction, t_limit, seed, need, cull)
 
 
-def _alpha_rounds_cuda(planar, pack, origin, direction, t_limit, seed, need, cull):
-    """One launch of ``vkrt_alpha_rounds``: every ray's rounds, to the end
-    or to ``_MAX_ROUNDS``, in one lane of a persistent warp (its grid and
-    scratch from ``traverse_fused.machine_state``). The cap is each ray's
+def _alpha_rounds_cuda(planar, pack, origin, direction, t_limit, seed, active, cull):
+    """One launch of ``vkrt_alpha_rounds``: the pass's need line at each
+    ray's intake (``active``, all rays where None; ``t_limit > 0``; a root
+    child hit within ``(0, t_limit)``: :func:`traverse_fused.alpha_need`),
+    then every needing ray's rounds, to the end or to ``_MAX_ROUNDS``, in
+    one lane of a persistent warp (its grid and scratch from
+    ``traverse_fused.machine_state``). A ray that needs nothing gets the
+    outputs of a masked ray. A need mask given as ``active`` gives the same
+    outputs: every ray it holds hits a root child. The cap is each ray's
     own: the loop counts rounds for the whole batch, but a lane that is live
     stays live without a gap until it ends, so its rounds are the batch's."""
     lib = tf._load(planar.width)
     r, dev = origin.shape[0], origin.device
-    need = tf._check_rays(lib, planar, origin, direction, t_limit, need)
+    active = tf._check_rays(lib, planar, origin, direction, t_limit, active)
     tf._check("seed", seed, (r,), torch.int64, dev)
     if pack is not None:
         tf._check("pack rows", pack.rows, (pack.rows.shape[0], 16), torch.float32, dev)
@@ -144,7 +153,7 @@ def _alpha_rounds_cuda(planar, pack, origin, direction, t_limit, seed, need, cul
     with tf.machine_state(lib, planar, dev, tf.ROUNDS, not cull, 0) as (scratch, slots, stream):
         err = lib.vkrt_alpha_rounds(
             int(bool(cull)), planar.width, planar.rows.data_ptr(), planar.stack_depth,
-            origin.data_ptr(), direction.data_ptr(), t_limit.data_ptr(), tf._ptr(need),
+            origin.data_ptr(), direction.data_ptr(), t_limit.data_ptr(), tf._ptr(active),
             seed.data_ptr(), *alpha, r, _MAX_ROUNDS, scratch.data_ptr(), scratch.numel(),
             slots, t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
             seed_out.data_ptr(), steps.data_ptr(), stream,
@@ -156,17 +165,21 @@ def _alpha_rounds_cuda(planar, pack, origin, direction, t_limit, seed, need, cul
 
 
 def _alpha_rounds(planar, pack, origin, direction, t_limit, seed, active, cull):
-    """Rays that can reach the alpha tree within (0, t_limit) — per-child
-    root prefilter (``traverse_fused.alpha_need``: one launch of
-    ``vkrt_root_prefilter`` on the card) — run the candidate rounds.
+    """The alpha pass: the rays that can reach the alpha tree within (0,
+    t_limit) (the reference's per-child root prefilter) run the candidate
+    rounds. CUDA tensors: one launch of ``vkrt_alpha_rounds``, whose ray
+    intake runs that need line on ``active``; CPU tensors:
+    ``traverse_fused.alpha_need`` (its plain version), then the round loop.
     Returns ``(Hit, seed')``."""
     r = origin.shape[0]
     if seed is None:
         seed = torch.zeros(r, dtype=torch.int64, device=origin.device)
-    need0 = tf.alpha_need(planar, origin, direction, t_limit, active)
-    bt, btri, bu, bv, seed, steps = _rounds(
-        planar, pack, origin, direction, t_limit, seed, need0, cull
-    )
+    if origin.device.type == "cuda":
+        out = _alpha_rounds_cuda(planar, pack, origin, direction, t_limit, seed, active, cull)
+    else:
+        need0 = tf.alpha_need(planar, origin, direction, t_limit, active)
+        out = _rounds(planar, pack, origin, direction, t_limit, seed, need0, cull)
+    bt, btri, bu, bv, seed, steps = out
     hit = Hit(t=bt, tri=btri, u=bu, v=bv, steps=steps)
     return hit, seed
 

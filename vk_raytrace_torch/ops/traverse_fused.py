@@ -36,7 +36,8 @@ Three more entries, each with its plain version beside it:
 * :func:`alpha_need`: which rays the single-level alpha rounds trace (the
   per-child slab test against the root row, :func:`root_prefilter`, with
   the ``active`` and ``t_limit > 0`` gates), a thread a ray on the card
-  (``vkrt_root_prefilter``);
+  (``vkrt_root_prefilter``); the main path runs the same line in the
+  rounds kernel's ray intake and launches this entry no time;
 
 * :func:`sort_children`: the child order of interior rows alone (the order
   every interior step takes; the counterpart of the TPU kernel's bitonic
@@ -203,7 +204,9 @@ def alpha_need(planar: PlanarScene, origin, direction, t_limit, active=None) -> 
     where None), ``t_limit > 0`` and a root child hit within ``(0,
     t_limit)`` (:func:`root_prefilter`); the reference's line before its
     rounds (``traverse_alpha.py:175-183``). CUDA tensors launch
-    ``vkrt_root_prefilter`` (or raise), CPU tensors run the plain version."""
+    ``vkrt_root_prefilter`` (or raise), CPU tensors run the plain version.
+    On the card the alpha pass does not call it: ``vkrt_alpha_rounds`` runs
+    the line at its ray intake."""
     if origin.device.type == "cuda":
         return _alpha_need_cuda(planar, origin, direction, t_limit, active)
     if origin.device.type != "cpu":
@@ -579,7 +582,7 @@ class PersistentGrid:
 
     def _head(self, device):
         dev = cuda_device(device)
-        return self.scratch[(dev, torch.cuda.current_stream(dev).cuda_stream)][:4].tolist()
+        return self.scratch[(dev, torch.cuda.current_stream(dev).cuda_stream)][:6].tolist()
 
     def stack_reached(self, device) -> int:
         """The deepest stack a ray reached in the last call of any entry on
@@ -592,8 +595,14 @@ class PersistentGrid:
         rounds at width 16 only; waits for it): (the
         lanes' node steps, the lane slots of the warps' node loops). Their
         quotient is the share of the warps' lane-steps that do work."""
-        _, _, busy, slots = self._head(device)
+        _, _, busy, slots, _, _ = self._head(device)
         return busy % 2**32, slots % 2**32
+
+    def intake(self, device):
+        """The last single-level alpha rounds call's intake on ``device``'s
+        current stream (waits for it): (rays fetched, rays that needed the
+        rounds)."""
+        return tuple(self._head(device)[4:6])
 
 
 def cuda_device(dev):
