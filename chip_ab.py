@@ -42,8 +42,14 @@ machine; 3 calls a mean). Last, a line per checkout with ptxas's report
 alpha rounds too) and a/b instantiation of its traversal libraries. The
 card's name and power limit come first. ``--atrium`` times the atrium's kernels alone (modes a/b/c, the
 capped entry, the alpha rounds) and skips the bistro, the plaza and the
-wide back end. Variants of a kernel (a copy of a checkout with an
-edited source) compare as checkouts.
+wide back end. ``--capped`` times the traversal micro-bench's kernels
+alone (``vk_raytrace_torch.travbench``'s rays: 524,288 camera rays of the
+full atrium): mode a to termination, the capped entry at 8 and 24 nodes
+and its no-gather variant at 8 and 24, at widths 16 and 32, the least and
+the median of three means of 20 launches, with the capped kernels'
+resident blocks an SM and ptxas's report of the capped entry's
+instantiations. Variants of a kernel (a copy of a checkout
+with an edited source) compare as checkouts.
 """
 
 import os
@@ -265,9 +271,50 @@ def plaza_machines(cs, tlas, dev, rng, n, inf, t_long, seed, act):
     return out
 
 
-def machine_ptxas(tree):
+def time_capped(tree):
+    """``--capped``: travbench's traversal variants in checkout ``tree``."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    os.chdir(tree)
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from vk_raytrace_torch import travbench as tb
+    from vk_raytrace_torch.models import procedural
+    from vk_raytrace_torch.ops import traverse_fused as tf
+    from vk_raytrace_torch.ops.bvh8 import build_accel_bundle
+
+    dev = torch.device("cuda")
+    cs.build_kernels()
+    geom, _, _, cam, _ = procedural.atrium_scene()
+    o, d = tb.camera_rays(cam, tb.RAYS, dev)
+    inf = torch.full((tb.RAYS,), tf.INF, device=dev)
+    out = []
+    for width in (16, 32):
+        planar = build_accel_bundle(geom, width=width).opaque_planar.to(dev)
+        own = tf.own_rows(planar, tb.RAYS)
+        cases = {"full": lambda: tf.traverse(planar, o, d, inf, mode="closest", cull=True)}
+        for cap in (8, 24):
+            cases[f"capped{cap}"] = lambda c=cap: tf.traverse_capped(planar, o, d, inf, c)
+            cases[f"nogather{cap}"] = lambda c=cap: tf.traverse_capped(own, o, d, inf, c,
+                                                                       nogather=True)
+        for name, fn in cases.items():
+            ms = [tb.cuda_time(fn, 20) for _ in range(ROUNDS)]
+            out.append(f"w{width} {name} {min(ms):.4f}/{float(np.median(ms)):.4f}")
+        out.append(f"w{width} blocks/SM " + ",".join(  # resident, of each capped kernel
+            f"{'nogather' if ng else 'capped'}{cap}:{tf.capped_occupancy(width, cap, ng)}"
+            for cap in (8, 24) for ng in (False, True)))
+        del planar, own
+    print(os.path.basename(tree), " ".join(out), flush=True)
+    print(os.path.basename(tree), "ptxas:", "; ".join(machine_ptxas(tree, capped=True)),
+          flush=True)
+
+
+def machine_ptxas(tree, capped=False):
     """ptxas's registers, stack frame and spill of each round machine and
-    a/b instantiation in ``tree``'s built traversal libraries."""
+    a/b instantiation in ``tree``'s built traversal libraries; with
+    ``capped``, of the a/b and capped kernels."""
     import glob
     import re
 
@@ -277,8 +324,9 @@ def machine_ptxas(tree):
         text = open(log).read()
         for chunk in text.split("Compiling entry function '")[1:]:
             name = chunk.split("'", 1)[0]
-            if not any(k in name for k in ("machine_kernel", "persistent_traverse_kernel",
-                                           "alpha_rounds_kernel")):
+            keys = (("persistent_traverse_kernel", "capped_traverse_kernel") if capped else
+                    ("machine_kernel", "persistent_traverse_kernel", "alpha_rounds_kernel"))
+            if not any(k in name for k in keys):
                 continue
             regs = re.search(r"Used (\d+) registers", chunk)
             frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -292,17 +340,20 @@ def machine_ptxas(tree):
 
 def main(argv):
     if argv[:1] == ["--one"]:
-        time_tree(argv[-1], atrium_only="--atrium" in argv)
+        if "--capped" in argv:
+            time_capped(argv[-1])
+        else:
+            time_tree(argv[-1], atrium_only="--atrium" in argv)
         return
-    atrium = argv[:1] == ["--atrium"]
-    trees = argv[1:] if atrium else argv
+    flag = argv[:1] if argv[:1] in (["--atrium"], ["--capped"]) else []
+    trees = argv[len(flag):]
     if not trees:
         raise SystemExit(__doc__)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     for tree in trees:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
-                        *(["--atrium"] if atrium else []), tree], check=True)
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", *flag, tree],
+                       check=True)
 
 
 if __name__ == "__main__":

@@ -14,15 +14,17 @@ equal`` or the cases that differ (exit 1).
 Cases, on the card (``--device cuda``): the full atrium at 1920x1080, depth
 4, 1 spp, sun&sky, glTF, firefly clamp 10 (``chip_smoke.py`` phase 5),
 frames 0 and 1 through ``Renderer.render_frame``: the eager stage, the fused
-stage, the fused stage with ``renderer="wide"``; the full bistro (phase 11:
-two levels, full MIS off, HDR multiplier 1), fused, frames 0 and 1; and a
+stage, the fused stage with ``renderer="wide"``, the fused stage at row
+width 32 (phase 15); the full bistro (phase 11: two levels, full MIS off,
+HDR multiplier 1), fused at widths 16 and 32 (phase 16), frames 0 and 1; and a
 sample shard's stream (``parallel/sharding.rank_frame``: the atrium fused,
 frame 1, sample 1 of 2, so the stream 3 keys the paths and frame 1 the
 jitter). On the CPU (``--device cpu``) the reduced atrium and bistro (the
 port's CPU tests' sizes) at 64x48 call ``render_units_pooled`` directly with
 pools smaller than the frame, so that lanes regenerate: 1 spp in 1024
-lanes, 4 spp in 8192 lanes (the new loop's tiered tail), each eager, fused
-and wide, the bistro fused, and the stream 3. The CPU cases hold a frame
+lanes, 4 spp in 8192 lanes (the new loop's tiered tail), each eager, fused,
+wide and fused at width 32, the bistro fused at both widths, and the
+stream 3. The CPU cases hold a frame
 against another checkout's, which the CPU tests cannot: they hold the loop
 against the reference and the plain versions. On the CPU the eager stage's
 bits can depend on the width of the batch a lane was shaded in (torch's CPU
@@ -53,6 +55,7 @@ def child(device, out):
     from vk_raytrace_torch.models import procedural
     from vk_raytrace_torch.models.schema import PBR_GLTF
     from vk_raytrace_torch.models.schema import RenderConfig
+    from vk_raytrace_torch.ops.bvh8 import build_accel_bundle
     from vk_raytrace_torch.parallel import sharding
 
     os.makedirs(out, exist_ok=True)
@@ -84,7 +87,12 @@ def child(device, out):
         "atrium_eager": lambda: renderer(atrium),
         "atrium_fused": lambda: renderer(atrium, fused_shade=True),
         "atrium_wide": lambda: renderer(atrium, fused_shade=True, renderer="wide"),
+        "atrium_fused_w32": lambda: renderer(atrium, fused_shade=True,
+                                             packed=build_accel_bundle(g, width=32)),
         "bistro_fused": lambda: renderer(bistro, bistro_cfg, fused_shade=True),
+        "bistro_fused_w32": lambda: renderer(
+            R.build_instanced_scene(pool, inst, bm, bl, bc, atlas=ba, width=32), bistro_cfg,
+            fused_shade=True),
     }
     for name, make in renderers.items():
         r = make()

@@ -72,9 +72,12 @@ Phases, each printing its own lines (any failure raises and exits non-zero):
     one stable ``torch.sort``;
 14. the traversal micro-bench (``vk_raytrace_torch.travbench``) at full
     size on the atrium, widths 16 and 32: each capped and no-gather kernel
-    against its plain version (exact) and timed, with the full traversal
-    and the root child order; the capped, no-gather and sort kernels must
-    have launched;
+    at caps 8 and 24 (at width 16 the ring of shared stack entries and the
+    spilling stack) against its plain version (exact) and timed, with the full
+    traversal and the root child order; the capped, no-gather and sort
+    kernels must have launched (and no other phase's path launches the
+    capped entry); per variant its time per node visited, ptxas report and
+    resident blocks beside the full traversal's (the a/b kernel's);
 15. the atrium main path at width 32 (``build_accel_bundle(geom,
     width=32)``, fused shading), beside phase 7: the width-32 kernels of
     phase 5 and the stage kernel must have launched, and no width-16
@@ -553,6 +556,9 @@ ATRIUM_KERNELS = ("closest", "any", "alpha_rounds")
 # into the alpha rounds' ray intake, so no path launches it; phase 40 holds
 # it against its plain version and against the fold.
 FOLDED_KERNELS = ("root_prefilter", "root_prefilter_w32")
+# The capped entry (vkrt_traverse_capped, capped and no-gather, both widths):
+# the traversal micro-bench's only (phase 14), so no main path launches it.
+BENCH_KERNELS = ("capped", "nogather", "capped_w32", "nogather_w32")
 # Kernel vs twin: the same float32 operations in the same order, rounded
 # per operation on both sides (nvcc -fmad=false); t/u/v within a few ulp.
 RTOL, ATOL = 1e-5, 1e-5
@@ -565,10 +571,47 @@ T_START = time.time()
 
 
 def assert_folded(what, launches):
-    """No path launches the standalone root prefilter: the alpha rounds'
-    intake runs it."""
+    """No path launches the standalone root prefilter (the alpha rounds'
+    intake runs it) or the capped entry (the micro-bench's)."""
     assert not any(launches.get(k, 0) for k in FOLDED_KERNELS), (
         f"{what}: the standalone root prefilter launched: {launches}")
+    assert not any(launches.get(k, 0) for k in BENCH_KERNELS), (
+        f"{what}: the capped entry launched: {launches}")
+
+
+def bench_report(bench, card):
+    """Phase 14's summary of the micro-bench's lines ``bench`` ({(variant,
+    width): line}): per width, each traversal variant's time per node
+    visited (full, capped and no-gather all run mode a's persistent node
+    loops), its kernel's ptxas report and resident blocks beside the full
+    traversal's, the no-gather rows' bound both ways, and the a/b kernels'
+    ptxas."""
+    from vk_raytrace_torch import cuda_build
+    from vk_raytrace_torch import travbench as tb
+    from vk_raytrace_torch.ops import traverse_fused as tf
+
+    for width in (16, 32):
+        for name in tb.VARIANTS:
+            x = bench[(name, width)]
+            if name == "root_order":
+                continue
+            nodes = x["nodes_per_ray"] * x["rays"]
+            kind = ("ring" if x["ring"] else "spilling stack") if "ring" in x else "a/b kernel"
+            line = (f"w{width} {name}: {x['ms']:.4f} ms, {x['nodes_per_ray']:.3f} nodes/ray, "
+                    f"{x['ms'] * 1e6 / nodes:.4f} ns per node; {x['registers']} registers, "
+                    f"{x['stack_frame']} B frame, {x['spill_bytes']} B spill, "
+                    f"{x['blocks_per_sm']} blocks/SM ({kind}), deepest stack "
+                    f"{x['deepest_stack']}; bound {x['bound_ms']:.4f} ms by {x['bound_by']}")
+            if "bytes_per_step" in x:
+                line += (f" (its rows once; {x['bound_per_step_ms']:.4f} ms by "
+                         f"{x['bound_per_step_by']} with each ray's row read at every step)")
+            print(line + f" [{card}]", flush=True)
+        for mode in ("closest", "any"):
+            r = cuda_build.resources(f"traverse{width}",
+                                     f"persistent_traverse_kernelILi{tf._MODE_ID[mode]}E")
+            now = (r["registers"], r["stack_frame"], r["spill_stores"] + r["spill_loads"])
+            print(f"w{width} vkrt_traverse_ab {mode}: {now[0]} registers, {now[1]} B frame, "
+                  f"{now[2]} B spill", flush=True)
 
 
 def phase(name):
@@ -2789,7 +2832,10 @@ def phase_wide_viewer(card):
         vw, vh = svc.args.size
         prng = np.random.default_rng(37)
         hits = 0
+        # Each hit moves the pivot, so the camera is read before each pick and
+        # the next waits for the pivot's reset, as in phase 32.
         for x, y in zip(prng.integers(0, vw, 8), prng.integers(0, vh, 8)):
+            resets = json.loads(get("/state"))["resets"]
             cam = svc._renderer.scene.camera
             got = json.loads(get(f"/pick?x={x}&y={y}"))
             ref.scene = dataclasses.replace(ref.scene, camera=cam)
@@ -2799,6 +2845,7 @@ def phase_wide_viewer(card):
                 hits += 1
                 assert (got["triangle"], got["material"], got["t"]) == (
                     want["triangle"], want["material"], want["t"]), (x, y, got, want)
+                wait(lambda s: s["resets"] > resets)  # the pick's pivot applied
         assert hits >= 4 or WIDE_VIEWER[1] != "atrium", hits
         print(f"viewer {' '.join(WIDE_VIEWER)} switched to wide over HTTP: frames go on, {hits} of 8 "
               f"picks hit, each equal to Renderer(renderer='wide').pick; launches after the "
@@ -3734,6 +3781,7 @@ def main():
     assert all(b_launches[m] > 0 for m in want), f"a kernel never launched: {b_launches}"
     assert b_launches["shade_bounce"] == 0, f"the body alone launched: {b_launches}"
     assert not any(b_launches[m] for m in tf.ROOT_MODES), f"a per-round launch ran: {b_launches}"
+    assert_folded("bistro 1080p fused", b_launches)
     assert np.isfinite(b_img).all() and np.isfinite(b_ldr).all(), "bistro: non-finite pixels"
     assert b_img.mean() > 0.0 and b_ldr.max() > 0.0, "bistro: black image"
     assert min(b_frame_rays) > 1920 * 1080, "bistro: fewer rays than primary rays"
@@ -3807,6 +3855,7 @@ def main():
     print(f"launches {t_launches}", flush=True)
     bench_keys = tf.CAPPED_KEYS + tf.SORT_KEYS
     assert all(t_launches[m] > 0 for m in bench_keys), f"a bench kernel never launched: {t_launches}"
+    bench_report(bench, card)
 
     def frames(r, what, want, refuse, beside):
         """Phase 15/16: warm-up and three frames of renderer ``r``; the kernels
@@ -3840,7 +3889,7 @@ def main():
     phase("main path, width 32")
     del g32
     w16_keys = tf.MODES + tf.ROOT_MODES + ("alpha_machine", "alpha_rounds",
-                                           "opaque_machine") + FOLDED_KERNELS
+                                           "opaque_machine") + FOLDED_KERNELS + BENCH_KERNELS
     r32 = R.Renderer(scene, cfg, device=dev, packed=bundle32, fused_shade=True)
     w_launches = frames(
         r32, "atrium", [f"{m}_w32" for m in ATRIUM_KERNELS],

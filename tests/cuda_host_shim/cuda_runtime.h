@@ -47,7 +47,11 @@ typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributePreferredSharedMemoryCarveout = 9
+};
+enum cudaSharedCarveout { cudaSharedmemCarveoutMaxL1 = 0 };
 
 // Resident blocks an SM and SMs of the stand-in device: small, so that a
 // persistent grid is a few hundred one-thread blocks.

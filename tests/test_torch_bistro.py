@@ -16,7 +16,7 @@ thresholds of ``tests/test_torch_render.py``: >= 99% of pixels within rtol
 import numpy as np
 import pytest
 
-from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
+from test_torch_traverse import isolated_reference, one_torch_thread  # noqa: F401 (fixtures)
 from vk_raytrace_tpu import render as ref_render
 from vk_raytrace_tpu.models import procedural as ref_proc
 from vk_raytrace_tpu.models.schema import PBR_GLTF, RenderConfig as RefConfig
@@ -25,6 +25,8 @@ from vk_raytrace_torch.convert import from_reference
 from vk_raytrace_torch.models import procedural as port_proc
 from vk_raytrace_torch.models.schema import RenderConfig
 from vk_raytrace_torch.ops.tlas import InstancedAccel
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CFG = dict(width=64, height=36, max_depth=4, max_samples=1, pbr_mode=PBR_GLTF,
            use_sun_sky=True, hdr_multiplier=1.0, firefly_clamp=10.0, full_mis=False)

@@ -738,9 +738,10 @@ def test_wide_machine_matches_round_loop(bistro, any_hit):
 @pytest.mark.parametrize("nogather", [False, True])
 @pytest.mark.parametrize("width", tf.WIDTHS)
 def test_capped_kernel_matches_plain(scene, width, nogather):
-    """The capped entry (8 nodes per ray) and its no-gather variant (on the
-    table padded to a row per ray) against the plain versions on the CPU:
-    exact."""
+    """The capped entry and its no-gather variant (on the table padded to a
+    row per ray) against the plain versions on the CPU at caps 0, 1, 8,
+    kShStack - 1, kShStack and 40 (at width 16 the ring of shared entries
+    below kShStack steps, else the spilling stack): exact."""
     _need_cuda()
     geom = scene[0]
     planar = build_accel_bundle(geom, width=width).opaque_planar.to("cpu")
@@ -748,17 +749,24 @@ def test_capped_kernel_matches_plain(scene, width, nogather):
         planar = tf.own_rows(planar, 4099)
     o, d = _rays(11, geom, 4099, alpha=False)
     t_max = torch.full((4099,), tf.INF)
-    plain = tf.traverse_capped(planar, o, d, t_max, 8, nogather=nogather)
     key = tf.launch_key("nogather" if nogather else "capped", width)
-    before = tf.LAUNCHES[key]
-    kern = tf.traverse_capped(planar.to("cuda"), o.cuda(), d.cuda(), t_max.cuda(), 8,
-                              nogather=nogather)
-    torch.cuda.synchronize()
-    assert tf.LAUNCHES[key] == before + 1
-    for a, b in zip(kern[:5], plain[:5]):
-        assert torch.equal(a.cpu(), b)
-    assert int(plain[4].max()) == 8
-    assert bool((plain[4] == 8).all()) or not nogather  # no-gather rays never end
+    k = tf.shared_stack(width)
+    full = tf.traverse(planar, o, d, t_max)[4] if not nogather else None
+    gp, go, gd, gt = planar.to("cuda"), o.cuda(), d.cuda(), t_max.cuda()
+    for cap in (0, 1, 8, k - 1, k, 40):
+        plain = tf.traverse_capped(planar, o, d, t_max, cap, nogather=nogather)
+        before = tf.LAUNCHES[key]
+        kern = tf.traverse_capped(gp, go, gd, gt, cap, nogather=nogather)
+        torch.cuda.synchronize()
+        assert tf.LAUNCHES[key] == before + 1
+        for a, b in zip(kern[:5], plain[:5]):
+            assert torch.equal(a.cpu(), b), cap
+        if nogather:  # no-gather rays never end
+            assert bool((plain[4] == cap).all())
+        else:
+            assert int(plain[4].max()) == min(cap, int(full.max()))
+    if nogather:
+        assert tf.capped_stack_reached(width, gp.rows.device) > tf.CAPPED_STACK  # past 128: dropped
 
 
 @pytest.mark.parametrize("full_mis", [True, False])

@@ -14,9 +14,10 @@ the nearest t is not tied, t within rtol 1e-5. The panel cases are exact,
 as in the reference's own gates: alpha 1 stops at the first panel (t = 4),
 alpha 0 reaches the backstop (t = 10), a mixed mesh's opaque triangle
 blocks. Seeds leaving the alpha machine are bit-identical. The alpha pass
-alone runs in ``tests/test_torch_instancing_alpha.py`` and the instanced
-shading in ``tests/test_torch_instancing_shade.py`` (split by subject so that
-tier-1's workers share them); their helpers stay here.
+alone runs in ``tests/test_torch_instancing_alpha.py``, the instanced
+shading in ``tests/test_torch_instancing_shade.py`` and the small bistro's
+closest and any hits in ``tests/test_torch_instancing_bistro.py`` (split by
+subject so that tier-1's workers share them); their helpers stay here.
 """
 
 import dataclasses
@@ -28,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
+from test_torch_traverse import isolated_reference, one_torch_thread  # noqa: F401 (fixtures)
 from vk_raytrace_tpu.models import procedural as ref_proc
 from vk_raytrace_tpu.models.instances import InstancedSceneBuilder as RefBuilder
 from vk_raytrace_tpu.models.schema import ALPHA_BLEND, dummy_atlas, make_materials
@@ -39,6 +40,8 @@ from vk_raytrace_torch.models import schema as S
 from vk_raytrace_torch.models.instances import InstanceTable, MeshPool
 from vk_raytrace_torch.ops import tlas
 from vk_raytrace_torch.ops.traverse_wide import make_alpha_pack
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL_T, MASK_SHARE = 1e-5, 0.995
 N = 320
@@ -137,12 +140,6 @@ def sphere_box():
     return _case(pool, inst, mats, dummy_atlas())
 
 
-@pytest.fixture(scope="module")
-def bistro():
-    pool, inst, mats, _, _, atlas = ref_proc.bistro_scene(detail=0.05)
-    return _case(pool, inst, mats, atlas)
-
-
 def _trace(case, o, d, seed, alpha, any_hit, t_max=None):
     """(ref hit or mask, ref seed, port hit or mask, port seed)."""
     jo, jd, js = jnp.asarray(o), jnp.asarray(d), jnp.asarray(seed)
@@ -171,24 +168,6 @@ def _check_closest(rh, ph):
     np.testing.assert_array_equal(pt[differ], rt[differ])
     assert differ.mean() < 0.01
     assert both.mean() > 0.3  # the rays do hit the scene
-
-
-@pytest.mark.parametrize("alpha", [False, True])
-def test_bistro_closest_hit_matches_reference(bistro, alpha):
-    o, d, s = _rays(1 + alpha, N, [-50, 0.5, -10], [50, 8, 10])
-    rh, rs, ph, ps = _trace(bistro, o, d, s, alpha, any_hit=False)
-    _check_closest(rh, ph)
-    np.testing.assert_array_equal(ps, rs)
-
-
-@pytest.mark.parametrize("alpha", [False, True])
-def test_bistro_any_hit_matches_reference(bistro, alpha):
-    o, d, s = _rays(3 + alpha, N, [-50, 0.5, -10], [50, 8, 10])
-    t_max = np.random.default_rng(5).uniform(1.0, 25.0, N).astype(np.float32)
-    rh, rs, ph, ps = _trace(bistro, o, d, s, alpha, any_hit=True, t_max=t_max)
-    assert (np.asarray(rh) == ph.numpy()).mean() >= MASK_SHARE
-    assert 0.1 < ph.numpy().mean() < 0.95
-    np.testing.assert_array_equal(ps, rs)
 
 
 def test_sphere_box_matches_reference(sphere_box):

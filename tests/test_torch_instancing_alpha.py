@@ -13,8 +13,10 @@ import torch
 from test_torch_instancing import (  # noqa: F401 (the autouse fixture)
     STACK_PANELS, _alpha_pass_case, _check_alpha_outcome, _check_alpha_pass, _fused_reference,
 )
-from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
+from test_torch_traverse import isolated_reference, one_torch_thread  # noqa: F401 (fixtures)
 from vk_raytrace_torch.ops import tlas
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.mark.parametrize("scene", ["bistro", "stack0", "stack05"])

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from test_torch_instancing import _fused_reference  # noqa: F401 (autouse)
-from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
+from test_torch_traverse import isolated_reference, one_torch_thread  # noqa: F401 (fixtures)
 from vk_raytrace_tpu import render as ref_render
 from vk_raytrace_tpu.integrator import shade as ref_shade
 from vk_raytrace_tpu.integrator import shade_fused as ref_fused
@@ -25,6 +25,8 @@ from vk_raytrace_torch.convert import from_reference
 from vk_raytrace_torch.integrator import shade as port_shade
 from vk_raytrace_torch.integrator import shade_fused as port_fused
 from vk_raytrace_torch.ops.traverse_fused import Hit
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SHADE_RTOL, SHADE_ATOL, SHADE_MASKS = 1e-4, 1e-5, 0.999
 M = 2048

@@ -32,7 +32,7 @@ import pytest
 import torch
 
 from test_torch_instancing import _case, _check_alpha_pass, _panels
-from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
+from test_torch_traverse import isolated_reference, one_torch_thread  # noqa: F401 (fixtures)
 from vk_raytrace_tpu.models.builder import GeometryBuilder
 from vk_raytrace_tpu.models.schema import ALPHA_BLEND, dummy_atlas, make_materials
 from vk_raytrace_tpu.ops import bvh8 as ref_bvh8
@@ -47,6 +47,8 @@ from vk_raytrace_torch.ops import tlas
 from vk_raytrace_torch.ops import traverse_alpha as port_alpha
 from vk_raytrace_torch.ops import traverse_fused as tf
 from vk_raytrace_torch.ops.traverse_wide import make_alpha_pack
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL_T = 1e-5
 N_PANEL_RAYS = 48

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
+from test_torch_traverse import isolated_reference, one_torch_thread  # noqa: F401 (fixtures)
 from vk_raytrace_tpu import render as ref_render
 from vk_raytrace_tpu.models import procedural as ref_proc
 from vk_raytrace_tpu.models.schema import PBR_GLTF, RenderConfig as RefConfig
@@ -30,6 +30,8 @@ from vk_raytrace_torch.convert import from_reference
 from vk_raytrace_torch.models import procedural as port_proc
 from vk_raytrace_torch.models.schema import RenderConfig, default_tonemapper
 from vk_raytrace_torch.ops import tonemap as port_tonemap
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SMALL_ATRIUM = dict(bays_x=2, bays_z=2, column_segments=16, column_rows=12)
 CFG = dict(width=64, height=48, max_depth=4, max_samples=1, pbr_mode=PBR_GLTF,

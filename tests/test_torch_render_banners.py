@@ -6,8 +6,12 @@
 candidate rounds as the port.
 """
 
+import pytest
+
 from test_torch_render import _check, _render_pair
-from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
+from test_torch_traverse import isolated_reference, one_torch_thread  # noqa: F401 (fixtures)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def test_render_matches_reference_with_banners(monkeypatch):

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
+from test_torch_traverse import isolated_reference, one_torch_thread  # noqa: F401 (fixtures)
 from vk_raytrace_tpu import render as ref_render
 from vk_raytrace_tpu.models import procedural as ref_proc
 from vk_raytrace_tpu.ops import bvh8 as ref_bvh8
@@ -23,6 +23,8 @@ from vk_raytrace_torch.convert import from_reference
 from vk_raytrace_torch.models import procedural as port_proc
 from vk_raytrace_torch.models import schema as S
 from vk_raytrace_torch.ops import bvh8 as port_bvh8
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SMALL_ATRIUM = dict(bays_x=2, bays_z=2, column_segments=16, column_rows=12)
 

@@ -19,7 +19,7 @@ import torch
 
 import jax.numpy as jnp
 
-from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
+from test_torch_traverse import isolated_reference, one_torch_thread  # noqa: F401 (fixtures)
 from vk_raytrace_tpu import render as ref_render
 from vk_raytrace_tpu.integrator import shade as ref_shade
 from vk_raytrace_tpu.models import procedural as ref_proc
@@ -33,6 +33,8 @@ from vk_raytrace_torch.ops import bsdf_gltf as port_bsdf
 from vk_raytrace_torch.ops import env as port_env
 from vk_raytrace_torch.ops import lights as port_lights
 from vk_raytrace_torch.ops.sunsky import sun_disk_consts
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N = 2048
 RTOL, ATOL = 1e-4, 1e-5

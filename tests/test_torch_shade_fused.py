@@ -26,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
+from test_torch_traverse import isolated_reference, one_torch_thread  # noqa: F401 (fixtures)
 from vk_raytrace_tpu import render as ref_render
 from vk_raytrace_tpu.integrator import shade as ref_shade
 from vk_raytrace_tpu.integrator import shade_fused as ref_fused
@@ -40,6 +40,8 @@ from vk_raytrace_torch.integrator import shade_fused as port_fused
 from vk_raytrace_torch.models import procedural as port_proc
 from vk_raytrace_torch.models.schema import RenderConfig
 from vk_raytrace_torch.ops.traverse_fused import Hit
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N = 2048
 RTOL, ATOL, MASK_SHARE = 1e-4, 1e-5, 0.999

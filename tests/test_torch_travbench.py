@@ -26,12 +26,14 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
+from test_torch_traverse import isolated_reference, one_torch_thread  # noqa: F401 (fixtures)
 from vk_raytrace_tpu.ops import traverse_fused as ref_tf
 from vk_raytrace_torch import travbench
 from vk_raytrace_torch.models import procedural
 from vk_raytrace_torch.ops import traverse_fused as tf
 from vk_raytrace_torch.ops.bvh8 import build_accel_bundle
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -49,6 +49,7 @@ import pytest
 import torch
 
 import chip_smoke
+from test_torch_traverse import one_torch_thread  # noqa: F401
 from vk_raytrace_torch import cuda_build
 from vk_raytrace_torch import render as R
 from vk_raytrace_torch.models import procedural
@@ -58,6 +59,8 @@ from vk_raytrace_torch.ops import traverse_alpha as ta
 from vk_raytrace_torch.ops import traverse_fused as tf
 from vk_raytrace_torch.ops.bvh8 import build_accel_bundle
 from vk_raytrace_torch.ops.traverse_wide import make_alpha_pack
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SHIM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_host_shim")
 SMALL_ATRIUM = dict(bays_x=2, bays_z=2, column_segments=16, column_rows=12)

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from test_torch_traverse import N_RAYS, _check_hits, _close_bary, _rays, _t
-from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
+from test_torch_traverse import isolated_reference, one_torch_thread  # noqa: F401 (fixtures)
 from vk_raytrace_tpu import render as ref_render
 from vk_raytrace_tpu import runtime as ref_runtime
 from vk_raytrace_tpu.models import procedural as ref_proc
@@ -32,6 +32,8 @@ from vk_raytrace_torch.convert import from_reference
 from vk_raytrace_torch.models import procedural as port_proc
 from vk_raytrace_torch.ops import traverse_fused as port_tf
 from vk_raytrace_torch.ops.bvh8 import build_accel_bundle
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SMALL_ATRIUM = dict(bays_x=2, bays_z=2, column_segments=16, column_rows=12)
 

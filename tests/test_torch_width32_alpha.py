@@ -11,12 +11,14 @@ import numpy as np
 import pytest
 
 from test_torch_traverse import N_RAYS, _banner_rays, _check_hits, _t
-from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
+from test_torch_traverse import isolated_reference, one_torch_thread  # noqa: F401 (fixtures)
 from test_torch_width32 import scene32  # noqa: F401 (fixture)
 from vk_raytrace_tpu.ops import traverse_wide as ref_tw
 from vk_raytrace_tpu.ops.traverse import AlphaCtx as RefAlphaCtx
 from vk_raytrace_torch.ops import traverse_wide as port_tw
 from vk_raytrace_torch.ops.traverse_wide import make_alpha_pack
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def test_alpha_rounds_w32_match_reference(scene32):

@@ -9,7 +9,9 @@ and the half-opacity stack.
 import pytest
 
 from test_torch_instancing import _alpha_pass_case, _check_alpha_outcome, _check_alpha_pass
-from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
+from test_torch_traverse import isolated_reference, one_torch_thread  # noqa: F401 (fixtures)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.mark.parametrize("scene", ["stack0"])

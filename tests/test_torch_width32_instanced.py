@@ -11,12 +11,14 @@ import torch
 
 from test_torch_instancing import _case, _check_closest, _port_pool, _sphere_box, _trace
 from test_torch_instancing import _rays as _inst_rays
-from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
+from test_torch_traverse import isolated_reference, one_torch_thread  # noqa: F401 (fixtures)
 from vk_raytrace_tpu.models import procedural as ref_proc
 from vk_raytrace_tpu.ops import tlas as ref_tlas
 from vk_raytrace_torch.convert import _conv
 from vk_raytrace_torch.models.instances import InstanceTable
 from vk_raytrace_torch.ops import tlas
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _ref_case32(pool, inst, mats, atlas):

@@ -5,9 +5,11 @@ reference's ``VKRT_WIDE=32`` renderer, with the thresholds of
 1e-4, ray counts within 0.1%.
 """
 
+import pytest
+
 import numpy as np
 
-from test_torch_traverse import isolated_reference  # noqa: F401 (autouse)
+from test_torch_traverse import isolated_reference, one_torch_thread  # noqa: F401 (fixtures)
 from test_torch_width32 import SMALL_ATRIUM
 from vk_raytrace_tpu import render as ref_render
 from vk_raytrace_tpu.models import procedural as ref_proc
@@ -15,6 +17,8 @@ from vk_raytrace_tpu.models.schema import PBR_GLTF, RenderConfig as RefConfig
 from vk_raytrace_torch import render as port_render
 from vk_raytrace_torch.convert import from_reference
 from vk_raytrace_torch.models.schema import RenderConfig
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RENDER_CFG = dict(max_depth=4, max_samples=1, pbr_mode=PBR_GLTF, firefly_clamp=10.0,
                   use_sun_sky=True)

@@ -1,10 +1,11 @@
 // BVH traversal over planar rows of width W = 16 or 32. Modes a and b from
-// the root (the main path's closest-hit and shadow rays) and the round
-// machines run in persistent warps with the stack in shared memory
-// (vkrt_traverse_ab, vkrt_alpha_rounds, vkrt_opaque_machine,
-// vkrt_alpha_machine: see "Modes a and b from the root" and "The round
-// machines" below); every other entry runs trace<>, a thread per launched
-// ray with a full-depth stack in local memory.
+// the root (the main path's closest-hit and shadow rays), the capped entry
+// and the round machines run in persistent warps with the stack in shared
+// memory (vkrt_traverse_ab, vkrt_traverse_capped, vkrt_alpha_rounds,
+// vkrt_opaque_machine, vkrt_alpha_machine: see "Modes a and b from the
+// root", "The capped entry" and "The round machines" below); the per-round
+// entries (vkrt_traverse) run trace<>, a thread per launched ray with a
+// full-depth stack in local memory.
 //
 // Replaces the TPU step kernel vk_raytrace_tpu/ops/traverse_fused.py
 // (_make_step_kernel, launched once per traversal step by _step). That
@@ -59,7 +60,7 @@
 //     its node is and starts over at the root whenever its made-up nodes end
 //     it, so every ray runs max_steps nodes (the timing variant of
 //     scripts/stepbench.py: it shows what the dependent row gather costs; its
-//     hits are wrong by design).
+//     hits are wrong by design), on the persistent node loops of modes a/b.
 //
 // Numerics follow the plain torch twin (ops/traverse_fused.py
 // _traverse_plain) operation by operation, with explicitly rounded
@@ -67,10 +68,12 @@
 // to within a few ulp and child order and leaf tie-breaks are the twin's.
 //
 // One library per row width: the wrapper builds this file twice, with
-// -DVKRT_WIDTH=16 and -DVKRT_WIDTH=32, in parallel (each holds 23 kernels).
+// -DVKRT_WIDTH=16 and -DVKRT_WIDTH=32, in parallel (26 kernels at width 16, 24 at 32).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "traverse_common.cuh"
 
@@ -103,6 +106,19 @@ struct Planar {
 
 __device__ __forceinline__ float f4get(const float4& v, int k) {
   return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
+}
+
+// The no-gather variant's own row, the same row at every step, as a pointer
+// the compiler must take as new at each step: the step's loads may then be
+// neither hoisted out of the node loops nor shared between steps (with the
+// plain pointer the compiler hoisted the row and its slab tests out of the
+// interior loop: 0.133 ms at width 16, the node work gone; PERF.md), while
+// within a step they issue together as any row's do.
+__device__ __forceinline__ const float4* step_row(const float4* row) {
+#ifdef __CUDA_ARCH__
+  asm volatile("mov.b64 %0, %0;" : "+l"(row));
+#endif
+  return row;
 }
 
 // Child order: stable ascending insertion of (k, r) into the n sorted
@@ -280,15 +296,11 @@ struct TraceOut {
 };
 
 // One ray's traversal from node `cur` (kTerm: nothing to do) with window
-// (0, tmax): the per-node code of every entry. CAPPED (the capped entry
-// only) stops after max_steps nodes and, with a non-null `own` (the
-// no-gather variant), reads that row at every step instead of the node's
-// row and starts over at the root where it would end.
-template <int MODE, bool CULL, int MAXD, int W, bool CAPPED>
+// (0, tmax): the per-node code of the per-round entries (vkrt_traverse).
+template <int MODE, bool CULL, int MAXD, int W>
 __device__ __forceinline__ void trace(const float4* __restrict__ rows, const Ray& y, float tmax,
-                                      int cur, const float4* own, int max_steps, TraceOut& out) {
+                                      int cur, TraceOut& out) {
   using P = Planar<W>;
-  const bool own_row = CAPPED && own != nullptr;
 
   // Opaque slot; candidate slot (nearest alpha-flagged hit) in mode c.
   float t_best = tmax, u_best = 0.0f, v_best = 0.0f;
@@ -300,23 +312,14 @@ __device__ __forceinline__ void trace(const float4* __restrict__ rows, const Ray
   int stack[MAXD];
   int depth = 0;
 
-  while (true) {
-    if (cur == kTerm) {
-      // A no-gather ray never ends: it starts over at the root, as a TPU
-      // lane keeps paying for every step of the scan.
-      if (!own_row) break;
-      cur = 0;
-      depth = 0;
-    }
-    if (CAPPED && steps >= max_steps) break;
+  while (cur != kTerm) {
     ++steps;
     const float t_prune = MODE == kCandidate ? fminf(t_best, c_t) : t_best;
     if (cur >= 0) {
       // ---- interior: W-way slab test, stable insertion sort of hits ----
       float key[W];
       int ref[W];
-      const float4* row = own_row ? own : rows + (int64_t)cur * P::kRowF4;
-      const int n = order_children<W>(row, y, t_prune, key, ref);
+      const int n = order_children<W>(rows + (int64_t)cur * P::kRowF4, y, t_prune, key, ref);
       if (n > 0) {
         // Push far-to-near; descend into the nearest.
         for (int k = n - 1; k >= 1; --k) {
@@ -330,9 +333,9 @@ __device__ __forceinline__ void trace(const float4* __restrict__ rows, const Ray
       // ---- leaf: up to W/2 triangles, Moller-Trumbore, tournament min ----
       const int vleaf = -cur - 1;
       const int cnt = (vleaf & (P::kLT - 1)) + 1;
-      const float4* row = own_row ? own : rows + (int64_t)(vleaf >> P::kLeafShift) * P::kRowF4;
       LeafSlots L;
-      leaf_tests<MODE, CULL, W>(row, cnt, y, t_best, c_t, L);
+      leaf_tests<MODE, CULL, W>(rows + (int64_t)(vleaf >> P::kLeafShift) * P::kRowF4, cnt, y,
+                                t_best, c_t, L);
       minfold<3>(L.tt_o, L.pay_o);
       const bool found = L.tt_o[0] < t_best;
       if (found) {
@@ -354,10 +357,8 @@ __device__ __forceinline__ void trace(const float4* __restrict__ rows, const Ray
       }
       if (MODE == kAny && found) break;
     }
-    // Childless interior or finished leaf: pop. (depth never passes MAXD on
-    // a real tree: the wrapper refuses trees whose exact stack bound exceeds
-    // it. Only the no-gather variant's made-up nodes can push past it; those
-    // pushes are dropped and their pops end the node's run, as in the twin.)
+    // Childless interior or finished leaf: pop. (depth never passes MAXD:
+    // the wrapper refuses trees whose exact stack bound exceeds it.)
     if (depth > 0) {
       --depth;
       cur = depth < MAXD ? stack[depth] : kTerm;
@@ -453,16 +454,15 @@ __device__ __forceinline__ bool enters_shared_root(const Ray& y, const float* s_
 }
 
 // One ray from setup to its outputs.
-template <int MODE, bool CULL, int MAXD, int W, bool CAPPED>
+template <int MODE, bool CULL, int MAXD, int W>
 __global__ void __launch_bounds__(128)
 traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origin,
                 const float* __restrict__ direction, const float* __restrict__ t_max,
                 const uint8_t* __restrict__ active, const int32_t* __restrict__ root0,
-                int64_t n_rays, int max_steps, int nogather, float* __restrict__ out_t,
+                int64_t n_rays, float* __restrict__ out_t,
                 int32_t* __restrict__ out_tri, float* __restrict__ out_u,
                 float* __restrict__ out_v, int32_t* __restrict__ out_steps,
                 float* __restrict__ out_uvu, float* __restrict__ out_uvv) {
-  using P = Planar<W>;
   const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
 
@@ -480,11 +480,8 @@ traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origi
     if (!enters_root(y, rmin, rmax, tmax) || (active != nullptr && !active[r])) cur = kTerm;
   }
 
-  // The no-gather variant reads this ray's own row at every step (the
-  // caller's table has a row for every ray).
-  const float4* own = CAPPED && nogather != 0 ? rows + r * P::kRowF4 : nullptr;
   TraceOut h;
-  trace<MODE, CULL, MAXD, W, CAPPED>(rows, y, tmax, cur, own, max_steps, h);
+  trace<MODE, CULL, MAXD, W>(rows, y, tmax, cur, h);
   out_t[r] = h.t;
   out_tri[r] = h.tri;
   out_u[r] = h.u;
@@ -528,8 +525,8 @@ traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origi
 // ran 9% faster than local memory; at width 32 its 256 B a thread would
 // take 32 KB a block from the L1, which ran 5% slower, so it stays in local
 // memory.
-// Which ray a lane carries never changes that ray's result. (The entries
-// that run trace<> keep its per-node code as it was.)
+// Which ray a lane carries never changes that ray's result. (The per-round
+// entries that run trace<> keep its per-node code as it was.)
 // ---------------------------------------------------------------------------
 
 constexpr int kAbThreads = 128;
@@ -548,8 +545,10 @@ struct ChildList {
 
 // Pop the next node (kTerm on an empty stack). lim: the tree's exact stack
 // bound, which no real traversal passes; pushes past it are dropped and
-// their pops end the ray, as in the twin.
-__device__ __forceinline__ int pop(const Stack& st, int& depth, int lim) {
+// their pops end the ray, as in the twin. S: Stack, or the capped entry's
+// RingStack.
+template <class S = Stack>
+__device__ __forceinline__ int pop(const S& st, int& depth, int lim) {
   if (depth == 0) return kTerm;
   --depth;
   return depth < lim ? st.get(depth) : kTerm;
@@ -559,10 +558,12 @@ __device__ __forceinline__ int pop(const Stack& st, int& depth, int lim) {
 // stable insertion into the list, after every key <= the new one), a lane
 // group with no valid child skipped; all but the nearest pushed
 // far-to-near, as trace<> pushes them. Returns the nearest, or pops where
-// no child is hit.
-template <int W>
+// no child is hit. WHOLE (the no-gather variant's own rows): every lane
+// group's seven float4 read before its test, no group skipped (a read that
+// waits on the group's bounds is a second round trip to memory a step).
+template <int W, bool WHOLE = false, class S = Stack>
 __device__ __forceinline__ int interior_step(const float4* __restrict__ row, const Ray& y,
-                                             float t_prune, const ChildList& cl, const Stack& st,
+                                             float t_prune, const ChildList& cl, const S& st,
                                              int& depth, int lim, int& deepest) {
   constexpr int G = Planar<W>::kG;
   float* const key = cl.key;
@@ -572,7 +573,8 @@ __device__ __forceinline__ int interior_step(const float4* __restrict__ row, con
 #pragma unroll(Planar<W>::kUnrollG)
   for (int g = 0; g < G; ++g) {
     const float4 bxm = row[0 * G + g], bxM = row[3 * G + g];
-    if (!(bxm.x <= bxM.x || bxm.y <= bxM.y || bxm.z <= bxM.z || bxm.w <= bxM.w)) continue;
+    if (!WHOLE && !(bxm.x <= bxM.x || bxm.y <= bxM.y || bxm.z <= bxM.z || bxm.w <= bxM.w))
+      continue;
     const float4 bym = row[1 * G + g], bzm = row[2 * G + g];
     const float4 byM = row[4 * G + g], bzM = row[5 * G + g];
     const float4 rf = row[6 * G + g];
@@ -617,16 +619,20 @@ struct Hits {
 
 // Leaf row `cur`: its triangles against both slots in trace<>'s order (the
 // opaque tournament, then in mode c the candidate's). Returns the next node:
-// kTerm at any hit's first hit, else a pop.
-template <int MODE, bool CULL, int W>
+// kTerm at any hit's first hit, else a pop. OWN (the capped entry's
+// no-gather variant): the triangles of row `own`, the leaf's count from
+// `cur`.
+template <int MODE, bool CULL, int W, bool OWN = false, class S = Stack>
 __device__ __forceinline__ int leaf_step(const float4* __restrict__ rows, int cur, const Ray& y,
-                                         Hits& h, const Stack& st, int& depth, int lim) {
+                                         Hits& h, const S& st, int& depth, int lim,
+                                         const float4* own = nullptr) {
   using P = Planar<W>;
   const int vleaf = -cur - 1;
   const int cnt = (vleaf & (P::kLT - 1)) + 1;
   LeafSlots L;
-  leaf_tests<MODE, CULL, W>(rows + (int64_t)(vleaf >> P::kLeafShift) * P::kRowF4, cnt, y, h.t,
-                            MODE == kCandidate ? h.ct : h.t, L);
+  leaf_tests<MODE, CULL, W>(OWN ? step_row(own)
+                                : rows + (int64_t)(vleaf >> P::kLeafShift) * P::kRowF4,
+                            cnt, y, h.t, MODE == kCandidate ? h.ct : h.t, L);
   minfold<3>(L.tt_o, L.pay_o);
   const bool found = L.tt_o[0] < h.t;
   if (found) {
@@ -649,30 +655,46 @@ __device__ __forceinline__ int leaf_step(const float4* __restrict__ rows, int cu
   return MODE == kAny && found ? kTerm : pop(st, depth, lim);
 }
 
+// The no-gather variant's ray, where its made-up nodes end it: over at the
+// root with an empty stack, as a TPU lane keeps paying for every step.
+__device__ __forceinline__ void restart(int& cur, int& depth) {
+  cur = 0;
+  depth = 0;
+}
+
 // Interior rows until this lane is at a leaf or done (mode c prunes with
 // the nearer of both slots, as trace<> does), one step counted for each.
-template <int MODE, int W>
+// The capped entry's walk: CAPPED stops the lane at `cap` steps; OWN reads
+// row `own` at every node, whatever the node, and restarts the ray where
+// it would end (the no-gather variant).
+template <int MODE, int W, bool CAPPED = false, bool OWN = false, class S = Stack>
 __device__ __forceinline__ void interior_nodes(const float4* __restrict__ rows, int& cur,
                                                const Ray& y, const Hits& h, const ChildList& cl,
-                                               const Stack& st, int& depth, int lim,
-                                               int& deepest, int& steps) {
+                                               const S& st, int& depth, int lim, int& deepest,
+                                               int& steps, int cap = 0,
+                                               const float4* own = nullptr) {
   while (cur >= 0) {
+    if (CAPPED && steps >= cap) break;
     ++steps;
-    cur = interior_step<W>(rows + (int64_t)cur * Planar<W>::kRowF4, y,
-                           MODE == kCandidate ? fminf(h.t, h.ct) : h.t, cl, st, depth, lim,
-                           deepest);
+    const float4* row = OWN ? step_row(own) : rows + (int64_t)cur * Planar<W>::kRowF4;
+    cur = interior_step<W, OWN>(row, y, MODE == kCandidate ? fminf(h.t, h.ct) : h.t, cl, st,
+                                depth, lim, deepest);
+    if (OWN && cur == kTerm) restart(cur, depth);
   }
 }
 
 // Leaves until this lane is at an interior row or done, one step counted
-// for each.
-template <int MODE, bool CULL, int W>
+// for each (CAPPED, OWN: as interior_nodes).
+template <int MODE, bool CULL, int W, bool CAPPED = false, bool OWN = false, class S = Stack>
 __device__ __forceinline__ void leaf_nodes(const float4* __restrict__ rows, int& cur,
-                                           const Ray& y, Hits& h, const Stack& st, int& depth,
-                                           int lim, int& steps) {
+                                           const Ray& y, Hits& h, const S& st, int& depth,
+                                           int lim, int& steps, int cap = 0,
+                                           const float4* own = nullptr) {
   while (cur < 0 && cur != kTerm) {
+    if (CAPPED && steps >= cap) break;
     ++steps;
-    cur = leaf_step<MODE, CULL, W>(rows, cur, y, h, st, depth, lim);
+    cur = leaf_step<MODE, CULL, W, OWN>(rows, cur, y, h, st, depth, lim, own);
+    if (OWN && cur == kTerm) restart(cur, depth);
   }
 }
 
@@ -731,6 +753,142 @@ persistent_traverse_kernel(const float4* __restrict__ rows, const float* __restr
       out_v[ray] = h.v;
       out_steps[ray] = steps;
       ray = -1;
+    }
+  }
+  deepest = __reduce_max_sync(lanes, deepest);
+  if (lane == 0) atomicMax(scratch + 1, deepest);
+}
+
+// ---------------------------------------------------------------------------
+// The capped entry (vkrt_traverse_capped): the counterpart of the
+// reference's stepbench kernel, scripts/stepbench.py (its `base`, 8 launches
+// of the step kernel vk_raytrace_tpu/ops/traverse_fused.py:644, and its
+// no-gather step, the pallas_call at :121). Mode a from the root, each ray
+// stopped after max_steps nodes; NOGATHER: ray r reads row r of the table
+// at every node, whatever the node is (its kind from the sign of the ref,
+// a leaf's count from the ref), and starts over at the root with an empty
+// stack where its made-up nodes end it, so every ray runs max_steps nodes
+// (its hits are wrong by design: the reference's measure of what the
+// dependent row gather costs).
+//
+// It runs on mode a's persistent node loops (fetch, interior_nodes,
+// leaf_nodes; the stack and at width 16 the child list in shared memory,
+// the root box in shared memory), so that the travbench attribution of
+// modes a/b (full against capped against no-gather) compares one design.
+// A lane counts its ray's steps; at the cap the ray ends, writes its
+// outputs and frees the lane.
+//
+// The stack, as the twin's: the tree's exact bound (capped), or
+// kCappedStack entries (no-gather: pushes past it are dropped and a pop
+// past it ends the node's run). A ray that runs at most max_steps nodes
+// pops at most one entry a node, so an entry pushed at depth d can only be
+// overwritten by a push at d + kShStack or deeper, and read again after
+// kShStack + 1 more pops: more nodes than the ray runs while max_steps <
+// kShStack. Below that line the RING instantiations (width 16) keep the
+// kShStack shared entries as a ring (entry d at d mod kShStack), exact with
+// no spill; at or above it, and at width 32, the persistent entries' stack
+// with its exact global spill. On the H100 the ring ran 3% (capped) and 2%
+// (no-gather) faster at width 16 at 8 steps, with fewer register spills,
+// and no faster than the spread at width 32 (PERF.md).
+//
+// What bounds the no-gather variant on this card: its own rows, a distinct
+// row a ray (268 MB of them at width 16, 537 MB at 32), re-read at every
+// step. Its kernels keep few enough blocks resident (kNogatherCarveout)
+// that a lane's row stays in L1 between its steps: at the a/b entry's
+// occupancy, with the default split of shared memory and L1, they ran 1.8x
+// (width 16) and 5x (width 32) slower (PERF.md). Each step reads its row through
+// step_row, as each step launch of the reference's does.
+// ---------------------------------------------------------------------------
+
+constexpr int kCappedStack = 128;  // traverse_fused.CAPPED_STACK
+
+// One thread's stack as a ring of its kShStack shared entries (stride
+// blockDim.x, laid out by thread as Stack's).
+struct RingStack {
+  int* sh;
+  int stride;
+
+  __device__ __forceinline__ void put(int d, int v) const { sh[(d & (kShStack - 1)) * stride] = v; }
+  __device__ __forceinline__ int get(int d) const { return sh[(d & (kShStack - 1)) * stride]; }
+};
+static_assert((kShStack & (kShStack - 1)) == 0, "the ring indexes its entries by a mask");
+
+// A thread's stack: its first shared entry `sh` (stride blockDim.x) and, for
+// Stack, its first spill entry (stride n_slots).
+template <class S>
+__device__ __forceinline__ S thread_stack(int* sh, int stride, int* spill, int64_t n_slots);
+template <>
+__device__ __forceinline__ Stack thread_stack<Stack>(int* sh, int stride, int* spill,
+                                                     int64_t n_slots) {
+  return Stack{sh, stride, spill, n_slots};
+}
+template <>
+__device__ __forceinline__ RingStack thread_stack<RingStack>(int* sh, int stride, int*, int64_t) {
+  return RingStack{sh, stride};
+}
+
+template <int W, bool NOGATHER, bool RING>
+__global__ void __launch_bounds__(kAbThreads, kAbMinBlocks)
+capped_traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origin,
+                       const float* __restrict__ direction, const float* __restrict__ t_max,
+                       int n_rays, int max_steps, int lim, int* __restrict__ scratch,
+                       int64_t n_slots, float* __restrict__ out_t, int32_t* __restrict__ out_tri,
+                       float* __restrict__ out_u, float* __restrict__ out_v,
+                       int32_t* __restrict__ out_steps) {
+  using S = typename std::conditional<RING, RingStack, Stack>::type;
+  constexpr bool kListShared = W == 16;
+  __shared__ int sh_stack[kShStack * kAbThreads];
+  __shared__ float s_root[6];
+  __shared__ float sh_key[kListShared ? W * kAbThreads : 1];
+  __shared__ int sh_ref[kListShared ? W * kAbThreads : 1];
+  float l_key[kListShared ? 1 : W];
+  int l_ref[kListShared ? 1 : W];
+  share_root_box<W>(rows, s_root);
+  __syncthreads();
+
+  const unsigned lanes = __ballot_sync(0xffffffffu, true);
+  const int lane = threadIdx.x & 31;
+  const int64_t slot = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const S st = thread_stack<S>(sh_stack + threadIdx.x, (int)blockDim.x,
+                               scratch + kScratchHead + slot, n_slots);
+  const ChildList cl = kListShared
+                           ? ChildList{sh_key + threadIdx.x, sh_ref + threadIdx.x, (int)blockDim.x}
+                           : ChildList{l_key, l_ref, 1};
+
+  Ray y;
+  Hits h;
+  const float4* own = nullptr;  // NOGATHER: the ray's own row
+  int ray = -1, cur = kTerm, depth = 0, steps = 0, deepest = 0;
+  bool more = true;  // the counter may still hold rays (the same in every lane)
+  while (true) {
+    const unsigned idle = __ballot_sync(lanes, ray < 0);
+    if (!more && idle == lanes) break;
+    const int64_t r = fetch<kRefill>(lanes, idle, lane, scratch, n_rays, more);
+    if (r >= 0) {
+      ray = (int)r;
+      y = load_ray(origin, direction, r);
+      h.t = t_max[r];
+      h.tri = -1;
+      h.u = h.v = 0.0f;
+      steps = 0;
+      depth = 0;
+      // A no-gather ray that misses the root's box would start over at the
+      // root at once.
+      cur = NOGATHER || enters_shared_root(y, s_root, h.t) ? 0 : kTerm;
+      if (NOGATHER) own = rows + r * Planar<W>::kRowF4;
+    }
+    interior_nodes<kClosest, W, true, NOGATHER>(rows, cur, y, h, cl, st, depth, lim, deepest,
+                                                steps, max_steps, own);
+    leaf_nodes<kClosest, true, W, true, NOGATHER>(rows, cur, y, h, st, depth, lim, steps,
+                                                  max_steps, own);
+    if (ray >= 0 && (cur == kTerm || steps >= max_steps)) {
+      out_t[ray] = h.tri >= 0 ? h.t : kInf;
+      out_tri[ray] = h.tri;
+      out_u[ray] = h.u;
+      out_v[ray] = h.v;
+      out_steps[ray] = steps;
+      ray = -1;
+      cur = kTerm;
     }
   }
   deepest = __reduce_max_sync(lanes, deepest);
@@ -1491,8 +1649,6 @@ struct Args {
   const uint8_t* active;
   const int32_t* root0;
   int64_t n;
-  int max_steps;
-  int nogather;
   float* t;
   int32_t* tri;
   float* u;
@@ -1502,25 +1658,25 @@ struct Args {
   float* uvv;
 };
 
-template <int MODE, bool CULL, int MAXD, int W, bool CAPPED>
+template <int MODE, bool CULL, int MAXD, int W>
 void launch(const Args& a, cudaStream_t stream) {
   const int threads = 128;
   const int64_t blocks = (a.n + threads - 1) / threads;
-  traverse_kernel<MODE, CULL, MAXD, W, CAPPED><<<(unsigned)blocks, threads, 0, stream>>>(
-      reinterpret_cast<const float4*>(a.rows), a.o, a.d, a.tmax, a.active, a.root0,
-      a.n, a.max_steps, a.nogather, a.t, a.tri, a.u, a.v, a.steps, a.uvu, a.uvv);
+  traverse_kernel<MODE, CULL, MAXD, W><<<(unsigned)blocks, threads, 0, stream>>>(
+      reinterpret_cast<const float4*>(a.rows), a.o, a.d, a.tmax, a.active, a.root0, a.n, a.t,
+      a.tri, a.u, a.v, a.steps, a.uvu, a.uvv);
 }
 
 template <int MAXD, int W = kWidth>
 void dispatch(int mode, int cull, const Args& a, cudaStream_t s) {
   if (mode == kClosest)
-    launch<kClosest, true, MAXD, W, false>(a, s);
+    launch<kClosest, true, MAXD, W>(a, s);
   else if (mode == kAny)
-    launch<kAny, false, MAXD, W, false>(a, s);
+    launch<kAny, false, MAXD, W>(a, s);
   else if (cull)
-    launch<kCandidate, true, MAXD, W, false>(a, s);
+    launch<kCandidate, true, MAXD, W>(a, s);
   else
-    launch<kCandidate, false, MAXD, W, false>(a, s);
+    launch<kCandidate, false, MAXD, W>(a, s);
 }
 
 // The largest instance table a machine holds in dynamic shared memory.
@@ -1593,6 +1749,39 @@ auto ab_kernel(int mode) -> decltype(&persistent_traverse_kernel<kClosest, true,
   return nullptr;
 }
 
+// Whether the capped kernel for this cap runs the ring: width 16 below
+// kShStack steps.
+constexpr bool kCappedRing = kWidth == 16;
+bool capped_ring(int max_steps) { return kCappedRing && max_steps < kShStack; }
+
+// The capped kernel for this cap and variant.
+template <int W = kWidth>
+auto capped_kernel(int max_steps, int nogather)
+    -> decltype(&capped_traverse_kernel<W, false, false>) {
+  const bool ring = capped_ring(max_steps);
+  if (nogather)
+    return ring ? &capped_traverse_kernel<W, true, kCappedRing>
+                : &capped_traverse_kernel<W, true, false>;
+  return ring ? &capped_traverse_kernel<W, false, kCappedRing>
+              : &capped_traverse_kernel<W, false, false>;
+}
+
+// The no-gather kernels' shared memory carveout, which bounds their
+// resident blocks: as many as keep their lanes' own rows in the L1 left
+// beside their shared memory. Width 16: 25% of an SM's shared memory, two
+// blocks (448 B a lane's row, 115 KB); width 32: the largest L1, one block
+// (896 B a row). Measured on the H100 (chip_ab.py --capped, PERF.md): one,
+// two, three and five blocks at width 16, one, three and four at width 32.
+// Set before their occupancy is asked for and before each launch.
+constexpr int kNogatherCarveout = kWidth == 16 ? 25 : cudaSharedmemCarveoutMaxL1;
+
+template <class K>
+cudaError_t prepare_capped(K k, int nogather) {
+  return nogather ? cudaFuncSetAttribute(k, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                         kNogatherCarveout)
+                  : cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1656,6 +1845,11 @@ int vkrt_traverse_ab(int mode, int width, const float* rows, int stack_depth,
 // whose exact stack bound exceeds it.
 int vkrt_traverse_max_stack() { return 128; }
 
+// Stack entries a thread of the persistent entries holds in shared memory
+// (kShStack); at width 16 the capped entry runs them as a ring below this
+// many steps.
+int vkrt_traverse_shared_stack() { return kShStack; }
+
 // mode: 0 closest hit (backface culling), 1 any hit (no culling, first
 // accepted hit ends the ray), 2 nearest alpha candidate (culling per
 // `cull`); width: this library's VKRT_WIDTH. `active` may be null; `root0`
@@ -1672,31 +1866,77 @@ int vkrt_traverse(int mode, int cull, int width, const float* rows, int stack_de
     return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const Args a{rows, origin, direction, t_max, active, root0, n_rays, 0, 0,
-               t, tri, u, v, steps, uvu, uvv};
+  const Args a{rows, origin, direction, t_max, active, root0, n_rays, t, tri, u, v, steps,
+               uvu, uvv};
   if (stack_depth <= 64) dispatch<64>(mode, cull, a, s);
   else dispatch<128>(mode, cull, a, s);
   return (int)cudaGetLastError();
 }
 
-// Closest hit (backface culling, from the root) stopped after `max_steps`
-// nodes per ray, with a 128-entry stack. With `nogather` != 0, ray r reads
-// row r of the n_rows-row table (n_rows >= n_rays) at every step, whatever
-// its node is, interprets it by the sign of its node ref, and starts over at
-// the root where it would end, so every ray runs max_steps nodes: a timing
-// variant whose hits are wrong by design. Returns cudaGetLastError() after
-// launch.
+// Blocks of the capped kernel for `max_steps` (>= 0) and `nogather` that
+// reside on one SM, or -1.
+int vkrt_traverse_capped_occupancy(int max_steps, int nogather) {
+  int blocks = 0;
+  if (max_steps < 0) return -1;
+  const auto k = capped_kernel(max_steps, nogather);
+  if (prepare_capped(k, nogather) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kAbThreads, 0) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// Threads of that kernel that reside on the current device (its persistent
+// grid), or -1.
+int64_t vkrt_traverse_capped_slots(int max_steps, int nogather) {
+  const int blocks = vkrt_traverse_capped_occupancy(max_steps, nogather);
+  int dev = 0, sms = 0;
+  if (blocks <= 0 || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return -1;
+  return (int64_t)blocks * sms * kAbThreads;
+}
+
+// int32 words of the capped entry's scratch: the head alone where it runs
+// the ring, else the head and the spill to the tree's stack bound (to
+// kCappedStack with nogather).
+int64_t vkrt_traverse_capped_words(int stack_depth, int max_steps, int nogather,
+                                   int64_t n_slots) {
+  if (capped_ring(max_steps)) return kScratchHead;
+  return vkrt_traverse_ab_words(nogather ? kCappedStack : stack_depth, n_slots);
+}
+
+// Closest hit (backface culling, from the root) on n_rays rays (< 2^31),
+// each stopped after `max_steps` (>= 0) nodes, with the tree's exact stack
+// bound (<= 128). With `nogather` != 0, ray r reads row r of the n_rows-row
+// table (n_rows >= n_rays) at every node, whatever its node is, interprets
+// it by the sign of its node ref, and starts over at the root where it
+// would end, so every ray runs max_steps nodes, with a stack of 128 entries
+// (pushes past it dropped): a timing variant whose hits are wrong by
+// design. The persistent capped kernel on min(n_slots, rays) threads
+// (vkrt_traverse_capped_slots); scratch: vkrt_traverse_capped_words int32
+// words, whose head this entry zeroes on the stream; the kernel leaves the
+// deepest stack any ray reached in scratch[1]. Outputs as
+// vkrt_traverse_ab. Returns the first CUDA error.
 int vkrt_traverse_capped(int width, const float* rows, int64_t n_rows, int stack_depth,
                          const float* origin, const float* direction, const float* t_max,
-                         int64_t n_rays, int max_steps, int nogather, float* t, int32_t* tri,
+                         int64_t n_rays, int max_steps, int nogather, int* scratch,
+                         int64_t scratch_words, int64_t n_slots, float* t, int32_t* tri,
                          float* u, float* v, int32_t* steps, void* stream) {
-  if (width != kWidth || stack_depth > 128 || (nogather && n_rows < n_rays))
+  if (width != kWidth || stack_depth > vkrt_traverse_max_stack() || max_steps < 0 ||
+      (nogather && n_rows < n_rays) || n_rays >= ((int64_t)1 << 31) || n_slots < kAbThreads ||
+      scratch_words < vkrt_traverse_capped_words(stack_depth, max_steps, nogather, n_slots))
     return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const Args a{rows, origin, direction, t_max, nullptr, nullptr, n_rays, max_steps, nogather,
-               t, tri, u, v, steps, nullptr, nullptr};
-  launch<kClosest, true, 128, kWidth, true>(a, s);
+  const cudaError_t err = cudaMemsetAsync(scratch, 0, kScratchHead * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  const int lim = nogather ? kCappedStack : (stack_depth > 1 ? stack_depth : 1);
+  const auto k = capped_kernel(max_steps, nogather);
+  const cudaError_t e = prepare_capped(k, nogather);
+  if (e != cudaSuccess) return (int)e;
+  k<<<grid_blocks(n_rays, n_slots), kAbThreads, 0, s>>>(
+      reinterpret_cast<const float4*>(rows), origin, direction, t_max, (int)n_rays, max_steps,
+      lim, scratch, n_slots, t, tri, u, v, steps);
   return (int)cudaGetLastError();
 }
 

@@ -450,9 +450,15 @@ def _load(width: int):
         ]
         lib.vkrt_traverse.restype = i32
         lib.vkrt_traverse_capped.argtypes = [
-            i32, p, i64, i32, p, p, p, i64, i32, i32, p, p, p, p, p, p,
+            i32, p, i64, i32, p, p, p, i64, i32, i32, p, i64, i64, p, p, p, p, p, p,
         ]
         lib.vkrt_traverse_capped.restype = i32
+        lib.vkrt_traverse_capped_occupancy.argtypes = [i32, i32]
+        lib.vkrt_traverse_capped_occupancy.restype = i32
+        lib.vkrt_traverse_capped_slots.argtypes = [i32, i32]
+        lib.vkrt_traverse_capped_slots.restype = i64
+        lib.vkrt_traverse_capped_words.argtypes = [i32, i32, i32, i64]
+        lib.vkrt_traverse_capped_words.restype = i64
         lib.vkrt_sort_children.argtypes = [p, p, i64, i32, p, p, p, p]
         lib.vkrt_sort_children.restype = i32
         lib.vkrt_root_prefilter.argtypes = [i32, p, p, p, p, p, i64, p, p]
@@ -477,6 +483,7 @@ def _load(width: int):
         lib.vkrt_machine_slots.argtypes = [i32, i32, i32]
         lib.vkrt_machine_slots.restype = i64
         lib.vkrt_traverse_max_stack.restype = i32
+        lib.vkrt_traverse_shared_stack.restype = i32
         lib.vkrt_traverse_ab_occupancy.argtypes = [i32]
         lib.vkrt_traverse_ab_occupancy.restype = i32
         lib.vkrt_traverse_ab_slots.argtypes = [i32]
@@ -613,8 +620,11 @@ def cuda_device(dev):
     return dev
 
 
-# Per row width: the persistent a/b entries of that width's library.
+# Per row width: the persistent a/b entries of that width's library (the
+# round machines share them), and the capped entry's own, so that the
+# micro-bench's deeper spill never grows the main path's scratch.
 _AB_GRIDS = {w: PersistentGrid() for w in WIDTHS}
+_CAPPED_GRIDS = {w: PersistentGrid() for w in WIDTHS}
 
 
 def ab_occupancy(width: int, mode: str) -> int:
@@ -746,8 +756,10 @@ def traverse_capped(planar, origin, direction, t_max, max_steps: int, nogather=F
     variant (ray r reads row r of ``planar``, which needs a row per ray,
     :func:`own_rows`, and starts over at the root where it would end: wrong
     hits by design, the same on both devices). CPU tensors take the plain
-    twin; CUDA tensors launch the kernel's capped entry (or raise). Returns
-    (t, tri, u, v, steps, None, None)."""
+    twin; CUDA tensors launch the kernel's capped entry (or raise): mode
+    a's persistent node loops, with a scratch of its own
+    (:func:`capped_stack_reached`). Returns (t, tri, u, v, steps, None,
+    None)."""
     if max_steps < 0:
         raise ValueError(f"max_steps must be >= 0, got {max_steps}")
     R = origin.shape[0]
@@ -759,22 +771,57 @@ def traverse_capped(planar, origin, direction, t_max, max_steps: int, nogather=F
                                max_steps=max_steps, nogather=nogather)
     if origin.device.type != "cuda":
         raise ValueError(f"no traversal for device {origin.device}")
+    return _traverse_capped_cuda(planar, origin, direction, t_max, max_steps, nogather)
+
+
+def _traverse_capped_cuda(planar, origin, direction, t_max, max_steps, nogather):
+    """One launch of ``vkrt_traverse_capped``."""
     lib = _load(planar.width)
-    dev = origin.device
+    R, dev = origin.shape[0], origin.device
     _check_rays(lib, planar, origin, direction, t_max)
     t, tri, u, v, steps, _, _ = _outputs(R, dev, False)
-    if R == 0:
+    if R == 0:  # nothing to launch, and so nothing to count
         return t, tri.long(), u, v, steps, None, None
-    err = lib.vkrt_traverse_capped(
-        planar.width, planar.rows.data_ptr(), planar.rows.shape[0], planar.stack_depth,
-        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), R, int(max_steps),
-        int(bool(nogather)), t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-        steps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    cap, ng = int(max_steps), int(bool(nogather))
+    with _CAPPED_GRIDS[planar.width].state(
+            dev, ("capped", ng, cap), lambda: lib.vkrt_traverse_capped_slots(cap, ng),
+            lambda slots: lib.vkrt_traverse_capped_words(planar.stack_depth, cap, ng, slots)) as (
+            scratch, slots, stream):
+        err = lib.vkrt_traverse_capped(
+            planar.width, planar.rows.data_ptr(), planar.rows.shape[0], planar.stack_depth,
+            origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), R, cap, ng,
+            scratch.data_ptr(), scratch.numel(), slots, t.data_ptr(), tri.data_ptr(),
+            u.data_ptr(), v.data_ptr(), steps.data_ptr(), stream,
+        )
     if err != 0:
         raise RuntimeError(f"capped traverse kernel launch failed: cudaError {err}")
     LAUNCHES[launch_key("nogather" if nogather else "capped", planar.width)] += 1
     return t, tri.long(), u, v, steps, None, None
+
+
+def capped_stack_reached(width: int, device) -> int:
+    """The deepest stack a ray reached in the last :func:`traverse_capped`
+    call at ``width`` on ``device``'s current stream (waits for it; the
+    no-gather variant's depth counts its dropped pushes too)."""
+    return _CAPPED_GRIDS[width].stack_reached(device)
+
+
+def shared_stack(width: int) -> int:
+    """Stack entries a thread of the persistent entries at ``width`` holds in
+    shared memory: at width 16, below this many steps
+    :func:`traverse_capped`'s kernel keeps them as a ring and needs no
+    spill."""
+    return _load(width).vkrt_traverse_shared_stack()
+
+
+def capped_occupancy(width: int, max_steps: int, nogather: bool) -> int:
+    """Blocks of the capped kernel that :func:`traverse_capped` launches for
+    ``max_steps`` and ``nogather`` that reside on one SM of the current
+    device."""
+    blocks = _load(width).vkrt_traverse_capped_occupancy(int(max_steps), int(bool(nogather)))
+    if blocks <= 0:
+        raise RuntimeError(f"no occupancy for the capped kernel at width {width}")
+    return blocks
 
 
 def _sort_children_plain(keys, refs):

@@ -18,6 +18,10 @@ default). Variants at each width:
   wrong by design. A ray its made-up nodes would end starts over at the
   root, as a TPU lane keeps paying for every step, so every ray runs 8
   nodes: compare it with ``capped8`` per node visited;
+* ``capped24``, ``nogather24``: the same at 24 nodes, past the 16 stack
+  entries a thread keeps in shared memory, where the capped kernel runs
+  its spilling stack in place of the ring of shared entries it runs at
+  width 16 (both run mode a's persistent node loops, as ``full`` does);
 * ``root_order``: the child order alone (``sort_children``) on the entry
   distances of every ray into the root row's children.
 
@@ -29,9 +33,12 @@ closest hit over the 8-wide opaque tree (``vkrt_traverse_wide``,
 Each variant prints one JSON line: mean ms per call (CUDA events, after a
 warm-up) and its plain version's, mean nodes per ray, the distinct rows the
 rays visit, the call's bytes and operations and its bound on the card, and
-the card's name and power limit; ``full`` adds the persistent mode a kernel's
-registers, stack frame and spill bytes (ptxas), resident blocks per SM and
-the deepest stack a ray reached. Every kernel result is held against its
+the card's name and power limit; ``full`` and each capped variant add their
+kernel's registers, stack frame and spill bytes (ptxas), resident blocks per
+SM and the deepest stack a ray reached, and a no-gather variant its row
+bytes counted at every step (``bytes_per_step``: it reads its own row at
+each node, which ``bytes`` counts once; its bound both ways). Every kernel
+result is held against its
 plain version first, bit for bit (t, tri, u, v, steps), and the largest
 difference is printed (``max_abs_err``). It runs on the
 card unless given ``--device cpu``, where it runs the plain versions and
@@ -54,6 +61,7 @@ RAYS = 524288
 PIX_STRIDE = 7919
 SMALL_ATRIUM = dict(bays_x=2, bays_z=2, column_segments=16, column_rows=12)
 CAP = 8
+LONG_CAP = 24  # past the shared stack entries: the capped kernel's spilling stack
 
 # The card's peaks (H100 SXM data sheet): memory rate and float32 rate
 # outside the tensor cores. A call's bound is the larger of its bytes and
@@ -190,6 +198,20 @@ def ab_report(width: int, mode: str, device) -> dict:
                 deepest_stack=tf.stack_reached(width, device))
 
 
+def capped_report(width: int, max_steps: int, nogather: bool, device) -> dict:
+    """The capped kernel that ``traverse_capped`` launches for ``max_steps``
+    and ``nogather`` at ``width``: as :func:`ab_report` (at width 16 its
+    ring of shared entries below ``tf.shared_stack`` steps, else its
+    spilling stack)."""
+    ring = width == 16 and max_steps < tf.shared_stack(width)
+    res = cuda_build.resources(
+        f"traverse{width}", f"capped_traverse_kernelILi{width}ELb{int(nogather)}ELb{int(ring)}E")
+    return dict(registers=res["registers"], stack_frame=res["stack_frame"],
+                spill_bytes=res["spill_stores"] + res["spill_loads"],
+                blocks_per_sm=tf.capped_occupancy(width, max_steps, nogather),
+                deepest_stack=tf.capped_stack_reached(width, device), ring=ring)
+
+
 def same_hits(a, b) -> bool:
     """Two traversal results equal bit for bit in t, tri, u, v and steps."""
     return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) if x.is_floating_point()
@@ -226,16 +248,17 @@ def _variant(name, planar, o, d, t_max, cuda, reps):
     nodes and bound."""
     capped = name != "full"
     nogather = name.startswith("nogather")
+    cap = int(name.removeprefix("nogather").removeprefix("capped")) if capped else None
     if nogather:
         planar = tf.own_rows(planar, o.shape[0])
 
     def kern():
         if capped:
-            return tf.traverse_capped(planar, o, d, t_max, CAP, nogather=nogather)
+            return tf.traverse_capped(planar, o, d, t_max, cap, nogather=nogather)
         return tf.traverse(planar, o, d, t_max, mode="closest", cull=True)
 
     seen = torch.zeros(planar.rows.shape[0], dtype=torch.int8, device=o.device)
-    plain_kw = dict(max_steps=CAP if capped else None, nogather=nogather)
+    plain_kw = dict(max_steps=cap, nogather=nogather)
     plain = tf._traverse_plain(planar, o, d, t_max, None, "closest", True, seen, **plain_kw)
     out = kern()
     if cuda:
@@ -248,10 +271,14 @@ def _variant(name, planar, o, d, t_max, cuda, reps):
     res = dict(nodes_per_ray=nodes / n, interior_rows=n_inner, leaf_rows=n_leaf,
                bytes=n_bytes, ops=nodes * ops_per_node(planar.width),
                hit_share=float((plain[1] >= 0).float().mean()))
+    if nogather:
+        # Every ray reads its own row at each of its ``cap`` steps: the rows'
+        # bytes counted ``cap`` times.
+        res["bytes_per_step"] = n * 48 + (n_bytes - n * 48) * cap
     if cuda:
         res["max_abs_err"] = max_abs_err(out, plain)
-        if not capped:
-            res.update(ab_report(planar.width, "closest", o.device))
+        res.update(capped_report(planar.width, cap, nogather, o.device) if capped
+                   else ab_report(planar.width, "closest", o.device))
     timer = cuda_time if cuda else host_time
     res["ms" if cuda else "cpu_ms"] = timer(kern, reps)
     res["plain_ms" if cuda else "plain_cpu_ms"] = timer(
@@ -313,7 +340,8 @@ def _wide(wide, o, d, t_max, cuda, reps):
     return res
 
 
-VARIANTS = ("full", f"capped{CAP}", f"nogather{CAP}", "root_order")
+VARIANTS = ("full", f"capped{CAP}", f"nogather{CAP}", f"capped{LONG_CAP}",
+            f"nogather{LONG_CAP}", "root_order")
 
 
 def run(device, planars, cam, rays=RAYS, reps=20, card=None, emit=print, wide=None):
@@ -350,6 +378,9 @@ def run(device, planars, cam, rays=RAYS, reps=20, card=None, emit=print, wide=No
 def _emit(res, cuda, card, emit):
     if cuda:
         res["bound_ms"], res["bound_by"] = bound(res["bytes"], res["ops"])
+        if "bytes_per_step" in res:
+            res["bound_per_step_ms"], res["bound_per_step_by"] = bound(res["bytes_per_step"],
+                                                                       res["ops"])
         res["card"] = card
     emit(json.dumps(res))
     return res
