@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the traversal kernels of several checkouts on one GPU.
 
-    python3 chip_ab.py [--atrium] PARENT CHANGE CHANGE PARENT ...
+    python3 chip_ab.py [--atrium | --capped | --rounds] PARENT CHANGE CHANGE PARENT ...
+    python3 chip_ab.py --ptx PARENT CHANGE
 
 Each argument is the root of a checkout (for example a ``git archive`` of
 the parent commit unpacked into a git-ignored directory). Each runs in its
@@ -48,8 +49,26 @@ full atrium): mode a to termination, the capped entry at 8 and 24 nodes
 and its no-gather variant at 8 and 24, at widths 16 and 32, the least and
 the median of three means of 20 launches, with the capped kernels'
 resident blocks an SM and ptxas's report of the capped entry's
-instantiations. Variants of a kernel (a copy of a checkout
-with an edited source) compare as checkouts.
+instantiations. ``--rounds`` times the per-round traversal entry
+(``vkrt_traverse``) alone and the plain round loops that drive it: mode c
+from the root on phase 3's rays toward the atrium's banners (2^18 rays,
+culling on and off), and modes a/b/c with per-lane roots on phases 8 and
+12's rays (2^18 bistro camera rays at each mode's first instance
+candidate, the opaque subsets for a/b; rays toward the foliage over the
+alpha subsets for c), at widths 16 and 32, the least and the median of
+three means of 20 launches; then the round loops of phases 17-19 on the
+card (``tlas._alpha_rounds`` toward the foliage, ``traverse_alpha.
+_rounds_core`` toward the banners, ``tlas._two_level_pass`` over the
+opaque subsets on camera rays; closest and any hit, both widths), the
+least and the median of three means of 2 calls (CUDA events: the wall
+with the loops' host syncs) and the device-busy ms of one traced call;
+with ptxas's report of each per-round instantiation. ``--ptx PARENT
+CHANGE`` compiles ``csrc/traverse.cu`` of both checkouts to PTX at widths
+16 and 32 with the build's arithmetic flags and says, for each a/b,
+capped, round machine and single-level rounds kernel, whether its PTX is
+the same with line directives, labels, register numbers and mangled names
+masked. Variants of a kernel (a copy of a checkout with an edited source)
+compare as checkouts.
 """
 
 import os
@@ -79,23 +98,12 @@ def time_tree(tree, atrium_only=False):
     cs.build_kernels()
     spent = {"build": time.time() - t_start}
     geom, a_mats, a_lights, cam, a_atlas = procedural.atrium_scene()
-    rng = np.random.default_rng(1234)
     n = 1 << 18
-    oc, dc = cs.camera_rays(with_aspect(cam, 1920, 1080).to(dev), 1920, 1080, n // 2, rng, dev)
-    orr, drr = cs.random_rays(rng, np.asarray(geom.positions), n // 2, dev)
-    o, d = torch.cat([oc, orr]).contiguous(), torch.cat([dc, drr]).contiguous()
-    inf = torch.full((n,), tf.INF, device=dev)
-    t_short = torch.tensor(rng.uniform(0.5, 20.0, n), dtype=torch.float32, device=dev)
-    oa, da = cs.rays_at(rng, geom, np.where(np.asarray(geom.tri_flags) & 2)[0], n, dev)
+    o, d, inf, t_short, oa, da, a_pack, r_seed, r_act = atrium_sets(
+        cs, (geom, a_mats, a_lights, cam, a_atlas), n, dev)
     from vk_raytrace_torch import render as R
     from vk_raytrace_torch.ops import traverse_alpha as ta
     from vk_raytrace_torch.ops.traverse_wide import make_alpha_pack
-
-    a_sc = R.build_scene(geom, a_mats, a_lights, cam, atlas=a_atlas).to(dev)
-    a_pack = make_alpha_pack(a_sc.materials, a_sc.atlas, a_sc.geometry.tri_material)
-    r_rng = np.random.default_rng(18)  # the rounds' own draws leave the other rays as they were
-    r_seed = torch.tensor(r_rng.integers(0, 2**32, n), device=dev)
-    r_act = torch.tensor(r_rng.random(n) < 0.95, device=dev)
 
     def rounds(planar, t_lim, cull):
         need = r_act & (t_lim > 0.0) & tf.root_prefilter(planar, oa, da, t_lim)
@@ -189,6 +197,36 @@ def time_tree(tree, atrium_only=False):
         out.append(f"bistro wide {name} {min(ms):.4f}/{float(np.median(ms)):.4f}")
     print(os.path.basename(tree), " ".join(out), flush=True)
     print(os.path.basename(tree), "ptxas:", "; ".join(machine_ptxas(tree)), flush=True)
+
+
+def atrium_sets(cs, scene, n, dev):
+    """``chip_smoke.py``'s phase-3 ray sets on the atrium ``scene`` (seed
+    1234): camera and random rays (o, d), windows INF and 0.5 to 20, rays
+    toward the banners (oa, da); and the alpha pack with the rounds' seeds
+    and 95% active mask (seed 18, so the rounds' draws leave the other rays
+    as they were)."""
+    import numpy as np
+    import torch
+
+    from vk_raytrace_torch import render as R
+    from vk_raytrace_torch.integrator.camera import with_aspect
+    from vk_raytrace_torch.ops import traverse_fused as tf
+    from vk_raytrace_torch.ops.traverse_wide import make_alpha_pack
+
+    geom, _, _, cam, _ = scene
+    rng = np.random.default_rng(1234)
+    oc, dc = cs.camera_rays(with_aspect(cam, 1920, 1080).to(dev), 1920, 1080, n // 2, rng, dev)
+    orr, drr = cs.random_rays(rng, np.asarray(geom.positions), n // 2, dev)
+    o, d = torch.cat([oc, orr]).contiguous(), torch.cat([dc, drr]).contiguous()
+    inf = torch.full((n,), tf.INF, device=dev)
+    t_short = torch.tensor(rng.uniform(0.5, 20.0, n), dtype=torch.float32, device=dev)
+    oa, da = cs.rays_at(rng, geom, np.where(np.asarray(geom.tri_flags) & 2)[0], n, dev)
+    sc = R.build_scene(*scene[:4], atlas=scene[4]).to(dev)
+    pack = make_alpha_pack(sc.materials, sc.atlas, sc.geometry.tri_material)
+    r_rng = np.random.default_rng(18)
+    seed = torch.tensor(r_rng.integers(0, 2**32, n), device=dev)
+    act = torch.tensor(r_rng.random(n) < 0.95, device=dev)
+    return o, d, inf, t_short, oa, da, pack, seed, act
 
 
 def retire_times(cs, R, geom, mats, lights, cam, atlas, dev):
@@ -311,10 +349,156 @@ def time_capped(tree):
           flush=True)
 
 
-def machine_ptxas(tree, capped=False):
+def time_rounds(tree):
+    """``--rounds``: the per-round entry and the round loops in checkout
+    ``tree``."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    os.chdir(tree)
+    import numpy as np
+    import torch
+
+    import chip_profile
+    import chip_smoke as cs
+    from vk_raytrace_torch import render as R
+    from vk_raytrace_torch import travbench as tb
+    from vk_raytrace_torch.integrator.camera import with_aspect
+    from vk_raytrace_torch.models import procedural
+    from vk_raytrace_torch.ops import tlas
+    from vk_raytrace_torch.ops import traverse_alpha as ta
+    from vk_raytrace_torch.ops import traverse_fused as tf
+    from vk_raytrace_torch.ops.bvh8 import build_accel_bundle
+    from vk_raytrace_torch.ops.traverse_wide import make_alpha_pack
+
+    dev = torch.device("cuda")
+    cs.build_kernels()
+    scene = procedural.atrium_scene()
+    geom = scene[0]
+    n = 1 << 18
+    _, _, inf, t_short, oa, da, a_pack, seed, act = atrium_sets(cs, scene, n, dev)
+    kernels, loops = {}, {}
+    for width in (16, 32):
+        g = build_accel_bundle(geom, width=width).to(dev)
+        t_open = tf.closest_hit_fused(g.opaque_planar, oa, da).t
+        for cull in (True, False):
+            kernels[f"w{width} candidate{'' if cull else '_nocull'}"] = (
+                lambda g=g, c=cull: tf.traverse(g.alpha_planar, oa, da, inf, mode="candidate",
+                                                cull=c))
+        for any_hit, t_lim in ((False, t_open), (True, t_short)):
+            need = act & (t_lim > 0.0) & tf.root_prefilter(g.alpha_planar, oa, da, t_lim)
+            loops[f"w{width} rounds_loop{'_any' if any_hit else ''}"] = (
+                lambda g=g, t=t_lim, nd=need, c=not any_hit: ta._rounds_core(
+                    g.alpha_planar, a_pack, oa, da, t, seed, nd, c))
+    pool, inst, mats, lights, b_cam, atlas = procedural.bistro_scene()
+    b_rng = np.random.default_rng(8)
+    ob, db = cs.camera_rays(with_aspect(b_cam, 1920, 1080).to(dev), 1920, 1080, n, b_rng, dev)
+    leaf = None
+    t_near = torch.tensor(b_rng.uniform(0.5, 20.0, n), dtype=torch.float32, device=dev)
+    t_long = torch.tensor(b_rng.uniform(1.0, 60.0, n), dtype=torch.float32, device=dev)
+    for width in (16, 32):
+        sc = R.build_instanced_scene(pool, inst, mats, lights, b_cam, atlas=atlas,
+                                     width=width).to(dev)
+        acc = sc.instances
+        if leaf is None:
+            pack = make_alpha_pack(sc.materials, sc.atlas, sc.geometry.tri_material)
+            leaf = np.nonzero(np.asarray(acc.inst_alpha.cpu()))[0]
+            eye = np.asarray(b_cam.view_inverse)[:3, 3]
+            ol, dl = cs.rays_toward_instances(b_rng, pool, inst, b_rng.choice(leaf, n),
+                                              eye + b_rng.uniform(-2.0, 2.0, (n, 3)), dev)
+        for mode, subset, o, d, tm, cull in (("closest", "opq", ob, db, inf, True),
+                                             ("any", "opq", ob, db, t_near, False),
+                                             ("candidate", "alp", ol, dl, inf, True)):
+            planar = getattr(acc, f"blas_planar_{subset}")
+            oo, dd, tt, root0, _ = cs.first_candidates(acc, subset, o, d, tm, n)
+            kernels[f"w{width} {mode}_roots"] = (
+                lambda p=planar, a=(oo, dd, tt), m=mode, c=cull, r0=root0: tf.traverse(
+                    p, *a, mode=m, cull=c, root0=r0))
+        for any_hit in (False, True):
+            kind = "_any" if any_hit else ""
+            loops[f"w{width} alpha_loop{kind}"] = (
+                lambda a=acc, h=any_hit: tlas._alpha_rounds(
+                    a, pack, ol, dl, t_long if h else inf, seed, act, h, not h))
+            planar, roots, view, mask = tlas._subset(acc, "opq")
+            loops[f"w{width} opaque_loop{kind}"] = (
+                lambda p=(planar, roots, view), m=mask, h=any_hit: tlas._two_level_pass(
+                    *p, ob, db, t_near if h else inf, act, m, not h, h))
+    out = []
+    for name, fn in kernels.items():
+        ms = [tb.cuda_time(fn, 20) for _ in range(ROUNDS)]
+        out.append(f"{name} {min(ms):.4f}/{float(np.median(ms)):.4f}")
+    for name, fn in loops.items():
+        ms = [tb.cuda_time(fn, 2) for _ in range(ROUNDS)]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        busy = chip_profile.busy_us(chip_profile.device_events(prof)[0]) / 1e3
+        out.append(f"{name} {min(ms):.2f}/{float(np.median(ms)):.2f} wall, {busy:.3f} busy")
+    print(os.path.basename(tree), " ".join(out), flush=True)
+    print(os.path.basename(tree), "ptxas:", "; ".join(machine_ptxas(tree, rounds=True)),
+          flush=True)
+
+
+# The kernels --ptx holds equal: every instantiation whose name holds one of these.
+PTX_KERNELS = ("persistent_traverse_kernel", "capped_traverse_kernel", "machine_kernel",
+               "alpha_rounds_kernel")
+
+
+def ptx_entries(tree, width, out_dir):
+    """``csrc/traverse.cu`` of ``tree`` compiled to PTX at ``width``:
+    {kernel name: its body with line directives, labels, register numbers,
+    mangled names and local-memory depot numbers masked}."""
+    import re
+
+    from vk_raytrace_torch import cuda_build
+
+    out = os.path.join(out_dir, f"{os.path.basename(tree)}_w{width}.ptx")
+    flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([cuda_build.nvcc(), *flags, f"-DVKRT_WIDTH={width}", "-ptx", "-o", out,
+                    os.path.join(tree, "vk_raytrace_torch", "csrc", "traverse.cu")], check=True)
+    text = open(out).read()
+    entries = {}
+    for chunk in text.split(".entry ")[1:]:
+        # From the kernel's own name on (the anonymous namespace's mangled
+        # prefix differs between two sources).
+        m = re.search(r"\d+([A-Za-z_]+_kernel)(I\w*)", chunk.split("(", 1)[0])
+        name = m.group(1) + m.group(2)
+        body = re.sub(r"^\s*\.loc.*$", "", chunk, flags=re.M)
+        body = re.sub(r"_Z\w+", "SYM", body)
+        body = re.sub(r"\$L\w+", "LBL", body)
+        body = re.sub(r"%(r|rd|f|fd|p|rs|h)\d+", r"%\1", body)
+        body = re.sub(r"__local_depot\d+", "DEPOT", body)  # numbered in file order
+        entries[name] = body
+    return entries
+
+
+def compare_ptx(parent, change):
+    """``--ptx``: one line per kernel of PTX_KERNELS at each width."""
+    import tempfile
+
+    sys.path.insert(0, os.path.abspath(change))
+    with tempfile.TemporaryDirectory() as tmp:
+        for width in (16, 32):
+            a, b = (ptx_entries(os.path.abspath(t), width, tmp) for t in (parent, change))
+            for name in sorted(a):
+                if not any(k in name for k in PTX_KERNELS):
+                    continue
+                what = "missing" if name not in b else ("equal" if a[name] == b[name] else
+                                                        "DIFFERS")
+                if what == "DIFFERS":  # the first lines that differ
+                    import difflib
+
+                    diff = [x for x in difflib.unified_diff(a[name].splitlines(),
+                                                            b[name].splitlines(), n=0)
+                            if x[:1] in "+-" and x[:3] not in ("+++", "---")]
+                    what += f" ({len(diff)} lines: {diff[:4]})"
+                print(f"ptx w{width} {name[:90]}: {what}", flush=True)
+
+
+def machine_ptxas(tree, capped=False, rounds=False):
     """ptxas's registers, stack frame and spill of each round machine and
     a/b instantiation in ``tree``'s built traversal libraries; with
-    ``capped``, of the a/b and capped kernels."""
+    ``capped``, of the a/b and capped kernels; with ``rounds``, of the
+    per-round kernels."""
     import glob
     import re
 
@@ -326,6 +510,10 @@ def machine_ptxas(tree, capped=False):
             name = chunk.split("'", 1)[0]
             keys = (("persistent_traverse_kernel", "capped_traverse_kernel") if capped else
                     ("machine_kernel", "persistent_traverse_kernel", "alpha_rounds_kernel"))
+            if rounds:  # the per-round kernels (the first design's traverse_kernel too)
+                keys = ("traverse_kernel",)
+                if "persistent" in name or "capped" in name:
+                    continue
             if not any(k in name for k in keys):
                 continue
             regs = re.search(r"Used (\d+) registers", chunk)
@@ -342,10 +530,15 @@ def main(argv):
     if argv[:1] == ["--one"]:
         if "--capped" in argv:
             time_capped(argv[-1])
+        elif "--rounds" in argv:
+            time_rounds(argv[-1])
         else:
             time_tree(argv[-1], atrium_only="--atrium" in argv)
         return
-    flag = argv[:1] if argv[:1] in (["--atrium"], ["--capped"]) else []
+    if argv[:1] == ["--ptx"] and len(argv) == 3:
+        compare_ptx(*argv[1:])
+        return
+    flag = argv[:1] if argv[:1] in (["--atrium"], ["--capped"], ["--rounds"]) else []
     trees = argv[len(flag):]
     if not trees:
         raise SystemExit(__doc__)

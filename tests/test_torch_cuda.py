@@ -907,6 +907,24 @@ def test_persistent_ab_occupancy_and_report(mode):
         assert res["registers"] > 0
 
 
+@pytest.mark.parametrize("mode, cull, roots", [
+    ("candidate", True, False), ("candidate", False, False), ("closest", True, True),
+    ("any", False, True), ("candidate", True, True), ("candidate", False, True)])
+def test_round_occupancy_and_report(mode, cull, roots):
+    """Each per-round kernel (mode c from the root, every mode with roots):
+    at least one block of 128 resides per SM, and ptxas's report of it is
+    kept beside the library."""
+    _need_cuda()
+    from vk_raytrace_torch import cuda_build
+
+    for width in tf.WIDTHS:
+        assert tf.round_occupancy(width, mode, cull, roots) >= 1
+        res = cuda_build.resources(
+            f"traverse{width}", f"round_traverse_kernelILi{tf._MODE_ID[mode]}ELb{int(cull)}"
+                                f"ELi{width}ELb{int(roots)}E")
+        assert res["registers"] > 0
+
+
 def test_persistent_ab_scratch_reused(scene):
     """Two calls on one stream share the entry's scratch (its ray counter is
     zeroed by each call): the second call, on other rays, and a third on the

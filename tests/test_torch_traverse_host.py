@@ -214,7 +214,8 @@ def test_host_kernel_matches_twin_on_nan_rays(host_kernel, atrium, name, mode):
 
 
 def test_host_kernel_refuses(host_kernel, atrium):
-    """Modes a/b from the root run only in the a/b entry, which refuses a
+    """Modes a/b from the root run only in the a/b entry (the per-round
+    entry refuses them, with a scratch large enough), which refuses a
     scratch too small for the tree and a mode it lacks."""
     _, planars = atrium
     host_kernel("w16")
@@ -226,10 +227,13 @@ def test_host_kernel_refuses(host_kernel, atrium):
     t = torch.ones(n)
     out = [torch.empty(n) for _ in range(5)]
     ptr = [x.data_ptr() for x in out]
-    assert lib.vkrt_traverse(0, 1, 16, planar.rows.data_ptr(), planar.stack_depth, o.data_ptr(),
-                             d.data_ptr(), t.data_ptr(), None, None, n, *ptr, None, None,
-                             None) != 0
     slots = lib.vkrt_traverse_ab_slots(0)
+    big = torch.zeros(lib.vkrt_traverse_ab_words(128, slots), dtype=torch.int32)
+    for mode in (0, 1):
+        assert lib.vkrt_traverse(mode, 1 - mode, 16, planar.rows.data_ptr(), planar.stack_depth,
+                                 o.data_ptr(), d.data_ptr(), t.data_ptr(), None, None, n,
+                                 big.data_ptr(), big.numel(), slots, *ptr, None, None,
+                                 None) != 0
     words = lib.vkrt_traverse_ab_words(40, slots)
     assert lib.vkrt_traverse_ab_words(8, slots) == 8  # a shallow tree: the head alone
     assert words > 8 and (words - 8) % slots == 0  # a column of spill entries per thread

@@ -1,8 +1,10 @@
-"""Render slices at width 32: the small atrium and the small bistro, the
-port (CPU, the reference's tables and width-32 trees) against the
-reference's ``VKRT_WIDE=32`` renderer, with the thresholds of
+"""Render slices at width 32: the small atrium, the port (CPU, the
+reference's tables and width-32 trees) against the reference's
+``VKRT_WIDE=32`` renderer, with the thresholds of
 ``tests/test_torch_render.py``: >= 99% of pixels within rtol 1e-3 / atol
-1e-4, ray counts within 0.1%.
+1e-4, ray counts within 0.1%. The small bistro's slice is in
+``tests/test_torch_width32_render_bistro.py`` (a file a worker: the two
+slices run in parallel).
 """
 
 import pytest
@@ -61,17 +63,3 @@ def test_render_w32_atrium_matches_reference(monkeypatch):
     ref = ref_render.Renderer(ref_render.build_scene(g, m, l, c, atlas=a), RefConfig(**cfg))
     assert ref.packed.opaque_planar.width == 32 and ref.packed.alpha_planar.width == 32
     _check_render(*_render_both(ref, ref.packed, cfg), 64, 48)
-
-
-def test_render_w32_bistro_matches_reference(monkeypatch):
-    """From frame 1 (jittered), as ``tests/test_torch_bistro.py`` does."""
-    monkeypatch.setenv("VKRT_WIDE", "32")
-    monkeypatch.setenv("VKRT_FUSED", "1")
-    pool, inst, mats, lights, cam, atlas = ref_proc.bistro_scene(detail=0.05)
-    cfg = dict(width=64, height=36, hdr_multiplier=1.0, full_mis=False, **RENDER_CFG)
-    ref = ref_render.Renderer(
-        ref_render.build_instanced_scene(pool, inst, mats, lights, cam, atlas=atlas),
-        RefConfig(**cfg),
-    )
-    assert ref.packed.blas_planar.width == 32
-    _check_render(*_render_both(ref, ref.packed, cfg, first_frame=1), 64, 36)

@@ -1,25 +1,28 @@
-// BVH traversal over planar rows of width W = 16 or 32. Modes a and b from
-// the root (the main path's closest-hit and shadow rays), the capped entry
-// and the round machines run in persistent warps with the stack in shared
-// memory (vkrt_traverse_ab, vkrt_traverse_capped, vkrt_alpha_rounds,
-// vkrt_opaque_machine, vkrt_alpha_machine: see "Modes a and b from the
-// root", "The capped entry" and "The round machines" below); the per-round
-// entries (vkrt_traverse) run trace<>, a thread per launched ray with a
-// full-depth stack in local memory.
+// BVH traversal over planar rows of width W = 16 or 32. Every traversal
+// entry runs in persistent warps on one node code, the interior and leaf
+// loops of "Modes a and b from the root" below (interior_nodes, leaf_nodes),
+// with the stack in shared memory and an exact global spill: modes a and b
+// from the root (vkrt_traverse_ab, the main path's closest-hit and shadow
+// rays), the per-round entries (vkrt_traverse: mode c from the root, modes
+// a/b/c from per-lane roots; "The per-round entries" below), the capped
+// entry and the round machines (vkrt_traverse_capped, vkrt_alpha_rounds,
+// vkrt_opaque_machine, vkrt_alpha_machine: "The capped entry" and "The
+// round machines" below).
 //
 // Replaces the TPU step kernel vk_raytrace_tpu/ops/traverse_fused.py
 // (_make_step_kernel, launched once per traversal step by _step). That
 // kernel advanced every ray by ONE node per launch and kept the traversal
 // state in device memory between launches; here the whole traversal of a
-// ray runs inside one launch, so the state stays in registers and local
+// ray runs inside one launch, so the state stays in registers and shared
 // memory and none of the step driver (row gather, phase compaction, short
 // stack with overflow re-run) exists.
 //
 // What bounds it on the card: dependent row reads (each node's row address
 // comes from the previous row) and divergence between rays of a warp, not
 // arithmetic. The design answers with 16-byte vector loads of the rows, a
-// small in-register child sort, and rows visited near-first so t pruning
-// cuts the subtrees early.
+// small child sort in shared memory, rows visited near-first so t pruning
+// cuts the subtrees early, and warps that take a new ray into a lane whose
+// ray has ended.
 //
 // Row layout (W*8 floats = W*2 float4 per row; W = 16: 512 B, W = 32: 1024 B):
 //   interior: [bmin.x xW | bmin.y | bmin.z | bmax.x | bmax.y | bmax.z |
@@ -31,26 +34,28 @@
 // vleaf = -ref-1, row = vleaf / (W/2), count = vleaf % (W/2) + 1.
 //
 // Per-lane roots (the TPU kernel's mode d, called from ops/tlas.py): with a
-// non-null root0 each ray starts at its own interior row root0[r] of a
-// concatenated per-mesh table (the instance's BLAS root) and skips the root
-// union-box test; refs in such a table are absolute rows, so nothing else
-// changes.
+// non-null root0 each ray starts at its own row root0[r] of a concatenated
+// per-mesh table (the instance's BLAS root) and skips the root union-box
+// test; refs in such a table are absolute rows, so nothing else changes.
 //
-// Seven more entries:
-//   vkrt_traverse_ab: modes a and b from the root, persistent warps;
+// The entries:
+//   vkrt_traverse_ab: modes a and b from the root;
+//   vkrt_traverse: one traversal a ray per launch, as each round of the
+//     plain round loops takes it (mode c from the root: the single-level
+//     candidate rounds of ops/traverse_alpha.py; modes a, b and c from
+//     per-lane roots: the two-level rounds of ops/tlas.py);
 //   vkrt_root_prefilter: which rays the single-level alpha rounds need (the
 //     per-child slab test against the root row; see "The alpha pass's root
 //     prefilter" below), a thread a ray; vkrt_alpha_rounds runs the same
 //     test at its ray intake, so the main path never launches it;
 //   vkrt_alpha_rounds, vkrt_opaque_machine, vkrt_alpha_machine: the round
 //     machines (see "The round machines" below), each a host loop of
-//     traversal rounds run whole in one launch, in persistent warps on the
-//     a/b entry's node code: the single-level alpha candidate rounds of
-//     ops/traverse_alpha.py (each round from the alpha tree's root, then
-//     the stochastic test), and the two-level opaque and alpha rounds of
-//     ops/tlas.py (instance enumeration in entry order over the instance
-//     table, the ray transform, the traversal of the instance's BLAS and,
-//     for alpha, the stochastic test);
+//     traversal rounds run whole in one launch: the single-level alpha
+//     candidate rounds of ops/traverse_alpha.py (each round from the alpha
+//     tree's root, then the stochastic test), and the two-level opaque and
+//     alpha rounds of ops/tlas.py (instance enumeration in entry order over
+//     the instance table, the ray transform, the traversal of the
+//     instance's BLAS and, for alpha, the stochastic test);
 //   vkrt_sort_children: the child order of interior rows alone (the
 //     counterpart of the TPU kernel's bitonic network _bitonic, which the
 //     reference unit-tests through its own pallas_call, tests/test_fused.py),
@@ -60,15 +65,15 @@
 //     its node is and starts over at the root whenever its made-up nodes end
 //     it, so every ray runs max_steps nodes (the timing variant of
 //     scripts/stepbench.py: it shows what the dependent row gather costs; its
-//     hits are wrong by design), on the persistent node loops of modes a/b.
+//     hits are wrong by design).
 //
 // Numerics follow the plain torch twin (ops/traverse_fused.py
 // _traverse_plain) operation by operation, with explicitly rounded
-// intrinsics, -fmad=false and IEEE division, so t/u/v agree with the twin
-// to within a few ulp and child order and leaf tie-breaks are the twin's.
+// intrinsics, -fmad=false and IEEE division, so every traversal output is
+// the twin's bit for bit, and child order and leaf tie-breaks are the twin's.
 //
 // One library per row width: the wrapper builds this file twice, with
-// -DVKRT_WIDTH=16 and -DVKRT_WIDTH=32, in parallel (26 kernels at width 16, 24 at 32).
+// -DVKRT_WIDTH=16 and -DVKRT_WIDTH=32, in parallel (24 kernels at width 16, 22 at 32).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -119,51 +124,6 @@ __device__ __forceinline__ const float4* step_row(const float4* row) {
   asm volatile("mov.b64 %0, %0;" : "+l"(row));
 #endif
   return row;
-}
-
-// Child order: stable ascending insertion of (k, r) into the n sorted
-// entries of key/ref, after every key <= k. The TPU kernel sorts with a
-// bitonic network, which is not stable; equal keys keep their row order here.
-template <int W>
-__device__ __forceinline__ void insert_child(float (&key)[W], int (&ref)[W], int n, float k,
-                                             int r) {
-  int j = n;
-  while (j > 0 && key[j - 1] > k) {
-    key[j] = key[j - 1];
-    ref[j] = ref[j - 1];
-    --j;
-  }
-  key[j] = k;
-  ref[j] = r;
-}
-
-// Interior row: W-way slab test, the hit children in ascending entry order.
-// Returns their number.
-template <int W>
-__device__ __forceinline__ int order_children(const float4* row, const Ray& y,
-                                              float t_prune, float (&key)[W], int (&ref)[W]) {
-  constexpr int G = Planar<W>::kG;
-  int n = 0;
-#pragma unroll(Planar<W>::kUnrollG)
-  for (int g = 0; g < G; ++g) {
-    const float4 bxm = row[0 * G + g], bym = row[1 * G + g];
-    const float4 bzm = row[2 * G + g], bxM = row[3 * G + g];
-    const float4 byM = row[4 * G + g], bzM = row[5 * G + g];
-    const float4 rf = row[6 * G + g];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float tn, tf;
-      slab(y, f4get(bxm, k), f4get(bym, k), f4get(bzm, k), f4get(bxM, k), f4get(byM, k),
-           f4get(bzM, k), tn, tf);
-      const bool hit = (f4get(bxm, k) <= f4get(bxM, k)) && (tn <= tf) && (tf >= 0.0f) &&
-                       (tn < t_prune);
-      if (hit) {
-        insert_child<W>(key, ref, n, tn, (int)f4get(rf, k));
-        ++n;
-      }
-    }
-  }
-  return n;
 }
 
 // Tournament min over 8 leaf slots in the reference's fold order (pairs
@@ -287,102 +247,6 @@ __device__ __forceinline__ void leaf_tests(const float4* row, int cnt, const Ray
   if (W == 32) leaf_group<MODE, CULL, W, true>(row, 3, 4, cnt, y, t_best, c_t, L);
 }
 
-// What one traversal gives back for its ray: mode c reports the nearest
-// alpha candidate (with its texture uv), modes a and b the nearest hit; t is
-// kInf where there is none.
-struct TraceOut {
-  float t, u, v, uvu, uvv;
-  int tri, steps;
-};
-
-// One ray's traversal from node `cur` (kTerm: nothing to do) with window
-// (0, tmax): the per-node code of the per-round entries (vkrt_traverse).
-template <int MODE, bool CULL, int MAXD, int W>
-__device__ __forceinline__ void trace(const float4* __restrict__ rows, const Ray& y, float tmax,
-                                      int cur, TraceOut& out) {
-  using P = Planar<W>;
-
-  // Opaque slot; candidate slot (nearest alpha-flagged hit) in mode c.
-  float t_best = tmax, u_best = 0.0f, v_best = 0.0f;
-  int tri_best = -1;
-  float c_t = tmax, c_u = 0.0f, c_v = 0.0f, c_uvu = 0.0f, c_uvv = 0.0f;
-  int c_tri = -1;
-  int steps = 0;
-
-  int stack[MAXD];
-  int depth = 0;
-
-  while (cur != kTerm) {
-    ++steps;
-    const float t_prune = MODE == kCandidate ? fminf(t_best, c_t) : t_best;
-    if (cur >= 0) {
-      // ---- interior: W-way slab test, stable insertion sort of hits ----
-      float key[W];
-      int ref[W];
-      const int n = order_children<W>(rows + (int64_t)cur * P::kRowF4, y, t_prune, key, ref);
-      if (n > 0) {
-        // Push far-to-near; descend into the nearest.
-        for (int k = n - 1; k >= 1; --k) {
-          if (depth < MAXD) stack[depth] = ref[k];
-          ++depth;
-        }
-        cur = ref[0];
-        continue;
-      }
-    } else {
-      // ---- leaf: up to W/2 triangles, Moller-Trumbore, tournament min ----
-      const int vleaf = -cur - 1;
-      const int cnt = (vleaf & (P::kLT - 1)) + 1;
-      LeafSlots L;
-      leaf_tests<MODE, CULL, W>(rows + (int64_t)(vleaf >> P::kLeafShift) * P::kRowF4, cnt, y,
-                                t_best, c_t, L);
-      minfold<3>(L.tt_o, L.pay_o);
-      const bool found = L.tt_o[0] < t_best;
-      if (found) {
-        t_best = L.tt_o[0];
-        tri_best = (int)L.pay_o[0][0];
-        u_best = L.pay_o[1][0];
-        v_best = L.pay_o[2][0];
-      }
-      if (MODE == kCandidate) {
-        minfold<5>(L.tt_c, L.pay_c);
-        if (L.tt_c[0] < c_t) {
-          c_t = L.tt_c[0];
-          c_tri = (int)L.pay_c[0][0];
-          c_u = L.pay_c[1][0];
-          c_v = L.pay_c[2][0];
-          c_uvu = L.pay_c[3][0];
-          c_uvv = L.pay_c[4][0];
-        }
-      }
-      if (MODE == kAny && found) break;
-    }
-    // Childless interior or finished leaf: pop. (depth never passes MAXD:
-    // the wrapper refuses trees whose exact stack bound exceeds it.)
-    if (depth > 0) {
-      --depth;
-      cur = depth < MAXD ? stack[depth] : kTerm;
-    } else {
-      cur = kTerm;
-    }
-  }
-
-  if (MODE == kCandidate) {
-    out.t = c_tri >= 0 ? c_t : kInf;
-    out.tri = c_tri;
-    out.u = c_u;
-    out.v = c_v;
-    out.uvu = c_uvu;
-    out.uvv = c_uvv;
-  } else {
-    out.t = tri_best >= 0 ? t_best : kInf;
-    out.tri = tri_best;
-    out.u = u_best;
-    out.v = v_best;
-  }
-  out.steps = steps;
-}
-
 // The union box of the root row's valid children (rows from row 0).
 template <int W>
 __device__ __forceinline__ void root_union(const float4* __restrict__ rows, float (&rmin)[3],
@@ -453,51 +317,11 @@ __device__ __forceinline__ bool enters_shared_root(const Ray& y, const float* s_
   return enters_root(y, rmin, rmax, tmax);
 }
 
-// One ray from setup to its outputs.
-template <int MODE, bool CULL, int MAXD, int W>
-__global__ void __launch_bounds__(128)
-traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origin,
-                const float* __restrict__ direction, const float* __restrict__ t_max,
-                const uint8_t* __restrict__ active, const int32_t* __restrict__ root0,
-                int64_t n_rays, float* __restrict__ out_t,
-                int32_t* __restrict__ out_tri, float* __restrict__ out_u,
-                float* __restrict__ out_v, int32_t* __restrict__ out_steps,
-                float* __restrict__ out_uvu, float* __restrict__ out_uvv) {
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
-
-  const Ray y = load_ray(origin, direction, r);
-  const float tmax = t_max[r];
-
-  // Ray setup: the lane must be active, and without per-lane roots the
-  // union box of the root's valid children must be hit within (0, t_max).
-  int cur = 0;
-  if (root0 != nullptr) {
-    cur = (active != nullptr && !active[r]) ? kTerm : root0[r];
-  } else {
-    float rmin[3], rmax[3];
-    root_union<W>(rows, rmin, rmax);
-    if (!enters_root(y, rmin, rmax, tmax) || (active != nullptr && !active[r])) cur = kTerm;
-  }
-
-  TraceOut h;
-  trace<MODE, CULL, MAXD, W>(rows, y, tmax, cur, h);
-  out_t[r] = h.t;
-  out_tri[r] = h.tri;
-  out_u[r] = h.u;
-  out_v[r] = h.v;
-  if (MODE == kCandidate) {
-    out_uvu[r] = h.uvu;
-    out_uvv[r] = h.uvv;
-  }
-  out_steps[r] = h.steps;
-}
-
 // ---------------------------------------------------------------------------
 // Modes a and b from the root (vkrt_traverse_ab): the main path's closest-hit
 // and shadow rays. Each ray visits the same nodes in the same order as in
-// trace<>, with the same float32 operations, so every output (steps
-// included) is the same bit for bit; what changes is how the work executes:
+// the twin, with the same float32 operations, so every output (steps
+// included) is the twin's bit for bit; the work executes so:
 //   * persistent warps (Aila & Laine, "Understanding the Efficiency of Ray
 //     Traversal on GPUs", HPG 2009): as many blocks as reside on the card; a
 //     warp takes rays from a global counter, one atomicAdd for all its idle
@@ -517,7 +341,7 @@ traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origi
 //   * registers against warps: 96 a thread at width 16 (5 blocks of 128, 20
 //     warps, an SM), 128 at width 32 (4 blocks); 64 for 32 warps spilled and
 //     ran slower.
-// The child order stays trace<>'s insertion into a key/ref list: ranking
+// The child order is a stable insertion into a key/ref list: ranking
 // the W children in registers (each hit child's rank the number of hits j
 // with key_j < key_i, or key_j == key_i and j < i) costs W * (W - 1)
 // compares a row and ran 11-18% slower on the H100 (PERF.md). At width 16
@@ -525,8 +349,8 @@ traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origi
 // ran 9% faster than local memory; at width 32 its 256 B a thread would
 // take 32 KB a block from the L1, which ran 5% slower, so it stays in local
 // memory.
-// Which ray a lane carries never changes that ray's result. (The per-round
-// entries that run trace<> keep its per-node code as it was.)
+// Which ray a lane carries never changes that ray's result. Every other
+// traversal entry runs these node loops (interior_nodes, leaf_nodes).
 // ---------------------------------------------------------------------------
 
 constexpr int kAbThreads = 128;
@@ -554,13 +378,14 @@ __device__ __forceinline__ int pop(const S& st, int& depth, int lim) {
   return depth < lim ? st.get(depth) : kTerm;
 }
 
-// Interior row: order_children's hit children in ascending entry order (a
-// stable insertion into the list, after every key <= the new one), a lane
-// group with no valid child skipped; all but the nearest pushed
-// far-to-near, as trace<> pushes them. Returns the nearest, or pops where
-// no child is hit. WHOLE (the no-gather variant's own rows): every lane
-// group's seven float4 read before its test, no group skipped (a read that
-// waits on the group's bounds is a second round trip to memory a step).
+// Interior row: the W-way slab test, the hit children in ascending entry
+// order (a stable insertion into the list, after every key <= the new one;
+// the twin's stable sort), a lane group with no valid child skipped; all but
+// the nearest pushed far-to-near, as the twin pushes them. Returns the
+// nearest, or pops where no child is hit. WHOLE (the no-gather variant's own
+// rows): every lane group's seven float4 read before its test, no group
+// skipped (a read that waits on the group's bounds is a second round trip to
+// memory a step).
 template <int W, bool WHOLE = false, class S = Stack>
 __device__ __forceinline__ int interior_step(const float4* __restrict__ row, const Ray& y,
                                              float t_prune, const ChildList& cl, const S& st,
@@ -609,7 +434,7 @@ __device__ __forceinline__ int interior_step(const float4* __restrict__ row, con
 
 // One lane's hits in a traversal: the nearest opaque hit (t starts at the
 // window end) and, in mode c, the nearest alpha-flagged candidate (ct starts
-// there too), as trace<> keeps them.
+// there too), as the twin keeps them.
 struct Hits {
   float t, u, v;
   int tri;
@@ -617,7 +442,7 @@ struct Hits {
   int ctri;
 };
 
-// Leaf row `cur`: its triangles against both slots in trace<>'s order (the
+// Leaf row `cur`: its triangles against both slots in the twin's order (the
 // opaque tournament, then in mode c the candidate's). Returns the next node:
 // kTerm at any hit's first hit, else a pop. OWN (the capped entry's
 // no-gather variant): the triangles of row `own`, the leaf's count from
@@ -663,7 +488,7 @@ __device__ __forceinline__ void restart(int& cur, int& depth) {
 }
 
 // Interior rows until this lane is at a leaf or done (mode c prunes with
-// the nearer of both slots, as trace<> does), one step counted for each.
+// the nearer of both slots, as the twin does), one step counted for each.
 // The capped entry's walk: CAPPED stops the lane at `cap` steps; OWN reads
 // row `own` at every node, whatever the node, and restarts the ray where
 // it would end (the no-gather variant).
@@ -751,6 +576,135 @@ persistent_traverse_kernel(const float4* __restrict__ rows, const float* __restr
       out_tri[ray] = h.tri;
       out_u[ray] = h.u;
       out_v[ray] = h.v;
+      out_steps[ray] = steps;
+      ray = -1;
+    }
+  }
+  deepest = __reduce_max_sync(lanes, deepest);
+  if (lane == 0) atomicMax(scratch + 1, deepest);
+}
+
+// ---------------------------------------------------------------------------
+// The per-round entries (vkrt_traverse): one traversal of each ray, as each
+// round of the plain round loops takes it: mode c (the nearest alpha
+// candidate with its texture uv) from the root, with culling or without
+// (the single-level candidate rounds, ops/traverse_alpha.py; the
+// reference's rounds reach the step kernel through
+// vk_raytrace_tpu/ops/traverse_alpha.py:128), and ROOTS: modes a (culling),
+// b (no culling) and c (either) from each ray's own root row root0[r] (the
+// two-level rounds, ops/tlas.py; vk_raytrace_tpu/ops/traverse_fused.py:724,
+// reached from vk_raytrace_tpu/ops/tlas.py:495 and :695).
+//
+// The a/b entry's design: persistent warps fetching rays from the counter,
+// the shared node loops (mode c with its candidate slot, pruned by the
+// nearer of both slots, as the machines run it), the stack in shared memory
+// with the exact global spill to the tree's bound and, at width 16, the
+// child list in shared memory. The intake: a ray that is not active ends at
+// once; from the root, a ray must enter the root's union box (in shared
+// memory) within (0, t_max); with roots, its root row is its first node,
+// whatever it is (an interior row as a rule; a leaf ref runs as a leaf), and
+// no union box is tested (a ray whose plane distances are NaN visits an
+// interior root and takes no child: nan_planes). Both slots start at t_max. Outputs per ray: mode
+// c the candidate slot (t = 1e32 where there is none) with its uv, modes a
+// and b the opaque slot (t = 1e32 where nothing was hit); steps one per
+// node. So every output is the twin's bit for bit.
+//
+// Registers against warps, measured on the H100 (chip_ab.py --rounds,
+// PERF.md section 6): modes a/b with roots at 4 blocks of 128 an SM at both
+// widths (112-123 registers, no spill; at width 16, 5 blocks, the a/b
+// kernel's 96 registers, spilled 52-88 B and ran 1-3% slower); mode c,
+// which carries the candidate slot as the single-level alpha rounds do, at
+// 3 (154-168 registers; 4 blocks ran 3-9% slower, 2 within 1% at width 16
+// and 12-19% slower at width 32).
+// ---------------------------------------------------------------------------
+
+constexpr int kRoundAbMinBlocks = 4;
+constexpr int kRoundCandMinBlocks = 3;
+
+// Whether every box's plane distances are NaN on some axis for this ray: a
+// NaN in its origin or its guarded reciprocal direction, or an infinite
+// origin against a zero reciprocal (an infinite direction component). Every
+// child of such a ray's first interior row misses in the twin (torch's NaN
+// propagation), where the slab test's fminf / fmaxf would drop the NaN; from
+// the root, enters_root ends such a ray. (A finite origin against a zero
+// reciprocal is NaN only against a bound some 1e31 away from it.)
+__device__ __forceinline__ bool nan_planes(const Ray& y) {
+  const auto bad = [](float o, float i) { return o != o || i != i || (i == 0.0f && isinf(o)); };
+  return bad(y.ox, y.ix) || bad(y.oy, y.iy) || bad(y.oz, y.iz);
+}
+
+template <int MODE, bool CULL, int W, bool ROOTS>
+__global__ void __launch_bounds__(kAbThreads, MODE == kCandidate ? kRoundCandMinBlocks
+                                                                 : kRoundAbMinBlocks)
+round_traverse_kernel(const float4* __restrict__ rows, const float* __restrict__ origin,
+                      const float* __restrict__ direction, const float* __restrict__ t_max,
+                      const uint8_t* __restrict__ active, const int32_t* __restrict__ root0,
+                      int n_rays, int lim, int* __restrict__ scratch, int64_t n_slots,
+                      float* __restrict__ out_t, int32_t* __restrict__ out_tri,
+                      float* __restrict__ out_u, float* __restrict__ out_v,
+                      int32_t* __restrict__ out_steps, float* __restrict__ out_uvu,
+                      float* __restrict__ out_uvv) {
+  constexpr bool kListShared = W == 16;
+  __shared__ int sh_stack[kShStack * kAbThreads];
+  __shared__ float s_root[6];
+  __shared__ float sh_key[kListShared ? W * kAbThreads : 1];
+  __shared__ int sh_ref[kListShared ? W * kAbThreads : 1];
+  float l_key[kListShared ? 1 : W];
+  int l_ref[kListShared ? 1 : W];
+  if (!ROOTS) share_root_box<W>(rows, s_root);
+  __syncthreads();
+
+  const unsigned lanes = __ballot_sync(0xffffffffu, true);
+  const int lane = threadIdx.x & 31;
+  const int64_t slot = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const Stack st{sh_stack + threadIdx.x, (int)blockDim.x, scratch + kScratchHead + slot, n_slots};
+  const ChildList cl = kListShared
+                           ? ChildList{sh_key + threadIdx.x, sh_ref + threadIdx.x, (int)blockDim.x}
+                           : ChildList{l_key, l_ref, 1};
+
+  Ray y;
+  Hits h;
+  int ray = -1, cur = kTerm, depth = 0, steps = 0, deepest = 0;
+  bool more = true;  // the counter may still hold rays (the same in every lane)
+  while (true) {
+    const unsigned idle = __ballot_sync(lanes, cur == kTerm);
+    if (!more && idle == lanes) break;
+    const int64_t r = fetch<kRefill>(lanes, idle, lane, scratch, n_rays, more);
+    if (r >= 0) {
+      ray = (int)r;
+      y = load_ray(origin, direction, r);
+      h.t = h.ct = t_max[r];
+      h.tri = h.ctri = -1;
+      h.u = h.v = h.cu = h.cv = h.cuvu = h.cuvv = 0.0f;
+      steps = 0;
+      depth = 0;
+      const bool live = active == nullptr || active[r];
+      if (ROOTS) {
+        cur = live ? root0[r] : kTerm;
+        if (cur >= 0 && nan_planes(y)) {  // its root row visited, no child taken
+          steps = 1;
+          cur = kTerm;
+        }
+      } else {
+        cur = live && enters_shared_root(y, s_root, h.t) ? 0 : kTerm;
+      }
+    }
+    interior_nodes<MODE, W>(rows, cur, y, h, cl, st, depth, lim, deepest, steps);
+    leaf_nodes<MODE, CULL, W>(rows, cur, y, h, st, depth, lim, steps);
+    if (ray >= 0 && cur == kTerm) {
+      if (MODE == kCandidate) {
+        out_t[ray] = h.ctri >= 0 ? h.ct : kInf;
+        out_tri[ray] = h.ctri;
+        out_u[ray] = h.cu;
+        out_v[ray] = h.cv;
+        out_uvu[ray] = h.cuvu;
+        out_uvv[ray] = h.cuvv;
+      } else {
+        out_t[ray] = h.tri >= 0 ? h.t : kInf;
+        out_tri[ray] = h.tri;
+        out_u[ray] = h.u;
+        out_v[ray] = h.v;
+      }
       out_steps[ray] = steps;
       ray = -1;
     }
@@ -929,9 +883,9 @@ capped_traverse_kernel(const float4* __restrict__ rows, const float* __restrict_
 // shares.
 //
 // All three run in persistent warps, as vkrt_traverse_ab (their first
-// design ran a thread per ray through trace<>, with a full-depth stack in
-// local memory, which made a warp wait for its slowest ray's last round): a
-// lane whose ray has ended takes a new one from the counter; a lane keeps
+// design ran a thread per ray with a full-depth stack in local memory,
+// which made a warp wait for its slowest ray's last round): a lane whose
+// ray has ended takes a new one from the counter; a lane keeps
 // its ray's state between rounds, and its round ends where the round's
 // traversal does, inside the warp's interior and leaf loops
 // (interior_nodes, leaf_nodes: the node code of the a/b entry, with mode
@@ -1641,44 +1595,6 @@ sort_children_kernel(const float* __restrict__ keys, const int32_t* __restrict__
   }
 }
 
-struct Args {
-  const float* rows;
-  const float* o;
-  const float* d;
-  const float* tmax;
-  const uint8_t* active;
-  const int32_t* root0;
-  int64_t n;
-  float* t;
-  int32_t* tri;
-  float* u;
-  float* v;
-  int32_t* steps;
-  float* uvu;
-  float* uvv;
-};
-
-template <int MODE, bool CULL, int MAXD, int W>
-void launch(const Args& a, cudaStream_t stream) {
-  const int threads = 128;
-  const int64_t blocks = (a.n + threads - 1) / threads;
-  traverse_kernel<MODE, CULL, MAXD, W><<<(unsigned)blocks, threads, 0, stream>>>(
-      reinterpret_cast<const float4*>(a.rows), a.o, a.d, a.tmax, a.active, a.root0, a.n, a.t,
-      a.tri, a.u, a.v, a.steps, a.uvu, a.uvv);
-}
-
-template <int MAXD, int W = kWidth>
-void dispatch(int mode, int cull, const Args& a, cudaStream_t s) {
-  if (mode == kClosest)
-    launch<kClosest, true, MAXD, W>(a, s);
-  else if (mode == kAny)
-    launch<kAny, false, MAXD, W>(a, s);
-  else if (cull)
-    launch<kCandidate, true, MAXD, W>(a, s);
-  else
-    launch<kCandidate, false, MAXD, W>(a, s);
-}
-
 // The largest instance table a machine holds in dynamic shared memory.
 constexpr int kTableBytes = kMaxInstances * kInstWords * (int)sizeof(float);
 
@@ -1749,6 +1665,25 @@ auto ab_kernel(int mode) -> decltype(&persistent_traverse_kernel<kClosest, true,
   return nullptr;
 }
 
+// The per-round kernel of `mode` (closest with culling, any without, the
+// candidate per `cull`) from the root (roots false: mode c alone) or from
+// per-lane roots, or null for another mode.
+template <int W = kWidth>
+auto round_kernel(int mode, int cull, bool roots)
+    -> decltype(&round_traverse_kernel<kClosest, true, W, true>) {
+  if (mode == kCandidate) {
+    if (roots)
+      return cull ? &round_traverse_kernel<kCandidate, true, W, true>
+                  : &round_traverse_kernel<kCandidate, false, W, true>;
+    return cull ? &round_traverse_kernel<kCandidate, true, W, false>
+                : &round_traverse_kernel<kCandidate, false, W, false>;
+  }
+  if (!roots) return nullptr;
+  if (mode == kClosest) return &round_traverse_kernel<kClosest, true, W, true>;
+  if (mode == kAny) return &round_traverse_kernel<kAny, false, W, true>;
+  return nullptr;
+}
+
 // Whether the capped kernel for this cap runs the ring: width 16 below
 // kShStack steps.
 constexpr bool kCappedRing = kWidth == 16;
@@ -1808,9 +1743,33 @@ int64_t vkrt_traverse_ab_slots(int mode) {
   return (int64_t)blocks * sms * kAbThreads;
 }
 
-// int32 words of a persistent entry's scratch (the a/b entry's and the
-// machines') for a tree with this stack bound and n_slots resident threads:
-// the head, then the stack entries past the shared ones, a column per thread.
+// Blocks of the per-round kernel of (mode, cull, roots) that reside on one
+// SM, or -1 (for a kernel vkrt_traverse does not run: modes 0 and 1 without
+// roots).
+int vkrt_traverse_round_occupancy(int mode, int cull, int roots) {
+  const auto k = round_kernel(mode, cull, roots != 0);
+  int blocks = 0;
+  if (k == nullptr ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kAbThreads, 0) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// Threads of that kernel that reside on the current device (its persistent
+// grid), or -1. Its scratch takes vkrt_traverse_ab_words(stack_depth, slots).
+int64_t vkrt_traverse_round_slots(int mode, int cull, int roots) {
+  const int blocks = vkrt_traverse_round_occupancy(mode, cull, roots);
+  int dev = 0, sms = 0;
+  if (blocks <= 0 || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return -1;
+  return (int64_t)blocks * sms * kAbThreads;
+}
+
+// int32 words of a persistent entry's scratch (the a/b and per-round
+// entries' and the machines') for a tree with this stack bound and n_slots
+// resident threads: the head, then the stack entries past the shared ones, a
+// column per thread.
 int64_t vkrt_traverse_ab_words(int stack_depth, int64_t n_slots) {
   const int deep = stack_depth > kShStack ? stack_depth - kShStack : 0;
   return kScratchHead + (int64_t)deep * n_slots;
@@ -1841,8 +1800,8 @@ int vkrt_traverse_ab(int mode, int width, const float* rows, int stack_depth,
   return (int)cudaGetLastError();
 }
 
-// Largest stack depth any instantiation holds; the wrapper refuses trees
-// whose exact stack bound exceeds it.
+// Largest stack bound the entries take; the wrapper refuses trees whose
+// exact stack bound exceeds it.
 int vkrt_traverse_max_stack() { return 128; }
 
 // Stack entries a thread of the persistent entries holds in shared memory
@@ -1850,26 +1809,38 @@ int vkrt_traverse_max_stack() { return 128; }
 // many steps.
 int vkrt_traverse_shared_stack() { return kShStack; }
 
-// mode: 0 closest hit (backface culling), 1 any hit (no culling, first
-// accepted hit ends the ray), 2 nearest alpha candidate (culling per
-// `cull`); width: this library's VKRT_WIDTH. `active` may be null; `root0`
-// may be null (every ray starts at row 0 after the root union-box test;
-// modes 0 and 1 only with roots: from the root they run in vkrt_traverse_ab)
-// or hold each ray's interior root row. Returns cudaGetLastError() after
-// launch.
+// One traversal of each of n_rays rays (< 2^31), the per-round kernel on
+// min(n_slots, rays) threads (vkrt_traverse_round_slots). mode: 0 closest
+// hit (backface culling), 1 any hit (no culling, the first accepted hit ends
+// the ray), 2 nearest alpha candidate (culling per `cull`); width: this
+// library's VKRT_WIDTH; stack_depth the tree's exact stack bound (<= 128).
+// root0 null: every ray starts at row 0 after the root union-box test (mode
+// 2 only: modes 0 and 1 from the root run in vkrt_traverse_ab); else each
+// ray's root row. `active` may be null. scratch: vkrt_traverse_ab_words(
+// stack_depth, n_slots) int32 words, whose head this entry zeroes on the
+// stream; the kernel leaves the deepest stack any ray reached in
+// scratch[1]. Outputs per ray: t (1e32 where nothing was found), tri (-1
+// then), u, v, steps (nodes visited), and in mode 2 the candidate's texture
+// uv in uvu, uvv. Returns the first CUDA error.
 int vkrt_traverse(int mode, int cull, int width, const float* rows, int stack_depth,
                   const float* origin, const float* direction, const float* t_max,
-                  const uint8_t* active, const int32_t* root0, int64_t n_rays, float* t,
-                  int32_t* tri, float* u, float* v, int32_t* steps, float* uvu, float* uvv,
-                  void* stream) {
-  if (width != kWidth || (root0 == nullptr && mode != kCandidate))
+                  const uint8_t* active, const int32_t* root0, int64_t n_rays, int* scratch,
+                  int64_t scratch_words, int64_t n_slots, float* t, int32_t* tri, float* u,
+                  float* v, int32_t* steps, float* uvu, float* uvv, void* stream) {
+  const auto k = round_kernel(mode, cull, root0 != nullptr);
+  if (width != kWidth || k == nullptr || stack_depth > vkrt_traverse_max_stack() ||
+      (mode == kCandidate && (uvu == nullptr || uvv == nullptr)) ||
+      n_rays >= ((int64_t)1 << 31) || n_slots < kAbThreads ||
+      scratch_words < vkrt_traverse_ab_words(stack_depth, n_slots))
     return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const Args a{rows, origin, direction, t_max, active, root0, n_rays, t, tri, u, v, steps,
-               uvu, uvv};
-  if (stack_depth <= 64) dispatch<64>(mode, cull, a, s);
-  else dispatch<128>(mode, cull, a, s);
+  const cudaError_t err = cudaMemsetAsync(scratch, 0, kScratchHead * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  k<<<grid_blocks(n_rays, n_slots), kAbThreads, 0, s>>>(
+      reinterpret_cast<const float4*>(rows), origin, direction, t_max, active, root0,
+      (int)n_rays, stack_depth > 1 ? stack_depth : 1, scratch, n_slots, t, tri, u, v, steps, uvu,
+      uvv);
   return (int)cudaGetLastError();
 }
 

@@ -3,9 +3,10 @@ plain twin.
 
 Counterpart of ``vk_raytrace_tpu/ops/traverse_fused.py``. The TPU kernel
 (``_make_step_kernel``, launched once per traversal step) becomes
-``csrc/traverse.cu``: one launch per traversal, one thread per ray looping
-to termination with a full-depth stack. The kernel is bound by dependent
-row reads (512 B at width 16, 1024 B at width 32) and divergence, not
+``csrc/traverse.cu``: one launch per traversal, persistent warps whose
+lanes take rays from a counter and run each to termination, the stack in
+shared memory with an exact spill. The kernel is bound by dependent row
+reads (512 B at width 16, 1024 B at width 32) and divergence, not
 arithmetic.
 
 Three modes run on the main path:
@@ -23,13 +24,16 @@ the instance's box test has already done.
 
 :func:`traverse` dispatches on the tensors' device: CPU tensors run
 :func:`_traverse_plain` (vectorised torch over all rays), CUDA tensors launch
-the kernel or raise. Modes a and b from the root launch the persistent entry
-``vkrt_traverse_ab`` (the same nodes and outputs, bit for bit; warps that
-fetch rays from a counter, the stack in shared memory with a spill in a
-scratch kept per device, width and stream): :func:`ab_occupancy` gives its
-resident blocks per SM and :func:`stack_reached` the deepest stack of its
-last call. :data:`LAUNCHES` counts kernel launches per mode, with
-per-lane roots under ``<mode>_roots`` and width-32 rows under ``..._w32``.
+the kernel or raise; either way every output is the twin's bit for bit.
+Modes a and b from the root launch the entry ``vkrt_traverse_ab``, the
+other modes (mode c from the root, every mode with per-lane roots, as the
+plain round loops take them) the per-round entry ``vkrt_traverse``; both
+run persistent warps on one node code, with a spill in a scratch kept per
+device, width and stream: :func:`ab_occupancy` and :func:`round_occupancy`
+give their resident blocks per SM and :func:`stack_reached` the deepest
+stack of the last call. :data:`LAUNCHES` counts kernel launches per mode,
+with per-lane roots under ``<mode>_roots`` and width-32 rows under
+``..._w32``.
 
 Three more entries, each with its plain version beside it:
 
@@ -446,9 +450,13 @@ def _load(width: int):
         lib = ctypes.CDLL(build(width))
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.vkrt_traverse.argtypes = [
-            i32, i32, i32, p, i32, p, p, p, p, p, i64, p, p, p, p, p, p, p, p,
+            i32, i32, i32, p, i32, p, p, p, p, p, i64, p, i64, i64, p, p, p, p, p, p, p, p,
         ]
         lib.vkrt_traverse.restype = i32
+        lib.vkrt_traverse_round_occupancy.argtypes = [i32, i32, i32]
+        lib.vkrt_traverse_round_occupancy.restype = i32
+        lib.vkrt_traverse_round_slots.argtypes = [i32, i32, i32]
+        lib.vkrt_traverse_round_slots.restype = i64
         lib.vkrt_traverse_capped.argtypes = [
             i32, p, i64, i32, p, p, p, i64, i32, i32, p, i64, i64, p, p, p, p, p, p,
         ]
@@ -620,9 +628,9 @@ def cuda_device(dev):
     return dev
 
 
-# Per row width: the persistent a/b entries of that width's library (the
-# round machines share them), and the capped entry's own, so that the
-# micro-bench's deeper spill never grows the main path's scratch.
+# Per row width: the persistent a/b and per-round entries of that width's
+# library (the round machines share them), and the capped entry's own, so
+# that the micro-bench's deeper spill never grows the main path's scratch.
 _AB_GRIDS = {w: PersistentGrid() for w in WIDTHS}
 _CAPPED_GRIDS = {w: PersistentGrid() for w in WIDTHS}
 
@@ -670,8 +678,9 @@ def machine_state(lib, planar, dev, kind, any_hit: bool, n_inst: int):
 
 
 def stack_reached(width: int, device) -> int:
-    """The deepest stack a ray reached in the last mode a/b call from the
-    root at ``width`` on ``device``'s current stream (waits for it)."""
+    """The deepest stack a ray reached in the last traversal call (modes a/b
+    from the root, a per-round call, a round machine) at ``width`` on
+    ``device``'s current stream (waits for it)."""
     return _AB_GRIDS[width].stack_reached(device)
 
 
@@ -697,7 +706,20 @@ def _traverse_ab(lib, planar, origin, direction, t_max, active, mode):
     return t, tri.long(), u, v, steps, None, None
 
 
+def round_occupancy(width: int, mode: str, cull: bool, roots: bool) -> int:
+    """Blocks of the per-round kernel of ``mode`` (``cull`` for mode c;
+    modes a/b only with ``roots``) that reside on one SM of the current
+    device."""
+    blocks = _load(width).vkrt_traverse_round_occupancy(_MODE_ID[mode], int(cull), int(roots))
+    if blocks <= 0:
+        raise RuntimeError(f"no occupancy for the per-round {mode} kernel at width {width}")
+    return blocks
+
+
 def _traverse_cuda(planar, origin, direction, t_max, active, mode, cull, root0=None):
+    """One launch: modes a/b from the root in ``vkrt_traverse_ab``, the rest
+    (mode c from the root, every mode with ``root0``) in the per-round entry
+    ``vkrt_traverse``; both persistent, on the width's grid and scratch."""
     lib = _load(planar.width)
     R, dev = origin.shape[0], origin.device
     active = _check_rays(lib, planar, origin, direction, t_max, active)
@@ -710,13 +732,17 @@ def _traverse_cuda(planar, origin, direction, t_max, active, mode, cull, root0=N
     t, tri, u, v, steps, uvu, uvv = _outputs(R, dev, mode == "candidate")
     if R == 0:  # nothing to launch, and so nothing to count
         return t, tri.long(), u, v, steps, uvu, uvv
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.vkrt_traverse(
-        _MODE_ID[mode], int(cull), planar.width, planar.rows.data_ptr(), planar.stack_depth,
-        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), _ptr(active), _ptr(root0), R,
-        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), steps.data_ptr(),
-        _ptr(uvu), _ptr(uvv), stream,
-    )
+    m, c, roots = _MODE_ID[mode], int(cull), int(root0 is not None)
+    with _AB_GRIDS[planar.width].state(
+            dev, ("round", m, c, roots), lambda: lib.vkrt_traverse_round_slots(m, c, roots),
+            lambda slots: lib.vkrt_traverse_ab_words(planar.stack_depth, slots)) as (
+            scratch, slots, stream):
+        err = lib.vkrt_traverse(
+            m, c, planar.width, planar.rows.data_ptr(), planar.stack_depth, origin.data_ptr(),
+            direction.data_ptr(), t_max.data_ptr(), _ptr(active), _ptr(root0), R,
+            scratch.data_ptr(), scratch.numel(), slots, t.data_ptr(), tri.data_ptr(),
+            u.data_ptr(), v.data_ptr(), steps.data_ptr(), _ptr(uvu), _ptr(uvv), stream,
+        )
     if err != 0:
         raise RuntimeError(f"traverse kernel launch failed: cudaError {err}")
     LAUNCHES[launch_key(mode if root0 is None else f"{mode}_roots", planar.width)] += 1

@@ -198,6 +198,19 @@ def ab_report(width: int, mode: str, device) -> dict:
                 deepest_stack=tf.stack_reached(width, device))
 
 
+def round_report(width: int, mode: str, cull: bool, roots: bool, device) -> dict:
+    """The per-round kernel that ``traverse`` launches for ``mode`` (mode c
+    from the root, or any mode with per-lane roots) at ``width``: as
+    :func:`ab_report`."""
+    entry = (f"round_traverse_kernelILi{tf._MODE_ID[mode]}ELb{int(bool(cull))}ELi{width}"
+             f"ELb{int(bool(roots))}E")
+    res = cuda_build.resources(f"traverse{width}", entry)
+    return dict(registers=res["registers"], stack_frame=res["stack_frame"],
+                spill_bytes=res["spill_stores"] + res["spill_loads"],
+                blocks_per_sm=tf.round_occupancy(width, mode, cull, roots),
+                deepest_stack=tf.stack_reached(width, device))
+
+
 def capped_report(width: int, max_steps: int, nogather: bool, device) -> dict:
     """The capped kernel that ``traverse_capped`` launches for ``max_steps``
     and ``nogather`` at ``width``: as :func:`ab_report` (at width 16 its
