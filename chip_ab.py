@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the traversal kernels of several checkouts on one GPU.
 
-    python3 chip_ab.py [--atrium | --capped | --rounds] PARENT CHANGE CHANGE PARENT ...
+    python3 chip_ab.py [--atrium | --capped | --rounds | --standalone] PARENT CHANGE CHANGE PARENT ...
     python3 chip_ab.py --ptx PARENT CHANGE
 
 Each argument is the root of a checkout (for example a ``git archive`` of
@@ -62,13 +62,20 @@ _rounds_core`` toward the banners, ``tlas._two_level_pass`` over the
 opaque subsets on camera rays; closest and any hit, both widths), the
 least and the median of three means of 2 calls (CUDA events: the wall
 with the loops' host syncs) and the device-busy ms of one traced call;
-with ptxas's report of each per-round instantiation. ``--ptx PARENT
-CHANGE`` compiles ``csrc/traverse.cu`` of both checkouts to PTX at widths
-16 and 32 with the build's arithmetic flags and says, for each a/b,
-capped, round machine and single-level rounds kernel, whether its PTX is
-the same with line directives, labels, register numbers and mangled names
-masked. Variants of a kernel (a copy of a checkout with an edited source)
-compare as checkouts.
+with ptxas's report of each per-round instantiation. ``--standalone``
+times the two kernels that no path launches, the body alone
+(``vkrt_shade``) and the standalone root prefilter
+(``vkrt_root_prefilter``), on phases 6, 10 and 40's inputs (the least and
+the median of three means of 20 launches; :func:`time_standalone`), with
+ptxas's report of their instantiations, and holds every checkout's
+outputs equal to the first's bit for bit. ``--ptx PARENT CHANGE``
+compiles ``csrc/traverse.cu`` of both checkouts to PTX at widths 16 and
+32, and ``csrc/shade.cu`` once, with the build's arithmetic flags and
+says, for each a/b, capped, per-round, round machine, single-level rounds
+and shading stage kernel, whether its PTX is the same with line
+directives, labels, register numbers and mangled names masked. Variants
+of a kernel (a copy of a checkout with an edited source) compare as
+checkouts.
 """
 
 import os
@@ -438,23 +445,181 @@ def time_rounds(tree):
           flush=True)
 
 
-# The kernels --ptx holds equal: every instantiation whose name holds one of these.
+def time_standalone(tree, out_dir):
+    """``--standalone``: the two kernels no path launches, in checkout
+    ``tree``: the body alone (``vkrt_shade``) on phase 6's and phase 10's
+    inputs (2^18 atrium and bistro camera hits through ``shade_inputs``,
+    single-level and instanced), the least and the median of three means of
+    20 launches; the standalone root prefilter (``vkrt_root_prefilter``) on
+    phase 40's inputs (a 1080p fused atrium frame's closest and shadow
+    passes at iterations 0 and 2, widths 16 and 32), the least and the
+    median of three means of 20 launches on fresh copies queued behind a
+    device sleep. Every output (the timed sets, phases 6 and 10's
+    every-branch sets and phase 40's synthetic ray sets) goes to
+    ``out_dir`` for :func:`same_outputs`."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    os.chdir(tree)
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from vk_raytrace_torch import render as R
+    from vk_raytrace_torch import travbench as tb
+    from vk_raytrace_torch.integrator import shade_fused as sf
+    from vk_raytrace_torch.integrator.camera import with_aspect
+    from vk_raytrace_torch.integrator.path import pixel_spread
+    from vk_raytrace_torch.models import procedural
+    from vk_raytrace_torch.models.schema import PBR_GLTF, RenderConfig
+    from vk_raytrace_torch.ops import tlas
+    from vk_raytrace_torch.ops import traverse_fused as tf
+    from vk_raytrace_torch.ops.bvh8 import build_accel_bundle
+
+    dev = torch.device("cuda")
+    with ThreadPoolExecutor(3) as pool:
+        for f in [pool.submit(sf.build), *(pool.submit(tf.build, w) for w in tf.WIDTHS)]:
+            f.result()
+    n = 1 << 18
+    outs, times = {}, []
+
+    def shade_sets(label, r, hit, oc, dc, rng, instances=None):
+        cfg = r._run_cfg
+        seed = torch.tensor(rng.integers(0, 2**32, n), device=dev)
+        zeros3 = torch.zeros(n, 3, device=dev)
+        x = sf.shade_inputs(r.scene, r.features, cfg.full_mis, 0.5, cfg.hdr_multiplier, hit, oc,
+                            dc, seed, None, zeros3, torch.ones(n, 3, device=dev), zeros3,
+                            torch.zeros(n, device=dev), instances=instances,
+                            sun_disk=cfg.sun_disk,
+                            mip=(pixel_spread(r.scene, 1080), torch.clamp(hit.t, max=1e30)))
+        real = (x.srow, x.taps, x.aux, x.flags)
+        sets = {"camera": real, **{f"every_branch_mis{int(m)}": cs.every_branch(x, rng, m)
+                                   for m in (True, False)}}
+        for what, args in sets.items():
+            outs[f"{label} {what}"] = [y.cpu() for y in sf.shade(*args)]
+        ms = [tb.cuda_time(lambda: sf.shade(*real), 20) for _ in range(ROUNDS)]
+        times.append(f"{label} {min(ms):.4f}/{float(np.median(ms)):.4f}")
+
+    scene = procedural.atrium_scene()
+    geom, mats, lights, cam, atlas = scene
+    bundles = {w: build_accel_bundle(geom, width=w) for w in tf.WIDTHS}
+    a_scene = R.build_scene(geom, mats, lights, cam, atlas=atlas)
+    cfg = RenderConfig(width=1920, height=1080, max_depth=4, max_samples=1, pbr_mode=PBR_GLTF,
+                       firefly_clamp=10.0, use_sun_sky=True)
+    rng = np.random.default_rng(1234)
+    r = R.Renderer(a_scene, cfg, device=dev, packed=bundles[16], fused_shade=True)
+    oc, dc = cs.camera_rays(with_aspect(cam, 1920, 1080).to(dev), 1920, 1080, n, rng, dev)
+    shade_sets("shade_atrium", r, tf.closest_hit_fused(r.packed.opaque_planar, oc, dc), oc, dc,
+               rng)
+    del r
+    pool, inst, b_mats, b_lights, b_cam, b_atlas = procedural.bistro_scene()
+    bscene = R.build_instanced_scene(pool, inst, b_mats, b_lights, b_cam, atlas=b_atlas)
+    rb = R.Renderer(bscene, RenderConfig(width=1920, height=1080, pbr_mode=PBR_GLTF,
+                                         **cs.BISTRO_CFG), device=dev, fused_shade=True)
+    oc, dc = cs.camera_rays(rb.scene.camera, 1920, 1080, n, rng, dev)
+    seed = torch.tensor(rng.integers(0, 2**32, n), device=dev)
+    hit, _ = tlas.closest_hit_instanced(rb.packed, rb.alpha_pack, oc, dc, seed=seed)
+    shade_sets("shade_bistro", rb, hit, oc, dc, rng, instances=rb.packed.inst)
+    del rb, bscene, hit
+    torch.cuda.empty_cache()
+    for width, bundle in bundles.items():
+        r = R.Renderer(a_scene, cfg, device=dev, packed=bundle, fused_shade=True)
+        r.render_frame(0)
+        captured = cs.capture_alpha_inputs(r, 1)
+        del r
+        for label, (planar, o, d, t_limit, act), _ in captured:
+            it, kind = label.split(", ")[:2]
+            what = f"prefilter_w{width} {it.replace(' ', '')}_{kind.split()[0]}"
+            outs[what] = tf.alpha_need(planar, o, d, t_limit, act).cpu()
+            if it not in ("iteration 0", "iteration 2"):
+                continue
+            ms = []
+            for _ in range(ROUNDS):
+                copies = [tuple(x if x is None else x.clone() for x in (o, d, t_limit, act))
+                          for _ in range(21)]
+                ms.append(cs.events_ms([lambda c=c: tf._alpha_need_cuda(planar, *c)
+                                        for c in copies], queue=True))
+            times.append(f"{what} {min(ms):.4f}/{float(np.median(ms)):.4f}")
+        planar = captured[0][1][0]
+        s_rng = np.random.default_rng(40 + width)
+        for case in cs.PREFILTER_CASES:
+            o, d, t_limit = (x.to(dev) for x in cs.prefilter_rays(
+                case, planar, cs.PREFILTER_SYNTH_RAYS + 3, s_rng))
+            for active in cs.PREFILTER_ACTIVE:
+                act = cs.prefilter_active(active, cs.PREFILTER_SYNTH_RAYS + 3, s_rng)
+                act = None if act is None else act.to(dev)
+                outs[f"prefilter_w{width} {case}_{active}"] = tf.alpha_need(
+                    planar, o, d, t_limit, act).cpu()
+        del captured
+        torch.cuda.empty_cache()
+    torch.save(outs, os.path.join(out_dir, f"{len(os.listdir(out_dir))}.pt"))
+    print(os.path.basename(tree), " ".join(times), flush=True)
+    print(os.path.basename(tree), "ptxas:", "; ".join(standalone_ptxas(tree)), flush=True)
+
+
+def standalone_ptxas(tree):
+    """ptxas's registers, stack frame and spill of the body alone's and the
+    root prefilter's instantiations in ``tree``'s built libraries."""
+    import glob
+    import re
+
+    out = []
+    logs = [os.path.join(tree, "vk_raytrace_torch", "_build", "libshade.so.ptxas"),
+            *sorted(glob.glob(os.path.join(tree, "vk_raytrace_torch", "_build",
+                                           "libtraverse*.so.ptxas")))]
+    for log in logs:
+        for chunk in open(log).read().split("Compiling entry function '")[1:]:
+            name = chunk.split("'", 1)[0]
+            if not re.search(r"\d(shade_kernel|root_prefilter_kernel)I", name):
+                continue
+            regs = re.search(r"Used (\d+) registers", chunk)
+            frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                              r"(\d+) bytes spill loads", chunk)
+            out.append(f"{os.path.basename(log).split('.')[0][3:]}:{name[-40:]} "
+                       f"{regs.group(1) if regs else '?'} regs, "
+                       f"{frame.group(1) if frame else '?'} B frame, "
+                       f"{int(frame.group(2)) + int(frame.group(3)) if frame else '?'} B spill")
+    return out
+
+
+def same_outputs(out_dir, trees):
+    """Every checkout's saved outputs equal the first's bit for bit (the
+    float fields as their int32 words)."""
+    import torch
+
+    runs = [torch.load(os.path.join(out_dir, f"{k}.pt")) for k in range(len(trees))]
+    for k, run in enumerate(runs[1:], 1):
+        assert run.keys() == runs[0].keys(), f"{trees[k]}: other output sets"
+        for name, x in run.items():
+            xs, ys = (x, runs[0][name]) if isinstance(x, list) else ([x], [runs[0][name]])
+            for a, b in zip(xs, ys):
+                a, b = ((t.view(torch.int32) if t.dtype == torch.float32 else t) for t in (a, b))
+                assert a.shape == b.shape and torch.equal(a, b), (
+                    f"{trees[k]}: {name} differs from {trees[0]}'s")
+    print(f"outputs: {len(runs[0])} sets, every checkout's equal to {trees[0]}'s bit for bit",
+          flush=True)
+
+
+# The kernels --ptx holds equal: every instantiation whose name holds one of
+# these, in traverse.cu at both widths and in shade.cu.
 PTX_KERNELS = ("persistent_traverse_kernel", "capped_traverse_kernel", "machine_kernel",
-               "alpha_rounds_kernel")
+               "alpha_rounds_kernel", "round_traverse_kernel", "shade_stage_kernel")
 
 
-def ptx_entries(tree, width, out_dir):
-    """``csrc/traverse.cu`` of ``tree`` compiled to PTX at ``width``:
-    {kernel name: its body with line directives, labels, register numbers,
-    mangled names and local-memory depot numbers masked}."""
+def ptx_entries(tree, width, out_dir, src="traverse.cu"):
+    """``csrc/<src>`` of ``tree`` compiled to PTX (traverse.cu at
+    ``width``): {kernel name: its body with line directives, labels,
+    register numbers, mangled names and local-memory depot numbers
+    masked}."""
     import re
 
     from vk_raytrace_torch import cuda_build
 
-    out = os.path.join(out_dir, f"{os.path.basename(tree)}_w{width}.ptx")
+    out = os.path.join(out_dir, f"{os.path.basename(tree)}_{src}_w{width}.ptx")
     flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     subprocess.run([cuda_build.nvcc(), *flags, f"-DVKRT_WIDTH={width}", "-ptx", "-o", out,
-                    os.path.join(tree, "vk_raytrace_torch", "csrc", "traverse.cu")], check=True)
+                    os.path.join(tree, "vk_raytrace_torch", "csrc", src)], check=True)
     text = open(out).read()
     entries = {}
     for chunk in text.split(".entry ")[1:]:
@@ -472,13 +637,15 @@ def ptx_entries(tree, width, out_dir):
 
 
 def compare_ptx(parent, change):
-    """``--ptx``: one line per kernel of PTX_KERNELS at each width."""
+    """``--ptx``: one line per kernel of PTX_KERNELS at each width (the
+    shading source once)."""
     import tempfile
 
     sys.path.insert(0, os.path.abspath(change))
     with tempfile.TemporaryDirectory() as tmp:
-        for width in (16, 32):
-            a, b = (ptx_entries(os.path.abspath(t), width, tmp) for t in (parent, change))
+        for width, src in ((16, "traverse.cu"), (32, "traverse.cu"), (16, "shade.cu")):
+            a, b = (ptx_entries(os.path.abspath(t), width, tmp, src) for t in (parent, change))
+            tag = f"w{width}" if src == "traverse.cu" else "shade"
             for name in sorted(a):
                 if not any(k in name for k in PTX_KERNELS):
                     continue
@@ -491,7 +658,7 @@ def compare_ptx(parent, change):
                                                             b[name].splitlines(), n=0)
                             if x[:1] in "+-" and x[:3] not in ("+++", "---")]
                     what += f" ({len(diff)} lines: {diff[:4]})"
-                print(f"ptx w{width} {name[:90]}: {what}", flush=True)
+                print(f"ptx {tag} {name[:90]}: {what}", flush=True)
 
 
 def machine_ptxas(tree, capped=False, rounds=False):
@@ -532,21 +699,30 @@ def main(argv):
             time_capped(argv[-1])
         elif "--rounds" in argv:
             time_rounds(argv[-1])
+        elif "--standalone" in argv:
+            time_standalone(argv[-1], argv[-2])
         else:
             time_tree(argv[-1], atrium_only="--atrium" in argv)
         return
     if argv[:1] == ["--ptx"] and len(argv) == 3:
         compare_ptx(*argv[1:])
         return
-    flag = argv[:1] if argv[:1] in (["--atrium"], ["--capped"], ["--rounds"]) else []
+    flag = argv[:1] if argv[:1] in (["--atrium"], ["--capped"], ["--rounds"],
+                                    ["--standalone"]) else []
     trees = argv[len(flag):]
     if not trees:
         raise SystemExit(__doc__)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    for tree in trees:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", *flag, tree],
-                       check=True)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        for tree in trees:
+            extra = [out_dir] if flag == ["--standalone"] else []
+            subprocess.run([sys.executable, os.path.abspath(__file__), "--one", *flag, *extra,
+                            tree], check=True)
+        if flag == ["--standalone"]:
+            same_outputs(out_dir, trees)
 
 
 if __name__ == "__main__":

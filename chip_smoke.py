@@ -624,12 +624,11 @@ def phase(name):
     print(f"== {name} (at {time.time() - T_START:.1f} s)", flush=True)
 
 
-def shade_bytes(n, flags):
-    """Bytes the shading kernel moves for ``n`` lanes under ``flags``,
-    counted from csrc/shade.cu in 32-byte sectors: the merged-row lanes it
-    loads (not the uv-transform and texture-placement lanes, which the
-    prologue reads, nor the row's padding), the taps and footprint weights
-    of the enabled textures, the rest of aux, and the outputs."""
+def shade_lanes(flags):
+    """The lanes of the shading body's inputs that csrc/shade.cu reads under
+    ``flags``: (merged-row words, tap words, aux words). Not the
+    uv-transform and texture-placement lanes, which the prologue reads, nor
+    the row's padding."""
     from vk_raytrace_torch.integrator import shade_fused as sf
     from vk_raytrace_torch.integrator.shade import _OFFS
 
@@ -655,11 +654,20 @@ def shade_bytes(n, flags):
         srow += mat("normal_scale")
     if flags.anisotropy:
         srow += mat("aniso_dir", 3)
+    return srow, taps, aux
+
+
+def shade_bytes(n, flags):
+    """Bytes the shading kernel moves for ``n`` lanes under ``flags``,
+    counted from csrc/shade.cu in 32-byte sectors: the merged-row lanes it
+    loads, the taps and footprint weights of the enabled textures, the rest
+    of aux (:func:`shade_lanes`), and the outputs."""
+    from vk_raytrace_torch.integrator import shade_fused as sf
 
     def sectors(lanes):
         return len({4 * i // 32 for i in lanes}) * 32
 
-    return n * (sectors(srow) + sectors(taps) + sectors(aux) + sf.OUT_W * 4 + 2)
+    return n * (sum(sectors(x) for x in shade_lanes(flags)) + sf.OUT_W * 4 + 2)
 
 
 def build_kernels():
@@ -1419,17 +1427,25 @@ def stage_cases(name, scene, tables, features, hit, st, instances, main, spread,
 
 def stage_report(card):
     """ptxas of each instantiation of the stage and the body (registers,
-    stack frame, spill) from the shading library's build."""
+    stack frame, spill) from the shading library's build; for the body, its
+    blocks' staged inputs (dynamic shared memory) and blocks an SM."""
     from vk_raytrace_torch import cuda_build
+    from vk_raytrace_torch.integrator import shade_fused as sf
 
+    lib = sf._load()
     for label, entry in (("stage single-level", "shade_stage_kernelILb0E"),
                          ("stage instanced", "shade_stage_kernelILb1E"),
                          ("body single-level", "shade_kernelILb0E"),
                          ("body instanced", "shade_kernelILb1E")):
         rep = cuda_build.resources("shade", entry)
+        extra = ""
+        if label.startswith("body"):
+            inst = int(label.endswith("instanced"))
+            extra = (f", {lib.vkrt_shade_body_smem(inst)} B dynamic shared a block, "
+                     f"{lib.vkrt_shade_body_occupancy(inst)} blocks/SM")
         print(f"ptxas {label}: {rep['registers']} registers, {rep['stack_frame']} B stack "
               f"frame, {rep['spill_stores']} B spill stores, {rep['spill_loads']} B spill "
-              f"loads, {rep['smem']} B shared ({card})", flush=True)
+              f"loads, {rep['smem']} B shared{extra} ({card})", flush=True)
 
 
 def compare(mode, kern, twin):
@@ -3221,23 +3237,42 @@ PREFILTER_SYNTH_RAYS = 1 << 16
 
 
 def prefilter_work(planar, o, d, t_limit, active):
-    """(bytes, ops) the alpha pass's need mask moves and does on these
-    rays: each ray's output byte and its flag (where ``active`` is given),
-    t_limit where active, the ray (24 B) where t_limit > 0 too, the root
-    row's 6·W bounds once; the root children each such ray tests, in order
-    up to its first hit."""
+    """(bytes, ops, ops without the quad boxes) the alpha pass's need mask
+    moves and does on these rays: each ray's output byte and its flag (where
+    ``active`` is given), t_limit where active, the ray (24 B) where t_limit
+    > 0 too, the root row's 6·W bounds once. Ops: each such ray tests the
+    boxes of the root children's quads in order up to the quad of its first
+    hit child, and the children of each quad whose box it enters in order up
+    to that child (csrc/traverse.cu root_prefilter_kernel); without the quad
+    boxes, the children in order up to the first hit."""
     from vk_raytrace_torch.ops import traverse_fused as tf
 
-    n = o.shape[0]
+    n, w = o.shape[0], planar.width
     act = torch.ones(n, dtype=torch.bool, device=o.device) if active is None else active
     tested = act & (t_limit > 0.0)
-    valid, bmin, bmax = tf._root_boxes(planar.rows, planar.width)
-    tn, tfar = tf._slab(bmin[None], bmax[None], o[:, None, :], tf.inv_dir(d)[:, None, :])
-    hit = valid[None] & (tn <= tfar) & (tfar >= 0.0) & (tn < t_limit[:, None])
-    first = torch.where(hit.any(1), hit.int().argmax(1) + 1, planar.width)
+    valid, bmin, bmax = tf._root_boxes(planar.rows, w)
+    inv = tf.inv_dir(d)[:, None, :]
+
+    def hits(lo, hi, ok):
+        tn, tfar = tf._slab(lo[None], hi[None], o[:, None, :], inv)
+        return ok[None] & (tn <= tfar) & (tfar >= 0.0) & (tn < t_limit[:, None])
+
+    inf = torch.tensor(float("inf"), device=o.device)
+    q_valid = valid.reshape(-1, 4)
+    q_lo = torch.where(q_valid[..., None], bmin.reshape(-1, 4, 3), inf).amin(1)
+    q_hi = torch.where(q_valid[..., None], bmax.reshape(-1, 4, 3), -inf).amax(1)
+    child = hits(bmin, bmax, valid)
+    quad = hits(q_lo, q_hi, q_valid.any(1))
+    first = torch.where(child.any(1), child.int().argmax(1), w)  # the first hit child
+    q = torch.arange(w // 4, device=o.device)[None]
+    before = q < (first // 4)[:, None]  # quads tested and passed over
+    last = (first < w)[:, None] & (q == (first // 4)[:, None])
+    n_quad = (before | last).sum(1) + 4 * (quad & before).sum(1) + (first % 4 + 1) * (first < w)
     n_bytes = (n * (2 if active is not None else 1) + 4 * int(act.sum())
-               + 24 * int(tested.sum()) + 24 * planar.width)
-    return n_bytes, PREFILTER_CHILD_OPS * int(first[tested].sum())
+               + 24 * int(tested.sum()) + 24 * w)
+    n_child = torch.where(first < w, first + 1, w)
+    return (n_bytes, PREFILTER_CHILD_OPS * int(n_quad[tested].sum()),
+            PREFILTER_CHILD_OPS * int(n_child[tested].sum()))
 
 
 def capture_alpha_inputs(r, frame):
@@ -3305,12 +3340,14 @@ def prefilter_case(what, args, card, reps=10):
     ms = events_ms([lambda c=c: tf._alpha_need_cuda(planar, *c) for c in copies], queue=True)
     plain_ms = events_ms([lambda: tf._alpha_need_plain(planar, o, d, t_limit, act)
                           for _ in range(3)])
-    n_bytes, n_ops = prefilter_work(planar, o, d, t_limit, act)
+    n_bytes, n_ops, child_ops = prefilter_work(planar, o, d, t_limit, act)
     bnd = tb.bound(n_bytes, n_ops)
     print(f"root prefilter W{planar.width}, {what}: {need} of {o.shape[0]} rays need the rounds, "
           f"equal to the plain version -> OK; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
-          f"{bnd[0]:.4f} ms by {bnd[1]} ({n_bytes / 1e6:.2f} MB, {n_ops / 1e6:.1f} M ops; "
-          f"{ms / bnd[0]:.1f}x the bound) ({card})", flush=True)
+          f"{bnd[0]:.4f} ms by {bnd[1]} ({n_bytes / 1e6:.2f} MB, {n_ops / 1e6:.1f} M ops with "
+          f"the quad boxes, {child_ops / 1e6:.1f} M without, "
+          f"{tb.bound(n_bytes, child_ops)[0]:.4f} ms; {ms / bnd[0]:.1f}x the bound) ({card})",
+          flush=True)
     return ms, plain_ms, bnd, n_bytes, need, err
 
 
@@ -3381,11 +3418,16 @@ def phase_prefilter(card, scene, cfg, bundles, rng):
     frame's timed. Returns {width: ({label: the frame's case result}, the
     largest max_abs_err of the synthetic sets, {label: the frame's
     fold_case result})}."""
+    from vk_raytrace_torch import cuda_build
     from vk_raytrace_torch import render as R
 
     dev = torch.device("cuda", 0)
     res = {}
     for width, bnd_ in bundles.items():
+        rep = cuda_build.resources(f"traverse{width}", "root_prefilter_kernel")
+        print(f"ptxas root prefilter W{width}: {rep['registers']} registers, "
+              f"{rep['stack_frame']} B stack frame, {rep['spill_stores'] + rep['spill_loads']} B "
+              f"spill, {rep['smem']} B shared ({card})", flush=True)
         r = R.Renderer(scene, cfg, device=dev, packed=bnd_, fused_shade=True)
         r.render_frame(0)
         captured = capture_alpha_inputs(r, 1)

@@ -34,7 +34,9 @@ standalone root prefilter, then the rounds on its mask, against the rounds
 alone, whose ray intake runs the need line) bit for bit, a fused atrium
 frame that launches no standalone prefilter against the same frame through
 the plain need mask and the loop's plain bookkeeping, and ``vkrt_retire``
-against its plain version on a frame's pools and their tails. Kernel vs twin: same float32 operations in the same order, rounded
+against its plain version on a frame's pools and their tails; the body
+alone on lane counts off its block and the standalone prefilter on ray
+counts off its groups and past one stride of its persistent grid. Kernel vs twin: same float32 operations in the same order, rounded
 per operation (nvcc -fmad=false), so ``tri`` and the hit masks are equal
 and t within rtol 1e-5. Render: CUDA and CPU transcendentals round
 differently, so 99% of pixels within rtol 1e-3 / atol 1e-4 and ray counts
@@ -807,6 +809,103 @@ def test_instanced_shade_kernel_matches_plain(bistro, full_mis):
         np.testing.assert_allclose(kern[0][same].cpu().numpy(), plain[0][same].cpu().numpy(),
                                    rtol=1e-5, atol=1e-6)
         assert kern[1].float().mean().item() > 0.2
+
+
+def _body_every_branch(scene, bistro, instanced, rng):
+    """Every-branch inputs of the body alone on the card (``chip_smoke.
+    every_branch``): the reduced atrium's hits, or the small bistro's camera
+    hits with their instances."""
+    import chip_smoke
+    from vk_raytrace_torch.integrator import shade_fused as sf
+    from vk_raytrace_torch.integrator.camera import generate_rays_for_pixels
+    from vk_raytrace_torch.ops import rng as vrng
+
+    cfg = RenderConfig(width=128, height=72, pbr_mode=PBR_GLTF, use_sun_sky=True)
+    if instanced:
+        pool, inst, m, l, c, a = bistro
+        sc = R.build_instanced_scene(pool, inst, m, l, c, atlas=a)
+    else:
+        g, m, l, c, a = scene
+        sc = R.build_scene(g, m, l, c, atlas=a)
+    r = R.Renderer(sc, cfg, device="cuda", fused_shade=True)
+    pix = torch.arange(128 * 72, device="cuda")
+    o, d, _ = generate_rays_for_pixels(r.scene.camera, 128, 72, pix, 1, vrng.tea(pix, 0))
+    o, d = o.contiguous(), d.contiguous()
+    n = o.shape[0]
+    seed = torch.tensor(rng.integers(0, 2**32, n), device="cuda")
+    if instanced:
+        hit, _ = tlas.closest_hit_instanced(r.packed, r.alpha_pack, o, d, seed=seed)
+    else:
+        hit = tf.closest_hit_fused(r.packed.opaque_planar, o, d)
+    z = torch.zeros(n, 3, device="cuda")
+    x = sf.shade_inputs(r.scene, r.features, True, 0.5, 1.0, hit, o, d, seed, None, z,
+                        torch.ones(n, 3, device="cuda"), z, torch.zeros(n, device="cuda"),
+                        instances=r.packed.inst if instanced else None, sun_disk=True,
+                        mip=(0.002, hit.t))
+    return chip_smoke.every_branch(x, rng, True)
+
+
+@pytest.mark.parametrize("instanced", [False, True])
+def test_body_kernel_lane_counts_on_card(scene, bistro, instanced):
+    """The body alone on lane counts off its 64-lane block (1, 31, 33, 129
+    and all lanes + 7, the last 7 repeated), every branch: each count's
+    outputs equal the first lanes of the longest run bit for bit, and that
+    run holds to the plain version (masks on 99.99% of the lanes, vectors
+    within rtol 1e-5 / atol 1e-6 where they agree); a srow or aux that does
+    not start on 16 bytes is refused."""
+    _need_cuda()
+    from vk_raytrace_torch.integrator import shade_fused as sf
+
+    rng = np.random.default_rng(12 + instanced)
+    srow, taps, aux, flags = _body_every_branch(scene, bistro, instanced, rng)
+    full = tuple(torch.cat([t, t[:7]]) for t in (srow, taps, aux))
+    n_all = full[0].shape[0]
+    whole = sf.shade(*full, flags)
+    plain = sf._shade_plain(*full, flags)
+    same = (whole[1] == plain[1]) & (whole[2] == plain[2])
+    assert same.float().mean().item() >= 0.9999
+    np.testing.assert_allclose(whole[0][same].cpu().numpy(), plain[0][same].cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t  # noqa: E731
+    for n in (1, 31, 33, 129, n_all):
+        part = sf.shade(*(t[:n] for t in full), flags)
+        torch.cuda.synchronize()
+        for got, want in zip(part, whole):
+            assert torch.equal(bits(got), bits(want)[:n]), n
+    for k, name in ((0, "srow"), (2, "aux")):
+        bad = list(full)
+        t = full[k]
+        bad[k] = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")[1:].view(t.shape)
+        bad[k].copy_(t)
+        with pytest.raises(ValueError, match=name):
+            sf.shade(*bad, flags)
+
+
+@pytest.mark.parametrize("width", tf.WIDTHS)
+def test_root_prefilter_counts_on_card(scene, width):
+    """The standalone prefilter (persistent blocks, quad boxes first) on
+    counts that fill no block (1, 3, 5, 255, 1021) and on more rays than any
+    resident grid takes in one stride (1,100,003 > 132 SMs x 2,048 threads),
+    each of ``chip_smoke.prefilter_rays``' sets with
+    ``active`` absent, about half and none: equal to ``_alpha_need_plain``
+    bool for bool."""
+    _need_cuda()
+    import chip_smoke
+
+    g = scene[0]
+    planar = build_accel_bundle(g, width=width).alpha_planar.to("cuda")
+    rng = np.random.default_rng(40 + width)
+    big = 1_100_003
+    for case in chip_smoke.PREFILTER_CASES:
+        rays = [x.to("cuda") for x in chip_smoke.prefilter_rays(case, planar, big, rng)]
+        for active in chip_smoke.PREFILTER_ACTIVE:
+            act = chip_smoke.prefilter_active(active, big, rng)
+            act = None if act is None else act.to("cuda")
+            for n in (1, 3, 5, 255, 1021, big):
+                sub = [x[:n] for x in rays] + [None if act is None else act[:n]]
+                kern = tf.alpha_need(planar, *sub)
+                plain = tf._alpha_need_plain(planar, *sub)
+                assert torch.equal(kern, plain), (case, active, n, int((kern != plain).sum()))
 
 
 @pytest.mark.parametrize("full_mis,sun_disk,mip", [(True, True, True), (False, False, False),

@@ -8,7 +8,11 @@ with its baked sky and ``bistro_scene(detail=0.05)`` (instanced), with full
 MIS, the sun disk and the mip LOD each both ways, and every branch through
 a synthetic shade-row and tap-row table (``chip_smoke.every_branch_stage``).
 The body alone (``vkrt_shade``) is held against ``_shade_plain`` on
-gathered inputs. Skips where g++ is missing.
+gathered inputs, and on lane counts off its 64-lane block bit for bit
+against a longer run; its wrapper and C entry refuse rows that do not start
+on 16 bytes; its records in shared memory (the runs of the shade row its
+bulk copies move, their pieces and banks) are checked against what the body
+reads from shade.cu's own constants. Skips where g++ is missing.
 
 Tolerances: seeds, miss and the path length exact; alive and visible agree
 on 99.99% of the lanes (the card gate's share); every output vector within
@@ -65,8 +69,10 @@ def host_lib(tmp_path_factory):
         pytest.skip("needs g++ to build the kernel source as host C++")
     out = tmp_path_factory.mktemp("shade_host")
     with open(os.path.join(cuda_build.CSRC, "shade.cu")) as f:
+        src = f.read().replace("extern __shared__ float smem[];",
+                               "float* smem = vkrt_dynamic_shared;")
         src = re.sub(r"([A-Za-z_]\w*(?:<[^<>;()]*>)?)<<<(.*?)>>>\(", r"vkrt_launch(\1, \2)(",
-                     f.read(), flags=re.S)
+                     src, flags=re.S)
     cpp, lib = out / "shade_host.cpp", out / "libshade_host.so"
     cpp.write_text(src)
     res = subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
@@ -225,3 +231,101 @@ def test_body_kernel_matches_plain(host_kernel, scenes, name):
     plain = dict(alive=p_alive, visible=p_vis, **{k: p_vec[:, 3 * j:3 * j + 3] for j, k in
                                                   enumerate(sf._VEC_OUT)})
     _compare(kern, plain)
+
+
+def _body_args(scene, instances, seed):
+    """Every-branch body inputs of N lanes (``chip_smoke.every_branch``)."""
+    hit, st, rng = _inputs(scene, instances, seed=seed)
+    x = sf.shade_inputs(scene, mat_features(scene.materials), True, 0.5, 1.0, hit,
+                        *st.lanes(), instances=instances, sun_disk=True, mip=(SPREAD, st.tdist))
+    return chip_smoke.every_branch(x, rng, True)
+
+
+def _body_dict(out):
+    vec, alive, vis = out
+    return dict(alive=alive, visible=vis,
+                **{k: vec[:, 3 * j:3 * j + 3] for j, k in enumerate(sf._VEC_OUT)})
+
+
+@pytest.mark.parametrize("name", ["atrium", "bistro"])
+def test_body_kernel_lane_counts_off_the_tile(host_kernel, scenes, name):
+    """The body alone on lane counts off its 64-lane block: 1, 31, 33, 129
+    and N + 7 (the every-branch inputs, the last 7 lanes repeated): each
+    count's outputs equal the first lanes of the N + 7 run bit for bit (a
+    lane's result does not depend on the lanes beside it or on where the
+    last block ends), and the N + 7 run holds to ``_shade_plain`` with the
+    module's tolerances; single-level and instanced."""
+    scene, instances = scenes[name]
+    srow, taps, aux, flags = _body_args(scene, instances, seed=11)
+    full = tuple(torch.cat([t, t[:7]]) for t in (srow, taps, aux))
+    whole = sf._shade_cuda(*full, flags)
+    _compare(_body_dict(whole), _body_dict(sf._shade_plain(*full, flags)))
+    for n in (1, 31, 33, 129, N + 7):
+        before = sf.LAUNCHES["shade_bounce"]
+        part = sf._shade_cuda(*(t[:n] for t in full), flags)
+        assert sf.LAUNCHES["shade_bounce"] == before + 1
+        for got, want in zip(part, whole):
+            assert got.shape[0] == n
+            assert torch.equal(got.view(torch.int32) if got.dtype == torch.float32 else got,
+                               (want.view(torch.int32) if want.dtype == torch.float32
+                                else want)[:n]), n
+
+
+def test_body_kernel_refuses_misaligned_rows(host_kernel, scenes):
+    """The body copies its rows in 16-byte pieces: the wrapper refuses a
+    srow, taps or aux tensor that does not start on 16 bytes, and launches
+    nothing; the C entry refuses it too."""
+    scene, _ = scenes["atrium"]
+    args = list(_body_args(scene, None, seed=12))
+    n = 65
+    args[:3] = [t[:n].contiguous() for t in args[:3]]
+
+    def shifted(t):  # the same values one element past an aligned start
+        out = torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 16
+        return out
+
+    before = sf.LAUNCHES["shade_bounce"]
+    for k, name in enumerate(("srow", "taps", "aux")):
+        bad = list(args)
+        bad[k] = shifted(args[k])
+        with pytest.raises(ValueError, match=name):
+            sf._shade_cuda(*bad)
+        out = torch.empty(n, sf.OUT_W)
+        mask = torch.empty(n, dtype=torch.bool)
+        assert sf._load().vkrt_shade(*(t.data_ptr() for t in bad[:3]), n, bad[3].bits(),
+                                     out.data_ptr(), mask.data_ptr(), mask.data_ptr(),
+                                     None) != 0
+    assert sf.LAUNCHES["shade_bounce"] == before
+
+
+@pytest.mark.parametrize("instanced", [False, True])
+def test_body_records_hold_what_the_body_reads(instanced):
+    """The body alone's records in shared memory, from shade.cu's own
+    constants: the staged first words of the shade row (kRowWords, through
+    kCcRough) hold every shade-row word the body reads with every flag on
+    (``chip_smoke.shade_lanes``), and the row, aux and taps are whole
+    16-byte pieces (the bulk copies' granule and alignment); a record is an
+    odd number of pieces, so that a warp's 32 lanes reading one word meet a
+    bank at most 4 times; a block's records fit the 227 KB a block may use.
+    The host build runs blocks of one lane and shows none of this."""
+    with open(os.path.join(cuda_build.CSRC, "shade.cu")) as f:
+        src = f.read()
+
+    def const(pattern):
+        return int(re.search(pattern, src).group(1))
+
+    assert "constexpr int kRowWords = kCcRough + 1;" in src
+    row_words = const(r"constexpr int kMat = (\d+);") + const(r"kCcRough = kMat \+ (\d+);") + 1
+    flags = sf.ShadeFlags(True, True, True, True, True, True, instanced)
+    row, taps, aux = chip_smoke.shade_lanes(flags)
+    n_aux = sf.aux_width(instanced)
+    assert max(row) < row_words and max(aux) < n_aux and max(taps) < 16
+    assert row_words % 4 == 0 and n_aux % 4 == 0
+    assert "static constexpr int kWords = ((kTaps + 16) / 4 | 1) * 4;" in src
+    words = ((row_words + n_aux + 16) // 4 | 1) * 4
+    assert words // 4 % 2 == 1
+    for k in range(words):
+        assert np.bincount((np.arange(32) * words + k) % 32, minlength=32).max() == 4
+    assert const(r"constexpr int kBodyLanes = (\d+);") * words * 4 <= 227 * 1024

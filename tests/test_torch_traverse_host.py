@@ -29,7 +29,8 @@ same libraries at both widths: ``traverse_fused._alpha_need_cuda`` against
 ``_alpha_need_plain`` on ``chip_smoke.prefilter_rays``'s sets (random, along
 the axes with +-0 and components below 1e-20, NaN and +-inf, t_limit <= 0,
 INF, inf and NaN, subnormals) with ``active`` absent, about half and none:
-equal bools; zero rays and refusals.
+equal bools, also on ray counts that fill no block and past one stride
+of its persistent grid; zero rays and refusals.
 
 Also the rank formula of a child order in registers (each hit child's rank
 the number of hits j with key_j < key_i, or key_j == key_i and j < i: how
@@ -604,3 +605,35 @@ def test_host_root_prefilter_zero_rays_and_refusals(host_kernel, atrium_bundles)
     assert tf._load(16).vkrt_root_prefilter(32, planar.rows.data_ptr(), o.data_ptr(),
                                             d.data_ptr(), t_limit.data_ptr(), None, 64,
                                             need.data_ptr(), None) != 0
+
+
+# The host shim's persistent grid: one SM of two resident blocks, each
+# launched as 256 one-thread blocks, a ray a thread.
+HOST_STRIDE_RAYS = 2 * 256
+
+
+@pytest.mark.parametrize("name", ["w16", "w32"])
+def test_host_root_prefilter_counts(host_kernel, atrium_bundles, name):
+    """The standalone prefilter on ray counts that fill no block (1, 3, 4,
+    5, 255), that fill the persistent grid's stride exactly, and that span
+    more than one stride (517, 1021, 1931: the grid strides over the rays):
+    each of
+    ``chip_smoke.prefilter_rays``' sets (NaN, +-inf, +-0 and subnormals
+    included) with ``active`` absent, about half and none, equal to
+    ``_alpha_need_plain`` bool for bool."""
+    width = dict((b[0], b[1]) for b in BUILDS)[name]
+    planar = atrium_bundles[1][width].alpha_planar
+    host_kernel(name)
+    counts = (1, 3, 4, 5, 255, HOST_STRIDE_RAYS, HOST_STRIDE_RAYS + 5, 1021,
+              3 * HOST_STRIDE_RAYS + 395)
+    rng = np.random.default_rng(17 * width)
+    for case in chip_smoke.PREFILTER_CASES:
+        rays = chip_smoke.prefilter_rays(case, planar, counts[-1], rng)
+        for active in chip_smoke.PREFILTER_ACTIVE:
+            act = chip_smoke.prefilter_active(active, counts[-1], rng)
+            for n in counts:
+                sub = [x[:n] for x in rays] + [None if act is None else act[:n]]
+                kern = tf._alpha_need_cuda(planar, *sub)
+                plain = tf._alpha_need_plain(planar, *sub)
+                assert kern.dtype == torch.bool and torch.equal(kern, plain), (
+                    f"{name} {case} {active} {n}: {int((kern != plain).sum())} rays differ")

@@ -25,7 +25,8 @@
 //   (integrator/shade_fused.py::shade_inputs): srow (R, 128) f32, taps
 //   (R, 16) i32, aux (R, 48 or 72) f32 (layout at shade_fused.aux_width);
 //   out_vec (R, 24) f32 and the masks alive, visible. Off the main path; it
-//   keeps the every-branch gate on gathered rows.
+//   keeps the every-branch gate on gathered rows. Its blocks stage their
+//   lanes' inputs in shared memory (shade_kernel, below).
 //
 // What bounds it on this card: by the byte and operation counts, device
 // memory. A lane of the stage reads ~400 bytes of its 512-byte shade row,
@@ -33,11 +34,12 @@
 // writes ~110, against ~1,800 float operations, several of them IEEE
 // divisions, square roots and libdevice transcendentals. The shade row is
 // the largest read and the atrium's table (111 MB) does not stay in the
-// 50 MB L2; each thread reads its own row through the read-only cache
-// (staging each warp's 32 rows in shared memory with cp.async measured
-// slower on the H100: the lanes read ~80 scalars of their rows, and the
-// kernel runs ~6x its byte bound, more issue- than load-bound). The other
-// gathers are per-thread __ldg too. The branches that are uniform per call
+// 50 MB L2; each thread of the stage reads its own row through the
+// read-only cache (staging each warp's 32 gathered rows in shared memory
+// with cp.async measured slower on the H100: the lanes read ~80 scalars of
+// their rows, and the kernel runs ~6x its byte bound, more issue- than
+// load-bound). The other gathers are per-thread __ldg too. The branches
+// that are uniform per call
 // (texture flags, anisotropy, full MIS, sun disk, mip LOD) are bits of
 // `flags`; the instanced layout is a template parameter.
 //
@@ -51,6 +53,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 // Pointers and sizes of one stage launch; the field order is
 // shade_fused._StageArgs's. At namespace scope: vkrt_shade_stage, which
@@ -269,19 +272,31 @@ __device__ __forceinline__ float bary(float w, float u, float v, float a0, float
   return w * a0 + u * a1 + v * a2;
 }
 
-// A lane's shade row in device memory, read through the read-only cache.
+// A lane's shade row (or instance rows) in device memory, read through the
+// read-only cache: the stage's reader.
 struct Row {
   const float* p;
   __device__ __forceinline__ float operator[](int k) const { return __ldg(p + k); }
 };
 
-__device__ __forceinline__ V3 ld3(const Row& r, int k) { return V3{r[k], r[k + 1], r[k + 2]}; }
+// A lane's record in shared memory, read as it lies: the body alone's reader
+// (shade_kernel stages each block's rows there). The body and its helpers
+// take the reader as a template parameter RowT, so that the stage keeps
+// Row's __ldg, which must never see a shared-memory address.
+struct SharedRow {
+  const float* p;
+  __device__ __forceinline__ float operator[](int k) const { return p[k]; }
+};
+
+template <class RowT>
+__device__ __forceinline__ V3 ld3(const RowT& r, int k) { return V3{r[k], r[k + 1], r[k + 2]}; }
 __device__ __forceinline__ V3 ldg3(const float* p) {
   return V3{__ldg(p), __ldg(p + 1), __ldg(p + 2)};
 }
 
 // Per-vertex normalise of 3 oct-packed directions, interpolate, normalise.
-__device__ __forceinline__ V3 vertex_dir(const Row& row, int lo, int hi, float w, float u,
+template <class RowT>
+__device__ __forceinline__ V3 vertex_dir(const RowT& row, int lo, int hi, float w, float u,
                                          float v) {
   V3 p[3];
 #pragma unroll
@@ -323,7 +338,8 @@ struct LaneOut {
 
 // Bilinear blend of texture k's footprint row; 1 where the material has no
 // texture in that slot.
-__device__ __forceinline__ float4 tap(const LaneIn& L, const Row& row, int k, bool is_srgb) {
+template <class RowT>
+__device__ __forceinline__ float4 tap(const LaneIn& L, const RowT& row, int k, bool is_srgb) {
   const float gx = L.gxy[2 * k], gy = L.gxy[2 * k + 1];
   const float4 c00 = texel(L.taps[4 * k]), c10 = texel(L.taps[4 * k + 1]);
   const float4 c01 = texel(L.taps[4 * k + 2]), c11 = texel(L.taps[4 * k + 3]);
@@ -586,34 +602,35 @@ __device__ void pbr_sample(int flags, const Mat& m, V3 v, V3 n, V3 normal, V3 t,
 
 // The 3x3 block of a row-major 3x4 matrix m times v, and its transpose
 // times v; sums over j in order 0, 1, 2.
-__device__ __forceinline__ V3 m3v(const float* m, V3 v) {
-  return V3{__ldg(m) * v.x + __ldg(m + 1) * v.y + __ldg(m + 2) * v.z,
-            __ldg(m + 4) * v.x + __ldg(m + 5) * v.y + __ldg(m + 6) * v.z,
-            __ldg(m + 8) * v.x + __ldg(m + 9) * v.y + __ldg(m + 10) * v.z};
+template <class RowT>
+__device__ __forceinline__ V3 m3v(const RowT& m, V3 v) {
+  return V3{m[0] * v.x + m[1] * v.y + m[2] * v.z, m[4] * v.x + m[5] * v.y + m[6] * v.z,
+            m[8] * v.x + m[9] * v.y + m[10] * v.z};
 }
 
-__device__ __forceinline__ V3 m3t_v(const float* m, V3 v) {
-  return V3{__ldg(m) * v.x + __ldg(m + 4) * v.y + __ldg(m + 8) * v.z,
-            __ldg(m + 1) * v.x + __ldg(m + 5) * v.y + __ldg(m + 9) * v.z,
-            __ldg(m + 2) * v.x + __ldg(m + 6) * v.y + __ldg(m + 10) * v.z};
+template <class RowT>
+__device__ __forceinline__ V3 m3t_v(const RowT& m, V3 v) {
+  return V3{m[0] * v.x + m[4] * v.y + m[8] * v.z, m[1] * v.x + m[5] * v.y + m[9] * v.z,
+            m[2] * v.x + m[6] * v.y + m[10] * v.z};
 }
 
 // The hit position w*p0 + u*p1 + v*p2, in world space under INST.
-template <bool INST>
-__device__ __forceinline__ V3 hit_position(const Row& row, float hit_u, float hit_v,
-                                           const float* o2w) {
+template <bool INST, class RowT>
+__device__ __forceinline__ V3 hit_position(const RowT& row, float hit_u, float hit_v,
+                                           const RowT& o2w) {
   const float w_b = 1.0f - hit_u - hit_v;
   V3 position = w_b * ld3(row, 0) + hit_u * ld3(row, 3) + hit_v * ld3(row, 6);
-  if (INST) position = m3v(o2w, position) + V3{__ldg(o2w + 3), __ldg(o2w + 7), __ldg(o2w + 11)};
+  if (INST) position = m3v(o2w, position) + V3{o2w[3], o2w[7], o2w[11]};
   return position;
 }
 
 // The body: shade state, material, integrator clauses, NEE evaluation and
 // the BSDF sample of one lane (the TPU kernel's body). INST: the hit is in
-// object space; o2w / w2o are the instance's 3x4 rows.
-template <bool INST>
-__device__ __forceinline__ LaneOut shade_body(int flags, const Row& row, const LaneIn& L,
-                                              const float* o2w, const float* w2o) {
+// object space; o2w / w2o are the instance's 3x4 rows. RowT reads the row
+// and the instance rows (Row in device memory, SharedRow in shared memory).
+template <bool INST, class RowT>
+__device__ __forceinline__ LaneOut shade_body(int flags, const RowT& row, const LaneIn& L,
+                                              const RowT& o2w, const RowT& w2o) {
   const V3 d = L.d;
   const float hit_u = L.hit_u, hit_v = L.hit_v, hit_t = L.hit_t;
   const bool miss = L.miss;
@@ -781,68 +798,202 @@ __device__ __forceinline__ LaneOut shade_body(int flags, const Row& row, const L
 
 // ---------------------------------------------------------------------------
 // The body alone on gathered inputs (vkrt_shade).
+//
+// A block's lanes are one contiguous range of srow, aux and taps, so each
+// lane's inputs can be copied whole into shared memory before the body runs
+// (the stage cannot: its rows are gathered by triangle). Read in place, each
+// of a lane's ~200 scalar loads would touch 32 lines 512 bytes apart a warp
+// instruction. Each thread asks the Tensor Memory Accelerator for its own
+// lane's three runs (the shade row's first kRowWords words, which are all
+// the body reads of it; aux; the taps as their int bits) as 1-D bulk copies
+// into the lane's record, completing on the block's mbarrier: the copies
+// take no registers and no issue slots, so the block's wait overlaps the
+// other resident blocks' bodies. A record is a whole number of 16-byte
+// pieces (the copies' granule), an odd number of them, so that lane i's word
+// k lies in bank (4 * i * pieces + k) mod 32: a warp's reads of one word meet
+// each bank at most 4 times, the least that 16-byte records allow. The
+// outputs go into the lane's own record once its body is done and leave
+// coalesced. What bounds it then is the body's arithmetic at the occupancy
+// the records leave: 44 / 50 KB a block of 64 lanes, 5 / 4 blocks an SM
+// (single-level / instanced). Copying with the threads themselves (16-byte
+// loads, 4-byte stores into records of odd length: no bank conflict at all)
+// measured slower on the H100: the copy's instructions and waits did not
+// overlap the bodies. Copying only the seven runs of the row that the body
+// reads (more lanes an SM, three times the copies) measured 16% slower
+// single-level and 5% faster instanced.
 // ---------------------------------------------------------------------------
 
-constexpr int kAuxInst = 48;  // first instance lane of aux
+constexpr int kAuxInst = 48;                 // first instance lane of aux
+constexpr int kBodyLanes = 64;               // lanes (threads) a block
+constexpr int kRowWords = kCcRough + 1;      // 104: the row's words the body reads
+constexpr int kOutWords = 24;                // out_vec's words a lane
+static_assert(kRowWords % 4 == 0, "the staged row is whole 16-byte pieces");
 
 template <bool INST>
-__global__ void __launch_bounds__(128) shade_kernel(const float* __restrict__ srow,
-                                                    const int32_t* __restrict__ taps,
-                                                    const float* __restrict__ aux, int64_t n,
-                                                    int flags, float* __restrict__ out_vec,
-                                                    uint8_t* __restrict__ alive_out,
-                                                    uint8_t* __restrict__ visible_out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Row row{srow + i * 128};
-  const int32_t* trow = taps + i * 16;
-  const float* a = aux + i * (INST ? kAuxInst + 24 : kAuxInst);
+struct BodyRecord {
+  static constexpr int kAux = INST ? kAuxInst + 24 : kAuxInst;  // aux words
+  static constexpr int kTaps = kRowWords + kAux;                // the first tap word
+  static constexpr int kBytes = (kTaps + 16) * 4;               // copied a lane
+  static constexpr int kWords = ((kTaps + 16) / 4 | 1) * 4;     // an odd number of pieces
+  static_assert(kWords % 8 == 4 && kWords > kOutWords, "odd pieces that hold the outputs");
+};
 
-  LaneIn L;
-  L.d = ldg3(a + 10);
-  L.hit_u = __ldg(a + 13);
-  L.hit_v = __ldg(a + 14);
-  L.hit_t = __ldg(a + 15);
-  L.active = __ldg(a + 16) > 0.5f;
-  L.miss = __ldg(a + 17) > 0.5f;
-  L.origin = ldg3(a + 18);
-  L.ldir = ldg3(a + 21);
-  L.lcontrib = ldg3(a + 24);
-  L.ldist = __ldg(a + 27);
-  L.lpdf = __ldg(a + 28);
-  L.use_light = __ldg(a + 29) > 0.5f;
-  L.envmiss = ldg3(a + 30);
-  L.radiance = ldg3(a + 33);
-  L.throughput = ldg3(a + 36);
-  L.absorption = ldg3(a + 39);
-#pragma unroll
-  for (int k = 0; k < 6; ++k) L.draws[k] = __ldg(a + 42 + k);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (!(flags & (1 << k))) continue;  // kBaseTex .. kEmissiveTex
-    L.gxy[2 * k] = __ldg(a + 2 * k);
-    L.gxy[2 * k + 1] = __ldg(a + 2 * k + 1);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) L.taps[4 * k + c] = __ldg(trow + 4 * k + c);
-  }
-  const LaneOut o = shade_body<INST>(flags, row, L, a + kAuxInst, a + kAuxInst + 12);
+// The shared-memory address of p, for the bulk copy and barrier operands.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+#ifdef __CUDA_ARCH__
+  return (uint32_t)__cvta_generic_to_shared(p);
+#else
+  return 0;
+#endif
+}
 
-  float* v = out_vec + i * 24;
-  const V3 vecs[6] = {o.new_origin, o.new_dir, o.radiance, o.throughput, o.absorption, o.nee};
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    v[3 * k] = vecs[k].x;
-    v[3 * k + 1] = vecs[k].y;
-    v[3 * k + 2] = vecs[k].z;
+// One 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from device memory into shared memory, completing on mbarrier `bar`. The
+// host build copies at once.
+__device__ __forceinline__ void bulk_load(float* dst, const void* src, int bytes, uint64_t* bar) {
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+#else
+  memcpy(dst, src, bytes);
+  (void)bar;
+#endif
+}
+
+// Copies the block's m lanes' inputs into their records: thread i < m asks
+// for lane i's three runs and arrives expecting their bytes, every other
+// thread arrives; then every thread waits for the barrier's phase 0.
+template <bool INST>
+__device__ __forceinline__ void stage_body_inputs(float* smem, uint64_t* bar, const float* srow,
+                                                  const float* aux, const int32_t* taps,
+                                                  int m) {
+  using B = BodyRecord<INST>;
+  const int i = threadIdx.x;
+#ifdef __CUDA_ARCH__
+  if (i == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+                 "r"((int)blockDim.x)
+                 : "memory");
+    // the initialised barrier visible to the bulk copies' async proxy
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  v[18] = o.ldir.x;
-  v[19] = o.ldir.y;
-  v[20] = o.ldir.z;
-  v[21] = o.ldist;
-  v[22] = o.rr_pcont;
-  v[23] = o.pdf_b;
-  alive_out[i] = o.alive ? 1 : 0;
-  visible_out[i] = o.visible ? 1 : 0;
+  __syncthreads();
+  if (i < m)
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+                 "r"(B::kBytes)
+                 : "memory");
+  else
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+#endif
+  if (i < m) {
+    float* rec = smem + i * B::kWords;
+    bulk_load(rec, srow + (int64_t)i * 128, kRowWords * 4, bar);
+    bulk_load(rec + kRowWords, aux + (int64_t)i * B::kAux, B::kAux * 4, bar);
+    bulk_load(rec + B::kTaps, taps + (int64_t)i * 16, 64, bar);
+  }
+#ifdef __CUDA_ARCH__
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.b32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar))
+        : "memory");
+#endif
+}
+
+template <bool INST>
+__global__ void __launch_bounds__(kBodyLanes) shade_kernel(const float* __restrict__ srow,
+                                                           const int32_t* __restrict__ taps,
+                                                           const float* __restrict__ aux,
+                                                           int64_t n, int flags,
+                                                           float* __restrict__ out_vec,
+                                                           uint8_t* __restrict__ alive_out,
+                                                           uint8_t* __restrict__ visible_out) {
+  using B = BodyRecord<INST>;
+  extern __shared__ float smem[];
+  __shared__ uint64_t bar;
+  const int64_t base = (int64_t)blockIdx.x * blockDim.x;
+  const int m = (int)imin(n - base, (int64_t)blockDim.x);  // the block's lanes
+  stage_body_inputs<INST>(smem, &bar, srow + base * 128, aux + base * B::kAux, taps + base * 16,
+                          m);
+
+  const int i = threadIdx.x;
+  float* rec = smem + i * B::kWords;
+  if (i < m) {
+    const SharedRow row{rec}, a{rec + kRowWords};
+    LaneIn L;
+    L.d = ld3(a, 10);
+    L.hit_u = a[13];
+    L.hit_v = a[14];
+    L.hit_t = a[15];
+    L.active = a[16] > 0.5f;
+    L.miss = a[17] > 0.5f;
+    L.origin = ld3(a, 18);
+    L.ldir = ld3(a, 21);
+    L.lcontrib = ld3(a, 24);
+    L.ldist = a[27];
+    L.lpdf = a[28];
+    L.use_light = a[29] > 0.5f;
+    L.envmiss = ld3(a, 30);
+    L.radiance = ld3(a, 33);
+    L.throughput = ld3(a, 36);
+    L.absorption = ld3(a, 39);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) L.draws[k] = a[42 + k];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (!(flags & (1 << k))) continue;  // kBaseTex .. kEmissiveTex
+      L.gxy[2 * k] = a[2 * k];
+      L.gxy[2 * k + 1] = a[2 * k + 1];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) L.taps[4 * k + c] = __float_as_int(rec[B::kTaps + 4 * k + c]);
+    }
+    const LaneOut o = shade_body<INST>(flags, row, L, SharedRow{rec + kRowWords + kAuxInst},
+                                       SharedRow{rec + kRowWords + kAuxInst + 12});
+    // The outputs into the lane's own record: its body reads it no more.
+    const V3 vecs[6] = {o.new_origin, o.new_dir, o.radiance, o.throughput, o.absorption, o.nee};
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      rec[3 * k] = vecs[k].x;
+      rec[3 * k + 1] = vecs[k].y;
+      rec[3 * k + 2] = vecs[k].z;
+    }
+    rec[18] = o.ldir.x;
+    rec[19] = o.ldir.y;
+    rec[20] = o.ldir.z;
+    rec[21] = o.ldist;
+    rec[22] = o.rr_pcont;
+    rec[23] = o.pdf_b;
+    alive_out[base + i] = o.alive ? 1 : 0;
+    visible_out[base + i] = o.visible ? 1 : 0;
+  }
+  __syncthreads();
+  float* out = out_vec + base * kOutWords;
+  for (int q = threadIdx.x; q < m * kOutWords; q += blockDim.x)
+    out[q] = smem[q / kOutWords * B::kWords + q % kOutWords];
+}
+
+// Shared-memory bytes of a shade_kernel<INST> block.
+template <bool INST>
+constexpr size_t body_smem() {
+  return (size_t)kBodyLanes * BodyRecord<INST>::kWords * sizeof(float);
+}
+
+template <bool INST>
+cudaError_t launch_body(const float* srow, const int32_t* taps, const float* aux, int64_t n,
+                        int flags, float* out_vec, uint8_t* alive, uint8_t* visible,
+                        cudaStream_t s) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      shade_kernel<INST>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)body_smem<INST>());
+  if (e != cudaSuccess) return e;
+  const int64_t blocks = (n + kBodyLanes - 1) / kBodyLanes;
+  shade_kernel<INST><<<(unsigned)blocks, kBodyLanes, body_smem<INST>(), s>>>(
+      srow, taps, aux, n, flags, out_vec, alive, visible);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1110,12 +1261,11 @@ __device__ __forceinline__ void stage_lane(const StageArgs& a, int64_t i, int64_
   const int flags = a.flags;
   const bool active = a.active == nullptr || a.active[i] != 0;
   const bool miss = active && tri < 0;
-  const float* o2w = nullptr;
-  const float* w2o = nullptr;
+  Row o2w{nullptr}, w2o{nullptr};
   if (INST) {
     const int64_t ii = imax(a.inst[i], 0);
-    o2w = a.o2w + ii * 12;
-    w2o = a.w2o + ii * 12;
+    o2w = Row{a.o2w + ii * 12};
+    w2o = Row{a.w2o + ii * 12};
   }
 
   // ---- RNG draws, in the unfused stage's order ----------------------------
@@ -1262,20 +1412,40 @@ extern "C" {
 
 // flags: bit 0 base texture, 1 metallic-roughness, 2 normal map, 3 emissive,
 // 4 anisotropy, 5 full MIS, 6 instanced (aux of 72 lanes, else 48).
-// Returns cudaGetLastError() after the launch.
+// srow, taps and aux must be 16-byte aligned: cudaErrorInvalidValue, and no
+// launch, otherwise. Returns cudaGetLastError() after the launch.
 int vkrt_shade(const float* srow, const int32_t* taps, const float* aux, int64_t n, int flags,
                float* out_vec, uint8_t* alive, uint8_t* visible, void* stream) {
   if (n <= 0) return 0;
-  const int threads = 128;
-  const int64_t blocks = (n + threads - 1) / threads;
+  if (((uintptr_t)srow | (uintptr_t)taps | (uintptr_t)aux) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (flags & kInstanced)
-    shade_kernel<true><<<(unsigned)blocks, threads, 0, s>>>(srow, taps, aux, n, flags, out_vec,
-                                                            alive, visible);
-  else
-    shade_kernel<false><<<(unsigned)blocks, threads, 0, s>>>(srow, taps, aux, n, flags,
-                                                             out_vec, alive, visible);
-  return (int)cudaGetLastError();
+    return (int)launch_body<true>(srow, taps, aux, n, flags, out_vec, alive, visible, s);
+  return (int)launch_body<false>(srow, taps, aux, n, flags, out_vec, alive, visible, s);
+}
+
+// Dynamic shared-memory bytes of a vkrt_shade block (instanced or not).
+int vkrt_shade_body_smem(int instanced) {
+  return (int)(instanced ? body_smem<true>() : body_smem<false>());
+}
+
+// vkrt_shade blocks (instanced or not) that reside on one SM, or -1.
+int vkrt_shade_body_occupancy(int instanced) {
+  int blocks = 0;
+  const cudaError_t e =
+      instanced
+          ? cudaFuncSetAttribute(shade_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)body_smem<true>())
+          : cudaFuncSetAttribute(shade_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)body_smem<false>());
+  if (e != cudaSuccess) return -1;
+  const cudaError_t o =
+      instanced ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, shade_kernel<true>,
+                                                                kBodyLanes, body_smem<true>())
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, shade_kernel<false>,
+                                                                kBodyLanes, body_smem<false>());
+  return o == cudaSuccess ? blocks : -1;
 }
 
 // The whole stage; flags as vkrt_shade's, and bit 7 the sun disk, 8 the mip

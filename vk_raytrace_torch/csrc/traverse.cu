@@ -46,7 +46,7 @@
 //     per-lane roots: the two-level rounds of ops/tlas.py);
 //   vkrt_root_prefilter: which rays the single-level alpha rounds need (the
 //     per-child slab test against the root row; see "The alpha pass's root
-//     prefilter" below), a thread a ray; vkrt_alpha_rounds runs the same
+//     prefilter" below); vkrt_alpha_rounds runs the same
 //     test at its ray intake, so the main path never launches it;
 //   vkrt_alpha_rounds, vkrt_opaque_machine, vkrt_alpha_machine: the round
 //     machines (see "The round machines" below), each a host loop of
@@ -1288,9 +1288,9 @@ alpha_machine_kernel(const float4* __restrict__ rows, int lim, const float* __re
 // On the main path this line is the ray intake of vkrt_alpha_rounds (below),
 // which loads each ray, its t_limit and its flag anyway: no launch, no host
 // call and no need mask of its own. The standalone entry vkrt_root_prefilter
-// (a thread a lane: it reads its flag, an inactive lane nothing else, then
-// t_limit and its ray, and writes one byte) computes the mask alone; both
-// run the same device functions. The root row's 6·W bounds are loaded once a
+// (root_prefilter_kernel, below: quad boxes first, then their children)
+// computes the mask alone; both run the same device function for a child
+// (root_child_hit). The root row's 6·W bounds are loaded once a
 // block into shared memory. Bit for bit with torch on the card: sub then product
 // rounded apart, IEEE reciprocal (guard_inv), and NaN as torch.minimum /
 // maximum / amax / amin propagate it (min_nan / max_nan; fminf / fmaxf
@@ -1358,23 +1358,85 @@ __device__ __forceinline__ bool hits_root_child(const Ray& y, const float4* s_bo
   return false;
 }
 
+// The standalone entry. What bounds it is the slab tests: ~27 float
+// operations a child (10 of them NaN-propagating min / max), and nearly
+// every ray of a pass tests all W children, since ~98% of them hit none.
+// So it first tests the box around each quad of children (children 4q ..
+// 4q + 3; the valid ones' union, built once a block in shared memory) and
+// only a quad whose box the ray enters has its children tested. That is
+// exact: a child's box lies inside its quad's box, and a rounded sub and
+// multiply are monotonic in the bound, so the child's near distance is no
+// less and its far distance no more than the quad box's; a ray that misses
+// the quad box (tn > tf, tf < 0 or tn >= t_limit, NaN making each false)
+// misses every child of it. A thread takes a ray at a time and issues its
+// flag, t_limit and ray loads together, before any slab test. Persistent
+// blocks (those that reside on the card, at most a ray a thread) stride
+// over the rays, each building the root row's boxes in shared memory once.
+constexpr int kPrefilterThreads = 256;
+
+// The union of the valid children among children 4q .. 4q + 3 (bmin x | y |
+// z, bmax x | y | z, W / 4 each) into s_quad; no valid child leaves an
+// invalid box (bmin.x > bmax.x), which root_child_hit misses. The block
+// syncs before and after.
 template <int W>
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ void share_quad_boxes(const float4* s_box, float* s_quad) {
+  constexpr int G = W / 4;
+  for (int q = threadIdx.x; q < G; q += blockDim.x) {
+    const float inf = __int_as_float(0x7f800000);
+    float lo[3] = {inf, inf, inf}, hi[3] = {-inf, -inf, -inf};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (!(f4get(s_box[q], j) <= f4get(s_box[3 * G + q], j))) continue;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        lo[a] = fminf(lo[a], f4get(s_box[a * G + q], j));
+        hi[a] = fmaxf(hi[a], f4get(s_box[(3 + a) * G + q], j));
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      s_quad[a * G + q] = lo[a];
+      s_quad[(3 + a) * G + q] = hi[a];
+    }
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(kPrefilterThreads)
 root_prefilter_kernel(const float* __restrict__ rows, const float* __restrict__ origin,
                       const float* __restrict__ direction, const float* __restrict__ t_limit,
                       const uint8_t* __restrict__ active, int64_t n,
                       uint8_t* __restrict__ need) {
+  constexpr int G = W / 4;
   __shared__ float4 s_box[6 * W / 4];
+  __shared__ float s_quad[6 * G];
   share_root_children<W>(reinterpret_cast<const float4*>(rows), s_box);
   __syncthreads();
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  bool hit = false;
-  if (active == nullptr || active[r]) {
+  share_quad_boxes<W>(s_box, s_quad);
+  __syncthreads();
+  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < n;
+       r += (int64_t)gridDim.x * blockDim.x) {
+    const bool on = active == nullptr || active[r] != 0;
     const float tl = t_limit[r];
-    if (tl > 0.0f) hit = hits_root_child<W>(load_ray(origin, direction, r), s_box, tl);
+    const Ray y = load_ray(origin, direction, r);
+    const bool live = on && tl > 0.0f;
+    bool hit = false;
+    for (int q = 0; q < G; ++q) {
+      // No short-circuit: on the H100 the quad test of every lane, hit or
+      // not, measured faster than an early exit.
+      const bool enter = live & !hit &
+                         root_child_hit(y, s_quad[q], s_quad[G + q], s_quad[2 * G + q],
+                                        s_quad[3 * G + q], s_quad[4 * G + q], s_quad[5 * G + q], tl);
+      if (!enter) continue;
+      const float4 xm = s_box[q], ym = s_box[G + q], zm = s_box[2 * G + q];
+      const float4 xM = s_box[3 * G + q], yM = s_box[4 * G + q], zM = s_box[5 * G + q];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        hit = hit | root_child_hit(y, f4get(xm, j), f4get(ym, j), f4get(zm, j), f4get(xM, j),
+                                   f4get(yM, j), f4get(zM, j), tl);
+    }
+    need[r] = hit ? 1 : 0;
   }
-  need[r] = hit ? 1 : 0;
 }
 
 // The single-level alpha rounds (traverse_alpha._rounds_core) for every ray:
@@ -2075,8 +2137,8 @@ int vkrt_opaque_machine(int cull, int any_hit, int width, const float* rows, int
   });
 }
 
-// The alpha pass's need mask over n_rays rays (root_prefilter_kernel): a
-// thread a ray, need[r] 1 or 0. `active` may be null (every ray). Returns
+// The alpha pass's need mask over n_rays rays (root_prefilter_kernel):
+// need[r] 1 or 0. `active` may be null (every ray). Returns
 // cudaGetLastError() after the launch.
 int vkrt_root_prefilter(int width, const float* rows, const float* origin,
                         const float* direction, const float* t_limit, const uint8_t* active,
@@ -2084,9 +2146,16 @@ int vkrt_root_prefilter(int width, const float* rows, const float* origin,
   if (width != kWidth || n_rays < 0) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  const int64_t blocks = (n_rays + threads - 1) / threads;
-  root_prefilter_kernel<kWidth><<<(unsigned)blocks, threads, 0, s>>>(
+  const auto k = &root_prefilter_kernel<kWidth>;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kPrefilterThreads, 0) !=
+          cudaSuccess)
+    return (int)cudaGetLastError();
+  const int64_t need_blocks = (n_rays + kPrefilterThreads - 1) / kPrefilterThreads;
+  const int64_t resident = (int64_t)sms * per_sm;
+  k<<<(unsigned)(need_blocks < resident ? need_blocks : resident), kPrefilterThreads, 0, s>>>(
       rows, origin, direction, t_limit, active, n_rays, need);
   return (int)cudaGetLastError();
 }

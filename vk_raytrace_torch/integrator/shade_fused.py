@@ -977,6 +977,8 @@ def _load():
         p = ctypes.c_void_p
         lib.vkrt_shade.argtypes = [p, p, p, ctypes.c_int64, ctypes.c_int, p, p, p, p]
         lib.vkrt_shade.restype = ctypes.c_int
+        lib.vkrt_shade_body_smem.argtypes = [ctypes.c_int]
+        lib.vkrt_shade_body_occupancy.argtypes = [ctypes.c_int]
         lib.vkrt_shade_stage.argtypes = [ctypes.POINTER(_StageArgs), p]
         lib.vkrt_shade_stage.restype = ctypes.c_int
         lib.vkrt_shade_stage_args_size.restype = ctypes.c_int
@@ -1085,6 +1087,9 @@ def _shade_cuda(srow, taps, aux, flags: ShadeFlags):
                 f"{name}: want contiguous {dt} {shape} on {dev}, got "
                 f"{x.dtype} {tuple(x.shape)} on {x.device}"
             )
+        if x.data_ptr() % 16:  # the kernel copies its rows in 16-byte pieces
+            raise ValueError(f"{name}: the kernel reads 16-byte pieces, want a 16-byte "
+                             f"aligned tensor")
     out_vec = torch.empty(r, OUT_W, dtype=torch.float32, device=dev)
     alive = torch.empty(r, dtype=torch.bool, device=dev)
     visible = torch.empty(r, dtype=torch.bool, device=dev)

@@ -63,10 +63,15 @@ SMALL_ATRIUM = dict(bays_x=2, bays_z=2, column_segments=16, column_rows=12)
 CAP = 8
 LONG_CAP = 24  # past the shared stack entries: the capped kernel's spilling stack
 
-# The card's peaks (H100 SXM data sheet): memory rate and float32 rate
-# outside the tensor cores. A call's bound is the larger of its bytes and
-# its operations over them.
-PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 67e12
+# The card's peaks: the memory rate (H100 SXM data sheet) and the float32
+# operations the port's kernels can issue. Every kernel is built with
+# -fmad=false (cuda_build.NVCC_FLAGS) and the op counts count each add,
+# multiply, min and max as one, so the most the card issues is one float32
+# operation a lane a cycle: 132 SMs x 128 lanes x its maximum SM clock,
+# 1,980 MHz on the H100 80GB HBM3 (nvidia-smi --query-gpu=clocks.max.sm),
+# 33.45e12 a second. The data sheet's 67e12 counts a fused multiply-add as
+# two. A call's bound is the larger of its bytes and its operations over them.
+PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 132 * 128 * 1980e6
 
 
 def bound(n_bytes, n_ops):
